@@ -1,0 +1,203 @@
+"""KV-cached autoregressive generation for the GPT family.
+
+The port of the JAX package's ``inference/generate.py``, dense
+single-shard subset: prefill is one causal pass over the prompt, decode
+is :func:`_decode_horizon` — the shared decode body that both
+:func:`generate` and the serving engine run, so the two cannot drift.
+``lax.scan`` becomes a Python loop: PyTorch launches eagerly and the
+card runs ahead of the host, with no host read inside the loop (the
+eos/budget freeze gates are tensor ops on the device).
+
+KV caches (``[L, N, S, H, Dh]``) are written IN PLACE where the JAX
+code returned updated arrays: each decode step index-assigns its new
+K/V column into the caller's cache tensor.
+
+Not in this slice: ragged left-padded batches (``prompt_lengths``),
+tensor parallelism (``mesh``), paged and int8 caches, speculative
+verify, chunked prefill, MoE, beam search (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..models.gpt import (_block_prefill, _dense, _embed, _ffn, _ln,
+                          _logits, _split_heads)
+from ..ops.decode_attention import decode_attention
+
+__all__ = ["generate"]
+
+
+def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
+                        eps, window=None, attn_impl="auto"):
+    """One cached step for every slot: ``x_t`` ``[N, 1, D]``; caches
+    ``[N, S, H, Dh]`` (one layer). Row ``j`` writes its K/V at its own
+    column ``positions[j]`` of the FULL cache (in place; a frozen row's
+    position may lie beyond the window and re-writes its own column),
+    then attends over the window view ``[0, window)`` through
+    :func:`..ops.decode_attention.decode_attention`."""
+    n = x_t.shape[0]
+    hn = _ln(x_t, p.ln1, eps).to(dtype)
+    q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
+    q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
+    rows = torch.arange(n, device=x_t.device)
+    cols = positions.long()
+    k_cache[rows, cols] = k[:, 0]
+    v_cache[rows, cols] = v[:, 0]
+    if window is not None and window < k_cache.shape[1]:
+        k_win, v_win = k_cache[:, :window], v_cache[:, :window]
+    else:
+        k_win, v_win = k_cache, v_cache
+    att = decode_attention(q, k_win, v_win, positions, impl=attn_impl)
+    att = att.reshape(n, 1, -1).to(dtype)
+    x_t = x_t + _dense(att, p.attn.wo, dtype)
+    return x_t + _ffn(p, x_t, dtype, eps)
+
+
+def _sample(logits, temperature: float, top_k: int, top_p: float,
+            generator: Optional[torch.Generator]):
+    """``[B, V]`` logits -> ``[B]`` tokens (greedy when temperature is
+    0; otherwise temperature, then top-k, then nucleus top-p, drawn
+    from ``generator``)."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    logits = logits / temperature
+    if top_k:
+        kth = logits.sort(dim=-1).values[:, -top_k][:, None]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p and top_p < 1.0:
+        # nucleus: the smallest prefix of probability-sorted tokens
+        # whose mass reaches top_p (the top token always stays; ties at
+        # the cut are kept together)
+        probs = torch.softmax(logits, dim=-1)
+        sorted_p = probs.sort(dim=-1, descending=True).values
+        before = sorted_p.cumsum(dim=-1) - sorted_p
+        cut = torch.where(before < top_p, sorted_p,
+                          torch.full_like(sorted_p, float("inf")))
+        cut = cut.min(dim=-1, keepdim=True).values
+        logits = logits.masked_fill(probs < cut, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
+                    active, remaining, eos_ids, horizon: int, *,
+                    window: Optional[int] = None, attn_impl: str = "auto",
+                    temperature: float = 0.0, top_k: int = 0,
+                    top_p: float = 0.0,
+                    generator: Optional[torch.Generator] = None):
+    """``horizon`` cached decode steps over every row, with the freeze
+    gates on the device: a row whose sampled token is its ``eos_ids``
+    entry, or whose ``remaining`` budget reaches zero, emits that final
+    token and freezes (position pinned, pending token unchanged, ``-1``
+    emitted from then on, no budget consumed).
+
+    Args:
+      model: the bound ``GPT``.
+      k_caches, v_caches: ``[L, N, S, H, Dh]`` caches, written in place.
+      positions: ``[N]`` int32 next write column per row.
+      last_tokens: ``[N]`` int32 pending tokens.
+      active: ``[N]`` bool; remaining: ``[N]`` int32 budgets; eos_ids:
+        ``[N]`` int32 stop tokens (``-1`` = none).
+      window: attention prefix ``[0, window)`` (None = the whole cache).
+
+    Returns ``(tokens [horizon, N] int32, (positions, last_tokens,
+    active, remaining))``.
+    """
+    dtype, eps, h = model.dtype, model.ln_eps, model.num_heads
+    emitted_steps = []
+    for _ in range(horizon):
+        x_t = (model.embed[last_tokens][:, None, :].to(dtype)
+               + model.pos_embed[positions][:, None, :].to(dtype))
+        for i in range(model.num_layers):
+            x_t = _block_decode_slots(
+                model.block(i), x_t, k_caches[i], v_caches[i], positions,
+                h, dtype, eps, window=window, attn_impl=attn_impl)
+        logits = _logits(model, x_t, eps)[:, 0]
+        nxt = _sample(logits, temperature, top_k, top_p,
+                      generator).to(torch.int32)
+        # the finishing token IS emitted, then the row freezes
+        emitted_steps.append(torch.where(active, nxt,
+                                         torch.full_like(nxt, -1)))
+        remaining = torch.where(active, remaining - 1, remaining)
+        finished = active & ((nxt == eos_ids) | (remaining <= 0))
+        positions = torch.where(active, positions + 1, positions)
+        last_tokens = torch.where(active, nxt, last_tokens)
+        active = active & ~finished
+    return (torch.stack(emitted_steps),
+            (positions, last_tokens, active, remaining))
+
+
+def _prefill(model, prompt, s_max: int):
+    """One causal pass over ``prompt`` ``[B, T]``; returns ``(x,
+    k_caches, v_caches)`` with caches ``[L, B, s_max, H, Dh]`` written on
+    ``[0, T)``."""
+    b, t = prompt.shape
+    dtype = model.dtype
+    shape = (model.num_layers, b, s_max, model.num_heads, model.head_dim)
+    k_caches = torch.zeros(shape, dtype=dtype, device=prompt.device)
+    v_caches = torch.zeros(shape, dtype=dtype, device=prompt.device)
+    x = _embed(model, prompt, dtype)
+    for i in range(model.num_layers):
+        x, k, v = _block_prefill(model.block(i), x, model.num_heads, dtype,
+                                 model.ln_eps)
+        k_caches[i, :, :t] = k
+        v_caches[i, :, :t] = v
+    return x, k_caches, v_caches
+
+
+def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             attn_impl: str = "auto") -> torch.Tensor:
+    """Generate ``max_new_tokens`` continuations of ``prompt``.
+
+    Args:
+      model: the bound ``GPT`` (its params' device is where this runs).
+      prompt: ``[B, T]`` int tokens on the model's device,
+        ``T + max_new_tokens <= model.max_seq_len``.
+      temperature: 0 = greedy; else softmax temperature sampling.
+      top_k / top_p: restrict sampling (0 = off).
+      generator: a ``torch.Generator`` on the model's device (required
+        when sampling).
+      attn_impl: decode attention, ``auto`` | ``cuda`` | ``torch``.
+
+    Returns ``[B, T + max_new_tokens]`` tokens (prompt included).
+    """
+    b, t = prompt.shape
+    s_max = t + max_new_tokens
+    if max_new_tokens < 1:
+        raise ValueError(
+            f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if top_k < 0 or top_k > model.vocab_size:
+        raise ValueError(
+            f"top_k must be in [0, vocab_size={model.vocab_size}], got "
+            f"{top_k}")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+    if s_max > model.max_seq_len:
+        raise ValueError(
+            f"prompt {t} + max_new_tokens {max_new_tokens} exceeds "
+            f"max_seq_len={model.max_seq_len}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) requires a generator")
+    x, k_caches, v_caches = _prefill(model, prompt, s_max)
+    first_logits = _logits(model, x[:, -1:], model.ln_eps)[:, 0]
+    tok0 = _sample(first_logits, temperature, top_k, top_p,
+                   generator).to(torch.int32)
+    generated = tok0[:, None]
+    if max_new_tokens > 1:
+        dev = prompt.device
+        toks, _ = _decode_horizon(
+            model, k_caches, v_caches,
+            torch.full((b,), t, dtype=torch.int32, device=dev), tok0,
+            torch.ones(b, dtype=torch.bool, device=dev),
+            torch.full((b,), max_new_tokens, dtype=torch.int32, device=dev),
+            torch.full((b,), -1, dtype=torch.int32, device=dev),
+            max_new_tokens - 1, attn_impl=attn_impl,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            generator=generator)
+        generated = torch.cat([generated, toks.T], dim=1)
+    return torch.cat([prompt, generated.to(prompt.dtype)], dim=1)

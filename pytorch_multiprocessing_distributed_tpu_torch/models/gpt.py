@@ -1,0 +1,244 @@
+"""Decoder-only transformer language models (GPT family).
+
+The port of the JAX package's ``models/gpt.py`` with its
+``attn_impl="xla"`` math: pre-LN GPT-2 style — learned positional
+embeddings, N blocks of (LN -> causal MHA -> residual, LN -> GELU MLP ->
+residual), final LN, untied linear head. Matmuls in ``dtype``,
+LayerNorm/softmax/head in f32, params in f32.
+
+Parameters keep the JAX tree's names and layouts, so a flattened JAX
+tree maps onto ``state_dict()`` one to one (``block_0/attn/wqkv/kernel``
+is ``block_0.attn.wqkv.kernel``) and Dense kernels stay ``[in, out]``
+(``x @ kernel + bias``, in :func:`_dense` only). A freshly built model
+holds its parameters on the ``meta`` device (no memory); bind real
+values with ``model.load_state_dict(params, assign=True)`` from
+:func:`..serving.params.init_params`, ``from_jax_params`` or
+``load_params``.
+
+The math helpers below (:func:`_ln`, :func:`_dense`, :func:`_ffn`,
+:func:`_block_prefill`, ...) are shared with :mod:`..inference.generate`
+so the cached decode path and the model's forward cannot drift.
+
+Not in this slice (each raises ``NotImplementedError``): the Pallas
+flash-attention forward (``attn_impl="flash"``), sequence parallelism
+(``seq_axis``) and MoE feed-forward (``n_experts > 0``) — ROADMAP.md
+"Port: modules still to port".
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .registry import register
+
+_NOT_PORTED = ("is not ported to PyTorch yet (ROADMAP.md, 'Port: modules "
+               "still to port')")
+
+
+def _meta(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, device="meta"),
+                        requires_grad=False)
+
+
+class Dense(nn.Module):
+    """Flax ``nn.Dense`` layout: ``kernel`` ``[in, out]``, ``bias``
+    ``[out]``."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True):
+        super().__init__()
+        self.kernel = _meta(d_in, d_out)
+        self.bias = _meta(d_out) if bias else None
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm`` parameters: ``scale`` and ``bias``."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.scale = _meta(d)
+        self.bias = _meta(d)
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.wqkv = Dense(d, 3 * d)
+        self.wo = Dense(d, d)
+
+
+class Block(nn.Module):
+    def __init__(self, d: int, mlp_dim: int):
+        super().__init__()
+        self.ln1 = LayerNorm(d)
+        self.attn = Attention(d)
+        self.ln2 = LayerNorm(d)
+        self.fc1 = Dense(d, mlp_dim)
+        self.fc2 = Dense(mlp_dim, d)
+
+
+# ---- the math (shared with inference.generate) ------------------------
+
+def _ln(x, p: LayerNorm, eps: float):
+    """LayerNorm in f32 with the fast variance E[x^2] - E[x]^2 (flax's
+    default): the cached path must match the model's forward bit for bit
+    or near-tied argmaxes flip tokens."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return out * p.scale + p.bias
+
+
+def _dense(x, p: Dense, dtype):
+    """``x @ kernel + bias`` in ``dtype`` on the ``[in, out]`` kernel —
+    the one place the Dense layout is read."""
+    out = x.to(dtype) @ p.kernel.to(dtype)
+    return out if p.bias is None else out + p.bias.to(dtype)
+
+
+def _ffn(p: Block, x, dtype, eps: float):
+    """ln2 -> fc1 -> tanh-approximate GELU (``jax.nn.gelu``'s default)
+    -> fc2, in ``dtype``."""
+    hn = _ln(x, p.ln2, eps).to(dtype)
+    y = _dense(hn, p.fc1, dtype)
+    return _dense(F.gelu(y, approximate="tanh"), p.fc2, dtype)
+
+
+def _split_heads(t, h: int):
+    b, s, d = t.shape
+    return t.reshape(b, s, h, d // h)
+
+
+def _block_prefill(p: Block, x, h: int, dtype, eps: float):
+    """Full causal pass over ``x`` ``[B, S, D]``; returns ``(y, k, v)``
+    with k/v ``[B, S, H, Dh]`` in ``dtype``."""
+    b, s, _ = x.shape
+    hn = _ln(x, p.ln1, eps).to(dtype)
+    q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
+    q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    att = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    att = att.reshape(b, s, -1).to(dtype)
+    x = x + _dense(att, p.attn.wo, dtype)
+    return x + _ffn(p, x, dtype, eps), k, v
+
+
+def _embed(model: "GPT", tokens, dtype):
+    """Token + position embeddings for ``tokens`` ``[B, S]`` at
+    positions ``0..S-1``, each cast BEFORE the add (the model's own
+    order: under bf16, bf16(a) + bf16(b) != bf16(a + b))."""
+    s = tokens.shape[1]
+    return (model.embed[tokens].to(dtype)
+            + model.pos_embed[:s].to(dtype))
+
+
+def _logits(model: "GPT", x, eps: float):
+    """Final LN and the f32 head."""
+    out = _ln(x, model.ln_final, eps) @ model.head.kernel.float()
+    if model.head.bias is not None:
+        out = out + model.head.bias
+    return out
+
+
+class GPT(nn.Module):
+    """Decoder-only LM. ``forward(tokens [B, S])`` -> f32 logits
+    ``[B, S, vocab]``."""
+
+    def __init__(self, vocab_size: int = 50257, max_seq_len: int = 1024,
+                 hidden_size: int = 768, num_layers: int = 12,
+                 num_heads: int = 12, mlp_dim: int = 3072,
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "xla", seq_axis: Optional[str] = None,
+                 n_experts: int = 0, ln_eps: float = 1e-6,
+                 head_bias: bool = True):
+        super().__init__()
+        if attn_impl == "flash":
+            raise NotImplementedError(
+                f"attn_impl='flash' (the Pallas flash-attention kernel) "
+                f"{_NOT_PORTED}; use attn_impl='xla'")
+        if attn_impl != "xla":
+            raise ValueError(
+                f"attn_impl must be 'xla' (or 'flash', not ported), got "
+                f"{attn_impl!r}")
+        if seq_axis is not None:
+            raise NotImplementedError(
+                f"sequence parallelism (seq_axis) {_NOT_PORTED}")
+        if n_experts:
+            raise NotImplementedError(
+                f"MoE feed-forward (n_experts > 0) {_NOT_PORTED}")
+        if hidden_size % num_heads:
+            raise ValueError(
+                f"hidden_size {hidden_size} not divisible by num_heads "
+                f"{num_heads}")
+        self.vocab_size = vocab_size
+        self.max_seq_len = max_seq_len
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.mlp_dim = mlp_dim
+        self.dtype = dtype
+        self.ln_eps = ln_eps
+        self.embed = _meta(vocab_size, hidden_size)
+        self.pos_embed = _meta(max_seq_len, hidden_size)
+        for i in range(num_layers):
+            self.add_module(f"block_{i}", Block(hidden_size, mlp_dim))
+        self.ln_final = LayerNorm(hidden_size)
+        self.head = Dense(hidden_size, vocab_size, bias=head_bias)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def block(self, i: int) -> Block:
+        return getattr(self, f"block_{i}")
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        s = tokens.shape[1]
+        if s > self.max_seq_len:
+            raise ValueError(
+                f"sequence {s} exceeds max_seq_len={self.max_seq_len}")
+        x = _embed(self, tokens, self.dtype)
+        for i in range(self.num_layers):
+            x, _, _ = _block_prefill(self.block(i), x, self.num_heads,
+                                     self.dtype, self.ln_eps)
+        return _logits(self, x, self.ln_eps).float()
+
+
+def _family(kw, **defaults):
+    for key, value in defaults.items():
+        kw.setdefault(key, value)
+    return GPT(**kw)
+
+
+def GPT_Small(**kw) -> GPT:
+    """GPT-2 small geometry (124M at the 50257 vocab)."""
+    return _family(kw, hidden_size=768, num_layers=12, num_heads=12,
+                   mlp_dim=3072)
+
+
+def GPT_Medium(**kw) -> GPT:
+    """GPT-2 medium geometry (350M)."""
+    return _family(kw, hidden_size=1024, num_layers=24, num_heads=16,
+                   mlp_dim=4096)
+
+
+def GPT_Tiny(**kw) -> GPT:
+    """4-layer/128-wide smoke model for tests and CPU runs."""
+    return _family(kw, vocab_size=257, max_seq_len=256, hidden_size=128,
+                   num_layers=4, num_heads=4, mlp_dim=512)
+
+
+register("gpt_small")(GPT_Small)
+register("gpt_medium")(GPT_Medium)
+register("gpt_tiny")(GPT_Tiny)

@@ -1,0 +1,50 @@
+"""Hand-written CUDA kernels for the port's hot ops, with their plain
+PyTorch versions beside them.
+
+Dispatch convention (the counterpart of the JAX package's
+``impl="auto"|"pallas"|"xla"``): every kernel wrapper takes
+``impl="auto"|"cuda"|"torch"``.
+
+- ``auto``: the kernel for a CUDA tensor, the plain version for a CPU
+  tensor;
+- ``cuda``: the kernel; a CPU tensor raises;
+- ``torch``: the plain version; a CUDA tensor raises (call the plain
+  function by name to run it on the card, as ``chip_smoke.py`` does).
+
+There is no ``try`` that falls back: on a CUDA tensor a wrapper launches
+its kernel or raises. Each wrapper counts its launches in a plain
+integer attribute (``decode_attention.launches``), incremented where it
+launches the kernel and nowhere else.
+
+Kernels are compiled from ``ops/csrc/`` at first use (:mod:`._build`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
+    """``"cuda"`` or ``"torch"`` for ``tensor`` under ``impl``; raises
+    on a mismatch between the asked implementation and the device."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    on_card = tensor.is_cuda
+    if impl == "auto":
+        return "cuda" if on_card else "torch"
+    if impl == "cuda" and not on_card:
+        raise ValueError(
+            f"impl='cuda' needs CUDA tensors, got a tensor on "
+            f"{tensor.device}")
+    if impl == "torch" and on_card:
+        raise ValueError(
+            "impl='torch' takes CPU tensors only: on the card a wrapper "
+            "launches its kernel; call the plain function by name to run "
+            "the reference there")
+    return impl
+
+
+from .decode_attention import (  # noqa: E402,F401
+    decode_attention, torch_decode_attention)

@@ -1,0 +1,122 @@
+"""Pre-allocated KV-cache slot pool for continuous-batching decode.
+
+The port of the JAX package's dense ``SlotPool``: fixed
+``[layers, max_slots, s_max, heads, head_dim]`` K/V tensors on the
+device plus per-slot state (next write column, pending token, active
+flag, remaining decode budget, stop id). The decode step runs over ALL
+slots every step with an active mask, so occupancy changes values,
+never shapes.
+
+Unlike the JAX pool, whose arrays are replaced functionally by each
+jitted program, the caches here are written IN PLACE (the engine's
+insert and decode steps index-assign into them): one resident copy, no
+per-step reallocation.
+
+Slot invariants (the equivalence-with-``generate`` contract):
+
+- an ACTIVE slot with prompt length ``L`` that has emitted ``g`` tokens
+  has valid cache columns ``[0, L + g - 1)`` and ``position == L + g -
+  1`` (the column its pending token's K/V goes to next);
+- decode attention masks columns ``> position``, so stale columns of a
+  previous tenant are never read before they are overwritten;
+- inactive rows keep a frozen position (their masked step re-writes the
+  same column), so no index grows past ``s_max``.
+
+The host mirrors each ACTIVE slot's position (``note_insert`` /
+``note_advance_slots`` / ``max_active_pos``) so the engine picks its
+attention window without reading the device.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+
+class SlotPool:
+    """Fixed-capacity KV-cache slots + per-slot decode state.
+
+    Args:
+      model: the bound ``GPT`` the caches are shaped for (layers, heads,
+        dtype, device).
+      max_slots: concurrent requests held on the device.
+      s_max: per-slot sequence capacity (default ``model.max_seq_len``).
+    """
+
+    def __init__(self, model, max_slots: int, s_max: Optional[int] = None):
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        s_max = int(s_max or model.max_seq_len)
+        if not 2 <= s_max <= model.max_seq_len:
+            raise ValueError(
+                f"s_max must be in [2, max_seq_len={model.max_seq_len}], "
+                f"got {s_max}")
+        self.model = model
+        self.max_slots = int(max_slots)
+        self.s_max = s_max
+        dev = model.device
+        shape = (model.num_layers, self.max_slots, s_max, model.num_heads,
+                 model.head_dim)
+        self.k_caches = torch.zeros(shape, dtype=model.dtype, device=dev)
+        self.v_caches = torch.zeros(shape, dtype=model.dtype, device=dev)
+        n = self.max_slots
+        self.positions = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.last_tokens = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.active = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.budgets = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.eos_ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        self._free: List[int] = list(range(n))
+        self._positions_host: List[int] = [0] * n
+        self._active_host: List[bool] = [False] * n
+
+    @staticmethod
+    def per_slot_kv_bytes(model, s_max: int) -> int:
+        """Worst-case K+V bytes ONE slot reserves for ``s_max`` tokens:
+        ``2 x layers x s_max x heads x head_dim x itemsize``."""
+        itemsize = torch.empty((), dtype=model.dtype).element_size()
+        return (2 * model.num_layers * int(s_max) * model.num_heads
+                * model.head_dim * itemsize)
+
+    # ---- host-side slot accounting -------------------------------------
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def occupancy(self) -> int:
+        return self.max_slots - len(self._free)
+
+    def acquire(self) -> int:
+        """Claim the lowest-numbered free slot."""
+        if not self._free:
+            raise RuntimeError("no free slots (acquire() without "
+                               "checking free_slots)")
+        return self._free.pop(0)
+
+    def release(self, slot: int) -> None:
+        """Return ``slot`` to the free list (its device-side active flag
+        was already cleared by the decode step's finish gate)."""
+        if slot in self._free or not 0 <= slot < self.max_slots:
+            raise ValueError(f"bad release of slot {slot}")
+        self._free.append(slot)
+        self._free.sort()
+        self._active_host[slot] = False
+
+    # ---- host position mirror (decode-window tracking) -----------------
+    def note_insert(self, slot: int, position: int) -> None:
+        self._positions_host[slot] = int(position)
+        self._active_host[slot] = True
+
+    def note_advance_slots(self, realized) -> None:
+        """Slot ``s`` advanced by ``realized[s]`` device steps."""
+        for slot, steps in realized.items():
+            self._positions_host[slot] += int(steps)
+
+    @property
+    def max_active_pos(self) -> int:
+        """Highest position any ACTIVE slot writes next; -1 when idle."""
+        return max(
+            (p for p, live in zip(self._positions_host,
+                                  self._active_host) if live),
+            default=-1)

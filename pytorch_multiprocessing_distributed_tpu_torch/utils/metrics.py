@@ -1,0 +1,121 @@
+"""Serving metrics (host meters), ported from the JAX package's
+``utils/metrics.py`` ``ServingMetrics``.
+
+The fields are the ones this slice's engine records; ``snapshot()``
+reports them under the JAX snapshot's own key names, so a consumer of
+either CLI's ``--metrics_out`` reads the same keys. The fault-domain,
+paged-KV and speculative counters arrive with their features.
+
+- ``ttft``: seconds from SUBMIT to first token (queue wait included);
+- ``queue_wait``: seconds from submit to admission;
+- ``decode_step``: wall seconds per engine decode iteration (dispatch
+  to drained token block);
+- ``decode_window`` / ``horizon``: attention window and fused steps of
+  each decode dispatch; ``dispatches`` / ``host_syncs`` /
+  ``overlapped_dispatches``: the dispatch-overhead counters;
+- ``occupancy`` / ``queue_depth``: live slots and queued requests per
+  decode iteration;
+- token and request counters for tokens/sec.
+"""
+
+from __future__ import annotations
+
+from .meters import AverageMeter, PercentileMeter
+
+
+class ServingMetrics:
+    """Aggregates the serving engine's operational metrics."""
+
+    def __init__(self) -> None:
+        self.ttft = PercentileMeter()
+        self.queue_wait = PercentileMeter()
+        self.decode_step = PercentileMeter()
+        self.request_tokens = PercentileMeter()
+        self.decode_window = AverageMeter()
+        self.horizon = AverageMeter()
+        self.occupancy = AverageMeter()
+        self.queue_depth = AverageMeter()
+        self.tokens_generated = 0
+        self.decode_tokens = 0
+        self.requests_completed = 0
+        self.dispatches = 0
+        self.host_syncs = 0
+        self.overlapped_dispatches = 0
+        self.requests_shed = 0
+        self._elapsed = 0.0
+        self._occupancy_max = 0
+        self._queue_wait_max = 0.0
+
+    def record_first_token(self, ttft_seconds: float) -> None:
+        self.ttft.update(ttft_seconds)
+        self.tokens_generated += 1
+
+    def record_admission(self, queue_wait_seconds: float) -> None:
+        self.queue_wait.update(queue_wait_seconds)
+        self._queue_wait_max = max(self._queue_wait_max,
+                                   queue_wait_seconds)
+
+    def record_dispatch(self, horizon: int,
+                        overlapped: bool = False) -> None:
+        self.dispatches += 1
+        self.horizon.update(horizon)
+        if overlapped:
+            self.overlapped_dispatches += 1
+
+    def record_decode_step(self, seconds: float, tokens: int,
+                           occupancy: int, queue_depth: int,
+                           window: int = 0) -> None:
+        self.decode_step.update(seconds)
+        self.host_syncs += 1
+        if window:
+            self.decode_window.update(window)
+        self.occupancy.update(occupancy)
+        self._occupancy_max = max(self._occupancy_max, occupancy)
+        self.queue_depth.update(queue_depth)
+        self.tokens_generated += tokens
+        self.decode_tokens += tokens
+        self._elapsed += seconds
+
+    def record_completion(self, tokens: int = 0) -> None:
+        self.requests_completed += 1
+        if tokens:
+            self.request_tokens.update(tokens)
+
+    def record_shed(self) -> None:
+        self.requests_shed += 1
+
+    def snapshot(self) -> dict:
+        decode_tokens = self.decode_tokens
+        snap = {
+            "requests_completed": self.requests_completed,
+            "tokens_generated": self.tokens_generated,
+            "decode_tokens": decode_tokens,
+            "ttft_avg_s": self.ttft.avg,
+            "ttft_last_s": self.ttft.val,
+            "queue_wait_avg_s": self.queue_wait.avg,
+            "queue_wait_max_s": self._queue_wait_max,
+            "decode_step_avg_s": self.decode_step.avg,
+            "decode_window_avg": self.decode_window.avg,
+            "decode_horizon_avg": self.horizon.avg,
+            "decode_dispatches": self.dispatches,
+            "decode_host_syncs": self.host_syncs,
+            "host_syncs_per_token": (0.0 if decode_tokens <= 0 else
+                                     self.host_syncs / decode_tokens),
+            "overlapped_dispatches": self.overlapped_dispatches,
+            "decode_tokens_per_sec": (0.0 if self._elapsed == 0
+                                      else decode_tokens / self._elapsed),
+            "occupancy_avg": self.occupancy.avg,
+            "occupancy_max": self._occupancy_max,
+            "queue_depth_avg": self.queue_depth.avg,
+            "decode_steps": self.decode_step.count,
+            "requests_shed": self.requests_shed,
+        }
+        for name, meter in (("ttft", self.ttft),
+                            ("queue_wait", self.queue_wait),
+                            ("decode_step", self.decode_step)):
+            for q, v in meter.percentiles((50, 90, 95, 99)).items():
+                snap[f"{name}_{q}_s"] = v
+        for q, v in self.request_tokens.percentiles((50, 95)).items():
+            snap[f"tokens_per_request_{q}"] = v
+        snap["tokens_per_request_avg"] = self.request_tokens.avg
+        return snap
