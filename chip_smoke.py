@@ -30,16 +30,41 @@ nothing is caught):
 5. exact   — gpt_small in f32 (TF32 off for matmuls and cuDNN): 4
    requests through the engine are token-exact with the port's
    ``generate``.
+6. flash   — the three flash-attention kernels (forward, dq, dk/dv)
+   against their plain versions at the training slice's shapes (B 8,
+   H 12, Dh 64, S 1024, causal) in bf16 and f32, plus a ragged
+   non-causal case (Sq 197, Skv 300) and Dh 32/128; at the main shapes
+   each kernel's device time (CUDA graph), eager time, the plain
+   version's time, the library yardstick's
+   (``F.scaled_dot_product_attention``, and autograd through it minus
+   its forward for the backward pair; timed here only, the port never
+   calls it) and the bound ``max(flops / peak, bytes / HBM rate)``.
+7. train   — the port's ``train_lm.main`` (its normal entry) on
+   full-width gpt_small, random init from seed 0, bf16, batch 8 x 1024
+   tokens, lr 0.01, 1 epoch of the default 200 000-token synthetic corpus
+   with ``--val_frac 0.1``: 21 train steps and 2 eval batches. Every step
+   ran, the forward kernel launched 12 times per train step and per eval
+   batch and each backward kernel 12 times per train step, the epoch's
+   loss is finite and below the first printed loss, and ``train.log``,
+   ``test.log``, ``model_1.pth`` and its sidecar exist; tokens/s and the
+   steady step time.
+8. train-exact — gpt_small at 2 layers in f32 (TF32 off): 3 SGD steps
+   through the kernels (``attn_impl="flash"``) and through the plain
+   masked softmax (``"xla"``) from the same params and batches agree in
+   loss and params.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
-version, and the times at the main path's largest decode window); the
-last line is ``{"ok": true, "device": {...}}``.
+version, and the times at the main path's shapes: the largest decode
+window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -53,12 +78,39 @@ HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 PCIe", 2.0e12),
                    ("H100 NVL", 3.9e12), ("H100", 3.35e12))
 # f32 outside the tensor cores (the kernel's math), H100 SXM
 F32_FLOPS_PER_S = 67e12
+# dense bf16 on the tensor cores, H100 SXM: the bound of bf16 attention
+BF16_FLOPS_PER_S = 989e12
 
 DECODE_SHAPE = dict(slots=8, heads=12, head_dim=64)  # gpt_small decode
 WINDOWS = (16, 64, 256, 1024)
 TOL = {"float32": 1e-4, "bfloat16": 1e-4}
 REPS = 100
 GRAPH_CALLS = 20
+
+FLASH_SHAPE = dict(batch=8, heads=12, head_dim=64, seq=1024)  # gpt_small
+# kernel vs plain version: in f32 the same math summed in another order;
+# in bf16 the kernels round P and dS to bf16 before their tensor-core
+# products (where the Pallas kernels do) and the plain version keeps f32,
+# and both round the outputs to bf16 (one unit in the last place near 4
+# is 3e-2)
+FLASH_TOL = {"float32": dict(out=1e-4, grad=5e-4),
+             "bfloat16": dict(out=2e-2, grad=2e-2)}
+FLASH_REPLACES = {
+    "flash_fwd": "flash_attention.py:44",       # _fwd_kernel
+    "flash_bwd_dq": "flash_attention.py:181",   # _bwd_dq_kernel
+    "flash_bwd_dkv": "flash_attention.py:220",  # _bwd_dkv_kernel
+}
+# products per (row, live column) pair: forward QK^T, PV; dq QK^T, dO V^T,
+# dS K; dk/dv QK^T, dO V^T, P^T dO, dS^T Q
+FLASH_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+# the CLI's default lr (0.1, the reference's) diverges on gpt_small's
+# 50257-token head within a few steps, in f32 as in bf16; 0.01 trains
+TRAIN_LR = "0.01"
+TRAIN_LAYERS_EXACT = 2
+# phase 8, kernels vs plain attention through 3 f32 SGD steps: both sides
+# compute attention in f32 and differ by summation order only (~1e-6)
+EXACT_LOSS_TOL = 1e-4
+EXACT_PARAM_TOL = 2e-5
 
 
 def _print(*parts):
@@ -186,6 +238,124 @@ def _time_decode(torch, F, decode_attention, torch_decode_attention, q, k,
                 bound_by=bound_by)
 
 
+def _flash_inputs(torch, b, sq, skv, h, d, dtype, seed):
+    """q/k/v as the model hands them to the kernels: [B, S, H, Dh] views
+    of one fused QKV projection (row stride 3*H*Dh); dO contiguous."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fused_q = torch.randn(b, sq, 3 * h * d, generator=gen, device="cuda")
+    fused_k = torch.randn(b, skv, 3 * h * d, generator=gen, device="cuda")
+    q = fused_q.to(dtype)[..., :h * d].view(b, sq, h, d)
+    k = fused_k.to(dtype)[..., h * d:2 * h * d].view(b, skv, h, d)
+    v = fused_k.to(dtype)[..., 2 * h * d:].view(b, skv, h, d)
+    do = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _flash_calls(fa, q, k, v, do, causal):
+    """The three kernel calls, the three plain calls, and the inputs the
+    backward pair reads (the plain forward's lse and dterm)."""
+    scale = q.shape[-1] ** -0.5
+    kw = dict(scale=scale, causal=causal)
+    ref_out, lse = fa.torch_flash_fwd(q, k, v, **kw)
+    dterm = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    dterm = dterm.contiguous()
+    kernels = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, impl="cuda", **kw),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, dterm,
+                                                impl="cuda", **kw),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dterm,
+                                                  impl="cuda", **kw),
+    }
+    plains = {
+        "flash_fwd": lambda: fa.torch_flash_fwd(q, k, v, **kw),
+        "flash_bwd_dq": lambda: fa.torch_flash_bwd_dq(q, k, v, do, lse,
+                                                      dterm, **kw),
+        "flash_bwd_dkv": lambda: fa.torch_flash_bwd_dkv(q, k, v, do, lse,
+                                                        dterm, **kw),
+    }
+    return kernels, plains, lse, dterm
+
+
+def _flash_errors(torch, kernels, plains, tol):
+    """Max |kernel - plain| per kernel over its outputs; raises past the
+    tolerance (lse, f32 in both dtypes, is held at 1e-4)."""
+    errs = {}
+    for name, kernel in kernels.items():
+        got, ref = kernel(), plains[name]()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        worst = 0.0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            is_lse = name == "flash_fwd" and i == 1
+            t = 1e-4 if is_lse else tol["out" if name == "flash_fwd"
+                                         else "grad"]
+            diff = (g.float() - r.float()).abs()
+            if not bool((diff <= t + t * r.float().abs()).all()):
+                raise AssertionError(
+                    f"{name} output {i}: max|err| {float(diff.max())} past "
+                    f"atol=rtol={t}")
+            worst = max(worst, float(diff.max()))
+        errs[name] = worst
+    return errs
+
+
+def _flash_bound(name, q, k, causal, rate):
+    """Least time for one kernel's work: its flops over the peak of the
+    input type (bf16 on the tensor cores, f32 outside them) against its
+    own reads and writes over the HBM rate; causal counts the live
+    (row, column) pairs, S (S + 1) / 2."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    flops = 2 * FLASH_PRODUCTS[name] * b * h * pairs * d
+    elt = q.element_size()
+    q_bytes, kv_bytes, rows = b * sq * h * d * elt, b * skv * h * d * elt, \
+        b * h * sq * 4
+    nbytes = {"flash_fwd": 2 * q_bytes + 2 * kv_bytes + rows,
+              "flash_bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows,
+              "flash_bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * rows}[name]
+    peak = BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / rate, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _time_flash(torch, F, fa, q, k, v, do, causal, rate):
+    """Per kernel: device ms (CUDA graph), eager ms, plain ms, bound; the
+    library yardstick: SDPA's forward, and autograd through SDPA minus
+    its forward for the backward pair (dq, dk and dv together). Launches
+    made here are not counted."""
+    kernels, plains, _, _ = _flash_calls(fa, q, k, v, do, causal)
+    saved = {n: getattr(fa, n).launches for n in kernels}
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    lib_f = _device_ms(lib_fwd, torch, calls=5, reps=20)
+    lib_bwd = _device_ms(lib_fwd_bwd, torch, calls=5, reps=20) - lib_f
+    out = {}
+    for name, kernel in kernels.items():
+        bound_ms, bound_by = _flash_bound(name, q, k, causal, rate)
+        out[name] = dict(
+            ms=_device_ms(kernel, torch, calls=5, reps=20),
+            eager_ms=_eager_ms(kernel, torch, reps=20, warmup=3),
+            plain_ms=_device_ms(plains[name], torch, calls=2, reps=10),
+            library_ms=lib_f if name == "flash_fwd" else lib_bwd,
+            bound_ms=bound_ms, bound_by=bound_by)
+    for n, count in saved.items():
+        getattr(fa, n).launches = count
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -198,16 +368,22 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.nn.functional as F
 
-    from pytorch_multiprocessing_distributed_tpu_torch import serve_lm
+    from pytorch_multiprocessing_distributed_tpu_torch import (serve_lm,
+                                                               train_lm)
     from pytorch_multiprocessing_distributed_tpu_torch.inference import (
         generate)
     from pytorch_multiprocessing_distributed_tpu_torch.models import (
         get_model)
     from pytorch_multiprocessing_distributed_tpu_torch.ops import _build
+    # the module (the package's ``flash_attention`` name is the function)
+    fa = importlib.import_module(
+        "pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention")
     from pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention \
         import decode_attention, torch_decode_attention
     from pytorch_multiprocessing_distributed_tpu_torch.serving import (
         ServingEngine, init_params)
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        create_lm_train_state, make_lm_train_step, sgd)
 
     smi = _nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -300,6 +476,114 @@ def main() -> int:
     _print("[exact] gpt_small f32: 4 requests through the engine are "
            "token-exact with generate")
 
+    # -- phase 6: the flash-attention kernels against their plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fb, fh, fd, fs = (FLASH_SHAPE[k] for k in ("batch", "heads",
+                                               "head_dim", "seq"))
+    flash_cases = [  # (label, B, Sq, Skv, H, Dh, causal, timed)
+        ("main", fb, fs, fs, fh, fd, True, True),
+        ("ragged", 2, 197, 300, fh, fd, False, False),
+        ("dh32", 2, 512, 512, 4, 32, True, False),
+        ("dh128", 2, 512, 512, 4, 128, True, False),
+    ]
+    flash_main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[1]
+        for label, b, sq, skv, h, d, causal, timed in flash_cases:
+            q, k, v, do = _flash_inputs(torch, b, sq, skv, h, d, dtype,
+                                        seed=sq + d)
+            kernels, plains, _, _ = _flash_calls(fa, q, k, v, do, causal)
+            errs = _flash_errors(torch, kernels, plains, FLASH_TOL[tname])
+            shape = (f"{tname} B={b} Sq={sq} Skv={skv} H={h} Dh={d} "
+                     f"{'causal' if causal else 'non-causal'}")
+            if not timed:
+                _print(f"[flash] {label} {shape}: max_abs_err "
+                       + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+                       + f" (tol {FLASH_TOL[tname]})")
+                continue
+            times = _time_flash(torch, F, fa, q, k, v, do, causal, rate)
+            for kname, t in times.items():
+                _print(f"[flash] {kname} {shape} "
+                       f"max_abs_err={errs[kname]:.3e}"
+                       f" ms={t['ms']:.5f} eager_ms={t['eager_ms']:.5f} "
+                       f"plain_ms={t['plain_ms']:.5f} "
+                       f"library_ms={t['library_ms']:.5f} "
+                       f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) "
+                       f"[{smi}]")
+                if dtype == torch.bfloat16:
+                    flash_main[kname] = dict(t, max_abs_err=errs[kname],
+                                             shape=shape)
+            del q, k, v, do, kernels, plains
+            torch.cuda.empty_cache()
+
+    # -- phase 7: train through the port's CLI entry
+    for kname in FLASH_PRODUCTS:
+        getattr(fa, kname).launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        summary = train_lm.main([
+            "--model", "gpt_small", "--dtype", "bfloat16", "--batch_size",
+            "8", "--seq_len", "1024", "--epochs", "1", "--val_frac", "0.1",
+            "--lr", TRAIN_LR, "--seed", "0", "--save_path", tmp])
+        wall = time.perf_counter() - t0
+        missing = [f for f in ("train.log", "test.log", "model_1.pth",
+                               "model_1.pth.sha256")
+                   if not os.path.exists(os.path.join(tmp, f))]
+    train_launches = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
+    if missing:
+        raise AssertionError(f"train_lm wrote no {missing}")
+    steps, evals = 21, 2
+    if summary["steps"] != steps:
+        raise AssertionError(f"train_lm ran {summary['steps']}/{steps} steps")
+    want = {"flash_fwd": 12 * (steps + evals), "flash_bwd_dq": 12 * steps,
+            "flash_bwd_dkv": 12 * steps}
+    if train_launches != want or summary["launches"] != want:
+        raise AssertionError(
+            f"flash kernels launched {train_launches} (the CLI counted "
+            f"{summary['launches']}); expected {want}: 12 (layers) per "
+            "train step and per eval batch for the forward, 12 per train "
+            "step for each backward kernel")
+    loss = summary["epoch_losses"][0]
+    if not math.isfinite(loss) or not loss < summary["first_loss"]:
+        raise AssertionError(
+            f"epoch loss {loss} is not finite and below the first printed "
+            f"loss {summary['first_loss']}")
+    _print(f"[train] gpt_small bf16 B=8 S=1024, {steps} steps + {evals} "
+           f"eval batches: wall {wall:.2f} s, first loss "
+           f"{summary['first_loss']:.4f}, epoch loss {loss:.4f}, val loss "
+           f"{summary['val_losses'][0]:.4f}, tokens/s "
+           f"{summary['tokens_per_sec']:.1f}, steady step "
+           f"{summary['steady_step_s'] * 1e3:.2f} ms, launches "
+           f"{train_launches} [{smi}]")
+
+    # -- phase 8: a training step through the kernels == the plain one, f32
+    rng = np.random.default_rng(8)
+    batches = [torch.from_numpy(rng.integers(0, 50257, (2, 1024))).cuda()
+               for _ in range(3)]
+    runs = {}
+    for impl in ("flash", "xla"):
+        model = get_model("gpt_small", num_layers=TRAIN_LAYERS_EXACT,
+                          attn_impl=impl)
+        state = create_lm_train_state(model, init_params(model, 3, "cuda"))
+        step = make_lm_train_step(model, sgd(0.1))
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        runs[impl] = (losses, state.params.clone())
+        del model, state
+    loss_err = max(abs(a - b) for a, b in zip(runs["flash"][0],
+                                              runs["xla"][0]))
+    param_err = float((runs["flash"][1] - runs["xla"][1]).abs().max())
+    if not (loss_err <= EXACT_LOSS_TOL and param_err <= EXACT_PARAM_TOL):
+        raise AssertionError(
+            f"flash vs xla training: loss err {loss_err} (tol "
+            f"{EXACT_LOSS_TOL}), param err {param_err} (tol "
+            f"{EXACT_PARAM_TOL})")
+    _print(f"[train-exact] gpt_small {TRAIN_LAYERS_EXACT} layers f32, 3 SGD "
+           f"steps B=2 S=1024: losses flash {runs['flash'][0]} xla "
+           f"{runs['xla'][0]}, max loss err {loss_err:.3e} (tol "
+           f"{EXACT_LOSS_TOL}), max param err {param_err:.3e} (tol "
+           f"{EXACT_PARAM_TOL})")
+
     # the kernels line: the kernel at the main path's largest window
     w_main = max(snap["decode_windows"])
     q, k, v, pos = _decode_inputs(torch, w_main, torch.bfloat16, seed=1)
@@ -307,6 +591,24 @@ def main() -> int:
                  - torch_decode_attention(q, k, v, pos)).abs().max())
     t = _time_decode(torch, F, decode_attention, torch_decode_attention,
                      q, k, v, pos, rate)
+    flash_src = ("pytorch_multiprocessing_distributed_tpu_torch/ops/csrc/"
+                 "flash_attention.cu")
+    flash_entries = [{
+        "name": name, "route": "cuda", "source": flash_src,
+        "replaces": "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
+                    + FLASH_REPLACES[name],
+        "launches": train_launches[name],
+        "max_abs_err": flash_main[name]["max_abs_err"],
+        "ms": flash_main[name]["ms"], "kernel_ms": flash_main[name]["ms"],
+        "eager_ms": flash_main[name]["eager_ms"],
+        "plain_ms": flash_main[name]["plain_ms"],
+        "bound_ms": flash_main[name]["bound_ms"],
+        "bound_by": flash_main[name]["bound_by"],
+        "library_ms": flash_main[name]["library_ms"],
+        "library": ("F.scaled_dot_product_attention" if name == "flash_fwd"
+                    else "autograd through F.scaled_dot_product_attention "
+                         "minus its forward (dq, dk and dv together)"),
+        "shape": flash_main[name]["shape"]} for name in FLASH_PRODUCTS]
     _print(json.dumps({"kernels": [{
         "name": "decode_attention", "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
@@ -318,7 +620,7 @@ def main() -> int:
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-        "shape": f"bf16 N=8 H=12 Dh=64 W={w_main}"}]}))
+        "shape": f"bf16 N=8 H=12 Dh=64 W={w_main}"}] + flash_entries}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

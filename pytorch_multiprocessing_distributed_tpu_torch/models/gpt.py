@@ -1,28 +1,33 @@
 """Decoder-only transformer language models (GPT family).
 
-The port of the JAX package's ``models/gpt.py`` with its
-``attn_impl="xla"`` math: pre-LN GPT-2 style — learned positional
-embeddings, N blocks of (LN -> causal MHA -> residual, LN -> GELU MLP ->
-residual), final LN, untied linear head. Matmuls in ``dtype``,
-LayerNorm/softmax/head in f32, params in f32.
+The port of the JAX package's ``models/gpt.py``: pre-LN GPT-2 style —
+learned positional embeddings, N blocks of (LN -> causal MHA ->
+residual, LN -> GELU MLP -> residual), final LN, untied linear head.
+Matmuls in ``dtype``, LayerNorm/softmax/head in f32, params in f32.
+Attention is ``attn_impl="flash"`` by default, as in JAX: the forward
+calls :func:`..ops.flash_attention.flash_attention` (the CUDA kernels on
+the card, their plain versions on the CPU); ``"xla"`` is the plain
+masked-softmax math of :func:`_block_prefill`.
 
 Parameters keep the JAX tree's names and layouts, so a flattened JAX
 tree maps onto ``state_dict()`` one to one (``block_0/attn/wqkv/kernel``
 is ``block_0.attn.wqkv.kernel``) and Dense kernels stay ``[in, out]``
 (``x @ kernel + bias``, in :func:`_dense` only). A freshly built model
-holds its parameters on the ``meta`` device (no memory); bind real
-values with ``model.load_state_dict(params, assign=True)`` from
+holds its parameters on the ``meta`` device (no memory) with
+``requires_grad=False`` (serving records no graph); bind real values
+with ``model.load_state_dict(params, assign=True)`` from
 :func:`..serving.params.init_params`, ``from_jax_params`` or
-``load_params``.
+``load_params``. Training turns gradients on for the bound leaves
+(:func:`..train.lm.create_lm_train_state`).
 
 The math helpers below (:func:`_ln`, :func:`_dense`, :func:`_ffn`,
 :func:`_block_prefill`, ...) are shared with :mod:`..inference.generate`
-so the cached decode path and the model's forward cannot drift.
+so the cached decode path and the model's forward cannot drift; the
+serving prefill keeps the plain attention of :func:`_block_prefill`.
 
-Not in this slice (each raises ``NotImplementedError``): the Pallas
-flash-attention forward (``attn_impl="flash"``), sequence parallelism
-(``seq_axis``) and MoE feed-forward (``n_experts > 0``) — ROADMAP.md
-"Port: modules still to port".
+Not in this slice (each raises ``NotImplementedError``): sequence
+parallelism (``seq_axis``) and MoE feed-forward (``n_experts > 0``) —
+ROADMAP.md "Port: modules still to port".
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import flash_attention
 from .registry import register
 
 _NOT_PORTED = ("is not ported to PyTorch yet (ROADMAP.md, 'Port: modules "
@@ -113,21 +119,40 @@ def _split_heads(t, h: int):
     return t.reshape(b, s, h, d // h)
 
 
-def _block_prefill(p: Block, x, h: int, dtype, eps: float):
-    """Full causal pass over ``x`` ``[B, S, D]``; returns ``(y, k, v)``
-    with k/v ``[B, S, H, Dh]`` in ``dtype``."""
+def _causal_xla(q, k, v):
+    """Plain causal attention on ``[B, S, H, Dh]``: f32 logits, masked
+    softmax, f32 PV (the JAX ``attn_impl="xla"`` math)."""
+    s = q.shape[1]
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+
+
+def _block(p: Block, x, h: int, dtype, eps: float, attn_impl: str):
+    """One block over ``x`` ``[B, S, D]``; returns ``(y, k, v)`` with
+    k/v ``[B, S, H, Dh]`` in ``dtype``. ``attn_impl="flash"`` runs
+    :func:`..ops.flash_attention.flash_attention` on the views of the
+    fused QKV projection (read in place by the kernels)."""
     b, s, _ = x.shape
     hn = _ln(x, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
     q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
-    att = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    if attn_impl == "flash":
+        att = flash_attention(q, k, v, causal=True)
+    else:
+        att = _causal_xla(q, k, v)
     att = att.reshape(b, s, -1).to(dtype)
     x = x + _dense(att, p.attn.wo, dtype)
     return x + _ffn(p, x, dtype, eps), k, v
+
+
+def _block_prefill(p: Block, x, h: int, dtype, eps: float):
+    """Full causal pass over ``x`` ``[B, S, D]`` with the plain
+    attention (the serving prefill, mirroring JAX ``generate.py``);
+    returns ``(y, k, v)`` with k/v ``[B, S, H, Dh]`` in ``dtype``."""
+    return _block(p, x, h, dtype, eps, "xla")
 
 
 def _embed(model: "GPT", tokens, dtype):
@@ -155,18 +180,13 @@ class GPT(nn.Module):
                  hidden_size: int = 768, num_layers: int = 12,
                  num_heads: int = 12, mlp_dim: int = 3072,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "xla", seq_axis: Optional[str] = None,
+                 attn_impl: str = "flash", seq_axis: Optional[str] = None,
                  n_experts: int = 0, ln_eps: float = 1e-6,
                  head_bias: bool = True):
         super().__init__()
-        if attn_impl == "flash":
-            raise NotImplementedError(
-                f"attn_impl='flash' (the Pallas flash-attention kernel) "
-                f"{_NOT_PORTED}; use attn_impl='xla'")
-        if attn_impl != "xla":
+        if attn_impl not in ("flash", "xla"):
             raise ValueError(
-                f"attn_impl must be 'xla' (or 'flash', not ported), got "
-                f"{attn_impl!r}")
+                f"attn_impl must be 'flash' or 'xla', got {attn_impl!r}")
         if seq_axis is not None:
             raise NotImplementedError(
                 f"sequence parallelism (seq_axis) {_NOT_PORTED}")
@@ -184,6 +204,7 @@ class GPT(nn.Module):
         self.num_heads = num_heads
         self.mlp_dim = mlp_dim
         self.dtype = dtype
+        self.attn_impl = attn_impl
         self.ln_eps = ln_eps
         self.embed = _meta(vocab_size, hidden_size)
         self.pos_embed = _meta(max_seq_len, hidden_size)
@@ -210,8 +231,8 @@ class GPT(nn.Module):
                 f"sequence {s} exceeds max_seq_len={self.max_seq_len}")
         x = _embed(self, tokens, self.dtype)
         for i in range(self.num_layers):
-            x, _, _ = _block_prefill(self.block(i), x, self.num_heads,
-                                     self.dtype, self.ln_eps)
+            x, _, _ = _block(self.block(i), x, self.num_heads, self.dtype,
+                             self.ln_eps, self.attn_impl)
         return _logits(self, x, self.ln_eps).float()
 
 

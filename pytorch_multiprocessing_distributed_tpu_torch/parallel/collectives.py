@@ -1,0 +1,33 @@
+"""Collectives of the data-parallel step (the port of the JAX package's
+``parallel/collectives.py``, the gradient ``psum`` subset).
+
+The train step keeps every gradient as a view of ONE flat f32 buffer
+(:class:`..train.state.TrainState`), so the ``lax.psum`` over the
+gradient tree becomes one ``all_reduce`` of that buffer: NCCL on the
+card, gloo on the CPU, no call per leaf.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as tdist
+
+from .dist import get_world_size
+
+
+def psum_(flat: torch.Tensor) -> torch.Tensor:
+    """Sum ``flat`` over the data-parallel group in place; a no-op for
+    one process. Returns ``flat``."""
+    if get_world_size() > 1:
+        tdist.all_reduce(flat, op=tdist.ReduceOp.SUM)
+    return flat
+
+
+def broadcast_int(value: int, src: int = 0) -> int:
+    """``value`` as ``src`` holds it, on every rank (host control plane:
+    ``--resume auto`` agrees on the primary's epoch)."""
+    if get_world_size() == 1:
+        return int(value)
+    box = [int(value)]
+    tdist.broadcast_object_list(box, src=src)
+    return int(box[0])

@@ -1,0 +1,103 @@
+"""Train state: the model's parameters, gradients and momenta as flat
+buffers (the port of the JAX package's ``TrainState``).
+
+JAX threads an immutable pytree through a compiled step. The port keeps
+the same fields — params, momentum, ``initialized``, ``count``, epoch —
+but in place: every parameter of the bound model is a view of ONE flat
+f32 buffer, every ``.grad`` a view of another (autograd accumulates into
+it), and the momenta a third. The optimizer then updates whole buffers,
+the gradient all-reduce is one call, and the NaN guard one ``where``.
+
+Checkpoints see flat flax-path keys (``params/block_0/attn/wqkv/kernel``,
+``opt_state/momentum/...``, ``opt_state/count``,
+``opt_state/initialized``, ``epoch``) through :meth:`TrainState.to_dict`
+and :meth:`TrainState.load_dict`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    params: torch.Tensor       # flat f32 [n]; the model's params view it
+    grads: torch.Tensor        # flat f32 [n + 1]; [:n] the params' .grad,
+                               # [n] the step's local CE sum
+    momentum: torch.Tensor     # flat f32 [n]
+    initialized: torch.Tensor  # bool scalar: False until the first update
+    count: torch.Tensor        # int32 scalar: updates applied
+    epoch: int = 1             # current epoch (drives the LR schedule)
+    layout: List[Tuple[str, int, torch.Size]] = field(default_factory=list)
+
+    @property
+    def n(self) -> int:
+        return self.params.numel()
+
+    @classmethod
+    def bind(cls, model: nn.Module) -> "TrainState":
+        """Move the bound model's parameters into one flat buffer on
+        their device, make them trainable leaves whose ``.grad`` views a
+        flat gradient buffer, and zero the momenta."""
+        named = list(model.named_parameters())
+        device = named[0][1].device
+        n = sum(p.numel() for _, p in named)
+        params = torch.empty(n, dtype=torch.float32, device=device)
+        grads = torch.zeros(n + 1, dtype=torch.float32, device=device)
+        layout, off = [], 0
+        for name, p in named:
+            size = p.numel()
+            params[off:off + size].copy_(p.detach().reshape(-1))
+            p.data = params[off:off + size].view(p.shape)
+            p.requires_grad_(True)
+            p.grad = grads[off:off + size].view(p.shape)
+            layout.append((name, off, p.shape))
+            off += size
+        return cls(model=model, params=params, grads=grads,
+                   momentum=torch.zeros_like(params),
+                   initialized=torch.zeros((), dtype=torch.bool,
+                                           device=device),
+                   count=torch.zeros((), dtype=torch.int32, device=device),
+                   layout=layout)
+
+    def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``{parameter name: view of flat}`` in the model's order."""
+        return {name: flat[off:off + shape.numel()].view(shape)
+                for name, off, shape in self.layout}
+
+    def to_dict(self) -> Dict[str, object]:
+        """CPU copies under flat flax-path keys (each view copied alone,
+        never the whole flat storage)."""
+        out: Dict[str, object] = {}
+        for prefix, flat in (("params", self.params),
+                             ("opt_state/momentum", self.momentum)):
+            for name, t in self.views(flat).items():
+                key = f"{prefix}/{name.replace('.', '/')}"
+                out[key] = t.detach().to("cpu", copy=True)
+        out["opt_state/count"] = self.count.detach().to("cpu", copy=True)
+        out["opt_state/initialized"] = self.initialized.detach().to(
+            "cpu", copy=True)
+        out["epoch"] = int(self.epoch)
+        return out
+
+    @torch.no_grad()
+    def load_dict(self, d: Dict[str, object]) -> None:
+        """Copy a :meth:`to_dict` payload into the live buffers."""
+        for prefix, flat in (("params", self.params),
+                             ("opt_state/momentum", self.momentum)):
+            for name, t in self.views(flat).items():
+                key = f"{prefix}/{name.replace('.', '/')}"
+                src = d[key]
+                if tuple(src.shape) != tuple(t.shape):
+                    raise ValueError(
+                        f"checkpoint {key} has shape {tuple(src.shape)}, "
+                        f"the model {tuple(t.shape)}")
+                t.copy_(src)
+        self.count.copy_(d["opt_state/count"])
+        self.initialized.copy_(d["opt_state/initialized"])
+        self.epoch = int(d["epoch"])

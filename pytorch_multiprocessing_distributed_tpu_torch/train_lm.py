@@ -1,0 +1,398 @@
+"""Language-model training CLI, data parallel — the port of the JAX
+package's ``train_lm.py`` in ``--parallel dp`` mode, on the card by
+default.
+
+    python -m pytorch_multiprocessing_distributed_tpu_torch.train_lm \\
+        --model gpt_small --dtype bfloat16 --batch_size 8 --seq_len 1024 \\
+        --epochs 1 --save_path /tmp/lm
+
+Flags keep the JAX CLI's names, meanings and order of checks, plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+Artifacts are the JAX CLI's: the ``Epoch: [e][i/n]`` print lines,
+``train.log`` rows ``[epoch, avg loss, exp(min(avg, 20))]``,
+``test.log`` under ``--val_frac``, ``model_{epoch}.pth`` checkpoints
+(the port's own payload, see :mod:`.train.checkpoint`) with ``.sha256``
+sidecars, ``--resume PATH|auto`` and a greedy ``--sample``.
+
+Data parallel over processes: start one process per rank with the JAX
+package's env contract (``PMDT_MASTER_ADDR``, ``PMDT_WORLD_SIZE``,
+``PMDT_RANK``; :mod:`.parallel.dist`). Each rank trains on its rows of
+the global ``--batch_size``; gradients are summed over NCCL (gloo on the
+CPU).
+
+Flags of the JAX CLI this slice does not port (sequence, tensor and
+pipeline parallelism, MoE, ZeRO/FSDP, chunked CE, remat, orbax, HF
+interop, beam sampling, supervised restarts, the observability
+exporters) are rejected by name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .data import TokenLoader, synthetic_tokens
+from .device import resolve_device
+from .models import get_model
+from .ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+from .parallel import dist
+from .serving.params import init_params
+from .train import (create_lm_train_state, local_rows, make_lm_eval_step,
+                    make_lm_train_step, to_device)
+from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
+                               load_with_fallback, prune_checkpoints,
+                               resolve_auto_resume, save_checkpoint)
+from .train.optim import cosine_lr, sgd
+from .utils import Logger
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="PyTorch/CUDA GPT training (data parallel)")
+    p.add_argument('--model', default='gpt_tiny', type=str,
+                   help='gpt_tiny | gpt_small | gpt_medium')
+    p.add_argument('--device', default='cuda', type=str,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch path)")
+    p.add_argument('--batch_size', default=32, type=int,
+                   help='global batch (sequences per step)')
+    p.add_argument('--seq_len', default=128, type=int)
+    p.add_argument('--epochs', default=2, type=int)
+    p.add_argument('--lr', default=0.1, type=float)
+    p.add_argument('--lr_schedule', default='constant',
+                   choices=['constant', 'cosine'])
+    p.add_argument('--warmup_epochs', default=0, type=int)
+    p.add_argument('--save_path', default='./lm_run/', type=str)
+    p.add_argument('--resume', default='', type=str,
+                   help="checkpoint path to resume from, or 'auto' = "
+                        "latest model_<epoch>.pth under --save_path")
+    p.add_argument('--save_every', default=0, type=int,
+                   help='also checkpoint every N epochs (0 = final only)')
+    p.add_argument('--keep_checkpoints', default=0, type=int,
+                   help='retain only the newest K checkpoints (0 = all)')
+    p.add_argument('--ckpt_backend', default='msgpack',
+                   choices=['msgpack', 'orbax'],
+                   help="'msgpack' = the single-file model_<epoch>.pth "
+                        "(the port's torch.save payload)")
+    p.add_argument('--ckpt_async', action='store_true')
+    p.add_argument('--print_freq', default=10, type=int)
+    p.add_argument('--seed', default=0, type=int)
+    p.add_argument('--corpus', default='', type=str,
+                   help='a .npy int32 token file, or a text file / '
+                        'directory (byte-level tokens); empty = synthetic')
+    p.add_argument('--corpus_tokens', default=200_000, type=int,
+                   help='synthetic stream length when --corpus is empty')
+    p.add_argument('--dtype', default='float32',
+                   choices=['float32', 'bfloat16'])
+    p.add_argument('--parallel', default='dp',
+                   choices=['dp', 'sp', 'tp', 'pp'])
+    p.add_argument('--pp_schedule', default='gpipe',
+                   choices=['gpipe', '1f1b'])
+    p.add_argument('--degree', default=1, type=int)
+    p.add_argument('--sp_mode', default='ring',
+                   choices=['ring', 'zigzag', 'ulysses'])
+    p.add_argument('--n_experts', default=0, type=int)
+    p.add_argument('--moe_top_k', default=1, type=int)
+    p.add_argument('--moe_aux_weight', default=0.01, type=float)
+    p.add_argument('--remat', action='store_true')
+    p.add_argument('--vocab_chunks', default=0, type=int)
+    p.add_argument('--grad_accum', default=1, type=int,
+                   help='microbatches per update')
+    p.add_argument('--zero', action='store_true')
+    p.add_argument('--zero1', action='store_true')
+    p.add_argument('--fsdp', action='store_true')
+    p.add_argument('--val_frac', default=0.0, type=float,
+                   help='hold out this fraction of the token stream and '
+                        'log per-epoch val loss/ppl to test.log')
+    p.add_argument('--hf_init', default='', type=str, metavar='PATH')
+    p.add_argument('--hf_export', action='store_true')
+    p.add_argument('--sample', default=0, type=int,
+                   help='after training, print N greedy continuation '
+                        'tokens')
+    p.add_argument('--sample_beams', default=0, type=int)
+    p.add_argument('--max_restarts', default=0, type=int)
+    p.add_argument('--restart_backoff', default=1.0, type=float)
+    p.add_argument('--trace_out', default='', type=str)
+    p.add_argument('--events_out', default='', type=str)
+    p.add_argument('--flight_path', default='', type=str)
+    p.add_argument('--stats_port', default=0, type=int)
+    return p
+
+
+# (flag, is it set?) for every JAX flag this slice does not port
+_NOT_PORTED = (
+    ('--parallel', lambda a: a.parallel != 'dp'),
+    ('--degree', lambda a: a.degree > 1),
+    ('--n_experts', lambda a: a.n_experts != 0),
+    ('--moe_top_k', lambda a: a.moe_top_k != 1),
+    ('--zero', lambda a: a.zero),
+    ('--zero1', lambda a: a.zero1),
+    ('--fsdp', lambda a: a.fsdp),
+    ('--vocab_chunks', lambda a: a.vocab_chunks > 1),
+    ('--remat', lambda a: a.remat),
+    ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
+    ('--ckpt_async', lambda a: a.ckpt_async),
+    ('--hf_init', lambda a: bool(a.hf_init)),
+    ('--hf_export', lambda a: a.hf_export),
+    ('--sample_beams', lambda a: a.sample_beams != 0),
+    ('--max_restarts', lambda a: a.max_restarts != 0),
+    ('--stats_port', lambda a: a.stats_port != 0),
+    ('--trace_out', lambda a: bool(a.trace_out)),
+    ('--events_out', lambda a: bool(a.events_out)),
+    ('--flight_path', lambda a: bool(a.flight_path)),
+)
+
+
+def _reject_not_ported(args) -> None:
+    for flag, is_set in _NOT_PORTED:
+        if is_set(args):
+            raise SystemExit(
+                f"{flag} is not ported to PyTorch yet (ROADMAP.md, 'Port: "
+                "modules still to port'); use the JAX CLI train_lm.py for "
+                "it")
+
+
+def _check_flags(args, model) -> None:
+    """The JAX CLI's pre-run checks, in its order, for the flags this
+    slice keeps."""
+    if args.seq_len > model.max_seq_len:
+        raise SystemExit(
+            f"--seq_len {args.seq_len} exceeds the model's max_seq_len "
+            f"{model.max_seq_len}")
+    if args.save_every < 0:
+        raise SystemExit(f'--save_every must be >= 0, got {args.save_every}')
+    if args.pp_schedule != 'gpipe':
+        raise SystemExit(
+            f"--pp_schedule {args.pp_schedule} only applies to --parallel "
+            f"pp (got --parallel {args.parallel})")
+    if args.val_frac and not 0.0 < args.val_frac < 1.0:
+        raise SystemExit(
+            f"--val_frac must be in (0, 1), got {args.val_frac}")
+    if args.sample and args.seq_len + args.sample > model.max_seq_len:
+        raise SystemExit(
+            f"--seq_len {args.seq_len} + --sample {args.sample} exceeds "
+            f"max_seq_len {model.max_seq_len}")
+
+
+def _load_tokens(args, vocab_size):
+    """(tokens, corpus_is_text) from ``--corpus`` or the synthetic
+    stream (the JAX CLI's sniff and checks)."""
+    if not args.corpus:
+        return synthetic_tokens(args.corpus_tokens, vocab_size=vocab_size,
+                                seed=args.seed), False
+    from .data.text import load_text_corpus, sniff_bytes
+
+    if os.path.isdir(args.corpus):
+        kind = 'text'
+    else:
+        with open(args.corpus, 'rb') as f:
+            kind = sniff_bytes(f.read(6))
+    if kind == 'npz':
+        raise SystemExit(
+            f"--corpus {args.corpus} is an npz/zip archive — pass the "
+            "np.save (.npy) array itself, or a text file")
+    if kind == 'npy':
+        tokens, is_text = np.load(args.corpus).astype(np.int32), False
+    else:
+        try:
+            tokens, is_text = load_text_corpus(args.corpus), True
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if len(tokens) == 0:
+        raise SystemExit(f"--corpus {args.corpus} contains no tokens")
+    if tokens.max() >= vocab_size or tokens.min() < 0:
+        raise SystemExit(
+            f"--corpus token ids span [{tokens.min()}, {tokens.max()}] but "
+            f"--model {args.model} has vocab_size {vocab_size}")
+    return tokens, is_text
+
+
+def _launches():
+    return {"flash_fwd": flash_fwd.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches}
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns a
+    summary: per-epoch train and val losses, the first printed loss,
+    steps, tokens/s and the steady step time (host clock, synced at the
+    print boundaries), and the kernels' launches during the run."""
+    args = build_parser().parse_args(
+        sys.argv[1:] if argv is None else list(argv))
+    _reject_not_ported(args)
+    dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
+    model = get_model(args.model, dtype=dtype)
+    _check_flags(args, model)
+    if args.lr_schedule == 'cosine':
+        lr = cosine_lr(args.lr, args.epochs,
+                       warmup_epochs=args.warmup_epochs)
+    else:
+        if args.warmup_epochs:
+            raise SystemExit(
+                "--warmup_epochs applies to --lr_schedule cosine")
+        lr = args.lr
+
+    # the device and the process group only after every flag check
+    device = resolve_device(args.device)
+    dist.init_process(device)
+    device = dist.device_for_rank(device)
+    world = dist.get_world_size()
+    primary = dist.is_primary()
+
+    tokens, corpus_is_text = _load_tokens(args, model.vocab_size)
+    val_loader = None
+    if args.val_frac:
+        n_val = int(len(tokens) * args.val_frac)
+        min_val = args.batch_size * args.seq_len
+        if n_val < min_val:
+            raise SystemExit(
+                f"--val_frac {args.val_frac} holds out {n_val} tokens but "
+                f"one eval batch needs {min_val} — grow the corpus or the "
+                "fraction")
+        tokens, val_tokens = tokens[:-n_val], tokens[-n_val:]
+        val_loader = TokenLoader(val_tokens, batch_size=args.batch_size,
+                                 seq_len=args.seq_len, world_size=world,
+                                 shuffle=False, seed=args.seed)
+    loader = TokenLoader(tokens, batch_size=args.batch_size,
+                         seq_len=args.seq_len, world_size=world,
+                         seed=args.seed)
+    if (args.batch_size // world) % args.grad_accum:
+        raise SystemExit(
+            f"global batch {args.batch_size} must divide by data-parallel "
+            f"size x grad_accum = {world} x {args.grad_accum}")
+
+    state = create_lm_train_state(
+        model, init_params(model, args.seed, device))
+    step = make_lm_train_step(model, sgd(learning_rate=lr),
+                              grad_accum=args.grad_accum)
+    eval_step = make_lm_eval_step(model) if val_loader is not None else None
+
+    start_epoch = 1
+    if args.resume:
+        path = args.resume
+        if args.resume == 'auto':
+            path = resolve_auto_resume(args.save_path) or ''
+            if not path and primary:
+                print(f"--resume auto: no checkpoint under "
+                      f"{args.save_path}; starting fresh", flush=True)
+        if path:
+            if args.resume == 'auto':
+                state, used = load_with_fallback(
+                    args.save_path, state, anchor=checkpoint_epoch(path))
+            else:
+                state, used = load_checkpoint(path, state), path
+            start_epoch = state.epoch + 1
+            if primary:
+                print(f"Resumed from {used} (continuing at epoch "
+                      f"{start_epoch})", flush=True)
+
+    os.makedirs(args.save_path, exist_ok=True)
+    logger = Logger(os.path.join(args.save_path, 'train.log'))
+    test_logger = (Logger(os.path.join(args.save_path, 'test.log'))
+                   if val_loader is not None else None)
+    launches0 = _launches()
+    summary = {"epoch_losses": [], "val_losses": [], "first_loss": None,
+               "steps": 0, "skipped": 0, "train_s": 0.0,
+               "steady_step_s": None, "world_size": world,
+               "device": str(device)}
+    steady = []  # (seconds, steps) between an epoch's first and last print
+
+    for epoch in range(start_epoch, args.epochs + 1):
+        state.epoch = epoch
+        loader.set_epoch(epoch)
+        t0, losses, seen = time.time(), 0.0, 0
+        t_first = None
+        for i, batch in enumerate(loader):
+            tok = to_device(local_rows(batch), device)
+            state, metrics = step(state, tok)
+            summary["steps"] += 1
+            if i % args.print_freq == 0 or i == len(loader) - 1:
+                # the print boundary is the loop's one host sync
+                skipped = int(metrics['skipped'])
+                loss = None if skipped else float(metrics['loss'])
+                now = time.time()
+                if t_first is None:
+                    t_first = (now, i)
+                elif i == len(loader) - 1:
+                    steady.append((now - t_first[0], i - t_first[1]))
+                if skipped:
+                    summary["skipped"] += 1
+                    if primary:
+                        print(f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
+                              "step skipped (non-finite grads)", flush=True)
+                    continue
+                losses, seen = losses + loss, seen + 1
+                if summary["first_loss"] is None:
+                    summary["first_loss"] = loss
+                if primary:
+                    tok_s = (args.batch_size * args.seq_len * (i + 1)
+                             / (now - t0))
+                    print(f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
+                          f"Loss {loss:.4f}\tTok/s {tok_s:.0f}", flush=True)
+        summary["train_s"] += time.time() - t0
+        avg = losses / max(1, seen)
+        summary["epoch_losses"].append(avg)
+        if primary:
+            logger.write([epoch, avg, math.exp(min(avg, 20.0))])
+        if eval_step is not None:
+            tot, cnt = 0.0, 0.0
+            for batch in val_loader:
+                m = eval_step(state, to_device(local_rows(batch), device))
+                c = float(m['count'])
+                tot, cnt = tot + float(m['loss']) * c, cnt + c
+            vloss = tot / max(1.0, cnt)
+            summary["val_losses"].append(vloss)
+            if primary:
+                print(f"Val: [{epoch}]\tLoss {vloss:.4f}\t"
+                      f"PPL {math.exp(min(vloss, 20.0)):.2f}", flush=True)
+                test_logger.write([epoch, vloss, math.exp(min(vloss, 20.0))])
+        if (args.save_every and epoch % args.save_every == 0
+                and epoch < args.epochs):
+            save_checkpoint(args.save_path, state, epoch)
+            if args.keep_checkpoints and primary:
+                prune_checkpoints(args.save_path, args.keep_checkpoints)
+
+    if start_epoch <= args.epochs:
+        save_checkpoint(args.save_path, state, args.epochs)
+        if args.keep_checkpoints and primary:
+            prune_checkpoints(args.save_path, args.keep_checkpoints)
+    elif primary:
+        print(f"--resume: checkpoint already at epoch {start_epoch - 1} >= "
+              f"--epochs {args.epochs}; nothing to train", flush=True)
+
+    if args.sample:
+        from .inference import generate
+
+        prompt = torch.as_tensor(tokens[: args.seq_len][None, :],
+                                 dtype=torch.long, device=device)
+        with torch.no_grad():
+            out = generate(model, prompt, max_new_tokens=args.sample)
+        if primary:
+            ids = out[0, -args.sample:].tolist()
+            print("sample:", ids)
+            if corpus_is_text:
+                from .data.text import detokenize
+
+                print("sample text:", repr(detokenize(ids)), flush=True)
+
+    now = _launches()
+    summary["launches"] = {k: now[k] - launches0[k] for k in now}
+    n_tok = args.batch_size * args.seq_len * summary["steps"]
+    summary["tokens_per_sec"] = n_tok / max(summary["train_s"], 1e-9)
+    if steady:
+        summary["steady_step_s"] = (sum(s for s, _ in steady)
+                                    / sum(n for _, n in steady))
+    dist.destroy_process_group()
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,15 @@ a GPU machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors. Tolerance: atol 1e-4 — the same f32 math on the same values,
-only the summation order differs.
+tensors. Decode attention: atol 1e-4 — the same f32 math on the same
+values, only the summation order differs. Flash attention: in f32 the
+output and lse within 1e-4 and the gradients within 5e-4 (the same f32
+math; the gradients sum up to 300 products per element in another
+order); in bf16 the lse within 1e-4 and the bf16 outputs within 2e-2
+(the kernels round P and dS to bf16 before their tensor-core products,
+as the Pallas kernels do, where the plain version keeps them in f32;
+both round the outputs to bf16, and one unit in the last place of a
+value near 4 is 3e-2).
 """
 
 import numpy as np
@@ -18,8 +25,13 @@ from pytorch_multiprocessing_distributed_tpu_torch.inference import generate
 from pytorch_multiprocessing_distributed_tpu_torch.models import GPT
 from pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention \
     import decode_attention, torch_decode_attention
+from pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention \
+    import (flash_bwd_dkv, flash_bwd_dq, flash_fwd, torch_flash_bwd_dkv,
+            torch_flash_bwd_dq, torch_flash_fwd)
 from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     ServingEngine, init_params)
+from pytorch_multiprocessing_distributed_tpu_torch.train import (
+    create_lm_train_state, make_lm_train_step, sgd)
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +107,101 @@ def test_engine_on_card_matches_cpu_plain_path(cuda_device):
         ref = generate(model, torch.tensor([p], device=cuda_device),
                        max_new_tokens=6)[0, -6:].tolist()
         assert toks == ref
+
+
+def _flash_inputs(dev, b, sq, skv, h, d, dtype, seed=0):
+    """q/k/v as the model passes them: [B, S, H, Dh] views of one fused
+    projection (row stride 3*H*Dh); dO contiguous; lse and dterm from the
+    plain forward."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv_q = torch.randn(b, sq, 3 * h * d, generator=gen, device=dev)
+    qkv_k = torch.randn(b, skv, 3 * h * d, generator=gen, device=dev)
+    q = qkv_q.to(dtype)[..., :h * d].view(b, sq, h, d)
+    k = qkv_k.to(dtype)[..., h * d:2 * h * d].view(b, skv, h, d)
+    v = qkv_k.to(dtype)[..., 2 * h * d:].view(b, skv, h, d)
+    do = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+FLASH_TOL = {torch.float32: dict(out=1e-4, grad=5e-4),
+             torch.bfloat16: dict(out=2e-2, grad=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,skv,causal", [(197, 197, True),
+                                           (197, 300, False),
+                                           (130, 70, False), (1, 1, True)])
+def test_flash_kernels_match_plain(cuda_device, dtype, d, sq, skv, causal):
+    """Rows 5-7 (forward, dq, dk/dv) against their plain versions on
+    strided views, ragged lengths and both masks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _flash_inputs(cuda_device, 2, sq, skv, 3, d, dtype)
+    scale = d ** -0.5
+    tol = FLASH_TOL[dtype]
+    before = (flash_fwd.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    out, lse = flash_fwd(q, k, v, scale=scale, causal=causal, impl="cuda")
+    ref_out, ref_lse = torch_flash_fwd(q, k, v, scale=scale, causal=causal)
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=tol["out"], rtol=tol["out"])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    dterm = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    dterm = dterm.contiguous()
+    dq = flash_bwd_dq(q, k, v, do, ref_lse, dterm, scale=scale,
+                      causal=causal, impl="cuda")
+    dk, dv = flash_bwd_dkv(q, k, v, do, ref_lse, dterm, scale=scale,
+                           causal=causal, impl="cuda")
+    torch.cuda.synchronize()
+    ref_dq = torch_flash_bwd_dq(q, k, v, do, ref_lse, dterm, scale=scale,
+                                causal=causal)
+    ref_dk, ref_dv = torch_flash_bwd_dkv(q, k, v, do, ref_lse, dterm,
+                                         scale=scale, causal=causal)
+    for got, ref, name in ((dq, ref_dq, "dq"), (dk, ref_dk, "dk"),
+                           (dv, ref_dv, "dv")):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   atol=tol["grad"], rtol=tol["grad"],
+                                   msg=name)
+    assert (flash_fwd.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+def test_flash_wrapper_contract_on_card(cuda_device):
+    q, k, v, _ = _flash_inputs(cuda_device, 1, 16, 16, 2, 64,
+                               torch.bfloat16)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        flash_fwd(q, k, v, impl="torch")
+    with pytest.raises(ValueError, match="head_dim stride"):
+        flash_fwd(q.transpose(1, 3).contiguous().transpose(1, 3), k, v)
+    with pytest.raises(ValueError, match="Dh in"):
+        flash_fwd(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_fwd(q, k.float(), v)
+    flat = torch.zeros(16 * 2 * 64 + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    unaligned = flat[1:].view(1, 16, 2, 64)  # rows off 16-byte alignment
+    with pytest.raises(ValueError, match="aligned"):
+        flash_fwd(unaligned, k, v)
+
+
+def test_train_step_flash_matches_xla_on_card(cuda_device):
+    """One SGD step of a small GPT on the card through the kernels equals
+    the same step through the plain masked softmax (f32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    geom = dict(vocab_size=61, max_seq_len=128, hidden_size=128,
+                num_layers=2, num_heads=2, mlp_dim=256)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 61, (4, 97))).to(cuda_device)
+    got = {}
+    for impl in ("flash", "xla"):
+        model = GPT(**geom, attn_impl=impl)
+        state = create_lm_train_state(model, init_params(model, 1,
+                                                         cuda_device))
+        step = make_lm_train_step(model, sgd(0.1))
+        losses = [float(step(state, tokens)[1]["loss"]) for _ in range(2)]
+        got[impl] = (losses, state.params.clone())
+    np.testing.assert_allclose(got["flash"][0], got["xla"][0], atol=1e-5)
+    torch.testing.assert_close(got["flash"][1], got["xla"][1], atol=1e-5,
+                               rtol=0)

@@ -90,7 +90,7 @@ def test_registry_names_and_unknown():
         get_model("gpt_huge")
 
 
-@pytest.mark.parametrize("kw", [dict(attn_impl="flash"),
+@pytest.mark.parametrize("kw", [dict(attn_impl="xla", seq_axis="seq"),
                                 dict(seq_axis="seq"), dict(n_experts=2)])
 def test_unported_model_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -51,7 +51,7 @@ assert not bad, bad
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 35  # every module of the port
 
 
 @pytest.mark.parametrize("alone", [False, True])
