@@ -52,11 +52,35 @@ nothing is caught):
    through the kernels (``attn_impl="flash"``) and through the plain
    masked softmax (``"xla"``) from the same params and batches agree in
    loss and params.
+9. sgd     — the fused SGD kernel against its plain version at N =
+   4,903,242 (ResNet-18's parameters) and a ragged N = 1,000,003, over 4
+   steps (the first with init 0, two more, one with keep False), Nesterov
+   on and off: bit-equal (tolerance 0). At the ResNet-18 N: the kernel's
+   device time (CUDA graph), its eager time, the plain version's, the
+   HBM-bytes bound (5 x 4 B per element), and the library yardstick
+   ``torch._fused_sgd_`` — the one kernel ``torch.optim.SGD(...,
+   nesterov=True, fused=True).step()`` launches (timed here only; the
+   port never calls it; the eager ``step()`` is printed beside it).
+10. image-train — the port's ``main.main`` (its normal entry) on
+   full-width ResNet-18 ([1,1,1,1], 64-512 channels, 10 classes), random
+   init from seed 0, f32 with PyTorch's default TF32 convolutions (the
+   CLI's setting), ``--optimizer sgd_fused``, ``--world_size 1``,
+   ``PMDT_SMALL_SYNTH=8192`` (8,192 train and 2,048 test images), batch
+   64, 1 epoch: 128 train steps and 32 eval batches. The kernel launched
+   once per train step, the epoch loss is finite and below the first
+   printed loss, and ``train.log``, ``test.log``, ``model_1.pth``, the
+   two PNGs and the ``main.py`` snapshot exist; images/s and the steady
+   step time.
+11. image-exact — ResNet-18 in f32 (TF32 off for matmuls and cuDNN,
+   deterministic cuDNN): 3 steps with ``sgd`` and 3 with ``sgd_fused``
+   from the same weights and batches of 64 agree in losses, params and
+   BN running stats.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
 version, and the times at the main path's shapes: the largest decode
-window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels);
+window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels,
+ResNet-18's N for fused SGD);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -111,6 +135,17 @@ TRAIN_LAYERS_EXACT = 2
 # compute attention in f32 and differ by summation order only (~1e-6)
 EXACT_LOSS_TOL = 1e-4
 EXACT_PARAM_TOL = 2e-5
+
+# fused SGD: the kernel rounds each product and sum on its own, as the
+# plain version's separate ops do, so the two agree bit for bit
+SGD_SIZES = (4_903_242, 1_000_003)  # ResNet-18's parameters; ragged
+SGD_HYPER = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+SGD_BYTES_PER_ELEMENT = 5 * 4  # read p, g, buf; write p, buf (f32)
+SGD_FLOPS_PER_ELEMENT = 8  # 4 products, 4 sums and differences (Nesterov)
+IMAGE_STEPS, IMAGE_EVALS = 128, 32  # 8192 / 64 and 2048 / 64
+# phase 11, sgd vs sgd_fused through 3 f32 steps: bit-equal updates on
+# deterministic cuDNN, so any difference would be the kernel's
+IMAGE_EXACT_TOL = 0.0
 
 
 def _print(*parts):
@@ -356,6 +391,81 @@ def _time_flash(torch, F, fa, q, k, v, do, causal, rate):
     return out
 
 
+def _sgd_buffers(torch, n, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(n, generator=gen, device="cuda"),
+            torch.randn(n, generator=gen, device="cuda"))
+
+
+def _sgd_flags(torch, initialized):
+    return (torch.tensor(initialized, device="cuda"),
+            torch.zeros((), dtype=torch.int32, device="cuda"))
+
+
+def _sgd_steps(torch, update, n, nesterov, **impl):
+    """Four updates from the same start: the first (init 0), two more,
+    one skipped (keep False, NaN gradients) between them; returns
+    (params, momenta, initialized, count)."""
+    p, g0 = _sgd_buffers(torch, n, seed=n + int(nesterov))
+    buf = torch.zeros_like(p)
+    init, count = _sgd_flags(torch, False)
+    for step, keep in enumerate((True, True, False, True)):
+        grads = g0 * (step + 1) - 0.5
+        if not keep:
+            grads[7] = float("nan")
+        update(p, grads, buf, init, count, torch.tensor(keep, device="cuda"),
+               nesterov=nesterov, **SGD_HYPER, **impl)
+    torch.cuda.synchronize()
+    return p, buf, bool(init), int(count)
+
+
+def _sgd_bound(n, rate):
+    t_bytes = SGD_BYTES_PER_ELEMENT * n / rate
+    t_ops = SGD_FLOPS_PER_ELEMENT * n / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _time_sgd(torch, fused_sgd_, torch_fused_sgd_, n, rate):
+    """At ``n``: the kernel's device ms (CUDA graph) and eager ms, the
+    plain version's device ms, the library yardstick's (the kernel
+    ``torch.optim.SGD(fused=True).step()`` launches, ``torch._fused_sgd_``,
+    graph-timed) and the eager ``step()``, and the bound. Launches made
+    here are not counted."""
+    p, g = _sgd_buffers(torch, n, seed=3)
+    buf = torch.zeros_like(p)
+    init, count = _sgd_flags(torch, True)
+    keep = torch.tensor(True, device="cuda")
+    launches = fused_sgd_.launches
+
+    def kernel():
+        fused_sgd_(p, g, buf, init, count, keep, impl="cuda", nesterov=True,
+                   **SGD_HYPER)
+
+    ms = _device_ms(kernel, torch)
+    eager_ms = _eager_ms(kernel, torch)
+    fused_sgd_.launches = launches
+    plain_ms = _device_ms(lambda: torch_fused_sgd_(
+        p, g, buf, init, count, keep, nesterov=True, **SGD_HYPER), torch)
+    lib_p, lib_buf = p.clone(), buf.clone()
+
+    def library():
+        torch._fused_sgd_([lib_p], [g], [lib_buf], weight_decay=1e-4,
+                          momentum=0.9, lr=0.1, dampening=0.0, nesterov=True,
+                          maximize=False, is_first_step=False)
+
+    library_ms = _device_ms(library, torch)
+    param = torch.nn.Parameter(p.clone())
+    param.grad = g
+    opt = torch.optim.SGD([param], lr=0.1, momentum=0.9, weight_decay=1e-4,
+                          nesterov=True, fused=True)
+    step_ms = _eager_ms(opt.step, torch)
+    bound_ms, bound_by = _sgd_bound(n, rate)
+    return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_step_ms=step_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -370,26 +480,33 @@ def main() -> int:
 
     from pytorch_multiprocessing_distributed_tpu_torch import (serve_lm,
                                                                train_lm)
+    from pytorch_multiprocessing_distributed_tpu_torch import (
+        main as image_main)
+    from pytorch_multiprocessing_distributed_tpu_torch.data import (
+        normalize, synthetic_cifar10)
     from pytorch_multiprocessing_distributed_tpu_torch.inference import (
         generate)
     from pytorch_multiprocessing_distributed_tpu_torch.models import (
-        get_model)
+        get_model, init_resnet)
     from pytorch_multiprocessing_distributed_tpu_torch.ops import _build
     # the module (the package's ``flash_attention`` name is the function)
     fa = importlib.import_module(
         "pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention")
     from pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention \
         import decode_attention, torch_decode_attention
+    from pytorch_multiprocessing_distributed_tpu_torch.ops.fused_update \
+        import fused_sgd_, torch_fused_sgd_
     from pytorch_multiprocessing_distributed_tpu_torch.serving import (
         ServingEngine, init_params)
     from pytorch_multiprocessing_distributed_tpu_torch.train import (
-        create_lm_train_state, make_lm_train_step, sgd)
+        create_lm_train_state, create_train_state, make_lm_train_step,
+        make_train_step, sgd, sgd_fused)
 
     smi = _nvidia_smi()
-    name = torch.cuda.get_device_name(0)
-    rate = _hbm_rate(name)
+    card = torch.cuda.get_device_name(0)
+    rate = _hbm_rate(card)
     _print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-           f"python {sys.version.split()[0]}; card {name}; "
+           f"python {sys.version.split()[0]}; card {card}; "
            f"{torch.cuda.device_count()} device(s)")
     _print(smi)
 
@@ -584,6 +701,106 @@ def main() -> int:
            f"{EXACT_LOSS_TOL}), max param err {param_err:.3e} (tol "
            f"{EXACT_PARAM_TOL})")
 
+    # -- phase 9: the fused SGD kernel against its plain version
+    sgd_worst = 0.0
+    for n in SGD_SIZES:
+        for nesterov in (True, False):
+            kp, kb, kinit, kcount = _sgd_steps(torch, fused_sgd_, n, nesterov,
+                                               impl="cuda")
+            pp, pb, pinit, pcount = _sgd_steps(torch, torch_fused_sgd_, n,
+                                               nesterov)
+            err = max(float((kp - pp).abs().max()),
+                      float((kb - pb).abs().max()))
+            if not (err <= 0.0 and (kinit, kcount) == (pinit, pcount)
+                    == (True, 3)):
+                raise AssertionError(
+                    f"fused_sgd N={n} nesterov={nesterov}: max|err| {err} "
+                    f"(tol 0), flags {(kinit, kcount)} vs {(pinit, pcount)}")
+            sgd_worst = max(sgd_worst, err)
+    sgd_t = _time_sgd(torch, fused_sgd_, torch_fused_sgd_, SGD_SIZES[0], rate)
+    _print(f"[sgd] fused_sgd N={SGD_SIZES[0]} (and {SGD_SIZES[1]}), 4 steps "
+           f"incl. first and skipped, nesterov on/off: max_abs_err="
+           f"{sgd_worst:.3e} (tol 0) ms={sgd_t['ms']:.5f} "
+           f"eager_ms={sgd_t['eager_ms']:.5f} "
+           f"plain_ms={sgd_t['plain_ms']:.5f} "
+           f"library_ms={sgd_t['library_ms']:.5f} (torch._fused_sgd_) "
+           f"library_step_ms={sgd_t['library_step_ms']:.5f} "
+           f"(SGD(fused=True).step(), eager) "
+           f"bound_ms={sgd_t['bound_ms']:.5f} ({sgd_t['bound_by']}) "
+           f"[{smi}]")
+
+    # -- phase 10: train the image model through the port's CLI entry
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults:
+    torch.backends.cudnn.allow_tf32 = True  # the CLI's setting
+    os.environ["PMDT_SMALL_SYNTH"] = "8192"
+    fused_sgd_.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        summary = image_main.main([
+            "--device", "cuda", "--world_size", "1", "--model", "res",
+            "--synthetic", "--optimizer", "sgd_fused", "--batch_size", "64",
+            "--epochs", "1", "--seed", "0", "--print-freq", "16",
+            "--save_path", tmp])
+        wall = time.perf_counter() - t0
+        missing = [f for f in ("train.log", "test.log", "model_1.pth",
+                               "model_1.pth.sha256", "test_accuracy.png",
+                               "loss.png", "main.py")
+                   if not os.path.exists(os.path.join(tmp, f))]
+    image_launches = fused_sgd_.launches
+    if missing:
+        raise AssertionError(f"main wrote no {missing}")
+    if summary["steps"] != IMAGE_STEPS:
+        raise AssertionError(
+            f"main ran {summary['steps']}/{IMAGE_STEPS} train steps")
+    if (image_launches != IMAGE_STEPS
+            or summary["launches"]["fused_sgd"] != IMAGE_STEPS):
+        raise AssertionError(
+            f"fused_sgd launched {image_launches} times (the CLI counted "
+            f"{summary['launches']}); expected one per train step, "
+            f"{IMAGE_STEPS}")
+    loss = summary["epoch_losses"][0]
+    if not math.isfinite(loss) or not loss < summary["first_loss"]:
+        raise AssertionError(
+            f"epoch loss {loss} is not finite and below the first printed "
+            f"loss {summary['first_loss']}")
+    _print(f"[image-train] ResNet-18 f32 (cuDNN TF32 on) B=64, "
+           f"{IMAGE_STEPS} steps + {IMAGE_EVALS} eval batches: wall "
+           f"{wall:.2f} s, first loss {summary['first_loss']:.4f}, epoch "
+           f"loss {loss:.4f}, test accuracy {summary['test_acc'][0]:.2f}, "
+           f"images/s {summary['images_per_sec']:.1f}, steady step "
+           f"{summary['steady_step_s'] * 1e3:.3f} ms, launches "
+           f"{image_launches} [{smi}]")
+
+    # -- phase 11: sgd == sgd_fused through 3 full-width steps, f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    x, y = synthetic_cifar10(3 * 64, seed=11)
+    images = torch.from_numpy(normalize(x)).cuda().view(3, 64, 32, 32, 3)
+    labels = torch.from_numpy(y).cuda().view(3, 64)
+    runs = {}
+    for opt_name, make in (("sgd", sgd), ("sgd_fused", sgd_fused)):
+        model = init_resnet(get_model("res"), 3).cuda()
+        state = create_train_state(model)
+        step = make_train_step(model, make(0.1))
+        losses = [float(step(state, xb, yb)[1]["loss"])
+                  for xb, yb in zip(images, labels)]
+        runs[opt_name] = (losses, state.params.clone(), state.stats.clone())
+        del model, state
+    img_errs = (max(abs(a - b) for a, b in zip(runs["sgd"][0],
+                                               runs["sgd_fused"][0])),
+                float((runs["sgd"][1] - runs["sgd_fused"][1]).abs().max()),
+                float((runs["sgd"][2] - runs["sgd_fused"][2]).abs().max()))
+    if not max(img_errs) <= IMAGE_EXACT_TOL:
+        raise AssertionError(
+            f"sgd vs sgd_fused image training: loss/param/stat errors "
+            f"{img_errs} (tol {IMAGE_EXACT_TOL})")
+    _print(f"[image-exact] ResNet-18 f32 (TF32 off, deterministic cuDNN), "
+           f"3 steps B=64: losses sgd {runs['sgd'][0]} sgd_fused "
+           f"{runs['sgd_fused'][0]}, max loss/param/stat err "
+           f"{img_errs} (tol {IMAGE_EXACT_TOL})")
+
     # the kernels line: the kernel at the main path's largest window
     w_main = max(snap["decode_windows"])
     q, k, v, pos = _decode_inputs(torch, w_main, torch.bfloat16, seed=1)
@@ -620,9 +837,23 @@ def main() -> int:
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-        "shape": f"bf16 N=8 H=12 Dh=64 W={w_main}"}] + flash_entries}))
+        "shape": f"bf16 N=8 H=12 Dh=64 W={w_main}"}] + flash_entries + [{
+        "name": "fused_sgd", "route": "cuda",
+        "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
+                  "csrc/fused_update.cu",
+        "replaces": "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
+                    "fused_update.py:33",
+        "launches": image_launches, "max_abs_err": sgd_worst,
+        "ms": sgd_t["ms"], "kernel_ms": sgd_t["ms"],
+        "eager_ms": sgd_t["eager_ms"], "plain_ms": sgd_t["plain_ms"],
+        "bound_ms": sgd_t["bound_ms"], "bound_by": sgd_t["bound_by"],
+        "library_ms": sgd_t["library_ms"],
+        "library": "torch._fused_sgd_ (the kernel of torch.optim.SGD("
+                   "nesterov=True, fused=True).step())",
+        "library_step_ms": sgd_t["library_step_ms"],
+        "shape": f"f32 N={SGD_SIZES[0]}"}]}))
     _print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,0 +1,318 @@
+"""Image-classification training CLI — the port of the JAX package's
+``main.py`` (the reference's trainer: ResNet-18 on CIFAR-10, synchronous
+data-parallel SGD with synchronized BatchNorm), on the card by default.
+
+    python -m pytorch_multiprocessing_distributed_tpu_torch.main \\
+        --model res --synthetic --world_size 1 --save_path /tmp/run
+
+Flags keep the JAX CLI's names, defaults and order of checks, plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+Artifacts are the JAX CLI's: a snapshot of this script, the ``Epoch:
+[e][i/n]``, ``test : [i/n]`` and ``Accuracy`` lines, ``train.log`` and
+``test.log`` rows ``[epoch, loss, accuracy]``, ``model_{epoch}.pth``
+checkpoints (the port's own payload, :mod:`.train.checkpoint`) with
+``.sha256`` sidecars, ``--resume PATH|auto``, and ``test_accuracy.png``
+and ``loss.png``.
+
+Data parallel, one process per rank: under the JAX package's env
+contract (``PMDT_MASTER_ADDR``, ``PMDT_WORLD_SIZE``, ``PMDT_RANK``;
+:mod:`.parallel.dist`) the process joins the group as one rank.
+Without it, ``--world_size N > 1`` spawns N ranks through
+``torch.multiprocessing`` (the reference's ``mp.spawn``): one per card
+over NCCL, or N gloo processes with ``--device cpu``. The JAX default
+``--world_size 2`` stays the default; asking for more ranks than cards
+raises.
+
+On the card, f32 convolutions run under PyTorch's default
+``torch.backends.cudnn.allow_tf32 = True`` (TF32 tensor cores, as the
+reference ran) and f32 matmuls in full f32 (PyTorch's default).
+
+Flags of the JAX CLI this slice does not port are rejected by name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import socket
+import sys
+import tempfile
+from typing import List, Optional
+
+import torch
+
+from .data import get_loader
+from .device import resolve_device
+from .models import LM_MODELS, get_model, init_resnet
+from .ops.fused_update import fused_sgd_
+from .ops.losses import smooth_cross_entropy_loss
+from .parallel import dist
+from .train import create_train_state, sgd, sgd_fused
+from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
+                               load_with_fallback, resolve_auto_resume)
+from .train.optim import cosine_lr, multistep_lr
+from .train.trainer import Trainer
+
+_ROADMAP = "ROADMAP.md §1 item 5, 'Rest of the image path'"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Confidence Aware Learning")
+    p.add_argument('--batch_size', default=64, type=int, help='Batch size')
+    p.add_argument('--epochs', default=20, type=int,
+                   help='Total number of epochs to run')
+    p.add_argument('--model', default='res', type=str,
+                   help='res | resnet18 ... resnet152')
+    p.add_argument('--save_path', default='./test/', type=str,
+                   help='logs, checkpoints, plots and a snapshot of this '
+                        'script land here')
+    p.add_argument('--gpu', default='7', type=str,
+                   help='GPU id (unused, as in the JAX CLI)')
+    p.add_argument('--print-freq', '-p', default=10, type=int, metavar='N',
+                   help='print frequency (default: 10)')
+    p.add_argument('--world_size', default=2, type=int,
+                   help='data-parallel ranks (one process each)')
+    p.add_argument('--device', default='cuda', type=str,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch path, gloo between ranks)")
+    p.add_argument('--dataset', default='cifar',
+                   choices=['cifar', 'imagenet'])
+    p.add_argument('--data_root', default='', type=str,
+                   help='holds cifar-10-batches-py')
+    p.add_argument('--synthetic', action='store_true',
+                   help='deterministic synthetic CIFAR (no files needed)')
+    p.add_argument('--num_classes', default=0, type=int,
+                   help='label count (0 = 10)')
+    p.add_argument('--image_size', default=0, type=int,
+                   help='square input size (0 = 32)')
+    p.add_argument('--dtype', default='float32',
+                   choices=['float32', 'bfloat16'],
+                   help='compute dtype for conv/matmul (params stay f32)')
+    p.add_argument('--model_parallel', default=1, type=int)
+    p.add_argument('--zero', action='store_true')
+    p.add_argument('--zero1', action='store_true')
+    p.add_argument('--fsdp', action='store_true')
+    p.add_argument('--grad_accum', default=1, type=int)
+    p.add_argument('--clip_grad_norm', default=0.0, type=float)
+    p.add_argument('--label_smoothing', default=0.0, type=float,
+                   help='cross-entropy label smoothing epsilon')
+    p.add_argument('--ema', default=0.0, type=float, metavar='DECAY')
+    p.add_argument('--remat', action='store_true')
+    p.add_argument('--seed', default=0, type=int, help='init seed')
+    p.add_argument('--resume', default='', type=str,
+                   help="checkpoint path to resume from, or 'auto' = "
+                        "latest model_*.pth in --save_path")
+    p.add_argument('--save_every', default=0, type=int,
+                   help='checkpoint every N epochs (0 = final epoch only)')
+    p.add_argument('--keep_checkpoints', default=0, type=int,
+                   help='retain only the K newest checkpoints (0 = all)')
+    p.add_argument('--ckpt_backend', default='msgpack',
+                   choices=['msgpack', 'orbax'],
+                   help="'msgpack' = the single-file model_<epoch>.pth "
+                        "(the port's torch.save payload)")
+    p.add_argument('--ckpt_async', action='store_true')
+    p.add_argument('--lr', default=0.0, type=float,
+                   help='base learning rate (0 = 0.1, the reference)')
+    p.add_argument('--lr_schedule', default='multistep',
+                   choices=['multistep', 'cosine'],
+                   help='multistep = MultiStepLR([60, 80], 0.1); cosine = '
+                        'cosine decay over --epochs')
+    p.add_argument('--warmup_epochs', default=0, type=int,
+                   help='linear LR warmup epochs (cosine only)')
+    p.add_argument('--optimizer', default='sgd',
+                   choices=['sgd', 'lamb', 'sgd_fused'],
+                   help='sgd = the reference; sgd_fused = the same SGD in '
+                        'the fused single-pass CUDA kernel on the card')
+    p.add_argument('--profile', default='', type=str, metavar='LOGDIR')
+    p.add_argument('--torch_export', action='store_true')
+    p.add_argument('--max_restarts', default=0, type=int)
+    p.add_argument('--restart_backoff', default=1.0, type=float)
+    p.add_argument('--trace_out', default='', type=str)
+    p.add_argument('--events_out', default='', type=str)
+    p.add_argument('--flight_path', default='', type=str)
+    p.add_argument('--stats_port', default=0, type=int)
+    return p
+
+
+# (flag, is it set?) for every JAX flag this slice does not port
+_NOT_PORTED = (
+    ('--optimizer lamb', lambda a: a.optimizer == 'lamb'),
+    ('--dataset imagenet', lambda a: a.dataset == 'imagenet'),
+    ('--model_parallel', lambda a: a.model_parallel > 1),
+    ('--zero', lambda a: a.zero),
+    ('--zero1', lambda a: a.zero1),
+    ('--fsdp', lambda a: a.fsdp),
+    ('--grad_accum', lambda a: a.grad_accum != 1),
+    ('--clip_grad_norm', lambda a: a.clip_grad_norm != 0.0),
+    ('--ema', lambda a: a.ema != 0.0),
+    ('--remat', lambda a: a.remat),
+    ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
+    ('--ckpt_async', lambda a: a.ckpt_async),
+    ('--torch_export', lambda a: a.torch_export),
+    ('--profile', lambda a: bool(a.profile)),
+    ('--max_restarts', lambda a: a.max_restarts != 0),
+    ('--stats_port', lambda a: a.stats_port != 0),
+    ('--trace_out', lambda a: bool(a.trace_out)),
+    ('--events_out', lambda a: bool(a.events_out)),
+    ('--flight_path', lambda a: bool(a.flight_path)),
+)
+
+
+def _reject_not_ported(args) -> None:
+    for flag, is_set in _NOT_PORTED:
+        if is_set(args):
+            raise SystemExit(
+                f"{flag} is not ported to PyTorch yet ({_ROADMAP}); use the "
+                "JAX CLI main.py for it")
+
+
+def _check_flags(args) -> None:
+    """The JAX CLI's flag checks (those of the flags this slice keeps),
+    in its order, before any device, process group or data work."""
+    if args.model in LM_MODELS:
+        raise SystemExit(
+            f"--model {args.model} is a language model: it trains through "
+            "pytorch_multiprocessing_distributed_tpu_torch.train_lm, not "
+            "this image-classification CLI")
+    if args.warmup_epochs and args.lr_schedule != 'cosine':
+        raise SystemExit(
+            "--warmup_epochs applies to --lr_schedule cosine (the "
+            "reference's MultiStepLR has no warmup)")
+    if (args.image_size or 32) != 32:
+        raise SystemExit(
+            "--dataset cifar is fixed at 32x32 (the reference resizes to "
+            "32); --image_size applies to --dataset imagenet")
+    if args.world_size < 1:
+        raise SystemExit(f"--world_size must be >= 1, got {args.world_size}")
+
+
+def _schedule(args):
+    base = args.lr or 0.1
+    if args.lr_schedule == 'cosine':
+        return cosine_lr(base, args.epochs, warmup_epochs=args.warmup_epochs)
+    return multistep_lr(base, milestones=[60, 80], gamma=0.1)
+
+
+def run(args) -> dict:
+    """One data-parallel rank: join the group named by the ``PMDT_*``
+    env (no group for one process), train and validate every epoch,
+    checkpoint, plot. Returns the rank's summary."""
+    device = resolve_device(args.device)
+    dist.init_process(device)
+    world = dist.get_world_size()
+    if world != args.world_size:
+        raise SystemExit(
+            f"--world_size {args.world_size} but the process group has "
+            f"{world} rank(s) (PMDT_WORLD_SIZE)")
+    device = dist.device_for_rank(device)
+    rank, primary = dist.get_rank(), dist.is_primary()
+
+    train_loader, test_loader = get_loader(args, world_size=world, rank=rank)
+    dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
+    model = get_model(args.model, dtype=dtype,
+                      num_classes=args.num_classes or 10)
+    init_resnet(model, args.seed).to(device)
+    state = create_train_state(model)
+    make = sgd_fused if args.optimizer == 'sgd_fused' else sgd
+    optimizer = make(learning_rate=_schedule(args), momentum=0.9,
+                     weight_decay=0.0001, nesterov=True)
+
+    start_epoch = 1
+    if args.resume:
+        path = args.resume
+        if args.resume == 'auto':
+            path = resolve_auto_resume(args.save_path) or ''
+            if not path and primary:
+                print(f"--resume auto: no checkpoint under "
+                      f"{args.save_path}; starting fresh", flush=True)
+        if path:
+            if args.resume == 'auto':
+                state, used = load_with_fallback(
+                    args.save_path, state, anchor=checkpoint_epoch(path))
+            else:
+                state, used = load_checkpoint(path, state), path
+            start_epoch = state.epoch + 1
+            if primary:
+                print(f"Resumed from {used} (continuing at epoch "
+                      f"{start_epoch})", flush=True)
+
+    trainer = Trainer(
+        model=model, optimizer=optimizer, state=state,
+        train_loader=train_loader, test_loader=test_loader,
+        save_path=args.save_path, epochs=args.epochs, device=device,
+        print_freq=args.print_freq, start_epoch=start_epoch,
+        loss_fn=smooth_cross_entropy_loss(args.label_smoothing),
+        save_every=args.save_every, keep_checkpoints=args.keep_checkpoints)
+    launches0 = fused_sgd_.launches
+    trainer.fit()
+    if start_epoch > args.epochs and primary:
+        print(f"--resume: checkpoint already at epoch {start_epoch - 1} >= "
+              f"--epochs {args.epochs}; nothing to train", flush=True)
+    s = dict(trainer.summary)
+    steady = s.pop("steady")
+    s.update(world_size=world, device=str(device),
+             launches={"fused_sgd": fused_sgd_.launches - launches0},
+             images_per_sec=(args.batch_size * s["steps"]
+                             / max(s["train_s"], 1e-9)),
+             steady_step_s=(sum(t for t, _ in steady)
+                            / sum(n for _, n in steady)) if steady else None)
+    dist.destroy_process_group()
+    return s
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(rank: int, world: int, port: int, argv: List[str],
+                  threads: int, summary_path: str) -> None:
+    """A rank started by :func:`main`'s spawn: the ``PMDT_*`` env of
+    this process names the group, then :func:`run`."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    torch.set_num_threads(threads)
+    summary = run(build_parser().parse_args(argv))
+    if rank == 0:
+        with open(summary_path, "w") as f:
+            json.dump(summary, f)
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns the
+    primary rank's summary: per-epoch train losses and test accuracies,
+    the first printed loss, steps, images/s and the steady step time
+    (host clock, synced at the print boundaries), and the fused
+    kernel's launches."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    _reject_not_ported(args)
+    _check_flags(args)
+    device = resolve_device(args.device)
+    os.makedirs(args.save_path, exist_ok=True)
+    shutil.copy(__file__, os.path.join(args.save_path, 'main.py'))
+    if args.world_size == 1 or os.environ.get("PMDT_MASTER_ADDR"):
+        return run(args)
+    if device.type == "cuda" and torch.cuda.device_count() < args.world_size:
+        raise SystemExit(
+            f"--world_size {args.world_size} needs {args.world_size} CUDA "
+            f"devices, this machine has {torch.cuda.device_count()} (one "
+            "rank per card; pass --device cpu for gloo ranks on the CPU)")
+    import torch.multiprocessing as mp
+
+    # CPU ranks share this process's intra-op threads between them
+    threads = max(1, torch.get_num_threads() // args.world_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        summary_path = os.path.join(tmp, "summary.json")
+        mp.spawn(_spawned_rank, nprocs=args.world_size, join=True,
+                 args=(args.world_size, _free_port(), argv, threads,
+                       summary_path))
+        with open(summary_path) as f:
+            return json.load(f)
+
+
+if __name__ == "__main__":
+    main()

@@ -260,6 +260,6 @@ def GPT_Tiny(**kw) -> GPT:
                    num_layers=4, num_heads=4, mlp_dim=512)
 
 
-register("gpt_small")(GPT_Small)
-register("gpt_medium")(GPT_Medium)
-register("gpt_tiny")(GPT_Tiny)
+register("gpt_small", lm=True)(GPT_Small)
+register("gpt_medium", lm=True)(GPT_Medium)
+register("gpt_tiny", lm=True)(GPT_Tiny)

@@ -14,7 +14,7 @@ Dispatch convention (the counterpart of the JAX package's
 There is no ``try`` that falls back: on a CUDA tensor a wrapper launches
 its kernel or raises. Each wrapper counts its launches in a plain
 integer attribute (``decode_attention.launches``, ``flash_fwd.launches``,
-...), incremented where it
+``fused_sgd_.launches``, ...), incremented where it
 launches the kernel and nowhere else.
 
 Kernels are compiled from ``ops/csrc/`` at first use (:mod:`._build`).
@@ -53,3 +53,4 @@ from .flash_attention import (  # noqa: E402,F401
     flash_attention, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
     flash_pair_grads, torch_flash_bwd_dkv, torch_flash_bwd_dq,
     torch_flash_fwd)
+from .fused_update import fused_sgd_, torch_fused_sgd_  # noqa: E402,F401

@@ -39,8 +39,8 @@ GROUPS = (
 )
 
 
-def _group(name: str) -> str:
-    for label, keys in GROUPS:
+def _group(name: str, groups=GROUPS) -> str:
+    for label, keys in groups:
         if any(k in name for k in keys):
             return label
     return "elementwise / copies / other"
@@ -50,33 +50,31 @@ MODEL, BATCH, SEQ, LR, STEPS, SEED, TOP = ("gpt_small", 8, 1024, 0.01, 5,
                                            0, 20)
 
 
-def main() -> dict:
-    device = resolve_device("cuda")
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    model = get_model(MODEL, dtype=torch.bfloat16)
-    state = create_lm_train_state(model, init_params(model, SEED, device))
-    step = make_lm_train_step(model, sgd(LR))
-    rng = np.random.default_rng(SEED)
-    batches = [torch.from_numpy(rng.integers(
-        0, model.vocab_size, (BATCH, SEQ))).to(device) for _ in range(STEPS)]
 
-    for b in batches[:2]:  # warm-up: kernel builds, cuBLAS heuristics
-        step(state, b)
+
+def profile_steps(run_step, steps: int, groups=GROUPS):
+    """Time ``steps`` calls of ``run_step(i)`` with the host clock
+    around a synchronize, then trace as many more with ``torch.profiler``
+    (call it warm). Returns ``(step seconds, {kernel: device us over the
+    traced steps}, {group: device us})``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for b in batches:
-        step(state, b)
+    for i in range(steps):
+        run_step(i)
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / STEPS
+    step_s = (time.perf_counter() - t0) / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for b in batches:
-            step(state, b)
+        for i in range(steps):
+            run_step(i)
         torch.cuda.synchronize()
     kernels = defaultdict(float)  # device us per kernel name, all steps
     for evt in prof.key_averages():
@@ -88,26 +86,52 @@ def main() -> dict:
             kernels[evt.key] += dev_us
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
-    groups = defaultdict(float)
+    by_group = defaultdict(float)
     for name, us in kernels.items():
-        groups[_group(name)] += us
-    busy_ms = sum(kernels.values()) / 1e3 / STEPS
+        by_group[_group(name, groups)] += us
+    return step_s, kernels, by_group
+
+
+def report(label: str, step_s: float, kernels, by_group, steps: int,
+           smi: str, top: int = TOP) -> float:
+    """Print the step, the device's busy time and idle share (1 - summed
+    kernel time / step wall time; one stream, so kernels do not
+    overlap), the groups and the top kernels; returns busy ms/step."""
+    busy_ms = sum(kernels.values()) / 1e3 / steps
     step_ms = step_s * 1e3
-    tokens = BATCH * SEQ
-    print(smi)
-    print(f"[profile] {MODEL} bfloat16 B={BATCH} S={SEQ}: step "
-          f"{step_ms:.2f} ms (host clock, {STEPS} steps), "
-          f"{tokens / step_s:.1f} tokens/s, device "
-          f"busy {busy_ms:.2f} ms/step, idle share "
+    print(f"[profile] {label}: step {step_ms:.2f} ms (host clock, {steps} "
+          f"steps), device busy {busy_ms:.2f} ms/step, idle share "
           f"{max(0.0, 1 - busy_ms / step_ms):.3f} [{smi}]")
-    for label, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        ms = us / 1e3 / STEPS
-        print(f"[profile] group {label}: {ms:.2f} ms/step, "
+    for name, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        ms = us / 1e3 / steps
+        print(f"[profile] group {name}: {ms:.2f} ms/step, "
               f"{ms / step_ms:.3f} of the step")
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:TOP]:
-        print(f"[profile] kernel {us / 1e3 / STEPS:8.3f} ms/step  "
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[profile] kernel {us / 1e3 / steps:8.3f} ms/step  "
               f"{name[:110]}")
-    return {"step_ms": step_ms, "busy_ms": busy_ms,
+    return busy_ms
+
+
+def main() -> dict:
+    device = resolve_device("cuda")
+    smi = card()
+    model = get_model(MODEL, dtype=torch.bfloat16)
+    state = create_lm_train_state(model, init_params(model, SEED, device))
+    step = make_lm_train_step(model, sgd(LR))
+    rng = np.random.default_rng(SEED)
+    batches = [torch.from_numpy(rng.integers(
+        0, model.vocab_size, (BATCH, SEQ))).to(device) for _ in range(STEPS)]
+
+    for b in batches[:2]:  # warm-up: kernel builds, cuBLAS heuristics
+        step(state, b)
+    step_s, kernels, groups = profile_steps(
+        lambda i: step(state, batches[i]), STEPS)
+    print(smi)
+    print(f"[profile] {MODEL} bfloat16 B={BATCH} S={SEQ}: "
+          f"{BATCH * SEQ / step_s:.1f} tokens/s")
+    busy_ms = report(f"{MODEL} bfloat16 B={BATCH} S={SEQ}", step_s, kernels,
+                     groups, STEPS, smi)
+    return {"step_ms": step_s * 1e3, "busy_ms": busy_ms,
             "groups_ms": {k: v / 1e3 / STEPS for k, v in groups.items()}}
 
 

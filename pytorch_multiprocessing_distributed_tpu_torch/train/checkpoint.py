@@ -2,8 +2,9 @@
 ``train/checkpoint.py``, msgpack-free subset).
 
 The artifact is the port's own: ``torch.save`` of the state's flat
-flax-path dict (:meth:`..train.state.TrainState.to_dict`) under the
-JAX name ``model_{epoch}.pth``, written by the primary rank with the
+path dict (:meth:`..train.state.TrainState.to_dict`: params, the BN
+running stats under ``batch_stats/``, momenta, count, initialized and
+epoch) under the JAX name ``model_{epoch}.pth``, written by the primary rank with the
 same durability and integrity as JAX: tmp write -> fsync -> atomic
 rename -> fsync of the directory, then a ``.sha256`` sidecar of the
 exact payload bytes written AFTER the payload is durable. Loads verify

@@ -1,5 +1,6 @@
-"""SGD and LR schedules (the port of the JAX package's ``train/optim.py``,
-``sgd``/``cosine_lr`` subset).
+"""SGD and LR schedules (the port of the JAX package's ``train/optim.py``:
+``sgd``, the fused ``sgd_pallas`` seam, ``multistep_lr`` and
+``cosine_lr``).
 
 torch-exact SGD(momentum, weight decay, Nesterov), the rule the JAX
 ``sgd`` transform pins against ``torch.optim.SGD``:
@@ -10,23 +11,43 @@ torch-exact SGD(momentum, weight decay, Nesterov), the rule the JAX
     param -= lr * d
 
 The port runs it on the flat f32 buffers of
-:class:`..train.state.TrainState` (a handful of whole-buffer ops, no
-loop over leaves) and selects the old values back where the step's
-gradients were not finite — on the device, with no host sync. The LR is
-a float or a schedule of the epoch, evaluated on the host (the epoch is
-a host integer), in f32 like the JAX schedule.
+:class:`..train.state.TrainState` and keeps the old values where the
+step's gradients were not finite — on the device, with no host sync.
+``fused=False`` (``--optimizer sgd``) runs a handful of whole-buffer
+torch ops (:func:`..ops.fused_update.torch_fused_sgd_`); ``fused=True``
+(``--optimizer sgd_fused``, the JAX ``Transform.apply`` seam) runs the
+single-pass kernel :func:`..ops.fused_update.fused_sgd_` on the card
+and the same plain ops on the CPU. The LR is a float or a schedule of
+the epoch, evaluated on the host (the epoch is a host integer), in f32
+like the JAX schedule.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, Sequence, Union
 
 import numpy as np
 import torch
 
-from .step import guard_nonfinite
+from ..ops.fused_update import fused_sgd_, torch_fused_sgd_
 
 Schedule = Callable[[int], float]
+
+
+def multistep_lr(base_lr: float, milestones: Sequence[int] = (60, 80),
+                 gamma: float = 0.1) -> Schedule:
+    """torch ``MultiStepLR``: ``base * gamma ** (#milestones <= epoch)``
+    (the JAX ``multistep_lr``: the drop takes effect at the milestone
+    epoch itself), in f32."""
+    ms = sorted(int(m) for m in milestones)
+    f32 = np.float32
+
+    def schedule(epoch: int) -> float:
+        n_passed = sum(1 for m in ms if epoch >= m)
+        return float(f32(base_lr) * np.power(f32(gamma), f32(n_passed),
+                                             dtype=f32))
+
+    return schedule
 
 
 def cosine_lr(base_lr: float, total_epochs: int, warmup_epochs: int = 0,
@@ -57,15 +78,17 @@ def cosine_lr(base_lr: float, total_epochs: int, warmup_epochs: int = 0,
 
 
 class SGD:
-    """Nesterov SGD with weight decay on flat f32 buffers."""
+    """Nesterov SGD with weight decay on flat f32 buffers; ``fused``
+    selects the single-pass kernel (``--optimizer sgd_fused``)."""
 
     def __init__(self, learning_rate: Union[float, Schedule] = 0.1,
                  momentum: float = 0.9, weight_decay: float = 1e-4,
-                 nesterov: bool = True):
+                 nesterov: bool = True, fused: bool = False):
         self.learning_rate = learning_rate
         self.momentum = momentum
         self.weight_decay = weight_decay
         self.nesterov = nesterov
+        self.fused = fused
 
     def lr(self, lr_step: int) -> float:
         if callable(self.learning_rate):
@@ -81,18 +104,21 @@ class SGD:
         (all flat f32 of one length), then ``initialized`` set and
         ``count`` advanced. Where the device bool ``keep`` is False all
         four keep their old values (the NaN guard's skip)."""
-        lr = self.lr(lr_step)
-        g = grads + self.weight_decay * params
-        new_buf = torch.where(initialized, self.momentum * buf + g, g)
-        d = g + self.momentum * new_buf if self.nesterov else new_buf
-        new_params = params - lr * d
-        params.copy_(guard_nonfinite(keep, new_params, params))
-        buf.copy_(guard_nonfinite(keep, new_buf, buf))
-        initialized.logical_or_(keep)
-        count.add_(keep.to(count.dtype))
+        update = fused_sgd_ if self.fused else torch_fused_sgd_
+        update(params, grads, buf, initialized, count, keep,
+               lr=self.lr(lr_step), momentum=self.momentum,
+               weight_decay=self.weight_decay, nesterov=self.nesterov)
 
 
 def sgd(learning_rate: Union[float, Schedule] = 0.1, momentum: float = 0.9,
         weight_decay: float = 1e-4, nesterov: bool = True) -> SGD:
     """The JAX ``sgd`` transform's defaults (the reference's optimizer)."""
     return SGD(learning_rate, momentum, weight_decay, nesterov)
+
+
+def sgd_fused(learning_rate: Union[float, Schedule] = 0.1,
+              momentum: float = 0.9, weight_decay: float = 1e-4,
+              nesterov: bool = True) -> SGD:
+    """The JAX ``sgd_pallas``: the same trajectory as :func:`sgd`, with
+    the update in the fused kernel on the card."""
+    return SGD(learning_rate, momentum, weight_decay, nesterov, fused=True)

@@ -1,5 +1,7 @@
-"""Host-side utilities of the port (meters, serving metrics, log rows)."""
+"""Utilities of the port: meters, metrics, log rows and plots."""
 
 from .meters import AverageMeter, PercentileMeter  # noqa: F401
-from .metrics import ServingMetrics  # noqa: F401
+from .metrics import (ServingMetrics, accuracy,  # noqa: F401
+                      correct_count, topk_accuracy)
+from .plotting import draw_plot  # noqa: F401
 from .logger import Logger  # noqa: F401

@@ -1,6 +1,12 @@
-"""Serving metrics (host meters), ported from the JAX package's
-``utils/metrics.py`` ``ServingMetrics``.
+"""Training/eval metrics and serving metrics, ported from the JAX
+package's ``utils/metrics.py``.
 
+The classification half (:func:`topk_accuracy`, :func:`accuracy`,
+:func:`correct_count`) are tensor functions of ``(logits, targets)`` that
+stay on the logits' device, so the train step keeps them there until the
+trainer's windowed fetch (no host sync per batch).
+
+:class:`ServingMetrics` aggregates the serving engine's host meters.
 The fields are the ones this slice's engine records; ``snapshot()``
 reports them under the JAX snapshot's own key names, so a consumer of
 either CLI's ``--metrics_out`` reads the same keys. The fault-domain,
@@ -20,7 +26,42 @@ paged-KV and speculative counters arrive with their features.
 
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
+import torch
+
 from .meters import AverageMeter, PercentileMeter
+
+
+def topk_accuracy(logits: torch.Tensor, targets: torch.Tensor,
+                  topk: Sequence[int] = (1,)
+                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``(precs, correct)``: ``precs[i]`` is precision@``topk[i]`` as a
+    percentage (a scalar tensor), ``correct`` the ``[maxk, batch]`` bool
+    matrix "prediction j matches the target" (the reference's layout)."""
+    maxk = max(topk)
+    batch_size = targets.shape[0]
+    _, pred = torch.topk(logits, maxk, dim=-1)  # [batch, maxk]
+    correct = pred.t() == targets[None, :]
+    precs = [correct[:k].float().sum() * (100.0 / batch_size)
+             for k in topk]
+    return precs, correct
+
+
+def accuracy(logits: torch.Tensor, targets: torch.Tensor,
+             topk: Sequence[int] = (1,)
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(prec@topk[0] %, squeezed correctness mask)`` — the reference's
+    ``accuracy``."""
+    precs, correct = topk_accuracy(logits, targets, topk)
+    return precs[0], correct.squeeze()
+
+
+def correct_count(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """Number of argmax-correct samples (an int32 scalar tensor)."""
+    pred = torch.argmax(logits, dim=-1)
+    return (pred == targets).sum().to(torch.int32)
 
 
 class ServingMetrics:

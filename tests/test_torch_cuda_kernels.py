@@ -14,7 +14,9 @@ order); in bf16 the lse within 1e-4 and the bf16 outputs within 2e-2
 (the kernels round P and dS to bf16 before their tensor-core products,
 as the Pallas kernels do, where the plain version keeps them in f32;
 both round the outputs to bf16, and one unit in the last place of a
-value near 4 is 3e-2).
+value near 4 is 3e-2). Fused SGD: bit-equal (tolerance 0) — the kernel
+rounds each product and sum on its own, as the plain version's separate
+ops do.
 """
 
 import numpy as np
@@ -28,6 +30,8 @@ from pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention \
 from pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention \
     import (flash_bwd_dkv, flash_bwd_dq, flash_fwd, torch_flash_bwd_dkv,
             torch_flash_bwd_dq, torch_flash_fwd)
+from pytorch_multiprocessing_distributed_tpu_torch.ops.fused_update import (
+    fused_sgd_, torch_fused_sgd_)
 from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     ServingEngine, init_params)
 from pytorch_multiprocessing_distributed_tpu_torch.train import (
@@ -205,3 +209,93 @@ def test_train_step_flash_matches_xla_on_card(cuda_device):
     np.testing.assert_allclose(got["flash"][0], got["xla"][0], atol=1e-5)
     torch.testing.assert_close(got["flash"][1], got["xla"][1], atol=1e-5,
                                rtol=0)
+
+
+def _sgd_buffers(dev, n, seed, offset=0):
+    """(params, grads, buf) views of n elements at ``offset`` elements
+    into their storage (an offset that is not a multiple of 4 takes the
+    kernel's unaligned path)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(n + offset, generator=gen,
+                             device=dev)[offset:] for _ in range(3))
+
+
+def _sgd_flags(dev, initialized, keep):
+    return (torch.tensor(initialized, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.tensor(keep, device=dev))
+
+
+@pytest.mark.parametrize("nesterov", [True, False])
+@pytest.mark.parametrize("n,offset", [(1, 0), (3, 0), (4, 0), (7, 0),
+                                      (1_000_003, 0), (4_903_242, 0),
+                                      (1027, 1), (4099, 2)])
+def test_fused_sgd_kernel_matches_plain(cuda_device, n, offset, nesterov):
+    """Row 8 over 4 steps (the first with init 0, a skipped one with
+    keep False) equals the plain version bit for bit, in place."""
+    hyper = dict(lr=0.1, momentum=0.9, weight_decay=1e-4,
+                 nesterov=nesterov)
+    runs = {}
+    for name, fn in (("kernel", fused_sgd_), ("plain", torch_fused_sgd_)):
+        p, g, b = _sgd_buffers(cuda_device, n, seed=n, offset=offset)
+        b.zero_()
+        ptrs = (p.data_ptr(), b.data_ptr())
+        init, count, _ = _sgd_flags(cuda_device, False, True)
+        before = fused_sgd_.launches
+        for step, keep in enumerate((True, True, False, True)):
+            grads = g * (step + 1) - 0.5
+            keep_t = torch.tensor(keep, device=cuda_device)
+            if name == "kernel":
+                fn(p, grads, b, init, count, keep_t, impl="cuda", **hyper)
+            else:
+                fn(p, grads, b, init, count, keep_t, **hyper)
+        torch.cuda.synchronize()
+        assert (p.data_ptr(), b.data_ptr()) == ptrs  # updated in place
+        if name == "kernel":
+            assert fused_sgd_.launches == before + 4
+        runs[name] = (p, b, bool(init), int(count))
+    (kp, kb, kinit, kcount), (pp, pb, pinit, pcount) = (runs["kernel"],
+                                                        runs["plain"])
+    assert torch.equal(kp, pp) and torch.equal(kb, pb)
+    assert kinit and pinit and kcount == pcount == 3
+
+
+def test_fused_sgd_kernel_skip_writes_nothing(cuda_device):
+    """keep False: params, momenta and both flags are left as they
+    were, NaN grads included (the NaN guard's skip)."""
+    p, g, b = _sgd_buffers(cuda_device, 4099, seed=1)
+    g[7] = float("nan")
+    init, count, keep = _sgd_flags(cuda_device, False, False)
+    saved = (p.clone(), b.clone())
+    fused_sgd_(p, g, b, init, count, keep, lr=0.1, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(p, saved[0]) and torch.equal(b, saved[1])
+    assert not bool(init) and int(count) == 0
+
+
+def test_fused_sgd_views_see_the_update(cuda_device):
+    """The model's parameters are views of the flat buffer: the in-place
+    kernel updates them without a copy."""
+    flat = torch.randn(10, device=cuda_device)
+    view = flat[2:6].view(2, 2)
+    grads = torch.ones(10, device=cuda_device)
+    buf = torch.zeros(10, device=cuda_device)
+    init, count, keep = _sgd_flags(cuda_device, False, True)
+    expect = flat[2:6] - 0.5 * (1 + 1e-4 * flat[2:6]) * 1.9
+    fused_sgd_(flat, grads, buf, init, count, keep, lr=0.5,
+               weight_decay=1e-4, impl="cuda")
+    torch.testing.assert_close(view.reshape(-1), expect, atol=1e-6,
+                               rtol=0)
+
+
+def test_fused_sgd_wrapper_contract_on_card(cuda_device):
+    p, g, b = _sgd_buffers(cuda_device, 64, seed=2)
+    init, count, keep = _sgd_flags(cuda_device, False, True)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        fused_sgd_(p, g, b, init, count, keep, lr=0.1, impl="torch")
+    with pytest.raises(ValueError, match="flat f32"):
+        fused_sgd_(p, g.double(), b, init, count, keep, lr=0.1)
+    with pytest.raises(ValueError, match="overlap"):
+        fused_sgd_(p, p, b, init, count, keep, lr=0.1)
+    with pytest.raises(ValueError, match="int32"):
+        fused_sgd_(p, g, b, init, count.long(), keep, lr=0.1)

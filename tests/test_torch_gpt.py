@@ -17,7 +17,7 @@ from pytorch_multiprocessing_distributed_tpu.serving import (
 from pytorch_multiprocessing_distributed_tpu_torch import (
     CudaUnavailableError)
 from pytorch_multiprocessing_distributed_tpu_torch.models import (
-    GPT, MODEL_REGISTRY, get_model)
+    GPT, LM_MODELS, MODEL_REGISTRY, get_model)
 from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     from_jax_params, init_params, load_params)
 
@@ -85,7 +85,11 @@ def test_registry_geometry_matches_jax(name):
 
 
 def test_registry_names_and_unknown():
-    assert set(MODEL_REGISTRY) == {"gpt_tiny", "gpt_small", "gpt_medium"}
+    lm = {"gpt_tiny", "gpt_small", "gpt_medium"}
+    assert LM_MODELS == lm
+    assert set(MODEL_REGISTRY) == lm | {"res", "resnet18", "resnet34",
+                                        "resnet50", "resnet101",
+                                        "resnet152"}
     with pytest.raises(KeyError, match="gpt_small"):
         get_model("gpt_huge")
 

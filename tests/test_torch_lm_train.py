@@ -41,6 +41,17 @@ SEQ, BATCH, STEPS = 32, 8, 3
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's torch work, restored after:
+    under the suite's parallel workers, torch's default of one thread
+    per core oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_state(model):
     """A fresh JAX train state (the JAX step donates its input)."""
     return jax_lm.create_lm_train_state(

@@ -35,6 +35,17 @@ FLAGS = ["--model", "gpt_tiny", "--batch_size", "8", "--seq_len", "32",
 ROW = re.compile(r"^\d{4} \d+\.\d{6} \d+\.\d{6}$")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's torch work, restored after:
+    under the suite's parallel workers, torch's default of one thread
+    per core oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_cli():
     spec = importlib.util.spec_from_file_location(
         "jax_train_lm_cli", os.path.join(REPO, "train_lm.py"))
