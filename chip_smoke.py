@@ -75,12 +75,37 @@ nothing is caught):
    deterministic cuDNN): 3 steps with ``sgd`` and 3 with ``sgd_fused``
    from the same weights and batches of 64 agree in losses, params and
    BN running stats.
+12. paged-kernel — the int8 dense variant (row 1q) and the paged
+   variants, model dtype and int8 (row 2), against their plain versions
+   at gpt_small decode shapes (8 slots, 12 heads, Dh 64), page size 16,
+   windows 64/256/1024, ragged positions including 0, W-1 and one beyond
+   the window, shuffled page tables whose unallocated entries point at a
+   scratch page 0 of NaN (K) and 1e30 (V), in f32 and bf16. At W=1024
+   in bf16, per variant: device time (CUDA graph), eager time, the plain
+   version's time, the bound and the library yardstick
+   ``F.scaled_dot_product_attention`` on the already gathered and
+   dequantized dense window (timed here only; the port never calls it).
+13. serve-paged — ``serve_lm.main`` on full-width gpt_small, random
+   weights from seed 0, bf16, 8 slots, 16 synthetic requests of 32 new
+   tokens, decode horizon 4, three times: ``--kv_layout paged
+   --page_size 16 --prefix_cache 8 --num_pages 64``, the same with
+   ``--kv_dtype int8``, and dense ``--kv_dtype int8``. Every request
+   completes; the run's kernel variant launches exactly 12 times per
+   decode step and no other variant launches; after the drain only the
+   prefix cache holds pages. Tokens/s, TTFT p50/p99 and the pool's bytes
+   against the dense pool's.
+14. paged-exact — gpt_small in f32 (TF32 off): 4 requests through the
+   paged engine, the dense engine and ``generate`` are token-exact; a
+   repeated prompt (full prefix hit) and one that diverges after its
+   first page (partial hit) are token-exact with ``generate``; the int8
+   paged engine equals the int8 dense engine token for token.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
 version, and the times at the main path's shapes: the largest decode
 window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels,
-ResNet-18's N for fused SGD);
+ResNet-18's N for fused SGD, bf16 W=1024 for the int8 and paged decode
+variants);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -146,6 +171,25 @@ IMAGE_STEPS, IMAGE_EVALS = 128, 32  # 8192 / 64 and 2048 / 64
 # phase 11, sgd vs sgd_fused through 3 f32 steps: bit-equal updates on
 # deterministic cuDNN, so any difference would be the kernel's
 IMAGE_EXACT_TOL = 0.0
+
+
+# paged and int8 decode (phases 12-14)
+PAGE_SIZE = 16
+PAGED_WINDOWS = (64, 256, 1024)
+PAGED_TOL = 1e-4  # both sides dequantize alike: row 1's tolerance
+DECODE_REPLACES = "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
+VARIANTS = {  # name: (kernel row, replaces line, paged, int8)
+    "decode_attention_int8": ("1q", "decode_attention.py:71", False, True),
+    "paged_decode_attention": ("2", "decode_attention.py:191", True, False),
+    "paged_decode_attention_int8": ("2", "decode_attention.py:191", True,
+                                    True),
+}
+SERVE_BASE = ["--model", "gpt_small", "--random_init", "--dtype",
+              "bfloat16", "--max_slots", "8", "--synthetic", "16",
+              "--max_new_tokens", "32", "--decode_horizon", "4", "--seed",
+              "0", "--quiet"]
+SERVE_PAGED = ["--kv_layout", "paged", "--page_size", str(PAGE_SIZE),
+               "--prefix_cache", "8", "--num_pages", "64"]
 
 
 def _print(*parts):
@@ -466,6 +510,116 @@ def _time_sgd(torch, fused_sgd_, torch_fused_sgd_, n, rate):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _variant_case(torch, quantize_kv, variant, window, dtype, seed):
+    """Inputs of one decode variant at gpt_small decode shapes: q, K/V
+    (an int8 dense window view of an s_max cache, or page storage with a
+    scratch page 0 of NaN and 1e30), the shuffled table (paged) and
+    positions 0, W-1, one beyond the window and random columns."""
+    _, paged, quant = VARIANTS[variant][1:]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
+    q = torch.randn(n, 1, h, d, generator=gen, device="cuda").to(dtype)
+    pos = torch.randint(0, window, (n,), generator=gen, device="cuda")
+    pos[0], pos[1], pos[2] = 0, window - 1, window + 5
+    pos = pos.to(torch.int32)
+    if not paged:
+        s_max = max(PAGED_WINDOWS)
+        k = quantize_kv(torch.randn(n, s_max, h, d, generator=gen,
+                                    device="cuda") * 2)
+        v = quantize_kv(torch.randn(n, s_max, h, d, generator=gen,
+                                    device="cuda"))
+        return q, k[:, :window], v[:, :window], None, pos
+    ps = PAGE_SIZE
+    n_win = window // ps
+    n_pages = 1 + n * n_win + 7
+    k = torch.randn(n_pages, h, ps, d, generator=gen, device="cuda")
+    v = torch.randn(n_pages, h, ps, d, generator=gen, device="cuda")
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[:n * n_win].view(n, n_win).to(torch.int32)
+    for row, p in enumerate(pos.tolist()):
+        table[row, -(-(min(p, window - 1) + 1) // ps):] = 0
+    if quant:
+        k, v = quantize_kv(k * 2), quantize_kv(v)
+        k.data[0], v.data[0] = 127, 127
+        k.scale[0], v.scale[0] = float("nan"), 1e30
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        k[0], v[0] = float("nan"), 1e30
+    return q, k, v, table, pos
+
+
+def _variant_calls(da, variant, q, k, v, table, pos, window):
+    """(kernel call, plain call) of one variant on one input."""
+    if table is None:
+        return (lambda: da.decode_attention(q, k, v, pos, impl="cuda"),
+                lambda: da.torch_decode_attention(q, k, v, pos))
+    return (lambda: da.paged_decode_attention(q, k, v, table, pos,
+                                              window=window, impl="cuda"),
+            lambda: da.torch_paged_decode_attention(q, k, v, table, pos,
+                                                    window))
+
+
+def _variant_bound(q, k, table, pos, window, rate):
+    """Least time for one variant's work on these inputs: each row
+    reads its min(pos, W-1)+1 columns of K and V once (int8: a byte a
+    lane plus a 4-byte scale per (token, head); else 2 or 4 bytes a
+    lane), its table entries, q, positions and the f32 output; the f32
+    math is 4 flops per K/V element read, plus one dequant product per
+    int8 element."""
+    n, _, h, d = q.shape
+    cols_per_row = (pos.long().clamp(max=window - 1) + 1).tolist()
+    cols = sum(cols_per_row)
+    quant = hasattr(k, "scale")
+    group = d + 4 if quant else d * k.element_size()
+    entries = (sum(-(-c // PAGE_SIZE) for c in cols_per_row)
+               if table is not None else 0)
+    nbytes = (2 * cols * h * group + q.numel() * q.element_size() + n * 4
+              + entries * 4 + q.numel() * 4)
+    flops = cols * h * d * (4 + (2 if quant else 0))
+    t_bytes, t_ops = nbytes / rate, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _time_variant(torch, F, da, variant, q, k, v, table, pos, window,
+                  rate):
+    """Device times of one variant's kernel, its plain version and the
+    library call (SDPA on the window gathered and dequantized before the
+    timing), the kernel's eager time and the bound."""
+    kernel, plain = _variant_calls(da, variant, q, k, v, table, pos,
+                                   window)
+    if table is None:
+        kd, vd = (da.dequantize_kv(t, q.dtype) for t in (k, v))
+    else:
+        kd, vd = (da._gather_paged_window(t, table, q.dtype, window)
+                  for t in (k, v))
+    mask = (torch.arange(window, device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kd, vd))
+    scale = q.shape[-1] ** -0.5
+    bound_ms, bound_by = _variant_bound(q, k, table, pos, window, rate)
+    return dict(
+        ms=_device_ms(kernel, torch), eager_ms=_eager_ms(kernel, torch),
+        plain_ms=_device_ms(plain, torch),
+        library_ms=_device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale), torch),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _zero_decode_counts(da):
+    for fn in (da.decode_attention, da.paged_decode_attention):
+        fn.launches = 0
+        fn.int8_launches = 0
+
+
+def _decode_counts(da):
+    return {"decode_attention": da.decode_attention.launches,
+            "decode_attention_int8": da.decode_attention.int8_launches,
+            "paged_decode_attention": da.paged_decode_attention.launches,
+            "paged_decode_attention_int8":
+                da.paged_decode_attention.int8_launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -496,8 +650,12 @@ def main() -> int:
         import decode_attention, torch_decode_attention
     from pytorch_multiprocessing_distributed_tpu_torch.ops.fused_update \
         import fused_sgd_, torch_fused_sgd_
+    from pytorch_multiprocessing_distributed_tpu_torch.ops.kv_quant import (
+        quantize_kv)
+    da = importlib.import_module(
+        "pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention")
     from pytorch_multiprocessing_distributed_tpu_torch.serving import (
-        ServingEngine, init_params)
+        ServingEngine, SlotPool, init_params)
     from pytorch_multiprocessing_distributed_tpu_torch.train import (
         create_lm_train_state, create_train_state, make_lm_train_step,
         make_train_step, sgd, sgd_fused)
@@ -801,6 +959,139 @@ def main() -> int:
            f"{runs['sgd_fused'][0]}, max loss/param/stat err "
            f"{img_errs} (tol {IMAGE_EXACT_TOL})")
 
+    # -- phase 12: the int8 and paged decode variants against plain
+    variant_worst = {name: 0.0 for name in VARIANTS}
+    variant_main = {}
+    for variant in VARIANTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[1]
+            for w in PAGED_WINDOWS:
+                q, k, v, table, pos = _variant_case(torch, quantize_kv,
+                                                    variant, w, dtype,
+                                                    seed=w + 7)
+                kernel, plain = _variant_calls(da, variant, q, k, v, table,
+                                               pos, w)
+                got = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = float((got - ref).abs().max())
+                if not (bool(torch.isfinite(got).all())
+                        and err <= PAGED_TOL):
+                    raise AssertionError(
+                        f"{variant} {tname} W={w}: max|err| {err} > "
+                        f"{PAGED_TOL} (or not finite)")
+                variant_worst[variant] = max(variant_worst[variant], err)
+                paging = (f" page_size={PAGE_SIZE}" if table is not None
+                          else "")
+                line = (f"[paged-kernel] {variant} {tname} N=8 H=12 Dh=64 "
+                        f"W={w}{paging} positions={pos.tolist()} "
+                        f"max_abs_err={err:.3e} (tol {PAGED_TOL})")
+                if dtype == torch.bfloat16 and w == max(PAGED_WINDOWS):
+                    t = _time_variant(torch, F, da, variant, q, k, v, table,
+                                      pos, w, rate)
+                    variant_main[variant] = dict(
+                        t, shape=f"bf16 N=8 H=12 Dh=64 W={w}{paging}"
+                        + (" int8 KV" if VARIANTS[variant][3] else ""))
+                    line += (f" ms={t['ms']:.5f} eager_ms={t['eager_ms']:.5f}"
+                             f" plain_ms={t['plain_ms']:.5f} "
+                             f"library_ms={t['library_ms']:.5f} "
+                             f"bound_ms={t['bound_ms']:.5f} "
+                             f"({t['bound_by']}) [{smi}]")
+                _print(line)
+                del q, k, v, table, pos
+
+    # -- phase 13: serve paged, paged int8 and dense int8 through the CLI
+    serve_runs = (
+        ("paged_decode_attention", SERVE_PAGED),
+        ("paged_decode_attention_int8", SERVE_PAGED + ["--kv_dtype", "int8"]),
+        ("decode_attention_int8", ["--kv_dtype", "int8"]),
+    )
+    variant_launches = {}
+    for variant, extra in serve_runs:
+        _zero_decode_counts(da)
+        t0 = time.perf_counter()
+        psnap = serve_lm.main(SERVE_BASE + extra)
+        wall = time.perf_counter() - t0
+        counts = _decode_counts(da)
+        variant_launches[variant] = counts[variant]
+        if psnap["requests_completed"] != 16:
+            raise AssertionError(
+                f"{variant}: served {psnap['requests_completed']}/16")
+        steps = round(psnap["decode_horizon_avg"]
+                      * psnap["decode_dispatches"])
+        want = {name: (12 * steps if name == variant else 0)
+                for name in counts}
+        if steps < 1 or counts != want:
+            raise AssertionError(
+                f"{variant} serve: launches {counts} over {steps} decode "
+                f"steps; expected {want}")
+        held = psnap.get("pages_in_use", 0) - psnap.get(
+            "prefix_cache_pages", 0)
+        if held != 0:
+            raise AssertionError(
+                f"{variant} serve: {held} page(s) still held by requests "
+                "after the drain")
+        small = get_model("gpt_small", dtype=torch.bfloat16)
+        dense_bytes = {kv: 8 * SlotPool.per_slot_kv_bytes(small, 1024, kv)
+                       for kv in ("model", "int8")}
+        _print(f"[serve-paged] {variant}: gpt_small bf16 16 requests x 32 "
+               f"tokens, 8 slots, horizon 4, {' '.join(extra)}: wall "
+               f"{wall:.2f} s, decode steps {steps}, launches {counts}, "
+               f"decode tokens/s {psnap['decode_tokens_per_sec']:.1f}, "
+               f"TTFT p50 {psnap['ttft_p50_s'] * 1e3:.1f} ms p99 "
+               f"{psnap['ttft_p99_s'] * 1e3:.1f} ms, pages_in_use "
+               f"{psnap.get('pages_in_use', '-')} (prefix cache "
+               f"{psnap.get('prefix_cache_pages', '-')}, requests 0), "
+               f"prefix misses/hits {psnap['prefix_misses']}/"
+               f"{psnap['prefix_hits']}, page holds "
+               f"{psnap['page_holds']}, KV pool bytes "
+               f"{psnap['kv_pool_bytes']} vs dense bf16 s_max 1024 "
+               f"{dense_bytes['model']} (dense int8 {dense_bytes['int8']}) "
+               f"[{smi}]")
+
+    # -- phase 14: paged == dense == generate on the card, f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = get_model("gpt_small", dtype=torch.float32)
+    model.load_state_dict(init_params(model, 1, "cuda"), assign=True)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, model.vocab_size, (n,)).tolist()
+               for n in (5, 11, 17, 23)]
+    common = dict(max_slots=4, s_max=64, decode_horizon=4)
+    paged_kw = dict(kv_layout="paged", page_size=PAGE_SIZE, prefix_cache=8)
+
+    def transcripts(reqs, **kw):
+        return [r.tokens for r in ServingEngine(
+            model, **common, **kw).serve([(p, 12) for p in reqs])]
+
+    want = [generate(model, torch.tensor([p], device="cuda"),
+                     max_new_tokens=12)[0, -12:].tolist() for p in prompts]
+    if not transcripts(prompts) == transcripts(prompts, **paged_kw) == want:
+        raise AssertionError("paged, dense and generate disagree (f32)")
+    engine = ServingEngine(model, **common, **paged_kw)
+    diverged = prompts[3][:PAGE_SIZE] + [7, 8, 9]
+    first = engine.serve([(prompts[3], 12)])[0]
+    full, partial = engine.serve([(prompts[3], 12), (diverged, 12)])
+    tail = generate(model, torch.tensor([diverged], device="cuda"),
+                    max_new_tokens=12)[0, -12:].tolist()
+    if not ((first.tokens, full.tokens, partial.tokens)
+            == (want[3], want[3], tail)
+            and (full.prefix_hit, partial.prefix_hit)
+            == ("full", "partial")):
+        raise AssertionError(
+            f"prefix hits: full {full.prefix_hit} {full.tokens} vs "
+            f"{want[3]}, partial {partial.prefix_hit} {partial.tokens} vs "
+            f"{tail}")
+    int8_paged = transcripts(prompts, kv_dtype="int8", **paged_kw)
+    int8_dense = transcripts(prompts, kv_dtype="int8")
+    if int8_paged != int8_dense:
+        raise AssertionError(
+            f"int8 paged {int8_paged} != int8 dense {int8_dense}")
+    _print(f"[paged-exact] gpt_small f32: 4 requests, paged == dense == "
+           f"generate; full hit and partial hit == generate; int8 paged "
+           f"== int8 dense (agrees with the model-dtype stream on "
+           f"{sum(a == b for a, b in zip(int8_dense, want))}/4 requests)")
+
     # the kernels line: the kernel at the main path's largest window
     w_main = max(snap["decode_windows"])
     q, k, v, pos = _decode_inputs(torch, w_main, torch.bfloat16, seed=1)
@@ -851,7 +1142,23 @@ def main() -> int:
         "library": "torch._fused_sgd_ (the kernel of torch.optim.SGD("
                    "nesterov=True, fused=True).step())",
         "library_step_ms": sgd_t["library_step_ms"],
-        "shape": f"f32 N={SGD_SIZES[0]}"}]}))
+        "shape": f"f32 N={SGD_SIZES[0]}"}] + [{
+        "name": variant, "route": "cuda",
+        "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
+                  "csrc/decode_attention.cu",
+        "replaces": DECODE_REPLACES + VARIANTS[variant][1],
+        "launches": variant_launches[variant],
+        "max_abs_err": variant_worst[variant],
+        "ms": variant_main[variant]["ms"],
+        "kernel_ms": variant_main[variant]["ms"],
+        "eager_ms": variant_main[variant]["eager_ms"],
+        "plain_ms": variant_main[variant]["plain_ms"],
+        "bound_ms": variant_main[variant]["bound_ms"],
+        "bound_by": variant_main[variant]["bound_by"],
+        "library_ms": variant_main[variant]["library_ms"],
+        "library": "F.scaled_dot_product_attention on the gathered, "
+                   "dequantized dense window",
+        "shape": variant_main[variant]["shape"]} for variant in VARIANTS]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

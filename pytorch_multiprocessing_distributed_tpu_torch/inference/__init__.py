@@ -1,3 +1,3 @@
 """KV-cached generation (the port of the JAX package's inference)."""
 
-from .generate import generate  # noqa: F401
+from .generate import generate, teacher_forced_logits  # noqa: F401

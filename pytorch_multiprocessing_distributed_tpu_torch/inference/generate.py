@@ -12,9 +12,16 @@ KV caches (``[L, N, S, H, Dh]``) are written IN PLACE where the JAX
 code returned updated arrays: each decode step index-assigns its new
 K/V column into the caller's cache tensor.
 
+The decode body also serves the engine's paged caches (a page table
+maps each slot's columns onto ``[L, P, H, page_size, Dh]`` pages) and
+int8 caches (:class:`...ops.kv_quant.QuantizedKV`: the fresh K/V of each
+step are quantized before the write), and :func:`_block_chunk_prefill`
+is the engine's chunked prefill. :func:`teacher_forced_logits` runs a
+fixed transcript through either cache dtype.
+
 Not in this slice: ragged left-padded batches (``prompt_lengths``),
-tensor parallelism (``mesh``), paged and int8 caches, speculative
-verify, chunked prefill, MoE, beam search (ROADMAP.md).
+tensor parallelism (``mesh``), speculative verify, MoE, beam search
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,44 +32,76 @@ import torch
 
 from ..models.gpt import (_block_prefill, _dense, _embed, _ffn, _ln,
                           _logits, _split_heads)
-from ..ops.decode_attention import decode_attention
+from ..ops.decode_attention import decode_attention, paged_decode_attention
+from ..ops.kv_quant import QuantizedKV, kv_slice_in_dim, quantize_kv
 
-__all__ = ["generate"]
+__all__ = ["generate", "teacher_forced_logits"]
+
+
+def _write_kv(cache, index, new):
+    """``cache[index] = new`` on a cache that may be quantized (the
+    fresh K/V are quantized over Dh and both parts written)."""
+    if isinstance(cache, QuantizedKV):
+        qn = quantize_kv(new)
+        cache.data[index] = qn.data
+        cache.scale[index] = qn.scale
+    else:
+        cache[index] = new
 
 
 def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
-                        eps, window=None, attn_impl="auto"):
+                        eps, window=None, attn_impl="auto",
+                        page_table=None, page_size=None):
     """One cached step for every slot: ``x_t`` ``[N, 1, D]``; caches
     ``[N, S, H, Dh]`` (one layer). Row ``j`` writes its K/V at its own
     column ``positions[j]`` of the FULL cache (in place; a frozen row's
     position may lie beyond the window and re-writes its own column),
     then attends over the window view ``[0, window)`` through
-    :func:`..ops.decode_attention.decode_attention`."""
+    :func:`..ops.decode_attention.decode_attention`.
+
+    Paged mode (``page_table`` ``[N, pages_per_slot]`` int32 and
+    ``page_size``): the caches are one layer's pages ``[P, H, ps, Dh]``
+    and column ``c`` of row ``j`` lives at ``(page_table[j, c // ps],
+    c % ps)``. The write goes through the table (a released slot's row
+    is all scratch page 0, so its frozen re-write lands there), and the
+    attention reads the first ``ceil(window / ps)`` table entries
+    through :func:`..ops.decode_attention.paged_decode_attention`.
+    Either cache may be a :class:`...ops.kv_quant.QuantizedKV`."""
     n = x_t.shape[0]
     hn = _ln(x_t, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
     q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
     rows = torch.arange(n, device=x_t.device)
     cols = positions.long()
-    k_cache[rows, cols] = k[:, 0]
-    v_cache[rows, cols] = v[:, 0]
-    if window is not None and window < k_cache.shape[1]:
-        k_win, v_win = k_cache[:, :window], v_cache[:, :window]
+    if page_table is not None:
+        ps = int(page_size)
+        index = (page_table[rows, cols // ps].long(), slice(None),
+                 cols % ps)
+        _write_kv(k_cache, index, k[:, 0])
+        _write_kv(v_cache, index, v[:, 0])
+        n_win = (-(-int(window) // ps) if window is not None
+                 else page_table.shape[1])
+        att = paged_decode_attention(
+            q, k_cache, v_cache, page_table[:, :n_win], positions,
+            window=window, impl=attn_impl)
     else:
-        k_win, v_win = k_cache, v_cache
-    att = decode_attention(q, k_win, v_win, positions, impl=attn_impl)
+        _write_kv(k_cache, (rows, cols), k[:, 0])
+        _write_kv(v_cache, (rows, cols), v[:, 0])
+        if window is not None and window < k_cache.shape[1]:
+            k_win = kv_slice_in_dim(k_cache, 0, window, axis=1)
+            v_win = kv_slice_in_dim(v_cache, 0, window, axis=1)
+        else:
+            k_win, v_win = k_cache, v_cache
+        att = decode_attention(q, k_win, v_win, positions, impl=attn_impl)
     att = att.reshape(n, 1, -1).to(dtype)
     x_t = x_t + _dense(att, p.attn.wo, dtype)
     return x_t + _ffn(p, x_t, dtype, eps)
 
 
-def _sample(logits, temperature: float, top_k: int, top_p: float,
-            generator: Optional[torch.Generator]):
-    """``[B, V]`` logits -> ``[B]`` tokens (greedy when temperature is
-    0; otherwise temperature, then top-k, then nucleus top-p, drawn
-    from ``generator``)."""
-    if temperature == 0.0:
-        return logits.argmax(dim=-1)
+def _filter_logits(logits, temperature: float, top_k: int,
+                   top_p: float):
+    """The logits a draw is made from: divided by ``temperature``, then
+    top-k, then nucleus top-p (dropped tokens at ``-inf``)."""
     logits = logits / temperature
     if top_k:
         kth = logits.sort(dim=-1).values[:, -top_k][:, None]
@@ -78,7 +117,18 @@ def _sample(logits, temperature: float, top_k: int, top_p: float,
                           torch.full_like(sorted_p, float("inf")))
         cut = cut.min(dim=-1, keepdim=True).values
         logits = logits.masked_fill(probs < cut, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
+    return logits
+
+
+def _sample(logits, temperature: float, top_k: int, top_p: float,
+            generator: Optional[torch.Generator]):
+    """``[B, V]`` logits -> ``[B]`` tokens (greedy when temperature is
+    0; otherwise a draw from :func:`_filter_logits`'s logits with
+    ``generator``)."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(_filter_logits(logits, temperature, top_k,
+                                         top_p), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
@@ -87,7 +137,9 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
                     window: Optional[int] = None, attn_impl: str = "auto",
                     temperature: float = 0.0, top_k: int = 0,
                     top_p: float = 0.0,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    page_table: Optional[torch.Tensor] = None,
+                    page_size: Optional[int] = None):
     """``horizon`` cached decode steps over every row, with the freeze
     gates on the device: a row whose sampled token is its ``eos_ids``
     entry, or whose ``remaining`` budget reaches zero, emits that final
@@ -102,6 +154,10 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
       active: ``[N]`` bool; remaining: ``[N]`` int32 budgets; eos_ids:
         ``[N]`` int32 stop tokens (``-1`` = none).
       window: attention prefix ``[0, window)`` (None = the whole cache).
+      page_table / page_size: paged mode — the caches are ``[L, P, H,
+        page_size, Dh]`` pages and ``page_table`` ``[N,
+        pages_per_slot]`` int32 maps each row's columns onto them (read
+        only here). See :func:`_block_decode_slots`.
 
     Returns ``(tokens [horizon, N] int32, (positions, last_tokens,
     active, remaining))``.
@@ -114,7 +170,8 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
         for i in range(model.num_layers):
             x_t = _block_decode_slots(
                 model.block(i), x_t, k_caches[i], v_caches[i], positions,
-                h, dtype, eps, window=window, attn_impl=attn_impl)
+                h, dtype, eps, window=window, attn_impl=attn_impl,
+                page_table=page_table, page_size=page_size)
         logits = _logits(model, x_t, eps)[:, 0]
         nxt = _sample(logits, temperature, top_k, top_p,
                       generator).to(torch.int32)
@@ -146,6 +203,48 @@ def _prefill(model, prompt, s_max: int):
         k_caches[i, :, :t] = k
         v_caches[i, :, :t] = v
     return x, k_caches, v_caches
+
+
+def _block_chunk_prefill(p, x, k_cache, v_cache, start: int, h: int,
+                         dtype, eps):
+    """One chunk of an incremental prefill: ``x`` ``[B, C, D]`` holds
+    the prompt tokens at positions ``[start, start + C)``;
+    ``k_cache``/``v_cache`` ``[B, W, H, Dh]`` hold the prefix columns
+    ``[0, start)``. Writes this chunk's K/V at ``[start, start + C)`` (in
+    place) and attends row ``r`` to columns ``[0, start + r]`` — the
+    causal set :func:`_block_prefill` gives that token, so chunked and
+    whole-prompt prefill agree. Right-pad rows of a last partial chunk
+    write columns past the prompt, which stay masked until decode
+    overwrites them."""
+    b, c, _ = x.shape
+    hn = _ln(x, p.ln1, eps).to(dtype)
+    q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
+    q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
+    k_cache[:, start:start + c] = k
+    v_cache[:, start:start + c] = v
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k_cache.float()) * scale  # [B, H, C, W]
+    w = k_cache.shape[1]
+    mask = (torch.arange(w, device=x.device)[None, :]
+            <= start + torch.arange(c, device=x.device)[:, None])
+    probs = torch.softmax(
+        logits.masked_fill(~mask[None, None], float("-inf")), dim=-1)
+    att = torch.einsum("bhqk,bkhd->bqhd", probs, v_cache.float())
+    att = att.reshape(b, c, -1).to(dtype)
+    x = x + _dense(att, p.attn.wo, dtype)
+    return x + _ffn(p, x, dtype, eps)
+
+
+def _embed_at(model, tokens, start: int, dtype):
+    """Embed ``tokens`` ``[B, C]`` at positions ``start + r``, position
+    ids clamped into the table (pad rows past the prompt may lie beyond
+    ``max_seq_len``; they are never attended to)."""
+    c = tokens.shape[1]
+    ids = torch.clamp(start + torch.arange(c, device=tokens.device), 0,
+                      model.pos_embed.shape[0] - 1)
+    return (model.embed[tokens].to(dtype)
+            + model.pos_embed[ids][None].to(dtype))
 
 
 def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
@@ -201,3 +300,46 @@ def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
             generator=generator)
         generated = torch.cat([generated, toks.T], dim=1)
     return torch.cat([prompt, generated.to(prompt.dtype)], dim=1)
+
+
+def teacher_forced_logits(model, tokens: torch.Tensor, prompt_len: int, *,
+                          kv_dtype: str = "model",
+                          attn_impl: str = "auto") -> torch.Tensor:
+    """Decode-path logits along a FIXED transcript with the KV cache in
+    ``kv_dtype`` (``"model"`` or ``"int8"``): the int8 cache's quality
+    instrument (the JAX package's ``teacher_forced_logits``).
+
+    Prefills ``tokens[:, :prompt_len]``, quantizes the prefilled cache
+    as the serving engine's insert does (int8), then teacher-forces
+    ``tokens[:, prompt_len:]`` through the shared decode body. Returns
+    ``[T - prompt_len, B, V]`` f32: row 0 is the prefill's next-token
+    logits, row ``j`` predicts position ``prompt_len + j``. Two runs
+    (model dtype, int8) on one transcript isolate the cache
+    representation's logit cost."""
+    b, total = tokens.shape
+    steps = total - int(prompt_len)
+    if steps < 1:
+        raise ValueError(
+            f"need at least one decode position: prompt_len="
+            f"{prompt_len} vs {total} tokens")
+    dtype, eps, h = model.dtype, model.ln_eps, model.num_heads
+    x, k_caches, v_caches = _prefill(model, tokens[:, :prompt_len], total)
+    out = [_logits(model, x[:, -1:], eps)[:, 0]]
+    if kv_dtype == "int8":
+        # whole-cache quantization == insert-time quantization: the
+        # untouched tail columns become (data 0, scale 1)
+        k_caches, v_caches = quantize_kv(k_caches), quantize_kv(v_caches)
+    elif kv_dtype != "model":
+        raise ValueError(f"kv_dtype must be 'model' or 'int8', got "
+                         f"{kv_dtype!r}")
+    for p_idx in range(prompt_len, total - 1):
+        pos = torch.full((b,), p_idx, dtype=torch.int32,
+                         device=tokens.device)
+        x_t = (model.embed[tokens[:, p_idx]][:, None, :].to(dtype)
+               + model.pos_embed[p_idx][None, None, :].to(dtype))
+        for i in range(model.num_layers):
+            x_t = _block_decode_slots(
+                model.block(i), x_t, k_caches[i], v_caches[i], pos, h,
+                dtype, eps, attn_impl=attn_impl)
+        out.append(_logits(model, x_t, eps)[:, 0])
+    return torch.stack(out)

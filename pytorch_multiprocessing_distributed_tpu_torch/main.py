@@ -54,6 +54,7 @@ from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, resolve_auto_resume)
 from .train.optim import cosine_lr, multistep_lr
 from .train.trainer import Trainer
+from .utils import throughput
 
 _ROADMAP = "ROADMAP.md §1 item 5, 'Rest of the image path'"
 
@@ -252,10 +253,11 @@ def run(args) -> dict:
               f"--epochs {args.epochs}; nothing to train", flush=True)
     s = dict(trainer.summary)
     steady = s.pop("steady")
+    rate, per_card = throughput(args.batch_size * s["steps"], s["train_s"],
+                                world)
     s.update(world_size=world, device=str(device),
              launches={"fused_sgd": fused_sgd_.launches - launches0},
-             images_per_sec=(args.batch_size * s["steps"]
-                             / max(s["train_s"], 1e-9)),
+             images_per_sec=rate, images_per_sec_per_card=per_card,
              steady_step_s=(sum(t for t, _ in steady)
                             / sum(n for _, n in steady)) if steady else None)
     dist.destroy_process_group()

@@ -13,7 +13,8 @@ Dispatch convention (the counterpart of the JAX package's
 
 There is no ``try`` that falls back: on a CUDA tensor a wrapper launches
 its kernel or raises. Each wrapper counts its launches in a plain
-integer attribute (``decode_attention.launches``, ``flash_fwd.launches``,
+integer attribute (``decode_attention.launches``,
+``paged_decode_attention.int8_launches``, ``flash_fwd.launches``,
 ``fused_sgd_.launches``, ...), incremented where it
 launches the kernel and nowhere else.
 
@@ -48,7 +49,8 @@ def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
 
 
 from .decode_attention import (  # noqa: E402,F401
-    decode_attention, torch_decode_attention)
+    decode_attention, paged_decode_attention, torch_decode_attention,
+    torch_paged_decode_attention)
 from .flash_attention import (  # noqa: E402,F401
     flash_attention, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
     flash_pair_grads, torch_flash_bwd_dkv, torch_flash_bwd_dq,

@@ -1,32 +1,56 @@
 // Flash-decode attention for Hopper (sm_90a): one cached query per slot
-// over a dense KV window, f32 online softmax, f32 output.
+// over its KV window, f32 online softmax, f32 output. Four variants of
+// one kernel, chosen by a loader template:
 //
-// Replaces the TPU kernel
-//   pytorch_multiprocessing_distributed_tpu/ops/pallas/decode_attention.py
-//   `_decode_kernel` (launched by `_pallas_decode`, quant=False).
+//   dense, model dtype  — replaces `_decode_kernel` (quant=False)
+//   dense, int8 + scale — replaces `_decode_kernel` (quant=True)
+//   paged, model dtype  — replaces `_paged_decode_kernel` (quant=False)
+//   paged, int8 + scale — replaces `_paged_decode_kernel` (quant=True)
+//
+// (all in pytorch_multiprocessing_distributed_tpu/ops/pallas/
+// decode_attention.py, launched by `_pallas_decode` and
+// `_pallas_paged_decode`).
 //
 //   out[b, 0, h, :] = softmax(q[b,0,h,:] . K[b, 0..n_b-1, h, :]^T * Dh^-1/2)
 //                     . V[b, 0..n_b-1, h, :],   n_b = min(pos_b, W-1) + 1
 //
+// Column c of slot b lives at row (base, c') of the K/V storage:
+//   dense: base = b, c' = c            (k[b, c, h, :], any strides)
+//   paged: base = table[b, c / ps], c' = c % ps   (pages[P, H, ps, Dh])
+// and an int8 row carries one f32 scale per (token, head), read through
+// the same (base, c') from its `[.., H]` / `[P, H, ps]` sidecar.
+//
 // What bounds it on the card: HBM bytes. Each (slot, head) reads its
-// n_b keys and values once (2 * n_b * Dh * elt bytes) and does 4 flops
-// per element read, far below the ~295 flop/byte the H100 needs before
-// compute matters. So the design only moves bytes, and moves each once:
-//   - one CTA per (slot, head); K/V are read through their strides, so
-//     the engine's window view `k_cache[:, :W]` is never copied or
-//     transposed (the Pallas wrapper's merge/moveaxis has no twin here);
-//   - every thread loads 16 bytes per key (4 f32 or 8 bf16 lanes); the
-//     lanes of one key form a group of Dh/VEC threads that reads the
-//     key's Dh contiguous elements, so a group's load is whole cache
-//     lines; groups across the CTA walk different keys in parallel;
+// n_b keys and values once (2 * n_b * Dh * elt bytes, plus 2 * n_b * 4
+// bytes of scales for int8) and does 4 flops per element read, far
+// below the ~295 flop/byte the H100 needs before compute matters. So
+// the design only moves bytes, and moves each once:
+//   - one CTA per (slot, head); K/V are read through their strides (the
+//     engine's window view `k_cache[:, :W]` and its layer of the page
+//     storage are never copied; the Pallas wrapper's merge/moveaxis and
+//     the plain version's gather have no twin here);
+//   - every thread loads 16 bytes per key (4 f32, 8 bf16 or 16 int8
+//     lanes); the lanes of one key form a group of Dh/VEC threads that
+//     reads the key's Dh contiguous elements in whole cache lines;
+//     groups across the CTA walk different keys in parallel;
+//   - int8: the group's first lane reads the key's scale once and
+//     shares it by shuffle; each lane dequantizes exactly as
+//     `_kernel_dequant` does — f32 product, rounded to the query's dtype
+//     (bf16: round to nearest even), widened for the dot — so the
+//     kernel agrees with the plain dequantize-then-attend version;
+//   - paged: each key reads its page number from the slot's table row
+//     (one int per key, an L1 hit for the other keys of the page); a
+//     page past the slot's position is never touched, so unallocated
+//     entries (the scratch page 0) are never read;
 //   - each group keeps its own online-softmax state (running max m,
 //     denominator l, unnormalised accumulator) in registers, so the row
 //     of logits never touches memory; groups merge once in shared
 //     memory at the end;
 //   - only columns 0..min(pos, W-1) are read: the work tracks each
-//     slot's true length (the Pallas kernel's position gate), and a row
-//     whose position lies beyond the window (a frozen or inactive slot)
-//     is clamped to the window instead of reading out of bounds.
+//     slot's true length, and a row whose position lies beyond the
+//     window (a frozen or inactive slot) is clamped to the window, as
+//     the XLA reference does (the Pallas paged kernel would attend the
+//     rest of the window's last page).
 // Known limit: with 8 slots x 12 heads the grid is 96 CTAs for 132 SMs,
 // and one CTA walks the whole row. Splitting the key range across CTAs
 // (split-K flash-decoding) is the next step for small batches.
@@ -36,18 +60,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 8;
 
-template <typename T>
-struct Vec16;
+// 16-byte loads of the K/V storage type, widened to f32
+template <typename S>
+struct Lanes;
 
 template <>
-struct Vec16<float> {
+struct Lanes<float> {
   static constexpr int N = 4;
-  using Raw = float4;
-  static __device__ __forceinline__ void to_float(const Raw& r, float* f) {
+  static __device__ __forceinline__ void load(const float* p, float* f) {
+    const float4 r = *reinterpret_cast<const float4*>(p);
     f[0] = r.x;
     f[1] = r.y;
     f[2] = r.z;
@@ -56,10 +83,11 @@ struct Vec16<float> {
 };
 
 template <>
-struct Vec16<__nv_bfloat16> {
+struct Lanes<__nv_bfloat16> {
   static constexpr int N = 8;
-  using Raw = uint4;
-  static __device__ __forceinline__ void to_float(const Raw& r, float* f) {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -70,18 +98,70 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-template <typename T, int D>
+template <>
+struct Lanes<int8_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void load(const int8_t* p, float* f) {
+    const int4 r = *reinterpret_cast<const int4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(c[i]);
+  }
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// the dequantized value as the query's dtype holds it
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+}  // namespace
+
+// Strides are in elements. Storage row (base, col, head) of K sits at
+// k + base * k_s0 + col * k_s1 + head * k_s2 (dense: base = slot, col =
+// column; paged: base = page, col = column % page_size); the scales
+// likewise with ks_s*/vs_s*. `table` is null for dense windows.
+struct PmdtDecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scale;  // int8 only
+  const float* v_scale;
+  const int* positions;
+  const int* table;  // paged only: [B, >= ceil(W / page_size)]
+  float* out;
+  int B, H, W, D;
+  int dtype;  // 0 = float32, 1 = bfloat16 (q, and K/V unless int8)
+  int quant;  // 1: K/V are int8 with f32 scales
+  int page_size;
+  int table_stride;
+  long long q_sb, q_sh;
+  long long k_s0, k_s1, k_s2;
+  long long v_s0, v_s1, v_s2;
+  long long ks_s0, ks_s1, ks_s2;
+  long long vs_s0, vs_s1, vs_s2;
+  float scale;
+};
+
+namespace {
+
+template <typename T, typename S, int D, bool PAGED>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int* __restrict__ positions,
-                        float* __restrict__ out, int H, int W,
-                        long long q_sb, long long q_sh, long long k_sb,
-                        long long k_ss, long long k_sh, long long v_sb,
-                        long long v_ss, long long v_sh, float scale) {
-  using V = Vec16<T>;
-  using Raw = typename V::Raw;
-  constexpr int VEC = V::N;
+decode_attention_kernel(const PmdtDecodeArgs a) {
+  using L = Lanes<S>;
+  constexpr bool QUANT = std::is_same<S, int8_t>::value;
+  constexpr int VEC = L::N;
   constexpr int LANES = D / VEC;              // threads per key
   constexpr int KEYS_PER_WARP = 32 / LANES;   // keys a warp reads at once
   constexpr int GROUPS = kWarps * KEYS_PER_WARP;
@@ -92,6 +172,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float sm_l[GROUPS];
   __shared__ float sm_acc[GROUPS][D];
 
+  const int H = a.H;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
   const int lane = threadIdx.x & 31;
@@ -99,15 +180,18 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sub = lane % LANES;                      // Dh slice of this thread
   const int group = warp * KEYS_PER_WARP + lane / LANES;
 
-  const int pos = positions[b];
-  const int n_keys = min(pos, W - 1) + 1;  // <= 0 only for pos < 0: zeros
+  const int pos = a.positions[b];
+  const int n_keys = min(pos, a.W - 1) + 1;  // <= 0 only for pos < 0: zeros
 
   float qf[VEC];
-  V::to_float(*reinterpret_cast<const Raw*>(q + b * q_sb + h * q_sh +
-                                            sub * VEC),
-              qf);
-  const T* k_row = k + b * k_sb + h * k_sh + sub * VEC;
-  const T* v_row = v + b * v_sb + h * v_sh + sub * VEC;
+  const T* q_row = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
+                   sub * VEC;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) qf[i] = to_float(q_row[i]);
+  const S* k = static_cast<const S*>(a.k) + h * a.k_s2 + sub * VEC;
+  const S* v = static_cast<const S*>(a.v) + h * a.v_s2 + sub * VEC;
+  const int* t_row =
+      PAGED ? a.table + static_cast<long long>(b) * a.table_stride : nullptr;
 
   float m = -INFINITY;
   float l = 0.f;
@@ -117,18 +201,41 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // The loop bound is uniform across a warp (base steps by GROUPS), so
   // every lane reaches the shuffles below; lanes whose key lies past
-  // n_keys skip the load and the state update.
+  // n_keys skip the loads and the state update.
   for (int base = warp * KEYS_PER_WARP; base < n_keys; base += GROUPS) {
     const int j = base + lane / LANES;
     const bool valid = j < n_keys;
+    long long row = b;  // dense: the slot; paged: the page
+    long long col = j;
+    if (PAGED && valid) {
+      const int blk = j / a.page_size;
+      row = t_row[blk];
+      col = j - blk * a.page_size;
+    }
     float kf[VEC];
     float vf[VEC];
     if (valid) {
-      V::to_float(*reinterpret_cast<const Raw*>(k_row + j * k_ss), kf);
-      V::to_float(*reinterpret_cast<const Raw*>(v_row + j * v_ss), vf);
+      L::load(k + row * a.k_s0 + col * a.k_s1, kf);
+      L::load(v + row * a.v_s0 + col * a.v_s1, vf);
     } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) kf[i] = vf[i] = 0.f;
+    }
+    if (QUANT) {
+      // one scale read per (token, head), shared across the key's lanes
+      float ks = 0.f;
+      float vs = 0.f;
+      if (valid && sub == 0) {
+        ks = a.k_scale[row * a.ks_s0 + col * a.ks_s1 + h * a.ks_s2];
+        vs = a.v_scale[row * a.vs_s0 + col * a.vs_s1 + h * a.vs_s2];
+      }
+      ks = __shfl_sync(0xffffffffu, ks, lane - sub);
+      vs = __shfl_sync(0xffffffffu, vs, lane - sub);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        kf[i] = round_to<T>(__fmul_rn(kf[i], ks));
+        vf[i] = round_to<T>(__fmul_rn(vf[i], vs));
+      }
     }
     float s = 0.f;
 #pragma unroll
@@ -137,7 +244,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int off = LANES / 2; off > 0; off >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, off);
     if (valid) {
-      s *= scale;
+      s *= a.scale;
       const float m_new = fmaxf(m, s);
       const float corr = expf(m - m_new);  // m = -inf on the first key: 0
       const float p = expf(s - m_new);
@@ -169,52 +276,51 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       den = fmaf(sm_l[g], w, den);
       num = fmaf(sm_acc[g][d], w, num);
     }
-    out[(static_cast<long long>(b) * H + h) * D + d] =
+    a.out[(static_cast<long long>(b) * H + h) * D + d] =
         num / fmaxf(den, 1e-30f);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* positions, float* out, int B, int H, int W,
-                   long long q_sb, long long q_sh, long long k_sb,
-                   long long k_ss, long long k_sh, long long v_sb,
-                   long long v_ss, long long v_sh, float scale,
-                   cudaStream_t stream) {
-  decode_attention_kernel<T, D><<<B * H, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), positions, out, H, W, q_sb, q_sh, k_sb, k_ss,
-      k_sh, v_sb, v_ss, v_sh, scale);
+template <typename T, typename S, int D>
+cudaError_t launch(const PmdtDecodeArgs& a, cudaStream_t stream) {
+  if (a.table != nullptr)
+    decode_attention_kernel<T, S, D, true>
+        <<<a.B * a.H, kWarps * 32, 0, stream>>>(a);
+  else
+    decode_attention_kernel<T, S, D, false>
+        <<<a.B * a.H, kWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, typename S>
+cudaError_t launch_dim(const PmdtDecodeArgs& a, cudaStream_t stream) {
+  switch (a.D) {
+    case 32:
+      return launch<T, S, 32>(a, stream);
+    case 64:
+      return launch<T, S, 64>(a, stream);
+    case 128:
+      return launch<T, S, 128>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
-// (head_dim) stride of q, k and v must be 1 and every row start 16-byte
-// aligned (the Python wrapper checks both). Returns a cudaError_t.
-extern "C" int pmdt_decode_attention(
-    const void* q, const void* k, const void* v, const int* positions,
-    float* out, int B, int H, int W, int D, int dtype, long long q_sb,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, float scale,
-    void* stream) {
+// One launch of the variant `args` names (dtype, quant, table). The
+// Python wrapper checks shapes, unit head_dim strides and 16-byte row
+// alignment. Returns a cudaError_t.
+extern "C" int pmdt_decode_attention(const PmdtDecodeArgs* args,
+                                     void* stream) {
+  const PmdtDecodeArgs& a = *args;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PMDT_CASE(T, DIM)                                                   \
-  if (D == DIM)                                                             \
-    return static_cast<int>(launch<T, DIM>(q, k, v, positions, out, B, H,  \
-                                           W, q_sb, q_sh, k_sb, k_ss,      \
-                                           k_sh, v_sb, v_ss, v_sh, scale,  \
-                                           s));
-  if (dtype == 0) {
-    PMDT_CASE(float, 32)
-    PMDT_CASE(float, 64)
-    PMDT_CASE(float, 128)
-  } else if (dtype == 1) {
-    PMDT_CASE(__nv_bfloat16, 32)
-    PMDT_CASE(__nv_bfloat16, 64)
-    PMDT_CASE(__nv_bfloat16, 128)
-  }
-#undef PMDT_CASE
+  if (a.dtype == 0)
+    return static_cast<int>(a.quant ? launch_dim<float, int8_t>(a, s)
+                                    : launch_dim<float, float>(a, s));
+  if (a.dtype == 1)
+    return static_cast<int>(
+        a.quant ? launch_dim<__nv_bfloat16, int8_t>(a, s)
+                : launch_dim<__nv_bfloat16, __nv_bfloat16>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

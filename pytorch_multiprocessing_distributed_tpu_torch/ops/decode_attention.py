@@ -1,44 +1,60 @@
-"""Flash-decode attention: one cached query per slot over a KV window.
+"""Flash-decode attention: one cached query per slot over a KV window,
+dense or through a page table, over model-dtype or int8 K/V.
 
 The serving engine's decode step: ONE query token per slot attending
 over the slot's cached columns ``[0, position]``. On the card this runs
 the hand-written CUDA kernel ``csrc/decode_attention.cu`` (the port of
-the JAX package's Pallas ``_decode_kernel``): K/V are read once through
-their strides, the softmax is an online recurrence in registers, and a
-slot pays for its own length, not the window's. On the CPU it runs
-:func:`torch_decode_attention`, the plain masked-softmax math of the JAX
-package's ``xla_decode_attention``, which is also the kernel's reference
-on the card.
+the JAX package's Pallas ``_decode_kernel`` and
+``_paged_decode_kernel``): K/V are read once through their strides or
+the page table, int8 rows are dequantized in the stream, the softmax is
+an online recurrence in registers, and a slot pays for its own length,
+not the window's. On the CPU it runs the plain versions
+(:func:`torch_decode_attention`, the masked-softmax math of the JAX
+package's ``xla_decode_attention``; :func:`torch_paged_decode_attention`,
+its gather-then-dense ``xla_paged_decode_attention``), which are also
+the kernel's references on the card.
 
-Layouts are the JAX package's: q ``[B, 1, H, Dh]``, k/v ``[B, W, H,
-Dh]`` (the engine passes the window view ``k_cache[:, :W]``, never a
-copy), positions ``[B]`` int32; the output is f32 ``[B, 1, H, Dh]`` and
-the caller casts back to the model dtype.
+Layouts are the JAX package's: q ``[B, 1, H, Dh]``; dense k/v ``[B, W,
+H, Dh]`` (the engine passes the window view ``k_cache[:, :W]``, never a
+copy); pages ``[P, H, page_size, Dh]`` with a ``[B, n_win]`` int32 table;
+int8 K/V are a :class:`.kv_quant.QuantizedKV` whose scale drops the
+trailing Dh axis; positions ``[B]`` int32; the output is f32 ``[B, 1, H,
+Dh]`` and the caller casts back to the model dtype.
+
+Launch counts, one per variant (incremented where the kernel launches,
+nowhere else): ``decode_attention.launches`` (dense, model dtype),
+``decode_attention.int8_launches``, ``paged_decode_attention.launches``
+and ``paged_decode_attention.int8_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import resolve_impl
 from ._build import load
+from .kv_quant import QuantizedKV, dequantize_kv
 
-__all__ = ["decode_attention", "torch_decode_attention"]
+__all__ = ["decode_attention", "paged_decode_attention",
+           "torch_decode_attention", "torch_paged_decode_attention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
 
-def torch_decode_attention(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor,
+def torch_decode_attention(q: torch.Tensor, k, v,
                            positions: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch reference: f32 logits, masked softmax over columns
     ``<= positions[b]``, f32 PV (the JAX package's
-    ``xla_decode_attention`` with the mask built from positions).
-    A position beyond the window attends the whole window."""
+    ``xla_decode_attention`` with the mask built from positions). int8
+    K/V are dequantized to q's dtype first. A position beyond the
+    window attends the whole window."""
+    if isinstance(k, QuantizedKV):
+        k, v = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     cols = torch.arange(k.shape[1], device=k.device)
@@ -48,41 +64,54 @@ def torch_decode_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
 
 
-def _check(q, k, v, positions):
-    b, one, h, d = q.shape
-    if one != 1:
-        raise ValueError(f"q must be [B, 1, H, Dh], got {tuple(q.shape)}")
-    if k.dim() != 4 or k.shape[0] != b or k.shape[2:] != (h, d):
-        raise ValueError(
-            f"k must be [B, W, H, Dh] = [{b}, W, {h}, {d}], got "
-            f"{tuple(k.shape)}")
-    if v.shape != k.shape:
-        raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
-    if positions.shape != (b,) or positions.dtype != torch.int32:
-        raise ValueError(
-            f"positions must be int32 [{b}], got {positions.dtype} "
-            f"{tuple(positions.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(
-            f"the kernel takes f32 or bf16 q/k/v of one dtype, got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the kernel takes Dh in {_HEAD_DIMS}, got {d}")
-    if k.shape[1] < 1:
-        raise ValueError("empty KV window")
-    devs = {t.device for t in (q, k, v, positions)}
-    if len(devs) != 1:
-        raise ValueError(f"q/k/v/positions on different devices: {devs}")
-    vec = 16 // q.element_size()  # 16-byte loads: lanes per thread
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} needs a unit head_dim stride")
-        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
-            raise ValueError(
-                f"{name} rows must be 16-byte aligned (strides "
-                f"{t.stride()}, element size {t.element_size()})")
-    if not positions.is_contiguous():
-        raise ValueError("positions must be contiguous")
+def _gather_paged_window(pages, page_table: torch.Tensor, q_dtype,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Gather the table's pages into the contiguous ``[B, W, H, Dh]``
+    window the dense reference reads (int8 pages gather both parts and
+    dequantize with the kernel's expression), trimmed to ``window``."""
+    b, n_win = page_table.shape
+    idx = page_table.long()
+    h, ps, d = pages.shape[1], pages.shape[2], pages.shape[3]
+    if isinstance(pages, QuantizedKV):
+        data = pages.data[idx].permute(0, 1, 3, 2, 4).reshape(
+            b, n_win * ps, h, d)
+        scale = pages.scale[idx].permute(0, 1, 3, 2).reshape(
+            b, n_win * ps, h)
+        g = dequantize_kv(QuantizedKV(data, scale), q_dtype)
+    else:
+        g = pages[idx].permute(0, 1, 3, 2, 4).reshape(b, n_win * ps, h, d)
+    if window is not None and window < n_win * ps:
+        g = g[:, :window]
+    return g
+
+
+def torch_paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
+                                 page_table: torch.Tensor,
+                                 positions: torch.Tensor,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Plain reference of the paged path (the JAX package's
+    ``xla_paged_decode_attention``): gather the windowed pages, then the
+    dense reference math, so paged and dense agree bit for bit on the
+    same logical columns."""
+    k_win = _gather_paged_window(k_pages, page_table, q.dtype, window)
+    v_win = _gather_paged_window(v_pages, page_table, q.dtype, window)
+    return torch_decode_attention(q, k_win, v_win, positions)
+
+
+# ---- the CUDA kernel ---------------------------------------------------
+
+class _Args(ctypes.Structure):
+    """``PmdtDecodeArgs`` of ``csrc/decode_attention.cu``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "k_scale", "v_scale", "positions", "table", "out")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "H", "W", "D", "dtype", "quant", "page_size",
+            "table_stride")]
+        + [(n, ctypes.c_longlong) for n in (
+            "q_sb", "q_sh", "k_s0", "k_s1", "k_s2", "v_s0", "v_s1", "v_s2",
+            "ks_s0", "ks_s1", "ks_s2", "vs_s0", "vs_s1", "vs_s2")]
+        + [("scale", ctypes.c_float)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,41 +119,153 @@ def _kernel():
     """The C entry point with its ctypes signature (built at first
     use)."""
     fn = load("decode_attention").pmdt_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, positions):
-    fn = _kernel()
+def _check_q(q, positions):
+    b, one, h, d = q.shape
+    if one != 1:
+        raise ValueError(f"q must be [B, 1, H, Dh], got {tuple(q.shape)}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(
+            f"the kernel takes f32 or bf16 q, got {q.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"the kernel takes Dh in {_HEAD_DIMS}, got {d}")
+    if positions.shape != (b,) or positions.dtype != torch.int32:
+        raise ValueError(
+            f"positions must be int32 [{b}], got {positions.dtype} "
+            f"{tuple(positions.shape)}")
+    if not positions.is_contiguous():
+        raise ValueError("positions must be contiguous")
+
+
+def _check_kv(q, k, v, name="k"):
+    """k/v (dense ``[B, W, H, Dh]`` or pages ``[P, H, ps, Dh]``, model
+    dtype or int8 pairs): one dtype, 16-byte rows, unit Dh stride."""
+    quant = isinstance(k, QuantizedKV)
+    if isinstance(v, QuantizedKV) != quant:
+        raise ValueError("k and v must both be quantized or both not")
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
+    if len(k.shape) != 4 or k.shape[3] != q.shape[3]:
+        raise ValueError(
+            f"{name} must be 4-d with Dh={q.shape[3]}, got "
+            f"{tuple(k.shape)}")
+    data = [("k", k.data if quant else k), ("v", v.data if quant else v)]
+    if quant:
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise ValueError("quantized K/V must hold int8 data")
+        for s_name, s in (("k scale", k.scale), ("v scale", v.scale)):
+            if s.dtype != torch.float32 or s.shape != k.shape[:3]:
+                raise ValueError(
+                    f"{s_name} must be f32 {tuple(k.shape[:3])}, got "
+                    f"{s.dtype} {tuple(s.shape)}")
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"the kernel takes q/k/v of one dtype, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}")
+    for n, t in data + [("q", q)]:
+        vec = 16 // t.element_size()  # 16-byte loads: lanes per thread
+        if t.stride(3) != 1:
+            raise ValueError(f"{n} needs a unit head_dim stride")
+        if n != "q" and (t.data_ptr() % 16
+                         or any(s % vec for s in t.stride()[:3])):
+            raise ValueError(
+                f"{n} rows must be 16-byte aligned (strides "
+                f"{t.stride()}, element size {t.element_size()})")
+
+
+def _same_device(*tensors):
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {devs}")
+
+
+def _check(q, k, v, positions):
+    """Dense variant checks (``k``/``v`` ``[B, W, H, Dh]``)."""
+    _check_q(q, positions)
     b, _, h, d = q.shape
+    _check_kv(q, k, v)
+    if k.shape[0] != b or k.shape[2:] != (h, d):
+        raise ValueError(
+            f"k must be [B, W, H, Dh] = [{b}, W, {h}, {d}], got "
+            f"{tuple(k.shape)}")
+    if k.shape[1] < 1:
+        raise ValueError("empty KV window")
+    parts = [q, positions] + ([k.data, k.scale, v.data, v.scale]
+                              if isinstance(k, QuantizedKV) else [k, v])
+    _same_device(*parts)
+
+
+def _check_paged(q, k_pages, v_pages, page_table, positions, window):
+    _check_q(q, positions)
+    b, _, h, d = q.shape
+    _check_kv(q, k_pages, v_pages, name="pages")
+    if k_pages.shape[1] != h:
+        raise ValueError(
+            f"pages must be [P, H, page_size, Dh] with H={h}, got "
+            f"{tuple(k_pages.shape)}")
+    if (page_table.dim() != 2 or page_table.shape[0] != b
+            or page_table.dtype != torch.int32
+            or page_table.stride(1) != 1 or page_table.shape[1] < 1):
+        raise ValueError(
+            f"page_table must be int32 [{b}, n_win] with a unit last "
+            f"stride, got {page_table.dtype} {tuple(page_table.shape)}")
+    span = page_table.shape[1] * k_pages.shape[2]
+    if window is not None and not 1 <= window <= span:
+        raise ValueError(
+            f"window {window} must be in [1, n_win * page_size = {span}]")
+    parts = [q, positions, page_table] + (
+        [k_pages.data, k_pages.scale, v_pages.data, v_pages.scale]
+        if isinstance(k_pages, QuantizedKV) else [k_pages, v_pages])
+    _same_device(*parts)
+
+
+def _launch(q, k, v, positions, *, window, table=None, page_size=0):
+    """Fill the argument block and launch; returns the f32 output."""
+    b, _, h, d = q.shape
+    quant = isinstance(k, QuantizedKV)
+    kd, vd = (k.data, v.data) if quant else (k, v)
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    a = _Args(q=q.data_ptr(), k=kd.data_ptr(), v=vd.data_ptr(),
+              positions=positions.data_ptr(), out=out.data_ptr(),
+              B=b, H=h, W=window, D=d, dtype=_DTYPES[q.dtype],
+              quant=int(quant), q_sb=q.stride(0), q_sh=q.stride(2),
+              scale=d ** -0.5)
+    # storage row (base, col, head): dense [B, W, H, Dh] is (0, 1, 2);
+    # pages [P, H, ps, Dh] are (0, 2, 1)
+    dims = (0, 1, 2) if table is None else (0, 2, 1)
+    for prefix, t in (("k", kd), ("v", vd)) + (
+            (("ks", k.scale), ("vs", v.scale)) if quant else ()):
+        for i, dim in enumerate(dims):
+            setattr(a, f"{prefix}_s{i}", t.stride(dim))
+    if quant:
+        a.k_scale, a.v_scale = k.scale.data_ptr(), v.scale.data_ptr()
+    if table is not None:
+        a.table, a.page_size = table.data_ptr(), page_size
+        a.table_stride = table.stride(0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             positions.data_ptr(), out.data_ptr(), b, h, k.shape[1], d,
-             _DTYPES[q.dtype], q.stride(0), q.stride(2), k.stride(0),
-             k.stride(1), k.stride(2), v.stride(0), v.stride(1),
-             v.stride(2), d ** -0.5, stream)
+    err = _kernel()(ctypes.byref(a), stream)
     if err != 0:
         raise RuntimeError(
             f"decode_attention kernel launch failed: cudaError {err} "
-            f"(B={b} H={h} W={k.shape[1]} Dh={d} {q.dtype})")
-    decode_attention.launches += 1
+            f"(B={b} H={h} W={window} Dh={d} {q.dtype} int8={quant} "
+            f"paged={table is not None})")
     return out
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     positions: torch.Tensor, *,
+def decode_attention(q: torch.Tensor, k, v, positions: torch.Tensor, *,
                      impl: str = "auto") -> torch.Tensor:
-    """Single-step cached attention over a KV window.
+    """Single-step cached attention over a dense KV window.
 
     Args:
       q: ``[B, 1, H, Dh]`` — one pending query token per slot.
-      k, v: ``[B, W, H, Dh]`` KV window (any strides with a unit
-        ``Dh`` stride — the engine's ``cache[:, :W]`` view is read in
-        place).
+      k, v: ``[B, W, H, Dh]`` KV window (any strides with a unit ``Dh``
+        stride — the engine's ``cache[:, :W]`` view is read in place),
+        or a :class:`.kv_quant.QuantizedKV` pair (int8 data plus the
+        ``[B, W, H]`` f32 scales, dequantized in the stream).
       positions: ``[B]`` int32 — slot ``b`` attends columns
         ``[0, positions[b]]``; a position ``>= W`` attends the whole
         window.
@@ -135,8 +276,57 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if resolve_impl(impl, q) == "torch":
         return torch_decode_attention(q, k, v, positions)
     _check(q, k, v, positions)
-    return _launch(q, k, v, positions)
+    out = _launch(q, k, v, positions, window=k.shape[1])
+    if isinstance(k, QuantizedKV):
+        decode_attention.int8_launches += 1
+    else:
+        decode_attention.launches += 1
+    return out
 
 
-# launches of the CUDA kernel (incremented in _launch only)
+def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
+                           page_table: torch.Tensor,
+                           positions: torch.Tensor, *,
+                           window: Optional[int] = None,
+                           impl: str = "auto") -> torch.Tensor:
+    """Single-step cached attention through a page table.
+
+    Args:
+      q: ``[B, 1, H, Dh]``.
+      k_pages, v_pages: ``[P, H, page_size, Dh]`` page storage of ONE
+        layer (heads before the column offset, so one page of one head
+        is a contiguous ``[page_size, Dh]`` tile), or a
+        :class:`.kv_quant.QuantizedKV` pair with ``[P, H, page_size]``
+        f32 scales.
+      page_table: ``[B, n_win]`` int32 — slot ``b``'s column block
+        ``kb`` lives in page ``page_table[b, kb]``. The engine passes
+        the first ``ceil(window / page_size)`` entries of its table (a
+        view); unallocated entries point at the scratch page 0, which
+        the position bound keeps out of the read.
+      positions: ``[B]`` int32 — slot ``b`` attends columns
+        ``[0, positions[b]]``, clamped to the window.
+      window: logical column bound (None = ``n_win * page_size``).
+      impl: ``"auto"`` | ``"cuda"`` | ``"torch"``.
+
+    Returns ``[B, 1, H, Dh]`` f32 attention output.
+    """
+    if resolve_impl(impl, q) == "torch":
+        return torch_paged_decode_attention(q, k_pages, v_pages,
+                                            page_table, positions, window)
+    _check_paged(q, k_pages, v_pages, page_table, positions, window)
+    ps = k_pages.shape[2]
+    out = _launch(q, k_pages, v_pages, positions,
+                  window=window or page_table.shape[1] * ps,
+                  table=page_table, page_size=ps)
+    if isinstance(k_pages, QuantizedKV):
+        paged_decode_attention.int8_launches += 1
+    else:
+        paged_decode_attention.launches += 1
+    return out
+
+
+# launches of the CUDA kernel's variants (incremented after a launch only)
 decode_attention.launches = 0
+decode_attention.int8_launches = 0
+paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0

@@ -1,9 +1,10 @@
 """Continuous-batching LM serving CLI — the port of the JAX package's
-``serve_lm.py``, single-engine dense path, on the card by default.
+``serve_lm.py``, single-engine path, on the card by default.
 
     python -m pytorch_multiprocessing_distributed_tpu_torch.serve_lm \\
         --model gpt_small --random_init --dtype bfloat16 --max_slots 8 \\
-        --synthetic 16 --max_new_tokens 32 --decode_horizon 4
+        --synthetic 16 --max_new_tokens 32 --decode_horizon 4 \\
+        --kv_layout paged --page_size 16 --prefix_cache 8 --kv_dtype int8
 
 Flags keep the JAX CLI's names and meanings for what this slice does;
 ``--ckpt`` takes an ``.npz`` of the flattened JAX param tree
@@ -14,9 +15,12 @@ FILE`` (JSON Lines), ``--stdin`` (one byte-level prompt per line) or
 ``req=<uid> tokens=[...]`` when a request finishes; the final metrics
 snapshot is printed as ``metrics: {...}``.
 
-The JAX CLI's fleet, wire, autoscale, journal, restart, observability,
-paged/int8 KV, speculative, chunked-prefill and TP flags are rejected
-with a message naming ROADMAP.md.
+``--kv_layout paged`` (with ``--page_size``, ``--num_pages`` and
+``--prefix_cache``), ``--kv_dtype int8`` and ``--prefill_chunk`` keep the
+JAX CLI's names, defaults and meanings; the snapshot then carries the
+prefix-cache and page counters and the pool's bytes. The JAX CLI's
+fleet, wire, autoscale, journal, restart, observability, speculative
+and TP flags are rejected with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -36,14 +40,12 @@ from .serving import (QueueFull, Request, ServingEngine, init_params,
 
 # flags of the JAX CLI this slice does not port
 NOT_PORTED_FLAGS = (
-    "--ckpt_backend", "--ckpt_epoch", "--prefill_chunk", "--kv_layout",
-    "--page_size", "--num_pages", "--kv_dtype", "--prefix_cache",
-    "--draft_k", "--draft_model", "--draft_ckpt", "--tp", "--replicas",
-    "--role", "--router_port", "--listen", "--rid", "--connect",
-    "--fleet_store", "--fleet_run", "--fleet_ttl", "--autoscale",
-    "--rollout", "--drain_deadline_s", "--journal", "--max_restarts",
-    "--restart_backoff", "--stats_port", "--trace_out", "--events_out",
-    "--flight_path",
+    "--ckpt_backend", "--ckpt_epoch", "--draft_k", "--draft_model",
+    "--draft_ckpt", "--tp", "--replicas", "--role", "--router_port",
+    "--listen", "--rid", "--connect", "--fleet_store", "--fleet_run",
+    "--fleet_ttl", "--autoscale", "--rollout", "--drain_deadline_s",
+    "--journal", "--max_restarts", "--restart_backoff", "--stats_port",
+    "--trace_out", "--events_out", "--flight_path",
 )
 
 
@@ -69,6 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--decode_buckets', default='auto', type=str,
                    help="decode window ladder: 'auto', 'off' or sizes "
                         "'64,128,512'")
+    p.add_argument('--prefill_chunk', default=0, type=int,
+                   help='admit prompts in chunks of N tokens, one chunk '
+                        'per engine step between decode horizons (0 = '
+                        'whole-prompt prefill-on-join)')
     p.add_argument('--decode_horizon', default=1, type=int,
                    help='fuse up to H decode steps per token readback')
     p.add_argument('--decode_attn', default='auto',
@@ -76,6 +82,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help='decode attention: the CUDA kernel (cuda), the '
                         'plain PyTorch version on the CPU (torch), or '
                         'by device (auto)')
+    p.add_argument('--kv_layout', default='dense',
+                   choices=['dense', 'paged'],
+                   help='KV cache layout: dense slots (s_max columns per '
+                        'slot) or pages behind a per-slot page table (a '
+                        'request pins ceil(total/page_size) pages; '
+                        'token-exact with dense)')
+    p.add_argument('--page_size', default=0, type=int,
+                   help='paged: columns per KV page (0 = min_bucket)')
+    p.add_argument('--num_pages', default=0, type=int,
+                   help='paged: total pages incl. the scratch page (0 = '
+                        'the dense worst case)')
+    p.add_argument('--kv_dtype', default='model',
+                   choices=['model', 'int8'],
+                   help='KV elements: model dtype, or int8 lanes plus one '
+                        'f32 scale per head_dim group')
+    p.add_argument('--prefix_cache', default=0, type=int,
+                   help='paged + greedy: LRU entries of the shared-prefix '
+                        'cache (identical prompts prefill once; 0 = off)')
     p.add_argument('--max_new_tokens', default=32, type=int)
     p.add_argument('--eos', default=-1, type=int,
                    help='stop token id (-1 = none)')
@@ -185,7 +209,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
         top_k=args.top_k, top_p=args.top_p, generator=generator,
         eos_id=None if args.eos < 0 else args.eos,
         decode_buckets=decode_buckets, decode_horizon=args.decode_horizon,
-        decode_attn=args.decode_attn)
+        decode_attn=args.decode_attn,
+        prefill_chunk=args.prefill_chunk or None,
+        kv_layout=args.kv_layout, kv_dtype=args.kv_dtype,
+        page_size=(args.page_size or None
+                   if args.kv_layout == 'paged' else None),
+        num_pages=(args.num_pages or None
+                   if args.kv_layout == 'paged' else None),
+        prefix_cache=(args.prefix_cache
+                      if args.kv_layout == 'paged' else 0))
 
     def emit(events):
         if args.quiet:
@@ -228,6 +260,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
     snap["decode_windows"] = list(engine.decode_windows)
     snap["decode_horizon"] = engine.decode_horizon
     snap["decode_programs"] = [list(p) for p in engine.decode_programs]
+    pool = engine.pool
+    snap["kv_layout"], snap["kv_dtype"] = args.kv_layout, args.kv_dtype
+    if args.kv_layout == 'paged':
+        snap["page_size"] = pool.page_size
+        snap["num_pages"] = pool.num_pages
+        # after the drain, the prefix cache's entries are the only
+        # holders of pages left
+        snap["pages_in_use"] = pool.pages_in_use
+        snap["prefix_cache_pages"] = (
+            len(engine._prefix_cache.page_ids())
+            if engine._prefix_cache is not None else 0)
+        snap["kv_pool_bytes"] = pool.kv_bytes
+    else:
+        snap["kv_pool_bytes"] = pool.max_slots * pool.per_slot_kv_bytes(
+            model, pool.s_max, args.kv_dtype)
     snap["device"] = str(device)
     print("metrics: " + json.dumps(snap, sort_keys=True), flush=True)
     if args.metrics_out:

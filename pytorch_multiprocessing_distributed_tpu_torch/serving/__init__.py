@@ -1,8 +1,11 @@
 """Continuous-batching serving (the port of the JAX package's
-``serving``, dense single-engine subset)."""
+``serving``, single-engine subset: dense or paged KV, model dtype or
+int8, whole or chunked prefill, the shared-prefix cache)."""
 
 from .engine import ServingEngine  # noqa: F401
+from .kv_pages import (PagePool, PagePoolExhausted,  # noqa: F401
+                       PrefixCache, PrefixEntry)
 from .kv_slots import SlotPool  # noqa: F401
 from .params import from_jax_params, init_params, load_params  # noqa: F401
-from .scheduler import (FIFOScheduler, QueueFull, Request,  # noqa: F401
-                        bucket_length, pick_horizon)
+from .scheduler import (FIFOScheduler, PrefillPlan,  # noqa: F401
+                        QueueFull, Request, bucket_length, pick_horizon)

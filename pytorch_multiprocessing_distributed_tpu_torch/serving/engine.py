@@ -1,15 +1,34 @@
 """Continuous-batching serving engine over the shared KV-cache decode.
 
-The port of the JAX package's ``serving/engine.py``, dense subset:
+The port of the JAX package's ``serving/engine.py``, single-engine
+subset:
 
 - the KV cache is a :class:`~.kv_slots.SlotPool` of fixed
-  ``[layers, max_slots, s_max, heads, head_dim]`` tensors, written in
-  place;
-- **prefill-on-join**: a joining prompt is right-padded to its
-  power-of-two bucket, run through the shared
-  :func:`...inference.generate._prefill`, its first token sampled from
-  the prefill logits (``generate``'s ``tok0``), and its cache columns
-  spliced into a free slot;
+  ``[layers, max_slots, s_max, heads, head_dim]`` tensors, or with
+  ``kv_layout="paged"`` a :class:`~.kv_pages.PagePool` of fixed-size
+  pages behind a per-slot page table (a request pins ``ceil((L +
+  max_new) / page_size)`` pages instead of ``s_max`` columns), written in
+  place; ``kv_dtype="int8"`` stores either as int8 lanes plus one f32
+  scale per (token, head), quantized once at the insert and per token
+  in the decode step (prefill and chunk caches stay in the model dtype);
+- **prefill-on-join**, whole-prompt or chunked. Whole-prompt: a joining
+  prompt is right-padded to its power-of-two bucket, run through the
+  shared :func:`...inference.generate._prefill`, its first token sampled
+  from the prefill logits (``generate``'s ``tok0``), and its cache
+  columns spliced into a free slot. Chunked (``prefill_chunk=N``): the
+  prompt runs ``[1, N]`` at a time through
+  :func:`...inference.generate._block_chunk_prefill`, ONE chunk per
+  engine step between decode horizons, so no running request waits
+  longer than one chunk for its next token;
+- **shared-prefix cache** (``prefix_cache=N``, paged and greedy only):
+  a prompt whose leading pages were prefilled before maps them
+  read-only; an identical prompt is a FULL hit (the cached first token
+  is replayed, the partial last page forked copy-on-write, no prefill),
+  a prompt that shares whole pages is a PARTIAL hit (the shared pages
+  are gathered and only the suffix is chunk-prefilled). Under page
+  pressure the FIFO head is held (counted in ``page_holds``), the cache
+  sheds LRU entries first, and a head that nothing in flight could ever
+  make room for fails named :class:`~.kv_pages.PagePoolExhausted`;
 - **length-bucketed decode**: each decode step attends over the cache
   prefix ``[0, W)``, ``W`` the smallest ladder bucket covering the
   longest ACTIVE sequence (tracked on the host, no device read);
@@ -21,25 +40,26 @@ The port of the JAX package's ``serving/engine.py``, dense subset:
   before horizon ``h`` is read back, so the host does not sit between
   the card and its next work;
 - decode attention is the hand-written CUDA flash-decode kernel on the
-  card (``decode_attn="auto"``), the plain PyTorch version on the CPU.
+  card (``decode_attn="auto"``; dense or paged, model dtype or int8),
+  the plain PyTorch versions on the CPU.
 
 Greedy decode through the engine is token-for-token identical to
 per-request :func:`...inference.generate` (same helpers, same
-dtype/eps conventions).
+dtype/eps conventions), dense or paged, whole or chunked: the paged
+plain path gathers the same columns the dense one slices.
 
 Not in this slice, each rejected with ``NotImplementedError`` at
 construction (ROADMAP.md, "Port: serving features still to port"):
-tensor parallelism (``mesh``), paged KV (``kv_layout="paged"``,
-``page_size``, ``num_pages``, ``prefix_cache``), int8 KV
-(``kv_dtype="int8"``), speculative decode (``draft_k``,
-``draft_model``, ``draft_params``), chunked prefill (``prefill_chunk``),
-the request journal (``journal``), fault retries and the readback
-watchdog (``dispatch_retries > 1``, ``readback_timeout_s``) and
-per-request deadlines (``submit(deadline_s=...)``).
+tensor parallelism (``mesh``), speculative decode (``draft_k``,
+``draft_model``, ``draft_params``), the request journal (``journal``),
+fault retries and the readback watchdog (``dispatch_retries > 1``,
+``readback_timeout_s``) and per-request deadlines
+(``submit(deadline_s=...)``).
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from collections import deque
 from typing import Deque, Dict, Iterable, List, Optional, Sequence, Tuple
@@ -47,12 +67,16 @@ from typing import Deque, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..inference.generate import _decode_horizon, _logits, _prefill, _sample
+from ..inference.generate import (_block_chunk_prefill, _decode_horizon,
+                                  _embed_at, _logits, _prefill, _sample)
 from ..ops import resolve_impl
+from ..ops.kv_quant import KV_DTYPES, QuantizedKV, dequantize_kv, \
+    quantize_kv
 from ..utils.metrics import ServingMetrics
+from .kv_pages import PagePool, PagePoolExhausted, PrefixCache
 from .kv_slots import SlotPool
-from .scheduler import DONE, FIFOScheduler, QueueFull, Request, \
-    bucket_length, pick_horizon
+from .scheduler import DONE, FIFOScheduler, PrefillPlan, QueueFull, \
+    Request, bucket_length, pick_horizon
 
 __all__ = ["ServingEngine", "Request"]
 
@@ -60,14 +84,21 @@ __all__ = ["ServingEngine", "Request"]
 # the value that means "off" (accepted, so a caller passing the default
 # explicitly is not rejected)
 _NOT_PORTED = {
-    "mesh": None, "kv_layout": "dense", "kv_dtype": "model",
-    "page_size": None, "num_pages": None, "prefix_cache": 0,
-    "draft_k": 0, "draft_model": None, "draft_params": None,
-    "prefill_chunk": None, "journal": None, "dispatch_retries": 1,
-    "readback_timeout_s": None,
+    "mesh": None, "draft_k": 0, "draft_model": None, "draft_params": None,
+    "journal": None, "dispatch_retries": 1, "readback_timeout_s": None,
 }
 
 Event = Tuple[Request, int, bool]
+
+
+def _put(cache, index, value) -> None:
+    """``cache[index] = value`` on caches that may be quantized pairs
+    (``index`` selects leading axes only)."""
+    if isinstance(cache, QuantizedKV):
+        cache.data[index] = value.data
+        cache.scale[index] = value.scale
+    else:
+        cache[index] = value
 
 
 class _TokenBlock:
@@ -82,6 +113,46 @@ class _TokenBlock:
         self.h = h
         self.window = window
         self.slots = slots
+
+
+class _PendingPrefill:
+    """The one request mid-chunked-prefill: its chunk plan, the
+    standalone model-dtype caches the chunks fill (spliced into a slot
+    after the last chunk), and its page reservation (paged only)."""
+
+    __slots__ = ("request", "plan", "k_pref", "v_pref", "prep")
+
+    def __init__(self, request, plan, k_pref, v_pref, prep=None):
+        self.request = request
+        self.plan = plan
+        self.k_pref = k_pref
+        self.v_pref = v_pref
+        self.prep = prep
+
+
+class _PagedPrep:
+    """One paged admission's page reservation, made before the FIFO
+    head is popped (host only). Holds one reference per page until the
+    splice hands them to the slot's table row (``bind_slot``) or the
+    admission aborts."""
+
+    __slots__ = ("mode", "entry", "k", "shared_ids", "fresh_ids",
+                 "fork_src", "n_total")
+
+    def __init__(self, mode, entry, k, shared_ids, fresh_ids, fork_src,
+                 n_total):
+        self.mode = mode            # "miss" | "partial" | "full"
+        self.entry = entry          # PrefixEntry (hits only)
+        self.k = k                  # shared full pages reused
+        self.shared_ids = shared_ids
+        self.fresh_ids = fresh_ids  # freshly allocated, column order
+        self.fork_src = fork_src    # copy-on-write source page
+        self.n_total = n_total      # pages the request pins in total
+
+    @property
+    def page_ids(self):
+        """The slot's column-ordered table row."""
+        return list(self.shared_ids) + list(self.fresh_ids)
 
 
 class ServingEngine:
@@ -102,10 +173,19 @@ class ServingEngine:
       decode_buckets: attention-window ladder (None = powers of two from
         ``min_bucket`` to ``s_max``; an empty sequence = always the
         full ``s_max`` window).
+      prefill_chunk: admit prompts ``N`` tokens per engine step (None =
+        whole-prompt prefill).
       decode_horizon: max decode steps per launched block (realised on
         the ``{1, H}`` ladder by :func:`~.scheduler.pick_horizon`).
       decode_attn: ``"auto"`` | ``"cuda"`` | ``"torch"`` (see
         :mod:`...ops`).
+      kv_layout: ``"dense"`` (slots) or ``"paged"`` (pages + table).
+      kv_dtype: ``"model"`` or ``"int8"``.
+      page_size: paged: columns per page (default ``min_bucket``).
+      num_pages: paged: pages including the scratch page (default the
+        dense worst case, ``max_slots * ceil(s_max / page_size) + 1``).
+      prefix_cache: paged and greedy: LRU entries of the shared-prefix
+        cache (0 = off).
     """
 
     def __init__(self, model, *, max_slots: int,
@@ -115,7 +195,11 @@ class ServingEngine:
                  generator: Optional[torch.Generator] = None,
                  eos_id: Optional[int] = None, min_bucket: int = 16,
                  decode_buckets: Optional[Sequence[int]] = None,
+                 prefill_chunk: Optional[int] = None,
                  decode_horizon: int = 1, decode_attn: str = "auto",
+                 kv_layout: str = "dense", kv_dtype: str = "model",
+                 page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None, prefix_cache: int = 0,
                  **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
@@ -141,20 +225,59 @@ class ServingEngine:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
         if min_bucket < 1:
             raise ValueError(f"min_bucket must be >= 1, got {min_bucket}")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if decode_horizon < 1:
             raise ValueError(
                 f"decode_horizon must be >= 1, got {decode_horizon}")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(
+                f"kv_layout must be 'dense' or 'paged', got "
+                f"{kv_layout!r}")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
+        if kv_layout == "dense" and (page_size is not None
+                                     or num_pages is not None
+                                     or prefix_cache):
+            raise ValueError(
+                "page_size/num_pages/prefix_cache apply only with "
+                "kv_layout='paged'")
+        if prefix_cache < 0:
+            raise ValueError(
+                f"prefix_cache must be >= 0, got {prefix_cache}")
+        if prefix_cache and temperature > 0.0:
+            raise ValueError(
+                "prefix_cache requires deterministic (greedy) decode — "
+                "a cached first token cannot be replayed into a sampled "
+                "stream (temperature > 0)")
+        resolve_impl(decode_attn, model.embed)  # device check
         self.model = model
         self.eos_id = eos_id
         self.min_bucket = int(min_bucket)
-        self.pool = SlotPool(model, max_slots, s_max)
-        resolve_impl(decode_attn, self.pool.k_caches)  # device check
+        self._paged = kv_layout == "paged"
+        self._kv_quant = kv_dtype == "int8"
+        if self._paged:
+            self.pool = PagePool(
+                model, max_slots, s_max,
+                page_size=int(page_size if page_size is not None
+                              else min_bucket),
+                num_pages=num_pages, kv_dtype=kv_dtype)
+        else:
+            self.pool = SlotPool(model, max_slots, s_max, kv_dtype=kv_dtype)
+        self._prefix_cache = (PrefixCache(self.pool, prefix_cache)
+                              if prefix_cache else None)
+        self._held_uid = None  # FIFO head currently held for pages
         self._attn_impl = decode_attn
         self.scheduler = FIFOScheduler(self.pool.s_max, max_queue)
         self.metrics = ServingMetrics()
         self._sampling = (float(temperature), int(top_k), float(top_p))
         self._generator = generator
         self._running: Dict[int, Request] = {}
+        self._pending: Optional[_PendingPrefill] = None
+        self._prefill_chunk = (None if prefill_chunk is None
+                               else int(prefill_chunk))
         self._horizon_max = int(decode_horizon)
         # launched-but-unread token blocks (<= 2: double-buffered)
         self._blocks: Deque[_TokenBlock] = deque()
@@ -204,7 +327,8 @@ class ServingEngine:
                eos_id: Optional[int] = None, uid=None,
                deadline_s: Optional[float] = None) -> Request:
         """Queue a request (FIFO). Raises ValueError when it can never
-        fit a slot, ``QueueFull`` at the queue bound."""
+        fit a slot (or the page pool), ``QueueFull`` at the queue
+        bound."""
         if deadline_s is not None:
             raise NotImplementedError(
                 "per-request deadlines are not ported to PyTorch yet "
@@ -225,6 +349,18 @@ class ServingEngine:
             raise ValueError(
                 f"prompt token ids must be in [0, vocab_size="
                 f"{self.model.vocab_size})")
+        if self._paged and request.prompt:
+            # never-fits for the page pool is a submission error, like
+            # the scheduler's s_max check (transient pressure is the
+            # admission gate's hold, not this)
+            need = PagePool.pages_for(
+                len(request.prompt) + request.max_new_tokens,
+                self.pool.page_size)
+            if need > self.pool.num_pages - 1:
+                raise ValueError(
+                    f"request needs {need} page(s); the pool holds "
+                    f"{self.pool.num_pages - 1} allocatable "
+                    f"(num_pages={self.pool.num_pages} incl. scratch)")
         try:
             return self.scheduler.submit(request)
         except QueueFull:
@@ -242,6 +378,13 @@ class ServingEngine:
         request.finish_time = time.perf_counter()
         self.scheduler.complete(request, reason)
         self.metrics.record_completion(len(request.tokens))
+
+    def _fail(self, request: Request, error: BaseException,
+              reason: str) -> None:
+        """Evict a request that holds no slot as FAILED, error kept."""
+        self.scheduler.fail(request, error, reason)
+        request.finish_time = time.perf_counter()
+        self.metrics.record_failure()
 
     def _pop_admission(self) -> Optional[Request]:
         request = self.scheduler.next_to_admit()
@@ -284,38 +427,332 @@ class ServingEngine:
         tok0 = _sample(logits, *self._sampling, self._generator)
         return tok0[0].to(torch.int32), k_pref, v_pref
 
-    def _insert(self, request: Request, slot: int, k_pref, v_pref,
-                length: int, tok0) -> None:
-        """Splice a prefilled request into ``slot`` (in place): cache
-        columns ``[0, bucket)`` overwrite the previous tenant's, the
-        position starts at the prompt length, the pending token is the
-        prefill's sample, and the finish gates arm (``max_new_tokens -
-        1`` decode tokens owed; the stop id or ``-1``)."""
+    def _arm_slot(self, request: Request, slot: int, length: int,
+                  tok0) -> None:
+        """The slot's decode state: the position starts at the prompt
+        length, the pending token is the first sample, and the finish
+        gates arm (``max_new_tokens - 1`` decode tokens owed; the stop
+        id or ``-1``)."""
         pool = self.pool
-        width = k_pref.shape[2]
-        pool.k_caches[:, slot, :width] = k_pref[:, 0]
-        pool.v_caches[:, slot, :width] = v_pref[:, 0]
         pool.positions[slot] = length
         pool.last_tokens[slot] = tok0
         pool.active[slot] = True
         pool.budgets[slot] = request.max_new_tokens - 1
         pool.eos_ids[slot] = -1 if request.eos_id is None \
             else request.eos_id
+
+    def _insert(self, request: Request, slot: int, k_pref, v_pref,
+                length: int, tok0, prep: Optional[_PagedPrep] = None
+                ) -> None:
+        """Splice a prefilled request into ``slot`` (in place) and arm
+        its decode state. The standalone ``[L, 1, W, H, Dh]`` prefill
+        cache is quantized here, once, for an int8 pool. Dense: columns
+        ``[0, W)`` overwrite the previous tenant's (a chunk plan's pad
+        overshoot past ``s_max`` is dropped). Paged: the cache is cut
+        into page tiles and written at the reservation's fresh pages;
+        columns a shared prefix already holds, and pure pad, go to the
+        scratch page; the slot's table row then takes the pages."""
+        pool = self.pool
+        if self._kv_quant:
+            k_pref, v_pref = quantize_kv(k_pref), quantize_kv(v_pref)
+        width = k_pref.shape[2]
+        if prep is None:
+            width = min(width, pool.s_max)
+            cols = (slice(None), slot, slice(0, width))
+            _put(pool.k_caches, cols, k_pref[:, 0, :width])
+            _put(pool.v_caches, cols, v_pref[:, 0, :width])
+        else:
+            ps = pool.page_size
+            n_w = -(-width // ps)
+            write_ids = np.zeros((n_w,), np.int64)
+            for j, page in enumerate(prep.fresh_ids):
+                if prep.k + j < n_w:
+                    write_ids[prep.k + j] = page
+            ids = torch.from_numpy(write_ids).to(self.model.device)
+            _put(pool.k_pages, (slice(None), ids),
+                 self._to_pages(k_pref, n_w))
+            _put(pool.v_pages, (slice(None), ids),
+                 self._to_pages(v_pref, n_w))
+        self._arm_slot(request, slot, length, tok0)
+        if prep is not None:
+            page_ids = prep.page_ids
+            pool.bind_slot(slot, page_ids)
+            # ownership now lives in the table row
+            prep.shared_ids, prep.fresh_ids = [], []
+            self._register_prefix(request, page_ids)
         pool.note_insert(slot, length)
 
+    def _to_pages(self, c, n: int):
+        """``[L, 1, W, H, Dh]`` (or its int8 pair) -> ``n`` page tiles
+        ``[L, n, H, ps, Dh]``, zero-padded past ``W``."""
+        ps = self.pool.page_size
+        if isinstance(c, QuantizedKV):
+            return QuantizedKV(self._to_pages(c.data, n),
+                               self._to_pages(c.scale, n))
+        l, _, w = c.shape[:3]
+        full = c.new_zeros((l, n * ps) + tuple(c.shape[3:]))
+        full[:, :w] = c[:, 0]
+        # [L, n, ps, H(, Dh)] -> [L, n, H, ps(, Dh)]
+        return full.reshape((l, n, ps) + tuple(c.shape[3:])).transpose(2, 3)
+
+    # ---- paged admission -----------------------------------------------
+    def _paged_prep_head(self):
+        """Reserve pages for the FIFO head BEFORE popping it. Returns a
+        :class:`_PagedPrep`, ``None`` (queue empty), ``"hold"`` (not
+        enough free pages: the head STAYS QUEUED, prefix-cache entries
+        were already shed LRU first, running work frees pages as it
+        finishes) or ``"retry"`` (the head could never be satisfied:
+        failed named ``PagePoolExhausted``; admission may look at the
+        next head). Host only."""
+        pool = self.pool
+        head = self.scheduler.peek()
+        if head is None:
+            return None
+        n_total = PagePool.pages_for(
+            len(head.prompt) + head.max_new_tokens, pool.page_size)
+        while True:
+            entry, k = ((None, 0) if self._prefix_cache is None
+                        else self._prefix_cache.lookup(head.prompt))
+            full = (entry is not None
+                    and entry.tokens == tuple(head.prompt)
+                    and entry.tok0 is not None)
+            if not full:
+                # a partial hit must leave >= 1 suffix token to prefill
+                # (it provides tok0)
+                k = min(k, (len(head.prompt) - 1) // pool.page_size)
+            needed = n_total - k
+            if pool.free_pages >= needed:
+                break
+            # shed cache before holding traffic, then look again: the
+            # shed may have taken the entry this hit planned to reuse
+            if not (self._prefix_cache is not None
+                    and self._prefix_cache.evict_lru()):
+                break
+        if pool.free_pages < needed:
+            if (not self._running and self._pending is None
+                    and not self._blocks
+                    and not (self._prefix_cache
+                             and len(self._prefix_cache))):
+                # nothing in flight will ever free a page: fail the head
+                # named, keep serving the queue behind it
+                request = self._pop_admission()
+                self._fail(request, PagePoolExhausted(
+                    f"request {request.uid} needs {needed} page(s); "
+                    f"only {pool.free_pages} exist free with nothing in "
+                    f"flight to free more (num_pages={pool.num_pages})"),
+                    reason="pages")
+                return "retry"
+            if self._held_uid != head.uid:
+                # one deferred admission is one hold, however long
+                self._held_uid = head.uid
+                self.metrics.record_page_hold()
+            return "hold"
+        self._held_uid = None
+        shared = list(entry.shared_ids[:k]) if entry is not None else []
+        pool.incref(shared)
+        fork_src = None
+        if full and len(head.prompt) % pool.page_size:
+            fork_src = entry.partial_id
+            pool.incref([fork_src])
+        fresh = pool.alloc_pages(needed)
+        mode = "full" if full else ("partial" if k else "miss")
+        return _PagedPrep(mode, entry, k, shared, fresh, fork_src,
+                          n_total)
+
+    def _abort_prep(self, prep: Optional[_PagedPrep]) -> None:
+        """Return a reservation's pages (finished at its first token)."""
+        if prep is None:
+            return
+        pool = self.pool
+        pool.decref(prep.shared_ids)
+        pool.decref(prep.fresh_ids)
+        if prep.fork_src is not None:
+            pool.decref([prep.fork_src])
+        prep.shared_ids, prep.fresh_ids, prep.fork_src = [], [], None
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write fork of one page, every layer (both parts of
+        an int8 pair: the fork keeps the exact quantized values)."""
+        pool = self.pool
+        for pages in (pool.k_pages, pool.v_pages):
+            _put(pages, (slice(None), dst), pages[:, src])
+
+    def _note_outcome(self, request: Request, prep: _PagedPrep) -> None:
+        request.prefix_hit = None if prep.mode == "miss" else prep.mode
+        if self._prefix_cache is not None:
+            # a miss only counts against an armed cache
+            self.metrics.record_prefix_outcome(request.prefix_hit)
+
+    def _admit_full_hit(self, request: Request, prep: _PagedPrep,
+                        events: List[Event]) -> None:
+        """FULL prefix hit: no prefill. The cached first token is
+        replayed (greedy, enforced at construction), the prompt's pages
+        are mapped read-only, the partial last page (if any) is forked
+        copy-on-write, and only the slot's decode state is written."""
+        pool = self.pool
+        entry = prep.entry
+        slot = self._first_token(request, int(entry.tok0), events)
+        if slot is None:  # finished at its first token
+            self._abort_prep(prep)
+            return
+        if prep.fork_src is not None:
+            # the fork must hold the prefix's partial page before any
+            # decode write lands in it
+            self._copy_page(prep.fork_src, prep.fresh_ids[0])
+            pool.decref([prep.fork_src])
+            prep.fork_src = None
+        length = len(request.prompt)
+        self._arm_slot(request, slot, length, int(entry.tok0))
+        pool.bind_slot(slot, prep.page_ids)
+        prep.shared_ids, prep.fresh_ids = [], []
+        pool.note_insert(slot, length)
+
+    def _new_pending(self, request: Request, chunk: int,
+                     prep: Optional[_PagedPrep]) -> _PendingPrefill:
+        """Chunked-prefill state for ``request``: the plan (starting
+        after the shared pages of a partial hit) and zeroed model-dtype
+        caches wide enough for every chunk, with a partial hit's shared
+        pages gathered into their leading columns (int8 pages
+        dequantized there; the shared pages are not written again)."""
+        pool, model = self.pool, self.model
+        start_at = prep.k * pool.page_size if prep is not None else 0
+        plan = PrefillPlan(request, chunk, self.min_bucket, pool.s_max,
+                           start_at=start_at)
+        width = max(plan.width, plan.starts[-1] + plan.chunk)
+        shape = (model.num_layers, 1, width, model.num_heads,
+                 model.head_dim)
+        caches = []
+        for pages in ((pool.k_pages, pool.v_pages) if start_at
+                      else (None, None)):
+            cache = torch.zeros(shape, dtype=model.dtype,
+                                device=model.device)
+            if pages is not None:
+                ids = torch.tensor(prep.shared_ids, dtype=torch.long,
+                                   device=model.device)
+                g = pages[:, ids]  # [L, k, H, ps, Dh]
+                if isinstance(g, QuantizedKV):
+                    g = dequantize_kv(g, model.dtype)
+                g = g.transpose(2, 3).reshape(
+                    model.num_layers, 1, start_at, model.num_heads,
+                    model.head_dim)
+                cache[:, :, :start_at] = g
+            caches.append(cache)
+        return _PendingPrefill(request, plan, caches[0], caches[1], prep)
+
+    def _drive_pending(self, pend: _PendingPrefill,
+                       events: List[Event]) -> bool:
+        """Advance a pending chunked prefill by ONE chunk; on the last
+        chunk, sample tok0 and splice. Returns True while chunks
+        remain."""
+        model = self.model
+        start, valid, is_last = pend.plan.next_chunk()
+        chunk = pend.plan.chunk
+        padded = np.zeros((1, chunk), np.int64)
+        padded[0, :valid] = pend.request.prompt[start:start + valid]
+        tokens = torch.from_numpy(padded).to(model.device)
+        x = _embed_at(model, tokens, start, model.dtype)
+        for i in range(model.num_layers):
+            x = _block_chunk_prefill(model.block(i), x, pend.k_pref[i],
+                                     pend.v_pref[i], start,
+                                     model.num_heads, model.dtype,
+                                     model.ln_eps)
+        if not is_last:
+            return True
+        if self._pending is pend:
+            self._pending = None  # the reservation moves to the splice
+        idx = pend.plan.length - 1 - start
+        logits = _logits(model, x[:, idx:idx + 1], model.ln_eps)[:, 0]
+        tok0 = _sample(logits, *self._sampling,
+                       self._generator)[0].to(torch.int32)
+        slot = self._first_token(pend.request, int(tok0), events)
+        if slot is None:
+            self._abort_prep(pend.prep)
+            return False
+        self._insert(pend.request, slot, pend.k_pref, pend.v_pref,
+                     pend.plan.length, tok0, prep=pend.prep)
+        return False
+
+    def _register_prefix(self, request: Request, page_ids) -> None:
+        """Offer a freshly spliced prompt's prefix to the cache (miss
+        and partial-hit admissions). Best effort: the splice already
+        succeeded, so a failed registration is reported, never
+        raised."""
+        if self._prefix_cache is None or self._sampling[0] > 0.0:
+            return
+        try:
+            self._prefix_cache.register(
+                request.prompt, page_ids, int(request.tokens[0]),
+                self._copy_page)
+        except Exception as e:  # noqa: BLE001
+            print(f"prefix registration failed for request "
+                  f"{request.uid}: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+
+    # ---- admission -----------------------------------------------------
     def _admit(self) -> List[Event]:
-        """Fill every free slot from the FIFO head, one prefill each."""
+        """Move FIFO-head requests toward slots: whole-prompt mode fills
+        every free slot with one prefill each; chunked mode advances the
+        one pending prefill by EXACTLY one chunk."""
+        if self._prefill_chunk is None:
+            return self._admit_whole()
+        return self._admit_chunked()
+
+    def _admit_whole(self) -> List[Event]:
         events: List[Event] = []
-        while self.pool.free_slots > 0:
+        pool = self.pool
+        while pool.free_slots > 0:
+            prep = None
+            if self._paged:
+                prep = self._paged_prep_head()
+                if prep is None or prep == "hold":
+                    break
+                if prep == "retry":
+                    continue
             request = self._pop_admission()
             if request is None:
                 break
+            if prep is not None:
+                self._note_outcome(request, prep)
+                if prep.mode == "full":
+                    self._admit_full_hit(request, prep, events)
+                    continue
+                if prep.mode == "partial":
+                    # the suffix through the chunk path, driven to the
+                    # end within this admission
+                    pend = self._new_pending(request, pool.page_size, prep)
+                    while self._drive_pending(pend, events):
+                        pass
+                    continue
             length = len(request.prompt)
             tok0, k_pref, v_pref = self._prefill(request.prompt, length)
             # the TTFT boundary: the host reads the first token here
             slot = self._first_token(request, int(tok0), events)
-            if slot is not None:
-                self._insert(request, slot, k_pref, v_pref, length, tok0)
+            if slot is None:
+                self._abort_prep(prep)
+                continue
+            self._insert(request, slot, k_pref, v_pref, length, tok0,
+                         prep=prep)
+        return events
+
+    def _admit_chunked(self) -> List[Event]:
+        events: List[Event] = []
+        if self._pending is None and self.pool.free_slots > 0:
+            prep = None
+            admit = True
+            if self._paged:
+                prep = self._paged_prep_head()
+                admit = prep is not None and prep not in ("hold", "retry")
+            request = self._pop_admission() if admit else None
+            if request is not None:
+                if prep is not None:
+                    self._note_outcome(request, prep)
+                    if prep.mode == "full":
+                        self._admit_full_hit(request, prep, events)
+                        return events
+                self._pending = self._new_pending(
+                    request, self._prefill_chunk, prep)
+        if self._pending is not None:
+            self._drive_pending(self._pending, events)
         return events
 
     # ---- horizon scheduling / launch / drain ----------------------------
@@ -342,9 +779,10 @@ class ServingEngine:
             if b >= max_eff + 1:
                 window = b
                 break
+        admission_pending = (self.scheduler.queue_depth > 0
+                             or self._pending is not None)
         h = pick_horizon(self._horizon_max, window, max_eff,
-                         self._min_remaining_eff(),
-                         self.scheduler.queue_depth > 0)
+                         self._min_remaining_eff(), admission_pending)
         return window, h
 
     def _dispatch(self, overlapped: bool = False) -> None:
@@ -353,13 +791,20 @@ class ServingEngine:
         pool = self.pool
         window, h = self._pick_schedule()
         temperature, top_k, top_p = self._sampling
+        if self._paged:
+            # uploaded again only after a bind or release
+            caches = (pool.k_pages, pool.v_pages)
+            paged = dict(page_table=pool.device_table(),
+                         page_size=pool.page_size)
+        else:
+            caches = (pool.k_caches, pool.v_caches)
+            paged = {}
         tokens, (pool.positions, pool.last_tokens, pool.active,
                  pool.budgets) = _decode_horizon(
-            self.model, pool.k_caches, pool.v_caches, pool.positions,
-            pool.last_tokens, pool.active, pool.budgets, pool.eos_ids, h,
-            window=window, attn_impl=self._attn_impl,
-            temperature=temperature, top_k=top_k, top_p=top_p,
-            generator=self._generator)
+            self.model, *caches, pool.positions, pool.last_tokens,
+            pool.active, pool.budgets, pool.eos_ids, h, window=window,
+            attn_impl=self._attn_impl, temperature=temperature,
+            top_k=top_k, top_p=top_p, generator=self._generator, **paged)
         self._programs.add((window, h))
         self._blocks.append(_TokenBlock(tokens, h, window,
                                         dict(self._running)))
@@ -367,20 +812,23 @@ class ServingEngine:
 
     def _overlap_ok(self) -> bool:
         """Launch horizon h+1 before reading horizon h back? Only in
-        steady state: horizons on, one block in flight, nothing queued,
-        and some running request with budget beyond what is launched."""
+        steady state: horizons on, one block in flight, no admission
+        work, and some running request with budget beyond what is
+        launched."""
         return (self._horizon_max > 1
                 and len(self._blocks) == 1
                 and bool(self._running)
                 and self.scheduler.queue_depth == 0
+                and self._pending is None
                 and self._min_remaining_eff() >= 1)
 
     def _drain_one(self, events: List[Event]) -> Tuple[int, int]:
         """Read the OLDEST block back (the horizon's one host sync) and
         attribute its tokens: append per request, replay the finish
         rules the device applied (``-1`` marks rows it froze), release
-        finished slots, advance the position mirror by the realised
-        per-slot steps. Returns ``(window, tokens_emitted)``."""
+        finished slots (and their pages), advance the position mirror by
+        the realised per-slot steps. Returns ``(window,
+        tokens_emitted)``."""
         pool = self.pool
         block = self._blocks.popleft()
         tokens = block.tokens.cpu().numpy()
@@ -404,11 +852,12 @@ class ServingEngine:
         return block.window, sum(realized.values())
 
     def step(self) -> List[Event]:
-        """One engine iteration: admit (a whole prompt per free slot),
-        launch a decode horizon at the active-length window (plus, in
-        steady state, the next one), then read back exactly one token
-        block. Returns ``(request, token, finished)`` events, admission
-        first tokens included."""
+        """One engine iteration: admit (a whole prompt per free slot, or
+        one chunk), launch a decode horizon at the active-length window
+        (plus, in steady state, the next one), then read back exactly
+        one token block. Returns ``(request, token, finished)`` events,
+        admission first tokens included (a request failed for pages
+        emits none: read its ``state``/``error``)."""
         events = self._admit()
         if self._running or self._blocks:
             t0 = time.perf_counter()
@@ -425,13 +874,16 @@ class ServingEngine:
 
     @property
     def in_flight(self) -> int:
-        """Work somewhere in the engine: queued, decoding, or a launched
-        but unread block (drive loops step until 0)."""
+        """Work somewhere in the engine: queued, mid-chunked-prefill,
+        decoding, or a launched but unread block (drive loops step
+        until 0)."""
         return (self.scheduler.queue_depth + len(self._running)
+                + (1 if self._pending is not None else 0)
                 + (1 if self._blocks else 0))
 
     def run(self) -> Iterable[Event]:
-        """Step until queue and pool drain, streaming token events."""
+        """Step until queue, pending prefill and pool drain, streaming
+        token events."""
         while self.in_flight:
             yield from self.step()
 

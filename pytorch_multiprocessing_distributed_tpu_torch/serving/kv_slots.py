@@ -2,10 +2,12 @@
 
 The port of the JAX package's dense ``SlotPool``: fixed
 ``[layers, max_slots, s_max, heads, head_dim]`` K/V tensors on the
-device plus per-slot state (next write column, pending token, active
-flag, remaining decode budget, stop id). The decode step runs over ALL
-slots every step with an active mask, so occupancy changes values,
-never shapes.
+device (model dtype, or with ``kv_dtype="int8"`` a
+:class:`...ops.kv_quant.QuantizedKV` of int8 data and ``[layers,
+max_slots, s_max, heads]`` f32 scales) plus per-slot state (next write
+column, pending token, active flag, remaining decode budget, stop id).
+The decode step runs over ALL slots every step with an active mask, so
+occupancy changes values, never shapes.
 
 Unlike the JAX pool, whose arrays are replaced functionally by each
 jitted program, the caches here are written IN PLACE (the engine's
@@ -33,6 +35,25 @@ from typing import List, Optional
 
 import torch
 
+from ..ops.kv_quant import KV_DTYPES, QuantizedKV
+
+
+def kv_group_bytes(model, kv_dtype: str) -> int:
+    """Bytes of one (token, head) group of K or V: ``head_dim``
+    elements, plus the f32 scale in int8."""
+    if kv_dtype == "int8":
+        return model.head_dim + 4
+    return model.head_dim * torch.empty((), dtype=model.dtype).element_size()
+
+
+def empty_kv(shape, dtype, kv_dtype: str, device):
+    """A zeroed cache: model dtype, or int8 zeros with unit scales."""
+    if kv_dtype == "int8":
+        return QuantizedKV(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.ones(shape[:-1], dtype=torch.float32, device=device))
+    return torch.zeros(shape, dtype=dtype, device=device)
+
 
 class SlotPool:
     """Fixed-capacity KV-cache slots + per-slot decode state.
@@ -42,9 +63,13 @@ class SlotPool:
         dtype, device).
       max_slots: concurrent requests held on the device.
       s_max: per-slot sequence capacity (default ``model.max_seq_len``).
+      kv_dtype: ``"model"`` or ``"int8"`` (int8 lanes plus one f32 scale
+        per (token, head); untouched columns hold data 0 and scale 1,
+        which dequantize to the zeros a model-dtype cache holds).
     """
 
-    def __init__(self, model, max_slots: int, s_max: Optional[int] = None):
+    def __init__(self, model, max_slots: int, s_max: Optional[int] = None,
+                 kv_dtype: str = "model"):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         s_max = int(s_max or model.max_seq_len)
@@ -52,14 +77,18 @@ class SlotPool:
             raise ValueError(
                 f"s_max must be in [2, max_seq_len={model.max_seq_len}], "
                 f"got {s_max}")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
         self.model = model
+        self.kv_dtype = kv_dtype
         self.max_slots = int(max_slots)
         self.s_max = s_max
         dev = model.device
         shape = (model.num_layers, self.max_slots, s_max, model.num_heads,
                  model.head_dim)
-        self.k_caches = torch.zeros(shape, dtype=model.dtype, device=dev)
-        self.v_caches = torch.zeros(shape, dtype=model.dtype, device=dev)
+        self.k_caches = empty_kv(shape, model.dtype, kv_dtype, dev)
+        self.v_caches = empty_kv(shape, model.dtype, kv_dtype, dev)
         n = self.max_slots
         self.positions = torch.zeros(n, dtype=torch.int32, device=dev)
         self.last_tokens = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -71,12 +100,14 @@ class SlotPool:
         self._active_host: List[bool] = [False] * n
 
     @staticmethod
-    def per_slot_kv_bytes(model, s_max: int) -> int:
+    def per_slot_kv_bytes(model, s_max: int,
+                          kv_dtype: str = "model") -> int:
         """Worst-case K+V bytes ONE slot reserves for ``s_max`` tokens:
-        ``2 x layers x s_max x heads x head_dim x itemsize``."""
-        itemsize = torch.empty((), dtype=model.dtype).element_size()
+        ``2 x layers x s_max x heads x group bytes``, a group being
+        ``head_dim`` elements (int8: one byte each plus the 4-byte f32
+        scale)."""
         return (2 * model.num_layers * int(s_max) * model.num_heads
-                * model.head_dim * itemsize)
+                * kv_group_bytes(model, kv_dtype))
 
     # ---- host-side slot accounting -------------------------------------
     @property

@@ -3,16 +3,16 @@
 Pure host-side bookkeeping, ported from the JAX package's
 ``serving/scheduler.py``: the bounded FIFO queue, the static-fit check
 against the pool's ``s_max``, each request's lifecycle record, the
-prefill bucket ladder and the adaptive decode horizon. Chunked-prefill
-plans, speculative draft lengths, deadlines and withdrawal are not in
-this slice (ROADMAP.md).
+prefill bucket ladder, the adaptive decode horizon and the chunked
+prefill plan. Speculative draft lengths, deadlines and withdrawal are
+not in this slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import itertools
 from collections import deque
-from typing import Deque, List, Optional, Sequence
+from typing import Deque, List, Optional, Sequence, Tuple
 
 
 def bucket_length(length: int, min_bucket: int, s_max: int) -> int:
@@ -38,6 +38,55 @@ def pick_horizon(h_max: int, window: int, max_pos: int,
     return h_max if h >= h_max else 1
 
 
+class PrefillPlan:
+    """Chunk schedule for one joining prompt (the JAX package's
+    ``PrefillPlan``).
+
+    The prompt (length ``L``) is prefilled into a standalone cache of
+    ``width`` columns — its length bucket rounded UP to whole
+    ``chunk``-sized pieces, so every chunk call has the shape ``[1,
+    chunk]`` against the same cache width. ``width`` may overshoot
+    ``s_max`` by up to ``chunk - 1`` pad columns; the engine's splice
+    drops them (valid columns are ``[0, L)`` and ``L < s_max``).
+
+    ``starts`` are the chunk offsets ``start_at, start_at + chunk,
+    ...``; the last chunk is right-padded to ``chunk`` (its pad columns
+    lie beyond ``L``, where the decode mask keeps them invisible until
+    decode overwrites them). ``start_at`` (a prefix-cache resume) skips
+    the leading columns a shared-prefix hit already holds; it must be
+    ``< L``.
+    """
+
+    def __init__(self, request: "Request", chunk: int, min_bucket: int,
+                 s_max: int, start_at: int = 0):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        length = len(request.prompt)
+        if not 0 <= start_at < length:
+            raise ValueError(
+                f"start_at must be in [0, {length}), got {start_at}")
+        self.request = request
+        self.chunk = int(chunk)
+        self.length = length
+        self.start_at = int(start_at)
+        bucket = bucket_length(length, min_bucket, s_max)
+        self.width = -(-bucket // chunk) * chunk
+        self.starts: Tuple[int, ...] = tuple(
+            range(self.start_at, length, chunk))
+        self._next = 0
+
+    @property
+    def done(self) -> bool:
+        return self._next >= len(self.starts)
+
+    def next_chunk(self) -> Tuple[int, int, bool]:
+        """Claim the next chunk: ``(start, valid_len, is_last)``."""
+        start = self.starts[self._next]
+        self._next += 1
+        return (start, min(self.chunk, self.length - start),
+                self._next >= len(self.starts))
+
+
 class QueueFull(RuntimeError):
     """Raised by ``submit`` when the bounded queue is at capacity — the
     engine's backpressure signal (callers step the engine and retry, or
@@ -49,6 +98,7 @@ class QueueFull(RuntimeError):
 QUEUED = "queued"
 RUNNING = "running"
 DONE = "done"
+FAILED = "failed"
 
 _uid_counter = itertools.count()
 
@@ -59,7 +109,10 @@ class Request:
     ``perf_counter`` stamps ``submit_time``/``admit_time``/
     ``first_token_time``/``finish_time`` (TTFT = first token - submit,
     queue wait included) and ``finish_reason`` (``"eos"`` or
-    ``"length"``)."""
+    ``"length"`` once DONE; ``"pages"`` once FAILED because the page
+    pool could never hold it, with the error in ``error``).
+    ``prefix_hit`` is ``"full"``, ``"partial"`` or None: whether the
+    request joined through the shared-prefix cache."""
 
     def __init__(self, prompt: Sequence[int], max_new_tokens: int,
                  eos_id: Optional[int] = None, uid=None):
@@ -70,6 +123,8 @@ class Request:
         self.state = QUEUED
         self.tokens: List[int] = []
         self.slot: Optional[int] = None
+        self.prefix_hit: Optional[str] = None
+        self.error: Optional[BaseException] = None
         self.submit_time: Optional[float] = None
         self.admit_time: Optional[float] = None
         self.first_token_time: Optional[float] = None
@@ -123,6 +178,11 @@ class FIFOScheduler:
         self._queue.append(request)
         return request
 
+    def peek(self) -> Optional[Request]:
+        """The FIFO head without popping it: the paged engine checks the
+        head's page demand before it commits to admitting it."""
+        return self._queue[0] if self._queue else None
+
     def next_to_admit(self) -> Optional[Request]:
         """Pop the FIFO head for admission (None when empty)."""
         if not self._queue:
@@ -134,4 +194,13 @@ class FIFOScheduler:
     def complete(self, request: Request, reason: str) -> None:
         request.state = DONE
         request.finish_reason = reason
+        request.slot = None
+
+    def fail(self, request: Request, error: BaseException,
+             reason: str) -> None:
+        """The request leaves the engine as FAILED with its error
+        recorded, never re-admitted."""
+        request.state = FAILED
+        request.finish_reason = reason
+        request.error = error
         request.slot = None

@@ -50,7 +50,7 @@ from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, prune_checkpoints,
                                resolve_auto_resume, save_checkpoint)
 from .train.optim import cosine_lr, sgd
-from .utils import Logger
+from .utils import Logger, throughput
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -385,8 +385,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     now = _launches()
     summary["launches"] = {k: now[k] - launches0[k] for k in now}
-    n_tok = args.batch_size * args.seq_len * summary["steps"]
-    summary["tokens_per_sec"] = n_tok / max(summary["train_s"], 1e-9)
+    summary["tokens_per_sec"], summary["tokens_per_sec_per_card"] = \
+        throughput(args.batch_size * args.seq_len * summary["steps"],
+                   summary["train_s"], world)
     if steady:
         summary["steady_step_s"] = (sum(s for s, _ in steady)
                                     / sum(n for _, n in steady))

@@ -1,12 +1,23 @@
 """Streaming scalar meters (ported from the JAX package's
 ``utils/meters.py``): :class:`AverageMeter` (the reference's weighted
 running average) and :class:`PercentileMeter` (the same surface plus
-exact, linearly interpolated percentiles over every sample)."""
+exact, linearly interpolated percentiles over every sample), and
+:func:`throughput`, the training summaries' rates."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
+
+
+def throughput(items: float, seconds: float,
+               world_size: int) -> Tuple[float, float]:
+    """``(world rate, per-card rate)`` of ``items`` processed by all
+    ``world_size`` ranks together in ``seconds``: the summaries report
+    the first as ``images_per_sec``/``tokens_per_sec`` (the JAX CLIs'
+    rate) and the second as ``*_per_card``."""
+    rate = items / max(seconds, 1e-9)
+    return rate, rate / world_size
 
 
 class AverageMeter:

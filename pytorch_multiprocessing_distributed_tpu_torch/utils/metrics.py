@@ -9,8 +9,8 @@ trainer's windowed fetch (no host sync per batch).
 :class:`ServingMetrics` aggregates the serving engine's host meters.
 The fields are the ones this slice's engine records; ``snapshot()``
 reports them under the JAX snapshot's own key names, so a consumer of
-either CLI's ``--metrics_out`` reads the same keys. The fault-domain,
-paged-KV and speculative counters arrive with their features.
+either CLI's ``--metrics_out`` reads the same keys. The fault-domain
+and speculative counters arrive with their features.
 
 - ``ttft``: seconds from SUBMIT to first token (queue wait included);
 - ``queue_wait``: seconds from submit to admission;
@@ -21,7 +21,11 @@ paged-KV and speculative counters arrive with their features.
   ``overlapped_dispatches``: the dispatch-overhead counters;
 - ``occupancy`` / ``queue_depth``: live slots and queued requests per
   decode iteration;
-- token and request counters for tokens/sec.
+- token and request counters for tokens/sec;
+- paged KV: ``prefix_hits`` / ``prefix_partial_hits`` /
+  ``prefix_misses`` (each paged admission's prefix-cache outcome),
+  ``page_holds`` (admissions deferred for pages, one per hold) and
+  ``requests_failed`` (requests the page pool could never hold).
 """
 
 from __future__ import annotations
@@ -83,6 +87,11 @@ class ServingMetrics:
         self.host_syncs = 0
         self.overlapped_dispatches = 0
         self.requests_shed = 0
+        self.requests_failed = 0
+        self.prefix_hits = 0
+        self.prefix_partial_hits = 0
+        self.prefix_misses = 0
+        self.page_holds = 0
         self._elapsed = 0.0
         self._occupancy_max = 0
         self._queue_wait_max = 0.0
@@ -125,6 +134,26 @@ class ServingMetrics:
     def record_shed(self) -> None:
         self.requests_shed += 1
 
+    def record_failure(self) -> None:
+        """One request evicted as FAILED; the engine kept serving."""
+        self.requests_failed += 1
+
+    def record_prefix_outcome(self, hit) -> None:
+        """One paged admission's prefix-cache outcome: ``"full"`` (no
+        prefill), ``"partial"`` (leading pages reused, suffix
+        prefilled) or None (miss)."""
+        if hit == "full":
+            self.prefix_hits += 1
+        elif hit == "partial":
+            self.prefix_partial_hits += 1
+        else:
+            self.prefix_misses += 1
+
+    def record_page_hold(self) -> None:
+        """One admission deferred because the page pool could not cover
+        the FIFO head; counted at the transition into the hold."""
+        self.page_holds += 1
+
     def snapshot(self) -> dict:
         decode_tokens = self.decode_tokens
         snap = {
@@ -150,6 +179,11 @@ class ServingMetrics:
             "queue_depth_avg": self.queue_depth.avg,
             "decode_steps": self.decode_step.count,
             "requests_shed": self.requests_shed,
+            "requests_failed": self.requests_failed,
+            "prefix_hits": self.prefix_hits,
+            "prefix_partial_hits": self.prefix_partial_hits,
+            "prefix_misses": self.prefix_misses,
+            "page_holds": self.page_holds,
         }
         for name, meter in (("ttft", self.ttft),
                             ("queue_wait", self.queue_wait),

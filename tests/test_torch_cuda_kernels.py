@@ -6,8 +6,12 @@ a GPU machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors. Decode attention: atol 1e-4 — the same f32 math on the same
-values, only the summation order differs. Flash attention: in f32 the
+tensors. Decode attention (dense and paged, model dtype and int8): atol
+1e-4 — the same f32 math on the same values (int8 rows dequantized by
+the same expression, rounded to q's dtype), only the summation order
+differs; the paged variants read shuffled tables whose unallocated
+entries point at a scratch page full of NaN and huge values, so a read
+past a slot's position would show. Flash attention: in f32 the
 output and lse within 1e-4 and the gradients within 5e-4 (the same f32
 math; the gradients sum up to 300 products per element in another
 order); in bf16 the lse within 1e-4 and the bf16 outputs within 2e-2
@@ -26,12 +30,15 @@ import torch
 from pytorch_multiprocessing_distributed_tpu_torch.inference import generate
 from pytorch_multiprocessing_distributed_tpu_torch.models import GPT
 from pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention \
-    import decode_attention, torch_decode_attention
+    import (decode_attention, paged_decode_attention,
+            torch_decode_attention, torch_paged_decode_attention)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention \
     import (flash_bwd_dkv, flash_bwd_dq, flash_fwd, torch_flash_bwd_dkv,
             torch_flash_bwd_dq, torch_flash_fwd)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.fused_update import (
     fused_sgd_, torch_fused_sgd_)
+from pytorch_multiprocessing_distributed_tpu_torch.ops.kv_quant import (
+    QuantizedKV, quantize_kv)
 from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     ServingEngine, init_params)
 from pytorch_multiprocessing_distributed_tpu_torch.train import (
@@ -111,6 +118,120 @@ def test_engine_on_card_matches_cpu_plain_path(cuda_device):
         ref = generate(model, torch.tensor([p], device=cuda_device),
                        max_new_tokens=6)[0, -6:].tolist()
         assert toks == ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("w", [1, 40, 264])
+def test_int8_decode_kernel_matches_plain(cuda_device, dtype, d, w):
+    """Row 1q: int8 K/V with f32 scales, window views of a wider cache,
+    positions 0, W-1 and beyond the window."""
+    q, k, v, pos = _inputs(cuda_device, 3, w + 16, 2, d, dtype,
+                           [0, w - 1, w + 5], seed=1)
+    kq, vq = quantize_kv(k * 3), quantize_kv(v)
+    kw = QuantizedKV(kq.data[:, :w], kq.scale[:, :w])
+    vw = QuantizedKV(vq.data[:, :w], vq.scale[:, :w])
+    before = (decode_attention.launches, decode_attention.int8_launches)
+    got = decode_attention(q, kw, vw, pos, impl="cuda")
+    torch.cuda.synchronize()
+    assert (decode_attention.launches,
+            decode_attention.int8_launches) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, torch_decode_attention(q, kw, vw, pos),
+                               atol=1e-4, rtol=0)
+
+
+def _paged(dev, b, h, d, ps, n_win, dtype, quant, positions, seed=0):
+    """Pages with a scratch page 0 of garbage (K NaN, V huge), a
+    shuffled table held as an unaligned view of a wider one (entries
+    past each slot's position point at scratch), and positions."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 1 + b * n_win + 5
+    k = torch.randn(n_pages, h, ps, d, generator=gen, device=dev)
+    v = torch.randn(n_pages, h, ps, d, generator=gen, device=dev)
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).to(dtype)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    wide = torch.zeros(b, n_win + 3, dtype=torch.int32, device=dev)
+    table = wide[:, 1:1 + n_win]
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    table.copy_(perm[:b * n_win].view(b, n_win).to(torch.int32))
+    span = n_win * ps
+    for row, p in enumerate(positions):
+        used = -(-(min(p, span - 1) + 1) // ps)
+        table[row, used:] = 0
+    if quant:
+        k, v = quantize_kv(k * 2), quantize_kv(v)
+        k.data[0], v.data[0] = 127, 127
+        k.scale[0], v.scale[0] = float("nan"), 1e30
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        k[0], v[0] = float("nan"), 1e30
+    return q, k, v, table, pos
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_paged_decode_kernel_matches_plain(cuda_device, quant, dtype, d,
+                                           ps):
+    """Row 2 (model dtype and int8): windows of whole pages and of a
+    part of the last page, positions 0, inside and beyond the window."""
+    n_win = 5
+    for window in (None, 3 * ps + 5):
+        w = n_win * ps if window is None else window
+        q, k, v, table, pos = _paged(cuda_device, 4, 2, d, ps, n_win,
+                                     dtype, quant, [0, ps + 3, w - 1,
+                                                    w + 7], seed=ps + d)
+        name = "int8_launches" if quant else "launches"
+        before = getattr(paged_decode_attention, name)
+        got = paged_decode_attention(q, k, v, table, pos, window=window,
+                                     impl="cuda")
+        torch.cuda.synchronize()
+        assert getattr(paged_decode_attention, name) == before + 1
+        assert torch.isfinite(got).all()
+        ref = torch_paged_decode_attention(q, k, v, table, pos, window)
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+def test_paged_wrapper_contract_on_card(cuda_device):
+    q, k, v, table, pos = _paged(cuda_device, 2, 2, 64, 16, 3,
+                                 torch.bfloat16, False, [3, 20])
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        paged_decode_attention(q, k, v, table, pos, impl="torch")
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q, k, v, table.long(), pos)
+    with pytest.raises(ValueError, match="window"):
+        paged_decode_attention(q, k, v, table, pos, window=49)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_layout="paged", page_size=8),
+    dict(kv_dtype="int8"),
+    dict(kv_layout="paged", page_size=4, kv_dtype="int8", prefix_cache=4,
+         prefill_chunk=5)])
+def test_paged_int8_engine_on_card_matches_cpu(cuda_device, kw):
+    """The paged/int8 engine on the card (the new kernels) gives the CPU
+    engine's (plain versions) greedy transcripts on the same f32 weights
+    with TF32 off, and returns every page but the prefix cache's."""
+    geom = dict(vocab_size=61, max_seq_len=64, hidden_size=64,
+                num_layers=2, num_heads=2, mlp_dim=128)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 61, (n,)).tolist() for n in (3, 9, 12, 5)]
+    prompts.append(prompts[2])  # a full hit where the cache is on
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = GPT(**geom)
+        model.load_state_dict(init_params(model, 1, dev), assign=True)
+        engine = ServingEngine(model, max_slots=3, s_max=32, min_bucket=8,
+                               decode_horizon=4, **kw)
+        out[str(dev)] = [r.tokens for r in
+                         engine.serve([(p, 6) for p in prompts])]
+        if "page_size" in kw:
+            cache = engine._prefix_cache
+            held = len(cache.page_ids()) if cache is not None else 0
+            assert engine.pool.pages_in_use == held
+    assert out["cpu"] == out["cuda"]
 
 
 def _flash_inputs(dev, b, sq, skv, h, d, dtype, seed=0):

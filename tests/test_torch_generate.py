@@ -8,6 +8,7 @@ activations) and exactly on tokens and slot state. Greedy ``generate``
 is token-exact with JAX ``generate`` on the serving tests' model.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,12 +18,13 @@ from pytorch_multiprocessing_distributed_tpu import models as jax_models
 from pytorch_multiprocessing_distributed_tpu.inference import (
     generate as jax_generate)
 from pytorch_multiprocessing_distributed_tpu.inference.generate import (
-    _decode_horizon as jax_decode_horizon, _prefill as jax_prefill)
+    _decode_horizon as jax_decode_horizon, _prefill as jax_prefill,
+    _sample as jax_sample)
 from pytorch_multiprocessing_distributed_tpu.serving import (
     init_params as jax_init_params)
 from pytorch_multiprocessing_distributed_tpu_torch.inference import generate
 from pytorch_multiprocessing_distributed_tpu_torch.inference.generate import (
-    _decode_horizon, _prefill)
+    _decode_horizon, _filter_logits, _prefill)
 from pytorch_multiprocessing_distributed_tpu_torch.models import GPT
 from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     from_jax_params)
@@ -126,3 +128,27 @@ def test_sampled_generate_is_seeded_and_in_vocab(pair):
     assert a.shape == (1, 11) and int(a.max()) < 61
     with pytest.raises(ValueError, match="generator"):
         generate(model, prompt, max_new_tokens=2, temperature=1.0)
+
+
+@pytest.mark.parametrize("top_k, top_p", [(5, 0.0), (0, 0.7), (10, 0.8)])
+@pytest.mark.parametrize("near_uniform", [False, True])
+def test_sampling_kept_set_matches_jax(top_k, top_p, near_uniform):
+    """The set of tokens the port's ``_sample`` may draw (the finite
+    entries of ``_filter_logits``) against JAX ``_sample``'s draws over a
+    vocabulary of 61: the union of 4000 JAX draws lies inside the port's
+    kept set, and equals it where the kept probabilities are near
+    uniform (then every kept token is drawn with near certainty)."""
+    rng = np.random.default_rng(11 + top_k)
+    scale = 0.01 if near_uniform else 2.0
+    logits = (rng.normal(size=(1, 61)) * scale).astype(np.float32)
+    kept = torch.isfinite(_filter_logits(torch.from_numpy(logits), 0.7,
+                                         top_k, top_p))[0]
+    kept = set(np.flatnonzero(kept.numpy()).tolist())
+    draws = jax_sample(jnp.asarray(np.repeat(logits, 4000, axis=0)), 0.7,
+                       top_k, top_p, jax.random.PRNGKey(3))
+    drawn = set(np.asarray(draws).tolist())
+    assert drawn <= kept
+    if top_k:
+        assert len(kept) <= top_k
+    if near_uniform:
+        assert drawn == kept

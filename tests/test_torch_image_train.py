@@ -276,3 +276,23 @@ def test_metrics_match_jax():
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
     assert int(metrics.correct_count(lt, tt)) == int(jm.correct_count(
         jnp.asarray(logits), jnp.asarray(targets)))
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_smooth_cross_entropy_matches_jax(eps):
+    """``--label_smoothing``'s loss against JAX ``ops/losses.py``'s, per
+    sample and mean, within 1e-6."""
+    from pytorch_multiprocessing_distributed_tpu.ops import losses as jl
+    from pytorch_multiprocessing_distributed_tpu_torch.ops import losses
+
+    rng = np.random.default_rng(6)
+    logits = (rng.normal(size=(8, 10)) * 4).astype(np.float32)
+    targets = rng.integers(0, 10, 8).astype(np.int32)
+    ours = losses.smooth_cross_entropy_loss(eps)
+    ref = jl.smooth_cross_entropy_loss(eps)
+    tl, tt = torch.from_numpy(logits), torch.from_numpy(targets)
+    jl_, jt = jnp.asarray(logits), jnp.asarray(targets)
+    np.testing.assert_allclose(ours.per_sample(tl, tt).numpy(),
+                               np.asarray(ref.per_sample(jl_, jt)),
+                               atol=1e-6, rtol=0)
+    assert abs(float(ours(tl, tt)) - float(ref(jl_, jt))) < 1e-6

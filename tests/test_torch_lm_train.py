@@ -213,3 +213,17 @@ def test_cross_entropy_matches_jax():
         torch.from_numpy(logits), torch.from_numpy(targets)))
         - float(jl.cross_entropy_loss(jnp.asarray(logits),
                                       jnp.asarray(targets)))) < 1e-6
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_throughput_is_world_and_per_card(world):
+    """The training summaries' rates: ``*_per_sec`` is the world's rate
+    (the JAX CLIs' live rate), ``*_per_sec_per_card`` that divided by the
+    world size (``train_lm`` and ``main`` both compute them here)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.utils import (
+        throughput)
+
+    rate, per_card = throughput(8 * 1024 * 21, 2.0, world)
+    assert rate == pytest.approx(8 * 1024 * 21 / 2.0)
+    assert per_card == pytest.approx(rate / world)
+    assert throughput(5, 0.0, world)[0] > 0  # no division by zero

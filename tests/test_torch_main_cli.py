@@ -140,6 +140,29 @@ def test_logs_match_jax_cli(tmp_path, same_init, capsys):
         [r[1] for r in _rows(port_dir / "train.log")], abs=1e-6)
 
 
+def test_logs_match_jax_cli_cosine_warmup(tmp_path, same_init, capsys):
+    """``--lr_schedule cosine --warmup_epochs 1`` through both CLIs over
+    3 epochs (lr x1, x1, x0.5): the rows agree within 1e-4. The third
+    epoch's rows are where the schedule shows: at MultiStepLR's constant
+    lr they move by ~1e-3 (train) and ~1.5e-4 (test)."""
+    flags = FLAGS + ["--epochs", "3", "--lr_schedule", "cosine",
+                     "--warmup_epochs", "1"]
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    cli = _jax_cli()
+    cli.run_model(cli.parser.parse_args(flags + ["--save_path",
+                                                 str(jax_dir)]))
+    port_main.main(flags + ["--device", "cpu", "--save_path",
+                            str(port_dir)])
+    capsys.readouterr()
+    for name in ("train.log", "test.log"):
+        ours, ref = _rows(port_dir / name), _rows(jax_dir / name)
+        assert [r[0] for r in ours] == [r[0] for r in ref] == [1.0, 2.0,
+                                                               3.0]
+        for a, b in zip(ours, ref):
+            assert abs(a[1] - b[1]) < TOL, (name, a, b)
+            assert abs(a[2] - b[2]) < TOL, (name, a, b)
+
+
 def test_resume_auto_continues(tmp_path, capsys, monkeypatch):
     """``--resume auto`` picks up the newest checkpoint and continues at
     the next epoch; the resumed run equals the straight one (one step
@@ -172,6 +195,9 @@ def test_world2_spawns_gloo_ranks(tmp_path):
                                      str(tmp_path)])
     assert summary["world_size"] == 2 and summary["steps"] == 2
     assert summary["device"] == "cpu"
+    # the world's rate and one card's: each rank takes half of a batch
+    assert summary["images_per_sec_per_card"] == pytest.approx(
+        summary["images_per_sec"] / 2)
     for name in ("train.log", "test.log"):
         rows = _rows(tmp_path / name)
         assert len(rows) == 1 and rows[0][0] == 1.0

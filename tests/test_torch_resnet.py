@@ -7,20 +7,39 @@ batch of 4 NHWC images. Logits, the input gradient of ``sum(logits *
 c)`` and (in train mode) the updated running stats agree within 1e-4
 absolute: two frameworks' f32 convolutions sum in different orders (the
 differences seen are ~1e-6).
+
+In bf16 (``test_bf16_forward_and_step_match_jax``) the tolerances are in
+bf16 units — the spacing of bf16 values at the compared magnitude,
+``2**(floor(log2(|x|)) - 7)``: the eval logits and one train step's loss
+within 2 units (seen: 1), and the step's parameter update within twice
+the distance between JAX's own bf16 and f32 steps (the two frameworks
+round the bf16 activations and gradients at different points; seen:
+1.16x).
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from pytorch_multiprocessing_distributed_tpu import models as jax_models
 from pytorch_multiprocessing_distributed_tpu.models import (
     registry as jax_registry)
+from pytorch_multiprocessing_distributed_tpu.train import optim as jax_optim
+from pytorch_multiprocessing_distributed_tpu.train import step as jax_step
+from pytorch_multiprocessing_distributed_tpu.train.state import (
+    TrainState as JaxTrainState)
 from pytorch_multiprocessing_distributed_tpu.utils import torch_interop
+from pytorch_multiprocessing_distributed_tpu_torch.data import (
+    normalize, synthetic_cifar10)
 from pytorch_multiprocessing_distributed_tpu_torch.models import (
     MODEL_REGISTRY, ResNet18, get_model, init_resnet, load_jax_resnet)
+from pytorch_multiprocessing_distributed_tpu_torch.train import (
+    create_train_state, make_train_step, sgd)
 
 from resnet_carry import random_variables
 
@@ -120,6 +139,68 @@ def test_bf16_forward_returns_f32_logits(carried):
     assert out.dtype == torch.float32
     ref = _port_model(params, batch_stats).eval()(torch.from_numpy(x))
     torch.testing.assert_close(out, ref, atol=0.5, rtol=0.1)
+
+
+def _bf16_units(scale: float) -> float:
+    """The spacing of bf16 values at magnitude ``scale``."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def test_bf16_forward_and_step_match_jax():
+    """The port's bf16 ResNet-18 (eval forward, and one train step with
+    Nesterov SGD at lr 0.01) against JAX's bf16 model and
+    ``make_train_step`` on the same carried weights and batch."""
+    mkldnn = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False  # the native CPU convolutions
+    try:
+        jmodels = {dt: jax_models.get_model("res", bn_axis="data", dtype=dt)
+                   for dt in (jnp.bfloat16, jnp.float32)}
+        params, stats = random_variables(jmodels[jnp.bfloat16], seed=0,
+                                         random_bn=False)
+        x, y = synthetic_cifar10(4, seed=2)
+        x = normalize(x)
+        ref_logits = np.asarray(jmodels[jnp.bfloat16].apply(
+            {"params": params, "batch_stats": stats}, jnp.asarray(x),
+            train=False), np.float32)
+        port = get_model("res", dtype=torch.bfloat16)
+        port.load_state_dict(load_jax_resnet(params, stats))
+        logits = port.eval()(torch.from_numpy(x)).detach().numpy()
+        assert logits.dtype == np.float32
+        unit = _bf16_units(float(np.abs(ref_logits).max()))
+        assert float(np.abs(logits - ref_logits).max()) <= 2 * unit
+
+        mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+        jax_steps = {}
+        for dt, jm in jmodels.items():
+            state = JaxTrainState(
+                params=params, batch_stats=stats,
+                opt_state=jax_optim.OptState(
+                    momentum=jax.tree.map(np.zeros_like, params),
+                    count=np.zeros((), np.int32),
+                    initialized=np.zeros((), np.bool_)),
+                epoch=np.ones((), np.int32))
+            step = jax_step.make_train_step(jm, jax_optim.sgd(0.01), mesh)
+            state, metrics = step(state, jnp.asarray(x), jnp.asarray(y))
+            jax_steps[dt] = (float(metrics["loss"]), jax.device_get(state))
+        port = get_model("res", dtype=torch.bfloat16)
+        port.load_state_dict(load_jax_resnet(params, stats))
+        state = create_train_state(port)
+        _, metrics = make_train_step(port, sgd(0.01))(
+            state, torch.from_numpy(x), torch.from_numpy(y))
+        ref_loss, ref_state = jax_steps[jnp.bfloat16]
+        assert abs(float(metrics["loss"]) - ref_loss) <= 2 * _bf16_units(
+            ref_loss)
+
+        def flat(tree_state):
+            sd = load_jax_resnet(tree_state.params, tree_state.batch_stats)
+            return torch.cat([sd[k].reshape(-1)
+                              for k in state.views(state.params)])
+
+        ref_bf16, ref_f32 = flat(ref_state), flat(jax_steps[jnp.float32][1])
+        noise = float((ref_bf16 - ref_f32).norm())
+        assert 0.0 < float((state.params - ref_bf16).norm()) <= 2 * noise
+    finally:
+        torch.backends.mkldnn.enabled = mkldnn
 
 
 @pytest.mark.parametrize("name", ["res", "resnet34", "resnet50"])

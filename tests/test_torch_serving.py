@@ -202,9 +202,11 @@ def test_percentile_meter_is_numpy_exact():
                                                     abs=1e-12)
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="paged"),
-                                dict(kv_dtype="int8"), dict(draft_k=2),
-                                dict(prefill_chunk=4), dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(draft_model=object()),
+                                dict(draft_params=object()),
+                                dict(draft_k=2),
+                                dict(readback_timeout_s=1.0),
+                                dict(mesh=object()),
                                 dict(journal=object()),
                                 dict(dispatch_retries=3)])
 def test_unported_engine_features_raise(served, kw):

@@ -94,6 +94,7 @@ def test_logs_match_jax_cli(tmp_path, jax_init_params, capsys):
         assert (port_dir / name).exists()
     assert summary["steps"] == 42 and summary["launches"] == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert summary["tokens_per_sec_per_card"] == summary["tokens_per_sec"]
 
 
 def test_resume_auto_continues_at_epoch_3(tmp_path, capsys):
