@@ -99,20 +99,56 @@ nothing is caught):
    repeated prompt (full prefix hit) and one that diverges after its
    first page (partial hit) are token-exact with ``generate``; the int8
    paged engine equals the int8 dense engine token for token.
+15. verify-kernel — the k-query verify variants of speculative decode,
+   dense (row 3) and paged (row 4), model dtype and int8, against their
+   plain versions at K1 = 5 query rows (draft_k 4), gpt_small decode
+   shapes (8 slots, 12 heads, Dh 64), windows 64/256/1024, page size
+   16, positions including 0, one whose last row lands on the window's
+   last column and one whose rows reach past it, shuffled tables over a
+   scratch page 0 of NaN (K) and 1e30 (V), in f32 and bf16. At W=1024
+   in bf16, per variant: device time (CUDA graph), eager time, the plain
+   version's time, the bound ``max(4 K1 n Dh flops / peak, bytes / HBM
+   rate)`` over the rows' reach, and the library yardstick
+   ``F.scaled_dot_product_attention`` with the row-staggered boolean
+   mask on the already gathered and dequantized window (timed here
+   only; the port never calls it).
+16. serve-spec — ``serve_lm.main`` on full-width gpt_small, random
+   weights from seed 0, bf16, 8 slots, 16 synthetic requests of 32 new
+   tokens, decode horizon 4, ``--draft_k 4``, five times: self-drafting
+   dense, dense ``--kv_dtype int8``, paged (phase 13's flags), paged
+   int8, and ``--draft_model gpt_tiny --s_max 256`` (draft-model mode,
+   random draft weights from seed 1). Every request completes; the run's
+   verify variant launches exactly 12 times per armed pass and its
+   decode variant 12 times per k=0 pass (plus, in draft-model mode, the
+   draft's 4 layers x 5 steps of the dense decode kernel per armed
+   pass), counted from the passes the engine launched at each k, and no
+   other variant launches. Tokens/s, acceptance, TTFT p50/p99 beside the
+   same run without ``--draft_k``, and the share of requests whose bf16
+   transcript equals that run's (printed, not asserted: the verify pass
+   runs the projections on 5-row blocks, where cuBLAS may round
+   otherwise).
+17. spec-exact — gpt_small in f32 (TF32 off): 4 requests and one that
+   ends at s_max through the speculative engine (draft_k 4, horizon 4):
+   dense, paged and draft-model mode (the target as its own draft) are
+   token-exact with ``generate``; int8 paged equals int8 dense and the
+   non-speculative int8 engine.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
 version, and the times at the main path's shapes: the largest decode
 window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels,
 ResNet-18's N for fused SGD, bf16 W=1024 for the int8 and paged decode
-variants);
+variants and, at K1 = 5, for the verify variants);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import io
 import json
+import re
 import math
 import os
 import statistics
@@ -190,6 +226,32 @@ SERVE_BASE = ["--model", "gpt_small", "--random_init", "--dtype",
               "0", "--quiet"]
 SERVE_PAGED = ["--kv_layout", "paged", "--page_size", str(PAGE_SIZE),
                "--prefix_cache", "8", "--num_pages", "64"]
+# speculative decode (phases 15-17)
+DRAFT_K = 4
+VERIFY_ROWS = DRAFT_K + 1
+VERIFY_TOL = 1e-4  # the decode variants' tolerance: same math, same values
+VERIFY_VARIANTS = {  # name: (kernel row, replaces line, paged, int8)
+    "verify_decode_attention": ("3", "decode_attention.py:496", False,
+                                False),
+    "verify_decode_attention_int8": ("3q", "decode_attention.py:496", False,
+                                     True),
+    "paged_verify_decode_attention": ("4", "decode_attention.py:616", True,
+                                      False),
+    "paged_verify_decode_attention_int8": ("4q", "decode_attention.py:616",
+                                           True, True),
+}
+# phase 16: (verify variant, decode variant, extra serve_lm flags)
+SPEC_RUNS = (
+    ("verify_decode_attention", "decode_attention", []),
+    ("verify_decode_attention_int8", "decode_attention_int8",
+     ["--kv_dtype", "int8"]),
+    ("paged_verify_decode_attention", "paged_decode_attention", SERVE_PAGED),
+    ("paged_verify_decode_attention_int8", "paged_decode_attention_int8",
+     SERVE_PAGED + ["--kv_dtype", "int8"]),
+    ("verify_decode_attention", "decode_attention",
+     ["--draft_model", "gpt_tiny", "--s_max", "256"]),
+)
+DRAFT_LAYERS = 4  # gpt_tiny's
 
 
 def _print(*parts):
@@ -606,18 +668,144 @@ def _time_variant(torch, F, da, variant, q, k, v, table, pos, window,
         bound_ms=bound_ms, bound_by=bound_by)
 
 
+_COUNTED = ("decode_attention", "paged_decode_attention",
+            "verify_decode_attention", "paged_verify_decode_attention")
+
+
 def _zero_decode_counts(da):
-    for fn in (da.decode_attention, da.paged_decode_attention):
-        fn.launches = 0
-        fn.int8_launches = 0
+    """Every decode and verify variant's launch count to 0."""
+    for name in _COUNTED:
+        getattr(da, name).launches = 0
+        getattr(da, name).int8_launches = 0
 
 
 def _decode_counts(da):
-    return {"decode_attention": da.decode_attention.launches,
-            "decode_attention_int8": da.decode_attention.int8_launches,
-            "paged_decode_attention": da.paged_decode_attention.launches,
-            "paged_decode_attention_int8":
-                da.paged_decode_attention.int8_launches}
+    """Launch counts of the eight decode and verify variants, by the
+    variant names of the kernels line."""
+    counts = {}
+    for name in _COUNTED:
+        counts[name] = getattr(da, name).launches
+        counts[f"{name}_int8"] = getattr(da, name).int8_launches
+    return counts
+
+
+def _verify_case(torch, quantize_kv, variant, window, dtype, seed):
+    """Inputs of one verify variant at gpt_small decode shapes: q ``[8,
+    K1, 12, 64]``, K/V (a dense window view of an s_max cache, or page
+    storage with a scratch page 0 of NaN and 1e30 that no entry up to a
+    slot's last reachable column points at), the shuffled table (paged)
+    and positions 0, W-K1 (the last row lands on column W-1), W-2 (rows
+    reach past the window) and random columns."""
+    _, _, paged, quant = VERIFY_VARIANTS[variant]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
+    q = torch.randn(n, VERIFY_ROWS, h, d, generator=gen,
+                    device="cuda").to(dtype)
+    pos = torch.randint(0, window - VERIFY_ROWS, (n,), generator=gen,
+                        device="cuda")
+    pos[0], pos[1], pos[2] = 0, window - VERIFY_ROWS, window - 2
+    pos = pos.to(torch.int32)
+    if not paged:
+        s_max = max(PAGED_WINDOWS) + DRAFT_K  # the spare columns
+        k = torch.randn(n, s_max, h, d, generator=gen, device="cuda") * 2
+        v = torch.randn(n, s_max, h, d, generator=gen, device="cuda")
+        if quant:
+            k, v = quantize_kv(k), quantize_kv(v)
+        else:
+            k, v = k.to(dtype), v.to(dtype)
+        return q, k[:, :window], v[:, :window], None, pos
+    ps = PAGE_SIZE
+    n_win = window // ps
+    n_pages = 1 + n * n_win + 7
+    k = torch.randn(n_pages, h, ps, d, generator=gen, device="cuda")
+    v = torch.randn(n_pages, h, ps, d, generator=gen, device="cuda")
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[:n * n_win].view(n, n_win).to(torch.int32)
+    for row, p in enumerate(pos.tolist()):
+        reach = min(p + VERIFY_ROWS - 1, window - 1)
+        table[row, -(-(reach + 1) // ps):] = 0
+    if quant:
+        k, v = quantize_kv(k * 2), quantize_kv(v)
+        k.data[0], v.data[0] = 127, 127
+        k.scale[0], v.scale[0] = float("nan"), 1e30
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        k[0], v[0] = float("nan"), 1e30
+    return q, k, v, table, pos
+
+
+def _verify_calls(da, q, k, v, table, pos, window):
+    """(kernel call, plain call) of one verify variant on one input."""
+    if table is None:
+        return (lambda: da.verify_decode_attention(q, k, v, pos,
+                                                   impl="cuda"),
+                lambda: da.torch_verify_decode_attention(q, k, v, pos))
+    return (lambda: da.paged_verify_decode_attention(
+        q, k, v, table, pos, window=window, impl="cuda"),
+        lambda: da.torch_paged_verify_decode_attention(q, k, v, table, pos,
+                                                       window))
+
+
+def _verify_bound(q, k, table, pos, window, rate):
+    """Least time for one verify variant's work on these inputs: each
+    slot reads the columns its last row reaches, min(pos + K1 - 1, W-1)
+    + 1, of K and V once (int8: a byte a lane plus a 4-byte scale per
+    (token, head)), its table entries, q, positions and the f32 output;
+    row i does 4 flops per Dh lane for each of its min(pos + i, W-1) + 1
+    columns, at the peak of q's type (bf16 on the tensor cores, f32
+    outside them)."""
+    n, k1, h, d = q.shape
+    reach = [min(p + k1 - 1, window - 1) + 1 for p in pos.tolist()]
+    rows = sum(min(p + i, window - 1) + 1 for p in pos.tolist()
+               for i in range(k1))
+    quant = hasattr(k, "scale")
+    group = d + 4 if quant else d * k.element_size()
+    entries = (sum(-(-c // PAGE_SIZE) for c in reach)
+               if table is not None else 0)
+    nbytes = (2 * sum(reach) * h * group + q.numel() * q.element_size()
+              + n * 4 + entries * 4 + q.numel() * 4)
+    peak = (BF16_FLOPS_PER_S if q.element_size() == 2
+            else F32_FLOPS_PER_S)
+    t_bytes, t_ops = nbytes / rate, 4 * rows * h * d / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _time_verify(torch, F, da, q, k, v, table, pos, window, rate):
+    """Device times of one verify variant's kernel, its plain version
+    and the library call (SDPA with the row-staggered mask on the window
+    gathered and dequantized before the timing), the kernel's eager time
+    and the bound. Launches made here are not counted."""
+    kernel, plain = _verify_calls(da, q, k, v, table, pos, window)
+    if table is None:
+        kd, vd = ((da.dequantize_kv(t, q.dtype) if hasattr(t, "scale")
+                   else t) for t in (k, v))
+    else:
+        kd, vd = (da._gather_paged_window(t, table, q.dtype, window)
+                  for t in (k, v))
+    rows = torch.arange(q.shape[1], device="cuda")
+    mask = (torch.arange(window, device="cuda")[None, None, :]
+            <= pos.long()[:, None, None] + rows[None, :, None])[:, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kd, vd))
+    scale = q.shape[-1] ** -0.5
+    bound_ms, bound_by = _verify_bound(q, k, table, pos, window, rate)
+    return dict(
+        ms=_device_ms(kernel, torch), eager_ms=_eager_ms(kernel, torch),
+        plain_ms=_device_ms(plain, torch),
+        library_ms=_device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale), torch),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _serve_transcripts(serve_lm, argv):
+    """``serve_lm.main(argv)`` with its per-request lines captured:
+    ``(snapshot, {uid: tokens})``."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        snap = serve_lm.main(argv)
+    found = re.findall(r"^req=(\S+) tokens=(\[.*\])$", out.getvalue(),
+                       re.M)
+    return snap, {uid: json.loads(toks) for uid, toks in found}
 
 
 def main() -> int:
@@ -1092,6 +1280,155 @@ def main() -> int:
            f"== int8 dense (agrees with the model-dtype stream on "
            f"{sum(a == b for a, b in zip(int8_dense, want))}/4 requests)")
 
+    # -- phase 15: the verify variants against their plain versions
+    verify_worst = {name: 0.0 for name in VERIFY_VARIANTS}
+    verify_main = {}
+    for variant in VERIFY_VARIANTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[1]
+            for w in PAGED_WINDOWS:
+                q, k, v, table, pos = _verify_case(torch, quantize_kv,
+                                                   variant, w, dtype,
+                                                   seed=w + 15)
+                kernel, plain = _verify_calls(da, q, k, v, table, pos, w)
+                got = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = float((got - ref).abs().max())
+                if not (bool(torch.isfinite(got).all())
+                        and err <= VERIFY_TOL):
+                    raise AssertionError(
+                        f"{variant} {tname} W={w} K1={VERIFY_ROWS}: "
+                        f"max|err| {err} > {VERIFY_TOL} (or not finite)")
+                verify_worst[variant] = max(verify_worst[variant], err)
+                paging = (f" page_size={PAGE_SIZE}" if table is not None
+                          else "")
+                line = (f"[verify-kernel] {variant} {tname} N=8 K1="
+                        f"{VERIFY_ROWS} H=12 Dh=64 W={w}{paging} positions="
+                        f"{pos.tolist()} max_abs_err={err:.3e} (tol "
+                        f"{VERIFY_TOL})")
+                if dtype == torch.bfloat16 and w == max(PAGED_WINDOWS):
+                    t = _time_verify(torch, F, da, q, k, v, table, pos, w,
+                                     rate)
+                    verify_main[variant] = dict(
+                        t, shape=f"bf16 N=8 K1={VERIFY_ROWS} H=12 Dh=64 "
+                        f"W={w}{paging}"
+                        + (" int8 KV" if VERIFY_VARIANTS[variant][3]
+                           else ""))
+                    line += (f" ms={t['ms']:.5f} eager_ms={t['eager_ms']:.5f}"
+                             f" plain_ms={t['plain_ms']:.5f} "
+                             f"library_ms={t['library_ms']:.5f} "
+                             f"bound_ms={t['bound_ms']:.5f} "
+                             f"({t['bound_by']}) [{smi}]")
+                _print(line)
+                del q, k, v, table, pos
+
+    # -- phase 16: serve speculatively through the CLI
+    spec_launches = {name: 0 for name in VERIFY_VARIANTS}
+    spec_base = [a for a in SERVE_BASE if a != "--quiet"]
+    for variant, decode_variant, extra in SPEC_RUNS:
+        draft_model = "--draft_model" in extra
+        _zero_decode_counts(da)
+        t0 = time.perf_counter()
+        ssnap, spec_out = _serve_transcripts(
+            serve_lm, spec_base + extra + ["--draft_k", str(DRAFT_K)])
+        wall = time.perf_counter() - t0
+        counts = _decode_counts(da)
+        spec_launches[variant] += counts[variant]
+        if ssnap["requests_completed"] != 16 or len(spec_out) != 16:
+            raise AssertionError(
+                f"{variant} spec serve: {ssnap['requests_completed']}/16 "
+                "requests")
+        passes = {int(k): n for k, n in ssnap["decode_passes_by_k"].items()}
+        armed = sum(n for k, n in passes.items() if k)
+        plain_passes = passes.get(0, 0)
+        want = {name: 0 for name in counts}
+        want[variant] = 12 * armed
+        want[decode_variant] = 12 * plain_passes + (
+            DRAFT_LAYERS * (DRAFT_K + 1) * armed if draft_model else 0)
+        if armed < 1 or counts != want:
+            raise AssertionError(
+                f"{variant} spec serve ({' '.join(extra)}): launches "
+                f"{counts} over passes {passes}; expected {want}")
+        held = ssnap.get("pages_in_use", 0) - ssnap.get(
+            "prefix_cache_pages", 0)
+        if held != 0:
+            raise AssertionError(
+                f"{variant} spec serve: {held} page(s) still held by "
+                "requests after the drain")
+        bsnap, base_out = _serve_transcripts(
+            serve_lm, [a for a in spec_base + extra
+                       if a not in ("--draft_model", "gpt_tiny")])
+        same = sum(spec_out[u] == base_out.get(u) for u in spec_out)
+        _print(f"[serve-spec] {variant}{' (draft model gpt_tiny)' if draft_model else ''}: "
+               f"gpt_small bf16 16 requests x 32 tokens, 8 slots, horizon "
+               f"4, --draft_k {DRAFT_K} {' '.join(extra)}: wall "
+               f"{wall:.2f} s, passes by k {passes}, launches "
+               f"{ {n: c for n, c in counts.items() if c} }, decode "
+               f"tokens/s {ssnap['decode_tokens_per_sec']:.1f} (without "
+               f"--draft_k {bsnap['decode_tokens_per_sec']:.1f}), "
+               f"spec_accept_rate {ssnap['spec_accept_rate']:.4f}, "
+               f"spec_accepted_per_target_step "
+               f"{ssnap['spec_accepted_per_target_step']:.4f}, TTFT p50 "
+               f"{ssnap['ttft_p50_s'] * 1e3:.1f} ms p99 "
+               f"{ssnap['ttft_p99_s'] * 1e3:.1f} ms (without "
+               f"{bsnap['ttft_p50_s'] * 1e3:.1f} / "
+               f"{bsnap['ttft_p99_s'] * 1e3:.1f} ms), KV pool bytes "
+               f"{ssnap['kv_pool_bytes']} (without "
+               f"{bsnap['kv_pool_bytes']}), transcripts equal to the run "
+               f"without --draft_k: {same}/16 [{smi}]")
+
+    # -- phase 17: speculative == generate on the card, f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = get_model("gpt_small", dtype=torch.float32)
+    params = init_params(model, 1, "cuda")
+    model.load_state_dict(params, assign=True)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, model.vocab_size, (n,)).tolist()
+               for n in (5, 11, 17, 23)]
+    reqs = [(p, 12) for p in prompts] + [(prompts[3], 64 - 23)]
+    common = dict(max_slots=4, s_max=64, decode_horizon=4)
+    paged_kw = dict(kv_layout="paged", page_size=PAGE_SIZE, prefix_cache=8)
+
+    def spec_transcripts(**kw):
+        engine = ServingEngine(model, **common, **kw)
+        return [r.tokens for r in engine.serve(reqs)], engine
+
+    want = [generate(model, torch.tensor([p], device="cuda"),
+                     max_new_tokens=n)[0, -n:].tolist() for p, n in reqs]
+    exact = {}
+    for label, kw in (
+            ("dense", dict(draft_k=DRAFT_K)),
+            ("paged", dict(draft_k=DRAFT_K, **paged_kw)),
+            ("draft-model", dict(draft_k=DRAFT_K,
+                                 draft_model=get_model(
+                                     "gpt_small", dtype=torch.float32),
+                                 draft_params=params))):
+        got, engine = spec_transcripts(**kw)
+        esnap = engine.metrics.snapshot()
+        if got != want:
+            raise AssertionError(
+                f"spec {label} != generate (f32): {got} vs {want}")
+        exact[label] = (esnap["spec_verify_passes"],
+                        round(esnap["spec_accept_rate"], 4))
+        del engine
+    int8_paged, _ = spec_transcripts(draft_k=DRAFT_K, kv_dtype="int8",
+                                     **paged_kw)
+    int8_dense, _ = spec_transcripts(draft_k=DRAFT_K, kv_dtype="int8")
+    int8_plain, _ = spec_transcripts(kv_dtype="int8")
+    if not int8_paged == int8_dense == int8_plain:
+        raise AssertionError(
+            f"int8 spec paged {int8_paged} / dense {int8_dense} != "
+            f"non-spec int8 {int8_plain}")
+    _print(f"[spec-exact] gpt_small f32: 5 requests (one to s_max 64), "
+           f"draft_k {DRAFT_K}, horizon 4: dense, paged and draft-model "
+           f"(target as its own draft) speculative == generate; int8 "
+           f"paged == int8 dense == non-speculative int8 (== generate on "
+           f"{sum(a == b for a, b in zip(int8_dense, want))}/5); (verify "
+           f"passes, accept rate) {exact}")
+    del model, params
+
     # the kernels line: the kernel at the main path's largest window
     w_main = max(snap["decode_windows"])
     q, k, v, pos = _decode_inputs(torch, w_main, torch.bfloat16, seed=1)
@@ -1158,7 +1495,24 @@ def main() -> int:
         "library_ms": variant_main[variant]["library_ms"],
         "library": "F.scaled_dot_product_attention on the gathered, "
                    "dequantized dense window",
-        "shape": variant_main[variant]["shape"]} for variant in VARIANTS]}))
+        "shape": variant_main[variant]["shape"]} for variant in VARIANTS] + [{
+        "name": variant, "route": "cuda",
+        "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
+                  "csrc/decode_attention.cu",
+        "replaces": DECODE_REPLACES + VERIFY_VARIANTS[variant][1],
+        "launches": spec_launches[variant],
+        "max_abs_err": verify_worst[variant],
+        "ms": verify_main[variant]["ms"],
+        "kernel_ms": verify_main[variant]["ms"],
+        "eager_ms": verify_main[variant]["eager_ms"],
+        "plain_ms": verify_main[variant]["plain_ms"],
+        "bound_ms": verify_main[variant]["bound_ms"],
+        "bound_by": verify_main[variant]["bound_by"],
+        "library_ms": verify_main[variant]["library_ms"],
+        "library": "F.scaled_dot_product_attention with the row-staggered "
+                   "mask on the gathered, dequantized dense window",
+        "shape": verify_main[variant]["shape"]}
+        for variant in VERIFY_VARIANTS]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -19,9 +19,15 @@ step are quantized before the write), and :func:`_block_chunk_prefill`
 is the engine's chunked prefill. :func:`teacher_forced_logits` runs a
 fixed transcript through either cache dtype.
 
+Speculative decode (``_decode_horizon(..., draft_k=k)``, the JAX
+package's graftspec): each pass proposes ``k`` tokens per row (from a
+per-slot n-gram table, or a small draft GPT run ``k + 1`` cached
+steps), verifies them with ONE ``k + 1``-query target pass
+(:func:`_block_verify_slots`, on the verify attention kernels), and
+accepts the leading matches with tensor ops on the device.
+
 Not in this slice: ragged left-padded batches (``prompt_lengths``),
-tensor parallelism (``mesh``), speculative verify, MoE, beam search
-(ROADMAP.md).
+tensor parallelism (``mesh``), MoE, beam search (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,10 +38,19 @@ import torch
 
 from ..models.gpt import (_block_prefill, _dense, _embed, _ffn, _ln,
                           _logits, _split_heads)
-from ..ops.decode_attention import decode_attention, paged_decode_attention
+from ..ops.decode_attention import (decode_attention,
+                                    paged_decode_attention,
+                                    paged_verify_decode_attention,
+                                    verify_decode_attention)
 from ..ops.kv_quant import QuantizedKV, kv_slice_in_dim, quantize_kv
 
-__all__ = ["generate", "teacher_forced_logits"]
+__all__ = ["generate", "teacher_forced_logits", "draft_bucket",
+           "DRAFT_HASH_PRIME"]
+
+# Knuth multiplicative constant of the draft-table hash: one formula for
+# the host tables (``serving.spec.ngram_bucket``, numpy uint32)
+# and the device lookup (:func:`draft_bucket`), as in the JAX package
+DRAFT_HASH_PRIME = 2654435761
 
 
 def _write_kv(cache, index, new):
@@ -98,6 +113,70 @@ def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
     return x_t + _ffn(p, x_t, dtype, eps)
 
 
+def draft_bucket(tokens: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Draft-table bucket of each token id: ``uint32(t * PRIME) %
+    n_buckets``. torch has no uint32 arithmetic on every device, so the
+    product is taken in int64 (exact for ids below 2^31) and masked to
+    its low 32 bits."""
+    t = (tokens.to(torch.int64) * DRAFT_HASH_PRIME) & 0xFFFFFFFF
+    return (t % int(n_buckets)).to(torch.int32)
+
+
+def _block_verify_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
+                        eps, window=None, attn_impl="auto",
+                        page_table=None, page_size=None):
+    """k-query verify variant of :func:`_block_decode_slots`: ``x_t`` is
+    ``[N, K1, D]``, each row's pending token plus its ``K1 - 1`` drafts.
+    Row ``i``'s K/V is written at column ``positions + i`` (all K1
+    columns, before the attention, so later rows see earlier rows'
+    keys), then row ``i`` attends ``[0, positions + i]`` through
+    :func:`..ops.decode_attention.verify_decode_attention` (or its paged
+    twin).
+
+    Columns past a row's accepted frontier hold rejected drafts; every
+    later read masks them until the frontier's own write replaces them.
+    Writes past the end of the sequence: dense caches carry ``K1 - 1``
+    spare columns past ``s_max`` (the engine allocates them), where such
+    writes land and are never read (the JAX package drops them); a
+    paged write whose block lies past the table goes to the scratch page
+    0, as in the JAX package, so a draft never touches another tenant's
+    page or a shared prefix page."""
+    n, k1, _ = x_t.shape
+    hn = _ln(x_t, p.ln1, eps).to(dtype)
+    q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
+    q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
+    cols = (positions.long()[:, None]
+            + torch.arange(k1, device=x_t.device)[None, :])  # [N, K1]
+    if page_table is not None:
+        ps = int(page_size)
+        blk = cols // ps
+        n_tab = page_table.shape[1]
+        ids = torch.gather(page_table, 1, blk.clamp(max=n_tab - 1)).long()
+        ids = torch.where(blk < n_tab, ids, torch.zeros_like(ids))
+        index = (ids, slice(None), cols % ps)
+        _write_kv(k_cache, index, k)
+        _write_kv(v_cache, index, v)
+        n_win = (-(-int(window) // ps) if window is not None
+                 else page_table.shape[1])
+        att = paged_verify_decode_attention(
+            q, k_cache, v_cache, page_table[:, :n_win], positions,
+            window=window, impl=attn_impl)
+    else:
+        rows = torch.arange(n, device=x_t.device)[:, None]
+        _write_kv(k_cache, (rows, cols), k)
+        _write_kv(v_cache, (rows, cols), v)
+        if window is not None and window < k_cache.shape[1]:
+            k_win = kv_slice_in_dim(k_cache, 0, window, axis=1)
+            v_win = kv_slice_in_dim(v_cache, 0, window, axis=1)
+        else:
+            k_win, v_win = k_cache, v_cache
+        att = verify_decode_attention(q, k_win, v_win, positions,
+                                      impl=attn_impl)
+    att = att.reshape(n, k1, -1).to(dtype)
+    x_t = x_t + _dense(att, p.attn.wo, dtype)
+    return x_t + _ffn(p, x_t, dtype, eps)
+
+
 def _filter_logits(logits, temperature: float, top_k: int,
                    top_p: float):
     """The logits a draw is made from: divided by ``temperature``, then
@@ -139,7 +218,10 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
                     top_p: float = 0.0,
                     generator: Optional[torch.Generator] = None,
                     page_table: Optional[torch.Tensor] = None,
-                    page_size: Optional[int] = None):
+                    page_size: Optional[int] = None, draft_k: int = 0,
+                    draft_table: Optional[torch.Tensor] = None,
+                    draft_model=None, draft_k_caches=None,
+                    draft_v_caches=None):
     """``horizon`` cached decode steps over every row, with the freeze
     gates on the device: a row whose sampled token is its ``eos_ids``
     entry, or whose ``remaining`` budget reaches zero, emits that final
@@ -158,10 +240,45 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
         page_size, Dh]`` pages and ``page_table`` ``[N,
         pages_per_slot]`` int32 maps each row's columns onto them (read
         only here). See :func:`_block_decode_slots`.
+      draft_k: > 0 arms speculative decode: each of the ``horizon``
+        passes proposes ``draft_k`` tokens per row, verifies them with
+        one ``draft_k + 1``-query target pass and emits the verified
+        prefix (1 to ``draft_k + 1`` tokens per active row), with the
+        same freeze gates. Greedy only. Dense caches need ``draft_k``
+        spare columns past the last column a row can hold (see
+        :func:`_block_verify_slots`).
+      draft_table: self-drafting — ``[N, buckets, draft_k]`` int32
+        n-gram tables (``-1`` = no proposal, never accepted), looked up
+        by :func:`draft_bucket` on each pass's pending token.
+      draft_model / draft_k_caches / draft_v_caches: draft-model mode —
+        a bound GPT proposing the tokens autoregressively against its
+        own dense ``[L_d, N, S + draft_k, H_d, Dh_d]`` caches (written in
+        place; the last ``draft_k`` columns are spare, as above).
 
     Returns ``(tokens [horizon, N] int32, (positions, last_tokens,
-    active, remaining))``.
+    active, remaining))``; with ``draft_k`` the block is ``[horizon *
+    (draft_k + 1), N]``, step-major (pass ``j``'s ``draft_k + 1``
+    emission rows, then pass ``j + 1``'s), ``-1`` marking rejected or
+    frozen rows.
     """
+    if draft_k:
+        if temperature > 0.0:
+            raise ValueError(
+                "speculative decode (draft_k > 0) is greedy-only: a "
+                "sampled stream cannot be verified by argmax matching "
+                "(temperature > 0)")
+        if (draft_table is None) == (draft_model is None):
+            raise ValueError(
+                "draft_k > 0 needs exactly one draft source: "
+                "draft_table (self-drafting) or draft_model (+ its "
+                "caches)")
+        return _decode_horizon_spec(
+            model, k_caches, v_caches, positions, last_tokens, active,
+            remaining, eos_ids, horizon, window=window,
+            attn_impl=attn_impl, page_table=page_table,
+            page_size=page_size, draft_k=int(draft_k),
+            draft_table=draft_table, draft_model=draft_model,
+            draft_k_caches=draft_k_caches, draft_v_caches=draft_v_caches)
     dtype, eps, h = model.dtype, model.ln_eps, model.num_heads
     emitted_steps = []
     for _ in range(horizon):
@@ -185,6 +302,106 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
         active = active & ~finished
     return (torch.stack(emitted_steps),
             (positions, last_tokens, active, remaining))
+
+
+def _draft_with_model(draft, dk, dv, positions, last_tokens, kk: int,
+                      attn_impl: str):
+    """``kk + 1`` cached greedy steps of the draft model from each
+    row's pending token (the last step only fills the draft cache's
+    column ``position + kk``, so full acceptance leaves no gap for the
+    next pass to read stale data through). The draft attends the first
+    ``S`` columns of its ``S + kk``-wide caches, and position-embedding
+    ids are clipped into its table, as in the JAX package. Returns the
+    first ``kk`` outputs, ``[N, kk]`` int32."""
+    d_dtype, d_eps, d_h = draft.dtype, draft.ln_eps, draft.num_heads
+    pe = draft.pos_embed
+    window = dk.shape[2] - kk
+    t, p_d, toks = last_tokens, positions, []
+    for step in range(kk + 1):
+        ids = p_d.clamp(0, pe.shape[0] - 1)
+        x_d = (draft.embed[t][:, None, :].to(d_dtype)
+               + pe[ids][:, None, :].to(d_dtype))
+        for i in range(draft.num_layers):
+            x_d = _block_decode_slots(draft.block(i), x_d, dk[i], dv[i],
+                                      p_d, d_h, d_dtype, d_eps,
+                                      window=window, attn_impl=attn_impl)
+        if step < kk:  # the last step's token is never proposed
+            t = _logits(draft, x_d, d_eps)[:, 0].argmax(dim=-1).to(
+                torch.int32)
+            toks.append(t)
+        p_d = p_d + 1
+    return torch.stack(toks, dim=1)
+
+
+def _decode_horizon_spec(model, k_caches, v_caches, positions,
+                         last_tokens, active, remaining, eos_ids,
+                         horizon: int, *, window, attn_impl, page_table,
+                         page_size, draft_k: int, draft_table, draft_model,
+                         draft_k_caches, draft_v_caches):
+    """The speculative body of :func:`_decode_horizon`: ``horizon``
+    draft-then-verify passes. Per pass and row: propose ``k`` tokens,
+    run one ``k + 1``-query target pass over the pending token and the
+    drafts, take the target's greedy outputs ``g_0 .. g_k`` and emit
+    ``g_i`` iff every draft before it matched, the row is active, ``i <
+    remaining`` and no earlier ``g_j`` was the stop token — the tokens
+    ``i`` single greedy steps would have emitted, with the same freeze
+    gates. The acceptance is tensor ops on the device (cumprod of the
+    matches, a cumsum for the stop token, a gather): no host read, no
+    shape that depends on it."""
+    dtype, eps, h = model.dtype, model.ln_eps, model.num_heads
+    kk, vocab, n = draft_k, model.vocab_size, positions.shape[0]
+    dev = positions.device
+    steps = torch.arange(kk + 1, device=dev)
+    row_ids = torch.arange(n, device=dev)
+    pe = model.pos_embed
+    emitted_steps = []
+    for _ in range(horizon):
+        if draft_model is not None:
+            drafts = _draft_with_model(draft_model, draft_k_caches,
+                                       draft_v_caches, positions,
+                                       last_tokens, kk, attn_impl)
+            draft_ok = torch.ones_like(drafts, dtype=torch.bool)
+        else:
+            bucket = draft_bucket(last_tokens, draft_table.shape[1])
+            drafts = draft_table[row_ids, bucket.long()]      # [N, k]
+            draft_ok = drafts >= 0  # -1 = no proposal, never accepted
+        drafts = torch.where(draft_ok, drafts.clamp(0, vocab - 1),
+                             torch.zeros_like(drafts))
+
+        # verify: one (k+1)-query target pass
+        qtok = torch.cat([last_tokens[:, None], drafts], dim=1)
+        cols = positions.long()[:, None] + steps[None, :]
+        ids = cols.clamp(0, pe.shape[0] - 1)
+        x_t = model.embed[qtok].to(dtype) + pe[ids].to(dtype)
+        for i in range(model.num_layers):
+            x_t = _block_verify_slots(
+                model.block(i), x_t, k_caches[i], v_caches[i], positions,
+                h, dtype, eps, window=window, attn_impl=attn_impl,
+                page_table=page_table, page_size=page_size)
+        greedy = _logits(model, x_t, eps).argmax(dim=-1).to(torch.int32)
+
+        # greedy acceptance, composed with the freeze gates
+        match = (drafts == greedy[:, :kk]) & draft_ok
+        accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        is_eos = greedy == eos_ids[:, None]
+        eos_i = is_eos.to(torch.int32)
+        eos_before = eos_i.cumsum(dim=1) - eos_i
+        can = ((steps[None, :] <= accepted[:, None])
+               & (steps[None, :] < remaining[:, None])
+               & (eos_before == 0) & active[:, None])
+        e = can.sum(dim=1, dtype=torch.int32)                 # [N] emitted
+        emitted_steps.append(torch.where(can, greedy,
+                                         torch.full_like(greedy, -1)))
+        last = greedy.gather(1, (e.long() - 1).clamp(min=0)[:, None])[:, 0]
+        last_tokens = torch.where(e > 0, last, last_tokens)
+        remaining = remaining - e
+        hit_eos = (can & is_eos).any(dim=1)
+        finished = active & (hit_eos | (remaining <= 0))
+        positions = positions + e
+        active = active & ~finished
+    # [H, N, k+1] -> [H * (k+1), N], step-major
+    tokens = torch.stack(emitted_steps).permute(0, 2, 1).reshape(-1, n)
+    return tokens, (positions, last_tokens, active, remaining)
 
 
 def _prefill(model, prompt, s_max: int):

@@ -49,8 +49,10 @@ def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
 
 
 from .decode_attention import (  # noqa: E402,F401
-    decode_attention, paged_decode_attention, torch_decode_attention,
-    torch_paged_decode_attention)
+    decode_attention, paged_decode_attention,
+    paged_verify_decode_attention, torch_decode_attention,
+    torch_paged_decode_attention, torch_paged_verify_decode_attention,
+    torch_verify_decode_attention, verify_decode_attention)
 from .flash_attention import (  # noqa: E402,F401
     flash_attention, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
     flash_pair_grads, torch_flash_bwd_dkv, torch_flash_bwd_dq,

@@ -1,5 +1,7 @@
 """Flash-decode attention: one cached query per slot over a KV window,
-dense or through a page table, over model-dtype or int8 K/V.
+dense or through a page table, over model-dtype or int8 K/V; and its
+k-query twin, the speculative verify pass (``K1`` query rows per slot,
+row ``i`` attending columns ``[0, position + i]``).
 
 The serving engine's decode step: ONE query token per slot attending
 over the slot's cached columns ``[0, position]``. On the card this runs
@@ -21,10 +23,20 @@ int8 K/V are a :class:`.kv_quant.QuantizedKV` whose scale drops the
 trailing Dh axis; positions ``[B]`` int32; the output is f32 ``[B, 1, H,
 Dh]`` and the caller casts back to the model dtype.
 
+The verify entries (:func:`verify_decode_attention`,
+:func:`paged_verify_decode_attention`) take q ``[B, K1, H, Dh]`` and
+return f32 ``[B, K1, H, Dh]``; on the card they run the kernels of the
+same source that replace the JAX package's ``_verify_kernel`` and
+``_paged_verify_kernel``, on the CPU the plain versions
+(:func:`torch_verify_decode_attention`, the einsum and row-staggered
+masked softmax of ``xla_verify_decode_attention``;
+:func:`torch_paged_verify_decode_attention`, gather then dense).
+
 Launch counts, one per variant (incremented where the kernel launches,
 nowhere else): ``decode_attention.launches`` (dense, model dtype),
-``decode_attention.int8_launches``, ``paged_decode_attention.launches``
-and ``paged_decode_attention.int8_launches``.
+``decode_attention.int8_launches``, ``paged_decode_attention.launches``,
+``paged_decode_attention.int8_launches``, and the same four names on
+``verify_decode_attention`` and ``paged_verify_decode_attention``.
 """
 
 from __future__ import annotations
@@ -40,10 +52,20 @@ from ._build import load
 from .kv_quant import QuantizedKV, dequantize_kv
 
 __all__ = ["decode_attention", "paged_decode_attention",
-           "torch_decode_attention", "torch_paged_decode_attention"]
+           "verify_decode_attention", "paged_verify_decode_attention",
+           "torch_decode_attention", "torch_paged_decode_attention",
+           "torch_verify_decode_attention",
+           "torch_paged_verify_decode_attention", "VerifyRowsError"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+# the verify kernel takes query rows in tiles of up to 8 on the grid's
+# y axis (at most 65535 tiles)
+MAX_VERIFY_ROWS = 8 * 65535
+
+
+class VerifyRowsError(ValueError):
+    """A query-row count ``K1`` the verify kernel cannot take."""
 
 
 def torch_decode_attention(q: torch.Tensor, k, v,
@@ -99,6 +121,41 @@ def torch_paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
     return torch_decode_attention(q, k_win, v_win, positions)
 
 
+def torch_verify_decode_attention(q: torch.Tensor, k, v,
+                                  positions: torch.Tensor) -> torch.Tensor:
+    """Plain reference of the k-query verify pass (the JAX package's
+    ``xla_verify_decode_attention``): f32 logits, row ``i`` of slot
+    ``b`` masked to columns ``<= positions[b] + i``, softmax, f32 PV.
+    int8 K/V are dequantized to q's dtype first. ``K1 = 1`` is
+    :func:`torch_decode_attention` bit for bit; a row reaching past the
+    window attends the whole window."""
+    if isinstance(k, QuantizedKV):
+        k, v = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    rows = torch.arange(q.shape[1], device=k.device)
+    cols = torch.arange(k.shape[1], device=k.device)
+    mask = (cols[None, None, :]
+            <= positions.to(torch.long)[:, None, None]
+            + rows[None, :, None])  # [B, K1, W]
+    logits = logits.masked_fill(~mask[:, None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+
+
+def torch_paged_verify_decode_attention(q: torch.Tensor, k_pages, v_pages,
+                                        page_table: torch.Tensor,
+                                        positions: torch.Tensor,
+                                        window: Optional[int] = None
+                                        ) -> torch.Tensor:
+    """Plain reference of the paged verify pass (the JAX package's
+    ``xla_paged_verify_decode_attention``): gather the windowed pages,
+    then :func:`torch_verify_decode_attention`."""
+    k_win = _gather_paged_window(k_pages, page_table, q.dtype, window)
+    v_win = _gather_paged_window(v_pages, page_table, q.dtype, window)
+    return torch_verify_decode_attention(q, k_win, v_win, positions)
+
+
 # ---- the CUDA kernel ---------------------------------------------------
 
 class _Args(ctypes.Structure):
@@ -114,20 +171,37 @@ class _Args(ctypes.Structure):
         + [("scale", ctypes.c_float)])
 
 
+class _VerifyArgs(ctypes.Structure):
+    """``PmdtVerifyArgs`` of ``csrc/decode_attention.cu``: the decode
+    block (its ``out`` is ``[B, K1, H, Dh]``), the row count and q's
+    row stride."""
+    _fields_ = [("d", _Args), ("k1", ctypes.c_int),
+                ("q_sq", ctypes.c_longlong)]
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry point with its ctypes signature (built at first
+def _kernel(verify: bool = False):
+    """The C entry point (``pmdt_decode_attention``, or
+    ``pmdt_verify_attention``) with its ctypes signature (built at first
     use)."""
-    fn = load("decode_attention").pmdt_decode_attention
-    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib = load("decode_attention")
+    fn = lib.pmdt_verify_attention if verify else lib.pmdt_decode_attention
+    fn.argtypes = [ctypes.POINTER(_VerifyArgs if verify else _Args),
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_q(q, positions):
-    b, one, h, d = q.shape
-    if one != 1:
+def _check_q(q, positions, verify=False):
+    if q.dim() != 4:
+        raise ValueError(f"q must be 4-d, got {tuple(q.shape)}")
+    b, k1, h, d = q.shape
+    if not verify and k1 != 1:
         raise ValueError(f"q must be [B, 1, H, Dh], got {tuple(q.shape)}")
+    if verify and not 1 <= k1 <= MAX_VERIFY_ROWS:
+        raise VerifyRowsError(
+            f"the verify kernel takes 1 <= K1 <= {MAX_VERIFY_ROWS} query "
+            f"rows, got q {tuple(q.shape)}")
     if q.dtype not in _DTYPES:
         raise ValueError(
             f"the kernel takes f32 or bf16 q, got {q.dtype}")
@@ -183,9 +257,9 @@ def _same_device(*tensors):
         raise ValueError(f"inputs on different devices: {devs}")
 
 
-def _check(q, k, v, positions):
+def _check(q, k, v, positions, verify=False):
     """Dense variant checks (``k``/``v`` ``[B, W, H, Dh]``)."""
-    _check_q(q, positions)
+    _check_q(q, positions, verify)
     b, _, h, d = q.shape
     _check_kv(q, k, v)
     if k.shape[0] != b or k.shape[2:] != (h, d):
@@ -199,8 +273,9 @@ def _check(q, k, v, positions):
     _same_device(*parts)
 
 
-def _check_paged(q, k_pages, v_pages, page_table, positions, window):
-    _check_q(q, positions)
+def _check_paged(q, k_pages, v_pages, page_table, positions, window,
+                 verify=False):
+    _check_q(q, positions, verify)
     b, _, h, d = q.shape
     _check_kv(q, k_pages, v_pages, name="pages")
     if k_pages.shape[1] != h:
@@ -223,12 +298,14 @@ def _check_paged(q, k_pages, v_pages, page_table, positions, window):
     _same_device(*parts)
 
 
-def _launch(q, k, v, positions, *, window, table=None, page_size=0):
-    """Fill the argument block and launch; returns the f32 output."""
-    b, _, h, d = q.shape
+def _launch(q, k, v, positions, *, window, table=None, page_size=0,
+            verify=False):
+    """Fill the argument block and launch the decode kernel (or, with
+    ``verify``, the k-query verify kernel); returns the f32 output."""
+    b, k1, h, d = q.shape
     quant = isinstance(k, QuantizedKV)
     kd, vd = (k.data, v.data) if quant else (k, v)
-    out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, k1, h, d), dtype=torch.float32, device=q.device)
     a = _Args(q=q.data_ptr(), k=kd.data_ptr(), v=vd.data_ptr(),
               positions=positions.data_ptr(), out=out.data_ptr(),
               B=b, H=h, W=window, D=d, dtype=_DTYPES[q.dtype],
@@ -247,12 +324,16 @@ def _launch(q, k, v, positions, *, window, table=None, page_size=0):
         a.table, a.page_size = table.data_ptr(), page_size
         a.table_stride = table.stride(0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(ctypes.byref(a), stream)
+    if verify:
+        err = _kernel(True)(ctypes.byref(
+            _VerifyArgs(d=a, k1=k1, q_sq=q.stride(1))), stream)
+    else:
+        err = _kernel()(ctypes.byref(a), stream)
     if err != 0:
         raise RuntimeError(
-            f"decode_attention kernel launch failed: cudaError {err} "
-            f"(B={b} H={h} W={window} Dh={d} {q.dtype} int8={quant} "
-            f"paged={table is not None})")
+            f"{'verify' if verify else 'decode'}_attention kernel launch "
+            f"failed: cudaError {err} (B={b} K1={k1} H={h} W={window} "
+            f"Dh={d} {q.dtype} int8={quant} paged={table is not None})")
     return out
 
 
@@ -325,8 +406,66 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
     return out
 
 
+def verify_decode_attention(q: torch.Tensor, k, v,
+                            positions: torch.Tensor, *,
+                            impl: str = "auto") -> torch.Tensor:
+    """Speculative-verify attention over a dense KV window: ``K1``
+    query rows per slot (the pending token, then the drafts).
+
+    Args:
+      q: ``[B, K1, H, Dh]`` (any strides with a unit ``Dh`` stride) —
+        row ``i`` is the query at column ``positions[b] + i``.
+      k, v: ``[B, W, H, Dh]`` window (the caller has already written the
+        K1 in-flight columns, so row ``i`` sees its predecessors' keys),
+        or a :class:`.kv_quant.QuantizedKV` pair.
+      positions: ``[B]`` int32 — row ``i`` attends ``[0, positions[b] +
+        i]``, clamped to the window.
+      impl: ``"auto"`` | ``"cuda"`` | ``"torch"``.
+
+    Returns ``[B, K1, H, Dh]`` f32. On the card a ``K1`` outside ``[1,
+    MAX_VERIFY_ROWS]`` raises :class:`VerifyRowsError`.
+    """
+    if resolve_impl(impl, q) == "torch":
+        return torch_verify_decode_attention(q, k, v, positions)
+    _check(q, k, v, positions, verify=True)
+    out = _launch(q, k, v, positions, window=k.shape[1], verify=True)
+    if isinstance(k, QuantizedKV):
+        verify_decode_attention.int8_launches += 1
+    else:
+        verify_decode_attention.launches += 1
+    return out
+
+
+def paged_verify_decode_attention(q: torch.Tensor, k_pages, v_pages,
+                                  page_table: torch.Tensor,
+                                  positions: torch.Tensor, *,
+                                  window: Optional[int] = None,
+                                  impl: str = "auto") -> torch.Tensor:
+    """Paged twin of :func:`verify_decode_attention`: q ``[B, K1, H,
+    Dh]`` over pages ``[P, H, page_size, Dh]`` (or their int8 pair)
+    through ``page_table`` ``[B, n_win]`` int32, as
+    :func:`paged_decode_attention` reads them. Entries past a slot's
+    last reachable column (``min(positions[b] + K1 - 1, window - 1)``)
+    are never dereferenced. Returns ``[B, K1, H, Dh]`` f32."""
+    if resolve_impl(impl, q) == "torch":
+        return torch_paged_verify_decode_attention(
+            q, k_pages, v_pages, page_table, positions, window)
+    _check_paged(q, k_pages, v_pages, page_table, positions, window,
+                 verify=True)
+    ps = k_pages.shape[2]
+    out = _launch(q, k_pages, v_pages, positions,
+                  window=window or page_table.shape[1] * ps,
+                  table=page_table, page_size=ps, verify=True)
+    if isinstance(k_pages, QuantizedKV):
+        paged_verify_decode_attention.int8_launches += 1
+    else:
+        paged_verify_decode_attention.launches += 1
+    return out
+
+
 # launches of the CUDA kernel's variants (incremented after a launch only)
-decode_attention.launches = 0
-decode_attention.int8_launches = 0
-paged_decode_attention.launches = 0
-paged_decode_attention.int8_launches = 0
+for _fn in (decode_attention, paged_decode_attention,
+            verify_decode_attention, paged_verify_decode_attention):
+    _fn.launches = 0
+    _fn.int8_launches = 0
+del _fn

@@ -18,9 +18,14 @@ snapshot is printed as ``metrics: {...}``.
 ``--kv_layout paged`` (with ``--page_size``, ``--num_pages`` and
 ``--prefix_cache``), ``--kv_dtype int8`` and ``--prefill_chunk`` keep the
 JAX CLI's names, defaults and meanings; the snapshot then carries the
-prefix-cache and page counters and the pool's bytes. The JAX CLI's
-fleet, wire, autoscale, journal, restart, observability, speculative
-and TP flags are rejected with a message naming ROADMAP.md.
+prefix-cache and page counters and the pool's bytes. ``--draft_k K``
+arms speculative decode (greedy only): self-drafting from each
+request's own tokens, or with ``--draft_model NAME`` a registry GPT
+(random weights from ``--seed + 1``, or ``--draft_ckpt`` read as
+``--ckpt`` is) proposing the drafts; the snapshot then carries the
+``spec_*`` and ``accept_len_*`` keys. The JAX CLI's fleet, wire,
+autoscale, journal, restart, observability and TP flags are rejected
+with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ from .serving import (QueueFull, Request, ServingEngine, init_params,
 
 # flags of the JAX CLI this slice does not port
 NOT_PORTED_FLAGS = (
-    "--ckpt_backend", "--ckpt_epoch", "--draft_k", "--draft_model",
-    "--draft_ckpt", "--tp", "--replicas", "--role", "--router_port",
+    "--ckpt_backend", "--ckpt_epoch", "--tp", "--replicas", "--role",
+    "--router_port",
     "--listen", "--rid", "--connect", "--fleet_store", "--fleet_run",
     "--fleet_ttl", "--autoscale", "--rollout", "--drain_deadline_s",
     "--journal", "--max_restarts", "--restart_backoff", "--stats_port",
@@ -100,6 +105,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--prefix_cache', default=0, type=int,
                    help='paged + greedy: LRU entries of the shared-prefix '
                         'cache (identical prompts prefill once; 0 = off)')
+    p.add_argument('--draft_k', default=0, type=int,
+                   help='speculative decode: up to K draft tokens '
+                        'verified per target pass (0 = off; greedy '
+                        'only). Self-drafting n-gram tables unless '
+                        '--draft_model is given')
+    p.add_argument('--draft_model', default='', type=str,
+                   help='registry name of a small draft GPT proposing '
+                        'the drafts (must share the vocab; random '
+                        'weights from --seed + 1 unless --draft_ckpt)')
+    p.add_argument('--draft_ckpt', default='', type=str,
+                   help='.npz params for --draft_model (as --ckpt)')
     p.add_argument('--max_new_tokens', default=32, type=int)
     p.add_argument('--eos', default=-1, type=int,
                    help='stop token id (-1 = none)')
@@ -200,6 +216,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
         decode_buckets = ()
     else:
         decode_buckets = [int(b) for b in args.decode_buckets.split(',')]
+    # speculative decode: loud rejection before any model work
+    if args.draft_k and args.temperature > 0:
+        raise SystemExit(
+            "--draft_k (speculative decode) is greedy-only: drop "
+            "--temperature or disarm speculation")
+    if args.draft_model and not args.draft_k:
+        raise SystemExit("--draft_model needs --draft_k > 0")
+    draft_model = draft_params = None
+    if args.draft_k and args.draft_model:
+        draft_model = get_model(args.draft_model, dtype=dtype,
+                                vocab_size=model.vocab_size)
+        if args.draft_ckpt:
+            draft_params = load_params(args.draft_ckpt)
+        else:
+            draft_params = init_params(draft_model, args.seed + 1, device)
     generator = None
     if args.temperature > 0:
         generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -217,7 +248,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
         num_pages=(args.num_pages or None
                    if args.kv_layout == 'paged' else None),
         prefix_cache=(args.prefix_cache
-                      if args.kv_layout == 'paged' else 0))
+                      if args.kv_layout == 'paged' else 0),
+        draft_k=args.draft_k, draft_model=draft_model,
+        draft_params=draft_params)
 
     def emit(events):
         if args.quiet:
@@ -260,6 +293,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     snap["decode_windows"] = list(engine.decode_windows)
     snap["decode_horizon"] = engine.decode_horizon
     snap["decode_programs"] = [list(p) for p in engine.decode_programs]
+    snap["draft_k"] = engine.draft_k
+    snap["spec_programs"] = [list(p) for p in engine.spec_programs]
+    # decode passes by realised draft length (0 = plain decode): what
+    # the kernels' launch counts follow
+    snap["decode_passes_by_k"] = {str(k): n for k, n in
+                                  sorted(engine.passes_by_k.items())}
     pool = engine.pool
     snap["kv_layout"], snap["kv_dtype"] = args.kv_layout, args.kv_dtype
     if args.kv_layout == 'paged':
@@ -273,8 +312,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             if engine._prefix_cache is not None else 0)
         snap["kv_pool_bytes"] = pool.kv_bytes
     else:
-        snap["kv_pool_bytes"] = pool.max_slots * pool.per_slot_kv_bytes(
-            model, pool.s_max, args.kv_dtype)
+        snap["kv_pool_bytes"] = pool.kv_bytes  # spare columns included
     snap["device"] = str(device)
     print("metrics: " + json.dumps(snap, sort_keys=True), flush=True)
     if args.metrics_out:

@@ -1,6 +1,7 @@
 """Continuous-batching serving (the port of the JAX package's
 ``serving``, single-engine subset: dense or paged KV, model dtype or
-int8, whole or chunked prefill, the shared-prefix cache)."""
+int8, whole or chunked prefill, the shared-prefix cache, speculative
+decode)."""
 
 from .engine import ServingEngine  # noqa: F401
 from .kv_pages import (PagePool, PagePoolExhausted,  # noqa: F401
@@ -8,4 +9,6 @@ from .kv_pages import (PagePool, PagePoolExhausted,  # noqa: F401
 from .kv_slots import SlotPool  # noqa: F401
 from .params import from_jax_params, init_params, load_params  # noqa: F401
 from .scheduler import (FIFOScheduler, PrefillPlan,  # noqa: F401
-                        QueueFull, Request, bucket_length, pick_horizon)
+                        QueueFull, Request, bucket_length, pick_draft_k,
+                        pick_horizon)
+from .spec import NgramDrafter, ngram_bucket  # noqa: F401

@@ -39,19 +39,31 @@ subset:
   token-block readback; in steady state horizon ``h+1`` is launched
   before horizon ``h`` is read back, so the host does not sit between
   the card and its next work;
+- **speculative decode** (``draft_k > 0``, greedy only): each decode
+  pass proposes up to ``draft_k`` tokens per slot, from per-slot n-gram
+  tables over the request's own tokens (:class:`~.spec.NgramDrafter`)
+  or from a small draft GPT (``draft_model``/``draft_params``, its own
+  dense caches prefilled at every admission), and verifies them with
+  one ``draft_k + 1``-query target pass; a pass emits 1 to ``draft_k +
+  1`` tokens per active slot. The realised k per dispatch is
+  :func:`~.scheduler.pick_draft_k`'s on the ``{0, draft_k}`` ladder
+  (collapsed under sustained low acceptance, re-probed every 16
+  dispatches); k=0 dispatches run the plain decode body;
 - decode attention is the hand-written CUDA flash-decode kernel on the
   card (``decode_attn="auto"``; dense or paged, model dtype or int8),
-  the plain PyTorch versions on the CPU.
+  and the verify pass its k-query twin, the plain PyTorch versions on
+  the CPU.
 
 Greedy decode through the engine is token-for-token identical to
 per-request :func:`...inference.generate` (same helpers, same
-dtype/eps conventions), dense or paged, whole or chunked: the paged
-plain path gathers the same columns the dense one slices.
+dtype/eps conventions), dense or paged, whole or chunked, speculative
+or not: the paged plain path gathers the same columns the dense one
+slices, and every token a verify pass emits is the target's own greedy
+output.
 
 Not in this slice, each rejected with ``NotImplementedError`` at
 construction (ROADMAP.md, "Port: serving features still to port"):
-tensor parallelism (``mesh``), speculative decode (``draft_k``,
-``draft_model``, ``draft_params``), the request journal (``journal``),
+tensor parallelism (``mesh``), the request journal (``journal``),
 fault retries and the readback watchdog (``dispatch_retries > 1``,
 ``readback_timeout_s``) and per-request deadlines
 (``submit(deadline_s=...)``).
@@ -76,7 +88,8 @@ from ..utils.metrics import ServingMetrics
 from .kv_pages import PagePool, PagePoolExhausted, PrefixCache
 from .kv_slots import SlotPool
 from .scheduler import DONE, FIFOScheduler, PrefillPlan, QueueFull, \
-    Request, bucket_length, pick_horizon
+    Request, bucket_length, pick_draft_k, pick_horizon
+from .spec import NgramDrafter
 
 __all__ = ["ServingEngine", "Request"]
 
@@ -84,9 +97,11 @@ __all__ = ["ServingEngine", "Request"]
 # the value that means "off" (accepted, so a caller passing the default
 # explicitly is not rejected)
 _NOT_PORTED = {
-    "mesh": None, "draft_k": 0, "draft_model": None, "draft_params": None,
-    "journal": None, "dispatch_retries": 1, "readback_timeout_s": None,
+    "mesh": None, "journal": None, "dispatch_retries": 1,
+    "readback_timeout_s": None,
 }
+# re-probe a collapsed draft length every this many dispatches
+_SPEC_PROBE_EVERY = 16
 
 Event = Tuple[Request, int, bool]
 
@@ -103,16 +118,20 @@ def _put(cache, index, value) -> None:
 
 class _TokenBlock:
     """One launched decode horizon awaiting readback: the device
-    ``[h, slots]`` token block plus which request held each slot at
-    launch."""
+    ``[rows, slots]`` token block plus which request held each slot at
+    launch. ``rows == h`` for plain decode; a speculative horizon (``k
+    > 0``) has ``h * (k + 1)`` rows — pass ``j``'s ``k + 1`` emission
+    rows in order, ``-1`` where the device rejected or froze."""
 
-    __slots__ = ("tokens", "h", "window", "slots")
+    __slots__ = ("tokens", "h", "window", "slots", "k", "rows")
 
-    def __init__(self, tokens, h, window, slots):
+    def __init__(self, tokens, h, window, slots, k=0):
         self.tokens = tokens
         self.h = h
         self.window = window
         self.slots = slots
+        self.k = k
+        self.rows = h * (k + 1)
 
 
 class _PendingPrefill:
@@ -186,6 +205,16 @@ class ServingEngine:
         dense worst case, ``max_slots * ceil(s_max / page_size) + 1``).
       prefix_cache: paged and greedy: LRU entries of the shared-prefix
         cache (0 = off).
+      draft_k: > 0 arms speculative decode (greedy only): up to
+        ``draft_k`` drafts per slot verified per pass. Dense caches then
+        carry ``draft_k`` spare columns past ``s_max`` for the verify
+        writes past the end of a sequence (never read).
+      draft_model / draft_params: a registry GPT and its params (bound
+        to it here, on the target's device) proposing the drafts instead
+        of self-drafting; same vocab as the target, ``max_seq_len >=
+        s_max``. Its dense ``[L_d, max_slots, s_max + draft_k, H_d,
+        Dh_d]`` caches are prefilled whole-prompt at every admission.
+      draft_buckets: n-gram table buckets per slot (self-drafting).
     """
 
     def __init__(self, model, *, max_slots: int,
@@ -200,7 +229,8 @@ class ServingEngine:
                  kv_layout: str = "dense", kv_dtype: str = "model",
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None, prefix_cache: int = 0,
-                 **not_ported):
+                 draft_k: int = 0, draft_model=None, draft_params=None,
+                 draft_buckets: int = 64, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(
@@ -252,6 +282,29 @@ class ServingEngine:
                 "prefix_cache requires deterministic (greedy) decode — "
                 "a cached first token cannot be replayed into a sampled "
                 "stream (temperature > 0)")
+        if draft_k < 0:
+            raise ValueError(f"draft_k must be >= 0, got {draft_k}")
+        if draft_k and temperature > 0.0:
+            raise ValueError(
+                "speculative decode (draft_k > 0) is greedy-only: "
+                "temperature > 0 cannot be verified by argmax "
+                "matching — disarm spec or serve greedy")
+        if draft_model is not None or draft_params is not None:
+            if not draft_k:
+                raise ValueError(
+                    "draft_model/draft_params need draft_k > 0")
+            if draft_model is None or draft_params is None:
+                raise ValueError(
+                    "draft-model speculation needs BOTH draft_model "
+                    "and draft_params")
+            if draft_model.vocab_size != model.vocab_size:
+                raise ValueError(
+                    f"draft model vocab {draft_model.vocab_size} != "
+                    f"target vocab {model.vocab_size} — drafts could "
+                    "never verify")
+        if draft_buckets < 1:
+            raise ValueError(
+                f"draft_buckets must be >= 1, got {draft_buckets}")
         resolve_impl(decode_attn, model.embed)  # device check
         self.model = model
         self.eos_id = eos_id
@@ -265,7 +318,8 @@ class ServingEngine:
                               else min_bucket),
                 num_pages=num_pages, kv_dtype=kv_dtype)
         else:
-            self.pool = SlotPool(model, max_slots, s_max, kv_dtype=kv_dtype)
+            self.pool = SlotPool(model, max_slots, s_max, kv_dtype=kv_dtype,
+                                 spare_cols=draft_k)
         self._prefix_cache = (PrefixCache(self.pool, prefix_cache)
                               if prefix_cache else None)
         self._held_uid = None  # FIFO head currently held for pages
@@ -283,6 +337,46 @@ class ServingEngine:
         self._blocks: Deque[_TokenBlock] = deque()
         self._buckets = self._build_buckets(decode_buckets)
         self._programs: set = set()  # (window, horizon) launched
+        self._spec_programs: set = set()  # (window, horizon, k), k > 0
+        # decode passes launched, by realised draft length (0 = plain)
+        self.passes_by_k: Dict[int, int] = {}
+        self._init_spec(max_slots, int(draft_k), draft_model, draft_params,
+                        int(draft_buckets))
+
+    def _init_spec(self, max_slots, draft_k, draft_model, draft_params,
+                   draft_buckets) -> None:
+        """Speculative state (all host side; disarmed == draft_k 0): the
+        drafter or the bound draft model with its dense caches, and the
+        acceptance EMA that collapses the draft length."""
+        self._draft_k = draft_k
+        self._draft_model = None
+        self._drafter = None
+        self._draft_k_caches = self._draft_v_caches = None
+        dev = self.model.device
+        if draft_k and draft_model is not None:
+            if draft_model.max_seq_len < self.pool.s_max:
+                raise ValueError(
+                    f"draft model max_seq_len {draft_model.max_seq_len} "
+                    f"< s_max={self.pool.s_max} — the draft cache could "
+                    "not cover the slots")
+            draft_model.load_state_dict(
+                {name: t.to(dev) for name, t in draft_params.items()},
+                assign=True)
+            self._draft_model = draft_model
+            shape = (draft_model.num_layers, int(max_slots),
+                     self.pool.s_max + draft_k, draft_model.num_heads,
+                     draft_model.head_dim)
+            self._draft_k_caches = torch.zeros(
+                shape, dtype=draft_model.dtype, device=dev)
+            self._draft_v_caches = torch.zeros(
+                shape, dtype=draft_model.dtype, device=dev)
+        elif draft_k:
+            self._drafter = NgramDrafter(int(max_slots), draft_k,
+                                         draft_buckets, device=dev)
+        # decayed mean of accepted/k per verify pass (None until the
+        # first speculative drain): pick_draft_k's collapse signal
+        self._accept_ema: Optional[float] = None
+        self._spec_dispatches = 0
 
     def _build_buckets(self, decode_buckets) -> Tuple[int, ...]:
         """Ascending window ladder, capped by and ending at ``s_max``."""
@@ -321,6 +415,23 @@ class ServingEngine:
     @property
     def decode_windows(self) -> Tuple[int, ...]:
         return tuple(sorted({w for w, _ in self._programs}))
+
+    @property
+    def spec_programs(self) -> Tuple[Tuple[int, int, int], ...]:
+        """Distinct ``(window, horizon, draft_k)`` speculative decode
+        shapes launched (the k=0 ones are :attr:`decode_programs`)."""
+        return tuple(sorted(self._spec_programs))
+
+    @property
+    def draft_k(self) -> int:
+        """The configured maximum draft length (0 = spec disarmed)."""
+        return self._draft_k
+
+    @property
+    def spec_accept_ema(self) -> Optional[float]:
+        """Decayed mean of accepted drafts over k per verify pass (None
+        before the first speculative drain)."""
+        return self._accept_ema
 
     # ---- request lifecycle ---------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
@@ -413,15 +524,20 @@ class ServingEngine:
         events.append((request, token, False))
         return slot
 
-    def _prefill(self, prompt: List[int], length: int):
-        """Whole-prompt prefill of one request right-padded to its
-        bucket (causality keeps the pad columns out of the real
-        prefix); returns ``(tok0 device scalar, k_pref, v_pref)``."""
+    def _bucket_tokens(self, prompt: Sequence[int], length: int):
+        """``[1, bucket]`` device tokens: the prompt right-padded to its
+        length bucket (causality keeps the pad columns out of the real
+        prefix)."""
         bucket = bucket_length(length, self.min_bucket, self.pool.s_max)
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, :length] = prompt
-        tokens = torch.from_numpy(padded).to(self.model.device)
-        x, k_pref, v_pref = _prefill(self.model, tokens, bucket)
+        padded[0, :length] = prompt[:length]
+        return torch.from_numpy(padded).to(self.model.device)
+
+    def _prefill(self, prompt: List[int], length: int):
+        """Whole-prompt prefill of one request right-padded to its
+        bucket; returns ``(tok0 device scalar, k_pref, v_pref)``."""
+        tokens = self._bucket_tokens(prompt, length)
+        x, k_pref, v_pref = _prefill(self.model, tokens, tokens.shape[1])
         logits = _logits(self.model, x[:, length - 1:length],
                          self.model.ln_eps)[:, 0]
         tok0 = _sample(logits, *self._sampling, self._generator)
@@ -481,6 +597,8 @@ class ServingEngine:
             prep.shared_ids, prep.fresh_ids = [], []
             self._register_prefix(request, page_ids)
         pool.note_insert(slot, length)
+        if self._draft_k:
+            self._spec_admit(request, slot, length)
 
     def _to_pages(self, c, n: int):
         """``[L, 1, W, H, Dh]`` (or its int8 pair) -> ``n`` page tiles
@@ -606,6 +724,26 @@ class ServingEngine:
         pool.bind_slot(slot, prep.page_ids)
         prep.shared_ids, prep.fresh_ids = [], []
         pool.note_insert(slot, length)
+        if self._draft_k:
+            self._spec_admit(request, slot, length)
+
+    def _spec_admit(self, request: Request, slot: int, length: int) -> None:
+        """Per-admission speculative hook, after the target's splice on
+        every admission path (whole, chunked, prefix hits):
+        self-drafting rebuilds the slot's n-gram index from the
+        request's tokens; draft-model mode prefills the draft on the
+        bucket-padded prompt and splices its caches into the slot
+        (columns past the prompt stay masked until the draft's own
+        decode writes them)."""
+        if self._drafter is not None:
+            self._drafter.note_history(
+                slot, list(request.prompt) + list(request.tokens))
+            return
+        tokens = self._bucket_tokens(request.prompt, length)
+        bucket = tokens.shape[1]
+        _, k_pref, v_pref = _prefill(self._draft_model, tokens, bucket)
+        self._draft_k_caches[:, slot, :bucket] = k_pref[:, 0]
+        self._draft_v_caches[:, slot, :bucket] = v_pref[:, 0]
 
     def _new_pending(self, request: Request, chunk: int,
                      prep: Optional[_PagedPrep]) -> _PendingPrefill:
@@ -757,39 +895,59 @@ class ServingEngine:
 
     # ---- horizon scheduling / launch / drain ----------------------------
     def _inflight_steps(self) -> int:
-        return sum(block.h for block in self._blocks)
+        """Most columns any slot may have advanced in launched but
+        unread blocks (a speculative block counts its ``h * (k + 1)``
+        rows)."""
+        return sum(block.rows for block in self._blocks)
 
     def _min_remaining_eff(self) -> int:
         """Shortest remaining budget over running requests, discounted
-        by steps already launched against each slot."""
+        by rows already launched against each slot."""
         rem = []
         for slot, request in self._running.items():
-            assumed = sum(block.h for block in self._blocks
+            assumed = sum(block.rows for block in self._blocks
                           if block.slots.get(slot) is request)
             rem.append(request.max_new_tokens - len(request.tokens)
                        - assumed)
         return min(rem) if rem else 0
 
-    def _pick_schedule(self) -> Tuple[int, int]:
-        """``(window, horizon)``: the smallest bucket covering the
-        highest possible next write, and the adaptive horizon."""
+    def _pick_k(self) -> int:
+        """Draft length of the next dispatch on the ``{0, draft_k}``
+        ladder. The probe counter advances on every pick, collapsed ones
+        included, or a collapsed engine would never probe again. (The
+        port has no fault cooldown.)"""
+        if not self._draft_k:
+            return 0
+        probe = self._spec_dispatches % _SPEC_PROBE_EVERY == 0
+        self._spec_dispatches += 1
+        return pick_draft_k(self._draft_k, self._accept_ema, False,
+                            probe=probe)
+
+    def _pick_schedule(self) -> Tuple[int, int, int]:
+        """``(window, horizon, k)``: the smallest bucket covering the
+        highest possible next write (a speculative pass writes and reads
+        ``k + 1`` columns past each position), the adaptive horizon,
+        and the draft length."""
+        k = self._pick_k()
         max_eff = self.pool.max_active_pos + self._inflight_steps()
+        need = max_eff + 1 + k
         window = self._buckets[-1]
         for b in self._buckets:
-            if b >= max_eff + 1:
+            if b >= need:
                 window = b
                 break
         admission_pending = (self.scheduler.queue_depth > 0
                              or self._pending is not None)
         h = pick_horizon(self._horizon_max, window, max_eff,
-                         self._min_remaining_eff(), admission_pending)
-        return window, h
+                         self._min_remaining_eff(), admission_pending,
+                         per_step=k + 1)
+        return window, h, k
 
     def _dispatch(self, overlapped: bool = False) -> None:
         """Launch one decode horizon over every slot; the token block
         stays on the device until :meth:`_drain_one` reads it."""
         pool = self.pool
-        window, h = self._pick_schedule()
+        window, h, k = self._pick_schedule()
         temperature, top_k, top_p = self._sampling
         if self._paged:
             # uploaded again only after a bind or release
@@ -799,15 +957,27 @@ class ServingEngine:
         else:
             caches = (pool.k_caches, pool.v_caches)
             paged = {}
+        spec = {}
+        if k and self._drafter is not None:
+            spec = dict(draft_k=k, draft_table=self._drafter.device_table())
+        elif k:
+            spec = dict(draft_k=k, draft_model=self._draft_model,
+                        draft_k_caches=self._draft_k_caches,
+                        draft_v_caches=self._draft_v_caches)
         tokens, (pool.positions, pool.last_tokens, pool.active,
                  pool.budgets) = _decode_horizon(
             self.model, *caches, pool.positions, pool.last_tokens,
             pool.active, pool.budgets, pool.eos_ids, h, window=window,
             attn_impl=self._attn_impl, temperature=temperature,
-            top_k=top_k, top_p=top_p, generator=self._generator, **paged)
-        self._programs.add((window, h))
+            top_k=top_k, top_p=top_p, generator=self._generator, **paged,
+            **spec)
+        if k:
+            self._spec_programs.add((window, h, k))
+        else:
+            self._programs.add((window, h))
+        self.passes_by_k[k] = self.passes_by_k.get(k, 0) + h
         self._blocks.append(_TokenBlock(tokens, h, window,
-                                        dict(self._running)))
+                                        dict(self._running), k=k))
         self.metrics.record_dispatch(h, overlapped)
 
     def _overlap_ok(self) -> bool:
@@ -833,7 +1003,7 @@ class ServingEngine:
         block = self._blocks.popleft()
         tokens = block.tokens.cpu().numpy()
         realized: Dict[int, int] = {}
-        for row in range(block.h):
+        for row in range(block.rows):
             for slot, request in block.slots.items():
                 if self._running.get(slot) is not request:
                     continue  # finished earlier in this or a prior block
@@ -849,7 +1019,36 @@ class ServingEngine:
                     del self._running[slot]
                 events.append((request, token, reason is not None))
         pool.note_advance_slots(realized)
+        if block.k:
+            self._note_spec_drain(block, tokens, realized)
         return block.window, sum(realized.values())
+
+    def _note_spec_drain(self, block: _TokenBlock, tokens,
+                         realized: Dict[int, int]) -> None:
+        """Acceptance of one drained speculative block: per (pass, slot)
+        the emitted-row count ``e`` means ``e - 1`` accepted drafts (an
+        active pass emits its verified pending token first). Feeds the
+        ``accept_len`` percentiles and counters, the draft-length EMA
+        (``0.75 * ema + 0.25 * rate``), and the drafter's refresh of
+        every slot that advanced."""
+        mat = (tokens >= 0).reshape(block.h, block.k + 1, -1)
+        e = mat.sum(axis=1)                      # [passes, slots]
+        act = e >= 1
+        passes = int(act.sum())
+        accept_lens = (e[act] - 1).tolist()
+        drafted = block.k * passes
+        if passes:
+            self.metrics.record_spec(drafted, accept_lens)
+            rate = sum(accept_lens) / drafted
+            ema = self._accept_ema
+            self._accept_ema = (rate if ema is None
+                                else 0.75 * ema + 0.25 * rate)
+        if self._drafter is not None:
+            for slot in realized:
+                request = block.slots.get(slot)
+                if request is not None:
+                    self._drafter.note_history(
+                        slot, list(request.prompt) + list(request.tokens))
 
     def step(self) -> List[Event]:
         """One engine iteration: admit (a whole prompt per free slot, or

@@ -66,10 +66,15 @@ class SlotPool:
       kv_dtype: ``"model"`` or ``"int8"`` (int8 lanes plus one f32 scale
         per (token, head); untouched columns hold data 0 and scale 1,
         which dequantize to the zeros a model-dtype cache holds).
+      spare_cols: columns past ``s_max`` that take writes but are never
+        read (speculative decode's ``draft_k``: a verify pass writes up
+        to ``draft_k`` columns past the last one a request can hold;
+        the JAX package drops those writes, torch cannot, so they land
+        here).
     """
 
     def __init__(self, model, max_slots: int, s_max: Optional[int] = None,
-                 kv_dtype: str = "model"):
+                 kv_dtype: str = "model", spare_cols: int = 0):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         s_max = int(s_max or model.max_seq_len)
@@ -84,9 +89,10 @@ class SlotPool:
         self.kv_dtype = kv_dtype
         self.max_slots = int(max_slots)
         self.s_max = s_max
+        self.spare_cols = int(spare_cols)
         dev = model.device
-        shape = (model.num_layers, self.max_slots, s_max, model.num_heads,
-                 model.head_dim)
+        shape = (model.num_layers, self.max_slots, s_max + self.spare_cols,
+                 model.num_heads, model.head_dim)
         self.k_caches = empty_kv(shape, model.dtype, kv_dtype, dev)
         self.v_caches = empty_kv(shape, model.dtype, kv_dtype, dev)
         n = self.max_slots
@@ -108,6 +114,12 @@ class SlotPool:
         scale)."""
         return (2 * model.num_layers * int(s_max) * model.num_heads
                 * kv_group_bytes(model, kv_dtype))
+
+    @property
+    def kv_bytes(self) -> int:
+        """Device bytes of the K/V caches, spare columns included."""
+        return self.max_slots * self.per_slot_kv_bytes(
+            self.model, self.s_max + self.spare_cols, self.kv_dtype)
 
     # ---- host-side slot accounting -------------------------------------
     @property

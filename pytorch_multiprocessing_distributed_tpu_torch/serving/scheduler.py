@@ -25,17 +25,44 @@ def bucket_length(length: int, min_bucket: int, s_max: int) -> int:
 
 
 def pick_horizon(h_max: int, window: int, max_pos: int,
-                 min_remaining: int, admission_pending: bool) -> int:
+                 min_remaining: int, admission_pending: bool,
+                 per_step: int = 1) -> int:
     """Adaptive fused-decode horizon, snapped to the ``{1, h_max}``
-    ladder: the candidate ``min(h_max, window - max_pos,
-    min_remaining)`` (steps before the highest slot's write crosses the
-    window bucket; the shortest remaining budget) realises as ``h_max``
+    ladder: the candidate ``min(h_max, (window - max_pos) // per_step,
+    min_remaining)`` (passes before the highest slot's writes cross the
+    window bucket, ``per_step`` being the worst-case columns a pass
+    writes and reads — 1 for plain decode, ``draft_k + 1`` under
+    speculation; the shortest remaining budget) realises as ``h_max``
     only when nothing cuts it, else 1; pending admission forces 1 so a
     queued request joins within one step."""
     if h_max <= 1 or admission_pending:
         return 1
-    h = min(h_max, window - max_pos, min_remaining)
+    h = min(h_max, (window - max_pos) // max(1, per_step),
+            min_remaining)
     return h_max if h >= h_max else 1
+
+
+def pick_draft_k(k_max: int, accept_ema: Optional[float],
+                 cooldown_active: bool, probe: bool = False,
+                 min_accept: float = 0.125) -> int:
+    """Adaptive draft length for speculative decode, snapped to the
+    ``{0, k_max}`` ladder (the JAX package's ``pick_draft_k``).
+
+    Collapses to 0 (the plain decode pass) during a post-fault cooldown
+    (``cooldown_active``; the port has no fault cooldown, so its engine
+    passes False) and when ``accept_ema``, the engine's decayed mean of
+    accepted drafts over ``k`` per verify pass, has fallen below
+    ``min_accept``: drafts that never match cost ``k + 1`` query rows
+    for one token. ``probe`` overrides the collapse for one dispatch so
+    a stream that turned repetitive again can re-arm. ``accept_ema=None``
+    (nothing measured yet) arms optimistically.
+    """
+    if k_max <= 0 or cooldown_active:
+        return 0
+    if (accept_ema is not None and accept_ema < min_accept
+            and not probe):
+        return 0
+    return k_max
 
 
 class PrefillPlan:

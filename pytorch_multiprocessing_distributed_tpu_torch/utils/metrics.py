@@ -10,7 +10,7 @@ trainer's windowed fetch (no host sync per batch).
 The fields are the ones this slice's engine records; ``snapshot()``
 reports them under the JAX snapshot's own key names, so a consumer of
 either CLI's ``--metrics_out`` reads the same keys. The fault-domain
-and speculative counters arrive with their features.
+counters arrive with their feature.
 
 - ``ttft``: seconds from SUBMIT to first token (queue wait included);
 - ``queue_wait``: seconds from submit to admission;
@@ -25,7 +25,11 @@ and speculative counters arrive with their features.
 - paged KV: ``prefix_hits`` / ``prefix_partial_hits`` /
   ``prefix_misses`` (each paged admission's prefix-cache outcome),
   ``page_holds`` (admissions deferred for pages, one per hold) and
-  ``requests_failed`` (requests the page pool could never hold).
+  ``requests_failed`` (requests the page pool could never hold);
+- speculative decode: ``tokens_drafted`` / ``tokens_accepted`` (draft
+  tokens proposed by the active verify passes, and accepted by them)
+  and ``accept_len`` (accepted drafts per (pass, slot); tokens per
+  target step = 1 + its mean).
 """
 
 from __future__ import annotations
@@ -92,6 +96,9 @@ class ServingMetrics:
         self.prefix_partial_hits = 0
         self.prefix_misses = 0
         self.page_holds = 0
+        self.tokens_drafted = 0
+        self.tokens_accepted = 0
+        self.accept_len = PercentileMeter()
         self._elapsed = 0.0
         self._occupancy_max = 0
         self._queue_wait_max = 0.0
@@ -149,6 +156,16 @@ class ServingMetrics:
         else:
             self.prefix_misses += 1
 
+    def record_spec(self, drafted: int, accept_lens) -> None:
+        """One drained speculative block: ``drafted`` draft tokens
+        proposed across its active verify passes, ``accept_lens`` the
+        accepted-draft count of each (pass, slot), each in ``[0,
+        draft_k]`` (tokens emitted by the pass = accepted + 1)."""
+        self.tokens_drafted += int(drafted)
+        for a in accept_lens:
+            self.tokens_accepted += int(a)
+            self.accept_len.update(float(a))
+
     def record_page_hold(self) -> None:
         """One admission deferred because the page pool could not cover
         the FIFO head; counted at the transition into the hold."""
@@ -184,6 +201,17 @@ class ServingMetrics:
             "prefix_partial_hits": self.prefix_partial_hits,
             "prefix_misses": self.prefix_misses,
             "page_holds": self.page_holds,
+            # verify passes = accept_len samples; tokens per target step
+            # is the speculative headline (1.0 = non-speculative)
+            "spec_tokens_drafted": self.tokens_drafted,
+            "spec_tokens_accepted": self.tokens_accepted,
+            "spec_verify_passes": self.accept_len.count,
+            "spec_accept_rate": (
+                0.0 if self.tokens_drafted == 0
+                else self.tokens_accepted / self.tokens_drafted),
+            "spec_accepted_per_target_step": (
+                0.0 if self.accept_len.count == 0
+                else 1.0 + self.accept_len.avg),
         }
         for name, meter in (("ttft", self.ttft),
                             ("queue_wait", self.queue_wait),
@@ -193,4 +221,6 @@ class ServingMetrics:
         for q, v in self.request_tokens.percentiles((50, 95)).items():
             snap[f"tokens_per_request_{q}"] = v
         snap["tokens_per_request_avg"] = self.request_tokens.avg
+        for q, v in self.accept_len.percentiles((50, 95, 99)).items():
+            snap[f"accept_len_{q}"] = v
         return snap

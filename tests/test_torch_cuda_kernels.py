@@ -6,12 +6,13 @@ a GPU machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors. Decode attention (dense and paged, model dtype and int8): atol
-1e-4 — the same f32 math on the same values (int8 rows dequantized by
-the same expression, rounded to q's dtype), only the summation order
-differs; the paged variants read shuffled tables whose unallocated
-entries point at a scratch page full of NaN and huge values, so a read
-past a slot's position would show. Flash attention: in f32 the
+tensors. Decode attention and its k-query verify twin (dense and paged,
+model dtype and int8): atol 1e-4 — the same f32 math on the same values
+(int8 rows dequantized by the same expression, rounded to q's dtype),
+only the summation order differs; the paged variants read shuffled
+tables whose unallocated entries point at a scratch page full of NaN
+and huge values, so a read past a slot's last reachable column would
+show. Flash attention: in f32 the
 output and lse within 1e-4 and the gradients within 5e-4 (the same f32
 math; the gradients sum up to 300 products per element in another
 order); in bf16 the lse within 1e-4 and the bf16 outputs within 2e-2
@@ -30,8 +31,10 @@ import torch
 from pytorch_multiprocessing_distributed_tpu_torch.inference import generate
 from pytorch_multiprocessing_distributed_tpu_torch.models import GPT
 from pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention \
-    import (decode_attention, paged_decode_attention,
-            torch_decode_attention, torch_paged_decode_attention)
+    import (VerifyRowsError, decode_attention, paged_decode_attention,
+            paged_verify_decode_attention, torch_decode_attention,
+            torch_paged_decode_attention, torch_paged_verify_decode_attention,
+            torch_verify_decode_attention, verify_decode_attention)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention \
     import (flash_bwd_dkv, flash_bwd_dq, flash_fwd, torch_flash_bwd_dkv,
             torch_flash_bwd_dq, torch_flash_fwd)
@@ -227,6 +230,139 @@ def test_paged_int8_engine_on_card_matches_cpu(cuda_device, kw):
                                decode_horizon=4, **kw)
         out[str(dev)] = [r.tokens for r in
                          engine.serve([(p, 6) for p in prompts])]
+        if "page_size" in kw:
+            cache = engine._prefix_cache
+            held = len(cache.page_ids()) if cache is not None else 0
+            assert engine.pool.pages_in_use == held
+    assert out["cpu"] == out["cuda"]
+
+
+VERIFY_ROWS = (1, 2, 5, 9)  # 9: two row tiles of the kernel
+
+
+def _verify_q(dev, b, k1, h, d, dtype, seed):
+    """q [B, K1, H, Dh] as the verify pass hands it over: a strided view
+    of a fused projection (row stride 3 * H * Dh)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, k1, 3 * h * d, generator=gen, device=dev)
+    return qkv.to(dtype)[..., :h * d].view(b, k1, h, d)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_verify_kernel_matches_plain(cuda_device, quant, dtype, d):
+    """Row 3 (model dtype and int8): K1 = 1, 2, 5 and 9 query rows over
+    window views of a wider cache; positions 0, one whose last row lands
+    on the window's last column, and one whose rows reach past it."""
+    w = 40
+    for k1 in VERIFY_ROWS:
+        _, k, v, _ = _inputs(cuda_device, 4, w + 16, 2, d, dtype,
+                             [0] * 4, seed=k1 + d)
+        q = _verify_q(cuda_device, 4, k1, 2, d, dtype, seed=k1)
+        pos = torch.tensor([0, 7, w - k1, w - 2], dtype=torch.int32,
+                           device=cuda_device)
+        if quant:
+            kq, vq = quantize_kv(k.float() * 3), quantize_kv(v.float())
+            kw = QuantizedKV(kq.data[:, :w], kq.scale[:, :w])
+            vw = QuantizedKV(vq.data[:, :w], vq.scale[:, :w])
+        else:
+            kw, vw = k[:, :w], v[:, :w]
+        name = "int8_launches" if quant else "launches"
+        before = getattr(verify_decode_attention, name)
+        got = verify_decode_attention(q, kw, vw, pos, impl="cuda")
+        torch.cuda.synchronize()
+        assert getattr(verify_decode_attention, name) == before + 1
+        assert got.dtype == torch.float32 and got.shape == (4, k1, 2, d)
+        torch.testing.assert_close(
+            got, torch_verify_decode_attention(q, kw, vw, pos), atol=1e-4,
+            rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_paged_verify_kernel_matches_plain(cuda_device, quant, dtype, d,
+                                           ps):
+    """Row 4 (model dtype and int8): K1 = 1, 2, 5 and 9 over windows of
+    whole pages and of part of the last page, through unaligned shuffled
+    tables whose entries past each slot's last reachable column point at
+    a NaN scratch page."""
+    n_win = 5
+    for k1 in VERIFY_ROWS:
+        for window in (None, 3 * ps + 5):
+            w = n_win * ps if window is None else window
+            positions = [0, ps + 3, w - k1, w - 2]
+            reach = [min(p + k1 - 1, w - 1) for p in positions]
+            _, k, v, table, _ = _paged(cuda_device, 4, 2, d, ps, n_win,
+                                       dtype, quant, reach, seed=ps + d)
+            q = _verify_q(cuda_device, 4, k1, 2, d, dtype, seed=k1 + ps)
+            pos = torch.tensor(positions, dtype=torch.int32,
+                               device=cuda_device)
+            name = "int8_launches" if quant else "launches"
+            before = getattr(paged_verify_decode_attention, name)
+            got = paged_verify_decode_attention(q, k, v, table, pos,
+                                                window=window, impl="cuda")
+            torch.cuda.synchronize()
+            assert getattr(paged_verify_decode_attention, name) == \
+                before + 1
+            assert torch.isfinite(got).all()
+            ref = torch_paged_verify_decode_attention(q, k, v, table, pos,
+                                                      window)
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+def test_verify_wrapper_contract_on_card(cuda_device):
+    q = _verify_q(cuda_device, 2, 3, 2, 64, torch.bfloat16, seed=0)
+    _, k, v, _ = _inputs(cuda_device, 2, 16, 2, 64, torch.bfloat16, [0, 0])
+    pos = torch.tensor([3, 12], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        verify_decode_attention(q, k, v, pos, impl="torch")
+    with pytest.raises(VerifyRowsError, match="K1"):
+        verify_decode_attention(q[:, :0], k, v, pos)
+    with pytest.raises(ValueError, match="int32"):
+        verify_decode_attention(q, k, v, pos.long())
+    with pytest.raises(ValueError, match=r"\[B, 1, H, Dh\]"):
+        decode_attention(q, k, v, pos)  # K1 rows through the decode entry
+
+
+@pytest.mark.parametrize("kw", [
+    dict(draft_k=4),
+    dict(draft_k=2, kv_layout="paged", page_size=8, prefill_chunk=5),
+    dict(draft_k=4, kv_dtype="int8", kv_layout="paged", page_size=4,
+         prefix_cache=4),
+    dict(draft_k=4, kv_dtype="int8"),
+    dict(draft_k=3, self_draft=True),
+])
+def test_spec_engine_on_card_matches_cpu(cuda_device, kw):
+    """The speculative engine on the card (the verify kernels, and the
+    decode kernel for the draft model) gives the CPU engine's greedy
+    transcripts on the same f32 weights with TF32 off, with the same
+    acceptance; every page but the prefix cache's comes back."""
+    geom = dict(vocab_size=61, max_seq_len=64, hidden_size=64,
+                num_layers=2, num_heads=2, mlp_dim=128)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 61, (n,)).tolist() for n in (3, 9, 12, 5)]
+    prompts.append(prompts[2])  # a full hit where the cache is on
+    kw = dict(kw)
+    self_draft = kw.pop("self_draft", False)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = GPT(**geom)
+        params = init_params(model, 1, dev)
+        model.load_state_dict(params, assign=True)
+        if self_draft:
+            kw.update(draft_model=GPT(**geom), draft_params=params)
+        engine = ServingEngine(model, max_slots=3, s_max=32, min_bucket=8,
+                               decode_horizon=4, **kw)
+        tokens = [r.tokens for r in
+                  engine.serve([(p, 6) for p in prompts[:4]]
+                               + [(prompts[4], 20)])]
+        snap = engine.metrics.snapshot()
+        out[str(dev)] = (tokens, snap["spec_tokens_drafted"],
+                         snap["spec_tokens_accepted"])
         if "page_size" in kw:
             cache = engine._prefix_cache
             held = len(cache.page_ids()) if cache is not None else 0

@@ -202,9 +202,9 @@ def test_percentile_meter_is_numpy_exact():
                                                     abs=1e-12)
 
 
-@pytest.mark.parametrize("kw", [dict(draft_model=object()),
-                                dict(draft_params=object()),
-                                dict(draft_k=2),
+@pytest.mark.parametrize("kw", [dict(dispatch_retries=2),
+                                dict(readback_timeout_s=0.5),
+                                dict(journal="j.jsonl"),
                                 dict(readback_timeout_s=1.0),
                                 dict(mesh=object()),
                                 dict(journal=object()),
