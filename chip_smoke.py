@@ -133,12 +133,37 @@ nothing is caught):
    token-exact with ``generate``; int8 paged equals int8 dense and the
    non-speculative int8 engine.
 
+18. ring-loopback — the ring all-reduce kernel in its single-card form
+   (n ranks in one cooperative launch) against its plain version on the
+   card at n = 2, 4 and 8: 50 consecutive calls each, on fresh inputs
+   cycling through (40, 33), 1, 3,007, 4,903,242 (ResNet-18's
+   parameters) and 1,000,003 elements, f32 then bf16: bit-equal
+   (tolerance 0). At n = 4, N = 4,903,242 f32: the kernel's device time
+   (CUDA events around 20 back-to-back launches: the cooperative launch
+   is not captured into a graph), the wrapper's eager time, the plain
+   version's, the library yardstick ``torch.sum`` over the stacked ranks
+   (timed here only; the port never calls it) and the HBM bound (each
+   rank's payload read once and its result written once). Then the
+   ``allreduce_bw`` entry with ``--loopback 4`` at that N: 21 launches
+   (a warm-up and 20 timed calls).
+19. ring-xcard — the peer-access matrix of the visible cards and what
+   ``nvidia-smi`` reports of their links (``topo -m``, ``nvlink
+   --status``); then, only with two or more cards visible (else one line
+   says so), the ``allreduce_bw`` entry on min(cards, 4) processes, one per
+   card, ``--ring --check`` at N = 4,903,242 and 64 MiB: the kernel over
+   peer memory bit-equal to the plain version of every rank's seeded
+   inputs, its time and bus GiB/s beside NCCL ``all_reduce`` (``psum_``,
+   the library yardstick; the ring never calls it) and the NVLink bound
+   (2(n-1)/n of the payload each way at 450 GB/s), and its launches.
+
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
 version, and the times at the main path's shapes: the largest decode
 window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels,
 ResNet-18's N for fused SGD, bf16 W=1024 for the int8 and paged decode
-variants and, at K1 = 5, for the verify variants);
+variants and, at K1 = 5, for the verify variants, n = 4 loopback at
+ResNet-18's N for the ring, with its cross-card numbers, or nulls where
+phase 19 did not run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -252,6 +277,14 @@ SPEC_RUNS = (
      ["--draft_model", "gpt_tiny", "--s_max", "256"]),
 )
 DRAFT_LAYERS = 4  # gpt_tiny's
+# ring all-reduce (phases 18-19): per-rank shapes cycled through the
+# consecutive calls; the timed n and N (ResNet-18's parameters)
+RING_SHAPES = ((40, 33), (1,), (3 * 1000 + 7,), (4_903_242,), (1_000_003,))
+RING_CALLS = 50
+RING_MAIN_N, RING_MAIN_SIZE = 4, 4_903_242
+RING_ITERS = 20
+# NVLink of an H100 SXM: 900 GB/s to the other cards, 450 each way
+NVLINK_BYTES_PER_S = 450e9
 
 
 def _print(*parts):
@@ -797,6 +830,86 @@ def _time_verify(torch, F, da, q, k, v, table, pos, window, rate):
         bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _stream_ms(fn, torch, calls=GRAPH_CALLS, reps=10):
+    """Device time of one call that no CUDA graph holds: ``calls``
+    back-to-back eager calls between CUDA events, the median over
+    ``reps`` divided by ``calls`` (calls that the host queues faster than
+    the card runs them give the device time)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _topology(torch) -> str:
+    """The links between the visible cards: the peer-access matrix
+    (``torch.cuda.can_device_access_peer``, row reaches column), what
+    ``nvidia-smi topo -m`` prints (or its failure), and per card the
+    NVLinks and their rates from ``nvidia-smi nvlink --status``."""
+    cards = torch.cuda.device_count()
+    peer = [["-" if i == j else int(torch.cuda.can_device_access_peer(i, j))
+             for j in range(cards)] for i in range(cards)]
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True)
+    links = subprocess.run(["nvidia-smi", "nvlink", "--status"],
+                           capture_output=True, text=True)
+    rates, card = {}, None
+    for line in links.stdout.splitlines():
+        head = re.match(r"\s*GPU (\d+):", line)
+        link = re.match(r"\s*Link \d+: ([\d.]+) GB/s", line)
+        if head:
+            card = int(head.group(1))
+            rates[card] = []
+        elif link and card is not None:
+            rates[card].append(link.group(1))
+    nvlink = "; ".join(f"card {c}: {len(r)} links at {sorted(set(r))} GB/s"
+                       for c, r in rates.items()) or "no links reported"
+    shown = (topo.stdout.rstrip() if topo.returncode == 0 else
+             f"rc {topo.returncode} ({(topo.stdout + topo.stderr).strip()})")
+    return (f"{cards} card(s); peer access {peer}; nvidia-smi nvlink "
+            f"--status: {nvlink}; nvidia-smi topo -m: {shown}")
+
+
+def _ring_inputs(torch, n, shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(torch.randn(shape, generator=gen, device="cuda") * 1e3).to(dtype)
+            for _ in range(n)]
+
+
+def _time_ring(torch, ring, n, size, rate):
+    """At n ranks of ``size`` f32 elements in loopback: the kernel's
+    device time on a prepared work buffer, the wrapper's eager time, the
+    plain version's and ``torch.sum`` over the stacked ranks, and the HBM
+    bound (each rank's payload read once, its result written once).
+    Launches made here are not counted."""
+    xs = _ring_inputs(torch, n, (size,), torch.float32, seed=18)
+    work = torch.zeros(n, ring.ring_layout(size, n)[2], device="cuda")
+    launches = ring.ring_all_reduce_loopback.launches
+    ms = _stream_ms(lambda: ring.launch_loopback_(work), torch)
+    eager_ms = _eager_ms(lambda: ring.ring_all_reduce_loopback(
+        xs, impl="cuda"), torch)
+    ring.ring_all_reduce_loopback.launches = launches
+    plain_ms = _stream_ms(lambda: ring.torch_ring_all_reduce(xs), torch,
+                          calls=5)
+    stacked = torch.stack(xs)
+    library_ms = _device_ms(lambda: torch.sum(stacked, dim=0), torch)
+    t_bytes = 2 * n * size * 4 / rate
+    t_ops = (n - 1) * size / F32_FLOPS_PER_S
+    return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def _serve_transcripts(serve_lm, argv):
     """``serve_lm.main(argv)`` with its per-request lines captured:
     ``(snapshot, {uid: tokens})``."""
@@ -820,8 +933,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.nn.functional as F
 
-    from pytorch_multiprocessing_distributed_tpu_torch import (serve_lm,
-                                                               train_lm)
+    from pytorch_multiprocessing_distributed_tpu_torch import (
+        allreduce_bw, serve_lm, train_lm)
     from pytorch_multiprocessing_distributed_tpu_torch import (
         main as image_main)
     from pytorch_multiprocessing_distributed_tpu_torch.data import (
@@ -842,6 +955,8 @@ def main() -> int:
         quantize_kv)
     da = importlib.import_module(
         "pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention")
+    ring = importlib.import_module(
+        "pytorch_multiprocessing_distributed_tpu_torch.ops.ring_allreduce")
     from pytorch_multiprocessing_distributed_tpu_torch.serving import (
         ServingEngine, SlotPool, init_params)
     from pytorch_multiprocessing_distributed_tpu_torch.train import (
@@ -1429,6 +1544,103 @@ def main() -> int:
            f"passes, accept rate) {exact}")
     del model, params
 
+    # -- phase 18: the ring kernel in loopback against its plain version
+    ring_worst = 0.0
+    for n in (2, 4, 8):
+        for call in range(RING_CALLS):
+            shape = RING_SHAPES[call % len(RING_SHAPES)]
+            dtype = (torch.float32, torch.bfloat16)[
+                (call // len(RING_SHAPES)) % 2]
+            xs = _ring_inputs(torch, n, shape, dtype, seed=1000 * n + call)
+            got = ring.ring_all_reduce_loopback(xs, impl="cuda")
+            want = ring.torch_ring_all_reduce(xs)
+            torch.cuda.synchronize()
+            err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(
+                    f"ring loopback n={n} call {call} {shape} {dtype}: "
+                    f"not bit-equal to the plain version (max|err| {err})")
+            ring_worst = max(ring_worst, err)
+            del xs, got, want
+        _print(f"[ring-loopback] n={n}: {RING_CALLS} consecutive calls on "
+               f"fresh inputs, shapes {list(RING_SHAPES)}, f32 then bf16: "
+               f"bit-equal to the plain version (tol 0), max_abs_err "
+               f"{ring_worst:.3e}")
+    torch.cuda.empty_cache()
+    ring_t = _time_ring(torch, ring, RING_MAIN_N, RING_MAIN_SIZE, rate)
+    ring_mb = repr(RING_MAIN_SIZE * 4 / 2 ** 20)  # exactly N f32 elements
+    ring.ring_all_reduce_loopback.launches = 0
+    loop_lines = allreduce_bw.main([
+        "--device", "cuda", "--loopback", str(RING_MAIN_N), "--sizes-mb",
+        ring_mb, "--iters", str(RING_ITERS)])
+    ring_launches = ring.ring_all_reduce_loopback.launches
+    if ring_launches != RING_ITERS + 1 or loop_lines[0]["launches"] != \
+            ring_launches:
+        raise AssertionError(
+            f"allreduce_bw --loopback launched the ring {ring_launches} "
+            f"times (the entry counted {loop_lines[0]['launches']}); "
+            f"expected {RING_ITERS + 1}")
+    _print(f"[ring-loopback] ring_all_reduce f32 n={RING_MAIN_N} "
+           f"N={RING_MAIN_SIZE}: ms={ring_t['ms']:.5f} "
+           f"eager_ms={ring_t['eager_ms']:.5f} "
+           f"plain_ms={ring_t['plain_ms']:.5f} "
+           f"library_ms={ring_t['library_ms']:.5f} (torch.sum over the "
+           f"stacked ranks) bound_ms={ring_t['bound_ms']:.5f} "
+           f"({ring_t['bound_by']}); allreduce_bw --loopback "
+           f"{RING_MAIN_N}: {loop_lines[0]['time_ms']:.5f} ms a call, "
+           f"{loop_lines[0]['bus_gb_per_sec']:.2f} GiB/s bus, launches "
+           f"{ring_launches} [{smi}]")
+
+    # -- phase 19: the ring across cards through the allreduce_bw entry
+    cards = torch.cuda.device_count()
+    _print(f"[ring-xcard] {_topology(torch)}")
+    xcard = dict.fromkeys(("world", "ms", "bus_gb_per_sec", "bound_ms",
+                           "library_ms", "library_bus_gb_per_sec",
+                           "launches", "max_abs_err", "shape"))
+    if cards < 2:
+        _print(f"[ring-xcard] not run: {cards} CUDA card visible, the "
+               "cross-card ring needs two or more (phase 18 ran the kernel "
+               "in loopback)")
+    else:
+        world = min(cards, 4)
+        torch.cuda.empty_cache()
+        lines = allreduce_bw.main([
+            "--device", "cuda", "--world_size", str(world), "--ring",
+            "--check", "--sizes-mb", ring_mb, "64", "--iters",
+            str(RING_ITERS)])
+        psums = [d for d in lines if d["metric"].startswith("psum_")]
+        rings = [d for d in lines
+                 if d["metric"] == "cuda_ring_allreduce_bus_bw"]
+        if len(psums) != 2 or len(rings) != 2:
+            raise AssertionError(f"allreduce_bw printed {lines}")
+        for d in rings:
+            if d["max_abs_err"] != 0.0 or d["launches"] != RING_ITERS + 1:
+                raise AssertionError(
+                    f"cross-card ring at {d['payload_mb']} MiB: max|err| "
+                    f"{d['max_abs_err']} (tol 0), launches {d['launches']} "
+                    f"(expected {RING_ITERS + 1})")
+        for p, d, nbytes in zip(psums, rings,
+                                (RING_MAIN_SIZE * 4, 64 * 2 ** 20)):
+            bound_ms = 2 * (world - 1) / world * nbytes / \
+                NVLINK_BYTES_PER_S * 1e3
+            _print(f"[ring-xcard] world={world} {nbytes} B: ring "
+                   f"{d['time_ms']:.5f} ms {d['bus_gb_per_sec']:.2f} GiB/s "
+                   f"bus, NCCL all_reduce ({p['metric']}) "
+                   f"{p['time_ms']:.5f} ms {p['bus_gb_per_sec']:.2f} GiB/s, "
+                   f"NVLink bound {bound_ms:.5f} ms, launches "
+                   f"{d['launches']}, max_abs_err {d['max_abs_err']:.3e} "
+                   f"(tol 0) [{smi}]")
+            if nbytes == RING_MAIN_SIZE * 4:
+                xcard.update(
+                    world=world, ms=d["time_ms"],
+                    bus_gb_per_sec=d["bus_gb_per_sec"], bound_ms=bound_ms,
+                    library_ms=p["time_ms"],
+                    library_bus_gb_per_sec=p["bus_gb_per_sec"],
+                    shape=f"f32 N={RING_MAIN_SIZE} per rank, {world} cards")
+        xcard.update(launches=sum(d["launches"] for d in rings),
+                     max_abs_err=max(d["max_abs_err"] for d in rings))
+
     # the kernels line: the kernel at the main path's largest window
     w_main = max(snap["decode_windows"])
     q, k, v, pos = _decode_inputs(torch, w_main, torch.bfloat16, seed=1)
@@ -1512,7 +1724,23 @@ def main() -> int:
         "library": "F.scaled_dot_product_attention with the row-staggered "
                    "mask on the gathered, dequantized dense window",
         "shape": verify_main[variant]["shape"]}
-        for variant in VERIFY_VARIANTS]}))
+        for variant in VERIFY_VARIANTS] + [{
+        "name": "ring_all_reduce", "route": "cuda",
+        "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
+                  "csrc/ring_allreduce.cu",
+        "replaces": "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
+                    "ring_allreduce.py:63",
+        "launches": ring_launches, "max_abs_err": ring_worst,
+        "ms": ring_t["ms"], "kernel_ms": ring_t["ms"],
+        "eager_ms": ring_t["eager_ms"], "plain_ms": ring_t["plain_ms"],
+        "bound_ms": ring_t["bound_ms"], "bound_by": ring_t["bound_by"],
+        "library_ms": ring_t["library_ms"],
+        "library": "torch.sum over the stacked ranks (dim 0)",
+        "shape": f"f32 N={RING_MAIN_SIZE} per rank, n={RING_MAIN_N} "
+                 "loopback on one card",
+        **{f"xcard_{k}": v for k, v in xcard.items()},
+        "xcard_library": "NCCL all_reduce (psum_)",
+        "xcard_bound_by": "bytes (NVLink)"}]}))
     _print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

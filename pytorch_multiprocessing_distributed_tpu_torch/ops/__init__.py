@@ -15,8 +15,8 @@ There is no ``try`` that falls back: on a CUDA tensor a wrapper launches
 its kernel or raises. Each wrapper counts its launches in a plain
 integer attribute (``decode_attention.launches``,
 ``paged_decode_attention.int8_launches``, ``flash_fwd.launches``,
-``fused_sgd_.launches``, ...), incremented where it
-launches the kernel and nowhere else.
+``fused_sgd_.launches``, ``ring_all_reduce.launches``, ...),
+incremented where it launches the kernel and nowhere else.
 
 Kernels are compiled from ``ops/csrc/`` at first use (:mod:`._build`).
 """
@@ -58,3 +58,6 @@ from .flash_attention import (  # noqa: E402,F401
     flash_pair_grads, torch_flash_bwd_dkv, torch_flash_bwd_dq,
     torch_flash_fwd)
 from .fused_update import fused_sgd_, torch_fused_sgd_  # noqa: E402,F401
+from .ring_allreduce import (  # noqa: E402,F401
+    PeerAccessError, release_peer_buffers, ring_all_reduce,
+    ring_all_reduce_loopback, ring_layout, torch_ring_all_reduce)

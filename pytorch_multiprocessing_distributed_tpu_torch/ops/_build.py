@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -88,11 +88,12 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every source in ``csrc/`` in parallel (one ``nvcc`` each,
-    all started together); returns each build's compiler report."""
+def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
+    """Compile every source in ``csrc/`` (or those ``names``) in parallel
+    (one ``nvcc`` each, all started together); returns each build's
+    compiler report."""
     with _lock:
-        started = {name: _start(name) for name in sources()}
+        started = {name: _start(name) for name in (names or sources())}
         return {name: _finish(name, *started[name]) for name in started}
 
 

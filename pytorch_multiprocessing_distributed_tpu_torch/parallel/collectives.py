@@ -23,6 +23,14 @@ def psum_(flat: torch.Tensor) -> torch.Tensor:
     return flat
 
 
+def all_gather_objects(obj, group=None) -> list:
+    """Every rank's ``obj`` (picklable), indexed by group rank (host
+    control plane: the ring's CUDA IPC handles)."""
+    out = [None] * tdist.get_world_size(group)
+    tdist.all_gather_object(out, obj, group=group)
+    return out
+
+
 def broadcast_int(value: int, src: int = 0) -> int:
     """``value`` as ``src`` holds it, on every rank (host control plane:
     ``--resume auto`` agrees on the primary's epoch)."""

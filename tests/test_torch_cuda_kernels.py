@@ -21,7 +21,9 @@ as the Pallas kernels do, where the plain version keeps them in f32;
 both round the outputs to bf16, and one unit in the last place of a
 value near 4 is 3e-2). Fused SGD: bit-equal (tolerance 0) — the kernel
 rounds each product and sum on its own, as the plain version's separate
-ops do.
+ops do. Ring all-reduce: bit-equal (tolerance 0) — the kernel keeps the
+plain version's chunk layout and its ``own + incoming`` order per
+element, each add rounded on its own.
 """
 
 import numpy as np
@@ -42,6 +44,9 @@ from pytorch_multiprocessing_distributed_tpu_torch.ops.fused_update import (
     fused_sgd_, torch_fused_sgd_)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.kv_quant import (
     QuantizedKV, quantize_kv)
+from pytorch_multiprocessing_distributed_tpu_torch.ops.ring_allreduce import (
+    launch_loopback_, ring_all_reduce, ring_all_reduce_loopback,
+    torch_ring_all_reduce)
 from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     ServingEngine, init_params)
 from pytorch_multiprocessing_distributed_tpu_torch.train import (
@@ -556,3 +561,60 @@ def test_fused_sgd_wrapper_contract_on_card(cuda_device):
         fused_sgd_(p, p, b, init, count, keep, lr=0.1)
     with pytest.raises(ValueError, match="int32"):
         fused_sgd_(p, g, b, init, count.long(), keep, lr=0.1)
+
+
+# ring all-reduce: sizes and dtypes cycled through consecutive calls (the
+# comm buffers grow on the way; the flags' sequence numbers run on)
+RING_SIZES = ((40, 33), (1,), (3 * 1000 + 7,), (1_000_003,), (70_000,))
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ring_loopback_matches_plain(cuda_device, n):
+    """50 consecutive loopback calls, each on fresh inputs, bit-equal to
+    the plain version on the card."""
+    for call in range(50):
+        shape = RING_SIZES[call % len(RING_SIZES)]
+        dtype = (torch.float32, torch.bfloat16)[(call // len(RING_SIZES))
+                                                % 2]
+        gen = torch.Generator(device=cuda_device).manual_seed(call)
+        xs = [(torch.randn(shape, generator=gen, device=cuda_device)
+               * 1e3).to(dtype) for _ in range(n)]
+        before = ring_all_reduce_loopback.launches
+        got = ring_all_reduce_loopback(xs, impl="cuda")
+        torch.cuda.synchronize()
+        assert ring_all_reduce_loopback.launches == before + 1
+        want = torch_ring_all_reduce(xs)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype == dtype
+            assert torch.equal(g, w), (call, shape, dtype)
+
+
+def test_ring_wrapper_contract_on_card(cuda_device):
+    xs = [torch.ones(8, device=cuda_device) for _ in range(2)]
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        ring_all_reduce_loopback(xs, impl="torch")
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        ring_all_reduce(xs[0], impl="torch")
+    with pytest.raises(ValueError, match="at most 8"):
+        ring_all_reduce_loopback(xs * 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch_loopback_(torch.zeros(2, 1000, device=cuda_device))
+    assert ring_all_reduce(xs[0]) is xs[0]  # no process group: a world of 1
+    assert ring_all_reduce_loopback(xs[:1])[0] is xs[0]
+
+
+def test_ring_cross_card_matches_plain(cuda_device, tmp_path):
+    """min(cards, 4) ranks, one per card over NCCL: 50 consecutive calls
+    of the kernel over peer memory, each bit-equal to the plain version
+    of every rank's inputs."""
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from torch_image_worker import spawn_ranks
+    from torch_ring_worker import ring_cuda_rank
+
+    spawn_ranks(ring_cuda_rank, world, (50, str(tmp_path)), timeout_s=300)
+    for r in range(world):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+        assert (got["mismatches"], got["worst"], got["launches"]) == (0, 0.0,
+                                                                      50)
