@@ -33,12 +33,17 @@ nothing is caught):
 6. flash   — the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions at the training slice's shapes (B 8,
    H 12, Dh 64, S 1024, causal) in bf16 and f32, plus a ragged
-   non-causal case (Sq 197, Skv 300) and Dh 32/128; at the main shapes
-   each kernel's device time (CUDA graph), eager time, the plain
-   version's time, the library yardstick's
+   non-causal case (Sq 197, Skv 300), S 129 (one row past the bf16
+   backward's 64-row tiles and its 128-key CTAs) and Dh 32/128; the
+   bf16 backward pair bit-equal over two calls at the main shapes;
+   there each kernel's device time (CUDA graph), eager time, the plain
+   version's time, its TFLOP/s, the library yardstick's
    (``F.scaled_dot_product_attention``, and autograd through it minus
    its forward for the backward pair; timed here only, the port never
-   calls it) and the bound ``max(flops / peak, bytes / HBM rate)``.
+   calls it) and the bound ``max(flops / peak, bytes / HBM rate)``; and
+   the pair plus ``flash_dterm`` (the backward's torch ops beside the
+   pair) against SDPA's backward, whose own dO.O pass is inside its
+   time.
 7. train   — the port's ``train_lm.main`` (its normal entry) on
    full-width gpt_small, random init from seed 0, bf16, batch 8 x 1024
    tokens, lr 0.01, 1 epoch of the default 200 000-token synthetic corpus
@@ -431,8 +436,7 @@ def _flash_calls(fa, q, k, v, do, causal):
     scale = q.shape[-1] ** -0.5
     kw = dict(scale=scale, causal=causal)
     ref_out, lse = fa.torch_flash_fwd(q, k, v, **kw)
-    dterm = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
-    dterm = dterm.contiguous()
+    dterm = fa.flash_dterm(do, ref_out)
     kernels = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, impl="cuda", **kw),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, dterm,
@@ -474,15 +478,21 @@ def _flash_errors(torch, kernels, plains, tol):
     return errs
 
 
+def _flash_flops(name, q, k, causal):
+    """One kernel's flops: 2 Dh per product per live (row, column) pair;
+    causal counts the live pairs, S (S + 1) / 2."""
+    b, sq, h, d = q.shape
+    pairs = sq * (sq + 1) // 2 if causal else sq * k.shape[1]
+    return 2 * FLASH_PRODUCTS[name] * b * h * pairs * d
+
+
 def _flash_bound(name, q, k, causal, rate):
     """Least time for one kernel's work: its flops over the peak of the
     input type (bf16 on the tensor cores, f32 outside them) against its
-    own reads and writes over the HBM rate; causal counts the live
-    (row, column) pairs, S (S + 1) / 2."""
+    own reads and writes over the HBM rate."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    pairs = sq * (sq + 1) // 2 if causal else sq * skv
-    flops = 2 * FLASH_PRODUCTS[name] * b * h * pairs * d
+    flops = _flash_flops(name, q, k, causal)
     elt = q.element_size()
     q_bytes, kv_bytes, rows = b * sq * h * d * elt, b * skv * h * d * elt, \
         b * h * sq * 4
@@ -496,10 +506,12 @@ def _flash_bound(name, q, k, causal, rate):
 
 
 def _time_flash(torch, F, fa, q, k, v, do, causal, rate):
-    """Per kernel: device ms (CUDA graph), eager ms, plain ms, bound; the
-    library yardstick: SDPA's forward, and autograd through SDPA minus
-    its forward for the backward pair (dq, dk and dv together). Launches
-    made here are not counted."""
+    """Per kernel: device ms (CUDA graph), eager ms, plain ms, bound,
+    TFLOP/s; the library yardstick: SDPA's forward, and autograd through
+    SDPA minus its forward for the backward pair (dq, dk and dv
+    together, its own dO.O pass included); and ``flash_dterm``, the torch
+    ops the port's backward runs beside the pair. Launches made here are
+    not counted."""
     kernels, plains, _, _ = _flash_calls(fa, q, k, v, do, causal)
     saved = {n: getattr(fa, n).launches for n in kernels}
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
@@ -519,15 +531,19 @@ def _time_flash(torch, F, fa, q, k, v, do, causal, rate):
     out = {}
     for name, kernel in kernels.items():
         bound_ms, bound_by = _flash_bound(name, q, k, causal, rate)
+        ms = _device_ms(kernel, torch, calls=5, reps=20)
         out[name] = dict(
-            ms=_device_ms(kernel, torch, calls=5, reps=20),
-            eager_ms=_eager_ms(kernel, torch, reps=20, warmup=3),
+            ms=ms, eager_ms=_eager_ms(kernel, torch, reps=20, warmup=3),
             plain_ms=_device_ms(plains[name], torch, calls=2, reps=10),
             library_ms=lib_f if name == "flash_fwd" else lib_bwd,
-            bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms=bound_ms, bound_by=bound_by,
+            tflop_per_s=_flash_flops(name, q, k, causal) / ms / 1e9)
+    fwd_out = kernels["flash_fwd"]()[0]
+    dterm_ms = _device_ms(lambda: fa.flash_dterm(do, fwd_out), torch,
+                          calls=5, reps=20)
     for n, count in saved.items():
         getattr(fa, n).launches = count
-    return out
+    return out, dterm_ms
 
 
 def _sgd_buffers(torch, n, seed):
@@ -1062,6 +1078,7 @@ def main() -> int:
     flash_cases = [  # (label, B, Sq, Skv, H, Dh, causal, timed)
         ("main", fb, fs, fs, fh, fd, True, True),
         ("ragged", 2, 197, 300, fh, fd, False, False),
+        ("straddle", 2, 129, 129, fh, fd, True, False),
         ("dh32", 2, 512, 512, 4, 32, True, False),
         ("dh128", 2, 512, 512, 4, 128, True, False),
     ]
@@ -1080,7 +1097,16 @@ def main() -> int:
                        + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
                        + f" (tol {FLASH_TOL[tname]})")
                 continue
-            times = _time_flash(torch, F, fa, q, k, v, do, causal, rate)
+            twice = [kernels["flash_bwd_dq"]() for _ in range(2)]
+            pairs = [kernels["flash_bwd_dkv"]() for _ in range(2)]
+            torch.cuda.synchronize()
+            if not (torch.equal(*twice) and all(
+                    torch.equal(a, b) for a, b in zip(*pairs))):
+                raise AssertionError(
+                    f"flash backward pair {shape}: two calls differ")
+            _print(f"[flash] backward pair {shape}: two calls bit-equal")
+            times, dterm_ms = _time_flash(torch, F, fa, q, k, v, do,
+                                          causal, rate)
             for kname, t in times.items():
                 _print(f"[flash] {kname} {shape} "
                        f"max_abs_err={errs[kname]:.3e}"
@@ -1088,10 +1114,17 @@ def main() -> int:
                        f"plain_ms={t['plain_ms']:.5f} "
                        f"library_ms={t['library_ms']:.5f} "
                        f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) "
-                       f"[{smi}]")
+                       f"tflop_per_s={t['tflop_per_s']:.1f} [{smi}]")
                 if dtype == torch.bfloat16:
                     flash_main[kname] = dict(t, max_abs_err=errs[kname],
                                              shape=shape)
+            pair = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"]
+            lib_bwd = times["flash_bwd_dq"]["library_ms"]
+            _print(f"[flash] backward {shape}: pair (dq + dk/dv) "
+                   f"{pair:.5f} ms, dterm (flash_dterm) {dterm_ms:.5f} ms, "
+                   f"pair + dterm {pair + dterm_ms:.5f} ms, SDPA backward "
+                   f"{lib_bwd:.5f} ms (pair + dterm / SDPA "
+                   f"{(pair + dterm_ms) / lib_bwd:.3f}) [{smi}]")
             del q, k, v, do, kernels, plains
             torch.cuda.empty_cache()
 
@@ -1661,6 +1694,7 @@ def main() -> int:
         "plain_ms": flash_main[name]["plain_ms"],
         "bound_ms": flash_main[name]["bound_ms"],
         "bound_by": flash_main[name]["bound_by"],
+        "tflop_per_s": flash_main[name]["tflop_per_s"],
         "library_ms": flash_main[name]["library_ms"],
         "library": ("F.scaled_dot_product_attention" if name == "flash_fwd"
                     else "autograd through F.scaled_dot_product_attention "

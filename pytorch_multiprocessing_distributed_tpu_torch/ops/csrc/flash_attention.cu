@@ -6,7 +6,8 @@
 //   `_fwd_kernel`     (launched by `_flash_fwd`)        -> flash_fwd_*
 //   `_bwd_dq_kernel`  (launched by `_flash_pair_grads`) -> flash_bwd_dq_*
 //   `_bwd_dkv_kernel` (launched by `_flash_pair_grads`) -> flash_bwd_dkv_*
-// each as `*_mma_kernel` (bf16) and `*_kernel` (f32).
+// in bf16 as `flash_fwd_mma_kernel` and the `flash_bwd_*_wgmma_kernel`s,
+// in f32 as the `*_kernel`s.
 //
 //   out = softmax(Q K^T * scale + mask) V,  lse = log-sum-exp of each row
 //   dq  = sum_k dS K * scale,  dk = sum_q dS^T Q * scale,  dv = sum_q P^T dO
@@ -20,30 +21,36 @@
 //
 // What bounds it on the card: operations. A (q-tile, k-tile) pair does
 // 2 * 64 * 64 * Dh flops per product on 2 * 64 * Dh elements: far above
-// the H100's flop/byte ridge once tiles are in shared memory. Two
-// families of kernels, chosen by the input type:
-//   - bf16 (the training path): the products run on the tensor cores as
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate) in FlashAttention-2's
-//     register layout, described above the `*_mma_kernel`s below;
+// the H100's flop/byte ridge once tiles are in shared memory. Three
+// families of kernels:
+//   - the bf16 backward (the training path's dq and dk/dv): `wgmma`
+//     warpgroup products fed by TMA through mbarrier rings, one producer
+//     warp and one (dq) or two (dk/dv) consumer warpgroups a CTA;
+//     described above the `flash_bwd_*_wgmma_kernel`s below;
+//   - the bf16 forward: `mma.sync` m16n8k16 (bf16 in, f32 accumulate) in
+//     FlashAttention-2's register layout, described above
+//     `flash_fwd_mma_kernel`;
 //   - f32: the products run as f32 FMAs on the CUDA cores (67 TFLOP/s
 //     peak), 256 threads as 16 x 16, each owning a 4 x 4 block of the
 //     64 x 64 logit tile, tiles in shared memory as f32 with a row stride
 //     of Dh + 1 so the 16 columns a thread row reads fall in 16 banks.
-// Both:
+// All:
 //   - the Pallas grid's sequential innermost axis (k for the forward and
 //     dq, q for dk/dv) becomes a loop inside one CTA, so the running
 //     max, denominator and accumulators stay in registers for the whole
 //     row of tiles and nothing is carried between CTAs (no atomics: dq
-//     and dk/dv are FlashAttention-2's two separate passes);
+//     and dk/dv are FlashAttention-2's two separate passes, and two calls
+//     give equal bits);
 //   - causal tiles wholly above the diagonal are never loaded (a tile is
 //     live iff its first column < the tile's last row + 1, the Pallas
 //     `k_start < q_end` test), and the q-tile passes launch their longest
 //     (last) tiles first;
-//   - inputs are read through element strides, so the [B, S, H, Dh]
-//     views of the fused QKV projection are never copied.
-// Not yet: wgmma and TMA (Hopper's warpgroup products and bulk copies),
-// and overlapping the next tile's loads with the current products.
+//   - inputs are read through element strides (the bf16 backward's TMA
+//     descriptors carry them), so the [B, S, H, Dh] views of the fused
+//     QKV projection are never copied.
+// Not yet: the forward on wgmma and TMA.
 
+#include <cuda.h>  // CUtensorMap and its enums
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -467,20 +474,19 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: the same passes on the tensor cores (mma.sync m16n8k16) ----
+// ---- bf16 forward on the tensor cores (mma.sync m16n8k16) ----
 //
 // FlashAttention-2's register layout: 4 warps per CTA, each owning 16
 // rows of the 64-row tile. A warp's 16 x 64 logit tile lives in
 // registers as eight m16n8 accumulators; the online softmax runs on
 // them in place (a row is spread over the 4 lanes of a quad, reduced
 // with two shuffles), and the probabilities are re-packed as bf16 A
-// fragments for the P.V product without touching shared memory. P and
-// dS are rounded to bf16 before their products, where the Pallas
-// kernels round them (`p.astype(v.dtype)`, `ds.astype(k.dtype)`).
-// Tiles are staged in shared memory as bf16 with 8 elements of row
-// padding (conflict-free fragment loads); the operand a product needs
-// transposed (V for P.V, K for dS.K, Q and dO for dk/dv) is staged a
-// second time transposed while it is loaded.
+// fragments for the P.V product without touching shared memory. P is
+// rounded to bf16 before its product, where the Pallas kernel rounds it
+// (`p.astype(v.dtype)`). Tiles are staged in shared memory as bf16 with
+// 8 elements of row padding (conflict-free fragment loads); V, which
+// P.V needs transposed, is staged a second time transposed while it is
+// loaded.
 
 constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
 
@@ -686,249 +692,726 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dterm,
-                        __nv_bfloat16* __restrict__ dq, int H, int Sq, int Skv,
-                        Strides qs, Strides ks, Strides vs, Strides dos,
-                        Strides dqs, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LT = kTile + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sDO = sQ + kTile * LD;
-  __nv_bfloat16* sK = sDO + kTile * LD;
-  __nv_bfloat16* sV = sK + kTile * LD;
-  __nv_bfloat16* sKt = sV + kTile * LD;  // [D][LT]
+// ---- bf16 backward on Hopper: wgmma fed by TMA through mbarrier rings ----
+//
+// Both passes are warp-specialised. One producer warp issues every tile
+// copy as a TMA load (one thread) that completes on an mbarrier; the
+// consumer warpgroups each own 64 rows of the CTA's resident tile and run
+// every product as `wgmma`:
+//   - dq (row 6): a CTA of one consumer warpgroup holds 64 query rows of
+//     Q and dO, and each thread the lse and dterm of its two rows; K and
+//     V stream through a ring of 64-key tiles. Up to three such CTAs
+//     share an SM. S = Q K^T and dP = dO V^T read both operands from
+//     shared memory (K-major, as stored); dS is formed in registers and
+//     dQ += dS K takes dS as the A operand from registers and K through
+//     the descriptor's transpose, so no transposed copy of any tile
+//     exists.
+//   - dk/dv (row 7): a CTA of two consumer warpgroups holds 128 keys of K
+//     and V (one warpgroup and 64 keys for Dh 128, where the registers of
+//     dK and dV leave room for no second); Q and dO stream through the
+//     ring in 64-query tiles, starting at the diagonal under `causal`,
+//     and the producer warp's lanes store each tile's lse and dterm
+//     beside them (a TMA box must start 16-byte aligned; row bh * Sq + q0
+//     of those flat arrays need not). S^T = K Q^T, dP^T = V dO^T from
+//     shared memory; dV += P^T dO and dK += dS^T Q with P^T and dS^T from
+//     registers and dO, Q transposed by descriptor.
+// The producer runs up to kStages tiles ahead, so the next tiles' loads
+// overlap the current products, and the warpgroups of an SM interleave
+// their products with each other's exponentials. (Measured slower and
+// dropped: keeping a tile's dQ, or dV and dK, products in flight into
+// the next tile's; ping-pong turns between dk/dv's two warpgroups.)
+// TMA writes each tile in the 128-byte swizzle (64-byte for Dh 32) that
+// the wgmma descriptors name, in 64-column panels (two for Dh 128), and
+// zero-fills rows past the sequence. P = exp2(S * scale * log2 e - lse *
+// log2 e): one FMA into the SFU's exp2. Masks are applied only on the
+// diagonal tile and the ragged last tile. dS (and P) are rounded to bf16
+// where they become an A operand, as the Pallas kernels round them. The
+// epilogue stages the scaled bf16 result in the warpgroup's own rows of
+// a resident tile and writes it out in 16-byte stores. No atomics: each
+// output element is summed by one thread in one order, so two calls give
+// equal bits.
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int qi = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qi * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wr = warp * 16;
+constexpr int kWg = 128;       // threads of a warpgroup
+constexpr int kBwdRows = 64;   // wgmma M; keys of a dq k-tile; queries of
+                               // a dk/dv q-tile
+constexpr float kLog2e = 1.4426950408889634f;
+// a wait that outlives this traps (a CUDA error) instead of hanging
+constexpr unsigned long long kSpinTrapNs = 4000000000ull;
 
-  load_tile_bf16<D>(sQ, nullptr, q, qs, b, h, q0, Sq);
-  load_tile_bf16<D>(sDO, nullptr, dout, dos, b, h, q0, Sq);
-  float row_lse[2], row_dt[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = q0 + wr + g + 8 * hf;
-    const long long at = static_cast<long long>(bh) * Sq + row;
-    row_lse[hf] = row < Sq ? lse[at] : 0.f;
-    row_dt[hf] = row < Sq ? dterm[at] : 0.f;
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-  int n_k = (Skv + kTile - 1) / kTile;
-  if (causal) n_k = min(n_k, qi + 1);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
 
-  for (int kb = 0; kb < n_k; ++kb) {
-    __syncthreads();
-    load_tile_bf16<D>(sK, sKt, k, ks, b, h, kb * kTile, Skv);
-    load_tile_bf16<D>(sV, nullptr, v, vs, b, h, kb * kTile, Skv);
-    __syncthreads();
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
 
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, sQ, LD, wr, kc * 16, g, t);
-      load_a(ado, sDO, LD, wr, kc * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* kp = sK + (n * 8 + g) * LD + kc * 16 + 2 * t;
-        const __nv_bfloat16* vp = sV + (n * 8 + g) * LD + kc * 16 + 2 * t;
-        mma_bf16(s[n], aq, ld32(kp), ld32(kp + 8));
-        mma_bf16(dp[n], ado, ld32(vp), ld32(vp + 8));
-      }
-    }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hf = e >> 1;
-        const int row = q0 + wr + g + 8 * hf;
-        const int col = kb * kTile + n * 8 + 2 * t + (e & 1);
-        const bool ok = row < Sq && col < Skv && (!causal || col <= row);
-        const float p = ok ? expf(s[n][e] * scale - row_lse[hf]) : 0.f;
-        s[n][e] = p * (dp[n][e] - row_dt[hf]);  // dS, in place
-      }
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
 
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t a[4];
-      pack_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* kp = sKt + (n * 8 + g) * LT + kc * 16 + 2 * t;
-        mma_bf16(acc[n], a, ld32(kp), ld32(kp + 8));
-      }
-    }
-  }
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
 
-  __nv_bfloat16* op = dq + b * dqs.b + h * dqs.h;
+// wait for the phase of `bar` with this parity to complete
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > kSpinTrapNs) __trap();
+}
+
+// TMA: the box at (col, row, h, b) of a [B, S, H, Dh] view; completes on
+// bar
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers a wgmma in flight reads or writes: the compiler must neither
+// read them early nor reuse them before the wgmma_wait that precedes this.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = q0 + wr + g + 8 * hf;
-    if (row >= Sq) continue;
-    __nv_bfloat16* rp = op + static_cast<long long>(row) * dqs.s;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&r)[4][4]) {
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(rp + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * hf] * scale,
-                                acc[n][2 * hf + 1] * scale);
-  }
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// named barrier of one warpgroup (id 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 32] += A[64 x 16] B[16 x 32], A from registers (the m16n8k16
+// A fragment of each warp), B from shared memory MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the m16n8k16
+// A fragment of each warp), B from shared memory MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the m16n8k16
+// A fragment of each warp), B from shared memory MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dterm,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int Sq,
-                         int Skv, Strides qs, Strides ks, Strides vs,
-                         Strides dos, Strides dks, Strides dvs, float scale,
-                         int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LT = kTile + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTile * LD;
-  __nv_bfloat16* sQ = sV + kTile * LD;
-  __nv_bfloat16* sDO = sQ + kTile * LD;
-  __nv_bfloat16* sQt = sDO + kTile * LD;   // [D][LT]
-  __nv_bfloat16* sDOt = sQt + D * LT;      // [D][LT]
-  float* sL = reinterpret_cast<float*>(sDOt + D * LT);
-  float* sDt = sL + kTile;
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 32)
+    wgmma_rs_n32(d, a, b);
+  else if constexpr (D == 64)
+    wgmma_rs_n64(d, a, b);
+  else
+    wgmma_rs_n128(d, a, b);
+}
+
+// A bf16 [rows][D] tile in shared memory as TMA writes it: 64-column
+// panels (one 32-column panel for Dh 32), each row of a panel one
+// swizzle span (128 or 64 bytes), its 16-byte chunks XOR-permuted by the
+// row; tiles start on 1024-byte boundaries, so the pattern is the one
+// the wgmma descriptors' layout type names.
+template <int D>
+struct Tile {
+  static constexpr int kPanelCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = 2 * kPanelCols;  // the swizzle span
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // B128/B64
+
+  __host__ __device__ static constexpr int bytes(int rows) {
+    return rows * D * 2;
+  }
+
+  // byte offset of 16-byte chunk ch (columns 8 ch .. 8 ch + 7) of row r
+  __device__ static int chunk(int rows, int r, int ch) {
+    constexpr int per = kPanelCols / 8;
+    const int off = r * kRowBytes + (ch % per) * 16;
+    return (ch / per) * rows * kRowBytes +
+           (off ^ (((off >> 7) & (kRowBytes / 16 - 1)) << 4));
+  }
+
+  __device__ static uint64_t desc(uint32_t addr, uint32_t lbo,
+                                  uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+           (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+           (kLayout << 62);
+  }
+
+  // rows [r0, r0 + 64) x columns [16 kk, 16 kk + 16) as a K-major operand
+  // (the product's K runs along the columns, as stored)
+  __device__ static uint64_t kmajor(uint32_t tile, int rows, int r0,
+                                    int kk) {
+    const int col = 16 * kk;
+    return desc(tile + (col / kPanelCols) * rows * kRowBytes +
+                    r0 * kRowBytes + (col % kPanelCols) * 2,
+                16, 8 * kRowBytes);
+  }
+
+  // rows [16 kk, 16 kk + 16) as the product's K and all D columns as its
+  // N: the MN-major (transposed) B operand; LBO steps between panels
+  __device__ static uint64_t mnmajor(uint32_t tile, int rows, int kk) {
+    return desc(tile + 16 * kk * kRowBytes, rows * kRowBytes,
+                8 * kRowBytes);
+  }
+};
+
+// the bf16 A fragments of a 64 x 64 f32 accumulator, one per k-step of
+// 16 columns (the accumulator's layout is the A fragment's, per warp)
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
+                                         const float (&c)[32]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    a[kc][0] = pack_bf16(c[8 * kc], c[8 * kc + 1]);
+    a[kc][1] = pack_bf16(c[8 * kc + 2], c[8 * kc + 3]);
+    a[kc][2] = pack_bf16(c[8 * kc + 4], c[8 * kc + 5]);
+    a[kc][3] = pack_bf16(c[8 * kc + 6], c[8 * kc + 7]);
+  }
+}
+
+// a warpgroup's 64 x D f32 result, times `mul`, as bf16 into its rows
+// [r0, r0 + 64) of a resident tile (which only it reads), then 16-byte
+// stores of the rows < n_rows to out[row * row_stride]
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           float mul, unsigned char* tile,
+                                           int rows, int r0, int wg,
+                                           __nv_bfloat16* out,
+                                           long long row_stride, int row0,
+                                           int n_rows) {
+  const int lane = threadIdx.x % 32;
+  const int r = r0 + (threadIdx.x / 32) % 4 * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(tile + Tile<D>::chunk(rows, r + 8 * i, j) +
+                                   4 * (lane % 4)) =
+          pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+  wg_sync(1 + wg);
+  for (int idx = threadIdx.x % kWg; idx < kBwdRows * D / 8; idx += kWg) {
+    const int rr = idx / (D / 8);
+    const int ch = idx - rr * (D / 8);
+    const int row = row0 + rr;
+    if (row < n_rows)
+      *reinterpret_cast<uint4*>(out + row * row_stride + ch * 8) =
+          *reinterpret_cast<const uint4*>(
+              tile + Tile<D>::chunk(rows, r0 + rr, ch));
+  }
+}
+
+// shared memory of the dq pass (byte offsets from a 1024-aligned base)
+template <int D>
+struct DqSmem {
+  // one consumer warpgroup a CTA and up to three CTAs an SM (Dh <= 64):
+  // independent CTAs hide each other's waits better than two warpgroups
+  // that share one CTA's ring (measured; dk/dv showed no such gain)
+  static constexpr int kWgs = 1;
+  static constexpr int kMinBlocks = D == 128 ? 1 : 3;  // CTAs an SM
+  static constexpr int kRows = kWgs * kBwdRows;  // query rows a CTA
+  static constexpr int kStages = 3;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + Tile<D>::bytes(kRows);
+  static constexpr int kRing = kDO + Tile<D>::bytes(kRows);
+  static constexpr int kStage = 2 * Tile<D>::bytes(kBwdRows);  // K, V
+  static constexpr int kBar = kRing + kStages * kStage;  // resident,
+                                                         // full[], empty[]
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqSmem<D>::kWgs* kWg + 32,
+                                  DqSmem<D>::kMinBlocks)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dterm,
+                              __nv_bfloat16* __restrict__ dq, int H, int Sq,
+                              int Skv, Strides dqs, float scale, int causal) {
+  using T = Tile<D>;
+  using L = DqSmem<D>;
+  constexpr int R = L::kRows;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+  const uint32_t base = smem_addr(smem);
+  const uint32_t resident = base + L::kBar;
+  const uint32_t full0 = resident + 8, empty0 = full0 + 8 * S;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int kb = blockIdx.y;
-  const int k0 = kb * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wr = warp * 16;  // this warp's first key in the tile
+  const int qi = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qi * R;
+  int n_k = (Skv + kBwdRows - 1) / kBwdRows;
+  if (causal) n_k = min(n_k, (q0 + R) / kBwdRows);  // live iff k0 < q_end
 
-  load_tile_bf16<D>(sK, nullptr, k, ks, b, h, k0, Skv);
-  load_tile_bf16<D>(sV, nullptr, v, vs, b, h, k0, Skv);
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * L::kWgs);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float dk_acc[ND][4], dv_acc[ND][4];
+  const int wg = threadIdx.x / kWg;
+  if (wg == L::kWgs) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(resident, 2 * T::bytes(R));
+      for (int p = 0; p < T::kPanels; ++p) {
+        const int off = p * R * T::kRowBytes;
+        tma_rows(base + L::kQ + off, &tq, resident, p * T::kPanelCols, q0, h,
+                 b);
+        tma_rows(base + L::kDO + off, &tdo, resident, p * T::kPanelCols, q0,
+                 h, b);
+      }
+      for (int kb = 0; kb < n_k; ++kb) {
+        const int s = kb % S;
+        mbar_wait(empty0 + 8 * s, ((kb / S) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, L::kStage);
+        const uint32_t kt = base + L::kRing + s * L::kStage;
+        for (int p = 0; p < T::kPanels; ++p) {
+          const int off = p * kBwdRows * T::kRowBytes;
+          tma_rows(kt + off, &tk, full0 + 8 * s, p * T::kPanelCols,
+                   kb * kBwdRows, h, b);
+          tma_rows(kt + T::bytes(kBwdRows) + off, &tv, full0 + 8 * s,
+                   p * T::kPanelCols, kb * kBwdRows, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: query rows [q0 + r0, q0 + r0 + 64)
+  const int r0 = wg * kBwdRows;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const float c = scale * kLog2e;
+  float lse2[2], dt[2];  // this thread's two rows
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + warp * 16 + g + 8 * i;
+    const long long at = static_cast<long long>(bh) * Sq + row;
+    lse2[i] = row < Sq ? lse[at] * kLog2e : 0.f;
+    dt[i] = row < Sq ? dterm[at] : 0.f;
+  }
+  mbar_wait(resident, 0);
+  __syncwarp();  // reconverge before the .aligned wgmma ops
+  float acc[D / 2], sc[32], dp[32];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  const int diag = q0 / kBwdRows + wg;  // this warpgroup's diagonal k-tile
 
-  const int n_q = (Sq + kTile - 1) / kTile;
-  const int qi0 = causal ? k0 / kTile : 0;
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int s = kb % S;
+    mbar_wait(full0 + 8 * s, (kb / S) & 1);
+    __syncwarp();
+    const uint32_t kt = base + L::kRing + s * L::kStage;
+    const uint32_t vt = kt + T::bytes(kBwdRows);
+    if (!causal || kb <= diag) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, T::kmajor(base + L::kQ, R, r0, kk),
+                     T::kmajor(kt, kBwdRows, 0, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, T::kmajor(base + L::kDO, R, r0, kk),
+                     T::kmajor(vt, kBwdRows, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // S is in; dP still running
+      hold(sc);
+      const bool masked = (causal && kb == diag) || (kb + 1) * kBwdRows > Skv;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(sc[4 * j + e], c, -lse2[e >> 1]));
+          if (masked) {
+            const int row = q0 + r0 + warp * 16 + g + 8 * (e >> 1);
+            const int col = kb * kBwdRows + 8 * j + 2 * t + (e & 1);
+            if (!(col < Skv && (!causal || col <= row))) p = 0.f;
+          }
+          sc[4 * j + e] = p;
+        }
+      wgmma_wait<0>();
+      hold(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] *= dp[i] - dt[(i >> 1) & 1];  // dS, in place
+      uint32_t a[4][4];
+      acc_to_a(a, sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<D>(acc, a[kc], T::mnmajor(kt, kBwdRows, kc));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(acc);
+      hold(a);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  store_rows<D>(acc, scale, smem + L::kQ, R, r0, wg,
+                dq + b * dqs.b + h * dqs.h, dqs.s, q0 + r0, Sq);
+}
+
+// shared memory of the dk/dv pass
+template <int D>
+struct DkvSmem {
+  static constexpr int kWgs = D == 128 ? 1 : 2;
+  static constexpr int kMinBlocks = 1;  // CTAs an SM
+  static constexpr int kRows = kWgs * kBwdRows;  // keys a CTA
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + Tile<D>::bytes(kRows);
+  static constexpr int kRing = kV + Tile<D>::bytes(kRows);
+  // a stage: Q, dO (by TMA), then lse and dterm (256 bytes each, stored
+  // by the producer warp; padded so the next stage's tiles stay
+  // 1024-aligned)
+  static constexpr int kRowVals = 2 * Tile<D>::bytes(kBwdRows);
+  static constexpr int kStage = kRowVals + 1024;
+  static constexpr int kBar = kRing + kStages * kStage;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
+                                  DkvSmem<D>::kMinBlocks)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dterm,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int H, int Sq,
+                               int Skv, Strides dks, Strides dvs, float scale,
+                               int causal) {
+  using T = Tile<D>;
+  using L = DkvSmem<D>;
+  constexpr int R = L::kRows;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+  const uint32_t base = smem_addr(smem);
+  const uint32_t resident = base + L::kBar;
+  const uint32_t full0 = resident + 8, empty0 = full0 + 8 * S;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * R;  // causal: the first keys see most rows
+  const int n_q = (Sq + kBwdRows - 1) / kBwdRows;
+  // causal: q-tile qi is live iff k0 < (qi + 1) * 64
+  const int qi0 = causal ? k0 / kBwdRows : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty0 + 8 * s, 4 * L::kWgs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == L::kWgs) {  // the producer warp
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_expect_tx(resident, 2 * T::bytes(R));
+      for (int p = 0; p < T::kPanels; ++p) {
+        const int off = p * R * T::kRowBytes;
+        tma_rows(base + L::kK + off, &tk, resident, p * T::kPanelCols, k0, h,
+                 b);
+        tma_rows(base + L::kV + off, &tv, resident, p * T::kPanelCols, k0, h,
+                 b);
+      }
+    }
+    for (int qi = qi0; qi < n_q; ++qi) {
+      const int i = qi - qi0;
+      const int s = i % S;
+      const uint32_t full = full0 + 8 * s;
+      if (lane == 0) mbar_wait(empty0 + 8 * s, ((i / S) & 1) ^ 1);
+      __syncwarp();
+      const uint32_t qt = base + L::kRing + s * L::kStage;
+      if (lane == 0) {
+        mbar_expect(full, 2 * T::bytes(kBwdRows));
+        for (int p = 0; p < T::kPanels; ++p) {
+          const int off = p * kBwdRows * T::kRowBytes;
+          tma_rows(qt + off, &tq, full, p * T::kPanelCols, qi * kBwdRows, h,
+                   b);
+          tma_rows(qt + T::bytes(kBwdRows) + off, &tdo, full,
+                   p * T::kPanelCols, qi * kBwdRows, h, b);
+        }
+      }
+      // lse and dterm of the tile's rows as plain loads: a TMA box must
+      // start 16-byte aligned, and row bh * Sq + q0 of the flat arrays
+      // need not
+      float* rowv = reinterpret_cast<float*>(smem + L::kRing +
+                                             s * L::kStage + L::kRowVals);
+      for (int r = lane; r < kBwdRows; r += 32) {
+        const int row = qi * kBwdRows + r;
+        const long long at = static_cast<long long>(bh) * Sq + row;
+        rowv[r] = row < Sq ? lse[at] : 0.f;
+        rowv[kBwdRows + r] = row < Sq ? dterm[at] : 0.f;
+      }
+      mbar_arrive(full);  // releases this lane's stores with its arrival
+    }
+    return;
+  }
+
+  // a consumer warpgroup: keys [k0 + r0, k0 + r0 + 64)
+  const int r0 = wg * kBwdRows;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const float c = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+  const int diag = k0 / kBwdRows + wg;  // this warpgroup's diagonal q-tile
+  mbar_wait(resident, 0);
+  __syncwarp();  // reconverge before the .aligned wgmma ops
 
   for (int qi = qi0; qi < n_q; ++qi) {
-    const int q0 = qi * kTile;
-    __syncthreads();
-    load_tile_bf16<D>(sQ, sQt, q, qs, b, h, q0, Sq);
-    load_tile_bf16<D>(sDO, sDOt, dout, dos, b, h, q0, Sq);
-    for (int r = threadIdx.x; r < kTile; r += kMmaThreads) {
-      const int row = q0 + r;
-      const long long at = static_cast<long long>(bh) * Sq + row;
-      sL[r] = row < Sq ? lse[at] : 0.f;
-      sDt[r] = row < Sq ? dterm[at] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys, columns
-    // the tile's queries
-    float st[8][4], dpt[8][4];
+    const int i = qi - qi0;
+    const int s = i % S;
+    mbar_wait(full0 + 8 * s, (i / S) & 1);
+    __syncwarp();
+    const uint32_t qt = base + L::kRing + s * L::kStage;
+    const uint32_t dot = qt + T::bytes(kBwdRows);
+    const float* rowv = reinterpret_cast<const float*>(
+        smem + L::kRing + s * L::kStage + L::kRowVals);  // lse, dterm
+    if (!causal || qi >= diag) {
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(st, T::kmajor(base + L::kK, R, r0, kk),
+                     T::kmajor(qt, kBwdRows, 0, kk), kk);
+      wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dpt, T::kmajor(base + L::kV, R, r0, kk),
+                     T::kmajor(dot, kBwdRows, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is in; dP^T still running
+      hold(st);
+      const bool masked = (causal && qi == diag) || (qi + 1) * kBwdRows > Sq;
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t ak[4], av[4];
-      load_a(ak, sK, LD, wr, kc * 16, g, t);
-      load_a(av, sV, LD, wr, kc * 16, g, t);
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(rowv + 8 * j + 2 * t);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* qp = sQ + (n * 8 + g) * LD + kc * 16 + 2 * t;
-        const __nv_bfloat16* dp = sDO + (n * 8 + g) * LD + kc * 16 + 2 * t;
-        mma_bf16(st[n], ak, ld32(qp), ld32(qp + 8));
-        mma_bf16(dpt[n], av, ld32(dp), ld32(dp + 8));
+        for (int e = 0; e < 4; ++e) {
+          float p =
+              ex2(fmaf(st[4 * j + e], c, -(e & 1 ? l.y : l.x) * kLog2e));
+          if (masked) {
+            const int key = k0 + r0 + warp * 16 + g + 8 * (e >> 1);
+            const int row = qi * kBwdRows + 8 * j + 2 * t + (e & 1);
+            if (!(row < Sq && (!causal || key <= row))) p = 0.f;
+          }
+          st[4 * j + e] = p;  // P^T
+        }
       }
-    }
-
+      wgmma_wait<0>();
+      hold(dpt);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int j = 0; j < 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(
+            rowv + kBwdRows + 8 * j + 2 * t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + wr + g + 8 * (e >> 1);
-        const int c = n * 8 + 2 * t + (e & 1);
-        const int row = q0 + c;
-        const bool ok = row < Sq && key < Skv && (!causal || key <= row);
-        const float p = ok ? expf(st[n][e] * scale - sL[c]) : 0.f;
-        st[n][e] = p;                         // P^T
-        dpt[n][e] = p * (dpt[n][e] - sDt[c]);  // dS^T
+        for (int e = 0; e < 4; ++e)  // dS^T, in place
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] -
+                                            (e & 1 ? d.y : d.x));
       }
-
+      uint32_t ap[4][4], ads[4][4];
+      acc_to_a(ap, st);
+      acc_to_a(ads, dpt);
+      wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t ap[4], ads[4];
-      pack_a(ap, st[2 * kc], st[2 * kc + 1]);
-      pack_a(ads, dpt[2 * kc], dpt[2 * kc + 1]);
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<D>(dv_acc, ap[kc], T::mnmajor(dot, kBwdRows, kc));
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* dop = sDOt + (n * 8 + g) * LT + kc * 16 + 2 * t;
-        const __nv_bfloat16* qp = sQt + (n * 8 + g) * LT + kc * 16 + 2 * t;
-        mma_bf16(dv_acc[n], ap, ld32(dop), ld32(dop + 8));
-        mma_bf16(dk_acc[n], ads, ld32(qp), ld32(qp + 8));
-      }
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<D>(dk_acc, ads[kc], T::mnmajor(qt, kBwdRows, kc));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dv_acc);
+      hold(dk_acc);
+      hold(ap);
+      hold(ads);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
-  __nv_bfloat16* kp = dk + b * dks.b + h * dks.h;
-  __nv_bfloat16* vp = dv + b * dvs.b + h * dvs.h;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int key = k0 + wr + g + 8 * hf;
-    if (key >= Skv) continue;
-    __nv_bfloat16* krow = kp + static_cast<long long>(key) * dks.s;
-    __nv_bfloat16* vrow = vp + static_cast<long long>(key) * dvs.s;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(krow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk_acc[n][2 * hf] * scale,
-                                dk_acc[n][2 * hf + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vrow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv_acc[n][2 * hf], dv_acc[n][2 * hf + 1]);
-    }
-  }
+  store_rows<D>(dk_acc, scale, smem + L::kK, R, r0, wg,
+                dk + b * dks.b + h * dks.h, dks.s, k0 + r0, Skv);
+  store_rows<D>(dv_acc, 1.f, smem + L::kV, R, r0, wg,
+                dv + b * dvs.b + h * dvs.h, dvs.s, k0 + r0, Skv);
 }
 
 Strides strides_at(const long long* s, int i) {
@@ -954,6 +1437,81 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// ---- host: TMA descriptors, encoded per call ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 [B, S, H, Dh] view (unit Dh stride) over its real dimensions
+// (Dh, S, H, B) and byte strides, in boxes of one panel x `rows` rows,
+// swizzled as Tile<D>; rows past S read as zeros. Returns the CUresult.
+template <int D>
+int map_rows(CUtensorMap* map, const void* p, int B, int S, int H,
+             Strides st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {Tile<D>::kPanelCols,
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Tile<D>::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                          : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// what an entry returns when cuTensorMapEncodeTiled refuses a descriptor:
+// kTmaRefused + the CUresult (the Python wrapper names it)
+constexpr int kTmaRefused = 100000;
+
+// the four descriptors of one backward pass (q, k, v, dO)
+template <int D>
+int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+             const void* v, const void* dout, int B, int H, int Sq, int Skv,
+             const long long* st, int q_rows, int k_rows) {
+  const void* ptrs[4] = {q, k, v, dout};
+  const int lens[4] = {Sq, Skv, Skv, Sq};
+  const int rows[4] = {q_rows, k_rows, k_rows, q_rows};
+  for (int i = 0; i < 4; ++i) {
+    const int err = map_rows<D>(&m[i], ptrs[i], B, lens[i], H,
+                                strides_at(st, i), rows[i]);
+    if (err != CUDA_SUCCESS) return kTmaRefused + err;
+  }
+  return 0;
 }
 
 template <int D>
@@ -984,19 +1542,23 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
                    void* dq, int B, int H, int Sq, int Skv,
                    const long long* st, float scale, int causal,
                    cudaStream_t stream) {
-  const dim3 grid(B * H, (Sq + kTile - 1) / kTile);
   const Strides s0 = strides_at(st, 0), s1 = strides_at(st, 1),
                 s2 = strides_at(st, 2), s3 = strides_at(st, 3),
                 s4 = strides_at(st, 4);
-  if (dtype == 1)
-    return launch(flash_bwd_dq_mma_kernel<D>, grid, kMmaThreads,
-                  (4 * kTile * (D + 8) + D * (kTile + 8)) * sizeof(bf16),
-                  stream, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(dout), lse, dterm,
-                  static_cast<bf16*>(dq), H, Sq, Skv, s0, s1, s2, s3, s4,
-                  scale, causal);
-  return launch(flash_bwd_dq_kernel<D>, grid, kThreads,
+  if (dtype == 1) {
+    constexpr int R = DqSmem<D>::kRows;
+    CUtensorMap m[4];
+    const int err =
+        bwd_maps<D>(m, q, k, v, dout, B, H, Sq, Skv, st, R, kBwdRows);
+    if (err != 0) return static_cast<cudaError_t>(err);
+    return launch(flash_bwd_dq_wgmma_kernel<D>,
+                  dim3(B * H, (Sq + R - 1) / R), DqSmem<D>::kWgs * kWg + 32,
+                  DqSmem<D>::kBytes, stream, m[0], m[1], m[2], m[3], lse,
+                  dterm, static_cast<bf16*>(dq), H, Sq, Skv, s4, scale,
+                  causal);
+  }
+  return launch(flash_bwd_dq_kernel<D>, dim3(B * H, (Sq + kTile - 1) / kTile),
+                kThreads,
                 (4 * kTile * (D + 1) + kTile * kTP + 2 * kTile) *
                     sizeof(float),
                 stream, static_cast<const float*>(q),
@@ -1012,20 +1574,23 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                     void* dk, void* dv, int B, int H, int Sq, int Skv,
                     const long long* st, float scale, int causal,
                     cudaStream_t stream) {
-  const dim3 grid(B * H, (Skv + kTile - 1) / kTile);
   const Strides s0 = strides_at(st, 0), s1 = strides_at(st, 1),
                 s2 = strides_at(st, 2), s3 = strides_at(st, 3),
                 s4 = strides_at(st, 4), s5 = strides_at(st, 5);
-  if (dtype == 1)
-    return launch(flash_bwd_dkv_mma_kernel<D>, grid, kMmaThreads,
-                  (4 * kTile * (D + 8) + 2 * D * (kTile + 8)) * sizeof(bf16) +
-                      2 * kTile * sizeof(float),
-                  stream, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(dout), lse, dterm,
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Skv,
-                  s0, s1, s2, s3, s4, s5, scale, causal);
-  return launch(flash_bwd_dkv_kernel<D>, grid, kThreads,
+  if (dtype == 1) {
+    constexpr int R = DkvSmem<D>::kRows;
+    CUtensorMap m[4];
+    const int err =
+        bwd_maps<D>(m, q, k, v, dout, B, H, Sq, Skv, st, kBwdRows, R);
+    if (err != 0) return static_cast<cudaError_t>(err);
+    return launch(flash_bwd_dkv_wgmma_kernel<D>,
+                  dim3(B * H, (Skv + R - 1) / R), DkvSmem<D>::kWgs * kWg + 32,
+                  DkvSmem<D>::kBytes, stream, m[0], m[1], m[2], m[3], lse,
+                  dterm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H,
+                  Sq, Skv, s4, s5, scale, causal);
+  }
+  return launch(flash_bwd_dkv_kernel<D>,
+                dim3(B * H, (Skv + kTile - 1) / kTile), kThreads,
                 (4 * kTile * (D + 1) + 2 * kTile * kTP + 2 * kTile) *
                     sizeof(float),
                 stream, static_cast<const float*>(q),

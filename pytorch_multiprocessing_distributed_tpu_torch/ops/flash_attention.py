@@ -19,7 +19,10 @@ JAX ``[B*H, Sq]``). Masks follow the Pallas ``_bwd_mask``: causal means
 when not causal.
 
 The Pallas ``block_q``/``block_k`` are TPU VMEM tiles; the kernels pick
-their own (64 x 64) and take none as arguments.
+their own and take none as arguments: 64 x 64 for the forward and the
+f32 backward; for the bf16 backward, CTAs of 64 query rows (dq) or 128
+keys (dk/dv; 64 at Dh 128) against a TMA-fed ring of 64-row tiles, every
+product a Hopper ``wgmma``.
 """
 
 from __future__ import annotations
@@ -34,12 +37,13 @@ from . import resolve_impl
 from ._build import load
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_pair_grads", "torch_flash_fwd", "torch_flash_bwd_dq",
-           "torch_flash_bwd_dkv"]
+           "flash_dterm", "flash_pair_grads", "torch_flash_fwd",
+           "torch_flash_bwd_dq", "torch_flash_bwd_dkv"]
 
 NEG_INF = -1e30  # the Pallas kernel's large-finite mask value
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+_TMA_REFUSED = 100000  # csrc's kTmaRefused: an entry's code past it
 
 
 # ---- plain PyTorch versions (the CPU path and the kernels' reference) --
@@ -172,8 +176,11 @@ def _call(name, ptr_tensors, stride_tensors, q, k, scale, causal):
              _DTYPES[q.dtype], _strides(*stride_tensors), scale, int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
+        what = (f"cuTensorMapEncodeTiled refused a TMA descriptor: CUresult "
+                f"{err - _TMA_REFUSED}" if err >= _TMA_REFUSED
+                else f"cudaError {err}")
         raise RuntimeError(
-            f"{name} launch failed: cudaError {err} (B={b} H={h} Sq={sq} "
+            f"{name} launch failed: {what} (B={b} H={h} Sq={sq} "
             f"Skv={k.shape[1]} Dh={d} {q.dtype} causal={causal})")
 
 
@@ -255,6 +262,13 @@ def flash_pair_grads(q, k, v, do, lse, dterm, *, scale: float,
     return dq, dk, dv
 
 
+def flash_dterm(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``D = rowsum(dO * O)``, f32 ``[B, H, Sq]`` contiguous: the torch
+    ops the backward runs before the pair (JAX forms it outside its
+    kernels too)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 class _FlashAttention(torch.autograd.Function):
     """The JAX ``_flash3`` custom VJP: the forward saves ``(q, k, v, out,
     lse)``; the backward forms ``D = rowsum(dO * O)`` in f32 with torch
@@ -270,9 +284,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dterm = (do.float() * out.float()).sum(-1).transpose(1, 2)
         dq, dk, dv = flash_pair_grads(
-            q, k, v, do.to(q.dtype).contiguous(), lse, dterm.contiguous(),
+            q, k, v, do.to(q.dtype).contiguous(), lse, flash_dterm(do, out),
             scale=ctx.scale, causal=ctx.causal, impl=ctx.impl)
         return dq, dk, dv, None, None, None
 

@@ -38,8 +38,8 @@ from pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention \
             torch_paged_decode_attention, torch_paged_verify_decode_attention,
             torch_verify_decode_attention, verify_decode_attention)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention \
-    import (flash_bwd_dkv, flash_bwd_dq, flash_fwd, torch_flash_bwd_dkv,
-            torch_flash_bwd_dq, torch_flash_fwd)
+    import (flash_bwd_dkv, flash_bwd_dq, flash_fwd, flash_pair_grads,
+            torch_flash_bwd_dkv, torch_flash_bwd_dq, torch_flash_fwd)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.fused_update import (
     fused_sgd_, torch_fused_sgd_)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.kv_quant import (
@@ -397,10 +397,20 @@ FLASH_TOL = {torch.float32: dict(out=1e-4, grad=5e-4),
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("sq,skv,causal", [(197, 197, True),
                                            (197, 300, False),
-                                           (130, 70, False), (1, 1, True)])
+                                           (130, 70, False), (1, 1, True),
+                                           (127, 127, True),
+                                           (128, 128, False),
+                                           (129, 129, True),
+                                           (255, 255, False),
+                                           (129, 255, False),
+                                           (255, 129, False),
+                                           (1024, 1024, True)])
 def test_flash_kernels_match_plain(cuda_device, dtype, d, sq, skv, causal):
-    """Rows 5-7 (forward, dq, dk/dv) against their plain versions on
-    strided views, ragged lengths and both masks."""
+    """Rows 5-7 (forward, dq, dk/dv) against their plain versions on the
+    fused-QKV strided views, ragged lengths and both masks; 127-129, 255
+    and 1024 straddle the bf16 backward's 64-row tiles and dk/dv's
+    128-key CTAs (a CTA's second warpgroup past the end, a last tile of
+    one row)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _flash_inputs(cuda_device, 2, sq, skv, 3, d, dtype)
     scale = d ** -0.5
@@ -431,6 +441,58 @@ def test_flash_kernels_match_plain(cuda_device, dtype, d, sq, skv, causal):
                                    msg=name)
     assert (flash_fwd.launches, flash_bwd_dq.launches,
             flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_pair_grads_are_bit_reproducible(cuda_device, dtype, d):
+    """Two calls of the backward pair give equal bits: no atomics, each
+    output element summed by one thread in one order."""
+    q, k, v, do = _flash_inputs(cuda_device, 2, 255, 255, 3, d, dtype,
+                                seed=d)
+    _, lse = torch_flash_fwd(q, k, v, scale=d ** -0.5, causal=True)
+    dterm = torch.randn(lse.shape, device=cuda_device)
+    first = flash_pair_grads(q, k, v, do, lse, dterm, scale=d ** -0.5,
+                             causal=True, impl="cuda")
+    second = flash_pair_grads(q, k, v, do, lse, dterm, scale=d ** -0.5,
+                              causal=True, impl="cuda")
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
+# 3 bf16 SGD steps, flash against the plain masked softmax: both paths
+# round q/k/v and the attention output to bf16 at the same places; they
+# differ where the kernels also round P (forward) and P, dS (backward) to
+# bf16 before their products, which moves each attention output and
+# gradient by about one bf16 unit (2^-8 relative). Through two layers,
+# the f32 head and 3 steps at lr 0.1 that moves a loss near ln 61 = 4.11
+# by far less than 1e-2 (0.25% of it); a wrong mask, scale or tile would
+# move it by more than 0.1.
+BF16_TRAIN_LOSS_TOL = 1e-2
+
+
+def test_train_steps_bf16_flash_match_xla_on_card(cuda_device):
+    """A 2-layer GPT in bf16 through 3 SGD steps: the flash kernels
+    (rows 5-7) against the plain masked softmax (``attn_impl="xla"``),
+    from the same params and batch; S = 199 is no multiple of the
+    kernels' 64-row tiles."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    geom = dict(vocab_size=61, max_seq_len=256, hidden_size=128,
+                num_layers=2, num_heads=2, mlp_dim=256)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 61, (4, 200))).to(cuda_device)
+    losses = {}
+    for impl in ("flash", "xla"):
+        model = GPT(**geom, dtype=torch.bfloat16, attn_impl=impl)
+        state = create_lm_train_state(model, init_params(model, 1,
+                                                         cuda_device))
+        step = make_lm_train_step(model, sgd(0.1))
+        losses[impl] = [float(step(state, tokens)[1]["loss"])
+                        for _ in range(3)]
+    assert all(np.isfinite(losses["flash"])), losses
+    np.testing.assert_allclose(losses["flash"], losses["xla"],
+                               atol=BF16_TRAIN_LOSS_TOL, rtol=0)
 
 
 def test_flash_wrapper_contract_on_card(cuda_device):

@@ -127,6 +127,46 @@ def test_pair_grads_with_external_lse_match_jax(causal):
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [127, 128, 129, 255])
+def test_pair_grads_on_fused_qkv_views_match_jax(s, d, causal):
+    """The contract the bf16 kernels implement, on the layout the model
+    hands them: q/k/v are [B, S, H, Dh] views of one fused projection
+    (row stride 3*H*Dh), with an EXTERNAL lse and dterm (a shifted one,
+    not the pair's own, as on a ring hop), at lengths that straddle the
+    kernels' 64- and 128-row tiles; against ``_flash_pair_grads``."""
+    rng = np.random.default_rng(s * 1000 + d * 2 + causal)
+    b, h = 1, 2
+    fused = rng.normal(size=(b, s, 3 * h * d)).astype(np.float32)
+    do = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    lse = rng.normal(size=(b, h, s)).astype(np.float32) + 4.0
+    dterm = rng.normal(size=(b, h, s)).astype(np.float32)
+    ft = torch.from_numpy(fused)
+    q, k, v = (ft[..., i * h * d:(i + 1) * h * d].view(b, s, h, d)
+               for i in range(3))
+    assert q.stride() == (s * 3 * h * d, 3 * h * d, d, 1)
+    scale = d ** -0.5
+    got = flash_pair_grads(q, k, v, torch.from_numpy(do),
+                           torch.from_numpy(lse), torch.from_numpy(dterm),
+                           scale=scale, causal=causal)
+
+    def merge(x):  # [B, S, H, Dh] -> the JAX [B*H, S, Dh]
+        return jnp.asarray(np.moveaxis(np.ascontiguousarray(x), 2, 1)
+                           .reshape(b * h, s, d))
+
+    ref = _flash_pair_grads(*(merge(x.numpy()) for x in (q, k, v)),
+                            merge(do), jnp.asarray(lse.reshape(b * h, s)),
+                            jnp.asarray(dterm.reshape(b * h, s)),
+                            scale=scale, causal=causal, block_q=64,
+                            block_k=64, interpret=True)
+    for g, r, name in zip(got, ref, "qkv"):
+        np.testing.assert_allclose(
+            g.permute(0, 2, 1, 3).reshape(b * h, s, d).numpy(),
+            np.asarray(r), atol=F32["grad"], rtol=F32["grad"],
+            err_msg=f"d{name}")
+
+
 def test_bf16_io_matches_jax():
     q, k, v, ct = _inputs(5, 1, 128, 128, 2, 64)
     out, grads = _port_grads(q, k, v, ct, True, dtype=torch.bfloat16)
