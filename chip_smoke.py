@@ -34,16 +34,17 @@ nothing is caught):
    against their plain versions at the training slice's shapes (B 8,
    H 12, Dh 64, S 1024, causal) in bf16 and f32, plus a ragged
    non-causal case (Sq 197, Skv 300), S 129 (one row past the bf16
-   backward's 64-row tiles and its 128-key CTAs) and Dh 32/128; the
-   bf16 backward pair bit-equal over two calls at the main shapes;
+   kernels' 64-row tiles and their 128-row CTAs) and Dh 32/128; the
+   bf16 forward (output and lse) and the bf16 backward pair each
+   bit-equal over two calls at the main shapes;
    there each kernel's device time (CUDA graph), eager time, the plain
    version's time, its TFLOP/s, the library yardstick's
    (``F.scaled_dot_product_attention``, and autograd through it minus
    its forward for the backward pair; timed here only, the port never
-   calls it) and the bound ``max(flops / peak, bytes / HBM rate)``; and
-   the pair plus ``flash_dterm`` (the backward's torch ops beside the
-   pair) against SDPA's backward, whose own dO.O pass is inside its
-   time.
+   calls it) and the bound ``max(flops / peak, bytes / HBM rate)``; the
+   forward against SDPA's forward; and the pair plus ``flash_dterm``
+   (the backward's torch ops beside the pair) against SDPA's backward,
+   whose own dO.O pass is inside its time.
 7. train   — the port's ``train_lm.main`` (its normal entry) on
    full-width gpt_small, random init from seed 0, bf16, batch 8 x 1024
    tokens, lr 0.01, 1 epoch of the default 200 000-token synthetic corpus
@@ -215,6 +216,10 @@ FLASH_REPLACES = {
     "flash_bwd_dq": "flash_attention.py:181",   # _bwd_dq_kernel
     "flash_bwd_dkv": "flash_attention.py:220",  # _bwd_dkv_kernel
 }
+# the bf16 kernel each wrapper launches on the main path
+FLASH_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
 # products per (row, live column) pair: forward QK^T, PV; dq QK^T, dO V^T,
 # dS K; dk/dv QK^T, dO V^T, P^T dO, dS^T Q
 FLASH_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -454,15 +459,18 @@ def _flash_calls(fa, q, k, v, do, causal):
     return kernels, plains, lse, dterm
 
 
+def _tuple(out):
+    """A kernel's outputs as a tuple (dq is one tensor)."""
+    return out if isinstance(out, tuple) else (out,)
+
+
 def _flash_errors(torch, kernels, plains, tol):
     """Max |kernel - plain| per kernel over its outputs; raises past the
     tolerance (lse, f32 in both dtypes, is held at 1e-4)."""
     errs = {}
     for name, kernel in kernels.items():
-        got, ref = kernel(), plains[name]()
+        got, ref = _tuple(kernel()), _tuple(plains[name]())
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
         worst = 0.0
         for i, (g, r) in enumerate(zip(got, ref)):
             is_lse = name == "flash_fwd" and i == 1
@@ -1097,14 +1105,16 @@ def main() -> int:
                        + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
                        + f" (tol {FLASH_TOL[tname]})")
                 continue
-            twice = [kernels["flash_bwd_dq"]() for _ in range(2)]
-            pairs = [kernels["flash_bwd_dkv"]() for _ in range(2)]
-            torch.cuda.synchronize()
-            if not (torch.equal(*twice) and all(
-                    torch.equal(a, b) for a, b in zip(*pairs))):
-                raise AssertionError(
-                    f"flash backward pair {shape}: two calls differ")
-            _print(f"[flash] backward pair {shape}: two calls bit-equal")
+            for group in (("flash_fwd",), ("flash_bwd_dq", "flash_bwd_dkv")):
+                first, second = ([t for n in group for t in _tuple(
+                    kernels[n]())] for _ in range(2))
+                torch.cuda.synchronize()
+                if not all(map(torch.equal, first, second)):
+                    raise AssertionError(
+                        f"flash {' + '.join(group)} {shape}: two calls "
+                        "differ")
+                _print(f"[flash] {' + '.join(group)} {shape}: two calls "
+                       "bit-equal")
             times, dterm_ms = _time_flash(torch, F, fa, q, k, v, do,
                                           causal, rate)
             for kname, t in times.items():
@@ -1118,6 +1128,10 @@ def main() -> int:
                 if dtype == torch.bfloat16:
                     flash_main[kname] = dict(t, max_abs_err=errs[kname],
                                              shape=shape)
+            fwd = times["flash_fwd"]
+            _print(f"[flash] forward {shape}: flash_fwd {fwd['ms']:.5f} ms, "
+                   f"SDPA forward {fwd['library_ms']:.5f} ms (flash_fwd / "
+                   f"SDPA {fwd['ms'] / fwd['library_ms']:.3f}) [{smi}]")
             pair = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"]
             lib_bwd = times["flash_bwd_dq"]["library_ms"]
             _print(f"[flash] backward {shape}: pair (dq + dk/dv) "
@@ -1684,7 +1698,8 @@ def main() -> int:
     flash_src = ("pytorch_multiprocessing_distributed_tpu_torch/ops/csrc/"
                  "flash_attention.cu")
     flash_entries = [{
-        "name": name, "route": "cuda", "source": flash_src,
+        "name": name, "kernel": FLASH_KERNELS[name], "route": "cuda",
+        "source": flash_src,
         "replaces": "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
                     + FLASH_REPLACES[name],
         "launches": train_launches[name],

@@ -6,8 +6,7 @@
 //   `_fwd_kernel`     (launched by `_flash_fwd`)        -> flash_fwd_*
 //   `_bwd_dq_kernel`  (launched by `_flash_pair_grads`) -> flash_bwd_dq_*
 //   `_bwd_dkv_kernel` (launched by `_flash_pair_grads`) -> flash_bwd_dkv_*
-// in bf16 as `flash_fwd_mma_kernel` and the `flash_bwd_*_wgmma_kernel`s,
-// in f32 as the `*_kernel`s.
+// in bf16 as the `flash_*_wgmma_kernel`s, in f32 as the `*_kernel`s.
 //
 //   out = softmax(Q K^T * scale + mask) V,  lse = log-sum-exp of each row
 //   dq  = sum_k dS K * scale,  dk = sum_q dS^T Q * scale,  dv = sum_q P^T dO
@@ -21,19 +20,17 @@
 //
 // What bounds it on the card: operations. A (q-tile, k-tile) pair does
 // 2 * 64 * 64 * Dh flops per product on 2 * 64 * Dh elements: far above
-// the H100's flop/byte ridge once tiles are in shared memory. Three
+// the H100's flop/byte ridge once tiles are in shared memory. Two
 // families of kernels:
-//   - the bf16 backward (the training path's dq and dk/dv): `wgmma`
+//   - bf16 (the training path's forward, dq and dk/dv): `wgmma`
 //     warpgroup products fed by TMA through mbarrier rings, one producer
-//     warp and one (dq) or two (dk/dv) consumer warpgroups a CTA;
-//     described above the `flash_bwd_*_wgmma_kernel`s below;
-//   - the bf16 forward: `mma.sync` m16n8k16 (bf16 in, f32 accumulate) in
-//     FlashAttention-2's register layout, described above
-//     `flash_fwd_mma_kernel`;
-//   - f32: the products run as f32 FMAs on the CUDA cores (67 TFLOP/s
-//     peak), 256 threads as 16 x 16, each owning a 4 x 4 block of the
-//     64 x 64 logit tile, tiles in shared memory as f32 with a row stride
-//     of Dh + 1 so the 16 columns a thread row reads fall in 16 banks.
+//     warp and two (forward, dk/dv) or one (dq) consumer warpgroups a
+//     CTA; described above the `flash_*_wgmma_kernel`s below;
+//   - f32 (the parity path): the products run as f32 FMAs on the CUDA
+//     cores (67 TFLOP/s peak), 256 threads as 16 x 16, each owning a
+//     4 x 4 block of the 64 x 64 logit tile, tiles in shared memory as
+//     f32 with a row stride of Dh + 1 so the 16 columns a thread row
+//     reads fall in 16 banks.
 // All:
 //   - the Pallas grid's sequential innermost axis (k for the forward and
 //     dq, q for dk/dv) becomes a loop inside one CTA, so the running
@@ -45,10 +42,9 @@
 //     live iff its first column < the tile's last row + 1, the Pallas
 //     `k_start < q_end` test), and the q-tile passes launch their longest
 //     (last) tiles first;
-//   - inputs are read through element strides (the bf16 backward's TMA
+//   - inputs are read through element strides (the bf16 kernels' TMA
 //     descriptors carry them), so the [B, S, H, Dh] views of the fused
 //     QKV projection are never copied.
-// Not yet: the forward on wgmma and TMA.
 
 #include <cuda.h>  // CUtensorMap and its enums
 #include <cuda_bf16.h>
@@ -474,266 +470,32 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16 forward on the tensor cores (mma.sync m16n8k16) ----
+// ---- bf16 on Hopper: wgmma fed by TMA through mbarrier rings ----
 //
-// FlashAttention-2's register layout: 4 warps per CTA, each owning 16
-// rows of the 64-row tile. A warp's 16 x 64 logit tile lives in
-// registers as eight m16n8 accumulators; the online softmax runs on
-// them in place (a row is spread over the 4 lanes of a quad, reduced
-// with two shuffles), and the probabilities are re-packed as bf16 A
-// fragments for the P.V product without touching shared memory. P is
-// rounded to bf16 before its product, where the Pallas kernel rounds it
-// (`p.astype(v.dtype)`). Tiles are staged in shared memory as bf16 with
-// 8 elements of row padding (conflict-free fragment loads); V, which
-// P.V needs transposed, is staged a second time transposed while it is
-// loaded.
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment (16 x 16, row-major) at rows r0.., columns c0.. of a
-// [.][ld] bf16 tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int ld,
-                                       int r0, int c0, int g, int t) {
-  const __nv_bfloat16* p = tile + (r0 + g) * ld + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// A fragment from two m16n8 f32 accumulators (columns 0-7 and 8-15)
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// rows [row0, row0 + kTile) of head (b, h) into dst[kTile][D + 8] and/or
-// dstT[D][kTile + 8] (transposed), 16 bytes a thread; rows >= n_rows zero
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               __nv_bfloat16* dstT,
-                                               const __nv_bfloat16* base,
-                                               Strides st, int b, int h,
-                                               int row0, int n_rows) {
-  constexpr int CH = D / 8;
-  const __nv_bfloat16* p = base + b * st.b + h * st.h;
-  for (int idx = threadIdx.x; idx < kTile * CH; idx += kMmaThreads) {
-    const int r = idx / CH;
-    const int c = (idx - r * CH) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_rows)
-      val = *reinterpret_cast<const uint4*>(
-          p + static_cast<long long>(row) * st.s + c);
-    if (dst != nullptr)
-      *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-    if (dstT != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dstT[(c + i) * (kTile + 8) + r] = e[i];
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     int H, int Sq, int Skv, Strides qs, Strides ks,
-                     Strides vs, Strides os, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LT = kTile + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kTile * LD;
-  __nv_bfloat16* sVt = sK + kTile * LD;  // [D][LT]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int qi = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qi * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wr = warp * 16;  // this warp's first row in the tile
-
-  load_tile_bf16<D>(sQ, nullptr, q, qs, b, h, q0, Sq);
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  int n_k = (Skv + kTile - 1) / kTile;
-  if (causal) n_k = min(n_k, qi + 1);
-
-  for (int kb = 0; kb < n_k; ++kb) {
-    __syncthreads();
-    load_tile_bf16<D>(sK, nullptr, k, ks, b, h, kb * kTile, Skv);
-    load_tile_bf16<D>(nullptr, sVt, v, vs, b, h, kb * kTile, Skv);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4];
-      load_a(a, sQ, LD, wr, kc * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* kp = sK + (n * 8 + g) * LD + kc * 16 + 2 * t;
-        mma_bf16(s[n], a, ld32(kp), ld32(kp + 8));
-      }
-    }
-
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = q0 + wr + g + 8 * hf;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = kb * kTile + n * 8 + 2 * t + e;
-          const bool ok = col < Skv && (!causal || col <= row);
-          float& x = s[n][2 * hf + e];
-          x = ok ? x * scale : -INFINITY;
-          mx = fmaxf(mx, x);
-        }
-      const float m_new = fmaxf(m[hf], quad_max(mx));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = expf(m[hf] - m_use);
-      float psum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * hf + e];
-          x = expf(x - m_use);
-          psum += x;
-        }
-      l[hf] = l[hf] * corr + quad_sum(psum);
-      m[hf] = m_new;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][2 * hf] *= corr;
-        o[n][2 * hf + 1] *= corr;
-      }
-    }
-
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t a[4];
-      pack_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* vp = sVt + (n * 8 + g) * LT + kc * 16 + 2 * t;
-        mma_bf16(o[n], a, ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-
-  __nv_bfloat16* op = out + b * os.b + h * os.h;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = q0 + wr + g + 8 * hf;
-    if (row >= Sq) continue;
-    const float l_safe = fmaxf(l[hf], 1e-30f);
-    const float inv = 1.f / l_safe;
-    __nv_bfloat16* rp = op + static_cast<long long>(row) * os.s;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(rp + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * hf] * inv, o[n][2 * hf + 1] * inv);
-    if (t == 0)
-      lse[static_cast<long long>(bh) * Sq + row] = m[hf] + logf(l_safe);
-  }
-}
-
-// ---- bf16 backward on Hopper: wgmma fed by TMA through mbarrier rings ----
-//
-// Both passes are warp-specialised. One producer warp issues every tile
-// copy as a TMA load (one thread) that completes on an mbarrier; the
-// consumer warpgroups each own 64 rows of the CTA's resident tile and run
-// every product as `wgmma`:
-//   - dq (row 6): a CTA of one consumer warpgroup holds 64 query rows of
-//     Q and dO, and each thread the lse and dterm of its two rows; K and
-//     V stream through a ring of 64-key tiles. Up to three such CTAs
-//     share an SM. S = Q K^T and dP = dO V^T read both operands from
-//     shared memory (K-major, as stored); dS is formed in registers and
-//     dQ += dS K takes dS as the A operand from registers and K through
-//     the descriptor's transpose, so no transposed copy of any tile
-//     exists.
-//   - dk/dv (row 7): a CTA of two consumer warpgroups holds 128 keys of K
-//     and V (one warpgroup and 64 keys for Dh 128, where the registers of
-//     dK and dV leave room for no second); Q and dO stream through the
-//     ring in 64-query tiles, starting at the diagonal under `causal`,
-//     and the producer warp's lanes store each tile's lse and dterm
-//     beside them (a TMA box must start 16-byte aligned; row bh * Sq + q0
-//     of those flat arrays need not). S^T = K Q^T, dP^T = V dO^T from
-//     shared memory; dV += P^T dO and dK += dS^T Q with P^T and dS^T from
-//     registers and dO, Q transposed by descriptor.
-// The producer runs up to kStages tiles ahead, so the next tiles' loads
-// overlap the current products, and the warpgroups of an SM interleave
-// their products with each other's exponentials. (Measured slower and
-// dropped: keeping a tile's dQ, or dV and dK, products in flight into
-// the next tile's; ping-pong turns between dk/dv's two warpgroups.)
-// TMA writes each tile in the 128-byte swizzle (64-byte for Dh 32) that
-// the wgmma descriptors name, in 64-column panels (two for Dh 128), and
-// zero-fills rows past the sequence. P = exp2(S * scale * log2 e - lse *
-// log2 e): one FMA into the SFU's exp2. Masks are applied only on the
-// diagonal tile and the ragged last tile. dS (and P) are rounded to bf16
-// where they become an A operand, as the Pallas kernels round them. The
-// epilogue stages the scaled bf16 result in the warpgroup's own rows of
-// a resident tile and writes it out in 16-byte stores. No atomics: each
-// output element is summed by one thread in one order, so two calls give
-// equal bits.
+// All three bf16 passes are warp-specialised. One producer warp issues
+// every tile copy as a TMA load (one thread) that completes on an
+// mbarrier; the consumer warpgroups each own 64 rows of the CTA's
+// resident tile and run every product as `wgmma`. The producer runs up
+// to kStages tiles ahead of the consumers, so the next tiles' loads
+// overlap the current products. TMA writes each tile in the 128-byte
+// swizzle (64-byte for Dh 32) that the wgmma descriptors name, in
+// 64-column panels (two for Dh 128), and zero-fills rows past the
+// sequence. Products read both operands from shared memory where the
+// contraction runs along the stored rows (K-major); an operand that is
+// itself a product (P, dS) is the A operand from registers (an f32
+// accumulator's layout is the bf16 A fragment's), rounded to bf16 there
+// as the Pallas kernels round it; a B operand the product needs
+// transposed is read through the descriptor's transpose, so no
+// transposed copy of any tile exists. Every exponential is one FMA into
+// the SFU's exp2. Masks are applied only on the diagonal tile and the
+// ragged last tile. The epilogue stages the bf16 result in the
+// warpgroup's own rows of a resident tile and writes it out in 16-byte
+// stores. No atomics: each output element is summed by one thread in
+// one order, so two calls give equal bits.
 
 constexpr int kWg = 128;       // threads of a warpgroup
-constexpr int kBwdRows = 64;   // wgmma M; keys of a dq k-tile; queries of
-                               // a dk/dv q-tile
+constexpr int kWgRows = 64;    // wgmma M: the rows a consumer warpgroup
+                               // owns, and the rows of a streamed tile
 constexpr float kLog2e = 1.4426950408889634f;
 // a wait that outlives this traps (a CUDA error) instead of hanging
 constexpr unsigned long long kSpinTrapNs = 4000000000ull;
@@ -1002,6 +764,22 @@ struct Tile {
   }
 };
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// reduce over the 4 lanes of a quad (the lanes that share an accumulator
+// row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // the bf16 A fragments of a 64 x 64 f32 accumulator, one per k-step of
 // 16 columns (the accumulator's layout is the A fragment's, per warp)
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
@@ -1035,7 +813,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                    4 * (lane % 4)) =
           pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
   wg_sync(1 + wg);
-  for (int idx = threadIdx.x % kWg; idx < kBwdRows * D / 8; idx += kWg) {
+  for (int idx = threadIdx.x % kWg; idx < kWgRows * D / 8; idx += kWg) {
     const int rr = idx / (D / 8);
     const int ch = idx - rr * (D / 8);
     const int row = row0 + rr;
@@ -1046,6 +824,274 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
   }
 }
 
+// ---- the bf16 forward (row 5) ----
+//
+// A CTA of two consumer warpgroups holds 128 query rows of Q, 64 each;
+// K and V stream through a 3-stage ring of 64-key tiles, each tile
+// loaded once for both warpgroups. Up to two CTAs share an SM (one at Dh
+// 128). For each live k-tile a warpgroup computes S = Q K^T with both
+// operands from shared memory; runs the online softmax on the
+// accumulator's registers (a row spans the 4 lanes of a quad, so two
+// shuffles give its max; the row sums stay per thread until the
+// epilogue); rescales O by the correction; and adds P V, with P rounded
+// to bf16 as the A operand from registers (where the Pallas kernel rounds
+// it, `p.astype(v.dtype)`) and V read through the descriptor's transpose.
+// Under `causal` a warpgroup skips the k-tiles past its diagonal (the
+// first warpgroup skips the CTA's last tile), and the grid runs the
+// longest rows first. The epilogue divides O by the row sums, writes the
+// natural-log lse of the scaled logits (m / log2 e + ln l: the contract
+// the backward and ring attention read), and stores O through the Q
+// tile.
+//
+// What bounds it: at gpt_small's training shape (B 8, H 12, S 1024, Dh
+// 64, causal) the least time is about even between bytes and operations
+// (0.0151 and 0.0131 ms on an H100 SXM). The loop is latency-bound: a
+// tile's two products wait on each other and on the softmax between
+// them, and a tile's 4,096 exponentials keep the SFU about as long as its
+// 8 `wgmma` keep the tensor cores; the four warpgroups of an SM
+// interleave one's products with another's softmax. Measured at that
+// shape on an NVIDIA H100 80GB HBM3 at 700 W by `ab_flash_fwd.py`
+// (builds that differ only in FwdSmem's constants, timed in turns in one
+// process): two warpgroups on 128 rows 0.047 ms; one warpgroup on 64 rows
+// with three CTAs an SM (dq's shape) 0.050, or with two stages and four
+// CTAs 0.049; three warpgroups on 192 rows 0.063; rings of 2 or 4 stages
+// 0.050. At Dh 32 one warpgroup is 6% faster; the shape is chosen for
+// gpt_small's Dh 64. Also slower, in a build not kept: issuing tile
+// j + 1's S before tile j's softmax (FlashAttention-3's overlap inside a
+// warpgroup): its second logit tile costs 32 registers a thread, and
+// ptxas serialises the `wgmma` where they do not fit.
+
+// shared memory of the forward (byte offsets from a 1024-aligned base)
+template <int D>
+struct FwdSmem {
+  static constexpr int kWgs = 2;
+  static constexpr int kMinBlocks = D == 128 ? 1 : 2;  // CTAs an SM
+  static constexpr int kRows = kWgs * kWgRows;  // query rows a CTA
+  static constexpr int kStages = 3;
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kQ + Tile<D>::bytes(kRows);
+  static constexpr int kStage = 2 * Tile<D>::bytes(kWgRows);  // K, V
+  static constexpr int kBar = kRing + kStages * kStage;  // resident,
+                                                         // full[], empty[]
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// the online softmax of one 64 x 64 logit tile in place, in the
+// accumulator layout (this thread: rows g and g + 8 of its warp's 16,
+// element 4 j + 2 i + e at column 8 j + 2 t + e of row g + 8 i): masks
+// the tile when `masked`, raises the running max m (log2 domain, of s *
+// c), turns s into P = 2^(s c - m), adds P's row sums to this thread's
+// share of l, and returns each row's correction 2^(m_old - m_new) in corr
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float c, bool masked, int row0,
+                                             int col0, int Skv, int causal) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + 8 * (e >> 1);
+        const int col = col0 + 8 * j + 2 * t + (e & 1);
+        if (!(col < Skv && (!causal || col <= row)))
+          s[4 * j + e] = -INFINITY;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+    const float m_new = fmaxf(m[i], quad_max(mx) * c);
+    // a row with no live column yet keeps P = 0 (not exp2(-inf + inf))
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    corr[i] = ex2(m[i] - m_use);
+    m[i] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * i + e];
+        x = ex2(fmaf(x, c, -m_use));
+        sum += x;
+      }
+    l[i] = l[i] * corr[i] + sum;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdSmem<D>::kWgs* kWg + 32,
+                                  FwdSmem<D>::kMinBlocks)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int H, int Sq, int Skv,
+                           Strides os, float scale, int causal) {
+  using T = Tile<D>;
+  using L = FwdSmem<D>;
+  constexpr int R = L::kRows;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+  const uint32_t base = smem_addr(smem);
+  const uint32_t resident = base + L::kBar;
+  const uint32_t full0 = resident + 8, empty0 = full0 + 8 * S;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qi = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qi * R;
+  int n_k = (Skv + kWgRows - 1) / kWgRows;
+  if (causal) n_k = min(n_k, (q0 + R) / kWgRows);  // live iff k0 < q_end
+
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * L::kWgs);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == L::kWgs) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(resident, T::bytes(R));
+      for (int p = 0; p < T::kPanels; ++p)
+        tma_rows(base + L::kQ + p * R * T::kRowBytes, &tq, resident,
+                 p * T::kPanelCols, q0, h, b);
+      for (int kb = 0; kb < n_k; ++kb) {
+        const int s = kb % S;
+        mbar_wait(empty0 + 8 * s, ((kb / S) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, L::kStage);
+        const uint32_t kt = base + L::kRing + s * L::kStage;
+        for (int p = 0; p < T::kPanels; ++p) {
+          const int off = p * kWgRows * T::kRowBytes;
+          tma_rows(kt + off, &tk, full0 + 8 * s, p * T::kPanelCols,
+                   kb * kWgRows, h, b);
+          tma_rows(kt + T::bytes(kWgRows) + off, &tv, full0 + 8 * s,
+                   p * T::kPanelCols, kb * kWgRows, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: query rows [q0 + r0, q0 + r0 + 64)
+  const int r0 = wg * kWgRows;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int row0 = q0 + r0 + warp * 16;  // this warp's first row
+  // the row max is taken on the raw logits, so a negative scale flips
+  // them first and goes to the exponent as |scale| (at least 1e-30: a
+  // zero scale must not turn a masked -inf into 0 * -inf = NaN)
+  const bool flip = scale < 0.f;
+  const float c = fmaxf(fabsf(scale) * kLog2e, 1e-30f);
+  const int diag = q0 / kWgRows + wg;  // this warpgroup's diagonal k-tile
+  float o[D / 2], sc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  mbar_wait(resident, 0);
+  __syncwarp();  // reconverge before the .aligned wgmma ops
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int s = kb % S;
+    mbar_wait(full0 + 8 * s, (kb / S) & 1);
+    __syncwarp();
+    const uint32_t kt = base + L::kRing + s * L::kStage;
+    const uint32_t vt = kt + T::bytes(kWgRows);
+    if (!causal || kb <= diag) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, T::kmajor(base + L::kQ, R, r0, kk),
+                     T::kmajor(kt, kWgRows, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(sc);
+      if (flip) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = -sc[i];
+      }
+      float corr[2];
+      softmax_tile(sc, m, l, corr, c,
+                   (causal && kb == diag) || (kb + 1) * kWgRows > Skv, row0,
+                   kb * kWgRows, Skv, causal);
+      rescale<D>(o, corr);
+      uint32_t a[4][4];
+      acc_to_a(a, sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<D>(o, a[kc], T::mnmajor(vt, kWgRows, kc));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(o);
+      hold(a);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  // O / l, and lse = m / log2 e + ln l (the natural-log lse of the
+  // scaled logits)
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l_safe = fmaxf(quad_sum(l[i]), 1e-30f);
+    inv[i] = 1.f / l_safe;
+    const int row = row0 + lane / 4 + 8 * i;
+    if (lane % 4 == 0 && row < Sq)
+      lse[static_cast<long long>(bh) * Sq + row] =
+          m[i] / kLog2e + logf(l_safe);
+  }
+  rescale<D>(o, inv);
+  store_rows<D>(o, 1.f, smem + L::kQ, R, r0, wg, out + b * os.b + h * os.h,
+                os.s, q0 + r0, Sq);
+}
+
+// ---- the bf16 backward (rows 6 and 7) ----
+//
+//   - dq (row 6): a CTA of one consumer warpgroup holds 64 query rows of
+//     Q and dO, and each thread the lse and dterm of its two rows; K and
+//     V stream through a ring of 64-key tiles. Up to three such CTAs
+//     share an SM. S = Q K^T and dP = dO V^T read both operands from
+//     shared memory; dS is formed in registers and dQ += dS K takes K
+//     through the descriptor's transpose.
+//   - dk/dv (row 7): a CTA of two consumer warpgroups holds 128 keys of K
+//     and V (one warpgroup and 64 keys for Dh 128, where the registers of
+//     dK and dV leave room for no second); Q and dO stream through the
+//     ring in 64-query tiles, starting at the diagonal under `causal`,
+//     and the producer warp's lanes store each tile's lse and dterm
+//     beside them (a TMA box must start 16-byte aligned; row bh * Sq + q0
+//     of those flat arrays need not). S^T = K Q^T, dP^T = V dO^T from
+//     shared memory; dV += P^T dO and dK += dS^T Q with P^T and dS^T from
+//     registers and dO, Q transposed by descriptor.
+// P = exp2(S * scale * log2 e - lse * log2 e). The warpgroups of an SM
+// interleave their products with each other's exponentials. (Measured
+// slower and dropped: keeping a tile's dQ, or dV and dK, products in
+// flight into the next tile's; ping-pong turns between dk/dv's two
+// warpgroups.)
+
 // shared memory of the dq pass (byte offsets from a 1024-aligned base)
 template <int D>
 struct DqSmem {
@@ -1054,12 +1100,12 @@ struct DqSmem {
   // that share one CTA's ring (measured; dk/dv showed no such gain)
   static constexpr int kWgs = 1;
   static constexpr int kMinBlocks = D == 128 ? 1 : 3;  // CTAs an SM
-  static constexpr int kRows = kWgs * kBwdRows;  // query rows a CTA
+  static constexpr int kRows = kWgs * kWgRows;  // query rows a CTA
   static constexpr int kStages = 3;
   static constexpr int kQ = 0;
   static constexpr int kDO = kQ + Tile<D>::bytes(kRows);
   static constexpr int kRing = kDO + Tile<D>::bytes(kRows);
-  static constexpr int kStage = 2 * Tile<D>::bytes(kBwdRows);  // K, V
+  static constexpr int kStage = 2 * Tile<D>::bytes(kWgRows);  // K, V
   static constexpr int kBar = kRing + kStages * kStage;  // resident,
                                                          // full[], empty[]
   static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
@@ -1092,8 +1138,8 @@ __global__ void __launch_bounds__(DqSmem<D>::kWgs* kWg + 32,
   const int h = bh - b * H;
   const int qi = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
   const int q0 = qi * R;
-  int n_k = (Skv + kBwdRows - 1) / kBwdRows;
-  if (causal) n_k = min(n_k, (q0 + R) / kBwdRows);  // live iff k0 < q_end
+  int n_k = (Skv + kWgRows - 1) / kWgRows;
+  if (causal) n_k = min(n_k, (q0 + R) / kWgRows);  // live iff k0 < q_end
 
   if (threadIdx.x == 0) {
     mbar_init(resident, 1);
@@ -1122,11 +1168,11 @@ __global__ void __launch_bounds__(DqSmem<D>::kWgs* kWg + 32,
         mbar_expect_tx(full0 + 8 * s, L::kStage);
         const uint32_t kt = base + L::kRing + s * L::kStage;
         for (int p = 0; p < T::kPanels; ++p) {
-          const int off = p * kBwdRows * T::kRowBytes;
+          const int off = p * kWgRows * T::kRowBytes;
           tma_rows(kt + off, &tk, full0 + 8 * s, p * T::kPanelCols,
-                   kb * kBwdRows, h, b);
-          tma_rows(kt + T::bytes(kBwdRows) + off, &tv, full0 + 8 * s,
-                   p * T::kPanelCols, kb * kBwdRows, h, b);
+                   kb * kWgRows, h, b);
+          tma_rows(kt + T::bytes(kWgRows) + off, &tv, full0 + 8 * s,
+                   p * T::kPanelCols, kb * kWgRows, h, b);
         }
       }
     }
@@ -1134,7 +1180,7 @@ __global__ void __launch_bounds__(DqSmem<D>::kWgs* kWg + 32,
   }
 
   // a consumer warpgroup: query rows [q0 + r0, q0 + r0 + 64)
-  const int r0 = wg * kBwdRows;
+  const int r0 = wg * kWgRows;
   const int warp = threadIdx.x / 32 % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
@@ -1155,29 +1201,29 @@ __global__ void __launch_bounds__(DqSmem<D>::kWgs* kWg + 32,
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
-  const int diag = q0 / kBwdRows + wg;  // this warpgroup's diagonal k-tile
+  const int diag = q0 / kWgRows + wg;  // this warpgroup's diagonal k-tile
 
   for (int kb = 0; kb < n_k; ++kb) {
     const int s = kb % S;
     mbar_wait(full0 + 8 * s, (kb / S) & 1);
     __syncwarp();
     const uint32_t kt = base + L::kRing + s * L::kStage;
-    const uint32_t vt = kt + T::bytes(kBwdRows);
+    const uint32_t vt = kt + T::bytes(kWgRows);
     if (!causal || kb <= diag) {
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss_n64(sc, T::kmajor(base + L::kQ, R, r0, kk),
-                     T::kmajor(kt, kBwdRows, 0, kk), kk);
+                     T::kmajor(kt, kWgRows, 0, kk), kk);
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss_n64(dp, T::kmajor(base + L::kDO, R, r0, kk),
-                     T::kmajor(vt, kBwdRows, 0, kk), kk);
+                     T::kmajor(vt, kWgRows, 0, kk), kk);
       wgmma_commit();
       wgmma_wait<1>();  // S is in; dP still running
       hold(sc);
-      const bool masked = (causal && kb == diag) || (kb + 1) * kBwdRows > Skv;
+      const bool masked = (causal && kb == diag) || (kb + 1) * kWgRows > Skv;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1185,7 +1231,7 @@ __global__ void __launch_bounds__(DqSmem<D>::kWgs* kWg + 32,
           float p = ex2(fmaf(sc[4 * j + e], c, -lse2[e >> 1]));
           if (masked) {
             const int row = q0 + r0 + warp * 16 + g + 8 * (e >> 1);
-            const int col = kb * kBwdRows + 8 * j + 2 * t + (e & 1);
+            const int col = kb * kWgRows + 8 * j + 2 * t + (e & 1);
             if (!(col < Skv && (!causal || col <= row))) p = 0.f;
           }
           sc[4 * j + e] = p;
@@ -1200,7 +1246,7 @@ __global__ void __launch_bounds__(DqSmem<D>::kWgs* kWg + 32,
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc)
-        wgmma_rs<D>(acc, a[kc], T::mnmajor(kt, kBwdRows, kc));
+        wgmma_rs<D>(acc, a[kc], T::mnmajor(kt, kWgRows, kc));
       wgmma_commit();
       wgmma_wait<0>();
       hold(acc);
@@ -1219,7 +1265,7 @@ template <int D>
 struct DkvSmem {
   static constexpr int kWgs = D == 128 ? 1 : 2;
   static constexpr int kMinBlocks = 1;  // CTAs an SM
-  static constexpr int kRows = kWgs * kBwdRows;  // keys a CTA
+  static constexpr int kRows = kWgs * kWgRows;  // keys a CTA
   static constexpr int kStages = D == 128 ? 3 : 4;
   static constexpr int kK = 0;
   static constexpr int kV = kK + Tile<D>::bytes(kRows);
@@ -1227,7 +1273,7 @@ struct DkvSmem {
   // a stage: Q, dO (by TMA), then lse and dterm (256 bytes each, stored
   // by the producer warp; padded so the next stage's tiles stay
   // 1024-aligned)
-  static constexpr int kRowVals = 2 * Tile<D>::bytes(kBwdRows);
+  static constexpr int kRowVals = 2 * Tile<D>::bytes(kWgRows);
   static constexpr int kStage = kRowVals + 1024;
   static constexpr int kBar = kRing + kStages * kStage;
   static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
@@ -1261,9 +1307,9 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.y * R;  // causal: the first keys see most rows
-  const int n_q = (Sq + kBwdRows - 1) / kBwdRows;
+  const int n_q = (Sq + kWgRows - 1) / kWgRows;
   // causal: q-tile qi is live iff k0 < (qi + 1) * 64
-  const int qi0 = causal ? k0 / kBwdRows : 0;
+  const int qi0 = causal ? k0 / kWgRows : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(resident, 1);
@@ -1296,13 +1342,13 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
       __syncwarp();
       const uint32_t qt = base + L::kRing + s * L::kStage;
       if (lane == 0) {
-        mbar_expect(full, 2 * T::bytes(kBwdRows));
+        mbar_expect(full, 2 * T::bytes(kWgRows));
         for (int p = 0; p < T::kPanels; ++p) {
-          const int off = p * kBwdRows * T::kRowBytes;
-          tma_rows(qt + off, &tq, full, p * T::kPanelCols, qi * kBwdRows, h,
+          const int off = p * kWgRows * T::kRowBytes;
+          tma_rows(qt + off, &tq, full, p * T::kPanelCols, qi * kWgRows, h,
                    b);
-          tma_rows(qt + T::bytes(kBwdRows) + off, &tdo, full,
-                   p * T::kPanelCols, qi * kBwdRows, h, b);
+          tma_rows(qt + T::bytes(kWgRows) + off, &tdo, full,
+                   p * T::kPanelCols, qi * kWgRows, h, b);
         }
       }
       // lse and dterm of the tile's rows as plain loads: a TMA box must
@@ -1310,11 +1356,11 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
       // need not
       float* rowv = reinterpret_cast<float*>(smem + L::kRing +
                                              s * L::kStage + L::kRowVals);
-      for (int r = lane; r < kBwdRows; r += 32) {
-        const int row = qi * kBwdRows + r;
+      for (int r = lane; r < kWgRows; r += 32) {
+        const int row = qi * kWgRows + r;
         const long long at = static_cast<long long>(bh) * Sq + row;
         rowv[r] = row < Sq ? lse[at] : 0.f;
-        rowv[kBwdRows + r] = row < Sq ? dterm[at] : 0.f;
+        rowv[kWgRows + r] = row < Sq ? dterm[at] : 0.f;
       }
       mbar_arrive(full);  // releases this lane's stores with its arrival
     }
@@ -1322,7 +1368,7 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
   }
 
   // a consumer warpgroup: keys [k0 + r0, k0 + r0 + 64)
-  const int r0 = wg * kBwdRows;
+  const int r0 = wg * kWgRows;
   const int warp = threadIdx.x / 32 % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
@@ -1333,7 +1379,7 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
-  const int diag = k0 / kBwdRows + wg;  // this warpgroup's diagonal q-tile
+  const int diag = k0 / kWgRows + wg;  // this warpgroup's diagonal q-tile
   mbar_wait(resident, 0);
   __syncwarp();  // reconverge before the .aligned wgmma ops
 
@@ -1343,7 +1389,7 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
     mbar_wait(full0 + 8 * s, (i / S) & 1);
     __syncwarp();
     const uint32_t qt = base + L::kRing + s * L::kStage;
-    const uint32_t dot = qt + T::bytes(kBwdRows);
+    const uint32_t dot = qt + T::bytes(kWgRows);
     const float* rowv = reinterpret_cast<const float*>(
         smem + L::kRing + s * L::kStage + L::kRowVals);  // lse, dterm
     if (!causal || qi >= diag) {
@@ -1351,16 +1397,16 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss_n64(st, T::kmajor(base + L::kK, R, r0, kk),
-                     T::kmajor(qt, kBwdRows, 0, kk), kk);
+                     T::kmajor(qt, kWgRows, 0, kk), kk);
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss_n64(dpt, T::kmajor(base + L::kV, R, r0, kk),
-                     T::kmajor(dot, kBwdRows, 0, kk), kk);
+                     T::kmajor(dot, kWgRows, 0, kk), kk);
       wgmma_commit();
       wgmma_wait<1>();  // S^T is in; dP^T still running
       hold(st);
-      const bool masked = (causal && qi == diag) || (qi + 1) * kBwdRows > Sq;
+      const bool masked = (causal && qi == diag) || (qi + 1) * kWgRows > Sq;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 l = *reinterpret_cast<const float2*>(rowv + 8 * j + 2 * t);
@@ -1370,7 +1416,7 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
               ex2(fmaf(st[4 * j + e], c, -(e & 1 ? l.y : l.x) * kLog2e));
           if (masked) {
             const int key = k0 + r0 + warp * 16 + g + 8 * (e >> 1);
-            const int row = qi * kBwdRows + 8 * j + 2 * t + (e & 1);
+            const int row = qi * kWgRows + 8 * j + 2 * t + (e & 1);
             if (!(row < Sq && (!causal || key <= row))) p = 0.f;
           }
           st[4 * j + e] = p;  // P^T
@@ -1381,7 +1427,7 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 d = *reinterpret_cast<const float2*>(
-            rowv + kBwdRows + 8 * j + 2 * t);
+            rowv + kWgRows + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e)  // dS^T, in place
           dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] -
@@ -1393,10 +1439,10 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc)
-        wgmma_rs<D>(dv_acc, ap[kc], T::mnmajor(dot, kBwdRows, kc));
+        wgmma_rs<D>(dv_acc, ap[kc], T::mnmajor(dot, kWgRows, kc));
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc)
-        wgmma_rs<D>(dk_acc, ads[kc], T::mnmajor(qt, kBwdRows, kc));
+        wgmma_rs<D>(dk_acc, ads[kc], T::mnmajor(qt, kWgRows, kc));
       wgmma_commit();
       wgmma_wait<0>();
       hold(dv_acc);
@@ -1428,7 +1474,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 using bf16 = __nv_bfloat16;
 
-// launch one pass: the f32 FMA kernel or the bf16 mma kernel, with the
+// launch one pass: an f32 FMA kernel or a bf16 wgmma kernel, with the
 // dynamic shared memory it needs
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
@@ -1498,15 +1544,13 @@ int map_rows(CUtensorMap* map, const void* p, int B, int S, int H,
 // kTmaRefused + the CUresult (the Python wrapper names it)
 constexpr int kTmaRefused = 100000;
 
-// the four descriptors of one backward pass (q, k, v, dO)
-template <int D>
-int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
-             const void* v, const void* dout, int B, int H, int Sq, int Skv,
-             const long long* st, int q_rows, int k_rows) {
-  const void* ptrs[4] = {q, k, v, dout};
-  const int lens[4] = {Sq, Skv, Skv, Sq};
-  const int rows[4] = {q_rows, k_rows, k_rows, q_rows};
-  for (int i = 0; i < 4; ++i) {
+// the descriptors of one pass: tensor i (its pointer, its length and
+// the rows of its box) with the strides at i
+template <int D, int N>
+int make_maps(CUtensorMap (&m)[N], const void* const (&ptrs)[N],
+              const int (&lens)[N], const int (&rows)[N], int B, int H,
+              const long long* st) {
+  for (int i = 0; i < N; ++i) {
     const int err = map_rows<D>(&m[i], ptrs[i], B, lens[i], H,
                                 strides_at(st, i), rows[i]);
     if (err != CUDA_SUCCESS) return kTmaRefused + err;
@@ -1519,21 +1563,25 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
                 void* out, float* lse, int B, int H, int Sq, int Skv,
                 const long long* st, float scale, int causal,
                 cudaStream_t stream) {
-  const dim3 grid(B * H, (Sq + kTile - 1) / kTile);
-  const Strides s0 = strides_at(st, 0), s1 = strides_at(st, 1),
-                s2 = strides_at(st, 2), s3 = strides_at(st, 3);
-  if (dtype == 1)
-    return launch(flash_fwd_mma_kernel<D>, grid, kMmaThreads,
-                  (2 * kTile * (D + 8) + D * (kTile + 8)) * sizeof(bf16),
-                  stream, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<bf16*>(out), lse, H, Sq, Skv, s0, s1, s2, s3,
-                  scale, causal);
-  return launch(flash_fwd_kernel<D>, grid, kThreads,
-                (3 * kTile * (D + 1) + kTile * kTP) * sizeof(float), stream,
-                static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<float*>(out), lse,
-                H, Sq, Skv, s0, s1, s2, s3, scale, causal);
+  const Strides s3 = strides_at(st, 3);
+  if (dtype == 1) {
+    using L = FwdSmem<D>;
+    CUtensorMap m[3];
+    const int err = make_maps<D>(m, {q, k, v}, {Sq, Skv, Skv},
+                                 {L::kRows, kWgRows, kWgRows}, B, H, st);
+    if (err != 0) return static_cast<cudaError_t>(err);
+    return launch(flash_fwd_wgmma_kernel<D>,
+                  dim3(B * H, (Sq + L::kRows - 1) / L::kRows),
+                  L::kWgs * kWg + 32, L::kBytes, stream, m[0], m[1], m[2],
+                  static_cast<bf16*>(out), lse, H, Sq, Skv, s3, scale,
+                  causal);
+  }
+  return launch(flash_fwd_kernel<D>, dim3(B * H, (Sq + kTile - 1) / kTile),
+                kThreads, (3 * kTile * (D + 1) + kTile * kTP) * sizeof(float),
+                stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<float*>(out), lse, H, Sq, Skv, strides_at(st, 0),
+                strides_at(st, 1), strides_at(st, 2), s3, scale, causal);
 }
 
 template <int D>
@@ -1548,8 +1596,8 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 1) {
     constexpr int R = DqSmem<D>::kRows;
     CUtensorMap m[4];
-    const int err =
-        bwd_maps<D>(m, q, k, v, dout, B, H, Sq, Skv, st, R, kBwdRows);
+    const int err = make_maps<D>(m, {q, k, v, dout}, {Sq, Skv, Skv, Sq},
+                                 {R, kWgRows, kWgRows, R}, B, H, st);
     if (err != 0) return static_cast<cudaError_t>(err);
     return launch(flash_bwd_dq_wgmma_kernel<D>,
                   dim3(B * H, (Sq + R - 1) / R), DqSmem<D>::kWgs * kWg + 32,
@@ -1580,8 +1628,8 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 1) {
     constexpr int R = DkvSmem<D>::kRows;
     CUtensorMap m[4];
-    const int err =
-        bwd_maps<D>(m, q, k, v, dout, B, H, Sq, Skv, st, kBwdRows, R);
+    const int err = make_maps<D>(m, {q, k, v, dout}, {Sq, Skv, Skv, Sq},
+                                 {kWgRows, R, R, kWgRows}, B, H, st);
     if (err != 0) return static_cast<cudaError_t>(err);
     return launch(flash_bwd_dkv_wgmma_kernel<D>,
                   dim3(B * H, (Skv + R - 1) / R), DkvSmem<D>::kWgs * kWg + 32,

@@ -19,9 +19,9 @@ JAX ``[B*H, Sq]``). Masks follow the Pallas ``_bwd_mask``: causal means
 when not causal.
 
 The Pallas ``block_q``/``block_k`` are TPU VMEM tiles; the kernels pick
-their own and take none as arguments: 64 x 64 for the forward and the
-f32 backward; for the bf16 backward, CTAs of 64 query rows (dq) or 128
-keys (dk/dv; 64 at Dh 128) against a TMA-fed ring of 64-row tiles, every
+their own and take none as arguments: 64 x 64 in f32; in bf16, CTAs of
+128 query rows (the forward), 64 query rows (dq) or 128 keys (dk/dv; 64
+at Dh 128) against a TMA-fed ring of 64-row K/V (or Q/dO) tiles, every
 product a Hopper ``wgmma``.
 """
 

@@ -404,13 +404,17 @@ FLASH_TOL = {torch.float32: dict(out=1e-4, grad=5e-4),
                                            (255, 255, False),
                                            (129, 255, False),
                                            (255, 129, False),
-                                           (1024, 1024, True)])
+                                           (1024, 1024, True),
+                                           (191, 191, True),
+                                           (193, 193, True),
+                                           (257, 257, True),
+                                           (97, 33, False)])
 def test_flash_kernels_match_plain(cuda_device, dtype, d, sq, skv, causal):
     """Rows 5-7 (forward, dq, dk/dv) against their plain versions on the
-    fused-QKV strided views, ragged lengths and both masks; 127-129, 255
-    and 1024 straddle the bf16 backward's 64-row tiles and dk/dv's
-    128-key CTAs (a CTA's second warpgroup past the end, a last tile of
-    one row)."""
+    fused-QKV strided views, ragged lengths and both masks; 127-129,
+    191-193, 255, 257 and 1024 straddle the bf16 kernels' 64-row tiles
+    and 128-row CTAs (a CTA's second warpgroup past the end, a last tile
+    of one row); Skv 33 is a single ragged k-tile."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _flash_inputs(cuda_device, 2, sq, skv, 3, d, dtype)
     scale = d ** -0.5
@@ -459,6 +463,41 @@ def test_flash_pair_grads_are_bit_reproducible(cuda_device, dtype, d):
     torch.cuda.synchronize()
     for a, b, name in zip(first, second, ("dq", "dk", "dv")):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_fwd_is_bit_reproducible(cuda_device, dtype, d):
+    """Two calls of the forward give equal bits, output and lse: each
+    output element is summed by one thread in one order."""
+    q, k, v, _ = _flash_inputs(cuda_device, 2, 255, 255, 3, d, dtype,
+                               seed=d + 1)
+    first = flash_fwd(q, k, v, scale=d ** -0.5, causal=True, impl="cuda")
+    second = flash_fwd(q, k, v, scale=d ** -0.5, causal=True, impl="cuda")
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("out", "lse")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+@pytest.mark.parametrize("sq,skv,causal", [(197, 300, False),
+                                           (129, 129, True)])
+def test_flash_fwd_takes_any_scale(cuda_device, dtype, scale, sq, skv,
+                                   causal):
+    """A negative or zero logit scale through the forward: the bf16
+    kernel takes its row max on the raw logits, so it flips them for a
+    negative scale, and a zero scale must not turn a masked logit into
+    0 * -inf (the plain version gives a uniform average of the live
+    columns)."""
+    q, k, v, _ = _flash_inputs(cuda_device, 2, sq, skv, 3, 64, dtype)
+    tol = FLASH_TOL[dtype]["out"]
+    out, lse = flash_fwd(q, k, v, scale=scale, causal=causal, impl="cuda")
+    ref_out, ref_lse = torch_flash_fwd(q, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
 # 3 bf16 SGD steps, flash against the plain masked softmax: both paths

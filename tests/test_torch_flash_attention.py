@@ -167,6 +167,39 @@ def test_pair_grads_on_fused_qkv_views_match_jax(s, d, causal):
             err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [127, 128, 129, 255])
+def test_fwd_on_fused_qkv_views_match_jax(s, d, causal):
+    """The forward's contract on the layout the bf16 kernel reads: q/k/v
+    are [B, S, H, Dh] views of one fused projection (row stride 3*H*Dh),
+    at lengths that straddle the kernel's 64-row tiles; output and lse
+    against ``_flash_fwd`` in interpret mode."""
+    rng = np.random.default_rng(s * 1000 + d * 2 + causal + 7)
+    b, h = 1, 2
+    fused = rng.normal(size=(b, s, 3 * h * d)).astype(np.float32)
+    ft = torch.from_numpy(fused)
+    q, k, v = (ft[..., i * h * d:(i + 1) * h * d].view(b, s, h, d)
+               for i in range(3))
+    assert q.stride() == (s * 3 * h * d, 3 * h * d, d, 1)
+    scale = d ** -0.5
+    out, lse = flash_fwd(q, k, v, scale=scale, causal=causal)
+    assert out.shape == (b, s, h, d) and lse.shape == (b, h, s)
+
+    def merge(x):  # [B, S, H, Dh] -> the JAX [B*H, S, Dh]
+        return jnp.asarray(np.moveaxis(np.ascontiguousarray(x), 2, 1)
+                           .reshape(b * h, s, d))
+
+    ref_out, ref_lse = _flash_fwd(*(merge(x.numpy()) for x in (q, k, v)),
+                                  scale, causal, 64, 64, True)
+    np.testing.assert_allclose(
+        out.permute(0, 2, 1, 3).reshape(b * h, s, d).numpy(),
+        np.asarray(ref_out), atol=F32["out"], rtol=F32["out"])
+    np.testing.assert_allclose(lse.reshape(b * h, s).numpy(),
+                               np.asarray(ref_lse), atol=F32["out"],
+                               rtol=F32["out"])
+
+
 def test_bf16_io_matches_jax():
     q, k, v, ct = _inputs(5, 1, 128, 128, 2, 64)
     out, grads = _port_grads(q, k, v, ct, True, dtype=torch.bfloat16)
