@@ -111,13 +111,21 @@ nothing is caught):
    shapes (8 slots, 12 heads, Dh 64), windows 64/256/1024, page size
    16, positions including 0, one whose last row lands on the window's
    last column and one whose rows reach past it, shuffled tables over a
-   scratch page 0 of NaN (K) and 1e30 (V), in f32 and bf16. At W=1024
-   in bf16, per variant: device time (CUDA graph), eager time, the plain
-   version's time, the bound ``max(4 K1 n Dh flops / peak, bytes / HBM
-   rate)`` over the rows' reach, and the library yardstick
-   ``F.scaled_dot_product_attention`` with the row-staggered boolean
-   mask on the already gathered and dequantized window (timed here
-   only; the port never calls it).
+   scratch page 0 of NaN (K) and 1e30 (V), in f32 and bf16; two calls
+   give the same bits; the dense window laid out in shuffled pages gives
+   the dense variant's bits (model dtype and int8, f32 and bf16, each
+   window). At W=1024 in bf16, per variant: device time (CUDA graph),
+   eager time, the plain version's time, the bound ``max(4 K1 n Dh flops
+   / peak, bytes / HBM rate)`` over the rows' reach, and the library
+   yardstick ``F.scaled_dot_product_attention`` with the row-staggered
+   boolean mask on the already gathered and dequantized window (timed
+   here only; the port never calls it). Then row 3 in bf16 at W=1024
+   for K1 = 2, 5, 9 and 16 (error, times, bound), and the A/B of the
+   split size (64, 128 and 256 keys a CTA; 128 is the default) for the
+   four variants at the main shape, timed in turns (64, 128, 256, 256,
+   128, 64), each checked against its plain version first; and where
+   row 3's device time goes between its split and merge kernels
+   (``torch.profiler`` over 20 eager calls).
 16. serve-spec — ``serve_lm.main`` on full-width gpt_small, random
    weights from seed 0, bf16, 8 slots, 16 synthetic requests of 32 new
    tokens, decode horizon 4, ``--draft_k 4``, five times: self-drafting
@@ -265,6 +273,9 @@ SERVE_PAGED = ["--kv_layout", "paged", "--page_size", str(PAGE_SIZE),
 DRAFT_K = 4
 VERIFY_ROWS = DRAFT_K + 1
 VERIFY_TOL = 1e-4  # the decode variants' tolerance: same math, same values
+VERIFY_SWEEP = (2, 5, 9, 16)  # K1 of phase 15's sweep of row 3
+VERIFY_AB_SPLITS = (64, 128, 256)  # keys a verify CTA walks, in turns
+PROFILE_CALLS = 20
 VERIFY_VARIANTS = {  # name: (kernel row, replaces line, paged, int8)
     "verify_decode_attention": ("3", "decode_attention.py:496", False,
                                 False),
@@ -746,21 +757,20 @@ def _decode_counts(da):
     return counts
 
 
-def _verify_case(torch, quantize_kv, variant, window, dtype, seed):
+def _verify_case(torch, quantize_kv, variant, window, dtype, seed,
+                 rows=VERIFY_ROWS):
     """Inputs of one verify variant at gpt_small decode shapes: q ``[8,
-    K1, 12, 64]``, K/V (a dense window view of an s_max cache, or page
-    storage with a scratch page 0 of NaN and 1e30 that no entry up to a
-    slot's last reachable column points at), the shuffled table (paged)
-    and positions 0, W-K1 (the last row lands on column W-1), W-2 (rows
-    reach past the window) and random columns."""
+    rows, 12, 64]`` (K1 = ``rows``), K/V (a dense window view of an s_max
+    cache, or page storage with a scratch page 0 of NaN and 1e30 that no
+    entry up to a slot's last reachable column points at), the shuffled
+    table (paged) and positions 0, W-K1 (the last row lands on column
+    W-1), W-2 (rows reach past the window) and random columns."""
     _, _, paged, quant = VERIFY_VARIANTS[variant]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
-    q = torch.randn(n, VERIFY_ROWS, h, d, generator=gen,
-                    device="cuda").to(dtype)
-    pos = torch.randint(0, window - VERIFY_ROWS, (n,), generator=gen,
-                        device="cuda")
-    pos[0], pos[1], pos[2] = 0, window - VERIFY_ROWS, window - 2
+    q = torch.randn(n, rows, h, d, generator=gen, device="cuda").to(dtype)
+    pos = torch.randint(0, window - rows, (n,), generator=gen, device="cuda")
+    pos[0], pos[1], pos[2] = 0, window - rows, window - 2
     pos = pos.to(torch.int32)
     if not paged:
         s_max = max(PAGED_WINDOWS) + DRAFT_K  # the spare columns
@@ -779,7 +789,7 @@ def _verify_case(torch, quantize_kv, variant, window, dtype, seed):
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
     table = perm[:n * n_win].view(n, n_win).to(torch.int32)
     for row, p in enumerate(pos.tolist()):
-        reach = min(p + VERIFY_ROWS - 1, window - 1)
+        reach = min(p + rows - 1, window - 1)
         table[row, -(-(reach + 1) // ps):] = 0
     if quant:
         k, v = quantize_kv(k * 2), quantize_kv(v)
@@ -789,6 +799,37 @@ def _verify_case(torch, quantize_kv, variant, window, dtype, seed):
         k, v = k.to(dtype), v.to(dtype)
         k[0], v[0] = float("nan"), 1e30
     return q, k, v, table, pos
+
+
+def _paged_twin(torch, da, k, v, pos, window, seed):
+    """The dense window ``k``/``v`` (``[8, W, 12, 64]``, or its int8
+    pair) laid out in shuffled pages of PAGE_SIZE behind a scratch page 0
+    (K NaN, V 1e30; int8: 127 with those scales), with the table entries
+    past each slot's last reachable column on page 0: (K pages, V pages,
+    table)."""
+    n, _, h, _ = k.shape
+    ps = PAGE_SIZE
+    n_win = -(-window // ps)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = (torch.randperm(n * n_win, generator=gen, device="cuda")
+             + 1).view(n, n_win).to(torch.int32)
+
+    def lay(x, garbage):
+        if hasattr(x, "scale"):
+            return da.QuantizedKV(
+                lay(x.data, 127), lay(x.scale[..., None], garbage)[..., 0])
+        d = x.shape[-1]
+        pages = torch.full((1 + n * n_win, h, ps, d), garbage,
+                           dtype=x.dtype, device="cuda")
+        pages[table.long()] = x.reshape(n, n_win, ps, h, d).permute(
+            0, 1, 3, 2, 4)
+        return pages
+
+    kp, vp = lay(k, float("nan")), lay(v, 1e30)
+    for row, p in enumerate(pos.tolist()):
+        reach = min(p + VERIFY_ROWS - 1, window - 1)
+        table[row, -(-(reach + 1) // ps):] = 0
+    return kp, vp, table
 
 
 def _verify_calls(da, q, k, v, table, pos, window):
@@ -852,6 +893,29 @@ def _time_verify(torch, F, da, q, k, v, table, pos, window, rate):
         library_ms=_device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=scale), torch),
         bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _verify_profile(torch, kernel):
+    """Device time a call of the verify kernel's two launches, the split
+    kernel and the merge kernel, from ``torch.profiler`` over
+    PROFILE_CALLS eager calls (None where the trace shows no device
+    time). Launches made here are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        kernel()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_CALLS):
+            kernel()
+        torch.cuda.synchronize()
+    times = dict.fromkeys(("verify_split_kernel", "verify_merge_kernel"))
+    for event in prof.key_averages():
+        total = getattr(event, "device_time_total", 0)
+        for name in times:
+            if name in event.key and total > 0:
+                times[name] = total / PROFILE_CALLS
+    return times
 
 
 def _stream_ms(fn, torch, calls=GRAPH_CALLS, reps=10):
@@ -1454,6 +1518,7 @@ def main() -> int:
                                                    seed=w + 15)
                 kernel, plain = _verify_calls(da, q, k, v, table, pos, w)
                 got = kernel()
+                again = kernel()
                 torch.cuda.synchronize()
                 ref = plain()
                 err = float((got - ref).abs().max())
@@ -1462,13 +1527,16 @@ def main() -> int:
                     raise AssertionError(
                         f"{variant} {tname} W={w} K1={VERIFY_ROWS}: "
                         f"max|err| {err} > {VERIFY_TOL} (or not finite)")
+                if not torch.equal(got, again):
+                    raise AssertionError(
+                        f"{variant} {tname} W={w}: two calls differ")
                 verify_worst[variant] = max(verify_worst[variant], err)
                 paging = (f" page_size={PAGE_SIZE}" if table is not None
                           else "")
                 line = (f"[verify-kernel] {variant} {tname} N=8 K1="
                         f"{VERIFY_ROWS} H=12 Dh=64 W={w}{paging} positions="
                         f"{pos.tolist()} max_abs_err={err:.3e} (tol "
-                        f"{VERIFY_TOL})")
+                        f"{VERIFY_TOL}), two calls bit-equal")
                 if dtype == torch.bfloat16 and w == max(PAGED_WINDOWS):
                     t = _time_verify(torch, F, da, q, k, v, table, pos, w,
                                      rate)
@@ -1484,6 +1552,81 @@ def main() -> int:
                              f"({t['bound_by']}) [{smi}]")
                 _print(line)
                 del q, k, v, table, pos
+    for variant in ("verify_decode_attention", "verify_decode_attention_int8"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for w in PAGED_WINDOWS:
+                q, k, v, _, pos = _verify_case(torch, quantize_kv, variant,
+                                               w, dtype, seed=w + 16)
+                kp, vp, table = _paged_twin(torch, da, k, v, pos, w, seed=w)
+                dense = da.verify_decode_attention(q, k, v, pos, impl="cuda")
+                paged = da.paged_verify_decode_attention(
+                    q, kp, vp, table, pos, window=w, impl="cuda")
+                torch.cuda.synchronize()
+                if not (torch.equal(dense, paged)
+                        and bool(torch.isfinite(paged).all())):
+                    raise AssertionError(
+                        f"{variant} {dtype} W={w}: dense and paged verify "
+                        "differ on the same columns")
+                del q, k, v, kp, vp, table, pos
+    _print("[verify-kernel] dense == paged bit for bit on the same columns "
+           f"(page_size={PAGE_SIZE}, shuffled, scratch page 0 of NaN/1e30): "
+           f"model dtype and int8, f32 and bf16, W={list(PAGED_WINDOWS)}")
+    w = max(PAGED_WINDOWS)
+    for rows in VERIFY_SWEEP:
+        q, k, v, table, pos = _verify_case(
+            torch, quantize_kv, "verify_decode_attention", w,
+            torch.bfloat16, seed=w + rows, rows=rows)
+        kernel, plain = _verify_calls(da, q, k, v, table, pos, w)
+        err = float((kernel() - plain()).abs().max())
+        if not err <= VERIFY_TOL:
+            raise AssertionError(
+                f"verify_decode_attention bf16 W={w} K1={rows}: max|err| "
+                f"{err} > {VERIFY_TOL}")
+        t = _time_verify(torch, F, da, q, k, v, table, pos, w, rate)
+        _print(f"[verify-kernel] sweep verify_decode_attention bf16 N=8 "
+               f"K1={rows} H=12 Dh=64 W={w} positions={pos.tolist()} "
+               f"max_abs_err={err:.3e} ms={t['ms']:.5f} "
+               f"eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+               f"library_ms={t['library_ms']:.5f} "
+               f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) [{smi}]")
+        del q, k, v, table, pos
+    q, k, v, table, pos = _verify_case(torch, quantize_kv,
+                                       "verify_decode_attention", w,
+                                       torch.bfloat16, seed=w + 15)
+    split_us = _verify_profile(torch, _verify_calls(da, q, k, v, table, pos,
+                                                    w)[0])
+    _print(f"[verify-kernel] profile verify_decode_attention bf16 N=8 "
+           f"K1={VERIFY_ROWS} H=12 Dh=64 W={w} (torch.profiler, "
+           f"{PROFILE_CALLS} eager calls): "
+           + ", ".join(f"{name} {t:.3f} us a call" if t is not None
+                       else f"{name} not measured"
+                       for name, t in split_us.items()) + f" [{smi}]")
+    del q, k, v, table, pos
+    default_split = da.VERIFY_SPLIT
+    for variant in VERIFY_VARIANTS:
+        q, k, v, table, pos = _verify_case(torch, quantize_kv, variant, w,
+                                           torch.bfloat16, seed=w + 15)
+        kernel, plain = _verify_calls(da, q, k, v, table, pos, w)
+        ref = plain()
+        times = {split: [] for split in VERIFY_AB_SPLITS}
+        try:
+            for split in VERIFY_AB_SPLITS + VERIFY_AB_SPLITS[::-1]:
+                da.VERIFY_SPLIT = split
+                err = float((kernel() - ref).abs().max())
+                if not err <= VERIFY_TOL:
+                    raise AssertionError(
+                        f"{variant} split {split}: max|err| {err} > "
+                        f"{VERIFY_TOL}")
+                times[split].append(_device_ms(kernel, torch))
+        finally:
+            da.VERIFY_SPLIT = default_split
+        _print(f"[verify-ab] {variant} bf16 N=8 K1={VERIFY_ROWS} H=12 Dh=64 "
+               f"W={w}: " + ", ".join(
+                   f"split {split} {statistics.mean(ms) * 1e3:.3f} us "
+                   f"({ms[0] * 1e3:.3f} / {ms[1] * 1e3:.3f})"
+                   for split, ms in times.items())
+               + f" (default {default_split}) [{smi}]")
+        del q, k, v, table, pos
 
     # -- phase 16: serve speculatively through the CLI
     spec_launches = {name: 0 for name in VERIFY_VARIANTS}

@@ -32,8 +32,13 @@ same source that replace the JAX package's ``_verify_kernel`` and
 masked softmax of ``xla_verify_decode_attention``;
 :func:`torch_paged_verify_decode_attention`, gather then dense).
 
+On the card a verify call cuts the window into key splits, one CTA
+each, and a second kernel of the same source merges the splits'
+partials (:func:`verify_split_plan`; the workspace is allocated here).
+
 Launch counts, one per variant (incremented where the kernel launches,
-nowhere else): ``decode_attention.launches`` (dense, model dtype),
+nowhere else; a verify call's split and merge launches count once):
+``decode_attention.launches`` (dense, model dtype),
 ``decode_attention.int8_launches``, ``paged_decode_attention.launches``,
 ``paged_decode_attention.int8_launches``, and the same four names on
 ``verify_decode_attention`` and ``paged_verify_decode_attention``.
@@ -43,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,13 +60,17 @@ __all__ = ["decode_attention", "paged_decode_attention",
            "verify_decode_attention", "paged_verify_decode_attention",
            "torch_decode_attention", "torch_paged_decode_attention",
            "torch_verify_decode_attention",
-           "torch_paged_verify_decode_attention", "VerifyRowsError"]
+           "torch_paged_verify_decode_attention", "VerifyRowsError",
+           "VerifySplitPlan", "verify_split_plan", "verify_split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-# the verify kernel takes query rows in tiles of up to 8 on the grid's
-# y axis (at most 65535 tiles)
+# the verify wrappers take up to 8 * 65535 query rows; the kernel puts
+# them in tiles of 16 on its grid's z axis (at most 65535 tiles)
 MAX_VERIFY_ROWS = 8 * 65535
+VERIFY_TILE_ROWS = 16  # query rows of a verify CTA: one mma.sync row tile
+VERIFY_KEY_TILE = 64  # keys of one shared-memory ring tile
+VERIFY_SPLIT = 128  # keys a verify CTA walks (chip_smoke phase 15's A/B)
 
 
 class VerifyRowsError(ValueError):
@@ -158,6 +167,60 @@ def torch_paged_verify_decode_attention(q: torch.Tensor, k_pages, v_pages,
 
 # ---- the CUDA kernel ---------------------------------------------------
 
+class VerifySplitPlan(NamedTuple):
+    """How the verify kernel cuts one call: each (slot, head) gets
+    ``n_splits`` CTAs of ``split`` keys over the window for each of its
+    ``row_tiles`` tiles of 16 query rows. ``grid`` is the split kernel's
+    launch grid and ``partials`` the shape of the f32 workspace its CTAs
+    write: one ``(acc[Dh], m, l)`` row per (slot x head, row tile, split,
+    tile row), padded to ``Dh + 4`` floats (16-byte rows)."""
+    split: int
+    n_splits: int
+    row_tiles: int
+    grid: Tuple[int, int, int]
+    partials: Tuple[int, int, int, int, int]
+
+
+def verify_split_plan(batch: int, heads: int, window: int, k1: int,
+                      head_dim: int,
+                      split: Optional[int] = None) -> VerifySplitPlan:
+    """The verify kernel's split plan for ``batch`` slots x ``heads``
+    heads, a ``window`` of columns and ``k1`` query rows (``split``
+    defaults to :data:`VERIFY_SPLIT`). It takes no layout and no page
+    size: dense and paged windows are cut alike, so they walk the same
+    keys in the same order and agree bit for bit."""
+    split = VERIFY_SPLIT if split is None else split
+    if split < VERIFY_KEY_TILE or split % VERIFY_KEY_TILE:
+        raise ValueError(
+            f"split must be a positive multiple of {VERIFY_KEY_TILE}, got "
+            f"{split}")
+    n_splits = -(-window // split)
+    row_tiles = -(-k1 // VERIFY_TILE_ROWS)
+    return VerifySplitPlan(
+        split, n_splits, row_tiles, (batch * heads, n_splits, row_tiles),
+        (batch * heads, row_tiles, n_splits, VERIFY_TILE_ROWS,
+         head_dim + 4))
+
+
+def verify_split_ranges(plan: VerifySplitPlan, position: int, window: int,
+                        k1: int) -> List[List[Tuple[int, int]]]:
+    """For each row tile, the key ranges ``[start, end)`` that the live
+    CTAs of a slot at ``position`` walk, by the rule the kernel applies on
+    the card: tile t reaches column ``min(position + r_last, window - 1)``
+    (r_last its last real row); split s is live iff its first key
+    ``s * split`` lies within that reach, and walks up to the reach. A
+    split past the reach returns before it reads anything, and the merge
+    folds the live ones in split order."""
+    ranges = []
+    for t in range(plan.row_tiles):
+        r_last = min((t + 1) * VERIFY_TILE_ROWS, k1) - 1
+        reach = min(position + r_last, window - 1)
+        ranges.append([(s * plan.split, min((s + 1) * plan.split, reach + 1))
+                       for s in range(plan.n_splits)
+                       if s * plan.split <= reach])
+    return ranges
+
+
 class _Args(ctypes.Structure):
     """``PmdtDecodeArgs`` of ``csrc/decode_attention.cu``."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
@@ -173,10 +236,11 @@ class _Args(ctypes.Structure):
 
 class _VerifyArgs(ctypes.Structure):
     """``PmdtVerifyArgs`` of ``csrc/decode_attention.cu``: the decode
-    block (its ``out`` is ``[B, K1, H, Dh]``), the row count and q's
-    row stride."""
+    block (its ``out`` is ``[B, K1, H, Dh]``), the row count, q's row
+    stride, and the split plan's workspace, split and split count."""
     _fields_ = [("d", _Args), ("k1", ctypes.c_int),
-                ("q_sq", ctypes.c_longlong)]
+                ("q_sq", ctypes.c_longlong), ("partials", ctypes.c_void_p),
+                ("split", ctypes.c_int), ("n_splits", ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -325,8 +389,12 @@ def _launch(q, k, v, positions, *, window, table=None, page_size=0,
         a.table_stride = table.stride(0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if verify:
-        err = _kernel(True)(ctypes.byref(
-            _VerifyArgs(d=a, k1=k1, q_sq=q.stride(1))), stream)
+        plan = verify_split_plan(b, h, window, k1, d)
+        partials = torch.empty(plan.partials, dtype=torch.float32,
+                               device=q.device)
+        err = _kernel(True)(ctypes.byref(_VerifyArgs(
+            d=a, k1=k1, q_sq=q.stride(1), partials=partials.data_ptr(),
+            split=plan.split, n_splits=plan.n_splits)), stream)
     else:
         err = _kernel()(ctypes.byref(a), stream)
     if err != 0:

@@ -12,7 +12,9 @@ model dtype and int8): atol 1e-4 — the same f32 math on the same values
 only the summation order differs; the paged variants read shuffled
 tables whose unallocated entries point at a scratch page full of NaN
 and huge values, so a read past a slot's last reachable column would
-show. Flash attention: in f32 the
+show. The verify kernel also gives the same bits over two calls, and
+for a dense window and the same columns in pages (it walks the keys in
+one order whatever the layout). Flash attention: in f32 the
 output and lse within 1e-4 and the gradients within 5e-4 (the same f32
 math; the gradients sum up to 300 products per element in another
 order); in bf16 the lse within 1e-4 and the bf16 outputs within 2e-2
@@ -25,6 +27,8 @@ ops do. Ring all-reduce: bit-equal (tolerance 0) — the kernel keeps the
 plain version's chunk layout and its ``own + incoming`` order per
 element, each add rounded on its own.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -51,6 +55,10 @@ from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     ServingEngine, init_params)
 from pytorch_multiprocessing_distributed_tpu_torch.train import (
     create_lm_train_state, make_lm_train_step, sgd)
+
+# the module (the package's ``decode_attention`` name is the function)
+verify_module = importlib.import_module(
+    "pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -242,7 +250,7 @@ def test_paged_int8_engine_on_card_matches_cpu(cuda_device, kw):
     assert out["cpu"] == out["cuda"]
 
 
-VERIFY_ROWS = (1, 2, 5, 9)  # 9: two row tiles of the kernel
+VERIFY_ROWS = (1, 2, 5, 9, 16, 17)  # 16: one full row tile; 17: two
 
 
 def _verify_q(dev, b, k1, h, d, dtype, seed):
@@ -316,6 +324,122 @@ def test_paged_verify_kernel_matches_plain(cuda_device, quant, dtype, d,
             ref = torch_paged_verify_decode_attention(q, k, v, table, pos,
                                                       window)
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+def _verify_case(dev, b, w, h, d, k1, dtype, quant, seed):
+    """q, and the dense K/V window (model dtype or int8) of a wider cache,
+    for the multi-split tests."""
+    _, k, v, _ = _inputs(dev, b, w + 8, h, d, torch.float32, [0] * b,
+                         seed=seed)
+    q = _verify_q(dev, b, k1, h, d, dtype, seed=seed + 1)
+    if quant:
+        kq, vq = quantize_kv(k * 3), quantize_kv(v)
+        return (q, QuantizedKV(kq.data[:, :w], kq.scale[:, :w]),
+                QuantizedKV(vq.data[:, :w], vq.scale[:, :w]))
+    return q, k.to(dtype)[:, :w], v.to(dtype)[:, :w]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_verify_kernel_several_splits(cuda_device, quant, dtype, d):
+    """A window of 300 columns, three key splits of 128: positions 0 (one
+    live split), rows that straddle the first split boundary, a reach
+    that ends before the last split, and rows that reach the window's
+    end; K1 = 5, 16 and 17 (two row tiles). Within 1e-4 of the plain
+    version, and two calls give the same bits."""
+    w = 300
+    for k1 in (5, 16, 17):
+        q, k, v = _verify_case(cuda_device, 5, w, 2, d, k1, dtype, quant,
+                               seed=k1 + d)
+        pos = torch.tensor([0, 126, 200, w - k1, w - 2], dtype=torch.int32,
+                           device=cuda_device)
+        first = verify_decode_attention(q, k, v, pos, impl="cuda")
+        second = verify_decode_attention(q, k, v, pos, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        torch.testing.assert_close(
+            first, torch_verify_decode_attention(q, k, v, pos), atol=1e-4,
+            rtol=0)
+
+
+def _pages_of(dense, ps, table, n_pages, garbage):
+    """The dense ``[B, W, H, Dh]`` window (or its int8 pair) laid out in
+    ``[P, H, ps, Dh]`` pages through ``table``; every page the table does
+    not name holds ``garbage`` (int8 data: 127, with ``garbage`` as the
+    scale), so a stray read would show."""
+    if isinstance(dense, QuantizedKV):
+        data = _pages_of(dense.data, ps, table, n_pages, 127)
+        scale = _pages_of(dense.scale[..., None], ps, table, n_pages,
+                          garbage)
+        return QuantizedKV(data, scale[..., 0])
+    b, w, h, d = dense.shape
+    n_win = table.shape[1]
+    pad = n_win * ps - w
+    full = torch.cat([dense, dense[:, :pad]], 1) if pad else dense
+    pages = torch.full((n_pages, h, ps, d), garbage, dtype=dense.dtype,
+                       device=dense.device)
+    pages[table.long()] = full.reshape(b, n_win, ps, h, d).permute(
+        0, 1, 3, 2, 4)
+    return pages
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [8, 16, 24, 32])
+def test_verify_dense_equals_paged_bitwise(cuda_device, quant, dtype, ps):
+    """The same 1024 columns as a dense window and as shuffled pages
+    (page size 24 puts split boundaries inside a page): the two variants
+    give the same bits, each within 1e-4 of its plain version, and two
+    paged calls give the same bits. Positions: 0, rows straddling the
+    first split boundary, a reach that ends before the last split, and
+    rows that reach the window's end."""
+    w, b, h, d, k1 = 1024, 6, 2, 64, 5
+    q, k, v = _verify_case(cuda_device, b, w, h, d, k1, dtype, quant,
+                           seed=ps)
+    pos = torch.tensor([0, 126, 300, 517, w - k1, w - 2], dtype=torch.int32,
+                       device=cuda_device)
+    n_win = -(-w // ps)
+    gen = torch.Generator(device=cuda_device).manual_seed(ps)
+    n_pages = 1 + b * n_win
+    table = (torch.randperm(n_pages - 1, generator=gen, device=cuda_device)
+             [:b * n_win] + 1).view(b, n_win).to(torch.int32)
+    kp = _pages_of(k, ps, table, n_pages, float("nan"))
+    vp = _pages_of(v, ps, table, n_pages, 1e30)
+    for row, p in enumerate(pos.tolist()):
+        table[row, -(-(min(p + k1 - 1, w - 1) + 1) // ps):] = 0
+    dense = verify_decode_attention(q, k, v, pos, impl="cuda")
+    paged = paged_verify_decode_attention(q, kp, vp, table, pos, window=w,
+                                          impl="cuda")
+    again = paged_verify_decode_attention(q, kp, vp, table, pos, window=w,
+                                          impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.isfinite(paged).all()
+    assert torch.equal(dense, paged) and torch.equal(paged, again)
+    torch.testing.assert_close(
+        dense, torch_verify_decode_attention(q, k, v, pos), atol=1e-4, rtol=0)
+    torch.testing.assert_close(
+        paged, torch_paged_verify_decode_attention(q, kp, vp, table, pos, w),
+        atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [64, 128, 256])
+def test_verify_kernel_split_sizes(cuda_device, monkeypatch, quant, dtype,
+                                   split):
+    """Each split size of the A/B (64, 128 and 256 keys a CTA) over a
+    1024-column window stays within 1e-4 of the plain version."""
+    monkeypatch.setattr(verify_module, "VERIFY_SPLIT", split)
+    w = 1024
+    q, k, v = _verify_case(cuda_device, 4, w, 2, 64, 5, dtype, quant,
+                           seed=split)
+    pos = torch.tensor([0, 190, w - 5, w - 2], dtype=torch.int32,
+                       device=cuda_device)
+    got = verify_decode_attention(q, k, v, pos, impl="cuda")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, torch_verify_decode_attention(q, k, v, pos), atol=1e-4, rtol=0)
 
 
 def test_verify_wrapper_contract_on_card(cuda_device):
