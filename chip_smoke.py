@@ -35,16 +35,20 @@ nothing is caught):
    H 12, Dh 64, S 1024, causal) in bf16 and f32, plus a ragged
    non-causal case (Sq 197, Skv 300), S 129 (one row past the bf16
    kernels' 64-row tiles and their 128-row CTAs) and Dh 32/128; the
-   bf16 forward (output and lse) and the bf16 backward pair each
-   bit-equal over two calls at the main shapes;
+   forward (output and lse) and the backward pair each bit-equal over
+   two calls at the main shapes, in bf16 and f32;
    there each kernel's device time (CUDA graph), eager time, the plain
    version's time, its TFLOP/s, the library yardstick's
    (``F.scaled_dot_product_attention``, and autograd through it minus
    its forward for the backward pair; timed here only, the port never
-   calls it) and the bound ``max(flops / peak, bytes / HBM rate)``; the
-   forward against SDPA's forward; and the pair plus ``flash_dterm``
-   (the backward's torch ops beside the pair) against SDPA's backward,
-   whose own dO.O pass is inside its time.
+   calls it) and the bound ``max(flops / peak, bytes / HBM rate)`` (the
+   f32 peak is 3xTF32 on the tensor cores, 495 / 3 TFLOP/s, the card's
+   fastest exact-f32 route; the CUDA cores' 67 TFLOP/s FMA bound is
+   printed beside it); the forward against SDPA's forward; and the pair
+   plus ``flash_dterm`` (the backward's torch ops beside the pair)
+   against SDPA's backward, whose own dO.O pass is inside its time. In
+   f32 also the pair's largest error at a peaky softmax (q and k x 4),
+   printed, not asserted.
 7. train   — the port's ``train_lm.main`` (its normal entry) on
    full-width gpt_small, random init from seed 0, bf16, batch 8 x 1024
    tokens, lr 0.01, 1 epoch of the default 200 000-token synthetic corpus
@@ -54,6 +58,10 @@ nothing is caught):
    loss is finite and below the first printed loss, and ``train.log``,
    ``test.log``, ``model_1.pth`` and its sidecar exist; tokens/s and the
    steady step time.
+7b. train-f32 — phase 7 with ``train_lm``'s default ``--dtype
+   float32``: the f32 forward and the 3xTF32 backward pair at full
+   width, with the same launch counts, loss check and files asserted;
+   tokens/s and the steady step time.
 8. train-exact — gpt_small at 2 layers in f32 (TF32 off): 3 SGD steps
    through the kernels (``attn_impl="flash"``) and through the plain
    masked softmax (``"xla"``) from the same params and batches agree in
@@ -173,7 +181,8 @@ nothing is caught):
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
 version, and the times at the main path's shapes: the largest decode
-window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels,
+window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels
+and f32 for their ``_f32`` twins (launches from phase 7b),
 ResNet-18's N for fused SGD, bf16 W=1024 for the int8 and paged decode
 variants and, at K1 = 5, for the verify variants, n = 4 loopback at
 ResNet-18's N for the ring, with its cross-card numbers, or nulls where
@@ -200,8 +209,12 @@ import time
 # named); the roofline bound's denominator
 HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 PCIe", 2.0e12),
                    ("H100 NVL", 3.9e12), ("H100", 3.35e12))
-# f32 outside the tensor cores (the kernel's math), H100 SXM
+# f32 outside the tensor cores (the FMA kernels' math), H100 SXM
 F32_FLOPS_PER_S = 67e12
+# exact f32 products on the tensor cores: 3xTF32 (three TF32 products a
+# product) at 495 TFLOP/s of TF32, H100 SXM; the card's fastest route to
+# f32-accurate products, so the bound of every f32 flash kernel
+TF32X3_FLOPS_PER_S = 495e12 / 3
 # dense bf16 on the tensor cores, H100 SXM: the bound of bf16 attention
 BF16_FLOPS_PER_S = 989e12
 
@@ -224,10 +237,16 @@ FLASH_REPLACES = {
     "flash_bwd_dq": "flash_attention.py:181",   # _bwd_dq_kernel
     "flash_bwd_dkv": "flash_attention.py:220",  # _bwd_dkv_kernel
 }
-# the bf16 kernel each wrapper launches on the main path
+# the kernel each wrapper launches, bf16 (phase 7's path) and f32 (phase
+# 7b's, train_lm's default dtype)
 FLASH_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
                  "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+FLASH_KERNELS_F32 = {"flash_fwd": "flash_fwd_kernel",
+                     "flash_bwd_dq": "flash_bwd_dq_tf32x3_kernel",
+                     "flash_bwd_dkv": "flash_bwd_dkv_tf32x3_kernel"}
+# phase 6's peaky softmax: q and k scaled by this (logits x 16)
+PEAKY = 4.0
 # products per (row, live column) pair: forward QK^T, PV; dq QK^T, dO V^T,
 # dS K; dk/dv QK^T, dO V^T, P^T dO, dS^T Q
 FLASH_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -505,10 +524,11 @@ def _flash_flops(name, q, k, causal):
     return 2 * FLASH_PRODUCTS[name] * b * h * pairs * d
 
 
-def _flash_bound(name, q, k, causal, rate):
+def _flash_bound(name, q, k, causal, rate, f32_peak=TF32X3_FLOPS_PER_S):
     """Least time for one kernel's work: its flops over the peak of the
-    input type (bf16 on the tensor cores, f32 outside them) against its
-    own reads and writes over the HBM rate."""
+    input type (bf16 on the tensor cores; f32 at ``f32_peak``, by default
+    3xTF32 on the tensor cores, the card's fastest exact-f32 route)
+    against its own reads and writes over the HBM rate."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     flops = _flash_flops(name, q, k, causal)
@@ -518,7 +538,7 @@ def _flash_bound(name, q, k, causal, rate):
     nbytes = {"flash_fwd": 2 * q_bytes + 2 * kv_bytes + rows,
               "flash_bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows,
               "flash_bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * rows}[name]
-    peak = BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S
+    peak = BF16_FLOPS_PER_S if elt == 2 else f32_peak
     t_bytes, t_ops = nbytes / rate, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -557,12 +577,67 @@ def _time_flash(torch, F, fa, q, k, v, do, causal, rate):
             library_ms=lib_f if name == "flash_fwd" else lib_bwd,
             bound_ms=bound_ms, bound_by=bound_by,
             tflop_per_s=_flash_flops(name, q, k, causal) / ms / 1e9)
+        if q.element_size() == 4:  # the CUDA cores' FMA bound beside it
+            out[name]["fma_bound_ms"] = _flash_bound(
+                name, q, k, causal, rate, F32_FLOPS_PER_S)[0]
     fwd_out = kernels["flash_fwd"]()[0]
     dterm_ms = _device_ms(lambda: fa.flash_dterm(do, fwd_out), torch,
                           calls=5, reps=20)
     for n, count in saved.items():
         getattr(fa, n).launches = count
     return out, dterm_ms
+
+
+def _train_phase(train_lm, fa, dtype, smi):
+    """Phases 7 and 7b: ``train_lm.main`` on full-width gpt_small, B 8 x
+    S 1024, lr 0.01, one epoch of the default corpus with ``--val_frac
+    0.1``, in ``dtype`` (None: the CLI's default, float32). Asserts the
+    steps, the flash launches (12 per train step and per eval batch for
+    the forward, 12 per train step for each backward kernel), a finite
+    epoch loss below the first printed loss and the files; prints
+    tokens/s and the steady step. Returns the launches."""
+    for kname in FLASH_PRODUCTS:
+        getattr(fa, kname).launches = 0
+    argv = ["--model", "gpt_small", "--batch_size", "8", "--seq_len",
+            "1024", "--epochs", "1", "--val_frac", "0.1", "--lr", TRAIN_LR,
+            "--seed", "0"]
+    if dtype is not None:
+        argv += ["--dtype", dtype]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        summary = train_lm.main(argv + ["--save_path", tmp])
+        wall = time.perf_counter() - t0
+        missing = [f for f in ("train.log", "test.log", "model_1.pth",
+                               "model_1.pth.sha256")
+                   if not os.path.exists(os.path.join(tmp, f))]
+    launches = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
+    if missing:
+        raise AssertionError(f"train_lm wrote no {missing}")
+    steps, evals = 21, 2
+    if summary["steps"] != steps:
+        raise AssertionError(f"train_lm ran {summary['steps']}/{steps} steps")
+    want = {"flash_fwd": 12 * (steps + evals), "flash_bwd_dq": 12 * steps,
+            "flash_bwd_dkv": 12 * steps}
+    if launches != want or summary["launches"] != want:
+        raise AssertionError(
+            f"flash kernels launched {launches} (the CLI counted "
+            f"{summary['launches']}); expected {want}: 12 (layers) per "
+            "train step and per eval batch for the forward, 12 per train "
+            "step for each backward kernel")
+    loss = summary["epoch_losses"][0]
+    if not math.isfinite(loss) or not loss < summary["first_loss"]:
+        raise AssertionError(
+            f"epoch loss {loss} is not finite and below the first printed "
+            f"loss {summary['first_loss']}")
+    tag = "train" if dtype == "bfloat16" else "train-f32"
+    _print(f"[{tag}] gpt_small {dtype or 'float32 (default)'} B=8 S=1024, "
+           f"{steps} steps + {evals} eval batches: wall {wall:.2f} s, first "
+           f"loss {summary['first_loss']:.4f}, epoch loss {loss:.4f}, val "
+           f"loss {summary['val_losses'][0]:.4f}, tokens/s "
+           f"{summary['tokens_per_sec']:.1f}, steady step "
+           f"{summary['steady_step_s'] * 1e3:.2f} ms, launches "
+           f"{launches} [{smi}]")
+    return launches
 
 
 def _sgd_buffers(torch, n, seed):
@@ -1066,7 +1141,8 @@ def main() -> int:
            f"{time.perf_counter() - t0:.2f} s")
     for src, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line or "C7512" in line):
                 _print(f"[build] {src}: {line.strip()}")
 
     # -- phase 3: kernel against its plain version
@@ -1154,7 +1230,7 @@ def main() -> int:
         ("dh32", 2, 512, 512, 4, 32, True, False),
         ("dh128", 2, 512, 512, 4, 128, True, False),
     ]
-    flash_main = {}
+    flash_main = {"bfloat16": {}, "float32": {}}
     for dtype in (torch.bfloat16, torch.float32):
         tname = str(dtype).split(".")[1]
         for label, b, sq, skv, h, d, causal, timed in flash_cases:
@@ -1188,10 +1264,11 @@ def main() -> int:
                        f"plain_ms={t['plain_ms']:.5f} "
                        f"library_ms={t['library_ms']:.5f} "
                        f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) "
-                       f"tflop_per_s={t['tflop_per_s']:.1f} [{smi}]")
-                if dtype == torch.bfloat16:
-                    flash_main[kname] = dict(t, max_abs_err=errs[kname],
-                                             shape=shape)
+                       + (f"fma_bound_ms={t['fma_bound_ms']:.5f} "
+                          if "fma_bound_ms" in t else "")
+                       + f"tflop_per_s={t['tflop_per_s']:.1f} [{smi}]")
+                flash_main[tname][kname] = dict(t, max_abs_err=errs[kname],
+                                                shape=shape)
             fwd = times["flash_fwd"]
             _print(f"[flash] forward {shape}: flash_fwd {fwd['ms']:.5f} ms, "
                    f"SDPA forward {fwd['library_ms']:.5f} ms (flash_fwd / "
@@ -1203,48 +1280,28 @@ def main() -> int:
                    f"pair + dterm {pair + dterm_ms:.5f} ms, SDPA backward "
                    f"{lib_bwd:.5f} ms (pair + dterm / SDPA "
                    f"{(pair + dterm_ms) / lib_bwd:.3f}) [{smi}]")
+            if dtype == torch.float32:
+                # a peaky softmax (logits x 16): the pair's largest error
+                # against its plain version, printed only
+                pk, pp, _, _ = _flash_calls(fa, q * PEAKY, k * PEAKY, v, do,
+                                            causal)
+                peaky = {}
+                for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+                    got, ref = _tuple(pk[n]()), _tuple(pp[n]())
+                    peaky[n] = max(float((g - r).abs().max())
+                                   for g, r in zip(got, ref))
+                _print(f"[flash] peaky {shape}, q and k x {PEAKY}: "
+                       "max_abs_err " + " ".join(
+                           f"{n}={e:.3e}" for n, e in peaky.items()))
+                del pk, pp
             del q, k, v, do, kernels, plains
             torch.cuda.empty_cache()
 
-    # -- phase 7: train through the port's CLI entry
-    for kname in FLASH_PRODUCTS:
-        getattr(fa, kname).launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        summary = train_lm.main([
-            "--model", "gpt_small", "--dtype", "bfloat16", "--batch_size",
-            "8", "--seq_len", "1024", "--epochs", "1", "--val_frac", "0.1",
-            "--lr", TRAIN_LR, "--seed", "0", "--save_path", tmp])
-        wall = time.perf_counter() - t0
-        missing = [f for f in ("train.log", "test.log", "model_1.pth",
-                               "model_1.pth.sha256")
-                   if not os.path.exists(os.path.join(tmp, f))]
-    train_launches = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
-    if missing:
-        raise AssertionError(f"train_lm wrote no {missing}")
-    steps, evals = 21, 2
-    if summary["steps"] != steps:
-        raise AssertionError(f"train_lm ran {summary['steps']}/{steps} steps")
-    want = {"flash_fwd": 12 * (steps + evals), "flash_bwd_dq": 12 * steps,
-            "flash_bwd_dkv": 12 * steps}
-    if train_launches != want or summary["launches"] != want:
-        raise AssertionError(
-            f"flash kernels launched {train_launches} (the CLI counted "
-            f"{summary['launches']}); expected {want}: 12 (layers) per "
-            "train step and per eval batch for the forward, 12 per train "
-            "step for each backward kernel")
-    loss = summary["epoch_losses"][0]
-    if not math.isfinite(loss) or not loss < summary["first_loss"]:
-        raise AssertionError(
-            f"epoch loss {loss} is not finite and below the first printed "
-            f"loss {summary['first_loss']}")
-    _print(f"[train] gpt_small bf16 B=8 S=1024, {steps} steps + {evals} "
-           f"eval batches: wall {wall:.2f} s, first loss "
-           f"{summary['first_loss']:.4f}, epoch loss {loss:.4f}, val loss "
-           f"{summary['val_losses'][0]:.4f}, tokens/s "
-           f"{summary['tokens_per_sec']:.1f}, steady step "
-           f"{summary['steady_step_s'] * 1e3:.2f} ms, launches "
-           f"{train_launches} [{smi}]")
+    # -- phase 7: train through the port's CLI entry, bf16
+    train_launches = _train_phase(train_lm, fa, "bfloat16", smi)
+
+    # -- phase 7b: the same in f32, the CLI's default dtype
+    train_launches_f32 = _train_phase(train_lm, fa, None, smi)
 
     # -- phase 8: a training step through the kernels == the plain one, f32
     rng = np.random.default_rng(8)
@@ -1841,23 +1898,30 @@ def main() -> int:
     flash_src = ("pytorch_multiprocessing_distributed_tpu_torch/ops/csrc/"
                  "flash_attention.cu")
     flash_entries = [{
-        "name": name, "kernel": FLASH_KERNELS[name], "route": "cuda",
-        "source": flash_src,
+        "name": name if tname == "bfloat16" else f"{name}_f32",
+        "kernel": kernels_of[name], "route": "cuda", "source": flash_src,
         "replaces": "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
                     + FLASH_REPLACES[name],
-        "launches": train_launches[name],
-        "max_abs_err": flash_main[name]["max_abs_err"],
-        "ms": flash_main[name]["ms"], "kernel_ms": flash_main[name]["ms"],
-        "eager_ms": flash_main[name]["eager_ms"],
-        "plain_ms": flash_main[name]["plain_ms"],
-        "bound_ms": flash_main[name]["bound_ms"],
-        "bound_by": flash_main[name]["bound_by"],
-        "tflop_per_s": flash_main[name]["tflop_per_s"],
-        "library_ms": flash_main[name]["library_ms"],
+        "launches": launches_of[name],
+        "max_abs_err": flash_main[tname][name]["max_abs_err"],
+        "ms": flash_main[tname][name]["ms"],
+        "kernel_ms": flash_main[tname][name]["ms"],
+        "eager_ms": flash_main[tname][name]["eager_ms"],
+        "plain_ms": flash_main[tname][name]["plain_ms"],
+        "bound_ms": flash_main[tname][name]["bound_ms"],
+        "bound_by": flash_main[tname][name]["bound_by"],
+        "tflop_per_s": flash_main[tname][name]["tflop_per_s"],
+        "library_ms": flash_main[tname][name]["library_ms"],
         "library": ("F.scaled_dot_product_attention" if name == "flash_fwd"
                     else "autograd through F.scaled_dot_product_attention "
                          "minus its forward (dq, dk and dv together)"),
-        "shape": flash_main[name]["shape"]} for name in FLASH_PRODUCTS]
+        "shape": flash_main[tname][name]["shape"],
+        **({"fma_bound_ms": flash_main[tname][name]["fma_bound_ms"]}
+           if tname == "float32" else {})}
+        for tname, kernels_of, launches_of in (
+            ("bfloat16", FLASH_KERNELS, train_launches),
+            ("float32", FLASH_KERNELS_F32, train_launches_f32))
+        for name in FLASH_PRODUCTS]
     _print(json.dumps({"kernels": [{
         "name": "decode_attention", "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"

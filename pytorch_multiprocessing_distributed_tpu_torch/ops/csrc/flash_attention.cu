@@ -6,7 +6,8 @@
 //   `_fwd_kernel`     (launched by `_flash_fwd`)        -> flash_fwd_*
 //   `_bwd_dq_kernel`  (launched by `_flash_pair_grads`) -> flash_bwd_dq_*
 //   `_bwd_dkv_kernel` (launched by `_flash_pair_grads`) -> flash_bwd_dkv_*
-// in bf16 as the `flash_*_wgmma_kernel`s, in f32 as the `*_kernel`s.
+// in bf16 as the `flash_*_wgmma_kernel`s; in f32 as `flash_fwd_kernel`
+// and the `flash_bwd_*_tf32x3_kernel`s.
 //
 //   out = softmax(Q K^T * scale + mask) V,  lse = log-sum-exp of each row
 //   dq  = sum_k dS K * scale,  dk = sum_q dS^T Q * scale,  dv = sum_q P^T dO
@@ -20,17 +21,20 @@
 //
 // What bounds it on the card: operations. A (q-tile, k-tile) pair does
 // 2 * 64 * 64 * Dh flops per product on 2 * 64 * Dh elements: far above
-// the H100's flop/byte ridge once tiles are in shared memory. Two
-// families of kernels:
-//   - bf16 (the training path's forward, dq and dk/dv): `wgmma`
-//     warpgroup products fed by TMA through mbarrier rings, one producer
-//     warp and two (forward, dk/dv) or one (dq) consumer warpgroups a
-//     CTA; described above the `flash_*_wgmma_kernel`s below;
-//   - f32 (the parity path): the products run as f32 FMAs on the CUDA
-//     cores (67 TFLOP/s peak), 256 threads as 16 x 16, each owning a
-//     4 x 4 block of the 64 x 64 logit tile, tiles in shared memory as
-//     f32 with a row stride of Dh + 1 so the 16 columns a thread row
-//     reads fall in 16 banks.
+// the H100's flop/byte ridge once tiles are in shared memory. The
+// kernels:
+//   - bf16: all three passes are `wgmma` warpgroup products fed by TMA
+//     through mbarrier rings, one producer warp and two (forward, dk/dv)
+//     or one (dq) consumer warpgroups a CTA; described above the
+//     `flash_*_wgmma_kernel`s below;
+//   - f32 backward (`train_lm`'s default dtype): the same skeleton with
+//     every product as 3xTF32 `wgmma` (three TF32 products on hi/lo
+//     splits of the f32 operands, f32-accurate); described above the
+//     `flash_bwd_*_tf32x3_kernel`s below;
+//   - f32 forward: f32 FMAs on the CUDA cores (67 TFLOP/s peak), 256
+//     threads as 16 x 16, each owning a 4 x 4 block of the 64 x 64 logit
+//     tile, tiles in shared memory as f32 with a row stride of Dh + 1 so
+//     the 16 columns a thread row reads fall in 16 banks.
 // All:
 //   - the Pallas grid's sequential innermost axis (k for the forward and
 //     dq, q for dk/dv) becomes a loop inside one CTA, so the running
@@ -42,8 +46,8 @@
 //     live iff its first column < the tile's last row + 1, the Pallas
 //     `k_start < q_end` test), and the q-tile passes launch their longest
 //     (last) tiles first;
-//   - inputs are read through element strides (the bf16 kernels' TMA
-//     descriptors carry them), so the [B, S, H, Dh] views of the fused
+//   - inputs are read through element strides (the TMA descriptors
+//     carry them), so the [B, S, H, Dh] views of the fused
 //     QKV projection are never copied.
 
 #include <cuda.h>  // CUtensorMap and its enums
@@ -76,16 +80,6 @@ __device__ __forceinline__ void load_tile(float* tile, const float* base,
     const int row = row0 + r;
     tile[r * (D + 1) + c] =
         row < n_rows ? p[static_cast<long long>(row) * st.s + c] : 0.f;
-  }
-}
-
-// per-row values [bh, S] -> smem[kTile], zero past n_rows
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long bh, int row0,
-                                          int n_rows) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int row = row0 + r;
-    dst[r] = row < n_rows ? src[bh * n_rows + row] : 0.f;
   }
 }
 
@@ -221,255 +215,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dterm, float* __restrict__ dq,
-                    int H, int Sq, int Skv, Strides qs, Strides ks,
-                    Strides vs, Strides dos, Strides dqs, float scale,
-                    int causal) {
-  constexpr int DP = D + 1;
-  constexpr int CN = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + kTile * DP;
-  float* sK = sDO + kTile * DP;
-  float* sV = sK + kTile * DP;
-  float* sDS = sV + kTile * DP;  // [kTile][kTP]
-  float* sL = sDS + kTile * kTP;
-  float* sDt = sL + kTile;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int qi = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qi * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<D>(sQ, q, qs, b, h, q0, Sq);
-  load_tile<D>(sDO, dout, dos, b, h, q0, Sq);
-  load_rows(sL, lse, bh, q0, Sq);
-  load_rows(sDt, dterm, bh, q0, Sq);
-
-  float acc[4][CN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CN; ++c) acc[i][c] = 0.f;
-
-  int n_k = (Skv + kTile - 1) / kTile;
-  if (causal) n_k = min(n_k, qi + 1);
-
-  for (int kb = 0; kb < n_k; ++kb) {
-    __syncthreads();
-    load_tile<D>(sK, k, ks, b, h, kb * kTile, Skv);
-    load_tile<D>(sV, v, vs, b, h, kb * kTile, Skv);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(ty * 4 + i) * DP + d];
-        dov[i] = sDO[(ty * 4 + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tx + 16 * j) * DP + d];
-        vv[j] = sV[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = kb * kTile + tx + 16 * j;
-        const bool ok = row < Sq && col < Skv && (!causal || col <= row);
-        const float p = ok ? expf(s[i][j] * scale - sL[r]) : 0.f;
-        sDS[r * kTP + tx + 16 * j] = p * (dp[i][j] - sDt[r]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[4], kv[CN];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sDS[(ty * 4 + i) * kTP + kk];
-#pragma unroll
-      for (int c = 0; c < CN; ++c) kv[c] = sK[kk * DP + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
-    }
-  }
-
-  float* o = dq + b * dqs.b + h * dqs.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int c = 0; c < CN; ++c)
-      o[static_cast<long long>(row) * dqs.s + tx + 16 * c] =
-          acc[i][c] * scale;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dterm, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int Sq, int Skv, Strides qs,
-                     Strides ks, Strides vs, Strides dos, Strides dks,
-                     Strides dvs, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int CN = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * DP;
-  float* sQ = sV + kTile * DP;
-  float* sDO = sQ + kTile * DP;
-  float* sPT = sDO + kTile * DP;  // P^T  [kTile k][kTP]
-  float* sDST = sPT + kTile * kTP;  // dS^T [kTile k][kTP]
-  float* sL = sDST + kTile * kTP;
-  float* sDt = sL + kTile;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int kb = blockIdx.y;  // causal: the first k-tiles see the most rows
-  const int k0 = kb * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<D>(sK, k, ks, b, h, k0, Skv);
-  load_tile<D>(sV, v, vs, b, h, k0, Skv);
-
-  float dk_acc[4][CN], dv_acc[4][CN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CN; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  const int n_q = (Sq + kTile - 1) / kTile;
-  // causal: q-tile qi is live iff k0 < (qi + 1) * kTile
-  const int qi0 = causal ? k0 / kTile : 0;
-
-  for (int qi = qi0; qi < n_q; ++qi) {
-    const int q0 = qi * kTile;
-    __syncthreads();
-    load_tile<D>(sQ, q, qs, b, h, q0, Sq);
-    load_tile<D>(sDO, dout, dos, b, h, q0, Sq);
-    load_rows(sL, lse, bh, q0, Sq);
-    load_rows(sDt, dterm, bh, q0, Sq);
-    __syncthreads();
-
-    // thread (ty, tx): k rows ty*4+i, q columns tx+16j
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(ty * 4 + i) * DP + d];
-        vv[i] = sV[(ty * 4 + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * DP + d];
-        dov[j] = sDO[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int col = k0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int row = q0 + c;
-        const bool ok = row < Sq && col < Skv && (!causal || col <= row);
-        const float p = ok ? expf(s[i][j] * scale - sL[c]) : 0.f;
-        sPT[r * kTP + c] = p;
-        sDST[r * kTP + c] = p * (dp[i][j] - sDt[c]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pv[4], dsv[4], dov[CN], qv[CN];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sPT[(ty * 4 + i) * kTP + qq];
-        dsv[i] = sDST[(ty * 4 + i) * kTP + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < CN; ++c) {
-        dov[c] = sDO[qq * DP + tx + 16 * c];
-        qv[c] = sQ[qq * DP + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) {
-          dv_acc[i][c] = fmaf(pv[i], dov[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(dsv[i], qv[c], dk_acc[i][c]);
-        }
-    }
-  }
-
-  float* ok_ = dk + b * dks.b + h * dks.h;
-  float* ov = dv + b * dvs.b + h * dvs.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
-    if (row >= Skv) continue;
-#pragma unroll
-    for (int c = 0; c < CN; ++c) {
-      ok_[static_cast<long long>(row) * dks.s + tx + 16 * c] =
-          dk_acc[i][c] * scale;
-      ov[static_cast<long long>(row) * dvs.s + tx + 16 * c] =
-          dv_acc[i][c];
-    }
-  }
-}
-
 // ---- bf16 on Hopper: wgmma fed by TMA through mbarrier rings ----
 //
 // All three bf16 passes are warp-specialised. One producer warp issues
@@ -585,9 +330,10 @@ __device__ __forceinline__ void hold(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-__device__ __forceinline__ void hold(uint32_t (&r)[4][4]) {
+template <int M>
+__device__ __forceinline__ void hold(uint32_t (&r)[M][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
@@ -714,28 +460,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
     wgmma_rs_n128(d, a, b);
 }
 
-// A bf16 [rows][D] tile in shared memory as TMA writes it: 64-column
-// panels (one 32-column panel for Dh 32), each row of a panel one
-// swizzle span (128 or 64 bytes), its 16-byte chunks XOR-permuted by the
-// row; tiles start on 1024-byte boundaries, so the pattern is the one
-// the wgmma descriptors' layout type names.
-template <int D>
+// A [rows][COLS] tile of E-byte elements (bf16: 2, f32: 4) in shared
+// memory as TMA writes it: panels of at most 128 bytes a row (64 bf16 or
+// 32 f32 columns; one narrower panel for a narrower tile), each row of a
+// panel one swizzle span (128, 64 or 32 bytes), its 16-byte chunks
+// XOR-permuted by the row; tiles start on 1024-byte boundaries, so the
+// pattern is the one the wgmma descriptors' layout type names.
+template <int COLS, int E = 2>
 struct Tile {
-  static constexpr int kPanelCols = D < 64 ? D : 64;
-  static constexpr int kRowBytes = 2 * kPanelCols;  // the swizzle span
-  static constexpr int kPanels = D / kPanelCols;
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // B128/B64
+  static constexpr int kPanelCols = COLS * E < 128 ? COLS : 128 / E;
+  static constexpr int kRowBytes = E * kPanelCols;  // the swizzle span
+  static constexpr int kPanels = COLS / kPanelCols;
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;  // B128/B64/B32
 
   __host__ __device__ static constexpr int bytes(int rows) {
-    return rows * D * 2;
+    return rows * COLS * E;
   }
 
-  // byte offset of 16-byte chunk ch (columns 8 ch .. 8 ch + 7) of row r
+  // byte offset of 16-byte chunk ch (columns ch * 16 / E onwards) of row r
   __device__ static int chunk(int rows, int r, int ch) {
-    constexpr int per = kPanelCols / 8;
+    constexpr int per = kRowBytes / 16;
     const int off = r * kRowBytes + (ch % per) * 16;
     return (ch / per) * rows * kRowBytes +
            (off ^ (((off >> 7) & (kRowBytes / 16 - 1)) << 4));
+  }
+  // byte offset of element (r, c)
+  __device__ static int elem(int rows, int r, int c) {
+    return chunk(rows, r, c * E / 16) + c * E % 16;
   }
 
   __device__ static uint64_t desc(uint32_t addr, uint32_t lbo,
@@ -746,18 +498,20 @@ struct Tile {
            (kLayout << 62);
   }
 
-  // rows [r0, r0 + 64) x columns [16 kk, 16 kk + 16) as a K-major operand
-  // (the product's K runs along the columns, as stored)
+  // rows [r0, r0 + n) x the 32 bytes of columns of k-step kk (16 bf16 or
+  // 8 tf32: one wgmma's K) as a K-major operand (the product's K runs
+  // along the columns, as stored); r0 a multiple of 8
   __device__ static uint64_t kmajor(uint32_t tile, int rows, int r0,
                                     int kk) {
-    const int col = 16 * kk;
+    const int col = kk * 32 / E;
     return desc(tile + (col / kPanelCols) * rows * kRowBytes +
-                    r0 * kRowBytes + (col % kPanelCols) * 2,
+                    r0 * kRowBytes + (col % kPanelCols) * E,
                 16, 8 * kRowBytes);
   }
 
-  // rows [16 kk, 16 kk + 16) as the product's K and all D columns as its
-  // N: the MN-major (transposed) B operand; LBO steps between panels
+  // bf16: rows [16 kk, 16 kk + 16) as the product's K and all COLS
+  // columns as its N: the MN-major (transposed) B operand; LBO steps
+  // between panels
   __device__ static uint64_t mnmajor(uint32_t tile, int rows, int kk) {
     return desc(tile + 16 * kk * kRowBytes, rows * kRowBytes,
                 8 * kRowBytes);
@@ -1460,6 +1214,792 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
                 dv + b * dvs.b + h * dvs.h, dvs.s, k0 + r0, Skv);
 }
 
+// ---- the f32 backward (rows 6 and 7 in f32): 3xTF32 on wgmma ----
+//
+// The f32 pair keeps the bf16 pair's skeleton: one producer warp issues
+// every tile copy as a TMA load onto mbarriers, consumer warpgroups run
+// every product as `wgmma`, and nothing is summed by atomics (two calls
+// give equal bits). The tensor cores read f32 only as TF32 (10 mantissa
+// bits), so every product runs three times on split operands (3xTF32):
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), and A B = A_hi B_lo
+// + A_lo B_hi + A_hi B_hi, summed in the f32 accumulator. hi is rounded
+// to nearest (`cvt.rna`), because wgmma truncates the 13 low bits of
+// whatever it reads: a truncated hi leaves a lo of up to one TF32 unit of
+// x (2^-10), a rounded one at most half of it, and lo's own TF32 rounding
+// then costs 2^-22 of x instead of 2^-21. The A_lo B_lo term is dropped:
+// it is at most 2^-11 * 2^-11 = 2^-22 of |a b|, so a product term errs by
+// about 2^-22 relative (f32 itself rounds at 2^-24), where a single TF32
+// product errs by about 2^-11 (tests/test_torch_flash_tf32x3.py emulates
+// both on the CPU).
+//
+// A TF32 wgmma reads both operands K-major: a descriptor cannot transpose
+// 32-bit types. S = Q K^T and dP = dO V^T contract over Dh, along the
+// stored rows, so both take their operands from shared memory as TMA
+// writes them. The accumulating products (dq += dS K, dk += dS^T Q, dv +=
+// P^T dO) contract over the streamed rows: their A operand (dS, dS^T,
+// P^T) comes from registers, where the f32 accumulator of S or dP already
+// holds it (one 8-column k-step in 4 registers), and their B operand is a
+// transposed copy of the streamed tile that the consumers write while
+// they split it.
+//
+// A CTA holds one producer warp and two consumer warpgroups. Both
+// warpgroups own the CTA's 64 resident rows (dq: Q and dO; dk/dv: K and
+// V), split into hi and lo once. Every streamed tile of kN rows (dq: K
+// and V; dk/dv: Q and dO) is shared out: each warpgroup splits and
+// transposes its own kN / 2 rows and runs the products over them into its
+// own accumulators, so neither waits on the other inside a tile and one's
+// split and exponentials overlap the other's products. Each split is done
+// once per tile (hi overwrites the f32 tile in place; lo and the
+// transposed copies sit beside it), never once per product. The two
+// partial sums are added in a fixed order at the end.
+//
+// Shared memory sets the shapes: at Dh 64 the resident hi and lo tiles
+// take 64 KB, a ring stage 32 KB, and a streamed tile's lo and transposed
+// copies 64 KB (dq) or 96 KB (dk/dv), so the ring holds two stages within
+// the 227 KB a CTA may have (one CTA an SM). At Dh 128 the resident tiles
+// alone take 128 KB, and the streamed tiles shrink to 16 rows.
+//
+// What bounds it: operations, at the 3xTF32 rate (495 / 3 = 165 TFLOP/s
+// of f32 products on an H100 SXM). At gpt_small's training shape (B 8, H
+// 12, S 1024, Dh 64, causal) dq does 19.3 GFLOP (0.117 ms) and dk/dv 25.8
+// (0.156 ms), against about 0.01 ms for their bytes. The design keeps the
+// tensor cores fed: TMA brings the next tile while the current one is
+// split and multiplied, and the two warpgroups interleave their products
+// with each other's splits and exponentials. In builds that left parts
+// out (timed in turns on an H100), the split of the streamed tiles was
+// about a third of a pass, and issuing all of a thread's split loads
+// before using any was the one change that cut it. Flat or slower, not
+// kept: the two warpgroups taking turns to issue their products, the
+// second tile's split beside the first tile's products, both tiles'
+// loads in flight at once, a third ring stage for dq.
+
+// the shape of the f32 backward at head dim D: streamed tiles of kN rows,
+// kHalf = kN / 2 to each of the kWgs consumer warpgroups, a ring of
+// kStages
+template <int D>
+struct Tf32Shape {
+  static constexpr int kN = D == 128 ? 16 : 64;
+  static constexpr int kHalf = kN / 2;
+  static constexpr int kStages = 2;
+  static constexpr int kWgs = 2;
+};
+
+// an f32 [rows][COLS] tile (TF32 wgmma operands, their TMA boxes)
+template <int COLS>
+using F32Tile = Tile<COLS, 4>;
+
+// A TF32 A fragment (wgmma m64nNk8, A from registers) holds, per thread,
+// rows g and g + 8 of its warp's 16 at k-columns t and t + 4 (g = lane /
+// 4, t = lane % 4; PTX ISA, wgmma register fragments for .tf32), in the
+// order (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4). An accumulator
+// holds columns 2 t and 2 t + 1 of each 8-column block instead. So
+// register r of a k-step's fragment takes accumulator element
+// frag_from(r) of that block, and the product's k-column kappa stands for
+// streamed row 2 kappa (kappa < 4) or 2 (kappa - 4) + 1 of the block: the
+// transposed B tiles store streamed row r at column kpos(r).
+__device__ __forceinline__ constexpr int frag_from(int r) {
+  return r == 1 ? 2 : r == 2 ? 1 : r;
+}
+__device__ __forceinline__ int kpos(int r) {
+  const int i = r & 7;
+  return (r & ~7) | ((i & 1) ? 4 + (i >> 1) : (i >> 1));
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (as f32 values)
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = __uint_as_float(tf32_rna(x));
+  lo = __uint_as_float(tf32_rna(x - hi));
+}
+
+// x -> its hi in place; returns its lo
+__device__ __forceinline__ float4 split4(float4& x) {
+  float4 lo;
+  split_tf32(x.x, x.x, lo.x);
+  split_tf32(x.y, x.y, lo.y);
+  split_tf32(x.z, x.z, lo.z);
+  split_tf32(x.w, x.w, lo.w);
+  return lo;
+}
+
+// generic-proxy stores to shared memory made visible to wgmma (the async
+// proxy); each writing thread fences before the barrier that precedes
+// the wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier of the two consumer warpgroups
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// d[64 x 8] (+)= A[64 x 8] B[8 x 8], TF32, both from shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n8(float (&d)[4], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 8] B[8 x 32], TF32, both from shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  if constexpr (N == 8)
+    wgmma_tf32_ss_n8(d, a, b, accumulate);
+  else
+    wgmma_tf32_ss_n32(d, a, b, accumulate);
+}
+
+// d[64 x 32] += A[64 x 8] B[8 x 32], TF32, A from registers
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 8] B[8 x 64], TF32, A from registers
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 8] B[8 x 128], TF32, A from registers
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[D / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  if constexpr (D == 32)
+    wgmma_tf32_rs_n32(d, a, b);
+  else if constexpr (D == 64)
+    wgmma_tf32_rs_n64(d, a, b);
+  else
+    wgmma_tf32_rs_n128(d, a, b);
+}
+
+// s = A B^T in 3xTF32 over Dh = D: A all 64 rows of a resident hi/lo
+// pair, B rows [r0, r0 + N) of a streamed hi/lo pair of b_rows rows (both
+// K-major F32Tile<D>); the first product overwrites s
+template <int D, int N>
+__device__ __forceinline__ void product_3x_ss(float (&s)[N / 2],
+                                              uint32_t a_hi, uint32_t a_lo,
+                                              uint32_t b_hi, uint32_t b_lo,
+                                              int b_rows, int r0) {
+  using T = F32Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    wgmma_tf32_ss<N>(s, T::kmajor(a_hi, kWgRows, 0, kk),
+                     T::kmajor(b_lo, b_rows, r0, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    wgmma_tf32_ss<N>(s, T::kmajor(a_lo, kWgRows, 0, kk),
+                     T::kmajor(b_hi, b_rows, r0, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    wgmma_tf32_ss<N>(s, T::kmajor(a_hi, kWgRows, 0, kk),
+                     T::kmajor(b_hi, b_rows, r0, kk), 1);
+}
+
+// the A fragments (hi and lo) of an f32 accumulator over N columns: one
+// k-step of 8 columns each, in the TF32 fragment's order
+template <int N>
+__device__ __forceinline__ void acc_to_tf32(uint32_t (&hi)[N / 8][4],
+                                            uint32_t (&lo)[N / 8][4],
+                                            const float (&c)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float h, l;
+      split_tf32(c[4 * j + frag_from(r)], h, l);
+      hi[j][r] = __float_as_uint(h);
+      lo[j][r] = __float_as_uint(l);
+    }
+}
+
+// acc += A B in 3xTF32 over N streamed rows: A from registers (hi and lo
+// fragments), B the transposed [D][N] hi/lo tiles
+template <int D, int N>
+__device__ __forceinline__ void product_3x_rs(float (&acc)[D / 2],
+                                              const uint32_t (&a_hi)[N / 8][4],
+                                              const uint32_t (&a_lo)[N / 8][4],
+                                              uint32_t b_hi, uint32_t b_lo) {
+  using TT = F32Tile<N>;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    wgmma_tf32_rs<D>(acc, a_hi[j], TT::kmajor(b_lo, D, 0, j));
+    wgmma_tf32_rs<D>(acc, a_lo[j], TT::kmajor(b_hi, D, 0, j));
+    wgmma_tf32_rs<D>(acc, a_hi[j], TT::kmajor(b_hi, D, 0, j));
+  }
+}
+
+// split a resident f32 tile of `bytes` in place into hi, its lo to the
+// same offsets of `lo` (the two consumer warpgroups together)
+__device__ __forceinline__ void split_resident(unsigned char* tile,
+                                               unsigned char* lo, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += 2 * kWg) {
+    float4 x = reinterpret_cast<float4*>(tile)[i];
+    const float4 l = split4(x);
+    reinterpret_cast<float4*>(tile)[i] = x;
+    reinterpret_cast<float4*>(lo)[i] = l;
+  }
+}
+
+// split rows [r0, r0 + NH) of a landed [N][D] tile (one warpgroup): hi in
+// place, lo to the same offsets of `lo`, and, when `t_hi` is set, both
+// transposed into [D][NH] tiles (streamed row r0 + r at column kpos(r));
+// a thread's loads are all issued before any is used
+template <int D, int N, int NH>
+__device__ __forceinline__ void split_rows(unsigned char* tile,
+                                           unsigned char* lo,
+                                           unsigned char* t_hi,
+                                           unsigned char* t_lo, int r0) {
+  using T = F32Tile<D>;
+  using TT = F32Tile<NH>;
+  constexpr int kIters = NH * D / 4 / kWg;  // 16-byte chunks a thread
+  static_assert(NH * D / 4 % kWg == 0, "whole chunks a thread");
+  const int tid = threadIdx.x % kWg;
+  const int r = tid % NH;  // a warp's lanes take consecutive rows
+  float4 x[kIters];
+  int off[kIters];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    off[it] = T::chunk(N, r0 + r, (tid + it * kWg) / NH);
+    x[it] = *reinterpret_cast<const float4*>(tile + off[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const float4 l = split4(x[it]);
+    *reinterpret_cast<float4*>(tile + off[it]) = x[it];
+    *reinterpret_cast<float4*>(lo + off[it]) = l;
+    if (t_hi != nullptr) {
+      const int ch = (tid + it * kWg) / NH;
+      const int c = kpos(r);
+      const float hs[4] = {x[it].x, x[it].y, x[it].z, x[it].w};
+      const float ls[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int at = TT::elem(D, 4 * ch + e, c);
+        *reinterpret_cast<float*>(t_hi + at) = hs[e];
+        *reinterpret_cast<float*>(t_lo + at) = ls[e];
+      }
+    }
+  }
+}
+
+// the two consumer warpgroups' partial sums of a 64 x D f32 result ->
+// (part 0 + part 1) * mul in rows [row0, row0 + 64) of out: each
+// warpgroup stages its part in its area (resident tiles no product reads
+// any more), then each sums 32 rows and stores them in 16-byte pieces
+template <int D>
+__device__ __forceinline__ void store_pair(const float (&acc)[D / 2],
+                                           float mul, unsigned char* area0,
+                                           unsigned char* area1, int wg,
+                                           float* out, long long row_stride,
+                                           int row0, int n_rows) {
+  using T = F32Tile<D>;
+  const int lane = threadIdx.x % 32;
+  const int r = (threadIdx.x / 32) % 4 * 16 + lane / 4;
+  unsigned char* mine = wg == 0 ? area0 : area1;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(
+          mine + T::elem(kWgRows, r + 8 * i, 8 * j + 2 * (lane % 4))) =
+          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  consumers_sync();
+  constexpr int kChunks = D / 4;
+  for (int idx = threadIdx.x % kWg; idx < kWgRows / 2 * kChunks;
+       idx += kWg) {
+    const int rr = wg * (kWgRows / 2) + idx / kChunks;
+    const int ch = idx % kChunks;
+    const int row = row0 + rr;
+    const float4 a =
+        *reinterpret_cast<const float4*>(area0 + T::chunk(kWgRows, rr, ch));
+    const float4 b =
+        *reinterpret_cast<const float4*>(area1 + T::chunk(kWgRows, rr, ch));
+    if (row < n_rows)
+      *reinterpret_cast<float4*>(out + row * row_stride + 4 * ch) =
+          make_float4((a.x + b.x) * mul, (a.y + b.y) * mul,
+                      (a.z + b.z) * mul, (a.w + b.w) * mul);
+  }
+}
+
+// shared memory of the f32 dq pass (byte offsets from a 1024-aligned base)
+template <int D>
+struct DqTf32Smem {
+  using T = F32Tile<D>;
+  using TT = F32Tile<Tf32Shape<D>::kHalf>;
+  static constexpr int kN = Tf32Shape<D>::kN;
+  static constexpr int kStages = Tf32Shape<D>::kStages;
+  static constexpr int kQ = 0;  // Q hi (in place), lo; dO hi, lo
+  static constexpr int kQlo = kQ + T::bytes(kWgRows);
+  static constexpr int kDO = kQlo + T::bytes(kWgRows);
+  static constexpr int kDOlo = kDO + T::bytes(kWgRows);
+  static constexpr int kRing = kDOlo + T::bytes(kWgRows);
+  static constexpr int kStage = 2 * T::bytes(kN);  // K, V (hi in place)
+  static constexpr int kKlo = kRing + kStages * kStage;
+  static constexpr int kVlo = kKlo + T::bytes(kN);
+  static constexpr int kKT = kVlo + T::bytes(kN);  // a warpgroup's K^T hi, lo
+  static constexpr int kKTWg = 2 * TT::bytes(D);
+  static constexpr int kBar = kKT + Tf32Shape<D>::kWgs * kKTWg;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Tf32Shape<D>::kWgs* kWg + 32, 1)
+    flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dterm,
+                               float* __restrict__ dq, int H, int Sq, int Skv,
+                               Strides dqs, float scale, int causal) {
+  using T = F32Tile<D>;
+  using L = DqTf32Smem<D>;
+  constexpr int N = L::kN;
+  constexpr int NH = Tf32Shape<D>::kHalf;
+  constexpr int S = L::kStages;
+  constexpr int W = Tf32Shape<D>::kWgs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+  const uint32_t base = smem_addr(smem);
+  const uint32_t resident = base + L::kBar;
+  const uint32_t full0 = resident + 8, empty0 = full0 + 8 * S;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qi = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qi * kWgRows;
+  int n_k = (Skv + N - 1) / N;
+  if (causal) n_k = min(n_k, (q0 + kWgRows) / N);  // live iff k0 < q_end
+
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * W);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == W) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(resident, 2 * T::bytes(kWgRows));
+      for (int p = 0; p < T::kPanels; ++p) {
+        const int off = p * kWgRows * T::kRowBytes;
+        tma_rows(base + L::kQ + off, &tq, resident, p * T::kPanelCols, q0, h,
+                 b);
+        tma_rows(base + L::kDO + off, &tdo, resident, p * T::kPanelCols, q0,
+                 h, b);
+      }
+      for (int kb = 0; kb < n_k; ++kb) {
+        const int s = kb % S;
+        mbar_wait(empty0 + 8 * s, ((kb / S) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, L::kStage);
+        const uint32_t kt = base + L::kRing + s * L::kStage;
+        for (int p = 0; p < T::kPanels; ++p) {
+          const int off = p * N * T::kRowBytes;
+          tma_rows(kt + off, &tk, full0 + 8 * s, p * T::kPanelCols, kb * N,
+                   h, b);
+          tma_rows(kt + T::bytes(N) + off, &tv, full0 + 8 * s,
+                   p * T::kPanelCols, kb * N, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: all 64 query rows, keys [wg NH, wg NH + NH) of
+  // every streamed tile
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const float c = scale * kLog2e;
+  float lse2[2], dt[2];  // this thread's two rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    const long long at = static_cast<long long>(bh) * Sq + row;
+    lse2[i] = row < Sq ? lse[at] * kLog2e : 0.f;
+    dt[i] = row < Sq ? dterm[at] : 0.f;
+  }
+  unsigned char* kt_hi = smem + L::kKT + wg * L::kKTWg;
+  unsigned char* kt_lo = kt_hi + L::kKTWg / 2;
+  mbar_wait(resident, 0);
+  __syncwarp();
+  split_resident(smem + L::kQ, smem + L::kQlo, T::bytes(kWgRows));
+  split_resident(smem + L::kDO, smem + L::kDOlo, T::bytes(kWgRows));
+  fence_async_smem();
+  consumers_sync();
+  float acc[D / 2], sc[NH / 2], dp[NH / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NH / 2; ++i) sc[i] = dp[i] = 0.f;
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int s = kb % S;
+    mbar_wait(full0 + 8 * s, (kb / S) & 1);
+    __syncwarp();
+    const int st = L::kRing + s * L::kStage;  // K, then V
+    split_rows<D, N, NH>(smem + st, smem + L::kKlo, kt_hi, kt_lo, wg * NH);
+    split_rows<D, N, NH>(smem + st + T::bytes(N), smem + L::kVlo, nullptr,
+                         nullptr, wg * NH);
+    fence_async_smem();
+    wg_sync(2 + wg);
+    wgmma_fence();
+    product_3x_ss<D, NH>(sc, base + L::kQ, base + L::kQlo, base + st,
+                         base + L::kKlo, N, wg * NH);
+    wgmma_commit();
+    product_3x_ss<D, NH>(dp, base + L::kDO, base + L::kDOlo,
+                         base + st + T::bytes(N), base + L::kVlo, N, wg * NH);
+    wgmma_commit();
+    wgmma_wait<1>();  // S is in; dP still running
+    hold(sc);
+    const int kw0 = kb * N + wg * NH;  // this warpgroup's first key
+    const bool masked = (causal && kw0 + NH - 1 > q0) || kw0 + NH > Skv;
+#pragma unroll
+    for (int j = 0; j < NH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(sc[4 * j + e], c, -lse2[e >> 1]));
+        if (masked) {
+          const int row = q0 + warp * 16 + g + 8 * (e >> 1);
+          const int col = kw0 + 8 * j + 2 * t + (e & 1);
+          if (!(col < Skv && (!causal || col <= row))) p = 0.f;
+        }
+        sc[4 * j + e] = p;
+      }
+    wgmma_wait<0>();
+    hold(dp);
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i)
+      sc[i] *= dp[i] - dt[(i >> 1) & 1];  // dS, in place
+    uint32_t a_hi[NH / 8][4], a_lo[NH / 8][4];
+    acc_to_tf32<NH>(a_hi, a_lo, sc);
+    wgmma_fence();
+    product_3x_rs<D, NH>(acc, a_hi, a_lo, smem_addr(kt_hi),
+                         smem_addr(kt_lo));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(acc);
+    hold(a_hi);
+    hold(a_lo);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  consumers_sync();  // every product is done: the resident tiles are free
+  store_pair<D>(acc, scale, smem + L::kQ, smem + L::kQlo, wg,
+                dq + b * dqs.b + h * dqs.h, dqs.s, q0, Sq);
+}
+
+// shared memory of the f32 dk/dv pass
+template <int D>
+struct DkvTf32Smem {
+  using T = F32Tile<D>;
+  using TT = F32Tile<Tf32Shape<D>::kHalf>;
+  static constexpr int kN = Tf32Shape<D>::kN;
+  static constexpr int kStages = Tf32Shape<D>::kStages;
+  static constexpr int kK = 0;  // K hi (in place), lo; V hi, lo
+  static constexpr int kKlo = kK + T::bytes(kWgRows);
+  static constexpr int kV = kKlo + T::bytes(kWgRows);
+  static constexpr int kVlo = kV + T::bytes(kWgRows);
+  static constexpr int kRing = kVlo + T::bytes(kWgRows);
+  static constexpr int kStage = 2 * T::bytes(kN);  // Q, dO (hi in place)
+  static constexpr int kQlo = kRing + kStages * kStage;
+  static constexpr int kDOlo = kQlo + T::bytes(kN);
+  // a warpgroup's Q^T hi, lo, dO^T hi, lo
+  static constexpr int kT = kDOlo + T::bytes(kN);
+  static constexpr int kTWg = 4 * TT::bytes(D);
+  // each stage's lse and dterm (stored by the producer warp's lanes)
+  static constexpr int kRowv = kT + Tf32Shape<D>::kWgs * kTWg;
+  static constexpr int kBar = kRowv + kStages * 2 * kN * 4;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Tf32Shape<D>::kWgs* kWg + 32, 1)
+    flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ dterm,
+                                float* __restrict__ dk, float* __restrict__ dv,
+                                int H, int Sq, int Skv, Strides dks,
+                                Strides dvs, float scale, int causal) {
+  using T = F32Tile<D>;
+  using TT = F32Tile<Tf32Shape<D>::kHalf>;
+  using L = DkvTf32Smem<D>;
+  constexpr int N = L::kN;
+  constexpr int NH = Tf32Shape<D>::kHalf;
+  constexpr int S = L::kStages;
+  constexpr int W = Tf32Shape<D>::kWgs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+  const uint32_t base = smem_addr(smem);
+  const uint32_t resident = base + L::kBar;
+  const uint32_t full0 = resident + 8, empty0 = full0 + 8 * S;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * kWgRows;  // causal: the first keys see most rows
+  const int n_q = (Sq + N - 1) / N;
+  // causal: q-tile qi is live iff k0 < (qi + 1) * N
+  const int qi0 = causal ? k0 / N : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty0 + 8 * s, 4 * W);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == W) {  // the producer warp
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_expect_tx(resident, 2 * T::bytes(kWgRows));
+      for (int p = 0; p < T::kPanels; ++p) {
+        const int off = p * kWgRows * T::kRowBytes;
+        tma_rows(base + L::kK + off, &tk, resident, p * T::kPanelCols, k0, h,
+                 b);
+        tma_rows(base + L::kV + off, &tv, resident, p * T::kPanelCols, k0, h,
+                 b);
+      }
+    }
+    for (int qi = qi0; qi < n_q; ++qi) {
+      const int i = qi - qi0;
+      const int s = i % S;
+      const uint32_t full = full0 + 8 * s;
+      if (lane == 0) mbar_wait(empty0 + 8 * s, ((i / S) & 1) ^ 1);
+      __syncwarp();
+      const uint32_t qt = base + L::kRing + s * L::kStage;
+      if (lane == 0) {
+        mbar_expect(full, L::kStage);
+        for (int p = 0; p < T::kPanels; ++p) {
+          const int off = p * N * T::kRowBytes;
+          tma_rows(qt + off, &tq, full, p * T::kPanelCols, qi * N, h, b);
+          tma_rows(qt + T::bytes(N) + off, &tdo, full, p * T::kPanelCols,
+                   qi * N, h, b);
+        }
+      }
+      // lse and dterm of the tile's rows as plain loads: a TMA box must
+      // start 16-byte aligned, and row bh * Sq + q0 of the flat arrays
+      // need not
+      float* rowv = reinterpret_cast<float*>(smem + L::kRowv) + s * 2 * N;
+      for (int r = lane; r < N; r += 32) {
+        const int row = qi * N + r;
+        const long long at = static_cast<long long>(bh) * Sq + row;
+        rowv[r] = row < Sq ? lse[at] : 0.f;
+        rowv[N + r] = row < Sq ? dterm[at] : 0.f;
+      }
+      mbar_arrive(full);  // releases this lane's stores with its arrival
+    }
+    return;
+  }
+
+  // a consumer warpgroup: all 64 keys, query rows [wg NH, wg NH + NH) of
+  // every streamed tile
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const float c = scale * kLog2e;
+  unsigned char* tq_hi = smem + L::kT + wg * L::kTWg;  // Q^T hi, lo
+  unsigned char* tq_lo = tq_hi + TT::bytes(D);
+  unsigned char* tdo_hi = tq_lo + TT::bytes(D);  // dO^T hi, lo
+  unsigned char* tdo_lo = tdo_hi + TT::bytes(D);
+  mbar_wait(resident, 0);
+  __syncwarp();
+  split_resident(smem + L::kK, smem + L::kKlo, T::bytes(kWgRows));
+  split_resident(smem + L::kV, smem + L::kVlo, T::bytes(kWgRows));
+  fence_async_smem();
+  consumers_sync();
+  float dk_acc[D / 2], dv_acc[D / 2], st[NH / 2], dpt[NH / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NH / 2; ++i) st[i] = dpt[i] = 0.f;
+
+  for (int qi = qi0; qi < n_q; ++qi) {
+    const int i = qi - qi0;
+    const int s = i % S;
+    mbar_wait(full0 + 8 * s, (i / S) & 1);
+    __syncwarp();
+    const int sq = L::kRing + s * L::kStage;  // Q, then dO
+    split_rows<D, N, NH>(smem + sq, smem + L::kQlo, tq_hi, tq_lo, wg * NH);
+    split_rows<D, N, NH>(smem + sq + T::bytes(N), smem + L::kDOlo, tdo_hi,
+                         tdo_lo, wg * NH);
+    fence_async_smem();
+    wg_sync(2 + wg);
+    wgmma_fence();
+    product_3x_ss<D, NH>(st, base + L::kK, base + L::kKlo, base + sq,
+                         base + L::kQlo, N, wg * NH);
+    wgmma_commit();
+    product_3x_ss<D, NH>(dpt, base + L::kV, base + L::kVlo,
+                         base + sq + T::bytes(N), base + L::kDOlo, N,
+                         wg * NH);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is in; dP^T still running
+    hold(st);
+    const float* rowv = reinterpret_cast<const float*>(smem + L::kRowv) +
+                        s * 2 * N + wg * NH;  // lse; dterm at + N
+    const int qw0 = qi * N + wg * NH;  // this warpgroup's first row
+    const bool masked = (causal && k0 + kWgRows - 1 > qw0) || qw0 + NH > Sq;
+#pragma unroll
+    for (int j = 0; j < NH / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(rowv + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(st[4 * j + e], c, -(e & 1 ? l.y : l.x) * kLog2e));
+        if (masked) {
+          const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+          const int row = qw0 + 8 * j + 2 * t + (e & 1);
+          if (!(row < Sq && (!causal || key <= row))) p = 0.f;
+        }
+        st[4 * j + e] = p;  // P^T
+      }
+    }
+    wgmma_wait<0>();
+    hold(dpt);
+#pragma unroll
+    for (int j = 0; j < NH / 8; ++j) {
+      const float2 d =
+          *reinterpret_cast<const float2*>(rowv + N + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)  // dS^T, in place
+        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] -
+                                          (e & 1 ? d.y : d.x));
+    }
+    uint32_t p_hi[NH / 8][4], p_lo[NH / 8][4], ds_hi[NH / 8][4],
+        ds_lo[NH / 8][4];
+    acc_to_tf32<NH>(p_hi, p_lo, st);
+    acc_to_tf32<NH>(ds_hi, ds_lo, dpt);
+    wgmma_fence();
+    product_3x_rs<D, NH>(dv_acc, p_hi, p_lo, smem_addr(tdo_hi),
+                         smem_addr(tdo_lo));
+    product_3x_rs<D, NH>(dk_acc, ds_hi, ds_lo, smem_addr(tq_hi),
+                         smem_addr(tq_lo));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dv_acc);
+    hold(dk_acc);
+    hold(p_hi);
+    hold(p_lo);
+    hold(ds_hi);
+    hold(ds_lo);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  consumers_sync();  // every product is done: the resident tiles are free
+  store_pair<D>(dk_acc, scale, smem + L::kK, smem + L::kKlo, wg,
+                dk + b * dks.b + h * dks.h, dks.s, k0, Skv);
+  store_pair<D>(dv_acc, 1.f, smem + L::kV, smem + L::kVlo, wg,
+                dv + b * dvs.b + h * dvs.h, dvs.s, k0, Skv);
+}
+
 Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
@@ -1474,8 +2014,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 using bf16 = __nv_bfloat16;
 
-// launch one pass: an f32 FMA kernel or a bf16 wgmma kernel, with the
-// dynamic shared memory it needs
+// launch one pass with the dynamic shared memory it needs
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
                    cudaStream_t stream, Args... args) {
@@ -1513,29 +2052,34 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 [B, S, H, Dh] view (unit Dh stride) over its real dimensions
-// (Dh, S, H, B) and byte strides, in boxes of one panel x `rows` rows,
-// swizzled as Tile<D>; rows past S read as zeros. Returns the CUresult.
-template <int D>
+// a bf16 or f32 [B, S, H, Dh] view (unit Dh stride) over its real
+// dimensions (Dh, S, H, B) and byte strides, in boxes of one panel x
+// `rows` rows, swizzled as Tile<D, 2> (bf16) or Tile<D, 4> (f32); rows past
+// S read as zeros. Returns the CUresult.
+template <int D, bool F32>
 int map_rows(CUtensorMap* map, const void* p, int B, int S, int H,
              Strides st, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  constexpr int elt = F32 ? 4 : 2;
+  using T = Tile<D, elt>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {Tile<D>::kPanelCols,
-                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * elt,
+                                 static_cast<cuuint64_t>(st.h) * elt,
+                                 static_cast<cuuint64_t>(st.b) * elt};
+  const cuuint32_t box[4] = {T::kPanelCols, static_cast<cuuint32_t>(rows),
+                             1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(p), dims, strides, box, unit,
+  return encode(map,
+                F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(p), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Tile<D>::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                          : CU_TENSOR_MAP_SWIZZLE_64B,
+                T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -1546,13 +2090,13 @@ constexpr int kTmaRefused = 100000;
 
 // the descriptors of one pass: tensor i (its pointer, its length and
 // the rows of its box) with the strides at i
-template <int D, int N>
+template <int D, bool F32, int N>
 int make_maps(CUtensorMap (&m)[N], const void* const (&ptrs)[N],
               const int (&lens)[N], const int (&rows)[N], int B, int H,
               const long long* st) {
   for (int i = 0; i < N; ++i) {
-    const int err = map_rows<D>(&m[i], ptrs[i], B, lens[i], H,
-                                strides_at(st, i), rows[i]);
+    const int err = map_rows<D, F32>(&m[i], ptrs[i], B, lens[i], H,
+                                     strides_at(st, i), rows[i]);
     if (err != CUDA_SUCCESS) return kTmaRefused + err;
   }
   return 0;
@@ -1567,7 +2111,7 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 1) {
     using L = FwdSmem<D>;
     CUtensorMap m[3];
-    const int err = make_maps<D>(m, {q, k, v}, {Sq, Skv, Skv},
+    const int err = make_maps<D, false>(m, {q, k, v}, {Sq, Skv, Skv},
                                  {L::kRows, kWgRows, kWgRows}, B, H, st);
     if (err != 0) return static_cast<cudaError_t>(err);
     return launch(flash_fwd_wgmma_kernel<D>,
@@ -1590,14 +2134,13 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
                    void* dq, int B, int H, int Sq, int Skv,
                    const long long* st, float scale, int causal,
                    cudaStream_t stream) {
-  const Strides s0 = strides_at(st, 0), s1 = strides_at(st, 1),
-                s2 = strides_at(st, 2), s3 = strides_at(st, 3),
-                s4 = strides_at(st, 4);
+  const Strides s4 = strides_at(st, 4);
+  CUtensorMap m[4];
   if (dtype == 1) {
     constexpr int R = DqSmem<D>::kRows;
-    CUtensorMap m[4];
-    const int err = make_maps<D>(m, {q, k, v, dout}, {Sq, Skv, Skv, Sq},
-                                 {R, kWgRows, kWgRows, R}, B, H, st);
+    const int err = make_maps<D, false>(m, {q, k, v, dout},
+                                        {Sq, Skv, Skv, Sq},
+                                        {R, kWgRows, kWgRows, R}, B, H, st);
     if (err != 0) return static_cast<cudaError_t>(err);
     return launch(flash_bwd_dq_wgmma_kernel<D>,
                   dim3(B * H, (Sq + R - 1) / R), DqSmem<D>::kWgs * kWg + 32,
@@ -1605,15 +2148,16 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
                   dterm, static_cast<bf16*>(dq), H, Sq, Skv, s4, scale,
                   causal);
   }
-  return launch(flash_bwd_dq_kernel<D>, dim3(B * H, (Sq + kTile - 1) / kTile),
-                kThreads,
-                (4 * kTile * (D + 1) + kTile * kTP + 2 * kTile) *
-                    sizeof(float),
-                stream, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<const float*>(dout), lse, dterm,
-                static_cast<float*>(dq), H, Sq, Skv, s0, s1, s2, s3, s4,
-                scale, causal);
+  using L = DqTf32Smem<D>;
+  const int err = make_maps<D, true>(m, {q, k, v, dout}, {Sq, Skv, Skv, Sq},
+                                     {kWgRows, L::kN, L::kN, kWgRows}, B, H,
+                                     st);
+  if (err != 0) return static_cast<cudaError_t>(err);
+  return launch(flash_bwd_dq_tf32x3_kernel<D>,
+                dim3(B * H, (Sq + kWgRows - 1) / kWgRows),
+                Tf32Shape<D>::kWgs * kWg + 32, L::kBytes, stream, m[0], m[1],
+                m[2], m[3], lse, dterm, static_cast<float*>(dq), H, Sq, Skv,
+                s4, scale, causal);
 }
 
 template <int D>
@@ -1622,14 +2166,13 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                     void* dk, void* dv, int B, int H, int Sq, int Skv,
                     const long long* st, float scale, int causal,
                     cudaStream_t stream) {
-  const Strides s0 = strides_at(st, 0), s1 = strides_at(st, 1),
-                s2 = strides_at(st, 2), s3 = strides_at(st, 3),
-                s4 = strides_at(st, 4), s5 = strides_at(st, 5);
+  const Strides s4 = strides_at(st, 4), s5 = strides_at(st, 5);
+  CUtensorMap m[4];
   if (dtype == 1) {
     constexpr int R = DkvSmem<D>::kRows;
-    CUtensorMap m[4];
-    const int err = make_maps<D>(m, {q, k, v, dout}, {Sq, Skv, Skv, Sq},
-                                 {kWgRows, R, R, kWgRows}, B, H, st);
+    const int err = make_maps<D, false>(m, {q, k, v, dout},
+                                        {Sq, Skv, Skv, Sq},
+                                        {kWgRows, R, R, kWgRows}, B, H, st);
     if (err != 0) return static_cast<cudaError_t>(err);
     return launch(flash_bwd_dkv_wgmma_kernel<D>,
                   dim3(B * H, (Skv + R - 1) / R), DkvSmem<D>::kWgs * kWg + 32,
@@ -1637,15 +2180,16 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                   dterm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H,
                   Sq, Skv, s4, s5, scale, causal);
   }
-  return launch(flash_bwd_dkv_kernel<D>,
-                dim3(B * H, (Skv + kTile - 1) / kTile), kThreads,
-                (4 * kTile * (D + 1) + 2 * kTile * kTP + 2 * kTile) *
-                    sizeof(float),
-                stream, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<const float*>(dout), lse, dterm,
-                static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Skv,
-                s0, s1, s2, s3, s4, s5, scale, causal);
+  using L = DkvTf32Smem<D>;
+  const int err = make_maps<D, true>(m, {q, k, v, dout}, {Sq, Skv, Skv, Sq},
+                                     {L::kN, kWgRows, kWgRows, L::kN}, B, H,
+                                     st);
+  if (err != 0) return static_cast<cudaError_t>(err);
+  return launch(flash_bwd_dkv_tf32x3_kernel<D>,
+                dim3(B * H, (Skv + kWgRows - 1) / kWgRows),
+                Tf32Shape<D>::kWgs * kWg + 32, L::kBytes, stream, m[0], m[1],
+                m[2], m[3], lse, dterm, static_cast<float*>(dk),
+                static_cast<float*>(dv), H, Sq, Skv, s4, s5, scale, causal);
 }
 
 }  // namespace

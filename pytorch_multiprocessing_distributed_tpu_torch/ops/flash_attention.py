@@ -19,10 +19,14 @@ JAX ``[B*H, Sq]``). Masks follow the Pallas ``_bwd_mask``: causal means
 when not causal.
 
 The Pallas ``block_q``/``block_k`` are TPU VMEM tiles; the kernels pick
-their own and take none as arguments: 64 x 64 in f32; in bf16, CTAs of
-128 query rows (the forward), 64 query rows (dq) or 128 keys (dk/dv; 64
-at Dh 128) against a TMA-fed ring of 64-row K/V (or Q/dO) tiles, every
-product a Hopper ``wgmma``.
+their own and take none as arguments. In bf16, CTAs of 128 query rows
+(the forward), 64 query rows (dq) or 128 keys (dk/dv; 64 at Dh 128)
+against a TMA-fed ring of 64-row K/V (or Q/dO) tiles, every product a
+Hopper ``wgmma``. In f32 the forward runs 64 x 64 tiles on the CUDA
+cores; the backward pair takes CTAs of 64 query rows (dq) or 64 keys
+(dk/dv) against a TMA-fed ring of 64-row tiles (16 at Dh 128), every
+product a 3xTF32 ``wgmma``: three TF32 products on hi/lo splits of the
+f32 operands, accurate to f32.
 """
 
 from __future__ import annotations
@@ -124,8 +128,8 @@ def _check_qkv(q, k, v, causal):
 
 def _check_kernel_args(tensors, rows=()):
     """What the kernels take: one dtype of f32/bf16, Dh in 32/64/128, a
-    unit Dh stride (and 16-byte aligned rows in bf16), one CUDA device;
-    per-row tensors f32 contiguous."""
+    unit Dh stride (and 16-byte aligned rows where a kernel reads them by
+    TMA), one CUDA device; per-row tensors f32 contiguous."""
     q = tensors[0]
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(
@@ -137,12 +141,15 @@ def _check_kernel_args(tensors, rows=()):
     for t in tensors:
         if t.stride(3) != 1:
             raise ValueError("q/k/v/dO need a unit head_dim stride")
-        # the bf16 kernels load 16 bytes (8 elements) a thread
-        if q.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError(
-                f"bf16 q/k/v/dO rows must be 16-byte aligned (strides "
-                f"{t.stride()})")
+    # the kernels that read q/k/v/dO by TMA (bf16 all three passes, f32
+    # the backward pair) need 16-byte aligned rows
+    if q.dtype == torch.bfloat16 or rows:
+        per = 16 // q.element_size()
+        for t in tensors:
+            if t.data_ptr() % 16 or any(s % per for s in t.stride()[:3]):
+                raise ValueError(
+                    f"q/k/v/dO rows must be 16-byte aligned for the "
+                    f"{q.dtype} kernels (strides {t.stride()})")
     for t in rows:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("lse and dterm must be contiguous f32 "

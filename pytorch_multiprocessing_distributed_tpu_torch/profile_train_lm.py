@@ -1,9 +1,12 @@
 """Where a training step's device time goes, on the card.
 
     python -m pytorch_multiprocessing_distributed_tpu_torch.profile_train_lm
+    python -m pytorch_multiprocessing_distributed_tpu_torch.profile_train_lm \
+        --dtype float32
 
 Builds the LM train step of ``train_lm`` (gpt_small, random init from
-seed 0, bf16, 8 x 1024 random tokens a step on one card, lr 0.01),
+seed 0, bf16 or, with ``--dtype float32``, ``train_lm``'s default f32
+with TF32 off, 8 x 1024 random tokens a step on one card, lr 0.01),
 warms it up, then times 5 steps with the host clock around a
 ``torch.cuda.synchronize()`` and traces 5 more with ``torch.profiler``.
 Prints the card's name and power limit, the step time, tokens/s, each
@@ -15,6 +18,7 @@ time. Needs a CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 from collections import defaultdict
@@ -112,10 +116,16 @@ def report(label: str, step_s: float, kernels, by_group, steps: int,
     return busy_ms
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    dtype_name = p.parse_args(argv).dtype
+    dtype = getattr(torch, dtype_name)
     device = resolve_device("cuda")
     smi = card()
-    model = get_model(MODEL, dtype=torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = False  # train_lm's f32
+    model = get_model(MODEL, dtype=dtype)
     state = create_lm_train_state(model, init_params(model, SEED, device))
     step = make_lm_train_step(model, sgd(LR))
     rng = np.random.default_rng(SEED)
@@ -127,10 +137,9 @@ def main() -> dict:
     step_s, kernels, groups = profile_steps(
         lambda i: step(state, batches[i]), STEPS)
     print(smi)
-    print(f"[profile] {MODEL} bfloat16 B={BATCH} S={SEQ}: "
-          f"{BATCH * SEQ / step_s:.1f} tokens/s")
-    busy_ms = report(f"{MODEL} bfloat16 B={BATCH} S={SEQ}", step_s, kernels,
-                     groups, STEPS, smi)
+    label = f"{MODEL} {dtype_name} B={BATCH} S={SEQ}"
+    print(f"[profile] {label}: {BATCH * SEQ / step_s:.1f} tokens/s")
+    busy_ms = report(label, step_s, kernels, groups, STEPS, smi)
     return {"step_ms": step_s * 1e3, "busy_ms": busy_ms,
             "groups_ms": {k: v / 1e3 / STEPS for k, v in groups.items()}}
 

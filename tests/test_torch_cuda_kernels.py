@@ -590,6 +590,40 @@ def test_flash_pair_grads_are_bit_reproducible(cuda_device, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_pair_grads_ignore_nan_past_the_end(cuda_device, dtype, d,
+                                                  causal):
+    """q/k/v/dO are the first 129 rows (one past the 64-row tiles) of
+    buffers whose later rows hold NaN: the kernels read nothing past the
+    end (a NaN row times a zero weight would be NaN), so dq, dk and dv
+    are finite and match the plain version on the same views."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = 129
+    q, k, v, do = _flash_inputs(cuda_device, 2, s + 63, s + 63, 3, d,
+                                dtype, seed=d + causal)
+    for t in (q, k, v, do):
+        t[:, s:] = float("nan")
+    q, k, v, do = (t[:, :s] for t in (q, k, v, do))
+    scale = d ** -0.5
+    ref_out, lse = torch_flash_fwd(q, k, v, scale=scale, causal=causal)
+    dterm = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    dterm = dterm.contiguous()
+    got = flash_pair_grads(q, k, v, do, lse, dterm, scale=scale,
+                           causal=causal, impl="cuda")
+    torch.cuda.synchronize()
+    ref = (torch_flash_bwd_dq(q, k, v, do, lse, dterm, scale=scale,
+                              causal=causal),
+           *torch_flash_bwd_dkv(q, k, v, do, lse, dterm, scale=scale,
+                                causal=causal))
+    tol = FLASH_TOL[dtype]["grad"]
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_fwd_is_bit_reproducible(cuda_device, dtype, d):
     """Two calls of the forward give equal bits, output and lse: each
