@@ -10,16 +10,24 @@ nothing is caught):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    prints them.
 2. build   — every kernel of ``ops/csrc`` compiled from the checkout,
-   one ``nvcc`` per source started together; build seconds.
-3. kernel  — the decode-attention kernel against its plain PyTorch
-   version at gpt_small decode shapes (8 slots, 12 heads, Dh 64), KV
-   windows 16/64/256/1024 with ragged positions including 0, W-1 and
-   one beyond the window, in f32 and bf16. Device times per call (CUDA
-   graph of 20 calls replayed 100 times between CUDA events, median) of
-   the kernel, the plain version and the library yardstick
-   ``F.scaled_dot_product_attention`` (timed here only; the port never
-   calls it), beside the HBM-bytes bound; and the kernel's eager
-   per-call time (median of 100 single calls, host launch cost
+   one ``nvcc`` per source started together; build seconds; the
+   ``-Xptxas -v`` lines, and the registers and spills of each of the 27
+   decode instantiations (split kernel: dense/paged x model dtype/int8 x
+   f32/bf16 q x Dh 32/64/128; merge kernel: Dh 32/64/128).
+3. kernel  — the decode-attention kernels (row 1: the split-K
+   ``decode_split_kernel``, and ``decode_merge_kernel`` where the window
+   spans more than one split; each line names the cut) against their
+   plain PyTorch version at gpt_small decode shapes (8 slots, 12 heads,
+   Dh 64), KV windows 16/64/256/1024 with ragged positions including 0,
+   W-1 and one beyond the window, in f32 and bf16; two calls, and one
+   call captured in a CUDA graph and replayed, give the eager bits.
+   Device times per call (CUDA graph of 20 calls replayed 100 times
+   between CUDA events, median) of the kernel with its window L2-warm
+   and L2-cold (the 20 calls cycle through copies of the inputs whose
+   bytes exceed the 50 MB L2 twice), the plain version and the library
+   yardstick ``F.scaled_dot_product_attention`` (timed here only; the
+   port never calls it), beside the HBM-bytes bound; and the kernel's
+   eager per-call time (median of 100 single calls, host launch cost
    included).
 4. serve   — the port's ``serve_lm.main`` (its normal entry) on
    full-width gpt_small, random weights from a seed, bf16, 8 slots, 16
@@ -90,15 +98,24 @@ nothing is caught):
    from the same weights and batches of 64 agree in losses, params and
    BN running stats.
 12. paged-kernel — the int8 dense variant (row 1q) and the paged
-   variants, model dtype and int8 (row 2), against their plain versions
-   at gpt_small decode shapes (8 slots, 12 heads, Dh 64), page size 16,
-   windows 64/256/1024, ragged positions including 0, W-1 and one beyond
-   the window, shuffled page tables whose unallocated entries point at a
-   scratch page 0 of NaN (K) and 1e30 (V), in f32 and bf16. At W=1024
-   in bf16, per variant: device time (CUDA graph), eager time, the plain
-   version's time, the bound and the library yardstick
-   ``F.scaled_dot_product_attention`` on the already gathered and
-   dequantized dense window (timed here only; the port never calls it).
+   variants, model dtype and int8 (rows 2 and 2q), on the same split-K
+   kernels, against their plain versions at gpt_small decode shapes (8
+   slots, 12 heads, Dh 64), page size 16, windows 64/256/1024, ragged
+   positions including 0, W-1 and one beyond the window, shuffled page
+   tables whose unallocated entries point at a scratch page 0 of NaN (K)
+   and 1e30 (V), in f32 and bf16; two calls and a graph replay give the
+   eager bits. A dense window and the same columns in shuffled pages
+   give the same bits (model dtype and int8, f32 and bf16, each window).
+   At W=1024 in bf16, per variant: device time (CUDA graph; L2-warm and
+   L2-cold), eager time, the plain version's time, the bound and the
+   library yardstick ``F.scaled_dot_product_attention`` on the already
+   gathered and dequantized dense window (timed here only; the port
+   never calls it). Then where row 1's device time goes between its
+   split and merge kernels (``torch.profiler`` over 20 eager calls), and
+   the A/B of the split size (64, 128 and 256 keys a CTA; 128 is the
+   default) for rows 1, 1q, 2 and 2q at bf16 W=1024, timed in turns (64,
+   128, 256, 256, 128, 64), L2-warm and L2-cold, each checked against
+   its plain version first, as ``[decode-ab]`` lines.
 13. serve-paged — ``serve_lm.main`` on full-width gpt_small, random
    weights from seed 0, bf16, 8 slots, 16 synthetic requests of 32 new
    tokens, decode horizon 4, three times: ``--kv_layout paged
@@ -181,7 +198,9 @@ nothing is caught):
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
 version, and the times at the main path's shapes: the largest decode
-window for the decode kernel, bf16 B 8 x S 1024 for the flash kernels
+window of phase 4 for the decode kernel (with its W=1024 numbers
+beside them; every decode entry also carries its L2-cold time), bf16 B
+8 x S 1024 for the flash kernels
 and f32 for their ``_f32`` twins (launches from phase 7b),
 ResNet-18's N for fused SGD, bf16 W=1024 for the int8 and paged decode
 variants and, at K1 = 5, for the verify variants, n = 4 loopback at
@@ -195,6 +214,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import io
+import itertools
 import json
 import re
 import math
@@ -220,6 +240,11 @@ BF16_FLOPS_PER_S = 989e12
 
 DECODE_SHAPE = dict(slots=8, heads=12, head_dim=64)  # gpt_small decode
 WINDOWS = (16, 64, 256, 1024)
+# the H100's L2: an L2-cold time cycles its calls through input copies
+# whose bytes exceed it twice, as a decode step's 12 layers read 12
+# distinct windows
+L2_BYTES = 50 * 2 ** 20
+DECODE_KERNELS = "decode_split_kernel + decode_merge_kernel"
 TOL = {"float32": 1e-4, "bfloat16": 1e-4}
 REPS = 100
 GRAPH_CALLS = 20
@@ -275,11 +300,12 @@ IMAGE_EXACT_TOL = 0.0
 PAGE_SIZE = 16
 PAGED_WINDOWS = (64, 256, 1024)
 PAGED_TOL = 1e-4  # both sides dequantize alike: row 1's tolerance
+DECODE_AB_SPLITS = (64, 128, 256)  # keys a decode CTA walks, in turns
 DECODE_REPLACES = "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
 VARIANTS = {  # name: (kernel row, replaces line, paged, int8)
     "decode_attention_int8": ("1q", "decode_attention.py:71", False, True),
     "paged_decode_attention": ("2", "decode_attention.py:191", True, False),
-    "paged_decode_attention_int8": ("2", "decode_attention.py:191", True,
+    "paged_decode_attention_int8": ("2q", "decode_attention.py:191", True,
                                     True),
 }
 SERVE_BASE = ["--model", "gpt_small", "--random_init", "--dtype",
@@ -394,6 +420,95 @@ def _device_ms(fn, torch, calls=GRAPH_CALLS, reps=REPS):
     return statistics.median(times)
 
 
+def _nbytes(*xs):
+    """Bytes of tensors and int8 K/V pairs (None counts 0)."""
+    return sum(_nbytes(x.data, x.scale) if hasattr(x, "scale")
+               else x.numel() * x.element_size()
+               for x in xs if x is not None)
+
+
+def _cold_ms(call, inputs, torch):
+    """Device time of one ``call(*inputs)`` with its inputs L2-cold: the
+    graph's calls cycle through copies of ``inputs`` (tensors, int8 K/V
+    pairs, None) whose bytes exceed the L2 twice."""
+    def clone(x):
+        if x is None:
+            return None
+        if hasattr(x, "scale"):
+            return type(x)(x.data.clone(), x.scale.clone())
+        return x.clone()
+
+    n = math.ceil(2 * L2_BYTES / _nbytes(*inputs)) + 1
+    copies = itertools.cycle([tuple(clone(x) for x in inputs)
+                              for _ in range(n)])
+    ms = _device_ms(lambda: call(*next(copies)), torch)
+    del copies
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _graph_bits(call, torch):
+    """``call()`` captured once in a CUDA graph and replayed into an
+    output cleared first: its bits, to hold against an eager call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _plan_text(da, q, window):
+    """The decode kernels' cut of a call, as the lines print it."""
+    b, _, h, d = q.shape
+    plan = da.decode_split_plan(b, h, window, d)
+    return (f"split {plan.split} x {plan.n_splits}, "
+            + ("one launch" if plan.partials is None
+               else "split + merge launches"))
+
+
+def _decode_builds(log):
+    """``(kernel, registers, spill stores, spill loads)`` of every
+    decode split and merge instantiation in the ``-Xptxas -v`` report,
+    the kernel named by its template arguments (q type, K/V type, Dh,
+    paged)."""
+    types = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
+    found, name, spills = [], None, None
+    for line in log.splitlines():
+        prop = re.search(r"Function properties for (\S+)", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if prop:
+            name, spills = prop.group(1), None
+        elif spill and name:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        elif used and name and spills and "decode_" in name:
+            split = re.search(r"decode_split_kernelI(f|13__nv_bfloat16)"
+                              r"(f|a|13__nv_bfloat16|S\d*_)Li(\d+)ELb(\d)E",
+                              name)
+            merge = re.search(r"decode_merge_kernelILi(\d+)E", name)
+            if split:
+                q_type = types[split.group(1)]
+                kv = types.get(split.group(2), q_type)
+                label = (f"decode_split_kernel<q {q_type}, K/V {kv}, Dh "
+                         f"{split.group(3)}, "
+                         f"{'paged' if split.group(4) == '1' else 'dense'}>")
+            elif merge:
+                label = f"decode_merge_kernel<Dh {merge.group(1)}>"
+            else:
+                continue
+            found.append((label, int(used.group(1))) + spills)
+            name = None
+    return found
+
+
 def _decode_inputs(torch, window, dtype, seed):
     """q/k/v/positions at gpt_small decode shapes; positions hold 0,
     W-1, one beyond the window and random columns."""
@@ -426,9 +541,10 @@ def _bound(q, k, positions, rate):
 
 def _time_decode(torch, F, decode_attention, torch_decode_attention, q, k,
                  v, pos, rate):
-    """Device times of the kernel, the plain version and the library
-    call, the kernel's eager per-call time, and the bound, for one
-    input. Launches made here are not counted."""
+    """Device times of the kernel (its window L2-warm, and L2-cold), the
+    plain version and the library call, the kernel's eager per-call
+    time, and the bound, for one input. Launches made here are not
+    counted."""
     scale = q.shape[-1] ** -0.5
     mask = (torch.arange(k.shape[1], device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]
@@ -439,6 +555,8 @@ def _time_decode(torch, F, decode_attention, torch_decode_attention, q, k,
         decode_attention(q, k, v, pos, impl="cuda")
 
     ms = _device_ms(kernel, torch)
+    cold_ms = _cold_ms(
+        lambda *x: decode_attention(*x, impl="cuda"), (q, k, v, pos), torch)
     eager_ms = _eager_ms(kernel, torch)
     decode_attention.launches = launches
     plain_ms = _device_ms(lambda: torch_decode_attention(q, k, v, pos),
@@ -447,8 +565,8 @@ def _time_decode(torch, F, decode_attention, torch_decode_attention, q, k,
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                scale=scale), torch)
     bound_ms, bound_by = _bound(q, k, pos, rate)
-    return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms,
+    return dict(ms=ms, cold_ms=cold_ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
 
@@ -788,11 +906,16 @@ def _variant_bound(q, k, table, pos, window, rate):
 
 def _time_variant(torch, F, da, variant, q, k, v, table, pos, window,
                   rate):
-    """Device times of one variant's kernel, its plain version and the
-    library call (SDPA on the window gathered and dequantized before the
-    timing), the kernel's eager time and the bound."""
+    """Device times of one variant's kernel (its inputs L2-warm, and
+    L2-cold), its plain version and the library call (SDPA on the window
+    gathered and dequantized before the timing), the kernel's eager time
+    and the bound. Launches made here are not counted."""
+    counts = _decode_counts(da)
     kernel, plain = _variant_calls(da, variant, q, k, v, table, pos,
                                    window)
+    cold_ms = _cold_ms(
+        lambda *x: _variant_calls(da, variant, *x, window)[0](),
+        (q, k, v, table, pos), torch)
     if table is None:
         kd, vd = (da.dequantize_kv(t, q.dtype) for t in (k, v))
     else:
@@ -803,16 +926,43 @@ def _time_variant(torch, F, da, variant, q, k, v, table, pos, window,
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kd, vd))
     scale = q.shape[-1] ** -0.5
     bound_ms, bound_by = _variant_bound(q, k, table, pos, window, rate)
-    return dict(
-        ms=_device_ms(kernel, torch), eager_ms=_eager_ms(kernel, torch),
-        plain_ms=_device_ms(plain, torch),
+    t = dict(
+        ms=_device_ms(kernel, torch), cold_ms=cold_ms,
+        eager_ms=_eager_ms(kernel, torch), plain_ms=_device_ms(plain, torch),
         library_ms=_device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=scale), torch),
         bound_ms=bound_ms, bound_by=bound_by)
+    _set_decode_counts(da, counts)
+    return t
 
 
 _COUNTED = ("decode_attention", "paged_decode_attention",
             "verify_decode_attention", "paged_verify_decode_attention")
+
+
+def _decode_split_ab(torch, da, variant, inputs, window):
+    """The decode kernels at each split of DECODE_AB_SPLITS in turns
+    (forward, then back), each call first checked against the plain
+    version: ``{split: ([L2-warm ms], [L2-cold ms])}``."""
+    kernel, plain = _variant_calls(da, variant, *inputs, window)
+    ref = plain()
+    default = da.DECODE_SPLIT
+    times = {split: ([], []) for split in DECODE_AB_SPLITS}
+    try:
+        for split in DECODE_AB_SPLITS + DECODE_AB_SPLITS[::-1]:
+            da.DECODE_SPLIT = split
+            err = float((kernel() - ref).abs().max())
+            if not err <= PAGED_TOL:
+                raise AssertionError(
+                    f"{variant} split {split}: max|err| {err} > "
+                    f"{PAGED_TOL}")
+            times[split][0].append(_device_ms(kernel, torch))
+            times[split][1].append(_cold_ms(
+                lambda *x: _variant_calls(da, variant, *x, window)[0](),
+                inputs, torch))
+    finally:
+        da.DECODE_SPLIT = default
+    return times
 
 
 def _zero_decode_counts(da):
@@ -820,6 +970,13 @@ def _zero_decode_counts(da):
     for name in _COUNTED:
         getattr(da, name).launches = 0
         getattr(da, name).int8_launches = 0
+
+
+def _set_decode_counts(da, counts):
+    """Put back the launch counts :func:`_decode_counts` read."""
+    for name in _COUNTED:
+        getattr(da, name).launches = counts[name]
+        getattr(da, name).int8_launches = counts[f"{name}_int8"]
 
 
 def _decode_counts(da):
@@ -876,12 +1033,12 @@ def _verify_case(torch, quantize_kv, variant, window, dtype, seed,
     return q, k, v, table, pos
 
 
-def _paged_twin(torch, da, k, v, pos, window, seed):
+def _paged_twin(torch, da, k, v, pos, window, seed, rows=VERIFY_ROWS):
     """The dense window ``k``/``v`` (``[8, W, 12, 64]``, or its int8
     pair) laid out in shuffled pages of PAGE_SIZE behind a scratch page 0
     (K NaN, V 1e30; int8: 127 with those scales), with the table entries
-    past each slot's last reachable column on page 0: (K pages, V pages,
-    table)."""
+    past each slot's last reachable column (of ``rows`` query rows) on
+    page 0: (K pages, V pages, table)."""
     n, _, h, _ = k.shape
     ps = PAGE_SIZE
     n_win = -(-window // ps)
@@ -902,7 +1059,7 @@ def _paged_twin(torch, da, k, v, pos, window, seed):
 
     kp, vp = lay(k, float("nan")), lay(v, 1e30)
     for row, p in enumerate(pos.tolist()):
-        reach = min(p + VERIFY_ROWS - 1, window - 1)
+        reach = min(p + rows - 1, window - 1)
         table[row, -(-(reach + 1) // ps):] = 0
     return kp, vp, table
 
@@ -970,11 +1127,11 @@ def _time_verify(torch, F, da, q, k, v, table, pos, window, rate):
         bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _verify_profile(torch, kernel):
-    """Device time a call of the verify kernel's two launches, the split
-    kernel and the merge kernel, from ``torch.profiler`` over
-    PROFILE_CALLS eager calls (None where the trace shows no device
-    time). Launches made here are not counted."""
+def _split_profile(torch, kernel, names):
+    """Device time a call of each kernel in ``names`` (a split kernel
+    and its merge kernel), from ``torch.profiler`` over PROFILE_CALLS
+    eager calls (None where the trace shows no device time). Launches
+    made here are not counted."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         kernel()
@@ -984,7 +1141,7 @@ def _verify_profile(torch, kernel):
         for _ in range(PROFILE_CALLS):
             kernel()
         torch.cuda.synchronize()
-    times = dict.fromkeys(("verify_split_kernel", "verify_merge_kernel"))
+    times = dict.fromkeys(names)
     for event in prof.key_averages():
         total = getattr(event, "device_time_total", 0)
         for name in times:
@@ -1144,6 +1301,18 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "entry function" in line or "C7512" in line):
                 _print(f"[build] {src}: {line.strip()}")
+    decode_log = _build.BUILD_DIR / "decode_attention.log"
+    decode_builds = _decode_builds(
+        reports.get("decode_attention")
+        or (decode_log.read_text() if decode_log.exists() else ""))
+    if len(decode_builds) != 2 * 2 * 2 * 3 + 3:
+        raise AssertionError(
+            f"the decode build report names {len(decode_builds)} split and "
+            "merge instantiations; expected 27 (dense/paged x model "
+            "dtype/int8 x f32/bf16 q x Dh 32/64/128, and 3 merges)")
+    for label, regs, stores, loads in decode_builds:
+        _print(f"[build] {label}: {regs} registers, spill stores {stores} "
+               f"bytes, spill loads {loads} bytes")
 
     # -- phase 3: kernel against its plain version
     worst = 0.0
@@ -1151,7 +1320,11 @@ def main() -> int:
         tname = str(dtype).split(".")[1]
         for w in WINDOWS:
             q, k, v, pos = _decode_inputs(torch, w, dtype, seed=w)
-            got = decode_attention(q, k, v, pos, impl="cuda")
+
+            def call():
+                return decode_attention(q, k, v, pos, impl="cuda")
+
+            got, again = call(), call()
             torch.cuda.synchronize()
             ref = torch_decode_attention(q, k, v, pos)
             err = float((got - ref).abs().max())
@@ -1159,17 +1332,27 @@ def main() -> int:
                 raise AssertionError(
                     f"decode_attention {tname} W={w}: max|err| {err} > "
                     f"{TOL[tname]}")
+            if not (torch.equal(got, again)
+                    and torch.equal(_graph_bits(call, torch), got)):
+                raise AssertionError(
+                    f"decode_attention {tname} W={w}: two calls, or the "
+                    "graph replay and the eager call, differ")
             worst = max(worst, err)
             t = _time_decode(torch, F, decode_attention,
                              torch_decode_attention, q, k, v, pos, rate)
             _print(f"[kernel] decode_attention {tname} N=8 H=12 Dh=64 "
-                   f"W={w} positions={pos.tolist()} max_abs_err={err:.3e} "
-                   f"(tol {TOL[tname]}) ms={t['ms']:.5f} "
+                   f"W={w} ({DECODE_KERNELS}: {_plan_text(da, q, w)}) "
+                   f"positions={pos.tolist()} max_abs_err={err:.3e} "
+                   f"(tol {TOL[tname]}), two calls and the graph replay "
+                   f"bit-equal, ms={t['ms']:.5f} (L2-warm) "
+                   f"cold_ms={t['cold_ms']:.5f} (L2-cold) "
                    f"eager_ms={t['eager_ms']:.5f} "
                    f"plain_ms={t['plain_ms']:.5f} "
                    f"library_ms={t['library_ms']:.5f} "
                    f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) "
                    f"[{smi}]")
+            if dtype == torch.bfloat16 and w == max(WINDOWS):
+                row1_long = dict(t, max_abs_err=err)
 
     # -- phase 4: serve through the port's CLI entry
     decode_attention.launches = 0
@@ -1442,7 +1625,7 @@ def main() -> int:
                                                     seed=w + 7)
                 kernel, plain = _variant_calls(da, variant, q, k, v, table,
                                                pos, w)
-                got = kernel()
+                got, again = kernel(), kernel()
                 torch.cuda.synchronize()
                 ref = plain()
                 err = float((got - ref).abs().max())
@@ -1451,25 +1634,91 @@ def main() -> int:
                     raise AssertionError(
                         f"{variant} {tname} W={w}: max|err| {err} > "
                         f"{PAGED_TOL} (or not finite)")
+                if not (torch.equal(got, again)
+                        and torch.equal(_graph_bits(kernel, torch), got)):
+                    raise AssertionError(
+                        f"{variant} {tname} W={w}: two calls, or the graph "
+                        "replay and the eager call, differ")
                 variant_worst[variant] = max(variant_worst[variant], err)
                 paging = (f" page_size={PAGE_SIZE}" if table is not None
                           else "")
                 line = (f"[paged-kernel] {variant} {tname} N=8 H=12 Dh=64 "
-                        f"W={w}{paging} positions={pos.tolist()} "
-                        f"max_abs_err={err:.3e} (tol {PAGED_TOL})")
+                        f"W={w}{paging} ({DECODE_KERNELS}: "
+                        f"{_plan_text(da, q, w)}) positions={pos.tolist()} "
+                        f"max_abs_err={err:.3e} (tol {PAGED_TOL}), two calls "
+                        "and the graph replay bit-equal")
                 if dtype == torch.bfloat16 and w == max(PAGED_WINDOWS):
                     t = _time_variant(torch, F, da, variant, q, k, v, table,
                                       pos, w, rate)
                     variant_main[variant] = dict(
                         t, shape=f"bf16 N=8 H=12 Dh=64 W={w}{paging}"
                         + (" int8 KV" if VARIANTS[variant][3] else ""))
-                    line += (f" ms={t['ms']:.5f} eager_ms={t['eager_ms']:.5f}"
+                    line += (f" ms={t['ms']:.5f} (L2-warm) "
+                             f"cold_ms={t['cold_ms']:.5f} (L2-cold) "
+                             f"eager_ms={t['eager_ms']:.5f}"
                              f" plain_ms={t['plain_ms']:.5f} "
                              f"library_ms={t['library_ms']:.5f} "
                              f"bound_ms={t['bound_ms']:.5f} "
                              f"({t['bound_by']}) [{smi}]")
                 _print(line)
                 del q, k, v, table, pos
+    # a dense window and the same columns in shuffled pages: one order
+    for quant in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            for w in PAGED_WINDOWS:
+                if quant:
+                    q, k, v, _, pos = _variant_case(
+                        torch, quantize_kv, "decode_attention_int8", w,
+                        dtype, seed=w + 12)
+                else:
+                    q, k, v, pos = _decode_inputs(torch, w, dtype,
+                                                  seed=w + 12)
+                kp, vp, table = _paged_twin(torch, da, k, v, pos, w,
+                                            seed=w + 12, rows=1)
+                dense = da.decode_attention(q, k, v, pos, impl="cuda")
+                paged = da.paged_decode_attention(q, kp, vp, table, pos,
+                                                  window=w, impl="cuda")
+                torch.cuda.synchronize()
+                if not (torch.equal(dense, paged)
+                        and bool(torch.isfinite(paged).all())):
+                    raise AssertionError(
+                        f"decode int8={quant} {dtype} W={w}: dense and "
+                        "paged differ on the same columns")
+                del q, k, v, kp, vp, table, pos
+    _print("[paged-kernel] dense == paged bit for bit on the same columns "
+           f"(page_size={PAGE_SIZE}, shuffled, scratch page 0 of NaN/1e30): "
+           f"model dtype and int8, f32 and bf16, W={list(PAGED_WINDOWS)}")
+    # where a call's device time goes, and the split size, at bf16 W=1024
+    w = max(PAGED_WINDOWS)
+    q, k, v, pos = _decode_inputs(torch, w, torch.bfloat16, seed=w)
+    counts = _decode_counts(da)
+    decode_us = _split_profile(
+        torch, lambda: da.decode_attention(q, k, v, pos, impl="cuda"),
+        ("decode_split_kernel", "decode_merge_kernel"))
+    _print(f"[paged-kernel] profile decode_attention bf16 N=8 H=12 Dh=64 "
+           f"W={w} ({_plan_text(da, q, w)}; torch.profiler, "
+           f"{PROFILE_CALLS} eager calls): "
+           + ", ".join(f"{name} {t:.3f} us a call" if t is not None
+                       else f"{name} not measured"
+                       for name, t in decode_us.items()) + f" [{smi}]")
+    for variant in ("decode_attention",) + tuple(VARIANTS):
+        if variant != "decode_attention":
+            q, k, v, table, pos = _variant_case(
+                torch, quantize_kv, variant, w, torch.bfloat16, seed=w + 7)
+        else:
+            table = None
+        paging = f" page_size={PAGE_SIZE}" if table is not None else ""
+        times = _decode_split_ab(torch, da, variant, (q, k, v, table, pos), w)
+        _print(f"[decode-ab] {variant} bf16 N=8 H=12 Dh=64 W={w}{paging}: "
+               + ", ".join(
+                   f"split {split} {statistics.mean(warm) * 1e3:.3f} us "
+                   f"L2-warm ({warm[0] * 1e3:.3f} / {warm[1] * 1e3:.3f}), "
+                   f"{statistics.mean(cold) * 1e3:.3f} us L2-cold "
+                   f"({cold[0] * 1e3:.3f} / {cold[1] * 1e3:.3f})"
+                   for split, (warm, cold) in times.items())
+               + f" (default {da.DECODE_SPLIT}) [{smi}]")
+        del q, k, v, table, pos
+    _set_decode_counts(da, counts)
 
     # -- phase 13: serve paged, paged int8 and dense int8 through the CLI
     serve_runs = (
@@ -1650,8 +1899,9 @@ def main() -> int:
     q, k, v, table, pos = _verify_case(torch, quantize_kv,
                                        "verify_decode_attention", w,
                                        torch.bfloat16, seed=w + 15)
-    split_us = _verify_profile(torch, _verify_calls(da, q, k, v, table, pos,
-                                                    w)[0])
+    split_us = _split_profile(
+        torch, _verify_calls(da, q, k, v, table, pos, w)[0],
+        ("verify_split_kernel", "verify_merge_kernel"))
     _print(f"[verify-kernel] profile verify_decode_attention bf16 N=8 "
            f"K1={VERIFY_ROWS} H=12 Dh=64 W={w} (torch.profiler, "
            f"{PROFILE_CALLS} eager calls): "
@@ -1923,17 +2173,23 @@ def main() -> int:
             ("float32", FLASH_KERNELS_F32, train_launches_f32))
         for name in FLASH_PRODUCTS]
     _print(json.dumps({"kernels": [{
-        "name": "decode_attention", "route": "cuda",
+        "name": "decode_attention", "kernel": DECODE_KERNELS,
+        "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
                   "csrc/decode_attention.cu",
         "replaces": "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
                     "decode_attention.py:71",
         "launches": launches, "max_abs_err": max(worst, err),
-        "ms": t["ms"], "kernel_ms": t["ms"], "eager_ms": t["eager_ms"],
-        "plain_ms": t["plain_ms"],
+        "ms": t["ms"], "kernel_ms": t["ms"], "cold_ms": t["cold_ms"],
+        "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-        "shape": f"bf16 N=8 H=12 Dh=64 W={w_main}"}] + flash_entries + [{
+        "library": "F.scaled_dot_product_attention with the position mask",
+        "shape": f"bf16 N=8 H=12 Dh=64 W={w_main}",
+        **{f"w{max(WINDOWS)}_{key}": row1_long[key]
+           for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms")}}]
+        + flash_entries + [{
         "name": "fused_sgd", "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
                   "csrc/fused_update.cu",
@@ -1948,7 +2204,7 @@ def main() -> int:
                    "nesterov=True, fused=True).step())",
         "library_step_ms": sgd_t["library_step_ms"],
         "shape": f"f32 N={SGD_SIZES[0]}"}] + [{
-        "name": variant, "route": "cuda",
+        "name": variant, "kernel": DECODE_KERNELS, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
                   "csrc/decode_attention.cu",
         "replaces": DECODE_REPLACES + VARIANTS[variant][1],
@@ -1956,6 +2212,7 @@ def main() -> int:
         "max_abs_err": variant_worst[variant],
         "ms": variant_main[variant]["ms"],
         "kernel_ms": variant_main[variant]["ms"],
+        "cold_ms": variant_main[variant]["cold_ms"],
         "eager_ms": variant_main[variant]["eager_ms"],
         "plain_ms": variant_main[variant]["plain_ms"],
         "bound_ms": variant_main[variant]["bound_ms"],

@@ -1,17 +1,17 @@
 // Flash-decode attention for Hopper (sm_90a): one cached query per slot
-// over its KV window, f32 online softmax, f32 output. Four variants of
-// one kernel, chosen by a loader template (the k-query verify kernels,
-// rows 3 and 4 of the port's kernel table, follow at the end of the
-// file):
+// over its KV window (rows 1 and 2 of the port's kernel table, at the end
+// of the file), and its k-query twin, the speculative verify pass (rows 3
+// and 4, whose shared-memory ring the decode kernels reuse). f32 online
+// softmax, f32 output.
 //
-//   dense, model dtype  — replaces `_decode_kernel` (quant=False)
-//   dense, int8 + scale — replaces `_decode_kernel` (quant=True)
-//   paged, model dtype  — replaces `_paged_decode_kernel` (quant=False)
-//   paged, int8 + scale — replaces `_paged_decode_kernel` (quant=True)
+// The decode kernels replace, in pytorch_multiprocessing_distributed_tpu/
+// ops/pallas/decode_attention.py:
 //
-// (all in pytorch_multiprocessing_distributed_tpu/ops/pallas/
-// decode_attention.py, launched by `_pallas_decode` and
-// `_pallas_paged_decode`).
+//   dense, model dtype  — `_decode_kernel` (quant=False), `_pallas_decode`
+//   dense, int8 + scale — `_decode_kernel` (quant=True)
+//   paged, model dtype  — `_paged_decode_kernel` (quant=False),
+//                         `_pallas_paged_decode`
+//   paged, int8 + scale — `_paged_decode_kernel` (quant=True)
 //
 //   out[b, 0, h, :] = softmax(q[b,0,h,:] . K[b, 0..n_b-1, h, :]^T * Dh^-1/2)
 //                     . V[b, 0..n_b-1, h, :],   n_b = min(pos_b, W-1) + 1
@@ -22,40 +22,55 @@
 // and an int8 row carries one f32 scale per (token, head), read through
 // the same (base, c') from its `[.., H]` / `[P, H, ps]` sidecar.
 //
-// What bounds it on the card: HBM bytes. Each (slot, head) reads its
-// n_b keys and values once (2 * n_b * Dh * elt bytes, plus 2 * n_b * 4
-// bytes of scales for int8) and does 4 flops per element read, far
-// below the ~295 flop/byte the H100 needs before compute matters. So
-// the design only moves bytes, and moves each once:
-//   - one CTA per (slot, head); K/V are read through their strides (the
-//     engine's window view `k_cache[:, :W]` and its layer of the page
-//     storage are never copied; the Pallas wrapper's merge/moveaxis and
-//     the plain version's gather have no twin here);
-//   - every thread loads 16 bytes per key (4 f32, 8 bf16 or 16 int8
-//     lanes); the lanes of one key form a group of Dh/VEC threads that
-//     reads the key's Dh contiguous elements in whole cache lines;
-//     groups across the CTA walk different keys in parallel;
-//   - int8: the group's first lane reads the key's scale once and
-//     shares it by shuffle; each lane dequantizes exactly as
-//     `_kernel_dequant` does — f32 product, rounded to the query's dtype
-//     (bf16: round to nearest even), widened for the dot — so the
-//     kernel agrees with the plain dequantize-then-attend version;
-//   - paged: each key reads its page number from the slot's table row
-//     (one int per key, an L1 hit for the other keys of the page); a
-//     page past the slot's position is never touched, so unallocated
-//     entries (the scratch page 0) are never read;
-//   - each group keeps its own online-softmax state (running max m,
-//     denominator l, unnormalised accumulator) in registers, so the row
-//     of logits never touches memory; groups merge once in shared
-//     memory at the end;
-//   - only columns 0..min(pos, W-1) are read: the work tracks each
-//     slot's true length, and a row whose position lies beyond the
-//     window (a frozen or inactive slot) is clamped to the window, as
-//     the XLA reference does (the Pallas paged kernel would attend the
-//     rest of the window's last page).
-// Known limit: with 8 slots x 12 heads the grid is 96 CTAs for 132 SMs,
-// and one CTA walks the whole row. Splitting the key range across CTAs
-// (split-K flash-decoding) is the next step for small batches.
+// What bounds it on the card: HBM bytes. Each (slot, head) reads its n_b
+// keys and values once (2 * n_b * Dh * elt bytes, plus 2 * n_b * 4 bytes
+// of scales for int8) and does 4 flops per element read, far below the
+// ~295 flop/byte the H100 needs before compute matters. So the design
+// moves each byte once, with enough CTAs and enough loads in flight
+// (`decode_split_kernel` and `decode_merge_kernel`, at the end of the
+// file):
+//   - split-K over the window. The grid is (slot x head, key split); a
+//     CTA walks `split` keys (a multiple of 64) of its slot's reach
+//     min(pos, W-1). The wrapper picks the split from W, B, H and Dh
+//     alone, never from the layout or the page size, so a dense window
+//     and the same columns in pages walk the same keys in the same order
+//     and agree bit for bit. A split that starts past the reach returns
+//     before it reads the table or K/V, and the splits are dispatched last
+//     first, so those CTAs leave their slots to the live ones early;
+//   - loads in flight: the verify kernels' shared-memory ring (`Ring`,
+//     `stage_keys`): 64-key K and V tiles (and the int8 scales beside
+//     them) staged with cp.async, the whole split at once where it fits,
+//     dense rows through their strides (the engine's window view is never
+//     copied), paged rows through the slot's table row; every table entry
+//     of a tile is read before its first copy, and keys past the reach are
+//     zero-filled and never located, so no entry or page past the reach
+//     (the scratch page 0) is read;
+//   - one query row on the CUDA cores: each of the 4 warps takes 16 keys
+//     of every staged tile, two lanes a key for the logit (each half of
+//     Dh), and keeps its own online softmax in registers (f32 m, l and
+//     its Dh / 32 columns of acc), logits prescaled by scale * log2 e and
+//     exponentiated with ex2; P stays f32, as the plain version keeps it
+//     (an mma tile would spend 15/16 of its rows on zeros). int8 lanes
+//     are dequantized on their way from shared memory exactly as
+//     `_kernel_dequant` does (f32 product with the scale, rounded to the
+//     query's dtype), off the conversion unit, which runs at a quarter
+//     of the ALU's rate and bounded the int8 variants: a byte becomes an
+//     f32 by a byte permute and a subtraction, and two products round to
+//     bf16 in one cvt.rn.bf16x2.f32. f32 q runs the same body. The warps'
+//     states merge in shared memory at the end of the CTA;
+//   - a window of one split (W <= split: the serve path's short buckets)
+//     is one launch: the CTA writes `out` itself, with no workspace and
+//     no merge. Otherwise each live CTA writes its partial (acc[Dh], m, l)
+//     to the f32 workspace the wrapper allocates, and `decode_merge_kernel`
+//     (the split kernel's programmatic dependent: it starts early and
+//     waits for the split grid's end) folds the live splits in split
+//     order: deterministic, and both launches can be captured in a CUDA
+//     graph. (A fold by the last live CTA of each (slot, head), behind a
+//     counter it sets back to zero, gave the same bits in one launch but
+//     was slower at every variant: its fence and atomic cost more than
+//     the merge kernel's tail);
+//   - a row whose position lies beyond the window (a frozen or inactive
+//     slot) is clamped to the window, as the XLA reference does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,66 +82,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-
-// 16-byte loads of the K/V storage type, widened to f32
-template <typename S>
-struct Lanes;
-
-template <>
-struct Lanes<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* f) {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    f[0] = r.x;
-    f[1] = r.y;
-    f[2] = r.z;
-    f[3] = r.w;
-  }
-};
-
-template <>
-struct Lanes<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* f) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-template <>
-struct Lanes<int8_t> {
-  static constexpr int N = 16;
-  static __device__ __forceinline__ void load(const int8_t* p, float* f) {
-    const int4 r = *reinterpret_cast<const int4*>(p);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(c[i]);
-  }
-};
-
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// the dequantized value as the query's dtype holds it
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 }  // namespace
@@ -156,177 +114,6 @@ struct PmdtDecodeArgs {
   long long vs_s0, vs_s1, vs_s2;
   float scale;
 };
-
-namespace {
-
-template <typename T, typename S, int D, bool PAGED>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_attention_kernel(const PmdtDecodeArgs a) {
-  using L = Lanes<S>;
-  constexpr bool QUANT = std::is_same<S, int8_t>::value;
-  constexpr int VEC = L::N;
-  constexpr int LANES = D / VEC;              // threads per key
-  constexpr int KEYS_PER_WARP = 32 / LANES;   // keys a warp reads at once
-  constexpr int GROUPS = kWarps * KEYS_PER_WARP;
-  static_assert(D % VEC == 0 && LANES <= 32 && 32 % LANES == 0,
-                "head_dim must split into 16-byte lanes within a warp");
-
-  __shared__ float sm_m[GROUPS];
-  __shared__ float sm_l[GROUPS];
-  __shared__ float sm_acc[GROUPS][D];
-
-  const int H = a.H;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int sub = lane % LANES;                      // Dh slice of this thread
-  const int group = warp * KEYS_PER_WARP + lane / LANES;
-
-  const int pos = a.positions[b];
-  const int n_keys = min(pos, a.W - 1) + 1;  // <= 0 only for pos < 0: zeros
-
-  float qf[VEC];
-  const T* q_row = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
-                   sub * VEC;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) qf[i] = to_float(q_row[i]);
-  const S* k = static_cast<const S*>(a.k) + h * a.k_s2 + sub * VEC;
-  const S* v = static_cast<const S*>(a.v) + h * a.v_s2 + sub * VEC;
-  const int* t_row =
-      PAGED ? a.table + static_cast<long long>(b) * a.table_stride : nullptr;
-
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-
-  // The loop bound is uniform across a warp (base steps by GROUPS), so
-  // every lane reaches the shuffles below; lanes whose key lies past
-  // n_keys skip the loads and the state update.
-  for (int base = warp * KEYS_PER_WARP; base < n_keys; base += GROUPS) {
-    const int j = base + lane / LANES;
-    const bool valid = j < n_keys;
-    long long row = b;  // dense: the slot; paged: the page
-    long long col = j;
-    if (PAGED && valid) {
-      const int blk = j / a.page_size;
-      row = t_row[blk];
-      col = j - blk * a.page_size;
-    }
-    float kf[VEC];
-    float vf[VEC];
-    if (valid) {
-      L::load(k + row * a.k_s0 + col * a.k_s1, kf);
-      L::load(v + row * a.v_s0 + col * a.v_s1, vf);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) kf[i] = vf[i] = 0.f;
-    }
-    if (QUANT) {
-      // one scale read per (token, head), shared across the key's lanes
-      float ks = 0.f;
-      float vs = 0.f;
-      if (valid && sub == 0) {
-        ks = a.k_scale[row * a.ks_s0 + col * a.ks_s1 + h * a.ks_s2];
-        vs = a.v_scale[row * a.vs_s0 + col * a.vs_s1 + h * a.vs_s2];
-      }
-      ks = __shfl_sync(0xffffffffu, ks, lane - sub);
-      vs = __shfl_sync(0xffffffffu, vs, lane - sub);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        kf[i] = round_to<T>(__fmul_rn(kf[i], ks));
-        vf[i] = round_to<T>(__fmul_rn(vf[i], vs));
-      }
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) s = fmaf(qf[i], kf[i], s);
-#pragma unroll
-    for (int off = LANES / 2; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (valid) {
-      s *= a.scale;
-      const float m_new = fmaxf(m, s);
-      const float corr = expf(m - m_new);  // m = -inf on the first key: 0
-      const float p = expf(s - m_new);
-      l = l * corr + p;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = fmaf(acc[i], corr, p * vf[i]);
-      m = m_new;
-    }
-  }
-
-  if (sub == 0) {
-    sm_m[group] = m;
-    sm_l[group] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) sm_acc[group][sub * VEC + i] = acc[i];
-  __syncthreads();
-
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float mx = -INFINITY;
-#pragma unroll 4
-    for (int g = 0; g < GROUPS; ++g) mx = fmaxf(mx, sm_m[g]);
-    float den = 0.f;
-    float num = 0.f;
-#pragma unroll 4
-    for (int g = 0; g < GROUPS; ++g) {
-      // a group that saw no key keeps m = -inf and weighs nothing
-      const float w = sm_m[g] == -INFINITY ? 0.f : expf(sm_m[g] - mx);
-      den = fmaf(sm_l[g], w, den);
-      num = fmaf(sm_acc[g][d], w, num);
-    }
-    a.out[(static_cast<long long>(b) * H + h) * D + d] =
-        num / fmaxf(den, 1e-30f);
-  }
-}
-
-template <typename T, typename S, int D>
-cudaError_t launch(const PmdtDecodeArgs& a, cudaStream_t stream) {
-  if (a.table != nullptr)
-    decode_attention_kernel<T, S, D, true>
-        <<<a.B * a.H, kWarps * 32, 0, stream>>>(a);
-  else
-    decode_attention_kernel<T, S, D, false>
-        <<<a.B * a.H, kWarps * 32, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, typename S>
-cudaError_t launch_dim(const PmdtDecodeArgs& a, cudaStream_t stream) {
-  switch (a.D) {
-    case 32:
-      return launch<T, S, 32>(a, stream);
-    case 64:
-      return launch<T, S, 64>(a, stream);
-    case 128:
-      return launch<T, S, 128>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// One launch of the variant `args` names (dtype, quant, table). The
-// Python wrapper checks shapes, unit head_dim strides and 16-byte row
-// alignment. Returns a cudaError_t.
-extern "C" int pmdt_decode_attention(const PmdtDecodeArgs* args,
-                                     void* stream) {
-  const PmdtDecodeArgs& a = *args;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.dtype == 0)
-    return static_cast<int>(a.quant ? launch_dim<float, int8_t>(a, s)
-                                    : launch_dim<float, float>(a, s));
-  if (a.dtype == 1)
-    return static_cast<int>(
-        a.quant ? launch_dim<__nv_bfloat16, int8_t>(a, s)
-                : launch_dim<__nv_bfloat16, __nv_bfloat16>(a, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 
 // ---- k-query verify: rows 3 and 4 ----------------------------------------
@@ -999,14 +786,52 @@ verify_split_kernel(const PmdtVerifyArgs va, const int stages) {
   }
 }
 
+// one row's partials over the `live` splits (`stride` floats apart)
+// folded in split order, four columns from d: (m, l, acc) online, eight
+// splits at a time, each eight's loads issued before any is used; acc / l
+template <int D>
+__device__ __forceinline__ float4 fold_splits(const float* __restrict__ part,
+                                              int stride, int live, int d) {
+  constexpr int kBatch = 8;  // splits whose loads are in flight together
+  float mx = -INFINITY;
+  float den = 0.f;
+  float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < live; s0 += kBatch) {
+    float m[kBatch];
+    float l[kBatch];
+    float4 x[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const float* p = part + (s0 + j) * stride;
+      m[j] = s0 + j < live ? p[D] : -INFINITY;
+      if (s0 + j < live) {
+        l[j] = p[D + 1];
+        x[j] = *reinterpret_cast<const float4*>(p + d);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (m[j] == -INFINITY) continue;  // no key of this row: skipped
+      const float m_new = fmaxf(mx, m[j]);
+      const float co = ex2(mx - m_new);  // mx = -inf: 0
+      const float cn = ex2(m[j] - m_new);
+      den = fmaf(den, co, l[j] * cn);
+      num = make_float4(fmaf(num.x, co, x[j].x * cn),
+                        fmaf(num.y, co, x[j].y * cn),
+                        fmaf(num.z, co, x[j].z * cn),
+                        fmaf(num.w, co, x[j].w * cn));
+      mx = m_new;
+    }
+  }
+  den = fmaxf(den, 1e-30f);
+  return make_float4(num.x / den, num.y / den, num.z / den, num.w / den);
+}
+
 // out[b, r, h, :] from the live splits' partials, folded in split order:
-// a thread takes four columns of a row and folds (m, l, acc) over the
-// splits online, eight at a time, each eight's loads issued before any is
-// used
+// a thread takes four columns of a row
 template <int D>
 __global__ void __launch_bounds__(kVerifyThreads)
 verify_merge_kernel(const PmdtVerifyArgs va) {
-  constexpr int kBatch = 8;  // splits whose loads are in flight together
   const PmdtDecodeArgs& a = va.d;
   const int H = a.H;
   const int b = blockIdx.x / H;
@@ -1025,40 +850,9 @@ verify_merge_kernel(const PmdtVerifyArgs va) {
   for (int idx = threadIdx.x; idx < rows * (D / 4); idx += kVerifyThreads) {
     const int r = idx / (D / 4);
     const int d = (idx - r * (D / 4)) * 4;
-    float mx = -INFINITY;
-    float den = 0.f;
-    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s0 = 0; s0 < live; s0 += kBatch) {
-      float m[kBatch];
-      float l[kBatch];
-      float4 x[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const float* p = part + (s0 + j) * P + r * kPartialRow<D>;
-        m[j] = s0 + j < live ? p[D] : -INFINITY;
-        if (s0 + j < live) {
-          l[j] = p[D + 1];
-          x[j] = *reinterpret_cast<const float4*>(p + d);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        if (m[j] == -INFINITY) continue;  // no key of this row: skipped
-        const float m_new = fmaxf(mx, m[j]);
-        const float co = ex2(mx - m_new);  // mx = -inf: 0
-        const float cn = ex2(m[j] - m_new);
-        den = fmaf(den, co, l[j] * cn);
-        num = make_float4(fmaf(num.x, co, x[j].x * cn),
-                          fmaf(num.y, co, x[j].y * cn),
-                          fmaf(num.z, co, x[j].z * cn),
-                          fmaf(num.w, co, x[j].w * cn));
-        mx = m_new;
-      }
-    }
-    den = fmaxf(den, 1e-30f);
     *reinterpret_cast<float4*>(
         a.out + ((static_cast<long long>(b) * va.k1 + r0 + r) * H + h) * D +
-        d) = make_float4(num.x / den, num.y / den, num.z / den, num.w / den);
+        d) = fold_splits<D>(part + r * kPartialRow<D>, P, live, d);
   }
 }
 
@@ -1126,5 +920,340 @@ extern "C" int pmdt_verify_attention(const PmdtVerifyArgs* args,
     return static_cast<int>(
         a.d.quant ? launch_verify_dim<__nv_bfloat16, int8_t>(a, s)
                   : launch_verify_dim<__nv_bfloat16, __nv_bfloat16>(a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+
+// ---- one query row: rows 1 and 2 ------------------------------------------
+//
+// `decode_split_kernel` (on the verify kernels' ring and staging) and
+// `decode_merge_kernel`; the design is in the note at the top of the file.
+
+struct PmdtDecodeSplitArgs {
+  PmdtDecodeArgs d;  // d.out is [B, 1, H, Dh] f32, contiguous
+  float* partials;   // [B*H, n_splits, Dh + 4] f32 workspace; null for one
+  int split;         // keys a CTA walks, a multiple of kVerifyKeys
+  int n_splits;      // ceil(W / split); 1: the CTA writes out itself
+};
+
+namespace {
+
+constexpr int kWarpKeys = kVerifyKeys / 4;  // keys of a tile a warp takes
+
+template <typename S, int N>
+struct alignas(sizeof(S) * N) Pack {
+  S x[N];
+};
+
+// the dequantized value as the query's dtype T holds it
+template <typename T>
+__device__ __forceinline__ float dequant(float x, float s) {
+  const float y = __fmul_rn(x, s);
+  return std::is_same<T, float>::value
+             ? y
+             : __bfloat162float(__float2bfloat16_rn(y));
+}
+
+// byte k of a word of four int8 lanes as an exact f32, without the
+// conversion unit: the byte, biased to unsigned, becomes the low mantissa
+// byte of 2^23, and 2^23 + 128 comes off
+__device__ __forceinline__ float s8_lane(uint32_t biased, int k) {
+  return __uint_as_float(__byte_perm(biased, 0x4b000000u, 0x7540 + k)) -
+         8388736.f;
+}
+
+// N consecutive lanes, from element e, of a staged K or V row as f32;
+// int8 lanes dequantized as the plain version does: the f32 product with
+// the key's scale s, rounded to the query's dtype T
+template <typename T, typename S, int N>
+__device__ __forceinline__ void row_lanes(const unsigned char* row, int e,
+                                          float s, float (&f)[N]) {
+  const unsigned char* at = row + e * static_cast<int>(sizeof(S));
+  if constexpr (std::is_same<S, int8_t>::value) {
+    constexpr int NW = (N + 3) / 4;  // words of four lanes
+    uint32_t w[NW];
+    if constexpr (N >= 4) {
+      const Pack<uint32_t, NW> p =
+          *reinterpret_cast<const Pack<uint32_t, NW>*>(at);
+#pragma unroll
+      for (int i = 0; i < NW; ++i) w[i] = p.x[i] ^ 0x80808080u;
+    } else if constexpr (N == 2) {
+      w[0] = *reinterpret_cast<const uint16_t*>(at) ^ 0x80808080u;
+    } else {
+      w[0] = *at ^ 0x80808080u;
+    }
+    if constexpr (std::is_same<T, float>::value || N == 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        f[i] = dequant<T>(s8_lane(w[i / 4], i % 4), s);
+    } else {  // two lanes a bf16 rounding (one cvt.rn.bf16x2.f32)
+#pragma unroll
+      for (int i = 0; i < N; i += 2) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(
+            __fmul_rn(s8_lane(w[i / 4], i % 4), s),
+            __fmul_rn(s8_lane(w[i / 4], i % 4 + 1), s));
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(&h);
+        f[i] = __uint_as_float(u << 16);
+        f[i + 1] = __uint_as_float(u & 0xffff0000u);
+      }
+    }
+  } else {
+    const Pack<S, N> p = *reinterpret_cast<const Pack<S, N>*>(at);
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = to_float(p.x[i]);
+  }
+}
+
+template <typename T, typename S, int D, bool PAGED>
+__global__ void __launch_bounds__(kVerifyThreads)
+decode_split_kernel(const PmdtDecodeSplitArgs da, const int stages) {
+  using R = Ring<S, D>;
+  constexpr int HALF = D / 2;  // q and K lanes of a thread: half a row
+  constexpr int VEC = 16 / static_cast<int>(sizeof(S));  // a 16-byte read
+  constexpr int CPL = D / 32;  // V columns of a lane
+  static_assert(D % 32 == 0 && HALF % VEC == 0, "head_dim 32, 64 or 128");
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const PmdtDecodeArgs& a = da.d;
+  const int H = a.H;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int reach = max(min(a.positions[b], a.W - 1), -1);
+  const bool single = da.n_splits == 1;  // no merge: write out here
+  // splits in reverse: the last ones, most often past a slot's reach,
+  // are dispatched first and leave their slots to the live ones
+  const int split = gridDim.y - 1 - blockIdx.y;
+  const int kbeg = split * da.split;
+  if (!single && kbeg > reach) return;  // no reachable key in this split
+  // the merge kernel may start and wait for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int kend = max(kbeg, min(kbeg + da.split, reach + 1));
+  const int n_tiles = (kend - kbeg + kVerifyKeys - 1) / kVerifyKeys;
+  const int* t_row =
+      PAGED ? a.table + static_cast<long long>(b) * a.table_stride : nullptr;
+  auto stage = [&](int i) { return smem + (i % stages) * R::BYTES; };
+  auto fill = [&](int i) {
+    if (i < n_tiles)
+      stage_keys<S, D, PAGED>(a, stage(i), b, h, t_row,
+                              kbeg + i * kVerifyKeys, kend);
+    cp_async_commit();  // an empty group keeps the count uniform
+  };
+  for (int i = 0; i < stages; ++i) fill(i);  // in flight before q is read
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int half = lane & 1;  // lanes 2i and 2i + 1 take key i of the warp
+  const int kj = warp * kWarpKeys + (lane >> 1);  // that key in a tile
+  const float c = a.scale * kLog2e;
+  float qf[HALF];
+  {
+    const T* qr = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
+                  half * HALF;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) qf[i] = to_float(qr[i]);
+  }
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all_but(stages - 1);
+    __syncthreads();
+    const unsigned char* st = stage(it);
+    const int wk = kbeg + it * kVerifyKeys + warp * kWarpKeys;
+    if (wk < kend) {  // warp-uniform: the warp has keys in this tile
+      const float* sc = reinterpret_cast<const float*>(st + 2 * R::KV_BYTES);
+      // the logit of key kj, each lane of the pair over half of Dh
+      const unsigned char* kr = st + kj * R::ROW_BYTES;
+      const float ks = R::QUANT ? sc[kj] : 0.f;
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};  // four chains in flight
+#pragma unroll
+      for (int e = 0; e < HALF; e += VEC) {
+        float kf[VEC];
+        row_lanes<T, S, VEC>(kr, half * HALF + e, ks, kf);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          s4[i % 4] = fmaf(qf[e + i], kf[i], s4[i % 4]);
+      }
+      float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      const float t = wk + (lane >> 1) < kend ? s * c : -INFINITY;
+      // the online softmax in the log2 domain over the warp's 16 keys
+      float mx = t;
+#pragma unroll
+      for (int off = 16; off > 1; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m, mx);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = ex2(m - base);  // m = -inf: 0
+      const float p = ex2(t - base);     // a key past kend: 0
+      float ps = p;
+#pragma unroll
+      for (int off = 16; off > 1; off >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l = l * corr + ps;
+      m = m_new;
+      // acc = acc * corr + P V, the lane's CPL columns over the 16 keys
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) acc[i] *= corr;
+      const unsigned char* vr =
+          st + R::KV_BYTES + warp * kWarpKeys * R::ROW_BYTES;
+#pragma unroll
+      for (int j = 0; j < kWarpKeys; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, 2 * j);
+        const float vs =
+            R::QUANT ? sc[kVerifyKeys + warp * kWarpKeys + j] : 0.f;
+        float vf[CPL];
+        row_lanes<T, S, CPL>(vr + j * R::ROW_BYTES, lane * CPL, vs, vf);
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) acc[i] = fmaf(pj, vf[i], acc[i]);
+      }
+    }
+    __syncthreads();  // the stage is consumed: refill it
+    fill(it + stages);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: merge the 4 warps through it
+
+  float* xm = reinterpret_cast<float*>(smem);  // [4]
+  float* xl = xm + 4;                          // [4]
+  float* xa = xl + 4;                          // [4][D]
+  if (lane == 0) {
+    xm[warp] = m;
+    xl[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) xa[warp * D + lane * CPL + i] = acc[i];
+  __syncthreads();
+  if (tid < D) {
+    float mw = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mw = fmaxf(mw, xm[w]);
+    float den = 0.f;
+    float num = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      // a warp that saw no key keeps m = -inf and weighs nothing
+      const float wt = xm[w] == -INFINITY ? 0.f : ex2(xm[w] - mw);
+      den = fmaf(xl[w], wt, den);
+      num = fmaf(xa[w * D + tid], wt, num);
+    }
+    if (single) {  // no key at all (a negative position): zeros
+      a.out[static_cast<long long>(blockIdx.x) * D + tid] =
+          num / fmaxf(den, 1e-30f);
+    } else {
+      float* row = da.partials +
+                   (static_cast<long long>(blockIdx.x) * da.n_splits + split) *
+                       kPartialRow<D>;
+      row[tid] = num;
+      if (tid == 0) {
+        row[D] = mw;
+        row[D + 1] = den;
+      }
+    }
+  }
+}
+
+// out[b, 0, h, :] from the live splits' partials, folded in split order:
+// a thread takes four columns of one (slot, head) row
+template <int D>
+__global__ void __launch_bounds__(kVerifyThreads)
+decode_merge_kernel(const PmdtDecodeSplitArgs da) {
+  constexpr int TPR = D / 4;                 // threads a row
+  constexpr int RPC = kVerifyThreads / TPR;  // rows of a CTA
+  const PmdtDecodeArgs& a = da.d;
+  const int row = blockIdx.x * RPC + threadIdx.x / TPR;  // b * H + h
+  const int d = (threadIdx.x % TPR) * 4;
+  const bool valid = row < a.B * a.H;
+  int live = 0;  // as the split CTAs count them
+  if (valid) {
+    const int reach = min(a.positions[row / a.H], a.W - 1);
+    live = reach < 0 ? 0 : reach / da.split + 1;
+  }
+  // the partials are the split kernel's: wait for its grid to end
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (!valid) return;
+  *reinterpret_cast<float4*>(a.out + static_cast<long long>(row) * D + d) =
+      fold_splits<D>(
+          da.partials + static_cast<long long>(row) * da.n_splits *
+                            kPartialRow<D>,
+          kPartialRow<D>, live, d);
+}
+
+// the split kernel, then (more than one split) the merge kernel as its
+// programmatic dependent (launched while the split kernel runs, it waits
+// for its end)
+template <typename T, typename S, int D>
+cudaError_t launch_decode(const PmdtDecodeSplitArgs& a, cudaStream_t stream) {
+  // the ring holds the whole split where it fits, and no more keys than
+  // the window has
+  const int span = std::min(
+      a.split, (a.d.W + kVerifyKeys - 1) / kVerifyKeys * kVerifyKeys);
+  const int stages = ring_stages<S, D>(span);
+  const int bytes = stages * Ring<S, D>::BYTES;
+  const auto kernel = a.d.table != nullptr
+                          ? decode_split_kernel<T, S, D, true>
+                          : decode_split_kernel<T, S, D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.d.B * a.d.H, a.n_splits), kVerifyThreads, bytes,
+           stream>>>(a, stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_splits == 1) return err;
+  constexpr int rows = kVerifyThreads / (D / 4);  // merge rows of a CTA
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.d.B * a.d.H + rows - 1) / rows);
+  cfg.blockDim = dim3(kVerifyThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_merge_kernel<D>, a);
+}
+
+template <typename T, typename S>
+cudaError_t launch_decode_dim(const PmdtDecodeSplitArgs& a,
+                              cudaStream_t stream) {
+  switch (a.d.D) {
+    case 32:
+      return launch_decode<T, S, 32>(a, stream);
+    case 64:
+      return launch_decode<T, S, 64>(a, stream);
+    case 128:
+      return launch_decode<T, S, 128>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// One decode call of the variant `args` names (dtype, quant, table): the
+// split kernel, then for more than one split the merge kernel, on
+// `stream`. The Python wrapper checks shapes, unit head_dim strides and
+// 16-byte row alignment, and allocates the partials. Returns a
+// cudaError_t.
+extern "C" int pmdt_decode_attention(const PmdtDecodeSplitArgs* args,
+                                     void* stream) {
+  const PmdtDecodeSplitArgs& a = *args;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.d.W < 1 || a.split < kVerifyKeys || a.split % kVerifyKeys != 0 ||
+      a.n_splits != (a.d.W + a.split - 1) / a.split ||
+      (a.n_splits > 1) != (a.partials != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.d.dtype == 0)
+    return static_cast<int>(a.d.quant
+                                ? launch_decode_dim<float, int8_t>(a, s)
+                                : launch_decode_dim<float, float>(a, s));
+  if (a.d.dtype == 1)
+    return static_cast<int>(
+        a.d.quant ? launch_decode_dim<__nv_bfloat16, int8_t>(a, s)
+                  : launch_decode_dim<__nv_bfloat16, __nv_bfloat16>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

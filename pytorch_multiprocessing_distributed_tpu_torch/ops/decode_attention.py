@@ -5,12 +5,15 @@ row ``i`` attending columns ``[0, position + i]``).
 
 The serving engine's decode step: ONE query token per slot attending
 over the slot's cached columns ``[0, position]``. On the card this runs
-the hand-written CUDA kernel ``csrc/decode_attention.cu`` (the port of
-the JAX package's Pallas ``_decode_kernel`` and
-``_paged_decode_kernel``): K/V are read once through their strides or
-the page table, int8 rows are dequantized in the stream, the softmax is
-an online recurrence in registers, and a slot pays for its own length,
-not the window's. On the CPU it runs the plain versions
+the hand-written CUDA kernels of ``csrc/decode_attention.cu`` (the port
+of the JAX package's Pallas ``_decode_kernel`` and
+``_paged_decode_kernel``): the window is cut into key splits, one CTA
+each (:func:`decode_split_plan`), K/V are read once through their
+strides or the page table, int8 rows are dequantized in the stream, the
+softmax is an online recurrence in registers, and a slot pays for its
+own length, not the window's. A window of one split is one launch; a
+longer one adds a second kernel that folds the splits' partials (the
+workspace is allocated here). On the CPU it runs the plain versions
 (:func:`torch_decode_attention`, the masked-softmax math of the JAX
 package's ``xla_decode_attention``; :func:`torch_paged_decode_attention`,
 its gather-then-dense ``xla_paged_decode_attention``), which are also
@@ -32,12 +35,11 @@ same source that replace the JAX package's ``_verify_kernel`` and
 masked softmax of ``xla_verify_decode_attention``;
 :func:`torch_paged_verify_decode_attention`, gather then dense).
 
-On the card a verify call cuts the window into key splits, one CTA
-each, and a second kernel of the same source merges the splits'
-partials (:func:`verify_split_plan`; the workspace is allocated here).
+On the card a verify call cuts the window into key splits in the same
+way, one set per tile of 16 query rows (:func:`verify_split_plan`).
 
 Launch counts, one per variant (incremented where the kernel launches,
-nowhere else; a verify call's split and merge launches count once):
+nowhere else; a call's split and merge launches count once):
 ``decode_attention.launches`` (dense, model dtype),
 ``decode_attention.int8_launches``, ``paged_decode_attention.launches``,
 ``paged_decode_attention.int8_launches``, and the same four names on
@@ -61,6 +63,7 @@ __all__ = ["decode_attention", "paged_decode_attention",
            "torch_decode_attention", "torch_paged_decode_attention",
            "torch_verify_decode_attention",
            "torch_paged_verify_decode_attention", "VerifyRowsError",
+           "DecodeSplitPlan", "decode_split_plan", "decode_split_ranges",
            "VerifySplitPlan", "verify_split_plan", "verify_split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +74,7 @@ MAX_VERIFY_ROWS = 8 * 65535
 VERIFY_TILE_ROWS = 16  # query rows of a verify CTA: one mma.sync row tile
 VERIFY_KEY_TILE = 64  # keys of one shared-memory ring tile
 VERIFY_SPLIT = 128  # keys a verify CTA walks (chip_smoke phase 15's A/B)
+DECODE_SPLIT = 128  # keys a decode CTA walks (chip_smoke phase 12's A/B)
 
 
 class VerifyRowsError(ValueError):
@@ -81,18 +85,19 @@ def torch_decode_attention(q: torch.Tensor, k, v,
                            positions: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch reference: f32 logits, masked softmax over columns
     ``<= positions[b]``, f32 PV (the JAX package's
-    ``xla_decode_attention`` with the mask built from positions). int8
-    K/V are dequantized to q's dtype first. A position beyond the
-    window attends the whole window."""
+    ``xla_decode_attention`` with the mask built from positions); f64
+    inputs stay f64 throughout. int8 K/V are dequantized to q's dtype
+    first. A position beyond the window attends the whole window."""
     if isinstance(k, QuantizedKV):
         k, v = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
+    ct = torch.promote_types(q.dtype, torch.float32)
     scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
     cols = torch.arange(k.shape[1], device=k.device)
     mask = cols[None, :] <= positions.to(torch.long)[:, None]  # [B, W]
     logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(ct))
 
 
 def _gather_paged_window(pages, page_table: torch.Tensor, q_dtype,
@@ -165,7 +170,57 @@ def torch_paged_verify_decode_attention(q: torch.Tensor, k_pages, v_pages,
     return torch_verify_decode_attention(q, k_win, v_win, positions)
 
 
-# ---- the CUDA kernel ---------------------------------------------------
+# ---- the CUDA kernels --------------------------------------------------
+
+class DecodeSplitPlan(NamedTuple):
+    """How the decode kernel cuts one call: each (slot, head) gets
+    ``n_splits`` CTAs of ``split`` keys over the window. ``grid`` is the
+    split kernel's launch grid and ``partials`` the shape of the f32
+    workspace its CTAs write: one ``(acc[Dh], m, l)`` row per (slot x
+    head, split), padded to ``Dh + 4`` floats (16-byte rows); None where
+    the window fits one split (one launch writes the output, no
+    workspace, no merge)."""
+    split: int
+    n_splits: int
+    grid: Tuple[int, int]
+    partials: Optional[Tuple[int, int, int]]
+
+
+def _checked_split(split: int) -> int:
+    if split < VERIFY_KEY_TILE or split % VERIFY_KEY_TILE:
+        raise ValueError(
+            f"split must be a positive multiple of {VERIFY_KEY_TILE}, got "
+            f"{split}")
+    return split
+
+
+def decode_split_plan(batch: int, heads: int, window: int, head_dim: int,
+                      split: Optional[int] = None) -> DecodeSplitPlan:
+    """The decode kernel's split plan for ``batch`` slots x ``heads``
+    heads over a ``window`` of columns (``split`` defaults to
+    :data:`DECODE_SPLIT`). It takes no layout and no page size: dense
+    and paged windows are cut alike, so they walk the same keys in the
+    same order and agree bit for bit."""
+    split = _checked_split(DECODE_SPLIT if split is None else split)
+    n_splits = -(-window // split)
+    partials = ((batch * heads, n_splits, head_dim + 4) if n_splits > 1
+                else None)
+    return DecodeSplitPlan(split, n_splits, (batch * heads, n_splits),
+                           partials)
+
+
+def decode_split_ranges(plan: DecodeSplitPlan, position: int,
+                        window: int) -> List[Tuple[int, int]]:
+    """The key ranges ``[start, end)`` that the live CTAs of a slot at
+    ``position`` walk, by the rule the kernel applies on the card: the
+    slot reaches column ``min(position, window - 1)``; split s is live
+    iff its first key ``s * split`` lies within that reach, and walks up
+    to the reach. A split past the reach returns before it reads
+    anything, and the merge folds the live ones in split order."""
+    reach = min(position, window - 1)
+    return [(s * plan.split, min((s + 1) * plan.split, reach + 1))
+            for s in range(plan.n_splits) if s * plan.split <= reach]
+
 
 class VerifySplitPlan(NamedTuple):
     """How the verify kernel cuts one call: each (slot, head) gets
@@ -189,11 +244,7 @@ def verify_split_plan(batch: int, heads: int, window: int, k1: int,
     defaults to :data:`VERIFY_SPLIT`). It takes no layout and no page
     size: dense and paged windows are cut alike, so they walk the same
     keys in the same order and agree bit for bit."""
-    split = VERIFY_SPLIT if split is None else split
-    if split < VERIFY_KEY_TILE or split % VERIFY_KEY_TILE:
-        raise ValueError(
-            f"split must be a positive multiple of {VERIFY_KEY_TILE}, got "
-            f"{split}")
+    split = _checked_split(VERIFY_SPLIT if split is None else split)
     n_splits = -(-window // split)
     row_tiles = -(-k1 // VERIFY_TILE_ROWS)
     return VerifySplitPlan(
@@ -234,6 +285,14 @@ class _Args(ctypes.Structure):
         + [("scale", ctypes.c_float)])
 
 
+class _DecodeArgs(ctypes.Structure):
+    """``PmdtDecodeSplitArgs`` of ``csrc/decode_attention.cu``: the
+    decode block, and the split plan's workspace (null for one split),
+    split and split count."""
+    _fields_ = [("d", _Args), ("partials", ctypes.c_void_p),
+                ("split", ctypes.c_int), ("n_splits", ctypes.c_int)]
+
+
 class _VerifyArgs(ctypes.Structure):
     """``PmdtVerifyArgs`` of ``csrc/decode_attention.cu``: the decode
     block (its ``out`` is ``[B, K1, H, Dh]``), the row count, q's row
@@ -250,7 +309,7 @@ def _kernel(verify: bool = False):
     use)."""
     lib = load("decode_attention")
     fn = lib.pmdt_verify_attention if verify else lib.pmdt_decode_attention
-    fn.argtypes = [ctypes.POINTER(_VerifyArgs if verify else _Args),
+    fn.argtypes = [ctypes.POINTER(_VerifyArgs if verify else _DecodeArgs),
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -364,8 +423,9 @@ def _check_paged(q, k_pages, v_pages, page_table, positions, window,
 
 def _launch(q, k, v, positions, *, window, table=None, page_size=0,
             verify=False):
-    """Fill the argument block and launch the decode kernel (or, with
-    ``verify``, the k-query verify kernel); returns the f32 output."""
+    """Fill the argument block and launch the decode kernels (or, with
+    ``verify``, the k-query verify kernels) with the split plan's
+    workspace; returns the f32 output."""
     b, k1, h, d = q.shape
     quant = isinstance(k, QuantizedKV)
     kd, vd = (k.data, v.data) if quant else (k, v)
@@ -396,7 +456,12 @@ def _launch(q, k, v, positions, *, window, table=None, page_size=0,
             d=a, k1=k1, q_sq=q.stride(1), partials=partials.data_ptr(),
             split=plan.split, n_splits=plan.n_splits)), stream)
     else:
-        err = _kernel()(ctypes.byref(a), stream)
+        plan = decode_split_plan(b, h, window, d)
+        partials = (None if plan.partials is None else torch.empty(
+            plan.partials, dtype=torch.float32, device=q.device))
+        err = _kernel()(ctypes.byref(_DecodeArgs(
+            d=a, partials=None if partials is None else partials.data_ptr(),
+            split=plan.split, n_splits=plan.n_splits)), stream)
     if err != 0:
         raise RuntimeError(
             f"{'verify' if verify else 'decode'}_attention kernel launch "

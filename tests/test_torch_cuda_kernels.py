@@ -12,9 +12,10 @@ model dtype and int8): atol 1e-4 — the same f32 math on the same values
 only the summation order differs; the paged variants read shuffled
 tables whose unallocated entries point at a scratch page full of NaN
 and huge values, so a read past a slot's last reachable column would
-show. The verify kernel also gives the same bits over two calls, and
-for a dense window and the same columns in pages (it walks the keys in
-one order whatever the layout). Flash attention: in f32 the
+show. Both split-K kernels also give the same bits over two calls, and
+for a dense window and the same columns in pages (they walk the keys in
+one order whatever the layout); a decode call captured in a CUDA graph
+replays the eager bits. Flash attention: in f32 the
 output and lse within 1e-4 and the gradients within 5e-4 (the same f32
 math; the gradients sum up to 300 products per element in another
 order); in bf16 the lse within 1e-4 and the bf16 outputs within 2e-2
@@ -248,6 +249,142 @@ def test_paged_int8_engine_on_card_matches_cpu(cuda_device, kw):
             held = len(cache.page_ids()) if cache is not None else 0
             assert engine.pool.pages_in_use == held
     assert out["cpu"] == out["cuda"]
+
+
+DECODE_WINDOWS = (1, 63, 64, 65, 300, 1024)  # one split, and several
+
+
+def _decode_split_case(dev, w, d, dtype, quant, ps, seed, b=6, h=2):
+    """q, a dense window view of a wider cache (model dtype or int8),
+    the same columns in shuffled pages of ``ps`` behind a scratch page 0
+    of NaN (K) and 1e30 (V) that every table entry past a slot's reach
+    names, that table, and positions 0, W-1, beyond the window, both
+    sides of the first split boundaries and a random column."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, w + 8, h, d, generator=gen, device=dev) * 2
+    v = torch.randn(b, w + 8, h, d, generator=gen, device=dev)
+    if quant:
+        kq, vq = quantize_kv(k), quantize_kv(v)
+        k = QuantizedKV(kq.data[:, :w], kq.scale[:, :w])
+        v = QuantizedKV(vq.data[:, :w], vq.scale[:, :w])
+    else:
+        k, v = k.to(dtype)[:, :w], v.to(dtype)[:, :w]
+    edges = [0, w - 1, w + 5, min(63, w - 1), min(128, w - 1),
+             int(torch.randint(0, w, (1,), generator=gen, device=dev))]
+    pos = torch.tensor(edges[:b], dtype=torch.int32, device=dev)
+    n_win = -(-w // ps)
+    n_pages = 1 + b * n_win
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+             + 1).view(b, n_win).to(torch.int32)
+
+    def lay(x, garbage):
+        if isinstance(x, QuantizedKV):
+            return QuantizedKV(lay(x.data, 127),
+                               lay(x.scale[..., None], garbage)[..., 0])
+        full = torch.zeros(b, n_win * ps, h, x.shape[-1], dtype=x.dtype,
+                           device=dev)
+        full[:, :w] = x
+        pages = torch.full((n_pages, h, ps, x.shape[-1]), garbage,
+                           dtype=x.dtype, device=dev)
+        pages[table.long()] = full.view(b, n_win, ps, h, -1).permute(
+            0, 1, 3, 2, 4)
+        return pages
+
+    kp, vp = lay(k, float("nan")), lay(v, 1e30)
+    for row, p in enumerate(pos.tolist()):
+        table[row, -(-(min(p, w - 1) + 1) // ps):] = 0
+    return q, k, v, kp, vp, table, pos
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_decode_split_kernel_matches_plain(cuda_device, quant, dtype, d):
+    """Rows 1 and 2 on the split-K kernel, windows 1, 63, 64, 65, 300 and
+    1024 (one split and several): dense and paged (pages of 16 and 24,
+    shuffled, the scratch page 0 never read) within 1e-4 of their plain
+    versions, dense == paged bit for bit, two calls bit-equal, one
+    launch counted a call."""
+    name = "int8_launches" if quant else "launches"
+    for w in DECODE_WINDOWS:
+        for ps in (16, 24):
+            q, k, v, kp, vp, table, pos = _decode_split_case(
+                cuda_device, w, d, dtype, quant, ps, seed=w + ps + d)
+            before = (getattr(decode_attention, name),
+                      getattr(paged_decode_attention, name))
+            dense = decode_attention(q, k, v, pos, impl="cuda")
+            again = decode_attention(q, k, v, pos, impl="cuda")
+            paged = paged_decode_attention(q, kp, vp, table, pos, window=w,
+                                           impl="cuda")
+            torch.cuda.synchronize()
+            assert (getattr(decode_attention, name),
+                    getattr(paged_decode_attention, name)) == (
+                        before[0] + 2, before[1] + 1)
+            assert dense.dtype == torch.float32 and dense.shape == (
+                6, 1, 2, d)
+            assert torch.isfinite(paged).all()
+            assert torch.equal(dense, again) and torch.equal(dense, paged)
+            torch.testing.assert_close(
+                dense, torch_decode_attention(q, k, v, pos), atol=1e-4,
+                rtol=0)
+            torch.testing.assert_close(
+                paged, torch_paged_decode_attention(q, kp, vp, table, pos,
+                                                    w), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_split_kernel_replays_in_a_graph(cuda_device, quant, dtype,
+                                                paged):
+    """One call captured in a CUDA graph (the split kernel, and at W =
+    1024 the merge kernel as its programmatic dependent) replays the
+    eager call's bits, at W = 64 (one split) and 1024."""
+    for w in (64, 1024):
+        q, k, v, kp, vp, table, pos = _decode_split_case(
+            cuda_device, w, 64, dtype, quant, 16, seed=w)
+        if paged:
+            def call():
+                return paged_decode_attention(q, kp, vp, table, pos,
+                                              window=w, impl="cuda")
+        else:
+            def call():
+                return decode_attention(q, k, v, pos, impl="cuda")
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [64, 128, 256])
+def test_decode_kernel_split_sizes(cuda_device, monkeypatch, quant, dtype,
+                                   split):
+    """Each split size of the A/B (64, 128 and 256 keys a CTA) over a
+    1024-column window stays within 1e-4 of the plain version, dense and
+    paged bit-equal."""
+    monkeypatch.setattr(verify_module, "DECODE_SPLIT", split)
+    w = 1024
+    q, k, v, kp, vp, table, pos = _decode_split_case(
+        cuda_device, w, 64, dtype, quant, 16, seed=split)
+    dense = decode_attention(q, k, v, pos, impl="cuda")
+    paged = paged_decode_attention(q, kp, vp, table, pos, window=w,
+                                   impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(dense, paged)
+    torch.testing.assert_close(
+        dense, torch_decode_attention(q, k, v, pos), atol=1e-4, rtol=0)
 
 
 VERIFY_ROWS = (1, 2, 5, 9, 16, 17)  # 16: one full row tile; 17: two
