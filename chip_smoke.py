@@ -13,7 +13,8 @@ nothing is caught):
    one ``nvcc`` per source started together; build seconds; the
    ``-Xptxas -v`` lines, and the registers and spills of each of the 27
    decode instantiations (split kernel: dense/paged x model dtype/int8 x
-   f32/bf16 q x Dh 32/64/128; merge kernel: Dh 32/64/128).
+   f32/bf16 q x Dh 32/64/128; merge kernel: Dh 32/64/128) and of the 4
+   ring kernels (one rank per card and loopback, 8 or 16 data warps).
 3. kernel  — the decode-attention kernels (row 1: the split-K
    ``decode_split_kernel``, and ``decode_merge_kernel`` where the window
    spans more than one split; each line names the cut) against their
@@ -172,28 +173,37 @@ nothing is caught):
    token-exact with ``generate``; int8 paged equals int8 dense and the
    non-speculative int8 engine.
 
-18. ring-loopback — the ring all-reduce kernel in its single-card form
-   (n ranks in one cooperative launch) against its plain version on the
-   card at n = 2, 4 and 8: 50 consecutive calls each, on fresh inputs
-   cycling through (40, 33), 1, 3,007, 4,903,242 (ResNet-18's
-   parameters) and 1,000,003 elements, f32 then bf16: bit-equal
-   (tolerance 0). At n = 4, N = 4,903,242 f32: the kernel's device time
-   (CUDA events around 20 back-to-back launches: the cooperative launch
-   is not captured into a graph), the wrapper's eager time, the plain
-   version's, the library yardstick ``torch.sum`` over the stacked ranks
-   (timed here only; the port never calls it) and the HBM bound (each
-   rank's payload read once and its result written once). Then the
-   ``allreduce_bw`` entry with ``--loopback 4`` at that N: 21 launches
-   (a warm-up and 20 timed calls).
+18. ring-loopback — the pipelined ring all-reduce kernel in its
+   single-card form (n ranks in one cooperative launch of
+   ``ring_loopback_kernel``) against its plain version on the card at
+   n = 2, 4 and 8: 50 consecutive calls each, on fresh inputs cycling
+   through (40, 33), 1, 3,007, 4,903,242 (ResNet-18's parameters) and
+   1,000,003 elements, f32 then bf16: bit-equal (tolerance 0). At
+   n = 4, N = 4,903,242 f32: the blocks a rank the launch keeps
+   resident (``G_loop``), the kernel's device time in place on a
+   prepared ``[n, padded]`` buffer (CUDA events around 20 back-to-back
+   launches: the cooperative launch is not captured into a graph), the
+   wrapper's device and eager times, the plain version's, the library
+   yardstick ``torch.sum`` over the stacked ranks (timed here only; the
+   port never calls it) and the HBM bound (each rank's payload read once
+   and its result written once). Then the ``allreduce_bw`` entry with
+   ``--loopback 4`` at that N: 21 launches (a warm-up and 20 timed
+   calls); then the kernel's settings (blocks, data threads, step,
+   slots, control warps: the defaults, then each changed alone over
+   ``RING_AB_VALUES``) timed in turns through ``--ring_configs`` as
+   ``[ring-ab]`` lines.
 19. ring-xcard — the peer-access matrix of the visible cards and what
    ``nvidia-smi`` reports of their links (``topo -m``, ``nvlink
    --status``); then, only with two or more cards visible (else one line
    says so), the ``allreduce_bw`` entry on min(cards, 4) processes, one per
-   card, ``--ring --check`` at N = 4,903,242 and 64 MiB: the kernel over
-   peer memory bit-equal to the plain version of every rank's seeded
-   inputs, its time and bus GiB/s beside NCCL ``all_reduce`` (``psum_``,
-   the library yardstick; the ring never calls it) and the NVLink bound
-   (2(n-1)/n of the payload each way at 450 GB/s), and its launches.
+   card, ``--ring --check`` at N = 4,903,242, 64 MiB and 4 KiB: the
+   kernel over peer memory (``ring_kernel``) bit-equal to the plain
+   version of every rank's seeded inputs, its time, bus GiB/s and cut
+   (blocks, steps a hop) beside NCCL ``all_reduce`` (``psum_``, the
+   library yardstick; the ring never calls it) and the NVLink bound
+   (2(n-1)/n of the payload each way at 450 GB/s), and its launches;
+   the per-rank comm buffer's bytes (fixed, allocated once); and the
+   same settings' A/B in turns at the first two payloads.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
@@ -204,8 +214,8 @@ beside them; every decode entry also carries its L2-cold time), bf16 B
 and f32 for their ``_f32`` twins (launches from phase 7b),
 ResNet-18's N for fused SGD, bf16 W=1024 for the int8 and paged decode
 variants and, at K1 = 5, for the verify variants, n = 4 loopback at
-ResNet-18's N for the ring, with its cross-card numbers, or nulls where
-phase 19 did not run);
+ResNet-18's N for the ring, with its cross-card numbers at that N, at
+64 MiB and at 4 KiB, or nulls where phase 19 did not run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -349,6 +359,14 @@ RING_SHAPES = ((40, 33), (1,), (3 * 1000 + 7,), (4_903_242,), (1_000_003,))
 RING_CALLS = 50
 RING_MAIN_N, RING_MAIN_SIZE = 4, 4_903_242
 RING_ITERS = 20
+RING_KERNEL = "ring_kernel (one rank per card) / ring_loopback_kernel"
+# the cross-card payloads of phase 19: ResNet-18's N, 64 MiB, 4 KiB
+RING_XCARD_BYTES = (RING_MAIN_SIZE * 4, 64 * 2 ** 20, 4096)
+# the values the ring's settings are A/B'd over, one change at a time
+# from the module's defaults: blocks, data threads, step elements (8,
+# 16, 32 and 64 KB), slots, control warps
+RING_AB_VALUES = ((16, 32, 64), (256, 512), (2048, 4096, 8192, 16384),
+                  (2, 4, 8), (1, 2, 4))
 # NVLink of an H100 SXM: 900 GB/s to the other cards, 450 each way
 NVLINK_BYTES_PER_S = 450e9
 
@@ -473,12 +491,9 @@ def _plan_text(da, q, window):
                else "split + merge launches"))
 
 
-def _decode_builds(log):
-    """``(kernel, registers, spill stores, spill loads)`` of every
-    decode split and merge instantiation in the ``-Xptxas -v`` report,
-    the kernel named by its template arguments (q type, K/V type, Dh,
-    paged)."""
-    types = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
+def _ptxas_entries(log):
+    """``(mangled name, registers, spill stores, spill loads)`` of every
+    function of an ``-Xptxas -v`` report that names its registers."""
     found, name, spills = [], None, None
     for line in log.splitlines():
         prop = re.search(r"Function properties for (\S+)", line)
@@ -489,23 +504,49 @@ def _decode_builds(log):
             name, spills = prop.group(1), None
         elif spill and name:
             spills = (int(spill.group(1)), int(spill.group(2)))
-        elif used and name and spills and "decode_" in name:
-            split = re.search(r"decode_split_kernelI(f|13__nv_bfloat16)"
-                              r"(f|a|13__nv_bfloat16|S\d*_)Li(\d+)ELb(\d)E",
-                              name)
-            merge = re.search(r"decode_merge_kernelILi(\d+)E", name)
-            if split:
-                q_type = types[split.group(1)]
-                kv = types.get(split.group(2), q_type)
-                label = (f"decode_split_kernel<q {q_type}, K/V {kv}, Dh "
-                         f"{split.group(3)}, "
-                         f"{'paged' if split.group(4) == '1' else 'dense'}>")
-            elif merge:
-                label = f"decode_merge_kernel<Dh {merge.group(1)}>"
-            else:
-                continue
-            found.append((label, int(used.group(1))) + spills)
+        elif used and name and spills:
+            found.append((name, int(used.group(1))) + spills)
             name = None
+    return found
+
+
+def _decode_builds(log):
+    """``(kernel, registers, spill stores, spill loads)`` of every
+    decode split and merge instantiation in the ``-Xptxas -v`` report,
+    the kernel named by its template arguments (q type, K/V type, Dh,
+    paged)."""
+    types = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
+    found = []
+    for name, *counts in _ptxas_entries(log):
+        split = re.search(r"decode_split_kernelI(f|13__nv_bfloat16)"
+                          r"(f|a|13__nv_bfloat16|S\d*_)Li(\d+)ELb(\d)E",
+                          name)
+        merge = re.search(r"decode_merge_kernelILi(\d+)E", name)
+        if split:
+            q_type = types[split.group(1)]
+            kv = types.get(split.group(2), q_type)
+            label = (f"decode_split_kernel<q {q_type}, K/V {kv}, Dh "
+                     f"{split.group(3)}, "
+                     f"{'paged' if split.group(4) == '1' else 'dense'}>")
+        elif merge:
+            label = f"decode_merge_kernel<Dh {merge.group(1)}>"
+        else:
+            continue
+        found.append((label, *counts))
+    return found
+
+
+def _ring_builds(log):
+    """``(kernel, registers, spill stores, spill loads)`` of the ring
+    kernels in the ``-Xptxas -v`` report (one rank per card and
+    loopback, 8 or 16 data warps)."""
+    found = []
+    for name, *counts in _ptxas_entries(log):
+        kernel = re.search(r"(ring_kernel|ring_loopback_kernel)ILi(\d+)E",
+                           name)
+        if kernel:
+            found.append((f"{kernel.group(1)}<{kernel.group(2)} data "
+                          f"warps>", *counts))
     return found
 
 
@@ -1208,14 +1249,18 @@ def _ring_inputs(torch, n, shape, dtype, seed):
 
 def _time_ring(torch, ring, n, size, rate):
     """At n ranks of ``size`` f32 elements in loopback: the kernel's
-    device time on a prepared work buffer, the wrapper's eager time, the
-    plain version's and ``torch.sum`` over the stacked ranks, and the HBM
-    bound (each rank's payload read once, its result written once).
-    Launches made here are not counted."""
+    device time on a prepared work buffer (in place), the wrapper's
+    device time (``_stream_ms``: its one launch on the caller's tensors
+    and the outputs' allocation) and eager time, the plain version's and
+    ``torch.sum`` over the stacked ranks, and the HBM bound (each rank's
+    payload read once, its result written once). Launches made here are
+    not counted."""
     xs = _ring_inputs(torch, n, (size,), torch.float32, seed=18)
     work = torch.zeros(n, ring.ring_layout(size, n)[2], device="cuda")
     launches = ring.ring_all_reduce_loopback.launches
     ms = _stream_ms(lambda: ring.launch_loopback_(work), torch)
+    wrapper_ms = _stream_ms(lambda: ring.ring_all_reduce_loopback(
+        xs, impl="cuda"), torch)
     eager_ms = _eager_ms(lambda: ring.ring_all_reduce_loopback(
         xs, impl="cuda"), torch)
     ring.ring_all_reduce_loopback.launches = launches
@@ -1225,9 +1270,22 @@ def _time_ring(torch, ring, n, size, rate):
     library_ms = _device_ms(lambda: torch.sum(stacked, dim=0), torch)
     t_bytes = 2 * n * size * 4 / rate
     t_ops = (n - 1) * size / F32_FLOPS_PER_S
-    return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+    return dict(ms=ms, wrapper_ms=wrapper_ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ring_ab(ring):
+    """``--ring_configs`` of the A/B: the defaults first, then each
+    setting of ``RING_AB_VALUES`` changed alone, as ``G:T:S:K:C``."""
+    base = (ring.RING_BLOCKS, ring.RING_THREADS, ring.RING_STEP,
+            ring.RING_SLOTS, ring.RING_CONTROL)
+    configs = [base]
+    for i, values in enumerate(RING_AB_VALUES):
+        configs += [base[:i] + (v,) + base[i + 1:] for v in values
+                    if v != base[i]]
+    return [":".join(map(str, c)) for c in configs]
 
 
 def _serve_transcripts(serve_lm, argv):
@@ -1311,6 +1369,18 @@ def main() -> int:
             "merge instantiations; expected 27 (dense/paged x model "
             "dtype/int8 x f32/bf16 q x Dh 32/64/128, and 3 merges)")
     for label, regs, stores, loads in decode_builds:
+        _print(f"[build] {label}: {regs} registers, spill stores {stores} "
+               f"bytes, spill loads {loads} bytes")
+    ring_log = _build.BUILD_DIR / "ring_allreduce.log"
+    ring_builds = _ring_builds(
+        reports.get("ring_allreduce")
+        or (ring_log.read_text() if ring_log.exists() else ""))
+    if len(ring_builds) != 4:
+        raise AssertionError(
+            f"the ring build report names {len(ring_builds)} kernels; "
+            "expected 4 (one rank per card and loopback, 8 and 16 data "
+            "warps)")
+    for label, regs, stores, loads in ring_builds:
         _print(f"[build] {label}: {regs} registers, spill stores {stores} "
                f"bytes, spill loads {loads} bytes")
 
@@ -2078,8 +2148,13 @@ def main() -> int:
             f"allreduce_bw --loopback launched the ring {ring_launches} "
             f"times (the entry counted {loop_lines[0]['launches']}); "
             f"expected {RING_ITERS + 1}")
+    g_loop = ring.loopback_plan(RING_MAIN_SIZE, RING_MAIN_N,
+                                torch.device("cuda")).blocks
     _print(f"[ring-loopback] ring_all_reduce f32 n={RING_MAIN_N} "
-           f"N={RING_MAIN_SIZE}: ms={ring_t['ms']:.5f} "
+           f"N={RING_MAIN_SIZE}, G_loop={g_loop} blocks a rank "
+           f"({ring.RING_THREADS} data threads, steps of "
+           f"{ring.RING_STEP} elements, K={ring.RING_SLOTS}): "
+           f"ms={ring_t['ms']:.5f} wrapper_ms={ring_t['wrapper_ms']:.5f} "
            f"eager_ms={ring_t['eager_ms']:.5f} "
            f"plain_ms={ring_t['plain_ms']:.5f} "
            f"library_ms={ring_t['library_ms']:.5f} (torch.sum over the "
@@ -2088,13 +2163,22 @@ def main() -> int:
            f"{RING_MAIN_N}: {loop_lines[0]['time_ms']:.5f} ms a call, "
            f"{loop_lines[0]['bus_gb_per_sec']:.2f} GiB/s bus, launches "
            f"{ring_launches} [{smi}]")
+    for d in allreduce_bw.main([
+            "--device", "cuda", "--loopback", str(RING_MAIN_N),
+            "--sizes-mb", ring_mb, "--iters", str(RING_ITERS),
+            "--ring_configs", *_ring_ab(ring)])[1:]:
+        _print(f"[ring-ab] loopback n={RING_MAIN_N} N={RING_MAIN_SIZE} "
+               f"G:T:S:K:C={d['config']}: {d['time_ms']:.5f} ms (turns "
+               f"{d['turn_ms'][0]:.5f}, {d['turn_ms'][1]:.5f}) [{smi}]")
 
     # -- phase 19: the ring across cards through the allreduce_bw entry
     cards = torch.cuda.device_count()
     _print(f"[ring-xcard] {_topology(torch)}")
     xcard = dict.fromkeys(("world", "ms", "bus_gb_per_sec", "bound_ms",
                            "library_ms", "library_bus_gb_per_sec",
-                           "launches", "max_abs_err", "shape"))
+                           "launches", "max_abs_err", "shape", "comm_bytes",
+                           "64mib_ms", "64mib_bound_ms", "64mib_library_ms",
+                           "4kib_ms", "4kib_library_ms"))
     if cards < 2:
         _print(f"[ring-xcard] not run: {cards} CUDA card visible, the "
                "cross-card ring needs two or more (phase 18 ran the kernel "
@@ -2102,41 +2186,65 @@ def main() -> int:
     else:
         world = min(cards, 4)
         torch.cuda.empty_cache()
+        sizes_mb = [repr(b / 2 ** 20) for b in RING_XCARD_BYTES]
         lines = allreduce_bw.main([
             "--device", "cuda", "--world_size", str(world), "--ring",
-            "--check", "--sizes-mb", ring_mb, "64", "--iters",
+            "--check", "--sizes-mb", *sizes_mb, "--iters",
             str(RING_ITERS)])
         psums = [d for d in lines if d["metric"].startswith("psum_")]
         rings = [d for d in lines
                  if d["metric"] == "cuda_ring_allreduce_bus_bw"]
-        if len(psums) != 2 or len(rings) != 2:
+        if len(psums) != len(RING_XCARD_BYTES) or len(rings) != len(psums):
             raise AssertionError(f"allreduce_bw printed {lines}")
         for d in rings:
             if d["max_abs_err"] != 0.0 or d["launches"] != RING_ITERS + 1:
                 raise AssertionError(
-                    f"cross-card ring at {d['payload_mb']} MiB: max|err| "
+                    f"cross-card ring at {d['payload_bytes']} B: max|err| "
                     f"{d['max_abs_err']} (tol 0), launches {d['launches']} "
                     f"(expected {RING_ITERS + 1})")
-        for p, d, nbytes in zip(psums, rings,
-                                (RING_MAIN_SIZE * 4, 64 * 2 ** 20)):
+        comm_bytes = ring.ring_plan(RING_MAIN_SIZE, world).comm_bytes
+        _print(f"[ring-xcard] comm buffer {comm_bytes} B a rank, fixed "
+               f"({ring.RING_BLOCKS} blocks x {ring.RING_SLOTS} slots x "
+               f"{ring.RING_STEP} f32, and flags), allocated once")
+        by_size = {}
+        for p, d, nbytes in zip(psums, rings, RING_XCARD_BYTES):
+            plan = ring.ring_plan(nbytes // 4, world)
             bound_ms = 2 * (world - 1) / world * nbytes / \
                 NVLINK_BYTES_PER_S * 1e3
+            by_size[nbytes] = (d, p, bound_ms)
             _print(f"[ring-xcard] world={world} {nbytes} B: ring "
                    f"{d['time_ms']:.5f} ms {d['bus_gb_per_sec']:.2f} GiB/s "
-                   f"bus, NCCL all_reduce ({p['metric']}) "
-                   f"{p['time_ms']:.5f} ms {p['bus_gb_per_sec']:.2f} GiB/s, "
-                   f"NVLink bound {bound_ms:.5f} ms, launches "
-                   f"{d['launches']}, max_abs_err {d['max_abs_err']:.3e} "
-                   f"(tol 0) [{smi}]")
-            if nbytes == RING_MAIN_SIZE * 4:
-                xcard.update(
-                    world=world, ms=d["time_ms"],
-                    bus_gb_per_sec=d["bus_gb_per_sec"], bound_ms=bound_ms,
-                    library_ms=p["time_ms"],
-                    library_bus_gb_per_sec=p["bus_gb_per_sec"],
-                    shape=f"f32 N={RING_MAIN_SIZE} per rank, {world} cards")
-        xcard.update(launches=sum(d["launches"] for d in rings),
-                     max_abs_err=max(d["max_abs_err"] for d in rings))
+                   f"bus ({plan.blocks} blocks x {plan.steps} steps a hop "
+                   f"of {plan.step} f32), NCCL all_reduce "
+                   f"({p['metric']}) {p['time_ms']:.5f} ms "
+                   f"{p['bus_gb_per_sec']:.2f} GiB/s, NVLink bound "
+                   f"{bound_ms:.5f} ms, launches {d['launches']}, "
+                   f"max_abs_err {d['max_abs_err']:.3e} (tol 0) [{smi}]")
+        main_d, main_p, main_bound = by_size[RING_XCARD_BYTES[0]]
+        big_d, big_p, big_bound = by_size[RING_XCARD_BYTES[1]]
+        small_d, small_p, _ = by_size[RING_XCARD_BYTES[2]]
+        xcard.update(
+            world=world, ms=main_d["time_ms"],
+            bus_gb_per_sec=main_d["bus_gb_per_sec"], bound_ms=main_bound,
+            library_ms=main_p["time_ms"],
+            library_bus_gb_per_sec=main_p["bus_gb_per_sec"],
+            shape=f"f32 N={RING_MAIN_SIZE} per rank, {world} cards",
+            launches=sum(d["launches"] for d in rings),
+            max_abs_err=max(d["max_abs_err"] for d in rings),
+            comm_bytes=comm_bytes, **{
+                "64mib_ms": big_d["time_ms"], "64mib_bound_ms": big_bound,
+                "64mib_library_ms": big_p["time_ms"],
+                "4kib_ms": small_d["time_ms"],
+                "4kib_library_ms": small_p["time_ms"]})
+        for d in allreduce_bw.main([
+                "--device", "cuda", "--world_size", str(world), "--ring",
+                "--sizes-mb", *sizes_mb[:2], "--iters", str(RING_ITERS),
+                "--ring_configs", *_ring_ab(ring)]):
+            if d["metric"] == "cuda_ring_ab_allreduce_bus_bw":
+                _print(f"[ring-ab] world={world} {d['payload_bytes']} B "
+                       f"G:T:S:K:C={d['config']}: {d['time_ms']:.5f} ms "
+                       f"(turns {d['turn_ms'][0]:.5f}, "
+                       f"{d['turn_ms'][1]:.5f}) [{smi}]")
 
     # the kernels line: the kernel at the main path's largest window
     w_main = max(snap["decode_windows"])
@@ -2238,17 +2346,19 @@ def main() -> int:
                    "mask on the gathered, dequantized dense window",
         "shape": verify_main[variant]["shape"]}
         for variant in VERIFY_VARIANTS] + [{
-        "name": "ring_all_reduce", "route": "cuda",
+        "name": "ring_all_reduce", "kernel": RING_KERNEL, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
                   "csrc/ring_allreduce.cu",
         "replaces": "pytorch_multiprocessing_distributed_tpu/ops/pallas/"
                     "ring_allreduce.py:63",
         "launches": ring_launches, "max_abs_err": ring_worst,
         "ms": ring_t["ms"], "kernel_ms": ring_t["ms"],
+        "wrapper_ms": ring_t["wrapper_ms"],
         "eager_ms": ring_t["eager_ms"], "plain_ms": ring_t["plain_ms"],
         "bound_ms": ring_t["bound_ms"], "bound_by": ring_t["bound_by"],
         "library_ms": ring_t["library_ms"],
         "library": "torch.sum over the stacked ranks (dim 0)",
+        "blocks": g_loop,
         "shape": f"f32 N={RING_MAIN_SIZE} per rank, n={RING_MAIN_N} "
                  "loopback on one card",
         **{f"xcard_{k}": v for k, v in xcard.items()},

@@ -3,13 +3,14 @@ package's ``benchmarks/allreduce_bw.py``, on the card by default.
 
     python -m pytorch_multiprocessing_distributed_tpu_torch.allreduce_bw \\
         [--sizes-mb 1 16 64] [--iters 20] [--ring] [--check] \\
-        [--device cuda|cpu] [--world_size N] [--loopback N]
+        [--device cuda|cpu] [--world_size N] [--loopback N] \\
+        [--ring_configs G:T:S:K[:C] ...]
 
 Puts the production collective and the hand-built ring side by side on
 the same payloads. Per payload size it prints one JSON line per
 implementation with the JAX script's keys (``metric``, ``payload_mb``,
 ``devices``, ``time_ms``, ``bus_gb_per_sec``, ``platform``), plus
-``kind`` (the card's name, or ``cpu``):
+``kind`` (the card's name, or ``cpu``) and ``payload_bytes``:
 
 - the ``psum`` twin, :func:`.parallel.collectives.psum_`: NCCL on the
   cards, gloo on the CPU (``psum_nccl_…``, ``psum_gloo_…``; one process
@@ -21,7 +22,15 @@ implementation with the JAX script's keys (``metric``, ``payload_mb``,
 - with ``--loopback N``, the ring alone, N ranks in one process on one
   device (:func:`.ops.ring_allreduce.ring_all_reduce_loopback`; the
   kernel's single-card form, ``cuda_ring_loopback_…``, or the plain
-  version on the CPU, ``plain_ring_loopback_…``).
+  version on the CPU, ``plain_ring_loopback_…``);
+- with ``--ring_configs`` on the card, the ring (or the loopback) again
+  under each setting ``G:T:S:K[:C]`` of the kernel (``RING_BLOCKS``
+  blocks, ``RING_THREADS`` data threads, ``RING_STEP`` elements a step,
+  ``RING_SLOTS`` slots, ``RING_CONTROL`` control warps, kept as it is
+  where C is left out; each a new comm buffer), timed in turns (the
+  list, then the list reversed): one ``…_ab_…`` line per setting and
+  payload with its ``config``, both turns' ``turn_ms`` and their mean
+  as ``time_ms``; the settings are restored after.
 
 Each rank is one process: ``--world_size`` ranks (default: every visible
 card, or 2 on the CPU) are spawned through ``torch.multiprocessing``,
@@ -71,7 +80,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loopback", type=int, default=0, metavar="N",
                    help="run the ring alone over N ranks in this process "
                         "on one device")
+    p.add_argument("--ring_configs", nargs="+", type=ring_config,
+                   default=[], metavar="G:T:S:K[:C]",
+                   help="also time the ring kernel under each setting: "
+                        "blocks, data threads, step elements, slots "
+                        "[, control warps]")
     return p
+
+
+def ring_config(text: str) -> tuple:
+    """``"G:T:S:K[:C]"`` -> the kernel's ``(RING_BLOCKS, RING_THREADS,
+    RING_STEP, RING_SLOTS[, RING_CONTROL])``."""
+    parts = text.split(":")
+    if len(parts) not in (4, 5) or not all(p.isdigit() for p in parts):
+        raise argparse.ArgumentTypeError(
+            f"a ring setting is G:T:S:K[:C] (four or five integers), got "
+            f"{text!r}")
+    return tuple(int(p) for p in parts)
 
 
 def bus_gib_per_s(size_bytes: int, n: int, seconds: float) -> float:
@@ -84,8 +109,8 @@ def _line(metric: str, size_bytes: int, n: int, seconds: float,
           device: torch.device, **extra) -> dict:
     on_card = device.type == "cuda"
     return dict(
-        metric=metric, payload_mb=round(size_bytes / 2 ** 20, 2), devices=n,
-        time_ms=seconds * 1e3,
+        metric=metric, payload_mb=round(size_bytes / 2 ** 20, 2),
+        payload_bytes=size_bytes, devices=n, time_ms=seconds * 1e3,
         bus_gb_per_sec=bus_gib_per_s(size_bytes, n, seconds),
         platform="gpu" if on_card else "cpu",
         kind=torch.cuda.get_device_name(device) if on_card else "cpu",
@@ -131,6 +156,34 @@ def _max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def _ring_ab(args, calls: List[tuple], time_s: Callable, metric: str,
+             n: int, device: torch.device) -> List[dict]:
+    """Each ``(size, call)`` of ``calls`` timed under each of
+    ``--ring_configs`` in turns (the list, then reversed; every payload
+    under one setting before the next, so each turn opens one comm
+    buffer a setting), one line per setting and payload; the kernel's
+    settings are restored after."""
+    from .ops import ring_allreduce as ring
+
+    names = ("RING_BLOCKS", "RING_THREADS", "RING_STEP", "RING_SLOTS",
+             "RING_CONTROL")
+    saved = tuple(getattr(ring, k) for k in names)
+    turns: dict = {}
+    try:
+        for config in args.ring_configs + args.ring_configs[::-1]:
+            for k, v in zip(names, config):
+                setattr(ring, k, v)
+            for size, call in calls:
+                turns.setdefault((config, size), []).append(time_s(call))
+    finally:
+        for k, v in zip(names, saved):
+            setattr(ring, k, v)
+    return [_line(metric, size, n, sum(t) / len(t), device,
+                  config=":".join(map(str, c)),
+                  turn_ms=[x * 1e3 for x in t])
+            for (c, size), t in turns.items()]
+
+
 def _bench_group(args, device: torch.device) -> List[dict]:
     """This rank's part of the benchmark in its process group (or alone);
     returns the lines (on every rank; the slowest rank's times)."""
@@ -145,7 +198,7 @@ def _bench_group(args, device: torch.device) -> List[dict]:
 
     backend = (torch.distributed.get_backend() if n > 1 else "local")
     ring_name = "cuda_ring" if device.type == "cuda" else "gloo_ring"
-    lines = []
+    lines, ab_calls = [], []
     for mb in args.sizes_mb:
         size = int(mb * 2 ** 20)
         x = torch.ones(size // 4, dtype=torch.float32, device=device)
@@ -169,6 +222,13 @@ def _bench_group(args, device: torch.device) -> List[dict]:
                            slowest(dt), device,
                            launches=ring_all_reduce.launches - before,
                            **extra))
+        ab_calls.append((size, lambda x=x: ring_all_reduce(x)))
+    if args.ring_configs:
+        lines += _ring_ab(
+            args, ab_calls,
+            lambda fn: slowest(_per_call_s(fn, args.iters, device,
+                                           dist.barrier)),
+            f"{ring_name}_ab_allreduce_bus_bw", n, device)
     return lines
 
 
@@ -180,7 +240,7 @@ def _bench_loopback(args, device: torch.device) -> List[dict]:
     n = args.loopback
     metric = ("cuda_ring_loopback_allreduce_bus_bw" if device.type == "cuda"
               else "plain_ring_loopback_allreduce_bus_bw")
-    lines = []
+    lines, ab_calls = [], []
     for mb in args.sizes_mb:
         size = int(mb * 2 ** 20)
         extra = {}
@@ -199,6 +259,12 @@ def _bench_loopback(args, device: torch.device) -> List[dict]:
         lines.append(_line(metric, size, n, dt, device,
                            launches=ring_all_reduce_loopback.launches
                            - before, **extra))
+        ab_calls.append((size, lambda xs=xs: ring_all_reduce_loopback(xs)))
+    if args.ring_configs:
+        lines += _ring_ab(
+            args, ab_calls,
+            lambda fn: _per_call_s(fn, args.iters, device, lambda: None),
+            "cuda_ring_loopback_ab_allreduce_bus_bw", n, device)
     return lines
 
 
@@ -253,6 +319,10 @@ def _check_args(args) -> None:
     if args.loopback and args.world_size not in (None, 1):
         raise SystemExit("--loopback runs in one process: drop "
                          "--world_size")
+    if args.ring_configs and (args.device != "cuda"
+                              or not (args.ring or args.loopback)):
+        raise SystemExit("--ring_configs times the ring's CUDA kernel: it "
+                         "needs --device cuda and --ring or --loopback")
 
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:

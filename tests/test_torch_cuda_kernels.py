@@ -49,9 +49,11 @@ from pytorch_multiprocessing_distributed_tpu_torch.ops.fused_update import (
     fused_sgd_, torch_fused_sgd_)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.kv_quant import (
     QuantizedKV, quantize_kv)
+from pytorch_multiprocessing_distributed_tpu_torch.ops import (
+    ring_allreduce as ring_module)
 from pytorch_multiprocessing_distributed_tpu_torch.ops.ring_allreduce import (
     launch_loopback_, ring_all_reduce, ring_all_reduce_loopback,
-    torch_ring_all_reduce)
+    ring_comm_bytes, ring_layout, torch_ring_all_reduce)
 from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     ServingEngine, init_params)
 from pytorch_multiprocessing_distributed_tpu_torch.train import (
@@ -959,8 +961,8 @@ def test_fused_sgd_wrapper_contract_on_card(cuda_device):
         fused_sgd_(p, g, b, init, count.long(), keep, lr=0.1)
 
 
-# ring all-reduce: sizes and dtypes cycled through consecutive calls (the
-# comm buffers grow on the way; the flags' sequence numbers run on)
+# ring all-reduce: sizes and dtypes cycled through consecutive calls (one
+# fixed comm buffer throughout; the flags' sequence numbers run on)
 RING_SIZES = ((40, 33), (1,), (3 * 1000 + 7,), (1_000_003,), (70_000,))
 
 
@@ -1012,5 +1014,117 @@ def test_ring_cross_card_matches_plain(cuda_device, tmp_path):
     spawn_ranks(ring_cuda_rank, world, (50, str(tmp_path)), timeout_s=300)
     for r in range(world):
         got = torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+        # 50 calls, then one of 64 MiB; one comm buffer throughout, and a
+        # contiguous f32 call is one kernel and nothing else on the card
         assert (got["mismatches"], got["worst"], got["launches"]) == (0, 0.0,
-                                                                      50)
+                                                                      51)
+        assert got["buffers"] == 1 and got["kernels"] == ["ring_kernel"]
+
+
+def _ring_inputs(dev, n, shape, seed, dtype=torch.float32):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(shape, generator=gen, device=dev) * 1e3).to(dtype)
+            for _ in range(n)]
+
+
+def _assert_ring_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.fixture
+def ring_blocks():
+    """Restores the ring's block count after a test that sets it."""
+    saved = ring_module.RING_BLOCKS
+    yield
+    ring_module.RING_BLOCKS = saved
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ring_loopback_small_block_count(cuda_device, ring_blocks, n,
+                                         blocks):
+    """A forced small G: every block takes many steps a hop; the sum
+    order does not depend on G, so the bits do not move."""
+    ring_module.RING_BLOCKS = blocks
+    for call, shape in enumerate(RING_SIZES):
+        xs = _ring_inputs(cuda_device, n, shape, seed=call)
+        got = ring_all_reduce_loopback(xs, impl="cuda")
+        _assert_ring_bits(got, torch_ring_all_reduce(xs))
+    plan = ring_module.loopback_plan(1_000_003, n, cuda_device)
+    assert plan.blocks <= blocks and plan.steps > 1
+
+
+@pytest.mark.parametrize("size", [1024, 16 * 2 ** 20])
+def test_ring_loopback_4kib_and_64mib(cuda_device, size):
+    xs = _ring_inputs(cuda_device, 4, (size,), seed=size)
+    _assert_ring_bits(ring_all_reduce_loopback(xs, impl="cuda"),
+                      torch_ring_all_reduce(xs))
+
+
+@pytest.mark.parametrize("layout", ["non_contiguous", "misaligned", "bf16",
+                                    "in_place"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ring_loopback_views_and_dtypes(cuda_device, n, layout):
+    """Views the kernel cannot read in place are copied into one f32
+    payload first (the kernel still runs); ``launch_loopback_`` reduces
+    a ``[n, padded]`` buffer in place."""
+    if layout == "non_contiguous":
+        xs = [x[:, 1:] for x in _ring_inputs(cuda_device, n, (3, 5001), 1)]
+    elif layout == "misaligned":  # storage offset 1: not 16-byte aligned
+        xs = [x[1:] for x in _ring_inputs(cuda_device, n, (70_001,), 2)]
+    elif layout == "bf16":
+        xs = _ring_inputs(cuda_device, n, (70_000,), 3, torch.bfloat16)
+    else:
+        padded = ring_layout(70_000, n)[2]
+        work = torch.zeros(n, padded, device=cuda_device)
+        for r, x in enumerate(_ring_inputs(cuda_device, n, (70_000,), 4)):
+            work[r, :70_000] = x
+        want = torch_ring_all_reduce(list(work))
+        before = ring_all_reduce_loopback.launches
+        launch_loopback_(work)
+        assert ring_all_reduce_loopback.launches == before + 1
+        _assert_ring_bits(list(work), want)
+        return
+    before = ring_all_reduce_loopback.launches
+    got = ring_all_reduce_loopback(xs, impl="cuda")
+    assert ring_all_reduce_loopback.launches == before + 1
+    _assert_ring_bits(got, torch_ring_all_reduce(xs))
+
+
+def test_ring_loopback_comm_buffer_is_allocated_once(cuda_device):
+    """Alternating large and small payloads reuse one fixed comm buffer
+    per (card, n), of the size the kernel's own layout gives."""
+    ring_all_reduce_loopback(_ring_inputs(cuda_device, 4, (8,), 0))
+    state = ring_module._loopback_state(cuda_device, 4)
+    ptr, nbytes = state.comm.data_ptr(), state.comm.numel()
+    _, _, slot, slots, _ = state.config
+    lib = ring_module._lib()
+    assert lib.pmdt_ring_comm_bytes(state.blocks, slots, slot) \
+        == ring_comm_bytes(state.blocks, slots, slot)
+    assert nbytes == 4 * state.stride >= 4 * ring_comm_bytes(
+        state.blocks, slots, slot)
+    for call, size in enumerate((16 * 2 ** 20, 1, 4_903_242, 1024,
+                                 16 * 2 ** 20, 3007)):
+        xs = _ring_inputs(cuda_device, 4, (size,), seed=call)
+        _assert_ring_bits(ring_all_reduce_loopback(xs, impl="cuda"),
+                          torch_ring_all_reduce(xs))
+        again = ring_module._loopback_state(cuda_device, 4)
+        assert again is state and again.comm.data_ptr() == ptr
+
+
+def test_ring_contiguous_f32_call_is_one_kernel(cuda_device):
+    """No pad, no copy: a contiguous f32 call is one launch of the ring
+    kernel and no other work on the card (``torch.profiler``)."""
+    xs = _ring_inputs(cuda_device, 4, (4_903_242,), seed=5)
+    ring_all_reduce_loopback(xs)  # warm: buffers and the library
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ring_all_reduce_loopback(xs)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and "ring_loopback_kernel" in on_card[0], \
+        on_card
