@@ -13,8 +13,10 @@ nothing is caught):
    one ``nvcc`` per source started together; build seconds; the
    ``-Xptxas -v`` lines, and the registers and spills of each of the 27
    decode instantiations (split kernel: dense/paged x model dtype/int8 x
-   f32/bf16 q x Dh 32/64/128; merge kernel: Dh 32/64/128) and of the 4
-   ring kernels (one rank per card and loopback, 8 or 16 data warps).
+   f32/bf16 q x Dh 32/64/128; merge kernel: Dh 32/64/128), of the 18
+   flash instantiations (forward, dq, dk/dv x bf16/f32 x Dh 32/64/128;
+   serialised ``wgmma``, ptxas's C7512, named) and of the 4 ring
+   kernels (one rank per card and loopback, 8 or 16 data warps).
 3. kernel  — the decode-attention kernels (row 1: the split-K
    ``decode_split_kernel``, and ``decode_merge_kernel`` where the window
    spans more than one split; each line names the cut) against their
@@ -56,8 +58,9 @@ nothing is caught):
    printed beside it); the forward against SDPA's forward; and the pair
    plus ``flash_dterm`` (the backward's torch ops beside the pair)
    against SDPA's backward, whose own dO.O pass is inside its time. In
-   f32 also the pair's largest error at a peaky softmax (q and k x 4),
-   printed, not asserted.
+   f32 (all three kernels 3xTF32 ``wgmma`` fed by TMA) also each
+   kernel's largest error at a peaky softmax (q and k x 4; the forward's
+   out and lse apart), printed, not asserted.
 7. train   — the port's ``train_lm.main`` (its normal entry) on
    full-width gpt_small, random init from seed 0, bf16, batch 8 x 1024
    tokens, lr 0.01, 1 epoch of the default 200 000-token synthetic corpus
@@ -68,8 +71,8 @@ nothing is caught):
    ``test.log``, ``model_1.pth`` and its sidecar exist; tokens/s and the
    steady step time.
 7b. train-f32 — phase 7 with ``train_lm``'s default ``--dtype
-   float32``: the f32 forward and the 3xTF32 backward pair at full
-   width, with the same launch counts, loss check and files asserted;
+   float32``: the 3xTF32 forward and backward pair at full width, with
+   the same launch counts, loss check and files asserted;
    tokens/s and the steady step time.
 8. train-exact — gpt_small at 2 layers in f32 (TF32 off): 3 SGD steps
    through the kernels (``attn_impl="flash"``) and through the plain
@@ -239,7 +242,8 @@ import time
 # named); the roofline bound's denominator
 HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 PCIe", 2.0e12),
                    ("H100 NVL", 3.9e12), ("H100", 3.35e12))
-# f32 outside the tensor cores (the FMA kernels' math), H100 SXM
+# f32 outside the tensor cores (the decode, SGD and ring kernels' math,
+# and the flash kernels' FMA bound beside their 3xTF32 one), H100 SXM
 F32_FLOPS_PER_S = 67e12
 # exact f32 products on the tensor cores: 3xTF32 (three TF32 products a
 # product) at 495 TFLOP/s of TF32, H100 SXM; the card's fastest route to
@@ -277,7 +281,7 @@ FLASH_REPLACES = {
 FLASH_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
                  "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
-FLASH_KERNELS_F32 = {"flash_fwd": "flash_fwd_kernel",
+FLASH_KERNELS_F32 = {"flash_fwd": "flash_fwd_tf32x3_kernel",
                      "flash_bwd_dq": "flash_bwd_dq_tf32x3_kernel",
                      "flash_bwd_dkv": "flash_bwd_dkv_tf32x3_kernel"}
 # phase 6's peaky softmax: q and k scaled by this (logits x 16)
@@ -491,33 +495,14 @@ def _plan_text(da, q, window):
                else "split + merge launches"))
 
 
-def _ptxas_entries(log):
-    """``(mangled name, registers, spill stores, spill loads)`` of every
-    function of an ``-Xptxas -v`` report that names its registers."""
-    found, name, spills = [], None, None
-    for line in log.splitlines():
-        prop = re.search(r"Function properties for (\S+)", line)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-        used = re.search(r"Used (\d+) registers", line)
-        if prop:
-            name, spills = prop.group(1), None
-        elif spill and name:
-            spills = (int(spill.group(1)), int(spill.group(2)))
-        elif used and name and spills:
-            found.append((name, int(used.group(1))) + spills)
-            name = None
-    return found
-
-
-def _decode_builds(log):
+def _decode_builds(entries):
     """``(kernel, registers, spill stores, spill loads)`` of every
     decode split and merge instantiation in the ``-Xptxas -v`` report,
     the kernel named by its template arguments (q type, K/V type, Dh,
     paged)."""
     types = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
     found = []
-    for name, *counts in _ptxas_entries(log):
+    for name, *counts, _ in entries:
         split = re.search(r"decode_split_kernelI(f|13__nv_bfloat16)"
                           r"(f|a|13__nv_bfloat16|S\d*_)Li(\d+)ELb(\d)E",
                           name)
@@ -536,17 +521,33 @@ def _decode_builds(log):
     return found
 
 
-def _ring_builds(log):
+def _ring_builds(entries):
     """``(kernel, registers, spill stores, spill loads)`` of the ring
     kernels in the ``-Xptxas -v`` report (one rank per card and
     loopback, 8 or 16 data warps)."""
     found = []
-    for name, *counts in _ptxas_entries(log):
+    for name, *counts, _ in entries:
         kernel = re.search(r"(ring_kernel|ring_loopback_kernel)ILi(\d+)E",
                            name)
         if kernel:
             found.append((f"{kernel.group(1)}<{kernel.group(2)} data "
                           f"warps>", *counts))
+    return found
+
+
+def _flash_builds(entries):
+    """``(kernel, registers, spill stores, spill loads)`` of the 18 flash
+    instantiations (forward, dq, dk/dv x bf16/f32 x Dh 32/64/128) among
+    the ``-Xptxas -v`` report's entries, each with ", wgmma serialised
+    (C7512)" where ptxas says so."""
+    found = []
+    for name, *counts, serialised in entries:
+        kernel = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:wgmma|tf32x3)"
+                           r"_kernel)ILi(\d+)E", name)
+        if kernel:
+            found.append((f"{kernel.group(1)}<Dh {kernel.group(2)}>"
+                          + (", wgmma serialised (C7512)" if serialised
+                             else ""), *counts))
     return found
 
 
@@ -1359,10 +1360,15 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "entry function" in line or "C7512" in line):
                 _print(f"[build] {src}: {line.strip()}")
-    decode_log = _build.BUILD_DIR / "decode_attention.log"
-    decode_builds = _decode_builds(
-        reports.get("decode_attention")
-        or (decode_log.read_text() if decode_log.exists() else ""))
+
+    def ptxas(src):
+        """The ``-Xptxas -v`` entries of ``src``'s build: this run's, or
+        the log of the build it found."""
+        log = _build.BUILD_DIR / f"{src}.log"
+        return _build.ptxas_entries(
+            reports.get(src) or (log.read_text() if log.exists() else ""))
+
+    decode_builds = _decode_builds(ptxas("decode_attention"))
     if len(decode_builds) != 2 * 2 * 2 * 3 + 3:
         raise AssertionError(
             f"the decode build report names {len(decode_builds)} split and "
@@ -1371,10 +1377,15 @@ def main() -> int:
     for label, regs, stores, loads in decode_builds:
         _print(f"[build] {label}: {regs} registers, spill stores {stores} "
                f"bytes, spill loads {loads} bytes")
-    ring_log = _build.BUILD_DIR / "ring_allreduce.log"
-    ring_builds = _ring_builds(
-        reports.get("ring_allreduce")
-        or (ring_log.read_text() if ring_log.exists() else ""))
+    flash_builds = _flash_builds(ptxas("flash_attention"))
+    if len(flash_builds) != 3 * 2 * 3:
+        raise AssertionError(
+            f"the flash build report names {len(flash_builds)} kernels; "
+            "expected 18 (forward, dq, dk/dv x bf16/f32 x Dh 32/64/128)")
+    for label, regs, stores, loads in flash_builds:
+        _print(f"[build] {label}: {regs} registers, spill stores {stores} "
+               f"bytes, spill loads {loads} bytes")
+    ring_builds = _ring_builds(ptxas("ring_allreduce"))
     if len(ring_builds) != 4:
         raise AssertionError(
             f"the ring build report names {len(ring_builds)} kernels; "
@@ -1534,15 +1545,20 @@ def main() -> int:
                    f"{lib_bwd:.5f} ms (pair + dterm / SDPA "
                    f"{(pair + dterm_ms) / lib_bwd:.3f}) [{smi}]")
             if dtype == torch.float32:
-                # a peaky softmax (logits x 16): the pair's largest error
-                # against its plain version, printed only
+                # a peaky softmax (logits x 16): each kernel's largest
+                # error against its plain version (the forward's out and
+                # lse apart), printed only
                 pk, pp, _, _ = _flash_calls(fa, q * PEAKY, k * PEAKY, v, do,
                                             causal)
                 peaky = {}
-                for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+                for n in FLASH_PRODUCTS:
                     got, ref = _tuple(pk[n]()), _tuple(pp[n]())
-                    peaky[n] = max(float((g - r).abs().max())
-                                   for g, r in zip(got, ref))
+                    errs = [float((g - r).abs().max())
+                            for g, r in zip(got, ref)]
+                    if n == "flash_fwd":
+                        peaky["flash_fwd_out"], peaky["flash_fwd_lse"] = errs
+                    else:
+                        peaky[n] = max(errs)
                 _print(f"[flash] peaky {shape}, q and k x {PEAKY}: "
                        "max_abs_err " + " ".join(
                            f"{n}={e:.3e}" for n, e in peaky.items()))

@@ -17,11 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -107,3 +108,34 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(target))
             _libs[name] = lib
         return lib
+
+
+class PtxasEntry(NamedTuple):
+    """One function of an ``-Xptxas -v`` report."""
+
+    name: str  # the mangled name
+    registers: int
+    spill_stores: int  # bytes
+    spill_loads: int  # bytes
+    serialised: bool  # ptxas serialised its wgmma (warning C7512)
+
+
+def ptxas_entries(log: str) -> List[PtxasEntry]:
+    """Every function of an ``-Xptxas -v`` report (what :func:`build_all`
+    returns) that names its registers, in the report's order."""
+    serial = set(re.findall(r"C7512\).*'(\S+)'", log))
+    found, name, spills = [], None, None
+    for line in log.splitlines():
+        prop = re.search(r"Function properties for (\S+)", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if prop:
+            name, spills = prop.group(1), None
+        elif spill and name:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        elif used and name and spills:
+            found.append(PtxasEntry(name, int(used.group(1)), *spills,
+                                    name in serial))
+            name = None
+    return found

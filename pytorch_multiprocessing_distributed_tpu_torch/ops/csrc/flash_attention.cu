@@ -6,8 +6,8 @@
 //   `_fwd_kernel`     (launched by `_flash_fwd`)        -> flash_fwd_*
 //   `_bwd_dq_kernel`  (launched by `_flash_pair_grads`) -> flash_bwd_dq_*
 //   `_bwd_dkv_kernel` (launched by `_flash_pair_grads`) -> flash_bwd_dkv_*
-// in bf16 as the `flash_*_wgmma_kernel`s; in f32 as `flash_fwd_kernel`
-// and the `flash_bwd_*_tf32x3_kernel`s.
+// in bf16 as the `flash_*_wgmma_kernel`s; in f32 as the
+// `flash_*_tf32x3_kernel`s.
 //
 //   out = softmax(Q K^T * scale + mask) V,  lse = log-sum-exp of each row
 //   dq  = sum_k dS K * scale,  dk = sum_q dS^T Q * scale,  dv = sum_q P^T dO
@@ -21,20 +21,17 @@
 //
 // What bounds it on the card: operations. A (q-tile, k-tile) pair does
 // 2 * 64 * 64 * Dh flops per product on 2 * 64 * Dh elements: far above
-// the H100's flop/byte ridge once tiles are in shared memory. The
-// kernels:
-//   - bf16: all three passes are `wgmma` warpgroup products fed by TMA
-//     through mbarrier rings, one producer warp and two (forward, dk/dv)
-//     or one (dq) consumer warpgroups a CTA; described above the
-//     `flash_*_wgmma_kernel`s below;
-//   - f32 backward (`train_lm`'s default dtype): the same skeleton with
-//     every product as 3xTF32 `wgmma` (three TF32 products on hi/lo
-//     splits of the f32 operands, f32-accurate); described above the
-//     `flash_bwd_*_tf32x3_kernel`s below;
-//   - f32 forward: f32 FMAs on the CUDA cores (67 TFLOP/s peak), 256
-//     threads as 16 x 16, each owning a 4 x 4 block of the 64 x 64 logit
-//     tile, tiles in shared memory as f32 with a row stride of Dh + 1 so
-//     the 16 columns a thread row reads fall in 16 banks.
+// the H100's flop/byte ridge once tiles are in shared memory. Every
+// pass, in both dtypes, is warp-specialised: one producer warp brings
+// every tile by TMA through mbarrier rings, and consumer warpgroups run
+// every product as `wgmma`:
+//   - bf16: two (forward, dk/dv) or one (dq) consumer warpgroups a CTA;
+//     described above the `flash_*_wgmma_kernel`s below;
+//   - f32 (`train_lm`'s default dtype): every product as 3xTF32 `wgmma`
+//     (three TF32 products on hi/lo splits of the f32 operands,
+//     f32-accurate), two consumer warpgroups a CTA, each splitting half
+//     of every streamed tile into those hi/lo operands; described above
+//     the `flash_*_tf32x3_kernel`s below.
 // All:
 //   - the Pallas grid's sequential innermost axis (k for the forward and
 //     dq, q for dk/dv) becomes a loop inside one CTA, so the running
@@ -58,162 +55,9 @@
 
 namespace {
 
-constexpr int kTile = 64;      // rows of a q-tile and of a k-tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kTP = kTile + 1; // row stride of the 64 x 64 P/dS tiles
-constexpr float kNegInf = -1e30f;
-
 struct Strides {  // element strides of a [B, S, H, Dh] tensor (Dh: 1)
   long long b, s, h;
 };
-
-// rows [row0, row0 + kTile) of head (b, h) into tile[kTile][D + 1] as
-// f32; rows >= n_rows are zero
-template <int D>
-__device__ __forceinline__ void load_tile(float* tile, const float* base,
-                                          Strides st, int b, int h,
-                                          int row0, int n_rows) {
-  const float* p = base + b * st.b + h * st.h;
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    const int row = row0 + r;
-    tile[r * (D + 1) + c] =
-        row < n_rows ? p[static_cast<long long>(row) * st.s + c] : 0.f;
-  }
-}
-
-// reduce over the 16 lanes that share a tile row (lanes differ in tx)
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int H, int Sq, int Skv,
-                 Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int CN = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kTile * DP;
-  float* sV = sK + kTile * DP;
-  float* sP = sV + kTile * DP;  // [kTile][kTP]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int qi = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
-  const int q0 = qi * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<D>(sQ, q, qs, b, h, q0, Sq);
-
-  float m[4], l[4], acc[4][CN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CN; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_k = (Skv + kTile - 1) / kTile;
-  if (causal) n_k = min(n_k, qi + 1);  // live iff k_start < q_end
-
-  for (int kb = 0; kb < n_k; ++kb) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(sK, k, ks, b, h, kb * kTile, Skv);
-    load_tile<D>(sV, v, vs, b, h, kb * kTile, Skv);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      bool ok[4];
-      float tile_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = kb * kTile + tx + 16 * j;
-        ok[j] = col < Skv && (!causal || col <= row);
-        s[i][j] *= scale;
-        if (ok[j]) tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(tile_max));
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        psum += p;
-        sP[(ty * 4 + i) * kTP + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + row_sum16(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CN; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[4], vv[CN];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * kTP + kk];
-#pragma unroll
-      for (int c = 0; c < CN; ++c) vv[c] = sV[kk * DP + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-  float* o = out + b * os.b + h * os.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CN; ++c)
-      o[static_cast<long long>(row) * os.s + tx + 16 * c] =
-          acc[i][c] / l_safe;
-    if (tx == 0)
-      lse[static_cast<long long>(bh) * Sq + row] = m[i] + logf(l_safe);
-  }
-}
 
 // ---- bf16 on Hopper: wgmma fed by TMA through mbarrier rings ----
 //
@@ -630,13 +474,15 @@ struct FwdSmem {
   static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
 };
 
-// the online softmax of one 64 x 64 logit tile in place, in the
+// the online softmax of one 64 x N logit tile in place, in the
 // accumulator layout (this thread: rows g and g + 8 of its warp's 16,
 // element 4 j + 2 i + e at column 8 j + 2 t + e of row g + 8 i): masks
 // the tile when `masked`, raises the running max m (log2 domain, of s *
-// c), turns s into P = 2^(s c - m), adds P's row sums to this thread's
-// share of l, and returns each row's correction 2^(m_old - m_new) in corr
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
+// c; c > 0), turns s into P = 2^(s c - m), adds P's row sums to this
+// thread's share of l, and returns each row's correction 2^(m_old -
+// m_new) in corr
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              float c, bool masked, int row0,
                                              int col0, int Skv, int causal) {
@@ -644,7 +490,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
   const int g = lane / 4, t = lane % 4;
   if (masked) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + g + 8 * (e >> 1);
@@ -657,7 +503,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
   for (int i = 0; i < 2; ++i) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
       mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
     const float m_new = fmaxf(m[i], quad_max(mx) * c);
     // a row with no live column yet keeps P = 0 (not exp2(-inf + inf))
@@ -666,7 +512,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
     m[i] = m_new;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * i + e];
@@ -787,7 +633,7 @@ __global__ void __launch_bounds__(FwdSmem<D>::kWgs* kWg + 32,
         for (int i = 0; i < 32; ++i) sc[i] = -sc[i];
       }
       float corr[2];
-      softmax_tile(sc, m, l, corr, c,
+      softmax_tile<64>(sc, m, l, corr, c,
                    (causal && kb == diag) || (kb + 1) * kWgRows > Skv, row0,
                    kb * kWgRows, Skv, causal);
       rescale<D>(o, corr);
@@ -1368,13 +1214,53 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d[64 x 16] (+)= A[64 x 8] B[8 x 16], TF32, both from shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], TF32, both from shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
                                               uint64_t b, int accumulate) {
   if constexpr (N == 8)
     wgmma_tf32_ss_n8(d, a, b, accumulate);
-  else
+  else if constexpr (N == 16)
+    wgmma_tf32_ss_n16(d, a, b, accumulate);
+  else if constexpr (N == 32)
     wgmma_tf32_ss_n32(d, a, b, accumulate);
+  else
+    wgmma_tf32_ss_n64(d, a, b, accumulate);
 }
 
 // d[64 x 32] += A[64 x 8] B[8 x 32], TF32, A from registers
@@ -1463,26 +1349,29 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[D / 2],
     wgmma_tf32_rs_n128(d, a, b);
 }
 
-// s = A B^T in 3xTF32 over Dh = D: A all 64 rows of a resident hi/lo
-// pair, B rows [r0, r0 + N) of a streamed hi/lo pair of b_rows rows (both
-// K-major F32Tile<D>); the first product overwrites s
+// s = A B^T in 3xTF32 over Dh = D: A rows [a_r0, a_r0 + 64) of a
+// resident hi/lo pair of a_rows rows, B rows [r0, r0 + N) of a streamed
+// hi/lo pair of b_rows rows (both K-major F32Tile<D>); the first product
+// overwrites s
 template <int D, int N>
 __device__ __forceinline__ void product_3x_ss(float (&s)[N / 2],
                                               uint32_t a_hi, uint32_t a_lo,
                                               uint32_t b_hi, uint32_t b_lo,
-                                              int b_rows, int r0) {
+                                              int b_rows, int r0,
+                                              int a_rows = kWgRows,
+                                              int a_r0 = 0) {
   using T = F32Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk)
-    wgmma_tf32_ss<N>(s, T::kmajor(a_hi, kWgRows, 0, kk),
+    wgmma_tf32_ss<N>(s, T::kmajor(a_hi, a_rows, a_r0, kk),
                      T::kmajor(b_lo, b_rows, r0, kk), kk);
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk)
-    wgmma_tf32_ss<N>(s, T::kmajor(a_lo, kWgRows, 0, kk),
+    wgmma_tf32_ss<N>(s, T::kmajor(a_lo, a_rows, a_r0, kk),
                      T::kmajor(b_hi, b_rows, r0, kk), 1);
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk)
-    wgmma_tf32_ss<N>(s, T::kmajor(a_hi, kWgRows, 0, kk),
+    wgmma_tf32_ss<N>(s, T::kmajor(a_hi, a_rows, a_r0, kk),
                      T::kmajor(b_hi, b_rows, r0, kk), 1);
 }
 
@@ -1531,17 +1420,20 @@ __device__ __forceinline__ void split_resident(unsigned char* tile,
   }
 }
 
-// split rows [r0, r0 + NH) of a landed [N][D] tile (one warpgroup): hi in
-// place, lo to the same offsets of `lo`, and, when `t_hi` is set, both
-// transposed into [D][NH] tiles (streamed row r0 + r at column kpos(r));
-// a thread's loads are all issued before any is used
-template <int D, int N, int NH>
+// split rows [r0, r0 + NH) of a landed [N][D] tile (one warpgroup): when
+// `lo` is set, hi in place and lo to the same offsets of `lo`; when `t_hi`
+// is set, both transposed into [D][NT] tiles (streamed row r0 + r at
+// column kpos(r) of a tile of these rows alone, NT = NH, or kpos(r0 + r)
+// of one of all N, NT = N); a thread's loads are all issued before any is
+// used
+template <int D, int N, int NH, int NT = NH>
 __device__ __forceinline__ void split_rows(unsigned char* tile,
                                            unsigned char* lo,
                                            unsigned char* t_hi,
                                            unsigned char* t_lo, int r0) {
   using T = F32Tile<D>;
-  using TT = F32Tile<NH>;
+  using TT = F32Tile<NT>;
+  static_assert(NT == NH || NT == N, "a tile of these rows or of all");
   constexpr int kIters = NH * D / 4 / kWg;  // 16-byte chunks a thread
   static_assert(NH * D / 4 % kWg == 0, "whole chunks a thread");
   const int tid = threadIdx.x % kWg;
@@ -1556,11 +1448,13 @@ __device__ __forceinline__ void split_rows(unsigned char* tile,
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
     const float4 l = split4(x[it]);
-    *reinterpret_cast<float4*>(tile + off[it]) = x[it];
-    *reinterpret_cast<float4*>(lo + off[it]) = l;
+    if (lo != nullptr) {
+      *reinterpret_cast<float4*>(tile + off[it]) = x[it];
+      *reinterpret_cast<float4*>(lo + off[it]) = l;
+    }
     if (t_hi != nullptr) {
       const int ch = (tid + it * kWg) / NH;
-      const int c = kpos(r);
+      const int c = kpos(NT == NH ? r : r0 + r);
       const float hs[4] = {x[it].x, x[it].y, x[it].z, x[it].w};
       const float ls[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
@@ -2000,6 +1894,246 @@ __global__ void __launch_bounds__(Tf32Shape<D>::kWgs* kWg + 32, 1)
                 dv + b * dvs.b + h * dvs.h, dvs.s, k0, Skv);
 }
 
+// ---- the f32 forward (row 5 in f32): 3xTF32 on wgmma ----
+//
+// The f32 backward's skeleton with one product fewer and an online
+// softmax in place of the lse-based P. The producer warp brings the
+// CTA's query rows once (the `resident` barrier) and streams K and V
+// through the ring, tiles of kN keys (16 at Dh 128, as the backward);
+// causal tiles wholly above the diagonal are never loaded, and the grid
+// runs the longest rows first. A CTA takes 128 query rows, 64 a consumer
+// warpgroup, and each warpgroup runs every key of every tile. Each
+// landed tile is split once for both, half its rows by each warpgroup: K
+// rows into hi (in place) and lo, V rows into transposed [D][keys] hi/lo
+// tiles (the B operand of P V, which contracts over the keys; a TF32
+// wgmma reads only K-major operands). The split goes to one of two split
+// buffers, taken in turns, so a warpgroup may split the next tile while
+// the other still reads this one; one barrier of both warpgroups a tile.
+// Per tile a warpgroup then runs S = Q K^T (3xTF32, both operands from
+// shared memory; skipped where the causal tile lies wholly above its 64
+// rows), frees the ring stage, runs the online softmax on the
+// accumulator's registers in the log2 domain (masks only on the diagonal
+// and the ragged last tile; a negative scale flips the logits, a zero
+// one keeps c at 1e-30 so a masked -inf never meets a 0), rescales O,
+// splits P into hi/lo A fragments and adds P V (3xTF32, A from
+// registers). P stays f32, as the Pallas kernel's `p.astype(v.dtype)` is
+// a no-op in f32. The epilogue divides O by l, stores each thread's
+// column pairs (a quad fills a 32-byte sector) and writes the
+// natural-log lse, m / log2 e + ln l, which the backward pair and ring
+// attention read. Rows past Sq and keys past Skv come zero-filled from
+// TMA and are never written or counted.
+//
+// What bounds it: operations at the 3xTF32 rate. At gpt_small's training
+// shape (B 8, H 12, S 1024, Dh 64, causal) the forward does 12.9 GFLOP
+// (0.078 ms at 165 TFLOP/s) against about 0.015 ms for its bytes. A TF32
+// wgmma takes 8 columns of K a step, so an m64nNk8 product with both
+// operands in shared memory reads 32 (64 + N) bytes for 1024 N flops: at
+// N = 64 that is the SM's 16 TF32 flops per byte of shared memory, at N
+// = 32 shared memory runs out first. So S runs at N = 64 over a whole
+// tile, and a tile is split once per 128 rows. Shared memory at Dh 64: Q
+// hi and lo 64 KB, two ring stages of K and V 64 KB, two split buffers of
+// K lo and V^T hi/lo 96 KB: 226 KB, one CTA an SM (no room for a third
+// stage). Measured on an NVIDIA H100 80GB HBM3 at 700 W at that shape,
+// builds timed in turns in one process by `ab_flash_fwd.py --dtype
+// float32`: this layout 0.2008 ms. Slower, in builds not kept: 64 rows a
+// CTA with both warpgroups on every row, each on half of every tile's
+// keys and a merge of their two partials (S at N = 32, a tile split once
+// per 64 rows: 0.2682 ms with 2 stages, 0.2721 with 3); Q's hi/lo A
+// fragments held in registers for S (ptxas caps 288 threads at 168
+// registers a thread: 40-292 bytes of spills and serialised wgmma, 0.2529
+// ms); issuing tile j + 1's S beside tile j's P V with a second split
+// buffer (64 rows: 0.3465 ms).
+
+// the ring stages of the f32 forward at head dim D (the constant
+// ab_flash_fwd.py replaces)
+template <int D>
+struct FwdTf32Shape {
+  static constexpr int kStages = 2;
+};
+
+// shared memory of the f32 forward (byte offsets from a 1024-aligned base)
+template <int D>
+struct FwdTf32Smem {
+  using T = F32Tile<D>;
+  static constexpr int kRows = 2 * kWgRows;  // query rows a CTA
+  static constexpr int kN = Tf32Shape<D>::kN;
+  using TT = F32Tile<kN>;
+  static constexpr int kStages = FwdTf32Shape<D>::kStages;
+  static constexpr int kQ = 0;  // Q hi (in place), lo
+  static constexpr int kQlo = kQ + T::bytes(kRows);
+  static constexpr int kRing = kQlo + T::bytes(kRows);
+  static constexpr int kStage = 2 * T::bytes(kN);  // K (hi in place), V
+  // two split buffers, taken in turns: K lo, then V^T hi and lo
+  static constexpr int kSplit0 = kRing + kStages * kStage;
+  static constexpr int kVt = T::bytes(kN);
+  static constexpr int kSplit = kVt + 2 * TT::bytes(D);
+  static constexpr int kBar = kSplit0 + 2 * kSplit;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(2 * kWg + 32, 1)
+    flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            float* __restrict__ out, float* __restrict__ lse,
+                            int H, int Sq, int Skv, Strides os, float scale,
+                            int causal) {
+  using T = F32Tile<D>;
+  using L = FwdTf32Smem<D>;
+  constexpr int R = L::kRows;
+  constexpr int N = L::kN;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
+  const uint32_t base = smem_addr(smem);
+  const uint32_t resident = base + L::kBar;
+  const uint32_t full0 = resident + 8, empty0 = full0 + 8 * S;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qi = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qi * R;
+  int n_k = (Skv + N - 1) / N;
+  if (causal) n_k = min(n_k, (q0 + R) / N);  // live iff k0 < q_end
+
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(resident, T::bytes(R));
+      for (int p = 0; p < T::kPanels; ++p)
+        tma_rows(base + L::kQ + p * R * T::kRowBytes, &tq, resident,
+                 p * T::kPanelCols, q0, h, b);
+      for (int kb = 0; kb < n_k; ++kb) {
+        const int s = kb % S;
+        mbar_wait(empty0 + 8 * s, ((kb / S) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, L::kStage);
+        const uint32_t kt = base + L::kRing + s * L::kStage;
+        for (int p = 0; p < T::kPanels; ++p) {
+          const int off = p * N * T::kRowBytes;
+          tma_rows(kt + off, &tk, full0 + 8 * s, p * T::kPanelCols, kb * N,
+                   h, b);
+          tma_rows(kt + T::bytes(N) + off, &tv, full0 + 8 * s,
+                   p * T::kPanelCols, kb * N, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: query rows [q0 + r0, q0 + r0 + 64), every key
+  // of every streamed tile; it splits tile rows [wg N / 2, wg N / 2 + N /
+  // 2)
+  const int r0 = wg * kWgRows;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int row0 = q0 + r0 + warp * 16;  // this warp's first row
+  // the row max is taken on the raw logits, so a negative scale flips
+  // them first and goes to the exponent as |scale| (at least 1e-30: a
+  // zero scale must not turn a masked -inf into 0 * -inf = NaN)
+  const bool flip = scale < 0.f;
+  const float c = fmaxf(fabsf(scale) * kLog2e, 1e-30f);
+  mbar_wait(resident, 0);
+  __syncwarp();
+  split_resident(smem + L::kQ, smem + L::kQlo, T::bytes(R));
+  fence_async_smem();
+  consumers_sync();
+  float o[D / 2], sc[N / 2], m[2] = {-INFINITY, -INFINITY},
+                             l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) sc[i] = 0.f;
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int s = kb % S;
+    mbar_wait(full0 + 8 * s, (kb / S) & 1);
+    __syncwarp();
+    const int st = L::kRing + s * L::kStage;  // K, then V
+    unsigned char* klo = smem + L::kSplit0 + (kb % 2) * L::kSplit;
+    unsigned char* vt_hi = klo + L::kVt;
+    unsigned char* vt_lo = vt_hi + F32Tile<N>::bytes(D);
+    split_rows<D, N, N / 2, N>(smem + st, klo, nullptr, nullptr,
+                               wg * (N / 2));
+    split_rows<D, N, N / 2, N>(smem + st + T::bytes(N), nullptr, vt_hi,
+                               vt_lo, wg * (N / 2));
+    fence_async_smem();
+    consumers_sync();
+    const int k0 = kb * N;
+    const bool live = !causal || k0 <= q0 + r0 + kWgRows - 1;
+    if (live) {
+      wgmma_fence();
+      product_3x_ss<D, N>(sc, base + L::kQ, base + L::kQlo, base + st,
+                          smem_addr(klo), N, 0, R, r0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(sc);
+    }
+    // the stage is free: S has read K, and V sits split in the buffer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    if (live) {
+      if (flip) {
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) sc[i] = -sc[i];
+      }
+      float corr[2];
+      softmax_tile<N>(sc, m, l, corr, c,
+                      (causal && k0 + N - 1 > q0 + r0) || k0 + N > Skv,
+                      row0, k0, Skv, causal);
+      rescale<D>(o, corr);
+      uint32_t p_hi[N / 8][4], p_lo[N / 8][4];
+      acc_to_tf32<N>(p_hi, p_lo, sc);
+      wgmma_fence();
+      product_3x_rs<D, N>(o, p_hi, p_lo, smem_addr(vt_hi),
+                          smem_addr(vt_lo));
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(o);
+      hold(p_hi);
+      hold(p_lo);
+    }
+  }
+
+  // O / l and lse = m / log2 e + ln l; each thread stores its own column
+  // pairs (a quad's four lanes fill one 32-byte sector a row)
+  float* o_base = out + b * os.b + h * os.h;
+  float f[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l_safe = fmaxf(quad_sum(l[i]), 1e-30f);
+    f[i] = 1.f / l_safe;
+    const int row = row0 + g + 8 * i;
+    if (lane % 4 == 0 && row < Sq)
+      lse[static_cast<long long>(bh) * Sq + row] =
+          m[i] / kLog2e + logf(l_safe);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row < Sq) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(o_base + row * os.s + 8 * j +
+                                   2 * (lane % 4)) =
+            make_float2(o[4 * j + 2 * i] * f[i], o[4 * j + 2 * i + 1] * f[i]);
+    }
+  }
+}
+
 Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
@@ -2120,12 +2254,15 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
                   static_cast<bf16*>(out), lse, H, Sq, Skv, s3, scale,
                   causal);
   }
-  return launch(flash_fwd_kernel<D>, dim3(B * H, (Sq + kTile - 1) / kTile),
-                kThreads, (3 * kTile * (D + 1) + kTile * kTP) * sizeof(float),
-                stream, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<float*>(out), lse, H, Sq, Skv, strides_at(st, 0),
-                strides_at(st, 1), strides_at(st, 2), s3, scale, causal);
+  using L = FwdTf32Smem<D>;
+  CUtensorMap m[3];
+  const int err = make_maps<D, true>(m, {q, k, v}, {Sq, Skv, Skv},
+                                     {L::kRows, L::kN, L::kN}, B, H, st);
+  if (err != 0) return static_cast<cudaError_t>(err);
+  return launch(flash_fwd_tf32x3_kernel<D>,
+                dim3(B * H, (Sq + L::kRows - 1) / L::kRows), 2 * kWg + 32,
+                L::kBytes, stream, m[0], m[1], m[2], static_cast<float*>(out),
+                lse, H, Sq, Skv, s3, scale, causal);
 }
 
 template <int D>

@@ -22,11 +22,14 @@ The Pallas ``block_q``/``block_k`` are TPU VMEM tiles; the kernels pick
 their own and take none as arguments. In bf16, CTAs of 128 query rows
 (the forward), 64 query rows (dq) or 128 keys (dk/dv; 64 at Dh 128)
 against a TMA-fed ring of 64-row K/V (or Q/dO) tiles, every product a
-Hopper ``wgmma``. In f32 the forward runs 64 x 64 tiles on the CUDA
-cores; the backward pair takes CTAs of 64 query rows (dq) or 64 keys
+Hopper ``wgmma``. In f32 the three passes take CTAs of 128 query rows
+(the forward, 64 a consumer warpgroup), 64 query rows (dq) or 64 keys
 (dk/dv) against a TMA-fed ring of 64-row tiles (16 at Dh 128), every
-product a 3xTF32 ``wgmma``: three TF32 products on hi/lo splits of the
-f32 operands, accurate to f32.
+product a 3xTF32 ``wgmma``: three TF32
+products on hi/lo splits of the f32 operands, accurate to f32
+(``tests/test_torch_flash_tf32x3.py`` emulates that arithmetic on the
+CPU; ``tests/test_torch_cuda_kernels.py`` holds the kernels against the
+plain versions on the card).
 """
 
 from __future__ import annotations
@@ -128,7 +131,7 @@ def _check_qkv(q, k, v, causal):
 
 def _check_kernel_args(tensors, rows=()):
     """What the kernels take: one dtype of f32/bf16, Dh in 32/64/128, a
-    unit Dh stride (and 16-byte aligned rows where a kernel reads them by
+    unit Dh stride and 16-byte aligned rows (the kernels read them by
     TMA), one CUDA device; per-row tensors f32 contiguous."""
     q = tensors[0]
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
@@ -141,15 +144,14 @@ def _check_kernel_args(tensors, rows=()):
     for t in tensors:
         if t.stride(3) != 1:
             raise ValueError("q/k/v/dO need a unit head_dim stride")
-    # the kernels that read q/k/v/dO by TMA (bf16 all three passes, f32
-    # the backward pair) need 16-byte aligned rows
-    if q.dtype == torch.bfloat16 or rows:
-        per = 16 // q.element_size()
-        for t in tensors:
-            if t.data_ptr() % 16 or any(s % per for s in t.stride()[:3]):
-                raise ValueError(
-                    f"q/k/v/dO rows must be 16-byte aligned for the "
-                    f"{q.dtype} kernels (strides {t.stride()})")
+    # every pass reads q/k/v/dO by TMA, in both dtypes: 16-byte aligned
+    # rows
+    per = 16 // q.element_size()
+    for t in tensors:
+        if t.data_ptr() % 16 or any(s % per for s in t.stride()[:3]):
+            raise ValueError(
+                f"q/k/v/dO rows must be 16-byte aligned for the "
+                f"{q.dtype} kernels (strides {t.stride()})")
     for t in rows:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("lse and dterm must be contiguous f32 "

@@ -763,6 +763,62 @@ def test_flash_pair_grads_ignore_nan_past_the_end(cuda_device, dtype, d,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_ignores_nan_past_the_end(cuda_device, dtype, d, causal):
+    """The forward's twin of the pair's test: q/k/v are the first 129
+    rows of buffers whose later rows hold NaN. The forward reads nothing
+    past the end (a NaN key or value times a zero weight would be NaN),
+    so out and lse are finite and match the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = 129
+    q, k, v, _ = _flash_inputs(cuda_device, 2, s + 63, s + 63, 3, d, dtype,
+                               seed=d + causal + 7)
+    for t in (q, k, v):
+        t[:, s:] = float("nan")
+    q, k, v = (t[:, :s] for t in (q, k, v))
+    scale = d ** -0.5
+    out, lse = flash_fwd(q, k, v, scale=scale, causal=causal, impl="cuda")
+    ref_out, ref_lse = torch_flash_fwd(q, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]["out"]
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,skv,causal", [(1, 1, True), (1, 1, False),
+                                           (33, 33, True), (5, 33, False),
+                                           (97, 33, False), (97, 32, False),
+                                           (64, 32, False), (97, 97, True)])
+def test_flash_fwd_where_a_warpgroup_sees_no_key(cuda_device, dtype, d, sq,
+                                                 skv, causal):
+    """Both forwards take 128 query rows a CTA, 64 a consumer warpgroup,
+    and in f32 both warpgroups split every streamed tile for each other.
+    With Sq <= 64 the second warpgroup holds no row of the sequence
+    (zero-filled query rows that must reach neither O nor lse); with Skv
+    32 or 33 the one tile is mostly or wholly past Skv; at S 97 causal the
+    first warpgroup skips the second tile (keys 64-127, all above its
+    rows) but still splits half of it. Out and lse must stay finite and
+    match the plain version."""
+    q, k, v, _ = _flash_inputs(cuda_device, 2, sq, skv, 3, d, dtype,
+                               seed=sq + skv)
+    scale = d ** -0.5
+    out, lse = flash_fwd(q, k, v, scale=scale, causal=causal, impl="cuda")
+    ref_out, ref_lse = torch_flash_fwd(q, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]["out"]
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_fwd_is_bit_reproducible(cuda_device, dtype, d):
     """Two calls of the forward give equal bits, output and lse: each
@@ -842,11 +898,11 @@ def test_flash_wrapper_contract_on_card(cuda_device):
         flash_fwd(q[..., :48], k[..., :48], v[..., :48])
     with pytest.raises(ValueError, match="one dtype"):
         flash_fwd(q, k.float(), v)
-    flat = torch.zeros(16 * 2 * 64 + 1, dtype=torch.bfloat16,
-                       device=cuda_device)
-    unaligned = flat[1:].view(1, 16, 2, 64)  # rows off 16-byte alignment
-    with pytest.raises(ValueError, match="aligned"):
-        flash_fwd(unaligned, k, v)
+    for dtype in (torch.bfloat16, torch.float32):
+        flat = torch.zeros(16 * 2 * 64 + 1, dtype=dtype, device=cuda_device)
+        unaligned = flat[1:].view(1, 16, 2, 64)  # rows off 16-byte alignment
+        with pytest.raises(ValueError, match="aligned"):
+            flash_fwd(unaligned, k.to(dtype), v.to(dtype))
 
 
 def test_train_step_flash_matches_xla_on_card(cuda_device):

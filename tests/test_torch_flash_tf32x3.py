@@ -1,26 +1,35 @@
-"""The arithmetic of the f32 flash backward kernels, emulated on the CPU.
+"""The arithmetic of the f32 flash kernels, emulated on the CPU.
 
-On the card the f32 backward pair (``flash_bwd_dq_tf32x3_kernel`` and
-``flash_bwd_dkv_tf32x3_kernel`` in ``ops/csrc/flash_attention.cu``) runs
-every product on the tensor cores as 3xTF32: each f32 operand x becomes
-hi = tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away
-from zero (``cvt.rna.tf32.f32``: 10 mantissa bits), and a product is
-A_hi B_lo + A_lo B_hi + A_hi B_hi summed in f32; the A_lo B_lo term is
-dropped. A TF32 x TF32 product is exact in f32, so torch's f32 matmul of
-TF32-valued tensors on the CPU reproduces a TF32 product with f32 sums.
+On the card the f32 flash kernels (``flash_fwd_tf32x3_kernel``,
+``flash_bwd_dq_tf32x3_kernel`` and ``flash_bwd_dkv_tf32x3_kernel`` in
+``ops/csrc/flash_attention.cu``) run every product on the tensor cores
+as 3xTF32: each f32 operand x becomes hi = tf32(x) and lo = tf32(x -
+hi), rounded to nearest with ties away from zero (``cvt.rna.tf32.f32``:
+10 mantissa bits), and a product is A_hi B_lo + A_lo B_hi + A_hi B_hi
+summed in f32; the A_lo B_lo term is dropped. A TF32 x TF32 product is
+exact in f32, so torch's f32 matmul of TF32-valued tensors on the CPU
+reproduces a TF32 product with f32 sums.
 
 This file emulates that arithmetic (the rounding by bit operations) and
-runs the backward pair through it on numpy inputs from a seed: 2 heads,
-S 129 and 255 (a ragged last tile), Dh 32 and 64, causal and not. It
-shows that
+runs the kernels' algorithms through it on numpy inputs from a seed: 2
+heads, S 129 and 255 (a ragged last tile), Dh 32 and 64, causal and not,
+and for the forward also Dh 128, Skv < Sq (97 x 33, 97 x 32), S 1 and
+33, and a negative and a zero scale. The forward is emulated as the
+kernel computes it: each warpgroup's 64 query rows run every key in
+tiles of 64 (16 at Dh 128), the online softmax in the log2 domain
+(``exp2(s c - m)``, c = |scale| log2 e, the logits flipped for a
+negative scale), P split into hi and lo for P V. It shows that
 
-- 3xTF32 stays within the f32 grad tolerance (5e-4, ``FLASH_TOL`` of the
-  card tests and ``chip_smoke.py``) of the JAX package's
-  ``_flash_pair_grads`` in interpret mode (skipped where jax is missing);
+- 3xTF32 stays within the f32 tolerances (forward: out and lse 1e-4;
+  grads 5e-4; ``FLASH_TOL`` of the card tests and ``chip_smoke.py``) of
+  the JAX package's ``_flash_fwd`` and ``_flash_pair_grads`` in
+  interpret mode (skipped where jax is missing);
 - a single TF32 product is at least 20x further from a float64
   reference than 3xTF32 on the same inputs: the reason for three
   products. Both errors are printed (``pytest -s``).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -30,7 +39,17 @@ CASES = [(s, d, causal) for s in (129, 255) for d in (32, 64)
          for causal in (False, True)]
 HEADS = 2
 GRAD_TOL = 5e-4  # FLASH_TOL["float32"]["grad"] of the card checks
+OUT_TOL = 1e-4  # FLASH_TOL["float32"]["out"], and the lse's
 RATIO = 20  # a single TF32 product's error over 3xTF32's, at least
+# the forward: (Sq, Skv, Dh, causal, scale; None: Dh ** -0.5)
+FWD_CASES = ([(s, s, d, causal, None) for s in (129, 255) for d in (32, 64)
+              for causal in (False, True)]
+             + [(129, 129, 128, causal, None) for causal in (False, True)]
+             + [(97, 33, 64, False, None), (97, 33, 32, False, None),
+                (97, 32, 64, False, None), (1, 1, 64, True, None),
+                (33, 33, 32, True, None),
+                (129, 129, 64, False, -0.3), (129, 129, 64, True, 0.0)])
+LOG2E = 1.4426950408889634
 
 
 @pytest.fixture(autouse=True)
@@ -85,6 +104,108 @@ def pair_grads(q, k, v, do, lse, dterm, scale, causal, mm):
     ds = p * (mm(do, v.transpose(1, 2)) - dterm[..., None])
     return (mm(ds, k) * scale, mm(ds.transpose(1, 2), q) * scale,
             mm(p.transpose(1, 2), do))
+
+
+def fwd_emulated(q, k, v, scale, causal, mm):
+    """``(out [BH, Sq, D], lse [BH, Sq])`` as ``flash_fwd_tf32x3_kernel``
+    computes them in f32: tiles of 64 keys (16 at Dh 128); per tile S =
+    mm(Q, K^T), flipped for a negative scale, masked to -inf, the running
+    max m raised to max(s) c (log2 domain, c = max(|scale| log2 e,
+    1e-30)), P = exp2(s c - m) (0 while a row has no live key), l = l
+    corr + sum(P), O = O corr + mm(P, V); then O / l and lse = m / log2 e
+    + ln l. Rows are independent, so the CTA's split of the rows between
+    its warpgroups does not show here."""
+    s_q, s_k, d = q.shape[1], k.shape[1], q.shape[2]
+    n = 16 if d == 128 else 64
+    c = torch.tensor(max(abs(scale) * LOG2E, 1e-30), dtype=torch.float32)
+    neg_inf = torch.tensor(-np.inf, dtype=torch.float32)
+    row = torch.arange(s_q)[:, None]
+    m = torch.full((q.shape[0], s_q), -np.inf)
+    l = torch.zeros(q.shape[0], s_q)
+    o = torch.zeros(q.shape[0], s_q, d)
+    for k0 in range(0, s_k, n):
+        cols = torch.arange(k0, k0 + n)
+        # keys past Skv arrive as zero rows (TMA's fill), all masked
+        kt, vt = (torch.nn.functional.pad(
+            x[:, k0:k0 + n], (0, 0, 0, n - x[:, k0:k0 + n].shape[1]))
+            for x in (k, v))
+        sc = mm(q, kt.transpose(1, 2))
+        if scale < 0:
+            sc = -sc
+        live = cols[None, :] < s_k
+        if causal:
+            live = live & (cols[None, :] <= row)
+        sc = torch.where(live, sc, neg_inf)
+        m_new = torch.maximum(m, sc.max(-1).values * c)
+        m_use = torch.where(m_new == -np.inf, torch.zeros(()), m_new)
+        corr = torch.exp2(m - m_use)
+        p = torch.exp2(sc * c - m_use[..., None])
+        m = m_new
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + mm(p, vt)
+    l_safe = torch.clamp(l, min=1e-30)
+    return o * (1 / l_safe)[..., None], m / LOG2E + torch.log(l_safe)
+
+
+def fwd_f64(q, k, v, scale, causal):
+    """The forward in float64: softmax(scale Q K^T + mask) V and its
+    natural-log lse."""
+    s = mm_f64(q, k.transpose(1, 2)) * scale
+    if causal:
+        s = s.masked_fill(
+            ~torch.tril(torch.ones(s.shape[1:], dtype=torch.bool)), -np.inf)
+    lse = torch.logsumexp(s, -1)
+    return torch.exp(s - lse[..., None]) @ v.double(), lse
+
+
+def _fwd_inputs(s_q, s_k, d, causal, scale):
+    rng = np.random.default_rng(s_q * 1000 + s_k + d * 2 + causal)
+    q = torch.from_numpy(rng.normal(size=(HEADS, s_q, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(HEADS, s_k, d))
+                             .astype(np.float32)) for _ in range(2))
+    return q, k, v, d ** -0.5 if scale is None else scale
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd(case):
+    """``_flash_fwd`` in interpret mode on the case's inputs."""
+    jnp = pytest.importorskip("jax.numpy")
+    from pytorch_multiprocessing_distributed_tpu.ops.pallas.flash_attention \
+        import _flash_fwd
+    q, k, v, scale = _fwd_inputs(*case)
+    out, lse = _flash_fwd(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                          scale, case[3], 64, 64, True)
+    return np.asarray(out), np.asarray(lse)
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_tf32x3_fwd_matches_jax(case):
+    """The emulated 3xTF32 forward against ``_flash_fwd`` (interpret
+    mode, as ``tests/test_torch_flash_attention.py`` runs it): out and
+    lse within 1e-4."""
+    ref_out, ref_lse = _jax_fwd(case)
+    q, k, v, scale = _fwd_inputs(*case)
+    out, lse = fwd_emulated(q, k, v, scale, case[3], mm_3x)
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=OUT_TOL,
+                               rtol=OUT_TOL, err_msg="out")
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=OUT_TOL,
+                               rtol=OUT_TOL, err_msg="lse")
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_fwd_one_tf32_product_is_far_off_three_are_not(case):
+    """Against the float64 forward on the same inputs: with single TF32
+    products the emulated forward errs at least 20x more than with
+    3xTF32, and 3xTF32 stays within 1e-4 (out and lse)."""
+    q, k, v, scale = _fwd_inputs(*case)
+    ref = fwd_f64(q, k, v, scale, case[3])
+    err_3x = _max_err(fwd_emulated(q, k, v, scale, case[3], mm_3x), ref)
+    err_1x = _max_err(fwd_emulated(q, k, v, scale, case[3], mm_1x), ref)
+    print(f"forward {case}: max|err| vs float64, 3xTF32 "
+          f"{err_3x:.3e}, one TF32 product {err_1x:.3e} "
+          f"({err_1x / err_3x:.1f}x)")
+    assert err_3x <= OUT_TOL
+    assert err_1x >= RATIO * err_3x
 
 
 def _inputs(s, d, causal):
