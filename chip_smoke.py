@@ -207,6 +207,32 @@ nothing is caught):
    (2(n-1)/n of the payload each way at 450 GB/s), and its launches;
    the per-rank comm buffer's bytes (fixed, allocated once); and the
    same settings' A/B in turns at the first two payloads.
+20. imagenet — ``main.main`` on ``bench.py``'s ``resnet50_imagenet``:
+   ResNet-50 with the ImageNet stem, the CLI's f32 (TF32 convolutions),
+   ``--optimizer sgd_fused``, batch 256 on the synthetic ImageNet set at
+   224 under ``PMDT_SMALL_SYNTH=1`` (1024 train, 256 test images: 4
+   steps, one eval batch); images/s per card, the first and last loss
+   (finite, or the phase fails), peak memory; the fused SGD kernel once
+   a step, then held bit for bit against its plain version at
+   ResNet-50's N (25,557,032) and timed beside ``torch._fused_sgd_`` and
+   its HBM bound; the host time of one synthetic batch.
+21. convnext — the same for ``convnext_lamb``: ConvNeXt-T, 21,841
+   classes, ``--optimizer lamb``, bf16, batch 256.
+22. vit — the same for ``vit_b16_imagenet``: ViT-B/16, bf16, batch 256,
+   on the einsum attention the CLI builds; then one ViT-B/16 encoder
+   block with ``flash=True`` against the same block with ``flash=False``,
+   forward and backward, at B 8, S 197 (f32 within phase 6's gradient
+   tolerance; bf16 both against the f32 block, the flash route at most
+   twice as far off as the einsum one), and the non-causal bf16 flash
+   forward at B 64, H 12, S 197, Dh 64 timed beside SDPA's.
+23. head-dim — every attention row (1-7, and 1q-4q) launched and held
+   against its plain version at Dh 16, 48, 80, 96, 112 and 20 (20: no
+   whole 16-byte row in bf16 or int8, so the wrapper pads it), f32 and
+   bf16, causal and not for rows 5-7; Dh 160 refused; each row's device
+   time at Dh 48, 64 and 96 (``[head-dim-time]``); a GPT of hidden 512
+   and 32 heads (Dh 16) through 3 f32 SGD steps, flash against the
+   plain attention at phase 8's tolerances, and 4 requests through the
+   engine token-exact with ``generate``; then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
@@ -215,10 +241,13 @@ window of phase 4 for the decode kernel (with its W=1024 numbers
 beside them; every decode entry also carries its L2-cold time), bf16 B
 8 x S 1024 for the flash kernels
 and f32 for their ``_f32`` twins (launches from phase 7b),
-ResNet-18's N for fused SGD, bf16 W=1024 for the int8 and paged decode
+ResNet-18's N for fused SGD (with its ResNet-50 numbers from phase 20
+beside them, ``r50_*``), bf16 W=1024 for the int8 and paged decode
 variants and, at K1 = 5, for the verify variants, n = 4 loopback at
 ResNet-18's N for the ring, with its cross-card numbers at that N, at
-64 MiB and at 4 KiB, or nulls where phase 19 did not run);
+64 MiB and at 4 KiB, or nulls where phase 19 did not run; the
+attention rows also carry their Dh 48/64/96 times, ``head_dim_ms``,
+and the bf16 forward its ViT-shape numbers, ``vit_*``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -373,6 +402,36 @@ RING_AB_VALUES = ((16, 32, 64), (256, 512), (2048, 4096, 8192, 16384),
                   (2, 4, 8), (1, 2, 4))
 # NVLink of an H100 SXM: 900 GB/s to the other cards, 450 each way
 NVLINK_BYTES_PER_S = 450e9
+
+# the ImageNet slice (phases 20-22): bench.py's configs through the
+# port's main on the synthetic set at 224 (PMDT_SMALL_SYNTH: 1024 train
+# and 256 test images, 4 steps and one eval batch at bench.py's batch)
+IMAGENET_BASE = ["--device", "cuda", "--world_size", "1", "--dataset",
+                 "imagenet", "--synthetic", "--epochs", "1", "--seed", "0",
+                 "--print-freq", "1"]
+IMAGENET_RUNS = (  # (phase, bench.py config, flags)
+    ("20", "resnet50_imagenet",
+     ["--model", "resnet50", "--batch_size", "256", "--optimizer",
+      "sgd_fused"]),
+    ("21", "convnext_lamb",
+     ["--model", "convnext_t", "--num_classes", "21841", "--optimizer",
+      "lamb", "--dtype", "bfloat16", "--batch_size", "256"]),
+    ("22", "vit_b16_imagenet",
+     ["--model", "vit_b16", "--dtype", "bfloat16", "--batch_size", "256"]),
+)
+IMAGENET_STEPS, IMAGENET_EVALS = 4, 1  # 1024 / 256 and 256 / 256
+R50_PARAMS = 25_557_032  # ResNet-50's parameters at 1000 classes
+# phase 22: one ViT-B/16 encoder block, flash=True against flash=False
+VIT_BLOCK = dict(batch=8, seq=197, dim=768, heads=12, mlp=3072)
+VIT_FWD_SHAPE = dict(batch=64, heads=12, seq=197, head_dim=64)
+# phase 23: head_dims off the kernels' tiles (20: no whole 16-byte row in
+# bf16 or int8, so the wrapper pads it), and the ones timed beside Dh 64
+ODD_HEAD_DIMS = (16, 48, 80, 96, 112, 20)
+TIMED_HEAD_DIMS = (48, 64, 96)
+HEAD_DIM_WINDOW = 256
+HEAD_DIM_FLASH = dict(batch=2, heads=4, seqs=((197, 197), (130, 70)))
+# a GPT of head_dim 16: gpt_small's vocab and depth cut, 32 heads of 16
+GPT_DH16 = dict(hidden_size=512, num_heads=32, mlp_dim=2048, num_layers=2)
 
 
 def _print(*parts):
@@ -551,11 +610,13 @@ def _flash_builds(entries):
     return found
 
 
-def _decode_inputs(torch, window, dtype, seed):
-    """q/k/v/positions at gpt_small decode shapes; positions hold 0,
-    W-1, one beyond the window and random columns."""
+def _decode_inputs(torch, window, dtype, seed, head_dim=None):
+    """q/k/v/positions at gpt_small decode shapes (another ``head_dim``
+    where given); positions hold 0, W-1, one beyond the window and
+    random columns."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
+    d = head_dim or d
     q = torch.randn(n, 1, h, d, generator=gen, device="cuda").to(dtype)
     # k/v as the engine passes them: a window view of an s_max cache
     s_max = max(WINDOWS)
@@ -875,14 +936,17 @@ def _time_sgd(torch, fused_sgd_, torch_fused_sgd_, n, rate):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _variant_case(torch, quantize_kv, variant, window, dtype, seed):
-    """Inputs of one decode variant at gpt_small decode shapes: q, K/V
+def _variant_case(torch, quantize_kv, variant, window, dtype, seed,
+                  head_dim=None):
+    """Inputs of one decode variant at gpt_small decode shapes (another
+    ``head_dim`` where given): q, K/V
     (an int8 dense window view of an s_max cache, or page storage with a
     scratch page 0 of NaN and 1e30), the shuffled table (paged) and
     positions 0, W-1, one beyond the window and random columns."""
     _, paged, quant = VARIANTS[variant][1:]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
+    d = head_dim or d
     q = torch.randn(n, 1, h, d, generator=gen, device="cuda").to(dtype)
     pos = torch.randint(0, window, (n,), generator=gen, device="cuda")
     pos[0], pos[1], pos[2] = 0, window - 1, window + 5
@@ -1032,9 +1096,10 @@ def _decode_counts(da):
 
 
 def _verify_case(torch, quantize_kv, variant, window, dtype, seed,
-                 rows=VERIFY_ROWS):
+                 rows=VERIFY_ROWS, head_dim=None):
     """Inputs of one verify variant at gpt_small decode shapes: q ``[8,
-    rows, 12, 64]`` (K1 = ``rows``), K/V (a dense window view of an s_max
+    rows, 12, 64]`` (K1 = ``rows``; another Dh than 64 where
+    ``head_dim`` is given), K/V (a dense window view of an s_max
     cache, or page storage with a scratch page 0 of NaN and 1e30 that no
     entry up to a slot's last reachable column points at), the shuffled
     table (paged) and positions 0, W-K1 (the last row lands on column
@@ -1042,6 +1107,7 @@ def _verify_case(torch, quantize_kv, variant, window, dtype, seed,
     _, _, paged, quant = VERIFY_VARIANTS[variant]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
+    d = head_dim or d
     q = torch.randn(n, rows, h, d, generator=gen, device="cuda").to(dtype)
     pos = torch.randint(0, window - rows, (n,), generator=gen, device="cuda")
     pos[0], pos[1], pos[2] = 0, window - rows, window - 2
@@ -1300,10 +1366,213 @@ def _serve_transcripts(serve_lm, argv):
     return snap, {uid: json.loads(toks) for uid, toks in found}
 
 
+def _imagenet_phase(image_main, fused_sgd_, phase, config, flags, smi):
+    """One of phases 20-22: ``main.main`` on the synthetic ImageNet set
+    at 224 with ``flags``; asserts the steps, the files and finite
+    losses; prints images/s a card and the first and last loss. Returns
+    the summary and the fused SGD kernel's launches in the run."""
+    import torch
+
+    fused_sgd_.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        summary = image_main.main(IMAGENET_BASE + flags + ["--save_path",
+                                                           tmp])
+        wall = time.perf_counter() - t0
+        missing = [f for f in ("train.log", "test.log", "model_1.pth",
+                               "model_1.pth.sha256")
+                   if not os.path.exists(os.path.join(tmp, f))]
+    launches = fused_sgd_.launches
+    if missing:
+        raise AssertionError(f"phase {phase}: main wrote no {missing}")
+    if summary["steps"] != IMAGENET_STEPS:
+        raise AssertionError(
+            f"phase {phase}: main ran {summary['steps']}/{IMAGENET_STEPS} "
+            "train steps")
+    losses = (summary["first_loss"], summary["last_loss"],
+              summary["epoch_losses"][0])
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase {phase}: losses {losses} not finite")
+    _print(f"[imagenet] phase {phase} {config}: {' '.join(flags)} at 224, "
+           f"{IMAGENET_STEPS} steps + {IMAGENET_EVALS} eval batch: wall "
+           f"{wall:.2f} s, first loss {losses[0]:.4f}, last loss "
+           f"{losses[1]:.4f}, images/s per card "
+           f"{summary['images_per_sec_per_card']:.1f}, steady step "
+           f"{summary['steady_step_s'] * 1e3:.3f} ms, peak memory "
+           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+           f"fused_sgd launches {launches} [{smi}]")
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+FLASH_ROWS = {"flash_fwd": "5", "flash_bwd_dq": "6", "flash_bwd_dkv": "7"}
+
+
+def _by_head_dim(times, row):
+    """``{"Dh48": ms, "Dh64": ms, "Dh96": ms}`` of one kernel row."""
+    return {f"Dh{d}": t[row] for d, t in times.items()}
+
+
+def _imagenet_host_ms(batch):
+    """Host milliseconds to assemble one synthetic ImageNet train batch
+    of ``batch`` at 224 (index hash, flip, normalise; no copy to the
+    card), median of three, inline (no producer thread)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.data import (
+        IndexedLoader, SyntheticImageNet)
+
+    loader = IndexedLoader(SyntheticImageNet(4 * batch), batch_size=batch,
+                           world_size=1, prefetch_batches=0)
+    times, it = [], iter(loader)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        next(it)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _vit_block_check(torch, vit, dtype, seed):
+    """One ViT-B/16 encoder block with ``flash=True`` against the same
+    block (same weights, same input) with ``flash=False``, forward and
+    backward; returns the two blocks' (out, input grad, param grads)."""
+    cfg = VIT_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(cfg["batch"], cfg["seq"], cfg["dim"], generator=gen,
+                    device="cuda").to(dtype)
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    blocks = {}
+    for flash in (False, True):
+        torch.manual_seed(seed)
+        block = vit.EncoderBlock(cfg["dim"], cfg["heads"], cfg["mlp"],
+                                 flash=flash).cuda()
+        for prm in block.parameters():
+            torch.nn.init.normal_(prm, 0.0, 0.05)
+        xi = x.clone().requires_grad_()
+        out = block(xi)
+        out.backward(g)
+        blocks[flash] = (out.detach().float(), xi.grad.float(),
+                         [p.grad.float() for p in block.parameters()])
+    return blocks
+
+
+def _block_err(a, b, normwise=False):
+    """The largest |a - b| over a block's output, input grad and param
+    grads; ``normwise``: each over its tensor's largest |b| (at least
+    1), as the bf16 comparison reads it."""
+    def err(x, y):
+        e = float((x - y).abs().max())
+        return e / max(1.0, float(y.abs().max())) if normwise else e
+
+    return max([err(a[0], b[0]), err(a[1], b[1])]
+               + [err(x, y) for x, y in zip(a[2], b[2])])
+
+
+def _head_dim_checks(torch, quantize_kv, da, fa, d):
+    """Rows 1-7 (and 1q-4q) against their plain versions at head_dim
+    ``d`` in f32 and bf16: each wrapper must launch its kernel (its
+    count rises by one a call). Returns the largest error by row."""
+    errs = {}
+    counted = _decode_counts(da)
+    fa_saved = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
+    for dtype in (torch.float32, torch.bfloat16):
+        w = HEAD_DIM_WINDOW
+        q, k, v, pos = _decode_inputs(torch, w, dtype, seed=d,
+                                      head_dim=d)
+        cases = [("1", lambda: da.decode_attention(q, k, v, pos,
+                                                   impl="cuda"),
+                  lambda: da.torch_decode_attention(q, k, v, pos),
+                  da.decode_attention, "launches", TOL["float32"])]
+        for variant, (row, _, paged, quant) in VARIANTS.items():
+            args = _variant_case(torch, quantize_kv, variant, w, dtype,
+                                 seed=d + 1, head_dim=d)
+            kern, plain = _variant_calls(da, variant, *args, w)
+            fn = da.paged_decode_attention if paged else da.decode_attention
+            cases.append((row, kern, plain, fn,
+                          "int8_launches" if quant else "launches",
+                          PAGED_TOL))
+        for variant, (row, _, paged, quant) in VERIFY_VARIANTS.items():
+            args = _verify_case(torch, quantize_kv, variant, w, dtype,
+                                seed=d + 2, head_dim=d)
+            kern, plain = _verify_calls(da, *args, w)
+            fn = (da.paged_verify_decode_attention if paged
+                  else da.verify_decode_attention)
+            cases.append((row, kern, plain, fn,
+                          "int8_launches" if quant else "launches",
+                          VERIFY_TOL))
+        for row, kern, plain, fn, counter, tol in cases:
+            before = getattr(fn, counter)
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            if getattr(fn, counter) != before + 1:
+                raise AssertionError(
+                    f"Dh {d} row {row}: the kernel did not launch")
+            err = float((got - ref).abs().max())
+            if not (got.shape[-1] == d and err <= tol):
+                raise AssertionError(
+                    f"Dh {d} row {row} {dtype}: max|err| {err} (tol {tol}),"
+                    f" shape {tuple(got.shape)}")
+            errs[row] = max(errs.get(row, 0.0), err)
+        tname = "float32" if dtype == torch.float32 else "bfloat16"
+        for sq, skv in HEAD_DIM_FLASH["seqs"]:
+            for causal in ((True, False) if sq == skv else (False,)):
+                q, k, v, do = _flash_inputs(
+                    torch, HEAD_DIM_FLASH["batch"], sq, skv,
+                    HEAD_DIM_FLASH["heads"], d, dtype, seed=d + sq)
+                kernels, plains, _, _ = _flash_calls(fa, q, k, v, do,
+                                                     causal)
+                before = [getattr(fa, n).launches for n in kernels]
+                for name, e in _flash_errors(torch, kernels, plains,
+                                             FLASH_TOL[tname]).items():
+                    row = FLASH_ROWS[name]
+                    errs[row] = max(errs.get(row, 0.0), e)
+                if [getattr(fa, n).launches for n in kernels] != \
+                        [n + 1 for n in before]:
+                    raise AssertionError(
+                        f"Dh {d}: a flash kernel did not launch")
+    _set_decode_counts(da, counted)
+    for n, count in fa_saved.items():
+        getattr(fa, n).launches = count
+    return errs
+
+
+def _head_dim_times(torch, quantize_kv, da, fa, d):
+    """Device ms of each row's kernel at head_dim ``d``: the decode
+    family at gpt_small's decode shape (8 slots, 12 heads, W 1024, bf16
+    q; rows 3-4 at K1 5), rows 5-7 at gpt_small's training shape (B 8,
+    H 12, S 1024, causal, bf16). Launches made here are not counted."""
+    saved = _decode_counts(da)
+    fa_saved = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
+    w, dt = max(WINDOWS), torch.bfloat16
+    out = {}
+    q, k, v, pos = _decode_inputs(torch, w, dt, seed=7, head_dim=d)
+    out["1"] = _device_ms(lambda: da.decode_attention(q, k, v, pos,
+                                                      impl="cuda"), torch)
+    for variant, (row, *_) in VARIANTS.items():
+        args = _variant_case(torch, quantize_kv, variant, w, dt, seed=8,
+                             head_dim=d)
+        out[row] = _device_ms(_variant_calls(da, variant, *args, w)[0],
+                              torch)
+    for variant, (row, *_) in VERIFY_VARIANTS.items():
+        args = _verify_case(torch, quantize_kv, variant, w, dt, seed=9,
+                            head_dim=d)
+        out[row] = _device_ms(_verify_calls(da, *args, w)[0], torch)
+    shape = FLASH_SHAPE
+    q, k, v, do = _flash_inputs(torch, shape["batch"], shape["seq"],
+                                shape["seq"], shape["heads"], d, dt, seed=6)
+    kernels, _, _, _ = _flash_calls(fa, q, k, v, do, True)
+    for name, row in FLASH_ROWS.items():
+        out[row] = _device_ms(kernels[name], torch, calls=5, reps=20)
+    _set_decode_counts(da, saved)
+    for n, count in fa_saved.items():
+        getattr(fa, n).launches = count
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    t_start = time.perf_counter()
     # -- phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2262,6 +2531,164 @@ def main() -> int:
                        f"(turns {d['turn_ms'][0]:.5f}, "
                        f"{d['turn_ms'][1]:.5f}) [{smi}]")
 
+    # -- phases 20-22: bench.py's ImageNet configs through main at 224
+    os.environ["PMDT_SMALL_SYNTH"] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults:
+    torch.backends.cudnn.allow_tf32 = True  # the CLI's setting
+    torch.backends.cudnn.deterministic = False
+    imagenet = {}
+    for phase, config, flags in IMAGENET_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        imagenet[config] = _imagenet_phase(image_main, fused_sgd_, phase,
+                                           config, flags, smi)
+        if phase == "20":
+            # the fused SGD kernel at ResNet-50's N, held and timed
+            if imagenet[config][1] != IMAGENET_STEPS:
+                raise AssertionError(
+                    f"fused_sgd launched {imagenet[config][1]} times in "
+                    f"phase 20, expected one per step ({IMAGENET_STEPS})")
+            r50_worst = 0.0
+            for nesterov in (True, False):
+                kp, kb, kf = _sgd_steps(torch, fused_sgd_, R50_PARAMS,
+                                        nesterov, impl="cuda")[:3]
+                pp, pb, pf = _sgd_steps(torch, torch_fused_sgd_, R50_PARAMS,
+                                        nesterov)[:3]
+                err = max(float((kp - pp).abs().max()),
+                          float((kb - pb).abs().max()))
+                if not (err <= 0.0 and kf == pf):
+                    raise AssertionError(
+                        f"fused_sgd N={R50_PARAMS}: max|err| {err} (tol 0)")
+                r50_worst = max(r50_worst, err)
+                del kp, kb, pp, pb
+            r50_sgd = _time_sgd(torch, fused_sgd_, torch_fused_sgd_,
+                                R50_PARAMS, rate)
+            _print(f"[imagenet] host: one synthetic train batch of 256 at "
+                   f"224 takes {_imagenet_host_ms(256):.1f} ms to assemble "
+                   "(median of 3, one thread; the loader's producer thread "
+                   "runs it beside the steps)")
+            _print(f"[sgd] fused_sgd N={R50_PARAMS} (ResNet-50, 1000 "
+                   f"classes), 4 steps incl. first and skipped, nesterov "
+                   f"on/off: max_abs_err={r50_worst:.3e} (tol 0) "
+                   f"ms={r50_sgd['ms']:.5f} "
+                   f"plain_ms={r50_sgd['plain_ms']:.5f} "
+                   f"library_ms={r50_sgd['library_ms']:.5f} "
+                   f"(torch._fused_sgd_) bound_ms={r50_sgd['bound_ms']:.5f} "
+                   f"({r50_sgd['bound_by']}) [{smi}]")
+            torch.cuda.empty_cache()
+
+    # -- phase 22 (cont.): the ViT-B/16 block, flash against einsum
+    vit = importlib.import_module(
+        "pytorch_multiprocessing_distributed_tpu_torch.models.vit")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref32 = _vit_block_check(torch, vit, torch.float32, seed=22)
+    f32_err = _block_err(ref32[True], ref32[False])
+    tol32 = FLASH_TOL["float32"]["grad"]
+    if not f32_err <= tol32:
+        raise AssertionError(
+            f"ViT block f32: flash vs einsum max|err| {f32_err} (tol "
+            f"{tol32})")
+    bf = _vit_block_check(torch, vit, torch.bfloat16, seed=22)
+    # bf16: both routes against the f32 einsum block; the flash route may
+    # stray no further than twice the einsum route (the JAX bf16 rule)
+    bf_flash, bf_einsum = (_block_err(bf[f], ref32[False], normwise=True)
+                           for f in (True, False))
+    if not bf_flash <= 2 * bf_einsum:
+        raise AssertionError(
+            f"ViT block bf16: flash {bf_flash} vs einsum {bf_einsum} off "
+            "the f32 block (flash may be at most twice einsum)")
+    _print(f"[vit-block] ViT-B/16 encoder block B={VIT_BLOCK['batch']} "
+           f"S={VIT_BLOCK['seq']}, forward and backward: f32 flash vs "
+           f"einsum max|err| {f32_err:.3e} (tol {tol32}); bf16 off the f32 "
+           f"block, normwise: flash {bf_flash:.3e}, einsum {bf_einsum:.3e} "
+           "(flash at most 2x einsum)")
+    del ref32, bf
+    vs = VIT_FWD_SHAPE
+    q, k, v, do = _flash_inputs(torch, vs["batch"], vs["seq"], vs["seq"],
+                                vs["heads"], vs["head_dim"], torch.bfloat16,
+                                seed=23)
+    vit_fwd = _time_flash(torch, F, fa, q, k, v, do, False, rate)[0][
+        "flash_fwd"]
+    _print(f"[vit-fwd] flash_fwd bf16 non-causal B={vs['batch']} "
+           f"H={vs['heads']} S={vs['seq']} Dh={vs['head_dim']}: ms="
+           f"{vit_fwd['ms']:.5f} library_ms={vit_fwd['library_ms']:.5f} "
+           f"(F.scaled_dot_product_attention) plain_ms="
+           f"{vit_fwd['plain_ms']:.5f} bound_ms={vit_fwd['bound_ms']:.5f} "
+           f"({vit_fwd['bound_by']}) tflop_per_s="
+           f"{vit_fwd['tflop_per_s']:.1f} [{smi}]")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # -- phase 23: every attention kernel at head_dims off its tiles
+    hd_errs = {}
+    for d in ODD_HEAD_DIMS:
+        hd_errs[d] = _head_dim_checks(torch, quantize_kv, da, fa, d)
+        _print(f"[head-dim] Dh {d}, f32 and bf16, kernel launched and held "
+               "against its plain version: max_abs_err " + " ".join(
+                   f"row{r}={e:.3e}" for r, e in sorted(hd_errs[d].items())))
+    for dtype in (torch.bfloat16, torch.float32):
+        wide = torch.zeros(1, 16, 2, 160, dtype=dtype, device="cuda")
+        try:
+            fa.flash_fwd(wide, wide, wide)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("flash_fwd took Dh 160")
+    hd_times = {d: _head_dim_times(torch, quantize_kv, da, fa, d)
+                for d in TIMED_HEAD_DIMS}
+    for row in ("1", "1q", "2", "2q", "3", "3q", "4", "4q", "5", "6", "7"):
+        _print(f"[head-dim-time] row {row}: " + " ".join(
+            f"Dh{d}={hd_times[d][row] * 1e3:.2f}us" for d in TIMED_HEAD_DIMS)
+            + f" (bf16; decode W={max(WINDOWS)}, flash S="
+            f"{FLASH_SHAPE['seq']} causal) [{smi}]")
+    # a GPT of head_dim 16 trains and serves through the kernels
+    rng = np.random.default_rng(23)
+    batches = [torch.from_numpy(rng.integers(0, 50257, (2, 1024))).cuda()
+               for _ in range(3)]
+    runs = {}
+    for impl in ("flash", "xla"):
+        model = get_model("gpt_small", attn_impl=impl, **GPT_DH16)
+        state = create_lm_train_state(model, init_params(model, 3, "cuda"))
+        step = make_lm_train_step(model, sgd(0.1))
+        before = fa.flash_fwd.launches
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        if impl == "flash" and fa.flash_fwd.launches == before:
+            raise AssertionError("the Dh 16 GPT did not launch flash_fwd")
+        runs[impl] = (losses, state.params.clone())
+        del model, state
+    loss_err = max(abs(a - b) for a, b in zip(runs["flash"][0],
+                                              runs["xla"][0]))
+    param_err = float((runs["flash"][1] - runs["xla"][1]).abs().max())
+    if not (loss_err <= EXACT_LOSS_TOL and param_err <= EXACT_PARAM_TOL):
+        raise AssertionError(
+            f"Dh 16 GPT flash vs xla: loss err {loss_err} (tol "
+            f"{EXACT_LOSS_TOL}), param err {param_err} (tol "
+            f"{EXACT_PARAM_TOL})")
+    model = get_model("gpt_small", dtype=torch.float32, **GPT_DH16)
+    model.load_state_dict(init_params(model, 1, "cuda"), assign=True)
+    prompts = [rng.integers(0, model.vocab_size, (n,)).tolist()
+               for n in (5, 11, 17, 23)]
+    dh16_launches = da.decode_attention.launches
+    engine = ServingEngine(model, max_slots=4, s_max=64, decode_horizon=4)
+    served = engine.serve([(p, 12) for p in prompts])
+    if da.decode_attention.launches == dh16_launches:
+        raise AssertionError("the Dh 16 engine did not launch the kernel")
+    for request, prompt in zip(served, prompts):
+        ref = generate(model, torch.tensor([prompt], device="cuda"),
+                       max_new_tokens=12)[0, -12:].tolist()
+        if request.tokens != ref:
+            raise AssertionError(
+                f"Dh 16 engine {request.tokens} != generate {ref}")
+    da.decode_attention.launches = dh16_launches
+    _print(f"[head-dim] GPT hidden 512 x 32 heads (Dh 16), f32: 3 SGD steps "
+           f"B=2 S=1024 losses flash {runs['flash'][0]} xla "
+           f"{runs['xla'][0]}, max loss err {loss_err:.3e} (tol "
+           f"{EXACT_LOSS_TOL}), max param err {param_err:.3e} (tol "
+           f"{EXACT_PARAM_TOL}); 4 requests through the engine token-exact "
+           "with generate")
+    del model, engine, runs
+    torch.cuda.empty_cache()
+    _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
+
     # the kernels line: the kernel at the main path's largest window
     w_main = max(snap["decode_windows"])
     q, k, v, pos = _decode_inputs(torch, w_main, torch.bfloat16, seed=1)
@@ -2291,7 +2718,11 @@ def main() -> int:
                          "minus its forward (dq, dk and dv together)"),
         "shape": flash_main[tname][name]["shape"],
         **({"fma_bound_ms": flash_main[tname][name]["fma_bound_ms"]}
-           if tname == "float32" else {})}
+           if tname == "float32" else {
+               "head_dim_ms": _by_head_dim(hd_times, FLASH_ROWS[name])}),
+        **({f"vit_{key}": vit_fwd[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+           if (tname, name) == ("bfloat16", "flash_fwd") else {})}
         for tname, kernels_of, launches_of in (
             ("bfloat16", FLASH_KERNELS, train_launches),
             ("float32", FLASH_KERNELS_F32, train_launches_f32))
@@ -2310,6 +2741,7 @@ def main() -> int:
         "library_ms": t["library_ms"],
         "library": "F.scaled_dot_product_attention with the position mask",
         "shape": f"bf16 N=8 H=12 Dh=64 W={w_main}",
+        "head_dim_ms": _by_head_dim(hd_times, "1"),
         **{f"w{max(WINDOWS)}_{key}": row1_long[key]
            for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")}}]
@@ -2327,7 +2759,11 @@ def main() -> int:
         "library": "torch._fused_sgd_ (the kernel of torch.optim.SGD("
                    "nesterov=True, fused=True).step())",
         "library_step_ms": sgd_t["library_step_ms"],
-        "shape": f"f32 N={SGD_SIZES[0]}"}] + [{
+        "shape": f"f32 N={SGD_SIZES[0]}",
+        "r50_launches": imagenet["resnet50_imagenet"][1],
+        "r50_max_abs_err": r50_worst,
+        **{f"r50_{key}": r50_sgd[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}] + [{
         "name": variant, "kernel": DECODE_KERNELS, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
                   "csrc/decode_attention.cu",
@@ -2344,7 +2780,9 @@ def main() -> int:
         "library_ms": variant_main[variant]["library_ms"],
         "library": "F.scaled_dot_product_attention on the gathered, "
                    "dequantized dense window",
-        "shape": variant_main[variant]["shape"]} for variant in VARIANTS] + [{
+        "shape": variant_main[variant]["shape"],
+        "head_dim_ms": _by_head_dim(hd_times, VARIANTS[variant][0])}
+        for variant in VARIANTS] + [{
         "name": variant, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
                   "csrc/decode_attention.cu",
@@ -2360,7 +2798,8 @@ def main() -> int:
         "library_ms": verify_main[variant]["library_ms"],
         "library": "F.scaled_dot_product_attention with the row-staggered "
                    "mask on the gathered, dequantized dense window",
-        "shape": verify_main[variant]["shape"]}
+        "shape": verify_main[variant]["shape"],
+        "head_dim_ms": _by_head_dim(hd_times, VERIFY_VARIANTS[variant][0])}
         for variant in VERIFY_VARIANTS] + [{
         "name": "ring_all_reduce", "kernel": RING_KERNEL, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"

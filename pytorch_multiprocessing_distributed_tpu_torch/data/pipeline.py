@@ -1,5 +1,6 @@
 """Per-rank sharded image batches with a one-ahead device copy (the port
-of the JAX package's ``data/pipeline.py``, CIFAR route).
+of the JAX package's ``data/pipeline.py``: the CIFAR route here, the
+ImageNet route through :mod:`.imagenet`).
 
 The reference's loader stack is a ``DistributedSampler`` per rank and a
 ``DataLoader(batch_size // world_size, pin_memory=True)``.
@@ -140,12 +141,63 @@ def synthetic_sizes() -> Tuple[int, int]:
     return (n, max(1, n // 4)) if n > 1 else (2048, 512)
 
 
+def imagenet_synthetic_sizes() -> Tuple[int, int]:
+    """(train, test) nominal sizes of the synthetic ImageNet set:
+    1,281,167/50,000, or 1024/256 under any ``PMDT_SMALL_SYNTH`` (the
+    JAX ``get_loader``'s rule for ImageNet, not CIFAR's)."""
+    if os.environ.get("PMDT_SMALL_SYNTH"):
+        return 1024, 256
+    return 1_281_167, 50_000
+
+
+def _imagenet_loaders(args, world_size: int, rank: int):
+    """The ImageNet route: :class:`.imagenet.IndexedLoader` over the
+    on-demand synthetic set (``--synthetic``) or a ``train/`` + ``val/``
+    image tree at ``--data_root``."""
+    from .imagenet import FolderImageNet, IndexedLoader, SyntheticImageNet
+
+    image_size = getattr(args, "image_size", 0) or 224
+    if getattr(args, "synthetic", False):
+        num_classes = getattr(args, "num_classes", 0) or 1000
+        n_tr, n_te = imagenet_synthetic_sizes()
+        train_ds = SyntheticImageNet(n_tr, image_size=image_size,
+                                     num_classes=num_classes, seed=0)
+        test_ds = SyntheticImageNet(n_te, image_size=image_size,
+                                    num_classes=num_classes, seed=1)
+    else:
+        root = getattr(args, "data_root", "") or "./imagenet"
+        train_ds = FolderImageNet(root, "train", image_size=image_size)
+        test_ds = FolderImageNet(root, "val", image_size=image_size)
+    train_loader = IndexedLoader(train_ds, batch_size=args.batch_size,
+                                 world_size=world_size, train=True,
+                                 replica_ids=[rank])
+    test_loader = IndexedLoader(test_ds, batch_size=args.batch_size,
+                                world_size=world_size, train=False,
+                                replica_ids=[rank], with_valid=True)
+    return train_loader, test_loader
+
+
 def get_loader(args, *, world_size: int = 1, rank: int = 0):
     """``(train_loader, test_loader)`` for this rank — the JAX
-    ``get_loader`` for ``--dataset cifar``. ``args`` needs
-    ``batch_size`` and optionally ``synthetic`` and ``data_root``; the
-    shuffle seed is 0, as in JAX. The primary rank prints the
-    reference's dataset banner."""
+    ``get_loader``. ``args`` needs ``batch_size`` and optionally
+    ``dataset`` (``cifar`` | ``imagenet``), ``synthetic``,
+    ``data_root``, ``image_size`` and ``num_classes``; the shuffle seed
+    is 0, as in JAX. The primary rank prints the reference's dataset
+    banner."""
+    if getattr(args, "dataset", "cifar") == "imagenet":
+        train_loader, test_loader = _imagenet_loaders(args, world_size, rank)
+    else:
+        train_loader, test_loader = _cifar_loaders(args, world_size, rank)
+    if rank == 0:
+        print("-------------------Make loader-------------------")
+        print("Train Dataset :", train_loader.dataset_size,
+              "   Test Dataset :", test_loader.dataset_size)
+    return train_loader, test_loader
+
+
+def _cifar_loaders(args, world_size: int, rank: int):
+    """The CIFAR route: :class:`ShardedLoader` over the synthetic set or
+    the ``cifar-10-batches-py`` files at ``--data_root``."""
     if getattr(args, "synthetic", False):
         n_tr, n_te = synthetic_sizes()
         tr_x, tr_y = synthetic_cifar10(n_tr, seed=0)
@@ -160,8 +212,4 @@ def get_loader(args, *, world_size: int = 1, rank: int = 0):
     test_loader = ShardedLoader(te_x, te_y, batch_size=args.batch_size,
                                 world_size=world_size, train=False,
                                 replica_ids=[rank], with_valid=True)
-    if rank == 0:
-        print("-------------------Make loader-------------------")
-        print("Train Dataset :", train_loader.dataset_size,
-              "   Test Dataset :", test_loader.dataset_size)
     return train_loader, test_loader

@@ -5,6 +5,13 @@ data-parallel SGD with synchronized BatchNorm), on the card by default.
     python -m pytorch_multiprocessing_distributed_tpu_torch.main \\
         --model res --synthetic --world_size 1 --save_path /tmp/run
 
+The JAX image zoo and datasets come along: ``--model`` names any
+registered image model (ResNet-18 ... 152, VGG, DenseNet, ViT,
+ConvNeXt), ``--dataset imagenet`` reads the synthetic ImageNet set
+(``--synthetic``) or an image tree at ``--data_root`` at
+``--image_size`` (default 224) with the ImageNet stem, and ``--optimizer
+lamb`` trains with LAMB (lr 1e-3 unless ``--lr``, weight decay 1e-4).
+
 Flags keep the JAX CLI's names, defaults and order of checks, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 Artifacts are the JAX CLI's: a snapshot of this script, the ``Epoch:
@@ -45,11 +52,11 @@ import torch
 
 from .data import get_loader
 from .device import resolve_device
-from .models import LM_MODELS, get_model, init_resnet
+from .models import LM_MODELS, get_model, init_model
 from .ops.fused_update import fused_sgd_
 from .ops.losses import smooth_cross_entropy_loss
 from .parallel import dist
-from .train import create_train_state, sgd, sgd_fused
+from .train import create_train_state, lamb, sgd, sgd_fused
 from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, resolve_auto_resume)
 from .train.optim import cosine_lr, multistep_lr
@@ -65,7 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--epochs', default=20, type=int,
                    help='Total number of epochs to run')
     p.add_argument('--model', default='res', type=str,
-                   help='res | resnet18 ... resnet152')
+                   help='res | resnet18 ... resnet152 | vgg | vgg11 ... '
+                        'vgg19 | dense | densenet121 | densenet_bc100 | '
+                        'vit_b16 | vit_s16 | vit_tiny | convnext_t/s/b/l')
     p.add_argument('--save_path', default='./test/', type=str,
                    help='logs, checkpoints, plots and a snapshot of this '
                         'script land here')
@@ -81,13 +90,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--dataset', default='cifar',
                    choices=['cifar', 'imagenet'])
     p.add_argument('--data_root', default='', type=str,
-                   help='holds cifar-10-batches-py')
+                   help='holds cifar-10-batches-py (cifar) or train/ and '
+                        'val/ image trees (imagenet)')
     p.add_argument('--synthetic', action='store_true',
-                   help='deterministic synthetic CIFAR (no files needed)')
+                   help='deterministic synthetic CIFAR or ImageNet (no '
+                        'files needed)')
     p.add_argument('--num_classes', default=0, type=int,
-                   help='label count (0 = 10)')
+                   help='label count (0 = the dataset\'s: 10 for cifar, '
+                        '1000 for synthetic imagenet)')
     p.add_argument('--image_size', default=0, type=int,
-                   help='square input size (0 = 32)')
+                   help='square input size (0 = 32 for cifar, 224 for '
+                        'imagenet)')
     p.add_argument('--dtype', default='float32',
                    choices=['float32', 'bfloat16'],
                    help='compute dtype for conv/matmul (params stay f32)')
@@ -115,7 +128,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the port's torch.save payload)")
     p.add_argument('--ckpt_async', action='store_true')
     p.add_argument('--lr', default=0.0, type=float,
-                   help='base learning rate (0 = 0.1, the reference)')
+                   help='base learning rate (0 = 0.1, the reference; '
+                        '1e-3 for lamb)')
     p.add_argument('--lr_schedule', default='multistep',
                    choices=['multistep', 'cosine'],
                    help='multistep = MultiStepLR([60, 80], 0.1); cosine = '
@@ -125,7 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--optimizer', default='sgd',
                    choices=['sgd', 'lamb', 'sgd_fused'],
                    help='sgd = the reference; sgd_fused = the same SGD in '
-                        'the fused single-pass CUDA kernel on the card')
+                        'the fused single-pass CUDA kernel on the card; '
+                        'lamb = LAMB (layerwise trust ratios)')
     p.add_argument('--profile', default='', type=str, metavar='LOGDIR')
     p.add_argument('--torch_export', action='store_true')
     p.add_argument('--max_restarts', default=0, type=int)
@@ -139,8 +154,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, is it set?) for every JAX flag this slice does not port
 _NOT_PORTED = (
-    ('--optimizer lamb', lambda a: a.optimizer == 'lamb'),
-    ('--dataset imagenet', lambda a: a.dataset == 'imagenet'),
     ('--model_parallel', lambda a: a.model_parallel > 1),
     ('--zero', lambda a: a.zero),
     ('--zero1', lambda a: a.zero1),
@@ -181,7 +194,7 @@ def _check_flags(args) -> None:
         raise SystemExit(
             "--warmup_epochs applies to --lr_schedule cosine (the "
             "reference's MultiStepLR has no warmup)")
-    if (args.image_size or 32) != 32:
+    if args.dataset != 'imagenet' and (args.image_size or 32) != 32:
         raise SystemExit(
             "--dataset cifar is fixed at 32x32 (the reference resizes to "
             "32); --image_size applies to --dataset imagenet")
@@ -189,8 +202,8 @@ def _check_flags(args) -> None:
         raise SystemExit(f"--world_size must be >= 1, got {args.world_size}")
 
 
-def _schedule(args):
-    base = args.lr or 0.1
+def _schedule(args, base_default: float = 0.1):
+    base = args.lr or base_default
     if args.lr_schedule == 'cosine':
         return cosine_lr(base, args.epochs, warmup_epochs=args.warmup_epochs)
     return multistep_lr(base, milestones=[60, 80], gamma=0.1)
@@ -210,15 +223,27 @@ def run(args) -> dict:
     device = dist.device_for_rank(device)
     rank, primary = dist.get_rank(), dist.is_primary()
 
+    is_imagenet = args.dataset == 'imagenet'
+    image_size = args.image_size or (224 if is_imagenet else 32)
+    # loaders first, so the head can size itself from the dataset (an
+    # image tree derives its own class count), as in JAX
     train_loader, test_loader = get_loader(args, world_size=world, rank=rank)
+    dataset = getattr(train_loader, "dataset", None)
+    num_classes = (args.num_classes or getattr(dataset, "num_classes", 0)
+                   or (1000 if is_imagenet else 10))
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
-    model = get_model(args.model, dtype=dtype,
-                      num_classes=args.num_classes or 10)
-    init_resnet(model, args.seed).to(device)
-    state = create_train_state(model)
-    make = sgd_fused if args.optimizer == 'sgd_fused' else sgd
-    optimizer = make(learning_rate=_schedule(args), momentum=0.9,
-                     weight_decay=0.0001, nesterov=True)
+    model = get_model(args.model, dtype=dtype, num_classes=num_classes,
+                      stem="imagenet" if is_imagenet else "cifar",
+                      image_size=image_size)
+    init_model(model, args.seed).to(device)
+    if args.optimizer == 'lamb':
+        optimizer = lamb(learning_rate=_schedule(args, 1e-3),
+                         weight_decay=0.0001)
+    else:
+        make = sgd_fused if args.optimizer == 'sgd_fused' else sgd
+        optimizer = make(learning_rate=_schedule(args), momentum=0.9,
+                         weight_decay=0.0001, nesterov=True)
+    state = create_train_state(model, optimizer)
 
     start_epoch = 1
     if args.resume:

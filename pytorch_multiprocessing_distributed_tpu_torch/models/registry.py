@@ -1,12 +1,14 @@
 """Model registry: the CLIs' model-selection seam (the port of the JAX
 package's ``models/registry.py``).
 
-The image entries are the ResNet family under the reference's CLI name
-``res`` (ResNet-18) and ``resnet18`` ... ``resnet152``; the rest of the
-JAX image zoo (VGG, DenseNet, ViT, ConvNeXt) is not ported yet
-(ROADMAP.md). Language models register with ``lm=True`` (the GPT
-family), which the image CLI rejects. Unknown names fail loudly with the
-list of registered constructors.
+The image entries are the JAX image zoo under the JAX names: the ResNet
+family (``res`` is the reference's ResNet-18, then ``resnet18`` ...
+``resnet152``), VGG (``vgg`` is VGG16, ``vgg11`` ... ``vgg19``),
+DenseNet (``dense`` is DenseNet-121, ``densenet121``,
+``densenet_bc100``), ViT (``vit_b16``, ``vit_s16``, ``vit_tiny``) and
+ConvNeXt (``convnext_t/s/b/l``). Language models register with
+``lm=True`` (the GPT family), which the image CLI rejects. Unknown names
+fail loudly with the list of registered constructors.
 """
 
 from __future__ import annotations
@@ -32,13 +34,36 @@ def register(name: str, lm: bool = False):
     return deco
 
 
-def get_model(name: str, **kwargs):
+def _without(kwargs, name):
+    return {k: v for k, v in kwargs.items() if k != name}
+
+
+def get_model(name: str, *, stem: str = None, image_size: int = None,
+              **kwargs):
     """Instantiate a model by CLI name. Raises KeyError with the known
-    names."""
+    names.
+
+    ``stem`` is forwarded to the constructors that take it (the ResNet
+    family) and dropped for the others, as the JAX ``get_model`` does, so
+    the trainer can pass it per dataset. ``image_size`` is forwarded the
+    same way: the port's ViT (its position table) and VGG (its flattened
+    head) size themselves from it at construction, where flax infers
+    those shapes from the first input."""
     try:
         ctor = MODEL_REGISTRY[name]
     except KeyError:
         raise KeyError(
             f"Unknown model '{name}'. Available: {sorted(MODEL_REGISTRY)}"
         ) from None
-    return ctor(**kwargs)
+    optional = {k: v for k, v in (("stem", stem), ("image_size", image_size))
+                if v is not None}
+    while True:
+        try:
+            return ctor(**optional, **kwargs)
+        except TypeError as e:
+            # drop an optional argument the constructor does not take
+            missing = [k for k in optional
+                       if f"keyword argument '{k}'" in str(e)]
+            if not missing:
+                raise
+            optional = _without(optional, missing[0])

@@ -1,11 +1,14 @@
-"""CIFAR-style ResNet family (the port of the JAX package's
-``models/resnet.py``).
+"""ResNet family (the port of the JAX package's ``models/resnet.py``).
 
-Architecture as in JAX (and the reference ``model/resnet.py``): a 3x3
-stride-1 64-channel stem with no max-pool, four stages of 64/128/256/512
-channels (stride 2 from stage 2, a 1x1 conv + BN shortcut where the shape
-changes), ``BasicBlock`` (expansion 1) or ``Bottleneck`` (expansion 4)
-with a post-add ReLU, a window-4 average pool and a linear head.
+Architecture as in JAX (and the reference ``model/resnet.py``): a stem,
+four stages of 64/128/256/512 channels (stride 2 from stage 2, a 1x1
+conv + BN shortcut where the shape changes), ``BasicBlock`` (expansion
+1) or ``Bottleneck`` (expansion 4) with a post-add ReLU, a pool and a
+linear head. ``stem="cifar"`` (the default, the reference's): a 3x3
+stride-1 64-channel conv with no max-pool, and a window-4 average pool
+(global at 32x32). ``stem="imagenet"`` (the torchvision stem): a 7x7
+stride-2 conv (padding 3), BN, ReLU and a 3x3 stride-2 max-pool (padding
+1), and a global average pool (any input size).
 ``ResNet18`` keeps the reference's non-standard ``[1, 1, 1, 1]`` blocks
 (4,903,242 parameters); 34/50/101/152 use the standard counts. Every
 BatchNorm is a :class:`..ops.batch_norm.SyncBatchNorm`.
@@ -18,13 +21,11 @@ so ``state_dict()`` is the reference's artifact of record;
 JAX package's NHWC layout: the model reads it as an NCHW view in
 channels-last memory (no copy), the format cuDNN prefers. ``dtype`` is
 the compute dtype of the convolutions and the head; parameters, BN
-statistics and the logits stay f32. Only the CIFAR stem is ported (the
-JAX ``stem="imagenet"`` waits for ``data/imagenet.py``, ROADMAP.md).
+statistics and the logits stay f32.
 """
 
 from __future__ import annotations
 
-import math
 from collections import OrderedDict
 from typing import Mapping, Sequence, Tuple, Type
 
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.batch_norm import SyncBatchNorm
+from .init import init_model
 from .registry import register
 
 
@@ -106,15 +108,26 @@ class Bottleneck(nn.Module):
         return F.relu(out + self.shortcut(x))
 
 
+STEMS = ("cifar", "imagenet")
+
+
 class ResNet(nn.Module):
-    """ResNet with the CIFAR stem: input ``[batch, 32, 32, 3]`` NHWC,
-    output ``[batch, num_classes]`` f32 logits."""
+    """ResNet with a selectable stem: input ``[batch, H, W, 3]`` NHWC
+    (32x32 for the CIFAR stem), output ``[batch, num_classes]`` f32
+    logits."""
+
+    conv_init = "he_fan_out"  # the JAX conv_kernel_init
 
     def __init__(self, block: Type[nn.Module], num_blocks: Sequence[int],
-                 num_classes: int = 10, dtype: torch.dtype = torch.float32):
+                 num_classes: int = 10, dtype: torch.dtype = torch.float32,
+                 stem: str = "cifar"):
         super().__init__()
+        if stem not in STEMS:
+            raise ValueError(f"stem must be one of {STEMS}, got {stem!r}")
         self.dtype = dtype
-        self.conv1 = Conv2d(3, 64, 3, 1)
+        self.stem = stem
+        self.conv1 = (Conv2d(3, 64, 7, 2) if stem == "imagenet"
+                      else Conv2d(3, 64, 3, 1))
         self.bn1 = SyncBatchNorm(64, dtype=dtype)
         cin = 64
         for stage, (planes, n) in enumerate(zip((64, 128, 256, 512),
@@ -131,10 +144,15 @@ class ResNet(nn.Module):
         # NHWC -> an NCHW view in channels-last memory (no copy)
         out = x.to(self.dtype).permute(0, 3, 1, 2)
         out = F.relu(self.bn1(self.conv1(out)))
+        if self.stem == "imagenet":
+            out = F.max_pool2d(out, 3, stride=2, padding=1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             out = stage(out)
-        # the reference's window-4 pool (global for the 32x32 stem)
-        out = F.avg_pool2d(out, 4).flatten(1)
+        if self.stem == "imagenet":
+            out = out.mean(dim=(2, 3))  # global average pool
+        else:
+            # the reference's window-4 pool (global for the 32x32 stem)
+            out = F.avg_pool2d(out, 4).flatten(1)
         w = self.linear.weight.to(self.dtype)
         b = self.linear.bias.to(self.dtype)
         return F.linear(out, w, b).float()
@@ -168,36 +186,13 @@ for _name, _ctor in (("res", ResNet18), ("resnet18", ResNet18),
     register(_name)(_ctor)
 
 
-@torch.no_grad()
 def init_resnet(model: ResNet, seed: int = 0) -> ResNet:
     """Fresh weights with the JAX package's initialisers, drawn from a
     CPU ``torch.Generator`` seeded with ``seed`` (the same values on any
     device): convs He-normal over fan-out, the head LeCun truncated
     normal (|z| <= 2) with a zero bias, BN scale 1 and bias 0, running
-    mean 0 and variance 1."""
-    gen = torch.Generator().manual_seed(int(seed))
-    for module in model.modules():
-        if isinstance(module, Conv2d):
-            o, _, kh, kw = module.weight.shape
-            std = math.sqrt(2.0 / (o * kh * kw))
-            w = torch.empty(module.weight.shape).normal_(0.0, std,
-                                                         generator=gen)
-            module.weight.copy_(w)
-        elif isinstance(module, nn.Linear):
-            # flax lecun_normal: truncated normal, std corrected for the
-            # truncation at two standard deviations
-            std = math.sqrt(1.0 / module.in_features) / .87962566103423978
-            w = torch.empty(module.weight.shape)
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                  generator=gen)
-            module.weight.copy_(w)
-            module.bias.zero_()
-        elif isinstance(module, SyncBatchNorm):
-            module.weight.fill_(1.0)
-            module.bias.zero_()
-            module.running_mean.zero_()
-            module.running_var.fill_(1.0)
-    return model
+    mean 0 and variance 1 (:func:`.init.init_model`)."""
+    return init_model(model, seed)
 
 
 # flax ConvBN child -> (torch conv, torch bn) inside a block (the JAX

@@ -48,6 +48,40 @@ def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
     return impl
 
 
+HEAD_DIM_TILES = (32, 64, 128)  # the attention kernels' column tiles
+
+
+def head_dim_tile(head_dim: int) -> int:
+    """The attention kernels' tile of columns for ``head_dim``: the
+    smallest of 32, 64 and 128 that holds it. A head_dim past 128 (the
+    largest tile) raises."""
+    for tile in HEAD_DIM_TILES:
+        if 1 <= head_dim <= tile:
+            return tile
+    raise ValueError(
+        f"the attention kernels take 1 <= Dh <= {HEAD_DIM_TILES[-1]} "
+        f"(head_dim), got {head_dim}")
+
+
+def kernel_head_dim(head_dim: int, element_size: int) -> int:
+    """The head_dim the attention kernels are given for ``head_dim``
+    over rows of ``element_size``-byte elements: ``head_dim`` itself
+    where a row is whole 16-byte pieces (the kernels read zeros past it
+    in their tile and store none of those columns), else its tile, to
+    which :func:`pad_head_dim` zero-pads the inputs. Both are exact:
+    zero columns of q and k add nothing to ``q . k``, and zero columns
+    of v give zero output columns, which the wrappers slice off."""
+    tile = head_dim_tile(head_dim)
+    return head_dim if head_dim * element_size % 16 == 0 else tile
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its last (head_dim) axis zero-padded to ``width``;
+    ``t`` itself when it is that wide already."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
+
+
 from .decode_attention import (  # noqa: E402,F401
     decode_attention, paged_decode_attention,
     paged_verify_decode_attention, torch_decode_attention,

@@ -102,7 +102,9 @@ struct PmdtDecodeArgs {
   const int* positions;
   const int* table;  // paged only: [B, >= ceil(W / page_size)]
   float* out;
-  int B, H, W, D;
+  int B, H, W;
+  int D;  // head_dim, 1..128 with 16-byte K/V rows; the kernels run on
+          // the tile of 32, 64 or 128 columns that holds it
   int dtype;  // 0 = float32, 1 = bfloat16 (q, and K/V unless int8)
   int quant;  // 1: K/V are int8 with f32 scales
   int page_size;
@@ -174,7 +176,7 @@ struct PmdtVerifyArgs {
   PmdtDecodeArgs d;  // d.out is [B, K1, H, Dh] f32, contiguous
   int k1;            // query rows per slot
   long long q_sq;    // q's stride between rows (elements)
-  float* partials;   // [B*H, row tiles, n_splits, 16, Dh + 4] f32 workspace
+  float* partials;   // [B*H, row tiles, n_splits, 16, tile + 4] f32 workspace
   int split;         // keys a CTA walks, a multiple of kVerifyKeys
   int n_splits;      // ceil(W / split)
 };
@@ -339,7 +341,9 @@ int verify_smem_bytes(int stages) {
 }
 
 // stage keys [key0, key0 + kVerifyKeys) of (slot b, head h) into `stage`;
-// keys at or past `kend` are zero-filled and their rows never located
+// keys at or past `kend`, and the columns past the head_dim a.D, are
+// zero-filled and never read (zero columns add nothing to q . k and give
+// zero output columns)
 template <typename S, int D, bool PAGED>
 __device__ __forceinline__ void stage_keys(const PmdtDecodeArgs& a,
                                            unsigned char* stage, int b, int h,
@@ -376,9 +380,10 @@ __device__ __forceinline__ void stage_keys(const PmdtDecodeArgs& a,
     const long long kr = row[n] * a.k_s0 + col[n] * a.k_s1;
     const long long vr = row[n] * a.v_s0 + col[n] * a.v_s1;
     const int off = part * (16 / static_cast<int>(sizeof(S)));
+    const bool in_row = valid && off < a.D;
     const uint32_t dst = base + i * R::ROW_BYTES + part * 16;
-    cp_async16(dst, valid ? k + kr + off : k, valid);
-    cp_async16(dst + R::KV_BYTES, valid ? v + vr + off : v, valid);
+    cp_async16(dst, in_row ? k + kr + off : k, in_row);
+    cp_async16(dst + R::KV_BYTES, in_row ? v + vr + off : v, in_row);
     if (R::QUANT && part == 0) {
       const uint32_t sdst = base + 2 * R::KV_BYTES + i * 4;
       cp_async4(sdst,
@@ -589,7 +594,7 @@ verify_split_kernel(const PmdtVerifyArgs va, const int stages) {
         const int col = ks * 16 + (e >> 1) * 8 + 2 * cq;
         __nv_bfloat16 x = __float2bfloat16_rn(0.f);
         __nv_bfloat16 y = x;
-        if (row < rows) {
+        if (row < rows && col < a.D) {  // a.D even: col + 1 too
           x = qb[row * va.q_sq + col];
           y = qb[row * va.q_sq + col + 1];
         }
@@ -669,7 +674,8 @@ verify_split_kernel(const PmdtVerifyArgs va, const int stages) {
     float* sm = sp + kVerifyRows * KP;    // m [16], l [16], corr [16]
     for (int idx = tid; idx < kVerifyRows * D; idx += kVerifyThreads) {
       const int r = idx / D;
-      sq[idx] = r < rows ? to_float(qb[r * va.q_sq + (idx - r * D)]) : 0.f;
+      const int col = idx - r * D;
+      sq[idx] = r < rows && col < a.D ? to_float(qb[r * va.q_sq + col]) : 0.f;
     }
     if (tid < kVerifyRows) {
       sm[tid] = -INFINITY;
@@ -850,9 +856,11 @@ verify_merge_kernel(const PmdtVerifyArgs va) {
   for (int idx = threadIdx.x; idx < rows * (D / 4); idx += kVerifyThreads) {
     const int r = idx / (D / 4);
     const int d = (idx - r * (D / 4)) * 4;
-    *reinterpret_cast<float4*>(
-        a.out + ((static_cast<long long>(b) * va.k1 + r0 + r) * H + h) * D +
-        d) = fold_splits<D>(part + r * kPartialRow<D>, P, live, d);
+    if (d < a.D)  // a.D a multiple of 4
+      *reinterpret_cast<float4*>(
+          a.out + ((static_cast<long long>(b) * va.k1 + r0 + r) * H + h) *
+                      a.D + d) =
+          fold_splits<D>(part + r * kPartialRow<D>, P, live, d);
   }
 }
 
@@ -885,18 +893,18 @@ cudaError_t launch_verify(const PmdtVerifyArgs& a, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, verify_merge_kernel<D>, a);
 }
 
+// a head_dim of 1..128 whose K/V rows are whole 16-byte copies
+template <typename S>
+bool head_dim_ok(int dh) {
+  return dh >= 1 && dh <= 128 && dh * static_cast<int>(sizeof(S)) % 16 == 0;
+}
+
 template <typename T, typename S>
 cudaError_t launch_verify_dim(const PmdtVerifyArgs& a, cudaStream_t stream) {
-  switch (a.d.D) {
-    case 32:
-      return launch_verify<T, S, 32>(a, stream);
-    case 64:
-      return launch_verify<T, S, 64>(a, stream);
-    case 128:
-      return launch_verify<T, S, 128>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (!head_dim_ok<S>(a.d.D)) return cudaErrorInvalidValue;
+  if (a.d.D <= 32) return launch_verify<T, S, 32>(a, stream);
+  if (a.d.D <= 64) return launch_verify<T, S, 64>(a, stream);
+  return launch_verify<T, S, 128>(a, stream);
 }
 
 }  // namespace
@@ -931,7 +939,7 @@ extern "C" int pmdt_verify_attention(const PmdtVerifyArgs* args,
 
 struct PmdtDecodeSplitArgs {
   PmdtDecodeArgs d;  // d.out is [B, 1, H, Dh] f32, contiguous
-  float* partials;   // [B*H, n_splits, Dh + 4] f32 workspace; null for one
+  float* partials;   // [B*H, n_splits, tile + 4] f32 workspace; null for one
   int split;         // keys a CTA walks, a multiple of kVerifyKeys
   int n_splits;      // ceil(W / split); 1: the CTA writes out itself
 };
@@ -1051,7 +1059,8 @@ decode_split_kernel(const PmdtDecodeSplitArgs da, const int stages) {
     const T* qr = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
                   half * HALF;
 #pragma unroll
-    for (int i = 0; i < HALF; ++i) qf[i] = to_float(qr[i]);
+    for (int i = 0; i < HALF; ++i)
+      qf[i] = half * HALF + i < a.D ? to_float(qr[i]) : 0.f;
   }
   float m = -INFINITY;
   float l = 0.f;
@@ -1142,8 +1151,9 @@ decode_split_kernel(const PmdtDecodeSplitArgs da, const int stages) {
       num = fmaf(xa[w * D + tid], wt, num);
     }
     if (single) {  // no key at all (a negative position): zeros
-      a.out[static_cast<long long>(blockIdx.x) * D + tid] =
-          num / fmaxf(den, 1e-30f);
+      if (tid < a.D)
+        a.out[static_cast<long long>(blockIdx.x) * a.D + tid] =
+            num / fmaxf(den, 1e-30f);
     } else {
       float* row = da.partials +
                    (static_cast<long long>(blockIdx.x) * da.n_splits + split) *
@@ -1175,8 +1185,8 @@ decode_merge_kernel(const PmdtDecodeSplitArgs da) {
   }
   // the partials are the split kernel's: wait for its grid to end
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  if (!valid) return;
-  *reinterpret_cast<float4*>(a.out + static_cast<long long>(row) * D + d) =
+  if (!valid || d >= a.D) return;  // a.D a multiple of 4
+  *reinterpret_cast<float4*>(a.out + static_cast<long long>(row) * a.D + d) =
       fold_splits<D>(
           da.partials + static_cast<long long>(row) * da.n_splits *
                             kPartialRow<D>,
@@ -1220,16 +1230,10 @@ cudaError_t launch_decode(const PmdtDecodeSplitArgs& a, cudaStream_t stream) {
 template <typename T, typename S>
 cudaError_t launch_decode_dim(const PmdtDecodeSplitArgs& a,
                               cudaStream_t stream) {
-  switch (a.d.D) {
-    case 32:
-      return launch_decode<T, S, 32>(a, stream);
-    case 64:
-      return launch_decode<T, S, 64>(a, stream);
-    case 128:
-      return launch_decode<T, S, 128>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (!head_dim_ok<S>(a.d.D)) return cudaErrorInvalidValue;
+  if (a.d.D <= 32) return launch_decode<T, S, 32>(a, stream);
+  if (a.d.D <= 64) return launch_decode<T, S, 64>(a, stream);
+  return launch_decode<T, S, 128>(a, stream);
 }
 
 }  // namespace

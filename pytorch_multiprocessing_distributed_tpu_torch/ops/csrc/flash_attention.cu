@@ -57,6 +57,7 @@ namespace {
 
 struct Strides {  // element strides of a [B, S, H, Dh] tensor (Dh: 1)
   long long b, s, h;
+  int cols;  // Dh: columns past it (zeros in the tiles) are never stored
 };
 
 // ---- bf16 on Hopper: wgmma fed by TMA through mbarrier rings ----
@@ -393,14 +394,15 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
 
 // a warpgroup's 64 x D f32 result, times `mul`, as bf16 into its rows
 // [r0, r0 + 64) of a resident tile (which only it reads), then 16-byte
-// stores of the rows < n_rows to out[row * row_stride]
+// stores of the rows < n_rows and the columns < cols to out[row *
+// row_stride]
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                            float mul, unsigned char* tile,
                                            int rows, int r0, int wg,
                                            __nv_bfloat16* out,
                                            long long row_stride, int row0,
-                                           int n_rows) {
+                                           int n_rows, int cols) {
   const int lane = threadIdx.x % 32;
   const int r = r0 + (threadIdx.x / 32) % 4 * 16 + lane / 4;
 #pragma unroll
@@ -415,7 +417,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
     const int rr = idx / (D / 8);
     const int ch = idx - rr * (D / 8);
     const int row = row0 + rr;
-    if (row < n_rows)
+    if (row < n_rows && ch * 8 < cols)
       *reinterpret_cast<uint4*>(out + row * row_stride + ch * 8) =
           *reinterpret_cast<const uint4*>(
               tile + Tile<D>::chunk(rows, r0 + rr, ch));
@@ -666,7 +668,7 @@ __global__ void __launch_bounds__(FwdSmem<D>::kWgs* kWg + 32,
   }
   rescale<D>(o, inv);
   store_rows<D>(o, 1.f, smem + L::kQ, R, r0, wg, out + b * os.b + h * os.h,
-                os.s, q0 + r0, Sq);
+                os.s, q0 + r0, Sq, os.cols);
 }
 
 // ---- the bf16 backward (rows 6 and 7) ----
@@ -857,7 +859,7 @@ __global__ void __launch_bounds__(DqSmem<D>::kWgs* kWg + 32,
   }
 
   store_rows<D>(acc, scale, smem + L::kQ, R, r0, wg,
-                dq + b * dqs.b + h * dqs.h, dqs.s, q0 + r0, Sq);
+                dq + b * dqs.b + h * dqs.h, dqs.s, q0 + r0, Sq, dqs.cols);
 }
 
 // shared memory of the dk/dv pass
@@ -1055,9 +1057,9 @@ __global__ void __launch_bounds__(DkvSmem<D>::kWgs* kWg + 32,
   }
 
   store_rows<D>(dk_acc, scale, smem + L::kK, R, r0, wg,
-                dk + b * dks.b + h * dks.h, dks.s, k0 + r0, Skv);
+                dk + b * dks.b + h * dks.h, dks.s, k0 + r0, Skv, dks.cols);
   store_rows<D>(dv_acc, 1.f, smem + L::kV, R, r0, wg,
-                dv + b * dvs.b + h * dvs.h, dvs.s, k0 + r0, Skv);
+                dv + b * dvs.b + h * dvs.h, dvs.s, k0 + r0, Skv, dvs.cols);
 }
 
 // ---- the f32 backward (rows 6 and 7 in f32): 3xTF32 on wgmma ----
@@ -1471,12 +1473,13 @@ __device__ __forceinline__ void split_rows(unsigned char* tile,
 // (part 0 + part 1) * mul in rows [row0, row0 + 64) of out: each
 // warpgroup stages its part in its area (resident tiles no product reads
 // any more), then each sums 32 rows and stores them in 16-byte pieces
+// (the columns < cols)
 template <int D>
 __device__ __forceinline__ void store_pair(const float (&acc)[D / 2],
                                            float mul, unsigned char* area0,
                                            unsigned char* area1, int wg,
                                            float* out, long long row_stride,
-                                           int row0, int n_rows) {
+                                           int row0, int n_rows, int cols) {
   using T = F32Tile<D>;
   const int lane = threadIdx.x % 32;
   const int r = (threadIdx.x / 32) % 4 * 16 + lane / 4;
@@ -1499,7 +1502,7 @@ __device__ __forceinline__ void store_pair(const float (&acc)[D / 2],
         *reinterpret_cast<const float4*>(area0 + T::chunk(kWgRows, rr, ch));
     const float4 b =
         *reinterpret_cast<const float4*>(area1 + T::chunk(kWgRows, rr, ch));
-    if (row < n_rows)
+    if (row < n_rows && 4 * ch < cols)
       *reinterpret_cast<float4*>(out + row * row_stride + 4 * ch) =
           make_float4((a.x + b.x) * mul, (a.y + b.y) * mul,
                       (a.z + b.z) * mul, (a.w + b.w) * mul);
@@ -1679,7 +1682,7 @@ __global__ void __launch_bounds__(Tf32Shape<D>::kWgs* kWg + 32, 1)
 
   consumers_sync();  // every product is done: the resident tiles are free
   store_pair<D>(acc, scale, smem + L::kQ, smem + L::kQlo, wg,
-                dq + b * dqs.b + h * dqs.h, dqs.s, q0, Sq);
+                dq + b * dqs.b + h * dqs.h, dqs.s, q0, Sq, dqs.cols);
 }
 
 // shared memory of the f32 dk/dv pass
@@ -1889,9 +1892,9 @@ __global__ void __launch_bounds__(Tf32Shape<D>::kWgs* kWg + 32, 1)
 
   consumers_sync();  // every product is done: the resident tiles are free
   store_pair<D>(dk_acc, scale, smem + L::kK, smem + L::kKlo, wg,
-                dk + b * dks.b + h * dks.h, dks.s, k0, Skv);
+                dk + b * dks.b + h * dks.h, dks.s, k0, Skv, dks.cols);
   store_pair<D>(dv_acc, 1.f, smem + L::kV, smem + L::kVlo, wg,
-                dv + b * dvs.b + h * dvs.h, dvs.s, k0, Skv);
+                dv + b * dvs.b + h * dvs.h, dvs.s, k0, Skv, dvs.cols);
 }
 
 // ---- the f32 forward (row 5 in f32): 3xTF32 on wgmma ----
@@ -2127,15 +2130,17 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
     if (row < Sq) {
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(o_base + row * os.s + 8 * j +
-                                   2 * (lane % 4)) =
-            make_float2(o[4 * j + 2 * i] * f[i], o[4 * j + 2 * i + 1] * f[i]);
+        if (8 * j + 2 * (lane % 4) < os.cols)
+          *reinterpret_cast<float2*>(o_base + row * os.s + 8 * j +
+                                     2 * (lane % 4)) =
+              make_float2(o[4 * j + 2 * i] * f[i],
+                          o[4 * j + 2 * i + 1] * f[i]);
     }
   }
 }
 
-Strides strides_at(const long long* s, int i) {
-  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+Strides strides_at(const long long* s, int i, int cols) {
+  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2], cols};
 }
 
 template <typename Kernel>
@@ -2189,7 +2194,8 @@ EncodeTiled encode_tiled() {
 // a bf16 or f32 [B, S, H, Dh] view (unit Dh stride) over its real
 // dimensions (Dh, S, H, B) and byte strides, in boxes of one panel x
 // `rows` rows, swizzled as Tile<D, 2> (bf16) or Tile<D, 4> (f32); rows past
-// S read as zeros. Returns the CUresult.
+// S and columns past Dh (a tile of D >= Dh columns) read as zeros, which
+// add nothing to Q K^T and give zero columns of P V. Returns the CUresult.
 template <int D, bool F32>
 int map_rows(CUtensorMap* map, const void* p, int B, int S, int H,
              Strides st, int rows) {
@@ -2197,7 +2203,7 @@ int map_rows(CUtensorMap* map, const void* p, int B, int S, int H,
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   constexpr int elt = F32 ? 4 : 2;
   using T = Tile<D, elt>;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(st.cols),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
@@ -2227,10 +2233,10 @@ constexpr int kTmaRefused = 100000;
 template <int D, bool F32, int N>
 int make_maps(CUtensorMap (&m)[N], const void* const (&ptrs)[N],
               const int (&lens)[N], const int (&rows)[N], int B, int H,
-              const long long* st) {
+              const long long* st, int dh) {
   for (int i = 0; i < N; ++i) {
     const int err = map_rows<D, F32>(&m[i], ptrs[i], B, lens[i], H,
-                                     strides_at(st, i), rows[i]);
+                                     strides_at(st, i, dh), rows[i]);
     if (err != CUDA_SUCCESS) return kTmaRefused + err;
   }
   return 0;
@@ -2239,14 +2245,14 @@ int make_maps(CUtensorMap (&m)[N], const void* const (&ptrs)[N],
 template <int D>
 cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
                 void* out, float* lse, int B, int H, int Sq, int Skv,
-                const long long* st, float scale, int causal,
+                int dh, const long long* st, float scale, int causal,
                 cudaStream_t stream) {
-  const Strides s3 = strides_at(st, 3);
+  const Strides s3 = strides_at(st, 3, dh);
   if (dtype == 1) {
     using L = FwdSmem<D>;
     CUtensorMap m[3];
     const int err = make_maps<D, false>(m, {q, k, v}, {Sq, Skv, Skv},
-                                 {L::kRows, kWgRows, kWgRows}, B, H, st);
+                                 {L::kRows, kWgRows, kWgRows}, B, H, st, dh);
     if (err != 0) return static_cast<cudaError_t>(err);
     return launch(flash_fwd_wgmma_kernel<D>,
                   dim3(B * H, (Sq + L::kRows - 1) / L::kRows),
@@ -2257,7 +2263,7 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
   using L = FwdTf32Smem<D>;
   CUtensorMap m[3];
   const int err = make_maps<D, true>(m, {q, k, v}, {Sq, Skv, Skv},
-                                     {L::kRows, L::kN, L::kN}, B, H, st);
+                                     {L::kRows, L::kN, L::kN}, B, H, st, dh);
   if (err != 0) return static_cast<cudaError_t>(err);
   return launch(flash_fwd_tf32x3_kernel<D>,
                 dim3(B * H, (Sq + L::kRows - 1) / L::kRows), 2 * kWg + 32,
@@ -2268,16 +2274,16 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* dterm,
-                   void* dq, int B, int H, int Sq, int Skv,
+                   void* dq, int B, int H, int Sq, int Skv, int dh,
                    const long long* st, float scale, int causal,
                    cudaStream_t stream) {
-  const Strides s4 = strides_at(st, 4);
+  const Strides s4 = strides_at(st, 4, dh);
   CUtensorMap m[4];
   if (dtype == 1) {
     constexpr int R = DqSmem<D>::kRows;
     const int err = make_maps<D, false>(m, {q, k, v, dout},
                                         {Sq, Skv, Skv, Sq},
-                                        {R, kWgRows, kWgRows, R}, B, H, st);
+                                        {R, kWgRows, kWgRows, R}, B, H, st, dh);
     if (err != 0) return static_cast<cudaError_t>(err);
     return launch(flash_bwd_dq_wgmma_kernel<D>,
                   dim3(B * H, (Sq + R - 1) / R), DqSmem<D>::kWgs * kWg + 32,
@@ -2288,7 +2294,7 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
   using L = DqTf32Smem<D>;
   const int err = make_maps<D, true>(m, {q, k, v, dout}, {Sq, Skv, Skv, Sq},
                                      {kWgRows, L::kN, L::kN, kWgRows}, B, H,
-                                     st);
+                                     st, dh);
   if (err != 0) return static_cast<cudaError_t>(err);
   return launch(flash_bwd_dq_tf32x3_kernel<D>,
                 dim3(B * H, (Sq + kWgRows - 1) / kWgRows),
@@ -2301,15 +2307,16 @@ template <int D>
 cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* dterm,
                     void* dk, void* dv, int B, int H, int Sq, int Skv,
-                    const long long* st, float scale, int causal,
+                    int dh, const long long* st, float scale, int causal,
                     cudaStream_t stream) {
-  const Strides s4 = strides_at(st, 4), s5 = strides_at(st, 5);
+  const Strides s4 = strides_at(st, 4, dh),
+                s5 = strides_at(st, 5, dh);
   CUtensorMap m[4];
   if (dtype == 1) {
     constexpr int R = DkvSmem<D>::kRows;
     const int err = make_maps<D, false>(m, {q, k, v, dout},
                                         {Sq, Skv, Skv, Sq},
-                                        {kWgRows, R, R, kWgRows}, B, H, st);
+                                        {kWgRows, R, R, kWgRows}, B, H, st, dh);
     if (err != 0) return static_cast<cudaError_t>(err);
     return launch(flash_bwd_dkv_wgmma_kernel<D>,
                   dim3(B * H, (Skv + R - 1) / R), DkvSmem<D>::kWgs * kWg + 32,
@@ -2320,7 +2327,7 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   using L = DkvTf32Smem<D>;
   const int err = make_maps<D, true>(m, {q, k, v, dout}, {Sq, Skv, Skv, Sq},
                                      {L::kN, kWgRows, kWgRows, L::kN}, B, H,
-                                     st);
+                                     st, dh);
   if (err != 0) return static_cast<cudaError_t>(err);
   return launch(flash_bwd_dkv_tf32x3_kernel<D>,
                 dim3(B * H, (Skv + kWgRows - 1) / kWgRows),
@@ -2331,17 +2338,20 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {32, 64, 128}. `strides` holds
-// (b, s, h) element strides per tensor, in argument order (the Dh stride
-// must be 1; the Python wrapper checks it). lse and dterm are contiguous
-// f32 [B * H, Sq]. Each entry returns a cudaError_t.
-#define PMDT_DISPATCH(CALL)                              \
-  if (dtype != 0 && dtype != 1)                          \
-    return static_cast<int>(cudaErrorInvalidValue);      \
-  if (D == 32) return static_cast<int>(CALL(32));        \
-  if (D == 64) return static_cast<int>(CALL(64));        \
-  if (D == 128) return static_cast<int>(CALL(128));      \
-  return static_cast<int>(cudaErrorInvalidValue);
+// dtype: 0 = float32, 1 = bfloat16; D is the head_dim, 1 <= D <= 128 with
+// 16-byte rows (a multiple of 8 in bf16, of 4 in f32), run on the tile of
+// 32, 64 or 128 columns that holds it (the TMA maps read zeros past D, the
+// stores skip those columns). `strides` holds (b, s, h) element strides per
+// tensor, in argument order (the Dh stride must be 1; the Python wrapper
+// checks it and pads any other head_dim). lse and dterm are contiguous f32
+// [B * H, Sq]. Each entry returns a cudaError_t.
+#define PMDT_DISPATCH(CALL)                                        \
+  if ((dtype != 0 && dtype != 1) || D < 1 || D > 128 ||            \
+      D * (dtype == 0 ? 4 : 2) % 16 != 0)                          \
+    return static_cast<int>(cudaErrorInvalidValue);                \
+  if (D <= 32) return static_cast<int>(CALL(32));                  \
+  if (D <= 64) return static_cast<int>(CALL(64));                  \
+  return static_cast<int>(CALL(128));
 
 extern "C" int pmdt_flash_fwd(const void* q, const void* k, const void* v,
                               void* out, float* lse, int B, int H, int Sq,
@@ -2350,7 +2360,8 @@ extern "C" int pmdt_flash_fwd(const void* q, const void* k, const void* v,
                               int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PMDT_FWD(DIM) \
-  fwd<DIM>(dtype, q, k, v, out, lse, B, H, Sq, Skv, strides, scale, causal, s)
+  fwd<DIM>(dtype, q, k, v, out, lse, B, H, Sq, Skv, D, strides, scale, \
+           causal, s)
   PMDT_DISPATCH(PMDT_FWD)
 #undef PMDT_FWD
 }
@@ -2363,7 +2374,7 @@ extern "C" int pmdt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PMDT_DQ(DIM)                                                  \
-  bwd_dq<DIM>(dtype, q, k, v, dout, lse, dterm, dq, B, H, Sq, Skv,      \
+  bwd_dq<DIM>(dtype, q, k, v, dout, lse, dterm, dq, B, H, Sq, Skv, D,   \
               strides, scale, causal, s)
   PMDT_DISPATCH(PMDT_DQ)
 #undef PMDT_DQ
@@ -2379,7 +2390,7 @@ extern "C" int pmdt_flash_bwd_dkv(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PMDT_DKV(DIM)                                                 \
   bwd_dkv<DIM>(dtype, q, k, v, dout, lse, dterm, dk, dv, B, H, Sq, Skv, \
-               strides, scale, causal, s)
+               D, strides, scale, causal, s)
   PMDT_DISPATCH(PMDT_DKV)
 #undef PMDT_DKV
 }

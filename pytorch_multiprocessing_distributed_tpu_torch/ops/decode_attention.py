@@ -54,7 +54,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import resolve_impl
+from . import head_dim_tile, kernel_head_dim, pad_head_dim, resolve_impl
 from ._build import load
 from .kv_quant import QuantizedKV, dequantize_kv
 
@@ -67,7 +67,6 @@ __all__ = ["decode_attention", "paged_decode_attention",
            "VerifySplitPlan", "verify_split_plan", "verify_split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
 # the verify wrappers take up to 8 * 65535 query rows; the kernel puts
 # them in tiles of 16 on its grid's z axis (at most 65535 tiles)
 MAX_VERIFY_ROWS = 8 * 65535
@@ -328,8 +327,7 @@ def _check_q(q, positions, verify=False):
     if q.dtype not in _DTYPES:
         raise ValueError(
             f"the kernel takes f32 or bf16 q, got {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the kernel takes Dh in {_HEAD_DIMS}, got {d}")
+    head_dim_tile(d)
     if positions.shape != (b,) or positions.dtype != torch.int32:
         raise ValueError(
             f"positions must be int32 [{b}], got {positions.dtype} "
@@ -340,7 +338,7 @@ def _check_q(q, positions, verify=False):
 
 def _check_kv(q, k, v, name="k"):
     """k/v (dense ``[B, W, H, Dh]`` or pages ``[P, H, ps, Dh]``, model
-    dtype or int8 pairs): one dtype, 16-byte rows, unit Dh stride."""
+    dtype or int8 pairs): one dtype, unit Dh stride."""
     quant = isinstance(k, QuantizedKV)
     if isinstance(v, QuantizedKV) != quant:
         raise ValueError("k and v must both be quantized or both not")
@@ -364,14 +362,27 @@ def _check_kv(q, k, v, name="k"):
             f"the kernel takes q/k/v of one dtype, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
     for n, t in data + [("q", q)]:
-        vec = 16 // t.element_size()  # 16-byte loads: lanes per thread
         if t.stride(3) != 1:
             raise ValueError(f"{n} needs a unit head_dim stride")
-        if n != "q" and (t.data_ptr() % 16
-                         or any(s % vec for s in t.stride()[:3])):
+
+
+def _check_aligned(k, v):
+    """K/V rows (as the kernel reads them) start on 16 bytes: the kernel
+    stages them with 16-byte copies."""
+    quant = isinstance(k, QuantizedKV)
+    for n, t in (("k", k.data if quant else k), ("v", v.data if quant else v)):
+        vec = 16 // t.element_size()  # 16-byte loads: lanes per thread
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(
                 f"{n} rows must be 16-byte aligned (strides "
                 f"{t.stride()}, element size {t.element_size()})")
+
+
+def _pad_kv(t, width):
+    """K or V (or their int8 pair) zero-padded to ``width`` columns."""
+    if isinstance(t, QuantizedKV):
+        return QuantizedKV(pad_head_dim(t.data, width), t.scale)
+    return pad_head_dim(t, width)
 
 
 def _same_device(*tensors):
@@ -425,16 +436,23 @@ def _launch(q, k, v, positions, *, window, table=None, page_size=0,
             verify=False):
     """Fill the argument block and launch the decode kernels (or, with
     ``verify``, the k-query verify kernels) with the split plan's
-    workspace; returns the f32 output."""
-    b, k1, h, d = q.shape
+    workspace; returns the f32 output. A head_dim whose K/V rows are
+    not whole 16-byte pieces goes in zero-padded to the kernels' tile
+    (:func:`..ops.kernel_head_dim`), and the output is sliced back."""
+    head_dim = q.shape[-1]
     quant = isinstance(k, QuantizedKV)
+    width = kernel_head_dim(head_dim, 1 if quant else q.element_size())
+    q, k, v = pad_head_dim(q, width), _pad_kv(k, width), _pad_kv(v, width)
+    _check_aligned(k, v)
+    b, k1, h, d = q.shape
+    tile = head_dim_tile(d)
     kd, vd = (k.data, v.data) if quant else (k, v)
     out = torch.empty((b, k1, h, d), dtype=torch.float32, device=q.device)
     a = _Args(q=q.data_ptr(), k=kd.data_ptr(), v=vd.data_ptr(),
               positions=positions.data_ptr(), out=out.data_ptr(),
               B=b, H=h, W=window, D=d, dtype=_DTYPES[q.dtype],
               quant=int(quant), q_sb=q.stride(0), q_sh=q.stride(2),
-              scale=d ** -0.5)
+              scale=head_dim ** -0.5)
     # storage row (base, col, head): dense [B, W, H, Dh] is (0, 1, 2);
     # pages [P, H, ps, Dh] are (0, 2, 1)
     dims = (0, 1, 2) if table is None else (0, 2, 1)
@@ -449,14 +467,14 @@ def _launch(q, k, v, positions, *, window, table=None, page_size=0,
         a.table_stride = table.stride(0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if verify:
-        plan = verify_split_plan(b, h, window, k1, d)
+        plan = verify_split_plan(b, h, window, k1, tile)
         partials = torch.empty(plan.partials, dtype=torch.float32,
                                device=q.device)
         err = _kernel(True)(ctypes.byref(_VerifyArgs(
             d=a, k1=k1, q_sq=q.stride(1), partials=partials.data_ptr(),
             split=plan.split, n_splits=plan.n_splits)), stream)
     else:
-        plan = decode_split_plan(b, h, window, d)
+        plan = decode_split_plan(b, h, window, tile)
         partials = (None if plan.partials is None else torch.empty(
             plan.partials, dtype=torch.float32, device=q.device))
         err = _kernel()(ctypes.byref(_DecodeArgs(
@@ -466,8 +484,9 @@ def _launch(q, k, v, positions, *, window, table=None, page_size=0,
         raise RuntimeError(
             f"{'verify' if verify else 'decode'}_attention kernel launch "
             f"failed: cudaError {err} (B={b} K1={k1} H={h} W={window} "
-            f"Dh={d} {q.dtype} int8={quant} paged={table is not None})")
-    return out
+            f"Dh={head_dim} {q.dtype} int8={quant} "
+            f"paged={table is not None})")
+    return out if d == head_dim else out[..., :head_dim].contiguous()
 
 
 def decode_attention(q: torch.Tensor, k, v, positions: torch.Tensor, *,

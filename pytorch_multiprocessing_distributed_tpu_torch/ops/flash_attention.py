@@ -12,7 +12,10 @@ the kernel's reference on the card.
 
 Layouts are the JAX package's: q ``[B, Sq, H, Dh]``, k/v ``[B, Skv, H,
 Dh]`` (any strides with a unit ``Dh`` stride: the model passes views of
-its fused QKV projection and the kernels read them in place); lse and
+its fused QKV projection and the kernels read them in place), any
+``1 <= Dh <= 128``: the kernels run on a tile of 32, 64 or 128 columns,
+read zeros past Dh (a row of whole 16-byte pieces) or take inputs the
+wrapper zero-pads to the tile (any other Dh); lse and
 the backward's ``dterm = rowsum(dO * O)`` are f32 ``[B, H, Sq]`` (the
 JAX ``[B*H, Sq]``). Masks follow the Pallas ``_bwd_mask``: causal means
 ``col <= row`` (and needs ``Sq == Skv``), and ``Skv != Sq`` is allowed
@@ -40,7 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import resolve_impl
+from . import head_dim_tile, kernel_head_dim, pad_head_dim, resolve_impl
 from ._build import load
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -49,7 +52,6 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
 
 NEG_INF = -1e30  # the Pallas kernel's large-finite mask value
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
 _TMA_REFUSED = 100000  # csrc's kTmaRefused: an entry's code past it
 
 
@@ -129,21 +131,24 @@ def _check_qkv(q, k, v, causal):
         raise ValueError("empty sequence")
 
 
-def _check_kernel_args(tensors, rows=()):
-    """What the kernels take: one dtype of f32/bf16, Dh in 32/64/128, a
+def _kernel_inputs(tensors, rows=()):
+    """What the kernels take: one dtype of f32/bf16, 1 <= Dh <= 128, a
     unit Dh stride and 16-byte aligned rows (the kernels read them by
-    TMA), one CUDA device; per-row tensors f32 contiguous."""
+    TMA), one CUDA device; per-row tensors f32 contiguous. Returns the
+    tensors as the kernels read them: as given where a row of Dh is
+    whole 16-byte pieces, else zero-padded to the kernels' tile
+    (:func:`..ops.kernel_head_dim`)."""
     q = tensors[0]
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(
             "the kernels take f32 or bf16 tensors of one dtype, got "
             f"{[t.dtype for t in tensors]}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(
-            f"the kernels take Dh in {_HEAD_DIMS}, got {q.shape[-1]}")
+    head_dim_tile(q.shape[-1])
     for t in tensors:
         if t.stride(3) != 1:
             raise ValueError("q/k/v/dO need a unit head_dim stride")
+    width = kernel_head_dim(q.shape[-1], q.element_size())
+    tensors = [pad_head_dim(t, width) for t in tensors]
     # every pass reads q/k/v/dO by TMA, in both dtypes: 16-byte aligned
     # rows
     per = 16 // q.element_size()
@@ -159,6 +164,12 @@ def _check_kernel_args(tensors, rows=()):
     devs = {t.device for t in (*tensors, *rows)}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {devs}")
+    return tensors
+
+
+def _unpad(t, head_dim):
+    """A kernel output of the padded width sliced back to ``head_dim``."""
+    return t if t.shape[-1] == head_dim else t[..., :head_dim].contiguous()
 
 
 def _strides(*tensors):
@@ -207,14 +218,15 @@ def flash_fwd(q, k, v, *, scale: Optional[float] = None,
     scale = _scale(q, scale)
     if resolve_impl(impl, q) == "torch":
         return torch_flash_fwd(q, k, v, scale=scale, causal=causal)
-    _check_kernel_args((q, k, v))
+    head_dim = q.shape[-1]
+    q, k, v = _kernel_inputs((q, k, v))
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _call("pmdt_flash_fwd", (q, k, v, out, lse), (q, k, v, out), q, k,
           scale, causal)
     flash_fwd.launches += 1
-    return out, lse
+    return _unpad(out, head_dim), lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, dterm, *, scale: Optional[float] = None,
@@ -225,12 +237,13 @@ def flash_bwd_dq(q, k, v, do, lse, dterm, *, scale: Optional[float] = None,
     if resolve_impl(impl, q) == "torch":
         return torch_flash_bwd_dq(q, k, v, do, lse, dterm, scale=scale,
                                   causal=causal)
-    _check_kernel_args((q, k, v, do), (lse, dterm))
+    head_dim = q.shape[-1]
+    q, k, v, do = _kernel_inputs((q, k, v, do), (lse, dterm))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _call("pmdt_flash_bwd_dq", (q, k, v, do, lse, dterm, dq),
           (q, k, v, do, dq), q, k, scale, causal)
     flash_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, head_dim)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dterm, *,
@@ -243,13 +256,14 @@ def flash_bwd_dkv(q, k, v, do, lse, dterm, *,
     if resolve_impl(impl, q) == "torch":
         return torch_flash_bwd_dkv(q, k, v, do, lse, dterm, scale=scale,
                                    causal=causal)
-    _check_kernel_args((q, k, v, do), (lse, dterm))
+    head_dim = q.shape[-1]
+    q, k, v, do = _kernel_inputs((q, k, v, do), (lse, dterm))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _call("pmdt_flash_bwd_dkv", (q, k, v, do, lse, dterm, dk, dv),
           (q, k, v, do, dk, dv), q, k, scale, causal)
     flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, head_dim), _unpad(dv, head_dim)
 
 
 # launches of each CUDA kernel (incremented where it launches only)

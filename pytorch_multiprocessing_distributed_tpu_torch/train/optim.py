@@ -95,6 +95,13 @@ class SGD:
             return float(self.learning_rate(lr_step))
         return float(np.float32(self.learning_rate))
 
+    def update_(self, state, grads: torch.Tensor,
+                keep: torch.Tensor) -> None:
+        """One update of ``state`` (a :class:`.state.TrainState`) from
+        the flat ``grads``, at the state's epoch (see :meth:`apply_`)."""
+        self.apply_(state.params, grads, state.momentum, state.initialized,
+                    state.count, keep, lr_step=state.epoch)
+
     @torch.no_grad()
     def apply_(self, params: torch.Tensor, grads: torch.Tensor,
                buf: torch.Tensor, initialized: torch.Tensor,

@@ -10,18 +10,21 @@ updates whole buffers, the gradient all-reduce is one call, and the NaN
 guard one ``where``. The model's floating buffers (the BatchNorm running
 stats) are views of a fourth flat buffer, ``stats``: they are state, not
 trained — outside the gradient all-reduce and the optimizer, but saved,
-restored and guarded like the params.
+restored and guarded like the params. LAMB's state also carries the
+second moment ``nu``; its first moment is the ``momentum`` buffer.
 
 Checkpoints see flat path keys (``params/block_0/attn/wqkv/kernel``,
 ``batch_stats/bn1/running_mean``, ``opt_state/momentum/...``,
-``opt_state/count``, ``opt_state/initialized``, ``epoch``) through
+``opt_state/count``, ``opt_state/initialized``, ``epoch``; under LAMB
+``opt_state/mu/...`` and ``opt_state/nu/...`` in the place of the
+momenta) through
 :meth:`TrainState.to_dict` and :meth:`TrainState.load_dict`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,7 +37,7 @@ class TrainState:
     grads: torch.Tensor        # flat f32 [n + extra]; [:n] the params'
                                # .grad, [n:] the step's metric slots
                                # (they ride the gradient all-reduce)
-    momentum: torch.Tensor     # flat f32 [n]
+    momentum: torch.Tensor     # flat f32 [n] (LAMB: the first moment)
     initialized: torch.Tensor  # bool scalar: False until the first update
     count: torch.Tensor        # int32 scalar: updates applied
     stats: torch.Tensor        # flat f32; the model's float buffers view it
@@ -42,18 +45,21 @@ class TrainState:
     layout: List[Tuple[str, int, torch.Size]] = field(default_factory=list)
     stats_layout: List[Tuple[str, int, torch.Size]] = field(
         default_factory=list)
+    nu: Optional[torch.Tensor] = None  # flat f32 [n]: LAMB's 2nd moment
 
     @property
     def n(self) -> int:
         return self.params.numel()
 
     @classmethod
-    def bind(cls, model: nn.Module, extra: int = 1) -> "TrainState":
+    def bind(cls, model: nn.Module, extra: int = 1,
+             second_moment: bool = False) -> "TrainState":
         """Move the bound model's parameters into one flat buffer on
         their device, make them trainable leaves whose ``.grad`` views a
         flat gradient buffer (with ``extra`` metric slots after the
-        gradients), zero the momenta, and move the model's float buffers
-        into the flat ``stats``."""
+        gradients), zero the momenta (and, with ``second_moment``, a
+        zero ``nu``), and move the model's float buffers into the flat
+        ``stats``."""
         named = list(model.named_parameters())
         device = named[0][1].device
         n = sum(p.numel() for _, p in named)
@@ -86,7 +92,8 @@ class TrainState:
                    initialized=torch.zeros((), dtype=torch.bool,
                                            device=device),
                    count=torch.zeros((), dtype=torch.int32, device=device),
-                   stats=stats, layout=layout, stats_layout=stats_layout)
+                   stats=stats, layout=layout, stats_layout=stats_layout,
+                   nu=torch.zeros_like(params) if second_moment else None)
 
     def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``{parameter name: view of flat}`` in the model's order."""
@@ -99,9 +106,12 @@ class TrainState:
                 for name, off, shape in self.stats_layout}
 
     def _groups(self):
+        moments = ((("opt_state/momentum", self.views(self.momentum)),)
+                   if self.nu is None else
+                   (("opt_state/mu", self.views(self.momentum)),
+                    ("opt_state/nu", self.views(self.nu))))
         return (("params", self.views(self.params)),
-                ("batch_stats", self.stat_views()),
-                ("opt_state/momentum", self.views(self.momentum)))
+                ("batch_stats", self.stat_views())) + moments
 
     def to_dict(self) -> Dict[str, object]:
         """CPU copies under flat path keys (each view copied alone,

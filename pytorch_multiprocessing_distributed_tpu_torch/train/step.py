@@ -17,7 +17,8 @@ and the step is eager PyTorch on the flat buffers of
 - the NaN guard: the all-finite predicate of the summed gradients stays
   on the device; the optimizer (plain or fused) writes nothing where it
   is False, and the BN running stats are put back;
-- the update, plain or fused (``SGD.fused``).
+- the update: SGD, plain or fused (``SGD.fused``), or LAMB
+  (:mod:`.lamb`).
 
 The eval step runs the model in eval mode (running stats) and sums the
 masked loss, correct and top-5 counts over ranks in one all-reduce, so
@@ -62,12 +63,15 @@ def strided_microbatches(x: torch.Tensor, accum: int) -> torch.Tensor:
     return x.reshape(b // accum, accum, *x.shape[1:]).transpose(0, 1)
 
 
-def create_train_state(model) -> TrainState:
+def create_train_state(model, optimizer=None) -> TrainState:
     """The image train state over ``model``'s current weights (load
-    them first: :func:`..models.init_resnet` or ``load_state_dict`` of
-    :func:`..models.load_jax_resnet`): params and BN stats moved into
-    flat buffers, zero momenta, epoch 1."""
-    return TrainState.bind(model, extra=IMAGE_SLOTS)
+    them first: :func:`..models.init_model` or ``load_state_dict`` of a
+    carried JAX tree): params and BN stats moved into flat buffers, zero
+    momenta (and LAMB's zero second moment where ``optimizer`` keeps
+    one), epoch 1."""
+    return TrainState.bind(
+        model, extra=IMAGE_SLOTS,
+        second_moment=getattr(optimizer, "second_moment", False))
 
 
 def make_train_step(model, optimizer,
@@ -97,9 +101,7 @@ def make_train_step(model, optimizer,
             slots[1] = correct_count(logits, labels)
             psum_(state.grads)
             finite = finite_grads(state.grads[:n])
-            optimizer.apply_(state.params, state.grads[:n], state.momentum,
-                             state.initialized, state.count, finite,
-                             lr_step=state.epoch)
+            optimizer.update_(state, state.grads[:n], finite)
             state.stats.copy_(guard_nonfinite(finite, state.stats,
                                               stats_before))
             count = torch.tensor(float(labels.shape[0] * world),

@@ -70,7 +70,8 @@ class Trainer:
         self.test_logger = Logger(os.path.join(save_path, "test.log"))
         # what a caller reads after fit (the CLI's summary)
         self.summary = {"epoch_losses": [], "test_acc": [],
-                        "first_loss": None, "steps": 0, "skipped": 0,
+                        "first_loss": None, "last_loss": None,
+                        "steps": 0, "skipped": 0,
                         "train_s": 0.0, "steady": []}
 
     def fit(self) -> TrainState:
@@ -115,6 +116,7 @@ class Trainer:
                     top1.update(m["prec1"], int(m["count"]))
                     if self.summary["first_loss"] is None:
                         self.summary["first_loss"] = m["loss"]
+                    self.summary["last_loss"] = m["loss"]
                 now = time.time()
                 batch_time.update((now - window_start) / len(pending),
                                   len(pending))

@@ -113,6 +113,10 @@ def test_decode_wrapper_contract_on_card(cuda_device):
     unaligned = flat[1:].view(2, 16, 2, 64)  # rows off 16-byte alignment
     with pytest.raises(ValueError, match="aligned"):
         decode_attention(q, unaligned, v, pos)
+    wq, wk, wv, _ = _inputs(cuda_device, 2, 16, 2, 160, torch.bfloat16,
+                            [3, 15])
+    with pytest.raises(ValueError, match="Dh <= 128"):
+        decode_attention(wq, wk, wv, pos)
 
 
 def test_engine_on_card_matches_cpu_plain_path(cuda_device):
@@ -894,8 +898,9 @@ def test_flash_wrapper_contract_on_card(cuda_device):
         flash_fwd(q, k, v, impl="torch")
     with pytest.raises(ValueError, match="head_dim stride"):
         flash_fwd(q.transpose(1, 3).contiguous().transpose(1, 3), k, v)
-    with pytest.raises(ValueError, match="Dh in"):
-        flash_fwd(q[..., :48], k[..., :48], v[..., :48])
+    wide = torch.zeros(1, 16, 2, 160, dtype=q.dtype, device=cuda_device)
+    with pytest.raises(ValueError, match="Dh <= 128"):
+        flash_fwd(wide, wide, wide)
     with pytest.raises(ValueError, match="one dtype"):
         flash_fwd(q, k.float(), v)
     for dtype in (torch.bfloat16, torch.float32):
@@ -1184,3 +1189,96 @@ def test_ring_contiguous_f32_call_is_one_kernel(cuda_device):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(on_card) == 1 and "ring_loopback_kernel" in on_card[0], \
         on_card
+
+
+# head_dims off the kernels' 32/64/128 tiles: 16 and 48 (a smaller tile's
+# part), 96 (past 64), and 20, which is no whole 16-byte row in bf16 or
+# int8 (the wrappers zero-pad those to the tile) but is in f32
+ODD_HEAD_DIMS = (16, 20, 48, 96)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+def test_flash_kernels_take_any_head_dim(cuda_device, dtype, d):
+    """Rows 5-7 at a head_dim that is not a tile, causal and not, on the
+    fused-QKV strided views: each wrapper launches its kernel once and
+    matches the plain version within the tolerances of the tile sizes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = FLASH_TOL[dtype]
+    for sq, skv, causal in ((197, 197, True), (130, 70, False)):
+        q, k, v, do = _flash_inputs(cuda_device, 2, sq, skv, 3, d, dtype)
+        scale = d ** -0.5
+        before = (flash_fwd.launches, flash_bwd_dq.launches,
+                  flash_bwd_dkv.launches)
+        out, lse = flash_fwd(q, k, v, causal=causal)
+        ref_out, ref_lse = torch_flash_fwd(q, k, v, scale=scale,
+                                           causal=causal)
+        assert out.shape == q.shape and out.is_contiguous()
+        torch.testing.assert_close(out.float(), ref_out.float(),
+                                   atol=tol["out"], rtol=tol["out"])
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+        dterm = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+        dterm = dterm.contiguous()
+        dq, dk, dv = flash_pair_grads(q, k, v, do, ref_lse, dterm,
+                                      scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        ref_dq = torch_flash_bwd_dq(q, k, v, do, ref_lse, dterm,
+                                    scale=scale, causal=causal)
+        ref_dk, ref_dv = torch_flash_bwd_dkv(q, k, v, do, ref_lse, dterm,
+                                             scale=scale, causal=causal)
+        for got, ref, name in ((dq, ref_dq, "dq"), (dk, ref_dk, "dk"),
+                               (dv, ref_dv, "dv")):
+            assert got.shape == ref.shape, name
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       atol=tol["grad"], rtol=tol["grad"],
+                                       msg=name)
+        assert (flash_fwd.launches, flash_bwd_dq.launches,
+                flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+def test_decode_kernels_take_any_head_dim(cuda_device, quant, dtype, d):
+    """Rows 1-4 (and 1q-4q) at a head_dim that is not a tile: dense and
+    paged decode over one split and over several, dense and paged verify
+    at K1 = 5; each wrapper launches its kernel once and matches the
+    plain version within 1e-4."""
+    name = "int8_launches" if quant else "launches"
+
+    def check(fn, ref, *args, **kw):
+        before = getattr(fn, name)
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert getattr(fn, name) == before + 1
+        assert got.shape[-1] == d and got.is_contiguous()
+        torch.testing.assert_close(got, ref(*args, **kw), atol=1e-4,
+                                   rtol=0)
+
+    for w in (40, 264):
+        q, k, v, pos = _inputs(cuda_device, 3, w + 16, 2, d, dtype,
+                               [0, w - 1, w + 5], seed=d)
+        if quant:
+            kq, vq = quantize_kv(k.float() * 3), quantize_kv(v.float())
+            kw = QuantizedKV(kq.data[:, :w], kq.scale[:, :w])
+            vw = QuantizedKV(vq.data[:, :w], vq.scale[:, :w])
+        else:
+            kw, vw = k[:, :w], v[:, :w]
+        check(decode_attention, torch_decode_attention, q, kw, vw, pos)
+        vq_ = _verify_q(cuda_device, 3, 5, 2, d, dtype, seed=d + 1)
+        vpos = torch.tensor([0, w - 5, w - 2], dtype=torch.int32,
+                            device=cuda_device)
+        check(verify_decode_attention, torch_verify_decode_attention, vq_,
+              kw, vw, vpos)
+    ps, n_win = 16, 20
+    positions = [0, 100, n_win * ps + 3]
+    q, k, v, table, pos = _paged(cuda_device, 3, 2, d, ps, n_win, dtype,
+                                 quant, positions, seed=d)
+    check(paged_decode_attention, torch_paged_decode_attention, q, k, v,
+          table, pos)
+    vq_ = _verify_q(cuda_device, 3, 5, 2, d, dtype, seed=d + 2)
+    reach = [min(p + 4, n_win * ps - 1) for p in positions]
+    _, k, v, table, _ = _paged(cuda_device, 3, 2, d, ps, n_win, dtype,
+                               quant, reach, seed=d + 3)
+    check(paged_verify_decode_attention, torch_paged_verify_decode_attention,
+          vq_, k, v, table, pos)

@@ -111,7 +111,7 @@ def test_resolve_impl_convention():
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(d=48), "Dh"),
+    (dict(d=160), "Dh"),
     (dict(pos_dtype=torch.int64), "int32"),
     (dict(dtype=torch.float16), "f32 or bf16"),
     (dict(q_shape=(B, 2, H, 32)), r"\[B, 1, H, Dh\]"),

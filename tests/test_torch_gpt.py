@@ -87,9 +87,11 @@ def test_registry_geometry_matches_jax(name):
 def test_registry_names_and_unknown():
     lm = {"gpt_tiny", "gpt_small", "gpt_medium"}
     assert LM_MODELS == lm
-    assert set(MODEL_REGISTRY) == lm | {"res", "resnet18", "resnet34",
-                                        "resnet50", "resnet101",
-                                        "resnet152"}
+    assert set(MODEL_REGISTRY) == lm | {
+        "res", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+        "vgg", "vgg11", "vgg13", "vgg16", "vgg19", "dense", "densenet121",
+        "densenet_bc100", "vit_b16", "vit_s16", "vit_tiny", "convnext_t",
+        "convnext_s", "convnext_b", "convnext_l"}
     with pytest.raises(KeyError, match="gpt_small"):
         get_model("gpt_huge")
 

@@ -226,7 +226,7 @@ def test_registry_image_names_and_param_counts(name):
     assert sum(p.numel() for p in port.parameters()) == n_params
     assert sum(b.numel() for b in port.buffers()) == n_stats
     with pytest.raises(KeyError, match="Unknown model"):
-        get_model("vgg")
+        get_model("alexnet")
 
 
 def test_init_resnet_distributions():
