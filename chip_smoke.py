@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py --zero-only  # phases 1 and 25 (--zero across
+                                       # the visible cards) alone
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -232,7 +234,31 @@ nothing is caught):
    time at Dh 48, 64 and 96 (``[head-dim-time]``); a GPT of hidden 512
    and 32 heads (Dh 16) through 3 f32 SGD steps, flash against the
    plain attention at phase 8's tolerances, and 4 requests through the
-   engine token-exact with ``generate``; then the run's wall time.
+   engine token-exact with ``generate``.
+24. transforms — ``main.main`` on ``resnet50_imagenet`` as phase 20 with
+   ``--optimizer sgd_fused --grad_accum 2 --clip_grad_norm 1.0 --ema
+   0.999 --remat --torch_export``: images/s per card, the first and last
+   loss (finite, or the phase fails), the fused SGD kernel once an
+   optimizer step, peak memory beside phase 20's, and the exported
+   ``model_1.torch.pth`` read back into the port's ResNet-50, equal to
+   the checkpoint's final params and BN stats; one ResNet-50 step at the
+   microbatch (128) with and without ``remat``, its peak memory each
+   way; then ResNet-18 on CIFAR-10 shapes, batch 512, f32 (TF32 off,
+   deterministic cuDNN) with the same transforms: 3 steps on
+   ``sgd_fused`` bit-equal to 3 on ``sgd`` (params, momenta, BN stats,
+   EMA), and one step with ``remat`` bit-equal to one without (params
+   and BN stats), with each one's peak memory.
+25. zero — ``main.main --zero`` (graftzero's sharded update) on ResNet-18
+   / synthetic CIFAR-10, batch 512, one step and 4 steps, ``--optimizer
+   sgd`` and ``lamb``, each beside the same run without ``--zero``: with
+   two or more cards visible on min(cards, 4) NCCL ranks, one a card
+   (else one line says so, and one rank holds the one shard, bit-equal
+   to the plain run); the largest parameter and moment differences
+   against their tolerances (after one step they differ by the order of
+   the reduction's sums only), each rank's optimizer-state bytes beside
+   the plain run's and the plan's static collective bytes; and the
+   ``--zero`` checkpoint resumed by a plain run for a second epoch,
+   beside the plain run's own second epoch. Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
@@ -242,7 +268,8 @@ beside them; every decode entry also carries its L2-cold time), bf16 B
 8 x S 1024 for the flash kernels
 and f32 for their ``_f32`` twins (launches from phase 7b),
 ResNet-18's N for fused SGD (with its ResNet-50 numbers from phase 20
-beside them, ``r50_*``), bf16 W=1024 for the int8 and paged decode
+beside them, ``r50_*``, and its launches in phase 24's ResNet-50 run
+with the step transforms, ``transforms_launches``), bf16 W=1024 for the int8 and paged decode
 variants and, at K1 = 5, for the verify variants, n = 4 loopback at
 ResNet-18's N for the ring, with its cross-card numbers at that N, at
 64 MiB and at 4 KiB, or nulls where phase 19 did not run; the
@@ -261,6 +288,7 @@ import json
 import re
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -421,6 +449,24 @@ IMAGENET_RUNS = (  # (phase, bench.py config, flags)
 )
 IMAGENET_STEPS, IMAGENET_EVALS = 4, 1  # 1024 / 256 and 256 / 256
 R50_PARAMS = 25_557_032  # ResNet-50's parameters at 1000 classes
+# phase 24: the step transforms on phase 20's run, and at ResNet-18's
+TRANSFORM_FLAGS = ["--grad_accum", "2", "--clip_grad_norm", "1.0", "--ema",
+                   "0.999", "--remat"]
+TRANSFORM_KW = dict(grad_accum=2, clip_grad_norm=1.0, ema_decay=0.999,
+                    remat=True)
+TRANSFORM_BATCH, TRANSFORM_STEPS = 512, 3
+# phase 25: --zero on ResNet-18 / synthetic CIFAR-10, 1 and 4 steps of 512
+ZERO_ONE_SYNTH, ZERO_SYNTH, ZERO_BATCH, ZERO_STEPS = "512", "2048", 512, 4
+ZERO_MAX_RANKS = 4
+# --zero against the plain run across NCCL ranks: the reduce-scatter sums
+# each element in another ring order than the all-reduce, so the reduced
+# gradients differ by about one f32 rounding, and after one step so do
+# the moments and (times the lr) the params; every later step carries
+# that through the network's ReLUs and BatchNorms, which 4 steps at lr
+# 0.01 grew to 3.5e-4 in the params on four H100s, and 8 to 1.2e-3. At
+# one rank the two runs are the same arithmetic (tolerance 0)
+ZERO_STEP_TOL = 1e-5
+ZERO_PARAM_TOL = 1e-2
 # phase 22: one ViT-B/16 encoder block, flash=True against flash=False
 VIT_BLOCK = dict(batch=8, seq=197, dim=768, heads=12, mlp=3072)
 VIT_FWD_SHAPE = dict(batch=64, heads=12, seq=197, head_dim=64)
@@ -1366,11 +1412,14 @@ def _serve_transcripts(serve_lm, argv):
     return snap, {uid: json.loads(toks) for uid, toks in found}
 
 
-def _imagenet_phase(image_main, fused_sgd_, phase, config, flags, smi):
-    """One of phases 20-22: ``main.main`` on the synthetic ImageNet set
-    at 224 with ``flags``; asserts the steps, the files and finite
-    losses; prints images/s a card and the first and last loss. Returns
-    the summary and the fused SGD kernel's launches in the run."""
+def _imagenet_phase(image_main, fused_sgd_, phase, config, flags, smi,
+                    inspect=None):
+    """One of phases 20-22 and 24: ``main.main`` on the synthetic
+    ImageNet set at 224 with ``flags``; asserts the steps, the files and
+    finite losses; prints images/s a card, the first and last loss and
+    the peak memory; ``inspect(save_path)`` then reads the run's files.
+    Returns the summary, the fused SGD kernel's launches in the run and
+    the peak memory (GiB)."""
     import torch
 
     fused_sgd_.launches = 0
@@ -1382,7 +1431,10 @@ def _imagenet_phase(image_main, fused_sgd_, phase, config, flags, smi):
         missing = [f for f in ("train.log", "test.log", "model_1.pth",
                                "model_1.pth.sha256")
                    if not os.path.exists(os.path.join(tmp, f))]
+        if inspect is not None and not missing:
+            inspect(tmp)
     launches = fused_sgd_.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if missing:
         raise AssertionError(f"phase {phase}: main wrote no {missing}")
     if summary["steps"] != IMAGENET_STEPS:
@@ -1399,10 +1451,192 @@ def _imagenet_phase(image_main, fused_sgd_, phase, config, flags, smi):
            f"{losses[1]:.4f}, images/s per card "
            f"{summary['images_per_sec_per_card']:.1f}, steady step "
            f"{summary['steady_step_s'] * 1e3:.3f} ms, peak memory "
-           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-           f"fused_sgd launches {launches} [{smi}]")
+           f"{peak:.2f} GiB, fused_sgd launches {launches} [{smi}]")
     torch.cuda.empty_cache()
-    return summary, launches
+    return summary, launches, peak
+
+
+def _zero_rank(rank, world, port, argv, out_path):
+    """One NCCL rank of phase 25, started by :func:`_zero_main`: the
+    ``PMDT_*`` env names the group, f32 convolutions run deterministic
+    with TF32 off, then the CLI's ``main``; rank 0 writes the summary."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    _deterministic(torch)
+    from pytorch_multiprocessing_distributed_tpu_torch import main as image_main
+
+    summary = image_main.main(argv)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(summary, f)
+
+
+def _deterministic(torch):
+    """f32 convolutions and matmuls without TF32, deterministic cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _zero_main(image_main, argv, world, timeout_s=600):
+    """``main.main(argv)`` on ``world`` ranks: in this process for one,
+    else one spawned process a card (joined within ``timeout_s``, every
+    process stopped). Returns the primary rank's summary."""
+    import torch
+    import torch.multiprocessing as mp
+
+    _deterministic(torch)
+    if world == 1:
+        return image_main.main(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "summary.json")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = mp.start_processes(_zero_rank, args=(world, port, argv, out),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=max(0.0,
+                                           deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"--zero ranks still running after "
+                                       f"{timeout_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(5)
+        with open(out) as f:
+            return json.load(f)
+
+
+def _payload_diff(torch, path_a, path_b, prefix):
+    """The largest |a - b| over the two checkpoints' floating ``prefix``
+    tensors; their other ``prefix`` entries (count, ``initialized``)
+    must be equal."""
+    a = torch.load(path_a, map_location="cpu", weights_only=True)
+    b = torch.load(path_b, map_location="cpu", weights_only=True)
+    keys = [k for k in a if k.startswith(prefix)]
+    if not keys or set(keys) != {k for k in b if k.startswith(prefix)}:
+        raise AssertionError(f"checkpoints differ in their {prefix} keys")
+    for k in keys:
+        if not a[k].is_floating_point() and not torch.equal(a[k], b[k]):
+            raise AssertionError(f"checkpoints differ at {k}")
+    return max(float((a[k] - b[k]).abs().max()) for k in keys
+               if a[k].is_floating_point())
+
+
+def _step_peak(torch, model, opt, step_kw, images, labels):
+    """Peak memory (GiB) and device time (ms, CUDA events) of the second
+    of two image steps of ``model`` on one batch."""
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, **step_kw)
+    step(state, images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    step(state, images, labels)
+    end.record()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() / 2 ** 30,
+            start.elapsed_time(end))
+
+
+def _zero_phase(torch, image_main, smi):
+    """Phase 25: ``main.main --zero`` beside the plain run (see the module
+    docstring), on min(cards, 4) ranks."""
+    cards = torch.cuda.device_count()
+    world = min(cards, ZERO_MAX_RANKS)
+    if world < 2:
+        _print(f"[zero] {cards} card visible: --zero runs on one rank (one "
+               "shard, the plain run's arithmetic); its NCCL ranks need two "
+               "or more cards")
+    zero_tol = ZERO_PARAM_TOL if world > 1 else 0.0
+    step_tol = ZERO_STEP_TOL if world > 1 else 0.0
+    base = ["--device", "cuda", "--world_size", str(world), "--model", "res",
+            "--synthetic", "--batch_size", str(ZERO_BATCH), "--seed", "0",
+            "--print-freq", "100"]
+    zero_dirs = tempfile.TemporaryDirectory()
+    for opt_name, lr in (("sgd", "0.01"), ("lamb", "0.001")):
+        paths, summaries, errs = {}, {}, {}
+        for steps, synth, tol in ((1, ZERO_ONE_SYNTH, step_tol),
+                                  (ZERO_STEPS, ZERO_SYNTH, zero_tol)):
+            os.environ["PMDT_SMALL_SYNTH"] = synth
+            for mode in ("plain", "zero"):
+                paths[mode] = os.path.join(zero_dirs.name,
+                                           f"{opt_name}-{mode}-{steps}")
+                argv = base + ["--optimizer", opt_name, "--lr", lr,
+                               "--epochs", "1", "--save_path",
+                               paths[mode]] + (
+                                   ["--zero"] if mode == "zero" else [])
+                t0 = time.perf_counter()
+                summaries[mode] = _zero_main(image_main, argv, world)
+                summaries[mode]["wall"] = time.perf_counter() - t0
+                if (summaries[mode]["steps"] != steps or not math.isfinite(
+                        summaries[mode]["last_loss"])):
+                    raise AssertionError(
+                        f"--zero phase {mode}: {summaries[mode]}")
+            ckpt = {m: os.path.join(paths[m], "model_1.pth") for m in paths}
+            errs[steps] = (
+                _payload_diff(torch, ckpt["plain"], ckpt["zero"], "params/"),
+                _payload_diff(torch, ckpt["plain"], ckpt["zero"],
+                              "opt_state/"))
+            bound = errs[steps] if steps == 1 else errs[steps][:1]
+            if not max(bound) <= tol:
+                raise AssertionError(
+                    f"--zero {opt_name} after {steps} step(s): param and "
+                    f"moment differences from the plain run "
+                    f"{errs[steps]} (tol {tol})")
+        zb, pb = (summaries["zero"]["opt_state_bytes"],
+                  summaries["plain"]["opt_state_bytes"])
+        comm = summaries["zero"]["static_comm_bytes"]
+        if not (len(zb) == world and max(zb) * world == comm["reduce_scatter"]
+                * (2 if opt_name == "lamb" else 1)):
+            raise AssertionError(f"--zero {opt_name}: optimizer-state bytes "
+                                 f"{zb} per rank, plan {comm}")
+        _print(f"[zero] {opt_name} ResNet-18 B={ZERO_BATCH} on {world} "
+               f"rank(s), --zero vs plain: after 1 step max |param diff| "
+               f"{errs[1][0]:.3e}, |moment diff| {errs[1][1]:.3e} (tol "
+               f"{step_tol}); after {ZERO_STEPS} steps |param diff| "
+               f"{errs[ZERO_STEPS][0]:.3e} (tol {zero_tol}), |moment diff| "
+               f"{errs[ZERO_STEPS][1]:.3e}; optimizer-state bytes per rank "
+               f"--zero {zb} plain {pb}; static_comm_bytes {comm}; wall of "
+               f"the {ZERO_STEPS}-step runs plain "
+               f"{summaries['plain']['wall']:.1f} s, --zero "
+               f"{summaries['zero']['wall']:.1f} s [{smi}]")
+        if opt_name != "sgd":
+            continue
+        # the --zero checkpoint resumed by a plain run, beside the plain
+        # run's own second epoch
+        for mode in ("plain", "zero"):
+            resumed = _zero_main(image_main, base + [
+                "--optimizer", opt_name, "--lr", lr, "--epochs", "2",
+                "--resume", "auto", "--save_path", paths[mode]], world)
+            if resumed["steps"] != ZERO_STEPS:
+                raise AssertionError(f"resumed {mode}: {resumed}")
+        r_err = _payload_diff(torch, os.path.join(paths["plain"],
+                                                  "model_2.pth"),
+                              os.path.join(paths["zero"], "model_2.pth"),
+                              "params/")
+        if not r_err <= zero_tol:
+            raise AssertionError(
+                f"the --zero checkpoint resumed by a plain run: params "
+                f"{r_err} from the plain run's (tol {zero_tol})")
+        _print(f"[zero] the sgd --zero checkpoint (epoch 1, moments "
+               f"gathered) resumed by a plain run for epoch 2: max |param "
+               f"diff| {r_err:.3e} from the plain run's epoch 2 (tol "
+               f"{zero_tol})")
+    zero_dirs.cleanup()
 
 
 FLASH_ROWS = {"flash_fwd": "5", "flash_bwd_dq": "6", "flash_bwd_dkv": "7"}
@@ -1618,6 +1852,11 @@ def main() -> int:
            f"python {sys.version.split()[0]}; card {card}; "
            f"{torch.cuda.device_count()} device(s)")
     _print(smi)
+    if "--zero-only" in sys.argv[1:]:
+        _zero_phase(torch, image_main, smi)
+        _print(f"[total] chip_smoke --zero-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # -- phase 2: build
     t0 = time.perf_counter()
@@ -2687,6 +2926,131 @@ def main() -> int:
            "with generate")
     del model, engine, runs
     torch.cuda.empty_cache()
+
+    # -- phase 24: the step transforms through main, ResNet-50 at 224
+    from pytorch_multiprocessing_distributed_tpu_torch.utils.torch_interop \
+        import load_torch_checkpoint
+
+    os.environ["PMDT_SMALL_SYNTH"] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False  # the CLI's settings
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    exported = {}
+
+    def read_export(save_path):
+        """The exported state_dict in the port's ResNet-50 against the
+        run's checkpoint: its final params and BN stats."""
+        model = get_model("resnet50", stem="imagenet", num_classes=1000)
+        load_torch_checkpoint(os.path.join(save_path, "model_1.torch.pth"),
+                              model)
+        payload = torch.load(os.path.join(save_path, "model_1.pth"),
+                             map_location="cpu", weights_only=True)
+        worst = 0.0
+        for name, t in model.state_dict().items():
+            group = ("batch_stats" if name.endswith(
+                ("running_mean", "running_var")) else "params")
+            ref = payload[f"{group}/{name.replace('.', '/')}"]
+            worst = max(worst, float((t - ref).abs().max()))
+        exported.update(err=worst, tensors=len(model.state_dict()),
+                        ema=any(k.startswith("ema_params/") for k in payload))
+
+    torch.cuda.reset_peak_memory_stats()
+    t24, t24_launches, t24_peak = _imagenet_phase(
+        image_main, fused_sgd_, "24", "resnet50_imagenet",
+        IMAGENET_RUNS[0][2] + TRANSFORM_FLAGS + ["--torch_export"], smi,
+        inspect=read_export)
+    if (t24_launches != IMAGENET_STEPS
+            or t24["launches"]["fused_sgd"] != IMAGENET_STEPS):
+        raise AssertionError(
+            f"fused_sgd launched {t24_launches} times in phase 24, expected "
+            f"one per optimizer step ({IMAGENET_STEPS})")
+    if exported.get("err") != 0.0 or not exported["ema"]:
+        raise AssertionError(
+            f"phase 24: the exported state_dict differs from the final "
+            f"params by {exported.get('err')} (tol 0), or the checkpoint "
+            "has no ema_params")
+    r50_peak = imagenet["resnet50_imagenet"][2]
+    _print(f"[transforms] phase 24: fused_sgd launches {t24_launches} (one "
+           f"per optimizer step), peak memory {t24_peak:.2f} GiB with "
+           f"{' '.join(TRANSFORM_FLAGS)} beside phase 20's {r50_peak:.2f} "
+           f"GiB without them; model_1.torch.pth read back into ResNet-50: "
+           f"{exported['tensors']} tensors, max |diff| {exported['err']} "
+           f"against the checkpoint's params and BN stats (tol 0) [{smi}]")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x128 = torch.randn(128, 224, 224, 3, generator=gen, device="cuda")
+    y128 = torch.randint(0, 1000, (128,), generator=gen, device="cuda")
+    remat_ab = {}
+    for remat in (False, True):
+        model = init_resnet(get_model("resnet50", stem="imagenet",
+                                      num_classes=1000), 0).cuda()
+        remat_ab[remat] = _step_peak(torch, model, sgd_fused(0.1),
+                                     {"remat": remat}, x128, y128)
+        del model
+        torch.cuda.empty_cache()
+    _print(f"[transforms] ResNet-50 224 f32 one step at batch 128 (phase "
+           f"24's microbatch): peak memory {remat_ab[False][0]:.2f} GiB "
+           f"without remat, {remat_ab[True][0]:.2f} GiB with; step "
+           f"{remat_ab[False][1]:.2f} ms without, {remat_ab[True][1]:.2f} "
+           f"ms with (CUDA events, second step) [{smi}]")
+    del x128, y128
+    _deterministic(torch)
+    x, y = synthetic_cifar10(TRANSFORM_STEPS * TRANSFORM_BATCH, seed=24)
+    images = torch.from_numpy(normalize(x)).cuda().view(
+        TRANSFORM_STEPS, TRANSFORM_BATCH, 32, 32, 3)
+    labels = torch.from_numpy(y).cuda().view(TRANSFORM_STEPS,
+                                             TRANSFORM_BATCH)
+    runs = {}
+    for opt_name, make in (("sgd", sgd), ("sgd_fused", sgd_fused)):
+        model = init_resnet(get_model("res"), 3).cuda()
+        opt = make(0.1)
+        state = create_train_state(model, opt, ema=True)
+        step = make_train_step(model, opt, **TRANSFORM_KW)
+        before = fused_sgd_.launches
+        losses = [float(step(state, xb, yb)[1]["loss"])
+                  for xb, yb in zip(images, labels)]
+        runs[opt_name] = (losses, [t.clone() for t in (
+            state.params, state.momentum, state.stats, state.ema)],
+            fused_sgd_.launches - before)
+        del model, state
+    t_errs = [float((a - b).abs().max()) for a, b in zip(
+        runs["sgd"][1], runs["sgd_fused"][1])]
+    if (runs["sgd"][0] != runs["sgd_fused"][0] or max(t_errs) > 0.0
+            or (runs["sgd"][2], runs["sgd_fused"][2])
+            != (0, TRANSFORM_STEPS)):
+        raise AssertionError(
+            f"transforms sgd vs sgd_fused: losses {runs['sgd'][0]} vs "
+            f"{runs['sgd_fused'][0]}, param/momentum/stat/EMA errors "
+            f"{t_errs} (tol 0), launches {runs['sgd'][2]}, "
+            f"{runs['sgd_fused'][2]}")
+    one = {}
+    for remat in (False, True):
+        model = init_resnet(get_model("res"), 3).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        opt = sgd_fused(0.1)
+        state = create_train_state(model, opt)
+        make_train_step(model, opt, remat=remat)(state, images[0], labels[0])
+        torch.cuda.synchronize()
+        one[remat] = (state.params.clone(), state.stats.clone(),
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, state
+    remat_errs = (float((one[True][0] - one[False][0]).abs().max()),
+                  float((one[True][1] - one[False][1]).abs().max()))
+    if max(remat_errs) > 0.0:
+        raise AssertionError(f"remat vs no remat: param/stat errors "
+                             f"{remat_errs} (tol 0)")
+    _print(f"[transforms] ResNet-18 f32 (TF32 off, deterministic cuDNN) "
+           f"B={TRANSFORM_BATCH}, {TRANSFORM_STEPS} steps with "
+           f"{' '.join(TRANSFORM_FLAGS)}: losses sgd {runs['sgd'][0]} "
+           f"sgd_fused {runs['sgd_fused'][0]}, max param/momentum/stat/EMA "
+           f"err {t_errs} (tol 0), fused_sgd launches "
+           f"{runs['sgd_fused'][2]}; one step remat vs not: param/stat err "
+           f"{remat_errs} (tol 0), peak memory {one[True][2]:.2f} GiB with "
+           f"remat, {one[False][2]:.2f} GiB without [{smi}]")
+    del runs, one, images, labels
+    torch.cuda.empty_cache()
+
+    # -- phase 25: --zero through main, across the visible cards
+    _zero_phase(torch, image_main, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -2761,6 +3125,7 @@ def main() -> int:
         "library_step_ms": sgd_t["library_step_ms"],
         "shape": f"f32 N={SGD_SIZES[0]}",
         "r50_launches": imagenet["resnet50_imagenet"][1],
+        "transforms_launches": t24_launches,
         "r50_max_abs_err": r50_worst,
         **{f"r50_{key}": r50_sgd[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}] + [{

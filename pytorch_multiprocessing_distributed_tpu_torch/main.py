@@ -14,6 +14,15 @@ lamb`` trains with LAMB (lr 1e-3 unless ``--lr``, weight decay 1e-4).
 
 Flags keep the JAX CLI's names, defaults and order of checks, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+The JAX step's transforms come along: ``--grad_accum N`` (strided
+microbatches, one update), ``--clip_grad_norm C`` (global-norm
+clipping), ``--ema DECAY`` (an EMA of the params, evaluated on and
+checkpointed as ``ema_params``), ``--remat`` (the loss function under
+``torch.utils.checkpoint``), ``--zero`` (graftzero's sharded update:
+reduce-scatter, update on this rank's shard of the moments, all-gather;
+:mod:`.parallel.zero`) and ``--torch_export`` (the final weights as the
+reference's ``state_dict``, ``model_{epochs}.torch.pth``; ResNet family
+only).
 Artifacts are the JAX CLI's: a snapshot of this script, the ``Epoch:
 [e][i/n]``, ``test : [i/n]`` and ``Accuracy`` lines, ``train.log`` and
 ``test.log`` rows ``[epoch, loss, accuracy]``, ``model_{epoch}.pth``
@@ -55,13 +64,15 @@ from .device import resolve_device
 from .models import LM_MODELS, get_model, init_model
 from .ops.fused_update import fused_sgd_
 from .ops.losses import smooth_cross_entropy_loss
-from .parallel import dist
+from .parallel import all_gather_objects, dist
+from .parallel import zero as zero_mod
 from .train import create_train_state, lamb, sgd, sgd_fused
 from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, resolve_auto_resume)
 from .train.optim import cosine_lr, multistep_lr
 from .train.trainer import Trainer
 from .utils import throughput
+from .utils.torch_interop import is_resnet_name, save_torch_checkpoint
 
 _ROADMAP = "ROADMAP.md §1 item 5, 'Rest of the image path'"
 
@@ -105,15 +116,26 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=['float32', 'bfloat16'],
                    help='compute dtype for conv/matmul (params stay f32)')
     p.add_argument('--model_parallel', default=1, type=int)
-    p.add_argument('--zero', action='store_true')
+    p.add_argument('--zero', action='store_true',
+                   help='sharded weight update: reduce-scatter the grads, '
+                        'update this rank\'s shard of the optimizer '
+                        'moments, all-gather (parallel/zero.py)')
     p.add_argument('--zero1', action='store_true')
     p.add_argument('--fsdp', action='store_true')
-    p.add_argument('--grad_accum', default=1, type=int)
-    p.add_argument('--clip_grad_norm', default=0.0, type=float)
+    p.add_argument('--grad_accum', default=1, type=int,
+                   help='split each rank\'s batch into N strided '
+                        'microbatches, one optimizer step')
+    p.add_argument('--clip_grad_norm', default=0.0, type=float,
+                   help='clip the averaged gradients to this global norm '
+                        '(0 = off)')
     p.add_argument('--label_smoothing', default=0.0, type=float,
                    help='cross-entropy label smoothing epsilon')
-    p.add_argument('--ema', default=0.0, type=float, metavar='DECAY')
-    p.add_argument('--remat', action='store_true')
+    p.add_argument('--ema', default=0.0, type=float, metavar='DECAY',
+                   help='track an EMA of the params with this decay and '
+                        'evaluate on it (0 = off)')
+    p.add_argument('--remat', action='store_true',
+                   help='recompute the forward in the backward '
+                        '(torch.utils.checkpoint over the loss function)')
     p.add_argument('--seed', default=0, type=int, help='init seed')
     p.add_argument('--resume', default='', type=str,
                    help="checkpoint path to resume from, or 'auto' = "
@@ -142,7 +164,10 @@ def build_parser() -> argparse.ArgumentParser:
                         'the fused single-pass CUDA kernel on the card; '
                         'lamb = LAMB (layerwise trust ratios)')
     p.add_argument('--profile', default='', type=str, metavar='LOGDIR')
-    p.add_argument('--torch_export', action='store_true')
+    p.add_argument('--torch_export', action='store_true',
+                   help='also export the final weights as the reference\'s '
+                        'torch state_dict (model_{epoch}.torch.pth; ResNet '
+                        'family only)')
     p.add_argument('--max_restarts', default=0, type=int)
     p.add_argument('--restart_backoff', default=1.0, type=float)
     p.add_argument('--trace_out', default='', type=str)
@@ -155,16 +180,10 @@ def build_parser() -> argparse.ArgumentParser:
 # (flag, is it set?) for every JAX flag this slice does not port
 _NOT_PORTED = (
     ('--model_parallel', lambda a: a.model_parallel > 1),
-    ('--zero', lambda a: a.zero),
     ('--zero1', lambda a: a.zero1),
     ('--fsdp', lambda a: a.fsdp),
-    ('--grad_accum', lambda a: a.grad_accum != 1),
-    ('--clip_grad_norm', lambda a: a.clip_grad_norm != 0.0),
-    ('--ema', lambda a: a.ema != 0.0),
-    ('--remat', lambda a: a.remat),
     ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
     ('--ckpt_async', lambda a: a.ckpt_async),
-    ('--torch_export', lambda a: a.torch_export),
     ('--profile', lambda a: bool(a.profile)),
     ('--max_restarts', lambda a: a.max_restarts != 0),
     ('--stats_port', lambda a: a.stats_port != 0),
@@ -175,6 +194,9 @@ _NOT_PORTED = (
 
 
 def _reject_not_ported(args) -> None:
+    """The first not-ported flag that is set, by name (after
+    :func:`_check_flags`, whose refusals of a combination, such as
+    ``--zero`` with ``--zero1``, come first as in JAX)."""
     for flag, is_set in _NOT_PORTED:
         if is_set(args):
             raise SystemExit(
@@ -185,11 +207,39 @@ def _reject_not_ported(args) -> None:
 def _check_flags(args) -> None:
     """The JAX CLI's flag checks (those of the flags this slice keeps),
     in its order, before any device, process group or data work."""
+    if args.torch_export and not is_resnet_name(args.model):
+        raise SystemExit(
+            f"--torch_export supports the ResNet family only "
+            f"(got --model {args.model})")
     if args.model in LM_MODELS:
         raise SystemExit(
             f"--model {args.model} is a language model: it trains through "
             "pytorch_multiprocessing_distributed_tpu_torch.train_lm, not "
             "this image-classification CLI")
+    if args.optimizer == 'sgd_fused' and (
+            args.zero1 or args.fsdp or args.model_parallel > 1):
+        raise SystemExit(
+            "--optimizer sgd_fused is the explicit shard_map-DP path's "
+            "fused kernel; under --zero1/--fsdp/--model_parallel the GSPMD "
+            "partitioner cannot shard through the opaque call (it would "
+            "replicate the moment buffers, defeating the sharding). Use "
+            "--optimizer sgd there.")
+    if args.zero and (args.zero1 or args.fsdp or args.model_parallel > 1):
+        raise SystemExit(
+            "--zero is the explicit shard_map-DP sharded update; "
+            "--zero1/--fsdp/--model_parallel run the GSPMD path, which "
+            "shards state via placement instead — pick one family.")
+    if args.zero and args.optimizer == 'sgd_fused':
+        raise SystemExit(
+            "--zero shards the update through the transform's "
+            "update()/shard_update() path; the fused whole-update "
+            "kernel cannot run on shards. Use --optimizer sgd or lamb "
+            "with --zero.")
+    if args.zero and args.ckpt_backend == 'orbax':
+        raise SystemExit(
+            "--zero checkpoints via msgpack gather-on-save (the artifact "
+            "round-trips between --zero and plain runs); --ckpt_backend "
+            "orbax would persist the sharded layout.")
     if args.warmup_epochs and args.lr_schedule != 'cosine':
         raise SystemExit(
             "--warmup_epochs applies to --lr_schedule cosine (the "
@@ -243,7 +293,9 @@ def run(args) -> dict:
         make = sgd_fused if args.optimizer == 'sgd_fused' else sgd
         optimizer = make(learning_rate=_schedule(args), momentum=0.9,
                          weight_decay=0.0001, nesterov=True)
-    state = create_train_state(model, optimizer)
+    plan = zero_mod.plan_buckets(model, world) if args.zero else None
+    state = create_train_state(model, optimizer, ema=args.ema > 0,
+                               plan=plan)
 
     start_epoch = 1
     if args.resume:
@@ -263,6 +315,10 @@ def run(args) -> dict:
             if primary:
                 print(f"Resumed from {used} (continuing at epoch "
                       f"{start_epoch})", flush=True)
+    if plan is not None:
+        # moments sharded from the first step: the replicated ones (a
+        # fresh init or the resumed checkpoint) become this rank's shards
+        zero_mod.zeroify_state(state, plan, rank)
 
     trainer = Trainer(
         model=model, optimizer=optimizer, state=state,
@@ -270,9 +326,19 @@ def run(args) -> dict:
         save_path=args.save_path, epochs=args.epochs, device=device,
         print_freq=args.print_freq, start_epoch=start_epoch,
         loss_fn=smooth_cross_entropy_loss(args.label_smoothing),
-        save_every=args.save_every, keep_checkpoints=args.keep_checkpoints)
+        save_every=args.save_every, keep_checkpoints=args.keep_checkpoints,
+        remat=args.remat, grad_accum=args.grad_accum,
+        clip_grad_norm=args.clip_grad_norm or None,
+        ema_decay=args.ema or None)
     launches0 = fused_sgd_.launches
     trainer.fit()
+    if args.torch_export and primary:
+        # params are replicated under --zero too (only the moments are
+        # sharded): the primary rank holds the final weights
+        out = os.path.join(args.save_path,
+                           f"model_{args.epochs}.torch.pth")
+        save_torch_checkpoint(out, model)
+        print(f"Exported torch state_dict -> {out}", flush=True)
     if start_epoch > args.epochs and primary:
         print(f"--resume: checkpoint already at epoch {start_epoch - 1} >= "
               f"--epochs {args.epochs}; nothing to train", flush=True)
@@ -280,8 +346,13 @@ def run(args) -> dict:
     steady = s.pop("steady")
     rate, per_card = throughput(args.batch_size * s["steps"], s["train_s"],
                                 world)
+    opt_bytes = zero_mod.opt_state_bytes(state)
     s.update(world_size=world, device=str(device),
              launches={"fused_sgd": fused_sgd_.launches - launches0},
+             opt_state_bytes=(all_gather_objects(opt_bytes)
+                              if world > 1 else [opt_bytes]),
+             static_comm_bytes=(None if plan is None else
+                                zero_mod.static_comm_bytes(plan)),
              images_per_sec=rate, images_per_sec_per_card=per_card,
              steady_step_s=(sum(t for t, _ in steady)
                             / sum(n for _, n in steady)) if steady else None)
@@ -316,8 +387,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     kernel's launches."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    _reject_not_ported(args)
     _check_flags(args)
+    _reject_not_ported(args)
     device = resolve_device(args.device)
     os.makedirs(args.save_path, exist_ok=True)
     shutil.copy(__file__, os.path.join(args.save_path, 'main.py'))

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +91,17 @@ def _leaves(tree: Mapping, prefix=()):
             yield from _leaves(value, prefix + (key,))
         else:
             yield prefix + (key,), value
+
+
+def jax_param_path(name: str, shape) -> Tuple[str, ...]:
+    """The flax path of the port parameter ``name`` of ``shape`` in a
+    zoo model that carries the flax module names (the inverse of
+    :func:`carry_jax_variables`): a ``weight`` is a conv or Dense
+    ``kernel`` (2-D and up) or a norm's ``scale`` (1-D)."""
+    *owner, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "kernel" if len(shape) >= 2 else "scale"
+    return tuple(owner) + (leaf,)
 
 
 def carry_jax_variables(params: Mapping, batch_stats: Mapping = None

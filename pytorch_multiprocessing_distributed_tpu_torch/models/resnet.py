@@ -140,6 +140,32 @@ class ResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.linear = nn.Linear(cin, num_classes)
 
+    @staticmethod
+    def jax_param_path(name: str, shape=None) -> Tuple[str, ...]:
+        """The flax path of the parameter ``name`` (the inverse of
+        :func:`load_jax_resnet`'s naming): ``conv1``/``bn1`` are the
+        ``stem``, ``layer{s}.{i}.conv{k}``/``bn{k}`` are ``layer{s}_{i}``'s
+        ``cb{k}``, ``shortcut.0``/``.1`` its ``shortcut``, ``linear`` the
+        head."""
+        parts = name.split(".")
+        leaf = parts[-1]
+        if parts[0] == "linear":
+            return ("linear", "kernel" if leaf == "weight" else leaf)
+        if parts[0].startswith("layer"):
+            owner = (f"{parts[0]}_{parts[1]}",)
+            mod = parts[2:-1]
+        else:
+            owner, mod = ("stem",), parts[:-1]
+        if mod[0] == "shortcut":
+            cb, kind = "shortcut", ("conv", "bn")[int(mod[1])]
+        else:
+            cb, kind = "cb" + mod[0][-1], mod[0][:-1]
+        if kind == "conv":
+            return owner + (() if owner == ("stem",) else (cb,)) + (
+                "conv", "kernel")
+        return owner + (() if owner == ("stem",) else (cb,)) + (
+            "bn", "scale" if leaf == "weight" else leaf)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # NHWC -> an NCHW view in channels-last memory (no copy)
         out = x.to(self.dtype).permute(0, 3, 1, 2)

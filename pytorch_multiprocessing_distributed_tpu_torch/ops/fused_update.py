@@ -34,7 +34,19 @@ import torch
 from . import resolve_impl
 from ._build import load
 
-__all__ = ["fused_sgd_", "torch_fused_sgd_"]
+__all__ = ["fused_sgd_", "sgd_direction", "torch_fused_sgd_"]
+
+
+def sgd_direction(params: torch.Tensor, grads: torch.Tensor,
+                  buf: torch.Tensor, initialized: torch.Tensor, *,
+                  momentum: float, weight_decay: float, nesterov: bool):
+    """The rule's elementwise part: ``(d, new buf)`` from flat buffers of
+    one length (the whole buffers, or one rank's shards under
+    ``--zero``); the update is then ``p - lr * d``."""
+    g = grads + weight_decay * params
+    new_buf = torch.where(initialized, momentum * buf + g, g)
+    d = g + momentum * new_buf if nesterov else new_buf
+    return d, new_buf
 
 
 def torch_fused_sgd_(params: torch.Tensor, grads: torch.Tensor,
@@ -45,9 +57,10 @@ def torch_fused_sgd_(params: torch.Tensor, grads: torch.Tensor,
     """The plain version: whole-buffer torch ops, then the guard's
     select (see the module docstring)."""
     with torch.no_grad():
-        g = grads + weight_decay * params
-        new_buf = torch.where(initialized, momentum * buf + g, g)
-        d = g + momentum * new_buf if nesterov else new_buf
+        d, new_buf = sgd_direction(params, grads, buf, initialized,
+                                   momentum=momentum,
+                                   weight_decay=weight_decay,
+                                   nesterov=nesterov)
         new_params = params - lr * d
         params.copy_(torch.where(keep, new_params, params))
         buf.copy_(torch.where(keep, new_buf, buf))

@@ -1,10 +1,13 @@
 """Collectives of the data-parallel step (the port of the JAX package's
-``parallel/collectives.py``, the gradient ``psum`` subset).
+``parallel/collectives.py``, the gradient ``psum`` subset, and the
+``psum_scatter``/``all_gather`` pair of ``--zero``).
 
 The train step keeps every gradient as a view of ONE flat f32 buffer
 (:class:`..train.state.TrainState`), so the ``lax.psum`` over the
 gradient tree becomes one ``all_reduce`` of that buffer: NCCL on the
-card, gloo on the CPU, no call per leaf.
+card, gloo on the CPU, no call per leaf. Under ``--zero``
+(:mod:`.zero`) a bucket of that buffer is reduce-scattered and its
+shards all-gathered instead.
 """
 
 from __future__ import annotations
@@ -21,6 +24,28 @@ def psum_(flat: torch.Tensor) -> torch.Tensor:
     if get_world_size() > 1:
         tdist.all_reduce(flat, op=tdist.ReduceOp.SUM)
     return flat
+
+
+def reduce_scatter_(out: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """This rank's ``out.numel()`` slice of ``flat`` summed over the
+    group (``lax.psum_scatter(..., tiled=True)``); ``flat`` holds
+    ``world * out.numel()`` elements. One process copies its slice.
+    Returns ``out``."""
+    if get_world_size() > 1:
+        tdist.reduce_scatter_tensor(out, flat, op=tdist.ReduceOp.SUM)
+    else:
+        out.copy_(flat)
+    return out
+
+
+def all_gather_(out: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``shard`` laid end to end in rank order into ``out``
+    (``lax.all_gather(..., tiled=True)``). Returns ``out``."""
+    if get_world_size() > 1:
+        tdist.all_gather_into_tensor(out, shard)
+    else:
+        out.copy_(shard)
+    return out
 
 
 def all_gather_objects(obj, group=None) -> list:

@@ -7,7 +7,10 @@ running stats under ``batch_stats/``, momenta, count, initialized and
 epoch) under the JAX name ``model_{epoch}.pth``, written by the primary rank with the
 same durability and integrity as JAX: tmp write -> fsync -> atomic
 rename -> fsync of the directory, then a ``.sha256`` sidecar of the
-exact payload bytes written AFTER the payload is durable. Loads verify
+exact payload bytes written AFTER the payload is durable. A ``--zero``
+state's moment shards are gathered first, on every rank (JAX's
+gather-on-save), so the payload always has the replicated format and
+``--resume`` round-trips between ``--zero`` and plain runs. Loads verify
 the sidecar first (a torn or bit-flipped file raises
 :class:`CheckpointCorruptError` naming both digests) and unpickle with
 ``weights_only=True``. Reading a JAX msgpack checkpoint is not in this
@@ -25,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..parallel import broadcast_int, is_primary
+from ..parallel.zero import gather_opt_state
 from .state import TrainState
 
 
@@ -71,12 +75,15 @@ def save_checkpoint(save_path: str, state: TrainState,
     """Write the state on the primary rank; returns the path (None on
     the other ranks). A stale sidecar of the same epoch is removed
     before the payload is replaced, so a crash between the two writes
-    leaves a valid checkpoint with no digest, never a wrong digest."""
+    leaves a valid checkpoint with no digest, never a wrong digest.
+    Every rank calls it: a ``--zero`` state gathers its moments first (a
+    collective)."""
+    moments = {} if state.zero is None else gather_opt_state(state)
     if not is_primary():
         return None
     path = checkpoint_path(save_path, epoch)
     buf = io.BytesIO()
-    torch.save(state.to_dict(), buf)
+    torch.save(state.to_dict(**moments), buf)
     payload = buf.getvalue()
     digest = hashlib.sha256(payload).hexdigest()
     dpath = digest_path(path)

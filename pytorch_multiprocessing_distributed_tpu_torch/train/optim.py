@@ -17,7 +17,11 @@ step's gradients were not finite — on the device, with no host sync.
 torch ops (:func:`..ops.fused_update.torch_fused_sgd_`); ``fused=True``
 (``--optimizer sgd_fused``, the JAX ``Transform.apply`` seam) runs the
 single-pass kernel :func:`..ops.fused_update.fused_sgd_` on the card
-and the same plain ops on the CPU. The LR is a float or a schedule of
+and the same plain ops on the CPU. Under ``--zero`` the update runs in the
+JAX ``shard_update``/``shard_finish`` phases instead
+(:meth:`SGD.direction_` on this rank's shards, :meth:`SGD.finish_` on
+the gathered direction), the plain version's own ops: bit-identical to
+it. The LR is a float or a schedule of
 the epoch, evaluated on the host (the epoch is a host integer), in f32
 like the JAX schedule.
 """
@@ -29,7 +33,7 @@ from typing import Callable, Sequence, Union
 import numpy as np
 import torch
 
-from ..ops.fused_update import fused_sgd_, torch_fused_sgd_
+from ..ops.fused_update import fused_sgd_, sgd_direction, torch_fused_sgd_
 
 Schedule = Callable[[int], float]
 
@@ -115,6 +119,31 @@ class SGD:
         update(params, grads, buf, initialized, count, keep,
                lr=self.lr(lr_step), momentum=self.momentum,
                weight_decay=self.weight_decay, nesterov=self.nesterov)
+
+    @torch.no_grad()
+    def direction_(self, state, grads: torch.Tensor, params: torch.Tensor,
+                   momentum: torch.Tensor, nu, keep: torch.Tensor
+                   ) -> torch.Tensor:
+        """The elementwise phase (the JAX ``shard_update``) on flat
+        buffers of one length: returns the direction ``d`` (no LR) and
+        writes the new momentum where ``keep``."""
+        d, new_buf = sgd_direction(params, grads, momentum,
+                                   state.initialized,
+                                   momentum=self.momentum,
+                                   weight_decay=self.weight_decay,
+                                   nesterov=self.nesterov)
+        momentum.copy_(torch.where(keep, new_buf, momentum))
+        return d
+
+    @torch.no_grad()
+    def finish_(self, state, d: torch.Tensor, keep: torch.Tensor) -> None:
+        """The JAX ``shard_finish`` on the full direction: ``params -=
+        lr * d``, ``initialized`` set and ``count`` advanced, where
+        ``keep``."""
+        p = state.params
+        p.copy_(torch.where(keep, p - self.lr(state.epoch) * d, p))
+        state.initialized.logical_or_(keep)
+        state.count.add_(keep.to(state.count.dtype))
 
 
 def sgd(learning_rate: Union[float, Schedule] = 0.1, momentum: float = 0.9,

@@ -7,7 +7,9 @@ The reference trainer's observable behaviour: the same meters, the
 plots, all on the primary rank. With the JAX package's two fixes of
 record: eval accuracy divides the GLOBALLY summed correct count of real
 (not padding) samples by the dataset size, and the LR schedule is a
-function of the epoch on every rank.
+function of the epoch on every rank. With an EMA (``--ema``) the evaluation
+runs on the EMA params (JAX ``trainer.py:469-470``); checkpoints still
+write the training params as ``params``, beside ``ema_params``.
 
 The card runs ahead of the host: a step's metrics stay on the device
 and the loop fetches them once per print window (one host sync per
@@ -52,7 +54,10 @@ class Trainer:
                  save_path: str, epochs: int, device: torch.device,
                  print_freq: int = 10, start_epoch: int = 1,
                  loss_fn: Optional[Callable] = None, save_every: int = 0,
-                 keep_checkpoints: int = 0):
+                 keep_checkpoints: int = 0, remat: bool = False,
+                 grad_accum: int = 1,
+                 clip_grad_norm: Optional[float] = None,
+                 ema_decay: Optional[float] = None):
         loss_fn = loss_fn or cross_entropy_loss
         self.state = state
         self.train_loader = train_loader
@@ -64,7 +69,10 @@ class Trainer:
         self.start_epoch = start_epoch
         self.save_every = save_every
         self.keep_checkpoints = keep_checkpoints
-        self.train_step = make_train_step(model, optimizer, loss_fn)
+        self.ema_decay = ema_decay
+        self.train_step = make_train_step(
+            model, optimizer, loss_fn, remat=remat, grad_accum=grad_accum,
+            clip_grad_norm=clip_grad_norm, ema_decay=ema_decay)
         self.eval_step = make_eval_step(model, loss_fn)
         self.train_logger = Logger(os.path.join(save_path, "train.log"))
         self.test_logger = Logger(os.path.join(save_path, "test.log"))
@@ -149,6 +157,22 @@ class Trainer:
             self.train_logger.write([epoch, losses.avg, top1.avg])
 
     def validate(self, epoch: int, mode: str = "test") -> float:
+        """The eval loop, on the EMA params when the run tracks one (the
+        training params are put back after)."""
+        ema = self.state.ema if self.ema_decay else None
+        if ema is None:
+            return self._validate(epoch, mode)
+        params = self.state.params
+        with torch.no_grad():
+            kept = params.clone()
+            params.copy_(ema)
+        try:
+            return self._validate(epoch, mode)
+        finally:
+            with torch.no_grad():
+                params.copy_(kept)
+
+    def _validate(self, epoch: int, mode: str) -> float:
         batch_time, losses = AverageMeter(), AverageMeter()
         total_correct = 0
         self.test_loader.set_epoch(epoch)

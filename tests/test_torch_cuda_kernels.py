@@ -24,7 +24,10 @@ as the Pallas kernels do, where the plain version keeps them in f32;
 both round the outputs to bf16, and one unit in the last place of a
 value near 4 is 3e-2). Fused SGD: bit-equal (tolerance 0) — the kernel
 rounds each product and sum on its own, as the plain version's separate
-ops do. Ring all-reduce: bit-equal (tolerance 0) — the kernel keeps the
+ops do; so the image step with its transforms (``grad_accum``,
+``clip_grad_norm``, ``ema_decay``, ``remat``) on ``sgd_fused`` is
+bit-equal to the same step on ``sgd``, and ``remat`` to the step without
+it, on deterministic cuDNN. Ring all-reduce: bit-equal (tolerance 0) — the kernel keeps the
 plain version's chunk layout and its ``own + incoming`` order per
 element, each add rounded on its own.
 """
@@ -57,7 +60,8 @@ from pytorch_multiprocessing_distributed_tpu_torch.ops.ring_allreduce import (
 from pytorch_multiprocessing_distributed_tpu_torch.serving import (
     ServingEngine, init_params)
 from pytorch_multiprocessing_distributed_tpu_torch.train import (
-    create_lm_train_state, make_lm_train_step, sgd)
+    create_lm_train_state, create_train_state, make_lm_train_step,
+    make_train_step, sgd, sgd_fused)
 
 # the module (the package's ``decode_attention`` name is the function)
 verify_module = importlib.import_module(
@@ -1020,6 +1024,69 @@ def test_fused_sgd_wrapper_contract_on_card(cuda_device):
         fused_sgd_(p, p, b, init, count, keep, lr=0.1)
     with pytest.raises(ValueError, match="int32"):
         fused_sgd_(p, g, b, init, count.long(), keep, lr=0.1)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """Deterministic cuDNN in f32 (TF32 off), restored after."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _image_run(dev, make, steps, **kw):
+    """ResNet-18 on ``steps`` CIFAR-shaped batches of 32 through the
+    image step: (losses, state, the fused kernel's launches)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model, init_resnet)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    images = torch.randn(steps, 32, 32, 32, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 10, (steps, 32), generator=gen, device=dev)
+    model = init_resnet(get_model("res"), 3).to(dev)
+    opt = make(0.1)
+    state = create_train_state(model, opt, ema="ema_decay" in kw)
+    step = make_train_step(model, opt, **kw)
+    launches = fused_sgd_.launches
+    losses = [float(step(state, x, y)[1]["loss"])
+              for x, y in zip(images, labels)]
+    return losses, state, fused_sgd_.launches - launches
+
+
+def test_transform_step_sgd_fused_matches_sgd_on_card(cuda_device,
+                                                      deterministic_cudnn):
+    """Three steps with all four transforms: the fused kernel (one launch
+    a step, reading the clipped gradients) gives the plain update's
+    bits in params, momenta, BN stats and EMA."""
+    kw = dict(grad_accum=2, clip_grad_norm=1.0, ema_decay=0.9, remat=True)
+    plain = _image_run(cuda_device, sgd, 3, **kw)
+    fused = _image_run(cuda_device, sgd_fused, 3, **kw)
+    assert plain[0] == fused[0]
+    assert (plain[2], fused[2]) == (0, 3)
+    for name in ("params", "momentum", "stats", "ema"):
+        assert torch.equal(getattr(plain[1], name),
+                           getattr(fused[1], name)), name
+
+
+def test_remat_is_bit_equal_on_card(cuda_device, deterministic_cudnn):
+    """One step with ``remat`` (the forward recomputed in the backward,
+    BN's running stats kept from the first forward) against one
+    without: params and BN stats bit-equal."""
+    plain = _image_run(cuda_device, sgd_fused, 1)
+    remat = _image_run(cuda_device, sgd_fused, 1, remat=True)
+    assert plain[0] == remat[0]
+    for name in ("params", "momentum", "stats"):
+        assert torch.equal(getattr(plain[1], name),
+                           getattr(remat[1], name)), name
 
 
 # ring all-reduce: sizes and dtypes cycled through consecutive calls (one

@@ -1,5 +1,6 @@
 """Data-parallel ranks of the port's image path, for
-``tests/test_torch_sync_bn.py`` and ``tests/test_torch_image_train.py``:
+``tests/test_torch_sync_bn.py``, ``tests/test_torch_image_train.py``,
+``tests/test_torch_step_transforms.py`` and ``tests/test_torch_zero.py``:
 started by ``torch.multiprocessing`` with the gloo backend. jax-free, so
 the spawned processes import PyTorch only.
 
@@ -109,4 +110,92 @@ def image_train_rank(rank, world, port, inputs_path, out_path):
                       "momentum": state.momentum, "stats": state.stats}
     if dist.is_primary():
         torch.save(runs, out_path)
+    dist.destroy_process_group()
+
+
+def build_model(arch):
+    """The port's ResNet of ``arch``: ``{"blocks", "stem",
+    "num_classes"}``."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models.resnet import (
+        BasicBlock, ResNet)
+
+    return ResNet(BasicBlock, tuple(arch["blocks"]), stem=arch["stem"],
+                  num_classes=arch["num_classes"])
+
+
+def make_optimizer(name, lr):
+    """``sgd``/``sgd_fused`` (Nesterov, weight decay 1e-4) or ``lamb``
+    (weight decay 1e-4, the CLI's)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        lamb, sgd, sgd_fused)
+
+    if name == "lamb":
+        return lamb(lr, weight_decay=1e-4)
+    return (sgd_fused if name == "sgd_fused" else sgd)(lr)
+
+
+def run_steps(spec, run, world=1, rank=0):
+    """One run of the port's image step: ``spec`` holds the ``arch``,
+    the carried ``state_dict`` and the global ``images``/``labels`` of
+    each step; ``run`` names the ``optimizer``, ``lr``, the step's
+    transforms (``kw``), ``zero`` (with an optional ``bucket_bytes``),
+    the ``steps`` to take from step ``start`` and an optional ``resume``
+    payload loaded first. Returns the losses, the global norm of the
+    reduced gradients after each step (replicated runs), the final
+    state's checkpoint payload (moments gathered) and this rank's
+    optimizer-state bytes."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import zero
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        create_train_state, local_rows, make_train_step)
+
+    model = build_model(spec["arch"])
+    model.load_state_dict(spec["state_dict"])
+    opt = make_optimizer(run["optimizer"], run["lr"])
+    kw = run.get("kw", {})
+    plan = (zero.plan_buckets(model, world,
+                              bucket_bytes=run.get("bucket_bytes"))
+            if run.get("zero") else None)
+    state = create_train_state(model, opt, ema=bool(kw.get("ema_decay")),
+                               plan=plan)
+    if run.get("resume") is not None:
+        state.load_dict(run["resume"])
+    if plan is not None:
+        zero.zeroify_state(state, plan, rank)
+    step = make_train_step(model, opt, **kw)
+    start = run.get("start", 0)
+    losses, norms = [], []
+    for t in range(start, start + run.get("steps", len(spec["images"]))):
+        x = local_rows(spec["images"][t].numpy(), rank, world)
+        y = local_rows(spec["labels"][t].numpy(), rank, world)
+        _, m = step(state, torch.from_numpy(x), torch.from_numpy(y))
+        losses.append(float(m["loss"]))
+        if plan is None:
+            norms.append(float(torch.linalg.vector_norm(
+                state.grads[:state.n])))
+    moments = zero.gather_opt_state(state) if plan is not None else {}
+    return {"losses": losses, "norms": norms,
+            "state": state.to_dict(**moments),
+            "opt_bytes": zero.opt_state_bytes(state)}
+
+
+def steps_rank(rank, world, port, inputs_path, out_path):
+    """Every run of the inputs' ``runs`` (see :func:`run_steps`) on this
+    rank, in order; a run whose ``resume_from`` names an earlier run
+    loads that run's final payload first. Rank 0 saves ``{name:
+    result}``, with each rank's optimizer-state bytes."""
+    dist = _join(rank, world, port)
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import (
+        all_gather_objects)
+
+    spec = torch.load(inputs_path, weights_only=True)
+    torch.backends.mkldnn.enabled = spec["mkldnn"]
+    results = {}
+    for run in spec["runs"]:
+        if run.get("resume_from"):
+            run = dict(run, resume=results[run["resume_from"]]["state"])
+        out = run_steps(spec, run, world, rank)
+        out["opt_bytes"] = all_gather_objects(out["opt_bytes"])
+        results[run["name"]] = out
+    if dist.is_primary():
+        torch.save(results, out_path)
     dist.destroy_process_group()

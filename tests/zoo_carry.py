@@ -1,13 +1,16 @@
 """Random JAX variables for any image model of the zoo, for the port's
 parity tests, without running the JAX initialisers: the tree's structure
 and shapes come from ``jax.eval_shape``, the values from numpy. The
-port then carries them across with its ``load_jax_*``."""
+port then carries them across with its ``load_jax_*``; a whole JAX
+train state (params, BN stats, momenta or LAMB's moments, the EMA)
+crosses as the port's checkpoint payload (:func:`port_payload`)."""
 
 import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 
 def random_variables(model, x_shape, seed=0, fresh=False):
@@ -44,3 +47,37 @@ def random_variables(model, x_shape, seed=0, fresh=False):
     stats = jax.tree_util.tree_map_with_path(
         leaf, shapes.get("batch_stats", {}))
     return params, stats
+
+
+def port_payload(jax_state, carry):
+    """A host JAX ``TrainState`` as the port's checkpoint payload
+    (``TrainState.to_dict``'s keys; ``load_dict`` takes it): params and
+    BN running stats through ``carry`` (``load_jax_resnet`` or another
+    ``load_jax_*``), each moment tree the same way (``momentum``, or
+    LAMB's ``mu`` and ``nu``), ``ema_params`` where the state tracks an
+    EMA, the count, ``initialized`` (False for LAMB, which has none) and
+    the epoch. A ``ZeroOptState`` must be gathered first (JAX's
+    ``parallel.zero.gather_opt_state``)."""
+    stats = jax_state.batch_stats
+    sd = carry(jax_state.params, stats)
+    running = ("running_mean", "running_var")
+    names = [k for k in sd if not k.endswith(running)]
+    out = {}
+    for k, v in sd.items():
+        prefix = "batch_stats" if k.endswith(running) else "params"
+        out[f"{prefix}/{k.replace('.', '/')}"] = v
+    opt = jax_state.opt_state
+    trees = ({"momentum": opt.momentum} if hasattr(opt, "momentum")
+             else {"mu": opt.mu, "nu": opt.nu})
+    if jax_state.ema_params:
+        trees["ema"] = jax_state.ema_params
+    for field, tree in trees.items():
+        prefix = "ema_params" if field == "ema" else f"opt_state/{field}"
+        msd = carry(tree, stats)
+        for k in names:
+            out[f"{prefix}/{k.replace('.', '/')}"] = msd[k]
+    out["opt_state/count"] = torch.tensor(np.asarray(opt.count, np.int32))
+    out["opt_state/initialized"] = torch.tensor(
+        bool(np.asarray(getattr(opt, "initialized", False))))
+    out["epoch"] = int(np.asarray(jax_state.epoch))
+    return out
