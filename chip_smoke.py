@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --zero-only  # phases 1 and 25 (--zero across
                                        # the visible cards) alone
+    python3 chip_smoke.py --gspmd-only  # phases 1 and 26 (--zero1,
+                                        # --fsdp, --model_parallel) alone
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -258,7 +260,27 @@ nothing is caught):
    the reduction's sums only), each rank's optimizer-state bytes beside
    the plain run's and the plan's static collective bytes; and the
    ``--zero`` checkpoint resumed by a plain run for a second epoch,
-   beside the plain run's own second epoch. Then the run's wall time.
+   beside the plain run's own second epoch.
+26. gspmd — ``main.main`` with the GSPMD placements on ResNet-18 /
+   synthetic CIFAR-10, f32 (TF32 off, deterministic cuDNN), batch 512,
+   ``--optimizer sgd`` (lr 0.01) and ``lamb`` (lr 0.001), 4 epochs of
+   one step with a checkpoint each (after 1 and after 4 steps), on NCCL
+   ranks, one a card, laid out as a ``(data, model)`` grid over
+   min(cards, 4) cards: ``--zero1`` and ``--fsdp`` at (W, 1); with two
+   or more cards ``--model_parallel 2`` at (1, 2); with four,
+   ``--model_parallel 2 --zero1`` at (2, 2) and ``--model_parallel 4``
+   at (1, 4) (the 10-class head stays whole there). Each beside the
+   plain run at the same data degree: the largest parameter, moment and
+   BN-stat differences after 1 step (the order of the reduction only)
+   and after 4; each rank's resident bytes of params, stats and moments
+   beside JAX's per-device bytes of that placement (``JAX_RESIDENT``,
+   held against JAX's ``state_shardings`` by a CPU test) and equal to
+   them; peak memory per rank; the 4-step run's wall time beside the
+   plain run's. On one card the grid is (1, 1) (one line says so) and
+   each mode is bit-equal to the plain run. Then one ResNet-50
+   ``--fsdp`` step at 224, batch 128, on the visible cards (the step
+   API, a random batch): its peak memory and resident bytes beside the
+   plain step's. Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
@@ -467,6 +489,33 @@ ZERO_MAX_RANKS = 4
 # one rank the two runs are the same arithmetic (tolerance 0)
 ZERO_STEP_TOL = 1e-5
 ZERO_PARAM_TOL = 1e-2
+# phase 26: the GSPMD placements on ResNet-18 / synthetic CIFAR-10, 4
+# epochs of one step of 512 (a checkpoint each); the same tolerances as
+# phase 25 (one step: the reduction's order only)
+GSPMD_SYNTH, GSPMD_BATCH, GSPMD_STEPS = "512", 512, 4
+# JAX's per-device bytes (params, batch_stats, one moment tree; f32) of
+# state_shardings on a (data, model) mesh: ResNet-18 (CIFAR stem, 10
+# classes) and ResNet-50 (ImageNet stem, 1000 classes), keyed by (model,
+# placement, data, model); LAMB holds two moment trees
+JAX_RESIDENT = {
+    ("res", "zero1", 1, 1): (19612968, 23040, 19612968),
+    ("res", "zero1", 2, 1): (19612968, 23040, 9806484),
+    ("res", "zero1", 3, 1): (19612968, 23040, 7025448),
+    ("res", "zero1", 4, 1): (19612968, 23040, 4903272),
+    ("res", "fsdp", 1, 1): (19612968, 23040, 19612968),
+    ("res", "fsdp", 2, 1): (9806484, 11520, 9806484),
+    ("res", "fsdp", 3, 1): (7025448, 23040, 7025448),
+    ("res", "fsdp", 4, 1): (4903272, 5760, 4903272),
+    ("res", "plain", 1, 2): (9806484, 11520, 9806484),
+    ("res", "zero1", 2, 2): (9806484, 11520, 4910740),
+    ("res", "plain", 1, 4): (4918632, 5760, 4918632),
+    ("resnet50", "plain", 1, 1): (102228128, 212480, 102228128),
+    ("resnet50", "fsdp", 1, 1): (102228128, 212480, 102228128),
+    ("resnet50", "fsdp", 2, 1): (51114064, 106240, 51114064),
+    ("resnet50", "fsdp", 3, 1): (72023712, 212480, 72023712),
+    ("resnet50", "fsdp", 4, 1): (25557032, 53120, 25557032),
+}
+R50_FSDP_BATCH = 128
 # phase 22: one ViT-B/16 encoder block, flash=True against flash=False
 VIT_BLOCK = dict(batch=8, seq=197, dim=768, heads=12, mlp=3072)
 VIT_FWD_SHAPE = dict(batch=64, heads=12, seq=197, head_dim=64)
@@ -1482,22 +1531,18 @@ def _deterministic(torch):
     torch.backends.cudnn.benchmark = False
 
 
-def _zero_main(image_main, argv, world, timeout_s=600):
-    """``main.main(argv)`` on ``world`` ranks: in this process for one,
-    else one spawned process a card (joined within ``timeout_s``, every
-    process stopped). Returns the primary rank's summary."""
-    import torch
+def _run_ranks(target, world, args, timeout_s=600):
+    """``target(rank, world, port, *args, out_path)`` in ``world``
+    spawned processes, one a card, joined within ``timeout_s`` (every
+    process stopped); returns the JSON rank 0 writes to ``out_path``."""
     import torch.multiprocessing as mp
 
-    _deterministic(torch)
-    if world == 1:
-        return image_main.main(argv)
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "summary.json")
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
-        ctx = mp.start_processes(_zero_rank, args=(world, port, argv, out),
+        ctx = mp.start_processes(target, args=(world, port, *args, out),
                                  nprocs=world, join=False,
                                  start_method="spawn")
         deadline = time.monotonic() + timeout_s
@@ -1505,8 +1550,8 @@ def _zero_main(image_main, argv, world, timeout_s=600):
             while not ctx.join(timeout=max(0.0,
                                            deadline - time.monotonic())):
                 if time.monotonic() >= deadline:
-                    raise TimeoutError(f"--zero ranks still running after "
-                                       f"{timeout_s} s")
+                    raise TimeoutError(f"{target.__name__} ranks still "
+                                       f"running after {timeout_s} s")
         finally:
             for proc in ctx.processes:
                 if proc.is_alive():
@@ -1514,6 +1559,18 @@ def _zero_main(image_main, argv, world, timeout_s=600):
                     proc.join(5)
         with open(out) as f:
             return json.load(f)
+
+
+def _zero_main(image_main, argv, world, timeout_s=600):
+    """``main.main(argv)`` on ``world`` ranks: in this process for one,
+    else one spawned process a card. Returns the primary rank's
+    summary."""
+    import torch
+
+    _deterministic(torch)
+    if world == 1:
+        return image_main.main(argv)
+    return _run_ranks(_zero_rank, world, (argv,), timeout_s)
 
 
 def _payload_diff(torch, path_a, path_b, prefix):
@@ -1637,6 +1694,204 @@ def _zero_phase(torch, image_main, smi):
                f"diff| {r_err:.3e} from the plain run's epoch 2 (tol "
                f"{zero_tol})")
     zero_dirs.cleanup()
+
+
+def _gspmd_grids(cards):
+    """Phase 26's runs over ``cards`` cards: ``(name, placement, (data,
+    model), flags)``."""
+    w = min(cards, ZERO_MAX_RANKS)
+    grids = [("zero1", "zero1", (w, 1), ["--zero1"]),
+             ("fsdp", "fsdp", (w, 1), ["--fsdp"])]
+    if cards >= 2:
+        grids.append(("mp2", "plain", (1, 2), ["--model_parallel", "2"]))
+    if cards >= 4:
+        grids += [("mp2-zero1", "zero1", (2, 2),
+                   ["--model_parallel", "2", "--zero1"]),
+                  ("mp4", "plain", (1, 4), ["--model_parallel", "4"])]
+    return grids
+
+
+def _resident_want(model, placement, data, mp, moments=1):
+    params, stats, opt = JAX_RESIDENT[(model, placement, data, mp)]
+    return {"params": params, "batch_stats": stats,
+            "opt_state": moments * opt}
+
+
+def _gspmd_phase(torch, image_main, smi):
+    """Phase 26: ``main.main`` with ``--zero1``/``--fsdp``/
+    ``--model_parallel`` beside the plain run (see the module
+    docstring), then one ResNet-50 ``--fsdp`` step."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        _print(f"[gspmd] {cards} card visible: the grid is (1, 1), every "
+               "slice is the whole leaf and each mode must be bit-equal to "
+               "the plain run; (data, model) grids of NCCL ranks need two "
+               "or more cards")
+    base = ["--device", "cuda", "--model", "res", "--synthetic",
+            "--batch_size", str(GSPMD_BATCH), "--seed", "0", "--print-freq",
+            "100", "--epochs", str(GSPMD_STEPS), "--save_every", "1"]
+    os.environ["PMDT_SMALL_SYNTH"] = GSPMD_SYNTH
+    dirs = tempfile.TemporaryDirectory()
+    for opt_name, lr in (("sgd", "0.01"), ("lamb", "0.001")):
+        plains = {}
+
+        def run(tag, data, mp, flags):
+            path = os.path.join(dirs.name, f"{opt_name}-{tag}")
+            t0 = time.perf_counter()
+            summary = _zero_main(image_main, base + [
+                "--optimizer", opt_name, "--lr", lr, "--world_size",
+                str(data), "--save_path", path] + flags, data * mp)
+            summary["wall"] = time.perf_counter() - t0
+            if (summary["steps"] != GSPMD_STEPS
+                    or not math.isfinite(summary["last_loss"])
+                    or summary["grid"] != [data, mp]):
+                raise AssertionError(f"gspmd run {tag}: {summary}")
+            return path, summary
+
+        for name, placement, (data, mp), flags in _gspmd_grids(cards):
+            if data not in plains:
+                plains[data] = run(f"plain{data}", data, 1, [])
+            plain_path, plain = plains[data]
+            path, summary = run(name, data, mp, flags)
+            one = data * mp == 1
+            errs = {e: tuple(_payload_diff(
+                torch, os.path.join(plain_path, f"model_{e}.pth"),
+                os.path.join(path, f"model_{e}.pth"), prefix)
+                for prefix in ("params/", "opt_state/", "batch_stats/"))
+                for e in (1, GSPMD_STEPS)}
+            step_tol = 0.0 if one else ZERO_STEP_TOL
+            if not (max(errs[1]) <= step_tol and (
+                    max(errs[GSPMD_STEPS]) == 0.0 if one
+                    else errs[GSPMD_STEPS][0] <= ZERO_PARAM_TOL)):
+                raise AssertionError(
+                    f"{' '.join(flags)} {opt_name} at ({data}, {mp}): "
+                    f"param/moment/stat differences from the plain run "
+                    f"after 1 and {GSPMD_STEPS} steps {errs}")
+            want = _resident_want("res", placement, data, mp,
+                                  2 if opt_name == "lamb" else 1)
+            got = [{k: r[k] for k in want}
+                   for r in summary["resident_bytes"]]
+            if len(got) != data * mp or any(r != want for r in got):
+                raise AssertionError(
+                    f"{' '.join(flags)} at ({data}, {mp}): resident bytes "
+                    f"{got}, JAX's per device {want}")
+            peaks = [round(p / 2 ** 30, 3)
+                     for p in summary["peak_memory_bytes"]]
+            plain_peaks = [round(p / 2 ** 30, 3)
+                           for p in plain["peak_memory_bytes"]]
+            _print(f"[gspmd] {opt_name} ResNet-18 B={GSPMD_BATCH} "
+                   f"{' '.join(flags)} on grid ({data}, {mp}) vs plain DP "
+                   f"at {data}: after 1 step max |param|/|moment|/|stat| "
+                   f"diff {errs[1][0]:.3e}/{errs[1][1]:.3e}/"
+                   f"{errs[1][2]:.3e} (tol {step_tol}); after "
+                   f"{GSPMD_STEPS} steps {errs[GSPMD_STEPS][0]:.3e}/"
+                   f"{errs[GSPMD_STEPS][1]:.3e}/{errs[GSPMD_STEPS][2]:.3e} "
+                   f"(param tol {0.0 if one else ZERO_PARAM_TOL}); "
+                   f"resident bytes per rank {got[0]} (= JAX's per device; "
+                   f"plain {plain['resident_bytes'][0]}); peak GiB per rank "
+                   f"{peaks} (plain {plain_peaks}); wall of the "
+                   f"{GSPMD_STEPS}-step run {summary['wall']:.1f} s (plain "
+                   f"{plain['wall']:.1f} s), train {summary['train_s']:.2f}"
+                   f" s (plain {plain['train_s']:.2f} s) [{smi}]")
+    dirs.cleanup()
+    _r50_fsdp(torch, smi)
+
+
+def _r50_steps(torch):
+    """Phase 26's ResNet-50 part on this rank of the ``PMDT_*`` group
+    (none for one card): a warm-up and a timed step, plain and under
+    ``--fsdp``, of ``R50_FSDP_BATCH`` random 224 images over the ranks;
+    every rank's peak memory, resident bytes and step time."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model, init_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import (
+        all_gather_objects, dist)
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid)
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        create_train_state, make_train_step, sgd)
+    from pytorch_multiprocessing_distributed_tpu_torch.train.gspmd import (
+        make_train_step_tp)
+    from pytorch_multiprocessing_distributed_tpu_torch.train.placement import (
+        plan_placement, shard_state)
+
+    dist.init_process("cuda")
+    world = dist.get_world_size()
+    grid = make_grid(world, 1)
+    device = dist.device_for_rank("cuda")
+    gen = torch.Generator().manual_seed(dist.get_rank())
+    rows = R50_FSDP_BATCH // world
+    images = torch.randn(rows, 224, 224, 3, generator=gen).to(device)
+    labels = torch.randint(0, 1000, (rows,), generator=gen).to(device)
+    out = {}
+    for mode in ("plain", "fsdp"):
+        model = init_model(get_model("resnet50", stem="imagenet",
+                                     num_classes=1000), 0).to(device)
+        opt = sgd(0.1)
+        state = create_train_state(model, opt)
+        if mode == "fsdp":
+            state = shard_state(state, plan_placement(
+                model, world, 1, fsdp=True), grid)
+        step = (make_train_step_tp if mode == "fsdp" else make_train_step)(
+            model, opt)
+        step(state, images, labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        _, m = step(state, images, labels)
+        end.record()
+        torch.cuda.synchronize()
+        out[mode] = {"peak": torch.cuda.max_memory_allocated(device),
+                     "ms": start.elapsed_time(end), "loss": float(m["loss"]),
+                     "resident": {"params": 4 * state.params.numel(),
+                                  "batch_stats": 4 * state.stats.numel(),
+                                  "opt_state": 4 * state.momentum.numel()}}
+        del model, state, step, m
+        torch.cuda.empty_cache()
+    every = all_gather_objects(out) if world > 1 else [out]
+    dist.destroy_process_group()
+    return every
+
+
+def _r50_rank(rank, world, port, out_path):
+    """One NCCL rank of :func:`_r50_steps`; rank 0 writes the results."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    every = _r50_steps(torch)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(every, f)
+
+
+def _r50_fsdp(torch, smi):
+    """One ResNet-50 ``--fsdp`` step beside the plain step on
+    min(cards, 4) ranks (see the module docstring)."""
+    world = min(torch.cuda.device_count(), ZERO_MAX_RANKS)
+    every = (_r50_steps(torch) if world == 1
+             else _run_ranks(_r50_rank, world, ()))
+    for mode, placement in (("plain", "plain"), ("fsdp", "fsdp")):
+        want = _resident_want("resnet50", placement,
+                              1 if mode == "plain" else world, 1)
+        got = [r[mode]["resident"] for r in every]
+        if any(r != want for r in got) or not all(
+                math.isfinite(r[mode]["loss"]) for r in every):
+            raise AssertionError(f"ResNet-50 {mode} step on {world} rank(s):"
+                                 f" {every}, JAX's per device {want}")
+    _print(f"[gspmd] ResNet-50 (ImageNet stem, 1000 classes) sgd, one step "
+           f"of batch {R50_FSDP_BATCH} at 224 on {world} rank(s): peak GiB "
+           f"per rank --fsdp "
+           f"{[round(r['fsdp']['peak'] / 2 ** 30, 3) for r in every]}, "
+           f"plain {[round(r['plain']['peak'] / 2 ** 30, 3) for r in every]};"
+           f" resident bytes per rank --fsdp {every[0]['fsdp']['resident']}"
+           f", plain {every[0]['plain']['resident']} (= JAX's per device); "
+           f"step ms (CUDA events) --fsdp "
+           f"{[round(r['fsdp']['ms'], 2) for r in every]}, plain "
+           f"{[round(r['plain']['ms'], 2) for r in every]} [{smi}]")
 
 
 FLASH_ROWS = {"flash_fwd": "5", "flash_bwd_dq": "6", "flash_bwd_dkv": "7"}
@@ -1855,6 +2110,11 @@ def main() -> int:
     if "--zero-only" in sys.argv[1:]:
         _zero_phase(torch, image_main, smi)
         _print(f"[total] chip_smoke --zero-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--gspmd-only" in sys.argv[1:]:
+        _gspmd_phase(torch, image_main, smi)
+        _print(f"[total] chip_smoke --gspmd-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3051,6 +3311,9 @@ def main() -> int:
 
     # -- phase 25: --zero through main, across the visible cards
     _zero_phase(torch, image_main, smi)
+
+    # -- phase 26: the GSPMD placements through main, across the cards
+    _gspmd_phase(torch, image_main, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window

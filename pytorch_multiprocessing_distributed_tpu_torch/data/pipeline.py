@@ -22,6 +22,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.dist import get_rank
 from ..parallel.sampler import DistributedShardSampler, padded_epoch_indices
 from ..train.lm import to_device
 from .cifar import load_cifar10, synthetic_cifar10
@@ -188,7 +189,7 @@ def get_loader(args, *, world_size: int = 1, rank: int = 0):
         train_loader, test_loader = _imagenet_loaders(args, world_size, rank)
     else:
         train_loader, test_loader = _cifar_loaders(args, world_size, rank)
-    if rank == 0:
+    if rank == 0 and get_rank() == 0:  # not the other model ranks
         print("-------------------Make loader-------------------")
         print("Train Dataset :", train_loader.dataset_size,
               "   Test Dataset :", test_loader.dataset_size)

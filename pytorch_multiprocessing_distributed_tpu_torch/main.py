@@ -23,6 +23,13 @@ reduce-scatter, update on this rank's shard of the moments, all-gather;
 :mod:`.parallel.zero`) and ``--torch_export`` (the final weights as the
 reference's ``state_dict``, ``model_{epochs}.torch.pth``; ResNet family
 only).
+The JAX GSPMD placements come along: ``--zero1`` (the moments sliced
+over ``data``), ``--fsdp`` (params, stats, moments and EMA sliced over
+``data``) and ``--model_parallel M`` (every leaf's trailing JAX dim
+sliced over ``model``), alone or together, on a grid of ``world_size x
+M`` ranks: each rank holds the slices JAX's ``state_shardings`` leaves
+on the device at its ``(data, model)`` coordinate (:mod:`.train.placement`,
+:mod:`.train.gspmd`).
 Artifacts are the JAX CLI's: a snapshot of this script, the ``Epoch:
 [e][i/n]``, ``test : [i/n]`` and ``Accuracy`` lines, ``train.log`` and
 ``test.log`` rows ``[epoch, loss, accuracy]``, ``model_{epoch}.pth``
@@ -30,12 +37,14 @@ checkpoints (the port's own payload, :mod:`.train.checkpoint`) with
 ``.sha256`` sidecars, ``--resume PATH|auto``, and ``test_accuracy.png``
 and ``loss.png``.
 
-Data parallel, one process per rank: under the JAX package's env
-contract (``PMDT_MASTER_ADDR``, ``PMDT_WORLD_SIZE``, ``PMDT_RANK``;
-:mod:`.parallel.dist`) the process joins the group as one rank.
-Without it, ``--world_size N > 1`` spawns N ranks through
+One process per rank: under the JAX package's env contract
+(``PMDT_MASTER_ADDR``, ``PMDT_WORLD_SIZE``, ``PMDT_RANK``;
+:mod:`.parallel.dist`) the process joins the group as one rank; the
+group holds ``world_size x model_parallel`` ranks, rank ``r`` at data
+index ``r // M`` and model index ``r % M`` (:mod:`.parallel.mesh`).
+Without it, more than one rank spawns them through
 ``torch.multiprocessing`` (the reference's ``mp.spawn``): one per card
-over NCCL, or N gloo processes with ``--device cpu``. The JAX default
+over NCCL, or gloo processes with ``--device cpu``. The JAX default
 ``--world_size 2`` stays the default; asking for more ranks than cards
 raises.
 
@@ -66,10 +75,12 @@ from .ops.fused_update import fused_sgd_
 from .ops.losses import smooth_cross_entropy_loss
 from .parallel import all_gather_objects, dist
 from .parallel import zero as zero_mod
+from .parallel.mesh import make_grid
 from .train import create_train_state, lamb, sgd, sgd_fused
 from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, resolve_auto_resume)
 from .train.optim import cosine_lr, multistep_lr
+from .train.placement import plan_placement, shard_state
 from .train.trainer import Trainer
 from .utils import throughput
 from .utils.torch_interop import is_resnet_name, save_torch_checkpoint
@@ -115,13 +126,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--dtype', default='float32',
                    choices=['float32', 'bfloat16'],
                    help='compute dtype for conv/matmul (params stay f32)')
-    p.add_argument('--model_parallel', default=1, type=int)
+    p.add_argument('--model_parallel', default=1, type=int,
+                   help='ranks of the model axis: every leaf\'s trailing '
+                        'JAX dim sliced over them (world_size x '
+                        'model_parallel ranks in all)')
     p.add_argument('--zero', action='store_true',
                    help='sharded weight update: reduce-scatter the grads, '
                         'update this rank\'s shard of the optimizer '
                         'moments, all-gather (parallel/zero.py)')
-    p.add_argument('--zero1', action='store_true')
-    p.add_argument('--fsdp', action='store_true')
+    p.add_argument('--zero1', action='store_true',
+                   help='GSPMD placement: the optimizer moments sliced over '
+                        'the data axis')
+    p.add_argument('--fsdp', action='store_true',
+                   help='GSPMD placement: params, stats, moments and EMA '
+                        'sliced over the data axis, gathered at use')
     p.add_argument('--grad_accum', default=1, type=int,
                    help='split each rank\'s batch into N strided '
                         'microbatches, one optimizer step')
@@ -179,9 +197,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, is it set?) for every JAX flag this slice does not port
 _NOT_PORTED = (
-    ('--model_parallel', lambda a: a.model_parallel > 1),
-    ('--zero1', lambda a: a.zero1),
-    ('--fsdp', lambda a: a.fsdp),
     ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
     ('--ckpt_async', lambda a: a.ckpt_async),
     ('--profile', lambda a: bool(a.profile)),
@@ -250,6 +265,14 @@ def _check_flags(args) -> None:
             "32); --image_size applies to --dataset imagenet")
     if args.world_size < 1:
         raise SystemExit(f"--world_size must be >= 1, got {args.world_size}")
+    if args.model_parallel < 1:
+        raise SystemExit(
+            f"--model_parallel must be >= 1, got {args.model_parallel}")
+
+
+def _gspmd(args) -> bool:
+    """The JAX CLI's ``use_gspmd``: the placed state and step."""
+    return args.model_parallel > 1 or args.zero1 or args.fsdp
 
 
 def _schedule(args, base_default: float = 0.1):
@@ -260,16 +283,19 @@ def _schedule(args, base_default: float = 0.1):
 
 
 def run(args) -> dict:
-    """One data-parallel rank: join the group named by the ``PMDT_*``
-    env (no group for one process), train and validate every epoch,
-    checkpoint, plot. Returns the rank's summary."""
+    """One rank: join the group named by the ``PMDT_*`` env (no group
+    for one process), lay it out as the ``(data, model)`` grid, train and
+    validate every epoch, checkpoint, plot. Returns the rank's
+    summary."""
     device = resolve_device(args.device)
     dist.init_process(device)
     world = dist.get_world_size()
-    if world != args.world_size:
+    if world != args.world_size * args.model_parallel:
         raise SystemExit(
-            f"--world_size {args.world_size} but the process group has "
-            f"{world} rank(s) (PMDT_WORLD_SIZE)")
+            f"--world_size {args.world_size} x --model_parallel "
+            f"{args.model_parallel} but the process group has {world} "
+            "rank(s) (PMDT_WORLD_SIZE)")
+    grid = make_grid(args.world_size, args.model_parallel)
     device = dist.device_for_rank(device)
     rank, primary = dist.get_rank(), dist.is_primary()
 
@@ -277,7 +303,9 @@ def run(args) -> dict:
     image_size = args.image_size or (224 if is_imagenet else 32)
     # loaders first, so the head can size itself from the dataset (an
     # image tree derives its own class count), as in JAX
-    train_loader, test_loader = get_loader(args, world_size=world, rank=rank)
+    # the model ranks of a data replica read its rows (JAX's P(data))
+    train_loader, test_loader = get_loader(args, world_size=grid.data,
+                                           rank=grid.data_index)
     dataset = getattr(train_loader, "dataset", None)
     num_classes = (args.num_classes or getattr(dataset, "num_classes", 0)
                    or (1000 if is_imagenet else 10))
@@ -319,6 +347,11 @@ def run(args) -> dict:
         # moments sharded from the first step: the replicated ones (a
         # fresh init or the resumed checkpoint) become this rank's shards
         zero_mod.zeroify_state(state, plan, rank)
+    if _gspmd(args):
+        # likewise this rank's slices of the whole state (JAX shard_state)
+        state = shard_state(state, plan_placement(
+            model, grid.data, grid.model, zero1=args.zero1,
+            fsdp=args.fsdp), grid)
 
     trainer = Trainer(
         model=model, optimizer=optimizer, state=state,
@@ -332,13 +365,16 @@ def run(args) -> dict:
         ema_decay=args.ema or None)
     launches0 = fused_sgd_.launches
     trainer.fit()
-    if args.torch_export and primary:
-        # params are replicated under --zero too (only the moments are
-        # sharded): the primary rank holds the final weights
-        out = os.path.join(args.save_path,
-                           f"model_{args.epochs}.torch.pth")
-        save_torch_checkpoint(out, model)
-        print(f"Exported torch state_dict -> {out}", flush=True)
+    if args.torch_export:
+        # params are replicated under --zero (only the moments are
+        # sharded); a placed state gathers its slices first, on every rank
+        state = trainer.state
+        weights = state.state_dict() if _gspmd(args) else model
+        if primary:
+            out = os.path.join(args.save_path,
+                               f"model_{args.epochs}.torch.pth")
+            save_torch_checkpoint(out, weights)
+            print(f"Exported torch state_dict -> {out}", flush=True)
     if start_epoch > args.epochs and primary:
         print(f"--resume: checkpoint already at epoch {start_epoch - 1} >= "
               f"--epochs {args.epochs}; nothing to train", flush=True)
@@ -346,8 +382,21 @@ def run(args) -> dict:
     steady = s.pop("steady")
     rate, per_card = throughput(args.batch_size * s["steps"], s["train_s"],
                                 world)
+    state = trainer.state
     opt_bytes = zero_mod.opt_state_bytes(state)
-    s.update(world_size=world, device=str(device),
+    resident = {k: 0 if t is None else t.numel() * t.element_size()
+                for k, t in (("params", state.params),
+                             ("batch_stats", state.stats),
+                             ("ema_params", state.ema))}
+    resident["opt_state"] = opt_bytes
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    s.update(world_size=world, grid=[grid.data, grid.model],
+             resident_bytes=(all_gather_objects(resident) if world > 1
+                             else [resident]),
+             peak_memory_bytes=(all_gather_objects(peak) if world > 1
+                                else [peak]),
+             device=str(device),
              launches={"fused_sgd": fused_sgd_.launches - launches0},
              opt_state_bytes=(all_gather_objects(opt_bytes)
                               if world > 1 else [opt_bytes]),
@@ -383,8 +432,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns the
     primary rank's summary: per-epoch train losses and test accuracies,
     the first printed loss, steps, images/s and the steady step time
-    (host clock, synced at the print boundaries), and the fused
-    kernel's launches."""
+    (host clock, synced at the print boundaries), the fused kernel's
+    launches, the grid and each rank's resident bytes of params, stats,
+    moments and EMA, and its peak device memory (None on the CPU)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     _check_flags(args)
@@ -392,22 +442,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
     device = resolve_device(args.device)
     os.makedirs(args.save_path, exist_ok=True)
     shutil.copy(__file__, os.path.join(args.save_path, 'main.py'))
-    if args.world_size == 1 or os.environ.get("PMDT_MASTER_ADDR"):
+    ranks = args.world_size * args.model_parallel
+    if ranks == 1 or os.environ.get("PMDT_MASTER_ADDR"):
         return run(args)
-    if device.type == "cuda" and torch.cuda.device_count() < args.world_size:
+    if device.type == "cuda" and torch.cuda.device_count() < ranks:
         raise SystemExit(
-            f"--world_size {args.world_size} needs {args.world_size} CUDA "
-            f"devices, this machine has {torch.cuda.device_count()} (one "
-            "rank per card; pass --device cpu for gloo ranks on the CPU)")
+            f"--world_size {args.world_size} x --model_parallel "
+            f"{args.model_parallel} needs {ranks} CUDA devices, this "
+            f"machine has {torch.cuda.device_count()} (one rank per card; "
+            "pass --device cpu for gloo ranks on the CPU)")
     import torch.multiprocessing as mp
 
     # CPU ranks share this process's intra-op threads between them
-    threads = max(1, torch.get_num_threads() // args.world_size)
+    threads = max(1, torch.get_num_threads() // ranks)
     with tempfile.TemporaryDirectory() as tmp:
         summary_path = os.path.join(tmp, "summary.json")
-        mp.spawn(_spawned_rank, nprocs=args.world_size, join=True,
-                 args=(args.world_size, _free_port(), argv, threads,
-                       summary_path))
+        mp.spawn(_spawned_rank, nprocs=ranks, join=True,
+                 args=(ranks, _free_port(), argv, threads, summary_path))
         with open(summary_path) as f:
             return json.load(f)
 

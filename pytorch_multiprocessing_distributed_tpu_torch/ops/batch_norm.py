@@ -26,33 +26,35 @@ import torch
 import torch.distributed as tdist
 from torch import nn
 
-from ..parallel.dist import get_world_size
+from ..parallel.mesh import data_group, data_size
 
 MOMENTUM = 0.1  # torch convention: the new statistic's weight
 EPS = 1e-5      # torch's BatchNorm epsilon
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """``psum`` over the process group, differentiable: the backward is
+    """``psum`` over the data group, differentiable: the backward is
     the ``psum`` of the cotangents (the transpose of a sum that every
     rank reads)."""
 
     @staticmethod
     def forward(ctx, x):
         out = x.clone()
-        tdist.all_reduce(out, op=tdist.ReduceOp.SUM)
+        tdist.all_reduce(out, op=tdist.ReduceOp.SUM, group=data_group())
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        tdist.all_reduce(grad, op=tdist.ReduceOp.SUM)
+        tdist.all_reduce(grad, op=tdist.ReduceOp.SUM, group=data_group())
         return grad
 
 
 class SyncBatchNorm(nn.Module):
     """BatchNorm over (batch, spatial) of an NCHW tensor (any memory
-    format), synchronized over the data-parallel group.
+    format), synchronized over the data-parallel group (the grid's data
+    group under ``--model_parallel``: the model ranks of one replica see
+    one batch).
 
     Args:
       num_features: channels.
@@ -78,7 +80,7 @@ class SyncBatchNorm(nn.Module):
             dims = (0, 2, 3)
             sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims)])
             n = x.numel() // c
-            world = get_world_size()
+            world = data_size()
             if world > 1:
                 sums = _SumOverRanks.apply(sums)
                 n *= world

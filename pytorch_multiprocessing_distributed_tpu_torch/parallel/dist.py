@@ -119,8 +119,11 @@ def device_for_rank(device: Union[str, torch.device]) -> torch.device:
 
 
 def destroy_process_group() -> None:
-    """Leave the group (no-op for one process)."""
+    """Leave the group (no-op for one process), forgetting its grid."""
     global _store
+    from .mesh import reset_grid
+
+    reset_grid()
     if tdist.is_initialized():
         tdist.destroy_process_group()
     _store = None

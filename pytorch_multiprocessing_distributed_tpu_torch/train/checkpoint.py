@@ -8,9 +8,10 @@ epoch) under the JAX name ``model_{epoch}.pth``, written by the primary rank wit
 same durability and integrity as JAX: tmp write -> fsync -> atomic
 rename -> fsync of the directory, then a ``.sha256`` sidecar of the
 exact payload bytes written AFTER the payload is durable. A ``--zero``
-state's moment shards are gathered first, on every rank (JAX's
-gather-on-save), so the payload always has the replicated format and
-``--resume`` round-trips between ``--zero`` and plain runs. Loads verify
+state's moment shards, and a placed state's slices (``--zero1``,
+``--fsdp``, ``--model_parallel``), are gathered first, on every rank
+(JAX's gather-on-save), so the payload always has the replicated format
+and ``--resume`` round-trips between sharded and plain runs. Loads verify
 the sidecar first (a torn or bit-flipped file raises
 :class:`CheckpointCorruptError` naming both digests) and unpickle with
 ``weights_only=True``. Reading a JAX msgpack checkpoint is not in this
@@ -76,9 +77,12 @@ def save_checkpoint(save_path: str, state: TrainState,
     the other ranks). A stale sidecar of the same epoch is removed
     before the payload is replaced, so a crash between the two writes
     leaves a valid checkpoint with no digest, never a wrong digest.
-    Every rank calls it: a ``--zero`` state gathers its moments first (a
-    collective)."""
+    Every rank calls it: a ``--zero`` state gathers its moments first,
+    a placed state its slices (collectives)."""
     moments = {} if state.zero is None else gather_opt_state(state)
+    gather = getattr(state, "gathered", None)
+    if gather is not None:
+        state = gather()  # a placed state's slices, on every rank
     if not is_primary():
         return None
     path = checkpoint_path(save_path, epoch)

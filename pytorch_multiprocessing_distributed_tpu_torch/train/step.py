@@ -51,8 +51,8 @@ The eval step runs the model in eval mode (running stats) and sums the
 masked loss, correct and top-5 counts over ranks in one all-reduce, so
 the sampler's wraparound duplicates count nowhere.
 
-Not in this slice: the GSPMD steps (``--zero1``, ``--fsdp``,
-``--model_parallel``; ROADMAP.md).
+The GSPMD steps (``--zero1``, ``--fsdp``, ``--model_parallel``) are
+:mod:`.gspmd`'s, on a state placed by :mod:`.placement`.
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
 """Epoch-level train and validate loops (the port of the JAX package's
-``train/trainer.py``, the data-parallel path).
+``train/trainer.py``): the data-parallel step, or the GSPMD step for a
+state placed on a grid (``--zero1``/``--fsdp``/``--model_parallel``,
+:mod:`.gspmd`), as JAX's trainer chooses.
 
 The reference trainer's observable behaviour: the same meters, the
 ``Epoch: [e][i/n]`` and ``test : [i/n]`` lines, ``Accuracy {:.2f}``,
@@ -31,6 +33,8 @@ from ..parallel import dist
 from ..utils import AverageMeter, Logger
 from ..utils.plotting import draw_plot
 from .checkpoint import prune_checkpoints, save_checkpoint
+from .gspmd import make_eval_step_tp, make_train_step_tp
+from .placement import PlacedState
 from .state import TrainState
 from .step import make_eval_step, make_train_step
 
@@ -47,7 +51,9 @@ def _fetch(pending, keys):
 
 
 class Trainer:
-    """Drives the steps over epochs for one data-parallel rank."""
+    """Drives the steps over epochs for one rank (of the data-parallel
+    group, or of the grid a :class:`.placement.PlacedState` is placed
+    on)."""
 
     def __init__(self, *, model, optimizer, state: TrainState,
                  train_loader: ShardedLoader, test_loader: ShardedLoader,
@@ -70,10 +76,12 @@ class Trainer:
         self.save_every = save_every
         self.keep_checkpoints = keep_checkpoints
         self.ema_decay = ema_decay
-        self.train_step = make_train_step(
+        placed = isinstance(state, PlacedState)
+        self.train_step = (make_train_step_tp if placed else make_train_step)(
             model, optimizer, loss_fn, remat=remat, grad_accum=grad_accum,
             clip_grad_norm=clip_grad_norm, ema_decay=ema_decay)
-        self.eval_step = make_eval_step(model, loss_fn)
+        self.eval_step = (make_eval_step_tp if placed else make_eval_step)(
+            model, loss_fn)
         self.train_logger = Logger(os.path.join(save_path, "train.log"))
         self.test_logger = Logger(os.path.join(save_path, "test.log"))
         # what a caller reads after fit (the CLI's summary)

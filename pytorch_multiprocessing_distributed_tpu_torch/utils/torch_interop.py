@@ -18,7 +18,7 @@ tensors in the JAX export's key order, which the JAX package's
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Mapping
+from typing import Mapping, Union
 
 import torch
 from torch import nn
@@ -30,13 +30,16 @@ def is_resnet_name(model_name: str) -> bool:
     return model_name == "res" or model_name.startswith("resnet")
 
 
-def to_torch_state_dict(model: nn.Module
+def to_torch_state_dict(model: Union[nn.Module, Mapping[str, torch.Tensor]]
                         ) -> "OrderedDict[str, torch.Tensor]":
-    """``model``'s params and BN running stats as the reference's
-    ``state_dict``: f32 CPU copies (``num_batches_tracked`` an int64 0
-    after each BatchNorm's ``running_var``), in the module order."""
+    """``model``'s params and BN running stats (or its ``state_dict``,
+    as a placed state gathers it) as the reference's ``state_dict``: f32
+    CPU copies (``num_batches_tracked`` an int64 0 after each
+    BatchNorm's ``running_var``), in the module order."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    for key, value in model.state_dict().items():
+    items = model.items() if isinstance(model, Mapping) else (
+        model.state_dict().items())
+    for key, value in items:
         sd[key] = value.detach().to("cpu", torch.float32, copy=True)
         if key.endswith(".running_var"):
             sd[key[:-len("running_var")] + "num_batches_tracked"] = (
@@ -58,7 +61,8 @@ def from_torch_state_dict(state_dict: Mapping[str, torch.Tensor]
     return out
 
 
-def save_torch_checkpoint(path: str, model: nn.Module) -> str:
+def save_torch_checkpoint(path: str, model: Union[
+        nn.Module, Mapping[str, torch.Tensor]]) -> str:
     """Write ``model``'s reference ``state_dict`` to ``path``."""
     torch.save(to_torch_state_dict(model), path)
     return path

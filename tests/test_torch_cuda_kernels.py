@@ -1349,3 +1349,42 @@ def test_decode_kernels_take_any_head_dim(cuda_device, quant, dtype, d):
                                quant, reach, seed=d + 3)
     check(paged_verify_decode_attention, torch_paged_verify_decode_attention,
           vq_, k, v, table, pos)
+
+
+# ---- the GSPMD placements (--zero1, --fsdp) on the card ----
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "lamb"])
+def test_gspmd_one_card_grid_is_the_plain_step(cuda_device, optimizer):
+    """A 1 x 1 grid on one card: two steps of ResNet-18 under ``--zero1``
+    and under ``--fsdp`` give the plain step's bits (params, BN stats,
+    moments)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        reset_grid)
+    from torch_image_worker import gspmd_card_steps
+
+    try:
+        got = gspmd_card_steps(1, cuda_device, ("plain", "zero1", "fsdp"),
+                               steps=2, optimizer=optimizer)
+    finally:
+        reset_grid()
+    for mode in ("zero1", "fsdp"):
+        for k, v in got["plain"].items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(got[mode][k], v), (mode, k)
+
+
+def test_gspmd_fsdp_two_cards_matches_plain(cuda_device, tmp_path):
+    """``--fsdp`` at (2, 1) over NCCL, one rank a card: after one step
+    within 1e-5 of the plain data-parallel step (the reductions' order
+    only)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from torch_image_worker import gspmd_cuda_rank, spawn_ranks
+
+    spawn_ranks(gspmd_cuda_rank, 2, (str(tmp_path),), timeout_s=300)
+    got = torch.load(tmp_path / "payloads.pt", weights_only=True)
+    for k, v in got["plain"].items():
+        if isinstance(v, torch.Tensor):
+            torch.testing.assert_close(got["fsdp"][k], v, atol=1e-5, rtol=0,
+                                       msg=k)
