@@ -6,6 +6,8 @@
                                        # the visible cards) alone
     python3 chip_smoke.py --gspmd-only  # phases 1 and 26 (--zero1,
                                         # --fsdp, --model_parallel) alone
+    python3 chip_smoke.py --sp-only  # phases 1 and 27 (train_lm
+                                     # --parallel sp) alone
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -280,7 +282,30 @@ nothing is caught):
    each mode is bit-equal to the plain run. Then one ResNet-50
    ``--fsdp`` step at 224, batch 128, on the visible cards (the step
    API, a random batch): its peak memory and resident bytes beside the
-   plain step's. Then the run's wall time.
+   plain step's.
+27. sp — sequence parallelism (``train_lm --parallel sp``). On one card,
+   gpt_small at B 8 x S 1024, bf16 and f32, one step of the SP step on a
+   1 x 1 ``(data, seq)`` grid in each ``sp_mode`` beside the plain DP
+   step from the same params: ring and ulysses bit-equal (params after
+   the step, loss), zigzag within ``SP_ZIGZAG_TOL``, and the flash
+   launches of the step equal to the hop schedule (12 layers x 1, 3, 1
+   of each kernel); ``--vocab_chunks 8`` beside the dense head (loss
+   within ``SP_CHUNK_LOSS_TOL``, the step's peak memory lower); the
+   non-causal bf16 forward (and the backward pair) at a hop's shape, B 8
+   H 12 S 256 Dh 64 (gpt_small's S 1024 over four ranks), timed beside
+   SDPA's (``[sp-hop]``); gpt_lm_long's geometry (gpt_small at
+   max_seq_len 4096, bf16, B 2 x S 4096) through the plain step on one
+   card: 3 steps, losses, step time, peak memory. With two or more
+   cards, on W = min(cards, 4) NCCL ranks, one a card: the CLI
+   ``train_lm --model gpt_small --dtype bfloat16 --batch_size 8
+   --seq_len 1024 --parallel sp --degree W`` in each mode beside
+   ``--parallel dp`` on the same ranks (first loss, tokens/s, peak
+   memory a card, and each rank's flash launches equal to the schedule:
+   ring ``i + 1`` a layer a step on seq rank ``i``, zigzag ``2W + 1``,
+   ulysses 1), then gpt_lm_long's geometry through the SP step at degree
+   W in each mode beside the one-card DP step (losses within
+   ``SP_LONG_LOSS_TOL``, step time, peak memory a card). Then the run's
+   wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
@@ -527,6 +552,28 @@ HEAD_DIM_WINDOW = 256
 HEAD_DIM_FLASH = dict(batch=2, heads=4, seqs=((197, 197), (130, 70)))
 # a GPT of head_dim 16: gpt_small's vocab and depth cut, 32 heads of 16
 GPT_DH16 = dict(hidden_size=512, num_heads=32, mlp_dim=2048, num_layers=2)
+# phase 27: sequence parallelism. gpt_small at the CLI's largest S (1024)
+# and at bench.py's gpt_lm_long geometry (S 4096, batch 2, the model
+# built at max_seq_len 4096); the hop shape of S 1024 over four ranks
+SP_MODES = ("ring", "zigzag", "ulysses")
+SP_SHAPE = dict(batch=8, seq=1024)
+SP_LONG = dict(batch=2, seq=4096, steps=3)
+SP_HOP = dict(batch=8, heads=12, seq=256, head_dim=64)
+SP_MAX_RANKS = 4
+SP_CLI_STEPS = 4
+SP_LR = 0.01
+SP_CHUNKS = 8
+# zigzag at degree 1 folds two half-blocks per row where the plain step
+# runs one kernel: the attention output differs by rounding (bf16: the
+# per-hop outputs are rounded to bf16 before the f32 fold), so the loss
+# and, through lr x the gradient, the params after one step differ
+SP_ZIGZAG_TOL = {"float32": dict(loss=1e-5, param=1e-6),
+                 "bfloat16": dict(loss=1e-2, param=1e-4)}
+# the chunked head sums the same f32 CE in another order
+SP_CHUNK_LOSS_TOL = 1e-4
+# bf16 ring/ulysses across W cards against the one-card plain step: the
+# fold's rounding and another order of the gradient sums
+SP_LONG_LOSS_TOL = 2e-2
 
 
 def _print(*parts):
@@ -1531,10 +1578,12 @@ def _deterministic(torch):
     torch.backends.cudnn.benchmark = False
 
 
-def _run_ranks(target, world, args, timeout_s=600):
+def _run_ranks(target, world, args, timeout_s=600, per_rank=False):
     """``target(rank, world, port, *args, out_path)`` in ``world``
     spawned processes, one a card, joined within ``timeout_s`` (every
-    process stopped); returns the JSON rank 0 writes to ``out_path``."""
+    process stopped); returns the JSON rank 0 writes to ``out_path``,
+    or with ``per_rank`` the list of every rank's, each written to
+    ``{out_path}.{rank}``."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1557,8 +1606,14 @@ def _run_ranks(target, world, args, timeout_s=600):
                 if proc.is_alive():
                     proc.terminate()
                     proc.join(5)
-        with open(out) as f:
-            return json.load(f)
+        if not per_rank:
+            with open(out) as f:
+                return json.load(f)
+        ranks = []
+        for r in range(world):
+            with open(f"{out}.{r}") as f:
+                ranks.append(json.load(f))
+        return ranks
 
 
 def _zero_main(image_main, argv, world, timeout_s=600):
@@ -2057,6 +2112,369 @@ def _head_dim_times(torch, quantize_kv, da, fa, d):
     return out
 
 
+def _sp_launches_want(mode, deg, rank, layers=12):
+    """Each flash kernel's launches a train step on seq rank ``rank`` of
+    ``deg`` under ``mode`` (None: the plain DP step): the hop schedule's
+    folds a layer (ring ``rank + 1``, zigzag ``2 deg + 1``, ulysses and
+    DP 1)."""
+    per = {None: 1, "dp": 1, "ulysses": 1, "ring": rank + 1,
+           "zigzag": 2 * deg + 1}[mode]
+    return {n: layers * per for n in FLASH_PRODUCTS}
+
+
+def _sp_step_run(torch, fa, dtype, mode, tokens, chunks=0, steps=1,
+                 max_seq_len=None, profile=False):
+    """``steps`` train steps of gpt_small (plain DP step for ``mode`` None,
+    else the SP step on the grid already made) from seed 0's params on
+    ``tokens`` ``[steps, B, S]`` on this process's card: losses, the
+    params after the first step (on the host), the first step's flash
+    launches, the peak memory above the state and the later steps' mean
+    device time (CUDA events); with ``profile``, where two more steps'
+    device time goes (``profile_train_lm``'s kernel groups, ms a
+    step)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        init_params)
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        create_lm_train_state, make_lm_train_step, sgd)
+
+    kw = {} if mode is None else dict(seq_axis="seq", sp_mode=mode)
+    if max_seq_len:
+        kw["max_seq_len"] = max_seq_len
+    model = get_model("gpt_small", dtype=dtype, **kw)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    state = create_lm_train_state(model, init_params(model, 0, dev))
+    step = make_lm_train_step(model, sgd(SP_LR), seq_axis=kw.get("seq_axis"),
+                              vocab_chunks=chunks)
+    for n in FLASH_PRODUCTS:
+        getattr(fa, n).launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(state, tokens[0])[1]["loss"])]
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
+    params = state.params.detach().cpu()
+    times = []
+    for tok in tokens[1:steps]:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        _, m = step(state, tok)
+        end.record()
+        losses.append(float(m["loss"]))
+        times.append(start.elapsed_time(end))
+    out = dict(losses=losses, params=params, launches=launches,
+               peak_gib=peak / 2 ** 30,
+               step_ms=statistics.mean(times) if times else None,
+               state_gib=base / 2 ** 30)
+    if profile:
+        from pytorch_multiprocessing_distributed_tpu_torch.profile_train_lm \
+            import profile_steps
+
+        step_s, kernels, groups = profile_steps(
+            lambda i: step(state, tokens[-1]), 2)
+        out["profile"] = dict(
+            step_ms=step_s * 1e3,
+            busy_ms=sum(kernels.values()) / 1e3 / 2,
+            groups_ms={g: us / 1e3 / 2 for g, us in sorted(
+                groups.items(), key=lambda kv: -kv[1])})
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_tokens(torch, batch, seq, steps, device="cuda"):
+    """``[steps, batch, seq]`` synthetic gpt_small tokens (seed 0), the
+    same on every rank."""
+    from pytorch_multiprocessing_distributed_tpu_torch.data import (
+        synthetic_tokens)
+
+    t = synthetic_tokens(steps * batch * seq, vocab_size=50257, seed=0)
+    return torch.from_numpy(t.astype("int64")).view(steps, batch, seq).to(
+        device)
+
+
+def _sp_profile_text(run):
+    """A profiled run's device time by kernel group, ms a step."""
+    p = run["profile"]
+    groups = ", ".join(f"{g} {ms:.2f}" for g, ms in p["groups_ms"].items())
+    return (f"step {p['step_ms']:.2f} ms (host clock), kernels "
+            f"{p['busy_ms']:.2f} ms (NCCL overlaps the compute stream): "
+            f"{groups}")
+
+
+def _sp_diagnose(torch, fa, dtype):
+    """Which op of a degree-1 ring differs from the plain flash path:
+    the forward, or the backward, at one layer's shape."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.ring_attention \
+        import ring_attention
+
+    q, k, v, do = _flash_inputs(torch, SP_SHAPE["batch"], SP_SHAPE["seq"],
+                                SP_SHAPE["seq"], 12, 64, dtype, seed=5)
+    outs = {}
+    for name, fn in (("flash_attention", fa.flash_attention),
+                     ("ring_attention", ring_attention)):
+        qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o = fn(qq, kk, vv, causal=True)
+        o.backward(do)
+        outs[name] = (o, qq.grad, kk.grad, vv.grad)
+    return {what: float((a.float() - b.float()).abs().max())
+            for what, a, b in zip(("out", "dq", "dk", "dv"),
+                                  outs["flash_attention"],
+                                  outs["ring_attention"])}
+
+
+def _sp_one_card(torch, fa, F, rate, smi):
+    """Phase 27 on one card: the degree-1 comparisons, ``--vocab_chunks``,
+    the hop shape and the one-card step at gpt_lm_long's geometry.
+    Returns the numbers the kernels line and the cross-card part read."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid, reset_grid)
+
+    make_grid(1, 1, axis="seq")
+    launches = {}
+    try:
+        tokens = _sp_tokens(torch, SP_SHAPE["batch"], SP_SHAPE["seq"], 1)
+        for dtype in (torch.bfloat16, torch.float32):
+            tname = str(dtype).split(".")[1]
+            plain = _sp_step_run(torch, fa, dtype, None, tokens)
+            want = _sp_launches_want(None, 1, 0)
+            if plain["launches"] != want:
+                raise AssertionError(f"plain step launched "
+                                     f"{plain['launches']}, want {want}")
+            for mode in SP_MODES:
+                got = _sp_step_run(torch, fa, dtype, mode, tokens)
+                want = _sp_launches_want(mode, 1, 0)
+                if got["launches"] != want:
+                    raise AssertionError(
+                        f"sp {mode} {tname} launched {got['launches']} in "
+                        f"one step, the schedule wants {want}")
+                launches[mode] = got["launches"]
+                dloss = abs(got["losses"][0] - plain["losses"][0])
+                dparam = float((got["params"] - plain["params"]).abs().max())
+                if mode == "zigzag":
+                    tol = SP_ZIGZAG_TOL[tname]
+                    if dloss > tol["loss"] or dparam > tol["param"]:
+                        raise AssertionError(
+                            f"zigzag {tname} at degree 1: loss err {dloss}, "
+                            f"param err {dparam}, past {tol}")
+                    verdict = f"within {tol}"
+                else:
+                    if dloss or not torch.equal(got["params"],
+                                                plain["params"]):
+                        raise AssertionError(
+                            f"{mode} {tname} at degree 1 is not bit-equal "
+                            f"to the plain step: loss err {dloss}, param "
+                            f"err {dparam}; one layer's attention, ring "
+                            f"against flash: {_sp_diagnose(torch, fa, dtype)}")
+                    verdict = "bit-equal"
+                _print(f"[sp] gpt_small {tname} B={SP_SHAPE['batch']} "
+                       f"S={SP_SHAPE['seq']} 1x1 grid sp_mode={mode}: loss "
+                       f"{got['losses'][0]:.6f} (plain "
+                       f"{plain['losses'][0]:.6f}), loss err {dloss}, param "
+                       f"err {dparam} after one step ({verdict}), launches "
+                       f"{got['launches']} [{smi}]")
+            del plain
+        # the chunked head beside the dense one (f32, the CLI's default)
+        dense = _sp_step_run(torch, fa, torch.float32, None, tokens)
+        chunked = _sp_step_run(torch, fa, torch.float32, None, tokens,
+                               chunks=SP_CHUNKS)
+        dloss = abs(chunked["losses"][0] - dense["losses"][0])
+        dparam = float((chunked["params"] - dense["params"]).abs().max())
+        if dloss > SP_CHUNK_LOSS_TOL or not chunked["peak_gib"] < dense[
+                "peak_gib"]:
+            raise AssertionError(
+                f"--vocab_chunks {SP_CHUNKS}: loss err {dloss} (tol "
+                f"{SP_CHUNK_LOSS_TOL}), step peak {chunked['peak_gib']:.3f} "
+                f"GiB against the dense head's {dense['peak_gib']:.3f}")
+        _print(f"[sp] --vocab_chunks {SP_CHUNKS} gpt_small f32 B=8 S=1024: "
+               f"loss {chunked['losses'][0]:.6f} (dense "
+               f"{dense['losses'][0]:.6f}, err {dloss}, tol "
+               f"{SP_CHUNK_LOSS_TOL}), param err {dparam} after one step, "
+               f"step peak above the state {chunked['peak_gib']:.3f} GiB "
+               f"against {dense['peak_gib']:.3f} (state "
+               f"{dense['state_gib']:.3f} GiB) [{smi}]")
+        del dense, chunked
+    finally:
+        reset_grid()
+    # the hop's shape: S 1024 over four ranks, non-causal off the diagonal
+    h = SP_HOP
+    q, k, v, do = _flash_inputs(torch, h["batch"], h["seq"], h["seq"],
+                                h["heads"], h["head_dim"], torch.bfloat16,
+                                seed=27)
+    kernels, plains, _, _ = _flash_calls(fa, q, k, v, do, False)
+    hop_err = _flash_errors(torch, kernels, plains, FLASH_TOL["bfloat16"])
+    hop, hop_dterm = _time_flash(torch, F, fa, q, k, v, do, False, rate)
+    for name, t in hop.items():
+        _print(f"[sp-hop] {name} bf16 non-causal B={h['batch']} "
+               f"H={h['heads']} S={h['seq']} Dh={h['head_dim']}: "
+               f"{t['ms']:.4f} ms (eager {t['eager_ms']:.4f}), "
+               f"{t['tflop_per_s']:.1f} TFLOP/s, bound {t['bound_ms']:.4f} "
+               f"ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+               f"{'SDPA' if name == 'flash_fwd' else 'SDPA backward'} "
+               f"{t['library_ms']:.4f} ms "
+               f"({t['ms'] / t['library_ms']:.3f}x), max|err| "
+               f"{hop_err[name]} [{smi}]")
+    _print(f"[sp-hop] flash_dterm {hop_dterm:.4f} ms [{smi}]")
+    del q, k, v, do
+    # gpt_lm_long's geometry on one card: the reference of the cross-card
+    # runs
+    long_tokens = _sp_tokens(torch, SP_LONG["batch"], SP_LONG["seq"],
+                             SP_LONG["steps"])
+    one = _sp_step_run(torch, fa, torch.bfloat16, None, long_tokens,
+                       steps=SP_LONG["steps"], max_seq_len=SP_LONG["seq"],
+                       profile=True)
+    _print(f"[sp-long] gpt_small bf16 max_seq_len {SP_LONG['seq']} "
+           f"B={SP_LONG['batch']} S={SP_LONG['seq']} plain step on one "
+           f"card: losses {one['losses']}, step {one['step_ms']:.2f} ms, "
+           f"peak above the state {one['peak_gib']:.3f} GiB (state "
+           f"{one['state_gib']:.3f}); profile {_sp_profile_text(one)} "
+           f"[{smi}]")
+    del one["params"]
+    return dict(launches=launches, hop=hop, hop_err=hop_err,
+                hop_dterm_ms=hop_dterm, long=one)
+
+
+def _sp_cli_rank(rank, world, port, argv, out_path):
+    """One NCCL rank of phase 27's CLI runs: ``train_lm.main(argv)``; each
+    rank writes its summary to ``{out_path}.{rank}``."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_multiprocessing_distributed_tpu_torch import train_lm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = train_lm.main(argv + ["--save_path", tmp])
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(summary, f)
+
+
+def _sp_long_rank(rank, world, port, out_path):
+    """One NCCL rank of phase 27's gpt_lm_long runs: the SP step at degree
+    ``world`` in each mode; each rank writes its numbers to
+    ``{out_path}.{rank}``."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    fa = importlib.import_module(
+        "pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention")
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import dist
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid)
+
+    dist.init_process("cuda")
+    make_grid(1, world, axis="seq")
+    tokens = _sp_tokens(torch, SP_LONG["batch"], SP_LONG["seq"],
+                        SP_LONG["steps"], dist.device_for_rank("cuda"))
+    out = {}
+    for mode in SP_MODES:
+        run = _sp_step_run(torch, fa, torch.bfloat16, mode, tokens,
+                           steps=SP_LONG["steps"],
+                           max_seq_len=SP_LONG["seq"], profile=True)
+        del run["params"]
+        out[mode] = run
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _sp_cross_card(torch, one, smi):
+    """Phase 27 across W = min(cards, 4) cards: the CLI in each mode
+    beside ``--parallel dp``, then gpt_lm_long's geometry through the SP
+    step beside the one-card plain step ``one``."""
+    cards = torch.cuda.device_count()
+    world = min(cards, SP_MAX_RANKS)
+    if world < 2:
+        _print(f"[sp] {cards} card visible: the CLI at degree W and "
+               "gpt_lm_long's geometry across cards need two or more "
+               "(python3 chip_smoke.py --sp-only where four are visible)")
+        return None
+    tokens = SP_SHAPE["batch"] * SP_SHAPE["seq"] * SP_CLI_STEPS + 1
+    argv = ["--model", "gpt_small", "--dtype", "bfloat16", "--batch_size",
+            str(SP_SHAPE["batch"]), "--seq_len", str(SP_SHAPE["seq"]),
+            "--epochs", "1", "--lr", str(SP_LR), "--corpus_tokens",
+            str(tokens), "--print_freq", "1", "--seed", "0"]
+    cli = {}
+    for mode in ("dp",) + SP_MODES:
+        extra = (["--parallel", "dp"] if mode == "dp" else
+                 ["--parallel", "sp", "--degree", str(world), "--sp_mode",
+                  mode])
+        t0 = time.perf_counter()
+        ranks = _run_ranks(_sp_cli_rank, world, (argv + extra,),
+                           per_rank=True)
+        wall = time.perf_counter() - t0
+        for r, summary in enumerate(ranks):
+            want = {n: c * SP_CLI_STEPS for n, c in _sp_launches_want(
+                mode, world, r).items()}
+            if summary["launches"] != want or summary["steps"] != \
+                    SP_CLI_STEPS:
+                raise AssertionError(
+                    f"train_lm {mode} rank {r}: {summary['steps']} steps, "
+                    f"flash launches {summary['launches']}, the schedule "
+                    f"wants {want} in {SP_CLI_STEPS} steps")
+        first = ranks[0]["first_loss"]
+        if not math.isfinite(first):
+            raise AssertionError(f"train_lm {mode}: first loss {first}")
+        peaks = [s["peak_memory_bytes"] / 2 ** 30 for s in ranks]
+        cli[mode] = dict(first_loss=first, peaks=peaks,
+                         tokens_per_sec=ranks[0]["tokens_per_sec"],
+                         launches=[s["launches"] for s in ranks])
+        _print(f"[sp-cli] train_lm gpt_small bf16 B=8 S=1024 "
+               f"{' '.join(extra)} on {world} ranks ({ranks[0]['grid']} "
+               f"grid): first loss {first:.6f}, epoch loss "
+               f"{ranks[0]['epoch_losses'][0]:.6f}, tokens/s "
+               f"{ranks[0]['tokens_per_sec']:.1f}, steady step "
+               f"{(ranks[0]['steady_step_s'] or 0) * 1e3:.2f} ms, peak a "
+               f"card {[round(p, 3) for p in peaks]} GiB, launches a rank "
+               f"{[s['launches']['flash_fwd'] for s in ranks]} (fwd) in "
+               f"{SP_CLI_STEPS} steps, wall {wall:.1f} s [{smi}]")
+    for mode in SP_MODES:
+        if abs(cli[mode]["first_loss"] - cli["dp"]["first_loss"]) > \
+                SP_LONG_LOSS_TOL:
+            raise AssertionError(
+                f"train_lm sp {mode}: first loss {cli[mode]['first_loss']} "
+                f"against dp {cli['dp']['first_loss']} (tol "
+                f"{SP_LONG_LOSS_TOL})")
+    ranks = _run_ranks(_sp_long_rank, world, (), per_rank=True)
+    long = {}
+    for mode in SP_MODES:
+        for r, got in enumerate(ranks):
+            want = _sp_launches_want(mode, world, r)
+            if got[mode]["launches"] != want:
+                raise AssertionError(
+                    f"gpt_lm_long {mode} rank {r}: one step launched "
+                    f"{got[mode]['launches']}, the schedule wants {want}")
+        run = ranks[0][mode]
+        errs = [abs(a - b) for a, b in zip(run["losses"], one["losses"])]
+        if errs[0] > SP_LONG_LOSS_TOL or errs[1] > SP_LONG_LOSS_TOL:
+            raise AssertionError(
+                f"gpt_lm_long {mode} at degree {world}: losses "
+                f"{run['losses']} against one card's {one['losses']} (tol "
+                f"{SP_LONG_LOSS_TOL})")
+        peaks = [g[mode]["peak_gib"] for g in ranks]
+        long[mode] = dict(losses=run["losses"], step_ms=run["step_ms"],
+                          peaks=peaks)
+        _print(f"[sp-long] gpt_small bf16 B={SP_LONG['batch']} "
+               f"S={SP_LONG['seq']} sp_mode={mode} degree {world}: losses "
+               f"{run['losses']} (one card {one['losses']}, errs {errs}, "
+               f"tol {SP_LONG_LOSS_TOL}), step {run['step_ms']:.2f} ms (one "
+               f"card {one['step_ms']:.2f}), peak above the state a card "
+               f"{[round(p, 3) for p in peaks]} GiB (one card "
+               f"{one['peak_gib']:.3f}); rank 0's profile "
+               f"{_sp_profile_text(run)} [{smi}]")
+    return dict(world=world, cli=cli, long=long)
+
+
+def _sp_phase(torch, fa, F, rate, smi):
+    """Phase 27 (see the module docstring)."""
+    one = _sp_one_card(torch, fa, F, rate, smi)
+    one["cross"] = _sp_cross_card(torch, one["long"], smi)
+    return one
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2115,6 +2533,11 @@ def main() -> int:
     if "--gspmd-only" in sys.argv[1:]:
         _gspmd_phase(torch, image_main, smi)
         _print(f"[total] chip_smoke --gspmd-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--sp-only" in sys.argv[1:]:
+        _sp_phase(torch, fa, F, rate, smi)
+        _print(f"[total] chip_smoke --sp-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3314,6 +3737,9 @@ def main() -> int:
 
     # -- phase 26: the GSPMD placements through main, across the cards
     _gspmd_phase(torch, image_main, smi)
+
+    # -- phase 27: sequence parallelism, one card and across the cards
+    sp = _sp_phase(torch, fa, F, rate, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -3349,7 +3775,14 @@ def main() -> int:
                "head_dim_ms": _by_head_dim(hd_times, FLASH_ROWS[name])}),
         **({f"vit_{key}": vit_fwd[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-           if (tname, name) == ("bfloat16", "flash_fwd") else {})}
+           if (tname, name) == ("bfloat16", "flash_fwd") else {}),
+        **({"sp_launches_per_step": {mode: sp["launches"][mode][name]
+                                     for mode in SP_MODES},
+            **{f"hop_{key}": sp["hop"][name][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "hop_max_abs_err": sp["hop_err"][name],
+            "hop_shape": "bf16 non-causal B8 H12 S256 Dh64"}
+           if tname == "bfloat16" else {})}
         for tname, kernels_of, launches_of in (
             ("bfloat16", FLASH_KERNELS, train_launches),
             ("float32", FLASH_KERNELS_F32, train_launches_f32))

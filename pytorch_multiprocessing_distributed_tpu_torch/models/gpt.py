@@ -25,9 +25,17 @@ The math helpers below (:func:`_ln`, :func:`_dense`, :func:`_ffn`,
 so the cached decode path and the model's forward cannot drift; the
 serving prefill keeps the plain attention of :func:`_block_prefill`.
 
-Not in this slice (each raises ``NotImplementedError``): sequence
-parallelism (``seq_axis``) and MoE feed-forward (``n_experts > 0``) —
-ROADMAP.md "Port: modules still to port".
+Sequence parallelism: ``seq_axis`` names the grid axis
+(:func:`..parallel.mesh.make_grid` with ``axis="seq"``) the sequence is
+split over. Tokens arrive as this rank's slice of the global sequence,
+the position table is sliced to match (two chunks under ``sp_mode=
+"zigzag"``), and attention runs :func:`..parallel.ring_attention
+.ring_attention` (``"ring"``, ``"zigzag"``) or :func:`..parallel
+.ulysses.ulysses_attention` (``"ulysses"``), whatever ``attn_impl``
+says; every other op is per position and stays local.
+
+Not in this slice: MoE feed-forward (``n_experts > 0`` raises
+``NotImplementedError``) — ROADMAP.md "Port: modules still to port".
 """
 
 from __future__ import annotations
@@ -39,7 +47,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..parallel.mesh import axis as grid_axis
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
 from .registry import register
+
+SP_MODES = ("ring", "zigzag", "ulysses")
 
 _NOT_PORTED = ("is not ported to PyTorch yet (ROADMAP.md, 'Port: modules "
                "still to port')")
@@ -130,16 +143,19 @@ def _causal_xla(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
 
 
-def _block(p: Block, x, h: int, dtype, eps: float, attn_impl: str):
+def _block(p: Block, x, h: int, dtype, eps: float, attn_impl):
     """One block over ``x`` ``[B, S, D]``; returns ``(y, k, v)`` with
     k/v ``[B, S, H, Dh]`` in ``dtype``. ``attn_impl="flash"`` runs
     :func:`..ops.flash_attention.flash_attention` on the views of the
-    fused QKV projection (read in place by the kernels)."""
+    fused QKV projection (read in place by the kernels); a callable
+    ``attn_impl(q, k, v)`` is the sequence-parallel attention."""
     b, s, _ = x.shape
     hn = _ln(x, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
     q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
-    if attn_impl == "flash":
+    if callable(attn_impl):
+        att = attn_impl(q, k, v)
+    elif attn_impl == "flash":
         att = flash_attention(q, k, v, causal=True)
     else:
         att = _causal_xla(q, k, v)
@@ -174,22 +190,25 @@ def _logits(model: "GPT", x, eps: float):
 
 class GPT(nn.Module):
     """Decoder-only LM. ``forward(tokens [B, S])`` -> f32 logits
-    ``[B, S, vocab]``."""
+    ``[B, S, vocab]`` (under ``seq_axis``, ``S`` is this rank's slice of
+    the global sequence)."""
 
     def __init__(self, vocab_size: int = 50257, max_seq_len: int = 1024,
                  hidden_size: int = 768, num_layers: int = 12,
                  num_heads: int = 12, mlp_dim: int = 3072,
                  dtype: torch.dtype = torch.float32,
                  attn_impl: str = "flash", seq_axis: Optional[str] = None,
-                 n_experts: int = 0, ln_eps: float = 1e-6,
-                 head_bias: bool = True):
+                 sp_mode: str = "ring", n_experts: int = 0,
+                 ln_eps: float = 1e-6, head_bias: bool = True):
         super().__init__()
         if attn_impl not in ("flash", "xla"):
             raise ValueError(
                 f"attn_impl must be 'flash' or 'xla', got {attn_impl!r}")
-        if seq_axis is not None:
-            raise NotImplementedError(
-                f"sequence parallelism (seq_axis) {_NOT_PORTED}")
+        if seq_axis is not None and sp_mode not in SP_MODES:
+            raise ValueError(
+                f"sp_mode must be 'ring', 'zigzag' or 'ulysses', got "
+                f"{sp_mode!r} (a typo would otherwise silently benchmark "
+                "the wrong strategy)")
         if n_experts:
             raise NotImplementedError(
                 f"MoE feed-forward (n_experts > 0) {_NOT_PORTED}")
@@ -205,6 +224,8 @@ class GPT(nn.Module):
         self.mlp_dim = mlp_dim
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.seq_axis = seq_axis
+        self.sp_mode = sp_mode
         self.ln_eps = ln_eps
         self.embed = _meta(vocab_size, hidden_size)
         self.pos_embed = _meta(max_seq_len, hidden_size)
@@ -224,15 +245,66 @@ class GPT(nn.Module):
     def block(self, i: int) -> Block:
         return getattr(self, f"block_{i}")
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        s = tokens.shape[1]
-        if s > self.max_seq_len:
+    def clone(self, **overrides) -> "GPT":
+        """The same model with ``overrides`` (e.g. ``seq_axis=None``, the
+        dense model a sequence-parallel run samples with), sharing this
+        model's parameter storage."""
+        kw = dict(vocab_size=self.vocab_size, max_seq_len=self.max_seq_len,
+                  hidden_size=self.hidden_size, num_layers=self.num_layers,
+                  num_heads=self.num_heads, mlp_dim=self.mlp_dim,
+                  dtype=self.dtype, attn_impl=self.attn_impl,
+                  seq_axis=self.seq_axis, sp_mode=self.sp_mode,
+                  ln_eps=self.ln_eps, head_bias=self.head.bias is not None)
+        kw.update(overrides)
+        other = GPT(**kw)
+        other.load_state_dict(self.state_dict(), assign=True)
+        return other
+
+    def _positions(self, s: int) -> torch.Tensor:
+        """This rank's rows of the position table for ``s`` local
+        tokens."""
+        if self.seq_axis is None:
+            if s > self.max_seq_len:
+                raise ValueError(
+                    f"sequence {s} exceeds max_seq_len={self.max_seq_len}")
+            return self.pos_embed[:s]
+        ax = grid_axis(self.seq_axis)
+        n, idx = ax.size, ax.index
+        if s * n > self.max_seq_len:
             raise ValueError(
-                f"sequence {s} exceeds max_seq_len={self.max_seq_len}")
-        x = _embed(self, tokens, self.dtype)
+                f"global sequence {s} x {n} shards = {s * n} exceeds "
+                f"max_seq_len={self.max_seq_len}")
+        if self.sp_mode == "zigzag":
+            # chunks idx and 2N-1-idx of the 2N-chunked sequence
+            c = s // 2
+            j = 2 * n - 1 - idx
+            return torch.cat([self.pos_embed[idx * c:(idx + 1) * c],
+                              self.pos_embed[j * c:(j + 1) * c]])
+        return self.pos_embed[idx * s:(idx + 1) * s]
+
+    def _attention(self):
+        if self.seq_axis is None:
+            return self.attn_impl
+        if self.sp_mode == "ulysses":
+            return lambda q, k, v: ulysses_attention(
+                q, k, v, axis_name=self.seq_axis, causal=True)
+        zigzag = self.sp_mode == "zigzag"
+        return lambda q, k, v: ring_attention(
+            q, k, v, axis_name=self.seq_axis, causal=True, zigzag=zigzag)
+
+    def forward(self, tokens: torch.Tensor,
+                return_hidden: bool = False) -> torch.Tensor:
+        """f32 logits, or with ``return_hidden=True`` the f32 hiddens
+        after the final LayerNorm ``[B, S, D]`` (the input of
+        :func:`..ops.losses.chunked_lm_ce`)."""
+        pos = self._positions(tokens.shape[1])
+        x = self.embed[tokens].to(self.dtype) + pos.to(self.dtype)
+        attn = self._attention()
         for i in range(self.num_layers):
             x, _, _ = _block(self.block(i), x, self.num_heads, self.dtype,
-                             self.ln_eps, self.attn_impl)
+                             self.ln_eps, attn)
+        if return_hidden:
+            return _ln(x, self.ln_final, self.ln_eps).float()
         return _logits(self, x, self.ln_eps).float()
 
 

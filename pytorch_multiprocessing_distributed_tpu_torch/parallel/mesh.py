@@ -2,6 +2,11 @@
 ``parallel/mesh.py``: ``make_mesh``, ``DATA_AXIS``, ``MODEL_AXIS``,
 ``data_axis_size``).
 
+The second axis takes the name its caller gives it, as ``make_mesh``'s
+``axis_names`` does: ``model`` for the image trainer's placements,
+``seq`` for ``train_lm --parallel sp`` (:func:`axis` hands the sequence
+axis to ring and Ulysses attention).
+
 JAX lays ``world_size x model_parallel`` devices out as
 ``devices.reshape(world_size, model_parallel)``. The port runs one
 process per rank, so the grid is the process group itself, read in the
@@ -28,6 +33,7 @@ from .dist import get_rank, get_world_size
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
 
 
 @dataclass(frozen=True)
@@ -42,6 +48,7 @@ class Grid:
     data: int
     model: int
     rank: int = 0
+    axis: str = MODEL_AXIS  # the second axis's name
 
     @property
     def data_group(self):
@@ -49,7 +56,8 @@ class Grid:
 
     @property
     def model_group(self):
-        return _GROUPS.get("model")
+        """The second axis's group (``model`` or ``seq``)."""
+        return _GROUPS.get("second")
 
     @property
     def size(self) -> int:
@@ -72,15 +80,33 @@ class Grid:
                                              else None)
 
 
+@dataclass(frozen=True)
+class Axis:
+    """One rank's view of a named grid axis: its ``size``, this rank's
+    ``index`` on it, the global ranks along it in axis order (``ranks``)
+    and its ``group`` (None: the whole process group, or one rank)."""
+
+    name: str
+    size: int
+    index: int
+    ranks: tuple
+
+    @property
+    def group(self):
+        return _GROUPS.get("data" if self.name == DATA_AXIS else "second")
+
+
 _GRID: Optional[Grid] = None
-_GROUPS: dict = {}  # this rank's "data" and "model" subgroups
+_GROUPS: dict = {}  # this rank's "data" and second-axis subgroups
 
 
-def make_grid(world_size: int, model_parallel: int = 1) -> Grid:
+def make_grid(world_size: int, model_parallel: int = 1,
+              axis: str = MODEL_AXIS) -> Grid:
     """The grid of this process group (one process: a 1 x 1 grid). The
     group must hold exactly ``world_size * model_parallel`` ranks. Every
     rank calls it (``new_group`` is collective). Sets the grid that
-    :func:`data_group` and :func:`data_size` read."""
+    :func:`data_group` and :func:`data_size` read; ``axis`` names the
+    second axis (``model`` or ``seq``)."""
     global _GRID
     reset_grid()
     if world_size < 1 or model_parallel < 1:
@@ -104,8 +130,8 @@ def make_grid(world_size: int, model_parallel: int = 1) -> Grid:
             g = tdist.new_group(list(range(d * model_parallel,
                                            (d + 1) * model_parallel)))
             if rank // model_parallel == d:
-                _GROUPS["model"] = g
-    _GRID = Grid(world_size, model_parallel, rank)
+                _GROUPS["second"] = g
+    _GRID = Grid(world_size, model_parallel, rank, axis)
     return _GRID
 
 
@@ -125,6 +151,30 @@ def data_group():
     """The group BatchNorm and the gradients reduce over: the grid's
     data group, else the whole process group (None)."""
     return None if _GRID is None else _GRID.data_group
+
+
+def axis(name: str) -> Axis:
+    """The grid axis ``name`` at this rank (``data`` or the grid's second
+    axis). Without a grid the data axis is the whole process group and
+    any other axis raises, as an unbound ``axis_name`` does in JAX."""
+    if _GRID is None:
+        if name == DATA_AXIS:
+            n = get_world_size()
+            return Axis(name, n, get_rank(), tuple(range(n)))
+        raise ValueError(
+            f"no grid axis {name!r}: build the grid with make_grid(dp, "
+            f"degree, axis={name!r}) first")
+    g = _GRID
+    if name == DATA_AXIS:
+        ranks = tuple(range(g.model_index, g.size, g.model))
+        return Axis(name, g.data, g.data_index, ranks)
+    if name != g.axis:
+        raise ValueError(
+            f"the grid's axes are {DATA_AXIS!r} and {g.axis!r}, not "
+            f"{name!r}")
+    first = g.data_index * g.model
+    return Axis(name, g.model, g.model_index,
+                tuple(range(first, first + g.model)))
 
 
 def data_size() -> int:

@@ -36,6 +36,7 @@ GROUPS = (
     ("flash attention (ours)", ("flash_fwd", "flash_bwd")),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "cutlass", "xmma", "sm90_",
                          "cublas", "gemv", "nvjet")),
+    ("NCCL (collectives, point-to-point)", ("nccl",)),
     ("reductions / softmax", ("reduce", "Reduce", "softmax", "logsumexp",
                               "LogSumExp")),
     ("index / embedding", ("index", "Index", "gather", "scatter",

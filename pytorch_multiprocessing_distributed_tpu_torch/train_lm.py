@@ -1,6 +1,6 @@
-"""Language-model training CLI, data parallel — the port of the JAX
-package's ``train_lm.py`` in ``--parallel dp`` mode, on the card by
-default.
+"""Language-model training CLI, data and sequence parallel — the port
+of the JAX package's ``train_lm.py`` in ``--parallel dp`` and
+``--parallel sp`` modes, on the card by default.
 
     python -m pytorch_multiprocessing_distributed_tpu_torch.train_lm \\
         --model gpt_small --dtype bfloat16 --batch_size 8 --seq_len 1024 \\
@@ -14,16 +14,21 @@ Artifacts are the JAX CLI's: the ``Epoch: [e][i/n]`` print lines,
 (the port's own payload, see :mod:`.train.checkpoint`) with ``.sha256``
 sidecars, ``--resume PATH|auto`` and a greedy ``--sample``.
 
-Data parallel over processes: start one process per rank with the JAX
-package's env contract (``PMDT_MASTER_ADDR``, ``PMDT_WORLD_SIZE``,
-``PMDT_RANK``; :mod:`.parallel.dist`). Each rank trains on its rows of
-the global ``--batch_size``; gradients are summed over NCCL (gloo on the
-CPU).
+One process per rank, with the JAX package's env contract
+(``PMDT_MASTER_ADDR``, ``PMDT_WORLD_SIZE``, ``PMDT_RANK``;
+:mod:`.parallel.dist`): NCCL on the cards, gloo on the CPU. Under
+``--parallel dp`` each rank trains on its rows of the global
+``--batch_size``. ``--parallel sp --degree N --sp_mode
+ring|zigzag|ulysses`` lays the ranks out as JAX's ``(data, seq)`` mesh,
+``world / N`` by ``N`` row-major (rank ``r`` at data index ``r // N``,
+seq index ``r % N``): a rank takes its data index's rows and its seq
+index's columns, attention runs over the ring (or Ulysses' all-to-all)
+of its seq group, and gradients are summed over every rank.
+``--vocab_chunks K`` streams the head and CE over K vocab slices.
 
-Flags of the JAX CLI this slice does not port (sequence, tensor and
-pipeline parallelism, MoE, ZeRO/FSDP, chunked CE, remat, orbax, HF
-interop, beam sampling, supervised restarts, the observability
-exporters) are rejected by name.
+Flags of the JAX CLI this slice does not port (tensor and pipeline
+parallelism, MoE, ZeRO/FSDP, remat, orbax, HF interop, beam sampling,
+supervised restarts, the observability exporters) are rejected by name.
 """
 
 from __future__ import annotations
@@ -43,9 +48,12 @@ from .device import resolve_device
 from .models import get_model
 from .ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
 from .parallel import dist
+from .parallel.mesh import make_grid
+from .parallel.ulysses import _check_heads
 from .serving.params import init_params
 from .train import (create_lm_train_state, local_rows, make_lm_eval_step,
                     make_lm_train_step, to_device)
+from .train.lm import seq_columns
 from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, prune_checkpoints,
                                resolve_auto_resume, save_checkpoint)
@@ -55,7 +63,7 @@ from .utils import Logger, throughput
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="PyTorch/CUDA GPT training (data parallel)")
+        description="PyTorch/CUDA GPT training (data and sequence parallel)")
     p.add_argument('--model', default='gpt_tiny', type=str,
                    help='gpt_tiny | gpt_small | gpt_medium')
     p.add_argument('--device', default='cuda', type=str,
@@ -128,14 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, is it set?) for every JAX flag this slice does not port
 _NOT_PORTED = (
-    ('--parallel', lambda a: a.parallel != 'dp'),
-    ('--degree', lambda a: a.degree > 1),
     ('--n_experts', lambda a: a.n_experts != 0),
     ('--moe_top_k', lambda a: a.moe_top_k != 1),
     ('--zero', lambda a: a.zero),
     ('--zero1', lambda a: a.zero1),
     ('--fsdp', lambda a: a.fsdp),
-    ('--vocab_chunks', lambda a: a.vocab_chunks > 1),
     ('--remat', lambda a: a.remat),
     ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
     ('--ckpt_async', lambda a: a.ckpt_async),
@@ -161,17 +166,27 @@ def _reject_not_ported(args) -> None:
 
 def _check_flags(args, model) -> None:
     """The JAX CLI's pre-run checks, in its order, for the flags this
-    slice keeps."""
+    slice keeps; ``--parallel tp|pp`` is rejected by name after the
+    checks JAX runs before it."""
     if args.seq_len > model.max_seq_len:
         raise SystemExit(
             f"--seq_len {args.seq_len} exceeds the model's max_seq_len "
             f"{model.max_seq_len}")
     if args.save_every < 0:
         raise SystemExit(f'--save_every must be >= 0, got {args.save_every}')
-    if args.pp_schedule != 'gpipe':
+    if args.pp_schedule != 'gpipe' and args.parallel != 'pp':
         raise SystemExit(
             f"--pp_schedule {args.pp_schedule} only applies to --parallel "
             f"pp (got --parallel {args.parallel})")
+    if args.vocab_chunks > 1 and args.parallel in ('tp', 'pp'):
+        raise SystemExit(
+            '--vocab_chunks streams the head inside the dp/sp step '
+            '(tp shards the head over the model axis; pp computes a '
+            'vocab-parallel LSE already)')
+    if args.parallel in ('tp', 'pp'):
+        raise SystemExit(
+            "--parallel is not ported to PyTorch yet (ROADMAP.md, 'Port: "
+            "modules still to port'); use the JAX CLI train_lm.py for it")
     if args.val_frac and not 0.0 < args.val_frac < 1.0:
         raise SystemExit(
             f"--val_frac must be in (0, 1), got {args.val_frac}")
@@ -179,6 +194,24 @@ def _check_flags(args, model) -> None:
         raise SystemExit(
             f"--seq_len {args.seq_len} + --sample {args.sample} exceeds "
             f"max_seq_len {model.max_seq_len}")
+
+
+def _check_grid(args, model, world: int) -> int:
+    """The JAX CLI's checks of the ranks against ``--degree`` and of the
+    sequence against the seq axis, in its order; returns the degree
+    (1 under ``--parallel dp``, which ignores ``--degree`` as JAX
+    does)."""
+    deg = args.degree if args.parallel == 'sp' else 1
+    if deg < 1 or world % deg:
+        raise SystemExit(f"{world} ranks not divisible by --degree {deg}")
+    if args.parallel == 'sp':
+        try:
+            seq_columns(args.seq_len, deg, 0, args.sp_mode == 'zigzag')
+            if args.sp_mode == 'ulysses':
+                _check_heads(model.num_heads, deg)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    return deg
 
 
 def _load_tokens(args, vocab_size):
@@ -224,12 +257,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns a
     summary: per-epoch train and val losses, the first printed loss,
     steps, tokens/s and the steady step time (host clock, synced at the
-    print boundaries), and the kernels' launches during the run."""
+    print boundaries), the kernels' launches on this rank during the
+    run, the ``[data, seq]`` grid and this rank's place, and on the card
+    its peak memory."""
     args = build_parser().parse_args(
         sys.argv[1:] if argv is None else list(argv))
     _reject_not_ported(args)
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
-    model = get_model(args.model, dtype=dtype)
+    sp = args.parallel == 'sp'
+    model_kw = dict(seq_axis='seq', sp_mode=args.sp_mode) if sp else {}
+    model = get_model(args.model, dtype=dtype, **model_kw)
     _check_flags(args, model)
     if args.lr_schedule == 'cosine':
         lr = cosine_lr(args.lr, args.epochs,
@@ -246,6 +283,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     device = dist.device_for_rank(device)
     world = dist.get_world_size()
     primary = dist.is_primary()
+    deg = _check_grid(args, model, world)
+    # JAX's (data, seq) mesh, row-major: dp replicas of deg ranks each
+    grid = make_grid(world // deg, deg, axis='seq')
+    dp = grid.data
+    seq_axis = 'seq' if sp else None
 
     tokens, corpus_is_text = _load_tokens(args, model.vocab_size)
     val_loader = None
@@ -259,21 +301,28 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 "fraction")
         tokens, val_tokens = tokens[:-n_val], tokens[-n_val:]
         val_loader = TokenLoader(val_tokens, batch_size=args.batch_size,
-                                 seq_len=args.seq_len, world_size=world,
+                                 seq_len=args.seq_len, world_size=dp,
                                  shuffle=False, seed=args.seed)
     loader = TokenLoader(tokens, batch_size=args.batch_size,
-                         seq_len=args.seq_len, world_size=world,
+                         seq_len=args.seq_len, world_size=dp,
                          seed=args.seed)
-    if (args.batch_size // world) % args.grad_accum:
+    if (args.batch_size // dp) % args.grad_accum:
         raise SystemExit(
             f"global batch {args.batch_size} must divide by data-parallel "
-            f"size x grad_accum = {world} x {args.grad_accum}")
+            f"size x grad_accum = {dp} x {args.grad_accum}")
+
+    def rows(batch):
+        """This rank's rows of a global batch, on the device."""
+        return to_device(local_rows(batch, grid.data_index, dp), device)
 
     state = create_lm_train_state(
         model, init_params(model, args.seed, device))
     step = make_lm_train_step(model, sgd(learning_rate=lr),
-                              grad_accum=args.grad_accum)
-    eval_step = make_lm_eval_step(model) if val_loader is not None else None
+                              grad_accum=args.grad_accum, seq_axis=seq_axis,
+                              vocab_chunks=args.vocab_chunks)
+    eval_step = (make_lm_eval_step(model, seq_axis=seq_axis,
+                                   vocab_chunks=args.vocab_chunks)
+                 if val_loader is not None else None)
 
     start_epoch = 1
     if args.resume:
@@ -299,9 +348,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     test_logger = (Logger(os.path.join(args.save_path, 'test.log'))
                    if val_loader is not None else None)
     launches0 = _launches()
+    if device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(device)
     summary = {"epoch_losses": [], "val_losses": [], "first_loss": None,
                "steps": 0, "skipped": 0, "train_s": 0.0,
                "steady_step_s": None, "world_size": world,
+               "grid": [dp, deg], "rank": dist.get_rank(),
                "device": str(device)}
     steady = []  # (seconds, steps) between an epoch's first and last print
 
@@ -311,8 +363,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         t0, losses, seen = time.time(), 0.0, 0
         t_first = None
         for i, batch in enumerate(loader):
-            tok = to_device(local_rows(batch), device)
-            state, metrics = step(state, tok)
+            state, metrics = step(state, rows(batch))
             summary["steps"] += 1
             if i % args.print_freq == 0 or i == len(loader) - 1:
                 # the print boundary is the loop's one host sync
@@ -345,7 +396,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if eval_step is not None:
             tot, cnt = 0.0, 0.0
             for batch in val_loader:
-                m = eval_step(state, to_device(local_rows(batch), device))
+                m = eval_step(state, rows(batch))
                 c = float(m['count'])
                 tot, cnt = tot + float(m['loss']) * c, cnt + c
             vloss = tot / max(1.0, cnt)
@@ -373,8 +424,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
         prompt = torch.as_tensor(tokens[: args.seq_len][None, :],
                                  dtype=torch.long, device=device)
+        # the dense model, as JAX's model.clone(seq_axis=None)
+        dense = model.clone(seq_axis=None) if sp else model
         with torch.no_grad():
-            out = generate(model, prompt, max_new_tokens=args.sample)
+            out = generate(dense, prompt, max_new_tokens=args.sample)
         if primary:
             ids = out[0, -args.sample:].tolist()
             print("sample:", ids)
@@ -391,6 +444,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if steady:
         summary["steady_step_s"] = (sum(s for s, _ in steady)
                                     / sum(n for _, n in steady))
+    if device.type == 'cuda':
+        summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
+            device)
     dist.destroy_process_group()
     return summary
 

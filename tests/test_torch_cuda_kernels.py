@@ -66,6 +66,8 @@ from pytorch_multiprocessing_distributed_tpu_torch.train import (
 # the module (the package's ``decode_attention`` name is the function)
 verify_module = importlib.import_module(
     "pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention")
+flash_mod = importlib.import_module(
+    "pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -1388,3 +1390,72 @@ def test_gspmd_fsdp_two_cards_matches_plain(cuda_device, tmp_path):
         if isinstance(v, torch.Tensor):
             torch.testing.assert_close(got["fsdp"][k], v, atol=1e-5, rtol=0,
                                        msg=k)
+
+
+# ---- sequence parallelism (train_lm --parallel sp) on the card ----
+
+SP_GEOM = dict(vocab_size=257, max_seq_len=256, hidden_size=128,
+               num_layers=2, num_heads=4, mlp_dim=256)
+
+
+def _sp_step(dtype, mode, tokens):
+    """One step of a 2-layer GPT (plain DP for ``mode`` None, else the SP
+    step on the 1 x 1 grid in place): loss, params, flash launches."""
+    kw = {} if mode is None else dict(seq_axis="seq", sp_mode=mode)
+    model = GPT(**SP_GEOM, dtype=dtype, **kw)
+    state = create_lm_train_state(model, init_params(model, 0, "cuda"))
+    step = make_lm_train_step(model, sgd(0.01), seq_axis=kw.get("seq_axis"))
+    before = {n: getattr(flash_mod, n).launches
+              for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    _, m = step(state, tokens)
+    launches = {n: getattr(flash_mod, n).launches - c
+                for n, c in before.items()}
+    return float(m["loss"]), state.params.clone(), launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["ring", "zigzag", "ulysses"])
+def test_sp_degree_one_matches_plain_step(cuda_device, mode, dtype):
+    """A 1 x 1 ``(data, seq)`` grid on one card: one SP step from the
+    plain DP step's params. Ring and ulysses fold one block with weight 1
+    and give the plain step's bits; zigzag folds two halves a row (f32
+    within 1e-6 in params, bf16 within 1e-4); the flash kernels launch
+    per layer as the hop schedule says (1, 3, 1 each)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid, reset_grid)
+
+    tokens = torch.randint(0, 257, (2, 128),
+                           generator=torch.Generator().manual_seed(0)
+                           ).to(cuda_device)
+    make_grid(1, 1, axis="seq")
+    try:
+        loss0, p0, _ = _sp_step(dtype, None, tokens)
+        loss, p, launches = _sp_step(dtype, mode, tokens)
+    finally:
+        reset_grid()
+    per_layer = 3 if mode == "zigzag" else 1
+    assert launches == {n: 2 * per_layer for n in launches}
+    if mode == "zigzag":
+        tol = 1e-6 if dtype == torch.float32 else 1e-4
+        assert float((p - p0).abs().max()) <= tol
+        assert abs(loss - loss0) <= 100 * tol
+    else:
+        assert loss == loss0 and torch.equal(p, p0)
+
+
+def test_sp_attention_two_cards_matches_dense(cuda_device, tmp_path):
+    """Ring (causal and not), zigzag and ulysses at degree 2 over NCCL,
+    one rank a card, against the flash kernels on the whole sequence:
+    f32 within 2e-5 (the fold's and the gradient sums' order), bf16
+    within 4e-2 (bf16 outputs of each hop and of the whole)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from torch_image_worker import spawn_ranks
+    from torch_sp_worker import card_attention_rank
+
+    spawn_ranks(card_attention_rank, 2, (str(tmp_path),), timeout_s=300)
+    for rank in range(2):
+        errs = torch.load(tmp_path / f"{rank}.pt", weights_only=True)
+        for case, vals in errs.items():
+            tol = 2e-5 if case.endswith("float32") else 4e-2
+            assert max(vals) <= tol, (rank, case, vals)
