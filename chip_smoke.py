@@ -8,6 +8,9 @@
                                         # --fsdp, --model_parallel) alone
     python3 chip_smoke.py --sp-only  # phases 1 and 27 (train_lm
                                      # --parallel sp) alone
+    python3 chip_smoke.py --mp-only  # phases 1 and 28 (train_lm
+                                     # --parallel pp|tp, --zero, --remat)
+                                     # alone
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -304,8 +307,25 @@ nothing is caught):
    ring ``i + 1`` a layer a step on seq rank ``i``, zigzag ``2W + 1``,
    ulysses 1), then gpt_lm_long's geometry through the SP step at degree
    W in each mode beside the one-card DP step (losses within
-   ``SP_LONG_LOSS_TOL``, step time, peak memory a card). Then the run's
-   wall time.
+   ``SP_LONG_LOSS_TOL``, step time, peak memory a card).
+28. mp — ``train_lm``'s model-parallel modes on gpt_small, B 8 x S 1024,
+   ``MP_STEPS`` steps from seed 0's params. On one card, bf16 and f32:
+   the plain DP step, then at degree 1 the pipelined step (gpipe and
+   1f1b; within ``MP_PP_TOL`` of it), the tensor-parallel step (plain,
+   ``--zero1``, ``--fsdp``), ``--zero`` and ``--remat`` (each bit-equal
+   to it); each run's flash launches a step equal to the schedule's (12
+   a kernel, the forward 24 under 1f1b and remat), its resident bytes
+   equal to JAX's placement's (``MP_JAX_RESIDENT``), its peak memory and
+   step time. Across W cards (4 where four are visible, else 2; one
+   NCCL rank a card): pp (gpipe, 1f1b) and tp (plain, ``--zero1``,
+   ``--fsdp``) at degree 2 and W, bf16 and f32, each rank's launches and
+   resident bytes asserted, losses and params within ``MP_XCARD_TOL``
+   of the one-card plain step. Then ``train_lm --parallel pp|tp
+   --degree W`` through the CLI (one card: degree 1): an epoch with a
+   checkpoint, ``--resume auto`` into a second with ``--val_frac`` and
+   ``--sample 8`` at S 1016 (the sample fits max_seq_len; launches, the
+   resumed epoch and the sample asserted).
+   Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on the main path, error against the plain
@@ -321,13 +341,16 @@ variants and, at K1 = 5, for the verify variants, n = 4 loopback at
 ResNet-18's N for the ring, with its cross-card numbers at that N, at
 64 MiB and at 4 KiB, or nulls where phase 19 did not run; the
 attention rows also carry their Dh 48/64/96 times, ``head_dim_ms``,
-and the bf16 forward its ViT-shape numbers, ``vit_*``);
+and the bf16 forward its ViT-shape numbers, ``vit_*``; the bf16 flash
+entries carry each phase 28 run's launches a step,
+``mp_launches_per_step``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import io
 import itertools
@@ -335,6 +358,7 @@ import json
 import re
 import math
 import os
+import random
 import socket
 import statistics
 import subprocess
@@ -574,6 +598,59 @@ SP_CHUNK_LOSS_TOL = 1e-4
 # bf16 ring/ulysses across W cards against the one-card plain step: the
 # fold's rounding and another order of the gradient sums
 SP_LONG_LOSS_TOL = 2e-2
+# phase 28: train_lm's model-parallel modes on gpt_small at B 8 x S 1024
+# (bench.py's gpt_lm geometry), MP_STEPS SGD steps from seed 0's params.
+# Runs at degree 1 on one card; across W cards pp and tp at degree 2 and
+# W. The second grid axis of each kind: pp "pipe", tp and dp "model"
+MP_SHAPE = dict(batch=8, seq=1024)
+MP_STEPS = 3
+MP_AXES = {"dp": "model", "pp": "pipe", "tp": "model"}
+MP_ONE_CARD = ({"kind": "dp"}, {"kind": "pp", "schedule": "gpipe"},
+               {"kind": "pp", "schedule": "1f1b"}, {"kind": "tp"},
+               {"kind": "tp", "zero1": True}, {"kind": "tp", "fsdp": True},
+               {"kind": "dp", "zero": True}, {"kind": "dp", "remat": True})
+MP_CROSS = ({"kind": "pp", "schedule": "gpipe"},
+            {"kind": "pp", "schedule": "1f1b"}, {"kind": "tp"},
+            {"kind": "tp", "zero1": True}, {"kind": "tp", "fsdp": True})
+# pp at degree 1 against the plain step after MP_STEPS steps: the
+# pipelined steps' final LayerNorm takes the two-pass variance and their
+# CE the vocab-parallel log-sum-exp (JAX's gpt_pipeline); in bf16 their
+# embedding is rounded after the position add, the plain model's before
+MP_PP_TOL = {"float32": dict(loss=1e-5, param=1e-6),
+             "bfloat16": dict(loss=1e-3, param=2e-4)}
+# pp and tp across cards against one card's plain step: the reductions'
+# order, microbatched matmuls, and the pp differences above
+MP_XCARD_TOL = {"float32": dict(loss=1e-5, param=1e-6),
+                "bfloat16": dict(loss=1e-3, param=2e-4)}
+# the CLI: 2 train steps and 1 eval batch an epoch (25000 tokens, 34%
+# held out: 16 and 8 windows of 1016), S 1016 so that --sample 8 fits
+# max_seq_len 1024
+MP_CLI_MODES = (["--parallel", "pp"], ["--parallel", "tp", "--zero1"])
+MP_CLI_SEQ, MP_CLI_SAMPLE = 1016, 8
+MP_CLI_TOKENS, MP_CLI_VAL, MP_CLI_STEPS, MP_CLI_EVALS = 25000, 0.34, 2, 1
+# JAX's per-device bytes (params, one moment tree; f32) of gpt_small under
+# its placements, keyed by (kind, placement, data, degree): pp by
+# pipeline_specs on a (data, pipe) mesh, tp by state_shardings on a
+# (data, model) mesh, dp replicated
+MP_JAX_RESIDENT = {
+    ("dp", "plain", 1, 1): (652349764, 652349764),
+    ("pp", "plain", 1, 1): (652349764, 652349764),
+    ("pp", "plain", 1, 2): (327753892, 327753892),
+    ("pp", "plain", 2, 2): (327753892, 327753892),
+    ("pp", "plain", 1, 4): (165455956, 165455956),
+    ("tp", "plain", 1, 1): (652349764, 652349764),
+    ("tp", "zero1", 1, 1): (652349764, 652349764),
+    ("tp", "fsdp", 1, 1): (652349764, 652349764),
+    ("tp", "plain", 1, 2): (403470148, 403470148),
+    ("tp", "zero1", 1, 2): (403470148, 403470148),
+    ("tp", "fsdp", 1, 2): (403470148, 403470148),
+    ("tp", "plain", 2, 2): (403470148, 403470148),
+    ("tp", "zero1", 2, 2): (403470148, 240554308),
+    ("tp", "fsdp", 2, 2): (240554308, 240554308),
+    ("tp", "plain", 1, 4): (279030340, 279030340),
+    ("tp", "zero1", 1, 4): (279030340, 279030340),
+    ("tp", "fsdp", 1, 4): (279030340, 279030340),
+}
 
 
 def _print(*parts):
@@ -1578,6 +1655,27 @@ def _deterministic(torch):
     torch.backends.cudnn.benchmark = False
 
 
+def _store_port() -> int:
+    """A free port for the ranks' rendezvous store, outside the kernel's
+    ephemeral range where any is left: a rank still connecting before
+    rank 0 listens may draw the store's own port as its local port and
+    connect to itself, and rank 0 then cannot listen there."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        lo, hi = (int(x) for x in f.read().split())
+    outside = [p for p in range(10000, 65536) if not lo <= p <= hi]
+    for port in random.Random(os.getpid()).sample(outside,
+                                                  min(64, len(outside))):
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def _run_ranks(target, world, args, timeout_s=600, per_rank=False):
     """``target(rank, world, port, *args, out_path)`` in ``world``
     spawned processes, one a card, joined within ``timeout_s`` (every
@@ -1588,9 +1686,7 @@ def _run_ranks(target, world, args, timeout_s=600, per_rank=False):
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "summary.json")
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
+        port = _store_port()
         ctx = mp.start_processes(target, args=(world, port, *args, out),
                                  nprocs=world, join=False,
                                  start_method="spawn")
@@ -2475,6 +2571,429 @@ def _sp_phase(torch, fa, F, rate, smi):
     return one
 
 
+# ---- phase 28: train_lm's model-parallel modes -------------------------
+
+
+def _mp_launches_want(run, layers=12):
+    """Each flash kernel's launches a train step on any rank of ``run``:
+    one a layer for the forward and each backward kernel (a pipeline
+    stage runs L/N layers on each of its N microbatches); 1F1B and
+    ``remat`` run the forward a second time, rematerialized."""
+    twice = run.get("schedule") == "1f1b" or run.get("remat")
+    return {"flash_fwd": 2 * layers if twice else layers,
+            "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+
+
+def _mp_name(run):
+    flags = [k for k in ("zero1", "fsdp", "zero", "remat") if run.get(k)]
+    return "_".join([run["kind"]] + ([run["schedule"]] if "schedule" in run
+                                     else []) + flags)
+
+
+def _mp_state(torch, model, params, run, grid, opt):
+    """``run``'s state and train step on the grid already made."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import (
+        gpt_pipeline as gp)
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.zero import (
+        plan_buckets, zeroify_state)
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        create_lm_train_state, make_lm_train_step, make_lm_train_step_tp)
+    from pytorch_multiprocessing_distributed_tpu_torch.train.placement import (
+        plan_placement, shard_state)
+
+    if run["kind"] == "pp":
+        state = gp.create_pipelined_lm_state(model, params, grid.model)
+        step = gp.make_pipelined_lm_train_step(model, opt,
+                                               schedule=run["schedule"])
+        return state, step, state.resident_bytes()
+    if run["kind"] == "tp":
+        placement = plan_placement(model, grid.data, grid.model,
+                                   zero1=run.get("zero1", False),
+                                   fsdp=run.get("fsdp", False))
+        state = shard_state(create_lm_train_state(model, params), placement,
+                            grid)
+        nbytes = placement.resident_bytes()
+        del nbytes["batch_stats"]
+        return state, make_lm_train_step_tp(model, opt), nbytes
+    plan = plan_buckets(model, grid.size) if run.get("zero") else None
+    state = create_lm_train_state(model, params, plan=plan)
+    if plan is not None:
+        zeroify_state(state, plan, grid.rank)
+    step = make_lm_train_step(model, opt, remat=run.get("remat", False))
+    return state, step, {"params": 4 * state.n,
+                         "opt_state": 4 * state.momentum.numel()}
+
+
+def _mp_whole(state, run, vocab):
+    """The run's whole params on the host, under the GPT's names (a
+    collective)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import (
+        gpt_pipeline as gp)
+
+    if run["kind"] == "pp":
+        whole = gp.unstack_pipeline_params(state.stacked(state.params), vocab)
+    elif run["kind"] == "tp":
+        full = state.gathered()
+        whole = full.views(full.params)
+    else:
+        whole = state.views(state.params)
+    return {k: v.detach().cpu() for k, v in whole.items()}
+
+
+def _mp_run(torch, fa, dtype, run, params, tokens, grid, profile=False):
+    """``run`` (``kind`` dp|pp|tp with its flags) on gpt_small from
+    ``params`` over ``tokens`` ``[steps, B, S]`` (this rank takes its data
+    index's rows) on the grid already made: the losses, the whole params
+    after the last step, the first step's flash launches and peak memory
+    above the state, the later steps' period (host clock between
+    synchronizes), the resident bytes; with ``profile``, where two more
+    steps' device time goes (``profile_train_lm``'s groups, ms a step;
+    every rank of the grid must profile)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.train import sgd
+
+    model = get_model("gpt_small", dtype=dtype)
+    state, step, resident = _mp_state(
+        torch, model, {k: v.clone() for k, v in params.items()}, run, grid,
+        sgd(SP_LR))
+    b = tokens.shape[1] // grid.data
+    rows = tokens[:, grid.data_index * b:(grid.data_index + 1) * b]
+    for n in FLASH_PRODUCTS:
+        getattr(fa, n).launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(state, rows[0])[1]["loss"])]
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
+    # the later steps' period: host clock between two synchronizes, the
+    # ranks of a grid lined up first (a stage that finished its first
+    # step early would otherwise time its wait for the others)
+    if grid.size > 1:
+        import torch.distributed as tdist
+
+        tdist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [step(state, tok)[1] for tok in rows[1:]]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(1, len(metrics))
+    losses += [float(m["loss"]) for m in metrics]
+    out = dict(losses=losses, params=_mp_whole(state, run, model.vocab_size),
+               launches=launches, peak_gib=peak / 2 ** 30,
+               state_gib=base / 2 ** 30, resident=resident, step_ms=step_ms)
+    if profile:
+        from pytorch_multiprocessing_distributed_tpu_torch.profile_train_lm \
+            import profile_steps
+
+        step_s, kernels, groups = profile_steps(
+            lambda i: step(state, rows[-1]), 2)
+        out["profile"] = dict(
+            step_ms=step_s * 1e3,
+            busy_ms=sum(kernels.values()) / 1e3 / 2,
+            groups_ms={g: us / 1e3 / 2 for g, us in sorted(
+                groups.items(), key=lambda kv: -kv[1])})
+    del state, step, model
+    gc.collect()  # a placed model and its state refer to each other
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_err(a, b):
+    """The largest difference of two runs' whole params."""
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def _mp_check_resident(run, got, data, deg):
+    mode = next((k for k in ("zero1", "fsdp") if run.get(k)), "plain")
+    want = MP_JAX_RESIDENT[(run["kind"], mode, data, deg)]
+    if (got["params"], got["opt_state"]) != want:
+        raise AssertionError(
+            f"{_mp_name(run)} on ({data}, {deg}): resident bytes {got}, "
+            f"JAX's placement puts {want} on a device")
+    return want
+
+
+def _mp_one_card(torch, fa, smi):
+    """Phase 28 on one card: every mode at degree 1 against the plain DP
+    step from the same params, bf16 and f32. Returns the plain runs (the
+    cross-card reference) and each run's launches."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid, reset_grid)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        init_params)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tokens = _sp_tokens(torch, MP_SHAPE["batch"], MP_SHAPE["seq"], MP_STEPS)
+    plains, launches = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[1]
+        params = init_params(get_model("gpt_small"), 0, dev)
+        plain = None
+        for run in MP_ONE_CARD:
+            grid = make_grid(1, 1, axis=MP_AXES[run["kind"]])
+            try:
+                got = _mp_run(torch, fa, dtype, run, params, tokens, grid)
+            finally:
+                reset_grid()
+            name = _mp_name(run)
+            want = _mp_launches_want(run)
+            if got["launches"] != want:
+                raise AssertionError(
+                    f"{name} {tname} at degree 1 launched {got['launches']} "
+                    f"in one step, the schedule wants {want}")
+            launches[name] = got["launches"]
+            jax_bytes = _mp_check_resident(run, got["resident"], 1, 1)
+            if plain is None:
+                plain = got
+                verdict = "the reference"
+                dloss = dparam = 0.0
+            else:
+                dloss = max(abs(a - b) for a, b in zip(got["losses"],
+                                                       plain["losses"]))
+                dparam = _mp_err(got["params"], plain["params"])
+                if run["kind"] == "pp":
+                    tol = MP_PP_TOL[tname]
+                    if dloss > tol["loss"] or dparam > tol["param"]:
+                        raise AssertionError(
+                            f"{name} {tname} at degree 1: loss err {dloss}, "
+                            f"param err {dparam} after {MP_STEPS} steps, "
+                            f"past {tol}")
+                    verdict = f"within {tol}"
+                else:
+                    if dloss or dparam:
+                        raise AssertionError(
+                            f"{name} {tname} at degree 1 is not bit-equal "
+                            f"to the plain step: loss err {dloss}, param "
+                            f"err {dparam}")
+                    verdict = "bit-equal"
+            _print(f"[mp] gpt_small {tname} B={MP_SHAPE['batch']} "
+                   f"S={MP_SHAPE['seq']} {name} on a 1x1 grid: losses "
+                   f"{got['losses']} ({verdict}: loss err {dloss}, param "
+                   f"err {dparam} after {MP_STEPS} steps), launches a step "
+                   f"{got['launches']}, resident {got['resident']} B "
+                   f"(JAX {jax_bytes}), peak above the state "
+                   f"{got['peak_gib']:.3f} GiB (state "
+                   f"{got['state_gib']:.3f}), step {got['step_ms']:.2f} ms "
+                   f"[{smi}]")
+            if got is not plain:
+                del got
+        plains[tname] = plain
+        del params
+        torch.cuda.empty_cache()
+    return plains, launches
+
+
+def _mp_rank(rank, world, port, runs, ref_path, out_path):
+    """One NCCL rank of phase 28's cross-card runs: each run of ``runs``
+    (``(dtype name, run, degree)``) on its grid from seed 0's params;
+    rank 0 holds the whole params against the one-card plain run's
+    (``ref_path``). Each rank writes its numbers to ``{out_path}.{rank}``."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    fa = importlib.import_module(
+        "pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention")
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import dist
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid, reset_grid)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        init_params)
+
+    dist.init_process("cuda")
+    dev = dist.device_for_rank("cuda")
+    tokens = _sp_tokens(torch, MP_SHAPE["batch"], MP_SHAPE["seq"], MP_STEPS,
+                        dev)
+    ref = torch.load(ref_path, weights_only=True) if rank == 0 else None
+    params = init_params(get_model("gpt_small"), 0, dev)
+    out = []
+    for tname, run, deg in runs:
+        dtype = getattr(torch, tname)
+        grid = make_grid(world // deg, deg, axis=MP_AXES[run["kind"]])
+        t0 = time.perf_counter()
+        got = _mp_run(torch, fa, dtype, run, params, tokens, grid,
+                      profile=tname == "bfloat16" and deg == world)
+        reset_grid()
+        whole = got.pop("params")
+        if rank == 0:
+            got["param_err"] = _mp_err(whole, ref[tname])
+        got["wall_s"] = time.perf_counter() - t0
+        out.append(got)
+        del whole
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _mp_cross_card(torch, plains, smi):
+    """Phase 28 across W cards (4 where four are visible, else 2): pp at
+    degree 2 and W (gpipe and 1f1b) and tp at degree 2 and W (plain,
+    ``--zero1``, ``--fsdp``), bf16 and f32, against the one-card plain
+    step."""
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2 if cards >= 2 else 1
+    if world < 2:
+        _print(f"[mp] {cards} card visible: pp and tp at degree 2 and 4 "
+               "need two or more (python3 chip_smoke.py --mp-only where "
+               "four are visible)")
+        return None
+    degrees = sorted({2, world})
+    runs = [(tname, run, deg) for tname in ("bfloat16", "float32")
+            for deg in degrees for run in MP_CROSS]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "plain.pt")
+        torch.save({t: p["params"] for t, p in plains.items()}, ref_path)
+        t0 = time.perf_counter()
+        ranks = _run_ranks(_mp_rank, world, (runs, ref_path),
+                           timeout_s=900, per_rank=True)
+        wall = time.perf_counter() - t0
+    out = {}
+    for i, (tname, run, deg) in enumerate(runs):
+        name = _mp_name(run)
+        plain = plains[tname]
+        want = _mp_launches_want(run)
+        for r, got in enumerate(ranks):
+            if got[i]["launches"] != want:
+                raise AssertionError(
+                    f"{name} {tname} degree {deg} rank {r}: one step "
+                    f"launched {got[i]['launches']}, the schedule wants "
+                    f"{want}")
+            _mp_check_resident(run, got[i]["resident"], world // deg, deg)
+        got = ranks[0][i]
+        dloss = max(abs(a - b) for a, b in zip(got["losses"],
+                                               plain["losses"]))
+        tol = MP_XCARD_TOL[tname]
+        if dloss > tol["loss"] or got["param_err"] > tol["param"]:
+            raise AssertionError(
+                f"{name} {tname} at degree {deg} on {world} cards: loss err "
+                f"{dloss}, param err {got['param_err']} after {MP_STEPS} "
+                f"steps against one card's plain step, past {tol}")
+        peaks = [round(g[i]["peak_gib"], 3) for g in ranks]
+        steps = [round(g[i]["step_ms"], 2) for g in ranks]
+        out[f"{name}_{tname}_{world // deg}x{deg}"] = dict(
+            losses=got["losses"], loss_err=dloss,
+            param_err=got["param_err"], step_ms=steps, peak_gib=peaks,
+            resident=got["resident"], launches=got["launches"])
+        profiles = "".join(
+            f"; rank {r}'s profile {_sp_profile_text(g[i])}"
+            for r, g in enumerate(ranks) if "profile" in g[i])
+        _print(f"[mp-xcard] gpt_small {tname} B={MP_SHAPE['batch']} "
+               f"S={MP_SHAPE['seq']} {name} degree {deg} on a "
+               f"({world // deg}, {deg}) grid: losses {got['losses']} (one "
+               f"card {plain['losses']}), loss err {dloss}, param err "
+               f"{got['param_err']} after {MP_STEPS} steps (tol {tol}); "
+               f"step a rank {steps} ms (one card {plain['step_ms']:.2f}), "
+               f"peak above the state a rank {peaks} GiB (one card "
+               f"{plain['peak_gib']:.3f}), resident a rank "
+               f"{got['resident']} B, launches a step {got['launches']}"
+               f"{profiles} [{smi}]")
+    _print(f"[mp-xcard] {len(runs)} runs on {world} ranks: wall "
+           f"{wall:.1f} s [{smi}]")
+    return dict(world=world, runs=out)
+
+
+def _mp_cli(train_lm, torch, smi):
+    """``train_lm --parallel pp|tp --degree W`` through the CLI over the
+    W visible cards (one card: degree 1 in this process): an epoch with
+    a checkpoint, then ``--resume auto`` to a second one with
+    ``--val_frac`` and ``--sample``; the launches, the resume and the
+    sample asserted."""
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2 if cards >= 2 else 1
+    base = ["--model", "gpt_small", "--dtype", "bfloat16", "--batch_size",
+            str(MP_SHAPE["batch"]), "--seq_len", str(MP_CLI_SEQ),
+            "--lr", str(SP_LR), "--corpus_tokens", str(MP_CLI_TOKENS),
+            "--val_frac", str(MP_CLI_VAL), "--print_freq", "1", "--seed",
+            "0", "--degree", str(world)]
+    out = {}
+    for extra in MP_CLI_MODES:
+        name = "_".join(a.lstrip("-") for a in extra[1:])
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = []
+            for epochs, more in (("1", []), ("2", [
+                    "--resume", "auto", "--sample", str(MP_CLI_SAMPLE)])):
+                argv = base + extra + ["--epochs", epochs] + more
+                t0 = time.perf_counter()
+                if world == 1:
+                    ranks = [train_lm.main(argv + ["--save_path", tmp])]
+                else:
+                    ranks = _run_ranks(_mp_cli_rank, world, (argv, tmp),
+                                       per_rank=True)
+                runs.append((ranks, time.perf_counter() - t0))
+        run = {"schedule": "1f1b"} if "1f1b" in extra else {}
+        per_step = _mp_launches_want(run)
+        for ranks, _ in runs:
+            for r, summary in enumerate(ranks):
+                steps, evals = summary["steps"], MP_CLI_EVALS
+                want = {n: c * steps for n, c in per_step.items()}
+                want["flash_fwd"] += 12 * evals
+                if summary["launches"] != want or steps != MP_CLI_STEPS:
+                    raise AssertionError(
+                        f"train_lm {' '.join(extra)} rank {r}: {steps} "
+                        f"steps, launches {summary['launches']}, want "
+                        f"{want} ({MP_CLI_STEPS} steps, {evals} eval "
+                        "batches)")
+        second = runs[1][0][0]
+        if (len(second["epoch_losses"]) != 1
+                or len(second["sample"]) != MP_CLI_SAMPLE
+                or not all(math.isfinite(v) for v in
+                           second["epoch_losses"] + second["val_losses"])):
+            raise AssertionError(
+                f"train_lm {' '.join(extra)} --resume auto: epoch losses "
+                f"{second['epoch_losses']}, val {second['val_losses']}, "
+                f"sample {second.get('sample')} (want one resumed epoch, "
+                f"finite losses and {MP_CLI_SAMPLE} tokens)")
+        out[name] = dict(first=runs[0][0][0]["epoch_losses"][0],
+                         resumed=second["epoch_losses"][0],
+                         val=second["val_losses"][0], sample=second["sample"],
+                         peaks=[s.get("peak_memory_bytes", 0) / 2 ** 30
+                                for s in runs[1][0]],
+                         resident=[s["resident_bytes"] for s in runs[1][0]],
+                         tokens_per_sec=second["tokens_per_sec"])
+        _print(f"[mp-cli] train_lm gpt_small bf16 B={MP_SHAPE['batch']} "
+               f"S={MP_CLI_SEQ} {' '.join(extra)} "
+               f"--degree {world} on {world} rank(s): epoch 1 loss "
+               f"{out[name]['first']:.6f} (wall {runs[0][1]:.1f} s), "
+               f"resumed epoch 2 loss {out[name]['resumed']:.6f}, val "
+               f"{out[name]['val']:.6f}, sample {second['sample']}, "
+               f"tokens/s {second['tokens_per_sec']:.1f}, peak a card "
+               f"{[round(p, 3) for p in out[name]['peaks']]} GiB, resident "
+               f"a rank {out[name]['resident']} B (wall {runs[1][1]:.1f} s) "
+               f"[{smi}]")
+    return out
+
+
+def _mp_cli_rank(rank, world, port, argv, save_path, out_path):
+    """One NCCL rank of phase 28's CLI runs: ``train_lm.main(argv)`` into
+    the shared ``save_path``; each rank writes its summary to
+    ``{out_path}.{rank}``."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_multiprocessing_distributed_tpu_torch import train_lm
+
+    summary = train_lm.main(argv + ["--save_path", save_path])
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(summary, f)
+
+
+def _mp_phase(torch, fa, train_lm, smi):
+    """Phase 28 (see the module docstring)."""
+    t0 = time.perf_counter()
+    plains, launches = _mp_one_card(torch, fa, smi)
+    cross = _mp_cross_card(torch, plains, smi)
+    cli = _mp_cli(train_lm, torch, smi)
+    _print(f"[mp] phase 28 wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    return dict(launches=launches, cross=cross, cli=cli)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2538,6 +3057,11 @@ def main() -> int:
     if "--sp-only" in sys.argv[1:]:
         _sp_phase(torch, fa, F, rate, smi)
         _print(f"[total] chip_smoke --sp-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--mp-only" in sys.argv[1:]:
+        _mp_phase(torch, fa, train_lm, smi)
+        _print(f"[total] chip_smoke --mp-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3740,6 +4264,9 @@ def main() -> int:
 
     # -- phase 27: sequence parallelism, one card and across the cards
     sp = _sp_phase(torch, fa, F, rate, smi)
+
+    # -- phase 28: pipeline and tensor parallelism, --zero and --remat
+    mp = _mp_phase(torch, fa, train_lm, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -3782,6 +4309,9 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "hop_max_abs_err": sp["hop_err"][name],
             "hop_shape": "bf16 non-causal B8 H12 S256 Dh64"}
+           if tname == "bfloat16" else {}),
+        **({"mp_launches_per_step": {mode: counts[name] for mode, counts
+                                     in mp["launches"].items()}}
            if tname == "bfloat16" else {})}
         for tname, kernels_of, launches_of in (
             ("bfloat16", FLASH_KERNELS, train_launches),

@@ -234,6 +234,13 @@ class GPT(nn.Module):
         self.ln_final = LayerNorm(hidden_size)
         self.head = Dense(hidden_size, vocab_size, bias=head_bias)
 
+    @staticmethod
+    def jax_to_torch_dims(name: str, shape) -> tuple:
+        """Every parameter keeps the JAX tree's layout (Dense kernels
+        ``[in, out]``): JAX dim ``j`` is dim ``j`` here (the placement
+        rules of :mod:`..train.placement` read it)."""
+        return tuple(range(len(shape)))
+
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads

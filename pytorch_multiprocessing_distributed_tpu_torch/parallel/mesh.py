@@ -3,9 +3,11 @@
 ``data_axis_size``).
 
 The second axis takes the name its caller gives it, as ``make_mesh``'s
-``axis_names`` does: ``model`` for the image trainer's placements,
-``seq`` for ``train_lm --parallel sp`` (:func:`axis` hands the sequence
-axis to ring and Ulysses attention).
+``axis_names`` does: ``model`` for the image trainer's placements and
+``train_lm --parallel tp``, ``seq`` for ``train_lm --parallel sp``
+(:func:`axis` hands the sequence axis to ring and Ulysses attention),
+``pipe`` for ``train_lm --parallel pp`` (the stages of
+:mod:`.gpt_pipeline`, JAX's ``gpt_pipeline.PIPE_AXIS``).
 
 JAX lays ``world_size x model_parallel`` devices out as
 ``devices.reshape(world_size, model_parallel)``. The port runs one
@@ -34,6 +36,7 @@ from .dist import get_rank, get_world_size
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
 
 
 @dataclass(frozen=True)
@@ -56,7 +59,7 @@ class Grid:
 
     @property
     def model_group(self):
-        """The second axis's group (``model`` or ``seq``)."""
+        """The second axis's group (``model``, ``seq`` or ``pipe``)."""
         return _GROUPS.get("second")
 
     @property
@@ -106,7 +109,7 @@ def make_grid(world_size: int, model_parallel: int = 1,
     group must hold exactly ``world_size * model_parallel`` ranks. Every
     rank calls it (``new_group`` is collective). Sets the grid that
     :func:`data_group` and :func:`data_size` read; ``axis`` names the
-    second axis (``model`` or ``seq``)."""
+    second axis (``model``, ``seq`` or ``pipe``)."""
     global _GRID
     reset_grid()
     if world_size < 1 or model_parallel < 1:
@@ -140,11 +143,15 @@ def get_grid() -> Optional[Grid]:
 
 
 def reset_grid() -> None:
-    """Forget the grid and its subgroups (the process group is
-    leaving)."""
+    """Forget the grid and its subgroups (the process group is leaving,
+    or a new grid replaces them), and which of them the pipeline
+    warmed."""
+    from .pipeline import forget_warm_groups
+
     global _GRID
     _GRID = None
     _GROUPS.clear()
+    forget_warm_groups()
 
 
 def data_group():

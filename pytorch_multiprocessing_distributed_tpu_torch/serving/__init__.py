@@ -7,7 +7,8 @@ from .engine import ServingEngine  # noqa: F401
 from .kv_pages import (PagePool, PagePoolExhausted,  # noqa: F401
                        PrefixCache, PrefixEntry)
 from .kv_slots import SlotPool  # noqa: F401
-from .params import from_jax_params, init_params, load_params  # noqa: F401
+from .params import (from_jax_params, from_jax_pipeline_params,  # noqa: F401
+                     init_params, load_params)
 from .scheduler import (FIFOScheduler, PrefillPlan,  # noqa: F401
                         QueueFull, Request, bucket_length, pick_draft_k,
                         pick_horizon)

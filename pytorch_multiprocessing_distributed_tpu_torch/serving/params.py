@@ -1,4 +1,5 @@
-"""Serving params: random init, weights carried from JAX, ``.npz`` files.
+"""Serving params: random init, weights carried from JAX (a dense tree,
+or one stage of JAX's stacked pipeline tree), ``.npz`` files.
 
 Params are a flat ``{name: tensor}`` dict keyed like the model's
 ``state_dict()`` (``block_0.attn.wqkv.kernel``); bind them with
@@ -58,6 +59,18 @@ def from_jax_params(tree) -> Params:
     return {path.replace("/", "."):
             torch.from_numpy(np.array(leaf, dtype=np.float32))
             for path, leaf in _flatten(tree)}
+
+
+def from_jax_pipeline_params(tree, stage: int) -> Params:
+    """Carry JAX's stacked pipeline tree (``stack_pipeline_params``'s
+    output: ``embed`` ``[N, Vs, D]``, ``blocks/...`` ``[N, L/N, ...]``,
+    ...) across as stage ``stage``'s params, under the names of its
+    :func:`..parallel.gpt_pipeline.stage_model`. Back to a whole GPT:
+    :func:`..parallel.gpt_pipeline.unstack_pipeline_params` of
+    ``from_jax_params(tree)``."""
+    from ..parallel.gpt_pipeline import stage_params
+
+    return stage_params(from_jax_params(tree), stage)
 
 
 def load_params(path: str) -> Params:

@@ -9,9 +9,12 @@ same durability and integrity as JAX: tmp write -> fsync -> atomic
 rename -> fsync of the directory, then a ``.sha256`` sidecar of the
 exact payload bytes written AFTER the payload is durable. A ``--zero``
 state's moment shards, and a placed state's slices (``--zero1``,
-``--fsdp``, ``--model_parallel``), are gathered first, on every rank
-(JAX's gather-on-save), so the payload always has the replicated format
-and ``--resume`` round-trips between sharded and plain runs. Loads verify
+``--fsdp``, ``--model_parallel``, ``train_lm --parallel tp``), are
+gathered first, on every rank (JAX's gather-on-save), so the payload
+has the replicated format and ``--resume`` round-trips between sharded
+and plain runs. A pipelined state (``train_lm --parallel pp``) gathers
+its stages into JAX's stacked tree and each stage takes its slice back
+on resume (:class:`..parallel.gpt_pipeline.PipelinedState`). Loads verify
 the sidecar first (a torn or bit-flipped file raises
 :class:`CheckpointCorruptError` naming both digests) and unpickle with
 ``weights_only=True``. Reading a JAX msgpack checkpoint is not in this

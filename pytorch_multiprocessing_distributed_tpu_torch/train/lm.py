@@ -17,8 +17,20 @@ gradients are then SUMMED over every rank of the grid (one all-reduce
 of the flat gradient buffer, which also carries the CE sums).
 
 ``vocab_chunks > 1`` streams the head and the CE over vocab slices
-(:func:`..ops.losses.chunked_lm_ce`). Not in this slice: MoE aux
-losses, ``remat`` and ``zero`` (ROADMAP.md).
+(:func:`..ops.losses.chunked_lm_ce`). ``remat`` recomputes the whole
+local objective in the backward (``torch.utils.checkpoint``, JAX's
+``jax.checkpoint`` of it). Under ``--zero`` (a state bound to a
+:class:`..parallel.zero.ZeroPlan` and sharded by ``zeroify_state``) the
+all-reduce becomes the bucketed reduce-scatter and the sharded update of
+:mod:`..parallel.zero`, as in the image step.
+
+The tensor-parallel steps (:func:`make_lm_train_step_tp`,
+:func:`make_lm_eval_step_tp`, ``--parallel tp``) have JAX's global
+semantics on a :class:`.placement.PlacedState`: the rows of a data
+index go to every model rank of that replica, each weight is gathered
+from its slices at use and its gradient reduced over ``data`` into this
+rank's moment slice (:mod:`.gspmd`, the image trainer's machinery). Not
+in this slice: MoE aux losses (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,12 +40,19 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+import torch.distributed as tdist
+from torch.nn.utils import parametrize
+from torch.utils.checkpoint import checkpoint
+
 from ..ops.losses import chunked_lm_ce, cross_entropy_per_sample
 from ..parallel import get_rank, get_world_size, psum_
+from ..parallel import zero as zero_mod
 from ..parallel.mesh import axis as grid_axis
 from ..parallel.mesh import data_size
 from ..parallel.ring_attention import zigzag_indices
+from .gspmd import _opt_sizes, _psum_grid, _replicas, _update
 from .optim import SGD
+from .placement import PlacedState
 from .state import TrainState
 from .step import finite_grads, strided_microbatches
 
@@ -80,7 +99,10 @@ def _shard(rows: torch.Tensor, seq_axis: Optional[str], zigzag: bool):
     return (rows[:, cols], *_next_token_targets(rows, cols))
 
 
-def _ce_sum(model, tokens, targets, w, vocab_chunks=0):
+def _ce_sum(model, tokens, targets, w, vocab_chunks=0, remat=False):
+    if remat:
+        return checkpoint(lambda *a: _ce_sum(model, *a, vocab_chunks),
+                          tokens, targets, w, use_reentrant=False)
     if vocab_chunks > 1:
         hidden = model(tokens, return_hidden=True)
         return chunked_lm_ce(hidden, model.head.kernel, model.head.bias,
@@ -121,7 +143,7 @@ def to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def make_lm_train_step(model, optimizer: SGD, *, grad_accum: int = 1,
                        seq_axis: Optional[str] = None,
-                       vocab_chunks: int = 0):
+                       vocab_chunks: int = 0, remat: bool = False):
     """Build ``step(state, rows) -> (state, metrics)``.
 
     ``rows`` are this rank's ``[b, S]`` rows of the global batch on the
@@ -130,7 +152,10 @@ def make_lm_train_step(model, optimizer: SGD, *, grad_accum: int = 1,
     grid's sequence axis. ``grad_accum`` splits the rows into strided
     microbatches whose gradients accumulate before the one all-reduce
     (the same update as one shot); ``vocab_chunks > 1`` streams the head
-    and CE over that many vocab slices. ``metrics`` are device tensors:
+    and CE over that many vocab slices; ``remat`` recomputes the
+    objective's forward in the backward. A zero-sharded ``state``
+    (:func:`..parallel.zero.zeroify_state`) takes the sharded update.
+    ``metrics`` are device tensors:
     ``loss`` (mean next-token CE over every predictable position of the
     global batch), ``count`` and ``skipped`` (1 when the NaN guard kept
     the old state).
@@ -156,15 +181,30 @@ def make_lm_train_step(model, optimizer: SGD, *, grad_accum: int = 1,
         for tok, tgt, ww in zip(strided_microbatches(tokens, grad_accum),
                                 strided_microbatches(targets, grad_accum),
                                 strided_microbatches(w, grad_accum)):
-            ce_sum = _ce_sum(state.model, tok, tgt, ww, vocab_chunks)
+            ce_sum = _ce_sum(state.model, tok, tgt, ww, vocab_chunks,
+                             remat)
             (ce_sum / count).backward()
             state.grads[state.n:].add_(ce_sum.detach())
-        psum_(state.grads)
-        finite = finite_grads(state.grads[:state.n])
-        optimizer.apply_(state.params, state.grads[:state.n],
-                         state.momentum, state.initialized, state.count,
-                         finite, lr_step=state.epoch)
-        metrics = {"loss": state.grads[state.n] / count,
+        g = state.grads[:state.n]
+        if state.zero is not None:
+            with torch.no_grad():
+                shards = zero_mod.reduce_scatter_grads(g, state.zero,
+                                                       state.grad_shards)
+                side = torch.stack([state.grads[state.n],
+                                    zero_mod.finite_shards(shards)])
+                psum_(side)
+                finite = side[1] == 0
+                zero_mod.apply_sharded_update(optimizer, state, shards,
+                                              finite, get_rank())
+            ce_total = side[0]
+        else:
+            psum_(state.grads)
+            finite = finite_grads(g)
+            optimizer.apply_(state.params, g, state.momentum,
+                             state.initialized, state.count, finite,
+                             lr_step=state.epoch)
+            ce_total = state.grads[state.n]
+        metrics = {"loss": ce_total / count,
                    "count": torch.tensor(count),
                    "skipped": (~finite).to(torch.int32)}
         return state, metrics
@@ -193,11 +233,84 @@ def make_lm_eval_step(model, *, seq_axis: Optional[str] = None,
     return eval_step
 
 
-def create_lm_train_state(model, params: Dict[str, torch.Tensor]
-                          ) -> TrainState:
+def make_lm_train_step_tp(model, optimizer: SGD, *, remat: bool = False):
+    """Build ``step(state, rows) -> (state, metrics)`` for a
+    :class:`.placement.PlacedState` of a GPT (JAX
+    ``make_lm_train_step_tp``; ``--zero1``/``--fsdp`` are the
+    placement's). ``rows``: the ``[b, S]`` rows of this rank's data
+    index. The loss is the mean next-token CE over the global batch;
+    the NaN guard, the grid-wide metric sum and the update on the moment
+    slices are the image GSPMD step's (:mod:`.gspmd`). On a 1 x 1 grid
+    the step runs the data-parallel step's ops: bit-equal to it."""
+    if getattr(model, "seq_axis", None) is not None:
+        raise ValueError(
+            "make_lm_train_step_tp requires a model built with "
+            "seq_axis=None: under GSPMD the sequence stays unsharded "
+            "(use make_lm_train_step(seq_axis=...) for SP)")
+    cache = {}
+
+    def step(state: PlacedState, rows: torch.Tensor):
+        if "sizes" not in cache:
+            cache.update(sizes=_opt_sizes(state), replicas=_replicas(state))
+        grid = state.grid
+        b, s = rows.shape
+        tokens, targets, valid = _shard(rows, None, False)
+        count = float(b * grid.data * (s - 1))
+        state.grads.zero_()
+        with parametrize.cached():
+            ce_sum = _ce_sum(model, tokens, targets, valid.float(),
+                             remat=remat)
+            (ce_sum / count).backward()
+        with torch.no_grad():
+            g = state.grads
+            # the model ranks of a replica repeat its CE sum: divided out
+            side = _psum_grid(state, torch.stack([
+                ce_sum.detach(), (~torch.isfinite(g)).sum().float()]))
+            finite = side[1] == 0
+            _update(optimizer, state, finite, cache["replicas"],
+                    cache["sizes"])
+        return state, {"loss": side[0] / grid.model / count,
+                       "count": torch.tensor(count),
+                       "skipped": (~finite).to(torch.int32)}
+
+    return step
+
+
+def make_lm_eval_step_tp(model):
+    """Eval twin of :func:`make_lm_train_step_tp` (JAX
+    ``make_lm_eval_step_tp``): ``eval_step(state, rows) -> {loss,
+    count}``, the masked CE of this data index's rows summed over the
+    data group."""
+    if getattr(model, "seq_axis", None) is not None:
+        raise ValueError(
+            "make_lm_eval_step_tp requires a model built with "
+            "seq_axis=None (use make_lm_eval_step(seq_axis=...) for SP)")
+
+    @torch.no_grad()
+    def eval_step(state: PlacedState, rows: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+        tokens, targets, valid = _shard(rows, None, False)
+        w = valid.float()
+        with parametrize.cached():
+            sums = torch.stack([_ce_sum(model, tokens, targets, w),
+                                w.sum()])
+        if state.grid.data > 1:
+            tdist.all_reduce(sums, group=state.grid.data_group)
+        return {"loss": sums[0] / sums[1], "count": sums[1]}
+
+    return eval_step
+
+
+def create_lm_train_state(model, params: Dict[str, torch.Tensor],
+                          plan=None) -> TrainState:
     """Bind ``params`` (a ``state_dict``-keyed dict on the target device:
     :func:`..serving.params.init_params` or ``from_jax_params``) into the
     model and return the :class:`TrainState` over them: parameters as
-    trainable leaf views of one flat buffer, zero momenta, epoch 1."""
+    trainable leaf views of one flat buffer, zero momenta, epoch 1.
+    ``plan`` (a :class:`..parallel.zero.ZeroPlan`) lays the buffers out
+    for ``--zero``; shard the moments with
+    :func:`..parallel.zero.zeroify_state` after any resume."""
     model.load_state_dict(params, assign=True)
-    return TrainState.bind(model)
+    layout = ({} if plan is None else
+              {"offsets": plan.offsets(), "size": plan.size})
+    return TrainState.bind(model, **layout)

@@ -1,14 +1,15 @@
-"""The GSPMD placements of the image train state (the port of the JAX
-package's ``train/step.py`` rules: ``tp_param_spec``,
+"""The GSPMD placements of the image and LM train states (the port of
+the JAX package's ``train/step.py`` rules: ``tp_param_spec``,
 ``zero1_opt_spec``, ``state_shardings`` and ``shard_state``).
 
 JAX decides every placement on ITS shapes: a conv kernel is ``(H, W,
-Cin, Cout)`` there and ``(Cout, Cin, kh, kw)`` here, a Dense kernel
-``(in, out)`` there and ``(out, in)`` here. So the rules run on the JAX
-shape of each leaf (from the flax path the port already maps,
-:func:`..models.init.jax_param_path`) and the chosen dims are then
-mapped into the torch layout; deciding on torch shapes would pick other
-dims wherever sizes tie.
+Cin, Cout)`` there and ``(Cout, Cin, kh, kw)`` here, an image model's
+Dense kernel ``(in, out)`` there and ``(out, in)`` here (the GPT keeps
+``(in, out)`` and says so through its own ``jax_to_torch_dims``). So
+the rules run on the JAX shape of each leaf (from the flax path the
+port already maps, :func:`..models.init.jax_param_path`) and the chosen
+dims are then mapped into the torch layout; deciding on torch shapes
+would pick other dims wherever sizes tie.
 
 - ``tp_param_spec``: the trailing JAX dim over ``model`` when it
   divides; else replicated.
@@ -77,8 +78,13 @@ def zero1_opt_spec(shape: Sequence[int], dp: int, tp: int) -> Spec:
 def jax_to_torch_dims(model: nn.Module, name: str,
                       shape: Sequence[int]) -> Tuple[int, ...]:
     """``t`` with JAX dim ``j`` of the parameter ``name`` held in torch
-    dim ``t[j]``: conv kernels HWIO -> OIHW, Dense kernels transposed,
+    dim ``t[j]``: the model's own rule where it has one (a
+    ``jax_to_torch_dims`` method: the GPT keeps flax's layouts), else
+    the zoo's: conv kernels HWIO -> OIHW, Dense kernels transposed,
     every other leaf as it is."""
+    own = getattr(model, "jax_to_torch_dims", None)
+    if own is not None:
+        return tuple(own(name, shape))
     path_of = getattr(model, "jax_param_path", jax_param_path)
     if path_of(name, shape)[-1] == "kernel":
         if len(shape) == 4:

@@ -1,6 +1,6 @@
-"""Language-model training CLI, data and sequence parallel — the port
-of the JAX package's ``train_lm.py`` in ``--parallel dp`` and
-``--parallel sp`` modes, on the card by default.
+"""Language-model training CLI — the port of the JAX package's
+``train_lm.py`` in its four ``--parallel`` modes (``dp``, ``sp``,
+``tp``, ``pp``), on the card by default.
 
     python -m pytorch_multiprocessing_distributed_tpu_torch.train_lm \\
         --model gpt_small --dtype bfloat16 --batch_size 8 --seq_len 1024 \\
@@ -25,10 +25,21 @@ seq index ``r % N``): a rank takes its data index's rows and its seq
 index's columns, attention runs over the ring (or Ulysses' all-to-all)
 of its seq group, and gradients are summed over every rank.
 ``--vocab_chunks K`` streams the head and CE over K vocab slices.
+``--parallel tp --degree M [--zero1|--fsdp]`` lays them out as JAX's
+``(data, model)`` mesh: each rank holds its slices of the state under
+JAX's GSPMD placements (:mod:`.train.placement`), gathers each weight
+at use and reduces its gradient over ``data`` into its moment slice.
+``--parallel pp --degree N --pp_schedule gpipe|1f1b`` lays them out as
+``(data, pipe)``: rank ``r`` is stage ``r % N`` of data replica ``r //
+N``, holding that stage's blocks and vocab slices
+(:mod:`.parallel.gpt_pipeline`); its checkpoints carry JAX's stacked
+tree. ``--zero`` (``dp`` only) shards the moments and the update
+(:mod:`.parallel.zero`); ``--remat`` (``dp``, ``sp``, ``tp``)
+recomputes the forward in the backward.
 
-Flags of the JAX CLI this slice does not port (tensor and pipeline
-parallelism, MoE, ZeRO/FSDP, remat, orbax, HF interop, beam sampling,
-supervised restarts, the observability exporters) are rejected by name.
+Flags of the JAX CLI this slice does not port (MoE, orbax, HF interop,
+beam sampling, supervised restarts, the observability exporters) are
+rejected by name.
 """
 
 from __future__ import annotations
@@ -48,12 +59,19 @@ from .device import resolve_device
 from .models import get_model
 from .ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
 from .parallel import dist
+from .parallel.gpt_pipeline import (create_pipelined_lm_state,
+                                    make_pipelined_lm_eval_step,
+                                    make_pipelined_lm_train_step,
+                                    unstack_pipeline_params)
 from .parallel.mesh import make_grid
 from .parallel.ulysses import _check_heads
+from .parallel.zero import plan_buckets, zeroify_state
 from .serving.params import init_params
 from .train import (create_lm_train_state, local_rows, make_lm_eval_step,
-                    make_lm_train_step, to_device)
+                    make_lm_eval_step_tp, make_lm_train_step,
+                    make_lm_train_step_tp, to_device)
 from .train.lm import seq_columns
+from .train.placement import plan_placement, shard_state
 from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, prune_checkpoints,
                                resolve_auto_resume, save_checkpoint)
@@ -138,10 +156,6 @@ def build_parser() -> argparse.ArgumentParser:
 _NOT_PORTED = (
     ('--n_experts', lambda a: a.n_experts != 0),
     ('--moe_top_k', lambda a: a.moe_top_k != 1),
-    ('--zero', lambda a: a.zero),
-    ('--zero1', lambda a: a.zero1),
-    ('--fsdp', lambda a: a.fsdp),
-    ('--remat', lambda a: a.remat),
     ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
     ('--ckpt_async', lambda a: a.ckpt_async),
     ('--hf_init', lambda a: bool(a.hf_init)),
@@ -164,29 +178,47 @@ def _reject_not_ported(args) -> None:
                 "it")
 
 
+# the second axis of each --parallel mode's grid (dp has one rank on it)
+_AXES = {'dp': 'seq', 'sp': 'seq', 'tp': 'model', 'pp': 'pipe'}
+
+
 def _check_flags(args, model) -> None:
     """The JAX CLI's pre-run checks, in its order, for the flags this
-    slice keeps; ``--parallel tp|pp`` is rejected by name after the
-    checks JAX runs before it."""
+    slice keeps."""
+    if args.save_every < 0:
+        raise SystemExit(f'--save_every must be >= 0, got {args.save_every}')
     if args.seq_len > model.max_seq_len:
         raise SystemExit(
             f"--seq_len {args.seq_len} exceeds the model's max_seq_len "
             f"{model.max_seq_len}")
-    if args.save_every < 0:
-        raise SystemExit(f'--save_every must be >= 0, got {args.save_every}')
+    if (args.zero1 or args.fsdp) and args.parallel != 'tp':
+        raise SystemExit(
+            "--zero1/--fsdp shard state through the GSPMD path; use "
+            f"--parallel tp (got --parallel {args.parallel})")
+    if args.zero and args.parallel != 'dp':
+        raise SystemExit(
+            "--zero rewrites the explicit DP step's grad exchange "
+            "(reduce-scatter -> sharded update -> all-gather); use "
+            f"--parallel dp (got --parallel {args.parallel}; the tp "
+            "path's --zero1/--fsdp shard via GSPMD placement instead)")
     if args.pp_schedule != 'gpipe' and args.parallel != 'pp':
         raise SystemExit(
             f"--pp_schedule {args.pp_schedule} only applies to --parallel "
             f"pp (got --parallel {args.parallel})")
+    if args.remat and args.parallel == 'pp':
+        raise SystemExit(
+            "--remat is not wired into the pipelined step (gpipe bounds "
+            "live activations to the in-flight microbatches; 1f1b "
+            "already rematerializes each stage backward internally)")
     if args.vocab_chunks > 1 and args.parallel in ('tp', 'pp'):
         raise SystemExit(
             '--vocab_chunks streams the head inside the dp/sp step '
             '(tp shards the head over the model axis; pp computes a '
             'vocab-parallel LSE already)')
-    if args.parallel in ('tp', 'pp'):
+    if args.grad_accum > 1 and args.parallel in ('tp', 'pp'):
         raise SystemExit(
-            "--parallel is not ported to PyTorch yet (ROADMAP.md, 'Port: "
-            "modules still to port'); use the JAX CLI train_lm.py for it")
+            "--grad_accum is wired into the dp/sp step (pp microbatches "
+            "already; for tp use a smaller global batch)")
     if args.val_frac and not 0.0 < args.val_frac < 1.0:
         raise SystemExit(
             f"--val_frac must be in (0, 1), got {args.val_frac}")
@@ -201,7 +233,7 @@ def _check_grid(args, model, world: int) -> int:
     sequence against the seq axis, in its order; returns the degree
     (1 under ``--parallel dp``, which ignores ``--degree`` as JAX
     does)."""
-    deg = args.degree if args.parallel == 'sp' else 1
+    deg = args.degree if args.parallel != 'dp' else 1
     if deg < 1 or world % deg:
         raise SystemExit(f"{world} ranks not divisible by --degree {deg}")
     if args.parallel == 'sp':
@@ -258,8 +290,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     summary: per-epoch train and val losses, the first printed loss,
     steps, tokens/s and the steady step time (host clock, synced at the
     print boundaries), the kernels' launches on this rank during the
-    run, the ``[data, seq]`` grid and this rank's place, and on the card
-    its peak memory."""
+    run, the ``[data, degree]`` grid and this rank's place, on the card
+    its peak memory, this rank's resident bytes of params and moments,
+    and under ``--sample`` the greedy tokens."""
     args = build_parser().parse_args(
         sys.argv[1:] if argv is None else list(argv))
     _reject_not_ported(args)
@@ -284,8 +317,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     world = dist.get_world_size()
     primary = dist.is_primary()
     deg = _check_grid(args, model, world)
-    # JAX's (data, seq) mesh, row-major: dp replicas of deg ranks each
-    grid = make_grid(world // deg, deg, axis='seq')
+    # JAX's (data, seq|model|pipe) mesh, row-major: dp replicas of deg
+    # ranks each
+    grid = make_grid(world // deg, deg, axis=_AXES[args.parallel])
     dp = grid.data
     seq_axis = 'seq' if sp else None
 
@@ -315,33 +349,65 @@ def main(argv: Optional[List[str]] = None) -> dict:
         """This rank's rows of a global batch, on the device."""
         return to_device(local_rows(batch, grid.data_index, dp), device)
 
-    state = create_lm_train_state(
-        model, init_params(model, args.seed, device))
-    step = make_lm_train_step(model, sgd(learning_rate=lr),
-                              grad_accum=args.grad_accum, seq_axis=seq_axis,
-                              vocab_chunks=args.vocab_chunks)
-    eval_step = (make_lm_eval_step(model, seq_axis=seq_axis,
-                                   vocab_chunks=args.vocab_chunks)
-                 if val_loader is not None else None)
+    resume_path = args.resume
+    if args.resume == 'auto':
+        resume_path = resolve_auto_resume(args.save_path) or ''
+        if not resume_path and primary:
+            print(f"--resume auto: no checkpoint under "
+                  f"{args.save_path}; starting fresh", flush=True)
 
-    start_epoch = 1
-    if args.resume:
-        path = args.resume
+    def maybe_resume(st):
+        """The checkpoint into the freshly built state (the stacked tree
+        for pp; before any placement or sharding), as JAX's
+        ``maybe_resume``."""
+        if not resume_path:
+            return st
         if args.resume == 'auto':
-            path = resolve_auto_resume(args.save_path) or ''
-            if not path and primary:
-                print(f"--resume auto: no checkpoint under "
-                      f"{args.save_path}; starting fresh", flush=True)
-        if path:
-            if args.resume == 'auto':
-                state, used = load_with_fallback(
-                    args.save_path, state, anchor=checkpoint_epoch(path))
-            else:
-                state, used = load_checkpoint(path, state), path
-            start_epoch = state.epoch + 1
-            if primary:
-                print(f"Resumed from {used} (continuing at epoch "
-                      f"{start_epoch})", flush=True)
+            st, used = load_with_fallback(
+                args.save_path, st, anchor=checkpoint_epoch(resume_path))
+        else:
+            st, used = load_checkpoint(resume_path, st), resume_path
+        if primary:
+            print(f"Resumed from {used} (continuing at epoch "
+                  f"{st.epoch + 1})", flush=True)
+        return st
+
+    opt = sgd(learning_rate=lr)
+    params = init_params(model, args.seed, device)
+    if args.parallel == 'pp':
+        state = maybe_resume(create_pipelined_lm_state(model, params, deg))
+        step = make_pipelined_lm_train_step(model, opt,
+                                            schedule=args.pp_schedule)
+        eval_step = make_pipelined_lm_eval_step(model)
+        resident = state.resident_bytes()
+    elif args.parallel == 'tp':
+        placement = plan_placement(model, dp, deg, zero1=args.zero1,
+                                   fsdp=args.fsdp)
+        state = shard_state(
+            maybe_resume(create_lm_train_state(model, params)), placement,
+            grid)
+        step = make_lm_train_step_tp(model, opt, remat=args.remat)
+        eval_step = make_lm_eval_step_tp(model)
+        resident = placement.resident_bytes()
+        del resident["batch_stats"]
+    else:
+        plan = plan_buckets(model, world) if args.zero else None
+        state = maybe_resume(create_lm_train_state(model, params,
+                                                   plan=plan))
+        if plan is not None:
+            zeroify_state(state, plan, dist.get_rank())
+        step = make_lm_train_step(model, opt, grad_accum=args.grad_accum,
+                                  seq_axis=seq_axis,
+                                  vocab_chunks=args.vocab_chunks,
+                                  remat=args.remat)
+        eval_step = make_lm_eval_step(model, seq_axis=seq_axis,
+                                      vocab_chunks=args.vocab_chunks)
+        resident = {"params": 4 * state.n,
+                    "opt_state": 4 * state.momentum.numel()}
+    del params
+    if val_loader is None:
+        eval_step = None
+    start_epoch = state.epoch + 1 if resume_path else 1
 
     os.makedirs(args.save_path, exist_ok=True)
     logger = Logger(os.path.join(args.save_path, 'train.log'))
@@ -353,8 +419,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     summary = {"epoch_losses": [], "val_losses": [], "first_loss": None,
                "steps": 0, "skipped": 0, "train_s": 0.0,
                "steady_step_s": None, "world_size": world,
-               "grid": [dp, deg], "rank": dist.get_rank(),
-               "device": str(device)}
+               "grid": [dp, deg], "parallel": args.parallel,
+               "rank": dist.get_rank(), "device": str(device),
+               "resident_bytes": resident}
     steady = []  # (seconds, steps) between an epoch's first and last print
 
     for epoch in range(start_epoch, args.epochs + 1):
@@ -424,12 +491,24 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
         prompt = torch.as_tensor(tokens[: args.seq_len][None, :],
                                  dtype=torch.long, device=device)
-        # the dense model, as JAX's model.clone(seq_axis=None)
-        dense = model.clone(seq_axis=None) if sp else model
+        if args.parallel in ('tp', 'pp'):
+            # the whole params on every rank (a collective), decoded on
+            # this rank's card: pp unstacks them, as JAX does; tp decodes
+            # them whole (JAX decodes TP-sharded, the same greedy tokens)
+            whole = (unstack_pipeline_params(state.stacked(state.params),
+                                             model.vocab_size)
+                     if args.parallel == 'pp' else state.state_dict())
+            dense = get_model(args.model, dtype=dtype)
+            dense.load_state_dict({k: v.detach().clone() for k, v in
+                                   whole.items()}, assign=True)
+        else:
+            # the dense model, as JAX's model.clone(seq_axis=None)
+            dense = model.clone(seq_axis=None) if sp else model
         with torch.no_grad():
             out = generate(dense, prompt, max_new_tokens=args.sample)
+        ids = out[0, -args.sample:].tolist()
+        summary["sample"] = ids
         if primary:
-            ids = out[0, -args.sample:].tolist()
             print("sample:", ids)
             if corpus_is_text:
                 from .data.text import detokenize

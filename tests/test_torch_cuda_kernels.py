@@ -1459,3 +1459,83 @@ def test_sp_attention_two_cards_matches_dense(cuda_device, tmp_path):
         for case, vals in errs.items():
             tol = 2e-5 if case.endswith("float32") else 4e-2
             assert max(vals) <= tol, (rank, case, vals)
+
+
+# ---- pipeline and tensor parallelism (train_lm --parallel pp|tp) ----
+
+MP_RUNS = {"pp_gpipe": {"kind": "pp", "schedule": "gpipe"},
+           "pp_1f1b": {"kind": "pp", "schedule": "1f1b"},
+           "tp": {"kind": "tp"}, "tp_zero1": {"kind": "tp", "zero1": True},
+           "tp_fsdp": {"kind": "tp", "fsdp": True},
+           "dp_zero": {"kind": "dp", "zero": True},
+           "dp_remat": {"kind": "dp", "remat": True}}
+
+
+def _mp_step(dtype, run, tokens):
+    """One step of a 2-layer GPT under ``run`` on a 1 x 1 grid in this
+    process: loss, whole params, flash launches."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        reset_grid)
+    from torch_mp_worker import _dense, _state
+
+    model = GPT(**SP_GEOM, dtype=dtype)
+    before = {n: getattr(flash_mod, n).launches
+              for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    try:
+        state, step, _ = _state(dict(run, lr=0.01), model,
+                                init_params(model, 0, "cuda"), (1, 1), 0)
+        _, m = step(state, tokens)
+        whole = _dense(state, run["kind"], model.vocab_size)
+    finally:
+        reset_grid()
+    launches = {n: getattr(flash_mod, n).launches - c
+                for n, c in before.items()}
+    return float(m["loss"]), whole, launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mp_degree_one_matches_plain_step(cuda_device, dtype):
+    """pp (gpipe, 1f1b), tp (plain, --zero1, --fsdp), --zero and
+    --remat at degree 1 on one card against the plain DP step from the
+    same params: tp, --zero and --remat give its bits; pp within 1e-5
+    (f32) or 1e-3 (bf16) in params after one step (its final LayerNorm's
+    two-pass variance, its vocab-parallel CE and, in bf16, the embedding
+    rounded after the position add). The flash kernels launch once a
+    layer (the forward twice under 1f1b and remat)."""
+    from torch_mp_worker import card_tokens
+
+    tokens = card_tokens().to(cuda_device)
+    loss0, p0, launches0 = _mp_step(dtype, {"kind": "dp"}, tokens)
+    assert launches0 == {n: 2 for n in launches0}
+    for name, run in MP_RUNS.items():
+        loss, p, launches = _mp_step(dtype, run, tokens)
+        twice = name in ("pp_1f1b", "dp_remat")
+        assert launches == {"flash_fwd": 4 if twice else 2,
+                            "flash_bwd_dq": 2, "flash_bwd_dkv": 2}, name
+        err = max(float((p[k] - p0[k]).abs().max()) for k in p0)
+        if run["kind"] == "pp":
+            tol = 1e-5 if dtype == torch.float32 else 1e-3
+            assert err <= tol and abs(loss - loss0) <= 20 * tol, (name, err)
+        else:
+            assert loss == loss0 and err == 0.0, (name, err)
+
+
+def test_mp_two_cards_match_one_card(cuda_device, tmp_path):
+    """pp (gpipe, 1f1b) and tp at degree 2 over NCCL, one rank a card,
+    against the plain DP step on one card: f32 params within 1e-5 after
+    one step, losses within 1e-5."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from torch_image_worker import spawn_ranks
+    from torch_mp_worker import card_mp_rank, card_tokens
+
+    loss0, p0, _ = _mp_step(torch.float32, {"kind": "dp"},
+                            card_tokens().to(cuda_device))
+    spawn_ranks(card_mp_rank, 2, (SP_GEOM, str(tmp_path)), timeout_s=300)
+    got = torch.load(tmp_path / "mp.pt", weights_only=True)
+    assert set(got) == {"pp_gpipe", "pp_1f1b", "tp"}
+    for name, (loss, p) in got.items():
+        assert abs(loss - loss0) <= 1e-5, name
+        for k, v in p0.items():
+            torch.testing.assert_close(p[k], v.cpu(), atol=1e-5, rtol=0,
+                                       msg=f"{name} {k}")

@@ -46,7 +46,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
 for name in ("parallel.ring_attention", "parallel.ulysses",
-             "parallel.mesh", "ops.losses"):
+             "parallel.mesh", "ops.losses", "parallel.pipeline",
+             "parallel.gpt_pipeline"):
     assert "{PORT}." + name in sys.modules, name
 print("modules", len([m for m in sys.modules if m.startswith("{PORT}")]))
 assert not bad, bad

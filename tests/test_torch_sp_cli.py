@@ -139,9 +139,11 @@ def test_sp_degree_one_rank_is_refused_before_the_run(tmp_path):
      "--vocab_chunks streams the head inside the dp/sp step"),
     (["--parallel", "pp", "--vocab_chunks", "4"],
      "--vocab_chunks streams the head inside the dp/sp step"),
-    (["--parallel", "tp"], "--parallel is not ported"),
-    (["--parallel", "pp", "--pp_schedule", "1f1b"],
-     "--parallel is not ported"),
+    (["--parallel", "pp", "--pp_schedule", "1f1b", "--remat"],
+     "--remat is not wired into the pipelined step"),
+    (["--parallel", "dp", "--zero1"],
+     "--zero1/--fsdp shard state through the GSPMD path; use --parallel "
+     "tp (got --parallel dp)"),
     (["--parallel", "sp", "--pp_schedule", "1f1b"],
      "--pp_schedule 1f1b only applies to --parallel pp"),
     (["--parallel", "sp", "--seq_len", "4096"], "max_seq_len"),

@@ -116,13 +116,11 @@ def test_resume_auto_continues_at_epoch_3(tmp_path, capsys):
 
 # (case index, extra, flag): the index keeps each case's id from before
 # --parallel sp, --degree and --vocab_chunks were ported (cases 0, 3, 9)
+# and --parallel tp|pp, --zero, --zero1, --fsdp and --remat (cases 1, 2,
+# 6, 7, 8, 10; tests/test_torch_mp_cli.py runs them)
 _UNPORTED = [
-    (1, ["--parallel", "tp"], "--parallel"),
-    (2, ["--parallel", "pp"], "--parallel"),
     (4, ["--n_experts", "4"], "--n_experts"),
     (5, ["--moe_top_k", "2"], "--moe_top_k"),
-    (6, ["--zero"], "--zero"), (7, ["--zero1"], "--zero1"),
-    (8, ["--fsdp"], "--fsdp"), (10, ["--remat"], "--remat"),
     (11, ["--ckpt_backend", "orbax"], "--ckpt_backend"),
     (12, ["--ckpt_async"], "--ckpt_async"),
     (13, ["--hf_init", "x.pth"], "--hf_init"),
