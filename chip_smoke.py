@@ -11,6 +11,8 @@
     python3 chip_smoke.py --mp-only  # phases 1 and 28 (train_lm
                                      # --parallel pp|tp, --zero, --remat)
                                      # alone
+    python3 chip_smoke.py --moe-only  # phases 1 and 29 (train_lm
+                                      # --n_experts in every mode) alone
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -325,6 +327,27 @@ nothing is caught):
    checkpoint, ``--resume auto`` into a second with ``--val_frac`` and
    ``--sample 8`` at S 1016 (the sample fits max_seq_len; launches, the
    resumed epoch and the sample asserted).
+29. moe — Mixture of Experts. The full-width MoE layer (B 8, S 1024, D
+   768, H 3072, E 8; top-1 and top-2; f32 and bf16) on the card against
+   the same module on the CPU: the share of routes that agree and the
+   largest error over the tokens whose routes and kept slots agree
+   (``MOE_LAYER_TOL``), its forward and forward + backward times. At
+   degree 1 on one card (gpt_small with 8 top-1 experts, B 8 x S 1024,
+   ``MOE_STEPS`` steps from seed 0's params, bf16 and f32): the plain
+   MoE step, sp (ring, ulysses), tp, ``--remat`` and ``--zero`` bit-equal
+   to it (losses, balance losses and params), pp (gpipe, 1f1b) within
+   ``MP_PP_TOL``; launches a step as scheduled; the plain bf16 step
+   profiled (``profile_train_lm``'s groups and the MoE layers' share)
+   beside the dense gpt_small bf16 step of the same run. Through the
+   CLI, ``train_lm --n_experts 8`` and ``--moe_top_k 2`` (bf16, lr
+   0.01): 4 steps and an eval batch with their Aux column, step time and
+   peak memory, then ``--resume auto`` at S 1016 with ``--sample 8``
+   (the dropless decode: 12 decode-kernel launches a decode step).
+   Across W cards (4 where four are visible): tp at (1, W) in f32 held
+   against one card (``MP_XCARD_TOL``; resident bytes =
+   ``MOE_JAX_RESIDENT``), pp gpipe and sp ring at degree W reported
+   beside one card's losses (a per-shard balance loss and capacity,
+   JAX's semantics).
    Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
@@ -343,7 +366,9 @@ ResNet-18's N for the ring, with its cross-card numbers at that N, at
 attention rows also carry their Dh 48/64/96 times, ``head_dim_ms``,
 and the bf16 forward its ViT-shape numbers, ``vit_*``; the bf16 flash
 entries carry each phase 28 run's launches a step,
-``mp_launches_per_step``);
+``mp_launches_per_step``, and each phase 29 MoE run's,
+``moe_launches_per_step``; the decode entry carries phase 29's
+``--sample`` launches, ``moe_sample_launches``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -604,7 +629,7 @@ SP_LONG_LOSS_TOL = 2e-2
 # W. The second grid axis of each kind: pp "pipe", tp and dp "model"
 MP_SHAPE = dict(batch=8, seq=1024)
 MP_STEPS = 3
-MP_AXES = {"dp": "model", "pp": "pipe", "tp": "model"}
+MP_AXES = {"dp": "model", "pp": "pipe", "tp": "model", "sp": "seq"}
 MP_ONE_CARD = ({"kind": "dp"}, {"kind": "pp", "schedule": "gpipe"},
                {"kind": "pp", "schedule": "1f1b"}, {"kind": "tp"},
                {"kind": "tp", "zero1": True}, {"kind": "tp", "fsdp": True},
@@ -650,6 +675,37 @@ MP_JAX_RESIDENT = {
     ("tp", "plain", 1, 4): (279030340, 279030340),
     ("tp", "zero1", 1, 4): (279030340, 279030340),
     ("tp", "fsdp", 1, 4): (279030340, 279030340),
+}
+# phase 29: Mixture of Experts. The layer at gpt_small's widths with 8
+# experts (capacity factor 1.0: 128 slots an expert for top-1, 256 for
+# top-2), B 8 x S 1024, on the card against the CPU: the share of the
+# (token, choice) routes that agree (the router is f32 on both; a route
+# can flip only at a near tie) and the largest y error over the tokens
+# whose routes and kept slots agree: f32 (TF32 off) the products' order,
+# bf16 one bf16 rounding of the experts' products and of the combine
+MOE_LAYER = dict(batch=8, seq=1024, dim=768, hidden=3072, experts=8)
+MOE_LAYER_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+MOE_ROUTE_SHARE = 0.999
+# the MoE train steps at degree 1 (each bit-equal to the plain MoE step
+# but pp, held to MP_PP_TOL as in phase 28), and across the cards
+MOE_STEPS = 3
+MOE_ONE_CARD = ({"kind": "dp"}, {"kind": "sp", "sp_mode": "ring"},
+                {"kind": "sp", "sp_mode": "ulysses"}, {"kind": "tp"},
+                {"kind": "pp", "schedule": "gpipe"},
+                {"kind": "pp", "schedule": "1f1b"},
+                {"kind": "dp", "remat": True}, {"kind": "dp", "zero": True})
+MOE_CROSS = ({"kind": "tp"}, {"kind": "pp", "schedule": "gpipe"},
+             {"kind": "sp", "sp_mode": "ring"})
+# the CLI: 4 train steps and 1 eval batch an epoch (42000 tokens, 20%
+# held out), at S 1024 and, resumed with --sample 8, at S 1016
+MOE_CLI_TOKENS, MOE_CLI_VAL, MOE_CLI_STEPS, MOE_CLI_EVALS = 42000, 0.2, 4, 1
+# JAX's per-device bytes (params, one moment tree; f32) of gpt_small with
+# 8 experts under state_shardings on a (data, model) mesh, keyed by
+# (placement, data, degree)
+MOE_JAX_RESIDENT = {
+    ("plain", 1, 1): (2239381828, 2239381828),
+    ("plain", 1, 2): (1196986180, 1196986180),
+    ("plain", 1, 4): (675788356, 675788356),
 }
 
 
@@ -2586,12 +2642,13 @@ def _mp_launches_want(run, layers=12):
 
 def _mp_name(run):
     flags = [k for k in ("zero1", "fsdp", "zero", "remat") if run.get(k)]
-    return "_".join([run["kind"]] + ([run["schedule"]] if "schedule" in run
-                                     else []) + flags)
+    return "_".join([run["kind"]] + [run[k] for k in ("schedule", "sp_mode")
+                                     if k in run] + flags)
 
 
 def _mp_state(torch, model, params, run, grid, opt):
-    """``run``'s state and train step on the grid already made."""
+    """``run``'s state and train step on the grid already made (``sp``:
+    the model built with ``seq_axis="seq"``)."""
     from pytorch_multiprocessing_distributed_tpu_torch.parallel import (
         gpt_pipeline as gp)
     from pytorch_multiprocessing_distributed_tpu_torch.parallel.zero import (
@@ -2619,7 +2676,9 @@ def _mp_state(torch, model, params, run, grid, opt):
     state = create_lm_train_state(model, params, plan=plan)
     if plan is not None:
         zeroify_state(state, plan, grid.rank)
-    step = make_lm_train_step(model, opt, remat=run.get("remat", False))
+    step = make_lm_train_step(model, opt, remat=run.get("remat", False),
+                              seq_axis="seq" if run["kind"] == "sp"
+                              else None)
     return state, step, {"params": 4 * state.n,
                          "opt_state": 4 * state.momentum.numel()}
 
@@ -2641,19 +2700,24 @@ def _mp_whole(state, run, vocab):
 
 
 def _mp_run(torch, fa, dtype, run, params, tokens, grid, profile=False):
-    """``run`` (``kind`` dp|pp|tp with its flags) on gpt_small from
-    ``params`` over ``tokens`` ``[steps, B, S]`` (this rank takes its data
-    index's rows) on the grid already made: the losses, the whole params
-    after the last step, the first step's flash launches and peak memory
-    above the state, the later steps' period (host clock between
-    synchronizes), the resident bytes; with ``profile``, where two more
-    steps' device time goes (``profile_train_lm``'s groups, ms a step;
-    every rank of the grid must profile)."""
+    """``run`` (``kind`` dp|sp|pp|tp with its flags; ``moe``, the MoE
+    keywords of the model) on gpt_small from ``params`` over ``tokens``
+    ``[steps, B, S]`` (this rank takes its data index's rows) on the grid
+    already made: the losses (and an MoE model's balance losses), the
+    whole params after the last step, the first step's flash launches
+    and peak memory above the state, the later steps' period (host clock
+    between synchronizes), the resident bytes; with ``profile``, where
+    two more steps' device time goes (``profile_train_lm``'s groups, ms
+    a step, and an MoE model's MoE layers; every rank of the grid must
+    profile)."""
     from pytorch_multiprocessing_distributed_tpu_torch.models import (
         get_model)
     from pytorch_multiprocessing_distributed_tpu_torch.train import sgd
 
-    model = get_model("gpt_small", dtype=dtype)
+    kw = dict(run.get("moe", {}))
+    if run["kind"] == "sp":
+        kw.update(seq_axis="seq", sp_mode=run["sp_mode"])
+    model = get_model("gpt_small", dtype=dtype, **kw)
     state, step, resident = _mp_state(
         torch, model, {k: v.clone() for k, v in params.items()}, run, grid,
         sgd(SP_LR))
@@ -2664,7 +2728,8 @@ def _mp_run(torch, fa, dtype, run, params, tokens, grid, profile=False):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    losses = [float(step(state, rows[0])[1]["loss"])]
+    first = step(state, rows[0])[1]
+    losses = [float(first["loss"])]
     peak = torch.cuda.max_memory_allocated() - base
     launches = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
     # the later steps' period: host clock between two synchronizes, the
@@ -2683,9 +2748,11 @@ def _mp_run(torch, fa, dtype, run, params, tokens, grid, profile=False):
     out = dict(losses=losses, params=_mp_whole(state, run, model.vocab_size),
                launches=launches, peak_gib=peak / 2 ** 30,
                state_gib=base / 2 ** 30, resident=resident, step_ms=step_ms)
+    if "moe_aux" in first:
+        out["aux"] = [float(m["moe_aux"]) for m in [first] + metrics]
     if profile:
         from pytorch_multiprocessing_distributed_tpu_torch.profile_train_lm \
-            import profile_steps
+            import moe_layer_ms, profile_steps
 
         step_s, kernels, groups = profile_steps(
             lambda i: step(state, rows[-1]), 2)
@@ -2694,6 +2761,9 @@ def _mp_run(torch, fa, dtype, run, params, tokens, grid, profile=False):
             busy_ms=sum(kernels.values()) / 1e3 / 2,
             groups_ms={g: us / 1e3 / 2 for g, us in sorted(
                 groups.items(), key=lambda kv: -kv[1])})
+        if run.get("moe"):
+            out["profile"]["moe_ms"] = moe_layer_ms(
+                state.model, lambda i: step(state, rows[-1]), 2)
     del state, step, model
     gc.collect()  # a placed model and its state refer to each other
     torch.cuda.empty_cache()
@@ -2812,14 +2882,20 @@ def _mp_rank(rank, world, port, runs, ref_path, out_path):
     tokens = _sp_tokens(torch, MP_SHAPE["batch"], MP_SHAPE["seq"], MP_STEPS,
                         dev)
     ref = torch.load(ref_path, weights_only=True) if rank == 0 else None
-    params = init_params(get_model("gpt_small"), 0, dev)
+    params = {}  # seed 0's, by the model's MoE keywords
     out = []
     for tname, run, deg in runs:
         dtype = getattr(torch, tname)
+        key = json.dumps(run.get("moe", {}), sort_keys=True)
+        if key not in params:
+            params.clear()
+            params[key] = init_params(get_model(
+                "gpt_small", **run.get("moe", {})), 0, dev)
         grid = make_grid(world // deg, deg, axis=MP_AXES[run["kind"]])
         t0 = time.perf_counter()
-        got = _mp_run(torch, fa, dtype, run, params, tokens, grid,
-                      profile=tname == "bfloat16" and deg == world)
+        got = _mp_run(torch, fa, dtype, run, params[key], tokens, grid,
+                      profile=(tname == "bfloat16" and deg == world
+                               and not run.get("moe")))
         reset_grid()
         whole = got.pop("params")
         if rank == 0:
@@ -2994,6 +3070,387 @@ def _mp_phase(torch, fa, train_lm, smi):
     return dict(launches=launches, cross=cross, cli=cli)
 
 
+# ------------------------------------------------------------- phase 29
+
+
+def _moe_layer_params(torch, seed=0):
+    """A full-width MoE layer's params on the host (``MOE_LAYER``'s
+    widths): flax's ``lecun_normal`` kernels as ``init_params`` draws
+    them, and small random expert biases (so that the biases count)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.serving.params import (
+        _lecun_normal)
+
+    d, h, e = MOE_LAYER["dim"], MOE_LAYER["hidden"], MOE_LAYER["experts"]
+    gen = torch.Generator().manual_seed(seed)
+    return {"gate": _lecun_normal((d, e), gen),
+            "w1": _lecun_normal((e, d, h), gen),
+            "b1": 0.02 * torch.randn((e, h), generator=gen),
+            "w2": _lecun_normal((e, h, d), gen),
+            "b2": 0.02 * torch.randn((e, d), generator=gen)}
+
+
+def _moe_layer_check(torch, smi):
+    """Phase 29's layer: the full-width MoE layer (B 8, S 1024, D 768,
+    H 3072, E 8) on the card against the same module on the CPU, top-1
+    and top-2, f32 (TF32 off) and bf16: the share of (token, choice)
+    routes that agree, the largest error of ``y`` over the tokens whose
+    routes and kept slots agree (within ``MOE_LAYER_TOL``), aux and z;
+    and the layer's forward and forward + backward device times."""
+    from pytorch_multiprocessing_distributed_tpu_torch.ops.moe import (
+        MoEMlp, dispatch_masks, route)
+
+    b, s, d = MOE_LAYER["batch"], MOE_LAYER["seq"], MOE_LAYER["dim"]
+    params = _moe_layer_params(torch)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.randn((b, s, d), generator=torch.Generator().manual_seed(1))
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 is f32
+    out = {}
+    for k in (1, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[1]
+            host, card = (MoEMlp(d, MOE_LAYER["experts"],
+                                 MOE_LAYER["hidden"], 1.0, k)
+                          for _ in range(2))
+            host.load_state_dict(params, assign=True)
+            card.load_state_dict({n: t.to(dev) for n, t in params.items()},
+                                 assign=True)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                y_ref, aux_ref, z_ref = host(x, dtype)
+            cpu_s = time.perf_counter() - t0
+            xc = x.to(dev)
+            with torch.no_grad():
+                y, aux, z = card(xc, dtype)
+            cap = card.capacity(s)
+            routes, kept = [], []
+            for m, xx in ((host, x), (card, xc)):
+                _, _, _, topi = route(m.gate, xx, k)
+                _, _, keep = dispatch_masks(
+                    torch.nn.functional.one_hot(topi, MOE_LAYER["experts"])
+                    .float(), cap)
+                routes.append(topi.cpu())
+                kept.append(keep.cpu())
+            same = routes[0] == routes[1]
+            agree = (same & (kept[0] == kept[1])).all(-1)      # [B, S]
+            err = float((y.float().cpu() - y_ref.float())[agree].abs().max())
+            share = float(same.float().mean())
+            tol = MOE_LAYER_TOL[tname]
+            if share < MOE_ROUTE_SHARE or err > tol:
+                raise AssertionError(
+                    f"MoE layer top-{k} {tname} on the card: {share:.6f} of "
+                    f"the routes agree with the CPU's (want >= "
+                    f"{MOE_ROUTE_SHARE}), largest y error {err} on the "
+                    f"tokens whose routes agree (tol {tol})")
+
+            def fwd():
+                return card(xc, dtype)
+
+            for p in card.parameters():
+                p.requires_grad_(True)
+            xg = xc.clone().requires_grad_(True)
+            dy = torch.randn_like(y.float())
+
+            def fwd_bwd():
+                yy, a, zz = card(xg, dtype)
+                torch.autograd.backward([yy, a, zz],
+                                        [dy, torch.ones_like(a),
+                                         torch.ones_like(zz)])
+
+            with torch.no_grad():
+                fwd_ms = _eager_ms(fwd, torch, reps=10, warmup=2)
+            train_ms = _eager_ms(fwd_bwd, torch, reps=10, warmup=2)
+            out[f"top{k}_{tname}"] = dict(share=share, err=err,
+                                          fwd_ms=fwd_ms, train_ms=train_ms)
+            _print(f"[moe-layer] MoE layer B={b} S={s} D={d} H="
+                   f"{MOE_LAYER['hidden']} E={MOE_LAYER['experts']} top-{k} "
+                   f"{tname} (capacity {cap}): card vs CPU, {share:.6f} of "
+                   f"the (token, choice) routes agree, {int(agree.sum())} of "
+                   f"{b * s} tokens with every route and kept slot equal, "
+                   f"largest y error on them {err:.3e} (tol {tol}); aux "
+                   f"{float(aux):.6f} (CPU {float(aux_ref):.6f}), z "
+                   f"{float(z):.6f} (CPU {float(z_ref):.6f}); CPU forward "
+                   f"{cpu_s:.1f} s; card forward {fwd_ms:.3f} ms, forward + "
+                   f"backward {train_ms:.3f} ms (eager, median of 10) [{smi}]")
+            del host, card, y_ref, y, xg
+            torch.cuda.empty_cache()
+    return out
+
+
+def _moe_check_resident(run, got, moe_total):
+    """A degree-1 run's resident bytes: the whole MoE state, which JAX's
+    placement on one device is (``MOE_JAX_RESIDENT``), the ``--zero``
+    moments a padded bucket layout of it."""
+    if run.get("zero"):
+        ok = (got["params"] == moe_total
+              and moe_total <= got["opt_state"] < moe_total + 4 * 2 ** 20)
+    else:
+        want = MOE_JAX_RESIDENT[("plain", 1, 1)]
+        ok = (got["params"], got["opt_state"]) == want
+    if not ok:
+        raise AssertionError(f"MoE {_mp_name(run)} at degree 1: resident "
+                             f"bytes {got}, the whole state is {moe_total}")
+
+
+def _moe_one_card(torch, fa, smi):
+    """Phase 29 at degree 1 on one card, bf16 and f32, top-1: the plain
+    MoE step, then sp (ring, ulysses), tp, ``--remat`` and ``--zero``
+    (each bit-equal to it) and pp (gpipe, 1f1b; within ``MP_PP_TOL``);
+    each run's flash launches a step as scheduled; the plain bf16 step
+    profiled (kernel groups and the MoE layers' share); the dense plain
+    bf16 step beside it. Returns the plain MoE runs (the cross-card
+    reference), each run's launches and the numbers the kernels line and
+    ``PERF.md`` take."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid, reset_grid)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        init_params)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tokens = _sp_tokens(torch, MP_SHAPE["batch"], MP_SHAPE["seq"], MOE_STEPS)
+    plains, launches, out = {}, {}, {}
+    moe = dict(n_experts=MOE_LAYER["experts"])
+    grid = make_grid(1, 1)
+    try:
+        dense = _mp_run(torch, fa, torch.bfloat16, {"kind": "dp"},
+                        init_params(get_model("gpt_small"), 0, dev), tokens,
+                        grid)
+    finally:
+        reset_grid()
+    out["dense_step_ms"] = dense["step_ms"]
+    del dense
+    params = init_params(get_model("gpt_small", **moe), 0, dev)
+    moe_total = 4 * sum(t.numel() for t in params.values())
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[1]
+        plain = None
+        for run in MOE_ONE_CARD:
+            run = dict(run, moe=moe)
+            grid = make_grid(1, 1, axis=MP_AXES[run["kind"]])
+            try:
+                got = _mp_run(torch, fa, dtype, run, params, tokens, grid,
+                              profile=plain is None and tname == "bfloat16")
+            finally:
+                reset_grid()
+            name = _mp_name(run)
+            want = _mp_launches_want(run)
+            if got["launches"] != want:
+                raise AssertionError(
+                    f"MoE {name} {tname} at degree 1 launched "
+                    f"{got['launches']} in one step, the schedule wants "
+                    f"{want}")
+            launches[name] = got["launches"]
+            _moe_check_resident(run, got["resident"], moe_total)
+            if plain is None:
+                plain, verdict, dloss, dparam = got, "the reference", 0.0, 0.0
+            else:
+                dloss = max(abs(a - b) for a, b in zip(got["losses"],
+                                                       plain["losses"]))
+                dparam = _mp_err(got["params"], plain["params"])
+                if run["kind"] == "pp":
+                    tol = MP_PP_TOL[tname]
+                    if dloss > tol["loss"] or dparam > tol["param"]:
+                        raise AssertionError(
+                            f"MoE {name} {tname} at degree 1: loss err "
+                            f"{dloss}, param err {dparam} after {MOE_STEPS} "
+                            f"steps, past {tol}")
+                    verdict = f"within {tol}"
+                elif dloss or dparam or got["aux"] != plain["aux"]:
+                    raise AssertionError(
+                        f"MoE {name} {tname} at degree 1 is not bit-equal "
+                        f"to the plain MoE step: loss err {dloss}, param err "
+                        f"{dparam}, aux {got['aux']} vs {plain['aux']}")
+                else:
+                    verdict = "bit-equal"
+            if not all(math.isfinite(v) for v in got["losses"] + got["aux"]):
+                raise AssertionError(f"MoE {name} {tname}: losses "
+                                     f"{got['losses']}, aux {got['aux']}")
+            _print(f"[moe] gpt_small E={moe['n_experts']} top-1 {tname} "
+                   f"B={MP_SHAPE['batch']} S={MP_SHAPE['seq']} {name} on a "
+                   f"1x1 grid: losses {got['losses']}, aux {got['aux']} "
+                   f"({verdict}: loss err {dloss}, param err {dparam} after "
+                   f"{MOE_STEPS} steps), launches a step {got['launches']}, "
+                   f"resident {got['resident']} B, peak above the state "
+                   f"{got['peak_gib']:.3f} GiB (state "
+                   f"{got['state_gib']:.3f}), step {got['step_ms']:.2f} ms "
+                   f"[{smi}]")
+            if "profile" in got:
+                prof = got["profile"]
+                out["moe_step_ms"] = got["step_ms"]
+                out["moe_peak_gib"] = got["peak_gib"]
+                out["moe_state_gib"] = got["state_gib"]
+                out["moe_ms"] = prof["moe_ms"]
+                out["moe_share"] = prof["moe_ms"] / prof["step_ms"]
+                _print(f"[moe-profile] gpt_small E={moe['n_experts']} top-1 "
+                       f"bf16 B={MP_SHAPE['batch']} S={MP_SHAPE['seq']} "
+                       f"plain step {got['step_ms']:.2f} ms (dense gpt_small "
+                       f"bf16 plain step in this run {out['dense_step_ms']:.2f}"
+                       f" ms): {_sp_profile_text(got)}; MoE layers (router, "
+                       f"dispatch, experts, combine; forward and backward, "
+                       f"CUDA events) {prof['moe_ms']:.2f} ms a step, "
+                       f"{out['moe_share']:.3f} of the profiled step [{smi}]")
+            if got is not plain:
+                del got
+        plains[tname] = plain
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return plains, out
+
+
+def _moe_cli(train_lm, torch, smi, da):
+    """``train_lm --n_experts 8 [--moe_top_k 2]`` through the CLI on one
+    card (gpt_small bf16, B 8 x S 1024, lr 0.01): an epoch of
+    ``MOE_CLI_STEPS`` steps and ``MOE_CLI_EVALS`` eval batch with a
+    checkpoint, then ``--resume auto`` into a second at S 1016 with
+    ``--sample 8`` through the dropless decode (row 1: 12 launches a
+    decode step). The launches, the Aux column, the resume and the
+    sample asserted; the step, peak memory and Aux printed."""
+    base = ["--model", "gpt_small", "--dtype", "bfloat16", "--batch_size",
+            str(MP_SHAPE["batch"]), "--lr", str(SP_LR), "--corpus_tokens",
+            str(MOE_CLI_TOKENS), "--val_frac", str(MOE_CLI_VAL),
+            "--print_freq", "1", "--seed", "0", "--n_experts",
+            str(MOE_LAYER["experts"])]
+    out = {}
+    for k in (1, 2):
+        extra = ["--moe_top_k", str(k)] if k > 1 else []
+        with tempfile.TemporaryDirectory() as tmp:
+            first = train_lm.main(base + extra + [
+                "--seq_len", str(MP_SHAPE["seq"]), "--epochs", "1",
+                "--save_path", tmp])
+            decode0 = da.decode_attention.launches
+            second = train_lm.main(base + extra + [
+                "--seq_len", str(MP_CLI_SEQ), "--epochs", "2", "--resume",
+                "auto", "--sample", str(MP_CLI_SAMPLE), "--save_path", tmp])
+            decodes = da.decode_attention.launches - decode0
+        want = {n: c * MOE_CLI_STEPS for n, c in _mp_launches_want({}).items()}
+        want["flash_fwd"] += 12 * MOE_CLI_EVALS
+        decode_want = 12 * (MP_CLI_SAMPLE - 1)
+        for summary in (first, second):
+            if (summary["launches"] != want
+                    or summary["steps"] != MOE_CLI_STEPS
+                    or len(summary["moe_aux"]) != MOE_CLI_STEPS):
+                raise AssertionError(
+                    f"train_lm --n_experts 8 top-{k}: {summary['steps']} "
+                    f"steps, launches {summary['launches']}, Aux "
+                    f"{summary['moe_aux']}, want {want} ({MOE_CLI_STEPS} "
+                    f"steps, {MOE_CLI_EVALS} eval batch)")
+        values = (first["epoch_losses"] + first["val_losses"]
+                  + second["epoch_losses"] + second["val_losses"]
+                  + first["moe_aux"] + second["moe_aux"])
+        if (decodes != decode_want or len(second["sample"]) != MP_CLI_SAMPLE
+                or not all(math.isfinite(v) for v in values)
+                or not first["epoch_losses"][0] < first["first_loss"]):
+            raise AssertionError(
+                f"train_lm --n_experts 8 top-{k}: losses {first} / "
+                f"{second}; decode launches {decodes} (want {decode_want})")
+        step_ms = first["steady_step_s"] * 1e3
+        peak = first["peak_memory_bytes"] / 2 ** 30
+        out[f"top{k}"] = dict(step_ms=step_ms, peak_gib=peak,
+                              aux=first["moe_aux"], sample=second["sample"],
+                              decode_launches=decodes)
+        _print(f"[moe-cli] train_lm gpt_small bf16 B={MP_SHAPE['batch']} "
+               f"S={MP_SHAPE['seq']} --n_experts {MOE_LAYER['experts']} "
+               f"top-{k}: {first['steps']} steps, losses printed "
+               f"{first['first_loss']:.4f} -> epoch {first['epoch_losses'][0]:.6f},"
+               f" val {first['val_losses'][0]:.6f}, Aux column "
+               f"{[round(a, 3) for a in first['moe_aux']]}, steady step "
+               f"{step_ms:.2f} ms (host clock), peak memory {peak:.3f} GiB, "
+               f"tokens/s {first['tokens_per_sec']:.1f}; resumed at S "
+               f"{MP_CLI_SEQ}: epoch 2 loss {second['epoch_losses'][0]:.6f}, "
+               f"Aux {[round(a, 3) for a in second['moe_aux']]}, --sample "
+               f"{MP_CLI_SAMPLE} {second['sample']} (decode kernel launches "
+               f"{decodes}) [{smi}]")
+    return out
+
+
+def _moe_cross_card(torch, plains, smi):
+    """Phase 29 across W cards (4 where four are visible, else 2): tp at
+    (1, W) in f32, held against one card's plain MoE step within
+    ``MP_XCARD_TOL`` (JAX's global semantics: the same function); pp
+    (gpipe) and sp (ring) at degree W, whose balance loss is a per-shard
+    statistic and whose capacity is per microbatch or per shard (JAX's
+    semantics), reported beside one card's without a bound."""
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2 if cards >= 2 else 1
+    if world < 2:
+        _print(f"[moe-xcard] {cards} card visible: tp, pp and sp across "
+               "cards need two or more (python3 chip_smoke.py --moe-only "
+               "where four are visible)")
+        return None
+    moe = dict(n_experts=MOE_LAYER["experts"])
+    runs = [("float32", dict(run, moe=moe), world) for run in MOE_CROSS]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "plain.pt")
+        torch.save({"float32": plains["float32"]["params"]}, ref_path)
+        t0 = time.perf_counter()
+        ranks = _run_ranks(_mp_rank, world, (runs, ref_path),
+                           timeout_s=900, per_rank=True)
+        wall = time.perf_counter() - t0
+    plain = plains["float32"]
+    out = {}
+    for i, (tname, run, deg) in enumerate(runs):
+        name = _mp_name(run)
+        for r, got in enumerate(ranks):
+            want = (_sp_launches_want(run["sp_mode"], deg, r)
+                    if run["kind"] == "sp" else _mp_launches_want(run))
+            if got[i]["launches"] != want:
+                raise AssertionError(
+                    f"MoE {name} degree {deg} rank {r}: one step launched "
+                    f"{got[i]['launches']}, the schedule wants {want}")
+        got = ranks[0][i]
+        dloss = max(abs(a - b) for a, b in zip(got["losses"],
+                                               plain["losses"]))
+        if run["kind"] == "tp":
+            tol = MP_XCARD_TOL[tname]
+            for r, g in enumerate(ranks):
+                jax_bytes = MOE_JAX_RESIDENT[("plain", 1, deg)]
+                if (g[i]["resident"]["params"],
+                        g[i]["resident"]["opt_state"]) != jax_bytes:
+                    raise AssertionError(
+                        f"MoE tp degree {deg} rank {r}: resident "
+                        f"{g[i]['resident']}, JAX's placement {jax_bytes}")
+            if dloss > tol["loss"] or got["param_err"] > tol["param"]:
+                raise AssertionError(
+                    f"MoE tp f32 at (1, {deg}): loss err {dloss}, param err "
+                    f"{got['param_err']} after {MOE_STEPS} steps against one "
+                    f"card's plain MoE step, past {tol}")
+            verdict = f"held within {tol}"
+        else:
+            verdict = ("reported, no bound: a per-shard balance loss and "
+                       "capacity, JAX's semantics")
+        out[name] = dict(losses=got["losses"], aux=got["aux"],
+                         loss_err=dloss, param_err=got["param_err"],
+                         step_ms=[g[i]["step_ms"] for g in ranks],
+                         peak_gib=[g[i]["peak_gib"] for g in ranks])
+        _print(f"[moe-xcard] gpt_small E={moe['n_experts']} top-1 f32 "
+               f"B={MP_SHAPE['batch']} S={MP_SHAPE['seq']} {name} degree "
+               f"{deg} on {world} cards: losses {got['losses']} (one card "
+               f"{plain['losses']}), aux {got['aux']} (one card "
+               f"{plain['aux']}), loss err {dloss}, param err "
+               f"{got['param_err']} ({verdict}); step a rank "
+               f"{[round(g[i]['step_ms'], 2) for g in ranks]} ms (one card "
+               f"{plain['step_ms']:.2f}), peak above the state a rank "
+               f"{[round(g[i]['peak_gib'], 3) for g in ranks]} GiB, "
+               f"launches a step {got['launches']} [{smi}]")
+    _print(f"[moe-xcard] {len(runs)} runs on {world} ranks: wall "
+           f"{wall:.1f} s [{smi}]")
+    return out
+
+
+def _moe_phase(torch, fa, train_lm, smi, da):
+    """Phase 29 (see the module docstring)."""
+    t0 = time.perf_counter()
+    layer = _moe_layer_check(torch, smi)
+    plains, one = _moe_one_card(torch, fa, smi)
+    cli = _moe_cli(train_lm, torch, smi, da)
+    cross = _moe_cross_card(torch, plains, smi)
+    _print(f"[moe] phase 29 wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    return dict(layer=layer, cli=cli, cross=cross, **one)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3062,6 +3519,11 @@ def main() -> int:
     if "--mp-only" in sys.argv[1:]:
         _mp_phase(torch, fa, train_lm, smi)
         _print(f"[total] chip_smoke --mp-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--moe-only" in sys.argv[1:]:
+        _moe_phase(torch, fa, train_lm, smi, da)
+        _print(f"[total] chip_smoke --moe-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4267,6 +4729,9 @@ def main() -> int:
 
     # -- phase 28: pipeline and tensor parallelism, --zero and --remat
     mp = _mp_phase(torch, fa, train_lm, smi)
+
+    # -- phase 29: Mixture of Experts in every mode, dropless decode
+    moe = _moe_phase(torch, fa, train_lm, smi, da)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -4311,7 +4776,9 @@ def main() -> int:
             "hop_shape": "bf16 non-causal B8 H12 S256 Dh64"}
            if tname == "bfloat16" else {}),
         **({"mp_launches_per_step": {mode: counts[name] for mode, counts
-                                     in mp["launches"].items()}}
+                                     in mp["launches"].items()},
+            "moe_launches_per_step": {mode: counts[name] for mode, counts
+                                      in moe["launches"].items()}}
            if tname == "bfloat16" else {})}
         for tname, kernels_of, launches_of in (
             ("bfloat16", FLASH_KERNELS, train_launches),
@@ -4332,6 +4799,8 @@ def main() -> int:
         "library": "F.scaled_dot_product_attention with the position mask",
         "shape": f"bf16 N=8 H=12 Dh=64 W={w_main}",
         "head_dim_ms": _by_head_dim(hd_times, "1"),
+        "moe_sample_launches": {f"top{k}": moe["cli"][f"top{k}"][
+            "decode_launches"] for k in (1, 2)},
         **{f"w{max(WINDOWS)}_{key}": row1_long[key]
            for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")}}]

@@ -26,8 +26,13 @@ steps), verifies them with ONE ``k + 1``-query target pass
 (:func:`_block_verify_slots`, on the verify attention kernels), and
 accepts the leading matches with tensor ops on the device.
 
+An MoE model decodes droplessly (JAX ``_moe_ffn``): the blocks' shared
+feed-forward, :func:`..models.gpt._ffn`, runs every expert on every
+token and keeps each token's top-k, in the prefill, the decode steps,
+the verify passes and the chunked prefill alike.
+
 Not in this slice: ragged left-padded batches (``prompt_lengths``),
-tensor parallelism (``mesh``), MoE, beam search (ROADMAP.md).
+tensor parallelism (``mesh``), beam search (ROADMAP.md).
 """
 
 from __future__ import annotations

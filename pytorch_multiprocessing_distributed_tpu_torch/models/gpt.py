@@ -34,8 +34,12 @@ the position table is sliced to match (two chunks under ``sp_mode=
 .ulysses.ulysses_attention` (``"ulysses"``), whatever ``attn_impl``
 says; every other op is per position and stays local.
 
-Not in this slice: MoE feed-forward (``n_experts > 0`` raises
-``NotImplementedError``) — ROADMAP.md "Port: modules still to port".
+Mixture of Experts: ``n_experts > 0`` puts :class:`..ops.moe.MoEMlp`
+(``moe``) in every block in place of ``fc1``/``fc2``. The model's
+forward runs JAX's training layer (capacity slots, dropped tokens) and,
+when asked (``moe_losses=True``), returns the layer means of its
+balance and router z losses beside the output; the decode helpers
+(:func:`_ffn`) run its dropless twin, as JAX's ``generate`` does.
 """
 
 from __future__ import annotations
@@ -47,15 +51,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.moe import MoEMlp
 from ..parallel.mesh import axis as grid_axis
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
 from .registry import register
 
 SP_MODES = ("ring", "zigzag", "ulysses")
-
-_NOT_PORTED = ("is not ported to PyTorch yet (ROADMAP.md, 'Port: modules "
-               "still to port')")
 
 
 def _meta(*shape) -> nn.Parameter:
@@ -90,13 +92,21 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, d: int, mlp_dim: int):
+    """``ln1``, ``attn``, ``ln2`` and the feed-forward: ``fc1``/``fc2``,
+    or ``moe`` when ``n_experts > 0``."""
+
+    def __init__(self, d: int, mlp_dim: int, n_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.0):
         super().__init__()
         self.ln1 = LayerNorm(d)
         self.attn = Attention(d)
         self.ln2 = LayerNorm(d)
-        self.fc1 = Dense(d, mlp_dim)
-        self.fc2 = Dense(mlp_dim, d)
+        if n_experts > 0:
+            self.moe = MoEMlp(d, n_experts, mlp_dim, moe_capacity_factor,
+                              moe_top_k)
+        else:
+            self.fc1 = Dense(d, mlp_dim)
+            self.fc2 = Dense(mlp_dim, d)
 
 
 # ---- the math (shared with inference.generate) ------------------------
@@ -121,7 +131,11 @@ def _dense(x, p: Dense, dtype):
 
 def _ffn(p: Block, x, dtype, eps: float):
     """ln2 -> fc1 -> tanh-approximate GELU (``jax.nn.gelu``'s default)
-    -> fc2, in ``dtype``."""
+    -> fc2, in ``dtype``; or, in an MoE block, ln2 -> the dropless MoE
+    layer (:meth:`..ops.moe.MoEMlp.dropless`, f32 out): the decode
+    path's feed-forward."""
+    if hasattr(p, "moe"):
+        return p.moe.dropless(_ln(x, p.ln2, eps), dtype)
     hn = _ln(x, p.ln2, eps).to(dtype)
     y = _dense(hn, p.fc1, dtype)
     return _dense(F.gelu(y, approximate="tanh"), p.fc2, dtype)
@@ -143,12 +157,18 @@ def _causal_xla(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
 
 
-def _block(p: Block, x, h: int, dtype, eps: float, attn_impl):
+def _block(p: Block, x, h: int, dtype, eps: float, attn_impl,
+           moe_losses=None, moe_stats=None):
     """One block over ``x`` ``[B, S, D]``; returns ``(y, k, v)`` with
     k/v ``[B, S, H, Dh]`` in ``dtype``. ``attn_impl="flash"`` runs
     :func:`..ops.flash_attention.flash_attention` on the views of the
     fused QKV projection (read in place by the kernels); a callable
-    ``attn_impl(q, k, v)`` is the sequence-parallel attention."""
+    ``attn_impl(q, k, v)`` is the sequence-parallel attention.
+
+    ``moe_losses`` (a list): an MoE block runs the training layer
+    (capacity slots, JAX's ``MoEMlp``) and appends its ``(aux, z)``,
+    with ``moe_stats`` its ``stats_group``; None: the dropless decode
+    layer of :func:`_ffn`. A dense block ignores both."""
     b, s, _ = x.shape
     hn = _ln(x, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
@@ -161,13 +181,18 @@ def _block(p: Block, x, h: int, dtype, eps: float, attn_impl):
         att = _causal_xla(q, k, v)
     att = att.reshape(b, s, -1).to(dtype)
     x = x + _dense(att, p.attn.wo, dtype)
+    if moe_losses is not None and hasattr(p, "moe"):
+        y, aux, z = p.moe(_ln(x, p.ln2, eps), dtype, moe_stats)
+        moe_losses.append((aux, z))
+        return x + y, k, v
     return x + _ffn(p, x, dtype, eps), k, v
 
 
 def _block_prefill(p: Block, x, h: int, dtype, eps: float):
     """Full causal pass over ``x`` ``[B, S, D]`` with the plain
-    attention (the serving prefill, mirroring JAX ``generate.py``);
-    returns ``(y, k, v)`` with k/v ``[B, S, H, Dh]`` in ``dtype``."""
+    attention and the dropless MoE layer (the serving prefill, mirroring
+    JAX ``generate.py``); returns ``(y, k, v)`` with k/v ``[B, S, H,
+    Dh]`` in ``dtype``."""
     return _block(p, x, h, dtype, eps, "xla")
 
 
@@ -188,6 +213,16 @@ def _logits(model: "GPT", x, eps: float):
     return out
 
 
+def layer_means(losses, like: torch.Tensor):
+    """``(aux, z)`` means over the layers' ``(aux, z)`` pairs (f32
+    zeros on ``like``'s device where there are none: a dense model)."""
+    if not losses:
+        zero = torch.zeros((), dtype=torch.float32, device=like.device)
+        return zero, zero
+    n = len(losses)
+    return (sum(a for a, _ in losses) / n, sum(z for _, z in losses) / n)
+
+
 class GPT(nn.Module):
     """Decoder-only LM. ``forward(tokens [B, S])`` -> f32 logits
     ``[B, S, vocab]`` (under ``seq_axis``, ``S`` is this rank's slice of
@@ -199,7 +234,9 @@ class GPT(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  attn_impl: str = "flash", seq_axis: Optional[str] = None,
                  sp_mode: str = "ring", n_experts: int = 0,
-                 ln_eps: float = 1e-6, head_bias: bool = True):
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.0,
+                 ln_eps: float = 1e-6, head_bias: bool = True,
+                 expert_axis: Optional[str] = None):
         super().__init__()
         if attn_impl not in ("flash", "xla"):
             raise ValueError(
@@ -209,9 +246,10 @@ class GPT(nn.Module):
                 f"sp_mode must be 'ring', 'zigzag' or 'ulysses', got "
                 f"{sp_mode!r} (a typo would otherwise silently benchmark "
                 "the wrong strategy)")
-        if n_experts:
+        if expert_axis is not None:
             raise NotImplementedError(
-                f"MoE feed-forward (n_experts > 0) {_NOT_PORTED}")
+                "expert parallelism (expert_axis) is not ported to PyTorch "
+                "yet (ROADMAP.md, 'Port: modules still to port')")
         if hidden_size % num_heads:
             raise ValueError(
                 f"hidden_size {hidden_size} not divisible by num_heads "
@@ -226,11 +264,16 @@ class GPT(nn.Module):
         self.attn_impl = attn_impl
         self.seq_axis = seq_axis
         self.sp_mode = sp_mode
+        self.n_experts = n_experts
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
         self.ln_eps = ln_eps
         self.embed = _meta(vocab_size, hidden_size)
         self.pos_embed = _meta(max_seq_len, hidden_size)
         for i in range(num_layers):
-            self.add_module(f"block_{i}", Block(hidden_size, mlp_dim))
+            self.add_module(f"block_{i}", Block(
+                hidden_size, mlp_dim, n_experts, moe_top_k,
+                moe_capacity_factor))
         self.ln_final = LayerNorm(hidden_size)
         self.head = Dense(hidden_size, vocab_size, bias=head_bias)
 
@@ -261,6 +304,8 @@ class GPT(nn.Module):
                   num_heads=self.num_heads, mlp_dim=self.mlp_dim,
                   dtype=self.dtype, attn_impl=self.attn_impl,
                   seq_axis=self.seq_axis, sp_mode=self.sp_mode,
+                  n_experts=self.n_experts, moe_top_k=self.moe_top_k,
+                  moe_capacity_factor=self.moe_capacity_factor,
                   ln_eps=self.ln_eps, head_bias=self.head.bias is not None)
         kw.update(overrides)
         other = GPT(**kw)
@@ -299,20 +344,29 @@ class GPT(nn.Module):
         return lambda q, k, v: ring_attention(
             q, k, v, axis_name=self.seq_axis, causal=True, zigzag=zigzag)
 
-    def forward(self, tokens: torch.Tensor,
-                return_hidden: bool = False) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
+                moe_losses: bool = False, moe_stats=None):
         """f32 logits, or with ``return_hidden=True`` the f32 hiddens
         after the final LayerNorm ``[B, S, D]`` (the input of
-        :func:`..ops.losses.chunked_lm_ce`)."""
+        :func:`..ops.losses.chunked_lm_ce`). ``moe_losses=True`` returns
+        ``(out, aux, z)``: the layer means of the MoE balance and router
+        z losses (JAX's sown ``losses`` through ``_collect_moe_losses``;
+        zeros for a dense model). ``moe_stats``: the layers'
+        ``stats_group`` (:meth:`..ops.moe.MoEMlp.forward`)."""
         pos = self._positions(tokens.shape[1])
         x = self.embed[tokens].to(self.dtype) + pos.to(self.dtype)
         attn = self._attention()
+        losses = []
         for i in range(self.num_layers):
             x, _, _ = _block(self.block(i), x, self.num_heads, self.dtype,
-                             self.ln_eps, attn)
+                             self.ln_eps, attn, losses, moe_stats)
         if return_hidden:
-            return _ln(x, self.ln_final, self.ln_eps).float()
-        return _logits(self, x, self.ln_eps).float()
+            out = _ln(x, self.ln_final, self.ln_eps).float()
+        else:
+            out = _logits(self, x, self.ln_eps).float()
+        if not moe_losses:
+            return out
+        return (out, *layer_means(losses, x))
 
 
 def _family(kw, **defaults):

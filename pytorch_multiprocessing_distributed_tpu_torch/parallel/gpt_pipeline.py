@@ -39,6 +39,13 @@ stage, and the whole gradient buffer is then summed over the data group
 once. ``pos`` and ``ln_f`` thereby come out summed over both axes, the
 pipe-sharded leaves over ``data`` only; a further sum would scale them
 (the 2x/8x updates JAX's comment records).
+
+MoE: a stage of an MoE model returns its layers' sum of ``[aux, z]``
+beside its output (the schedules carry it, :mod:`.pipeline`), and the
+objective adds ``(w_aux * A + w_z * Z) / dp`` with ``A``, ``Z`` those
+sums over the stages divided by ``L * m``: JAX's layer-mean and
+microbatch-mean. Each microbatch routes its own rows (capacity of the
+whole ``S``, statistics per microbatch), as in JAX.
 """
 
 from __future__ import annotations
@@ -175,6 +182,8 @@ def stage_model(model: GPT, n_stages: int) -> GPT:
                num_layers=model.num_layers // n_stages,
                num_heads=model.num_heads, mlp_dim=model.mlp_dim,
                dtype=model.dtype, attn_impl=model.attn_impl,
+               n_experts=model.n_experts, moe_top_k=model.moe_top_k,
+               moe_capacity_factor=model.moe_capacity_factor,
                ln_eps=model.ln_eps, head_bias=model.head.bias is not None)
 
 
@@ -333,12 +342,20 @@ class _Vary(torch.autograd.Function):
 
 
 def _stage_fn(model: GPT, stage: GPT):
-    """This stage's blocks over ``x`` ``[mb, S, D]``."""
+    """This stage's blocks over ``x`` ``[mb, S, D]``; an MoE model's
+    returns ``(y, [aux, z])``, the layers' sums of its losses."""
+    moe = model.n_experts > 0
+
     def run(x):
+        losses = []
         for j in range(stage.num_layers):
             x, _, _ = _block(stage.block(j), x, model.num_heads,
-                             model.dtype, model.ln_eps, model.attn_impl)
-        return x
+                             model.dtype, model.ln_eps, model.attn_impl,
+                             losses)
+        if not moe:
+            return x
+        return x, torch.stack([sum(a for a, _ in losses),
+                               sum(z for _, z in losses)])
 
     return run
 
@@ -397,13 +414,27 @@ def _forward_ce(model: GPT, stage: GPT, tokens: torch.Tensor, ax: Axis,
     """The GPipe objective's CE sum over this replica's rows: the
     vocab-parallel embed, the pipelined blocks, the final LN and the
     vocab-parallel log-sum-exp CE (replicated over the pipe group)."""
+    return _forward_objective(model, stage, tokens, ax, m)[0]
+
+
+def _forward_objective(model: GPT, stage: GPT, tokens: torch.Tensor,
+                       ax: Axis, m: int):
+    """``(ce_sum, moe)``: :func:`_forward_ce`'s CE sum and, for an MoE
+    model, ``[aux, z]`` summed over the stages and divided by ``L * m``
+    (replicated over the pipe group; None for a dense model)."""
     targets, w = _targets(tokens)
     b, s = tokens.shape
     vs = stage.embed.shape[0]
     start = ax.index * vs
     h = _embed(model, stage, tokens, ax)
+    moe = model.n_experts > 0
     out = pipeline_apply(_stage_fn(model, stage),
-                         h.reshape(m, b // m, s, -1), axis_name=PIPE_AXIS)
+                         h.reshape(m, b // m, s, -1), axis_name=PIPE_AXIS,
+                         with_stage_aux=moe)
+    aux_vec = None
+    if moe:
+        out, aux_local = out
+        aux_vec = _sum_over(aux_local, ax) / (model.num_layers * m)
     h = _final_ln(out.reshape(b, s, -1).float(), stage, model.ln_eps)
     logits = _vary(h, ax) @ stage.head.kernel
     if stage.head.bias is not None:
@@ -421,7 +452,7 @@ def _forward_ce(model: GPT, stage: GPT, tokens: torch.Tensor, ax: Axis,
     tlogit = torch.gather(logits, -1, tidx.clamp(0, vs - 1)[..., None]
                           )[..., 0] * tmine
     tlogit = _sum_over(tlogit, ax)
-    return ((lse - tlogit) * w).sum()
+    return ((lse - tlogit) * w).sum(), aux_vec
 
 
 def _gather_cols(t: torch.Tensor, ax: Axis) -> torch.Tensor:
@@ -468,7 +499,9 @@ def _ln_f_grads(state: PipelinedState) -> torch.Tensor:
 
 def make_pipelined_lm_train_step(model: GPT, optimizer, *,
                                  n_microbatches: Optional[int] = None,
-                                 schedule: str = "gpipe"):
+                                 schedule: str = "gpipe",
+                                 moe_aux_weight: float = 0.01,
+                                 moe_z_weight: float = 1e-3):
     """Build ``step(state, rows) -> (state, metrics)`` for a
     :class:`PipelinedState` on the grid's ``(data, pipe)`` axes (JAX
     ``make_pipelined_lm_train_step``).
@@ -481,22 +514,30 @@ def make_pipelined_lm_train_step(model: GPT, optimizer, *,
     gathered for the step, a dense CE per microbatch); the same update
     either way. ``metrics`` as :func:`..train.lm.make_lm_train_step`'s
     (``loss``, ``count``; ``skipped`` is always 0: JAX's pipelined step
-    has no NaN guard).
+    has no NaN guard); an MoE model adds ``moe_aux``, the balance
+    loss's layer and microbatch mean, averaged over the data replicas.
     """
     if schedule not in ("gpipe", "1f1b"):
         raise ValueError(
             f"schedule must be 'gpipe' or '1f1b', got {schedule!r}")
+    moe = model.n_experts > 0
+    weights = (moe_aux_weight, moe_z_weight)
 
     def sum_over_data(state, dax):
         if dax.size > 1:
             tdist.all_reduce(state.grads, group=dax.group)
 
     def gpipe(state, rows, ax, dax, m, count):
-        ce_sum = _forward_ce(model, state.model, rows, ax, m)
-        (ce_sum / count).backward()
+        ce_sum, aux_vec = _forward_objective(model, state.model, rows, ax, m)
+        obj = ce_sum / count
+        if moe:
+            obj = obj + (weights[0] * aux_vec[0]
+                         + weights[1] * aux_vec[1]) / dax.size
+        obj.backward()
         state.grads[state.n] = ce_sum.detach()
         sum_over_data(state, dax)
-        return state.grads[state.n] / count
+        return state.grads[state.n] / count, (
+            aux_vec[0].detach() if moe else None)
 
     def one_f_one_b(state, rows, ax, dax, m, count):
         stage = state.model
@@ -523,9 +564,25 @@ def make_pipelined_lm_train_step(model: GPT, optimizer, *,
             return ((lse - tlogit) * wj[j]).sum() / count
 
         micro = h.reshape(m, mb, s, -1)
-        loss_sum, d_micro = pipeline_1f1b(
-            _stage_fn(model, stage), micro.detach(), mb_loss,
-            axis_name=PIPE_AXIS)
+        aux_sum = None
+        if moe:
+            # the objective's constant d/d(stage aux): its weights over
+            # L * m * dp
+            ct = torch.tensor(weights, dtype=torch.float32,
+                              device=rows.device) / (
+                model.num_layers * m * dax.size)
+            loss_sum, d_micro, aux_local = pipeline_1f1b(
+                _stage_fn(model, stage), micro.detach(), mb_loss,
+                axis_name=PIPE_AXIS, with_stage_aux=True,
+                stage_aux_cotangent=ct)
+            aux_sum = aux_local[0].clone()
+            if ax.size > 1:
+                tdist.all_reduce(aux_sum, group=ax.group)
+            aux_sum = aux_sum / (model.num_layers * m)
+        else:
+            loss_sum, d_micro = pipeline_1f1b(
+                _stage_fn(model, stage), micro.detach(), mb_loss,
+                axis_name=PIPE_AXIS)
         with torch.no_grad():
             stage.head.kernel.grad.add_(_scatter_cols(full_k.grad,
                                                       stage.head.kernel, ax))
@@ -537,7 +594,7 @@ def make_pipelined_lm_train_step(model: GPT, optimizer, *,
         torch.autograd.backward(micro, d_micro)
         state.grads[state.n] = loss_sum
         sum_over_data(state, dax)
-        return state.grads[state.n].clone()
+        return state.grads[state.n].clone(), aux_sum
 
     body = one_f_one_b if schedule == "1f1b" else gpipe
 
@@ -547,13 +604,19 @@ def make_pipelined_lm_train_step(model: GPT, optimizer, *,
         b, s = rows.shape
         count = float(b * dax.size * (s - 1))
         state.grads.zero_()
-        loss = body(state, rows, ax, dax, m, count)
+        loss, aux = body(state, rows, ax, dax, m, count)
         keep = torch.ones((), dtype=torch.bool, device=rows.device)
         optimizer.apply_(state.params, state.grads[:state.n],
                          state.momentum, state.initialized, state.count,
                          keep, lr_step=state.epoch)
-        return state, {"loss": loss, "count": torch.tensor(count),
-                       "skipped": torch.zeros((), dtype=torch.int32)}
+        metrics = {"loss": loss, "count": torch.tensor(count),
+                   "skipped": torch.zeros((), dtype=torch.int32)}
+        if moe:
+            aux = aux.reshape(1)
+            if dax.size > 1:
+                tdist.all_reduce(aux, group=dax.group)
+            metrics["moe_aux"] = aux[0] / dax.size
+        return state, metrics
 
     return step
 

@@ -35,6 +35,14 @@ schedule: the port writes out both directions, tick by tick.
   stage holds at most ``2(n - i) - 1`` microbatch inputs at a time,
   whatever ``m`` is (JAX's ``2S - 1`` buffer at stage 0).
 
+A stage function may return ``(y, aux)`` with ``aux`` a small f32
+vector of this stage's side losses (the MoE balance and z losses summed
+over its layers, JAX's ``with_stage_aux``): both schedules sum it over
+the stage's valid microbatches (once each: 1F1B's rematerialized
+forward does not count again) and seed its cotangent beside the
+activation's in each microbatch's backward, so its gradient reaches the
+stage's parameters and flows upstream with the input cotangent.
+
 Bubble ticks compute nothing here (JAX computes masked garbage in
 them). The stage function runs the model's own blocks, so on the card
 it launches the flash kernels once a layer and microbatch (twice for
@@ -43,7 +51,7 @@ the forward under 1F1B: once without a graph, once rematerialized).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -124,14 +132,23 @@ def _broadcast_from(x: torch.Tensor, ax: Axis, index: int) -> torch.Tensor:
     return x
 
 
-def _gpipe_forward(stage_fn, micro, ax: Axis, graph: bool):
+def _split_aux(result, with_aux: bool):
+    """``(y, aux)`` of a stage function's result (``aux`` None without
+    stage aux)."""
+    return result if with_aux else (result, None)
+
+
+def _gpipe_forward(stage_fn, micro, ax: Axis, graph: bool,
+                   with_aux: bool = False):
     """The forward ticks: ``(out [m, ...] on the last stage, {j: (stage
-    input leaf, stage output)} of this stage's microbatches when
-    ``graph``)."""
+    input leaf, stage output, stage aux)} of this stage's microbatches
+    when ``graph``, this stage's aux summed over its microbatches (None
+    without ``with_aux``))."""
     n, i, m = ax.size, ax.index, micro.shape[0]
     ticks = _Ticks(ax, micro) if n > 1 else None
     out = torch.zeros_like(micro)
     saved = {}
+    aux_acc = None
     recv = None
     for t in range(m + n - 1):
         if ticks:
@@ -143,10 +160,13 @@ def _gpipe_forward(stage_fn, micro, ax: Axis, graph: bool):
             if graph:
                 x = x.detach().requires_grad_()
                 with torch.enable_grad():
-                    y = stage_fn(x)
-                saved[j] = (x, y)
+                    y, aux = _split_aux(stage_fn(x), with_aux)
+                saved[j] = (x, y, aux)
             else:
-                y = stage_fn(x)
+                y, aux = _split_aux(stage_fn(x), with_aux)
+            if aux is not None:
+                aux_acc = (aux.detach() if aux_acc is None
+                           else aux_acc + aux.detach())
             if i == n - 1:
                 out[j] = y.detach()
         if ticks:
@@ -157,21 +177,22 @@ def _gpipe_forward(stage_fn, micro, ax: Axis, graph: bool):
                        recv_prev=recv)
     if ticks:
         ticks.wait()
-    return _broadcast_from(out, ax, n - 1), saved
+    return _broadcast_from(out, ax, n - 1), saved, aux_acc
 
 
 class _GPipe(torch.autograd.Function):
     """:func:`pipeline_apply` as one autograd node (see the module
-    note)."""
+    note); with stage aux, a second output: this stage's aux sum."""
 
     @staticmethod
-    def forward(ctx, micro, stage_fn, ax):
-        out, saved = _gpipe_forward(stage_fn, micro, ax, graph=True)
+    def forward(ctx, micro, stage_fn, ax, with_aux):
+        out, saved, aux = _gpipe_forward(stage_fn, micro, ax, graph=True,
+                                         with_aux=with_aux)
         ctx.ax, ctx.saved = ax, saved
-        return out
+        return (out, aux) if with_aux else out
 
     @staticmethod
-    def backward(ctx, d_out):
+    def backward(ctx, d_out, d_aux=None):
         ax, saved = ctx.ax, ctx.saved
         n, i, m = ax.size, ax.index, d_out.shape[0]
         ticks = _Ticks(ax, d_out) if n > 1 else None
@@ -184,8 +205,11 @@ class _GPipe(torch.autograd.Function):
             dx = None
             if _valid(j, m):
                 g = d_out[j] if i == n - 1 else recv
-                x, y = saved.pop(j)
-                torch.autograd.backward(y, g)
+                x, y, aux = saved.pop(j)
+                if aux is None:
+                    torch.autograd.backward(y, g)
+                else:
+                    torch.autograd.backward([y, aux], [g, d_aux])
                 dx = x.grad
                 if i == 0:
                     d_micro[j] = dx
@@ -198,12 +222,13 @@ class _GPipe(torch.autograd.Function):
         if ticks:
             ticks.wait()
         ctx.saved = None
-        return _broadcast_from(d_micro, ax, 0), None, None
+        return _broadcast_from(d_micro, ax, 0), None, None, None
 
 
 def pipeline_apply(stage_fn: Callable[[torch.Tensor], torch.Tensor],
                    microbatches: torch.Tensor, *,
-                   axis_name: str = PIPE_AXIS) -> torch.Tensor:
+                   axis_name: str = PIPE_AXIS,
+                   with_stage_aux: bool = False):
     """Run this stage of the GPipe schedule on ``microbatches`` ``[m,
     mb, ...]`` (the same tensor on every stage; stage 0 reads it).
 
@@ -216,19 +241,27 @@ def pipeline_apply(stage_fn: Callable[[torch.Tensor], torch.Tensor],
     stage, and the input's cotangent comes back replicated. Without
     autograd (``torch.no_grad``, or nothing requiring a gradient) no
     graph is kept.
+
+    ``with_stage_aux``: ``stage_fn(x) -> (y, aux)``; returns ``(out,
+    aux_sum)``, ``aux_sum`` this stage's aux summed over its
+    microbatches (per stage: sum it over the axis for the total). Its
+    cotangent is seeded beside the output's in each microbatch's
+    backward.
     """
     ax = grid_axis(axis_name)
     if torch.is_grad_enabled():
-        return _GPipe.apply(microbatches, stage_fn, ax)
-    out, _ = _gpipe_forward(stage_fn, microbatches, ax, graph=False)
-    return out
+        return _GPipe.apply(microbatches, stage_fn, ax, with_stage_aux)
+    out, _, aux = _gpipe_forward(stage_fn, microbatches, ax, graph=False,
+                                 with_aux=with_stage_aux)
+    return (out, aux) if with_stage_aux else out
 
 
 def pipeline_1f1b(stage_fn: Callable[[torch.Tensor], torch.Tensor],
                   microbatches: torch.Tensor,
                   loss_fn: Callable[[torch.Tensor, int], torch.Tensor], *,
-                  axis_name: str = PIPE_AXIS
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  axis_name: str = PIPE_AXIS, with_stage_aux: bool = False,
+                  stage_aux_cotangent: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, ...]:
     """The 1F1B pipelined training pass of this stage: loss and
     gradients in one schedule (see the module note).
 
@@ -241,8 +274,13 @@ def pipeline_1f1b(stage_fn: Callable[[torch.Tensor], torch.Tensor],
 
     Returns ``(loss_sum, d_microbatches)``: the loss summed over the
     microbatches and the cotangent of the inputs, both replicated over
-    the axis.
+    the axis. ``with_stage_aux``: ``stage_fn(x) -> (y, aux)``, the
+    constant ``stage_aux_cotangent`` seeded beside the activation
+    cotangent in every backward, and a third result: this stage's aux
+    summed over its microbatches' forwards (per stage).
     """
+    if with_stage_aux and stage_aux_cotangent is None:
+        raise ValueError("with_stage_aux=True requires stage_aux_cotangent")
     ax = grid_axis(axis_name)
     n, i, m = ax.size, ax.index, microbatches.shape[0]
     ticks = _Ticks(ax, microbatches) if n > 1 else None
@@ -250,6 +288,7 @@ def pipeline_1f1b(stage_fn: Callable[[torch.Tensor], torch.Tensor],
     d_micro = torch.zeros_like(microbatches)
     loss_acc = torch.zeros((), dtype=torch.float32,
                            device=microbatches.device)
+    aux_acc = None
     act_in = cot_in = dy_buf = None
     for t in range(m + 2 * n - 1):
         if ticks:
@@ -260,7 +299,9 @@ def pipeline_1f1b(stage_fn: Callable[[torch.Tensor], torch.Tensor],
         if _valid(j_f, m):
             x_in = microbatches[j_f] if i == 0 else act_in
             with torch.no_grad():
-                y = stage_fn(x_in)
+                y, aux = _split_aux(stage_fn(x_in), with_stage_aux)
+            if aux is not None:
+                aux_acc = aux if aux_acc is None else aux_acc + aux
             if i == n - 1:
                 y_leaf = y.detach().requires_grad_()
                 with torch.enable_grad():
@@ -276,8 +317,12 @@ def pipeline_1f1b(stage_fn: Callable[[torch.Tensor], torch.Tensor],
             x = resid.pop(j_b).detach().requires_grad_()
             g = dy_buf if i == n - 1 else cot_in
             with torch.enable_grad():
-                y_b = stage_fn(x)
-            torch.autograd.backward(y_b, g)
+                y_b, aux_b = _split_aux(stage_fn(x), with_stage_aux)
+            if aux_b is None:
+                torch.autograd.backward(y_b, g)
+            else:
+                torch.autograd.backward([y_b, aux_b],
+                                        [g, stage_aux_cotangent])
             dx = x.grad
             if i == 0:
                 d_micro[j_b] = dx
@@ -297,4 +342,6 @@ def pipeline_1f1b(stage_fn: Callable[[torch.Tensor], torch.Tensor],
     if ticks:
         ticks.wait()
         tdist.all_reduce(loss_acc, group=ax.group)  # the last stage's
+    if with_stage_aux:
+        return loss_acc, _broadcast_from(d_micro, ax, 0), aux_acc
     return loss_acc, _broadcast_from(d_micro, ax, 0)

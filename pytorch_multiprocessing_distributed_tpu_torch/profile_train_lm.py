@@ -3,6 +3,8 @@
     python -m pytorch_multiprocessing_distributed_tpu_torch.profile_train_lm
     python -m pytorch_multiprocessing_distributed_tpu_torch.profile_train_lm \
         --dtype float32
+    python -m pytorch_multiprocessing_distributed_tpu_torch.profile_train_lm \
+        --n_experts 8 [--moe_top_k 2]
 
 Builds the LM train step of ``train_lm`` (gpt_small, random init from
 seed 0, bf16 or, with ``--dtype float32``, ``train_lm``'s default f32
@@ -13,12 +15,18 @@ Prints the card's name and power limit, the step time, tokens/s, each
 kernel group's device time per step and share of the step, the device's
 idle share (1 - summed kernel time / step wall time; the step runs on
 one stream, so kernels do not overlap), and the top kernels by device
-time. Needs a CUDA card.
+time. With ``--n_experts E`` (an MoE gpt_small) also the MoE layers'
+group: their forward and backward device time per step and share of
+the step, read off CUDA events recorded around each layer's forward
+and, through gradient hooks on its output and input, its backward
+(kernel names cannot tell an expert's matmul from a dense one;
+:func:`moe_layer_ms`). Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import time
 from collections import defaultdict
@@ -28,6 +36,7 @@ import torch
 
 from .device import resolve_device
 from .models import get_model
+from .ops.moe import MoEMlp
 from .serving.params import init_params
 from .train import create_lm_train_state, make_lm_train_step, sgd
 
@@ -97,6 +106,57 @@ def profile_steps(run_step, steps: int, groups=GROUPS):
     return step_s, kernels, by_group
 
 
+@contextlib.contextmanager
+def moe_layer_events(model):
+    """Record CUDA events around every MoE layer of ``model`` while the
+    block is open: its forward (hooks before and after the module) and
+    its backward (from the gradient of its output arriving to the
+    gradient of its input leaving, through tensor hooks; the engine
+    runs a layer's backward nodes together, in sequence order). Yields
+    the list the ``(start, end)`` event pairs go into."""
+    pairs, handles = [], []
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def before(module, args):
+        module._pmdt_start = (event(), args[0])
+
+    def after(module, args, out):
+        start, x = module._pmdt_start
+        del module._pmdt_start
+        pairs.append((start, event()))
+        y = out[0]
+        if y.requires_grad and x.requires_grad:
+            box = {}
+            y.register_hook(lambda g: box.update(start=event()))
+            x.register_hook(lambda g: pairs.append((box.pop("start"),
+                                                    event())))
+
+    for module in model.modules():
+        if isinstance(module, MoEMlp):
+            handles += [module.register_forward_pre_hook(before),
+                        module.register_forward_hook(after)]
+    try:
+        yield pairs
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def moe_layer_ms(model, run_step, steps: int) -> float:
+    """The MoE layers' device time per step (forward and backward),
+    over ``steps`` calls of ``run_step(i)`` (see
+    :func:`moe_layer_events`)."""
+    with moe_layer_events(model) as pairs:
+        for i in range(steps):
+            run_step(i)
+        torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / steps
+
+
 def report(label: str, step_s: float, kernels, by_group, steps: int,
            smi: str, top: int = TOP) -> float:
     """Print the step, the device's busy time and idle share (1 - summed
@@ -121,12 +181,16 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
-    dtype_name = p.parse_args(argv).dtype
+    p.add_argument("--n_experts", default=0, type=int)
+    p.add_argument("--moe_top_k", default=1, type=int)
+    args = p.parse_args(argv)
+    dtype_name = args.dtype
     dtype = getattr(torch, dtype_name)
     device = resolve_device("cuda")
     smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False  # train_lm's f32
-    model = get_model(MODEL, dtype=dtype)
+    model = get_model(MODEL, dtype=dtype, n_experts=args.n_experts,
+                      moe_top_k=args.moe_top_k)
     state = create_lm_train_state(model, init_params(model, SEED, device))
     step = make_lm_train_step(model, sgd(LR))
     rng = np.random.default_rng(SEED)
@@ -139,10 +203,20 @@ def main(argv=None) -> dict:
         lambda i: step(state, batches[i]), STEPS)
     print(smi)
     label = f"{MODEL} {dtype_name} B={BATCH} S={SEQ}"
+    if args.n_experts:
+        label += f" E={args.n_experts} top-{args.moe_top_k}"
     print(f"[profile] {label}: {BATCH * SEQ / step_s:.1f} tokens/s")
     busy_ms = report(label, step_s, kernels, groups, STEPS, smi)
-    return {"step_ms": step_s * 1e3, "busy_ms": busy_ms,
-            "groups_ms": {k: v / 1e3 / STEPS for k, v in groups.items()}}
+    out = {"step_ms": step_s * 1e3, "busy_ms": busy_ms,
+           "groups_ms": {k: v / 1e3 / STEPS for k, v in groups.items()}}
+    if args.n_experts:
+        moe_ms = moe_layer_ms(model, lambda i: step(state, batches[i]),
+                              STEPS)
+        print(f"[profile] group MoE layers (router, dispatch, experts, "
+              f"combine; forward and backward, CUDA events): {moe_ms:.2f} "
+              f"ms/step, {moe_ms / out['step_ms']:.3f} of the step [{smi}]")
+        out["moe_ms"] = moe_ms
+    return out
 
 
 if __name__ == "__main__":

@@ -19,21 +19,44 @@ from ..device import resolve_device
 Params = Dict[str, torch.Tensor]
 
 
+# flax's truncated-normal variance scaling divides by the std of a unit
+# normal truncated to [-2, 2]
+_TRUNC_STD = .87962566103423978
+
+
+def _lecun_normal(shape, gen: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: a normal truncated to two deviations of
+    ``sqrt(1 / fan_in)``, ``fan_in`` the second-to-last dim times every
+    dim before it (flax's receptive field: ``E * D`` for ``w1 [E, D,
+    H]``)."""
+    fan_in = 1
+    for n in shape[:-1]:
+        fan_in *= n
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    t = torch.empty(shape)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * std
+
+
 def init_params(model, seed: int = 0,
                 device: Union[str, torch.device] = "cuda") -> Params:
     """Fresh random params with the JAX package's initialisers: normal
     (sigma 0.02) embeddings and Dense kernels, zero biases, unit
-    LayerNorm scales. Drawn from a CPU ``torch.Generator`` seeded with
-    ``seed`` (the same values on any device), then moved to
-    ``device``."""
+    LayerNorm scales, and in an MoE block (``moe.*``) ``lecun_normal``
+    router and expert kernels beside zero expert biases. Drawn from a
+    CPU ``torch.Generator`` seeded with ``seed`` (the same values on any
+    device), then moved to ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     out: Params = {}
     for name, p in model.named_parameters():
-        if name.endswith(".scale"):
+        leaf = name.rpartition(".")[2]
+        if leaf == "scale":
             t = torch.ones(p.shape)
-        elif name.endswith(".bias"):
+        elif leaf in ("bias", "b1", "b2"):
             t = torch.zeros(p.shape)
+        elif leaf in ("gate", "w1", "w2"):
+            t = _lecun_normal(tuple(p.shape), gen)
         else:
             t = torch.empty(p.shape).normal_(0.0, 0.02, generator=gen)
         out[name] = t.to(dev)
@@ -53,9 +76,10 @@ def from_jax_params(tree) -> Params:
     """Carry a JAX param tree across: a nested mapping of array leaves
     (numpy, or anything ``np.asarray`` reads) -> CPU f32 tensors under
     the port's names (``block_0/attn/wqkv/kernel`` ->
-    ``block_0.attn.wqkv.kernel``). Layouts are kept as they are (flax
-    Dense kernels are ``[in, out]``, which is what the port's ``_dense``
-    reads)."""
+    ``block_0.attn.wqkv.kernel``, ``block_0/moe/w1`` ->
+    ``block_0.moe.w1``). Layouts are kept as they are (flax Dense
+    kernels are ``[in, out]``, which is what the port's ``_dense``
+    reads; the MoE leaves are JAX's ``[D, E]``, ``[E, D, H]``, ...)."""
     return {path.replace("/", "."):
             torch.from_numpy(np.array(leaf, dtype=np.float32))
             for path, leaf in _flatten(tree)}

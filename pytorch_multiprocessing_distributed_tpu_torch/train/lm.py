@@ -29,8 +29,17 @@ The tensor-parallel steps (:func:`make_lm_train_step_tp`,
 semantics on a :class:`.placement.PlacedState`: the rows of a data
 index go to every model rank of that replica, each weight is gathered
 from its slices at use and its gradient reduced over ``data`` into this
-rank's moment slice (:mod:`.gspmd`, the image trainer's machinery). Not
-in this slice: MoE aux losses (ROADMAP.md).
+rank's moment slice (:mod:`.gspmd`, the image trainer's machinery).
+
+MoE models (``n_experts > 0``) also train against the layer means of
+the Switch balance loss and the router z-loss (``moe_aux_weight``,
+``moe_z_weight``), with JAX's normalisations: the data and sequence
+parallel steps add ``(w_aux * aux + w_z * z) / (world * grad_accum)`` to
+each shard's local objective (a per-shard statistic: each rank routes
+its own rows and columns, with the capacity of its local ``S``), the
+tensor-parallel step adds ``w_aux * aux + w_z * z`` of the global batch
+(its router statistics summed over ``data``); ``metrics`` gain
+``moe_aux``.
 """
 
 from __future__ import annotations
@@ -99,18 +108,23 @@ def _shard(rows: torch.Tensor, seq_axis: Optional[str], zigzag: bool):
     return (rows[:, cols], *_next_token_targets(rows, cols))
 
 
-def _ce_sum(model, tokens, targets, w, vocab_chunks=0, remat=False):
+def _ce_sum(model, tokens, targets, w, vocab_chunks=0, remat=False,
+            moe_stats=None):
+    """``(ce_sum, aux, z)``: the weighted CE sum of the local tokens and
+    the layer means of the MoE losses (zeros for a dense model)."""
     if remat:
-        return checkpoint(lambda *a: _ce_sum(model, *a, vocab_chunks),
-                          tokens, targets, w, use_reentrant=False)
+        return checkpoint(
+            lambda *a: _ce_sum(model, *a, vocab_chunks, moe_stats=moe_stats),
+            tokens, targets, w, use_reentrant=False)
     if vocab_chunks > 1:
-        hidden = model(tokens, return_hidden=True)
-        return chunked_lm_ce(hidden, model.head.kernel, model.head.bias,
-                             targets, w, vocab_chunks)
-    logits = model(tokens)
+        hidden, aux, z = model(tokens, return_hidden=True, moe_losses=True,
+                               moe_stats=moe_stats)
+        return (chunked_lm_ce(hidden, model.head.kernel, model.head.bias,
+                              targets, w, vocab_chunks), aux, z)
+    logits, aux, z = model(tokens, moe_losses=True, moe_stats=moe_stats)
     ce = cross_entropy_per_sample(logits.reshape(-1, logits.shape[-1]),
                                   targets.reshape(-1))
-    return (ce.reshape(targets.shape) * w).sum()
+    return (ce.reshape(targets.shape) * w).sum(), aux, z
 
 
 def _zigzag(model, seq_axis) -> bool:
@@ -143,7 +157,9 @@ def to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def make_lm_train_step(model, optimizer: SGD, *, grad_accum: int = 1,
                        seq_axis: Optional[str] = None,
-                       vocab_chunks: int = 0, remat: bool = False):
+                       vocab_chunks: int = 0, remat: bool = False,
+                       moe_aux_weight: float = 0.01,
+                       moe_z_weight: float = 1e-3):
     """Build ``step(state, rows) -> (state, metrics)``.
 
     ``rows`` are this rank's ``[b, S]`` rows of the global batch on the
@@ -158,13 +174,15 @@ def make_lm_train_step(model, optimizer: SGD, *, grad_accum: int = 1,
     ``metrics`` are device tensors:
     ``loss`` (mean next-token CE over every predictable position of the
     global batch), ``count`` and ``skipped`` (1 when the NaN guard kept
-    the old state).
+    the old state); an MoE model adds ``moe_aux``, the balance loss's
+    mean over the shards (and microbatches).
     """
     if grad_accum < 1:
         raise ValueError(
             f"grad_accum must be >= 1, got {grad_accum} (1 = no "
             "accumulation)")
     zigzag = _zigzag(model, seq_axis)
+    is_moe = model.n_experts > 0
 
     def step(state: TrainState, rows: torch.Tensor):
         b, s = rows.shape
@@ -177,13 +195,22 @@ def make_lm_train_step(model, optimizer: SGD, *, grad_accum: int = 1,
         # the global predictable count B * (S - 1): every data replica
         # holds b whole rows (the JAX psum of the local counts)
         count = float(b * data_size() * (s - 1))
+        # the shards the MoE losses are averaged over (JAX's psum(1))
+        world = data_size() * (grid_axis(seq_axis).size
+                               if seq_axis is not None else 1)
         state.grads.zero_()
+        aux_sum = torch.zeros((), dtype=torch.float32, device=rows.device)
         for tok, tgt, ww in zip(strided_microbatches(tokens, grad_accum),
                                 strided_microbatches(targets, grad_accum),
                                 strided_microbatches(w, grad_accum)):
-            ce_sum = _ce_sum(state.model, tok, tgt, ww, vocab_chunks,
-                             remat)
-            (ce_sum / count).backward()
+            ce_sum, aux, z = _ce_sum(state.model, tok, tgt, ww,
+                                     vocab_chunks, remat)
+            obj = ce_sum / count
+            if is_moe:
+                obj = obj + (moe_aux_weight * aux + moe_z_weight * z) / (
+                    world * grad_accum)
+                aux_sum += aux.detach()
+            obj.backward()
             state.grads[state.n:].add_(ce_sum.detach())
         g = state.grads[:state.n]
         if state.zero is not None:
@@ -207,6 +234,10 @@ def make_lm_train_step(model, optimizer: SGD, *, grad_accum: int = 1,
         metrics = {"loss": ce_total / count,
                    "count": torch.tensor(count),
                    "skipped": (~finite).to(torch.int32)}
+        if is_moe:
+            aux_total = (aux_sum / grad_accum).reshape(1)
+            psum_(aux_total)
+            metrics["moe_aux"] = aux_total[0] / world
         return state, metrics
 
     return step
@@ -226,14 +257,16 @@ def make_lm_eval_step(model, *, seq_axis: Optional[str] = None,
         tokens, targets, valid = _shard(rows, seq_axis, zigzag)
         w = valid.float()
         sums = torch.stack([_ce_sum(state.model, tokens, targets, w,
-                                    vocab_chunks), w.sum()])
+                                    vocab_chunks)[0], w.sum()])
         psum_(sums)
         return {"loss": sums[0] / sums[1], "count": sums[1]}
 
     return eval_step
 
 
-def make_lm_train_step_tp(model, optimizer: SGD, *, remat: bool = False):
+def make_lm_train_step_tp(model, optimizer: SGD, *, remat: bool = False,
+                          moe_aux_weight: float = 0.01,
+                          moe_z_weight: float = 1e-3):
     """Build ``step(state, rows) -> (state, metrics)`` for a
     :class:`.placement.PlacedState` of a GPT (JAX
     ``make_lm_train_step_tp``; ``--zero1``/``--fsdp`` are the
@@ -241,13 +274,17 @@ def make_lm_train_step_tp(model, optimizer: SGD, *, remat: bool = False):
     index. The loss is the mean next-token CE over the global batch;
     the NaN guard, the grid-wide metric sum and the update on the moment
     slices are the image GSPMD step's (:mod:`.gspmd`). On a 1 x 1 grid
-    the step runs the data-parallel step's ops: bit-equal to it."""
+    the step runs the data-parallel step's ops: bit-equal to it. An MoE
+    model's losses are the global batch's (JAX's GSPMD semantics): with
+    more than one data index the router statistics are summed over the
+    data group, each rank differentiating its share."""
     if getattr(model, "seq_axis", None) is not None:
         raise ValueError(
             "make_lm_train_step_tp requires a model built with "
             "seq_axis=None: under GSPMD the sequence stays unsharded "
             "(use make_lm_train_step(seq_axis=...) for SP)")
     cache = {}
+    is_moe = model.n_experts > 0
 
     def step(state: PlacedState, rows: torch.Tensor):
         if "sizes" not in cache:
@@ -256,22 +293,31 @@ def make_lm_train_step_tp(model, optimizer: SGD, *, remat: bool = False):
         b, s = rows.shape
         tokens, targets, valid = _shard(rows, None, False)
         count = float(b * grid.data * (s - 1))
+        stats = (grid.data_group, grid.data) if grid.data > 1 else None
         state.grads.zero_()
         with parametrize.cached():
-            ce_sum = _ce_sum(model, tokens, targets, valid.float(),
-                             remat=remat)
-            (ce_sum / count).backward()
+            ce_sum, aux, z = _ce_sum(model, tokens, targets, valid.float(),
+                                     remat=remat, moe_stats=stats)
+            obj = ce_sum / count
+            if is_moe:
+                obj = obj + (moe_aux_weight * aux + moe_z_weight * z)
+            obj.backward()
         with torch.no_grad():
             g = state.grads
-            # the model ranks of a replica repeat its CE sum: divided out
+            # the model ranks of a replica repeat its CE sum (and its
+            # share of the balance loss): divided out
             side = _psum_grid(state, torch.stack([
-                ce_sum.detach(), (~torch.isfinite(g)).sum().float()]))
+                ce_sum.detach(), (~torch.isfinite(g)).sum().float(),
+                aux.detach()]))
             finite = side[1] == 0
             _update(optimizer, state, finite, cache["replicas"],
                     cache["sizes"])
-        return state, {"loss": side[0] / grid.model / count,
-                       "count": torch.tensor(count),
-                       "skipped": (~finite).to(torch.int32)}
+        metrics = {"loss": side[0] / grid.model / count,
+                   "count": torch.tensor(count),
+                   "skipped": (~finite).to(torch.int32)}
+        if is_moe:
+            metrics["moe_aux"] = side[2] / grid.model
+        return state, metrics
 
     return step
 
@@ -292,7 +338,7 @@ def make_lm_eval_step_tp(model):
         tokens, targets, valid = _shard(rows, None, False)
         w = valid.float()
         with parametrize.cached():
-            sums = torch.stack([_ce_sum(model, tokens, targets, w),
+            sums = torch.stack([_ce_sum(model, tokens, targets, w)[0],
                                 w.sum()])
         if state.grid.data > 1:
             tdist.all_reduce(sums, group=state.grid.data_group)

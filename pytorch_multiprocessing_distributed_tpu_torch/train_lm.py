@@ -35,10 +35,14 @@ N``, holding that stage's blocks and vocab slices
 (:mod:`.parallel.gpt_pipeline`); its checkpoints carry JAX's stacked
 tree. ``--zero`` (``dp`` only) shards the moments and the update
 (:mod:`.parallel.zero`); ``--remat`` (``dp``, ``sp``, ``tp``)
-recomputes the forward in the backward.
+recomputes the forward in the backward. ``--n_experts E [--moe_top_k
+K]`` trains a Mixture-of-Experts GPT (:mod:`.ops.moe`) in any of the
+four modes, against the balance loss (``--moe_aux_weight``) and the
+router z-loss, and prints its ``Aux`` column; ``--sample`` decodes it
+droplessly.
 
-Flags of the JAX CLI this slice does not port (MoE, orbax, HF interop,
-beam sampling, supervised restarts, the observability exporters) are
+Flags of the JAX CLI this slice does not port (orbax, HF interop, beam
+sampling, supervised restarts, the observability exporters) are
 rejected by name.
 """
 
@@ -154,8 +158,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, is it set?) for every JAX flag this slice does not port
 _NOT_PORTED = (
-    ('--n_experts', lambda a: a.n_experts != 0),
-    ('--moe_top_k', lambda a: a.moe_top_k != 1),
     ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
     ('--ckpt_async', lambda a: a.ckpt_async),
     ('--hf_init', lambda a: bool(a.hf_init)),
@@ -167,6 +169,21 @@ _NOT_PORTED = (
     ('--events_out', lambda a: bool(a.events_out)),
     ('--flight_path', lambda a: bool(a.flight_path)),
 )
+
+
+def _check_moe(args) -> dict:
+    """The JAX CLI's first checks, on the MoE flags, in its order; returns
+    the model's MoE keywords."""
+    model_kw = dict(n_experts=args.n_experts)
+    if args.moe_top_k != 1:
+        if not args.n_experts:
+            raise SystemExit('--moe_top_k needs --n_experts > 0')
+        model_kw.update(moe_top_k=args.moe_top_k)
+    if (args.hf_init or args.hf_export) and args.n_experts:
+        raise SystemExit(
+            '--hf_init/--hf_export cover dense GPTs (MoE blocks have no '
+            'GPT-2 representation)')
+    return model_kw
 
 
 def _reject_not_ported(args) -> None:
@@ -292,14 +309,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print boundaries), the kernels' launches on this rank during the
     run, the ``[data, degree]`` grid and this rank's place, on the card
     its peak memory, this rank's resident bytes of params and moments,
-    and under ``--sample`` the greedy tokens."""
+    an MoE run's balance loss at each printed step (``moe_aux``, the
+    ``Aux`` column), and under ``--sample`` the greedy tokens."""
     args = build_parser().parse_args(
         sys.argv[1:] if argv is None else list(argv))
+    moe_kw = _check_moe(args)
     _reject_not_ported(args)
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
     sp = args.parallel == 'sp'
     model_kw = dict(seq_axis='seq', sp_mode=args.sp_mode) if sp else {}
-    model = get_model(args.model, dtype=dtype, **model_kw)
+    model = get_model(args.model, dtype=dtype, **moe_kw, **model_kw)
     _check_flags(args, model)
     if args.lr_schedule == 'cosine':
         lr = cosine_lr(args.lr, args.epochs,
@@ -376,8 +395,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     params = init_params(model, args.seed, device)
     if args.parallel == 'pp':
         state = maybe_resume(create_pipelined_lm_state(model, params, deg))
-        step = make_pipelined_lm_train_step(model, opt,
-                                            schedule=args.pp_schedule)
+        step = make_pipelined_lm_train_step(
+            model, opt, schedule=args.pp_schedule,
+            moe_aux_weight=args.moe_aux_weight)
         eval_step = make_pipelined_lm_eval_step(model)
         resident = state.resident_bytes()
     elif args.parallel == 'tp':
@@ -386,7 +406,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         state = shard_state(
             maybe_resume(create_lm_train_state(model, params)), placement,
             grid)
-        step = make_lm_train_step_tp(model, opt, remat=args.remat)
+        step = make_lm_train_step_tp(model, opt, remat=args.remat,
+                                     moe_aux_weight=args.moe_aux_weight)
         eval_step = make_lm_eval_step_tp(model)
         resident = placement.resident_bytes()
         del resident["batch_stats"]
@@ -399,7 +420,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         step = make_lm_train_step(model, opt, grad_accum=args.grad_accum,
                                   seq_axis=seq_axis,
                                   vocab_chunks=args.vocab_chunks,
-                                  remat=args.remat)
+                                  remat=args.remat,
+                                  moe_aux_weight=args.moe_aux_weight)
         eval_step = make_lm_eval_step(model, seq_axis=seq_axis,
                                       vocab_chunks=args.vocab_chunks)
         resident = {"params": 4 * state.n,
@@ -421,7 +443,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                "steady_step_s": None, "world_size": world,
                "grid": [dp, deg], "parallel": args.parallel,
                "rank": dist.get_rank(), "device": str(device),
-               "resident_bytes": resident}
+               "resident_bytes": resident, "moe_aux": []}
     steady = []  # (seconds, steps) between an epoch's first and last print
 
     for epoch in range(start_epoch, args.epochs + 1):
@@ -450,11 +472,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 losses, seen = losses + loss, seen + 1
                 if summary["first_loss"] is None:
                     summary["first_loss"] = loss
+                if 'moe_aux' in metrics:
+                    summary["moe_aux"].append(float(metrics['moe_aux']))
                 if primary:
                     tok_s = (args.batch_size * args.seq_len * (i + 1)
                              / (now - t0))
+                    extra = (f"\tAux {summary['moe_aux'][-1]:.3f}"
+                             if 'moe_aux' in metrics else '')
                     print(f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
-                          f"Loss {loss:.4f}\tTok/s {tok_s:.0f}", flush=True)
+                          f"Loss {loss:.4f}\tTok/s {tok_s:.0f}{extra}",
+                          flush=True)
         summary["train_s"] += time.time() - t0
         avg = losses / max(1, seen)
         summary["epoch_losses"].append(avg)
@@ -494,11 +521,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if args.parallel in ('tp', 'pp'):
             # the whole params on every rank (a collective), decoded on
             # this rank's card: pp unstacks them, as JAX does; tp decodes
-            # them whole (JAX decodes TP-sharded, the same greedy tokens)
+            # them whole (JAX decodes a dense model TP-sharded, the same
+            # greedy tokens, and an MoE model whole, as here)
             whole = (unstack_pipeline_params(state.stacked(state.params),
                                              model.vocab_size)
                      if args.parallel == 'pp' else state.state_dict())
-            dense = get_model(args.model, dtype=dtype)
+            dense = get_model(args.model, dtype=dtype, **moe_kw)
             dense.load_state_dict({k: v.detach().clone() for k, v in
                                    whole.items()}, assign=True)
         else:

@@ -8,7 +8,9 @@ the conftest's virtual CPU devices and through the port's on the same
 grid of gloo ranks (``tests/torch_mp_worker.py``). JAX's references run
 with ``attn_impl="xla"``, as its CLI runs ``tp`` and ``pp`` (its
 pipelined steps force it); the port runs its flash wrapper, whose plain
-version is the same math on the CPU."""
+version is the same math on the CPU. ``MOE`` is the Mixture-of-Experts
+case (``tests/test_torch_moe_mp.py``): 2 heads, 4 top-1 experts,
+``[4, 16]`` batches, its balance loss compared too."""
 
 import jax
 import jax.numpy as jnp
@@ -36,17 +38,30 @@ GEOM = dict(vocab_size=257, max_seq_len=64, hidden_size=32, num_layers=2,
 SEQ, BATCH, STEPS, LR = 32, 4, 3, 0.1
 TOL = 1e-5  # loss and every param after 3 f32 steps (PR 19's)
 TP_MODES = {"tp": {}, "tp_zero1": {"zero1": True}, "tp_fsdp": {"fsdp": True}}
+DENSE = dict(geom=GEOM, seq=SEQ, batch=BATCH)
+MOE = dict(geom=dict(GEOM, num_heads=2, n_experts=4), seq=16, batch=4)
 
 
-def jax_init():
-    """(JAX-initialised params, ``[STEPS, BATCH, SEQ]`` int32 batches)."""
-    model = jax_models.GPT(**GEOM)
+def jax_init(case=DENSE):
+    """(JAX-initialised params, ``[STEPS, batch, seq]`` int32 batches)."""
+    model = jax_models.GPT(**case["geom"])
     params = jax.device_get(jax_lm.create_lm_train_state(
-        model, jax.random.PRNGKey(0), jnp.zeros((2, SEQ), jnp.int32),
+        model, jax.random.PRNGKey(0), jnp.zeros((2, case["seq"]), jnp.int32),
         jax_optim.sgd(LR)).params)
     batches = np.random.default_rng(1).integers(
-        0, 257, (STEPS, BATCH, SEQ)).astype(np.int32)
+        0, 257, (STEPS, case["batch"], case["seq"])).astype(np.int32)
     return params, batches
+
+
+def jax_steps(step, state, batches):
+    """(state, losses, balance losses) of JAX's step over ``batches``."""
+    losses, aux = [], []
+    for b in batches:
+        state, m = step(state, jnp.asarray(b))
+        losses.append(float(m["loss"]))
+        if "moe_aux" in m:
+            aux.append(float(m["moe_aux"]))
+    return state, losses, aux
 
 
 def _mesh(grid, names):
@@ -55,73 +70,70 @@ def _mesh(grid, names):
                 names)
 
 
-def jax_pp(grid, schedule, params, batches):
-    """JAX's pipelined losses, final (unstacked) params and eval loss."""
-    model = jax_models.GPT(**GEOM)
+def jax_pp(grid, schedule, params, batches, case=DENSE):
+    """JAX's pipelined losses, final (unstacked) params, eval loss and
+    (MoE) balance losses."""
+    geom = case["geom"]
+    model = jax_models.GPT(**geom)
     mesh = _mesh(grid, ("data", "pipe"))
     opt = jax_optim.sgd(LR)
     state = jgp.create_pipelined_lm_state(
-        model, jax.random.PRNGKey(0), jnp.zeros((2, SEQ), jnp.int32), opt,
-        n_stages=grid[1], params=params)
+        model, jax.random.PRNGKey(0), jnp.zeros((2, case["seq"]), jnp.int32),
+        opt, n_stages=grid[1], params=params)
     step = jgp.make_pipelined_lm_train_step(model, opt, mesh,
                                             schedule=schedule)
-    losses = []
-    for b in batches:
-        state, m = step(state, jnp.asarray(b))
-        losses.append(float(m["loss"]))
+    state, losses, aux = jax_steps(step, state, batches)
     ev = float(jgp.make_pipelined_lm_eval_step(model, mesh)(
         state, jnp.asarray(batches[0]))["loss"])
     return losses, jgp.unstack_pipeline_params(
-        jax.device_get(state.params), GEOM["vocab_size"]), ev
+        jax.device_get(state.params), geom["vocab_size"]), ev, aux
 
 
-def jax_tp(grid, mode, params, batches, remat=False):
-    """JAX's GSPMD LM losses, final params and eval loss."""
+def jax_tp(grid, mode, params, batches, remat=False, case=DENSE):
+    """JAX's GSPMD LM losses, final params, eval loss and (MoE) balance
+    losses."""
     kw = TP_MODES[mode]
-    model = jax_models.GPT(**GEOM, attn_impl="xla")
+    model = jax_models.GPT(**case["geom"], attn_impl="xla")
     mesh = make_mesh(*grid, devices=jax.devices()[:grid[0] * grid[1]])
     opt = jax_optim.sgd(LR)
     state = jax_lm.create_lm_train_state(
-        model, jax.random.PRNGKey(0), jnp.zeros((2, SEQ), jnp.int32), opt)
+        model, jax.random.PRNGKey(0), jnp.zeros((2, case["seq"]), jnp.int32),
+        opt)
     state = jax_step.shard_state(
         state.replace(params=jax.tree.map(jnp.asarray, params)), mesh, **kw)
     step = jax_lm.make_lm_train_step_tp(model, opt, mesh, remat=remat, **kw)
-    losses = []
-    for b in batches:
-        state, m = step(state, jnp.asarray(b))
-        losses.append(float(m["loss"]))
+    state, losses, aux = jax_steps(step, state, batches)
     ev = float(jax_lm.make_lm_eval_step_tp(model, mesh, **kw)(
         state, jnp.asarray(batches[0]))["loss"])
-    return losses, jax.device_get(state.params), ev
+    return losses, jax.device_get(state.params), ev, aux
 
 
-def jax_zero(world, params, batches):
+def jax_zero(world, params, batches, case=DENSE):
     """JAX's ``make_lm_train_step(zero=True)`` losses and params on a
-    data mesh of ``world`` devices, and its eval loss."""
-    model = jax_models.GPT(**GEOM, attn_impl="xla")
+    data mesh of ``world`` devices, its eval loss and (MoE) balance
+    losses."""
+    model = jax_models.GPT(**case["geom"], attn_impl="xla")
     mesh = make_mesh(world, devices=jax.devices()[:world])
     opt = jax_optim.sgd(LR)
     state = jax_lm.create_lm_train_state(
-        model, jax.random.PRNGKey(0), jnp.zeros((2, SEQ), jnp.int32), opt)
+        model, jax.random.PRNGKey(0), jnp.zeros((2, case["seq"]), jnp.int32),
+        opt)
     state = zeroify_state(
         state.replace(params=jax.tree.map(jnp.asarray, params)), mesh)
     step = jax_lm.make_lm_train_step(model, opt, mesh, zero=True)
-    losses = []
-    for b in batches:
-        state, m = step(state, jnp.asarray(b))
-        losses.append(float(m["loss"]))
+    state, losses, aux = jax_steps(step, state, batches)
     ev = float(jax_lm.make_lm_eval_step(model, mesh)(
         state, jnp.asarray(batches[0]))["loss"])
-    return losses, jax.device_get(state.params), ev
+    return losses, jax.device_get(state.params), ev, aux
 
 
-def port_run(world, runs, params, batches, tmp):
+def port_run(world, runs, params, batches, tmp, case=DENSE):
     """Every run of ``runs`` (``{name: {kind, grid, ...}}``) on ``world``
     gloo ranks (one spawn); rank 0's results, after checking every rank
     holds the same whole state."""
     path, out = tmp / "inputs.pt", tmp / "out"
     runs = {name: dict(run, lr=LR) for name, run in runs.items()}
-    torch.save({"geometry": GEOM, "runs": runs,
+    torch.save({"geometry": case["geom"], "runs": runs,
                 "params": from_jax_params(params),
                 "batches": torch.from_numpy(batches)}, path)
     mp.spawn(steps_rank, args=(world, free_port(), str(path), str(out)),
@@ -149,14 +161,16 @@ def port_grads(grid, params, tokens, tmp):
             for r in range(world)]
 
 
-def check_run(ours, ref):
-    """The port's run within TOL of JAX's ``(losses, params, eval)``."""
-    losses, jparams, jeval = ref
+def check_run(ours, ref, case=DENSE):
+    """The port's run within TOL of JAX's ``(losses, params, eval,
+    balance losses)``."""
+    losses, jparams, jeval, aux = ref
     np.testing.assert_allclose(ours["losses"], losses, atol=TOL, rtol=0)
+    np.testing.assert_allclose(ours["aux"], aux, atol=TOL, rtol=0)
     want = from_jax_params(jparams)
     assert set(ours["params"]) == set(want)
     for name, t in ours["params"].items():
         torch.testing.assert_close(t, want[name], atol=TOL, rtol=0,
                                    msg=name)
     assert abs(ours["eval"] - jeval) < TOL
-    assert ours["count"] == BATCH * (SEQ - 1)
+    assert ours["count"] == case["batch"] * (case["seq"] - 1)

@@ -5,7 +5,9 @@ numpy batches, through JAX's ``make_lm_train_step(seq_axis="seq")`` on
 a ``(data, seq)`` mesh of the conftest's virtual CPU devices (Pallas in
 interpret mode) and through the port's on the same grid of gloo ranks
 (``tests/torch_sp_worker.py``). JAX's SP steps run slowly here (seconds
-a step in interpret mode), so each file takes one grid."""
+a step in interpret mode), so each file takes one grid. ``MOE`` is the
+Mixture-of-Experts case (``tests/test_torch_moe_sp.py``): 2 layers, 2
+heads, 4 experts, ``[4, 16]`` batches, its balance loss compared too."""
 
 import socket
 
@@ -28,6 +30,9 @@ GEOM = dict(vocab_size=257, max_seq_len=64, hidden_size=32, num_layers=1,
             num_heads=4, mlp_dim=64)
 SEQ, BATCH, STEPS, LR = 32, 4, 3, 0.1
 TOL = 1e-5
+DENSE = dict(geom=GEOM, seq=SEQ, batch=BATCH)
+MOE = dict(geom=dict(GEOM, num_layers=2, num_heads=2, n_experts=4), seq=16,
+           batch=4)
 
 
 def free_port():
@@ -36,47 +41,52 @@ def free_port():
         return s.getsockname()[1]
 
 
-def jax_init():
-    """(JAX-initialised params, ``[STEPS, BATCH, SEQ]`` int32 batches)."""
-    model = jax_models.GPT(**GEOM)
+def jax_init(case=DENSE):
+    """(JAX-initialised params, ``[STEPS, batch, seq]`` int32 batches)."""
+    model = jax_models.GPT(**case["geom"])
     params = jax.device_get(jax_lm.create_lm_train_state(
-        model, jax.random.PRNGKey(0), jnp.zeros((2, SEQ), jnp.int32),
+        model, jax.random.PRNGKey(0), jnp.zeros((2, case["seq"]), jnp.int32),
         jax_optim.sgd(LR)).params)
     batches = np.random.default_rng(1).integers(
-        0, 257, (STEPS, BATCH, SEQ)).astype(np.int32)
+        0, 257, (STEPS, case["batch"], case["seq"])).astype(np.int32)
     return params, batches
 
 
-def jax_run(grid, mode, chunks, params, batches, evaluate):
-    """JAX's losses, final params and (``evaluate``) eval loss."""
+def jax_run(grid, mode, chunks, params, batches, evaluate, case=DENSE):
+    """JAX's losses, final params, (``evaluate``) eval loss and (MoE)
+    balance losses."""
     dp, deg = grid
-    model = jax_models.GPT(**GEOM, seq_axis="seq", sp_mode=mode)
+    model = jax_models.GPT(**case["geom"], seq_axis="seq", sp_mode=mode)
     mesh = Mesh(np.asarray(jax.devices()[:dp * deg]).reshape(dp, deg),
                 ("data", "seq"))
     opt = jax_optim.sgd(LR)
     state = jax_lm.create_lm_train_state(
-        model, jax.random.PRNGKey(0), jnp.zeros((2, SEQ), jnp.int32), opt)
+        model, jax.random.PRNGKey(0), jnp.zeros((2, case["seq"]), jnp.int32),
+        opt)
     state = state.replace(params=jax.tree.map(jnp.asarray, params))
     step = jax_lm.make_lm_train_step(model, opt, mesh, seq_axis="seq",
                                      vocab_chunks=chunks)
-    losses = []
+    losses, aux = [], []
     for b in batches:
         state, m = step(state, jnp.asarray(b))
         losses.append(float(m["loss"]))
+        if "moe_aux" in m:
+            aux.append(float(m["moe_aux"]))
     ev = None
     if evaluate:
         ev = float(jax_lm.make_lm_eval_step(
             model, mesh, seq_axis="seq", vocab_chunks=chunks)(
                 state, jnp.asarray(batches[0]))["loss"])
-    return losses, jax.device_get(state.params), ev
+    return losses, jax.device_get(state.params), ev, aux
 
 
-def port_run(grid, runs, params, batches, tmp):
+def port_run(grid, runs, params, batches, tmp, case=DENSE):
     """Every ``(sp_mode, vocab_chunks)`` of ``runs`` on the grid's gloo
     ranks (one spawn); rank 0's results, after checking every rank
     holds the same state."""
     path, out = tmp / "inputs.pt", tmp / "out"
-    torch.save({"grid": grid, "geometry": GEOM, "lr": LR, "runs": runs,
+    torch.save({"grid": grid, "geometry": case["geom"], "lr": LR,
+                "runs": runs,
                 "params": from_jax_params(params),
                 "batches": torch.from_numpy(batches)}, path)
     world = grid[0] * grid[1]
@@ -92,12 +102,15 @@ def port_run(grid, runs, params, batches, tmp):
     return ranks[0]
 
 
-def check_run(ours, grid, mode, chunks, params, batches, evaluate):
-    """The port's run within TOL of JAX's: losses, every param and the
-    eval loss; the global predictable count."""
-    losses, jparams, jeval = jax_run(grid, mode, chunks, params, batches,
-                                     evaluate)
+def check_run(ours, grid, mode, chunks, params, batches, evaluate,
+              case=DENSE):
+    """The port's run within TOL of JAX's: losses, every param, the
+    eval loss and (MoE) the balance losses; the global predictable
+    count."""
+    losses, jparams, jeval, aux = jax_run(grid, mode, chunks, params,
+                                          batches, evaluate, case)
     np.testing.assert_allclose(ours["losses"], losses, atol=TOL, rtol=0)
+    np.testing.assert_allclose(ours["aux"], aux, atol=TOL, rtol=0)
     ref = from_jax_params(jparams)
     assert set(ours["params"]) == set(ref)
     for name, t in ours["params"].items():
@@ -105,4 +118,4 @@ def check_run(ours, grid, mode, chunks, params, batches, evaluate):
                                    msg=name)
     if evaluate:
         assert abs(ours["eval"] - jeval) < TOL
-    assert ours["count"] == BATCH * (SEQ - 1)
+    assert ours["count"] == case["batch"] * (case["seq"] - 1)

@@ -47,7 +47,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
 for name in ("parallel.ring_attention", "parallel.ulysses",
              "parallel.mesh", "ops.losses", "parallel.pipeline",
-             "parallel.gpt_pipeline"):
+             "parallel.gpt_pipeline", "ops.moe"):
     assert "{PORT}." + name in sys.modules, name
 print("modules", len([m for m in sys.modules if m.startswith("{PORT}")]))
 assert not bad, bad

@@ -117,10 +117,9 @@ def test_resume_auto_continues_at_epoch_3(tmp_path, capsys):
 # (case index, extra, flag): the index keeps each case's id from before
 # --parallel sp, --degree and --vocab_chunks were ported (cases 0, 3, 9)
 # and --parallel tp|pp, --zero, --zero1, --fsdp and --remat (cases 1, 2,
-# 6, 7, 8, 10; tests/test_torch_mp_cli.py runs them)
+# 6, 7, 8, 10; tests/test_torch_mp_cli.py runs them) and --n_experts and
+# --moe_top_k (cases 4, 5; tests/test_torch_moe_cli.py runs them)
 _UNPORTED = [
-    (4, ["--n_experts", "4"], "--n_experts"),
-    (5, ["--moe_top_k", "2"], "--moe_top_k"),
     (11, ["--ckpt_backend", "orbax"], "--ckpt_backend"),
     (12, ["--ckpt_async"], "--ckpt_async"),
     (13, ["--hf_init", "x.pth"], "--hf_init"),

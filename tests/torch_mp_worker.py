@@ -73,10 +73,10 @@ def _state(run, model, params, grid_shape, rank):
 
 
 def steps_rank(rank, world, port, inputs_path, out_path):
-    """Each run of ``inputs["runs"]`` on the grid: the losses of the
-    given batches' SGD steps from the given params, the final whole
-    params, one eval step on the first batch and this rank's resident
-    bytes."""
+    """Each run of ``inputs["runs"]`` on the grid: the losses (and an
+    MoE model's balance losses) of the given batches' SGD steps from the
+    given params, the final whole params, one eval step on the first
+    batch and this rank's resident bytes."""
     dist = _join(rank, world, port)
     from pytorch_multiprocessing_distributed_tpu_torch.models import GPT
     from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
@@ -98,14 +98,18 @@ def steps_rank(rank, world, port, inputs_path, out_path):
         def rows(batch):
             return torch.from_numpy(local_rows(batch, data_index, dp))
 
-        losses = [float(step(state, rows(b))[1]["loss"])
-                  for b in batches]
+        losses, aux = [], []
+        for b in batches:
+            m = step(state, rows(b))[1]
+            losses.append(float(m["loss"]))
+            if "moe_aux" in m:
+                aux.append(float(m["moe_aux"]))
         ev = eval_step(state, rows(batches[0]))
         resident = (state.resident_bytes() if run["kind"] == "pp" else
                     state.placement.resident_bytes() if run["kind"] == "tp"
                     else {"params": 4 * state.n,
                           "opt_state": 4 * state.momentum.numel()})
-        out[name] = {"losses": losses,
+        out[name] = {"losses": losses, "aux": aux,
                      "params": _dense(state, run["kind"],
                                       model.vocab_size),
                      "eval": float(ev["loss"]), "count": float(ev["count"]),

@@ -59,9 +59,10 @@ def attention_rank(rank, world, port, inputs_path, out_path):
 
 def lm_rank(rank, world, port, inputs_path, out_path):
     """``make_lm_train_step`` on a ``grid`` of ranks for each run of
-    ``inputs["runs"]`` (``(sp_mode, vocab_chunks)``): the losses of
-    ``steps`` SGD steps from the given params and the final flat params,
-    then one eval step on the first batch."""
+    ``inputs["runs"]`` (``(sp_mode, vocab_chunks)``): the losses (and an
+    MoE model's balance losses) of ``steps`` SGD steps from the given
+    params and the final flat params, then one eval step on the first
+    batch."""
     dist = _join(rank, world, port)
     from pytorch_multiprocessing_distributed_tpu_torch.models import GPT
     from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
@@ -81,15 +82,17 @@ def lm_rank(rank, world, port, inputs_path, out_path):
             k: v.clone() for k, v in inputs["params"].items()})
         step = make_lm_train_step(model, sgd(inputs["lr"]), seq_axis="seq",
                                   vocab_chunks=chunks)
-        losses = []
+        losses, aux = [], []
         for batch in batches:
             rows = torch.from_numpy(local_rows(batch, grid.data_index, dp))
             _, m = step(state, rows)
             losses.append(float(m["loss"]))
+            if "moe_aux" in m:
+                aux.append(float(m["moe_aux"]))
         ev = make_lm_eval_step(model, seq_axis="seq", vocab_chunks=chunks)(
             state, torch.from_numpy(local_rows(batches[0], grid.data_index,
                                                dp)))
-        out[f"{mode}_{chunks}"] = {"losses": losses,
+        out[f"{mode}_{chunks}"] = {"losses": losses, "aux": aux,
                                    "params": {
                                        k: t.clone() for k, t in
                                        state.views(state.params).items()},
