@@ -13,6 +13,9 @@
                                      # alone
     python3 chip_smoke.py --moe-only  # phases 1 and 29 (train_lm
                                       # --n_experts in every mode) alone
+    python3 chip_smoke.py --heal-only  # phases 1, 2 and 30 (restarts,
+                                       # SIGTERM, sharded checkpoints,
+                                       # peer loss, --profile) alone
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -348,6 +351,31 @@ nothing is caught):
    ``MOE_JAX_RESIDENT``), pp gpipe and sp ring at degree W reported
    beside one card's losses (a per-shard balance loss and capacity,
    JAX's semantics).
+30. heal — fault tolerance through the CLIs, each child a fresh
+   interpreter with phase 25's deterministic settings: (1) ``main`` on
+   ResNet-18 ``[1,1,1,1]`` (CIFAR shapes, B 64, ``--optimizer
+   sgd_fused``, 3 epochs of ``HEAL_IMAGE_STEPS``, ``--save_every 1
+   --max_restarts 2 --restart_backoff 0``) with ``PMDT_FAULT_PLAN=
+   HEAL_FAULT_PLAN`` failing epoch 2's checkpoint write once: one
+   restart, the resume from ``model_1.pth``, the rows and the final
+   ``model_3.pth`` against the uninterrupted run (``HEAL_PAYLOAD_TOL``),
+   row 8's launches over the process; (2) the same with ``train_lm``
+   (gpt_small bf16, B 8 x S 1024, lr 0.01, 3 epochs of
+   ``HEAL_LM_STEPS``): rows, payload, rows 5-7's launches; (3) SIGTERM
+   to the image run at epoch 2 step 2: exit code 0, ``model_1.pth``
+   kept, ``--resume auto`` to a ``model_3.pth`` equal to the
+   uninterrupted one; (4) ``main --fsdp`` at (2, 2) (four cards; (1, 2)
+   with two; a 1 x 1 grid with one) with ``--ckpt_backend orbax
+   --ckpt_async --save_every 1``: each rank's bytes against the state's
+   over the ranks, ``--resume auto`` against the uninterrupted gathered
+   run, and the checkpoint restored into a plain one-card state against
+   the weights the run gathered (``--torch_export``); (5) with two or
+   more cards, ``train_lm --parallel dp`` on two NCCL ranks under
+   ``PMDT_HEARTBEAT=HEAL_HEARTBEAT``, rank 1 SIGKILLed after its first
+   window: rank 0 raises ``PeerLostError`` naming rank 1, within the
+   hard limit plus two polls and one window of the kill; (6) ``main
+   --profile`` for one epoch: the trace file's size and row 8's CUDA
+   kernels as the trace lists them.
    Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
@@ -367,13 +395,16 @@ attention rows also carry their Dh 48/64/96 times, ``head_dim_ms``,
 and the bf16 forward its ViT-shape numbers, ``vit_*``; the bf16 flash
 entries carry each phase 28 run's launches a step,
 ``mp_launches_per_step``, and each phase 29 MoE run's,
-``moe_launches_per_step``; the decode entry carries phase 29's
-``--sample`` launches, ``moe_sample_launches``);
+``moe_launches_per_step``, and phase 30's restarted LM run's,
+``heal_restart_launches`` (the fused SGD entry its restarted image
+run's); the decode entry carries phase 29's ``--sample`` launches,
+``moe_sample_launches``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import importlib
@@ -383,12 +414,15 @@ import json
 import re
 import math
 import os
+import queue
 import random
+import signal
 import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # peak HBM bytes/s by card name (NVIDIA data sheets, SXM parts unless
@@ -707,6 +741,55 @@ MOE_JAX_RESIDENT = {
     ("plain", 1, 2): (1196986180, 1196986180),
     ("plain", 1, 4): (675788356, 675788356),
 }
+
+# phase 30: fault tolerance. The restart drills fail the second
+# checkpoint write once (epoch 2's) in a child's environment; the
+# children run f32 convolutions deterministic with TF32 off (phase 25's
+# settings), so a resumed run is held bit for bit against the
+# uninterrupted one
+HEAL_FAULT_PLAN = "seed=0;train.checkpoint_write=error:1:1"
+HEAL_IMAGES, HEAL_IMAGE_STEPS = 1024, 16  # ResNet-18 B 64: 1024 / 64
+HEAL_PROFILE_IMAGES = 512  # --profile: 8 steps, 2 eval batches
+HEAL_IMAGE_COMMON = ["--model", "res", "--synthetic", "--batch_size", "64",
+                     "--seed", "0"]
+HEAL_IMAGE_ARGV = ["--device", "cuda", "--world_size", "1", "--optimizer",
+                   "sgd_fused"] + HEAL_IMAGE_COMMON
+HEAL_LM_STEPS = 4  # 32768 tokens = 32 windows of 1024 = 4 batches of 8
+HEAL_LM_ARGV = ["--device", "cuda", "--model", "gpt_small", "--dtype",
+                "bfloat16", "--batch_size", "8", "--seq_len", "1024",
+                "--lr", TRAIN_LR, "--seed", "0", "--corpus_tokens", "32768"]
+HEAL_PAYLOAD_TOL = 0.0  # deterministic: the same bits
+HEAL_LM_TOL = 0.0
+HEAL_SHARD_SLACK = 1.25  # a rank's bytes over state / ranks (DCP's
+                         # per-item framing, replicated leaves written once)
+HEAL_HEARTBEAT = "2:6:0.5"  # soft : hard : poll interval (seconds)
+HEAL_CHILD_TIMEOUT = 300
+# a phase 30 child: the CLI's main in a fresh interpreter (the fault plan
+# and the heartbeat arm at import), every kernel counter of the process
+# after it; argv: cli, summary path ("-" = none), the CLI's flags
+HEAL_CHILD = r"""
+import importlib, json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+port = "pytorch_multiprocessing_distributed_tpu_torch"
+cli = importlib.import_module(port + "." + sys.argv[1])
+fa = importlib.import_module(port + ".ops.flash_attention")
+kernels = {"fused_sgd": importlib.import_module(
+               port + ".ops.fused_update").fused_sgd_,
+           "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+           "flash_bwd_dkv": fa.flash_bwd_dkv}
+for kernel in kernels.values():
+    kernel.launches = 0
+summary = cli.main(sys.argv[3:])
+summary["process_launches"] = {n: k.launches for n, k in kernels.items()}
+if sys.argv[2] != "-":
+    with open(sys.argv[2], "w") as f:
+        json.dump(summary, f)
+"""
 
 
 def _print(*parts):
@@ -3451,6 +3534,418 @@ def _moe_phase(torch, fa, train_lm, smi, da):
     return dict(layer=layer, cli=cli, cross=cross, **one)
 
 
+# ------------------------------------------------------------- phase 30
+
+
+def _lines_until(proc, deadline):
+    """``proc``'s output lines as they come, until its end or the
+    deadline (read on a thread: a silent child cannot block the loop)."""
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    while True:
+        try:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+        except queue.Empty:
+            return
+        if line is None:
+            return
+        yield line
+
+
+def _heal_env(**extra):
+    """The environment of a phase 30 child: this one's, without any
+    fault plan, heartbeat or group of this process, plus ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PMDT_FAULT_PLAN", "PMDT_HEARTBEAT",
+                        "PMDT_MASTER_ADDR", "PMDT_WORLD_SIZE", "PMDT_RANK")}
+    env.update(extra)
+    return env
+
+
+def _heal_child(cli, argv, env, timeout_s=HEAL_CHILD_TIMEOUT):
+    """``{cli}.main(argv)`` in a fresh interpreter (the fault plan is
+    armed at import, from ``env``): returns (its summary, with every
+    kernel counter of that process under ``process_launches``; its
+    merged output)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "summary.json")
+        proc = subprocess.run(
+            [sys.executable, "-u", "-c", HEAL_CHILD, cli, out, *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=timeout_s)
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"{cli} {' '.join(argv)} exited {proc.returncode}:\n"
+                f"{proc.stdout[-4000:]}")
+        with open(out) as f:
+            return json.load(f), proc.stdout
+
+
+def _heal_payload_diff(torch, path_a, path_b):
+    """The largest |a - b| over two checkpoints' floating tensors; every
+    other entry (count, ``initialized``, epoch) must be equal."""
+    a = torch.load(path_a, map_location="cpu", weights_only=True)
+    b = torch.load(path_b, map_location="cpu", weights_only=True)
+    if set(a) != set(b):
+        raise AssertionError(f"{path_a} and {path_b} hold other keys")
+    diff = 0.0
+    for k, x in a.items():
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            diff = max(diff, float((x.double() - b[k].double()).abs().max()))
+        elif not (torch.equal(x, b[k]) if isinstance(x, torch.Tensor)
+                  else x == b[k]):
+            raise AssertionError(f"{path_a} and {path_b} differ at {k}")
+    return diff
+
+
+def _heal_launches(fa, fused_sgd_):
+    return {"fused_sgd": fused_sgd_.launches,
+            **{n: getattr(fa, n).launches for n in FLASH_PRODUCTS}}
+
+
+def _heal_zero(fa, fused_sgd_):
+    fused_sgd_.launches = 0
+    for n in FLASH_PRODUCTS:
+        getattr(fa, n).launches = 0
+
+
+def _rows_by_epoch(path):
+    """``{epoch: row}`` of a log (a restart rewrites an epoch's row;
+    the last one stands) and how many rows repeat an epoch."""
+    rows = [line.split() for line in open(path) if line.strip()]
+    by = {int(r[0]): r for r in rows}
+    return by, len(rows) - len(by)
+
+
+def _heal_restart(torch, cli, argv, plain, save_path, epochs):
+    """Phase 30 parts 1 and 2: ``cli`` under ``--max_restarts 2`` with
+    the second checkpoint write failing once (a child), against the
+    uninterrupted run's rows and final payload (``plain``: its save
+    path). Returns the child's summary."""
+    env = _heal_env(PMDT_FAULT_PLAN=HEAL_FAULT_PLAN)
+    summary, out = _heal_child(cli, argv + [
+        "--max_restarts", "2", "--restart_backoff", "0", "--save_path",
+        save_path], env)
+    if summary.get("restarts") != 1:
+        raise AssertionError(f"{cli}: {summary.get('restarts')} restarts, "
+                             "expected 1")
+    resumed = re.findall(r"^Resumed from (\S+) \(continuing at epoch 2\)",
+                         out, re.M)
+    if [os.path.basename(p) for p in resumed] != ["model_1.pth"]:
+        raise AssertionError(f"{cli}: resumed from {resumed}, expected "
+                             "model_1.pth once")
+    ours, repeats = _rows_by_epoch(os.path.join(save_path, "train.log"))
+    ref, _ = _rows_by_epoch(os.path.join(plain, "train.log"))
+    if sorted(ours) != list(range(1, epochs + 1)) or repeats != 1:
+        raise AssertionError(f"{cli}: train.log epochs {sorted(ours)} with "
+                             f"{repeats} repeated rows")
+    row_diff = max(abs(float(a) - float(b)) for e in ref
+                   for a, b in zip(ours[e][1:], ref[e][1:]))
+    final = f"model_{epochs}.pth"
+    with open(os.path.join(save_path, final), "rb") as f:
+        a = f.read()
+    with open(os.path.join(plain, final), "rb") as f:
+        b = f.read()
+    pay_diff = _heal_payload_diff(torch, os.path.join(save_path, final),
+                                  os.path.join(plain, final))
+    return summary, row_diff, pay_diff, a == b
+
+
+def _heal_image(torch, image_main, fa, fused_sgd_, smi, tmp):
+    """Phase 30 parts 1, 3 and 6 (the image CLI)."""
+    os.environ["PMDT_SMALL_SYNTH"] = str(HEAL_IMAGES)
+    argv = HEAL_IMAGE_ARGV + ["--epochs", "3", "--save_every", "1"]
+    plain = os.path.join(tmp, "image-plain")
+    _heal_zero(fa, fused_sgd_)
+    t0 = time.perf_counter()
+    ref = image_main.main(argv + ["--save_path", plain])
+    plain_wall = time.perf_counter() - t0
+    if fused_sgd_.launches != 3 * HEAL_IMAGE_STEPS:
+        raise AssertionError(f"the plain image run launched fused_sgd "
+                             f"{fused_sgd_.launches} times")
+    # 1. restart after the epoch-2 checkpoint write fails
+    t0 = time.perf_counter()
+    child, row_diff, pay_diff, same = _heal_restart(
+        torch, "main", argv, plain, os.path.join(tmp, "image-restart"), 3)
+    wall = time.perf_counter() - t0
+    want = 4 * HEAL_IMAGE_STEPS  # epochs 1, 2, then 2 and 3 again
+    got = child["process_launches"]["fused_sgd"]
+    if got != want:
+        raise AssertionError(f"the restarted image run launched fused_sgd "
+                             f"{got} times, expected {want}")
+    if pay_diff > HEAL_PAYLOAD_TOL or row_diff > HEAL_PAYLOAD_TOL:
+        raise AssertionError(f"restarted image run off the plain one: rows "
+                             f"{row_diff}, payload {pay_diff}")
+    _print(f"[heal] image restart: ResNet-18 f32 B 64, 3 epochs of "
+           f"{HEAL_IMAGE_STEPS} steps, '{HEAL_FAULT_PLAN}': 1 restart, "
+           f"resumed from model_1.pth, rows max diff {row_diff:g}, "
+           f"model_3.pth payload max diff {pay_diff:g} (file bytes "
+           f"{'equal' if same else 'differ'}) against the uninterrupted "
+           f"run; fused_sgd launches {got} (plain run {3 * HEAL_IMAGE_STEPS}"
+           f"); wall {wall:.2f} s (plain in-process {plain_wall:.2f} s) "
+           f"[{smi}]")
+    # 3. SIGTERM during epoch 2, then --resume auto
+    term = os.path.join(tmp, "image-term")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-c", HEAL_CHILD, "main", "-", *argv,
+         "--print-freq", "1", "--save_path", term],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=_heal_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, sent = [], None
+    try:
+        for line in _lines_until(proc, time.monotonic() + HEAL_CHILD_TIMEOUT):
+            lines.append(line)
+            if sent is None and line.startswith("Epoch: [2][2/"):
+                proc.send_signal(signal.SIGTERM)
+                sent = time.perf_counter()
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines)
+    kept = os.path.join(term, "model_1.pth")
+    if (sent is None or rc != 0 or f"keeping existing {kept}" not in out
+            or os.path.exists(os.path.join(term, "model_2.pth"))):
+        raise AssertionError(f"SIGTERM drill: rc {rc}, signal sent "
+                             f"{sent is not None}:\n{out[-3000:]}")
+    exit_s = time.perf_counter() - sent
+    _heal_zero(fa, fused_sgd_)
+    resumed = image_main.main(argv + ["--resume", "auto", "--save_path",
+                                      term])
+    term_diff = _heal_payload_diff(torch,
+                                   os.path.join(term, "model_3.pth"),
+                                   os.path.join(plain, "model_3.pth"))
+    if term_diff > HEAL_PAYLOAD_TOL or fused_sgd_.launches != \
+            2 * HEAL_IMAGE_STEPS:
+        raise AssertionError(f"SIGTERM drill resume: payload diff "
+                             f"{term_diff}, launches {fused_sgd_.launches}")
+    _print(f"[heal] SIGTERM drill: signal at epoch 2 step 2, exit code "
+           f"{rc} {exit_s:.2f} s later, model_1.pth kept (no model_2.pth); "
+           f"--resume auto ran epochs 2-3 ({resumed['steps']} steps, "
+           f"fused_sgd launches {fused_sgd_.launches}) to model_3.pth, "
+           f"payload max diff {term_diff:g} against the uninterrupted run; "
+           f"wall {time.perf_counter() - t0:.2f} s [{smi}]")
+    # 6. --profile LOGDIR for one epoch
+    os.environ["PMDT_SMALL_SYNTH"] = str(HEAL_PROFILE_IMAGES)
+    logdir = os.path.join(tmp, "profile")
+    _heal_zero(fa, fused_sgd_)
+    image_main.main(HEAL_IMAGE_ARGV + [
+        "--epochs", "1", "--profile", logdir, "--save_path",
+        os.path.join(tmp, "image-profile")])
+    traces = [os.path.join(root, n) for root, _, names in os.walk(logdir)
+              for n in names if n.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"--profile wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    sgd = collections.Counter(
+        e["name"] for e in events
+        if e.get("cat") == "kernel" and "fused_sgd" in e.get("name", ""))
+    steps = HEAL_PROFILE_IMAGES // 64
+    # one call: the update kernel (vector or scalar form) and the flags'
+    updates = sum(n for name, n in sgd.items() if "flags" not in name)
+    if updates != steps or fused_sgd_.launches != steps:
+        raise AssertionError(f"the trace lists {dict(sgd)} fused_sgd "
+                             f"kernels, launches {fused_sgd_.launches}; "
+                             f"expected {steps} updates")
+    _print(f"[heal] profile: main --profile, 1 epoch of {steps} steps: "
+           f"{os.path.basename(traces[0])} {os.path.getsize(traces[0])} "
+           f"bytes, {len(events)} events; row 8 listed as {dict(sgd)} "
+           f"({steps} launches) [{smi}]")
+    return {"restart_launches": got, "resume_launches": 2 * HEAL_IMAGE_STEPS,
+            "profile_kernel": sorted(sgd)}
+
+
+def _heal_lm(torch, train_lm, fa, fused_sgd_, smi, tmp):
+    """Phase 30 part 2: train_lm under --max_restarts."""
+    argv = HEAL_LM_ARGV + ["--epochs", "3", "--save_every", "1"]
+    plain = os.path.join(tmp, "lm-plain")
+    _heal_zero(fa, fused_sgd_)
+    train_lm.main(argv + ["--save_path", plain])
+    plain_launches = _heal_launches(fa, fused_sgd_)
+    t0 = time.perf_counter()
+    child, row_diff, pay_diff, same = _heal_restart(
+        torch, "train_lm", argv, plain, os.path.join(tmp, "lm-restart"), 3)
+    wall = time.perf_counter() - t0
+    got = {n: child["process_launches"][n] for n in FLASH_PRODUCTS}
+    steps = 4 * HEAL_LM_STEPS  # epochs 1, 2, then 2 and 3 again
+    want = {n: 12 * steps for n in FLASH_PRODUCTS}
+    if got != want:
+        raise AssertionError(f"the restarted LM run launched {got}, "
+                             f"expected {want}")
+    if row_diff > HEAL_LM_TOL:
+        raise AssertionError(f"restarted LM rows off by {row_diff}")
+    ours, _ = _rows_by_epoch(os.path.join(tmp, "lm-restart", "train.log"))
+    _print(f"[heal] LM restart: gpt_small bf16 B 8 x S 1024 lr 0.01, 3 "
+           f"epochs of {HEAL_LM_STEPS} steps: 1 restart, resumed from "
+           f"model_1.pth, epoch losses "
+           f"{[float(ours[e][1]) for e in sorted(ours)]}, rows max diff "
+           f"{row_diff:g}, model_3.pth payload max diff {pay_diff:g} (file "
+           f"bytes {'equal' if same else 'differ'}) against the "
+           f"uninterrupted run; launches {got} (plain {plain_launches}); "
+           f"wall {wall:.2f} s [{smi}]")
+    return got
+
+
+def _heal_sharded(torch, image_main, smi, tmp):
+    """Phase 30 part 4: ``main --fsdp`` with the sharded async backend."""
+    from pytorch_multiprocessing_distributed_tpu_torch.train.orbax_ckpt \
+        import OrbaxCheckpointer
+
+    cards = torch.cuda.device_count()
+    data, mp = (2, 2) if cards >= 4 else (1, 2) if cards >= 2 else (1, 1)
+    os.environ["PMDT_SMALL_SYNTH"] = str(HEAL_IMAGES)
+    base = ["--device", "cuda", "--world_size", str(data),
+            "--model_parallel", str(mp), "--fsdp"] + HEAL_IMAGE_COMMON
+    orbax = ["--ckpt_backend", "orbax", "--ckpt_async", "--save_every", "1"]
+    world = data * mp
+    gathered = os.path.join(tmp, "fsdp-msgpack")
+    sharded = os.path.join(tmp, "fsdp-orbax")
+    t0 = time.perf_counter()
+    _zero_main(image_main, base + ["--epochs", "2", "--save_path",
+                                   gathered], world)
+    _zero_main(image_main, base + orbax + ["--epochs", "1", "--save_path",
+                                           sharded], world)
+    _zero_main(image_main, base + orbax + [
+        "--epochs", "2", "--resume", "auto", "--torch_export",
+        "--save_path", sharded], world)
+    wall = time.perf_counter() - t0
+    ck = OrbaxCheckpointer(sharded)
+    by_rank = ck.bytes_by_rank(1)
+    ref = torch.load(os.path.join(gathered, "model_2.pth"),
+                     map_location="cpu", weights_only=True)
+    state_bytes = sum(t.numel() * t.element_size() for t in ref.values()
+                      if isinstance(t, torch.Tensor))
+    if sorted(by_rank) != list(range(world)) or max(by_rank.values()) > \
+            HEAL_SHARD_SLACK * state_bytes / world:
+        raise AssertionError(f"sharded save bytes by rank {by_rank}, the "
+                             f"state {state_bytes} B over {world} ranks")
+    got = ck.load_payload(2)
+    resume_diff = max(float((got[k].double() - ref[k].double()).abs().max())
+                      for k in ref if isinstance(ref[k], torch.Tensor))
+    if set(got) != set(ref) or resume_diff > HEAL_PAYLOAD_TOL:
+        raise AssertionError(f"the resumed sharded run is off the gathered "
+                             f"uninterrupted one by {resume_diff}")
+    # the sharded checkpoint into a plain state on one card, against the
+    # weights the sharded run gathered itself (--torch_export)
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model, init_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        create_train_state, sgd)
+
+    model = init_model(get_model("res"), 1).cuda()
+    state = create_train_state(model, sgd(0.1, momentum=0.9,
+                                          weight_decay=1e-4, nesterov=True))
+    ck.restore(state, 2)
+    export = torch.load(os.path.join(sharded, "model_2.torch.pth"),
+                        map_location="cpu", weights_only=True)
+    mine = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    one_diff = max(float((mine[k].double() - export[k].double()).abs().max())
+                   for k in export if export[k].is_floating_point())
+    if one_diff != 0.0:
+        raise AssertionError(f"the one-card restore is off the gathered "
+                             f"weights by {one_diff}")
+    _print(f"[heal] sharded checkpoint: main --fsdp at ({data}, {mp}) on "
+           f"{world} card(s), --ckpt_backend orbax --ckpt_async: bytes a "
+           f"rank {by_rank} against the state's {state_bytes} / {world} = "
+           f"{state_bytes / world:.0f}; --resume auto payload max diff "
+           f"{resume_diff:g} against the uninterrupted gathered run; the "
+           f"checkpoint restored into a plain one-card state: max diff "
+           f"{one_diff:g} against the run's gathered weights; wall "
+           f"{wall:.2f} s [{smi}]"
+           + ("" if world > 1 else " (one card visible: a 1 x 1 grid; "
+              "on four cards, python3 chip_smoke.py --heal-only "
+              "runs (2, 2))"))
+    del state, model
+    return by_rank
+
+
+def _heal_peer_loss(torch, smi):
+    """Phase 30 part 5: two NCCL ranks of train_lm under
+    PMDT_HEARTBEAT, rank 1 SIGKILLed after the first window."""
+    if torch.cuda.device_count() < 2:
+        _print(f"[heal] peer loss: needs two cards (one NCCL rank a card), "
+               f"{torch.cuda.device_count()} visible: not run on this call "
+               f"(on four cards: python3 chip_smoke.py --heal-only) "
+               f"[{smi}]")
+        return None
+    soft, hard, interval = (float(x) for x in HEAL_HEARTBEAT.split(":"))
+    port = _store_port()
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for rank in range(2):
+                env = _heal_env(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                                PMDT_WORLD_SIZE="2", PMDT_RANK=str(rank),
+                                PMDT_HEARTBEAT=HEAL_HEARTBEAT)
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-u", "-c", HEAL_CHILD, "train_lm", "-",
+                     *HEAL_LM_ARGV, "--corpus_tokens", "200000", "--epochs",
+                     "1", "--print_freq", "1", "--save_path", tmp],
+                    cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            killed = raised = t_first = window_s = None
+            lines = []
+            for line in _lines_until(procs[0], time.monotonic()
+                                     + HEAL_CHILD_TIMEOUT):
+                lines.append(line)
+                now = time.perf_counter()
+                if line.startswith("Epoch: [1][0/"):
+                    t_first = now
+                if killed is None and line.startswith("Epoch: [1][1/"):
+                    window_s = now - t_first
+                    procs[1].send_signal(signal.SIGKILL)
+                    killed = now
+                if "PeerLostError: peer" in line:
+                    raised = now
+                    break
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+    out = "".join(lines)
+    if killed is None or raised is None or "peer '1' lost" not in out:
+        raise AssertionError(f"peer-loss drill: killed {killed is not None},"
+                             f" raised {raised is not None}:\n{out[-3000:]}")
+    secs = raised - killed
+    # seeing rank 1's last beat takes up to one poll, the verdict past
+    # the hard limit up to another
+    bound = hard + 2 * interval + window_s
+    if secs > bound:
+        raise AssertionError(f"PeerLostError {secs:.2f} s after the kill, "
+                             f"past {bound:.2f} s")
+    err = lines[-1].strip()
+    _print(f"[heal] peer loss: train_lm --parallel dp on 2 NCCL ranks, "
+           f"PMDT_HEARTBEAT={HEAL_HEARTBEAT}, rank 1 SIGKILLed after its "
+           f"first window: rank 0 raised '{err}' {secs:.2f} s after the "
+           f"kill (bound: hard {hard:g} s + 2 polls of {interval:g} s + one "
+           f"window {window_s:.2f} s = {bound:.2f} s) [{smi}]")
+    return secs
+
+
+def _heal_phase(torch, image_main, train_lm, fa, fused_sgd_, smi):
+    """Phase 30 (see the module docstring)."""
+    t0 = time.perf_counter()
+    _deterministic(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        image = _heal_image(torch, image_main, fa, fused_sgd_, smi, tmp)
+        lm = _heal_lm(torch, train_lm, fa, fused_sgd_, smi, tmp)
+        shards = _heal_sharded(torch, image_main, smi, tmp)
+    peer = _heal_peer_loss(torch, smi)
+    _print(f"[heal] phase 30 wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    return dict(image=image, lm=lm, shards=shards, peer_s=peer)
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3524,6 +4019,14 @@ def main() -> int:
     if "--moe-only" in sys.argv[1:]:
         _moe_phase(torch, fa, train_lm, smi, da)
         _print(f"[total] chip_smoke --moe-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--heal-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        _build.build_all()  # the children find the kernels built
+        _print(f"[build] {time.perf_counter() - t0:.2f} s")
+        _heal_phase(torch, image_main, train_lm, fa, fused_sgd_, smi)
+        _print(f"[total] chip_smoke --heal-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4732,6 +5235,10 @@ def main() -> int:
 
     # -- phase 29: Mixture of Experts in every mode, dropless decode
     moe = _moe_phase(torch, fa, train_lm, smi, da)
+
+    # -- phase 30: supervised restart, SIGTERM, sharded checkpoints,
+    # peer loss, --profile
+    heal = _heal_phase(torch, image_main, train_lm, fa, fused_sgd_, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -4778,7 +5285,8 @@ def main() -> int:
         **({"mp_launches_per_step": {mode: counts[name] for mode, counts
                                      in mp["launches"].items()},
             "moe_launches_per_step": {mode: counts[name] for mode, counts
-                                      in moe["launches"].items()}}
+                                      in moe["launches"].items()},
+            "heal_restart_launches": heal["lm"][name]}
            if tname == "bfloat16" else {})}
         for tname, kernels_of, launches_of in (
             ("bfloat16", FLASH_KERNELS, train_launches),
@@ -4821,6 +5329,7 @@ def main() -> int:
         "shape": f"f32 N={SGD_SIZES[0]}",
         "r50_launches": imagenet["resnet50_imagenet"][1],
         "transforms_launches": t24_launches,
+        "heal_restart_launches": heal["image"]["restart_launches"],
         "r50_max_abs_err": r50_worst,
         **{f"r50_{key}": r50_sgd[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}] + [{

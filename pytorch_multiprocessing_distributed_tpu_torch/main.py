@@ -37,6 +37,17 @@ checkpoints (the port's own payload, :mod:`.train.checkpoint`) with
 ``.sha256`` sidecars, ``--resume PATH|auto``, and ``test_accuracy.png``
 and ``loss.png``.
 
+The JAX CLI's fault tolerance comes along: ``--ckpt_backend orbax``
+writes sharded checkpoints under ``{save_path}/orbax/<epoch>/`` (each
+rank its own slices, :mod:`.train.orbax_ckpt`; ``--resume`` is then
+``auto`` or an epoch number), ``--ckpt_async`` writes the periodic ones
+in the background, ``--max_restarts N [--restart_backoff S]`` runs each
+rank under :class:`.runtime.heal.Supervisor` (a named fatal, such as a
+lost peer or a failed checkpoint write, tears the group down and
+restarts the run with ``--resume auto``), a SIGTERM checkpoints and
+exits 0 at the next window boundary, and ``--profile LOGDIR`` traces
+the run with ``torch.profiler`` (:mod:`.utils.profiler`).
+
 One process per rank: under the JAX package's env contract
 (``PMDT_MASTER_ADDR``, ``PMDT_WORLD_SIZE``, ``PMDT_RANK``;
 :mod:`.parallel.dist`) the process joins the group as one rank; the
@@ -52,7 +63,8 @@ On the card, f32 convolutions run under PyTorch's default
 ``torch.backends.cudnn.allow_tf32 = True`` (TF32 tensor cores, as the
 reference ran) and f32 matmuls in full f32 (PyTorch's default).
 
-Flags of the JAX CLI this slice does not port are rejected by name.
+Flags of the JAX CLI this slice does not port (the observability
+exporters) are rejected by name.
 """
 
 from __future__ import annotations
@@ -165,8 +177,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--ckpt_backend', default='msgpack',
                    choices=['msgpack', 'orbax'],
                    help="'msgpack' = the single-file model_<epoch>.pth "
-                        "(the port's torch.save payload)")
-    p.add_argument('--ckpt_async', action='store_true')
+                        "(the port's torch.save payload); 'orbax' = "
+                        "sharded per-rank writes under {save_path}/orbax/ "
+                        "(torch.distributed.checkpoint), no gather")
+    p.add_argument('--ckpt_async', action='store_true',
+                   help='write the periodic checkpoints in the background '
+                        '(orbax backend only); the final-epoch and '
+                        'preemption saves are durable before exit')
     p.add_argument('--lr', default=0.0, type=float,
                    help='base learning rate (0 = 0.1, the reference; '
                         '1e-3 for lamb)')
@@ -181,13 +198,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help='sgd = the reference; sgd_fused = the same SGD in '
                         'the fused single-pass CUDA kernel on the card; '
                         'lamb = LAMB (layerwise trust ratios)')
-    p.add_argument('--profile', default='', type=str, metavar='LOGDIR')
+    p.add_argument('--profile', default='', type=str, metavar='LOGDIR',
+                   help='trace the run with torch.profiler into LOGDIR '
+                        '(TensorBoard-loadable; off when empty)')
     p.add_argument('--torch_export', action='store_true',
                    help='also export the final weights as the reference\'s '
                         'torch state_dict (model_{epoch}.torch.pth; ResNet '
                         'family only)')
-    p.add_argument('--max_restarts', default=0, type=int)
-    p.add_argument('--restart_backoff', default=1.0, type=float)
+    p.add_argument('--max_restarts', default=0, type=int,
+                   help='supervised restart: on a named fatal '
+                        '(GraftFaultError family: lost peer, failed '
+                        'checkpoint write, exhausted retries) tear the '
+                        'group down and restart with --resume auto, at '
+                        'most N times with doubling backoff (0 = die on '
+                        'the first)')
+    p.add_argument('--restart_backoff', default=1.0, type=float,
+                   help='first-restart delay in seconds (doubles per '
+                        'restart, capped at 30s)')
     p.add_argument('--trace_out', default='', type=str)
     p.add_argument('--events_out', default='', type=str)
     p.add_argument('--flight_path', default='', type=str)
@@ -197,10 +224,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, is it set?) for every JAX flag this slice does not port
 _NOT_PORTED = (
-    ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
-    ('--ckpt_async', lambda a: a.ckpt_async),
-    ('--profile', lambda a: bool(a.profile)),
-    ('--max_restarts', lambda a: a.max_restarts != 0),
     ('--stats_port', lambda a: a.stats_port != 0),
     ('--trace_out', lambda a: bool(a.trace_out)),
     ('--events_out', lambda a: bool(a.events_out)),
@@ -326,7 +349,9 @@ def run(args) -> dict:
                                plan=plan)
 
     start_epoch = 1
-    if args.resume:
+    if args.ckpt_backend == 'orbax' and args.resume:
+        start_epoch = _orbax_resume(args, state, primary)
+    elif args.resume:
         path = args.resume
         if args.resume == 'auto':
             path = resolve_auto_resume(args.save_path) or ''
@@ -362,9 +387,16 @@ def run(args) -> dict:
         save_every=args.save_every, keep_checkpoints=args.keep_checkpoints,
         remat=args.remat, grad_accum=args.grad_accum,
         clip_grad_norm=args.clip_grad_norm or None,
-        ema_decay=args.ema or None)
+        ema_decay=args.ema or None, ckpt_backend=args.ckpt_backend,
+        ckpt_async=args.ckpt_async)
     launches0 = fused_sgd_.launches
-    trainer.fit()
+    if args.profile:
+        from .utils.profiler import trace
+
+        with trace(args.profile, worker_name=f"rank{rank}"):
+            trainer.fit()
+    else:
+        trainer.fit()
     if args.torch_export:
         # params are replicated under --zero (only the moments are
         # sharded); a placed state gathers its slices first, on every rank
@@ -409,6 +441,59 @@ def run(args) -> dict:
     return s
 
 
+def _orbax_resume(args, state, primary: bool) -> int:
+    """``--resume auto|EPOCH`` from the sharded checkpoints (JAX
+    ``main.py:338-373``): the state restored before any sharding or
+    placement; returns the epoch to start at."""
+    from .train.orbax_ckpt import OrbaxCheckpointer
+
+    ck = OrbaxCheckpointer(args.save_path)
+    if args.resume == 'auto':
+        epoch = ck.latest_epoch()  # the primary's verdict, for every rank
+    else:
+        try:
+            epoch = int(args.resume)
+        except ValueError:
+            raise SystemExit(
+                f"--ckpt_backend orbax: --resume must be 'auto' or an "
+                f"epoch number (orbax checkpoints are epoch-keyed "
+                f"directories under {{save_path}}/orbax/), got "
+                f"{args.resume!r}")
+    if epoch is None:
+        if primary:
+            print(f"--resume auto: no orbax checkpoint under "
+                  f"{args.save_path}; starting fresh", flush=True)
+        return 1
+    ck.restore(state, epoch)
+    if primary:
+        print(f"Resumed from {ck.directory}/{epoch} (continuing at epoch "
+              f"{state.epoch + 1})", flush=True)
+    return state.epoch + 1
+
+
+def supervised_run(args) -> dict:
+    """:func:`run`, under :class:`.runtime.heal.Supervisor` when
+    ``--max_restarts`` is set (JAX ``main.py:522-556``): a named fatal
+    tears the process group down, backs off, and runs again with
+    ``--resume auto``, so the run resumes from the newest digest-valid
+    checkpoint. The summary counts the ``restarts``."""
+    if not args.max_restarts:
+        return run(args)
+    from .runtime import heal
+
+    def target(attempt):
+        if attempt:
+            args.resume = 'auto'
+        return run(args)
+
+    sup = heal.Supervisor(target, max_restarts=args.max_restarts,
+                          backoff_s=args.restart_backoff,
+                          rendezvous=dist.destroy_process_group)
+    summary = sup.run()
+    summary["restarts"] = sup.restarts
+    return summary
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -422,7 +507,7 @@ def _spawned_rank(rank: int, world: int, port: int, argv: List[str],
     os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
                       PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
     torch.set_num_threads(threads)
-    summary = run(build_parser().parse_args(argv))
+    summary = supervised_run(build_parser().parse_args(argv))
     if rank == 0:
         with open(summary_path, "w") as f:
             json.dump(summary, f)
@@ -444,7 +529,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     shutil.copy(__file__, os.path.join(args.save_path, 'main.py'))
     ranks = args.world_size * args.model_parallel
     if ranks == 1 or os.environ.get("PMDT_MASTER_ADDR"):
-        return run(args)
+        return supervised_run(args)
     if device.type == "cuda" and torch.cuda.device_count() < ranks:
         raise SystemExit(
             f"--world_size {args.world_size} x --model_parallel "

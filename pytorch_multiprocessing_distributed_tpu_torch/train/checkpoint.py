@@ -19,6 +19,12 @@ the sidecar first (a torn or bit-flipped file raises
 :class:`CheckpointCorruptError` naming both digests) and unpickle with
 ``weights_only=True``. Reading a JAX msgpack checkpoint is not in this
 slice (ROADMAP.md).
+
+The payload passes the ``train.checkpoint_write`` fault site after its
+digest is taken, as in JAX: an injected ``corrupt`` fault is caught by
+the digest check on load and :func:`load_with_fallback` resumes from
+the previous valid epoch; an injected ``error`` is a named fatal that
+``--max_restarts`` restarts from.
 """
 
 from __future__ import annotations
@@ -33,10 +39,17 @@ import torch
 
 from ..parallel import broadcast_int, is_primary
 from ..parallel.zero import gather_opt_state
+from ..runtime.faults import GraftFaultError, maybe_fault, register_site
 from .state import TrainState
 
+# the torn-artifact hazard: fires on the payload right before it
+# reaches the OS, so an injected corruption meets the digest check
+_SITE_WRITE = register_site(
+    "train.checkpoint_write",
+    "msgpack checkpoint payload write + fsync + atomic rename")
 
-class CheckpointCorruptError(RuntimeError):
+
+class CheckpointCorruptError(GraftFaultError):
     """A checkpoint's bytes do not match its recorded sha256 digest."""
 
 
@@ -93,10 +106,11 @@ def save_checkpoint(save_path: str, state: TrainState,
     torch.save(state.to_dict(**moments), buf)
     payload = buf.getvalue()
     digest = hashlib.sha256(payload).hexdigest()
+    written = maybe_fault(_SITE_WRITE, payload)
     dpath = digest_path(path)
     if os.path.exists(dpath):
         os.remove(dpath)
-    write_atomic_durable(path, payload)
+    write_atomic_durable(path, written)
     write_atomic_durable(dpath, digest.encode("ascii"))
     return path
 

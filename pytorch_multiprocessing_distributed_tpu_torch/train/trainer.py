@@ -17,6 +17,17 @@ The card runs ahead of the host: a step's metrics stay on the device
 and the loop fetches them once per print window (one host sync per
 window, as in JAX), so the window's wall clock over its steps is an
 honest step time.
+
+At each window boundary, before the fetch, the loop runs the liveness
+gate (:func:`..parallel.dist.gate_collectives`: a lost peer is a named
+``PeerLostError`` there, not a hang in NCCL) and the preemption check:
+a SIGTERM received during the run is agreed across ranks (one
+all-reduce of a max), a checkpoint that resumes at the interrupted
+epoch is written (or the real end-of-epoch one of the epoch before is
+kept), and the run exits 0 (JAX ``trainer.py:191-260``). Checkpoints go
+through ``ckpt_backend``: ``msgpack``, the single-file payload, or
+``orbax``, the sharded one (:mod:`.orbax_ckpt`; ``ckpt_async`` writes
+the periodic ones in the background).
 """
 
 from __future__ import annotations
@@ -26,10 +37,11 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as tdist
 
 from ..data.pipeline import ShardedLoader, prefetch
 from ..ops.losses import cross_entropy_loss
-from ..parallel import dist
+from ..parallel import broadcast_int, dist
 from ..utils import AverageMeter, Logger
 from ..utils.plotting import draw_plot
 from .checkpoint import prune_checkpoints, save_checkpoint
@@ -38,6 +50,7 @@ from .placement import PlacedState
 from .state import TrainState
 from .step import make_eval_step, make_train_step
 
+_HANDLER_NOT_INSTALLED = object()  # signal handler sentinel (see fit)
 _TRAIN_KEYS = ("loss", "prec1", "count", "skipped")
 _EVAL_KEYS = ("loss", "count", "correct")
 
@@ -63,8 +76,32 @@ class Trainer:
                  keep_checkpoints: int = 0, remat: bool = False,
                  grad_accum: int = 1,
                  clip_grad_norm: Optional[float] = None,
-                 ema_decay: Optional[float] = None):
+                 ema_decay: Optional[float] = None,
+                 ckpt_backend: str = "msgpack", ckpt_async: bool = False):
         loss_fn = loss_fn or cross_entropy_loss
+        # JAX's backend choice and refusals, in its order
+        self._orbax = None
+        if ckpt_backend == "orbax":
+            if state.zero is not None:
+                raise ValueError(
+                    "zero=True checkpoints via the msgpack gather-on-save "
+                    "path (mode-portable artifacts); --ckpt_backend orbax "
+                    "would persist the sharded layout and break --resume "
+                    "round-trips — use msgpack with --zero")
+            from .orbax_ckpt import OrbaxCheckpointer
+
+            self._orbax = OrbaxCheckpointer(
+                save_path, keep=keep_checkpoints or None, async_=ckpt_async)
+        elif ckpt_async:
+            raise ValueError(
+                "ckpt_async requires ckpt_backend='orbax' (the msgpack "
+                "writer is synchronous by design)")
+        elif ckpt_backend != "msgpack":
+            raise ValueError(
+                f"ckpt_backend must be 'msgpack' or 'orbax', "
+                f"got {ckpt_backend!r}")
+        self.ckpt_backend = ckpt_backend
+        self._preempted = False
         self.state = state
         self.train_loader = train_loader
         self.test_loader = test_loader
@@ -91,20 +128,115 @@ class Trainer:
                         "train_s": 0.0, "steady": []}
 
     def fit(self) -> TrainState:
-        """The reference's epoch loop; the primary rank draws the plots
-        at the end."""
-        for epoch in range(self.start_epoch, self.epochs + 1):
-            self.state.epoch = epoch
-            self.train_epoch(epoch)
-            self.validate(epoch, mode="test")
-            periodic = self.save_every and epoch % self.save_every == 0
-            if epoch == self.epochs or periodic:
-                save_checkpoint(self.save_path, self.state, epoch)
-                if dist.is_primary():
-                    prune_checkpoints(self.save_path, self.keep_checkpoints)
+        """The reference's epoch loop, under the SIGTERM handler; the
+        primary rank draws the plots at the end."""
+        prev_handler = self._install_preemption_handler()
+        try:
+            for epoch in range(self.start_epoch, self.epochs + 1):
+                self.state.epoch = epoch
+                self.train_epoch(epoch)
+                self.validate(epoch, mode="test")
+                periodic = self.save_every and epoch % self.save_every == 0
+                if epoch == self.epochs or periodic:
+                    # a periodic async save may overlap the next epochs;
+                    # the final one is durable before fit returns
+                    self._save_state(epoch, wait=epoch == self.epochs)
+        finally:
+            try:
+                if self._orbax is not None:
+                    # an async save in flight is made durable, even
+                    # when an exception unwinds the loop
+                    self._orbax.close()
+            finally:
+                # SIGTERM is not swallowed after training, even if the
+                # wait above raised
+                self._restore_handler(prev_handler)
         if dist.is_primary() and self.start_epoch <= self.epochs:
             draw_plot(self.save_path)
         return self.state
+
+    def _save_state(self, epoch: int, wait: bool = True) -> None:
+        """One checkpoint of the state as ``epoch`` through the
+        configured backend. Every rank calls it (collectives)."""
+        if self._orbax is not None:
+            self._orbax.save(self.state, epoch)
+            if wait:
+                self._orbax.wait()
+            return
+        save_checkpoint(self.save_path, self.state, epoch)
+        if dist.is_primary():
+            prune_checkpoints(self.save_path, self.keep_checkpoints)
+
+    # ------------------------------------------------------ preemption
+    def _install_preemption_handler(self):
+        """SIGTERM -> checkpoint and exit at the next window boundary.
+        Installed only in the main thread; a prior Python handler is
+        chained, and restored after the run."""
+        import signal
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            return _HANDLER_NOT_INSTALLED
+        self._preempted = False
+        # None = a handler installed from C: still restored after
+        prev = signal.getsignal(signal.SIGTERM)
+
+        def handler(signum, frame):
+            self._preempted = True
+            if callable(prev) and prev not in (
+                    signal.SIG_IGN, signal.SIG_DFL, handler):
+                prev(signum, frame)
+
+        signal.signal(signal.SIGTERM, handler)
+        return prev
+
+    @staticmethod
+    def _restore_handler(prev_handler) -> None:
+        if prev_handler is not _HANDLER_NOT_INSTALLED:
+            import signal
+
+            signal.signal(signal.SIGTERM, signal.SIG_DFL
+                          if prev_handler is None else prev_handler)
+
+    def _agreed_preemption(self) -> bool:
+        """Any rank's SIGTERM flag, on every rank: one all-reduce of a
+        max (signal delivery skews across ranks; a rank branching into
+        the save while another steps on would deadlock the group)."""
+        flag = bool(self._preempted)
+        if dist.get_world_size() > 1:
+            t = torch.tensor([int(flag)], dtype=torch.int32,
+                             device=self.device)
+            tdist.all_reduce(t, op=tdist.ReduceOp.MAX)
+            flag = bool(t.item())
+        return flag
+
+    def _checkpoint_if_preempted(self, epoch: int) -> None:
+        """At a window boundary: after an agreed SIGTERM, checkpoint so
+        that resume redoes the interrupted epoch (keeping the real
+        end-of-epoch checkpoint of ``epoch - 1`` where it exists: the
+        primary's verdict, for every rank), then exit 0."""
+        if not self._agreed_preemption():
+            return
+        if dist.is_primary():
+            print(f"SIGTERM received: checkpointing at epoch {epoch} "
+                  f"(resume redoes the interrupted epoch) and exiting",
+                  flush=True)
+        from .checkpoint import checkpoint_path
+
+        if self._orbax is not None:
+            target = self._orbax.epoch_path(epoch - 1)
+            exists = self._orbax.has_epoch(epoch - 1)
+        else:
+            target = checkpoint_path(self.save_path, epoch - 1)
+            exists = os.path.exists(target)
+        if bool(broadcast_int(int(exists))):
+            if dist.is_primary():
+                print(f"keeping existing {target} (same resume point)",
+                      flush=True)
+        else:
+            self.state.epoch = epoch - 1
+            self._save_state(epoch - 1)
+        raise SystemExit(0)
 
     def train_epoch(self, epoch: int) -> None:
         batch_time, data_time = AverageMeter(), AverageMeter()
@@ -123,6 +255,10 @@ class Trainer:
             self.summary["steps"] += 1
             pending.append(metrics)  # no host sync here
             if i % self.print_freq == 0 or i == n_batches - 1:
+                # the liveness gate and the preemption check sit at the
+                # window boundary, before the fetch waits on the card
+                dist.gate_collectives(self.device)
+                self._checkpoint_if_preempted(epoch)
                 for m in _fetch(pending, _TRAIN_KEYS):
                     # a skipped step's metrics stay out of every meter
                     if int(m["skipped"]):

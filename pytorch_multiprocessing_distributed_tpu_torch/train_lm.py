@@ -41,9 +41,18 @@ four modes, against the balance loss (``--moe_aux_weight``) and the
 router z-loss, and prints its ``Aux`` column; ``--sample`` decodes it
 droplessly.
 
-Flags of the JAX CLI this slice does not port (orbax, HF interop, beam
-sampling, supervised restarts, the observability exporters) are
-rejected by name.
+``--ckpt_backend orbax`` writes sharded checkpoints under
+``{save_path}/orbax/<epoch>/`` (each rank its own slices, in every
+``--parallel`` mode but ``--zero``; :mod:`.train.orbax_ckpt`), restored
+before any placement; ``--ckpt_async`` writes the periodic ones in the
+background. ``--max_restarts N [--restart_backoff S]`` runs the CLI
+under :class:`.runtime.heal.Supervisor`: a named fatal tears the group
+down and restarts with ``--resume auto``. At every print boundary the
+liveness gate runs (:func:`.parallel.dist.gate_collectives`): under
+``PMDT_HEARTBEAT`` a lost peer is a named ``PeerLostError``.
+
+Flags of the JAX CLI this slice does not port (HF interop, beam
+sampling, the observability exporters) are rejected by name.
 """
 
 from __future__ import annotations
@@ -110,8 +119,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--ckpt_backend', default='msgpack',
                    choices=['msgpack', 'orbax'],
                    help="'msgpack' = the single-file model_<epoch>.pth "
-                        "(the port's torch.save payload)")
-    p.add_argument('--ckpt_async', action='store_true')
+                        "(the port's torch.save payload); 'orbax' = "
+                        "sharded per-rank writes under {save_path}/orbax/ "
+                        "(torch.distributed.checkpoint)")
+    p.add_argument('--ckpt_async', action='store_true',
+                   help='write the periodic checkpoints in the background '
+                        '(orbax only; the final one is durable before '
+                        'exit)')
     p.add_argument('--print_freq', default=10, type=int)
     p.add_argument('--seed', default=0, type=int)
     p.add_argument('--corpus', default='', type=str,
@@ -147,8 +161,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help='after training, print N greedy continuation '
                         'tokens')
     p.add_argument('--sample_beams', default=0, type=int)
-    p.add_argument('--max_restarts', default=0, type=int)
-    p.add_argument('--restart_backoff', default=1.0, type=float)
+    p.add_argument('--max_restarts', default=0, type=int,
+                   help='supervised restart: catch named-fatal errors '
+                        '(GraftFaultError family), re-run rendezvous, '
+                        'restart the run with --resume auto (newest '
+                        'digest-valid checkpoint), at most N times with '
+                        'exponential backoff (0 = die on first fatal)')
+    p.add_argument('--restart_backoff', default=1.0, type=float,
+                   help='first-restart delay in seconds (doubles per '
+                        'restart, capped at 30s)')
     p.add_argument('--trace_out', default='', type=str)
     p.add_argument('--events_out', default='', type=str)
     p.add_argument('--flight_path', default='', type=str)
@@ -158,12 +179,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, is it set?) for every JAX flag this slice does not port
 _NOT_PORTED = (
-    ('--ckpt_backend', lambda a: a.ckpt_backend == 'orbax'),
-    ('--ckpt_async', lambda a: a.ckpt_async),
     ('--hf_init', lambda a: bool(a.hf_init)),
     ('--hf_export', lambda a: a.hf_export),
     ('--sample_beams', lambda a: a.sample_beams != 0),
-    ('--max_restarts', lambda a: a.max_restarts != 0),
     ('--stats_port', lambda a: a.stats_port != 0),
     ('--trace_out', lambda a: bool(a.trace_out)),
     ('--events_out', lambda a: bool(a.events_out)),
@@ -204,6 +222,17 @@ def _check_flags(args, model) -> None:
     slice keeps."""
     if args.save_every < 0:
         raise SystemExit(f'--save_every must be >= 0, got {args.save_every}')
+    if args.ckpt_async and args.ckpt_backend != 'orbax':
+        raise SystemExit('--ckpt_async applies to --ckpt_backend orbax')
+    if args.ckpt_backend == 'orbax' and args.resume not in ('', 'auto'):
+        try:
+            int(args.resume)
+        except ValueError:
+            raise SystemExit(
+                f"--ckpt_backend orbax: --resume must be 'auto' or an "
+                f"epoch number (orbax checkpoints are epoch-keyed "
+                f"directories under {{save_path}}/orbax/), got "
+                f"{args.resume!r}")
     if args.seq_len > model.max_seq_len:
         raise SystemExit(
             f"--seq_len {args.seq_len} exceeds the model's max_seq_len "
@@ -218,6 +247,11 @@ def _check_flags(args, model) -> None:
             "(reduce-scatter -> sharded update -> all-gather); use "
             f"--parallel dp (got --parallel {args.parallel}; the tp "
             "path's --zero1/--fsdp shard via GSPMD placement instead)")
+    if args.zero and args.ckpt_backend == 'orbax':
+        raise SystemExit(
+            "--zero checkpoints via msgpack gather-on-save (artifacts "
+            "round-trip between --zero and plain runs); --ckpt_backend "
+            "orbax would persist the sharded layout")
     if args.pp_schedule != 'gpipe' and args.parallel != 'pp':
         raise SystemExit(
             f"--pp_schedule {args.pp_schedule} only applies to --parallel "
@@ -303,7 +337,32 @@ def _launches():
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns a
+    """Run the CLI on ``argv`` (default ``sys.argv[1:]``), under
+    :class:`.runtime.heal.Supervisor` when ``--max_restarts`` is set
+    (JAX ``train_lm.py:163-185``: a restart tears the process group
+    down and resumes with ``--resume auto``; the summary then counts
+    the ``restarts``). Returns the summary of :func:`run`."""
+    args = build_parser().parse_args(
+        sys.argv[1:] if argv is None else list(argv))
+    if not args.max_restarts:
+        return run(args)
+    from .runtime import heal
+
+    def target(attempt):
+        if attempt:
+            args.resume = 'auto'
+        return run(args)
+
+    sup = heal.Supervisor(target, max_restarts=args.max_restarts,
+                          backoff_s=args.restart_backoff,
+                          rendezvous=dist.destroy_process_group)
+    summary = sup.run()
+    summary["restarts"] = sup.restarts
+    return summary
+
+
+def run(args) -> dict:
+    """One run of the CLI on parsed ``args``. Returns a
     summary: per-epoch train and val losses, the first printed loss,
     steps, tokens/s and the steady step time (host clock, synced at the
     print boundaries), the kernels' launches on this rank during the
@@ -311,8 +370,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
     its peak memory, this rank's resident bytes of params and moments,
     an MoE run's balance loss at each printed step (``moe_aux``, the
     ``Aux`` column), and under ``--sample`` the greedy tokens."""
-    args = build_parser().parse_args(
-        sys.argv[1:] if argv is None else list(argv))
     moe_kw = _check_moe(args)
     _reject_not_ported(args)
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
@@ -368,19 +425,43 @@ def main(argv: Optional[List[str]] = None) -> dict:
         """This rank's rows of a global batch, on the device."""
         return to_device(local_rows(batch, grid.data_index, dp), device)
 
+    ck = None
     resume_path = args.resume
-    if args.resume == 'auto':
+    if args.ckpt_backend == 'orbax':
+        from .train.orbax_ckpt import OrbaxCheckpointer
+
+        ck = OrbaxCheckpointer(args.save_path, async_=args.ckpt_async,
+                               keep=args.keep_checkpoints or None)
+        resume_path = ''
+        if args.resume == 'auto':
+            resume_epoch = ck.latest_epoch()
+            if resume_epoch is None and primary:
+                print(f"--resume auto: no orbax checkpoint under "
+                      f"{ck.directory}; starting fresh", flush=True)
+        else:
+            resume_epoch = int(args.resume) if args.resume else None
+    elif args.resume == 'auto':
         resume_path = resolve_auto_resume(args.save_path) or ''
         if not resume_path and primary:
             print(f"--resume auto: no checkpoint under "
                   f"{args.save_path}; starting fresh", flush=True)
+    resumed = False
 
     def maybe_resume(st):
         """The checkpoint into the freshly built state (the stacked tree
         for pp; before any placement or sharding), as JAX's
         ``maybe_resume``."""
+        nonlocal resumed
+        if ck is not None and resume_epoch is not None:
+            ck.restore(st, resume_epoch)
+            resumed = True
+            if primary:
+                print(f"Resumed from {ck.directory}/{resume_epoch} "
+                      f"(continuing at epoch {st.epoch + 1})", flush=True)
+            return st
         if not resume_path:
             return st
+        resumed = True
         if args.resume == 'auto':
             st, used = load_with_fallback(
                 args.save_path, st, anchor=checkpoint_epoch(resume_path))
@@ -429,7 +510,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     del params
     if val_loader is None:
         eval_step = None
-    start_epoch = state.epoch + 1 if resume_path else 1
+    start_epoch = state.epoch + 1 if resumed else 1
 
     os.makedirs(args.save_path, exist_ok=True)
     logger = Logger(os.path.join(args.save_path, 'train.log'))
@@ -455,7 +536,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
             state, metrics = step(state, rows(batch))
             summary["steps"] += 1
             if i % args.print_freq == 0 or i == len(loader) - 1:
-                # the print boundary is the loop's one host sync
+                # the liveness gate, before the print boundary's host
+                # sync (the loop's one) waits on the card
+                dist.gate_collectives(device)
                 skipped = int(metrics['skipped'])
                 loss = None if skipped else float(metrics['loss'])
                 now = time.time()
@@ -501,14 +584,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 test_logger.write([epoch, vloss, math.exp(min(vloss, 20.0))])
         if (args.save_every and epoch % args.save_every == 0
                 and epoch < args.epochs):
-            save_checkpoint(args.save_path, state, epoch)
-            if args.keep_checkpoints and primary:
-                prune_checkpoints(args.save_path, args.keep_checkpoints)
+            if ck is not None:
+                ck.save(state, epoch)  # retention inside
+            else:
+                save_checkpoint(args.save_path, state, epoch)
+                if args.keep_checkpoints and primary:
+                    prune_checkpoints(args.save_path, args.keep_checkpoints)
 
     if start_epoch <= args.epochs:
-        save_checkpoint(args.save_path, state, args.epochs)
-        if args.keep_checkpoints and primary:
-            prune_checkpoints(args.save_path, args.keep_checkpoints)
+        if ck is not None:
+            ck.save(state, args.epochs)
+            ck.wait()  # the final save durable before exit
+        else:
+            save_checkpoint(args.save_path, state, args.epochs)
+            if args.keep_checkpoints and primary:
+                prune_checkpoints(args.save_path, args.keep_checkpoints)
     elif primary:
         print(f"--resume: checkpoint already at epoch {start_epoch - 1} >= "
               f"--epochs {args.epochs}; nothing to train", flush=True)
@@ -554,6 +644,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if device.type == 'cuda':
         summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
             device)
+    if ck is not None:
+        ck.close()
     dist.destroy_process_group()
     return summary
 

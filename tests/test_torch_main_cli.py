@@ -134,22 +134,21 @@ def test_world2_spawns_gloo_ranks(tmp_path):
         assert (tmp_path / name).exists(), name
 
 
+# (case index, extra, flag): each case keeps the id it had while
+# --model_parallel, --zero1 and --fsdp (cases 0-2) and --ckpt_backend,
+# --ckpt_async, --profile and --max_restarts (cases 3-6; see
+# tests/test_torch_restart_cli.py, test_torch_preempt_cli.py and
+# test_torch_sharded_ckpt.py) led this list (they are ported now)
 _UNPORTED = [
-    (["--ckpt_backend", "orbax"], "--ckpt_backend"),
-    (["--ckpt_async"], "--ckpt_async"),
-    (["--profile", "prof"], "--profile"),
-    (["--max_restarts", "1"], "--max_restarts"),
-    (["--stats_port", "9137"], "--stats_port"),
-    (["--trace_out", "t.json"], "--trace_out"),
-    (["--events_out", "e.jsonl"], "--events_out"),
-    (["--flight_path", "f.jsonl"], "--flight_path"),
+    (7, ["--stats_port", "9137"], "--stats_port"),
+    (8, ["--trace_out", "t.json"], "--trace_out"),
+    (9, ["--events_out", "e.jsonl"], "--events_out"),
+    (10, ["--flight_path", "f.jsonl"], "--flight_path"),
 ]
 
 
-# each case keeps the id it had while --model_parallel, --zero1 and
-# --fsdp led this list (they are ported now)
-@pytest.mark.parametrize("extra,flag", _UNPORTED, ids=[
-    f"extra{i + 3}-{flag}" for i, (_, flag) in enumerate(_UNPORTED)])
+@pytest.mark.parametrize("extra,flag", [c[1:] for c in _UNPORTED], ids=[
+    f"extra{i}-{flag}" for i, _, flag in _UNPORTED])
 def test_unported_flags_are_rejected_by_name(tmp_path, extra, flag):
     with pytest.raises(SystemExit, match=(
             f"^{re.escape(flag)} is not ported.*ROADMAP.md §1 item 5")):

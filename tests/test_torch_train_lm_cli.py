@@ -118,14 +118,14 @@ def test_resume_auto_continues_at_epoch_3(tmp_path, capsys):
 # --parallel sp, --degree and --vocab_chunks were ported (cases 0, 3, 9)
 # and --parallel tp|pp, --zero, --zero1, --fsdp and --remat (cases 1, 2,
 # 6, 7, 8, 10; tests/test_torch_mp_cli.py runs them) and --n_experts and
-# --moe_top_k (cases 4, 5; tests/test_torch_moe_cli.py runs them)
+# --moe_top_k (cases 4, 5; tests/test_torch_moe_cli.py runs them) and
+# --ckpt_backend, --ckpt_async and --max_restarts (cases 11, 12, 16;
+# tests/test_torch_restart_cli.py and test_torch_sharded_ckpt.py run
+# them)
 _UNPORTED = [
-    (11, ["--ckpt_backend", "orbax"], "--ckpt_backend"),
-    (12, ["--ckpt_async"], "--ckpt_async"),
     (13, ["--hf_init", "x.pth"], "--hf_init"),
     (14, ["--hf_export"], "--hf_export"),
     (15, ["--sample_beams", "2"], "--sample_beams"),
-    (16, ["--max_restarts", "1"], "--max_restarts"),
     (17, ["--stats_port", "9137"], "--stats_port"),
     (18, ["--trace_out", "t.json"], "--trace_out"),
     (19, ["--events_out", "e.jsonl"], "--events_out"),
