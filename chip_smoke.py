@@ -16,6 +16,8 @@
     python3 chip_smoke.py --heal-only  # phases 1, 2 and 30 (restarts,
                                        # SIGTERM, sharded checkpoints,
                                        # peer loss, --profile) alone
+    python3 chip_smoke.py --tp-only  # phases 1 and 31 (serve_lm --tp
+                                     # across the visible cards) alone
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -376,6 +378,29 @@ nothing is caught):
    hard limit plus two polls and one window of the kill; (6) ``main
    --profile`` for one epoch: the trace file's size and row 8's CUDA
    kernels as the trace lists them.
+31. tp — tensor-parallel serving: (1) on one card, the TP code path at
+   M = 1 (a 1 x 1 grid, ``ServingEngine(mesh=...)``) on phase 4's
+   workload (gpt_small bf16, 8 slots, 16 prompts x 32 new tokens,
+   horizon 4), plain and ``--draft_k 4`` speculative in model dtype and
+   int8, dense and paged: transcripts bit-equal to the plain engine's,
+   rows 1-4 and their int8 twins launched 12 times a decode pass or
+   armed pass; (2) every one of those rows at a rank's shapes for M = 2
+   and 4 (``TP_HEADS``: 6 and 3 heads; windows ``TP_WINDOWS``, 64 and
+   1024) against its plain version in f32 and bf16, timed in bf16 with
+   its bound and SDPA's time (``[tp-kernel]`` lines); (3) with two or
+   more cards, ``serve_lm --tp M`` for each of ``TP_CONFIGS`` (gpt_small
+   at M = 2 and 4, gpt_medium at 4) on phase 4's workload, dense, paged
+   with the prefix cache, int8 and ``--draft_k 4``, in bf16 and f32 (TF32
+   off), beside the same run on one card: f32 transcripts token-exact,
+   bf16's identical streams counted (first differing positions named);
+   decode tokens/s, decode step, TTFT p50/p99, a rank's param bytes
+   (against ``TP_JAX_PARAM_BYTES``) and KV pool bytes (one card's / M),
+   rank 0's launches held to L a decode pass of the run's variant (L an
+   armed pass of its verify variant) and its all-gathers to 1 + 4L a
+   pass (``[tp-xcard]`` lines); and gpt_small bf16 dense decode passes
+   on one card and at each M, timed and traced by ``torch.profiler`` on
+   rank 0: the card's busy time, the NCCL kernels' time and count, a
+   cold and a warm serve (``[tp-profile]`` lines).
    Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
@@ -398,7 +423,10 @@ entries carry each phase 28 run's launches a step,
 ``moe_launches_per_step``, and phase 30's restarted LM run's,
 ``heal_restart_launches`` (the fused SGD entry its restarted image
 run's); the decode entry carries phase 29's ``--sample`` launches,
-``moe_sample_launches``);
+``moe_sample_launches``; rows 1-4 and their int8 twins carry phase 31's
+launches a pass on the M = 1 TP path, ``tp_launches_per_step``, and
+their checks and times at a rank's shapes, ``tp_shapes`` keyed
+``H{heads}_W{window}``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -424,6 +452,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 # peak HBM bytes/s by card name (NVIDIA data sheets, SXM parts unless
 # named); the roofline bound's denominator
@@ -791,6 +820,51 @@ if sys.argv[2] != "-":
         json.dump(summary, f)
 """
 
+# phase 31: tensor-parallel serving. A rank's heads at M = 2 and 4 of
+# gpt_small's 12, the windows its kernel rows are held and timed at, the
+# (model, M) runs across cards and their serve_lm variants
+TP_HEADS = (6, 3)
+TP_WINDOWS = (64, 1024)
+TP_CONFIGS = (("gpt_small", 2), ("gpt_small", 4), ("gpt_medium", 4))
+TP_RUNS = (("dense", []), ("paged", SERVE_PAGED),
+           ("int8", ["--kv_dtype", "int8"]),
+           ("spec", ["--draft_k", str(DRAFT_K)]))
+# each TP_RUNS run's decode variant and verify variant (None: unarmed)
+TP_RUN_VARIANTS = {"dense": ("decode_attention", None),
+                   "paged": ("paged_decode_attention", None),
+                   "int8": ("decode_attention_int8", None),
+                   "spec": ("decode_attention", "verify_decode_attention")}
+# the M = 1 runs on one card, TP path beside the plain engine: the
+# speculative runs launch every decode row on their k = 0 passes and
+# every verify row on their armed ones; (label, decode variant, verify
+# variant, engine options)
+TP_ONE_CARD = (
+    ("dense", "decode_attention", None, {}),
+    ("spec", "decode_attention", "verify_decode_attention",
+     dict(draft_k=DRAFT_K)),
+    ("spec-int8", "decode_attention_int8", "verify_decode_attention_int8",
+     dict(draft_k=DRAFT_K, kv_dtype="int8")),
+    ("spec-paged", "paged_decode_attention", "paged_verify_decode_attention",
+     dict(draft_k=DRAFT_K, kv_layout="paged", page_size=PAGE_SIZE,
+          prefix_cache=8, num_pages=64)),
+    ("spec-paged-int8", "paged_decode_attention_int8",
+     "paged_verify_decode_attention_int8",
+     dict(draft_k=DRAFT_K, kv_layout="paged", page_size=PAGE_SIZE,
+          prefix_cache=8, num_pages=64, kv_dtype="int8")),
+)
+# JAX's per-device param bytes (f32) of shard_params_for_tp_decode's
+# tree, and of its LayerNorm leaves, keyed by (model, M)
+TP_JAX_PARAM_BYTES = {
+    ("gpt_small", 2): (403470148, 76800),
+    ("gpt_small", 4): (279030340, 38400),
+    ("gpt_medium", 4): (560876868, 100352),
+}
+TP_RANKS_TIMEOUT = 900
+TP_PROFILE_STEPS = 4  # engine steps timed, then traced, by _tp_profile
+# the CUDA runtime calls in which the host waits for the card
+TP_HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                 "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
+
 
 def _print(*parts):
     print(*parts, flush=True)
@@ -968,13 +1042,13 @@ def _flash_builds(entries):
     return found
 
 
-def _decode_inputs(torch, window, dtype, seed, head_dim=None):
-    """q/k/v/positions at gpt_small decode shapes (another ``head_dim``
-    where given); positions hold 0, W-1, one beyond the window and
-    random columns."""
+def _decode_inputs(torch, window, dtype, seed, head_dim=None, heads=None):
+    """q/k/v/positions at gpt_small decode shapes (another ``head_dim``,
+    or a tensor-parallel rank's ``heads``, where given); positions hold
+    0, W-1, one beyond the window and random columns."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
-    d = head_dim or d
+    d, h = head_dim or d, heads or h
     q = torch.randn(n, 1, h, d, generator=gen, device="cuda").to(dtype)
     # k/v as the engine passes them: a window view of an s_max cache
     s_max = max(WINDOWS)
@@ -1295,16 +1369,16 @@ def _time_sgd(torch, fused_sgd_, torch_fused_sgd_, n, rate):
 
 
 def _variant_case(torch, quantize_kv, variant, window, dtype, seed,
-                  head_dim=None):
+                  head_dim=None, heads=None):
     """Inputs of one decode variant at gpt_small decode shapes (another
-    ``head_dim`` where given): q, K/V
+    ``head_dim``, or a rank's ``heads``, where given): q, K/V
     (an int8 dense window view of an s_max cache, or page storage with a
     scratch page 0 of NaN and 1e30), the shuffled table (paged) and
     positions 0, W-1, one beyond the window and random columns."""
     _, paged, quant = VARIANTS[variant][1:]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
-    d = head_dim or d
+    d, h = head_dim or d, heads or h
     q = torch.randn(n, 1, h, d, generator=gen, device="cuda").to(dtype)
     pos = torch.randint(0, window, (n,), generator=gen, device="cuda")
     pos[0], pos[1], pos[2] = 0, window - 1, window + 5
@@ -1454,10 +1528,10 @@ def _decode_counts(da):
 
 
 def _verify_case(torch, quantize_kv, variant, window, dtype, seed,
-                 rows=VERIFY_ROWS, head_dim=None):
+                 rows=VERIFY_ROWS, head_dim=None, heads=None):
     """Inputs of one verify variant at gpt_small decode shapes: q ``[8,
     rows, 12, 64]`` (K1 = ``rows``; another Dh than 64 where
-    ``head_dim`` is given), K/V (a dense window view of an s_max
+    ``head_dim`` is given, a rank's ``heads`` than 12), K/V (a dense window view of an s_max
     cache, or page storage with a scratch page 0 of NaN and 1e30 that no
     entry up to a slot's last reachable column points at), the shuffled
     table (paged) and positions 0, W-K1 (the last row lands on column
@@ -1465,7 +1539,7 @@ def _verify_case(torch, quantize_kv, variant, window, dtype, seed,
     _, _, paged, quant = VERIFY_VARIANTS[variant]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n, h, d = (DECODE_SHAPE[k] for k in ("slots", "heads", "head_dim"))
-    d = head_dim or d
+    d, h = head_dim or d, heads or h
     q = torch.randn(n, rows, h, d, generator=gen, device="cuda").to(dtype)
     pos = torch.randint(0, window - rows, (n,), generator=gen, device="cuda")
     pos[0], pos[1], pos[2] = 0, window - rows, window - 2
@@ -1813,6 +1887,28 @@ def _store_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
+
+
+def _store_ports(n: int) -> list:
+    """``n`` distinct free ports for the rendezvous stores of
+    consecutive groups: a rank that leaves one group early must not find
+    the store of the group it just left on the next group's port."""
+    ports, held = [], []
+    try:
+        while len(ports) < n:
+            port = _store_port()
+            sock = socket.socket()
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                sock.close()
+                continue
+            held.append(sock)
+            ports.append(port)
+    finally:
+        for sock in held:
+            sock.close()
+    return ports
 
 
 def _run_ranks(target, world, args, timeout_s=600, per_rank=False):
@@ -3946,6 +4042,445 @@ def _heal_phase(torch, image_main, train_lm, fa, fused_sgd_, smi):
     _print(f"[heal] phase 30 wall {time.perf_counter() - t0:.1f} s [{smi}]")
     return dict(image=image, lm=lm, shards=shards, peer_s=peer)
 
+
+# ------------------------------------------------------------- phase 31
+
+
+def _tp_engine_runs(torch, serve_lm, da, smi):
+    """The M = 1 tensor-parallel path (a 1 x 1 grid) on phase 4's
+    workload beside the plain engine, one TP_ONE_CARD run at a time:
+    transcripts bit-equal, the TP run's launches 12 a decode pass of its
+    decode variant and 12 an armed pass of its verify variant (none of
+    any other). Returns ``{variant: launches a pass}``."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid, reset_grid)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        ServingEngine, init_params)
+
+    model = get_model("gpt_small", dtype=torch.bfloat16)
+    model.load_state_dict(init_params(model, 0, "cuda"), assign=True)
+    args = serve_lm.build_parser().parse_args(SERVE_BASE)
+    requests = list(serve_lm._load_requests(args, model.vocab_size, []))
+    per_pass = {}
+    grid = make_grid(1, 1)
+    try:
+        for label, decode_v, verify_v, kw in TP_ONE_CARD:
+            common = dict(max_slots=8, decode_horizon=4, **kw)
+            plain = [r.tokens for r in ServingEngine(
+                model, **common).serve(requests)]
+            _zero_decode_counts(da)
+            t0 = time.perf_counter()
+            engine = ServingEngine(model, mesh=grid, **common)
+            got = [r.tokens for r in engine.serve(requests)]
+            wall = time.perf_counter() - t0
+            counts = _decode_counts(da)
+            passes = engine.passes_by_k
+            plain_passes = passes.get(0, 0)
+            armed = sum(n for k, n in passes.items() if k)
+            want = {name: 0 for name in counts}
+            want[decode_v] = 12 * plain_passes
+            if verify_v is not None:
+                want[verify_v] = 12 * armed
+            if got != plain:
+                raise AssertionError(
+                    f"tp M=1 {label}: transcripts differ from the plain "
+                    "engine's")
+            if (plain_passes < 1 or (verify_v is not None and armed < 1)
+                    or counts != want):
+                raise AssertionError(
+                    f"tp M=1 {label}: launches {counts} over passes "
+                    f"{passes}; expected {want}")
+            per_pass[decode_v] = counts[decode_v] / plain_passes
+            if verify_v is not None:
+                per_pass[verify_v] = counts[verify_v] / armed
+            _print(f"[tp] M=1 {label}: gpt_small bf16 16 requests x 32 "
+                   f"tokens, 8 slots, horizon 4 {kw}: transcripts "
+                   f"bit-equal to the plain engine, passes by k {passes}, "
+                   f"launches { {n: c for n, c in counts.items() if c} } "
+                   f"(12 a pass), all-gathers {engine.decode_gathers}, "
+                   f"wall {wall:.2f} s [{smi}]")
+            del engine
+    finally:
+        reset_grid()
+    return per_pass
+
+
+def _tp_kernel_rows(torch, F, da, quantize_kv, rate, smi):
+    """Rows 1-4 (and their int8 twins) at a tensor-parallel rank's
+    shapes: TP_HEADS heads of gpt_small's decode (8 slots, Dh 64;
+    verify K1 = VERIFY_ROWS), windows TP_WINDOWS, against their plain
+    versions in f32 and bf16, and timed in bf16 with their bound and
+    SDPA's time at that shape. Returns ``{name: {"H6_W64": times and
+    error, ...}}``."""
+    rows = {}
+    for heads in TP_HEADS:
+        for w in TP_WINDOWS:
+            for name in ("decode_attention",) + tuple(VARIANTS) + tuple(
+                    VERIFY_VARIANTS):
+                verify = name in VERIFY_VARIANTS
+                errs = []
+                for dtype in (torch.float32, torch.bfloat16):
+                    seed = 31 + heads + w
+                    if name == "decode_attention":
+                        q, k, v, pos = _decode_inputs(torch, w, dtype, seed,
+                                                      heads=heads)
+                        table = None
+                        kernel, plain = _variant_calls(da, name, q, k, v,
+                                                       None, pos, w)
+                    elif verify:
+                        q, k, v, table, pos = _verify_case(
+                            torch, quantize_kv, name, w, dtype, seed,
+                            heads=heads)
+                        kernel, plain = _verify_calls(da, q, k, v, table,
+                                                      pos, w)
+                    else:
+                        q, k, v, table, pos = _variant_case(
+                            torch, quantize_kv, name, w, dtype, seed,
+                            heads=heads)
+                        kernel, plain = _variant_calls(da, name, q, k, v,
+                                                       table, pos, w)
+                    counts = _decode_counts(da)
+                    got = kernel()
+                    torch.cuda.synchronize()
+                    _set_decode_counts(da, counts)
+                    err = float((got - plain()).abs().max())
+                    tol = VERIFY_TOL if verify else PAGED_TOL
+                    if not (bool(torch.isfinite(got).all()) and err <= tol):
+                        raise AssertionError(
+                            f"{name} H={heads} W={w} {dtype}: max|err| "
+                            f"{err} > {tol} (or not finite)")
+                    errs.append(err)
+                if name == "decode_attention":
+                    t = _time_decode(torch, F, da.decode_attention,
+                                     da.torch_decode_attention, q, k, v,
+                                     pos, rate)
+                elif verify:
+                    t = _time_verify(torch, F, da, q, k, v, table, pos, w,
+                                     rate)
+                else:
+                    t = _time_variant(torch, F, da, name, q, k, v, table,
+                                      pos, w, rate)
+                t = dict(t, max_abs_err=max(errs))
+                rows.setdefault(name, {})[f"H{heads}_W{w}"] = t
+                _print(f"[tp-kernel] {name} bf16 N=8"
+                       + (f" K1={VERIFY_ROWS}" if verify else "")
+                       + f" H={heads} Dh=64 W={w}: max_abs_err "
+                       f"{max(errs):.3e} (f32 and bf16 against the plain "
+                       f"version) ms={t['ms']:.5f} "
+                       f"eager_ms={t['eager_ms']:.5f} "
+                       f"plain_ms={t['plain_ms']:.5f} "
+                       f"library_ms={t['library_ms']:.5f} "
+                       f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) "
+                       f"[{smi}]")
+                del q, k, v, table, pos
+    return rows
+
+
+def _tp_profile(torch, serve_lm, grid, traced):
+    """Decode passes of gpt_small bf16 dense (8 slots, horizon 4, phase
+    4's first 8 prompts) on ``grid`` (None: the plain engine on one
+    card). The 8 prompts x 8 tokens are served twice (the first on a
+    fresh engine and group), then with 64 new tokens each
+    TP_PROFILE_STEPS steady engine steps are timed on the host clock and
+    as many more traced by ``torch.profiler`` when ``traced`` (rank 0;
+    the other ranks step alike, untraced). Returns both serves' walls
+    and, a decode pass: the host wall, and from the trace the wall, the
+    card's busy time (the union of its kernels' intervals), the NCCL
+    kernels' time and count, the other kernels' time, the host's time
+    inside the all-gather calls and its time blocked on the card
+    (TP_HOST_WAITS)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        ServingEngine, init_params)
+
+    model = get_model("gpt_small", dtype=torch.bfloat16)
+    model.load_state_dict(init_params(model, 0, "cuda"), assign=True)
+    args = serve_lm.build_parser().parse_args(SERVE_BASE)
+    prompts = [p for p, _ in serve_lm._load_requests(
+        args, model.vocab_size, [])][:8]
+    engine = ServingEngine(model, mesh=grid, max_slots=8, decode_horizon=4)
+    walls = []
+    for _ in range(2):  # the first: NCCL's communicators, cuBLAS, caches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.serve([(p, 8) for p in prompts])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    for p in prompts:
+        engine.submit(p, 64)
+    while engine.scheduler.queue_depth or engine._pending is not None:
+        engine.step()
+
+    def steps():
+        torch.cuda.synchronize()
+        before = sum(engine.passes_by_k.values())
+        t0 = time.perf_counter()
+        for _ in range(TP_PROFILE_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+        passes = sum(engine.passes_by_k.values()) - before
+        return (time.perf_counter() - t0) * 1e3 / passes, passes
+
+    wall_ms, passes = steps()
+    out = dict(passes=passes, wall_ms=wall_ms, cold_serve_ms=walls[0],
+               warm_serve_ms=walls[1])
+    if not traced:
+        steps()
+        return out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_ms, passes = steps()
+    kernels, nccl, gather_calls, waits = [], [], [], []
+    for e in prof.events():
+        span = (e.time_range.start, e.time_range.end)
+        name = e.name.lower()
+        if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False):
+                continue  # a record_function's span on the card's line
+            kernels.append(span)
+            if "nccl" in name:
+                nccl.append(span)
+        elif "all_gather" in name or "allgather" in name:
+            gather_calls.append(span)
+        elif e.name in TP_HOST_WAITS:
+            waits.append(span)
+
+    def per_pass(spans):  # ms a pass covered by the union of the spans
+        total, reach = 0.0, float("-inf")
+        for start, end in sorted(spans):
+            if end > reach:
+                total += end - max(start, reach)
+                reach = end
+        return total / 1e3 / passes
+
+    busy = per_pass(kernels)
+    return dict(out, traced_passes=passes, traced_wall_ms=traced_ms,
+                busy_ms=busy, idle=1 - busy / traced_ms,
+                nccl_ms=per_pass(nccl), nccl_kernels=len(nccl) / passes,
+                other_ms=per_pass(set(kernels) - set(nccl)),
+                gather_host_ms=per_pass(gather_calls),
+                wait_host_ms=per_pass(waits))
+
+
+def _tp_rank(rank, world, port, runs, ports, out_path):
+    """One NCCL rank of phase 31's runs across cards: ``serve_lm.main(
+    argv + ["--tp", world])`` for each run, a fresh rendezvous port
+    each, then :func:`_tp_profile` on the ``(1, world)`` grid on the
+    last port; rank 0 writes ``{name: (snapshot, {uid: tokens})}`` and
+    ``"profile"``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from pytorch_multiprocessing_distributed_tpu_torch import serve_lm
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import dist
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for (name, argv), run_port in zip(runs, ports):
+        os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{run_port}",
+                          PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+        try:
+            out[name] = _serve_transcripts(serve_lm,
+                                           argv + ["--tp", str(world)])
+        except BaseException:
+            # every rank's own traceback (the spawn reports one rank's)
+            print(f"[tp-xcard] rank {rank} failed in {name}:",
+                  file=sys.stderr, flush=True)
+            traceback.print_exc()
+            raise
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{ports[-1]}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    dist.init_process("cuda")
+    out["profile"] = _tp_profile(torch, serve_lm, make_grid(1, world),
+                                 traced=rank == 0)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _tp_cross_card(torch, serve_lm, smi):
+    """TP_CONFIGS through ``serve_lm --tp M`` on M cards, each TP_RUNS
+    variant in bf16 and f32 (TF32 off) on phase 4's workload, beside the
+    same run on one card: f32 transcripts token-exact, bf16 agreement
+    printed; tokens/s, TTFT and a rank's bytes; rank 0's launches held
+    to L a decode pass of the run's decode variant (and L an armed pass
+    of its verify variant, none of any other) and its all-gathers to
+    1 + 4L a pass."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+
+    cards = torch.cuda.device_count()
+    configs = [(m, tp) for m, tp in TP_CONFIGS if tp <= cards]
+    if not configs:
+        _print(f"[tp-xcard] skipped: {cards} card(s) visible; tensor-"
+               "parallel serving needs two or more (python3 chip_smoke.py "
+               f"--tp-only where four are visible) [{smi}]")
+        return {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = [a for a in SERVE_BASE if a != "--quiet"]
+    results = {}
+    profiles = {1: _tp_profile(torch, serve_lm, None, traced=True)}
+    for model in sorted({m for m, _ in configs}):
+        for dtype in ("bfloat16", "float32"):
+            for label, extra in TP_RUNS:
+                argv = [a if a != "gpt_small" else model for a in base]
+                argv = [a if a != "bfloat16" else dtype for a in argv]
+                one = _serve_transcripts(serve_lm, argv + extra)
+                results[(model, dtype, label, 1)] = one
+    for tp in sorted({tp for _, tp in configs}):
+        runs = []
+        for model, m in configs:
+            if m != tp:
+                continue
+            for dtype in ("bfloat16", "float32"):
+                for label, extra in TP_RUNS:
+                    argv = [a if a != "gpt_small" else model for a in base]
+                    argv = [a if a != "bfloat16" else dtype for a in argv]
+                    runs.append((f"{model}|{dtype}|{label}", argv + extra))
+        t0 = time.perf_counter()
+        got = _run_ranks(_tp_rank, tp,
+                         (runs, _store_ports(len(runs) + 1)),
+                         TP_RANKS_TIMEOUT)
+        _print(f"[tp-xcard] M={tp}: {len(runs)} serve_lm --tp {tp} runs in "
+               f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        profiles[tp] = got.pop("profile")
+        for key, value in got.items():
+            model, dtype, label = key.split("|")
+            results[(model, dtype, label, tp)] = value
+    summary = {}
+    for model, tp in configs:
+        jax_bytes, jax_small = TP_JAX_PARAM_BYTES[(model, tp)]
+        for dtype in ("bfloat16", "float32"):
+            for label, extra in TP_RUNS:
+                snap, toks = results[(model, dtype, label, tp)]
+                one_snap, one = results[(model, dtype, label, 1)]
+                if snap["requests_completed"] != 16 or len(toks) != 16:
+                    raise AssertionError(
+                        f"tp {model} M={tp} {dtype} {label}: "
+                        f"{snap['requests_completed']}/16 requests")
+                same = sum(toks[u] == one.get(u) for u in toks)
+                diffs = {u: _first_diff(toks[u], one[u]) for u in toks
+                         if toks[u] != one.get(u)}
+                if dtype == "float32" and same != 16:
+                    raise AssertionError(
+                        f"tp {model} M={tp} f32 {label}: {same}/16 streams "
+                        f"equal to one card's; first differences {diffs}")
+                small = snap["small_leaf_bytes"]
+                if (snap["jax_param_bytes"] != jax_bytes
+                        or snap["param_bytes"] - small
+                        != jax_bytes - jax_small
+                        or snap["kv_pool_bytes"] * tp
+                        != one_snap["kv_pool_bytes"]):
+                    raise AssertionError(
+                        f"tp {model} M={tp} {label}: param bytes "
+                        f"{snap['param_bytes']} (JAX {jax_bytes}, small "
+                        f"leaves {small} / {jax_small}), KV bytes "
+                        f"{snap['kv_pool_bytes']} x {tp} against one card's "
+                        f"{one_snap['kv_pool_bytes']}")
+                by_k = {int(k): n
+                        for k, n in snap["decode_passes_by_k"].items()}
+                passes = sum(by_k.values())
+                armed = passes - by_k.get(0, 0)
+                layers = get_model(model).num_layers
+                decode_v, verify_v = TP_RUN_VARIANTS[label]
+                want = {n: 0 for n in snap["decode_launches"]}
+                want[decode_v] = layers * by_k.get(0, 0)
+                if verify_v is not None:
+                    want[verify_v] = layers * armed
+                if (by_k.get(0, 0) < 1 or (verify_v is not None
+                                           and armed < 1)
+                        or snap["decode_launches"] != want
+                        or snap["tp_decode_gathers"]
+                        != passes * (1 + 4 * layers)):
+                    raise AssertionError(
+                        f"tp {model} M={tp} {dtype} {label}: rank 0 "
+                        f"launches {snap['decode_launches']} and "
+                        f"{snap['tp_decode_gathers']} all-gathers over "
+                        f"passes {by_k}; expected {want} and "
+                        f"{passes * (1 + 4 * layers)}")
+                gathers = snap["tp_decode_gathers"] / passes
+                launches = {n: c for n, c in snap["decode_launches"].items()
+                            if c}
+                summary[(model, tp, dtype, label)] = dict(
+                    tokens_per_s=snap["decode_tokens_per_sec"],
+                    one_tokens_per_s=one_snap["decode_tokens_per_sec"],
+                    step_ms=snap["decode_step_p50_s"] * 1e3,
+                    one_step_ms=one_snap["decode_step_p50_s"] * 1e3,
+                    same=same, gathers=gathers, launches=launches)
+                _print(f"[tp-xcard] {model} {dtype} M={tp} {label} "
+                       f"({' '.join(extra) or 'dense'}): streams equal to one "
+                       f"card's {same}/16"
+                       + (f" (first differences {diffs})" if diffs else "")
+                       + f", decode tokens/s "
+                       f"{snap['decode_tokens_per_sec']:.1f} (one card "
+                       f"{one_snap['decode_tokens_per_sec']:.1f}), decode "
+                       f"step p50 {snap['decode_step_p50_s'] * 1e3:.2f} ms "
+                       f"(one card {one_snap['decode_step_p50_s'] * 1e3:.2f}"
+                       f"), TTFT p50 {snap['ttft_p50_s'] * 1e3:.1f} ms p99 "
+                       f"{snap['ttft_p99_s'] * 1e3:.1f} ms (one card "
+                       f"{one_snap['ttft_p50_s'] * 1e3:.1f} / "
+                       f"{one_snap['ttft_p99_s'] * 1e3:.1f}), param bytes a "
+                       f"rank {snap['param_bytes']} (JAX {jax_bytes}; "
+                       f"LayerNorm leaves whole {small}; one card "
+                       f"{one_snap.get('param_bytes', 'whole')}), KV pool "
+                       f"bytes a rank {snap['kv_pool_bytes']} (one card "
+                       f"{one_snap['kv_pool_bytes']}), all-gathers a decode "
+                       f"pass {gathers:.1f}, rank 0 launches {launches} "
+                       f"[{smi}]")
+    for m, prof in sorted(profiles.items()):
+        summary[("profile", m)] = prof
+        _print(f"[tp-profile] gpt_small bf16 dense M={m} (8 slots, horizon "
+               f"4, {TP_PROFILE_STEPS} steady engine steps, "
+               f"{prof['passes']} decode passes; the trace on rank 0 over "
+               f"{TP_PROFILE_STEPS} more, {prof['traced_passes']} passes): "
+               f"a decode pass {prof['wall_ms']:.3f} ms on the host clock "
+               f"untraced, {prof['traced_wall_ms']:.3f} traced; card busy "
+               f"{prof['busy_ms']:.3f} ms (idle {prof['idle']:.3f}); NCCL "
+               f"kernels {prof['nccl_kernels']:.1f} a pass, "
+               f"{prof['nccl_ms']:.3f} ms; other kernels "
+               f"{prof['other_ms']:.3f} ms; host in the all-gather calls "
+               f"{prof['gather_host_ms']:.3f} ms, blocked on the card "
+               f"{prof['wait_host_ms']:.3f} ms; 8 prompts x 8 tokens served "
+               f"cold {prof['cold_serve_ms']:.1f} ms, warm "
+               f"{prof['warm_serve_ms']:.1f} ms [{smi}]")
+    return summary
+
+
+def _tp_phase(torch, serve_lm, F, da, quantize_kv, rate, smi):
+    """Phase 31 (see the module docstring). Returns the kernels line's
+    additions: ``per_pass`` (launches a pass on the M = 1 path) and
+    ``rows`` (the per-rank-shape checks and times)."""
+    t0 = time.perf_counter()
+    per_pass = _tp_engine_runs(torch, serve_lm, da, smi)
+    rows = _tp_kernel_rows(torch, F, da, quantize_kv, rate, smi)
+    cross = _tp_cross_card(torch, serve_lm, smi)
+    _print(f"[tp] phase 31 wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    return dict(per_pass=per_pass, rows=rows, cross=cross)
+
+
+def _tp_fields(tp, name):
+    """A decode or verify row's phase 31 keys in the kernels line."""
+    return {"tp_launches_per_step": tp["per_pass"].get(name),
+            "tp_shapes": tp["rows"][name]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4019,6 +4554,14 @@ def main() -> int:
     if "--moe-only" in sys.argv[1:]:
         _moe_phase(torch, fa, train_lm, smi, da)
         _print(f"[total] chip_smoke --moe-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--tp-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        _build.build_all()  # the spawned ranks find the kernels built
+        _print(f"[build] {time.perf_counter() - t0:.2f} s")
+        _tp_phase(torch, serve_lm, F, da, quantize_kv, rate, smi)
+        _print(f"[total] chip_smoke --tp-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--heal-only" in sys.argv[1:]:
@@ -5239,6 +5782,9 @@ def main() -> int:
     # -- phase 30: supervised restart, SIGTERM, sharded checkpoints,
     # peer loss, --profile
     heal = _heal_phase(torch, image_main, train_lm, fa, fused_sgd_, smi)
+
+    # -- phase 31: tensor-parallel serving, one card and across the cards
+    tp = _tp_phase(torch, serve_lm, F, da, quantize_kv, rate, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -5309,6 +5855,7 @@ def main() -> int:
         "head_dim_ms": _by_head_dim(hd_times, "1"),
         "moe_sample_launches": {f"top{k}": moe["cli"][f"top{k}"][
             "decode_launches"] for k in (1, 2)},
+        **_tp_fields(tp, "decode_attention"),
         **{f"w{max(WINDOWS)}_{key}": row1_long[key]
            for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")}}]
@@ -5350,7 +5897,8 @@ def main() -> int:
         "library": "F.scaled_dot_product_attention on the gathered, "
                    "dequantized dense window",
         "shape": variant_main[variant]["shape"],
-        "head_dim_ms": _by_head_dim(hd_times, VARIANTS[variant][0])}
+        "head_dim_ms": _by_head_dim(hd_times, VARIANTS[variant][0]),
+        **_tp_fields(tp, variant)}
         for variant in VARIANTS] + [{
         "name": variant, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
@@ -5368,7 +5916,8 @@ def main() -> int:
         "library": "F.scaled_dot_product_attention with the row-staggered "
                    "mask on the gathered, dequantized dense window",
         "shape": verify_main[variant]["shape"],
-        "head_dim_ms": _by_head_dim(hd_times, VERIFY_VARIANTS[variant][0])}
+        "head_dim_ms": _by_head_dim(hd_times, VERIFY_VARIANTS[variant][0]),
+        **_tp_fields(tp, variant)}
         for variant in VERIFY_VARIANTS] + [{
         "name": "ring_all_reduce", "kernel": RING_KERNEL, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"

@@ -31,8 +31,14 @@ feed-forward, :func:`..models.gpt._ffn`, runs every expert on every
 token and keeps each token's top-k, in the prefill, the decode steps,
 the verify passes and the chunked prefill alike.
 
+Tensor-parallel decode (``generate(..., mesh=grid)``, the engine's
+``mesh``): each rank of a ``(1, M)`` grid runs these same helpers on its
+shard (:mod:`.tp`, ``model.tp``): its ``H / M`` heads against its head
+shard of the caches, its columns of every Dense output gathered where
+the next op needs every channel (:func:`..models.gpt._cols`).
+
 Not in this slice: ragged left-padded batches (``prompt_lengths``),
-tensor parallelism (``mesh``), beam search (ROADMAP.md).
+beam search (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -41,13 +47,14 @@ from typing import Optional
 
 import torch
 
-from ..models.gpt import (_block_prefill, _dense, _embed, _ffn, _ln,
-                          _logits, _split_heads)
+from ..models.gpt import (_block_prefill, _cols, _dense, _embed, _ffn,
+                          _ln, _logits, _split_heads)
 from ..ops.decode_attention import (decode_attention,
                                     paged_decode_attention,
                                     paged_verify_decode_attention,
                                     verify_decode_attention)
 from ..ops.kv_quant import QuantizedKV, kv_slice_in_dim, quantize_kv
+from .tp import check_mesh, local_heads, shard_params_for_tp_decode
 
 __all__ = ["generate", "teacher_forced_logits", "draft_bucket",
            "DRAFT_HASH_PRIME"]
@@ -71,7 +78,7 @@ def _write_kv(cache, index, new):
 
 def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
                         eps, window=None, attn_impl="auto",
-                        page_table=None, page_size=None):
+                        page_table=None, page_size=None, tp=None):
     """One cached step for every slot: ``x_t`` ``[N, 1, D]``; caches
     ``[N, S, H, Dh]`` (one layer). Row ``j`` writes its K/V at its own
     column ``positions[j]`` of the FULL cache (in place; a frozen row's
@@ -86,8 +93,11 @@ def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
     is all scratch page 0, so its frozen re-write lands there), and the
     attention reads the first ``ceil(window / ps)`` table entries
     through :func:`..ops.decode_attention.paged_decode_attention`.
-    Either cache may be a :class:`...ops.kv_quant.QuantizedKV`."""
-    n = x_t.shape[0]
+    Either cache may be a :class:`...ops.kv_quant.QuantizedKV`.
+
+    ``tp``: a rank's shard (:mod:`.tp`): ``h`` and the caches hold its
+    heads, and attention's and ``wo``'s outputs are gathered."""
+    n, _, d = x_t.shape
     hn = _ln(x_t, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
     q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
@@ -113,9 +123,9 @@ def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
         else:
             k_win, v_win = k_cache, v_cache
         att = decode_attention(q, k_win, v_win, positions, impl=attn_impl)
-    att = att.reshape(n, 1, -1).to(dtype)
-    x_t = x_t + _dense(att, p.attn.wo, dtype)
-    return x_t + _ffn(p, x_t, dtype, eps)
+    att = _cols(att.reshape(n, 1, -1).to(dtype), d, tp)
+    x_t = x_t + _cols(_dense(att, p.attn.wo, dtype), d, tp)
+    return x_t + _ffn(p, x_t, dtype, eps, tp)
 
 
 def draft_bucket(tokens: torch.Tensor, n_buckets: int) -> torch.Tensor:
@@ -129,7 +139,7 @@ def draft_bucket(tokens: torch.Tensor, n_buckets: int) -> torch.Tensor:
 
 def _block_verify_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
                         eps, window=None, attn_impl="auto",
-                        page_table=None, page_size=None):
+                        page_table=None, page_size=None, tp=None):
     """k-query verify variant of :func:`_block_decode_slots`: ``x_t`` is
     ``[N, K1, D]``, each row's pending token plus its ``K1 - 1`` drafts.
     Row ``i``'s K/V is written at column ``positions + i`` (all K1
@@ -145,8 +155,9 @@ def _block_verify_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
     writes land and are never read (the JAX package drops them); a
     paged write whose block lies past the table goes to the scratch page
     0, as in the JAX package, so a draft never touches another tenant's
-    page or a shared prefix page."""
-    n, k1, _ = x_t.shape
+    page or a shared prefix page. ``tp``: as in
+    :func:`_block_decode_slots`."""
+    n, k1, d = x_t.shape
     hn = _ln(x_t, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
     q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
@@ -177,9 +188,9 @@ def _block_verify_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
             k_win, v_win = k_cache, v_cache
         att = verify_decode_attention(q, k_win, v_win, positions,
                                       impl=attn_impl)
-    att = att.reshape(n, k1, -1).to(dtype)
-    x_t = x_t + _dense(att, p.attn.wo, dtype)
-    return x_t + _ffn(p, x_t, dtype, eps)
+    att = _cols(att.reshape(n, k1, -1).to(dtype), d, tp)
+    x_t = x_t + _cols(_dense(att, p.attn.wo, dtype), d, tp)
+    return x_t + _ffn(p, x_t, dtype, eps, tp)
 
 
 def _filter_logits(logits, temperature: float, top_k: int,
@@ -234,7 +245,8 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
     emitted from then on, no budget consumed).
 
     Args:
-      model: the bound ``GPT``.
+      model: the bound ``GPT``, or a rank's tensor-parallel shard
+        (``model.tp``; its caches hold its ``H / M`` heads).
       k_caches, v_caches: ``[L, N, S, H, Dh]`` caches, written in place.
       positions: ``[N]`` int32 next write column per row.
       last_tokens: ``[N]`` int32 pending tokens.
@@ -284,16 +296,18 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
             page_size=page_size, draft_k=int(draft_k),
             draft_table=draft_table, draft_model=draft_model,
             draft_k_caches=draft_k_caches, draft_v_caches=draft_v_caches)
-    dtype, eps, h = model.dtype, model.ln_eps, model.num_heads
+    dtype, eps, h, tp = model.dtype, model.ln_eps, local_heads(model), \
+        model.tp
     emitted_steps = []
     for _ in range(horizon):
-        x_t = (model.embed[last_tokens][:, None, :].to(dtype)
-               + model.pos_embed[positions][:, None, :].to(dtype))
+        x_t = _cols(model.embed[last_tokens][:, None, :].to(dtype)
+                    + model.pos_embed[positions][:, None, :].to(dtype),
+                    model.hidden_size, tp)
         for i in range(model.num_layers):
             x_t = _block_decode_slots(
                 model.block(i), x_t, k_caches[i], v_caches[i], positions,
                 h, dtype, eps, window=window, attn_impl=attn_impl,
-                page_table=page_table, page_size=page_size)
+                page_table=page_table, page_size=page_size, tp=tp)
         logits = _logits(model, x_t, eps)[:, 0]
         nxt = _sample(logits, temperature, top_k, top_p,
                       generator).to(torch.int32)
@@ -353,7 +367,8 @@ def _decode_horizon_spec(model, k_caches, v_caches, positions,
     gates. The acceptance is tensor ops on the device (cumprod of the
     matches, a cumsum for the stop token, a gather): no host read, no
     shape that depends on it."""
-    dtype, eps, h = model.dtype, model.ln_eps, model.num_heads
+    dtype, eps, h, tp = model.dtype, model.ln_eps, local_heads(model), \
+        model.tp
     kk, vocab, n = draft_k, model.vocab_size, positions.shape[0]
     dev = positions.device
     steps = torch.arange(kk + 1, device=dev)
@@ -377,12 +392,13 @@ def _decode_horizon_spec(model, k_caches, v_caches, positions,
         qtok = torch.cat([last_tokens[:, None], drafts], dim=1)
         cols = positions.long()[:, None] + steps[None, :]
         ids = cols.clamp(0, pe.shape[0] - 1)
-        x_t = model.embed[qtok].to(dtype) + pe[ids].to(dtype)
+        x_t = _cols(model.embed[qtok].to(dtype) + pe[ids].to(dtype),
+                    model.hidden_size, tp)
         for i in range(model.num_layers):
             x_t = _block_verify_slots(
                 model.block(i), x_t, k_caches[i], v_caches[i], positions,
                 h, dtype, eps, window=window, attn_impl=attn_impl,
-                page_table=page_table, page_size=page_size)
+                page_table=page_table, page_size=page_size, tp=tp)
         greedy = _logits(model, x_t, eps).argmax(dim=-1).to(torch.int32)
 
         # greedy acceptance, composed with the freeze gates
@@ -412,23 +428,23 @@ def _decode_horizon_spec(model, k_caches, v_caches, positions,
 def _prefill(model, prompt, s_max: int):
     """One causal pass over ``prompt`` ``[B, T]``; returns ``(x,
     k_caches, v_caches)`` with caches ``[L, B, s_max, H, Dh]`` written on
-    ``[0, T)``."""
+    ``[0, T)`` (a shard's ``H / M`` heads)."""
     b, t = prompt.shape
-    dtype = model.dtype
-    shape = (model.num_layers, b, s_max, model.num_heads, model.head_dim)
+    dtype, h = model.dtype, local_heads(model)
+    shape = (model.num_layers, b, s_max, h, model.head_dim)
     k_caches = torch.zeros(shape, dtype=dtype, device=prompt.device)
     v_caches = torch.zeros(shape, dtype=dtype, device=prompt.device)
     x = _embed(model, prompt, dtype)
     for i in range(model.num_layers):
-        x, k, v = _block_prefill(model.block(i), x, model.num_heads, dtype,
-                                 model.ln_eps)
+        x, k, v = _block_prefill(model.block(i), x, h, dtype, model.ln_eps,
+                                 model.tp)
         k_caches[i, :, :t] = k
         v_caches[i, :, :t] = v
     return x, k_caches, v_caches
 
 
 def _block_chunk_prefill(p, x, k_cache, v_cache, start: int, h: int,
-                         dtype, eps):
+                         dtype, eps, tp=None):
     """One chunk of an incremental prefill: ``x`` ``[B, C, D]`` holds
     the prompt tokens at positions ``[start, start + C)``;
     ``k_cache``/``v_cache`` ``[B, W, H, Dh]`` hold the prefix columns
@@ -437,8 +453,8 @@ def _block_chunk_prefill(p, x, k_cache, v_cache, start: int, h: int,
     causal set :func:`_block_prefill` gives that token, so chunked and
     whole-prompt prefill agree. Right-pad rows of a last partial chunk
     write columns past the prompt, which stay masked until decode
-    overwrites them."""
-    b, c, _ = x.shape
+    overwrites them. ``tp``: as in :func:`_block_decode_slots`."""
+    b, c, d = x.shape
     hn = _ln(x, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
     q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
@@ -453,9 +469,9 @@ def _block_chunk_prefill(p, x, k_cache, v_cache, start: int, h: int,
     probs = torch.softmax(
         logits.masked_fill(~mask[None, None], float("-inf")), dim=-1)
     att = torch.einsum("bhqk,bkhd->bqhd", probs, v_cache.float())
-    att = att.reshape(b, c, -1).to(dtype)
-    x = x + _dense(att, p.attn.wo, dtype)
-    return x + _ffn(p, x, dtype, eps)
+    att = _cols(att.reshape(b, c, -1).to(dtype), d, tp)
+    x = x + _cols(_dense(att, p.attn.wo, dtype), d, tp)
+    return x + _ffn(p, x, dtype, eps, tp)
 
 
 def _embed_at(model, tokens, start: int, dtype):
@@ -465,14 +481,15 @@ def _embed_at(model, tokens, start: int, dtype):
     c = tokens.shape[1]
     ids = torch.clamp(start + torch.arange(c, device=tokens.device), 0,
                       model.pos_embed.shape[0] - 1)
-    return (model.embed[tokens].to(dtype)
-            + model.pos_embed[ids][None].to(dtype))
+    return _cols(model.embed[tokens].to(dtype)
+                 + model.pos_embed[ids][None].to(dtype), model.hidden_size,
+                 model.tp)
 
 
 def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             attn_impl: str = "auto") -> torch.Tensor:
+             attn_impl: str = "auto", mesh=None) -> torch.Tensor:
     """Generate ``max_new_tokens`` continuations of ``prompt``.
 
     Args:
@@ -484,6 +501,12 @@ def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
       generator: a ``torch.Generator`` on the model's device (required
         when sampling).
       attn_impl: decode attention, ``auto`` | ``cuda`` | ``torch``.
+      mesh: a ``(1, M)`` grid with a ``model`` axis
+        (:func:`..parallel.mesh.make_grid`), on every rank of it:
+        tensor-parallel decode on this rank's shard of ``model``
+        (:func:`.tp.shard_params_for_tp_decode`; a shard is taken as it
+        is). ``M`` must divide the heads. The same tokens as the
+        single-shard path, on every rank.
 
     Returns ``[B, T + max_new_tokens]`` tokens (prompt included).
     """
@@ -504,6 +527,9 @@ def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
             f"max_seq_len={model.max_seq_len}")
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) requires a generator")
+    if mesh is not None:
+        check_mesh(mesh, model.num_heads, "TP decode")
+        model = shard_params_for_tp_decode(model, mesh)
     x, k_caches, v_caches = _prefill(model, prompt, s_max)
     first_logits = _logits(model, x[:, -1:], model.ln_eps)[:, 0]
     tok0 = _sample(first_logits, temperature, top_k, top_p,
@@ -544,7 +570,7 @@ def teacher_forced_logits(model, tokens: torch.Tensor, prompt_len: int, *,
         raise ValueError(
             f"need at least one decode position: prompt_len="
             f"{prompt_len} vs {total} tokens")
-    dtype, eps, h = model.dtype, model.ln_eps, model.num_heads
+    dtype, eps, h = model.dtype, model.ln_eps, local_heads(model)
     x, k_caches, v_caches = _prefill(model, tokens[:, :prompt_len], total)
     out = [_logits(model, x[:, -1:], eps)[:, 0]]
     if kv_dtype == "int8":
@@ -557,11 +583,12 @@ def teacher_forced_logits(model, tokens: torch.Tensor, prompt_len: int, *,
     for p_idx in range(prompt_len, total - 1):
         pos = torch.full((b,), p_idx, dtype=torch.int32,
                          device=tokens.device)
-        x_t = (model.embed[tokens[:, p_idx]][:, None, :].to(dtype)
-               + model.pos_embed[p_idx][None, None, :].to(dtype))
+        x_t = _cols(model.embed[tokens[:, p_idx]][:, None, :].to(dtype)
+                    + model.pos_embed[p_idx][None, None, :].to(dtype),
+                    model.hidden_size, model.tp)
         for i in range(model.num_layers):
             x_t = _block_decode_slots(
                 model.block(i), x_t, k_caches[i], v_caches[i], pos, h,
-                dtype, eps, attn_impl=attn_impl)
+                dtype, eps, attn_impl=attn_impl, tp=model.tp)
         out.append(_logits(model, x_t, eps)[:, 0])
     return torch.stack(out)

@@ -70,12 +70,9 @@ exporters) are rejected by name.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import shutil
-import socket
 import sys
-import tempfile
 from typing import List, Optional
 
 import torch
@@ -494,23 +491,9 @@ def supervised_run(args) -> dict:
     return summary
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _spawned_rank(rank: int, world: int, port: int, argv: List[str],
-                  threads: int, summary_path: str) -> None:
-    """A rank started by :func:`main`'s spawn: the ``PMDT_*`` env of
-    this process names the group, then :func:`run`."""
-    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
-                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
-    torch.set_num_threads(threads)
-    summary = supervised_run(build_parser().parse_args(argv))
-    if rank == 0:
-        with open(summary_path, "w") as f:
-            json.dump(summary, f)
+def _rank_main(argv: List[str]) -> dict:
+    """One rank started by :func:`main`'s spawn."""
+    return supervised_run(build_parser().parse_args(argv))
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -536,16 +519,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             f"{args.model_parallel} needs {ranks} CUDA devices, this "
             f"machine has {torch.cuda.device_count()} (one rank per card; "
             "pass --device cpu for gloo ranks on the CPU)")
-    import torch.multiprocessing as mp
-
-    # CPU ranks share this process's intra-op threads between them
-    threads = max(1, torch.get_num_threads() // ranks)
-    with tempfile.TemporaryDirectory() as tmp:
-        summary_path = os.path.join(tmp, "summary.json")
-        mp.spawn(_spawned_rank, nprocs=ranks, join=True,
-                 args=(ranks, _free_port(), argv, threads, summary_path))
-        with open(summary_path) as f:
-            return json.load(f)
+    return dist.spawn_ranks(_rank_main, ranks, argv)
 
 
 if __name__ == "__main__":

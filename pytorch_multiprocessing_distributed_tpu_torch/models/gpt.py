@@ -129,16 +129,30 @@ def _dense(x, p: Dense, dtype):
     return out if p.bias is None else out + p.bias.to(dtype)
 
 
-def _ffn(p: Block, x, dtype, eps: float):
+def _cols(t, full: int, tp):
+    """``t`` with its last dim whole (``full`` columns). Under
+    tensor-parallel decode (``tp``, :class:`..inference.tp.TPShard`) a
+    rank computes the columns it holds of a Dense output or an
+    embedding, and the all-gather joins every rank's in rank order; a
+    leaf JAX replicates gives whole columns already."""
+    if tp is None or t.shape[-1] == full:
+        return t
+    return tp.gather(t)
+
+
+def _ffn(p: Block, x, dtype, eps: float, tp=None):
     """ln2 -> fc1 -> tanh-approximate GELU (``jax.nn.gelu``'s default)
     -> fc2, in ``dtype``; or, in an MoE block, ln2 -> the dropless MoE
     layer (:meth:`..ops.moe.MoEMlp.dropless`, f32 out): the decode
-    path's feed-forward."""
+    path's feed-forward. ``tp``: a rank's shard (:func:`_cols` after
+    the GELU and after fc2)."""
+    cols = None if tp is None else (lambda t, n: _cols(t, n, tp))
     if hasattr(p, "moe"):
-        return p.moe.dropless(_ln(x, p.ln2, eps), dtype)
+        return p.moe.dropless(_ln(x, p.ln2, eps), dtype, cols)
     hn = _ln(x, p.ln2, eps).to(dtype)
-    y = _dense(hn, p.fc1, dtype)
-    return _dense(F.gelu(y, approximate="tanh"), p.fc2, dtype)
+    y = F.gelu(_dense(hn, p.fc1, dtype), approximate="tanh")
+    y = _cols(y, p.fc2.kernel.shape[0], tp)  # fc2 reads every channel
+    return _cols(_dense(y, p.fc2, dtype), x.shape[-1], tp)
 
 
 def _split_heads(t, h: int):
@@ -158,7 +172,7 @@ def _causal_xla(q, k, v):
 
 
 def _block(p: Block, x, h: int, dtype, eps: float, attn_impl,
-           moe_losses=None, moe_stats=None):
+           moe_losses=None, moe_stats=None, tp=None):
     """One block over ``x`` ``[B, S, D]``; returns ``(y, k, v)`` with
     k/v ``[B, S, H, Dh]`` in ``dtype``. ``attn_impl="flash"`` runs
     :func:`..ops.flash_attention.flash_attention` on the views of the
@@ -168,8 +182,12 @@ def _block(p: Block, x, h: int, dtype, eps: float, attn_impl,
     ``moe_losses`` (a list): an MoE block runs the training layer
     (capacity slots, JAX's ``MoEMlp``) and appends its ``(aux, z)``,
     with ``moe_stats`` its ``stats_group``; None: the dropless decode
-    layer of :func:`_ffn`. A dense block ignores both."""
-    b, s, _ = x.shape
+    layer of :func:`_ffn`. A dense block ignores both.
+
+    ``tp``: a rank's shard (:mod:`..inference.tp`): ``h`` is its heads,
+    k/v are theirs, and attention's output and ``wo``'s are gathered
+    (:func:`_cols`)."""
+    b, s, d = x.shape
     hn = _ln(x, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
     q, k, v = _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
@@ -179,38 +197,41 @@ def _block(p: Block, x, h: int, dtype, eps: float, attn_impl,
         att = flash_attention(q, k, v, causal=True)
     else:
         att = _causal_xla(q, k, v)
-    att = att.reshape(b, s, -1).to(dtype)
-    x = x + _dense(att, p.attn.wo, dtype)
+    att = _cols(att.reshape(b, s, -1).to(dtype), d, tp)
+    x = x + _cols(_dense(att, p.attn.wo, dtype), d, tp)
     if moe_losses is not None and hasattr(p, "moe"):
         y, aux, z = p.moe(_ln(x, p.ln2, eps), dtype, moe_stats)
         moe_losses.append((aux, z))
         return x + y, k, v
-    return x + _ffn(p, x, dtype, eps), k, v
+    return x + _ffn(p, x, dtype, eps, tp), k, v
 
 
-def _block_prefill(p: Block, x, h: int, dtype, eps: float):
+def _block_prefill(p: Block, x, h: int, dtype, eps: float, tp=None):
     """Full causal pass over ``x`` ``[B, S, D]`` with the plain
     attention and the dropless MoE layer (the serving prefill, mirroring
     JAX ``generate.py``); returns ``(y, k, v)`` with k/v ``[B, S, H,
-    Dh]`` in ``dtype``."""
-    return _block(p, x, h, dtype, eps, "xla")
+    Dh]`` in ``dtype`` (a shard's ``h`` heads under ``tp``)."""
+    return _block(p, x, h, dtype, eps, "xla", tp=tp)
 
 
 def _embed(model: "GPT", tokens, dtype):
     """Token + position embeddings for ``tokens`` ``[B, S]`` at
     positions ``0..S-1``, each cast BEFORE the add (the model's own
-    order: under bf16, bf16(a) + bf16(b) != bf16(a + b))."""
+    order: under bf16, bf16(a) + bf16(b) != bf16(a + b)); a shard's
+    columns gathered."""
     s = tokens.shape[1]
-    return (model.embed[tokens].to(dtype)
-            + model.pos_embed[:s].to(dtype))
+    return _cols(model.embed[tokens].to(dtype)
+                 + model.pos_embed[:s].to(dtype), model.hidden_size,
+                 model.tp)
 
 
 def _logits(model: "GPT", x, eps: float):
-    """Final LN and the f32 head."""
+    """Final LN and the f32 head (a head split over a shard's ranks
+    gathered: whole on every registered model)."""
     out = _ln(x, model.ln_final, eps) @ model.head.kernel.float()
     if model.head.bias is not None:
         out = out + model.head.bias
-    return out
+    return _cols(out, model.vocab_size, model.tp)
 
 
 def layer_means(losses, like: torch.Tensor):
@@ -226,7 +247,13 @@ def layer_means(losses, like: torch.Tensor):
 class GPT(nn.Module):
     """Decoder-only LM. ``forward(tokens [B, S])`` -> f32 logits
     ``[B, S, vocab]`` (under ``seq_axis``, ``S`` is this rank's slice of
-    the global sequence)."""
+    the global sequence).
+
+    ``tp``: None, or on a rank's tensor-parallel decode shard
+    (:func:`..inference.tp.shard_params_for_tp_decode`) its
+    :class:`..inference.tp.TPShard`; the decode helpers read it."""
+
+    tp = None
 
     def __init__(self, vocab_size: int = 50257, max_seq_len: int = 1024,
                  hidden_size: int = 768, num_layers: int = 12,

@@ -64,10 +64,14 @@ def top_k_lower_first(gates: torch.Tensor, k: int
     return values[..., :k], indices[..., :k]
 
 
-def route(gate: torch.Tensor, x32: torch.Tensor, top_k: int):
+def route(gate: torch.Tensor, x32: torch.Tensor, top_k: int,
+          whole=None):
     """The router on f32 inputs ``x32`` ``[B, S, D]``: ``(logits, gates,
-    weights [B, S, K], experts [B, S, K])``."""
+    weights [B, S, K], experts [B, S, K])``. ``whole(logits)``: a
+    tensor-parallel decode shard's gather of its expert columns."""
     logits = x32.float() @ gate
+    if whole is not None:
+        logits = whole(logits)
     gates = torch.softmax(logits, dim=-1)
     topv, topi = top_k_lower_first(gates, top_k)
     weights = topv if top_k == 1 else topv / topv.sum(-1, keepdim=True)
@@ -124,11 +128,13 @@ class MoEMlp(nn.Module):
         return capacity(seq_len, self.top_k, self.capacity_factor,
                         self.n_experts)
 
-    def _experts(self, x: torch.Tensor, dtype) -> torch.Tensor:
+    def _experts(self, x: torch.Tensor, dtype, cols=None) -> torch.Tensor:
         """Expert ``e``'s ReLU MLP on ``x[e]`` ``[E, N, D]`` in
-        ``dtype``."""
+        ``dtype`` (``cols``: see :meth:`dropless`)."""
         h = torch.relu(torch.bmm(x, self.w1.to(dtype))
                        + self.b1.to(dtype)[:, None, :])
+        if cols is not None:  # w2 reads every hidden channel
+            h = cols(h, self.d_hidden)
         return torch.bmm(h, self.w2.to(dtype)) + self.b2.to(dtype)[:, None, :]
 
     def forward(self, x: torch.Tensor, dtype=None,
@@ -170,17 +176,28 @@ class MoEMlp(nn.Module):
                          h.reshape(e, b, cap, d))
         return y.to(x.dtype), aux, z
 
-    def dropless(self, x32: torch.Tensor, dtype) -> torch.Tensor:
+    def dropless(self, x32: torch.Tensor, dtype, cols=None
+                 ) -> torch.Tensor:
         """The decode layer on the f32 LN output ``x32`` ``[B, S, D]``:
         every expert on every token, the combine keeping each token's
         top-k with the training layer's weights; f32 out. The training
-        layer's result wherever its capacity does not bind."""
+        layer's result wherever its capacity does not bind.
+
+        ``cols(t, n)``: on a tensor-parallel decode shard, the gather of
+        a column-split output to its ``n`` columns
+        (:func:`..models.gpt._cols`): the router's logits, the experts'
+        hiddens and the combined output."""
         b, s, d = x32.shape
         e = self.n_experts
-        _, _, weights, topi = route(self.gate, x32, self.top_k)
+        _, _, weights, topi = route(
+            self.gate, x32, self.top_k,
+            None if cols is None else (lambda t: cols(t, e)))
         xin = x32.to(dtype).reshape(1, b * s, d).expand(e, b * s, d)
-        ys = self._experts(xin, dtype).reshape(e, b, s, d)
+        ys = self._experts(xin, dtype, cols)
+        ys = ys.reshape(e, b, s, ys.shape[-1])
         onehots = F.one_hot(topi, e).float()                 # [B, S, K, E]
         combine = torch.einsum("bske,bsk->bse", onehots, weights)
         y = torch.einsum("bse,ebsd->bsd", combine.to(dtype), ys)
+        if cols is not None:
+            y = cols(y, d)
         return y.float()

@@ -23,18 +23,29 @@ site.
 
 The pre-collective liveness gate: :func:`gate_collectives` runs the
 installed gate (the armed monitor's, :mod:`..runtime.heal`) at every
-window boundary of the trainers, so a lost peer raises a named
+window boundary of the trainers and, under ``serve_lm --tp``, at each
+engine step, before each host readback and while a rank waits for
+rank 0, so a lost peer raises a named
 :class:`..runtime.faults.PeerLostError` on every survivor instead of
 hanging it in the next collective.
+
+:func:`spawn_ranks` starts the ranks of one group on this host (the
+CLIs' own spawn without the ``PMDT_*`` env), and :class:`StoreBroadcast`
+carries rank 0's host messages to the other ranks over the rendezvous
+store, with no collective and so no process-group timeout on the wait.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import pickle
 import socket
+import sys
+import tempfile
 import time
 from datetime import timedelta
-from typing import Optional, Union
+from typing import Callable, List, Optional, Union
 
 import torch
 import torch.distributed as tdist
@@ -189,6 +200,88 @@ def init_process(device: Union[str, torch.device] = "cpu",
     # PMDT_HEARTBEAT: a liveness monitor over the rendezvous store
     heal.monitor_from_env(TCPStore(store=store), str(rank),
                           [str(i) for i in range(world)])
+
+
+def free_port() -> int:
+    """A free TCP port on this host for a rendezvous of spawned ranks."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(rank: int, world: int, port: int, run: Callable,
+                  argv: List[str], threads: int, result_path: str) -> None:
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    torch.set_num_threads(threads)
+    if rank == 0:
+        sys.stdin = open(0, closefd=False)
+    result = run(argv)
+    if rank == 0:
+        with open(result_path, "w") as f:
+            json.dump(result, f)
+
+
+def spawn_ranks(run: Callable[[List[str]], dict], world: int,
+                argv: List[str]) -> dict:
+    """``run(argv)`` on ``world`` ranks spawned on this host, each under
+    the ``PMDT_*`` env of one group (a fresh port) with its share of
+    this process's intra-op threads; rank 0 keeps this process's
+    standard input. Returns rank 0's result (a JSON object). ``run``
+    must be a module-level function (the ranks are spawned, not
+    forked)."""
+    import torch.multiprocessing as mp
+
+    threads = max(1, torch.get_num_threads() // world)
+    with tempfile.TemporaryDirectory() as tmp:
+        result_path = os.path.join(tmp, "result.json")
+        mp.spawn(_spawned_rank, nprocs=world, join=True,
+                 args=(world, free_port(), run, argv, threads,
+                       result_path))
+        with open(result_path) as f:
+            return json.load(f)
+
+
+class StoreBroadcast:
+    """Rank 0's host messages to every other rank, in order, over the
+    rendezvous store. No collective is involved, so nothing bounds the
+    wait for the next message: a follower may wait as long as rank 0
+    does (``serve_lm --tp`` while ``--stdin`` stays quiet). A reader
+    polls the message's key and calls ``idle`` between polls (the
+    liveness gate); a lost store (rank 0 gone) raises. Each message is
+    deleted by the last rank to read it."""
+
+    _POLL_S = (0.0002, 0.05)  # first and longest sleep between polls
+
+    def __init__(self, name: str):
+        if _store is None:
+            raise RuntimeError("StoreBroadcast needs a joined group "
+                               "(init_process under the PMDT_* env)")
+        self._name = name
+        self._seq = 0
+
+    def _key(self) -> str:
+        self._seq += 1
+        return f"{self._name}/{self._seq}"
+
+    def send(self, obj) -> None:
+        """Rank 0: publish the next message."""
+        _store.set(self._key(), pickle.dumps(obj))
+
+    def recv(self, idle: Optional[Callable[[], None]] = None):
+        """Another rank: the next message, once rank 0 has sent it."""
+        key = self._key()
+        sleep, longest = self._POLL_S
+        while not _store.check([key]):
+            if idle is not None:
+                idle()
+            time.sleep(sleep)
+            sleep = min(2 * sleep, longest)
+        obj = pickle.loads(_store.get(key))
+        if _store.add(f"{key}/read", 1) == get_world_size() - 1:
+            _store.delete_key(key)
+            _store.delete_key(f"{key}/read")
+        return obj
 
 
 def device_for_rank(device: Union[str, torch.device]) -> torch.device:

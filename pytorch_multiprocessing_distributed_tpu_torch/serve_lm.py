@@ -23,29 +23,56 @@ arms speculative decode (greedy only): self-drafting from each
 request's own tokens, or with ``--draft_model NAME`` a registry GPT
 (random weights from ``--seed + 1``, or ``--draft_ckpt`` read as
 ``--ckpt`` is) proposing the drafts; the snapshot then carries the
-``spec_*`` and ``accept_len_*`` keys. The JAX CLI's fleet, wire,
-autoscale, journal, restart, observability and TP flags are rejected
-with a message naming ROADMAP.md.
+``spec_*`` and ``accept_len_*`` keys.
+
+``--tp M`` serves tensor-parallel on M ranks, one per card (JAX's
+``make_mesh(n_dev // tp, tp)`` without its data axis: that axis only
+copies the computation, so the port's world is exactly M). Without the
+``PMDT_*`` env it spawns the M ranks itself (NCCL on the cards, gloo
+ranks with ``--device cpu``); under it (``PMDT_MASTER_ADDR``,
+``PMDT_WORLD_SIZE`` = M, ``PMDT_RANK``) each process is one rank. Every
+rank builds the model, keeps its shard
+(:func:`.inference.tp.shard_params_for_tp_decode`) and runs the same
+engine on a ``(1, M)`` grid; rank 0 alone reads the request source,
+sends each step's submissions and their outcomes to the other ranks
+over the rendezvous store before the step (no collective waits on a
+quiet ``--stdin``), streams tokens and writes ``--metrics_out``. The
+snapshot then carries ``tp``, a rank's resident param bytes beside
+JAX's per-device bytes, its KV pool bytes, the all-gathers a decode
+step and the decode kernels' launches on rank 0.
+
+The JAX CLI's fleet, wire, autoscale, journal, restart and
+observability flags are rejected with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import queue
 import sys
+import threading
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .inference.tp import check_mesh, shard_params_for_tp_decode
 from .models import get_model
+from .ops.decode_attention import (decode_attention,
+                                   paged_decode_attention,
+                                   paged_verify_decode_attention,
+                                   verify_decode_attention)
+from .parallel import dist
+from .parallel.mesh import Grid, make_grid
 from .serving import (QueueFull, Request, ServingEngine, init_params,
                       load_params)
 
 # flags of the JAX CLI this slice does not port
 NOT_PORTED_FLAGS = (
-    "--ckpt_backend", "--ckpt_epoch", "--tp", "--replicas", "--role",
+    "--ckpt_backend", "--ckpt_epoch", "--replicas", "--role",
     "--router_port",
     "--listen", "--rid", "--connect", "--fleet_store", "--fleet_run",
     "--fleet_ttl", "--autoscale", "--rollout", "--drain_deadline_s",
@@ -119,6 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--max_new_tokens', default=32, type=int)
     p.add_argument('--eos', default=-1, type=int,
                    help='stop token id (-1 = none)')
+    p.add_argument('--tp', default=1, type=int,
+                   help='model-axis size: serve on M ranks, one per card, '
+                        'each holding its heads of the KV pool and its '
+                        'share of the weights (--device cpu: gloo ranks)')
     p.add_argument('--temperature', default=0.0, type=float)
     p.add_argument('--top_k', default=0, type=int)
     p.add_argument('--top_p', default=0.0, type=float)
@@ -190,32 +221,181 @@ def _reject_not_ported(argv: List[str]) -> None:
                 "serve_lm.py for it")
 
 
+def _launch_counts() -> dict:
+    """The decode kernels' launch counters, by variant."""
+    counts = {}
+    for fn in (decode_attention, paged_decode_attention,
+               verify_decode_attention, paged_verify_decode_attention):
+        counts[fn.__name__] = fn.launches
+        counts[f"{fn.__name__}_int8"] = fn.int8_launches
+    return counts
+
+
+def _attempt(engine: ServingEngine, request: Request) -> str:
+    """Submit ``request``; its outcome as :class:`_Lockstep` records it."""
+    try:
+        engine.enqueue(request)
+        return "accepted"
+    except QueueFull:
+        return "queue full"
+    except ValueError:
+        return "rejected"
+
+
+class _Lockstep:
+    """Rank 0's request source replayed on every rank of a ``--tp``
+    grid. Rank 0 records each submission it tries and its outcome
+    (accepted, queue full, rejected) and, before each engine step and
+    the final drain, sends those made since the last one over the
+    rendezvous store (:class:`.parallel.dist.StoreBroadcast`: no
+    collective, so a follower waits on a quiet source for as long as it
+    stays quiet). The other ranks submit the same requests in the same
+    order, raise unless each meets rank 0's outcome (the engine state is
+    the same on every rank), and step with it. The liveness gate runs at
+    each step boundary and while a rank waits. Without a grid it is the
+    engine itself."""
+
+    def __init__(self, engine: ServingEngine, grid: Optional[Grid]):
+        self.engine = engine
+        self.grid = grid
+        self._tried: list = []
+        self._channel = (dist.StoreBroadcast("serve_lm/steps")
+                         if grid is not None else None)
+
+    def enqueue(self, request: Request) -> Request:
+        if self.grid is None:
+            return self.engine.enqueue(request)
+        entry = [list(request.prompt), request.max_new_tokens, request.uid,
+                 "accepted"]
+        self._tried.append(entry)
+        try:
+            return self.engine.enqueue(request)
+        except QueueFull:
+            entry[3] = "queue full"
+            raise
+        except ValueError:
+            entry[3] = "rejected"
+            raise
+
+    def _sync(self, final: bool) -> None:
+        if self.grid is not None:
+            dist.gate_collectives()
+            self._channel.send({"tried": self._tried, "final": final})
+            self._tried = []
+
+    def step(self):
+        self._sync(False)
+        return self.engine.step()
+
+    def drain(self):
+        self._sync(True)
+        return self.engine.drain()
+
+    def follow(self) -> None:
+        """A rank other than 0: replay rank 0's submissions and steps
+        until its drain."""
+        engine = self.engine
+        while True:
+            msg = self._channel.recv(idle=dist.gate_collectives)
+            dist.gate_collectives()
+            for prompt, max_new, uid, want in msg["tried"]:
+                got = _attempt(engine, Request(prompt, max_new,
+                                               engine.eos_id, uid=uid))
+                if got != want:
+                    raise RuntimeError(
+                        f"rank {dist.get_rank()} left rank 0's lockstep: "
+                        f"request {uid} was {got} here and {want} on "
+                        "rank 0")
+            if msg["final"]:
+                engine.drain()
+                return
+            engine.step()
+
+
+def _pumped(source, idle, every_s: float = 0.1):
+    """``source``'s items, read on a thread of their own; ``idle()``
+    runs every ``every_s`` while the source keeps the caller waiting
+    (``--tp --stdin``: rank 0's liveness gate keeps beating)."""
+    box: queue.Queue = queue.Queue()
+
+    def pump():
+        try:
+            for item in source:
+                box.put((True, item))
+            box.put((False, None))
+        except BaseException as e:  # re-raised on the caller's thread
+            box.put((False, e))
+
+    threading.Thread(target=pump, daemon=True).start()
+    while True:
+        try:
+            more, item = box.get(timeout=every_s)
+        except queue.Empty:
+            idle()
+            continue
+        if more:
+            yield item
+        elif item is None:
+            return
+        else:
+            raise item
+
+
+def _join_grid(args, device: torch.device) -> Grid:
+    """Join the ``PMDT_*`` group of ``--tp`` ranks and lay it out as the
+    ``(1, M)`` grid; a rank's card is ``cuda:{rank}``."""
+    world = os.environ.get("PMDT_WORLD_SIZE")
+    if world is None or int(world) != args.tp:
+        raise SystemExit(
+            f"--tp {args.tp} serves on {args.tp} ranks but "
+            f"PMDT_WORLD_SIZE={world} (one rank per card; the port has no "
+            "data axis)")
+    _check_cards(args.tp, device)
+    dist.init_process(device)
+    return make_grid(1, args.tp)
+
+
+def _check_cards(tp: int, device: torch.device) -> None:
+    if device.type == "cuda" and torch.cuda.device_count() < tp:
+        raise SystemExit(
+            f"--tp {tp} needs {tp} CUDA devices (one rank per card: NCCL "
+            f"cannot put two ranks on one), this machine has "
+            f"{torch.cuda.device_count()}; pass --device cpu for gloo ranks "
+            "on the CPU")
+
+
+def _rank_main(argv: List[str]) -> dict:
+    """One rank started by :func:`main`'s spawn (rank 0 reads the
+    parent's standard input under ``--stdin``)."""
+    return serve(build_parser().parse_args(argv))
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``); returns the
-    final metrics snapshot."""
+    final metrics snapshot (rank 0's under ``--tp``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     _reject_not_ported(argv)
     args = build_parser().parse_args(argv)
+    _check_args(args)
+    if args.tp == 1 or os.environ.get("PMDT_MASTER_ADDR"):
+        return serve(args)
+    _check_cards(args.tp, resolve_device(args.device))
+    return dist.spawn_ranks(_rank_main, args.tp, argv)
+
+
+def _check_args(args) -> None:
+    """The CLI's refusals, before any rank starts or any model work."""
     if args.ckpt and args.random_init:
         raise SystemExit("--ckpt and --random_init are mutually exclusive")
     if not args.ckpt and not args.random_init:
         raise SystemExit("pass --ckpt PATH (.npz params) or --random_init "
                          "(smoke run)")
-    device = resolve_device(args.device)
-    dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
-    model = get_model(args.model, dtype=dtype)
-    if args.random_init:
-        params = init_params(model, args.seed, device)
-    else:
-        params = {k: v.to(device) for k, v in load_params(args.ckpt).items()}
-    model.load_state_dict(params, assign=True)
-
-    if args.decode_buckets == 'auto':
-        decode_buckets = None
-    elif args.decode_buckets == 'off':
-        decode_buckets = ()
-    else:
-        decode_buckets = [int(b) for b in args.decode_buckets.split(',')]
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    if args.tp > 1:
+        # the engine's check, in its words, before any rank starts
+        check_mesh(Grid(1, args.tp), get_model(args.model).num_heads,
+                   "TP serving")
     # speculative decode: loud rejection before any model work
     if args.draft_k and args.temperature > 0:
         raise SystemExit(
@@ -223,6 +403,35 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "--temperature or disarm speculation")
     if args.draft_model and not args.draft_k:
         raise SystemExit("--draft_model needs --draft_k > 0")
+
+
+def serve(args) -> dict:
+    """One rank of the CLI (the only one without ``--tp``): build the
+    model and the engine, serve the source, return the snapshot."""
+    device = resolve_device(args.device)
+    grid = _join_grid(args, device) if args.tp > 1 else None
+    primary = dist.is_primary()
+    if grid is not None:
+        device = dist.device_for_rank(device)
+    launches0 = _launch_counts()
+    dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
+    model = get_model(args.model, dtype=dtype)
+    if args.random_init:
+        params = init_params(model, args.seed, device)
+    else:
+        params = {k: v.to(device) for k, v in load_params(args.ckpt).items()}
+    model.load_state_dict(params, assign=True)
+    del params
+    if grid is not None:
+        # this rank's shard; the whole params go with the model
+        model = shard_params_for_tp_decode(model, grid)
+
+    if args.decode_buckets == 'auto':
+        decode_buckets = None
+    elif args.decode_buckets == 'off':
+        decode_buckets = ()
+    else:
+        decode_buckets = [int(b) for b in args.decode_buckets.split(',')]
     draft_model = draft_params = None
     if args.draft_k and args.draft_model:
         draft_model = get_model(args.draft_model, dtype=dtype,
@@ -233,9 +442,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
             draft_params = init_params(draft_model, args.seed + 1, device)
     generator = None
     if args.temperature > 0:
+        # one seed on every rank: the same logits draw the same token
         generator = torch.Generator(device=device).manual_seed(args.seed)
     engine = ServingEngine(
-        model, max_slots=args.max_slots, s_max=args.s_max or None,
+        model, mesh=grid, max_slots=args.max_slots,
+        s_max=args.s_max or None,
         max_queue=args.max_queue or None, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p, generator=generator,
         eos_id=None if args.eos < 0 else args.eos,
@@ -251,9 +462,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                       if args.kv_layout == 'paged' else 0),
         draft_k=args.draft_k, draft_model=draft_model,
         draft_params=draft_params)
+    feed = _Lockstep(engine, grid)
 
     def emit(events):
-        if args.quiet:
+        if args.quiet or not primary:
             return
         for request, token, finished in events:
             print(f"req={request.uid} tok={token}"
@@ -265,27 +477,33 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     rejected = 0
     skipped: List[str] = []
-    for i, (prompt, max_new) in enumerate(
-            _load_requests(args, model.vocab_size, skipped)):
-        request = Request(prompt, max_new, engine.eos_id, uid=f"src-{i}")
-        while True:
-            try:
-                engine.enqueue(request)
-                break
-            except QueueFull:
-                # bounded queue + finite source = backpressure: serve a
-                # step, then re-enqueue the same request (its TTFT keeps
-                # the first attempt's submit stamp)
-                emit(engine.step())
-            except ValueError as e:
-                rejected += 1
-                print(f"rejected: {e}", file=sys.stderr)
-                break
-        if args.stdin:
-            emit(engine.step())  # online source: serve while reading
-    emit(engine.drain())
-    for msg in skipped:
-        print(f"rejected: {msg}", file=sys.stderr)
+    if not primary:
+        feed.follow()
+    else:
+        source = _load_requests(args, model.vocab_size, skipped)
+        if grid is not None and args.stdin:
+            source = _pumped(source, dist.gate_collectives)
+        for i, (prompt, max_new) in enumerate(source):
+            request = Request(prompt, max_new, engine.eos_id,
+                              uid=f"src-{i}")
+            while True:
+                try:
+                    feed.enqueue(request)
+                    break
+                except QueueFull:
+                    # bounded queue + finite source = backpressure:
+                    # serve a step, then re-enqueue the same request
+                    # (its TTFT keeps the first attempt's submit stamp)
+                    emit(feed.step())
+                except ValueError as e:
+                    rejected += 1
+                    print(f"rejected: {e}", file=sys.stderr)
+                    break
+            if args.stdin:
+                emit(feed.step())  # online source: serve while reading
+        emit(feed.drain())
+        for msg in skipped:
+            print(f"rejected: {msg}", file=sys.stderr)
 
     snap = engine.metrics.snapshot()
     snap["rejected"] = rejected + len(skipped)
@@ -310,10 +528,27 @@ def main(argv: Optional[List[str]] = None) -> dict:
         snap["prefix_cache_pages"] = (
             len(engine._prefix_cache.page_ids())
             if engine._prefix_cache is not None else 0)
-        snap["kv_pool_bytes"] = pool.kv_bytes
-    else:
-        snap["kv_pool_bytes"] = pool.kv_bytes  # spare columns included
+    snap["kv_pool_bytes"] = pool.kv_bytes  # a rank's; spare columns in
     snap["device"] = str(device)
+    snap["tp"] = args.tp
+    if grid is not None:
+        tp = engine.model.tp
+        snap["param_bytes"] = tp.resident_bytes["params"]
+        snap["jax_param_bytes"] = tp.resident_bytes["jax_params"]
+        snap["small_leaf_bytes"] = sum(
+            tp.resident_bytes["small_leaves"].values())
+        snap["tp_gathers"] = tp.gathers
+        snap["tp_decode_gathers"] = engine.decode_gathers
+    now = _launch_counts()
+    snap["decode_launches"] = {name: now[name] - launches0[name]
+                               for name in now}
+    if grid is not None:
+        # no rank closes the group (rank 0: its store) while another
+        # still talks to it
+        dist.barrier()
+        dist.destroy_process_group()
+    if not primary:
+        return snap
     print("metrics: " + json.dumps(snap, sort_keys=True), flush=True)
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

@@ -61,12 +61,26 @@ or not: the paged plain path gathers the same columns the dense one
 slices, and every token a verify pass emits is the target's own greedy
 output.
 
+Tensor-parallel serving (``mesh``, a ``(1, M)`` grid of
+:func:`...parallel.mesh.make_grid`, ``M`` dividing the heads): every
+rank runs this same engine on its shard of the model
+(:func:`...inference.tp.shard_params_for_tp_decode`) and its head shard
+of the KV pool, ``[.., H / M, ..]`` dense or paged, int8 scales too.
+The scheduler, the page tables, the prefix cache and the drafters are
+host state replicated on every rank, as JAX's ``P()`` placements
+replicate them; the engine decides from the token stream alone (the
+clock only stamps metrics), so ranks that see the same submissions in
+the same order stay in step, and every rank draws the same sampled
+token from the same logits and generator seed. A draft model is
+replicated and unsharded, as in JAX. Every path runs on the shard:
+whole and chunked prefill, prefix hits, horizons, dense and paged,
+int8, both speculative modes.
+
 Not in this slice, each rejected with ``NotImplementedError`` at
 construction (ROADMAP.md, "Port: serving features still to port"):
-tensor parallelism (``mesh``), the request journal (``journal``),
-fault retries and the readback watchdog (``dispatch_retries > 1``,
-``readback_timeout_s``) and per-request deadlines
-(``submit(deadline_s=...)``).
+the request journal (``journal``), fault retries and the readback
+watchdog (``dispatch_retries > 1``, ``readback_timeout_s``) and
+per-request deadlines (``submit(deadline_s=...)``).
 """
 
 from __future__ import annotations
@@ -81,9 +95,11 @@ import torch
 
 from ..inference.generate import (_block_chunk_prefill, _decode_horizon,
                                   _embed_at, _logits, _prefill, _sample)
+from ..inference.tp import check_mesh, shard_params_for_tp_decode
 from ..ops import resolve_impl
 from ..ops.kv_quant import KV_DTYPES, QuantizedKV, dequantize_kv, \
     quantize_kv
+from ..parallel import dist
 from ..utils.metrics import ServingMetrics
 from .kv_pages import PagePool, PagePoolExhausted, PrefixCache
 from .kv_slots import SlotPool
@@ -97,8 +113,7 @@ __all__ = ["ServingEngine", "Request"]
 # the value that means "off" (accepted, so a caller passing the default
 # explicitly is not rejected)
 _NOT_PORTED = {
-    "mesh": None, "journal": None, "dispatch_retries": 1,
-    "readback_timeout_s": None,
+    "journal": None, "dispatch_retries": 1, "readback_timeout_s": None,
 }
 # re-probe a collapsed draft length every this many dispatches
 _SPEC_PROBE_EVERY = 16
@@ -180,6 +195,10 @@ class ServingEngine:
     Args:
       model: the bound ``GPT`` (params loaded); the engine runs on its
         device.
+      mesh: a ``(1, M)`` grid with a ``model`` axis, on every rank of
+        it: tensor-parallel serving on this rank's shard of ``model``
+        (a whole model is sharded here; a shard for this place is taken
+        as it is) and its ``H / M`` heads of the KV pool.
       max_slots: concurrent requests decoded per step (the pool size).
       s_max: per-slot token capacity (default ``model.max_seq_len``).
       max_queue: bound on QUEUED requests (None = unbounded).
@@ -217,7 +236,7 @@ class ServingEngine:
       draft_buckets: n-gram table buckets per slot (self-drafting).
     """
 
-    def __init__(self, model, *, max_slots: int,
+    def __init__(self, model, *, max_slots: int, mesh=None,
                  s_max: Optional[int] = None,
                  max_queue: Optional[int] = None, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0,
@@ -244,6 +263,8 @@ class ServingEngine:
             raise ValueError(
                 "model has no params: bind them first with "
                 "model.load_state_dict(params, assign=True)")
+        if mesh is not None:
+            check_mesh(mesh, model.num_heads, "TP serving")
         if temperature > 0.0 and generator is None:
             raise ValueError(
                 "sampling (temperature > 0) requires a generator")
@@ -306,7 +327,9 @@ class ServingEngine:
             raise ValueError(
                 f"draft_buckets must be >= 1, got {draft_buckets}")
         resolve_impl(decode_attn, model.embed)  # device check
-        self.model = model
+        self.mesh = mesh
+        self.model = model = (model if mesh is None
+                              else shard_params_for_tp_decode(model, mesh))
         self.eos_id = eos_id
         self.min_bucket = int(min_bucket)
         self._paged = kv_layout == "paged"
@@ -316,10 +339,10 @@ class ServingEngine:
                 model, max_slots, s_max,
                 page_size=int(page_size if page_size is not None
                               else min_bucket),
-                num_pages=num_pages, kv_dtype=kv_dtype)
+                num_pages=num_pages, kv_dtype=kv_dtype, mesh=mesh)
         else:
             self.pool = SlotPool(model, max_slots, s_max, kv_dtype=kv_dtype,
-                                 spare_cols=draft_k)
+                                 spare_cols=draft_k, mesh=mesh)
         self._prefix_cache = (PrefixCache(self.pool, prefix_cache)
                               if prefix_cache else None)
         self._held_uid = None  # FIFO head currently held for pages
@@ -340,6 +363,8 @@ class ServingEngine:
         self._spec_programs: set = set()  # (window, horizon, k), k > 0
         # decode passes launched, by realised draft length (0 = plain)
         self.passes_by_k: Dict[int, int] = {}
+        # all-gathers the decode horizons launched (tensor parallel)
+        self.decode_gathers = 0
         self._init_spec(max_slots, int(draft_k), draft_model, draft_params,
                         int(draft_buckets))
 
@@ -757,8 +782,7 @@ class ServingEngine:
         plan = PrefillPlan(request, chunk, self.min_bucket, pool.s_max,
                            start_at=start_at)
         width = max(plan.width, plan.starts[-1] + plan.chunk)
-        shape = (model.num_layers, 1, width, model.num_heads,
-                 model.head_dim)
+        shape = (model.num_layers, 1, width, pool.heads, model.head_dim)
         caches = []
         for pages in ((pool.k_pages, pool.v_pages) if start_at
                       else (None, None)):
@@ -771,7 +795,7 @@ class ServingEngine:
                 if isinstance(g, QuantizedKV):
                     g = dequantize_kv(g, model.dtype)
                 g = g.transpose(2, 3).reshape(
-                    model.num_layers, 1, start_at, model.num_heads,
+                    model.num_layers, 1, start_at, pool.heads,
                     model.head_dim)
                 cache[:, :, :start_at] = g
             caches.append(cache)
@@ -791,9 +815,8 @@ class ServingEngine:
         x = _embed_at(model, tokens, start, model.dtype)
         for i in range(model.num_layers):
             x = _block_chunk_prefill(model.block(i), x, pend.k_pref[i],
-                                     pend.v_pref[i], start,
-                                     model.num_heads, model.dtype,
-                                     model.ln_eps)
+                                     pend.v_pref[i], start, self.pool.heads,
+                                     model.dtype, model.ln_eps, model.tp)
         if not is_last:
             return True
         if self._pending is pend:
@@ -802,7 +825,8 @@ class ServingEngine:
         logits = _logits(model, x[:, idx:idx + 1], model.ln_eps)[:, 0]
         tok0 = _sample(logits, *self._sampling,
                        self._generator)[0].to(torch.int32)
-        slot = self._first_token(pend.request, int(tok0), events)
+        slot = self._first_token(pend.request, int(self._fetch(tok0)),
+                                 events)
         if slot is None:
             self._abort_prep(pend.prep)
             return False
@@ -864,7 +888,8 @@ class ServingEngine:
             length = len(request.prompt)
             tok0, k_pref, v_pref = self._prefill(request.prompt, length)
             # the TTFT boundary: the host reads the first token here
-            slot = self._first_token(request, int(tok0), events)
+            slot = self._first_token(request, int(self._fetch(tok0)),
+                                     events)
             if slot is None:
                 self._abort_prep(prep)
                 continue
@@ -964,6 +989,8 @@ class ServingEngine:
             spec = dict(draft_k=k, draft_model=self._draft_model,
                         draft_k_caches=self._draft_k_caches,
                         draft_v_caches=self._draft_v_caches)
+        tp = self.model.tp
+        gathers = tp.gathers if tp is not None else 0
         tokens, (pool.positions, pool.last_tokens, pool.active,
                  pool.budgets) = _decode_horizon(
             self.model, *caches, pool.positions, pool.last_tokens,
@@ -971,6 +998,8 @@ class ServingEngine:
             attn_impl=self._attn_impl, temperature=temperature,
             top_k=top_k, top_p=top_p, generator=self._generator, **paged,
             **spec)
+        if tp is not None:
+            self.decode_gathers += tp.gathers - gathers
         if k:
             self._spec_programs.add((window, h, k))
         else:
@@ -992,6 +1021,15 @@ class ServingEngine:
                 and self._pending is None
                 and self._min_remaining_eff() >= 1)
 
+    def _fetch(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the host. Under a mesh the liveness gate first covers
+        the wait for the collectives queued before it
+        (:func:`...parallel.dist.gate_collectives`), so a peer lost
+        inside NCCL raises instead of hanging the fetch."""
+        if self.mesh is not None:
+            dist.gate_collectives(t.device)
+        return t.cpu()
+
     def _drain_one(self, events: List[Event]) -> Tuple[int, int]:
         """Read the OLDEST block back (the horizon's one host sync) and
         attribute its tokens: append per request, replay the finish
@@ -1001,7 +1039,7 @@ class ServingEngine:
         tokens_emitted)``."""
         pool = self.pool
         block = self._blocks.popleft()
-        tokens = block.tokens.cpu().numpy()
+        tokens = self._fetch(block.tokens).numpy()
         realized: Dict[int, int] = {}
         for row in range(block.rows):
             for slot, request in block.slots.items():

@@ -37,9 +37,14 @@ divergent write (its column ``L``) lands in a fresh page or in a
 copy-on-write fork of the prefix's partial last page; shared pages are
 written only by the request that first filled them.
 
+Tensor-parallel serving (``mesh``, a ``(1, M)`` grid): a rank's pages
+hold its ``H / M`` heads, ``[layers, num_pages, H / M, page_size,
+head_dim]``, JAX's head-sharded placement; the page table, the free
+list, the refcounts and the :class:`PrefixCache` are host state, the
+same on every rank.
+
 Not ported: the HBM and lifetime ledgers (``runtime/hbm.py``,
-``runtime/life.py``) and mesh sharding of the pages (tensor-parallel
-serving), which arrive with their features (ROADMAP.md).
+``runtime/life.py``), which arrive with their features (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import numpy as np
 import torch
 
 from ..ops.kv_quant import KV_DTYPES
-from .kv_slots import empty_kv, kv_group_bytes
+from .kv_slots import check_pool_mesh, empty_kv, kv_group_bytes, pool_heads
 
 
 class PagePoolExhausted(RuntimeError):
@@ -81,11 +86,13 @@ class PagePool:
       kv_dtype: ``"model"`` or ``"int8"`` (pages become a
         :class:`...ops.kv_quant.QuantizedKV` with ``[L, P, H, ps]`` f32
         scales).
+      mesh: a ``(1, M)`` grid, checked against ``model``: a rank's
+        shard (``model.tp``) holds ``H / M`` heads.
     """
 
     def __init__(self, model, max_slots: int, s_max: Optional[int] = None,
                  *, page_size: int, num_pages: Optional[int] = None,
-                 kv_dtype: str = "model"):
+                 kv_dtype: str = "model", mesh=None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         s_max = int(s_max or model.max_seq_len)
@@ -111,8 +118,10 @@ class PagePool:
             raise ValueError(
                 f"num_pages must be >= 2 (scratch + 1), got "
                 f"{self.num_pages}")
+        check_pool_mesh(model, mesh)
+        self.heads = pool_heads(model)
         dev = model.device
-        shape = (model.num_layers, self.num_pages, model.num_heads,
+        shape = (model.num_layers, self.num_pages, self.heads,
                  page_size, model.head_dim)
         self.k_pages = empty_kv(shape, model.dtype, kv_dtype, dev)
         self.v_pages = empty_kv(shape, model.dtype, kv_dtype, dev)
@@ -139,8 +148,9 @@ class PagePool:
     def page_kv_bytes(model, page_size: int,
                       kv_dtype: str = "model") -> int:
         """K+V bytes of ONE page: ``2 x layers x heads x page_size x
-        group bytes`` (int8: ``head_dim`` bytes plus the f32 scale)."""
-        return (2 * model.num_layers * model.num_heads * int(page_size)
+        group bytes`` (int8: ``head_dim`` bytes plus the f32 scale); a
+        tensor-parallel shard's ``H / M`` heads."""
+        return (2 * model.num_layers * pool_heads(model) * int(page_size)
                 * kv_group_bytes(model, kv_dtype))
 
     @staticmethod

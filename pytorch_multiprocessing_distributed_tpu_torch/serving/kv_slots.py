@@ -27,6 +27,12 @@ Slot invariants (the equivalence-with-``generate`` contract):
 The host mirrors each ACTIVE slot's position (``note_insert`` /
 ``note_advance_slots`` / ``max_active_pos``) so the engine picks its
 attention window without reading the device.
+
+Tensor-parallel serving (``mesh``, a ``(1, M)`` grid): a rank's caches
+hold its ``H / M`` heads, ``[layers, max_slots, s_max, H / M,
+head_dim]`` (int8 scales ``[..., H / M]``), JAX's head-sharded
+placement; the slot state and the host mirror are the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -44,6 +50,25 @@ def kv_group_bytes(model, kv_dtype: str) -> int:
     if kv_dtype == "int8":
         return model.head_dim + 4
     return model.head_dim * torch.empty((), dtype=model.dtype).element_size()
+
+
+def pool_heads(model) -> int:
+    """Heads a rank's pool holds: ``H / M`` for a tensor-parallel shard
+    (``model.tp``, :func:`...inference.tp.shard_params_for_tp_decode`),
+    all of them otherwise."""
+    tp = getattr(model, "tp", None)
+    return model.num_heads // (tp.size if tp is not None else 1)
+
+
+def check_pool_mesh(model, mesh) -> None:
+    """A pool on ``mesh`` takes that grid's shard of the model."""
+    tp = getattr(model, "tp", None)
+    m = tp.size if tp is not None else 1
+    if mesh is not None and mesh.model != m:
+        raise ValueError(
+            f"a pool on a model axis of {mesh.model} needs the model's "
+            f"shard for it (shard_params_for_tp_decode), got a model axis "
+            f"of {m}")
 
 
 def empty_kv(shape, dtype, kv_dtype: str, device):
@@ -71,10 +96,12 @@ class SlotPool:
         to ``draft_k`` columns past the last one a request can hold;
         the JAX package drops those writes, torch cannot, so they land
         here).
+      mesh: a ``(1, M)`` grid, checked against ``model``: a rank's
+        shard (``model.tp``) holds ``H / M`` heads.
     """
 
     def __init__(self, model, max_slots: int, s_max: Optional[int] = None,
-                 kv_dtype: str = "model", spare_cols: int = 0):
+                 kv_dtype: str = "model", spare_cols: int = 0, mesh=None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         s_max = int(s_max or model.max_seq_len)
@@ -90,9 +117,11 @@ class SlotPool:
         self.max_slots = int(max_slots)
         self.s_max = s_max
         self.spare_cols = int(spare_cols)
+        check_pool_mesh(model, mesh)
+        self.heads = pool_heads(model)
         dev = model.device
         shape = (model.num_layers, self.max_slots, s_max + self.spare_cols,
-                 model.num_heads, model.head_dim)
+                 self.heads, model.head_dim)
         self.k_caches = empty_kv(shape, model.dtype, kv_dtype, dev)
         self.v_caches = empty_kv(shape, model.dtype, kv_dtype, dev)
         n = self.max_slots
@@ -111,13 +140,14 @@ class SlotPool:
         """Worst-case K+V bytes ONE slot reserves for ``s_max`` tokens:
         ``2 x layers x s_max x heads x group bytes``, a group being
         ``head_dim`` elements (int8: one byte each plus the 4-byte f32
-        scale)."""
-        return (2 * model.num_layers * int(s_max) * model.num_heads
+        scale); a tensor-parallel shard's ``H / M`` heads."""
+        return (2 * model.num_layers * int(s_max) * pool_heads(model)
                 * kv_group_bytes(model, kv_dtype))
 
     @property
     def kv_bytes(self) -> int:
-        """Device bytes of the K/V caches, spare columns included."""
+        """Device bytes of the K/V caches (this rank's), spare columns
+        included."""
         return self.max_slots * self.per_slot_kv_bytes(
             self.model, self.s_max + self.spare_cols, self.kv_dtype)
 

@@ -99,8 +99,7 @@ def test_request_sources_match_jax_cli(tmp_path, source):
 
 @pytest.mark.parametrize("argv", [
     ["--replicas", "2"], ["--listen", "0"], ["--journal=w.jsonl"],
-    ["--rollout", "seed:7"], ["--autoscale", "1,2"], ["--stats_port", "0"],
-    ["--tp", "2"]])
+    ["--rollout", "seed:7"], ["--autoscale", "1,2"], ["--stats_port", "0"]])
 def test_unported_flags_rejected(argv):
     with pytest.raises(SystemExit, match="not ported"):
         serve_lm.main(["--device", "cpu", "--random_init", *argv])

@@ -206,7 +206,6 @@ def test_percentile_meter_is_numpy_exact():
                                 dict(readback_timeout_s=0.5),
                                 dict(journal="j.jsonl"),
                                 dict(readback_timeout_s=1.0),
-                                dict(mesh=object()),
                                 dict(journal=object()),
                                 dict(dispatch_retries=3)])
 def test_unported_engine_features_raise(served, kw):
