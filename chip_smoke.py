@@ -18,6 +18,8 @@
                                        # peer loss, --profile) alone
     python3 chip_smoke.py --tp-only  # phases 1 and 31 (serve_lm --tp
                                      # across the visible cards) alone
+    python3 chip_smoke.py --serve-heal-only  # phases 1, 2 and 32
+                                             # (fault-tolerant serving)
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -401,6 +403,35 @@ nothing is caught):
    on one card and at each M, timed and traced by ``torch.profiler`` on
    rank 0: the card's busy time, the NCCL kernels' time and count, a
    cold and a warm serve (``[tp-profile]`` lines).
+32. serve-heal — fault-tolerant serving on one card, phase 4's workload
+   (gpt_small, 8 slots, 16 prompts x 32 new tokens, horizon 4) in f32
+   with TF32 off, through ``serve_lm.main`` unless named: (a) the
+   uninterrupted runs with ``--journal``, dense, paged and ``--draft_k
+   4`` (the journal empty after the clean drain; launches 12 a pass of
+   the run's variant), dense in turns without and with the journal
+   (three pairs after a warm-up serve: the engine step's wall and
+   tokens/s over it with and without the journal, which writes after
+   the ``decode_step`` metric stops; fsync ms a step, journal bytes a
+   token); (b) a fatal at ``serving.decode_dispatch``'s 7th hit
+   (``PMDT_FAULT_PLAN``'s grammar, armed in this process) under
+   ``--max_restarts 2 --journal``, the same three ways: one restart,
+   every stream token-exact with (a), the decode and verify rows
+   launched again under replay, seconds from the fatal to the rebuilt
+   engine's first token; (c) ``serve_lm`` in a child SIGKILLed at half
+   its tokens and the same command again: the transcripts together are
+   (a)'s, no uid served twice, seconds from the re-run's start to its
+   first redelivered token; (d) SIGTERM with ``--drain_deadline_s``:
+   exit 0, every request finished token-exact or failed named
+   (``DeadlineExceeded``, reason drain) and terminal in the journal, the
+   drain's wall time; (e) the engine API: a transient ``error:2`` at
+   the dispatch (2 retries, the horizon collapsed, streams exact),
+   ``submit(deadline_s=)`` (failed named, the rest exact) and a hung
+   readback under ``readback_timeout_s`` (``FaultTimeout``, one watchdog
+   trip); (f) (b)'s dense restart in bf16: the exact streams counted, a
+   divergence stopped by the journal's named error; (g) ``train_lm``
+   saves with ``--ckpt_backend msgpack`` and ``orbax`` and ``serve_lm
+   --ckpt`` (``--ckpt_epoch 1`` too) serves each token-exact with the
+   same params bound in memory (``[serve-heal]`` lines).
    Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
@@ -422,7 +453,9 @@ entries carry each phase 28 run's launches a step,
 ``mp_launches_per_step``, and each phase 29 MoE run's,
 ``moe_launches_per_step``, and phase 30's restarted LM run's,
 ``heal_restart_launches`` (the fused SGD entry its restarted image
-run's); the decode entry carries phase 29's ``--sample`` launches,
+run's); rows 1, 2 and 3 carry phase 32's launches in its uninterrupted
+and restarted serves, ``serve_heal_launches`` (null on the rows phase 32
+does not run); the decode entry carries phase 29's ``--sample`` launches,
 ``moe_sample_launches``; rows 1-4 and their int8 twins carry phase 31's
 launches a pass on the M = 1 TP path, ``tp_launches_per_step``, and
 their checks and times at a rank's shapes, ``tp_shapes`` keyed
@@ -864,6 +897,49 @@ TP_PROFILE_STEPS = 4  # engine steps timed, then traced, by _tp_profile
 # the CUDA runtime calls in which the host waits for the card
 TP_HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                  "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
+
+# phase 32: fault-tolerant serving. Phase 4's workload in f32 (TF32 off),
+# its serve_lm variants (label, extra flags, decode variant, verify
+# variant), the fatal injected at the decode dispatch's 7th hit, the
+# token lines a child prints before its SIGKILL (half of 16 x 32) or
+# SIGTERM, and the drain deadline of that drill
+SERVE_HEAL_ARGV = ["--model", "gpt_small", "--random_init", "--dtype",
+                   "float32", "--max_slots", "8", "--synthetic", "16",
+                   "--max_new_tokens", "32", "--decode_horizon", "4",
+                   "--seed", "0"]
+SERVE_HEAL_RUNS = (
+    ("dense", [], "decode_attention", None),
+    ("paged", SERVE_PAGED, "paged_decode_attention", None),
+    ("spec", ["--draft_k", str(DRAFT_K)], "decode_attention",
+     "verify_decode_attention"),
+)
+SERVE_HEAL_FATAL = "seed=0;serving.decode_dispatch=fatal:1:6"
+SERVE_HEAL_RESTART = ["--max_restarts", "2", "--restart_backoff", "0"]
+SERVE_HEAL_KILL_AT = 256
+SERVE_HEAL_TERM_AT = 96
+SERVE_HEAL_DRAIN_S = 0.3
+# the signal goes this long after the line that triggers it: the child
+# has printed that step's events and is inside the next step
+SERVE_HEAL_SIGNAL_DELAY_S = 0.01
+SERVE_HEAL_DEADLINE_RUNNING_S = 0.5  # (e): a 512-token request's budget
+SERVE_HEAL_HANG_S, SERVE_HEAL_WATCHDOG_S = 3.0, 0.5
+# (g): train_lm's runs (HEAL_LM_ARGV: 4 bf16 steps an epoch) and the
+# serve of each checkpoint (8 requests x 16 tokens, f32)
+SERVE_HEAL_CKPT_ARGV = ["--model", "gpt_small", "--dtype", "float32",
+                        "--max_slots", "8", "--synthetic", "8",
+                        "--max_new_tokens", "16", "--decode_horizon", "4",
+                        "--seed", "0"]
+# a phase 32 child: serve_lm's main in a fresh interpreter with TF32 off
+# (the fault plan, if any, arms at import from its environment)
+SERVE_HEAL_CHILD = r"""
+import os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from pytorch_multiprocessing_distributed_tpu_torch import serve_lm
+serve_lm.main(sys.argv[1:])
+"""
 
 
 def _print(*parts):
@@ -4481,6 +4557,638 @@ def _tp_fields(tp, name):
             "tp_shapes": tp["rows"][name]}
 
 
+# ------------------------------------------------------------- phase 32
+
+
+class _Stamped(io.TextIOBase):
+    """A text stream that keeps each complete line with the
+    ``perf_counter`` time it was written."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+        self._buf = ""
+
+    def writable(self):
+        return True
+
+    def write(self, text):
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+    def text(self):
+        return "\n".join(line for _, line in self.lines)
+
+
+def _sh_transcripts(text):
+    """``{uid: tokens}`` of the ``req=<uid> tokens=[...]`` lines, raising
+    if a uid finished twice."""
+    found = re.findall(r"^req=(\S+) tokens=(\[.*\])$", text, re.M)
+    uids = [uid for uid, _ in found]
+    if len(set(uids)) != len(uids):
+        raise AssertionError(f"a uid was served twice: {sorted(uids)}")
+    return {uid: json.loads(toks) for uid, toks in found}
+
+
+def _sh_serve(serve_lm, argv, da, plan=None):
+    """``serve_lm.main(argv)`` in this process with its output captured
+    (the decode counts zeroed just before and read just after; a fault
+    plan of ``PMDT_FAULT_PLAN``'s grammar armed around it): (snapshot,
+    transcripts, stdout, stderr, launch counts)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime import faults
+
+    out, err = _Stamped(), _Stamped()
+    armed = (faults.armed(faults.plan_from_spec(plan)) if plan
+             else contextlib.nullcontext())
+    _zero_decode_counts(da)
+    with armed, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        snap = serve_lm.main(argv)
+    counts = _decode_counts(da)
+    return snap, _sh_transcripts(out.text()), out, err, counts
+
+
+def _sh_launches(label, snap, counts, decode_v, verify_v):
+    """The run's launches held to 12 a plain decode pass of its decode
+    variant and 12 an armed pass of its verify variant, none of any
+    other, over every engine it built (the snapshot's ``attempts``); the
+    snapshot's own count must agree. Returns ``{variant: launches}``."""
+    passes, counted = {}, {name: 0 for name in counts}
+    for attempt in snap["attempts"]:
+        for k, n in attempt["decode_passes_by_k"].items():
+            passes[int(k)] = passes.get(int(k), 0) + n
+        for name, n in attempt["decode_launches"].items():
+            counted[name] += n
+    plain = passes.get(0, 0)
+    armed = sum(n for k, n in passes.items() if k)
+    want = {name: 0 for name in counts}
+    want[decode_v] = 12 * plain
+    if verify_v is not None:
+        want[verify_v] = 12 * armed
+    if (counts != want or counted != counts or plain < 1
+            or (verify_v is not None and armed < 1)):
+        raise AssertionError(
+            f"[serve-heal] {label}: launches {counts} (snapshot "
+            f"{counted}) over passes {passes}; expected {want}")
+    return {n: c for n, c in counts.items() if c}
+
+
+@contextlib.contextmanager
+def _sh_journal_meter(heal):
+    """For the block: the wall time of every engine step (the journal's
+    write and fsync come after the step's ``decode_step`` metric stops,
+    so that metric cannot see them), every ``os.fsync``'s time, and each
+    journal's bytes before its compaction. Yields ``{"step_s", "steps",
+    "fsync_s", "fsyncs", "bytes"}``."""
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        ServingEngine)
+
+    meter = {"step_s": 0.0, "steps": 0, "fsync_s": 0.0, "fsyncs": 0,
+             "bytes": 0}
+    fsync, close = os.fsync, heal.RequestJournal.close
+    step = ServingEngine.step
+
+    def timed_step(self):
+        t0 = time.perf_counter()
+        try:
+            return step(self)
+        finally:
+            meter["step_s"] += time.perf_counter() - t0
+            meter["steps"] += 1
+
+    def timed_fsync(fd):
+        t0 = time.perf_counter()
+        try:
+            return fsync(fd)
+        finally:
+            meter["fsync_s"] += time.perf_counter() - t0
+            meter["fsyncs"] += 1
+
+    def sized_close(self, compact=True):
+        if self._fh is not None:
+            self._fh.flush()
+            meter["bytes"] += os.path.getsize(self.path)
+        return close(self, compact)
+
+    os.fsync, heal.RequestJournal.close = timed_fsync, sized_close
+    ServingEngine.step = timed_step
+    try:
+        yield meter
+    finally:
+        os.fsync, heal.RequestJournal.close = fsync, close
+        ServingEngine.step = step
+
+
+def _sh_reference(serve_lm, da, heal, smi, tmp):
+    """(a) the uninterrupted f32 runs with --journal, dense, paged and
+    speculative; dense in turns without and with the journal (the
+    journal's cost in the same call; the first serve of the process
+    warms it up). Returns ``{label: transcripts}``, the launches and the
+    journal's numbers."""
+    refs, launches, cost = {}, {}, {}
+    for label, extra, decode_v, verify_v in SERVE_HEAL_RUNS:
+        wal = os.path.join(tmp, f"ref-{label}.jsonl")
+        runs = ((("plain", False),) + (("journal", True),
+                                         ("plain", False)) * 3
+                if label == "dense" else (("journal", True),))
+        for name, journal in runs:
+            argv = SERVE_HEAL_ARGV + extra
+            if journal:
+                argv = argv + ["--journal", wal]
+            with _sh_journal_meter(heal) as meter:
+                snap, got, _, _, counts = _sh_serve(serve_lm, argv, da)
+            if len(got) != 16 or snap["requests_completed"] != 16:
+                raise AssertionError(
+                    f"[serve-heal] (a) {label} {name}: {len(got)}/16 "
+                    "requests finished")
+            if label in refs and got != refs[label]:
+                raise AssertionError(
+                    f"[serve-heal] (a) {label}: the transcripts with and "
+                    "without --journal differ")
+            refs[label] = got
+            launches[label] = _sh_launches(f"(a) {label}", snap, counts,
+                                           decode_v, verify_v)
+            if journal:
+                if os.path.getsize(wal) != 0:
+                    raise AssertionError(
+                        f"[serve-heal] (a) {label}: the journal holds "
+                        f"{os.path.getsize(wal)} bytes after the clean "
+                        "drain")
+            step_ms = meter["step_s"] * 1e3 / meter["steps"]
+            tps = snap["tokens_generated"] / meter["step_s"]
+            if label == "dense":
+                cost.setdefault("runs", []).append((name, step_ms, tps))
+                if journal and "fsync_ms_per_step" not in cost:
+                    cost["fsync_ms_per_step"] = (
+                        meter["fsync_s"] * 1e3 / meter["steps"])
+                    cost["fsync_ms_per_call"] = (
+                        meter["fsync_s"] * 1e3 / max(1, meter["fsyncs"]))
+                    cost["fsyncs"] = meter["fsyncs"]
+                    cost["steps"] = meter["steps"]
+                    cost["bytes_per_token"] = (
+                        meter["bytes"] / snap["tokens_generated"])
+                    cost["bytes"] = meter["bytes"]
+            _print(f"[serve-heal] (a) {label} {name}: gpt_small f32 16 "
+                   f"requests x 32 tokens, 8 slots, horizon 4: 16/16 "
+                   f"done, passes by k {snap['decode_passes_by_k']}, "
+                   f"launches {launches[label]} (12 a pass), engine step "
+                   f"{step_ms:.3f} ms ({meter['steps']} steps), tokens/s "
+                   f"{tps:.1f} over the steps' wall, decode_step metric "
+                   f"{snap['decode_step_avg_s'] * 1e3:.3f} ms"
+                   + (", journal empty after the drain" if journal
+                      else "") + f" [{smi}]")
+    for name in ("plain", "journal"):
+        # the process's first serve (a warm-up) left out
+        runs = [r for r in cost["runs"][1:] if r[0] == name]
+        cost[f"{name}_step_ms"] = statistics.median(r[1] for r in runs)
+        cost[f"{name}_tokens_per_s"] = statistics.median(r[2] for r in runs)
+    _print(f"[serve-heal] journal cost (dense f32, same call, in turns; "
+           f"the first is the process's first serve): engine step ms "
+           + ", ".join(f"{n} {ms:.3f}" for n, ms, _ in cost["runs"])
+           + "; tokens/s " + ", ".join(f"{n} {t:.1f}"
+                                      for n, _, t in cost["runs"])
+           + f"; medians after the first: step {cost['journal_step_ms']:.3f}"
+           f" ms with the journal, {cost['plain_step_ms']:.3f} without, "
+           f"tokens/s {cost['journal_tokens_per_s']:.1f} and "
+           f"{cost['plain_tokens_per_s']:.1f}"
+           + f"; fsync {cost['fsync_ms_per_step']:.3f} ms an engine step "
+           f"({cost['fsyncs']} fsyncs in {cost['steps']} steps, 16 of them "
+           f"at admission and 2 at the compaction, "
+           f"{cost['fsync_ms_per_call']:.3f} ms each), "
+           f"journal {cost['bytes']} bytes before compaction = "
+           f"{cost['bytes_per_token']:.1f} bytes a token [{smi}]")
+    return refs, launches, cost
+
+
+@contextlib.contextmanager
+def _sh_build_memory(serve_lm):
+    """For the block: the card's allocated bytes just before each engine
+    ``serve_lm`` builds (a restart must not hold the crashed engine's
+    KV pool beside the new one)."""
+    import torch
+
+    real, seen = serve_lm.ServingEngine, []
+
+    def build(*args, **kwargs):
+        torch.cuda.synchronize()
+        seen.append(torch.cuda.memory_allocated())
+        return real(*args, **kwargs)
+
+    serve_lm.ServingEngine = build
+    try:
+        yield seen
+    finally:
+        serve_lm.ServingEngine = real
+
+
+def _sh_restart(serve_lm, da, smi, tmp, refs, dtype="float32"):
+    """(b) and (f): the fatal at the decode dispatch under --max_restarts
+    2 --journal, in process. f32: each run of SERVE_HEAL_RUNS restarts
+    once and is token-exact with (a). bf16 (``refs`` its own reference):
+    the dense run's exact streams counted, a divergence named. Returns
+    ``{label: result}``."""
+    out = {}
+    runs = (SERVE_HEAL_RUNS if dtype == "float32"
+            else SERVE_HEAL_RUNS[:1])
+    for label, extra, decode_v, verify_v in runs:
+        wal = os.path.join(tmp, f"restart-{label}-{dtype}.jsonl")
+        argv = (SERVE_HEAL_ARGV + extra + SERVE_HEAL_RESTART
+                + ["--journal", wal])
+        argv[argv.index("float32")] = dtype
+        if dtype == "float32":
+            with _sh_build_memory(serve_lm) as built:
+                snap, got, sout, serr, counts = _sh_serve(
+                    serve_lm, argv, da, SERVE_HEAL_FATAL)
+        else:
+            from pytorch_multiprocessing_distributed_tpu_torch.runtime import (
+                heal)
+
+            try:
+                with _sh_build_memory(serve_lm) as built:
+                    snap, got, sout, serr, counts = _sh_serve(
+                        serve_lm, argv, da, SERVE_HEAL_FATAL)
+            except heal.RestartBudgetExhausted as e:
+                if "diverged" not in str(e):
+                    raise
+                out[label] = dict(exact=None, error=str(e))
+                _print(f"[serve-heal] (f) {label} bf16: the replay "
+                       f"diverged, named: {type(e).__name__}: {e} [{smi}]")
+                continue
+        if snap["restarts"] != 1:
+            raise AssertionError(f"[serve-heal] {label} {dtype}: "
+                                 f"{snap['restarts']} restarts, expected 1")
+        # the crashed engine's pool freed before the rebuilt one's
+        if len(built) != 2 or built[1] - built[0] >= snap["kv_pool_bytes"]:
+            raise AssertionError(
+                f"[serve-heal] {label} {dtype}: allocated bytes before "
+                f"each engine {built}, the pool {snap['kv_pool_bytes']}: "
+                "the crashed engine's pool was held at the rebuild")
+        rebuilt = [t for t, line in sout.lines
+                   if line.startswith("graftheal: restart 1: engine rebuilt")]
+        fatal = [t for t, line in serr.lines
+                 if line.startswith("graftheal: restart 1/")]
+        if len(rebuilt) != 1 or len(fatal) != 1:
+            raise AssertionError(f"[serve-heal] {label} {dtype}: restart "
+                                 f"lines {len(fatal)} / {len(rebuilt)}")
+        first = min(t for t, line in sout.lines
+                    if t >= rebuilt[0] and line.startswith("req="))
+        exact = sum(got.get(uid) == toks for uid, toks in refs[label].items())
+        result = dict(exact=exact, restart_s=first - fatal[0],
+                      redelivered=snap["requests_redelivered"],
+                      launches=_sh_launches(f"{label} {dtype}", snap,
+                                            counts, decode_v, verify_v))
+        if dtype == "float32" and (exact != 16 or len(got) != 16):
+            raise AssertionError(
+                f"[serve-heal] (b) {label}: {exact}/16 streams token-exact "
+                f"with (a) after the restart ({len(got)} finished)")
+        if os.path.getsize(wal) != 0:
+            raise AssertionError(f"[serve-heal] {label} {dtype}: journal "
+                                 "not empty after the drain")
+        out[label] = result
+        _print(f"[serve-heal] ({'b' if dtype == 'float32' else 'f'}) "
+               f"{label} {dtype}: fatal at serving.decode_dispatch hit 7, "
+               f"1 restart, {snap['requests_redelivered']} requests "
+               f"redelivered, {exact}/16 streams token-exact with the "
+               f"uninterrupted run, passes by k (each engine) "
+               f"{[a['decode_passes_by_k'] for a in snap['attempts']]}, "
+               f"launches "
+               f"{result['launches']} (12 a pass), allocated bytes "
+               f"before each engine {built} (pool {snap['kv_pool_bytes']}), "
+               f"fatal to the rebuilt "
+               f"engine's first token {result['restart_s']:.3f} s [{smi}]")
+    return out
+
+
+def _sh_child(argv, env):
+    return subprocess.Popen(
+        [sys.executable, "-u", "-c", SERVE_HEAL_CHILD, *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _sh_stream(proc, stop_at, sig, timeout_s=HEAL_CHILD_TIMEOUT):
+    """``proc``'s stdout lines with their arrival times; ``sig`` is sent
+    SERVE_HEAL_SIGNAL_DELAY_S after the ``stop_at``-th token line (None:
+    read to the end). Returns (lines, its exit code, its stderr, the
+    time the signal was sent)."""
+    lines, toks, sent = [], 0, None
+    for line in _lines_until(proc, time.monotonic() + timeout_s):
+        lines.append((time.perf_counter(), line.rstrip("\n")))
+        if line.startswith("req=") and " tok=" in line:
+            toks += 1
+            if sig is not None and toks == stop_at:
+                time.sleep(SERVE_HEAL_SIGNAL_DELAY_S)
+                sent = time.perf_counter()
+                proc.send_signal(sig)
+    try:
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return lines, rc, proc.stderr.read(), sent
+
+
+def _sh_kill(smi, tmp, ref):
+    """(c) SIGKILL of a serve_lm process at half its tokens, then the
+    same command again: the two transcripts together are (a)'s, no uid
+    finished in both, and the journal is empty after the re-run. A
+    request the killed process journaled done (the step's fsync) but
+    had not printed yet (the kill landed between the two) is read from
+    the journal as the kill left it, and counted."""
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime import heal
+
+    wal = os.path.join(tmp, "kill.jsonl")
+    metrics = os.path.join(tmp, "kill-metrics.json")
+    argv = SERVE_HEAL_ARGV + ["--journal", wal, "--metrics_out", metrics]
+    env = _heal_env()
+    first, rc, _, _ = _sh_stream(_sh_child(argv, env), SERVE_HEAL_KILL_AT,
+                                 signal.SIGKILL)
+    if rc != -signal.SIGKILL:
+        raise AssertionError(f"[serve-heal] (c) the first run exited {rc}, "
+                             "not by the SIGKILL")
+    before = _sh_transcripts("\n".join(line for _, line in first))
+    unprinted = {e.uid: e.tokens for e in heal.load_journal_entries(wal)
+                 if e.done and e.uid not in before}
+    t0 = time.perf_counter()
+    second, rc, err, _ = _sh_stream(_sh_child(argv, env), None, None)
+    if rc != 0:
+        raise AssertionError(f"[serve-heal] (c) the re-run exited {rc}:\n"
+                             f"{err[-3000:]}")
+    after = _sh_transcripts("\n".join(line for _, line in second))
+    both = set(before) & set(after)
+    served_again = {line.split()[0][4:] for _, line in second
+                    if line.startswith("req=")} & set(before)
+    if both or served_again:
+        raise AssertionError(f"[serve-heal] (c) uids served in both runs: "
+                             f"{sorted(both | served_again)}")
+    if set(unprinted) & set(after) or {**before, **unprinted,
+                                       **after} != ref:
+        raise AssertionError("[serve-heal] (c) the two runs' transcripts "
+                             "are not the uninterrupted run's")
+    if os.path.getsize(wal) != 0:
+        raise AssertionError("[serve-heal] (c) journal not empty after "
+                             "the re-run")
+    with open(metrics) as f:
+        snap = json.load(f)
+    redelivered = snap["requests_redelivered"]
+    first_tok = min(t for t, line in second if line.startswith("req="))
+    _print(f"[serve-heal] (c) SIGKILL after {SERVE_HEAL_KILL_AT} of 512 "
+           f"tokens ({len(before)} requests finished, {len(unprinted)} "
+           f"more journaled done but not yet printed), the same command "
+           f"again: {redelivered} redelivered, {len(after)} finished, the "
+           f"union token-exact with (a), no uid served twice; re-run start "
+           f"to its first redelivered token {first_tok - t0:.3f} s "
+           f"(process start included) [{smi}]")
+    return dict(first_token_s=first_tok - t0, redelivered=redelivered)
+
+
+def _sh_term(smi, tmp, ref):
+    """(d) SIGTERM with --drain_deadline_s: exit 0, every admitted request
+    finished token-exact or failed named (DeadlineExceeded, reason
+    drain), and terminal in the journal (empty after the compaction)."""
+    wal = os.path.join(tmp, "term.jsonl")
+    metrics = os.path.join(tmp, "term-metrics.json")
+    argv = SERVE_HEAL_ARGV + ["--journal", wal, "--metrics_out", metrics,
+                              "--drain_deadline_s", str(SERVE_HEAL_DRAIN_S)]
+    proc = _sh_child(argv, _heal_env())
+    lines, rc, err, term_t = _sh_stream(proc, SERVE_HEAL_TERM_AT,
+                                        signal.SIGTERM)
+    exit_s = time.perf_counter() - term_t
+    if rc != 0:
+        raise AssertionError(f"[serve-heal] (d) exit {rc} after SIGTERM:\n"
+                             f"{err[-3000:]}")
+    done = _sh_transcripts("\n".join(line for _, line in lines))
+    failed = re.findall(r"^failed: req=(\S+) reason=(\S+) (\w+):", err,
+                        re.M)
+    with open(metrics) as f:
+        snap = json.load(f)
+    wrong = {uid: toks for uid, toks in done.items() if ref[uid] != toks}
+    if (wrong or any(r != "drain" or e != "DeadlineExceeded"
+                     for _, r, e in failed)
+            or snap["requests_failed"] != len(failed)
+            or snap["requests_completed"] != len(done)
+            or len(done) + len(failed) != 16):
+        raise AssertionError(
+            f"[serve-heal] (d) finished {sorted(done)} (not exact: "
+            f"{sorted(wrong)}), failed {failed}, snapshot completed "
+            f"{snap['requests_completed']} failed {snap['requests_failed']}")
+    if os.path.getsize(wal) != 0:
+        raise AssertionError("[serve-heal] (d) an admitted request is not "
+                             "terminal in the journal")
+    _print(f"[serve-heal] (d) SIGTERM after {SERVE_HEAL_TERM_AT} tokens, "
+           f"--drain_deadline_s {SERVE_HEAL_DRAIN_S}: exit 0, {len(done)} "
+           f"finished token-exact, {len(failed)} failed named "
+           f"DeadlineExceeded (reason drain), journal empty; the drain "
+           f"{snap['drain_s']:.3f} s, SIGTERM to exit {exit_s:.3f} s [{smi}]")
+    return dict(drain_s=snap["drain_s"], exit_s=exit_s, done=len(done),
+                failed=len(failed))
+
+
+def _sh_engine(torch, serve_lm, smi):
+    """(e) the engine API on gpt_small f32 (8 requests, 8 slots, horizon
+    4): a transient error:2 at the dispatch (2 retries, the horizon
+    collapsed in the cooldown, streams exact), deadlines (failed named,
+    the rest exact), a hung readback under the watchdog."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime.faults import (
+        DeadlineExceeded, FaultPlan, FaultRule, FaultTimeout, armed)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        ServingEngine, init_params)
+
+    model = get_model("gpt_small", dtype=torch.float32)
+    model.load_state_dict(init_params(model, 0, "cuda"), assign=True)
+    args = serve_lm.build_parser().parse_args(SERVE_HEAL_ARGV)
+    requests = list(serve_lm._load_requests(args, model.vocab_size, []))[:8]
+    kw = dict(max_slots=8, decode_horizon=4)
+    base = [r.tokens for r in ServingEngine(model, **kw).serve(requests)]
+
+    engine = ServingEngine(model, **kw)
+    plan = FaultPlan([FaultRule("serving.decode_dispatch", "error",
+                                times=2, after=3)])
+    with armed(plan):
+        got = [r.tokens for r in engine.serve(requests)]
+    snap = engine.metrics.snapshot()
+    if (plan.triggered() != 2 or snap["dispatch_retries"] != 2
+            or snap["horizon_collapses"] < 1 or got != base):
+        raise AssertionError(
+            f"[serve-heal] (e) transient: {plan.triggered()} faults, "
+            f"{snap['dispatch_retries']} retries, "
+            f"{snap['horizon_collapses']} collapses, streams exact "
+            f"{got == base}")
+    _print(f"[serve-heal] (e) error:2 at serving.decode_dispatch (hit 4): "
+           f"{snap['dispatch_retries']} retries, "
+           f"{snap['horizon_collapses']} horizon collapses, 8/8 streams "
+           f"exact with the fault-free engine [{smi}]")
+
+    engine = ServingEngine(model, **kw)
+    doomed = (1, 4, 6)
+    reqs = []
+    for i, (prompt, max_new) in enumerate(requests):
+        if i in doomed:
+            reqs.append(engine.submit(prompt, max_new, deadline_s=0.0))
+        elif i == 7:
+            reqs.append(engine.submit(
+                prompt, 512, deadline_s=SERVE_HEAL_DEADLINE_RUNNING_S))
+        else:
+            reqs.append(engine.submit(prompt, max_new))
+    for _ in engine.run():
+        pass
+    for i, r in enumerate(reqs):
+        if i in doomed or i == 7:
+            ok = (r.state == "failed" and r.finish_reason == "deadline"
+                  and isinstance(r.error, DeadlineExceeded)
+                  and (not r.tokens if i in doomed else
+                       0 < len(r.tokens) < 512
+                       and r.tokens[:32] == base[7][:len(r.tokens)]))
+        else:
+            ok = r.state == "done" and r.tokens == base[i]
+        if not ok:
+            raise AssertionError(
+                f"[serve-heal] (e) deadline: request {i} {r.state} "
+                f"{r.finish_reason} {len(r.tokens)} tokens")
+    _print(f"[serve-heal] (e) deadlines: requests {list(doomed)} "
+           f"(deadline 0 s) failed DeadlineExceeded in the queue, request 7 "
+           f"(512 tokens, {SERVE_HEAL_DEADLINE_RUNNING_S} s) evicted "
+           f"running after {len(reqs[7].tokens)} tokens, the other 4 "
+           f"streams exact [{smi}]")
+
+    engine = ServingEngine(model, readback_timeout_s=SERVE_HEAL_WATCHDOG_S,
+                           **kw)
+    plan = FaultPlan([FaultRule("serving.horizon_readback", "hang",
+                                hang_s=SERVE_HEAL_HANG_S)])
+    raised = None
+    t0 = time.perf_counter()
+    with armed(plan):
+        try:
+            engine.serve(requests)
+        except FaultTimeout as e:
+            raised = e
+    wall = time.perf_counter() - t0
+    if (raised is None or engine.metrics.watchdog_trips != 1
+            or not engine.health.dead):
+        raise AssertionError(
+            f"[serve-heal] (e) watchdog: raised {raised!r}, trips "
+            f"{engine.metrics.watchdog_trips}, health "
+            f"{engine.health.state}")
+    _print(f"[serve-heal] (e) hang {SERVE_HEAL_HANG_S} s at "
+           f"serving.horizon_readback under readback_timeout_s "
+           f"{SERVE_HEAL_WATCHDOG_S}: FaultTimeout, 1 watchdog trip, engine "
+           f"DEAD, {wall:.3f} s from the serve's start [{smi}]")
+    time.sleep(SERVE_HEAL_HANG_S)  # the hung readback thread ends
+    del model, engine
+
+
+def _sh_ckpt(torch, serve_lm, train_lm, da, smi, tmp):
+    """(g) train_lm saves (msgpack: model_1.pth; orbax: epochs 1 and 2),
+    serve_lm --ckpt serves each (--ckpt_epoch 1 pins one), and each
+    transcript equals an engine on the same params read straight from
+    the checkpoint into memory."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        ServingEngine)
+    from pytorch_multiprocessing_distributed_tpu_torch.train.orbax_ckpt import (
+        OrbaxCheckpointer)
+
+    runs = {}
+    for backend, epochs in (("msgpack", 1), ("orbax", 2)):
+        path = os.path.join(tmp, f"train-{backend}")
+        t0 = time.perf_counter()
+        train_lm.main(HEAL_LM_ARGV + [
+            "--epochs", str(epochs), "--save_every", "1", "--ckpt_backend",
+            backend, "--save_path", path])
+        runs[backend] = (path, time.perf_counter() - t0)
+    model = get_model("gpt_small", dtype=torch.float32)
+    args = serve_lm.build_parser().parse_args(
+        SERVE_HEAL_CKPT_ARGV + ["--random_init"])
+    requests = list(serve_lm._load_requests(args, model.vocab_size, []))
+    cases = (("msgpack", ["--ckpt", os.path.join(runs["msgpack"][0],
+                                                 "model_1.pth")], 1),
+             ("orbax", ["--ckpt", runs["orbax"][0]], 2),
+             ("orbax", ["--ckpt", runs["orbax"][0], "--ckpt_epoch", "1"], 1))
+    for backend, flags, epoch in cases:
+        snap, got, _, _, counts = _sh_serve(
+            serve_lm, SERVE_HEAL_CKPT_ARGV + flags, da)
+        if backend == "msgpack":
+            payload = torch.load(flags[1], map_location="cpu",
+                                 weights_only=True)
+        else:
+            payload = OrbaxCheckpointer(runs["orbax"][0]).load_payload(epoch)
+        params = {k[len("params/"):].replace("/", "."): v.to("cuda")
+                  for k, v in payload.items() if k.startswith("params/")}
+        model = get_model("gpt_small", dtype=torch.float32)
+        model.load_state_dict(params, assign=True)
+        mem = ServingEngine(model, max_slots=8, decode_horizon=4).serve(
+            requests)
+        want = {f"src-{i}": r.tokens for i, r in enumerate(mem)}
+        if got != want:
+            raise AssertionError(
+                f"[serve-heal] (g) {backend} epoch {epoch}: serve_lm --ckpt "
+                "differs from the in-memory params")
+        _print(f"[serve-heal] (g) train_lm --ckpt_backend {backend} "
+               f"({runs[backend][1]:.1f} s) -> serve_lm "
+               f"{' '.join(flags[2:]) or '(latest)'} epoch {epoch}: 8 "
+               f"requests x 16 tokens token-exact with the same params in "
+               f"memory, launches { {n: c for n, c in counts.items() if c} }"
+               f" [{smi}]")
+
+
+def _serve_heal_phase(torch, serve_lm, train_lm, da, smi):
+    """Phase 32 (see the module docstring). Returns the kernels line's
+    additions: each decode and verify row's launches in (a) and (b)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime import heal
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            refs, ref_launches, cost = _sh_reference(serve_lm, da, heal, smi,
+                                                     tmp)
+            restart = _sh_restart(serve_lm, da, smi, tmp, refs)
+            kill = _sh_kill(smi, tmp, refs["dense"])
+            term = _sh_term(smi, tmp, refs["dense"])
+            _sh_engine(torch, serve_lm, smi)
+            argv = SERVE_HEAL_ARGV + ["--journal",
+                                      os.path.join(tmp, "ref-bf16.jsonl")]
+            argv[argv.index("float32")] = "bfloat16"
+            _, bf16_ref, _, _, _ = _sh_serve(serve_lm, argv, da)
+            bf16 = _sh_restart(serve_lm, da, smi, tmp, {"dense": bf16_ref},
+                               dtype="bfloat16")["dense"]
+            _print(f"[serve-heal] (f) bf16 dense restart: "
+                   + (f"{bf16['exact']}/16 streams token-exact with the "
+                      "uninterrupted bf16 run" if bf16["exact"] is not None
+                      else "the replay diverged and stopped named")
+                   + f" [{smi}]")
+            _sh_ckpt(torch, serve_lm, train_lm, da, smi, tmp)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    launches = {}
+    for label, _, decode_v, verify_v in SERVE_HEAL_RUNS:
+        for name in (decode_v, verify_v):
+            if name is not None:
+                entry = launches.setdefault(name, {})
+                entry[f"reference_{label}"] = ref_launches[label][name]
+                entry[f"restart_{label}"] = restart[label]["launches"][name]
+    _print(f"[serve-heal] phase 32 wall {time.perf_counter() - t0:.1f} s "
+           f"[{smi}]")
+    return dict(launches=launches, cost=cost, restart=restart, kill=kill,
+                term=term, bf16=bf16)
+
+
+def _serve_heal_fields(sh, name):
+    """A decode or verify row's phase 32 keys in the kernels line."""
+    return {"serve_heal_launches": sh["launches"].get(name)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4562,6 +5270,15 @@ def main() -> int:
         _print(f"[build] {time.perf_counter() - t0:.2f} s")
         _tp_phase(torch, serve_lm, F, da, quantize_kv, rate, smi)
         _print(f"[total] chip_smoke --tp-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--serve-heal-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        reports = _build.build_all()  # the children find the kernels built
+        _print(f"[build] {len(reports)} source(s) in "
+               f"{time.perf_counter() - t0:.2f} s")
+        _serve_heal_phase(torch, serve_lm, train_lm, da, smi)
+        _print(f"[total] chip_smoke --serve-heal-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--heal-only" in sys.argv[1:]:
@@ -5785,6 +6502,9 @@ def main() -> int:
 
     # -- phase 31: tensor-parallel serving, one card and across the cards
     tp = _tp_phase(torch, serve_lm, F, da, quantize_kv, rate, smi)
+
+    # -- phase 32: fault-tolerant serving, and serving from training
+    serve_heal = _serve_heal_phase(torch, serve_lm, train_lm, da, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -5856,6 +6576,7 @@ def main() -> int:
         "moe_sample_launches": {f"top{k}": moe["cli"][f"top{k}"][
             "decode_launches"] for k in (1, 2)},
         **_tp_fields(tp, "decode_attention"),
+        **_serve_heal_fields(serve_heal, "decode_attention"),
         **{f"w{max(WINDOWS)}_{key}": row1_long[key]
            for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")}}]
@@ -5898,7 +6619,8 @@ def main() -> int:
                    "dequantized dense window",
         "shape": variant_main[variant]["shape"],
         "head_dim_ms": _by_head_dim(hd_times, VARIANTS[variant][0]),
-        **_tp_fields(tp, variant)}
+        **_tp_fields(tp, variant),
+        **_serve_heal_fields(serve_heal, variant)}
         for variant in VARIANTS] + [{
         "name": variant, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"
@@ -5917,7 +6639,8 @@ def main() -> int:
                    "mask on the gathered, dequantized dense window",
         "shape": verify_main[variant]["shape"],
         "head_dim_ms": _by_head_dim(hd_times, VERIFY_VARIANTS[variant][0]),
-        **_tp_fields(tp, variant)}
+        **_tp_fields(tp, variant),
+        **_serve_heal_fields(serve_heal, variant)}
         for variant in VERIFY_VARIANTS] + [{
         "name": "ring_all_reduce", "kernel": RING_KERNEL, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"

@@ -1,6 +1,5 @@
-"""Elastic supervision for training: liveness, coordinated abort and
-supervised restart (the training half of the JAX package's
-``runtime/heal.py``).
+"""Elastic supervision: liveness, coordinated abort, supervised restart
+and graceful drain (the port of the JAX package's ``runtime/heal.py``).
 
 1. **Heartbeat liveness** over a control-plane store
    (:class:`~.store.TCPStore` or :class:`~.store.MemStore`): every rank
@@ -32,18 +31,34 @@ Env hook: ``PMDT_HEARTBEAT="soft:hard[:interval]"`` (seconds) arms a
 monitor over the rendezvous store during ``PMDT_MASTER_ADDR`` bring-up
 (:mod:`..parallel.dist`).
 
-Not ported yet, as they belong to serving and ``--stats_port``
-(ROADMAP.md §1 items 7 and 8): the request journal, the drain handler,
-``HealthState`` and ``healthz``. The JAX module's observability events
-and flight-recorder dumps (``scope.emit``, ``flight_dump``) wait for
-the observability twin and are left out.
+4. **Graceful drain** for serving: :class:`HealthState` is the
+   forward-only machine ``STARTING -> READY -> DRAINING -> DEAD`` the
+   serving engine carries, and :func:`healthz` its payload (the HTTP
+   server behind ``--stats_port`` waits for ROADMAP.md §1 item 8).
+   SIGTERM, through :func:`install_drain_handler` (which chains the
+   previous handler), flips it to DRAINING: admission closes, in-flight
+   requests finish up to the drain deadline, overdue ones fail named.
+   The :class:`RequestJournal` (a JSON Lines WAL, one fsync'd batch a
+   step, compacted through
+   :func:`..train.checkpoint.write_atomic_durable`) records every
+   admitted request and its emitted tokens, so a restarted engine
+   redelivers the unfinished ones token-exact: the journaled prefix is
+   verified as the greedy decode regenerates it, and a divergence is a
+   named error, never a silent double delivery. Its files are
+   byte-identical to the JAX journal's for the same operations.
+
+The JAX module's observability events, lifecycle-ledger hooks and
+flight-recorder dumps (``scope.emit``, ``life``, ``flight_dump``) wait
+for the observability twin (ROADMAP.md §1 item 8) and are left out.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
 import sys
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -53,8 +68,12 @@ from .faults import (GraftFaultError, PeerLostError, maybe_fault,
 __all__ = [
     "ALIVE", "SUSPECT", "DEAD_PEER", "LivenessTracker", "Heartbeat",
     "HeartbeatMonitor", "post_poison", "check_poison", "clear_poison",
-    "Supervisor", "RestartBudgetExhausted", "arm", "disarm",
-    "active_monitor", "monitor_from_env",
+    "STARTING", "READY", "DRAINING", "DEAD", "HealthState", "healthz",
+    "healthz_code",
+    "Supervisor", "RestartBudgetExhausted", "JournalEntry",
+    "RequestJournal", "load_journal_entries", "install_drain_handler",
+    "restore_drain_handler", "arm", "disarm", "active_monitor",
+    "monitor_from_env",
 ]
 
 _SITE_HB_WRITE = register_site(
@@ -65,6 +84,10 @@ _SITE_HB_READ = register_site(
     "heartbeat.read",
     "peer-beat + poison-key fetch from the control-plane store (one "
     "poll of the liveness gate)")
+_SITE_JOURNAL = register_site(
+    "heal.journal_write",
+    "request-journal WAL append (admit/token/done records the "
+    "redelivery guarantee rests on)")
 _SITE_RESTART = register_site(
     "heal.restart",
     "one supervised restart attempt (rendezvous re-run + target "
@@ -364,6 +387,87 @@ def monitor_from_env(store, host: str, peers: Sequence[str]
         interval_s=interval))
 
 
+# -------------------------------------------------------- health states
+
+STARTING = "starting"
+READY = "ready"
+DRAINING = "draining"
+DEAD = "dead"
+
+_ORDER = {STARTING: 0, READY: 1, DRAINING: 2, DEAD: 3}
+
+
+class HealthState:
+    """The serving engine's health machine: ``STARTING -> READY ->
+    DRAINING -> DEAD``, forward only (re-entering a state is a no-op and
+    keeps its first reason; moving backward raises: a DEAD engine never
+    advertises READY again). ``/healthz`` serves 200 only in READY."""
+
+    def __init__(self):
+        self.state = STARTING
+        self.reason = "init"
+        self.since = time.perf_counter()
+
+    def _to(self, state: str, reason: str) -> None:
+        if _ORDER[state] < _ORDER[self.state]:
+            raise ValueError(
+                f"health cannot move backward: {self.state} -> {state}")
+        if state == self.state:
+            return
+        self.state = state
+        self.reason = reason
+        self.since = time.perf_counter()
+
+    def to_ready(self, reason: str = "up") -> None:
+        self._to(READY, reason)
+
+    def to_draining(self, reason: str = "drain") -> None:
+        self._to(DRAINING, reason)
+
+    def to_dead(self, reason: str = "down") -> None:
+        self._to(DEAD, reason)
+
+    @property
+    def ready(self) -> bool:
+        return self.state == READY
+
+    @property
+    def draining(self) -> bool:
+        return self.state == DRAINING
+
+    @property
+    def dead(self) -> bool:
+        return self.state == DEAD
+
+    def snapshot(self) -> Dict:
+        """``state`` (lowercase, drives the HTTP code), ``state_name``
+        (the UPPERCASE machine state a router keys on), the reason and
+        the dwell time."""
+        return {"state": self.state, "state_name": self.state.upper(),
+                "reason": self.reason,
+                "since_s": round(time.perf_counter() - self.since, 3)}
+
+
+def healthz(health: Optional[HealthState],
+            monitor: Optional[HeartbeatMonitor] = None) -> Dict:
+    """The ``/healthz`` payload: the health machine's snapshot (a static
+    READY without one) and, with a monitor armed, every peer's last-beat
+    age. The HTTP code is 200 for ``state == "ready"``, else 503
+    (:func:`healthz_code`)."""
+    out = (health.snapshot() if health is not None
+           else {"state": READY, "state_name": READY.upper(),
+                 "reason": "static", "since_s": 0.0})
+    if monitor is not None:
+        out.update(monitor.snapshot())
+    return out
+
+
+def healthz_code(payload: Dict) -> int:
+    """The HTTP status ``/healthz`` answers ``payload`` with: 200 while
+    READY, 503 otherwise (the replica router's probe contract)."""
+    return 200 if payload.get("state") == READY else 503
+
+
 # --------------------------------------------------- supervised restart
 
 class RestartBudgetExhausted(GraftFaultError):
@@ -441,3 +545,328 @@ class Supervisor:
                       f"{delay:g}s)", file=sys.stderr, flush=True)
                 if delay > 0:
                     self.sleep(delay)
+
+
+# ----------------------------------------------------- request journal
+
+class JournalEntry:
+    """One journaled request: its identity and the tokens already
+    emitted (the prefix a redelivery is verified against)."""
+
+    __slots__ = ("uid", "prompt", "max_new_tokens", "eos_id", "tokens",
+                 "done", "state", "reason", "emitted")
+
+    def __init__(self, uid, prompt, max_new_tokens, eos_id):
+        self.uid = uid
+        self.prompt = list(prompt)
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_id = eos_id
+        self.tokens: List[int] = []
+        self.done = False
+        self.state = None
+        self.reason = None
+        # tokens seen from the current engine: positions below
+        # len(tokens) are replay, beyond are new
+        self.emitted = 0
+
+
+def _apply_journal_record(entries: Dict, order: List, obj: Dict) -> None:
+    """Fold one WAL record into ``(entries, order)``: the one copy of
+    the replay rules, shared by the live journal and the loader."""
+    op = obj.get("op")
+    uid = obj.get("uid")
+    if op == "admit":
+        if uid not in entries:
+            entries[uid] = JournalEntry(uid, obj["prompt"],
+                                        obj["max_new_tokens"],
+                                        obj.get("eos_id"))
+            order.append(uid)
+    elif op == "tok":
+        entry = entries.get(uid)
+        if entry is not None:
+            entry.tokens.extend(int(t) for t in obj["tokens"])
+    elif op == "done":
+        entry = entries.get(uid)
+        if entry is not None:
+            entry.done = True
+            entry.state = obj.get("state")
+            entry.reason = obj.get("reason")
+
+
+def _read_records(path: str, what: str):
+    """The parsed records of a WAL, a torn line (the crash window of an
+    append) reported on stderr and skipped, never fatal."""
+    with open(path, "r", encoding="utf-8") as fh:
+        lines = fh.read().split("\n")
+    for lineno, line in enumerate(lines, 1):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            yield json.loads(line)
+        except ValueError:
+            print(f"graftheal: journal {path!r} line {lineno} is torn "
+                  f"(crashed mid-append); skipping it and {what} the "
+                  "rest", file=sys.stderr)
+
+
+def load_journal_entries(path: str) -> List[JournalEntry]:
+    """A WAL's entries, read without opening it for append (the file is
+    never changed); torn lines are skipped as on replay, and a missing
+    or unreadable file is an empty journal."""
+    entries: Dict[object, JournalEntry] = {}
+    order: List[object] = []
+    try:
+        for obj in _read_records(path, "reading"):
+            _apply_journal_record(entries, order, obj)
+    except OSError:
+        return []
+    return [entries[u] for u in order]
+
+
+class RequestJournal:
+    """JSON Lines write-ahead log of admitted requests and their emitted
+    tokens: the redelivery guarantee behind supervised restart.
+
+    Records, one ``json.dumps(sort_keys=True)`` object a line:
+      ``{"op": "admit", "uid", "prompt", "max_new_tokens", "eos_id"}``
+      ``{"op": "tok", "uid", "tokens": [...]}``   (one batch a step)
+      ``{"op": "done", "uid", "state", "reason"}``
+
+    Each batch is written and flushed under bounded retry at the
+    ``heal.journal_write`` site, then fsync'd after the lock is released
+    (fsync covers the whole file, so a later batch's sync covers an
+    earlier one); exhaustion raises a named ``GraftFaultError`` (a WAL
+    that silently stopped recording would void the guarantee).
+    :meth:`close` compacts through ``write_atomic_durable``: finished
+    entries drop, so a cleanly drained engine leaves an empty file.
+    Opening an existing path replays it first; a torn tail is reported
+    and skipped, and newline-terminated before the first append.
+
+    Greedy decode is deterministic, so a redelivered request regenerates
+    the same stream: tokens inside the journaled prefix are verified and
+    not written again, and a mismatch raises named (the engine rejects a
+    journal with ``temperature > 0``)."""
+
+    def __init__(self, path: str, *, retries: int = 3,
+                 backoff_s: float = 0.05,
+                 sleep: Callable[[float], None] = time.sleep):
+        self.path = path
+        self._retries = int(retries)
+        self._backoff_s = float(backoff_s)
+        self._sleep = sleep
+        self._entries: Dict[object, JournalEntry] = {}
+        self._order: List[object] = []
+        self._mu = threading.Lock()
+        if os.path.exists(path):
+            for obj in _read_records(path, "replaying"):
+                _apply_journal_record(self._entries, self._order, obj)
+        self._fh = open(path, "a", encoding="utf-8")
+        # a crash mid-append leaves the last line without its newline:
+        # end it, or the next record would merge into the torn line
+        if os.path.getsize(path) and not self._ends_with_newline():
+            self._fh.write("\n")
+            self._fh.flush()
+
+    def _ends_with_newline(self) -> bool:
+        with open(self.path, "rb") as fh:
+            fh.seek(-1, os.SEEK_END)
+            return fh.read(1) == b"\n"
+
+    def known(self, uid) -> bool:
+        """True when ``uid`` is journaled, finished or not (the drive
+        loop's re-submission dedup across restarts)."""
+        return uid in self._entries
+
+    def unfinished(self) -> List[JournalEntry]:
+        """Admitted but unfinished entries in admission order: what a
+        restarted engine redelivers."""
+        return [self._entries[u] for u in self._order
+                if not self._entries[u].done]
+
+    @property
+    def entries(self) -> List[JournalEntry]:
+        return [self._entries[u] for u in self._order]
+
+    # ---- append path --------------------------------------------------
+    def _append(self, ops: List[Dict]) -> None:
+        if not ops:
+            return
+        payload = "".join(json.dumps(op, sort_keys=True) + "\n"
+                          for op in ops)
+
+        def once():
+            maybe_fault(_SITE_JOURNAL)
+            self._fh.write(payload)
+            self._fh.flush()
+
+        try:
+            retry_with_backoff(once, attempts=self._retries,
+                               base_delay_s=self._backoff_s,
+                               sleep=self._sleep)
+        except OSError as e:
+            raise GraftFaultError(
+                f"heal: journal append to {self.path!r} still failing "
+                f"after {self._retries} attempt(s) "
+                f"({type(e).__name__}: {e}) — a WAL that stops "
+                "recording voids the redelivery guarantee, so this "
+                "fails loudly") from e
+
+    def _sync_durable(self) -> None:
+        """fsync the file, outside the lock (a record_* call returns
+        only after its batch is on disk)."""
+        fh = self._fh
+        if fh is None:
+            return  # closed: the compaction is durable by itself
+
+        def once():
+            try:
+                os.fsync(fh.fileno())
+            except ValueError:
+                return  # closed meanwhile, as above
+
+        try:
+            retry_with_backoff(once, attempts=self._retries,
+                               base_delay_s=self._backoff_s,
+                               sleep=self._sleep)
+        except OSError as e:
+            raise GraftFaultError(
+                f"heal: journal sync of {self.path!r} still failing "
+                f"after {self._retries} attempt(s) "
+                f"({type(e).__name__}: {e}) — an unsynced WAL voids "
+                "the redelivery guarantee, so this fails loudly") from e
+
+    def record_admit(self, request) -> None:
+        """Journal one admitted request; a uid already journaled (a
+        redelivery) appends nothing."""
+        with self._mu:
+            if request.uid in self._entries:
+                return
+            entry = JournalEntry(request.uid, request.prompt,
+                                 request.max_new_tokens, request.eos_id)
+            self._entries[request.uid] = entry
+            self._order.append(request.uid)
+            self._append([{"op": "admit", "uid": request.uid,
+                           "prompt": entry.prompt,
+                           "max_new_tokens": entry.max_new_tokens,
+                           "eos_id": entry.eos_id}])
+        self._sync_durable()
+
+    def note_events(self, events) -> None:
+        """Journal one engine step's ``(request, token, finished)``
+        events as one fsync'd batch. Tokens inside a redelivered
+        request's journaled prefix are verified and not appended; a
+        divergence raises named."""
+        ops: List[Dict] = []
+        fresh: Dict[object, List[int]] = {}
+        with self._mu:
+            for request, token, finished in events:
+                entry = self._entries.get(request.uid)
+                if entry is None:
+                    continue  # submitted before the journal attached
+                idx = entry.emitted
+                entry.emitted = idx + 1
+                if idx < len(entry.tokens):
+                    if entry.tokens[idx] != int(token):
+                        raise GraftFaultError(
+                            f"heal: journal replay diverged for "
+                            f"request {request.uid} at token {idx}: "
+                            f"journaled {entry.tokens[idx]} vs "
+                            f"regenerated {int(token)} — redelivery "
+                            "cannot be token-exact (params changed, "
+                            "or a sampled engine was journaled)")
+                else:
+                    entry.tokens.append(int(token))
+                    fresh.setdefault(request.uid, []).append(int(token))
+                if finished:
+                    entry.done = True
+                    entry.state = request.state
+                    entry.reason = request.finish_reason
+            for uid, toks in fresh.items():
+                ops.append({"op": "tok", "uid": uid, "tokens": toks})
+            for request, token, finished in events:
+                if finished and request.uid in self._entries:
+                    ops.append({"op": "done", "uid": request.uid,
+                                "state": request.state,
+                                "reason": request.finish_reason})
+            self._append(ops)
+        if ops:
+            self._sync_durable()
+
+    def record_failed(self, request) -> None:
+        """Journal a quarantined request as terminal: a FAILED request
+        is accounted for, never redelivered as if it were lost."""
+        with self._mu:
+            entry = self._entries.get(request.uid)
+            if entry is None or entry.done:
+                return
+            entry.done = True
+            entry.state = request.state
+            entry.reason = request.finish_reason
+            self._append([{"op": "done", "uid": request.uid,
+                           "state": request.state,
+                           "reason": request.finish_reason}])
+        self._sync_durable()
+
+    def close(self, compact: bool = True) -> None:
+        """Close the WAL; with ``compact`` rewrite it atomically holding
+        only the unfinished entries (a clean drain leaves it empty, a
+        crash leaves the whole WAL for replay)."""
+        with self._mu:
+            if self._fh is None:
+                return
+            self._fh.close()
+            self._fh = None
+            if not compact:
+                return
+            from ..train.checkpoint import write_atomic_durable
+
+            lines = []
+            for entry in (self._entries[u] for u in self._order):
+                if entry.done:
+                    continue
+                lines.append(json.dumps(
+                    {"op": "admit", "uid": entry.uid,
+                     "prompt": entry.prompt,
+                     "max_new_tokens": entry.max_new_tokens,
+                     "eos_id": entry.eos_id}, sort_keys=True))
+                if entry.tokens:
+                    lines.append(json.dumps(
+                        {"op": "tok", "uid": entry.uid,
+                         "tokens": entry.tokens}, sort_keys=True))
+            payload = ("\n".join(lines) + "\n") if lines else ""
+            # under the lock: a record landing between the rewrite and
+            # the rename would be lost
+            write_atomic_durable(self.path, payload.encode("utf-8"))
+
+
+# ------------------------------------------------- SIGTERM drain handler
+
+_HANDLER_NOT_INSTALLED = object()
+
+
+def install_drain_handler(engine, signum: int = signal.SIGTERM):
+    """``signum`` -> ``engine.begin_drain`` (host state only: admission
+    closes, and the drive loop finishes in-flight work up to its drain
+    deadline). The previous handler is chained, and returned for
+    :func:`restore_drain_handler`. Only the main thread can install
+    one; elsewhere a sentinel is returned and restore is a no-op."""
+    if threading.current_thread() is not threading.main_thread():
+        return _HANDLER_NOT_INSTALLED
+    prev = signal.getsignal(signum)
+
+    def handler(s, frame):
+        engine.begin_drain(f"signal {signal.Signals(s).name}")
+        if callable(prev) and prev not in (signal.SIG_IGN,
+                                           signal.SIG_DFL, handler):
+            prev(s, frame)
+
+    signal.signal(signum, handler)
+    return prev
+
+
+def restore_drain_handler(prev, signum: int = signal.SIGTERM) -> None:
+    """Put back the handler :func:`install_drain_handler` displaced."""
+    if prev is _HANDLER_NOT_INSTALLED:
+        return
+    signal.signal(signum, signal.SIG_DFL if prev is None else prev)

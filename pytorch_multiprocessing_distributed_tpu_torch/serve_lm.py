@@ -6,8 +6,12 @@
         --synthetic 16 --max_new_tokens 32 --decode_horizon 4 \\
         --kv_layout paged --page_size 16 --prefix_cache 8 --kv_dtype int8
 
-Flags keep the JAX CLI's names and meanings for what this slice does;
-``--ckpt`` takes an ``.npz`` of the flattened JAX param tree
+Flags keep the JAX CLI's names and meanings for what the port does.
+``--ckpt`` serves the port's own training checkpoints: ``train_lm``'s
+``model_<epoch>.pth`` (its sidecar checked first), or with a directory
+the run's ``orbax/`` tree (the latest committed epoch, or
+``--ckpt_epoch``), a pipelined run's stacked tree unstacked; or an
+``.npz`` of the flattened JAX param tree
 (:func:`.serving.params.load_params`). Requests come from ``--requests
 FILE`` (JSON Lines), ``--stdin`` (one byte-level prompt per line) or
 ``--synthetic N`` (the JAX CLI's seeded prompts, the same for the same
@@ -41,18 +45,44 @@ snapshot then carries ``tp``, a rank's resident param bytes beside
 JAX's per-device bytes, its KV pool bytes, the all-gathers a decode
 step and the decode kernels' launches on rank 0.
 
-The JAX CLI's fleet, wire, autoscale, journal, restart and
-observability flags are rejected with a message naming ROADMAP.md.
+Fault tolerance, as the JAX CLI's: SIGTERM drains (admission closes,
+in-flight requests finish up to ``--drain_deadline_s``, overdue ones
+fail named, exit 0); ``--journal wal.jsonl`` journals every admitted
+request and its tokens, so a re-run of the same command (after a kill)
+or a restart redelivers the unfinished ones token-exact and skips the
+source's requests the journal already knows; ``--max_restarts N
+--restart_backoff S`` rebuilds the engine after a named fatal and
+replays the journal. Redelivery is exact for greedy decode only (the
+engine refuses a journal with ``--temperature``); in f32 the streams
+replay exactly, and in bf16 a stream whose replay diverges (another
+batch mix may pick another GEMM) stops with the journal's named error,
+never with other tokens. A real device fault (a hung kernel, an illegal
+address) leaves the CUDA context unusable: the in-process restarts fail
+until ``RestartBudgetExhausted``, and recovery is a new process over
+the journal. Under ``--tp M > 1``, ``--journal``, ``--max_restarts``
+and ``--drain_deadline_s`` are refused, and SIGTERM is not a drain.
+
+The snapshot is the last engine's, as the JAX CLI's (after a restart,
+the rebuilt engine's counters, ``requests_redelivered`` among them; its
+``decode_passes_by_k`` and ``decode_launches`` too); ``restarts`` and
+``drain_s`` are the run's, and ``attempts`` lists every engine the run
+built, a crashed one's too, with its decode passes and the decode
+kernels' launches.
+
+The JAX CLI's fleet, wire, autoscale and observability flags are
+rejected with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import queue
 import sys
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -67,18 +97,21 @@ from .ops.decode_attention import (decode_attention,
                                    verify_decode_attention)
 from .parallel import dist
 from .parallel.mesh import Grid, make_grid
+from .runtime import heal
 from .serving import (QueueFull, Request, ServingEngine, init_params,
                       load_params)
+from .serving.scheduler import FAILED
 
-# flags of the JAX CLI this slice does not port
+# flags of the JAX CLI the port does not have yet
 NOT_PORTED_FLAGS = (
-    "--ckpt_backend", "--ckpt_epoch", "--replicas", "--role",
-    "--router_port",
-    "--listen", "--rid", "--connect", "--fleet_store", "--fleet_run",
-    "--fleet_ttl", "--autoscale", "--rollout", "--drain_deadline_s",
-    "--journal", "--max_restarts", "--restart_backoff", "--stats_port",
-    "--trace_out", "--events_out", "--flight_path",
+    "--replicas", "--role", "--router_port", "--listen", "--rid",
+    "--connect", "--fleet_store", "--fleet_run", "--fleet_ttl",
+    "--autoscale", "--rollout", "--stats_port", "--trace_out",
+    "--events_out", "--flight_path",
 )
+# the heal flags a --tp run refuses (clock-driven decisions would have
+# to travel in the store lockstep)
+TP_REFUSED = ("--journal", "--max_restarts", "--drain_deadline_s")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,8 +120,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--model', default='gpt_tiny', type=str,
                    help='gpt_tiny | gpt_small | gpt_medium')
     p.add_argument('--ckpt', default='', type=str,
-                   help='.npz of the flattened JAX param tree '
-                        '("block_0/attn/wqkv/kernel" keys)')
+                   help='model_<epoch>.pth of the port\'s train_lm, an '
+                        'orbax run directory (train_lm --save_path), or '
+                        'an .npz of the flattened JAX param tree')
+    p.add_argument('--ckpt_backend', default='auto',
+                   choices=['auto', 'msgpack', 'orbax'])
+    p.add_argument('--ckpt_epoch', default=None, type=int,
+                   help='orbax only: serve a specific epoch '
+                        '(default latest)')
     p.add_argument('--random_init', action='store_true',
                    help='serve fresh random params from --seed')
     p.add_argument('--device', default='cuda', type=str,
@@ -142,7 +181,7 @@ def build_parser() -> argparse.ArgumentParser:
                         'the drafts (must share the vocab; random '
                         'weights from --seed + 1 unless --draft_ckpt)')
     p.add_argument('--draft_ckpt', default='', type=str,
-                   help='.npz params for --draft_model (as --ckpt)')
+                   help='params for --draft_model (read as --ckpt)')
     p.add_argument('--max_new_tokens', default=32, type=int)
     p.add_argument('--eos', default=-1, type=int,
                    help='stop token id (-1 = none)')
@@ -167,6 +206,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help='write the final metrics snapshot as JSON')
     p.add_argument('--quiet', action='store_true',
                    help='suppress per-token streaming lines')
+    p.add_argument('--drain_deadline_s', default=0.0, type=float,
+                   help='graceful-drain bound: on SIGTERM (or source '
+                        'exhaustion) in-flight requests get this many '
+                        'seconds to finish; overdue ones are FAILED '
+                        'named, then the engine exits 0 '
+                        '(0 = unbounded drain)')
+    p.add_argument('--journal', default='', type=str, metavar='JSONL',
+                   help='request-redelivery WAL: admitted-but-'
+                        'unfinished requests are journaled (fsync\'d '
+                        'appends, atomic compaction) and a restarted '
+                        'engine re-submits them token-exact — the '
+                        'supervised-restart recovery path (greedy '
+                        'decode only)')
+    p.add_argument('--max_restarts', default=0, type=int,
+                   help='supervised restart budget: catch named-fatal '
+                        'errors (GraftFaultError family), rebuild the '
+                        'engine, replay the --journal, and keep '
+                        'serving — at most N times, with exponential '
+                        '--restart_backoff (0 = die on first fatal)')
+    p.add_argument('--restart_backoff', default=1.0, type=float,
+                   help='first-restart delay in seconds (doubles per '
+                        'restart, capped at 30s)')
     return p
 
 
@@ -244,27 +305,36 @@ def _attempt(engine: ServingEngine, request: Request) -> str:
 
 class _Lockstep:
     """Rank 0's request source replayed on every rank of a ``--tp``
-    grid. Rank 0 records each submission it tries and its outcome
-    (accepted, queue full, rejected) and, before each engine step and
-    the final drain, sends those made since the last one over the
-    rendezvous store (:class:`.parallel.dist.StoreBroadcast`: no
-    collective, so a follower waits on a quiet source for as long as it
-    stays quiet). The other ranks submit the same requests in the same
-    order, raise unless each meets rank 0's outcome (the engine state is
-    the same on every rank), and step with it. The liveness gate runs at
-    each step boundary and while a rank waits. Without a grid it is the
-    engine itself."""
+    grid. Rank 0 drives it as it drives an engine: it records each
+    submission it tries and its outcome (accepted, queue full, rejected)
+    and, before each engine step and the final drain, sends those made
+    since the last one over the rendezvous store
+    (:class:`.parallel.dist.StoreBroadcast`: no collective, so a
+    follower waits on a quiet source for as long as it stays quiet). The
+    other ranks submit the same requests in the same order, raise unless
+    each meets rank 0's outcome (the engine state is the same on every
+    rank), and step with it. The liveness gate runs at each step
+    boundary and while a rank waits. ``channel`` carries the messages
+    (``send``/``recv``, :class:`.parallel.dist.StoreBroadcast`'s)."""
 
-    def __init__(self, engine: ServingEngine, grid: Optional[Grid]):
+    def __init__(self, engine: ServingEngine, channel):
         self.engine = engine
-        self.grid = grid
         self._tried: list = []
-        self._channel = (dist.StoreBroadcast("serve_lm/steps")
-                         if grid is not None else None)
+        self._channel = channel
+
+    @property
+    def eos_id(self):
+        return self.engine.eos_id
+
+    @property
+    def health(self):
+        return self.engine.health
+
+    @property
+    def in_flight(self):
+        return self.engine.in_flight
 
     def enqueue(self, request: Request) -> Request:
-        if self.grid is None:
-            return self.engine.enqueue(request)
         entry = [list(request.prompt), request.max_new_tokens, request.uid,
                  "accepted"]
         self._tried.append(entry)
@@ -278,18 +348,17 @@ class _Lockstep:
             raise
 
     def _sync(self, final: bool) -> None:
-        if self.grid is not None:
-            dist.gate_collectives()
-            self._channel.send({"tried": self._tried, "final": final})
-            self._tried = []
+        dist.gate_collectives()
+        self._channel.send({"tried": self._tried, "final": final})
+        self._tried = []
 
     def step(self):
         self._sync(False)
         return self.engine.step()
 
-    def drain(self):
+    def drain(self, deadline_s=None):
         self._sync(True)
-        return self.engine.drain()
+        return self.engine.drain(deadline_s)
 
     def follow(self) -> None:
         """A rank other than 0: replay rank 0's submissions and steps
@@ -393,6 +462,13 @@ def _check_args(args) -> None:
     if args.tp < 1:
         raise SystemExit(f"--tp must be >= 1, got {args.tp}")
     if args.tp > 1:
+        for flag in TP_REFUSED:
+            if getattr(args, flag[2:]):
+                raise SystemExit(
+                    f"{flag} is not ported to PyTorch under --tp {args.tp} "
+                    "yet (ROADMAP.md, 'Port: serving features still to "
+                    "port'): its decisions would have to travel in the "
+                    "ranks' store lockstep")
         # the engine's check, in its words, before any rank starts
         check_mesh(Grid(1, args.tp), get_model(args.model).num_heads,
                    "TP serving")
@@ -405,6 +481,132 @@ def _check_args(args) -> None:
         raise SystemExit("--draft_model needs --draft_k > 0")
 
 
+def _attempt_counts(engine: ServingEngine, launches0: dict) -> dict:
+    """One engine's decode passes by realised draft length (0 = plain
+    decode) and the decode kernels' launches since ``launches0``, taken
+    just before it was built."""
+    now = _launch_counts()
+    return {"decode_passes_by_k": {str(k): n for k, n in
+                                   sorted(engine.passes_by_k.items())},
+            "decode_launches": {name: now[name] - launches0[name]
+                                for name in now}}
+
+
+def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
+           attempts, tp: bool):
+    """Rank 0's drive loop, as JAX's ``serve_once``: each attempt builds
+    an engine over the journal, redelivers its unfinished requests,
+    serves the source and drains; under ``--max_restarts`` a
+    :class:`.runtime.heal.Supervisor` runs the attempts. Under ``--tp``
+    the one attempt feeds a :class:`_Lockstep` in place of the engine
+    (no journal, restarts or drain handler there). Each attempt's
+    :func:`_attempt_counts` go to ``attempts``. Returns (the last
+    engine, the restarts, the drain's seconds)."""
+    # one source across restarts: a request taken from it before a
+    # crash is in the journal (redelivered), the rest stay unread;
+    # uids src-<i> count across attempts, so a re-run of the whole
+    # process skips what the journal already knows
+    source = _load_requests(args, vocab_size, skipped)
+    if tp and args.stdin:
+        # rank 0's liveness gate keeps beating on a quiet stdin
+        source = _pumped(source, dist.gate_collectives)
+    src_idx = [0]
+    # the one item taken from the source but not yet admitted, kept
+    # across a crash (the source never yields it again)
+    pending_src = [None]
+    drain_s = [0.0]
+
+    def serve_once(attempt):
+        """One engine: built (replaying the journal's unfinished
+        requests), fed from the source, drained. SIGTERM flips it to
+        DRAINING; a named fatal propagates to the supervisor."""
+        if attempt:
+            # the crashed engine is unreachable but held in reference
+            # cycles: collect it, so its KV pool is freed before the
+            # next one is allocated
+            gc.collect()
+        journal = (heal.RequestJournal(args.journal) if args.journal
+                   else None)
+        launches0 = _launch_counts()
+        engine = build_engine(journal)
+        if attempt:
+            print(f"graftheal: restart {attempt}: engine rebuilt"
+                  + (f", replaying {len(journal.unfinished())} "
+                     f"journaled request(s)" if journal else ""),
+                  flush=True)
+        feed = (_Lockstep(engine, dist.StoreBroadcast("serve_lm/steps"))
+                if tp else engine)
+        prev_handler = None if tp else heal.install_drain_handler(engine)
+        try:
+            if journal is not None:
+                replay_events: list = []
+                served.extend(engine.redeliver(
+                    journal.unfinished(), events_out=replay_events))
+                emit(replay_events)
+            while not feed.health.draining:
+                if pending_src[0] is None:
+                    try:
+                        prompt, max_new = next(source)
+                    except StopIteration:
+                        break
+                    pending_src[0] = (f"src-{src_idx[0]}", prompt,
+                                      max_new)
+                    src_idx[0] += 1
+                uid, prompt, max_new = pending_src[0]
+                if journal is not None and journal.known(uid):
+                    pending_src[0] = None  # served or redelivered
+                    continue
+                request = Request(prompt, max_new, feed.eos_id, uid=uid)
+                handled = False
+                while True:
+                    try:
+                        feed.enqueue(request)
+                        served.append(request)
+                        handled = True
+                        break
+                    except QueueFull:
+                        if feed.health.draining:
+                            break  # stays pending for a restart
+                        # bounded queue + finite source =
+                        # backpressure: serve a step, then re-enqueue
+                        # the same request (its TTFT keeps the first
+                        # attempt's submit stamp)
+                        emit(feed.step())
+                    except ValueError as e:
+                        rejected[0] += 1
+                        print(f"rejected: {e}", file=sys.stderr)
+                        handled = True  # never valid
+                        break
+                if handled:
+                    pending_src[0] = None
+                if feed.health.draining:
+                    break
+                if args.stdin:
+                    emit(feed.step())  # online: serve while reading
+            # serve while READY, then the terminal drain: finish up to
+            # the deadline, fail the overdue named, compact the
+            # journal (empty after a clean drain), land DEAD
+            while feed.in_flight and not feed.health.draining:
+                emit(feed.step())
+            t0 = time.perf_counter()
+            emit(feed.drain(args.drain_deadline_s or None))
+            drain_s[0] = time.perf_counter() - t0
+        finally:
+            if not tp:
+                heal.restore_drain_handler(prev_handler)
+            # a crashed engine is counted here and then dropped
+            attempts.append(_attempt_counts(engine, launches0))
+        return engine
+
+    if not args.max_restarts:
+        return serve_once(0), 0, drain_s[0]
+    supervisor = heal.Supervisor(serve_once,
+                                 max_restarts=args.max_restarts,
+                                 backoff_s=args.restart_backoff)
+    engine = supervisor.run()
+    return engine, supervisor.restarts, drain_s[0]
+
+
 def serve(args) -> dict:
     """One rank of the CLI (the only one without ``--tp``): build the
     model and the engine, serve the source, return the snapshot."""
@@ -413,13 +615,13 @@ def serve(args) -> dict:
     primary = dist.is_primary()
     if grid is not None:
         device = dist.device_for_rank(device)
-    launches0 = _launch_counts()
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
     model = get_model(args.model, dtype=dtype)
     if args.random_init:
         params = init_params(model, args.seed, device)
     else:
-        params = {k: v.to(device) for k, v in load_params(args.ckpt).items()}
+        params = {k: v.to(device) for k, v in load_params(
+            model, args.ckpt, args.ckpt_backend, args.ckpt_epoch).items()}
     model.load_state_dict(params, assign=True)
     del params
     if grid is not None:
@@ -437,32 +639,34 @@ def serve(args) -> dict:
         draft_model = get_model(args.draft_model, dtype=dtype,
                                 vocab_size=model.vocab_size)
         if args.draft_ckpt:
-            draft_params = load_params(args.draft_ckpt)
+            draft_params = load_params(draft_model, args.draft_ckpt)
         else:
             draft_params = init_params(draft_model, args.seed + 1, device)
     generator = None
     if args.temperature > 0:
         # one seed on every rank: the same logits draw the same token
         generator = torch.Generator(device=device).manual_seed(args.seed)
-    engine = ServingEngine(
-        model, mesh=grid, max_slots=args.max_slots,
-        s_max=args.s_max or None,
-        max_queue=args.max_queue or None, temperature=args.temperature,
-        top_k=args.top_k, top_p=args.top_p, generator=generator,
-        eos_id=None if args.eos < 0 else args.eos,
-        decode_buckets=decode_buckets, decode_horizon=args.decode_horizon,
-        decode_attn=args.decode_attn,
-        prefill_chunk=args.prefill_chunk or None,
-        kv_layout=args.kv_layout, kv_dtype=args.kv_dtype,
-        page_size=(args.page_size or None
-                   if args.kv_layout == 'paged' else None),
-        num_pages=(args.num_pages or None
-                   if args.kv_layout == 'paged' else None),
-        prefix_cache=(args.prefix_cache
-                      if args.kv_layout == 'paged' else 0),
-        draft_k=args.draft_k, draft_model=draft_model,
-        draft_params=draft_params)
-    feed = _Lockstep(engine, grid)
+    def build_engine(journal=None):
+        return ServingEngine(
+            model, mesh=grid, max_slots=args.max_slots,
+            s_max=args.s_max or None,
+            max_queue=args.max_queue or None,
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, generator=generator,
+            eos_id=None if args.eos < 0 else args.eos,
+            decode_buckets=decode_buckets,
+            decode_horizon=args.decode_horizon,
+            decode_attn=args.decode_attn,
+            prefill_chunk=args.prefill_chunk or None,
+            kv_layout=args.kv_layout, kv_dtype=args.kv_dtype,
+            page_size=(args.page_size or None
+                       if args.kv_layout == 'paged' else None),
+            num_pages=(args.num_pages or None
+                       if args.kv_layout == 'paged' else None),
+            prefix_cache=(args.prefix_cache
+                          if args.kv_layout == 'paged' else 0),
+            draft_k=args.draft_k, draft_model=draft_model,
+            draft_params=draft_params, journal=journal)
 
     def emit(events):
         if args.quiet or not primary:
@@ -475,48 +679,45 @@ def serve(args) -> dict:
                 print(f"req={request.uid} tokens={request.tokens}",
                       flush=True)
 
-    rejected = 0
+    rejected = [0]
     skipped: List[str] = []
-    if not primary:
-        feed.follow()
-    else:
-        source = _load_requests(args, model.vocab_size, skipped)
-        if grid is not None and args.stdin:
-            source = _pumped(source, dist.gate_collectives)
-        for i, (prompt, max_new) in enumerate(source):
-            request = Request(prompt, max_new, engine.eos_id,
-                              uid=f"src-{i}")
-            while True:
-                try:
-                    feed.enqueue(request)
-                    break
-                except QueueFull:
-                    # bounded queue + finite source = backpressure:
-                    # serve a step, then re-enqueue the same request
-                    # (its TTFT keeps the first attempt's submit stamp)
-                    emit(feed.step())
-                except ValueError as e:
-                    rejected += 1
-                    print(f"rejected: {e}", file=sys.stderr)
-                    break
-            if args.stdin:
-                emit(feed.step())  # online source: serve while reading
-        emit(feed.drain())
+    # every request an engine took, redelivered ones too (by uid the last
+    # record stands: a restart leaves the crashed engine's stale one)
+    served: List[Request] = []
+    attempts: List[dict] = []  # each engine's passes and launches
+    restarts, drain_s = 0, 0.0
+    if primary:
+        engine, restarts, drain_s = _drive(
+            args, model.vocab_size, build_engine, emit, rejected, skipped,
+            served, attempts, tp=grid is not None)
         for msg in skipped:
             print(f"rejected: {msg}", file=sys.stderr)
+        for request in {r.uid: r for r in served}.values():
+            if request.state == FAILED:
+                print(f"failed: req={request.uid} "
+                      f"reason={request.finish_reason} "
+                      f"{type(request.error).__name__}: {request.error}",
+                      file=sys.stderr, flush=True)
+    else:
+        launches0 = _launch_counts()
+        engine = build_engine()
+        _Lockstep(engine, dist.StoreBroadcast("serve_lm/steps")).follow()
+        attempts.append(_attempt_counts(engine, launches0))
 
     snap = engine.metrics.snapshot()
-    snap["rejected"] = rejected + len(skipped)
+    snap["rejected"] = rejected[0] + len(skipped)
+    snap["restarts"] = restarts
+    snap["drain_s"] = drain_s
     snap["decode_buckets"] = list(engine.decode_buckets)
     snap["decode_windows"] = list(engine.decode_windows)
     snap["decode_horizon"] = engine.decode_horizon
     snap["decode_programs"] = [list(p) for p in engine.decode_programs]
     snap["draft_k"] = engine.draft_k
     snap["spec_programs"] = [list(p) for p in engine.spec_programs]
-    # decode passes by realised draft length (0 = plain decode): what
-    # the kernels' launch counts follow
-    snap["decode_passes_by_k"] = {str(k): n for k, n in
-                                  sorted(engine.passes_by_k.items())}
+    # the last engine's, as the rest of the snapshot; each engine the
+    # run built (a crashed one's too) under "attempts"
+    snap.update(attempts[-1])
+    snap["attempts"] = attempts
     pool = engine.pool
     snap["kv_layout"], snap["kv_dtype"] = args.kv_layout, args.kv_dtype
     if args.kv_layout == 'paged':
@@ -539,9 +740,6 @@ def serve(args) -> dict:
             tp.resident_bytes["small_leaves"].values())
         snap["tp_gathers"] = tp.gathers
         snap["tp_decode_gathers"] = engine.decode_gathers
-    now = _launch_counts()
-    snap["decode_launches"] = {name: now[name] - launches0[name]
-                               for name in now}
     if grid is not None:
         # no rank closes the group (rank 0: its store) while another
         # still talks to it

@@ -76,11 +76,67 @@ replicated and unsharded, as in JAX. Every path runs on the shard:
 whole and chunked prefill, prefix hits, horizons, dense and paged,
 int8, both speculative modes.
 
-Not in this slice, each rejected with ``NotImplementedError`` at
-construction (ROADMAP.md, "Port: serving features still to port"):
-the request journal (``journal``), fault retries and the readback
-watchdog (``dispatch_retries > 1``, ``readback_timeout_s``) and
-per-request deadlines (``submit(deadline_s=...)``).
+**Fault domains.** Every host-side hazard point registers a named
+injection site under the JAX engine's name (:mod:`..runtime.faults`:
+``serving.decode_dispatch``, ``serving.horizon_readback``,
+``serving.prefill``, ``serving.prefill_chunk``, ``serving.prefill_tok0``,
+``serving.slot_insert``) and runs under the bounded retry
+(``dispatch_retries``, JAX's default 3): a retry re-runs the same call
+on the same device and is counted, never a switch to another
+implementation. A per-request operation (prefill, chunk, first token,
+insert) that stays broken quarantines just that request (FAILED with
+its error, its slot's device gates scrubbed and the slot recycled); an
+engine-wide one (dispatch, readback) fails fast with a named
+``GraftFaultError``. A recovered fault opens a cooldown of
+``fault_cooldown`` dispatches at horizon 1 (``horizon_collapses``), and
+speculation collapses with it. ``readback_timeout_s`` bounds each
+token-block readback with a watchdog thread (``FaultTimeout``,
+``watchdog_trips``); ``submit(deadline_s=...)`` evicts a request past
+its deadline, queued, mid-chunked-prefill or running
+(``DeadlineExceeded``, reason ``"deadline"``).
+
+**Where the port classifies a failure differently from JAX on the CPU.**
+JAX calls a failure inside a program that *donates* the pool engine-fatal
+(``PoolPoisonedError``), and only on backends that donate, so its CPU
+engine quarantines the request instead. The port donates nothing, but
+it writes the KV pool and the slots' decode state IN PLACE on every
+device: the decode horizon (its kernels write each slot's K/V column),
+the insert splice, the prefix-hit fork and arm, and the quarantine
+scrub. A real failure inside one of them (not an injected fault, which
+fires before the call) may leave the pool partly written, so it is
+``PoolPoisonedError`` on the CPU and on the card alike; so is a real
+error at the readback (not ``OSError``-shaped), where CUDA reports a
+launched kernel's failure. Prefill, chunk and first-token work writes
+only the request's own standalone caches and keeps JAX's per-request
+quarantine.
+
+**Elastic lifecycle.** The engine carries a
+:class:`~..runtime.heal.HealthState` (``STARTING`` while constructing,
+``READY`` serving, ``DRAINING`` after :meth:`begin_drain`, which SIGTERM
+flips through :func:`~..runtime.heal.install_drain_handler`, and
+``DEAD`` after :meth:`drain` or a fatal :meth:`step`). Outside READY,
+admission raises ``QueueFull`` naming the state; :meth:`drain` finishes
+in-flight work up to its deadline and fails the overdue requests named
+(reason ``"drain"``). With a ``journal``
+(:class:`~..runtime.heal.RequestJournal`, greedy engines only) every
+admission and each step's tokens are journaled at the drain boundary,
+and a restarted engine re-submits the unfinished requests token-exact
+through :meth:`redeliver`. A real device fault (a hung kernel, an
+illegal address) leaves the CUDA context unusable, so an in-process
+restart fails again until the supervisor's budget is spent
+(``RestartBudgetExhausted``): recovery from it is a process restart
+over the journal. The JAX
+engine's observability events and flight-recorder dumps
+(``scope.emit``, ``flight_dump``) are left out, as in the port's
+:mod:`..runtime.faults`.
+
+Under a ``mesh``, ``journal``, ``readback_timeout_s``,
+``submit(deadline_s=...)`` and ``drain(deadline_s)`` raise
+``NotImplementedError`` (ROADMAP.md, "Port: serving features still to
+port"): their clock-driven decisions would have to travel in
+``serve_lm``'s store lockstep. The bounded retry stays allowed there:
+every rank reads the same ``PMDT_FAULT_PLAN`` and counts the same hits
+in the same order, so the ranks retry the same calls and stay in step.
 """
 
 from __future__ import annotations
@@ -100,6 +156,12 @@ from ..ops import resolve_impl
 from ..ops.kv_quant import KV_DTYPES, QuantizedKV, dequantize_kv, \
     quantize_kv
 from ..parallel import dist
+from ..runtime import heal
+from ..runtime.faults import (DeadlineExceeded, FaultInjected,
+                              FaultTimeout, GraftFaultError,
+                              PoolPoisonedError, maybe_fault,
+                              register_site, retry_with_backoff,
+                              run_with_timeout)
 from ..utils.metrics import ServingMetrics
 from .kv_pages import PagePool, PagePoolExhausted, PrefixCache
 from .kv_slots import SlotPool
@@ -109,12 +171,33 @@ from .spec import NgramDrafter
 
 __all__ = ["ServingEngine", "Request"]
 
-# constructor options of the JAX engine this slice does not port, with
-# the value that means "off" (accepted, so a caller passing the default
-# explicitly is not rejected)
-_NOT_PORTED = {
-    "journal": None, "dispatch_retries": 1, "readback_timeout_s": None,
-}
+# the engine's hazard points, under the JAX engine's names
+_SITE_DISPATCH = register_site(
+    "serving.decode_dispatch",
+    "decode-horizon launch over every slot (the engine's hot path)")
+_SITE_READBACK = register_site(
+    "serving.horizon_readback",
+    "token-block readback sync at horizon drain (the step's ONE host "
+    "sync; watchdog-bounded when readback_timeout_s is set)")
+_SITE_PREFILL = register_site(
+    "serving.prefill",
+    "whole-prompt prefill-on-join + first-token readback")
+_SITE_CHUNK = register_site(
+    "serving.prefill_chunk",
+    "one [1, chunk] incremental-prefill step of a joining prompt")
+_SITE_TOK0 = register_site(
+    "serving.prefill_tok0",
+    "first-token sample + readback after the LAST prefill chunk (the "
+    "chunked path's TTFT boundary; the whole-prompt path's is inside "
+    "serving.prefill)")
+_SITE_INSERT = register_site(
+    "serving.slot_insert",
+    "slot splice of a prefilled request (cache columns + finish gates)")
+
+_MESH_CLOCK = ("is not ported to PyTorch under a mesh yet (ROADMAP.md, "
+               "'Port: serving features still to port'): its clock-driven "
+               "decisions would have to travel in serve_lm's store "
+               "lockstep")
 # re-probe a collapsed draft length every this many dispatches
 _SPEC_PROBE_EVERY = 16
 
@@ -234,6 +317,21 @@ class ServingEngine:
         s_max``. Its dense ``[L_d, max_slots, s_max + draft_k, H_d,
         Dh_d]`` caches are prefilled whole-prompt at every admission.
       draft_buckets: n-gram table buckets per slot (self-drafting).
+      dispatch_retries: bounded attempts of each host-side operation
+        on transient (``OSError``-shaped, injected included) failures:
+        dispatch, readback, prefill, chunk, first token, insert (1 = no
+        retries).
+      retry_backoff_s: the first retry's delay (doubling per retry).
+      readback_timeout_s: a watchdog bound on each token-block readback
+        attempt (None = no watchdog thread); a trip fails fast with
+        ``FaultTimeout`` and counts in ``watchdog_trips``.
+      fault_cooldown: dispatches held at horizon 1 after a recovered
+        transient fault (each forced collapse counts in
+        ``horizon_collapses``).
+      journal: a :class:`~..runtime.heal.RequestJournal` (greedy only):
+        admissions and each step's tokens are journaled, and
+        :meth:`redeliver` replays its unfinished requests after a
+        restart.
     """
 
     def __init__(self, model, *, max_slots: int, mesh=None,
@@ -249,16 +347,23 @@ class ServingEngine:
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None, prefix_cache: int = 0,
                  draft_k: int = 0, draft_model=None, draft_params=None,
-                 draft_buckets: int = 64, **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(
-                    f"ServingEngine got an unexpected argument {name!r}")
-            if value != _NOT_PORTED[name]:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported to PyTorch yet "
-                    "(ROADMAP.md, 'Port: serving features still to "
-                    "port')")
+                 draft_buckets: int = 64, dispatch_retries: int = 3,
+                 retry_backoff_s: float = 0.02,
+                 readback_timeout_s: Optional[float] = None,
+                 fault_cooldown: int = 8, journal=None):
+        # health first: an engine that dies constructing reports
+        # STARTING, never a stale READY
+        self.health = heal.HealthState()
+        if journal is not None and temperature > 0.0:
+            raise ValueError(
+                "journal redelivery requires deterministic (greedy) "
+                "decode — a sampled stream cannot be replayed "
+                "token-exact (temperature > 0 with a journal)")
+        if mesh is not None:
+            for name, value in (("journal", journal),
+                                ("readback_timeout_s", readback_timeout_s)):
+                if value is not None:
+                    raise NotImplementedError(f"{name} {_MESH_CLOCK}")
         if model.device.type == "meta":
             raise ValueError(
                 "model has no params: bind them first with "
@@ -282,6 +387,16 @@ class ServingEngine:
         if decode_horizon < 1:
             raise ValueError(
                 f"decode_horizon must be >= 1, got {decode_horizon}")
+        if dispatch_retries < 1:
+            raise ValueError(
+                f"dispatch_retries must be >= 1, got {dispatch_retries}")
+        if readback_timeout_s is not None and readback_timeout_s <= 0:
+            raise ValueError(
+                f"readback_timeout_s must be > 0, got "
+                f"{readback_timeout_s}")
+        if fault_cooldown < 0:
+            raise ValueError(
+                f"fault_cooldown must be >= 0, got {fault_cooldown}")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(
                 f"kv_layout must be 'dense' or 'paged', got "
@@ -367,6 +482,17 @@ class ServingEngine:
         self.decode_gathers = 0
         self._init_spec(max_slots, int(draft_k), draft_model, draft_params,
                         int(draft_buckets))
+        self._dispatch_retries = int(dispatch_retries)
+        self._retry_backoff_s = float(retry_backoff_s)
+        self._readback_timeout_s = (None if readback_timeout_s is None
+                                    else float(readback_timeout_s))
+        self._cooldown_steps = int(fault_cooldown)
+        self._cooldown = 0  # dispatches left in the post-fault window
+        # set at the first deadline-bearing submission: deadline-free
+        # serving never scans the queue and slots for overdue requests
+        self._deadlines_seen = False
+        self.journal = journal
+        self.health.to_ready()
 
     def _init_spec(self, max_slots, draft_k, draft_model, draft_params,
                    draft_buckets) -> None:
@@ -463,22 +589,57 @@ class ServingEngine:
                eos_id: Optional[int] = None, uid=None,
                deadline_s: Optional[float] = None) -> Request:
         """Queue a request (FIFO). Raises ValueError when it can never
-        fit a slot (or the page pool), ``QueueFull`` at the queue
-        bound."""
-        if deadline_s is not None:
-            raise NotImplementedError(
-                "per-request deadlines are not ported to PyTorch yet "
-                "(ROADMAP.md, 'Port: serving features still to port')")
+        fit a slot (or the page pool), ``QueueFull`` at the queue bound
+        or outside READY. ``deadline_s`` bounds the request's wall time
+        from submission; past it the request is evicted as FAILED
+        (``DeadlineExceeded``)."""
         return self.enqueue(Request(
             prompt, max_new_tokens,
-            self.eos_id if eos_id is None else eos_id, uid))
+            self.eos_id if eos_id is None else eos_id, uid,
+            deadline_s=deadline_s))
+
+    def submit_retrying(self, prompt: Sequence[int],
+                        max_new_tokens: int, *, attempts: int = 8,
+                        backoff_s: float = 0.0,
+                        eos_id: Optional[int] = None, uid=None,
+                        deadline_s: Optional[float] = None,
+                        events_out: Optional[list] = None) -> Request:
+        """:meth:`submit` under a bounded retry on ``QueueFull`` that
+        steps the engine between attempts, so the bounded queue drains.
+        The request keeps its first attempt's ``submit_time``; the last
+        ``QueueFull`` propagates. The steps' token events are appended
+        to ``events_out`` when given."""
+        request = Request(prompt, max_new_tokens,
+                          self.eos_id if eos_id is None else eos_id,
+                          uid, deadline_s=deadline_s)
+
+        def drain_a_step(attempt: int, exc: BaseException) -> None:
+            events = self.step()
+            if events_out is not None:
+                events_out.extend(events)
+
+        return retry_with_backoff(
+            lambda: self.enqueue(request), attempts=attempts,
+            base_delay_s=backoff_s, retry_on=(QueueFull,),
+            on_retry=drain_a_step)
 
     def enqueue(self, request: Request) -> Request:
         """Queue a pre-built :class:`Request`; ``submit_time`` is
         stamped on the first attempt and survives ``QueueFull``
-        retries, so TTFT includes backpressure wait."""
+        retries, so TTFT includes backpressure wait. Outside READY the
+        admission is closed: ``QueueFull`` naming the state. A journal
+        records the admission before any work is done on it."""
         if request.submit_time is None:
             request.submit_time = time.perf_counter()
+        if not self.health.ready:
+            self.metrics.record_shed()
+            raise QueueFull(
+                f"admission closed: engine {self.health.state.upper()}"
+                f" ({self.health.reason}); submit to another replica")
+        if request.deadline_s is not None:
+            if self.mesh is not None:
+                raise NotImplementedError(f"deadline_s {_MESH_CLOCK}")
+            self._deadlines_seen = True
         if request.prompt and (
                 min(request.prompt) < 0
                 or max(request.prompt) >= self.model.vocab_size):
@@ -498,10 +659,14 @@ class ServingEngine:
                     f"{self.pool.num_pages - 1} allocatable "
                     f"(num_pages={self.pool.num_pages} incl. scratch)")
         try:
-            return self.scheduler.submit(request)
+            submitted = self.scheduler.submit(request)
         except QueueFull:
             self.metrics.record_shed()
             raise
+        if self.journal is not None:
+            # idempotent by uid: a redelivered request appends nothing
+            self.journal.record_admit(submitted)
+        return submitted
 
     def _finished(self, request: Request, token: int) -> Optional[str]:
         if request.eos_id is not None and token == request.eos_id:
@@ -515,12 +680,126 @@ class ServingEngine:
         self.scheduler.complete(request, reason)
         self.metrics.record_completion(len(request.tokens))
 
-    def _fail(self, request: Request, error: BaseException,
-              reason: str) -> None:
-        """Evict a request that holds no slot as FAILED, error kept."""
+    # ---- fault domains -------------------------------------------------
+    def _pool_write(self, fn):
+        """Run ``fn``, a call that writes the pool or the slots' decode
+        state in place. A real failure inside it (a ``GraftFaultError``
+        passes through; injected faults fire before it) may leave the
+        pool partly written, so it is the engine-fatal
+        ``PoolPoisonedError``, never a quarantine or a retry (see the
+        module docstring for where this differs from JAX)."""
+        try:
+            return fn()
+        except GraftFaultError:
+            raise
+        except Exception as e:
+            raise PoolPoisonedError(
+                "a call writing the KV pool in place failed midway "
+                f"({type(e).__name__}: {e}); the pool may be partly "
+                "written — discard this engine (and the requests it "
+                "held), it cannot keep serving") from e
+
+    def _attempted(self, fn):
+        """``fn`` under the engine's bounded retry (transient
+        ``OSError``-shaped failures, injected ones included); each
+        absorbed retry is counted and opens the horizon cooldown."""
+        return retry_with_backoff(
+            fn, attempts=self._dispatch_retries,
+            base_delay_s=self._retry_backoff_s,
+            on_retry=self._note_retry)
+
+    def _note_retry(self, attempt: int, exc: BaseException) -> None:
+        self.metrics.record_retry()
+        self._cooldown = self._cooldown_steps
+
+    def _attempted_engine(self, fn, what: str):
+        """An engine-wide operation (dispatch, readback): retries spent
+        fail fast with a named error."""
+        try:
+            return self._attempted(fn)
+        except GraftFaultError:
+            raise
+        except OSError as e:
+            raise GraftFaultError(
+                f"{what} still failing after {self._dispatch_retries} "
+                f"attempt(s): {type(e).__name__}: {e}") from e
+
+    def _quarantine(self, request: Request, error: BaseException,
+                    reason: str = "error",
+                    slot: Optional[int] = None) -> None:
+        """Evict one request as FAILED with its error. A slot it holds
+        has its device gates scrubbed and is recycled; tokens launched
+        blocks still hold for it are dropped at the drain (the
+        ``_running`` identity check). A journal records it terminal."""
+        if slot is None:
+            slot = request.slot
+        if slot is not None:
+            self._scrub_slot(slot)
+            if self._running.get(slot) is request:
+                del self._running[slot]
+            self.pool.release(slot)
         self.scheduler.fail(request, error, reason)
         request.finish_time = time.perf_counter()
         self.metrics.record_failure()
+        if self.journal is not None:
+            self.journal.record_failed(request)
+
+    def _poisoned(self, request: Request, error: BaseException,
+                  slot: Optional[int] = None) -> None:
+        """A per-request failure: transient classes (retries spent) and
+        ordinary errors quarantine the request; a fatal named fault
+        (``PoolPoisonedError`` included) propagates."""
+        if (isinstance(error, GraftFaultError)
+                and not isinstance(error, (FaultInjected,
+                                           DeadlineExceeded))):
+            raise error
+        self._quarantine(request, error, slot=slot)
+
+    def _scrub_slot(self, slot: int) -> None:
+        """Freeze the slot's row on the device as an EOS would: masked
+        every step, its stale columns invisible until the next tenant
+        overwrites them."""
+        pool = self.pool
+
+        def scrub():
+            pool.active[slot] = False
+            pool.budgets[slot] = 0
+
+        self._pool_write(scrub)
+
+    def _expire_deadlines(self) -> None:
+        """Fail every request past its deadline: queued,
+        mid-chunked-prefill or running (slot scrubbed). Nothing to scan
+        until a deadline-bearing request was submitted."""
+        if not self._deadlines_seen:
+            return
+        now = time.perf_counter()
+        for request in self.scheduler.expire(now):
+            self._quarantine(
+                request,
+                DeadlineExceeded(
+                    f"request {request.uid} exceeded its "
+                    f"{request.deadline_s:.3g}s deadline in the queue"),
+                reason="deadline")
+        pend = self._pending
+        if pend is not None and pend.request.overdue(now):
+            self._drop_pending()
+            self._quarantine(
+                pend.request,
+                DeadlineExceeded(
+                    f"request {pend.request.uid} exceeded its "
+                    f"{pend.request.deadline_s:.3g}s deadline "
+                    f"mid-chunked-prefill"),
+                reason="deadline")
+        for slot, request in list(self._running.items()):
+            if request.overdue(now):
+                self._quarantine(
+                    request,
+                    DeadlineExceeded(
+                        f"request {request.uid} exceeded its "
+                        f"{request.deadline_s:.3g}s deadline after "
+                        f"{len(request.tokens)} token(s)"),
+                    reason="deadline", slot=slot)
 
     def _pop_admission(self) -> Optional[Request]:
         request = self.scheduler.next_to_admit()
@@ -600,8 +879,8 @@ class ServingEngine:
         if prep is None:
             width = min(width, pool.s_max)
             cols = (slice(None), slot, slice(0, width))
-            _put(pool.k_caches, cols, k_pref[:, 0, :width])
-            _put(pool.v_caches, cols, v_pref[:, 0, :width])
+            writes = ((pool.k_caches, cols, k_pref[:, 0, :width]),
+                      (pool.v_caches, cols, v_pref[:, 0, :width]))
         else:
             ps = pool.page_size
             n_w = -(-width // ps)
@@ -610,11 +889,23 @@ class ServingEngine:
                 if prep.k + j < n_w:
                     write_ids[prep.k + j] = page
             ids = torch.from_numpy(write_ids).to(self.model.device)
-            _put(pool.k_pages, (slice(None), ids),
-                 self._to_pages(k_pref, n_w))
-            _put(pool.v_pages, (slice(None), ids),
-                 self._to_pages(v_pref, n_w))
-        self._arm_slot(request, slot, length, tok0)
+            writes = ((pool.k_pages, (slice(None), ids),
+                       self._to_pages(k_pref, n_w)),
+                      (pool.v_pages, (slice(None), ids),
+                       self._to_pages(v_pref, n_w)))
+
+        def splice():
+            for cache, index, value in writes:
+                _put(cache, index, value)
+            self._arm_slot(request, slot, length, tok0)
+
+        def insert_once():
+            # the site fires before the in-place writes, so a retried
+            # injection never re-runs against a half-written pool
+            maybe_fault(_SITE_INSERT)
+            self._pool_write(splice)
+
+        self._attempted(insert_once)
         if prep is not None:
             page_ids = prep.page_ids
             pool.bind_slot(slot, page_ids)
@@ -679,7 +970,7 @@ class ServingEngine:
                 # nothing in flight will ever free a page: fail the head
                 # named, keep serving the queue behind it
                 request = self._pop_admission()
-                self._fail(request, PagePoolExhausted(
+                self._quarantine(request, PagePoolExhausted(
                     f"request {request.uid} needs {needed} page(s); "
                     f"only {pool.free_pages} exist free with nothing in "
                     f"flight to free more (num_pages={pool.num_pages})"),
@@ -713,12 +1004,25 @@ class ServingEngine:
             pool.decref([prep.fork_src])
         prep.shared_ids, prep.fresh_ids, prep.fork_src = [], [], None
 
+    def _drop_pending(self) -> Optional[_PendingPrefill]:
+        """Detach the in-flight chunked prefill, returning its pages
+        (every quarantine and drain path that clears ``_pending``)."""
+        pend = self._pending
+        self._pending = None
+        if pend is not None and pend.prep is not None:
+            self._abort_prep(pend.prep)
+        return pend
+
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write fork of one page, every layer (both parts of
         an int8 pair: the fork keeps the exact quantized values)."""
         pool = self.pool
-        for pages in (pool.k_pages, pool.v_pages):
-            _put(pages, (slice(None), dst), pages[:, src])
+
+        def copy():
+            for pages in (pool.k_pages, pool.v_pages):
+                _put(pages, (slice(None), dst), pages[:, src])
+
+        self._pool_write(copy)
 
     def _note_outcome(self, request: Request, prep: _PagedPrep) -> None:
         request.prefix_hit = None if prep.mode == "miss" else prep.mode
@@ -738,19 +1042,33 @@ class ServingEngine:
         if slot is None:  # finished at its first token
             self._abort_prep(prep)
             return
-        if prep.fork_src is not None:
-            # the fork must hold the prefix's partial page before any
-            # decode write lands in it
-            self._copy_page(prep.fork_src, prep.fresh_ids[0])
-            pool.decref([prep.fork_src])
-            prep.fork_src = None
         length = len(request.prompt)
-        self._arm_slot(request, slot, length, int(entry.tok0))
+
+        def splice_once():
+            maybe_fault(_SITE_INSERT)
+            if prep.fork_src is not None:
+                # the fork must hold the prefix's partial page before
+                # any decode write lands in it
+                self._copy_page(prep.fork_src, prep.fresh_ids[0])
+                pool.decref([prep.fork_src])
+                prep.fork_src = None
+            self._pool_write(lambda: self._arm_slot(
+                request, slot, length, int(entry.tok0)))
+
+        try:
+            self._attempted(splice_once)
+        except Exception as e:
+            self._abort_prep(prep)
+            self._poisoned(request, e, slot=slot)
+            return
         pool.bind_slot(slot, prep.page_ids)
         prep.shared_ids, prep.fresh_ids = [], []
         pool.note_insert(slot, length)
         if self._draft_k:
-            self._spec_admit(request, slot, length)
+            try:
+                self._spec_admit(request, slot, length)
+            except Exception as e:
+                self._poisoned(request, e, slot=slot)
 
     def _spec_admit(self, request: Request, slot: int, length: int) -> None:
         """Per-admission speculative hook, after the target's splice on
@@ -811,27 +1129,58 @@ class ServingEngine:
         chunk = pend.plan.chunk
         padded = np.zeros((1, chunk), np.int64)
         padded[0, :valid] = pend.request.prompt[start:start + valid]
-        tokens = torch.from_numpy(padded).to(model.device)
-        x = _embed_at(model, tokens, start, model.dtype)
-        for i in range(model.num_layers):
-            x = _block_chunk_prefill(model.block(i), x, pend.k_pref[i],
-                                     pend.v_pref[i], start, self.pool.heads,
-                                     model.dtype, model.ln_eps, model.tp)
+
+        def chunk_once():
+            # writes only this request's standalone caches, the same
+            # columns on a retry
+            maybe_fault(_SITE_CHUNK)
+            tokens = torch.from_numpy(padded).to(model.device)
+            x = _embed_at(model, tokens, start, model.dtype)
+            for i in range(model.num_layers):
+                x = _block_chunk_prefill(
+                    model.block(i), x, pend.k_pref[i], pend.v_pref[i],
+                    start, self.pool.heads, model.dtype, model.ln_eps,
+                    model.tp)
+            return x
+
+        try:
+            x = self._attempted(chunk_once)
+        except Exception as e:
+            if self._pending is pend:
+                self._drop_pending()
+            else:
+                self._abort_prep(pend.prep)
+            self._poisoned(pend.request, e)
+            return False
         if not is_last:
             return True
         if self._pending is pend:
             self._pending = None  # the reservation moves to the splice
         idx = pend.plan.length - 1 - start
-        logits = _logits(model, x[:, idx:idx + 1], model.ln_eps)[:, 0]
-        tok0 = _sample(logits, *self._sampling,
-                       self._generator)[0].to(torch.int32)
-        slot = self._first_token(pend.request, int(self._fetch(tok0)),
-                                 events)
+
+        def tok0_once():
+            maybe_fault(_SITE_TOK0)
+            logits = _logits(model, x[:, idx:idx + 1], model.ln_eps)[:, 0]
+            t = _sample(logits, *self._sampling,
+                        self._generator)[0].to(torch.int32)
+            return t, int(self._fetch(t))
+
+        try:
+            tok0, tok0_host = self._attempted(tok0_once)
+        except Exception as e:
+            self._abort_prep(pend.prep)
+            self._poisoned(pend.request, e)
+            return False
+        slot = self._first_token(pend.request, tok0_host, events)
         if slot is None:
             self._abort_prep(pend.prep)
             return False
-        self._insert(pend.request, slot, pend.k_pref, pend.v_pref,
-                     pend.plan.length, tok0, prep=pend.prep)
+        try:
+            self._insert(pend.request, slot, pend.k_pref, pend.v_pref,
+                         pend.plan.length, tok0, prep=pend.prep)
+        except Exception as e:
+            self._abort_prep(pend.prep)
+            self._poisoned(pend.request, e, slot=slot)
         return False
 
     def _register_prefix(self, request: Request, page_ids) -> None:
@@ -845,6 +1194,8 @@ class ServingEngine:
             self._prefix_cache.register(
                 request.prompt, page_ids, int(request.tokens[0]),
                 self._copy_page)
+        except GraftFaultError:
+            raise  # a poisoned pool is engine-fatal, never swallowed
         except Exception as e:  # noqa: BLE001
             print(f"prefix registration failed for request "
                   f"{request.uid}: {type(e).__name__}: {e}",
@@ -881,20 +1232,42 @@ class ServingEngine:
                 if prep.mode == "partial":
                     # the suffix through the chunk path, driven to the
                     # end within this admission
-                    pend = self._new_pending(request, pool.page_size, prep)
+                    try:
+                        pend = self._new_pending(request, pool.page_size,
+                                                 prep)
+                    except Exception as e:
+                        self._abort_prep(prep)
+                        self._poisoned(request, e)
+                        continue
                     while self._drive_pending(pend, events):
                         pass
                     continue
             length = len(request.prompt)
-            tok0, k_pref, v_pref = self._prefill(request.prompt, length)
-            # the TTFT boundary: the host reads the first token here
-            slot = self._first_token(request, int(self._fetch(tok0)),
-                                     events)
+
+            def prefill_once():
+                maybe_fault(_SITE_PREFILL)
+                tok0, k_pref, v_pref = self._prefill(request.prompt,
+                                                     length)
+                # the TTFT boundary: the host reads the first token here
+                return tok0, k_pref, v_pref, int(self._fetch(tok0))
+
+            try:
+                tok0, k_pref, v_pref, tok0_host = self._attempted(
+                    prefill_once)
+            except Exception as e:
+                self._abort_prep(prep)
+                self._poisoned(request, e)
+                continue
+            slot = self._first_token(request, tok0_host, events)
             if slot is None:
                 self._abort_prep(prep)
                 continue
-            self._insert(request, slot, k_pref, v_pref, length, tok0,
-                         prep=prep)
+            try:
+                self._insert(request, slot, k_pref, v_pref, length, tok0,
+                             prep=prep)
+            except Exception as e:
+                self._abort_prep(prep)
+                self._poisoned(request, e, slot=slot)
         return events
 
     def _admit_chunked(self) -> List[Event]:
@@ -912,8 +1285,13 @@ class ServingEngine:
                     if prep.mode == "full":
                         self._admit_full_hit(request, prep, events)
                         return events
-                self._pending = self._new_pending(
-                    request, self._prefill_chunk, prep)
+                try:
+                    self._pending = self._new_pending(
+                        request, self._prefill_chunk, prep)
+                except Exception as e:
+                    self._abort_prep(prep)
+                    self._poisoned(request, e)
+                    return events
         if self._pending is not None:
             self._drive_pending(self._pending, events)
         return events
@@ -938,15 +1316,15 @@ class ServingEngine:
 
     def _pick_k(self) -> int:
         """Draft length of the next dispatch on the ``{0, draft_k}``
-        ladder. The probe counter advances on every pick, collapsed ones
-        included, or a collapsed engine would never probe again. (The
-        port has no fault cooldown.)"""
+        ladder, collapsed in the post-fault cooldown and under low
+        acceptance. The probe counter advances on every pick, collapsed
+        ones included, or a collapsed engine would never probe again."""
         if not self._draft_k:
             return 0
         probe = self._spec_dispatches % _SPEC_PROBE_EVERY == 0
         self._spec_dispatches += 1
-        return pick_draft_k(self._draft_k, self._accept_ema, False,
-                            probe=probe)
+        return pick_draft_k(self._draft_k, self._accept_ema,
+                            self._cooldown > 0, probe=probe)
 
     def _pick_schedule(self) -> Tuple[int, int, int]:
         """``(window, horizon, k)``: the smallest bucket covering the
@@ -966,11 +1344,22 @@ class ServingEngine:
         h = pick_horizon(self._horizon_max, window, max_eff,
                          self._min_remaining_eff(), admission_pending,
                          per_step=k + 1)
+        if self._cooldown > 0:
+            # post-fault: one token's work lost on a repeat, not a
+            # horizon's, while the fault domain is suspect
+            self._cooldown -= 1
+            if h > 1:
+                h = 1
+                self.metrics.record_horizon_collapse()
         return window, h, k
 
     def _dispatch(self, overlapped: bool = False) -> None:
         """Launch one decode horizon over every slot; the token block
-        stays on the device until :meth:`_drain_one` reads it."""
+        stays on the device until :meth:`_drain_one` reads it. Transient
+        failures are retried (the site fires before the launch, which
+        writes the pool in place); spent retries fail fast, named: the
+        dispatch covers every slot, so there is no one request to
+        quarantine."""
         pool = self.pool
         window, h, k = self._pick_schedule()
         temperature, top_k, top_p = self._sampling
@@ -991,13 +1380,19 @@ class ServingEngine:
                         draft_v_caches=self._draft_v_caches)
         tp = self.model.tp
         gathers = tp.gathers if tp is not None else 0
+
+        def launch():
+            maybe_fault(_SITE_DISPATCH)
+            return self._pool_write(lambda: _decode_horizon(
+                self.model, *caches, pool.positions, pool.last_tokens,
+                pool.active, pool.budgets, pool.eos_ids, h, window=window,
+                attn_impl=self._attn_impl, temperature=temperature,
+                top_k=top_k, top_p=top_p, generator=self._generator,
+                **paged, **spec))
+
         tokens, (pool.positions, pool.last_tokens, pool.active,
-                 pool.budgets) = _decode_horizon(
-            self.model, *caches, pool.positions, pool.last_tokens,
-            pool.active, pool.budgets, pool.eos_ids, h, window=window,
-            attn_impl=self._attn_impl, temperature=temperature,
-            top_k=top_k, top_p=top_p, generator=self._generator, **paged,
-            **spec)
+                 pool.budgets) = self._attempted_engine(
+            launch, "decode dispatch")
         if tp is not None:
             self.decode_gathers += tp.gathers - gathers
         if k:
@@ -1036,10 +1431,42 @@ class ServingEngine:
         rules the device applied (``-1`` marks rows it froze), release
         finished slots (and their pages), advance the position mirror by
         the realised per-slot steps. Returns ``(window,
-        tokens_emitted)``."""
+        tokens_emitted)``. With ``readback_timeout_s`` a watchdog bounds
+        each readback attempt (retry backoff is not charged to it): a
+        hang fails fast as ``FaultTimeout``, a flake retries."""
         pool = self.pool
         block = self._blocks.popleft()
-        tokens = self._fetch(block.tokens).numpy()
+
+        def readback():
+            maybe_fault(_SITE_READBACK)
+            try:
+                return self._fetch(block.tokens).numpy()
+            except (GraftFaultError, OSError):
+                raise
+            except Exception as e:
+                # CUDA reports a launched kernel's failure at the sync:
+                # the horizon that wrote the pool failed
+                raise PoolPoisonedError(
+                    f"the token-block readback failed ({type(e).__name__}"
+                    f": {e}); the decode horizon that wrote the pool in "
+                    "place did not complete — discard this engine") from e
+
+        def attempt():
+            if self._readback_timeout_s is None:
+                return readback()
+            try:
+                return run_with_timeout(
+                    readback, self._readback_timeout_s,
+                    "horizon token-block readback",
+                    hint="the device never delivered the block (a hung "
+                         "kernel or an injected hang); the engine fails "
+                         "fast rather than serving stale state.")
+            except FaultTimeout:
+                self.metrics.record_watchdog_trip()
+                raise
+
+        tokens = self._attempted_engine(attempt,
+                                        "horizon token-block readback")
         realized: Dict[int, int] = {}
         for row in range(block.rows):
             for slot, request in block.slots.items():
@@ -1089,12 +1516,24 @@ class ServingEngine:
                         slot, list(request.prompt) + list(request.tokens))
 
     def step(self) -> List[Event]:
-        """One engine iteration: admit (a whole prompt per free slot, or
-        one chunk), launch a decode horizon at the active-length window
-        (plus, in steady state, the next one), then read back exactly
-        one token block. Returns ``(request, token, finished)`` events,
-        admission first tokens included (a request failed for pages
-        emits none: read its ``state``/``error``)."""
+        """One engine iteration: expire overdue requests, admit (a whole
+        prompt per free slot, or one chunk), launch a decode horizon at
+        the active-length window (plus, in steady state, the next one),
+        then read back exactly one token block, and journal the step's
+        events. Returns ``(request, token, finished)`` events, admission
+        first tokens included (a quarantined request emits none: read
+        its ``state``/``error``). Whatever escapes takes the engine
+        down: its health goes DEAD and the error propagates."""
+        try:
+            return self._step_inner()
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as e:
+            self.health.to_dead(type(e).__name__)
+            raise
+
+    def _step_inner(self) -> List[Event]:
+        self._expire_deadlines()
         events = self._admit()
         if self._running or self._blocks:
             t0 = time.perf_counter()
@@ -1107,6 +1546,10 @@ class ServingEngine:
             self.metrics.record_decode_step(
                 time.perf_counter() - t0, emitted, occupancy,
                 self.scheduler.queue_depth, window)
+        if self.journal is not None and events:
+            # one fsync'd batch a step, at the drain boundary the host
+            # already synced; a journal failure is engine-fatal
+            self.journal.note_events(events)
         return events
 
     @property
@@ -1124,9 +1567,101 @@ class ServingEngine:
         while self.in_flight:
             yield from self.step()
 
-    def drain(self) -> List[Event]:
-        """Finish every in-flight request; returns their events."""
-        return list(self.run())
+    # ---- drain and redelivery --------------------------------------------
+    def begin_drain(self, reason: str = "drain") -> None:
+        """Flip the health machine to DRAINING (idempotent; host state
+        only, so a signal handler may call it): admission closes and
+        the drive loop finishes in-flight work through :meth:`drain`."""
+        if self.health.state in (heal.DRAINING, heal.DEAD):
+            return
+        self.health.to_draining(reason)
+
+    def drain(self, deadline_s: Optional[float] = None) -> List[Event]:
+        """Finish every in-flight request with admission closed, bounded
+        by ``deadline_s``: past it, every unfinished request (queued,
+        mid-chunked-prefill or running) is failed named
+        (``DeadlineExceeded``, reason ``"drain"``), never dropped. The
+        engine lands DEAD and its journal is compacted and closed (empty
+        after a clean drain). Returns the steps' token events."""
+        if deadline_s is not None and self.mesh is not None:
+            raise NotImplementedError(f"drain(deadline_s) {_MESH_CLOCK}")
+        self.begin_drain("drain")
+        t0 = time.perf_counter()
+        events: List[Event] = []
+        while self.in_flight:
+            if (deadline_s is not None
+                    and time.perf_counter() - t0 > deadline_s):
+                self._fail_unfinished(deadline_s)
+                break
+            events.extend(self.step())
+        self.health.to_dead("drained")
+        if self.journal is not None:
+            self.journal.close()
+        return events
+
+    def _fail_unfinished(self, deadline_s: float) -> int:
+        """The drain deadline: fail everything still in flight, named.
+        Launched blocks are dropped unread (their requests are failed
+        and the pool dies with the engine); running slots are scrubbed
+        as in any quarantine. Returns how many failed."""
+        self._blocks.clear()
+        failed = 0
+
+        def overdue_error(request, where):
+            return DeadlineExceeded(
+                f"request {request.uid} still {where} at the drain "
+                f"deadline ({deadline_s:.3g}s): failed named, not "
+                "silently dropped — resubmit to another replica (the "
+                "journal records it terminal, so a restart will not "
+                "double-serve it)")
+
+        while True:
+            request = self.scheduler.next_to_admit()
+            if request is None:
+                break
+            self._quarantine(request, overdue_error(request, "queued"),
+                             reason="drain")
+            failed += 1
+        pend = self._drop_pending()
+        if pend is not None:
+            self._quarantine(
+                pend.request,
+                overdue_error(pend.request, "mid-chunked-prefill"),
+                reason="drain")
+            failed += 1
+        for slot, request in list(self._running.items()):
+            self._quarantine(request, overdue_error(request, "running"),
+                             reason="drain", slot=slot)
+            failed += 1
+        return failed
+
+    def redeliver(self, entries,
+                  events_out: Optional[list] = None) -> List[Request]:
+        """Re-submit journaled unfinished requests (recovery after a
+        restart): each :class:`~..runtime.heal.JournalEntry` re-enters
+        admission under its original uid, so the journal appends
+        nothing for it and verifies its already-emitted tokens as the
+        greedy decode regenerates them. ``QueueFull`` from a bounded
+        queue is absorbed by stepping the engine (the steps' events go
+        to ``events_out`` when given); a closed admission raises.
+        Returns the requests in journal order."""
+        out: List[Request] = []
+        for entry in entries:
+            request = Request(entry.prompt, entry.max_new_tokens,
+                              entry.eos_id, uid=entry.uid)
+            while True:
+                try:
+                    self.enqueue(request)
+                    break
+                except QueueFull:
+                    if not self.health.ready:
+                        raise  # draining or dead: closed for good
+                    events = self.step()
+                    if events_out is not None:
+                        events_out.extend(events)
+            self.metrics.record_redelivery()
+            out.append(request)
+        return out
 
     def serve(self, requests: Iterable[Tuple[Sequence[int], int]]
               ) -> List[Request]:

@@ -4,8 +4,9 @@ Pure host-side bookkeeping, ported from the JAX package's
 ``serving/scheduler.py``: the bounded FIFO queue, the static-fit check
 against the pool's ``s_max``, each request's lifecycle record, the
 prefill bucket ladder, the adaptive decode horizon and the chunked
-prefill plan. Speculative draft lengths, deadlines and withdrawal are
-not in this slice (ROADMAP.md).
+prefill plan, the speculative draft length and the per-request deadlines.
+The queue withdrawals the fleet's router uses (``withdraw_uid``,
+``withdraw_tail``, ``requeue_tail``) wait for the fleet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -136,17 +137,24 @@ class Request:
     ``perf_counter`` stamps ``submit_time``/``admit_time``/
     ``first_token_time``/``finish_time`` (TTFT = first token - submit,
     queue wait included) and ``finish_reason`` (``"eos"`` or
-    ``"length"`` once DONE; ``"pages"`` once FAILED because the page
-    pool could never hold it, with the error in ``error``).
-    ``prefix_hit`` is ``"full"``, ``"partial"`` or None: whether the
-    request joined through the shared-prefix cache."""
+    ``"length"`` once DONE; once FAILED, with the error in ``error``,
+    ``"error"`` for a request quarantined by a fault, ``"deadline"``
+    past its deadline, ``"drain"`` at the drain deadline and ``"pages"``
+    when the page pool could never hold it). ``prefix_hit`` is
+    ``"full"``, ``"partial"`` or None: whether the request joined
+    through the shared-prefix cache. ``deadline_s``: an optional budget
+    of wall seconds from ``submit_time``; past it the engine evicts the
+    request, queued or running, as FAILED with a
+    :class:`~..runtime.faults.DeadlineExceeded`."""
 
     def __init__(self, prompt: Sequence[int], max_new_tokens: int,
-                 eos_id: Optional[int] = None, uid=None):
+                 eos_id: Optional[int] = None, uid=None,
+                 deadline_s: Optional[float] = None):
         self.prompt = list(int(t) for t in prompt)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = None if eos_id is None else int(eos_id)
         self.uid = next(_uid_counter) if uid is None else uid
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
         self.state = QUEUED
         self.tokens: List[int] = []
         self.slot: Optional[int] = None
@@ -157,6 +165,12 @@ class Request:
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
         self.finish_reason: Optional[str] = None
+
+    def overdue(self, now: float) -> bool:
+        """Past the per-request deadline (False when none is set)."""
+        return (self.deadline_s is not None
+                and self.submit_time is not None
+                and now - self.submit_time > self.deadline_s)
 
     def __repr__(self) -> str:
         return (f"Request(uid={self.uid}, state={self.state}, "
@@ -224,10 +238,19 @@ class FIFOScheduler:
         request.slot = None
 
     def fail(self, request: Request, error: BaseException,
-             reason: str) -> None:
+             reason: str = "error") -> None:
         """The request leaves the engine as FAILED with its error
         recorded, never re-admitted."""
         request.state = FAILED
         request.finish_reason = reason
         request.error = error
         request.slot = None
+
+    def expire(self, now: float) -> List[Request]:
+        """Remove and return the QUEUED requests past their deadline
+        (the engine fails each; running ones hold slots, which the
+        engine evicts itself)."""
+        overdue = [r for r in self._queue if r.overdue(now)]
+        for request in overdue:
+            self._queue.remove(request)
+        return overdue

@@ -161,7 +161,9 @@ class OrbaxCheckpointer:
     def epoch_path(self, epoch: int) -> str:
         return os.path.join(self.directory, str(epoch))
 
-    def _committed(self):
+    def committed_epochs(self):
+        """The durable epochs on disk, ascending (read alone, no
+        collective)."""
         if not os.path.isdir(self.directory):
             return []
         return sorted(int(n) for n in os.listdir(self.directory)
@@ -176,7 +178,7 @@ class OrbaxCheckpointer:
     def latest_epoch(self) -> Optional[int]:
         """The newest durable epoch: the primary rank's verdict, for
         every rank (a collective with more than one rank)."""
-        found = self._committed() if dist.is_primary() else []
+        found = self.committed_epochs() if dist.is_primary() else []
         epoch = broadcast_int(found[-1] if found else -1)
         return None if epoch < 0 else epoch
 
@@ -265,7 +267,7 @@ class OrbaxCheckpointer:
         """Delete all but the newest ``keep`` durable epochs (primary)."""
         if not self.keep or not dist.is_primary():
             return
-        for epoch in self._committed()[:-self.keep]:
+        for epoch in self.committed_epochs()[:-self.keep]:
             shutil.rmtree(self.epoch_path(epoch), ignore_errors=True)
 
     def wait(self) -> None:
@@ -278,9 +280,11 @@ class OrbaxCheckpointer:
         self._retain()
 
     # ---------------------------------------------------------- restore
-    def load_payload(self, epoch: int) -> Dict[str, object]:
+    def load_payload(self, epoch: int,
+                     prefix: Optional[str] = None) -> Dict[str, object]:
         """The whole saved payload of ``epoch`` on the CPU, under the
-        single-file payload's keys (``epoch`` an int)."""
+        single-file payload's keys (``epoch`` an int); with ``prefix``
+        (``"params/"``) only the leaves under it are read."""
         import torch.distributed.checkpoint as dcp
         from torch.distributed.checkpoint.metadata import (
             TensorStorageMetadata)
@@ -291,9 +295,11 @@ class OrbaxCheckpointer:
         meta = dcp.FileSystemReader(path).read_metadata()
         payload = {key: torch.empty(md.size, dtype=md.properties.dtype)
                    for key, md in meta.state_dict_metadata.items()
-                   if isinstance(md, TensorStorageMetadata)}
+                   if isinstance(md, TensorStorageMetadata)
+                   and (prefix is None or key.startswith(prefix))}
         dcp.load(payload, checkpoint_id=path, no_dist=True)
-        payload["epoch"] = int(payload["epoch"])
+        if "epoch" in payload:
+            payload["epoch"] = int(payload["epoch"])
         return payload
 
     def restore(self, state: TrainState,

@@ -9,8 +9,7 @@ trainer's windowed fetch (no host sync per batch).
 :class:`ServingMetrics` aggregates the serving engine's host meters.
 The fields are the ones this slice's engine records; ``snapshot()``
 reports them under the JAX snapshot's own key names, so a consumer of
-either CLI's ``--metrics_out`` reads the same keys. The fault-domain
-counters arrive with their feature.
+either CLI's ``--metrics_out`` reads the same keys.
 
 - ``ttft``: seconds from SUBMIT to first token (queue wait included);
 - ``queue_wait``: seconds from submit to admission;
@@ -25,7 +24,13 @@ counters arrive with their feature.
 - paged KV: ``prefix_hits`` / ``prefix_partial_hits`` /
   ``prefix_misses`` (each paged admission's prefix-cache outcome),
   ``page_holds`` (admissions deferred for pages, one per hold) and
-  ``requests_failed`` (requests the page pool could never hold);
+  ``requests_failed`` (requests evicted as FAILED: faults, deadlines,
+  the drain deadline, the page pool);
+- fault domains: ``dispatch_retries`` (transient errors absorbed by
+  the bounded retry, any site), ``requests_redelivered`` (journaled
+  requests re-submitted after a restart), ``watchdog_trips`` (hung
+  readbacks failed fast) and ``horizon_collapses`` (dispatches held at
+  horizon 1 in a post-fault cooldown);
 - speculative decode: ``tokens_drafted`` / ``tokens_accepted`` (draft
   tokens proposed by the active verify passes, and accepted by them)
   and ``accept_len`` (accepted drafts per (pass, slot); tokens per
@@ -92,6 +97,10 @@ class ServingMetrics:
         self.overlapped_dispatches = 0
         self.requests_shed = 0
         self.requests_failed = 0
+        self.dispatch_retries = 0
+        self.requests_redelivered = 0
+        self.watchdog_trips = 0
+        self.horizon_collapses = 0
         self.prefix_hits = 0
         self.prefix_partial_hits = 0
         self.prefix_misses = 0
@@ -139,11 +148,31 @@ class ServingMetrics:
             self.request_tokens.update(tokens)
 
     def record_shed(self) -> None:
+        """One submission refused at the queue bound or at a closed
+        (draining or dead) admission."""
         self.requests_shed += 1
 
     def record_failure(self) -> None:
         """One request evicted as FAILED; the engine kept serving."""
         self.requests_failed += 1
+
+    def record_retry(self) -> None:
+        """One transient error absorbed by the bounded retry, at any of
+        the engine's sites."""
+        self.dispatch_retries += 1
+
+    def record_redelivery(self) -> None:
+        """One journaled unfinished request re-submitted after a
+        restart."""
+        self.requests_redelivered += 1
+
+    def record_watchdog_trip(self) -> None:
+        """One hung horizon readback failed fast."""
+        self.watchdog_trips += 1
+
+    def record_horizon_collapse(self) -> None:
+        """One dispatch held at horizon 1 in a post-fault cooldown."""
+        self.horizon_collapses += 1
 
     def record_prefix_outcome(self, hit) -> None:
         """One paged admission's prefix-cache outcome: ``"full"`` (no
@@ -195,8 +224,12 @@ class ServingMetrics:
             "occupancy_max": self._occupancy_max,
             "queue_depth_avg": self.queue_depth.avg,
             "decode_steps": self.decode_step.count,
-            "requests_shed": self.requests_shed,
+            "dispatch_retries": self.dispatch_retries,
             "requests_failed": self.requests_failed,
+            "requests_shed": self.requests_shed,
+            "requests_redelivered": self.requests_redelivered,
+            "watchdog_trips": self.watchdog_trips,
+            "horizon_collapses": self.horizon_collapses,
             "prefix_hits": self.prefix_hits,
             "prefix_partial_hits": self.prefix_partial_hits,
             "prefix_misses": self.prefix_misses,

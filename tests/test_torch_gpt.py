@@ -69,7 +69,7 @@ def test_npz_load_roundtrip(carried, tmp_path):
     _, jparams, model = carried
     path = tmp_path / "params.npz"
     np.savez(path, **dict(_flat(jparams)))
-    loaded = load_params(str(path))
+    loaded = load_params(model, str(path))
     for name, t in model.state_dict().items():
         torch.testing.assert_close(loaded[name], t, atol=0, rtol=0)
 

@@ -98,7 +98,7 @@ def test_request_sources_match_jax_cli(tmp_path, source):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--replicas", "2"], ["--listen", "0"], ["--journal=w.jsonl"],
+    ["--replicas", "2"], ["--listen", "0"], ["--trace_out=t.json"],
     ["--rollout", "seed:7"], ["--autoscale", "1,2"], ["--stats_port", "0"]])
 def test_unported_flags_rejected(argv):
     with pytest.raises(SystemExit, match="not ported"):

@@ -135,14 +135,13 @@ def test_follower_raises_when_it_leaves_the_lockstep(want):
 
     model = get_model("gpt_tiny", dtype=torch.float32)
     model.load_state_dict(init_params(model, 0, "cpu"), assign=True)
-    feed = serve_lm._Lockstep(ServingEngine(model, max_slots=2), None)
 
     class Channel:
         def recv(self, idle=None):
             return {"tried": [[[1, 2, 3], 4, "src-0", want]],
                     "final": False}
 
-    feed._channel = Channel()
+    feed = serve_lm._Lockstep(ServingEngine(model, max_slots=2), Channel())
     with pytest.raises(RuntimeError, match=(
             f"left rank 0's lockstep: request src-0 was accepted here "
             f"and {want} on rank 0")):
