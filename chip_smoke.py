@@ -20,6 +20,10 @@
                                      # across the visible cards) alone
     python3 chip_smoke.py --serve-heal-only  # phases 1, 2 and 32
                                              # (fault-tolerant serving)
+    python3 chip_smoke.py --scope-only  # phases 1, 2 and 33
+                                        # (observability) alone
+    python3 chip_smoke.py --fleet-only  # phase 33's [fleet-xcard] alone
+                                        # (four cards)
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -432,6 +436,34 @@ nothing is caught):
    saves with ``--ckpt_backend msgpack`` and ``orbax`` and ``serve_lm
    --ckpt`` (``--ckpt_epoch 1`` too) serves each token-exact with the
    same params bound in memory (``[serve-heal]`` lines).
+33. scope — observability, armed against disarmed, with
+   ``torch.cuda.set_sync_debug_mode("warn")`` counting each run's
+   synchronizing CUDA calls: (a) phase 4's serve through
+   ``serve_lm.main`` after a warm-up, disarmed and armed
+   (``--trace_out``, ``--events_out``, ``--stats_port``) in turns, three
+   times each: decode tokens/s, row 1's launches (12 a step) and the
+   sync warnings, equal in every run; while the armed serve runs, a
+   thread GETs ``/metrics``, ``/snapshot.json``, ``/events.json`` and
+   ``/healthz`` (200, ``ready``); the trace parses, carries
+   ``request.submit``, ``request.admit`` and ``request.done`` for the 16
+   uids and one ``decode.dispatch`` and one ``decode.drain`` a dispatch
+   (``[scope-serve]``); (b) a fatal at the 4th dispatch under
+   ``--flight_path``: the CLI raises ``GraftFaultError`` and the dump
+   ends in ``engine.fatal`` (``[scope-flight]``); (c) the device-memory
+   ledger's entries for phase 4's engine and for a gpt_small bf16
+   ``train_lm`` state beside ``torch.cuda.memory_allocated()`` over the
+   same construction, the ledger never above it (``[hbm]``); (d)
+   ``train_lm`` gpt_small bf16 for 4 steps and ``main`` ResNet-18
+   ``--optimizer sgd_fused`` for 16, each disarmed, with ``--trace_out``
+   and disarmed again: rows 5-7 launch 12 a step and row 8 once, the
+   armed run's sync warnings equal the disarmed run's after it
+   (``[scope-train]``); (e) with four cards, ``train_lm --parallel dp``
+   on four NCCL ranks under ``PMDT_FLEET``, rank 2 slowed by
+   ``store.set=hang:0:0.05``: rank 0's ``FleetCollector`` (over the
+   rendezvous store and every rank's stats server, before they close)
+   merges four lanes, names rank 2 the straggler and reads every rank's
+   ``goodput_frac`` in (0, 1] (``[fleet-xcard]``; skipped with fewer
+   cards).
    Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
@@ -456,7 +488,9 @@ entries carry each phase 28 run's launches a step,
 run's); rows 1, 2 and 3 carry phase 32's launches in its uninterrupted
 and restarted serves, ``serve_heal_launches`` (null on the rows phase 32
 does not run); the decode entry carries phase 29's ``--sample`` launches,
-``moe_sample_launches``; rows 1-4 and their int8 twins carry phase 31's
+``moe_sample_launches``; rows 1, 5-7 (bf16) and 8 carry phase 33's
+launches a step armed and disarmed, ``scope_launches_per_step``; rows
+1-4 and their int8 twins carry phase 31's
 launches a pass on the M = 1 TP path, ``tp_launches_per_step``, and
 their checks and times at a rank's shapes, ``tp_shapes`` keyed
 ``H{heads}_W{window}``);
@@ -5189,6 +5223,530 @@ def _serve_heal_fields(sh, name):
     return {"serve_heal_launches": sh["launches"].get(name)}
 
 
+# phase 33: observability. Phase 4's serve and phase 7's/10's trainers,
+# disarmed and armed (--trace_out, --events_out, --stats_port), with
+# torch.cuda.set_sync_debug_mode("warn") counting the host syncs; the
+# armed serve's routes read by a thread while it serves
+SCOPE_SERVE_ARGV = ["--model", "gpt_small", "--random_init", "--dtype",
+                    "bfloat16", "--max_slots", "8", "--synthetic", "16",
+                    "--max_new_tokens", "32", "--decode_horizon", "4",
+                    "--seed", "0", "--quiet"]
+# (layout, extra flags, row's wrapper, runs): dense in turns after a
+# warm-up, paged (row 2) once each way
+SCOPE_SERVE_RUNS = (
+    ("dense", [], "decode_attention",
+     ("warm-up",) + ("disarmed", "armed") * 3),
+    ("paged", ["--kv_layout", "paged"], "paged_decode_attention",
+     ("disarmed", "armed")))
+SCOPE_TRAIN_STEPS = 4
+SCOPE_LM_ARGV = ["--model", "gpt_small", "--batch_size", "8", "--seq_len",
+                 "1024", "--epochs", "1", "--corpus_tokens",
+                 str(SCOPE_TRAIN_STEPS * 8 * 1024), "--lr", TRAIN_LR,
+                 "--seed", "0", "--dtype", "bfloat16"]
+SCOPE_IMAGE_SYNTH = "1024"  # 16 steps of 64 and 4 eval batches
+SCOPE_IMAGE_ARGV = ["--device", "cuda", "--world_size", "1", "--model",
+                    "res", "--synthetic", "--optimizer", "sgd_fused",
+                    "--batch_size", "64", "--epochs", "1", "--seed", "0",
+                    "--print-freq", "4"]
+SCOPE_ROUTES = ("/metrics", "/snapshot.json", "/events.json", "/healthz")
+# [fleet-xcard]: train_lm --parallel dp on four ranks under PMDT_FLEET,
+# rank FLEET_SLOW slowed by a hang at every store write (its arrival
+# stamps), gate and stamp at every step
+FLEET_RANKS, FLEET_SLOW, FLEET_HANG_S = 4, 2, 0.05
+FLEET_RUN = "chip-smoke-33"
+
+
+def _disarm_telemetry():
+    """What a CLI's flags armed in this process: the scope, the ledger,
+    the goodput ledger."""
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime import (
+        fleet, hbm, scope)
+
+    scope.disarm()
+    hbm.disarm()
+    fleet.disarm_goodput()
+
+
+def _counting_syncs(torch, fn):
+    """``fn()`` with ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the synchronizing CUDA calls it made (one warning each)."""
+    import warnings
+
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _scrape_while_up(port, got, stop):
+    """Wait for ``/healthz`` to answer 200, then GET every route once
+    into ``got`` (code, body)."""
+    import urllib.error
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    while not stop.is_set():
+        try:
+            with urllib.request.urlopen(base + "/healthz",
+                                        timeout=2) as resp:
+                if resp.status != 200:
+                    continue
+        except OSError:
+            time.sleep(0.005)
+            continue
+        for route in SCOPE_ROUTES:
+            try:
+                with urllib.request.urlopen(base + route, timeout=5) as r:
+                    got[route] = (r.status, r.read().decode())
+            except urllib.error.HTTPError as e:
+                got[route] = (e.code, "")
+        return
+
+
+def _scope_serve(torch, serve_lm, da, smi, tmp):
+    """[scope-serve]: phase 4's serve disarmed and armed in turns (dense
+    three times each after a warm-up, paged once each): tokens/s, the
+    row's launches and the sync warnings of each, equal armed and
+    disarmed; the armed runs' routes, trace and events. Returns the
+    runs by layout."""
+    out = {}
+    for layout, extra, row, labels in SCOPE_SERVE_RUNS:
+        kernel = getattr(da, row)
+        runs = []
+        for label in labels:
+            runs.append(_scope_serve_run(torch, serve_lm, kernel, smi, tmp,
+                                         layout, extra, label))
+        counted = [r for r in runs if r["label"] != "warm-up"]
+        if len({r["syncs"] for r in counted}) != 1 or len(
+                {r["launches"] / r["steps"] for r in counted}) != 1:
+            raise AssertionError(
+                f"[scope-serve] {layout}: armed and disarmed serves "
+                "differ: " + ", ".join(
+                    f"{r['label']} syncs {r['syncs']} launches "
+                    f"{r['launches']}" for r in counted))
+        out[layout] = counted
+    return out
+
+
+def _scope_serve_run(torch, serve_lm, kernel, smi, tmp, layout, extra,
+                     label):
+    """One serve of [scope-serve] through ``serve_lm.main``."""
+    armed = label == "armed"
+    n = len(os.listdir(tmp))
+    argv = SCOPE_SERVE_ARGV + extra + [
+        "--metrics_out", os.path.join(tmp, f"m{n}.json")]
+    got, stop = {}, threading.Event()
+    if armed:
+        port = _store_port()
+        trace = os.path.join(tmp, f"t{n}.json")
+        events = os.path.join(tmp, f"e{n}.jsonl")
+        argv += ["--trace_out", trace, "--events_out", events,
+                 "--stats_port", str(port)]
+        scraper = threading.Thread(target=_scrape_while_up,
+                                   args=(port, got, stop), daemon=True)
+        scraper.start()
+    kernel.launches = 0
+    try:
+        snap, syncs = _counting_syncs(torch, lambda: serve_lm.main(argv))
+    finally:
+        stop.set()
+        _disarm_telemetry()
+    launches = kernel.launches
+    steps = round(snap["decode_horizon_avg"] * snap["decode_dispatches"])
+    if snap["requests_completed"] != 16 or launches != 12 * steps:
+        raise AssertionError(
+            f"[scope-serve] {layout} {label}: served "
+            f"{snap['requests_completed']}/16, {kernel.__name__} launched "
+            f"{launches} times over {steps} steps (12 a step)")
+    run = dict(label=label, tok_s=snap["decode_tokens_per_sec"],
+               launches=launches, steps=steps, syncs=syncs,
+               dispatches=snap["decode_dispatches"])
+    if armed:
+        scraper.join(5)
+        _check_scope_serve(run, got, trace, events)
+    _print(f"[scope-serve] {layout} {label}: decode tokens/s "
+           f"{run['tok_s']:.1f}, decode steps {steps}, {kernel.__name__} "
+           f"launches {launches} (12 a step), sync warnings {syncs}"
+           + (f", trace {run['events']} events {run['trace_bytes']} "
+              f"bytes (JSONL {run['jsonl_bytes']} bytes), /metrics "
+              f"{run['metrics_lines']} lines, /events.json "
+              f"{run['scraped_events']} events, /healthz 200 ready"
+              if armed else "") + f" [{smi}]")
+    return run
+
+
+def _check_scope_serve(run, got, trace, events):
+    """An armed serve's routes (read while it served) and its trace."""
+    codes = {r: got.get(r, (None,))[0] for r in SCOPE_ROUTES}
+    if set(codes.values()) != {200}:
+        raise AssertionError(
+            f"[scope-serve] routes answered {codes} while serving")
+    health = json.loads(got["/healthz"][1])
+    live = json.loads(got["/snapshot.json"][1])
+    if health["state"] != "ready" or not any(
+            k.startswith("hbm_") for k in live) or "goodput_frac" not in live:
+        raise AssertionError(
+            f"[scope-serve] /healthz {health}, /snapshot.json keys "
+            f"{sorted(live)[:8]}...")
+    with open(trace) as f:
+        doc = json.load(f)
+    names = collections.Counter(e["name"] for e in doc["traceEvents"])
+    uids = {f"src-{i}" for i in range(16)}
+    for name in ("request.submit", "request.admit", "request.done"):
+        seen = {e["args"]["req"] for e in doc["traceEvents"]
+                if e["name"] == name}
+        if seen != uids:
+            raise AssertionError(
+                f"[scope-serve] {name} for {sorted(seen)}, not the 16 uids")
+    if not (names["decode.dispatch"] == names["decode.drain"]
+            == run["dispatches"]):
+        raise AssertionError(
+            f"[scope-serve] {names['decode.dispatch']} dispatch and "
+            f"{names['decode.drain']} drain events over "
+            f"{run['dispatches']} dispatches")
+    run.update(events=len(doc["traceEvents"]),
+               trace_bytes=os.path.getsize(trace),
+               jsonl_bytes=os.path.getsize(events),
+               metrics_lines=got["/metrics"][1].count("\n"),
+               scraped_events=len(json.loads(got["/events.json"][1])))
+
+
+def _scope_flight(serve_lm, smi, tmp):
+    """[scope-flight]: a fatal at the 4th decode dispatch under
+    ``--flight_path``: the CLI raises it (as JAX's) and the dump ends in
+    ``engine.fatal``."""
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime import faults
+
+    path = os.path.join(tmp, "flight.jsonl")
+    plan = faults.plan_from_spec("serving.decode_dispatch=fatal:1:3")
+    raised = None
+    with faults.armed(plan):
+        try:
+            serve_lm.main(SCOPE_SERVE_ARGV + ["--flight_path", path])
+        except faults.GraftFaultError as e:
+            raised = e
+        finally:
+            _disarm_telemetry()
+    gc.collect()
+    if raised is None:
+        raise AssertionError("[scope-flight] the fatal did not propagate")
+    if not os.path.exists(path):
+        raise AssertionError("[scope-flight] the fatal left no dump")
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    if lines[-1]["name"] != "engine.fatal":
+        raise AssertionError(
+            f"[scope-flight] the dump ends in {lines[-1]['name']}")
+    _print(f"[scope-flight] serving.decode_dispatch=fatal:1:3 -> "
+           f"{type(raised).__name__}; flight dump {len(lines) - 1} events, "
+           f"reason {lines[0]['graftscope_flight']!r}, last "
+           f"{lines[-1]['name']} ({lines[-1].get('error')}) [{smi}]")
+
+
+def _scope_hbm(torch, smi):
+    """[hbm]: the ledger's entries for phase 4's engine and for a
+    gpt_small bf16 train_lm state, beside torch.cuda.memory_allocated()
+    over the same construction."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime import hbm
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        ServingEngine, init_params)
+    from pytorch_multiprocessing_distributed_tpu_torch.train import (
+        create_lm_train_state)
+    from pytorch_multiprocessing_distributed_tpu_torch.train.step import (
+        register_state_hbm)
+
+    out = {}
+    for what in ("engine", "train_lm state"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        with hbm.scoped_ledger() as ledger:
+            model = get_model("gpt_small", dtype=torch.bfloat16)
+            params = init_params(model, 0, "cuda")
+            if what == "engine":
+                model.load_state_dict(params, assign=True)
+                del params
+                held = ServingEngine(model, max_slots=8, decode_horizon=4)
+            else:
+                held = create_lm_train_state(model, params)
+                del params
+                register_state_hbm(held)
+            torch.cuda.synchronize()
+            alloc = torch.cuda.memory_allocated() - base
+        registered = ledger.total_bytes
+        entries = {k: b for k, (_, b, _) in sorted(ledger.entries().items())}
+        del held, model
+        if not 0 < registered <= alloc:
+            raise AssertionError(
+                f"[hbm] {what}: registered {registered} bytes, "
+                f"memory_allocated grew {alloc}")
+        out[what] = dict(registered=registered, allocated=alloc,
+                         entries=entries)
+        _print(f"[hbm] {what}: ledger {registered} bytes {entries}; "
+               f"memory_allocated +{alloc} bytes; gap {alloc - registered} "
+               f"bytes ({(alloc - registered) / alloc:.4f} of allocated) "
+               f"[{smi}]")
+    gc.collect()
+    return out
+
+
+def _scope_train(torch, train_lm, image_main, fa, fused_sgd_, smi, tmp):
+    """[scope-train]: train_lm gpt_small bf16 for 4 steps and main
+    ResNet-18 --optimizer sgd_fused, each disarmed, with --trace_out,
+    and disarmed again: rows 5-7 launch 12 a step and row 8 once a step
+    in every run, and the sync warnings of the armed run equal the
+    disarmed runs'."""
+    out = {}
+    prev_synth = os.environ.get("PMDT_SMALL_SYNTH")
+    os.environ["PMDT_SMALL_SYNTH"] = SCOPE_IMAGE_SYNTH
+    try:
+        for cli, argv in (("train_lm", SCOPE_LM_ARGV),
+                          ("main", SCOPE_IMAGE_ARGV)):
+            runs = []
+            for label in ("disarmed", "armed", "disarmed"):
+                save = os.path.join(tmp, f"{cli}-{len(runs)}")
+                args = argv + ["--save_path", save]
+                if label == "armed":
+                    trace = os.path.join(tmp, f"{cli}-{len(runs)}.json")
+                    args += ["--trace_out", trace]
+                for name in FLASH_PRODUCTS:
+                    getattr(fa, name).launches = 0
+                fused_sgd_.launches = 0
+                run_main = (train_lm.main if cli == "train_lm"
+                            else image_main.main)
+                try:
+                    summary, syncs = _counting_syncs(
+                        torch, lambda: run_main(args))
+                finally:
+                    _disarm_telemetry()
+                steps = summary["steps"]
+                launches = ({n: getattr(fa, n).launches
+                             for n in FLASH_PRODUCTS}
+                            if cli == "train_lm"
+                            else {"fused_sgd": fused_sgd_.launches})
+                want = ({n: 12 * steps for n in FLASH_PRODUCTS}
+                        if cli == "train_lm" else {"fused_sgd": steps})
+                if launches != want or (cli == "train_lm"
+                                        and steps != SCOPE_TRAIN_STEPS):
+                    raise AssertionError(
+                        f"[scope-train] {cli} {label}: {steps} steps, "
+                        f"launches {launches}, expected {want}")
+                run = dict(label=label, steps=steps, launches=launches,
+                           syncs=syncs,
+                           rate=summary.get("tokens_per_sec",
+                                            summary.get("images_per_sec")))
+                if label == "armed":
+                    with open(trace) as f:
+                        events = json.load(f)["traceEvents"]
+                    names = collections.Counter(e["name"] for e in events)
+                    if names["train.window"] < 1 or names[
+                            "train.metrics_fetch"] != names["train.window"]:
+                        raise AssertionError(
+                            f"[scope-train] {cli}: trace spans {dict(names)}")
+                    run.update(events=len(events),
+                               trace_bytes=os.path.getsize(trace))
+                runs.append(run)
+                _print(f"[scope-train] {cli} {label}: {steps} steps, "
+                       f"launches {launches}, sync warnings {syncs}, "
+                       f"{'tokens' if cli == 'train_lm' else 'images'}/s "
+                       f"{run['rate']:.1f}"
+                       + (f", trace {run['events']} events "
+                          f"{run['trace_bytes']} bytes"
+                          if label == "armed" else "") + f" [{smi}]")
+            if runs[1]["syncs"] != runs[2]["syncs"] or runs[1][
+                    "launches"] != runs[2]["launches"]:
+                raise AssertionError(
+                    f"[scope-train] {cli}: armed syncs {runs[1]['syncs']} "
+                    f"launches {runs[1]['launches']}, disarmed "
+                    f"{runs[2]['syncs']} / {runs[2]['launches']}")
+            out[cli] = runs
+    finally:
+        if prev_synth is None:
+            os.environ.pop("PMDT_SMALL_SYNTH", None)
+        else:
+            os.environ["PMDT_SMALL_SYNTH"] = prev_synth
+    return out
+
+
+def _fleet_rank(rank, world, port, argv, slow, hang_s, out_path):
+    """One rank of [fleet-xcard]: ``train_lm.main(argv)`` under
+    ``PMDT_FLEET`` (rank ``slow`` under a store-write hang). At the
+    run's end, before any stats server closes, rank 0 runs the
+    collector over the rendezvous store and every rank's server; each
+    rank writes its summary (rank 0 the collector's views too)."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank),
+                      PMDT_FLEET=FLEET_RUN, OMP_NUM_THREADS="1")
+    if rank == slow:
+        os.environ["PMDT_FAULT_PLAN"] = f"store.set=hang:0:{hang_s}"
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as tdist
+
+    from pytorch_multiprocessing_distributed_tpu_torch import train_lm
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime import (
+        fleet, telemetry)
+
+    if argv[argv.index("--device") + 1] == "cpu":
+        torch.set_num_threads(1)  # gloo ranks share the host's cores
+
+    report = {}
+    stop = telemetry.stop_stats
+
+    def collect_then_stop(server):
+        if server is not None and not report:
+            report["done"] = True
+            tdist.barrier()  # every rank's last stamp is in the store
+            if rank == 0:
+                monitor = fleet.active_fleet()
+                col = fleet.FleetCollector(monitor.store,
+                                           run_uid=monitor.run_uid)
+                scraped = col.scrape()
+                merged = col.merged_timeline(
+                    {r: s["events"] for r, s in scraped.items()})
+                report.update(
+                    straggler=col.straggler_report(),
+                    lanes=sum(e.get("name") == "process_name"
+                              for e in merged["traceEvents"]),
+                    merged_events=len(merged["traceEvents"]),
+                    goodput={r: s["snapshot"]["goodput_frac"]
+                             for r, s in scraped.items()},
+                    gauges=len(col.merged_gauges(
+                        {r: s["snapshot"] for r, s in scraped.items()})),
+                    endpoints=len(col.endpoints()))
+            tdist.barrier()  # rank 0 read the store and the servers
+            report["monitor"] = fleet.active_fleet().snapshot()
+        stop(server)
+
+    telemetry.stop_stats = collect_then_stop
+    summary = train_lm.main(argv)
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump({"steps": summary["steps"], "report": report}, f)
+
+
+def _free_ports_from(n: int) -> int:
+    """A port with the ``n - 1`` after it free too (rank r's stats server
+    binds ``--stats_port + r``), apart from the rendezvous store's."""
+    for _ in range(200):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            base = sock.getsockname()[1]
+        held = []
+        try:
+            for p in range(base, base + n):
+                sock = socket.socket()
+                held.append(sock)
+                sock.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in held:
+                sock.close()
+    raise RuntimeError(f"no {n} consecutive free ports")
+
+
+def _fleet_run(device, model, extra, hang_s=FLEET_HANG_S, timeout_s=600):
+    """[fleet-xcard]'s four ranks on ``device``, rank FLEET_SLOW slowed by
+    ``hang_s`` a store write; returns rank 0's collector views (with
+    every rank's arrivals and dropped stamps) and every rank's steps."""
+    port = _free_ports_from(FLEET_RANKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        # a full-log scope on every rank (rank 0 writes the trace)
+        argv = ["--model", model, "--parallel", "dp", "--device", device,
+                "--epochs", "1", "--print_freq", "1", "--seed", "0",
+                "--stats_port", str(port), "--trace_out",
+                os.path.join(tmp, "trace.json"), "--save_path", tmp]
+        ranks = _run_ranks(_fleet_rank, FLEET_RANKS,
+                           (argv + extra, FLEET_SLOW, hang_s),
+                           timeout_s=timeout_s, per_rank=True)
+    report = dict(ranks[0]["report"],
+                  dropped=[r["report"]["monitor"]["fleet_dropped_stamps"]
+                           for r in ranks],
+                  arrivals=[r["report"]["monitor"]["fleet_arrivals"]
+                            for r in ranks])
+    return report, [r["steps"] for r in ranks]
+
+
+def _scope_fleet(torch, smi):
+    """[fleet-xcard] on four cards (skipped with fewer)."""
+    cards = torch.cuda.device_count()
+    if cards < FLEET_RANKS:
+        _print(f"[fleet-xcard] skipped: {cards} card(s) visible, "
+               f"{FLEET_RANKS} needed (python3 chip_smoke.py --scope-only "
+               "where four are visible)")
+        return None
+    t0 = time.perf_counter()
+    report, steps = _fleet_run(
+        "cuda", "gpt_small",
+        ["--batch_size", "16", "--seq_len", "1024", "--corpus_tokens",
+         str(SCOPE_TRAIN_STEPS * 16 * 1024), "--lr", TRAIN_LR, "--dtype",
+         "bfloat16"])
+    _check_fleet(report, steps)
+    strag = report["straggler"]
+    _print(f"[fleet-xcard] train_lm gpt_small bf16 --parallel dp on "
+           f"{FLEET_RANKS} cards, {steps[0]} steps, rank {FLEET_SLOW} "
+           f"slowed {FLEET_HANG_S} s a store write: lanes "
+           f"{report['lanes']}, merged trace {report['merged_events']} "
+           f"entries, collectives matched {strag['collectives']}, "
+           f"straggler rank {strag['straggler_rank']} (lag p95 "
+           f"{strag['straggler_lag_p95_s'] * 1e3:.2f} ms; skew p50 "
+           f"{strag['skew_p50_s'] * 1e3:.2f} ms p95 "
+           f"{strag['skew_p95_s'] * 1e3:.2f} ms), goodput_frac "
+           f"{report['goodput']}, arrivals {report['arrivals']}, dropped "
+           f"stamps {report['dropped']}, "
+           f"wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    return report
+
+
+def _check_fleet(report, steps):
+    if len(set(steps)) != 1 or report.get("lanes") != FLEET_RANKS:
+        raise AssertionError(f"[fleet-xcard] steps {steps}, {report}")
+    strag = report["straggler"]
+    if strag["straggler_rank"] != FLEET_SLOW:
+        raise AssertionError(
+            f"[fleet-xcard] the report names rank "
+            f"{strag['straggler_rank']}, not the slowed {FLEET_SLOW}: "
+            f"{strag['by_rank']}")
+    if not all(0.0 < g <= 1.0 for g in report["goodput"].values()):
+        raise AssertionError(f"[fleet-xcard] goodput {report['goodput']}")
+
+
+def _scope_phase(torch, serve_lm, train_lm, image_main, da, fa, fused_sgd_,
+                 smi):
+    """Phase 33 (see the module docstring). Returns the kernels line's
+    additions: rows 1, 5-7 and 8's launches armed and disarmed."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = _scope_serve(torch, serve_lm, da, smi, tmp)
+        _scope_flight(serve_lm, smi, tmp)
+        hbm_out = _scope_hbm(torch, smi)
+        train = _scope_train(torch, train_lm, image_main, fa, fused_sgd_,
+                             smi, tmp)
+    fleet_out = _scope_fleet(torch, smi)
+    pairs = [(r["label"], round(r["tok_s"], 1)) for r in serve["dense"]]
+    _print(f"[scope] phase 33 wall {time.perf_counter() - t0:.1f} s; "
+           f"dense decode tokens/s in turns {pairs} [{smi}]")
+    per_step = {
+        **{row: {r["label"]: r["launches"] / r["steps"]
+                 for r in serve[layout][:2]}
+           for layout, _, row, _ in SCOPE_SERVE_RUNS},
+        **{name: {r["label"]: r["launches"][name] / r["steps"]
+                  for r in train["train_lm"][:2]} for name in FLASH_PRODUCTS},
+        "fused_sgd": {r["label"]: r["launches"]["fused_sgd"] / r["steps"]
+                      for r in train["main"][:2]}}
+    return dict(serve=serve, train=train, hbm=hbm_out, fleet=fleet_out,
+                per_step=per_step)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5279,6 +5837,24 @@ def main() -> int:
                f"{time.perf_counter() - t0:.2f} s")
         _serve_heal_phase(torch, serve_lm, train_lm, da, smi)
         _print(f"[total] chip_smoke --serve-heal-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--fleet-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        _build.build_all()  # the spawned ranks find the kernels built
+        _print(f"[build] {time.perf_counter() - t0:.2f} s")
+        _scope_fleet(torch, smi)
+        _print(f"[total] chip_smoke --fleet-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--scope-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        reports = _build.build_all()
+        _print(f"[build] {len(reports)} source(s) in "
+               f"{time.perf_counter() - t0:.2f} s")
+        _scope_phase(torch, serve_lm, train_lm, image_main, da, fa,
+                     fused_sgd_, smi)
+        _print(f"[total] chip_smoke --scope-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--heal-only" in sys.argv[1:]:
@@ -6505,6 +7081,10 @@ def main() -> int:
 
     # -- phase 32: fault-tolerant serving, and serving from training
     serve_heal = _serve_heal_phase(torch, serve_lm, train_lm, da, smi)
+
+    # -- phase 33: observability, armed against disarmed
+    scope33 = _scope_phase(torch, serve_lm, train_lm, image_main, da, fa,
+                           fused_sgd_, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -6552,7 +7132,8 @@ def main() -> int:
                                      in mp["launches"].items()},
             "moe_launches_per_step": {mode: counts[name] for mode, counts
                                       in moe["launches"].items()},
-            "heal_restart_launches": heal["lm"][name]}
+            "heal_restart_launches": heal["lm"][name],
+            "scope_launches_per_step": scope33["per_step"][name]}
            if tname == "bfloat16" else {})}
         for tname, kernels_of, launches_of in (
             ("bfloat16", FLASH_KERNELS, train_launches),
@@ -6577,6 +7158,7 @@ def main() -> int:
             "decode_launches"] for k in (1, 2)},
         **_tp_fields(tp, "decode_attention"),
         **_serve_heal_fields(serve_heal, "decode_attention"),
+        "scope_launches_per_step": scope33["per_step"]["decode_attention"],
         **{f"w{max(WINDOWS)}_{key}": row1_long[key]
            for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")}}]
@@ -6598,6 +7180,7 @@ def main() -> int:
         "r50_launches": imagenet["resnet50_imagenet"][1],
         "transforms_launches": t24_launches,
         "heal_restart_launches": heal["image"]["restart_launches"],
+        "scope_launches_per_step": scope33["per_step"]["fused_sgd"],
         "r50_max_abs_err": r50_worst,
         **{f"r50_{key}": r50_sgd[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}] + [{
@@ -6620,7 +7203,8 @@ def main() -> int:
         "shape": variant_main[variant]["shape"],
         "head_dim_ms": _by_head_dim(hd_times, VARIANTS[variant][0]),
         **_tp_fields(tp, variant),
-        **_serve_heal_fields(serve_heal, variant)}
+        **_serve_heal_fields(serve_heal, variant),
+        "scope_launches_per_step": scope33["per_step"].get(variant)}
         for variant in VARIANTS] + [{
         "name": variant, "route": "cuda",
         "source": "pytorch_multiprocessing_distributed_tpu_torch/ops/"

@@ -57,7 +57,7 @@ from ..ops.kv_quant import QuantizedKV, kv_slice_in_dim, quantize_kv
 from .tp import check_mesh, local_heads, shard_params_for_tp_decode
 
 __all__ = ["generate", "teacher_forced_logits", "draft_bucket",
-           "DRAFT_HASH_PRIME"]
+           "DRAFT_HASH_PRIME", "generate_kv_bytes", "register_generate_hbm"]
 
 # Knuth multiplicative constant of the draft-table hash: one formula for
 # the host tables (``serving.spec.ngram_bucket``, numpy uint32)
@@ -592,3 +592,27 @@ def teacher_forced_logits(model, tokens: torch.Tensor, prompt_len: int, *,
                 dtype, eps, attn_impl=attn_impl, tp=model.tp)
         out.append(_logits(model, x_t, eps)[:, 0])
     return torch.stack(out)
+
+
+# ------------------------------------------------------- memory ledger
+
+def generate_kv_bytes(model, batch: int, s_max: int,
+                      kv_dtype: str = "model") -> int:
+    """Worst-case K+V cache bytes one :func:`generate` call holds:
+    ``batch`` rows of the serving pool's per-slot product (the one copy
+    of the shape x dtype arithmetic, ``SlotPool.per_slot_kv_bytes``)."""
+    from ..serving.kv_slots import SlotPool
+
+    return int(batch) * SlotPool.per_slot_kv_bytes(model, int(s_max),
+                                                   kv_dtype)
+
+
+def register_generate_hbm(model, batch: int, s_max: int) -> None:
+    """Put one generate call's KV residency on the armed device-memory
+    ledger (``inference.kv_cache``, JAX's entry); the CLIs call it
+    right before the decode. Disarmed: one global read."""
+    from ..runtime import hbm
+
+    hbm.register("inference.kv_cache",
+                 generate_kv_bytes(model, batch, s_max),
+                 category="kv", batch=int(batch), s_max=int(s_max))

@@ -63,8 +63,15 @@ On the card, f32 convolutions run under PyTorch's default
 ``torch.backends.cudnn.allow_tf32 = True`` (TF32 tensor cores, as the
 reference ran) and f32 matmuls in full f32 (PyTorch's default).
 
-Flags of the JAX CLI this slice does not port (the observability
-exporters) are rejected by name.
+The JAX CLI's observability flags come along (:mod:`.runtime.scope`):
+``--trace_out t.json`` (a Chrome/Perfetto trace of the run's spans),
+``--events_out e.jsonl`` (the event log), ``--flight_path f.jsonl``
+(where a crash dumps the flight recorder) and ``--stats_port P``
+(``/metrics``, ``/snapshot.json``, ``/events.json`` and ``/healthz``
+while the run is up: the trainer's live loss and images/s, the
+``hbm_*`` ledger and the ``goodput_*`` gauges; rank ``r`` serves on
+``P + r``). The primary rank writes the trace and the event log at the
+end.
 """
 
 from __future__ import annotations
@@ -85,6 +92,8 @@ from .ops.losses import smooth_cross_entropy_loss
 from .parallel import all_gather_objects, dist
 from .parallel import zero as zero_mod
 from .parallel.mesh import make_grid
+from .runtime import heal, telemetry
+from .runtime import scope as graftscope
 from .train import create_train_state, lamb, sgd, sgd_fused
 from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, resolve_auto_resume)
@@ -93,9 +102,6 @@ from .train.placement import plan_placement, shard_state
 from .train.trainer import Trainer
 from .utils import throughput
 from .utils.torch_interop import is_resnet_name, save_torch_checkpoint
-
-_ROADMAP = "ROADMAP.md §1 item 5, 'Rest of the image path'"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Confidence Aware Learning")
@@ -212,31 +218,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--restart_backoff', default=1.0, type=float,
                    help='first-restart delay in seconds (doubles per '
                         'restart, capped at 30s)')
-    p.add_argument('--trace_out', default='', type=str)
-    p.add_argument('--events_out', default='', type=str)
-    p.add_argument('--flight_path', default='', type=str)
-    p.add_argument('--stats_port', default=0, type=int)
+    graftscope.add_cli_args(p, stats_port=True)
     return p
-
-
-# (flag, is it set?) for every JAX flag this slice does not port
-_NOT_PORTED = (
-    ('--stats_port', lambda a: a.stats_port != 0),
-    ('--trace_out', lambda a: bool(a.trace_out)),
-    ('--events_out', lambda a: bool(a.events_out)),
-    ('--flight_path', lambda a: bool(a.flight_path)),
-)
-
-
-def _reject_not_ported(args) -> None:
-    """The first not-ported flag that is set, by name (after
-    :func:`_check_flags`, whose refusals of a combination, such as
-    ``--zero`` with ``--zero1``, come first as in JAX)."""
-    for flag, is_set in _NOT_PORTED:
-        if is_set(args):
-            raise SystemExit(
-                f"{flag} is not ported to PyTorch yet ({_ROADMAP}); use the "
-                "JAX CLI main.py for it")
 
 
 def _check_flags(args) -> None:
@@ -307,6 +290,8 @@ def run(args) -> dict:
     for one process), lay it out as the ``(data, model)`` grid, train and
     validate every epoch, checkpoint, plot. Returns the rank's
     summary."""
+    # armed before any state exists: the ledger takes its registrations
+    telemetry.arm_from_args(args)
     device = resolve_device(args.device)
     dist.init_process(device)
     world = dist.get_world_size()
@@ -386,14 +371,25 @@ def run(args) -> dict:
         clip_grad_norm=args.clip_grad_norm or None,
         ema_decay=args.ema or None, ckpt_backend=args.ckpt_backend,
         ckpt_async=args.ckpt_async)
+    stats_server = health = None
+    if args.stats_port:
+        health = heal.HealthState()
+        stats_server = telemetry.start_stats(
+            args.stats_port, lambda: trainer.live, health, rank=rank)
+        health.to_ready("training")
     launches0 = fused_sgd_.launches
-    if args.profile:
-        from .utils.profiler import trace
+    try:
+        if args.profile:
+            from .utils.profiler import trace
 
-        with trace(args.profile, worker_name=f"rank{rank}"):
+            with trace(args.profile, worker_name=f"rank{rank}"):
+                trainer.fit()
+        else:
             trainer.fit()
-    else:
-        trainer.fit()
+    except BaseException:
+        # a supervised restart binds the same --stats_port again
+        telemetry.stop_stats(stats_server)
+        raise
     if args.torch_export:
         # params are replicated under --zero (only the moments are
         # sharded); a placed state gathers its slices first, on every rank
@@ -434,6 +430,11 @@ def run(args) -> dict:
              images_per_sec=rate, images_per_sec_per_card=per_card,
              steady_step_s=(sum(t for t, _ in steady)
                             / sum(n for _, n in steady)) if steady else None)
+    if primary:
+        graftscope.export_from_args(args)
+    if health is not None:
+        health.to_dead("run complete")
+    telemetry.stop_stats(stats_server)
     dist.destroy_process_group()
     return s
 
@@ -476,7 +477,6 @@ def supervised_run(args) -> dict:
     checkpoint. The summary counts the ``restarts``."""
     if not args.max_restarts:
         return run(args)
-    from .runtime import heal
 
     def target(attempt):
         if attempt:
@@ -506,7 +506,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     _check_flags(args)
-    _reject_not_ported(args)
     device = resolve_device(args.device)
     os.makedirs(args.save_path, exist_ok=True)
     shutil.copy(__file__, os.path.join(args.save_path, 'main.py'))

@@ -8,6 +8,12 @@ gradient tree becomes one ``all_reduce`` of that buffer: NCCL on the
 card, gloo on the CPU, no call per leaf. Under ``--zero``
 (:mod:`.zero`) a bucket of that buffer is reduce-scattered and its
 shards all-gathered instead.
+
+The all-reduce is a collective boundary of the fleet monitor
+(:mod:`..runtime.fleet`): an armed monitor stamps this rank's arrival
+with the operand's bytes (tensor metadata), and the scope bus gets a
+``collective.all_reduce`` instant (an instant, not a span: the call
+only enqueues the reduction on a card), as JAX's ``all_reduce`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as tdist
 
+from ..runtime import fleet as graftfleet
+from ..runtime import scope as graftscope
 from .dist import get_world_size
 
 
@@ -22,6 +30,11 @@ def psum_(flat: torch.Tensor) -> torch.Tensor:
     """Sum ``flat`` over the data-parallel group in place; a no-op for
     one process. Returns ``flat``."""
     if get_world_size() > 1:
+        nbytes = flat.numel() * flat.element_size()
+        graftfleet.note_arrival("all_reduce@data", axis="data",
+                                nbytes=nbytes)
+        graftscope.emit("collective.all_reduce", cat="collective",
+                        axis="data", op="sum", nbytes=nbytes)
         tdist.all_reduce(flat, op=tdist.ReduceOp.SUM)
     return flat
 

@@ -50,6 +50,8 @@ from typing import Callable, List, Optional, Union
 import torch
 import torch.distributed as tdist
 
+from ..runtime import fleet as graftfleet
+from ..runtime import scope as graftscope
 from ..runtime.faults import maybe_fault, register_site, run_with_timeout
 
 _store: Optional[tdist.TCPStore] = None  # kept alive with the group
@@ -87,7 +89,12 @@ def gate_collectives(device: Optional[torch.device] = None) -> None:
     whose peer died never completes, and the window's host fetch would
     block in it for good. The wait polls the device and runs the gate
     until the queue drains, so the fetch after it cannot hang; a dead
-    peer raises here instead."""
+    peer raises here instead.
+
+    An armed fleet monitor stamps this rank's arrival first (one global
+    read when none is armed), so the stamp lands even when the gate
+    then raises."""
+    graftfleet.note_arrival("dist.gate")
     gate = _collective_gate
     if gate is None:
         return
@@ -200,6 +207,10 @@ def init_process(device: Union[str, torch.device] = "cpu",
     # PMDT_HEARTBEAT: a liveness monitor over the rendezvous store
     heal.monitor_from_env(TCPStore(store=store), str(rank),
                           [str(i) for i in range(world)])
+    # PMDT_FLEET: the fleet monitor over the same store (rank-tagged
+    # events, the clock pair, endpoint and arrival stamps)
+    graftfleet.monitor_from_env(TCPStore(store=store), socket.gethostname(),
+                                rank, world)
 
 
 def free_port() -> int:
@@ -301,6 +312,7 @@ def destroy_process_group() -> None:
     from .mesh import reset_grid
 
     heal.disarm()
+    graftfleet.disarm()
     reset_grid()
     if tdist.is_initialized():
         tdist.destroy_process_group()
@@ -325,5 +337,10 @@ def barrier() -> None:
     runs first, so a dead peer fails it named before anyone blocks."""
     gate_collectives()
     maybe_fault(_SITE_RENDEZVOUS)
+    graftfleet.note_arrival("barrier:barrier")
     if get_world_size() > 1:
-        tdist.barrier()
+        # the wait inside the span is this rank's lead over the last
+        # arriver (a host barrier: it blocks until every rank arrives)
+        with graftscope.span("collective.barrier", cat="collective",
+                             barrier="barrier"):
+            tdist.barrier()

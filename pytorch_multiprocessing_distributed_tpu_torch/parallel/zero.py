@@ -45,6 +45,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..runtime import fleet as graftfleet
+from ..runtime import scope as graftscope
 from .collectives import all_gather_, reduce_scatter_
 
 # the JAX package's bucket granularity
@@ -172,7 +174,21 @@ def reduce_scatter_grads(grads: torch.Tensor, plan: ZeroPlan,
     scattered over the group, bucket by bucket in order, into this
     rank's ``[shard]`` slices of the flat shard buffer ``out``: the sum
     over ranks (the step scales each rank's loss by ``1 / world``, so
-    the sum is JAX's mean). Returns ``out``."""
+    the sum is JAX's mean). Returns ``out``.
+
+    Armed, the step's exchange is a ``train.grad_comm`` event and a
+    fleet arrival with the plan's static bytes (JAX's zero step);
+    disarmed, two global reads."""
+    if (graftscope.active_scope() is not None
+            or graftfleet.active_fleet() is not None):
+        comm = static_comm_bytes(plan)
+        nbytes = comm["reduce_scatter"] + comm["all_gather"]
+        graftscope.emit("train.grad_comm", cat="train", nbytes=nbytes,
+                        buckets=len(plan.buckets), axis="data",
+                        bucket_bytes=[b.padded * grads.element_size()
+                                      for b in plan.buckets])
+        graftfleet.note_arrival("train.grad_comm", axis="data",
+                                nbytes=nbytes)
     for b in plan.buckets:
         reduce_scatter_(_shard(out, b), _bucket(grads, b))
     return out

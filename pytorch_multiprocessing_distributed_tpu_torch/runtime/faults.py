@@ -31,10 +31,10 @@ arms a plan at import: ``site=kind[:times[:arg]]``, ``arg`` seconds for
 and an optional plan-wide ``every=K`` that makes rules fire on every
 K-th eligible hit.
 
-The JAX module also emits an observability event at each injected
-fault, retry and timeout (``scope.emit``). The port has no observability
-layer yet (ROADMAP.md §1 item 8), so those calls are left out; nothing
-else of the module's behaviour depends on them.
+Each injected fault, retry and timeout is an event on the scope bus
+(:mod:`.scope`: ``fault.injected``, ``fault.retry`` with the backoff
+about to be slept, ``fault.timeout``), as in the JAX module; disarmed,
+each costs one global read.
 """
 
 from __future__ import annotations
@@ -43,6 +43,8 @@ import os
 import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+from . import scope as _scope
 
 __all__ = [
     "GraftFaultError", "FaultInjected", "FaultTimeout",
@@ -242,6 +244,8 @@ class FaultPlan:
         # the slow parts (sleep, byte flip) run outside the lock
         if fired is None:
             return payload
+        _scope.emit("fault.injected", cat="fault", site=site,
+                    kind=fired.kind, hit=hit)
         if fired.kind == "error":
             raise FaultInjected(
                 f"graftfault: injected transient fault at "
@@ -323,6 +327,10 @@ def retry_with_backoff(fn: Callable, *, attempts: int = 3,
         except retry_on as e:
             if attempt == attempts - 1:
                 raise
+            # on the timeline before the hook runs; delay_s is the
+            # goodput ledger's fault_retry payload
+            _scope.emit("fault.retry", cat="fault", attempt=attempt,
+                        error=type(e).__name__, delay_s=delay)
             if on_retry is not None:
                 on_retry(attempt, e)
             if delay > 0:
@@ -351,6 +359,8 @@ def run_with_timeout(fn: Callable, timeout_s: float, what: str,
     if "err" in box:
         raise box["err"]  # type: ignore[misc]
     if "result" not in box:
+        _scope.emit("fault.timeout", cat="fault", what=what,
+                    timeout_s=timeout_s)
         raise FaultTimeout(
             f"{what} did not complete within {timeout_s:.3g}s."
             + (f" {hint}" if hint else ""))

@@ -47,9 +47,11 @@ monitor over the rendezvous store during ``PMDT_MASTER_ADDR`` bring-up
    named error, never a silent double delivery. Its files are
    byte-identical to the JAX journal's for the same operations.
 
-The JAX module's observability events, lifecycle-ledger hooks and
-flight-recorder dumps (``scope.emit``, ``life``, ``flight_dump``) wait
-for the observability twin (ROADMAP.md §1 item 8) and are left out.
+As in the JAX module, a lost peer is a ``heal.peer_lost`` event and a
+flight-recorder dump (:mod:`.scope`), every health transition a
+``heal.health`` event, a supervised restart a ``heal.restart`` event
+carrying its backoff, and the journal's file and admitted requests are
+holds on the ownership ledger (:mod:`.life`).
 """
 
 from __future__ import annotations
@@ -62,6 +64,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from . import life
+from . import scope as graftscope
 from .faults import (GraftFaultError, PeerLostError, maybe_fault,
                      register_site, retry_with_backoff)
 
@@ -305,6 +309,8 @@ class HeartbeatMonitor:
             print(f"graftheal: could not post poison for {who!r} "
                   f"({type(e).__name__}: {e}); aborting locally",
                   file=sys.stderr)
+        graftscope.emit("heal.peer_lost", cat="fault", who=who, why=why)
+        graftscope.flight_dump(f"PeerLostError: {who}: {why}")
         raise PeerLostError(who, why)
 
     def gate(self) -> None:
@@ -320,6 +326,12 @@ class HeartbeatMonitor:
         self.poll()
         poison = self.last_poison
         if poison is not None:
+            graftscope.emit("heal.peer_lost", cat="fault",
+                            who=poison["who"], why=poison["why"],
+                            via="poison")
+            graftscope.flight_dump(
+                f"PeerLostError (poisoned): {poison['who']}: "
+                f"{poison['why']}")
             raise PeerLostError(poison["who"], poison["why"])
         dead = self.tracker.dead()
         if dead:
@@ -417,6 +429,8 @@ class HealthState:
         self.state = state
         self.reason = reason
         self.since = time.perf_counter()
+        graftscope.emit("heal.health", cat="serving", state=state,
+                        reason=reason)
 
     def to_ready(self, reason: str = "up") -> None:
         self._to(READY, reason)
@@ -540,6 +554,10 @@ class Supervisor:
                 self.restarts = attempt
                 delay = min(self.backoff_s * (2 ** (attempt - 1)),
                             self.max_backoff_s)
+                graftscope.emit("heal.restart", cat="fault",
+                                attempt=attempt, of=self.max_restarts,
+                                backoff_s=delay, who=self.name,
+                                error=type(e).__name__)
                 print(f"graftheal: restart {attempt}/{self.max_restarts} "
                       f"after {type(e).__name__}: {e} (backoff "
                       f"{delay:g}s)", file=sys.stderr, flush=True)
@@ -662,6 +680,10 @@ class RequestJournal:
             for obj in _read_records(path, "replaying"):
                 _apply_journal_record(self._entries, self._order, obj)
         self._fh = open(path, "a", encoding="utf-8")
+        led = life.active_ledger()
+        if led is not None:
+            led.acquire("file", id(self._fh), obj=self._fh, holder=path,
+                        depth=1)
         # a crash mid-append leaves the last line without its newline:
         # end it, or the next record would merge into the torn line
         if os.path.getsize(path) and not self._ends_with_newline():
@@ -750,6 +772,10 @@ class RequestJournal:
                            "prompt": entry.prompt,
                            "max_new_tokens": entry.max_new_tokens,
                            "eos_id": entry.eos_id}])
+        led = life.active_ledger()
+        if led is not None:
+            led.acquire("journal", (id(self), request.uid),
+                        holder=request.uid)
         self._sync_durable()
 
     def note_events(self, events) -> None:
@@ -759,6 +785,7 @@ class RequestJournal:
         divergence raises named."""
         ops: List[Dict] = []
         fresh: Dict[object, List[int]] = {}
+        settled: List[object] = []
         with self._mu:
             for request, token, finished in events:
                 entry = self._entries.get(request.uid)
@@ -779,6 +806,8 @@ class RequestJournal:
                     entry.tokens.append(int(token))
                     fresh.setdefault(request.uid, []).append(int(token))
                 if finished:
+                    if not entry.done:
+                        settled.append(request.uid)
                     entry.done = True
                     entry.state = request.state
                     entry.reason = request.finish_reason
@@ -790,6 +819,10 @@ class RequestJournal:
                                 "state": request.state,
                                 "reason": request.finish_reason})
             self._append(ops)
+        led = life.active_ledger()
+        if led is not None:
+            for uid in settled:
+                led.release("journal", (id(self), uid))
         if ops:
             self._sync_durable()
 
@@ -806,6 +839,9 @@ class RequestJournal:
             self._append([{"op": "done", "uid": request.uid,
                            "state": request.state,
                            "reason": request.finish_reason}])
+        led = life.active_ledger()
+        if led is not None:
+            led.release("journal", (id(self), request.uid))
         self._sync_durable()
 
     def close(self, compact: bool = True) -> None:

@@ -69,8 +69,18 @@ the rebuilt engine's counters, ``requests_redelivered`` among them; its
 built, a crashed one's too, with its decode passes and the decode
 kernels' launches.
 
-The JAX CLI's fleet, wire, autoscale and observability flags are
-rejected with a message naming ROADMAP.md.
+Observability, as the JAX CLI's (:mod:`.runtime.scope`), on the
+one-card drive loop and on ``--tp`` rank 0: ``--trace_out`` (a
+Chrome/Perfetto trace), ``--events_out`` (the event log, with one
+``request.timeline`` record per terminal request), ``--flight_path``
+(the flight recorder's dump on a fatal) and ``--stats_port``
+(``/metrics``, ``/snapshot.json``, ``/events.json`` and ``/healthz``,
+200 while the engine is READY, served while each engine serves; the
+serving meters beside the ``hbm_*`` ledger and the ``goodput_*``
+gauges, which the final snapshot carries too).
+
+The JAX CLI's fleet, wire and autoscale flags are rejected with a
+message naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -97,7 +107,8 @@ from .ops.decode_attention import (decode_attention,
                                    verify_decode_attention)
 from .parallel import dist
 from .parallel.mesh import Grid, make_grid
-from .runtime import heal
+from .runtime import fleet, hbm, heal, telemetry
+from .runtime import scope as graftscope
 from .serving import (QueueFull, Request, ServingEngine, init_params,
                       load_params)
 from .serving.scheduler import FAILED
@@ -106,8 +117,7 @@ from .serving.scheduler import FAILED
 NOT_PORTED_FLAGS = (
     "--replicas", "--role", "--router_port", "--listen", "--rid",
     "--connect", "--fleet_store", "--fleet_run", "--fleet_ttl",
-    "--autoscale", "--rollout", "--stats_port", "--trace_out",
-    "--events_out", "--flight_path",
+    "--autoscale", "--rollout",
 )
 # the heal flags a --tp run refuses (clock-driven decisions would have
 # to travel in the store lockstep)
@@ -228,6 +238,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--restart_backoff', default=1.0, type=float,
                    help='first-restart delay in seconds (doubles per '
                         'restart, capped at 30s)')
+    graftscope.add_cli_args(p, stats_port=True)
     return p
 
 
@@ -516,6 +527,62 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
     pending_src = [None]
     drain_s = [0.0]
 
+    def _serve_source(feed, engine, journal):
+        """Redeliver the journal, serve the source while READY, drain."""
+        if journal is not None:
+            replay_events: list = []
+            served.extend(engine.redeliver(
+                journal.unfinished(), events_out=replay_events))
+            emit(replay_events)
+        while not feed.health.draining:
+            if pending_src[0] is None:
+                try:
+                    prompt, max_new = next(source)
+                except StopIteration:
+                    break
+                pending_src[0] = (f"src-{src_idx[0]}", prompt,
+                                  max_new)
+                src_idx[0] += 1
+            uid, prompt, max_new = pending_src[0]
+            if journal is not None and journal.known(uid):
+                pending_src[0] = None  # served or redelivered
+                continue
+            request = Request(prompt, max_new, feed.eos_id, uid=uid)
+            handled = False
+            while True:
+                try:
+                    feed.enqueue(request)
+                    served.append(request)
+                    handled = True
+                    break
+                except QueueFull:
+                    if feed.health.draining:
+                        break  # stays pending for a restart
+                    # bounded queue + finite source =
+                    # backpressure: serve a step, then re-enqueue
+                    # the same request (its TTFT keeps the first
+                    # attempt's submit stamp)
+                    emit(feed.step())
+                except ValueError as e:
+                    rejected[0] += 1
+                    print(f"rejected: {e}", file=sys.stderr)
+                    handled = True  # never valid
+                    break
+            if handled:
+                pending_src[0] = None
+            if feed.health.draining:
+                break
+            if args.stdin:
+                emit(feed.step())  # online: serve while reading
+        # serve while READY, then the terminal drain: finish up to
+        # the deadline, fail the overdue named, compact the
+        # journal (empty after a clean drain), land DEAD
+        while feed.in_flight and not feed.health.draining:
+            emit(feed.step())
+        t0 = time.perf_counter()
+        emit(feed.drain(args.drain_deadline_s or None))
+        drain_s[0] = time.perf_counter() - t0
+
     def serve_once(attempt):
         """One engine: built (replaying the journal's unfinished
         requests), fed from the source, drained. SIGTERM flips it to
@@ -537,63 +604,23 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
         feed = (_Lockstep(engine, dist.StoreBroadcast("serve_lm/steps"))
                 if tp else engine)
         prev_handler = None if tp else heal.install_drain_handler(engine)
+        stats_server = None
+        if args.stats_port:
+            def live():
+                snap = engine.metrics.snapshot()
+                if hbm.active_ledger() is not None:
+                    snap["hbm_per_slot_bytes"] = engine.pool.per_slot_bytes
+                return snap
+
+            stats_server = telemetry.start_stats(
+                args.stats_port, live, engine.health, prefix="pmdt_serving")
         try:
-            if journal is not None:
-                replay_events: list = []
-                served.extend(engine.redeliver(
-                    journal.unfinished(), events_out=replay_events))
-                emit(replay_events)
-            while not feed.health.draining:
-                if pending_src[0] is None:
-                    try:
-                        prompt, max_new = next(source)
-                    except StopIteration:
-                        break
-                    pending_src[0] = (f"src-{src_idx[0]}", prompt,
-                                      max_new)
-                    src_idx[0] += 1
-                uid, prompt, max_new = pending_src[0]
-                if journal is not None and journal.known(uid):
-                    pending_src[0] = None  # served or redelivered
-                    continue
-                request = Request(prompt, max_new, feed.eos_id, uid=uid)
-                handled = False
-                while True:
-                    try:
-                        feed.enqueue(request)
-                        served.append(request)
-                        handled = True
-                        break
-                    except QueueFull:
-                        if feed.health.draining:
-                            break  # stays pending for a restart
-                        # bounded queue + finite source =
-                        # backpressure: serve a step, then re-enqueue
-                        # the same request (its TTFT keeps the first
-                        # attempt's submit stamp)
-                        emit(feed.step())
-                    except ValueError as e:
-                        rejected[0] += 1
-                        print(f"rejected: {e}", file=sys.stderr)
-                        handled = True  # never valid
-                        break
-                if handled:
-                    pending_src[0] = None
-                if feed.health.draining:
-                    break
-                if args.stdin:
-                    emit(feed.step())  # online: serve while reading
-            # serve while READY, then the terminal drain: finish up to
-            # the deadline, fail the overdue named, compact the
-            # journal (empty after a clean drain), land DEAD
-            while feed.in_flight and not feed.health.draining:
-                emit(feed.step())
-            t0 = time.perf_counter()
-            emit(feed.drain(args.drain_deadline_s or None))
-            drain_s[0] = time.perf_counter() - t0
+            with graftscope.flight_recorder("serve_lm drive loop"):
+                _serve_source(feed, engine, journal)
         finally:
             if not tp:
                 heal.restore_drain_handler(prev_handler)
+            telemetry.stop_stats(stats_server)
             # a crashed engine is counted here and then dropped
             attempts.append(_attempt_counts(engine, launches0))
         return engine
@@ -613,6 +640,10 @@ def serve(args) -> dict:
     device = resolve_device(args.device)
     grid = _join_grid(args, device) if args.tp > 1 else None
     primary = dist.is_primary()
+    if primary:
+        # armed before the engine exists, so its pool and params land
+        # on the ledger and its admission spans on the timeline
+        telemetry.arm_from_args(args)
     if grid is not None:
         device = dist.device_for_rank(device)
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
@@ -693,6 +724,10 @@ def serve(args) -> dict:
         for msg in skipped:
             print(f"rejected: {msg}", file=sys.stderr)
         for request in {r.uid: r for r in served}.values():
+            # one lifecycle record per terminal request (by uid the
+            # last record stands: a restart leaves a stale one)
+            graftscope.emit("request.timeline", cat="request",
+                            **request.timeline())
             if request.state == FAILED:
                 print(f"failed: req={request.uid} "
                       f"reason={request.finish_reason} "
@@ -730,6 +765,10 @@ def serve(args) -> dict:
             len(engine._prefix_cache.page_ids())
             if engine._prefix_cache is not None else 0)
     snap["kv_pool_bytes"] = pool.kv_bytes  # a rank's; spare columns in
+    if hbm.active_ledger() is not None:
+        snap.update(hbm.active_ledger().snapshot())
+        snap["hbm_per_slot_bytes"] = pool.per_slot_bytes
+    snap.update(fleet.goodput_gauges())
     snap["device"] = str(device)
     snap["tp"] = args.tp
     if grid is not None:
@@ -751,6 +790,7 @@ def serve(args) -> dict:
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(snap, f, indent=2, sort_keys=True)
+    graftscope.export_from_args(args)
     return snap
 
 

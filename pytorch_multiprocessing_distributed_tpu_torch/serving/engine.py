@@ -125,10 +125,25 @@ through :meth:`redeliver`. A real device fault (a hung kernel, an
 illegal address) leaves the CUDA context unusable, so an in-process
 restart fails again until the supervisor's budget is spent
 (``RestartBudgetExhausted``): recovery from it is a process restart
-over the journal. The JAX
-engine's observability events and flight-recorder dumps
-(``scope.emit``, ``flight_dump``) are left out, as in the port's
-:mod:`..runtime.faults`.
+over the journal.
+
+**Observability.** The engine emits the JAX engine's events on the
+scope bus (:mod:`..runtime.scope`), at the same boundaries and with the
+same attributes: the ``request.*`` lifecycle (submit, admit, held, shed,
+first_token, done, failed, redelivered), the ``serving.prefill``,
+``serving.prefill_chunk``, ``serving.prefill_tok0``,
+``serving.prefix_hit`` and ``serving.slot_insert`` spans, the
+``spec.draft``/``spec.draft_prefill`` spans and the ``spec.verify``
+span of a speculative step, ``decode.dispatch`` and the
+``decode.drain`` span, ``engine.draining`` and the ``engine.drain``
+span, ``fault.horizon_collapse``, ``fault.watchdog_trip``, and
+``engine.fatal`` with a flight-recorder dump. Every span wraps work
+whose end the host already waits for (a readback, an admission's
+first-token read, a host-side drafter refresh), or host-side work
+between launches; none adds a sync. Armed, the engine's parameters go
+on the device-memory ledger (``serving.params``, :mod:`..runtime.hbm`)
+and each slot's grant is tagged with its request on the ownership
+ledger (:mod:`..runtime.life`).
 
 Under a ``mesh``, ``journal``, ``readback_timeout_s``,
 ``submit(deadline_s=...)`` and ``drain(deadline_s)`` raise
@@ -144,6 +159,7 @@ from __future__ import annotations
 import sys
 import time
 from collections import deque
+from contextlib import nullcontext
 from typing import Deque, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -156,7 +172,8 @@ from ..ops import resolve_impl
 from ..ops.kv_quant import KV_DTYPES, QuantizedKV, dequantize_kv, \
     quantize_kv
 from ..parallel import dist
-from ..runtime import heal
+from ..runtime import hbm, heal, life
+from ..runtime import scope as graftscope
 from ..runtime.faults import (DeadlineExceeded, FaultInjected,
                               FaultTimeout, GraftFaultError,
                               PoolPoisonedError, maybe_fault,
@@ -491,6 +508,15 @@ class ServingEngine:
         # set at the first deadline-bearing submission: deadline-free
         # serving never scans the queue and slots for overdue requests
         self._deadlines_seen = False
+        # the last drained speculative block's (drafted, accepted,
+        # passes, k): the step's spec.verify span
+        self._last_spec = None
+        # resident params on the armed ledger (the pool registered its
+        # own residency): tensor metadata, no device read
+        if hbm.active_ledger() is not None:
+            hbm.register("serving.params",
+                         hbm.tree_nbytes(list(model.parameters())),
+                         category="params")
         self.journal = journal
         self.health.to_ready()
 
@@ -633,6 +659,8 @@ class ServingEngine:
             request.submit_time = time.perf_counter()
         if not self.health.ready:
             self.metrics.record_shed()
+            graftscope.emit("request.shed", cat="request",
+                            req=request.uid, reason=self.health.state)
             raise QueueFull(
                 f"admission closed: engine {self.health.state.upper()}"
                 f" ({self.health.reason}); submit to another replica")
@@ -662,10 +690,15 @@ class ServingEngine:
             submitted = self.scheduler.submit(request)
         except QueueFull:
             self.metrics.record_shed()
+            graftscope.emit("request.shed", cat="request",
+                            req=request.uid)
             raise
         if self.journal is not None:
             # idempotent by uid: a redelivered request appends nothing
             self.journal.record_admit(submitted)
+        graftscope.emit("request.submit", cat="request", req=request.uid,
+                        prompt_len=len(request.prompt),
+                        max_new_tokens=request.max_new_tokens)
         return submitted
 
     def _finished(self, request: Request, token: int) -> Optional[str]:
@@ -679,6 +712,8 @@ class ServingEngine:
         request.finish_time = time.perf_counter()
         self.scheduler.complete(request, reason)
         self.metrics.record_completion(len(request.tokens))
+        graftscope.emit("request.done", cat="request", req=request.uid,
+                        reason=reason, tokens=len(request.tokens))
 
     # ---- fault domains -------------------------------------------------
     def _pool_write(self, fn):
@@ -693,6 +728,13 @@ class ServingEngine:
         except GraftFaultError:
             raise
         except Exception as e:
+            # the flight ring first: it holds the dispatch and drain
+            # events leading into the failed call
+            graftscope.emit("engine.fatal", cat="fault",
+                            error="PoolPoisonedError",
+                            cause=type(e).__name__)
+            graftscope.flight_dump(
+                f"PoolPoisonedError: {type(e).__name__}: {e}")
             raise PoolPoisonedError(
                 "a call writing the KV pool in place failed midway "
                 f"({type(e).__name__}: {e}); the pool may be partly "
@@ -743,6 +785,9 @@ class ServingEngine:
         self.metrics.record_failure()
         if self.journal is not None:
             self.journal.record_failed(request)
+        graftscope.emit("request.failed", cat="request", req=request.uid,
+                        reason=reason, error=type(error).__name__,
+                        tokens=len(request.tokens))
 
     def _poisoned(self, request: Request, error: BaseException,
                   slot: Optional[int] = None) -> None:
@@ -807,6 +852,9 @@ class ServingEngine:
             request.admit_time = time.perf_counter()
             self.metrics.record_admission(
                 request.admit_time - request.submit_time)
+            graftscope.emit(
+                "request.admit", cat="request", req=request.uid,
+                queue_wait_s=request.admit_time - request.submit_time)
         return request
 
     def _first_token(self, request: Request, token: int,
@@ -816,6 +864,9 @@ class ServingEngine:
         request.first_token_time = time.perf_counter()
         self.metrics.record_first_token(
             request.first_token_time - request.submit_time)
+        graftscope.emit(
+            "request.first_token", cat="request", req=request.uid,
+            ttft_s=request.first_token_time - request.submit_time)
         request.tokens.append(token)
         reason = self._finished(request, token)
         if reason is not None:
@@ -823,6 +874,9 @@ class ServingEngine:
             events.append((request, token, True))
             return None
         slot = self.pool.acquire()
+        led = life.active_ledger()
+        if led is not None:
+            led.tag("slot", (id(self.pool), slot), request.uid)
         request.slot = slot
         self._running[slot] = request
         events.append((request, token, False))
@@ -905,13 +959,15 @@ class ServingEngine:
             maybe_fault(_SITE_INSERT)
             self._pool_write(splice)
 
-        self._attempted(insert_once)
-        if prep is not None:
-            page_ids = prep.page_ids
-            pool.bind_slot(slot, page_ids)
-            # ownership now lives in the table row
-            prep.shared_ids, prep.fresh_ids = [], []
-            self._register_prefix(request, page_ids)
+        with graftscope.span("serving.slot_insert", cat="serving",
+                             req=request.uid, slot=slot):
+            self._attempted(insert_once)
+            if prep is not None:
+                page_ids = prep.page_ids
+                pool.bind_slot(slot, page_ids)
+                # ownership now lives in the table row
+                prep.shared_ids, prep.fresh_ids = [], []
+                self._register_prefix(request, page_ids)
         pool.note_insert(slot, length)
         if self._draft_k:
             self._spec_admit(request, slot, length)
@@ -980,6 +1036,9 @@ class ServingEngine:
                 # one deferred admission is one hold, however long
                 self._held_uid = head.uid
                 self.metrics.record_page_hold()
+                graftscope.emit("request.held", cat="request",
+                                req=head.uid, pages_needed=needed,
+                                pages_free=pool.free_pages)
             return "hold"
         self._held_uid = None
         shared = list(entry.shared_ids[:k]) if entry is not None else []
@@ -1036,39 +1095,42 @@ class ServingEngine:
         replayed (greedy, enforced at construction), the prompt's pages
         are mapped read-only, the partial last page (if any) is forked
         copy-on-write, and only the slot's decode state is written."""
-        pool = self.pool
-        entry = prep.entry
-        slot = self._first_token(request, int(entry.tok0), events)
-        if slot is None:  # finished at its first token
-            self._abort_prep(prep)
-            return
-        length = len(request.prompt)
+        with graftscope.span("serving.prefix_hit", cat="serving",
+                             req=request.uid, pages_shared=prep.k,
+                             mode="full"):
+            pool = self.pool
+            entry = prep.entry
+            slot = self._first_token(request, int(entry.tok0), events)
+            if slot is None:  # finished at its first token
+                self._abort_prep(prep)
+                return
+            length = len(request.prompt)
 
-        def splice_once():
-            maybe_fault(_SITE_INSERT)
-            if prep.fork_src is not None:
-                # the fork must hold the prefix's partial page before
-                # any decode write lands in it
-                self._copy_page(prep.fork_src, prep.fresh_ids[0])
-                pool.decref([prep.fork_src])
-                prep.fork_src = None
-            self._pool_write(lambda: self._arm_slot(
-                request, slot, length, int(entry.tok0)))
+            def splice_once():
+                maybe_fault(_SITE_INSERT)
+                if prep.fork_src is not None:
+                    # the fork must hold the prefix's partial page before
+                    # any decode write lands in it
+                    self._copy_page(prep.fork_src, prep.fresh_ids[0])
+                    pool.decref([prep.fork_src])
+                    prep.fork_src = None
+                self._pool_write(lambda: self._arm_slot(
+                    request, slot, length, int(entry.tok0)))
 
-        try:
-            self._attempted(splice_once)
-        except Exception as e:
-            self._abort_prep(prep)
-            self._poisoned(request, e, slot=slot)
-            return
-        pool.bind_slot(slot, prep.page_ids)
-        prep.shared_ids, prep.fresh_ids = [], []
-        pool.note_insert(slot, length)
-        if self._draft_k:
             try:
-                self._spec_admit(request, slot, length)
+                self._attempted(splice_once)
             except Exception as e:
+                self._abort_prep(prep)
                 self._poisoned(request, e, slot=slot)
+                return
+            pool.bind_slot(slot, prep.page_ids)
+            prep.shared_ids, prep.fresh_ids = [], []
+            pool.note_insert(slot, length)
+            if self._draft_k:
+                try:
+                    self._spec_admit(request, slot, length)
+                except Exception as e:
+                    self._poisoned(request, e, slot=slot)
 
     def _spec_admit(self, request: Request, slot: int, length: int) -> None:
         """Per-admission speculative hook, after the target's splice on
@@ -1084,7 +1146,9 @@ class ServingEngine:
             return
         tokens = self._bucket_tokens(request.prompt, length)
         bucket = tokens.shape[1]
-        _, k_pref, v_pref = _prefill(self._draft_model, tokens, bucket)
+        with graftscope.span("spec.draft_prefill", cat="serving",
+                             req=request.uid, bucket=bucket):
+            _, k_pref, v_pref = _prefill(self._draft_model, tokens, bucket)
         self._draft_k_caches[:, slot, :bucket] = k_pref[:, 0]
         self._draft_v_caches[:, slot, :bucket] = v_pref[:, 0]
 
@@ -1102,21 +1166,26 @@ class ServingEngine:
         width = max(plan.width, plan.starts[-1] + plan.chunk)
         shape = (model.num_layers, 1, width, pool.heads, model.head_dim)
         caches = []
-        for pages in ((pool.k_pages, pool.v_pages) if start_at
-                      else (None, None)):
-            cache = torch.zeros(shape, dtype=model.dtype,
-                                device=model.device)
-            if pages is not None:
-                ids = torch.tensor(prep.shared_ids, dtype=torch.long,
-                                   device=model.device)
-                g = pages[:, ids]  # [L, k, H, ps, Dh]
-                if isinstance(g, QuantizedKV):
-                    g = dequantize_kv(g, model.dtype)
-                g = g.transpose(2, 3).reshape(
-                    model.num_layers, 1, start_at, pool.heads,
-                    model.head_dim)
-                cache[:, :, :start_at] = g
-            caches.append(cache)
+        hit = (graftscope.span("serving.prefix_hit", cat="serving",
+                               req=request.uid, pages_shared=prep.k,
+                               mode="partial")
+               if start_at else nullcontext())
+        with hit:
+            for pages in ((pool.k_pages, pool.v_pages) if start_at
+                          else (None, None)):
+                cache = torch.zeros(shape, dtype=model.dtype,
+                                    device=model.device)
+                if pages is not None:
+                    ids = torch.tensor(prep.shared_ids, dtype=torch.long,
+                                       device=model.device)
+                    g = pages[:, ids]  # [L, k, H, ps, Dh]
+                    if isinstance(g, QuantizedKV):
+                        g = dequantize_kv(g, model.dtype)
+                    g = g.transpose(2, 3).reshape(
+                        model.num_layers, 1, start_at, pool.heads,
+                        model.head_dim)
+                    cache[:, :, :start_at] = g
+                caches.append(cache)
         return _PendingPrefill(request, plan, caches[0], caches[1], prep)
 
     def _drive_pending(self, pend: _PendingPrefill,
@@ -1144,7 +1213,10 @@ class ServingEngine:
             return x
 
         try:
-            x = self._attempted(chunk_once)
+            with graftscope.span("serving.prefill_chunk", cat="serving",
+                                 req=pend.request.uid, start=start,
+                                 chunk=chunk):
+                x = self._attempted(chunk_once)
         except Exception as e:
             if self._pending is pend:
                 self._drop_pending()
@@ -1166,7 +1238,10 @@ class ServingEngine:
             return t, int(self._fetch(t))
 
         try:
-            tok0, tok0_host = self._attempted(tok0_once)
+            # the chunked path's TTFT boundary: the host reads tok0
+            with graftscope.span("serving.prefill_tok0", cat="serving",
+                                 req=pend.request.uid):
+                tok0, tok0_host = self._attempted(tok0_once)
         except Exception as e:
             self._abort_prep(pend.prep)
             self._poisoned(pend.request, e)
@@ -1197,6 +1272,9 @@ class ServingEngine:
         except GraftFaultError:
             raise  # a poisoned pool is engine-fatal, never swallowed
         except Exception as e:  # noqa: BLE001
+            graftscope.emit("prefix_cache.register_failed",
+                            cat="serving", req=request.uid,
+                            error=type(e).__name__)
             print(f"prefix registration failed for request "
                   f"{request.uid}: {type(e).__name__}: {e}",
                   file=sys.stderr)
@@ -1252,8 +1330,13 @@ class ServingEngine:
                 return tok0, k_pref, v_pref, int(self._fetch(tok0))
 
             try:
-                tok0, k_pref, v_pref, tok0_host = self._attempted(
-                    prefill_once)
+                with graftscope.span(
+                        "serving.prefill", cat="serving", req=request.uid,
+                        bucket=bucket_length(length, self.min_bucket,
+                                             pool.s_max),
+                        prompt_len=length):
+                    tok0, k_pref, v_pref, tok0_host = self._attempted(
+                        prefill_once)
             except Exception as e:
                 self._abort_prep(prep)
                 self._poisoned(request, e)
@@ -1351,6 +1434,8 @@ class ServingEngine:
             if h > 1:
                 h = 1
                 self.metrics.record_horizon_collapse()
+                graftscope.emit("fault.horizon_collapse", cat="fault",
+                                cooldown_left=self._cooldown)
         return window, h, k
 
     def _dispatch(self, overlapped: bool = False) -> None:
@@ -1373,7 +1458,10 @@ class ServingEngine:
             paged = {}
         spec = {}
         if k and self._drafter is not None:
-            spec = dict(draft_k=k, draft_table=self._drafter.device_table())
+            # the host-side table refresh (uploaded only when it changed)
+            with graftscope.span("spec.draft", cat="serving", draft_k=k):
+                table = self._drafter.device_table()
+            spec = dict(draft_k=k, draft_table=table)
         elif k:
             spec = dict(draft_k=k, draft_model=self._draft_model,
                         draft_k_caches=self._draft_k_caches,
@@ -1403,6 +1491,9 @@ class ServingEngine:
         self._blocks.append(_TokenBlock(tokens, h, window,
                                         dict(self._running), k=k))
         self.metrics.record_dispatch(h, overlapped)
+        graftscope.emit("decode.dispatch", cat="serving", window=window,
+                        horizon=h, draft_k=k, overlapped=overlapped,
+                        occupancy=pool.occupancy)
 
     def _overlap_ok(self) -> bool:
         """Launch horizon h+1 before reading horizon h back? Only in
@@ -1463,30 +1554,37 @@ class ServingEngine:
                          "fast rather than serving stale state.")
             except FaultTimeout:
                 self.metrics.record_watchdog_trip()
+                graftscope.emit("fault.watchdog_trip", cat="fault",
+                                what="horizon_readback")
                 raise
 
-        tokens = self._attempted_engine(attempt,
-                                        "horizon token-block readback")
-        realized: Dict[int, int] = {}
-        for row in range(block.rows):
-            for slot, request in block.slots.items():
-                if self._running.get(slot) is not request:
-                    continue  # finished earlier in this or a prior block
-                token = int(tokens[row, slot])
-                if token < 0:
-                    continue  # the device froze the row before this step
-                request.tokens.append(token)
-                realized[slot] = realized.get(slot, 0) + 1
-                reason = self._finished(request, token)
-                if reason is not None:
-                    self._complete(request, reason)
-                    pool.release(slot)
-                    del self._running[slot]
-                events.append((request, token, reason is not None))
-        pool.note_advance_slots(realized)
-        if block.k:
-            self._note_spec_drain(block, tokens, realized)
-        return block.window, sum(realized.values())
+        # the span wraps the readback the host waits on anyway
+        with graftscope.span("decode.drain", cat="serving", h=block.h,
+                             window=block.window) as drain_span:
+            tokens = self._attempted_engine(
+                attempt, "horizon token-block readback")
+            realized: Dict[int, int] = {}
+            for row in range(block.rows):
+                for slot, request in block.slots.items():
+                    if self._running.get(slot) is not request:
+                        continue  # finished earlier (this or a prior block)
+                    token = int(tokens[row, slot])
+                    if token < 0:
+                        continue  # the device froze the row before
+                    request.tokens.append(token)
+                    realized[slot] = realized.get(slot, 0) + 1
+                    reason = self._finished(request, token)
+                    if reason is not None:
+                        self._complete(request, reason)
+                        pool.release(slot)
+                        del self._running[slot]
+                    events.append((request, token, reason is not None))
+            pool.note_advance_slots(realized)
+            emitted = sum(realized.values())
+            if block.k:
+                self._note_spec_drain(block, tokens, realized)
+            drain_span.note(tokens=emitted)
+        return block.window, emitted
 
     def _note_spec_drain(self, block: _TokenBlock, tokens,
                          realized: Dict[int, int]) -> None:
@@ -1502,12 +1600,14 @@ class ServingEngine:
         passes = int(act.sum())
         accept_lens = (e[act] - 1).tolist()
         drafted = block.k * passes
+        accepted = int(sum(accept_lens))
         if passes:
             self.metrics.record_spec(drafted, accept_lens)
-            rate = sum(accept_lens) / drafted
+            rate = accepted / drafted
             ema = self._accept_ema
             self._accept_ema = (rate if ema is None
                                 else 0.75 * ema + 0.25 * rate)
+        self._last_spec = (drafted, accepted, passes, block.k)
         if self._drafter is not None:
             for slot in realized:
                 request = block.slots.get(slot)
@@ -1529,6 +1629,13 @@ class ServingEngine:
         except (KeyboardInterrupt, SystemExit):
             raise
         except BaseException as e:
+            # engine-fatal: the flight ring goes to disk first (a
+            # poisoned pool dumped it already)
+            if not isinstance(e, PoolPoisonedError):
+                graftscope.emit("engine.fatal", cat="fault",
+                                error=type(e).__name__)
+                graftscope.flight_dump(
+                    f"engine step: {type(e).__name__}: {e}")
             self.health.to_dead(type(e).__name__)
             raise
 
@@ -1542,10 +1649,20 @@ class ServingEngine:
             if self._overlap_ok():
                 self._dispatch(overlapped=True)
             occupancy = self.pool.occupancy
+            self._last_spec = None
             window, emitted = self._drain_one(events)
+            dt = time.perf_counter() - t0
             self.metrics.record_decode_step(
-                time.perf_counter() - t0, emitted, occupancy,
-                self.scheduler.queue_depth, window)
+                dt, emitted, occupancy, self.scheduler.queue_depth, window)
+            if self._last_spec is not None:
+                # waste_s: the step's wall apportioned to the rejected
+                # verify rows (the goodput ledger's spec_waste)
+                drafted, accepted, passes, k = self._last_spec
+                rows = passes * (k + 1)
+                waste = dt * (drafted - accepted) / rows if rows else 0.0
+                graftscope.emit_span(
+                    "spec.verify", dt, cat="serving", drafted=drafted,
+                    accepted=accepted, passes=passes, waste_s=waste)
         if self.journal is not None and events:
             # one fsync'd batch a step, at the drain boundary the host
             # already synced; a journal failure is engine-fatal
@@ -1575,6 +1692,8 @@ class ServingEngine:
         if self.health.state in (heal.DRAINING, heal.DEAD):
             return
         self.health.to_draining(reason)
+        graftscope.emit("engine.draining", cat="serving", reason=reason,
+                        in_flight=self.in_flight)
 
     def drain(self, deadline_s: Optional[float] = None) -> List[Event]:
         """Finish every in-flight request with admission closed, bounded
@@ -1588,12 +1707,16 @@ class ServingEngine:
         self.begin_drain("drain")
         t0 = time.perf_counter()
         events: List[Event] = []
-        while self.in_flight:
-            if (deadline_s is not None
-                    and time.perf_counter() - t0 > deadline_s):
-                self._fail_unfinished(deadline_s)
-                break
-            events.extend(self.step())
+        with graftscope.span("engine.drain", cat="serving",
+                             deadline_s=deadline_s) as drain_span:
+            overdue = 0
+            while self.in_flight:
+                if (deadline_s is not None
+                        and time.perf_counter() - t0 > deadline_s):
+                    overdue = self._fail_unfinished(deadline_s)
+                    break
+                events.extend(self.step())
+            drain_span.note(drained=len(events), overdue=overdue)
         self.health.to_dead("drained")
         if self.journal is not None:
             self.journal.close()
@@ -1660,6 +1783,9 @@ class ServingEngine:
                     if events_out is not None:
                         events_out.extend(events)
             self.metrics.record_redelivery()
+            graftscope.emit("request.redelivered", cat="request",
+                            req=entry.uid,
+                            replayed_tokens=len(entry.tokens))
             out.append(request)
         return out
 

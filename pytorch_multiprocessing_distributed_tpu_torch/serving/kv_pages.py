@@ -43,8 +43,10 @@ head_dim]``, JAX's head-sharded placement; the page table, the free
 list, the refcounts and the :class:`PrefixCache` are host state, the
 same on every rank.
 
-Not ported: the HBM and lifetime ledgers (``runtime/hbm.py``,
-``runtime/life.py``), which arrive with their features (ROADMAP.md).
+Armed, the pool registers ``serving.kv_pages`` and ``serving.slot_state``
+on the device-memory ledger with the ``pages_in_use`` gauges
+(:mod:`..runtime.hbm`), and records page and slot grants on the
+ownership ledger (:mod:`..runtime.life`), as JAX's does.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from ..ops.kv_quant import KV_DTYPES
+from ..runtime import hbm, life
 from .kv_slots import check_pool_mesh, empty_kv, kv_group_bytes, pool_heads
 
 
@@ -142,6 +145,33 @@ class PagePool:
         self._free_slots: List[int] = list(range(n))
         self._positions_host: List[int] = [0] * n
         self._active_host: List[bool] = [False] * n
+        # the ledger: the pool's real commitment (num_pages x
+        # page_bytes) and live pages-in-use gauges
+        if hbm.active_ledger() is not None:
+            hbm.register("serving.kv_pages",
+                         hbm.nbytes_of(self.k_pages)
+                         + hbm.nbytes_of(self.v_pages),
+                         category="kv_pages", slots=self.max_slots,
+                         s_max=s_max, page_size=page_size,
+                         num_pages=self.num_pages,
+                         hbm_page_bytes=self.page_bytes)
+            hbm.set_gauge("page_bytes", self.page_bytes)
+            hbm.register("serving.slot_state",
+                         sum(hbm.nbytes_of(a) for a in (
+                             self.positions, self.last_tokens,
+                             self.active, self.budgets, self.eos_ids))
+                         + self._table.nbytes,
+                         category="kv")
+            self._note_pages_ledger()
+
+    def _note_pages_ledger(self) -> None:
+        """Refresh the utilization gauges on the armed ledger (gauges
+        only: the capacity entry already counts these bytes)."""
+        if hbm.active_ledger() is None:
+            return
+        used = self.pages_in_use
+        hbm.set_gauge("pages_in_use", used)
+        hbm.set_gauge("kv_pages_in_use_bytes", used * self.page_bytes)
 
     # ---- capacity accounting -------------------------------------------
     @staticmethod
@@ -165,9 +195,13 @@ class PagePool:
 
     @property
     def per_slot_bytes(self) -> int:
-        """Worst-case K+V bytes one slot can pin (``pages_per_slot``
-        pages); what it holds is ``pages_in_use x page_bytes``."""
-        return self.pages_per_slot * self.page_bytes
+        """Worst-case bytes one slot can pin (``pages_per_slot`` pages
+        and its decode state); what it holds is ``pages_in_use x
+        page_bytes``."""
+        from .kv_slots import SlotPool
+
+        return (self.pages_per_slot * self.page_bytes
+                + SlotPool.per_slot_state_bytes())
 
     @property
     def kv_bytes(self) -> int:
@@ -195,6 +229,12 @@ class PagePool:
         del self._free[:n]
         for p in ids:
             self._refs[p] = 1
+        if hbm.active_ledger() is not None:
+            self._note_pages_ledger()
+        led = life.active_ledger()
+        if led is not None:
+            for p in ids:
+                led.acquire("page", (id(self), p))
         return ids
 
     def incref(self, ids: Sequence[int]) -> None:
@@ -209,6 +249,7 @@ class PagePool:
         """Drop one reference per page; a page at zero returns to the
         (sorted) free list."""
         freed = False
+        led = life.active_ledger()
         for p in ids:
             if p == 0:
                 continue
@@ -218,8 +259,12 @@ class PagePool:
             if self._refs[p] == 0:
                 self._free.append(p)
                 freed = True
+                if led is not None:
+                    led.release("page", (id(self), p))
         if freed:
             self._free.sort()
+            if hbm.active_ledger() is not None:
+                self._note_pages_ledger()
 
     def page_refcount(self, page: int) -> int:
         return int(self._refs[page])
@@ -270,7 +315,11 @@ class PagePool:
         if not self._free_slots:
             raise RuntimeError("no free slots (acquire() without "
                                "checking free_slots)")
-        return self._free_slots.pop(0)
+        slot = self._free_slots.pop(0)
+        led = life.active_ledger()
+        if led is not None:
+            led.acquire("slot", (id(self), slot))
+        return slot
 
     def release(self, slot: int) -> None:
         """Return ``slot`` and drop its page references (shared prefix
@@ -284,6 +333,9 @@ class PagePool:
         self._free_slots.append(slot)
         self._free_slots.sort()
         self._active_host[slot] = False
+        led = life.active_ledger()
+        if led is not None:
+            led.release("slot", (id(self), slot))
 
     # ---- host position mirror (decode-window tracking) -----------------
     def note_insert(self, slot: int, position: int) -> None:

@@ -33,6 +33,12 @@ hold its ``H / M`` heads, ``[layers, max_slots, s_max, H / M,
 head_dim]`` (int8 scales ``[..., H / M]``), JAX's head-sharded
 placement; the slot state and the host mirror are the same on every
 rank.
+
+Armed, the pool registers its residency on the device-memory ledger
+(:mod:`..runtime.hbm`: ``serving.kv_pool`` and ``serving.slot_state``,
+JAX's names, categories and bytes; a speculative pool's spare columns
+are in its bytes) and records every slot grant and return on the
+ownership ledger (:mod:`..runtime.life`).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import List, Optional
 import torch
 
 from ..ops.kv_quant import KV_DTYPES, QuantizedKV
+from ..runtime import hbm, life
 
 
 def kv_group_bytes(model, kv_dtype: str) -> int:
@@ -133,6 +140,31 @@ class SlotPool:
         self._free: List[int] = list(range(n))
         self._positions_host: List[int] = [0] * n
         self._active_host: List[bool] = [False] * n
+        if hbm.active_ledger() is not None:
+            hbm.register("serving.kv_pool",
+                         hbm.nbytes_of(self.k_caches)
+                         + hbm.nbytes_of(self.v_caches),
+                         category="kv", slots=self.max_slots,
+                         s_max=s_max, per_slot=self.per_slot_bytes)
+            hbm.register("serving.slot_state",
+                         sum(hbm.nbytes_of(a) for a in (
+                             self.positions, self.last_tokens,
+                             self.active, self.budgets, self.eos_ids)),
+                         category="kv")
+
+    @staticmethod
+    def per_slot_state_bytes() -> int:
+        """Per-slot decode state: four int32 rows (position, pending
+        token, budget, stop id) and one bool (active)."""
+        return 4 * 4 + 1
+
+    @property
+    def per_slot_bytes(self) -> int:
+        """Worst-case resident bytes a slot pins (K/V over ``s_max`` and
+        its decode state): the ledger's ``hbm_per_slot_bytes``."""
+        return (self.per_slot_kv_bytes(self.model, self.s_max,
+                                       self.kv_dtype)
+                + self.per_slot_state_bytes())
 
     @staticmethod
     def per_slot_kv_bytes(model, s_max: int,
@@ -165,7 +197,11 @@ class SlotPool:
         if not self._free:
             raise RuntimeError("no free slots (acquire() without "
                                "checking free_slots)")
-        return self._free.pop(0)
+        slot = self._free.pop(0)
+        led = life.active_ledger()
+        if led is not None:
+            led.acquire("slot", (id(self), slot))
+        return slot
 
     def release(self, slot: int) -> None:
         """Return ``slot`` to the free list (its device-side active flag
@@ -175,6 +211,9 @@ class SlotPool:
         self._free.append(slot)
         self._free.sort()
         self._active_host[slot] = False
+        led = life.active_ledger()
+        if led is not None:
+            led.release("slot", (id(self), slot))
 
     # ---- host position mirror (decode-window tracking) -----------------
     def note_insert(self, slot: int, position: int) -> None:

@@ -172,6 +172,30 @@ class Request:
                 and self.submit_time is not None
                 and now - self.submit_time > self.deadline_s)
 
+    def timeline(self) -> dict:
+        """The lifecycle as latencies from the engine's ``perf_counter``
+        stamps (JAX's ``Request.timeline``): queue wait, TTFT, decode
+        tail and total, only the phases the request reached. The CLI
+        emits one ``request.timeline`` event per terminal request."""
+        out = {"uid": self.uid, "state": self.state,
+               "finish_reason": self.finish_reason,
+               "prompt_len": len(self.prompt),
+               "tokens": len(self.tokens)}
+        if self.error is not None:
+            out["error"] = type(self.error).__name__
+        t = self.submit_time
+        if t is None:
+            return out
+        if self.admit_time is not None:
+            out["queue_wait_s"] = self.admit_time - t
+        if self.first_token_time is not None:
+            out["ttft_s"] = self.first_token_time - t
+        if self.finish_time is not None:
+            out["total_s"] = self.finish_time - t
+            if self.first_token_time is not None:
+                out["decode_s"] = self.finish_time - self.first_token_time
+        return out
+
     def __repr__(self) -> str:
         return (f"Request(uid={self.uid}, state={self.state}, "
                 f"prompt_len={len(self.prompt)}, "

@@ -39,6 +39,7 @@ import torch
 
 from ..parallel import broadcast_int, is_primary
 from ..parallel.zero import gather_opt_state
+from ..runtime import scope as graftscope
 from ..runtime.faults import GraftFaultError, maybe_fault, register_site
 from .state import TrainState
 
@@ -102,16 +103,19 @@ def save_checkpoint(save_path: str, state: TrainState,
     if not is_primary():
         return None
     path = checkpoint_path(save_path, epoch)
-    buf = io.BytesIO()
-    torch.save(state.to_dict(**moments), buf)
-    payload = buf.getvalue()
-    digest = hashlib.sha256(payload).hexdigest()
-    written = maybe_fault(_SITE_WRITE, payload)
-    dpath = digest_path(path)
-    if os.path.exists(dpath):
-        os.remove(dpath)
-    write_atomic_durable(path, written)
-    write_atomic_durable(dpath, digest.encode("ascii"))
+    with graftscope.span("checkpoint.write", cat="train", epoch=epoch,
+                         path=os.path.basename(path)) as ckpt_span:
+        buf = io.BytesIO()
+        torch.save(state.to_dict(**moments), buf)  # the host copy
+        payload = buf.getvalue()
+        digest = hashlib.sha256(payload).hexdigest()
+        written = maybe_fault(_SITE_WRITE, payload)
+        dpath = digest_path(path)
+        if os.path.exists(dpath):
+            os.remove(dpath)
+        write_atomic_durable(path, written)
+        write_atomic_durable(dpath, digest.encode("ascii"))
+        ckpt_span.note(bytes=len(payload))
     return path
 
 

@@ -65,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.losses import cross_entropy_loss, cross_entropy_per_sample
 from ..parallel import get_rank, get_world_size, psum_
 from ..parallel import zero as zero_mod
+from ..runtime import hbm
 from ..utils.metrics import correct_count, topk_accuracy
 from .state import TrainState
 
@@ -108,6 +109,30 @@ def create_train_state(model, optimizer=None, ema: bool = False,
         model, extra=IMAGE_SLOTS,
         second_moment=getattr(optimizer, "second_moment", False), ema=ema,
         **layout)
+
+
+def register_state_hbm(state: TrainState, prefix: str = "train") -> None:
+    """A state's resident bytes on the armed device-memory ledger (JAX
+    ``train/step.py:627-653``; one global read when disarmed): params,
+    the optimizer state (moments, ``count``, and SGD's ``initialized``:
+    JAX's ``OptState`` leaves; LAMB's state has no flag), the BatchNorm
+    statistics and the EMA, each its own entry. A sharded state's
+    buffers hold this rank's slices, so the bytes are this rank's."""
+    if hbm.active_ledger() is None:
+        return
+    hbm.register(f"{prefix}.params", hbm.shard_nbytes(state.params),
+                 category="params")
+    opt = [state.momentum, state.nu, state.count]
+    if state.nu is None:
+        opt.append(state.initialized)
+    hbm.register(f"{prefix}.opt_state", hbm.tree_shard_nbytes(opt),
+                 category="opt_state")
+    if state.stats is not None and state.stats.numel():
+        hbm.register(f"{prefix}.batch_stats", hbm.shard_nbytes(state.stats),
+                     category="params")
+    if state.ema is not None:
+        hbm.register(f"{prefix}.ema_params", hbm.shard_nbytes(state.ema),
+                     category="params")
 
 
 def _check_transforms(grad_accum, clip_grad_norm, ema_decay) -> None:

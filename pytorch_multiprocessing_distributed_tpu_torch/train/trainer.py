@@ -28,6 +28,16 @@ kept), and the run exits 0 (JAX ``trainer.py:191-260``). Checkpoints go
 through ``ckpt_backend``: ``msgpack``, the single-file payload, or
 ``orbax``, the sharded one (:mod:`.orbax_ckpt`; ``ckpt_async`` writes
 the periodic ones in the background).
+
+Observability (JAX ``trainer.py:243-489``): each batch's data wait is
+a ``train.data`` span recorded from the meter's own measurement, the
+window's fetch (its one sync) a ``train.metrics_fetch`` span and the
+window's wall a ``train.window`` span, the eval fetches
+``train.eval_fetch``, each checkpoint ``train.checkpoint`` and a
+preemption ``train.preempted``; the epoch loop runs under the flight
+recorder. No event adds a clock read or a sync of its own. The loop's
+host values at each window land in :attr:`Trainer.live`, the
+``--stats_port`` gauges.
 """
 
 from __future__ import annotations
@@ -42,13 +52,14 @@ import torch.distributed as tdist
 from ..data.pipeline import ShardedLoader, prefetch
 from ..ops.losses import cross_entropy_loss
 from ..parallel import broadcast_int, dist
+from ..runtime import scope as graftscope
 from ..utils import AverageMeter, Logger
 from ..utils.plotting import draw_plot
 from .checkpoint import prune_checkpoints, save_checkpoint
 from .gspmd import make_eval_step_tp, make_train_step_tp
 from .placement import PlacedState
 from .state import TrainState
-from .step import make_eval_step, make_train_step
+from .step import make_eval_step, make_train_step, register_state_hbm
 
 _HANDLER_NOT_INSTALLED = object()  # signal handler sentinel (see fit)
 _TRAIN_KEYS = ("loss", "prec1", "count", "skipped")
@@ -119,6 +130,8 @@ class Trainer:
             clip_grad_norm=clip_grad_norm, ema_decay=ema_decay)
         self.eval_step = (make_eval_step_tp if placed else make_eval_step)(
             model, loss_fn)
+        # the state's residency on the armed ledger (a no-op disarmed)
+        register_state_hbm(self.state)
         self.train_logger = Logger(os.path.join(save_path, "train.log"))
         self.test_logger = Logger(os.path.join(save_path, "test.log"))
         # what a caller reads after fit (the CLI's summary)
@@ -126,21 +139,18 @@ class Trainer:
                         "first_loss": None, "last_loss": None,
                         "steps": 0, "skipped": 0,
                         "train_s": 0.0, "steady": []}
+        # live gauges for --stats_port, updated at each window boundary
+        self.live: dict = {}
 
     def fit(self) -> TrainState:
         """The reference's epoch loop, under the SIGTERM handler; the
         primary rank draws the plots at the end."""
         prev_handler = self._install_preemption_handler()
         try:
-            for epoch in range(self.start_epoch, self.epochs + 1):
-                self.state.epoch = epoch
-                self.train_epoch(epoch)
-                self.validate(epoch, mode="test")
-                periodic = self.save_every and epoch % self.save_every == 0
-                if epoch == self.epochs or periodic:
-                    # a periodic async save may overlap the next epochs;
-                    # the final one is durable before fit returns
-                    self._save_state(epoch, wait=epoch == self.epochs)
+            # a crash unwinding the epoch loop dumps the flight ring
+            # first (the preemption's SystemExit is the graceful path)
+            with graftscope.flight_recorder("trainer loop"):
+                self._fit_epochs()
         finally:
             try:
                 if self._orbax is not None:
@@ -155,17 +165,30 @@ class Trainer:
             draw_plot(self.save_path)
         return self.state
 
+    def _fit_epochs(self) -> None:
+        for epoch in range(self.start_epoch, self.epochs + 1):
+            self.state.epoch = epoch
+            self.train_epoch(epoch)
+            self.validate(epoch, mode="test")
+            periodic = self.save_every and epoch % self.save_every == 0
+            if epoch == self.epochs or periodic:
+                # a periodic async save may overlap the next epochs;
+                # the final one is durable before fit returns
+                self._save_state(epoch, wait=epoch == self.epochs)
+
     def _save_state(self, epoch: int, wait: bool = True) -> None:
         """One checkpoint of the state as ``epoch`` through the
         configured backend. Every rank calls it (collectives)."""
-        if self._orbax is not None:
-            self._orbax.save(self.state, epoch)
-            if wait:
-                self._orbax.wait()
-            return
-        save_checkpoint(self.save_path, self.state, epoch)
-        if dist.is_primary():
-            prune_checkpoints(self.save_path, self.keep_checkpoints)
+        with graftscope.span("train.checkpoint", cat="train", epoch=epoch,
+                             backend=self.ckpt_backend, wait=wait):
+            if self._orbax is not None:
+                self._orbax.save(self.state, epoch)
+                if wait:
+                    self._orbax.wait()
+                return
+            save_checkpoint(self.save_path, self.state, epoch)
+            if dist.is_primary():
+                prune_checkpoints(self.save_path, self.keep_checkpoints)
 
     # ------------------------------------------------------ preemption
     def _install_preemption_handler(self):
@@ -217,6 +240,7 @@ class Trainer:
         primary's verdict, for every rank), then exit 0."""
         if not self._agreed_preemption():
             return
+        graftscope.emit("train.preempted", cat="train", epoch=epoch)
         if dist.is_primary():
             print(f"SIGTERM received: checkpointing at epoch {epoch} "
                   f"(resume redoes the interrupted epoch) and exiting",
@@ -250,6 +274,9 @@ class Trainer:
         for i, (images, labels) in enumerate(
                 prefetch(self.train_loader, self.device)):
             data_time.update(time.time() - end)
+            # recorded from the meter's own measurement: no clock read
+            graftscope.emit_span("train.data", data_time.val,
+                                 cat="train", batch=i)
             self.state, metrics = self.train_step(self.state, images,
                                                   labels)
             self.summary["steps"] += 1
@@ -259,7 +286,10 @@ class Trainer:
                 # window boundary, before the fetch waits on the card
                 dist.gate_collectives(self.device)
                 self._checkpoint_if_preempted(epoch)
-                for m in _fetch(pending, _TRAIN_KEYS):
+                with graftscope.span("train.metrics_fetch", cat="train",
+                                     epoch=epoch, steps=len(pending)):
+                    fetched = _fetch(pending, _TRAIN_KEYS)
+                for m in fetched:
                     # a skipped step's metrics stay out of every meter
                     if int(m["skipped"]):
                         skipped += 1
@@ -272,6 +302,19 @@ class Trainer:
                 now = time.time()
                 batch_time.update((now - window_start) / len(pending),
                                   len(pending))
+                # the fetch boundary is the one honest per-window timing
+                # point while the card runs ahead of the host
+                graftscope.emit_span(
+                    "train.window", now - window_start, cat="train",
+                    epoch=epoch, steps=len(pending),
+                    step_avg_s=batch_time.val)
+                global_batch = getattr(self.train_loader, "batch_size", 0)
+                self.live.update(
+                    epoch=epoch, batch=i, loss=losses.avg, prec1=top1.avg,
+                    step_time_s=batch_time.val,
+                    images_per_sec=(0.0 if not batch_time.val else
+                                    global_batch / batch_time.val),
+                    steps_skipped=skipped)
                 if first_window is None:
                     first_window = (now, i)
                 elif i == n_batches - 1:
@@ -328,7 +371,10 @@ class Trainer:
             pending.append(self.eval_step(self.state, images, labels,
                                           valid))
             if i % self.print_freq == 0 or i == n_batches - 1:
-                for m in _fetch(pending, _EVAL_KEYS):
+                with graftscope.span("train.eval_fetch", cat="train",
+                                     epoch=epoch, steps=len(pending)):
+                    fetched = _fetch(pending, _EVAL_KEYS)
+                for m in fetched:
                     losses.update(m["loss"], int(m["count"]))
                     total_correct += int(m["correct"])  # global (summed)
                 now = time.time()

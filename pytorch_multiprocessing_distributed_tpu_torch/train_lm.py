@@ -51,8 +51,17 @@ down and restarts with ``--resume auto``. At every print boundary the
 liveness gate runs (:func:`.parallel.dist.gate_collectives`): under
 ``PMDT_HEARTBEAT`` a lost peer is a named ``PeerLostError``.
 
+The observability flags are JAX's (:mod:`.runtime.scope`):
+``--trace_out``, ``--events_out``, ``--flight_path`` and
+``--stats_port`` (rank ``r`` serves on the port plus ``r``). The loop
+emits JAX's spans at its boundaries: ``train.data`` (the wait for the
+next batch), ``train.h2d`` (``tp``/``pp``: the batch upload),
+``train.metrics_fetch`` (the print boundary's sync), ``train.window``,
+``train.step_skipped``, ``train.validate`` and ``train.checkpoint``;
+the clock reads they take happen only while a scope is armed.
+
 Flags of the JAX CLI this slice does not port (HF interop, beam
-sampling, the observability exporters) are rejected by name.
+sampling) are rejected by name.
 """
 
 from __future__ import annotations
@@ -77,6 +86,8 @@ from .parallel.gpt_pipeline import (create_pipelined_lm_state,
                                     make_pipelined_lm_train_step,
                                     unstack_pipeline_params)
 from .parallel.mesh import make_grid
+from .runtime import heal, telemetry
+from .runtime import scope as graftscope
 from .parallel.ulysses import _check_heads
 from .parallel.zero import plan_buckets, zeroify_state
 from .serving.params import init_params
@@ -89,6 +100,7 @@ from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
                                load_with_fallback, prune_checkpoints,
                                resolve_auto_resume, save_checkpoint)
 from .train.optim import cosine_lr, sgd
+from .train.step import register_state_hbm
 from .utils import Logger, throughput
 
 
@@ -170,10 +182,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--restart_backoff', default=1.0, type=float,
                    help='first-restart delay in seconds (doubles per '
                         'restart, capped at 30s)')
-    p.add_argument('--trace_out', default='', type=str)
-    p.add_argument('--events_out', default='', type=str)
-    p.add_argument('--flight_path', default='', type=str)
-    p.add_argument('--stats_port', default=0, type=int)
+    graftscope.add_cli_args(p, stats_port=True)
     return p
 
 
@@ -182,10 +191,6 @@ _NOT_PORTED = (
     ('--hf_init', lambda a: bool(a.hf_init)),
     ('--hf_export', lambda a: a.hf_export),
     ('--sample_beams', lambda a: a.sample_beams != 0),
-    ('--stats_port', lambda a: a.stats_port != 0),
-    ('--trace_out', lambda a: bool(a.trace_out)),
-    ('--events_out', lambda a: bool(a.events_out)),
-    ('--flight_path', lambda a: bool(a.flight_path)),
 )
 
 
@@ -386,6 +391,8 @@ def run(args) -> dict:
                 "--warmup_epochs applies to --lr_schedule cosine")
         lr = args.lr
 
+    # armed before any state exists: the ledger takes its registrations
+    telemetry.arm_from_args(args)
     # the device and the process group only after every flag check
     device = resolve_device(args.device)
     dist.init_process(device)
@@ -527,84 +534,141 @@ def run(args) -> dict:
                "resident_bytes": resident, "moe_aux": []}
     steady = []  # (seconds, steps) between an epoch's first and last print
 
-    for epoch in range(start_epoch, args.epochs + 1):
-        state.epoch = epoch
-        loader.set_epoch(epoch)
-        t0, losses, seen = time.time(), 0.0, 0
-        t_first = None
-        for i, batch in enumerate(loader):
-            state, metrics = step(state, rows(batch))
-            summary["steps"] += 1
-            if i % args.print_freq == 0 or i == len(loader) - 1:
-                # the liveness gate, before the print boundary's host
-                # sync (the loop's one) waits on the card
-                dist.gate_collectives(device)
-                skipped = int(metrics['skipped'])
-                loss = None if skipped else float(metrics['loss'])
-                now = time.time()
-                if t_first is None:
-                    t_first = (now, i)
-                elif i == len(loader) - 1:
-                    steady.append((now - t_first[0], i - t_first[1]))
-                if skipped:
-                    summary["skipped"] += 1
-                    if primary:
-                        print(f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
-                              "step skipped (non-finite grads)", flush=True)
-                    continue
-                losses, seen = losses + loss, seen + 1
-                if summary["first_loss"] is None:
-                    summary["first_loss"] = loss
-                if 'moe_aux' in metrics:
-                    summary["moe_aux"].append(float(metrics['moe_aux']))
-                if primary:
-                    tok_s = (args.batch_size * args.seq_len * (i + 1)
-                             / (now - t0))
-                    extra = (f"\tAux {summary['moe_aux'][-1]:.3f}"
-                             if 'moe_aux' in metrics else '')
-                    print(f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
-                          f"Loss {loss:.4f}\tTok/s {tok_s:.0f}{extra}",
-                          flush=True)
-        summary["train_s"] += time.time() - t0
-        avg = losses / max(1, seen)
-        summary["epoch_losses"].append(avg)
-        if primary:
-            logger.write([epoch, avg, math.exp(min(avg, 20.0))])
-        if eval_step is not None:
-            tot, cnt = 0.0, 0.0
-            for batch in val_loader:
-                m = eval_step(state, rows(batch))
-                c = float(m['count'])
-                tot, cnt = tot + float(m['loss']) * c, cnt + c
-            vloss = tot / max(1.0, cnt)
-            summary["val_losses"].append(vloss)
-            if primary:
-                print(f"Val: [{epoch}]\tLoss {vloss:.4f}\t"
-                      f"PPL {math.exp(min(vloss, 20.0)):.2f}", flush=True)
-                test_logger.write([epoch, vloss, math.exp(min(vloss, 20.0))])
-        if (args.save_every and epoch % args.save_every == 0
-                and epoch < args.epochs):
+    register_state_hbm(state)
+    live: dict = {}
+    stats_server = health = None
+    if args.stats_port:
+        health = heal.HealthState()
+        stats_server = telemetry.start_stats(
+            args.stats_port, lambda: live, health, rank=dist.get_rank())
+        health.to_ready("training")
+
+    def save(epoch: int, **attrs) -> None:
+        with graftscope.span("train.checkpoint", cat="train", epoch=epoch,
+                             backend=args.ckpt_backend, **attrs):
             if ck is not None:
                 ck.save(state, epoch)  # retention inside
+                if attrs.get("final"):
+                    ck.wait()  # the final save durable before exit
             else:
                 save_checkpoint(args.save_path, state, epoch)
                 if args.keep_checkpoints and primary:
                     prune_checkpoints(args.save_path, args.keep_checkpoints)
 
+    def train_epochs():
+        nonlocal state
+        # the clock reads of the spans: only while a scope is armed
+        armed = graftscope.active_scope() is not None
+        for epoch in range(start_epoch, args.epochs + 1):
+            state.epoch = epoch
+            loader.set_epoch(epoch)
+            t0, losses, seen = time.time(), 0.0, 0
+            t_first = None
+            t_ready = time.perf_counter() if armed else 0.0
+            t_window = t_ready
+            for i, batch in enumerate(loader):
+                if armed:
+                    graftscope.emit_span(
+                        "train.data", time.perf_counter() - t_ready,
+                        cat="train", epoch=epoch, batch=i)
+                if args.parallel in ('tp', 'pp'):
+                    with graftscope.span("train.h2d", cat="train",
+                                         batch=i):
+                        tok = rows(batch)
+                else:
+                    tok = rows(batch)
+                state, metrics = step(state, tok)
+                summary["steps"] += 1
+                if i % args.print_freq == 0 or i == len(loader) - 1:
+                    # the liveness gate, before the print boundary's
+                    # host sync (the loop's one) waits on the card
+                    dist.gate_collectives(device)
+                    with graftscope.span("train.metrics_fetch",
+                                         cat="train", epoch=epoch,
+                                         batch=i) as mspan:
+                        skipped = int(metrics['skipped'])
+                        loss = None if skipped else float(metrics['loss'])
+                    if armed:
+                        now_p = time.perf_counter()
+                        graftscope.emit_span(
+                            "train.window", now_p - t_window, cat="train",
+                            epoch=epoch, batch=i)
+                        t_window = now_p
+                    now = time.time()
+                    if t_first is None:
+                        t_first = (now, i)
+                    elif i == len(loader) - 1:
+                        steady.append((now - t_first[0], i - t_first[1]))
+                    if skipped:
+                        mspan.note(skipped=True)
+                        graftscope.emit("train.step_skipped", cat="train",
+                                        epoch=epoch, batch=i)
+                        summary["skipped"] += 1
+                        if primary:
+                            print(f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
+                                  "step skipped (non-finite grads)",
+                                  flush=True)
+                        t_ready = time.perf_counter() if armed else 0.0
+                        continue
+                    losses, seen = losses + loss, seen + 1
+                    if summary["first_loss"] is None:
+                        summary["first_loss"] = loss
+                    if 'moe_aux' in metrics:
+                        summary["moe_aux"].append(float(metrics['moe_aux']))
+                    tok_s = (args.batch_size * args.seq_len * (i + 1)
+                             / (now - t0))
+                    live.update(epoch=epoch, batch=i, loss=loss,
+                                tokens_per_sec=tok_s)
+                    if primary:
+                        extra = (f"\tAux {summary['moe_aux'][-1]:.3f}"
+                                 if 'moe_aux' in metrics else '')
+                        print(f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
+                              f"Loss {loss:.4f}\tTok/s {tok_s:.0f}{extra}",
+                              flush=True)
+                t_ready = time.perf_counter() if armed else 0.0
+            summary["train_s"] += time.time() - t0
+            avg = losses / max(1, seen)
+            summary["epoch_losses"].append(avg)
+            if primary:
+                logger.write([epoch, avg, math.exp(min(avg, 20.0))])
+            if eval_step is not None:
+                with graftscope.span("train.validate", cat="train",
+                                     epoch=epoch):
+                    tot, cnt = 0.0, 0.0
+                    for batch in val_loader:
+                        m = eval_step(state, rows(batch))
+                        c = float(m['count'])
+                        tot, cnt = tot + float(m['loss']) * c, cnt + c
+                    vloss = tot / max(1.0, cnt)
+                summary["val_losses"].append(vloss)
+                if primary:
+                    print(f"Val: [{epoch}]\tLoss {vloss:.4f}\t"
+                          f"PPL {math.exp(min(vloss, 20.0)):.2f}",
+                          flush=True)
+                    test_logger.write(
+                        [epoch, vloss, math.exp(min(vloss, 20.0))])
+            if (args.save_every and epoch % args.save_every == 0
+                    and epoch < args.epochs):
+                save(epoch)
+
+    try:
+        # a crash unwinding the loop dumps the flight ring first
+        with graftscope.flight_recorder("train_lm epoch loop"):
+            train_epochs()
+    except BaseException:
+        # a supervised restart binds the same --stats_port again
+        telemetry.stop_stats(stats_server)
+        raise
+
     if start_epoch <= args.epochs:
-        if ck is not None:
-            ck.save(state, args.epochs)
-            ck.wait()  # the final save durable before exit
-        else:
-            save_checkpoint(args.save_path, state, args.epochs)
-            if args.keep_checkpoints and primary:
-                prune_checkpoints(args.save_path, args.keep_checkpoints)
+        save(args.epochs, final=True)
     elif primary:
         print(f"--resume: checkpoint already at epoch {start_epoch - 1} >= "
               f"--epochs {args.epochs}; nothing to train", flush=True)
 
     if args.sample:
         from .inference import generate
+        from .inference.generate import register_generate_hbm
 
         prompt = torch.as_tensor(tokens[: args.seq_len][None, :],
                                  dtype=torch.long, device=device)
@@ -622,6 +686,8 @@ def run(args) -> dict:
         else:
             # the dense model, as JAX's model.clone(seq_axis=None)
             dense = model.clone(seq_axis=None) if sp else model
+        # the decode's KV residency on the armed ledger
+        register_generate_hbm(dense, 1, args.seq_len + args.sample)
         with torch.no_grad():
             out = generate(dense, prompt, max_new_tokens=args.sample)
         ids = out[0, -args.sample:].tolist()
@@ -646,6 +712,11 @@ def run(args) -> dict:
             device)
     if ck is not None:
         ck.close()
+    if primary:
+        graftscope.export_from_args(args)
+    if health is not None:
+        health.to_dead("run complete")
+    telemetry.stop_stats(stats_server)
     dist.destroy_process_group()
     return summary
 

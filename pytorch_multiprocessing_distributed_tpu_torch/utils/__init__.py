@@ -3,5 +3,5 @@
 from .meters import AverageMeter, PercentileMeter, throughput  # noqa: F401
 from .metrics import (ServingMetrics, accuracy,  # noqa: F401
                       correct_count, topk_accuracy)
-from .plotting import draw_plot  # noqa: F401
+from .plotting import draw_plot, draw_timeline  # noqa: F401
 from .logger import Logger  # noqa: F401

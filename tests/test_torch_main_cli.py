@@ -134,29 +134,6 @@ def test_world2_spawns_gloo_ranks(tmp_path):
         assert (tmp_path / name).exists(), name
 
 
-# (case index, extra, flag): each case keeps the id it had while
-# --model_parallel, --zero1 and --fsdp (cases 0-2) and --ckpt_backend,
-# --ckpt_async, --profile and --max_restarts (cases 3-6; see
-# tests/test_torch_restart_cli.py, test_torch_preempt_cli.py and
-# test_torch_sharded_ckpt.py) led this list (they are ported now)
-_UNPORTED = [
-    (7, ["--stats_port", "9137"], "--stats_port"),
-    (8, ["--trace_out", "t.json"], "--trace_out"),
-    (9, ["--events_out", "e.jsonl"], "--events_out"),
-    (10, ["--flight_path", "f.jsonl"], "--flight_path"),
-]
-
-
-@pytest.mark.parametrize("extra,flag", [c[1:] for c in _UNPORTED], ids=[
-    f"extra{i}-{flag}" for i, _, flag in _UNPORTED])
-def test_unported_flags_are_rejected_by_name(tmp_path, extra, flag):
-    with pytest.raises(SystemExit, match=(
-            f"^{re.escape(flag)} is not ported.*ROADMAP.md §1 item 5")):
-        port_main.main(FLAGS + ["--device", "cpu", "--save_path",
-                                str(tmp_path / "run")] + extra)
-    assert not (tmp_path / "run").exists()
-
-
 @pytest.mark.parametrize("extra", [["--optimizer", "lamb"],
                                    ["--dataset", "imagenet"],
                                    ["--grad_accum", "2"],
@@ -166,12 +143,16 @@ def test_unported_flags_are_rejected_by_name(tmp_path, extra, flag):
                                    ["--zero1"], ["--fsdp"],
                                    ["--model_parallel", "2"],
                                    ["--model_parallel", "2", "--zero1",
-                                    "--optimizer", "lamb"]])
+                                    "--optimizer", "lamb"],
+                                   ["--stats_port", "9137"],
+                                   ["--trace_out", "t.json"],
+                                   ["--events_out", "e.jsonl"],
+                                   ["--flight_path", "f.jsonl"]])
 def test_ported_flags_are_accepted(extra):
     """The flags this port has taken out of the rejected list pass the
-    CLI's checks (their runs are held against JAX below)."""
+    CLI's checks (their runs are held against JAX below, and the
+    observability flags' in tests/test_torch_scope_cli.py)."""
     args = port_main.build_parser().parse_args(FLAGS + extra)
-    port_main._reject_not_ported(args)
     port_main._check_flags(args)
 
 

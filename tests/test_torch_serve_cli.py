@@ -97,9 +97,13 @@ def test_request_sources_match_jax_cli(tmp_path, source):
     assert port == ref and skipped_port == skipped_jax
 
 
+# --trace_out and --stats_port (cases 2 and 5) are ported:
+# tests/test_torch_scope_cli.py runs them; two fleet flags take their
+# places
 @pytest.mark.parametrize("argv", [
-    ["--replicas", "2"], ["--listen", "0"], ["--trace_out=t.json"],
-    ["--rollout", "seed:7"], ["--autoscale", "1,2"], ["--stats_port", "0"]])
+    ["--replicas", "2"], ["--listen", "0"], ["--role=prefill"],
+    ["--rollout", "seed:7"], ["--autoscale", "1,2"],
+    ["--fleet_store", "127.0.0.1:1"]])
 def test_unported_flags_rejected(argv):
     with pytest.raises(SystemExit, match="not ported"):
         serve_lm.main(["--device", "cpu", "--random_init", *argv])

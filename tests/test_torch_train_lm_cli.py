@@ -10,6 +10,7 @@ frameworks' f32 sums in different orders, compounded over ~40 steps).
 """
 
 import importlib.util
+import json
 import math
 import os
 import re
@@ -121,14 +122,12 @@ def test_resume_auto_continues_at_epoch_3(tmp_path, capsys):
 # --moe_top_k (cases 4, 5; tests/test_torch_moe_cli.py runs them) and
 # --ckpt_backend, --ckpt_async and --max_restarts (cases 11, 12, 16;
 # tests/test_torch_restart_cli.py and test_torch_sharded_ckpt.py run
-# them)
+# them) and --stats_port, --trace_out and --events_out (cases 17-19;
+# test_observability_flags_run below runs them)
 _UNPORTED = [
     (13, ["--hf_init", "x.pth"], "--hf_init"),
     (14, ["--hf_export"], "--hf_export"),
     (15, ["--sample_beams", "2"], "--sample_beams"),
-    (17, ["--stats_port", "9137"], "--stats_port"),
-    (18, ["--trace_out", "t.json"], "--trace_out"),
-    (19, ["--events_out", "e.jsonl"], "--events_out"),
 ]
 
 
@@ -139,6 +138,45 @@ def test_unported_flags_are_rejected_by_name(tmp_path, extra, flag):
         train_lm.main(FLAGS + ["--device", "cpu", "--save_path",
                                str(tmp_path)] + extra)
     assert not (tmp_path / "train.log").exists()
+
+
+@pytest.mark.parametrize("flag", ["--stats_port", "--trace_out",
+                                  "--events_out"])
+def test_observability_flags_run(tmp_path, capsys, flag):
+    """Each observability flag runs (it was rejected before this port
+    had it) and leaves its artifact: the stats line of a server that
+    bound and was closed again, a Chrome trace, the JSONL event log."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.dist import (
+        free_port)
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime import (
+        fleet, hbm, scope)
+
+    value = {"--stats_port": str(free_port()),
+             "--trace_out": str(tmp_path / "t.json"),
+             "--events_out": str(tmp_path / "e.jsonl")}[flag]
+    try:
+        train_lm.main(FLAGS + ["--device", "cpu", "--epochs", "1",
+                               "--save_path", str(tmp_path), flag, value])
+    finally:
+        scope.disarm()
+        hbm.disarm()
+        fleet.disarm_goodput()
+    out = capsys.readouterr().out
+    if flag == "--stats_port":
+        assert f"stats: http://127.0.0.1:{value}/metrics" in out
+        import socket
+
+        with socket.socket() as sock:  # the listener was closed
+            sock.bind(("127.0.0.1", int(value)))
+    elif flag == "--trace_out":
+        trace = json.loads((tmp_path / "t.json").read_text())
+        names = {e["name"] for e in trace["traceEvents"]}
+        assert {"train.window", "train.metrics_fetch",
+                "train.checkpoint"} <= names
+    else:
+        rows = [json.loads(line) for line in
+                (tmp_path / "e.jsonl").read_text().splitlines()]
+        assert sum(r["name"] == "train.window" for r in rows) >= 2
 
 
 def test_flag_checks_in_jax_order(tmp_path):
