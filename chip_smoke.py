@@ -24,6 +24,11 @@
                                         # (observability) alone
     python3 chip_smoke.py --fleet-only  # phase 33's [fleet-xcard] alone
                                         # (four cards)
+    python3 chip_smoke.py --gen-only  # phases 1 and 34 (ragged generate,
+                                      # beam search, HF interop, ViT's
+                                      # ring) alone
+    python3 chip_smoke.py --vit-seq-only  # phase 34's [vit-seq] alone
+                                          # (degree 2 and 4 need cards)
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -464,6 +469,33 @@ nothing is caught):
    merges four lanes, names rank 2 the straggler and reads every rank's
    ``goodput_frac`` in (0, 1] (``[fleet-xcard]``; skipped with fewer
    cards).
+34. gen — the rest of generation and of ``train_lm``: (a) gpt_small, 8
+   prompts of lengths spread over 17-512 left-padded to 512 into one
+   ``generate(..., prompt_lengths=)`` call, 32 new tokens, f32 (TF32
+   off) and bf16: every f32 row equals its one-row call on its unpadded
+   prompt, bf16 rows counted; row 1 launches 12 a decode step
+   (``[ragged]``); (b) row 1 with ``starts`` (each slot's first valid
+   column, drawn below its reach) at B 8, H 12, W 1024, Dh 64, f32 and
+   bf16, against its plain version; zeros bit-equal to no ``starts``;
+   the bf16 call timed (L2-warm and cold, eager, plain, SDPA with the
+   same mask, bound) beside the same call without ``starts``
+   (``[gen-starts]``); (c) ``beam_search`` on gpt_small bf16, one prompt
+   of 128 tokens, 32 new: beam 1 equals greedy ``generate``; 4 beams'
+   row-1 launches a step (12) and the step's wall; 4 beams in f32 on
+   the card against the CPU, tokens equal and scores within 1e-4
+   (``[beam]``); (d) ``train_lm --sample 32 --sample_beams 4
+   --hf_export`` (gpt_small bf16, 4 steps of B 8 x S 128): its sample
+   equals ``beam_search``'s best beam on the saved params
+   (``[lm-beams]``); (e) ``--hf_init`` of that run's export at lr 0, in
+   a temporary directory: the file has GPT-2's names and shapes, its
+   import is the saved params bit for bit, the first eval loss the
+   exporting run's last (``[hf]``); (f) ViT-B/16
+   bf16 at 224, batch 64, ``seq_axis`` over a 1 x N grid, the same batch
+   on every rank, against the one-card ``flash=True`` ViT with the same
+   weights: logits and gradients within 2e-2 normwise, flash launches a
+   step the hop schedule's, step time and peak a card beside one card's;
+   N = 1 here, 2 and 4 on NCCL ranks where that many cards are visible
+   (``[vit-seq]``).
    Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
@@ -488,8 +520,12 @@ entries carry each phase 28 run's launches a step,
 run's); rows 1, 2 and 3 carry phase 32's launches in its uninterrupted
 and restarted serves, ``serve_heal_launches`` (null on the rows phase 32
 does not run); the decode entry carries phase 29's ``--sample`` launches,
-``moe_sample_launches``; rows 1, 5-7 (bf16) and 8 carry phase 33's
-launches a step armed and disarmed, ``scope_launches_per_step``; rows
+``moe_sample_launches``, and phase 34's launches a step of the ragged
+``generate`` and of ``beam_search``, ``train_lm --sample_beams``'s
+launches, the ``starts`` call's times and error (``starts_*``) and the
+ring ViT's errors and step times (``vit_seq``); rows 1, 5-7 (bf16)
+and 8 carry phase 33's launches a step armed and disarmed,
+``scope_launches_per_step``; rows
 1-4 and their int8 twins carry phase 31's
 launches a pass on the M = 1 TP path, ``tp_launches_per_step``, and
 their checks and times at a rank's shapes, ``tp_shapes`` keyed
@@ -975,6 +1011,28 @@ from pytorch_multiprocessing_distributed_tpu_torch import serve_lm
 serve_lm.main(sys.argv[1:])
 """
 
+# phase 34: the rest of generation and of train_lm. [ragged]: gpt_small
+# prompts left-padded to one length, their lengths spread over [min_len,
+# pad_to]; [gen-starts]: row 1 with a first valid column a slot, at
+# DECODE_SHAPE and W 1024; [beam]: one prompt, beams 1 and BEAMS;
+# [lm-beams] and [hf]: train_lm gpt_small bf16 for 4 steps of B 8 x S 128
+# (5120 tokens, 20% held out: 32 and 8 windows); [vit-seq]: ViT-B/16 at
+# 224, the same batch on every rank of a seq axis
+GEN_MODEL = "gpt_small"
+GEN_RAGGED = dict(rows=8, pad_to=512, min_len=17, new=32)
+GEN_STARTS_WINDOW = 1024
+GEN_BEAM = dict(prompt=128, new=32, beams=4)
+GEN_BEAM_SCORE_TOL = 1e-4  # f32, card against CPU: the sums' order
+GEN_LM_ARGV = ["--model", GEN_MODEL, "--dtype", "bfloat16", "--batch_size",
+               "8", "--seq_len", "128", "--corpus_tokens", "5120",
+               "--val_frac", "0.2", "--epochs", "1", "--lr", TRAIN_LR,
+               "--seed", "0", "--print_freq", "1"]
+GEN_LM_SAMPLE = 32
+GEN_EVAL_TOL = 1e-6  # the importing run's first eval against the last
+VIT_SEQ = dict(model="vit_b16", batch=64, image=224, classes=1000, steps=3)
+VIT_SEQ_MAX_RANKS = 4
+VIT_SEQ_TOL = 2e-2  # rows 5-7's bf16 tolerance, each tensor normwise
+
 
 def _print(*parts):
     print(*parts, flush=True)
@@ -1169,15 +1227,18 @@ def _decode_inputs(torch, window, dtype, seed, head_dim=None, heads=None):
     return q, k[:, :window], v[:, :window], pos.to(torch.int32)
 
 
-def _bound(q, k, positions, rate):
+def _bound(q, k, positions, rate, starts=None):
     """Least time for the work these inputs need: each row reads
-    min(pos, W-1)+1 key and value columns once, plus q, positions and
-    the f32 output; the f32 math is 4 flops per K/V element read."""
+    min(pos, W-1)+1 key and value columns once (from its start where
+    ``starts`` is given), plus q, positions (and starts) and the f32
+    output; the f32 math is 4 flops per K/V element read."""
     n, _, h, d = q.shape
-    cols = int((positions.clamp(max=k.shape[1] - 1) + 1).sum())
+    reach = positions.clamp(max=k.shape[1] - 1)
+    first = 0 if starts is None else starts
+    cols = int((reach - first + 1).clamp(min=0).sum())
     elt = k.element_size()
-    nbytes = (2 * cols * h * d * elt + q.numel() * elt + n * 4
-              + q.numel() * 4)
+    nbytes = (2 * cols * h * d * elt + q.numel() * elt
+              + n * 4 * (1 if starts is None else 2) + q.numel() * 4)
     flops = 2 * cols * h * d * 2
     t_bytes, t_ops = nbytes / rate, flops / F32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1185,31 +1246,37 @@ def _bound(q, k, positions, rate):
 
 
 def _time_decode(torch, F, decode_attention, torch_decode_attention, q, k,
-                 v, pos, rate):
+                 v, pos, rate, starts=None):
     """Device times of the kernel (its window L2-warm, and L2-cold), the
-    plain version and the library call, the kernel's eager per-call
-    time, and the bound, for one input. Launches made here are not
-    counted."""
+    plain version and the library call (the same mask: from ``starts``
+    where given), the kernel's eager per-call time, and the bound, for
+    one input. Launches made here are not counted."""
     scale = q.shape[-1] ** -0.5
-    mask = (torch.arange(k.shape[1], device="cuda")[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
+    cols = torch.arange(k.shape[1], device="cuda")[None, :]
+    mask = cols <= pos.long()[:, None]
+    if starts is not None:
+        mask = mask & (cols >= starts.long()[:, None])
+    mask = mask[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     launches = decode_attention.launches
 
+    def call(q_, k_, v_, pos_, starts_):
+        return decode_attention(q_, k_, v_, pos_, starts=starts_,
+                                impl="cuda")
+
     def kernel():
-        decode_attention(q, k, v, pos, impl="cuda")
+        call(q, k, v, pos, starts)
 
     ms = _device_ms(kernel, torch)
-    cold_ms = _cold_ms(
-        lambda *x: decode_attention(*x, impl="cuda"), (q, k, v, pos), torch)
+    cold_ms = _cold_ms(call, (q, k, v, pos, starts), torch)
     eager_ms = _eager_ms(kernel, torch)
     decode_attention.launches = launches
-    plain_ms = _device_ms(lambda: torch_decode_attention(q, k, v, pos),
-                          torch)
+    plain_ms = _device_ms(
+        lambda: torch_decode_attention(q, k, v, pos, starts), torch)
     library_ms = _device_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                scale=scale), torch)
-    bound_ms, bound_by = _bound(q, k, pos, rate)
+    bound_ms, bound_by = _bound(q, k, pos, rate, starts)
     return dict(ms=ms, cold_ms=cold_ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -5747,6 +5814,547 @@ def _scope_phase(torch, serve_lm, train_lm, image_main, da, fa, fused_sgd_,
                 per_step=per_step)
 
 
+# ------------------------------------------------------------- phase 34
+
+
+def _gen_model(torch, dtype, device="cuda"):
+    """GEN_MODEL at full width, random weights from seed 0, on
+    ``device``."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        init_params)
+
+    model = get_model(GEN_MODEL, dtype=dtype)
+    model.load_state_dict(init_params(model, 0, device), assign=True)
+    return model
+
+
+def _gen_ragged(torch, np, generate, da, smi):
+    """[ragged]: GEN_RAGGED's prompts left-padded into one ``generate``
+    call, each row against a one-row call on its unpadded prompt (f32:
+    every row exact; bf16: counted), and row 1's launches a decode step
+    of the ragged call."""
+    cfg = GEN_RAGGED
+    rng = np.random.default_rng(34)
+    lengths = np.linspace(cfg["min_len"], cfg["pad_to"],
+                          cfg["rows"]).astype(np.int64)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[1]
+        model = _gen_model(torch, dtype)
+        prompts = [rng.integers(0, model.vocab_size, n) for n in lengths]
+        padded = torch.tensor(np.stack([
+            np.concatenate([np.zeros(cfg["pad_to"] - len(p), np.int64), p])
+            for p in prompts]), device="cuda")
+        steps = cfg["new"] - 1
+        with torch.no_grad():
+            generate(model, padded, max_new_tokens=2,
+                     prompt_lengths=torch.tensor(lengths, device="cuda"))
+            torch.cuda.synchronize()
+            da.decode_attention.launches = 0
+            t0 = time.perf_counter()
+            got = generate(model, padded, max_new_tokens=cfg["new"],
+                           prompt_lengths=torch.tensor(lengths,
+                                                       device="cuda"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = da.decode_attention.launches
+            rows = [generate(model, torch.tensor(p[None], device="cuda"),
+                             max_new_tokens=cfg["new"])[0, -cfg["new"]:]
+                    .tolist() for p in prompts]
+        if launches != model.num_layers * steps:
+            raise AssertionError(
+                f"ragged generate {tname}: row 1 launched {launches} times "
+                f"over {steps} decode steps; expected {model.num_layers} a "
+                "step")
+        exact = sum(got[i, -cfg["new"]:].tolist() == rows[i]
+                    for i in range(cfg["rows"]))
+        if dtype == torch.float32 and exact != cfg["rows"]:
+            raise AssertionError(
+                f"ragged generate f32: {exact}/{cfg['rows']} rows equal "
+                "their one-row calls")
+        out[tname] = dict(exact=exact, launches=launches, steps=steps,
+                          wall_s=wall)
+        required = " (all required)" if dtype == torch.float32 else ""
+        _print(f"[ragged] {GEN_MODEL} {tname}: {cfg['rows']} prompts of "
+               f"lengths {lengths.tolist()} left-padded to {cfg['pad_to']}, "
+               f"{cfg['new']} new tokens: {exact}/{cfg['rows']} rows equal "
+               f"their one-row calls{required}, "
+               f"row 1 launches {launches} over {steps} decode steps "
+               f"({launches / steps:g} a step), wall {wall:.3f} s [{smi}]")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gen_starts(torch, F, da, rate, smi):
+    """[gen-starts]: row 1 with a first valid column a slot (starts drawn
+    below each slot's reach) against its plain version in f32 and bf16,
+    null-equivalent zeros bit-equal to no starts, the graph replay
+    bit-equal; the bf16 call timed beside the same call without
+    ``starts``. Launches made here are not counted."""
+    w = GEN_STARTS_WINDOW
+    launches = da.decode_attention.launches
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[1]
+        q, k, v, pos = _decode_inputs(torch, w, dtype, seed=34)
+        gen = torch.Generator(device="cuda").manual_seed(35)
+        reach = pos.clamp(max=w - 1)
+        starts = (torch.rand(pos.shape, generator=gen, device="cuda")
+                  * (reach + 1)).floor().to(torch.int32)
+
+        def call(s=starts):
+            return da.decode_attention(q, k, v, pos, starts=s, impl="cuda")
+
+        got = call()
+        err = float((got - da.torch_decode_attention(q, k, v, pos, starts))
+                    .abs().max())
+        if not err <= TOL[tname]:
+            raise AssertionError(
+                f"decode_attention with starts {tname}: max|err| {err} > "
+                f"{TOL[tname]}")
+        if not (torch.equal(got, call())
+                and torch.equal(_graph_bits(call, torch), got)):
+            raise AssertionError(
+                f"decode_attention with starts {tname}: two calls, or the "
+                "graph replay and the eager call, differ")
+        if not torch.equal(call(torch.zeros_like(starts)),
+                           da.decode_attention(q, k, v, pos, impl="cuda")):
+            raise AssertionError(
+                f"decode_attention {tname}: starts of zeros differ from no "
+                "starts")
+        out[tname] = dict(max_abs_err=err)
+        if dtype == torch.bfloat16:
+            t = _time_decode(torch, F, da.decode_attention,
+                             da.torch_decode_attention, q, k, v, pos, rate,
+                             starts)
+            t0 = _time_decode(torch, F, da.decode_attention,
+                              da.torch_decode_attention, q, k, v, pos, rate)
+            out[tname].update(t, no_starts=t0)
+        _print(f"[gen-starts] decode_attention {tname} N=8 H=12 Dh=64 W={w} "
+               f"({DECODE_KERNELS}: {_plan_text(da, q, w)}) positions="
+               f"{pos.tolist()} starts={starts.tolist()} max_abs_err="
+               f"{err:.3e} (tol {TOL[tname]}), zeros bit-equal to no starts, "
+               "two calls and the graph replay bit-equal"
+               + ("" if dtype != torch.bfloat16 else
+                  f"; ms={t['ms']:.5f} (L2-warm) cold_ms={t['cold_ms']:.5f} "
+                  f"eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.5f}"
+                  f" library_ms={t['library_ms']:.5f} (SDPA, the same mask) "
+                  f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}); without "
+                  f"starts ms={t0['ms']:.5f} cold_ms={t0['cold_ms']:.5f} "
+                  f"bound_ms={t0['bound_ms']:.5f} library_ms="
+                  f"{t0['library_ms']:.5f}") + f" [{smi}]")
+    da.decode_attention.launches = launches
+    return out
+
+
+def _gen_beam(torch, np, generate, beam_search, da, smi):
+    """[beam]: GEN_MODEL bf16 on one prompt: ``beam_size`` 1 against
+    greedy ``generate``; BEAMS beams' row-1 launches a step and the
+    step's wall; and f32 (TF32 off) BEAMS beams on the card against the
+    same call on the CPU."""
+    cfg = GEN_BEAM
+    rng = np.random.default_rng(36)
+    model = _gen_model(torch, torch.bfloat16)
+    prompt = torch.tensor(rng.integers(0, model.vocab_size,
+                                       (1, cfg["prompt"])), device="cuda")
+    steps = cfg["new"] - 1
+    with torch.no_grad():
+        greedy = generate(model, prompt, max_new_tokens=cfg["new"])
+        one, _ = beam_search(model, prompt, max_new_tokens=cfg["new"],
+                             beam_size=1)
+        if not torch.equal(one[:, 0], greedy):
+            raise AssertionError(
+                f"beam_search beam_size=1 {one[0, 0, -cfg['new']:].tolist()}"
+                f" != greedy generate {greedy[0, -cfg['new']:].tolist()}")
+        beam_search(model, prompt, max_new_tokens=cfg["new"],
+                    beam_size=cfg["beams"])  # warm
+        torch.cuda.synchronize()
+        da.decode_attention.launches = 0
+        t0 = time.perf_counter()
+        toks, scores = beam_search(model, prompt, max_new_tokens=cfg["new"],
+                                   beam_size=cfg["beams"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = da.decode_attention.launches
+        t0 = time.perf_counter()
+        beam_search(model, prompt, max_new_tokens=1, beam_size=cfg["beams"])
+        torch.cuda.synchronize()
+        wall_prefill = time.perf_counter() - t0
+    if launches != model.num_layers * steps:
+        raise AssertionError(
+            f"beam_search: row 1 launched {launches} times over {steps} "
+            f"steps; expected {model.num_layers} a step")
+    step_ms = (wall - wall_prefill) / steps * 1e3
+    del model
+    torch.cuda.empty_cache()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = _gen_model(torch, torch.float32, device)
+        with torch.no_grad():
+            runs[device] = [t.cpu() for t in beam_search(
+                model, prompt.to(device), max_new_tokens=cfg["new"],
+                beam_size=cfg["beams"])]
+        del model
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.cuda.empty_cache()
+    score_err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
+    if not (torch.equal(runs["cuda"][0], runs["cpu"][0])
+            and score_err <= GEN_BEAM_SCORE_TOL):
+        raise AssertionError(
+            f"beam_search f32 {cfg['beams']} beams: the card's tokens "
+            f"{runs['cuda'][0][0, :, -cfg['new']:].tolist()} against the "
+            f"CPU's {runs['cpu'][0][0, :, -cfg['new']:].tolist()}, scores "
+            f"err {score_err} (tol {GEN_BEAM_SCORE_TOL})")
+    _print(f"[beam] {GEN_MODEL} bf16 prompt {cfg['prompt']}, {cfg['new']} new "
+           f"tokens: beam_size 1 equals greedy generate; beam_size "
+           f"{cfg['beams']}: scores "
+           f"{[round(x, 4) for x in scores[0].tolist()]}"
+           f", row 1 launches {launches} over {steps} steps "
+           f"({launches / steps:g} a step), call wall {wall * 1e3:.2f} ms, "
+           f"a step {step_ms:.3f} ms (the call's wall less a one-token "
+           f"call's {wall_prefill * 1e3:.2f} ms, over {steps} steps); f32 "
+           f"(TF32 off) {cfg['beams']} beams on the card equal the CPU's "
+           f"tokens, scores err {score_err:.3e} (tol {GEN_BEAM_SCORE_TOL}) "
+           f"[{smi}]")
+    return dict(launches=launches, steps=steps, step_ms=step_ms,
+                wall_s=wall, score_err=score_err)
+
+
+def _gen_lm_beams(torch, train_lm, beam_search, da, smi, tmp):
+    """[lm-beams]: ``train_lm --sample --sample_beams --hf_export`` on
+    the card; its sample against ``beam_search``'s best beam on its
+    saved params. Returns the run's summary and ``save_path`` (``[hf]``
+    reads its export)."""
+    from pytorch_multiprocessing_distributed_tpu_torch.data import (
+        synthetic_tokens)
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        load_params)
+    from pytorch_multiprocessing_distributed_tpu_torch.utils.gpt_interop \
+        import GPT2_LN_EPS
+
+    save = os.path.join(tmp, "export")
+    beams = GEN_BEAM["beams"]
+    da.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    summary = train_lm.main(GEN_LM_ARGV + [
+        "--sample", str(GEN_LM_SAMPLE), "--sample_beams", str(beams),
+        "--hf_export", "--save_path", save])
+    wall = time.perf_counter() - t0
+    launches = da.decode_attention.launches
+    steps = GEN_LM_SAMPLE - 1
+    model = get_model(GEN_MODEL, dtype=torch.bfloat16, ln_eps=GPT2_LN_EPS,
+                      head_bias=False)  # --hf_export's configuration
+    if launches != model.num_layers * steps:
+        raise AssertionError(
+            f"train_lm --sample_beams {beams}: row 1 launched {launches} "
+            f"times over {steps} beam steps; expected {model.num_layers} a "
+            "step")
+    params = load_params(model, os.path.join(save, "model_1.pth"))
+    model.load_state_dict({k: t.cuda() for k, t in params.items()},
+                          assign=True)
+    flags = dict(zip(GEN_LM_ARGV[::2], GEN_LM_ARGV[1::2]))
+    seq = int(flags["--seq_len"])
+    tokens = synthetic_tokens(int(flags["--corpus_tokens"]),
+                              vocab_size=model.vocab_size,
+                              seed=int(flags["--seed"]))
+    with torch.no_grad():
+        best, _ = beam_search(
+            model, torch.as_tensor(tokens[:seq][None], dtype=torch.long,
+                                   device="cuda"),
+            max_new_tokens=GEN_LM_SAMPLE, beam_size=beams)
+    want = best[0, 0, -GEN_LM_SAMPLE:].tolist()
+    if summary["sample"] != want:
+        raise AssertionError(
+            f"train_lm --sample_beams {beams} printed {summary['sample']}; "
+            f"beam_search's best beam on its params is {want}")
+    _print(f"[lm-beams] train_lm {' '.join(GEN_LM_ARGV)} --sample "
+           f"{GEN_LM_SAMPLE} --sample_beams {beams} --hf_export: "
+           f"{summary['steps']} "
+           f"steps, loss {summary['epoch_losses']}, the printed sample "
+           f"equals beam_search's best beam on the saved params, row 1 "
+           f"launches {launches} ({launches / steps:g} a beam step), wall "
+           f"{wall:.2f} s [{smi}]")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps=steps, summary=summary, save=save)
+
+
+def _gpt2_shapes(v, p, d, layers, mlp):
+    """GPT-2's ``GPT2LMHeadModel`` parameter names and shapes (its
+    ``Conv1D`` weights ``[in, out]``; the causal-mask buffers left out)."""
+    shapes = {"transformer.wte.weight": (v, d),
+              "transformer.wpe.weight": (p, d)}
+    for i in range(layers):
+        pre = f"transformer.h.{i}."
+        shapes.update({
+            pre + "ln_1.weight": (d,), pre + "ln_1.bias": (d,),
+            pre + "attn.c_attn.weight": (d, 3 * d),
+            pre + "attn.c_attn.bias": (3 * d,),
+            pre + "attn.c_proj.weight": (d, d),
+            pre + "attn.c_proj.bias": (d,),
+            pre + "ln_2.weight": (d,), pre + "ln_2.bias": (d,),
+            pre + "mlp.c_fc.weight": (d, mlp), pre + "mlp.c_fc.bias": (mlp,),
+            pre + "mlp.c_proj.weight": (mlp, d),
+            pre + "mlp.c_proj.bias": (d,)})
+    shapes.update({"transformer.ln_f.weight": (d,),
+                   "transformer.ln_f.bias": (d,), "lm_head.weight": (v, d)})
+    return shapes
+
+
+def _gen_hf(torch, train_lm, smi, tmp, lm):
+    """[hf]: the ``--hf_export`` of ``[lm-beams]``'s run (``lm``), then
+    a ``--hf_init`` run of its file at lr 0: the file's names and shapes
+    are GPT-2's, its import is the exported params bit for bit, and the
+    importing run's first eval loss is the exporting run's last."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        load_params)
+    from pytorch_multiprocessing_distributed_tpu_torch.utils.gpt_interop \
+        import GPT2_LN_EPS, from_gpt2_state_dict
+
+    exported = lm["summary"]
+    path = exported["hf_export"]
+    size = os.path.getsize(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model = get_model(GEN_MODEL, ln_eps=GPT2_LN_EPS, head_bias=False)
+    want = _gpt2_shapes(model.vocab_size, model.max_seq_len,
+                        model.hidden_size, model.num_layers, model.mlp_dim)
+    got = {k: tuple(t.shape) for k, t in sd.items()}
+    if got != want:
+        raise AssertionError(
+            f"--hf_export wrote {len(got)} tensors; GPT-2's names and shapes "
+            f"differ at {sorted(set(got.items()) ^ set(want.items()))[:4]}")
+    _, imported = from_gpt2_state_dict(sd, model.num_heads)
+    saved = load_params(model, os.path.join(lm["save"], "model_1.pth"))
+    differ = sorted(k for k in saved if not torch.equal(saved[k],
+                                                         imported[k]))
+    if set(saved) != set(imported) or differ:
+        raise AssertionError(
+            f"the imported params differ from the exported run's: {differ[:4]}"
+            f" (names equal: {set(saved) == set(imported)})")
+    importing = train_lm.main(GEN_LM_ARGV + [
+        "--hf_init", path, "--lr", "0", "--save_path",
+        os.path.join(tmp, "import")])
+    last, first = exported["val_losses"][-1], importing["val_losses"][0]
+    if not abs(first - last) <= GEN_EVAL_TOL:
+        raise AssertionError(
+            f"--hf_init run's first eval loss {first} against the exporting "
+            f"run's last {last} (tol {GEN_EVAL_TOL})")
+    _print(f"[hf] [lm-beams]'s --hf_export: "
+           f"{os.path.basename(path)} {size} bytes, {len(sd)} tensors with "
+           f"GPT-2's names and shapes, imported bit for bit; --hf_init at lr "
+           f"0: first eval loss {first!r} against the exporting run's last "
+           f"{last!r} (diff {abs(first - last)}, tol {GEN_EVAL_TOL}) [{smi}]")
+    return dict(tensors=len(sd), bytes=size, eval_diff=abs(first - last))
+
+
+def _vit_seq_setup(torch, device):
+    """The ring ViT (``seq_axis="seq"``) and the one-card ViT
+    (``flash=True``) with the same weights, and the batch every rank
+    takes, on ``device``."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model, init_model)
+
+    cfg = VIT_SEQ
+    kw = dict(dtype=torch.bfloat16, num_classes=cfg["classes"],
+              image_size=cfg["image"])
+    ring = init_model(get_model(cfg["model"], seq_axis="seq", **kw), 0)
+    one = get_model(cfg["model"], flash=True, **kw)
+    one.load_state_dict(ring.state_dict())
+    gen = torch.Generator(device=device).manual_seed(34)
+    x = torch.randn(cfg["batch"], cfg["image"], cfg["image"], 3,
+                    generator=gen, device=device)
+    y = torch.randint(0, cfg["classes"], (cfg["batch"],), generator=gen,
+                      device=device)
+    return ring.to(device), one.to(device), x, y
+
+
+def _vit_seq_steps(torch, fa, model, x, y):
+    """One counted step of ``model`` (forward, CE, backward): its logits,
+    parameter gradients and flash launches; then VIT_SEQ's steps timed
+    with CUDA events and the peak memory of a step."""
+    import torch.nn.functional as F
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        logits = model(x)
+        F.cross_entropy(logits, y).backward()
+        return logits
+
+    before = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
+    for n in FLASH_PRODUCTS:
+        getattr(fa, n).launches = 0
+    logits = step().detach().float()
+    launches = {n: getattr(fa, n).launches for n in FLASH_PRODUCTS}
+    grads = [p.grad.float().clone() for p in model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(VIT_SEQ["steps"]):
+        step()
+    end.record()
+    end.synchronize()
+    for n, count in before.items():  # the timed steps are not counted
+        getattr(fa, n).launches = count + launches[n]
+    return dict(logits=logits, grads=grads, launches=launches,
+                step_ms=start.elapsed_time(end) / VIT_SEQ["steps"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _vit_seq_compare(torch, fa, n, rank, device):
+    """The ring ViT at degree ``n`` (this rank of a 1 x n seq grid)
+    against the one-card ViT on the same batch: normwise logits and
+    gradient errors, bit-equality, launches against the hop schedule,
+    step times and peaks."""
+    ring_mod = importlib.import_module(
+        "pytorch_multiprocessing_distributed_tpu_torch.parallel."
+        "ring_attention")
+
+    ring, one, x, y = _vit_seq_setup(torch, device)
+    got = _vit_seq_steps(torch, fa, ring, x, y)
+    ref = _vit_seq_steps(torch, fa, one, x, y)
+
+    def err(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    quads = sum(len(q) for _, q in ring_mod.hop_schedule(n, rank,
+                                                          causal=False))
+    want = {name: ring.num_layers * quads for name in FLASH_PRODUCTS}
+    return dict(
+        logits_err=err(got["logits"], ref["logits"]),
+        grad_err=max(err(a, b) for a, b in zip(got["grads"], ref["grads"])),
+        bit_equal=(torch.equal(got["logits"], ref["logits"])
+                   and all(torch.equal(a, b) for a, b in zip(got["grads"],
+                                                             ref["grads"]))),
+        launches=got["launches"], want=want, one_launches=ref["launches"],
+        step_ms=got["step_ms"], one_step_ms=ref["step_ms"],
+        peak_gib=got["peak_gib"], one_peak_gib=ref["peak_gib"])
+
+
+def _vit_seq_rank(rank, world, port, out_path):
+    """One NCCL rank of ``[vit-seq]`` at degree ``world``; writes its
+    comparison to ``{out_path}.{rank}``."""
+    os.environ.update(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                      PMDT_WORLD_SIZE=str(world), PMDT_RANK=str(rank))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    fa = importlib.import_module(
+        "pytorch_multiprocessing_distributed_tpu_torch.ops.flash_attention")
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel import dist
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid)
+
+    dist.init_process("cuda")
+    make_grid(1, world, axis="seq")
+    out = _vit_seq_compare(torch, fa, world, rank,
+                           dist.device_for_rank("cuda"))
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _vit_seq_line(n, res, smi):
+    for r, got in enumerate(res):
+        if got["launches"] != got["want"]:
+            raise AssertionError(
+                f"ViT seq_axis degree {n} rank {r}: flash launches "
+                f"{got['launches']} in a step, the hop schedule wants "
+                f"{got['want']}")
+        if not (got["logits_err"] <= VIT_SEQ_TOL
+                and got["grad_err"] <= VIT_SEQ_TOL):
+            raise AssertionError(
+                f"ViT seq_axis degree {n} rank {r}: logits err "
+                f"{got['logits_err']}, grad err {got['grad_err']} against "
+                f"one card (tol {VIT_SEQ_TOL}, normwise)")
+    cfg = VIT_SEQ
+    r0 = res[0]
+    errs = {key: [float(f"{g[key]:.3e}") for g in res]
+            for key in ("logits_err", "grad_err")}
+    _print(f"[vit-seq] ViT-B/16 bf16 {cfg['image']}x{cfg['image']} batch "
+           f"{cfg['batch']}, the same batch on each of {n} rank(s) of a seq "
+           f"axis, ring attention (non-causal): logits err "
+           f"{errs['logits_err']}, grad err {errs['grad_err']} against one "
+           f"card (tol "
+           f"{VIT_SEQ_TOL}, normwise; bit-equal "
+           f"{[g['bit_equal'] for g in res]}), flash launches a rank a step "
+           f"{[g['launches']['flash_fwd'] for g in res]} fwd / "
+           f"{[g['launches']['flash_bwd_dq'] for g in res]} dq / "
+           f"{[g['launches']['flash_bwd_dkv'] for g in res]} dkv (the hop "
+           f"schedule's; one card {r0['one_launches']}), step "
+           f"{[round(g['step_ms'], 2) for g in res]} ms against one card's "
+           f"{r0['one_step_ms']:.2f}, peak a card "
+           f"{[round(g['peak_gib'], 3) for g in res]} GiB against "
+           f"{r0['one_peak_gib']:.3f} (CUDA events over {cfg['steps']} "
+           f"steps) [{smi}]")
+
+
+def _gen_vit_seq(torch, fa, smi):
+    """[vit-seq]: degree 1 on this card, then 2 and 4 where that many
+    cards are visible."""
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid, reset_grid)
+
+    make_grid(1, 1, axis="seq")
+    try:
+        one = _vit_seq_compare(torch, fa, 1, 0, "cuda")
+    finally:
+        reset_grid()
+    torch.cuda.empty_cache()
+    _vit_seq_line(1, [one], smi)
+    out = {1: [one]}
+    cards = torch.cuda.device_count()
+    for n in (2, VIT_SEQ_MAX_RANKS):
+        if cards < n:
+            _print(f"[vit-seq] degree {n} skipped: {cards} card(s) visible "
+                   f"(python3 chip_smoke.py --gen-only where {n} are) "
+                   f"[{smi}]")
+            continue
+        out[n] = _run_ranks(_vit_seq_rank, n, (), per_rank=True)
+        _vit_seq_line(n, out[n], smi)
+    return out
+
+
+def _gen_phase(torch, np, F, train_lm, generate, beam_search, da, fa, rate,
+               smi):
+    """Phase 34 (see the module docstring). Returns the kernels line's
+    additions to row 1."""
+    t0 = time.perf_counter()
+    ragged = _gen_ragged(torch, np, generate, da, smi)
+    starts = _gen_starts(torch, F, da, rate, smi)
+    beam = _gen_beam(torch, np, generate, beam_search, da, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm = _gen_lm_beams(torch, train_lm, beam_search, da, smi, tmp)
+        hf = _gen_hf(torch, train_lm, smi, tmp, lm)
+    vit = _gen_vit_seq(torch, fa, smi)
+    _print(f"[gen] phase 34 wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    t = starts["bfloat16"]
+    return {
+        "ragged_launches_per_step": {
+            tname: r["launches"] / r["steps"] for tname, r in ragged.items()},
+        "beam_launches_per_step": beam["launches"] / beam["steps"],
+        "sample_beams_launches": lm["launches"],
+        **{f"starts_{key}": t[key] for key in (
+            "ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "starts_max_abs_err": max(s["max_abs_err"] for s in starts.values()),
+        "starts_no_starts_ms": t["no_starts"]["ms"],
+        "starts_shape": f"bf16 N=8 H=12 Dh=64 W={GEN_STARTS_WINDOW}",
+        "vit_seq": {n: [{k: g[k] for k in ("logits_err", "grad_err",
+                                             "step_ms", "one_step_ms")}
+                        for g in res] for n, res in vit.items()}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5767,7 +6375,7 @@ def main() -> int:
     from pytorch_multiprocessing_distributed_tpu_torch.data import (
         normalize, synthetic_cifar10)
     from pytorch_multiprocessing_distributed_tpu_torch.inference import (
-        generate)
+        beam_search, generate)
     from pytorch_multiprocessing_distributed_tpu_torch.models import (
         get_model, init_resnet)
     from pytorch_multiprocessing_distributed_tpu_torch.ops import _build
@@ -5855,6 +6463,24 @@ def main() -> int:
         _scope_phase(torch, serve_lm, train_lm, image_main, da, fa,
                      fused_sgd_, smi)
         _print(f"[total] chip_smoke --scope-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--vit-seq-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        _build.build_all()  # the spawned ranks find the kernels built
+        _print(f"[build] {time.perf_counter() - t0:.2f} s")
+        _gen_vit_seq(torch, fa, smi)
+        _print(f"[total] chip_smoke --vit-seq-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--gen-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        reports = _build.build_all()  # the spawned ranks find them built
+        _print(f"[build] {len(reports)} source(s) in "
+               f"{time.perf_counter() - t0:.2f} s")
+        _gen_phase(torch, np, F, train_lm, generate, beam_search, da, fa,
+                   rate, smi)
+        _print(f"[total] chip_smoke --gen-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--heal-only" in sys.argv[1:]:
@@ -7085,6 +7711,10 @@ def main() -> int:
     # -- phase 33: observability, armed against disarmed
     scope33 = _scope_phase(torch, serve_lm, train_lm, image_main, da, fa,
                            fused_sgd_, smi)
+
+    # -- phase 34: ragged generate, beam search, HF interop, ViT's ring
+    gen34 = _gen_phase(torch, np, F, train_lm, generate, beam_search, da, fa,
+                       rate, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -7159,6 +7789,7 @@ def main() -> int:
         **_tp_fields(tp, "decode_attention"),
         **_serve_heal_fields(serve_heal, "decode_attention"),
         "scope_launches_per_step": scope33["per_step"]["decode_attention"],
+        **gen34,
         **{f"w{max(WINDOWS)}_{key}": row1_long[key]
            for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")}}]

@@ -37,8 +37,17 @@ shard (:mod:`.tp`, ``model.tp``): its ``H / M`` heads against its head
 shard of the caches, its columns of every Dense output gathered where
 the next op needs every channel (:func:`..models.gpt._cols`).
 
-Not in this slice: ragged left-padded batches (``prompt_lengths``),
-beam search (ROADMAP.md).
+Ragged batches (``generate(..., prompt_lengths=)``, JAX's): each row is
+left-padded to the common length; the prefill masks the pad columns
+(:func:`..models.gpt._block_prefill`'s ``kv_valid``), positions restart
+at each row's first real token, and every decode step passes the rows'
+pad widths to the decode kernel as its first valid columns
+(``decode_attention(..., starts=)``), which never reads the pad.
+
+:func:`beam_search` is JAX's log-probability beam search over the same
+prefill and decode body: the caches tiled per beam, each step one
+decode pass over every beam, then the caches reordered by the surviving
+parents.
 """
 
 from __future__ import annotations
@@ -56,7 +65,8 @@ from ..ops.decode_attention import (decode_attention,
 from ..ops.kv_quant import QuantizedKV, kv_slice_in_dim, quantize_kv
 from .tp import check_mesh, local_heads, shard_params_for_tp_decode
 
-__all__ = ["generate", "teacher_forced_logits", "draft_bucket",
+__all__ = ["generate", "beam_search", "teacher_forced_logits",
+           "draft_bucket",
            "DRAFT_HASH_PRIME", "generate_kv_bytes", "register_generate_hbm"]
 
 # Knuth multiplicative constant of the draft-table hash: one formula for
@@ -78,7 +88,8 @@ def _write_kv(cache, index, new):
 
 def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
                         eps, window=None, attn_impl="auto",
-                        page_table=None, page_size=None, tp=None):
+                        page_table=None, page_size=None, tp=None,
+                        starts=None):
     """One cached step for every slot: ``x_t`` ``[N, 1, D]``; caches
     ``[N, S, H, Dh]`` (one layer). Row ``j`` writes its K/V at its own
     column ``positions[j]`` of the FULL cache (in place; a frozen row's
@@ -96,7 +107,11 @@ def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
     Either cache may be a :class:`...ops.kv_quant.QuantizedKV`.
 
     ``tp``: a rank's shard (:mod:`.tp`): ``h`` and the caches hold its
-    heads, and attention's and ``wo``'s outputs are gathered."""
+    heads, and attention's and ``wo``'s outputs are gathered.
+
+    ``starts`` (``[N]`` int32, dense model-dtype caches): row ``j``
+    attends ``[starts[j], positions[j]]``, a ragged batch's row without
+    its left padding."""
     n, _, d = x_t.shape
     hn = _ln(x_t, p.ln1, eps).to(dtype)
     q, k, v = _dense(hn, p.attn.wqkv, dtype).chunk(3, dim=-1)
@@ -104,6 +119,9 @@ def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
     rows = torch.arange(n, device=x_t.device)
     cols = positions.long()
     if page_table is not None:
+        if starts is not None:
+            raise ValueError("starts (ragged rows) composes only with "
+                             "dense caches")
         ps = int(page_size)
         index = (page_table[rows, cols // ps].long(), slice(None),
                  cols % ps)
@@ -122,7 +140,8 @@ def _block_decode_slots(p, x_t, k_cache, v_cache, positions, h, dtype,
             v_win = kv_slice_in_dim(v_cache, 0, window, axis=1)
         else:
             k_win, v_win = k_cache, v_cache
-        att = decode_attention(q, k_win, v_win, positions, impl=attn_impl)
+        att = decode_attention(q, k_win, v_win, positions, starts=starts,
+                               impl=attn_impl)
     att = _cols(att.reshape(n, 1, -1).to(dtype), d, tp)
     x_t = x_t + _cols(_dense(att, p.attn.wo, dtype), d, tp)
     return x_t + _ffn(p, x_t, dtype, eps, tp)
@@ -237,7 +256,8 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
                     page_size: Optional[int] = None, draft_k: int = 0,
                     draft_table: Optional[torch.Tensor] = None,
                     draft_model=None, draft_k_caches=None,
-                    draft_v_caches=None):
+                    draft_v_caches=None,
+                    offsets: Optional[torch.Tensor] = None):
     """``horizon`` cached decode steps over every row, with the freeze
     gates on the device: a row whose sampled token is its ``eos_ids``
     entry, or whose ``remaining`` budget reaches zero, emits that final
@@ -271,6 +291,10 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
         a bound GPT proposing the tokens autoregressively against its
         own dense ``[L_d, N, S + draft_k, H_d, Dh_d]`` caches (written in
         place; the last ``draft_k`` columns are spare, as above).
+      offsets: ``[N]`` int32 left-pad widths of a ragged ``generate``
+        batch (dense caches, no speculation): position-embedding ids
+        become ``max(positions - offsets, 0)``, and row ``j``'s
+        attention starts at column ``offsets[j]``.
 
     Returns ``(tokens [horizon, N] int32, (positions, last_tokens,
     active, remaining))``; with ``draft_k`` the block is ``[horizon *
@@ -289,6 +313,10 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
                 "draft_k > 0 needs exactly one draft source: "
                 "draft_table (self-drafting) or draft_model (+ its "
                 "caches)")
+        if offsets is not None:
+            raise ValueError(
+                "speculative decode composes with no ragged offsets "
+                "(serving slots only)")
         return _decode_horizon_spec(
             model, k_caches, v_caches, positions, last_tokens, active,
             remaining, eos_ids, horizon, window=window,
@@ -300,14 +328,17 @@ def _decode_horizon(model, k_caches, v_caches, positions, last_tokens,
         model.tp
     emitted_steps = []
     for _ in range(horizon):
+        ids = (positions if offsets is None
+               else (positions - offsets).clamp(min=0))
         x_t = _cols(model.embed[last_tokens][:, None, :].to(dtype)
-                    + model.pos_embed[positions][:, None, :].to(dtype),
+                    + model.pos_embed[ids][:, None, :].to(dtype),
                     model.hidden_size, tp)
         for i in range(model.num_layers):
             x_t = _block_decode_slots(
                 model.block(i), x_t, k_caches[i], v_caches[i], positions,
                 h, dtype, eps, window=window, attn_impl=attn_impl,
-                page_table=page_table, page_size=page_size, tp=tp)
+                page_table=page_table, page_size=page_size, tp=tp,
+                starts=offsets)
         logits = _logits(model, x_t, eps)[:, 0]
         nxt = _sample(logits, temperature, top_k, top_p,
                       generator).to(torch.int32)
@@ -425,19 +456,25 @@ def _decode_horizon_spec(model, k_caches, v_caches, positions,
     return tokens, (positions, last_tokens, active, remaining)
 
 
-def _prefill(model, prompt, s_max: int):
+def _prefill(model, prompt, s_max: int, offsets=None):
     """One causal pass over ``prompt`` ``[B, T]``; returns ``(x,
     k_caches, v_caches)`` with caches ``[L, B, s_max, H, Dh]`` written on
-    ``[0, T)`` (a shard's ``H / M`` heads)."""
+    ``[0, T)`` (a shard's ``H / M`` heads). ONE copy shared by
+    :func:`generate` and :func:`beam_search`, as in JAX. ``offsets``
+    (``[B]``): a left-padded ragged batch's pad widths (positions
+    re-based, pad columns masked)."""
     b, t = prompt.shape
     dtype, h = model.dtype, local_heads(model)
     shape = (model.num_layers, b, s_max, h, model.head_dim)
     k_caches = torch.zeros(shape, dtype=dtype, device=prompt.device)
     v_caches = torch.zeros(shape, dtype=dtype, device=prompt.device)
-    x = _embed(model, prompt, dtype)
+    kv_valid = (None if offsets is None else
+                torch.arange(t, device=prompt.device)[None, :]
+                >= offsets.long()[:, None])
+    x = _embed(model, prompt, dtype, offsets)
     for i in range(model.num_layers):
         x, k, v = _block_prefill(model.block(i), x, h, dtype, model.ln_eps,
-                                 model.tp)
+                                 model.tp, kv_valid)
         k_caches[i, :, :t] = k
         v_caches[i, :, :t] = v
     return x, k_caches, v_caches
@@ -489,7 +526,8 @@ def _embed_at(model, tokens, start: int, dtype):
 def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             attn_impl: str = "auto", mesh=None) -> torch.Tensor:
+             attn_impl: str = "auto", mesh=None,
+             prompt_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Generate ``max_new_tokens`` continuations of ``prompt``.
 
     Args:
@@ -507,6 +545,12 @@ def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
         (:func:`.tp.shard_params_for_tp_decode`; a shard is taken as it
         is). ``M`` must divide the heads. The same tokens as the
         single-shard path, on every rank.
+      prompt_lengths: optional ``[B]`` ints for a RAGGED batch: row
+        ``i`` is LEFT-padded to ``T`` with its real tokens in columns
+        ``[T - L_i, T)`` (any pad id: pad columns are never attended
+        and get clamped positions). Row ``i`` then generates exactly
+        what a one-row call on its unpadded prompt would. Caller
+        contract, as in JAX: ``1 <= L_i <= T`` (not validated).
 
     Returns ``[B, T + max_new_tokens]`` tokens (prompt included).
     """
@@ -527,10 +571,24 @@ def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
             f"max_seq_len={model.max_seq_len}")
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) requires a generator")
+    if getattr(model, "seq_axis", None) is not None:
+        raise NotImplementedError(
+            "generate wants the dense view of an SP model — pass "
+            "model.clone(seq_axis=None) (the params are identical; "
+            "train_lm.py --sample does this)")
     if mesh is not None:
         check_mesh(mesh, model.num_heads, "TP decode")
         model = shard_params_for_tp_decode(model, mesh)
-    x, k_caches, v_caches = _prefill(model, prompt, s_max)
+    offsets = None
+    if prompt_lengths is not None:
+        prompt_lengths = torch.as_tensor(prompt_lengths,
+                                         device=prompt.device)
+        if tuple(prompt_lengths.shape) != (b,):
+            raise ValueError(
+                f"prompt_lengths must have shape ({b},), got "
+                f"{tuple(prompt_lengths.shape)}")
+        offsets = (t - prompt_lengths).to(torch.int32).contiguous()
+    x, k_caches, v_caches = _prefill(model, prompt, s_max, offsets)
     first_logits = _logits(model, x[:, -1:], model.ln_eps)[:, 0]
     tok0 = _sample(first_logits, temperature, top_k, top_p,
                    generator).to(torch.int32)
@@ -545,9 +603,112 @@ def generate(model, prompt: torch.Tensor, *, max_new_tokens: int,
             torch.full((b,), -1, dtype=torch.int32, device=dev),
             max_new_tokens - 1, attn_impl=attn_impl,
             temperature=temperature, top_k=top_k, top_p=top_p,
-            generator=generator)
+            generator=generator, offsets=offsets)
         generated = torch.cat([generated, toks.T], dim=1)
     return torch.cat([prompt, generated.to(prompt.dtype)], dim=1)
+
+
+def _top_k(x, k: int, tie=None):
+    """The ``k`` largest entries of each row of ``x`` and their indices,
+    best first. A tie goes to the larger entry of ``tie`` where given,
+    then to the lower index, as ``jax.lax.top_k`` breaks it
+    (``torch.topk`` promises no order): stable descending sorts, the
+    last key first."""
+    if tie is None:
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k]
+    order = torch.sort(tie, dim=-1, descending=True, stable=True).indices
+    vals, at = torch.sort(x.gather(-1, order), dim=-1, descending=True,
+                          stable=True)
+    return vals[:, :k], order.gather(-1, at[:, :k])
+
+
+def beam_search(model, prompt: torch.Tensor, *, max_new_tokens: int,
+                beam_size: int, attn_impl: str = "auto"):
+    """Beam-search decoding over the same KV-cached machinery (JAX's
+    ``beam_search``).
+
+    Log-probability beam search with no length penalty: a beam's score
+    is its summed token log-probs. ``beam_size=1`` is greedy
+    :func:`generate` exactly; ``beam_size >= V ** (max_new_tokens - 1)``
+    is exhaustive. Two candidates whose f32 scores are equal rank by
+    their next-token logits, then by index: where a beam's running score
+    rounds two tokens' log-probs to one sum, JAX's ``lax.top_k`` takes
+    the lower index and can part from greedy decoding; here one beam
+    stays the argmax of the logits. Elsewhere the beams are JAX's.
+
+    Args:
+      model: the bound ``GPT`` (dense or MoE; an SP model's dense
+        clone).
+      prompt: ``[B, T]`` int tokens (uniform length) on the model's
+        device.
+      max_new_tokens: tokens each beam generates.
+      beam_size: beams kept per batch row, in ``[1, vocab_size]``.
+      attn_impl: decode attention, ``auto`` | ``cuda`` | ``torch``.
+
+    Returns ``(tokens, scores)``: ``tokens`` ``[B, K, T +
+    max_new_tokens]`` (prompt included), ``scores`` ``[B, K]`` f32
+    summed log-probs, both best first along K.
+    """
+    b, t = prompt.shape
+    s_max = t + max_new_tokens
+    k_beams = int(beam_size)
+    if max_new_tokens < 1:
+        raise ValueError(
+            f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if k_beams < 1 or k_beams > model.vocab_size:
+        raise ValueError(
+            f"beam_size must be in [1, vocab_size={model.vocab_size}], "
+            f"got {k_beams}")
+    if s_max > model.max_seq_len:
+        raise ValueError(
+            f"prompt {t} + max_new_tokens {max_new_tokens} exceeds "
+            f"max_seq_len={model.max_seq_len}")
+    if getattr(model, "seq_axis", None) is not None:
+        raise NotImplementedError(
+            "beam_search wants the dense view of an SP model — pass "
+            "model.clone(seq_axis=None)")
+    dtype, eps, h = model.dtype, model.ln_eps, model.num_heads
+    v_size, dev = model.vocab_size, prompt.device
+
+    # prefill once on the B prompts (the pass generate runs)
+    x, k_caches, v_caches = _prefill(model, prompt, s_max)
+    logits = _logits(model, x[:, -1:], eps)[:, 0]
+    # seed K beams from the top-K first tokens; caches tiled per beam,
+    # row b * K + j = beam j of prompt b
+    scores, tok = _top_k(torch.log_softmax(logits, dim=-1), k_beams,
+                         tie=logits)
+    k_caches = k_caches.repeat_interleave(k_beams, dim=1)
+    v_caches = v_caches.repeat_interleave(k_beams, dim=1)
+    history = torch.zeros((b, k_beams, max_new_tokens), dtype=torch.long,
+                          device=dev)
+    history[:, :, 0] = tok
+    rows = torch.arange(b, device=dev)[:, None] * k_beams
+    for j in range(1, max_new_tokens):
+        pos = t + j - 1
+        positions = torch.full((b * k_beams,), pos, dtype=torch.int32,
+                               device=dev)
+        x_t = (model.embed[tok.reshape(-1)][:, None, :].to(dtype)
+               + model.pos_embed[pos][None, None, :].to(dtype))
+        for i in range(model.num_layers):
+            x_t = _block_decode_slots(
+                model.block(i), x_t, k_caches[i], v_caches[i], positions,
+                h, dtype, eps, attn_impl=attn_impl)
+        logits = _logits(model, x_t, eps)[:, 0]
+        logp = torch.log_softmax(logits, dim=-1).reshape(b, k_beams, v_size)
+        total = scores[:, :, None] + logp  # [B, K, V]
+        scores, flat = _top_k(total.reshape(b, k_beams * v_size), k_beams,
+                              tie=logits.reshape(b, k_beams * v_size))
+        parent = flat // v_size  # [B, K] the surviving parent beams
+        tok = flat % v_size
+        if j < max_new_tokens - 1:  # the last step's caches are not read
+            src = (rows + parent).reshape(-1)
+            k_caches = k_caches.index_select(1, src)
+            v_caches = v_caches.index_select(1, src)
+        history = history.gather(1, parent[:, :, None].expand_as(history))
+        history[:, :, j] = tok
+    prompt_k = prompt[:, None, :].expand(b, k_beams, t)
+    return torch.cat([prompt_k, history.to(prompt.dtype)], dim=2), scores
 
 
 def teacher_forced_logits(model, tokens: torch.Tensor, prompt_len: int, *,

@@ -160,13 +160,19 @@ def _split_heads(t, h: int):
     return t.reshape(b, s, h, d // h)
 
 
-def _causal_xla(q, k, v):
+def _causal_xla(q, k, v, kv_valid=None):
     """Plain causal attention on ``[B, S, H, Dh]``: f32 logits, masked
-    softmax, f32 PV (the JAX ``attn_impl="xla"`` math)."""
+    softmax, f32 PV (the JAX ``attn_impl="xla"`` math). ``kv_valid``
+    (``[B, S]`` bool, a left-padded ragged batch): pad columns receive
+    no attention, and a pad query attends only itself (JAX's fallback:
+    its softmax stays finite; its output is never read)."""
     s = q.shape[1]
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    if kv_valid is not None:
+        eye = torch.eye(s, dtype=torch.bool, device=q.device)
+        mask = (mask & kv_valid[:, None, None, :]) | eye
     probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
 
@@ -206,23 +212,35 @@ def _block(p: Block, x, h: int, dtype, eps: float, attn_impl,
     return x + _ffn(p, x, dtype, eps, tp), k, v
 
 
-def _block_prefill(p: Block, x, h: int, dtype, eps: float, tp=None):
+def _block_prefill(p: Block, x, h: int, dtype, eps: float, tp=None,
+                   kv_valid=None):
     """Full causal pass over ``x`` ``[B, S, D]`` with the plain
     attention and the dropless MoE layer (the serving prefill, mirroring
     JAX ``generate.py``); returns ``(y, k, v)`` with k/v ``[B, S, H,
-    Dh]`` in ``dtype`` (a shard's ``h`` heads under ``tp``)."""
-    return _block(p, x, h, dtype, eps, "xla", tp=tp)
+    Dh]`` in ``dtype`` (a shard's ``h`` heads under ``tp``).
+    ``kv_valid``: a ragged batch's key-column validity
+    (:func:`_causal_xla`)."""
+    attn = ("xla" if kv_valid is None
+            else (lambda q, k, v: _causal_xla(q, k, v, kv_valid)))
+    return _block(p, x, h, dtype, eps, attn, tp=tp)
 
 
-def _embed(model: "GPT", tokens, dtype):
+def _embed(model: "GPT", tokens, dtype, offsets=None):
     """Token + position embeddings for ``tokens`` ``[B, S]`` at
     positions ``0..S-1``, each cast BEFORE the add (the model's own
     order: under bf16, bf16(a) + bf16(b) != bf16(a + b)); a shard's
-    columns gathered."""
+    columns gathered. ``offsets`` (``[B]``, a left-padded ragged
+    batch): row ``i``'s first real token, at column ``offsets[i]``, gets
+    position 0, and its pad columns clamp to position 0."""
     s = tokens.shape[1]
-    return _cols(model.embed[tokens].to(dtype)
-                 + model.pos_embed[:s].to(dtype), model.hidden_size,
-                 model.tp)
+    if offsets is None:
+        pos = model.pos_embed[:s]
+    else:
+        ids = (torch.arange(s, device=tokens.device)[None, :]
+               - offsets.long()[:, None]).clamp(min=0)
+        pos = model.pos_embed[ids]  # [B, S, D]
+    return _cols(model.embed[tokens].to(dtype) + pos.to(dtype),
+                 model.hidden_size, model.tp)
 
 
 def _logits(model: "GPT", x, eps: float):

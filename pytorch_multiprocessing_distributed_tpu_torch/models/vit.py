@@ -13,8 +13,13 @@ Attention: ``flash=False`` (what the CLI builds) is the JAX einsum
 attention in torch ops — logits in the compute dtype, softmax in f32,
 the probabilities cast back for the product with V. ``flash=True`` calls
 :func:`..ops.flash_attention.flash_attention` non-causally: kernel rows
-5-7 on the card, their plain versions on the CPU. ``seq_axis`` (ring
-attention over a mesh axis) is not ported.
+5-7 on the card, their plain versions on the CPU. ``seq_axis`` names a
+grid axis (:func:`..parallel.mesh.make_grid` with ``axis="seq"``) to run
+the encoder's attention over, as JAX's ``models/vit.py`` does: each
+rank embeds its own input (patches, class token, positions), and
+attention runs :func:`..parallel.ring_attention.ring_attention`
+(non-causal), its keys and values the union of every rank's sequence
+(rows 5-7 once a hop on the card); every other op stays local.
 
 Module names are the flax ones (``patch_embed``, ``cls``, ``pos_embed``,
 ``encoder_{i}.{ln1,attn.qkv,attn.proj,ln2,mlp.fc1,mlp.fc2}``,
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..parallel.ring_attention import ring_attention
 from .init import carry_jax_variables
 from .registry import register
 
@@ -65,10 +71,12 @@ class MlpBlock(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, flash: bool = False):
+    def __init__(self, dim: int, num_heads: int, flash: bool = False,
+                 seq_axis: Optional[str] = None):
         super().__init__()
         self.num_heads = num_heads
         self.flash = flash
+        self.seq_axis = seq_axis
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
@@ -76,7 +84,10 @@ class Attention(nn.Module):
         b, s, d = x.shape
         h = self.num_heads
         q, k, v = dense(self.qkv, x).view(b, s, 3, h, d // h).unbind(2)
-        if self.flash:
+        if self.seq_axis is not None:
+            out = ring_attention(q, k, v, axis_name=self.seq_axis,
+                                 causal=False)
+        elif self.flash:
             out = flash_attention(q, k, v)
         else:
             scale = (d // h) ** -0.5
@@ -88,10 +99,10 @@ class Attention(nn.Module):
 
 class EncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_dim: int,
-                 flash: bool = False):
+                 flash: bool = False, seq_axis: Optional[str] = None):
         super().__init__()
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads, flash)
+        self.attn = Attention(dim, num_heads, flash, seq_axis)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = MlpBlock(dim, mlp_dim)
 
@@ -110,10 +121,6 @@ class ViT(nn.Module):
                  dtype: torch.dtype = torch.float32, image_size: int = 224,
                  seq_axis: Optional[str] = None, flash: bool = False):
         super().__init__()
-        if seq_axis is not None:
-            raise ValueError(
-                "ViT(seq_axis=...) (ring attention over a mesh axis) is not "
-                "ported to PyTorch yet (ROADMAP.md §1 item 6)")
         if image_size % patch_size:
             raise ValueError(
                 f"image_size {image_size} is no multiple of the patch "
@@ -128,7 +135,7 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, seq, hidden_size))
         for i in range(num_layers):
             self.add_module(f"encoder_{i}", EncoderBlock(
-                hidden_size, num_heads, mlp_dim, flash))
+                hidden_size, num_heads, mlp_dim, flash, seq_axis))
         self.ln_final = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.head = nn.Linear(hidden_size, num_classes)
 

@@ -13,8 +13,11 @@
 //                         `_pallas_paged_decode`
 //   paged, int8 + scale — `_paged_decode_kernel` (quant=True)
 //
-//   out[b, 0, h, :] = softmax(q[b,0,h,:] . K[b, 0..n_b-1, h, :]^T * Dh^-1/2)
-//                     . V[b, 0..n_b-1, h, :],   n_b = min(pos_b, W-1) + 1
+//   out[b, 0, h, :] = softmax(q[b,0,h,:] . K[b, s_b..n_b-1, h, :]^T * Dh^-1/2)
+//                     . V[b, s_b..n_b-1, h, :],   n_b = min(pos_b, W-1) + 1
+//
+// where s_b is the slot's first valid column: 0, or with `starts` (dense,
+// model dtype: the left-pad offset of a ragged batch's row) starts[b].
 //
 // Column c of slot b lives at row (base, c') of the K/V storage:
 //   dense: base = b, c' = c            (k[b, c, h, :], any strides)
@@ -70,7 +73,12 @@
 //     was slower at every variant: its fence and atomic cost more than
 //     the merge kernel's tail);
 //   - a row whose position lies beyond the window (a frozen or inactive
-//     slot) is clamped to the window, as the XLA reference does.
+//     slot) is clamped to the window, as the XLA reference does;
+//   - a first valid column (`starts`, a ragged batch's left padding): a
+//     split that ends at or before it returns as one past the reach does,
+//     the split holding it walks from it, and the merge folds the live
+//     splits only, from the one holding the start to the one holding the
+//     reach. Null `starts` is column 0 for every slot.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,6 +123,10 @@ struct PmdtDecodeArgs {
   long long ks_s0, ks_s1, ks_s2;
   long long vs_s0, vs_s1, vs_s2;
   float scale;
+  // decode only, dense model-dtype K/V: [B] first valid column of each
+  // slot (the columns before it are never read); null = 0. The verify
+  // kernels take null.
+  const int* starts;
 };
 
 
@@ -918,7 +930,8 @@ extern "C" int pmdt_verify_attention(const PmdtVerifyArgs* args,
   const PmdtVerifyArgs& a = *args;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.k1 < 1 || a.split < kVerifyKeys || a.split % kVerifyKeys != 0 ||
-      a.n_splits != (a.d.W + a.split - 1) / a.split)
+      a.n_splits != (a.d.W + a.split - 1) / a.split ||
+      a.d.starts != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.d.dtype == 0)
     return static_cast<int>(a.d.quant
@@ -1027,15 +1040,18 @@ decode_split_kernel(const PmdtDecodeSplitArgs da, const int stages) {
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
   const int reach = max(min(a.positions[b], a.W - 1), -1);
+  const int start = a.starts != nullptr ? max(a.starts[b], 0) : 0;
   const bool single = da.n_splits == 1;  // no merge: write out here
   // splits in reverse: the last ones, most often past a slot's reach,
   // are dispatched first and leave their slots to the live ones
   const int split = gridDim.y - 1 - blockIdx.y;
-  const int kbeg = split * da.split;
-  if (!single && kbeg > reach) return;  // no reachable key in this split
+  const int kfirst = split * da.split;
+  // no key of [start, reach] in this split
+  if (!single && (kfirst > reach || kfirst + da.split <= start)) return;
   // the merge kernel may start and wait for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int kend = max(kbeg, min(kbeg + da.split, reach + 1));
+  const int kbeg = max(kfirst, start);
+  const int kend = max(kbeg, min(kfirst + da.split, reach + 1));
   const int n_tiles = (kend - kbeg + kVerifyKeys - 1) / kVerifyKeys;
   const int* t_row =
       PAGED ? a.table + static_cast<long long>(b) * a.table_stride : nullptr;
@@ -1178,17 +1194,21 @@ decode_merge_kernel(const PmdtDecodeSplitArgs da) {
   const int row = blockIdx.x * RPC + threadIdx.x / TPR;  // b * H + h
   const int d = (threadIdx.x % TPR) * 4;
   const bool valid = row < a.B * a.H;
-  int live = 0;  // as the split CTAs count them
+  int first = 0;  // the live splits [first, first + live), as the split
+  int live = 0;   // CTAs count them
   if (valid) {
-    const int reach = min(a.positions[row / a.H], a.W - 1);
-    live = reach < 0 ? 0 : reach / da.split + 1;
+    const int b = row / a.H;
+    const int reach = min(a.positions[b], a.W - 1);
+    const int start = a.starts != nullptr ? max(a.starts[b], 0) : 0;
+    first = start / da.split;
+    live = reach < start ? 0 : reach / da.split + 1 - first;
   }
   // the partials are the split kernel's: wait for its grid to end
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   if (!valid || d >= a.D) return;  // a.D a multiple of 4
   *reinterpret_cast<float4*>(a.out + static_cast<long long>(row) * a.D + d) =
       fold_splits<D>(
-          da.partials + static_cast<long long>(row) * da.n_splits *
+          da.partials + (static_cast<long long>(row) * da.n_splits + first) *
                             kPartialRow<D>,
           kPartialRow<D>, live, d);
 }
@@ -1238,18 +1258,19 @@ cudaError_t launch_decode_dim(const PmdtDecodeSplitArgs& a,
 
 }  // namespace
 
-// One decode call of the variant `args` names (dtype, quant, table): the
-// split kernel, then for more than one split the merge kernel, on
-// `stream`. The Python wrapper checks shapes, unit head_dim strides and
-// 16-byte row alignment, and allocates the partials. Returns a
-// cudaError_t.
+// One decode call of the variant `args` names (dtype, quant, table; a
+// dense model-dtype call may carry `starts`): the split kernel, then for
+// more than one split the merge kernel, on `stream`. The Python wrapper
+// checks shapes, unit head_dim strides and 16-byte row alignment, and
+// allocates the partials. Returns a cudaError_t.
 extern "C" int pmdt_decode_attention(const PmdtDecodeSplitArgs* args,
                                      void* stream) {
   const PmdtDecodeSplitArgs& a = *args;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.d.W < 1 || a.split < kVerifyKeys || a.split % kVerifyKeys != 0 ||
       a.n_splits != (a.d.W + a.split - 1) / a.split ||
-      (a.n_splits > 1) != (a.partials != nullptr))
+      (a.n_splits > 1) != (a.partials != nullptr) ||
+      (a.d.starts != nullptr && (a.d.quant || a.d.table != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.d.dtype == 0)
     return static_cast<int>(a.d.quant

@@ -4,7 +4,9 @@ k-query twin, the speculative verify pass (``K1`` query rows per slot,
 row ``i`` attending columns ``[0, position + i]``).
 
 The serving engine's decode step: ONE query token per slot attending
-over the slot's cached columns ``[0, position]``. On the card this runs
+over the slot's cached columns ``[0, position]`` (``[start, position]``
+for a left-padded row of a ragged ``generate`` batch: ``starts``, dense
+model-dtype K/V only). On the card this runs
 the hand-written CUDA kernels of ``csrc/decode_attention.cu`` (the port
 of the JAX package's Pallas ``_decode_kernel`` and
 ``_paged_decode_kernel``): the window is cut into key splits, one CTA
@@ -80,10 +82,12 @@ class VerifyRowsError(ValueError):
     """A query-row count ``K1`` the verify kernel cannot take."""
 
 
-def torch_decode_attention(q: torch.Tensor, k, v,
-                           positions: torch.Tensor) -> torch.Tensor:
+def torch_decode_attention(q: torch.Tensor, k, v, positions: torch.Tensor,
+                           starts: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Plain PyTorch reference: f32 logits, masked softmax over columns
-    ``<= positions[b]``, f32 PV (the JAX package's
+    ``<= positions[b]`` (and ``>= starts[b]`` where given: JAX's
+    ``kv_valid`` of a ragged batch), f32 PV (the JAX package's
     ``xla_decode_attention`` with the mask built from positions); f64
     inputs stay f64 throughout. int8 K/V are dequantized to q's dtype
     first. A position beyond the window attends the whole window."""
@@ -94,6 +98,8 @@ def torch_decode_attention(q: torch.Tensor, k, v,
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
     cols = torch.arange(k.shape[1], device=k.device)
     mask = cols[None, :] <= positions.to(torch.long)[:, None]  # [B, W]
+    if starts is not None:
+        mask = mask & (cols[None, :] >= starts.to(torch.long)[:, None])
     logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(ct))
@@ -208,17 +214,23 @@ def decode_split_plan(batch: int, heads: int, window: int, head_dim: int,
                            partials)
 
 
-def decode_split_ranges(plan: DecodeSplitPlan, position: int,
-                        window: int) -> List[Tuple[int, int]]:
-    """The key ranges ``[start, end)`` that the live CTAs of a slot at
-    ``position`` walk, by the rule the kernel applies on the card: the
-    slot reaches column ``min(position, window - 1)``; split s is live
-    iff its first key ``s * split`` lies within that reach, and walks up
-    to the reach. A split past the reach returns before it reads
-    anything, and the merge folds the live ones in split order."""
+def decode_split_ranges(plan: DecodeSplitPlan, position: int, window: int,
+                        start: int = 0) -> List[Tuple[int, int]]:
+    """The key ranges ``[lo, hi)`` that the live CTAs of a slot at
+    ``position`` with first valid column ``start`` walk, by the rule the
+    kernel applies on the card: the slot reaches column ``min(position,
+    window - 1)``; split s is live iff it holds a column of ``[start,
+    reach]``, and walks that part of it. A split past the reach, or
+    ending at or before the start, returns before it reads anything, and
+    the merge folds the live ones in split order."""
     reach = min(position, window - 1)
-    return [(s * plan.split, min((s + 1) * plan.split, reach + 1))
-            for s in range(plan.n_splits) if s * plan.split <= reach]
+    out = []
+    for s in range(plan.n_splits):
+        lo = max(s * plan.split, start)
+        hi = min((s + 1) * plan.split, reach + 1)
+        if lo < hi:
+            out.append((lo, hi))
+    return out
 
 
 class VerifySplitPlan(NamedTuple):
@@ -281,7 +293,7 @@ class _Args(ctypes.Structure):
         + [(n, ctypes.c_longlong) for n in (
             "q_sb", "q_sh", "k_s0", "k_s1", "k_s2", "v_s0", "v_s1", "v_s2",
             "ks_s0", "ks_s1", "ks_s2", "vs_s0", "vs_s1", "vs_s2")]
-        + [("scale", ctypes.c_float)])
+        + [("scale", ctypes.c_float), ("starts", ctypes.c_void_p)])
 
 
 class _DecodeArgs(ctypes.Structure):
@@ -433,7 +445,7 @@ def _check_paged(q, k_pages, v_pages, page_table, positions, window,
 
 
 def _launch(q, k, v, positions, *, window, table=None, page_size=0,
-            verify=False):
+            verify=False, starts=None):
     """Fill the argument block and launch the decode kernels (or, with
     ``verify``, the k-query verify kernels) with the split plan's
     workspace; returns the f32 output. A head_dim whose K/V rows are
@@ -465,6 +477,8 @@ def _launch(q, k, v, positions, *, window, table=None, page_size=0,
     if table is not None:
         a.table, a.page_size = table.data_ptr(), page_size
         a.table_stride = table.stride(0)
+    if starts is not None:
+        a.starts = starts.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if verify:
         plan = verify_split_plan(b, h, window, k1, tile)
@@ -485,11 +499,27 @@ def _launch(q, k, v, positions, *, window, table=None, page_size=0,
             f"{'verify' if verify else 'decode'}_attention kernel launch "
             f"failed: cudaError {err} (B={b} K1={k1} H={h} W={window} "
             f"Dh={head_dim} {q.dtype} int8={quant} "
-            f"paged={table is not None})")
+            f"paged={table is not None} starts={starts is not None})")
     return out if d == head_dim else out[..., :head_dim].contiguous()
 
 
+def _check_starts(q, k, positions, starts):
+    """``starts`` beside dense model-dtype K/V: int32 ``[B]``, contiguous,
+    on the inputs' device."""
+    if isinstance(k, QuantizedKV):
+        raise ValueError("starts applies to model-dtype K/V, not int8")
+    b = q.shape[0]
+    if starts.shape != (b,) or starts.dtype != torch.int32:
+        raise ValueError(
+            f"starts must be int32 [{b}], got {starts.dtype} "
+            f"{tuple(starts.shape)}")
+    if not starts.is_contiguous():
+        raise ValueError("starts must be contiguous")
+    _same_device(positions, starts)
+
+
 def decode_attention(q: torch.Tensor, k, v, positions: torch.Tensor, *,
+                     starts: Optional[torch.Tensor] = None,
                      impl: str = "auto") -> torch.Tensor:
     """Single-step cached attention over a dense KV window.
 
@@ -502,14 +532,20 @@ def decode_attention(q: torch.Tensor, k, v, positions: torch.Tensor, *,
       positions: ``[B]`` int32 — slot ``b`` attends columns
         ``[0, positions[b]]``; a position ``>= W`` attends the whole
         window.
+      starts: optional ``[B]`` int32, model-dtype K/V only — slot ``b``
+        attends ``[starts[b], positions[b]]``: a ragged batch's row
+        left-padded by ``starts[b]`` columns (JAX's ``kv_valid``). On
+        the card the columns before it are never read.
       impl: ``"auto"`` | ``"cuda"`` | ``"torch"`` (see :mod:`..ops`).
 
     Returns ``[B, 1, H, Dh]`` f32 attention output.
     """
+    if starts is not None:
+        _check_starts(q, k, positions, starts)
     if resolve_impl(impl, q) == "torch":
-        return torch_decode_attention(q, k, v, positions)
+        return torch_decode_attention(q, k, v, positions, starts)
     _check(q, k, v, positions)
-    out = _launch(q, k, v, positions, window=k.shape[1])
+    out = _launch(q, k, v, positions, window=k.shape[1], starts=starts)
     if isinstance(k, QuantizedKV):
         decode_attention.int8_launches += 1
     else:

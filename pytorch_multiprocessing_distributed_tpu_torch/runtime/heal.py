@@ -33,8 +33,9 @@ monitor over the rendezvous store during ``PMDT_MASTER_ADDR`` bring-up
 
 4. **Graceful drain** for serving: :class:`HealthState` is the
    forward-only machine ``STARTING -> READY -> DRAINING -> DEAD`` the
-   serving engine carries, and :func:`healthz` its payload (the HTTP
-   server behind ``--stats_port`` waits for ROADMAP.md §1 item 8).
+   serving engine carries, and :func:`healthz` its payload, which the
+   HTTP server behind ``--stats_port`` serves (:mod:`.scope`,
+   :mod:`.telemetry`).
    SIGTERM, through :func:`install_drain_handler` (which chains the
    previous handler), flips it to DRAINING: admission closes, in-flight
    requests finish up to the drain deadline, overdue ones fail named.

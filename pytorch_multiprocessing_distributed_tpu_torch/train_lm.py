@@ -12,7 +12,8 @@ Artifacts are the JAX CLI's: the ``Epoch: [e][i/n]`` print lines,
 ``train.log`` rows ``[epoch, avg loss, exp(min(avg, 20))]``,
 ``test.log`` under ``--val_frac``, ``model_{epoch}.pth`` checkpoints
 (the port's own payload, see :mod:`.train.checkpoint`) with ``.sha256``
-sidecars, ``--resume PATH|auto`` and a greedy ``--sample``.
+sidecars, ``--resume PATH|auto`` and a greedy ``--sample`` (beam search
+of ``--sample_beams`` beams, the best printed).
 
 One process per rank, with the JAX package's env contract
 (``PMDT_MASTER_ADDR``, ``PMDT_WORLD_SIZE``, ``PMDT_RANK``;
@@ -60,8 +61,10 @@ next batch), ``train.h2d`` (``tp``/``pp``: the batch upload),
 ``train.step_skipped``, ``train.validate`` and ``train.checkpoint``;
 the clock reads they take happen only while a scope is armed.
 
-Flags of the JAX CLI this slice does not port (HF interop, beam
-sampling) are rejected by name.
+``--hf_init PATH`` starts from an HF GPT-2 ``state_dict`` file and
+``--hf_export`` writes ``model_{epochs}.hf.pth`` after training
+(:mod:`.utils.gpt_interop`); either builds the GPT-2 configuration
+(LayerNorm eps 1e-5, no head bias), as JAX does.
 """
 
 from __future__ import annotations
@@ -102,6 +105,8 @@ from .train.checkpoint import (checkpoint_epoch, load_checkpoint,
 from .train.optim import cosine_lr, sgd
 from .train.step import register_state_hbm
 from .utils import Logger, throughput
+from .utils.gpt_interop import (GPT2_LN_EPS, load_gpt2_checkpoint,
+                                save_gpt2_checkpoint)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -167,12 +172,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--val_frac', default=0.0, type=float,
                    help='hold out this fraction of the token stream and '
                         'log per-epoch val loss/ppl to test.log')
-    p.add_argument('--hf_init', default='', type=str, metavar='PATH')
-    p.add_argument('--hf_export', action='store_true')
+    p.add_argument('--hf_init', default='', type=str, metavar='PATH',
+                   help='initialize from an HF-format GPT-2 state_dict '
+                        '(torch .pth/.bin); geometry must match --model')
+    p.add_argument('--hf_export', action='store_true',
+                   help='after training, also write the weights as an '
+                        'HF-loadable GPT-2 state_dict '
+                        '(model_{epochs}.hf.pth); dense models only')
     p.add_argument('--sample', default=0, type=int,
-                   help='after training, print N greedy continuation '
-                        'tokens')
-    p.add_argument('--sample_beams', default=0, type=int)
+                   help='after training, print N decoded continuation '
+                        'tokens (greedy unless --sample_beams)')
+    p.add_argument('--sample_beams', default=0, type=int,
+                   help='> 1: decode --sample tokens with beam search of '
+                        'this width (prints the best beam)')
     p.add_argument('--max_restarts', default=0, type=int,
                    help='supervised restart: catch named-fatal errors '
                         '(GraftFaultError family), re-run rendezvous, '
@@ -186,45 +198,54 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# (flag, is it set?) for every JAX flag this slice does not port
-_NOT_PORTED = (
-    ('--hf_init', lambda a: bool(a.hf_init)),
-    ('--hf_export', lambda a: a.hf_export),
-    ('--sample_beams', lambda a: a.sample_beams != 0),
-)
-
-
-def _check_moe(args) -> dict:
-    """The JAX CLI's first checks, on the MoE flags, in its order; returns
-    the model's MoE keywords."""
+def _check_model_flags(args) -> dict:
+    """The JAX CLI's first checks, on the MoE and HF flags, in its
+    order; returns the model's keywords (the MoE ones, and GPT-2's
+    LayerNorm eps and biasless head under ``--hf_init``/``--hf_export``:
+    the export must not have to drop a trained parameter)."""
     model_kw = dict(n_experts=args.n_experts)
     if args.moe_top_k != 1:
         if not args.n_experts:
             raise SystemExit('--moe_top_k needs --n_experts > 0')
         model_kw.update(moe_top_k=args.moe_top_k)
-    if (args.hf_init or args.hf_export) and args.n_experts:
+    if args.hf_init or args.hf_export:
+        if args.n_experts:
+            raise SystemExit(
+                '--hf_init/--hf_export cover dense GPTs (MoE blocks have '
+                'no GPT-2 representation)')
+        model_kw.update(ln_eps=GPT2_LN_EPS, head_bias=False)
+    if args.resume and args.hf_init:
         raise SystemExit(
-            '--hf_init/--hf_export cover dense GPTs (MoE blocks have no '
-            'GPT-2 representation)')
+            '--resume restores a full TrainState; --hf_init seeds fresh '
+            'initial weights — pick one')
     return model_kw
 
 
-def _reject_not_ported(args) -> None:
-    for flag, is_set in _NOT_PORTED:
-        if is_set(args):
-            raise SystemExit(
-                f"{flag} is not ported to PyTorch yet (ROADMAP.md, 'Port: "
-                "modules still to port'); use the JAX CLI train_lm.py for "
-                "it")
+def _load_hf_init(args, model, model_kw):
+    """``--hf_init``'s params (CPU f32, the port's names), after JAX's
+    geometry check against ``--model``; None without the flag."""
+    if not args.hf_init:
+        return None
+    hf_model, params = load_gpt2_checkpoint(args.hf_init, model.num_heads,
+                                            **model_kw)
+    keys = ('vocab_size', 'max_seq_len', 'hidden_size', 'num_layers',
+            'mlp_dim')
+    mine = {k: getattr(model, k) for k in keys}
+    theirs = {k: getattr(hf_model, k) for k in keys}
+    if mine != theirs:
+        raise SystemExit(
+            f'--hf_init geometry {theirs} does not match --model '
+            f'{args.model} {mine}')
+    return params
 
 
 # the second axis of each --parallel mode's grid (dp has one rank on it)
 _AXES = {'dp': 'seq', 'sp': 'seq', 'tp': 'model', 'pp': 'pipe'}
 
 
-def _check_flags(args, model) -> None:
-    """The JAX CLI's pre-run checks, in its order, for the flags this
-    slice keeps."""
+def _check_ckpt_flags(args) -> None:
+    """The JAX CLI's checks of the checkpoint flags, in its order (before
+    the model is built)."""
     if args.save_every < 0:
         raise SystemExit(f'--save_every must be >= 0, got {args.save_every}')
     if args.ckpt_async and args.ckpt_backend != 'orbax':
@@ -238,6 +259,11 @@ def _check_flags(args, model) -> None:
                 f"epoch number (orbax checkpoints are epoch-keyed "
                 f"directories under {{save_path}}/orbax/), got "
                 f"{args.resume!r}")
+
+
+def _check_flags(args, model) -> None:
+    """The JAX CLI's pre-run checks after the model is built, in its
+    order."""
     if args.seq_len > model.max_seq_len:
         raise SystemExit(
             f"--seq_len {args.seq_len} exceeds the model's max_seq_len "
@@ -278,6 +304,12 @@ def _check_flags(args, model) -> None:
     if args.val_frac and not 0.0 < args.val_frac < 1.0:
         raise SystemExit(
             f"--val_frac must be in (0, 1), got {args.val_frac}")
+    if args.sample_beams and not args.sample:
+        raise SystemExit('--sample_beams needs --sample N')
+    if args.sample_beams and not 1 <= args.sample_beams <= model.vocab_size:
+        raise SystemExit(
+            f'--sample_beams must be in [1, vocab_size={model.vocab_size}]'
+            f', got {args.sample_beams}')
     if args.sample and args.seq_len + args.sample > model.max_seq_len:
         raise SystemExit(
             f"--seq_len {args.seq_len} + --sample {args.sample} exceeds "
@@ -374,13 +406,15 @@ def run(args) -> dict:
     run, the ``[data, degree]`` grid and this rank's place, on the card
     its peak memory, this rank's resident bytes of params and moments,
     an MoE run's balance loss at each printed step (``moe_aux``, the
-    ``Aux`` column), and under ``--sample`` the greedy tokens."""
-    moe_kw = _check_moe(args)
-    _reject_not_ported(args)
+    ``Aux`` column), under ``--sample`` the sampled tokens, and under
+    ``--hf_export`` the written file (rank 0)."""
+    moe_kw = _check_model_flags(args)
+    _check_ckpt_flags(args)
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
     sp = args.parallel == 'sp'
     model_kw = dict(seq_axis='seq', sp_mode=args.sp_mode) if sp else {}
     model = get_model(args.model, dtype=dtype, **moe_kw, **model_kw)
+    hf_params = _load_hf_init(args, model, dict(moe_kw, **model_kw))
     _check_flags(args, model)
     if args.lr_schedule == 'cosine':
         lr = cosine_lr(args.lr, args.epochs,
@@ -480,7 +514,9 @@ def run(args) -> dict:
         return st
 
     opt = sgd(learning_rate=lr)
-    params = init_params(model, args.seed, device)
+    params = (init_params(model, args.seed, device) if hf_params is None
+              else {k: t.to(device) for k, t in hf_params.items()})
+    del hf_params
     if args.parallel == 'pp':
         state = maybe_resume(create_pipelined_lm_state(model, params, deg))
         step = make_pipelined_lm_train_step(
@@ -666,20 +702,30 @@ def run(args) -> dict:
         print(f"--resume: checkpoint already at epoch {start_epoch - 1} >= "
               f"--epochs {args.epochs}; nothing to train", flush=True)
 
+    # the whole params on every rank (a collective under tp and pp): pp
+    # unstacks them, as JAX does
+    whole = None
+    if args.parallel in ('tp', 'pp') and (args.hf_export or args.sample):
+        whole = (unstack_pipeline_params(state.stacked(state.params),
+                                         model.vocab_size)
+                 if args.parallel == 'pp' else state.state_dict())
+    if args.hf_export and primary:
+        out = os.path.join(args.save_path, f"model_{args.epochs}.hf.pth")
+        save_gpt2_checkpoint(out, whole if whole is not None
+                             else model.state_dict())
+        summary["hf_export"] = out
+        print(f"HF export: {out}", flush=True)
+
     if args.sample:
-        from .inference import generate
+        from .inference import beam_search, generate
         from .inference.generate import register_generate_hbm
 
         prompt = torch.as_tensor(tokens[: args.seq_len][None, :],
                                  dtype=torch.long, device=device)
-        if args.parallel in ('tp', 'pp'):
-            # the whole params on every rank (a collective), decoded on
-            # this rank's card: pp unstacks them, as JAX does; tp decodes
-            # them whole (JAX decodes a dense model TP-sharded, the same
-            # greedy tokens, and an MoE model whole, as here)
-            whole = (unstack_pipeline_params(state.stacked(state.params),
-                                             model.vocab_size)
-                     if args.parallel == 'pp' else state.state_dict())
+        if whole is not None:
+            # decoded whole on this rank's card (JAX decodes a dense tp
+            # model TP-sharded greedily, the same tokens, and beams and
+            # an MoE model whole, as here)
             dense = get_model(args.model, dtype=dtype, **moe_kw)
             dense.load_state_dict({k: v.detach().clone() for k, v in
                                    whole.items()}, assign=True)
@@ -689,7 +735,13 @@ def run(args) -> dict:
         # the decode's KV residency on the armed ledger
         register_generate_hbm(dense, 1, args.seq_len + args.sample)
         with torch.no_grad():
-            out = generate(dense, prompt, max_new_tokens=args.sample)
+            if args.sample_beams > 1:
+                beams, _ = beam_search(dense, prompt,
+                                       max_new_tokens=args.sample,
+                                       beam_size=args.sample_beams)
+                out = beams[:, 0]  # the best beam
+            else:
+                out = generate(dense, prompt, max_new_tokens=args.sample)
         ids = out[0, -args.sample:].tolist()
         summary["sample"] = ids
         if primary:

@@ -15,7 +15,10 @@ and huge values, so a read past a slot's last reachable column would
 show. Both split-K kernels also give the same bits over two calls, and
 for a dense window and the same columns in pages (they walk the keys in
 one order whatever the layout); a decode call captured in a CUDA graph
-replays the eager bits. Flash attention: in f32 the
+replays the eager bits. With ``starts`` (a ragged batch's first valid
+column a slot) row 1 is held likewise, its pad columns full of NaN
+(never read), and starts of zeros give the bits of no starts. Flash
+attention: in f32 the
 output and lse within 1e-4 and the gradients within 5e-4 (the same f32
 math; the gradients sum up to 300 products per element in another
 order); in bf16 the lse within 1e-4 and the bf16 outputs within 2e-2
@@ -38,7 +41,8 @@ import numpy as np
 import pytest
 import torch
 
-from pytorch_multiprocessing_distributed_tpu_torch.inference import generate
+from pytorch_multiprocessing_distributed_tpu_torch.inference import (
+    beam_search, generate)
 from pytorch_multiprocessing_distributed_tpu_torch.models import GPT
 from pytorch_multiprocessing_distributed_tpu_torch.ops.decode_attention \
     import (VerifyRowsError, decode_attention, paged_decode_attention,
@@ -376,6 +380,109 @@ def test_decode_split_kernel_replays_in_a_graph(cuda_device, quant, dtype,
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
+
+
+def _starts_for(pos, w, gen, dev):
+    """A first valid column a slot: 0 for the first, the reach itself
+    for the second (one column), both sides of the first split boundary
+    where the reach allows, random below the reach for the rest."""
+    reach = pos.clamp(max=w - 1).long()
+    starts = (torch.rand(pos.shape, generator=gen, device=dev)
+              * (reach + 1)).floor().long()
+    starts[0] = 0
+    starts[1] = reach[1]
+    for i, edge in ((3, 127), (4, 128), (5, 129)):
+        if i < len(starts) and edge <= reach[i]:
+            starts[i] = edge
+    return starts.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_decode_kernel_with_starts_matches_plain(cuda_device, dtype, d):
+    """Row 1 with a first valid column a slot (a ragged batch's left
+    padding), windows of one split and of several: within 1e-4 of the
+    plain version, the pad columns never read (NaN there changes
+    nothing), two calls bit-equal, one launch counted a call."""
+    for w in DECODE_WINDOWS:
+        q, k, v, _, _, _, pos = _decode_split_case(
+            cuda_device, w, d, dtype, False, 16, seed=w + d)
+        gen = torch.Generator(device=cuda_device).manual_seed(w)
+        starts = _starts_for(pos, w, gen, cuda_device)
+        cols = torch.arange(w, device=cuda_device)[None, :]
+        pad = (cols < starts.long()[:, None])[:, :, None, None]
+        k_nan = k.masked_fill(pad, float("nan"))
+        v_nan = v.masked_fill(pad, float("nan"))
+        before = decode_attention.launches
+        got = decode_attention(q, k_nan, v_nan, pos, starts=starts,
+                               impl="cuda")
+        again = decode_attention(q, k_nan, v_nan, pos, starts=starts,
+                                 impl="cuda")
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 2
+        assert torch.equal(got, again) and torch.isfinite(got).all()
+        torch.testing.assert_close(
+            got, torch_decode_attention(q, k, v, pos, starts), atol=1e-4,
+            rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_zero_starts_is_no_starts(cuda_device, dtype):
+    """Starts of zeros walk what a call without them walks: the same
+    bits, at one split and several."""
+    for w in (64, 1024):
+        q, k, v, _, _, _, pos = _decode_split_case(
+            cuda_device, w, 64, dtype, False, 16, seed=w)
+        zeros = torch.zeros_like(pos)
+        assert torch.equal(
+            decode_attention(q, k, v, pos, starts=zeros, impl="cuda"),
+            decode_attention(q, k, v, pos, impl="cuda"))
+
+
+def test_decode_starts_contract_on_card(cuda_device):
+    q, k, v, _, _, _, pos = _decode_split_case(
+        cuda_device, 64, 64, torch.bfloat16, True, 16, seed=1)
+    with pytest.raises(ValueError, match="not int8"):
+        decode_attention(q, k, v, pos, starts=torch.zeros_like(pos))
+    q, k, v, _, _, _, pos = _decode_split_case(
+        cuda_device, 64, 64, torch.bfloat16, False, 16, seed=1)
+    with pytest.raises(ValueError, match="starts must be int32"):
+        decode_attention(q, k, v, pos, starts=pos.long())
+
+
+def test_ragged_generate_and_beams_on_card_match_cpu(cuda_device):
+    """A ragged ``generate`` batch (row 1 with ``starts`` on the card)
+    and ``beam_search`` give the CPU's tokens on the same f32 weights,
+    TF32 off; each ragged row equals its one-row call."""
+    geom = dict(vocab_size=61, max_seq_len=64, hidden_size=64,
+                num_layers=2, num_heads=2, mlp_dim=128)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    lengths = [5, 17, 40]
+    prompts = [rng.integers(0, 61, (n,)) for n in lengths]
+    padded = np.stack([np.concatenate([np.full(40 - len(p), 7), p])
+                       for p in prompts])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = GPT(**geom)
+        model.load_state_dict(init_params(model, 1, dev), assign=True)
+        before = decode_attention.launches
+        ragged = generate(model, torch.tensor(padded, device=dev),
+                          max_new_tokens=8,
+                          prompt_lengths=torch.tensor(lengths, device=dev))
+        if str(dev) == "cuda":
+            assert decode_attention.launches == before + 2 * 7
+        beams, scores = beam_search(model, torch.tensor(padded, device=dev),
+                                    max_new_tokens=6, beam_size=3)
+        out[str(dev)] = (ragged.cpu(), beams.cpu(), scores.cpu())
+        for i, p in enumerate(prompts):
+            one = generate(model, torch.tensor(p[None], device=dev),
+                           max_new_tokens=8)
+            assert ragged[i, -8:].tolist() == one[0, -8:].tolist()
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    assert torch.equal(out["cpu"][1], out["cuda"][1])
+    torch.testing.assert_close(out["cpu"][2], out["cuda"][2], atol=1e-4,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("quant", [False, True])

@@ -223,8 +223,6 @@ def test_get_model_forwards_stem_only_where_taken():
     assert isinstance(get_model("vit_tiny", stem="imagenet"), ViT)
     with pytest.raises(TypeError, match="bogus"):
         get_model("vgg11", bogus=1)
-    with pytest.raises(ValueError, match="ring attention"):
-        ViT(seq_axis="seq")
 
 
 @pytest.mark.parametrize("name", ["vit_tiny", "convnext_t", "vgg11",

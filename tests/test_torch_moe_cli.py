@@ -160,8 +160,7 @@ def test_moe_cli_rows_aux_and_sample_match_jax_cli(tmp_path, monkeypatch,
     ["--n_experts", "2", "--hf_export", "--sample_beams", "2"],
 ])
 def test_moe_flag_checks_in_jax_order(tmp_path, monkeypatch, extra):
-    """Each combination exits before the run with the JAX CLI's words,
-    ahead of the still-unported flags' rejection."""
+    """Each combination exits before the run with the JAX CLI's words."""
     cli = _jax_cli(monkeypatch, 1)
     base = FLAGS[:FLAGS.index("--n_experts")]
     with pytest.raises(SystemExit) as theirs:
@@ -175,9 +174,27 @@ def test_moe_flag_checks_in_jax_order(tmp_path, monkeypatch, extra):
 
 
 def test_dense_hf_flags_are_still_rejected_by_name(tmp_path):
-    with pytest.raises(SystemExit, match="^--hf_init is not ported"):
-        train_lm.main(["--hf_init", "x.pth", "--device", "cpu",
-                       "--save_path", str(tmp_path)])
+    """The name is from before ``--hf_init`` was ported: a dense run
+    started from a GPT-2 file now trains (only an MoE one is refused,
+    as in JAX), its first loss that of the file's weights."""
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        init_params)
+    from pytorch_multiprocessing_distributed_tpu_torch.utils import (
+        gpt_interop)
+
+    model = get_model("gpt_tiny", num_layers=LAYERS, ln_eps=1e-5,
+                      head_bias=False)
+    path = str(tmp_path / "dense.hf.pth")
+    gpt_interop.save_gpt2_checkpoint(path, init_params(model, 3, "cpu"))
+    base = FLAGS[:FLAGS.index("--n_experts")]
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(train_lm, "get_model", lambda name, **kw: get_model(
+            name, num_layers=LAYERS, **kw))
+        summary = train_lm.main(base + ["--hf_init", path, "--epochs", "1",
+                                        "--device", "cpu", "--save_path",
+                                        str(tmp_path / "run")])
+    assert summary["steps"] > 0 and math.isfinite(summary["first_loss"])
+    assert (tmp_path / "run" / "model_1.pth").exists()
 
 
 def test_moe_dp_checkpoint_holds_jax_leaves_and_resumes(tmp_path,

@@ -115,29 +115,15 @@ def test_resume_auto_continues_at_epoch_3(tmp_path, capsys):
     assert (split / "model_3.pth").exists()
 
 
-# (case index, extra, flag): the index keeps each case's id from before
-# --parallel sp, --degree and --vocab_chunks were ported (cases 0, 3, 9)
-# and --parallel tp|pp, --zero, --zero1, --fsdp and --remat (cases 1, 2,
-# 6, 7, 8, 10; tests/test_torch_mp_cli.py runs them) and --n_experts and
-# --moe_top_k (cases 4, 5; tests/test_torch_moe_cli.py runs them) and
-# --ckpt_backend, --ckpt_async and --max_restarts (cases 11, 12, 16;
-# tests/test_torch_restart_cli.py and test_torch_sharded_ckpt.py run
-# them) and --stats_port, --trace_out and --events_out (cases 17-19;
-# test_observability_flags_run below runs them)
-_UNPORTED = [
-    (13, ["--hf_init", "x.pth"], "--hf_init"),
-    (14, ["--hf_export"], "--hf_export"),
-    (15, ["--sample_beams", "2"], "--sample_beams"),
-]
-
-
-@pytest.mark.parametrize("extra,flag", [c[1:] for c in _UNPORTED],
-                         ids=[f"extra{i}-{flag}" for i, _, flag in _UNPORTED])
-def test_unported_flags_are_rejected_by_name(tmp_path, extra, flag):
-    with pytest.raises(SystemExit, match=f"^{flag} is not ported"):
-        train_lm.main(FLAGS + ["--device", "cpu", "--save_path",
-                               str(tmp_path)] + extra)
-    assert not (tmp_path / "train.log").exists()
+# The CLI rejects no flag of the JAX CLI by name: --parallel sp, --degree
+# and --vocab_chunks, --parallel tp|pp, --zero, --zero1, --fsdp and
+# --remat (tests/test_torch_mp_cli.py), --n_experts and --moe_top_k
+# (tests/test_torch_moe_cli.py), --ckpt_backend, --ckpt_async and
+# --max_restarts (tests/test_torch_restart_cli.py,
+# test_torch_sharded_ckpt.py), --stats_port, --trace_out and --events_out
+# (test_observability_flags_run below), --hf_init, --hf_export and
+# --sample_beams (tests/test_torch_lm_hf_cli*.py,
+# test_torch_lm_beams_cli.py) are all ported.
 
 
 @pytest.mark.parametrize("flag", ["--stats_port", "--trace_out",

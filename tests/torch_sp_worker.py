@@ -171,3 +171,25 @@ def card_attention_rank(rank, world, port, out_dir):
                 for g, w in zip(got, want)]
     torch.save(errs, os.path.join(out_dir, f"{rank}.pt"))
     dist.destroy_process_group()
+
+
+def vit_rank(rank, world, port, inputs_path, out_path):
+    """``ViT(seq_axis="seq")`` on this rank of a 1 x ``world`` seq grid,
+    PyTorch's native convolutions: the logits of this rank's images and
+    the parameters' gradients of ``(logits * cotangent).sum()``."""
+    dist = _join(rank, world, port)
+    torch.backends.mkldnn.enabled = False
+    from pytorch_multiprocessing_distributed_tpu_torch.models import ViT
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid)
+
+    make_grid(1, world, axis="seq")
+    inputs = torch.load(inputs_path, weights_only=True)
+    model = ViT(**inputs["geometry"], seq_axis="seq")
+    model.load_state_dict(inputs["state"])
+    logits = model(inputs["x"][rank])
+    (logits * inputs["c"][rank]).sum().backward()
+    torch.save({"logits": logits.detach(),
+                "grads": {n: p.grad for n, p in model.named_parameters()}},
+               f"{out_path}.{rank}")
+    dist.destroy_process_group()
