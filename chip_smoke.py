@@ -29,6 +29,10 @@
                                       # ring) alone
     python3 chip_smoke.py --vit-seq-only  # phase 34's [vit-seq] alone
                                           # (degree 2 and 4 need cards)
+    python3 chip_smoke.py --tp-heal-only  # phase 35 (fault tolerance
+                                          # under --tp; needs 2 or 4 cards)
+    python3 chip_smoke.py --route-only  # phase 36 (the in-process fleet)
+                                        # alone
 
 Phases (each prints its lines; any failure raises and exits non-zero,
 nothing is caught):
@@ -496,6 +500,38 @@ nothing is caught):
    step the hop schedule's, step time and peak a card beside one card's;
    N = 1 here, 2 and 4 on NCCL ranks where that many cards are visible
    (``[vit-seq]``).
+35. tp-heal — fault tolerance under ``serve_lm --tp M``, M = 2 and 4
+   where that many cards are visible (skipped, named, on one card):
+   phase 32's workload (gpt_small f32, TF32 off, 8 slots, 16 prompts x
+   32 tokens, horizon 4), dense and paged (rows 1 and 2), M NCCL ranks
+   in fresh processes under the ``PMDT_*`` env: (a) ``--journal
+   --max_restarts 2`` with ``SERVE_HEAL_FATAL`` in every rank's
+   environment: one restart a rank, the streams 16/16 one card's
+   unfaulted serve, 12 launches a pass on every rank, the fatal to the
+   rebuilt engines' first token, the journal's bytes a token at its
+   largest, empty after the drain; (b) SIGTERM to rank 0 mid-serve with
+   ``--drain_deadline_s 0.3``: every rank exits 0 with the same
+   completed and failed counts (a rank whose overdue set differed from
+   rank 0's raises), the finished streams exact (``[tp-heal]``).
+36. route — the in-process fleet on one card through ``serve_lm.main``
+   (gpt_small, 8 slots a replica, 16 prompts x 32 tokens, horizon 4):
+   (a) ``--replicas 2 --role both`` in f32 (TF32 off; streams 16/16 the
+   single engine's) and bf16 (counted), each replica's placed requests
+   and decode passes, row 1's launches a pass, tokens/s over the CLI's
+   wall beside the single engine's (in turns, single, fleet, fleet,
+   single, after a warm-up serve); (b) ``--replicas 3 --role split
+   --kv_layout paged``, f32: 16 transfers whose bytes are the blocks'
+   ``2 L W H Dh x 4`` (W the prompts' buckets), row 2's launches, the
+   streams the monolithic serve's; the library's router on the
+   resident and on the host wire path, their median handoff; (c) the
+   same with ``--kv_dtype int8`` (row 2q) and ``--replicas 2 --kv_dtype
+   int8`` (row 1q): the block leaves int8 with its scales, and the
+   resident and wire blocks splice bit-equal to a local admission; (d)
+   ``--replicas 2 --journal`` with the fatal at the 7th dispatch: one
+   replica reaped, redelivery token-exact, ``fleet_state`` and
+   ``fleet_requests_redelivered``; (e) ``--router_port``: ``/healthz``
+   (200, READY) and ``/metrics`` scraped while the fleet serves
+   (``[route]``).
    Then the run's wall time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per
@@ -529,7 +565,10 @@ and 8 carry phase 33's launches a step armed and disarmed,
 1-4 and their int8 twins carry phase 31's
 launches a pass on the M = 1 TP path, ``tp_launches_per_step``, and
 their checks and times at a rank's shapes, ``tp_shapes`` keyed
-``H{heads}_W{window}``);
+``H{heads}_W{window}``); rows 1, 2, 1q and 2q carry phase 35's launches
+a pass on every rank, ``tp_heal_launches_per_pass`` (null on one card),
+and phase 36's on the fleet, ``route_launches_per_pass``, the decode
+entry also the handoff medians, ``route_handoff_ms``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -6355,6 +6394,542 @@ def _gen_phase(torch, np, F, train_lm, generate, beam_search, da, fa, rate,
                         for g in res] for n, res in vit.items()}}
 
 
+# phase 35: fault tolerance under --tp. Phase 32's workload on M NCCL
+# ranks (one process each under the PMDT_* env, TF32 off), the fatal in
+# every rank's environment, SIGTERM to rank 0; each rank writes its
+# snapshot to {path}.{rank}
+TP_HEAL_SIZES = (2, 4)
+TP_HEAL_RUNS = (
+    ("dense", [], "decode_attention"),
+    ("paged", SERVE_PAGED, "paged_decode_attention"),
+)
+TP_HEAL_POLL_S = 0.005  # the journal's size, polled while the ranks run
+TP_HEAL_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from pytorch_multiprocessing_distributed_tpu_torch import serve_lm
+snap = serve_lm.main(sys.argv[2:])
+with open(sys.argv[1] + "." + os.environ["PMDT_RANK"], "w") as f:
+    json.dump(snap, f)
+"""
+
+# phase 36: the in-process fleet on one card, phase 4's workload
+# (gpt_small, 8 slots a replica, 16 prompts x 32 tokens, horizon 4);
+# streams compared in f32 with TF32 off, counted in bf16
+ROUTE_SPLIT = ["--replicas", "3", "--role", "split", "--kv_layout",
+               "paged", "--page_size", str(PAGE_SIZE)]
+
+
+def _stamped_lines(stream, sink):
+    """A thread appending ``(perf_counter, line)`` for each of
+    ``stream``'s lines to ``sink``."""
+    def pump():
+        for line in stream:
+            sink.append((time.perf_counter(), line.rstrip("\n")))
+
+    thread = threading.Thread(target=pump, daemon=True)
+    thread.start()
+    return thread
+
+
+def _tp_heal_ranks(m, argv, env_extra, tmp, tag, stop_at=None, sig=None):
+    """``serve_lm.main(argv)`` on ``m`` NCCL ranks, one fresh process
+    each; ``sig`` goes to rank 0 SERVE_HEAL_SIGNAL_DELAY_S after its
+    ``stop_at``-th token line. Returns (rank 0's stamped stdout and
+    stderr lines, every rank's exit code and snapshot, the largest size
+    the journal reached, the time the signal was sent)."""
+    port = _store_ports(1)[0]
+    snap_path = os.path.join(tmp, f"snap-{tag}")
+    wal = argv[argv.index("--journal") + 1]
+    procs, logs = [], []
+    for rank in range(m):
+        env = _heal_env(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
+                        PMDT_WORLD_SIZE=str(m), PMDT_RANK=str(rank),
+                        **env_extra)
+        log = None
+        if rank:
+            log = open(os.path.join(tmp, f"rank{rank}-{tag}.log"), "w")
+            logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-u", "-c", TP_HEAL_CHILD, snap_path, *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE if not rank else log,
+            stderr=subprocess.PIPE if not rank else subprocess.STDOUT,
+            text=True))
+    out, err, biggest, sent = [], [], [0], None
+    stop = threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                biggest[0] = max(biggest[0], os.path.getsize(wal))
+            except OSError:
+                pass
+            time.sleep(TP_HEAL_POLL_S)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    readers = [_stamped_lines(procs[0].stdout, out),
+               _stamped_lines(procs[0].stderr, err)]
+    deadline = time.monotonic() + HEAL_CHILD_TIMEOUT
+    toks = 0
+    try:
+        while procs[0].poll() is None and time.monotonic() < deadline:
+            n = sum(1 for _, line in out if line.startswith("req=")
+                    and " tok=" in line)
+            if sig is not None and sent is None and n >= stop_at:
+                time.sleep(SERVE_HEAL_SIGNAL_DELAY_S)
+                sent = time.perf_counter()
+                procs[0].send_signal(sig)
+            toks = n
+            time.sleep(0.002)
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    finally:
+        stop.set()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for reader in readers:
+        reader.join(5)
+    poller.join(5)
+    snaps = []
+    for rank in range(m):
+        path = f"{snap_path}.{rank}"
+        with open(path) if os.path.exists(path) else io.StringIO("null") \
+                as f:
+            snaps.append(json.load(f))
+    if any(rcs):
+        tails = [open(os.path.join(tmp, f"rank{r}-{tag}.log")).read()[-2000:]
+                 for r in range(1, m)]
+        raise AssertionError(
+            f"[tp-heal] {tag}: exit codes {rcs} ({toks} token lines); rank "
+            f"0 stderr:\n" + "\n".join(line for _, line in err[-40:])
+            + "\nother ranks:\n" + "\n".join(tails))
+    return out, err, rcs, snaps, biggest[0], sent
+
+
+def _tp_heal_launches(tag, snap, variant):
+    """A rank's launches over every engine it built, held to 12 a pass
+    of the run's variant and none of any other; returns launches a
+    pass."""
+    passes = sum(n for a in snap["attempts"]
+                 for n in a["decode_passes_by_k"].values())
+    counts = {}
+    for a in snap["attempts"]:
+        for name, n in a["decode_launches"].items():
+            counts[name] = counts.get(name, 0) + n
+    want = {name: 12 * passes if name == variant else 0 for name in counts}
+    if counts != want or passes < 1:
+        raise AssertionError(f"[tp-heal] {tag}: launches {counts} over "
+                             f"{passes} passes; expected {want}")
+    return counts[variant] / passes
+
+
+def _tp_heal_phase(torch, serve_lm, da, smi):
+    """Phase 35 (see the module docstring). Returns the kernels line's
+    additions: each run's launches a pass on every rank."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    sizes = [m for m in TP_HEAL_SIZES if m <= cards]
+    if not sizes:
+        _print(f"[tp-heal] skipped: serve_lm --tp M with --journal, "
+               f"--max_restarts and --drain_deadline_s needs M cards (NCCL "
+               f"cannot put two ranks on one), {cards} visible (python3 "
+               f"chip_smoke.py --tp-heal-only where four are) [{smi}]")
+        return {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, extra, variant in TP_HEAL_RUNS:
+                # one card's unfaulted serve: the reference streams
+                _, ref, _, _, _ = _sh_serve(serve_lm, SERVE_HEAL_ARGV + extra,
+                                            da)
+                for m in sizes:
+                    launches.update(_tp_heal_one(serve_lm, m, label, extra,
+                                                 variant, ref, tmp, smi))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    _print(f"[tp-heal] phase 35 wall {time.perf_counter() - t0:.1f} s "
+           f"[{smi}]")
+    return launches
+
+
+def _tp_heal_one(serve_lm, m, label, extra, variant, ref, tmp, smi):
+    """(a) the fatal on every rank under --journal --max_restarts 2, (b)
+    SIGTERM to rank 0 under --drain_deadline_s, at ``m`` ranks."""
+    out = {}
+    tag = f"{label}-M{m}-restart"
+    wal = os.path.join(tmp, f"{tag}.jsonl")
+    argv = (SERVE_HEAL_ARGV + extra + ["--tp", str(m), "--journal", wal]
+            + SERVE_HEAL_RESTART)
+    lines, err, _, snaps, biggest, _ = _tp_heal_ranks(
+        m, argv, {"PMDT_FAULT_PLAN": SERVE_HEAL_FATAL}, tmp, tag)
+    got = _sh_transcripts("\n".join(line for _, line in lines))
+    exact = sum(got.get(uid) == toks for uid, toks in ref.items())
+    if exact != 16 or len(got) != 16:
+        raise AssertionError(f"[tp-heal] {tag}: {exact}/16 streams equal "
+                             f"one card's unfaulted serve")
+    if [s["restarts"] for s in snaps] != [1] * m:
+        raise AssertionError(f"[tp-heal] {tag}: restarts a rank "
+                             f"{[s['restarts'] for s in snaps]}")
+    if os.path.getsize(wal) != 0:
+        raise AssertionError(f"[tp-heal] {tag}: journal not empty")
+    per_pass = [_tp_heal_launches(f"{tag} rank {r}", s, variant)
+                for r, s in enumerate(snaps)]
+    fatal = [t for t, line in err if line.startswith("graftheal: restart 1/")]
+    rebuilt = [t for t, line in lines
+               if line.startswith("graftheal: restart 1: engine rebuilt")]
+    first = min(t for t, line in lines
+                if rebuilt and t >= rebuilt[0] and line.startswith("req="))
+    restart_s = first - fatal[0]
+    out[tag] = per_pass
+    _print(f"[tp-heal] (a) {label} --tp {m}: fatal at "
+           f"serving.decode_dispatch hit 7 on every rank, 1 restart a rank, "
+           f"{snaps[0]['requests_redelivered']} requests redelivered, "
+           f"{exact}/16 streams token-exact with one card's unfaulted "
+           f"serve, {variant} launches a pass on each rank {per_pass} "
+           f"(phase 31: 12), fatal to the rebuilt engines' first token "
+           f"{restart_s:.3f} s, journal {biggest} bytes at its largest = "
+           f"{biggest / 512:.1f} bytes a token, empty after the drain "
+           f"[{smi}]")
+    tag = f"{label}-M{m}-term"
+    wal = os.path.join(tmp, f"{tag}.jsonl")
+    argv = (SERVE_HEAL_ARGV + extra + ["--tp", str(m), "--journal", wal,
+                                       "--drain_deadline_s",
+                                       str(SERVE_HEAL_DRAIN_S)])
+    lines, err, _, snaps, _, sent = _tp_heal_ranks(
+        m, argv, {}, tmp, tag, stop_at=SERVE_HEAL_TERM_AT,
+        sig=signal.SIGTERM)
+    done = _sh_transcripts("\n".join(line for _, line in lines))
+    failed = re.findall(r"^failed: req=(\S+) reason=(\S+) (\w+):",
+                        "\n".join(line for _, line in err), re.M)
+    wrong = [uid for uid, toks in done.items() if ref[uid] != toks]
+    counts = [(s["requests_completed"], s["requests_failed"]) for s in snaps]
+    if (wrong or len(done) + len(failed) != 16
+            or any(r != "drain" or e != "DeadlineExceeded"
+                   for _, r, e in failed)
+            or counts != [(len(done), len(failed))] * m
+            or os.path.getsize(wal) != 0):
+        raise AssertionError(
+            f"[tp-heal] {tag}: finished {sorted(done)} (not exact "
+            f"{wrong}), failed {failed}, (completed, failed) a rank "
+            f"{counts}")
+    out[tag] = [_tp_heal_launches(f"{tag} rank {r}", s, variant)
+                for r, s in enumerate(snaps)]
+    _print(f"[tp-heal] (b) {label} --tp {m}: SIGTERM to rank 0 after "
+           f"{SERVE_HEAL_TERM_AT} tokens, --drain_deadline_s "
+           f"{SERVE_HEAL_DRAIN_S}: every rank exit 0, {len(done)} finished "
+           f"token-exact, {len(failed)} failed named DeadlineExceeded "
+           f"(reason drain) on every rank (completed, failed) {counts}, "
+           f"journal empty; the drain {snaps[0]['drain_s']:.3f} s [{smi}]")
+    return out
+
+
+def _tp_heal_fields(th, name):
+    """A decode row's phase 35 keys in the kernels line."""
+    runs = {tag: v for tag, v in th.items()
+            if any(tag.startswith(label) and variant == name
+                   for label, _, variant in TP_HEAL_RUNS)}
+    return {"tp_heal_launches_per_pass": runs or None}
+
+
+def _route_serve(serve_lm, argv, da, plan=None):
+    """``_sh_serve`` with its wall (the model's build included)."""
+    t0 = time.perf_counter()
+    snap, got, out, err, counts = _sh_serve(serve_lm, argv, da, plan)
+    return snap, got, counts, time.perf_counter() - t0
+
+
+def _route_passes(snap):
+    return sum(n for passes in snap["decode_passes_by_k_per_replica"].values()
+               for n in passes.values())
+
+
+def _route_check_launches(tag, snap, counts, variant):
+    passes = _route_passes(snap)
+    want = {name: (12 * passes if name == variant else 0) for name in counts}
+    if counts != want or snap["decode_launches"] != counts or passes < 1:
+        raise AssertionError(f"[route] {tag}: launches {counts} (snapshot "
+                             f"{snap['decode_launches']}) over {passes} "
+                             f"passes; expected {want}")
+    return counts[variant] / passes
+
+
+def _route_phase(torch, serve_lm, da, smi):
+    """Phase 36 (see the module docstring). Returns the kernels line's
+    additions: rows 1, 2, 1q and 2q's launches a pass on the fleet."""
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = _route_both(serve_lm, da, smi, launches)
+            _route_split(torch, serve_lm, da, smi, launches, ref)
+            _route_kill(serve_lm, da, smi, tmp, ref)
+            _route_port(serve_lm, da, smi)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    _print(f"[route] phase 36 wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    return launches
+
+
+def _route_both(serve_lm, da, smi, launches):
+    """(a) --replicas 2 --role both: f32 streams 16/16 the single
+    engine's, bf16 counted; placement and launches a replica; tokens/s
+    over each serve's wall beside the single engine's in this call, in
+    turns (single, fleet, fleet, single) after a warm-up serve."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        argv = list(SERVE_HEAL_ARGV)
+        argv[argv.index("float32")] = dtype
+        _route_serve(serve_lm, argv, da)  # warm-up, not counted
+        walls = {"single": [], "fleet": []}
+        ref = None
+        for name in ("single", "fleet", "fleet", "single"):
+            snap, got, counts, wall = _route_serve(
+                serve_lm, argv + (["--replicas", "2"] if name == "fleet"
+                                  else []), da)
+            walls[name].append(wall)
+            if name == "single":
+                if ref is not None and got != ref:
+                    raise AssertionError(f"[route] (a) {dtype}: two single "
+                                         "serves differ")
+                ref = got
+                continue
+            exact = sum(got.get(uid) == toks for uid, toks in ref.items())
+            if dtype == "float32" and exact != 16:
+                raise AssertionError(f"[route] (a) f32: {exact}/16 streams "
+                                     "equal the single engine's")
+            per_pass = _route_check_launches(f"(a) {dtype}", snap, counts,
+                                             "decode_attention")
+            launches[f"both_{dtype}"] = per_pass
+            fleet_snap, fleet_exact = snap, exact
+        placed = {rid: s["requests_completed"]
+                  for rid, s in fleet_snap["per_replica"].items()}
+        steps = {rid: sum(p.values()) for rid, p in
+                 fleet_snap["decode_passes_by_k_per_replica"].items()}
+        tps = {name: [512 / w for w in ws] for name, ws in walls.items()}
+        _print(f"[route] (a) gpt_small {dtype} 16 requests x 32 tokens, "
+               f"--replicas 2 --role both (8 slots a replica): {fleet_exact}"
+               f"/16 streams equal the single engine's, placed {placed}, "
+               f"decode passes {steps}, decode_attention launches a pass "
+               f"{launches[f'both_{dtype}']} (12); tokens/s over the CLI's "
+               f"wall (the model's build included), in turns after a "
+               f"warm-up: fleet {[round(t, 1) for t in tps['fleet']]}, "
+               f"single engine {[round(t, 1) for t in tps['single']]}; "
+               f"fleet_state {fleet_snap['fleet_state']} [{smi}]")
+        out[dtype] = ref
+    return out["float32"]
+
+
+def _route_split(torch, serve_lm, da, smi, launches, ref):
+    """(b) --replicas 3 --role split --kv_layout paged, f32: transfers and
+    their bytes against 2 L W H Dh 4 a block, row 2's launches, streams
+    equal the monolithic serve's; the resident and the wire handoff on the
+    library's router. (c) the same in int8 (row 2q), and --replicas 2
+    --kv_dtype int8 (row 1q): the block leaves int8 and splices
+    bit-equal to a local admission."""
+    from pytorch_multiprocessing_distributed_tpu_torch.models import (
+        get_model)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        Request, Router, ServingEngine, ServingReplica, bucket_length,
+        init_params)
+
+    model = get_model("gpt_small", dtype=torch.float32)
+    args = serve_lm.build_parser().parse_args(SERVE_HEAL_ARGV)
+    prompts = [p for p, _ in serve_lm._load_requests(args, model.vocab_size,
+                                                     [])]
+    widths = [bucket_length(len(p), 16, model.max_seq_len) for p in prompts]
+    block = 2 * model.num_layers * model.num_heads * model.head_dim * 4
+    for kv, variant in (("model", "paged_decode_attention"),
+                        ("int8", "paged_decode_attention_int8")):
+        extra = ROUTE_SPLIT + (["--kv_dtype", "int8"] if kv == "int8"
+                               else [])
+        mono_argv = SERVE_HEAL_ARGV + extra[4:]
+        _, mono, _, _ = _route_serve(serve_lm, mono_argv, da)
+        snap, got, counts, _ = _route_serve(serve_lm, SERVE_HEAL_ARGV + extra,
+                                            da)
+        exact = sum(got.get(uid) == toks for uid, toks in mono.items())
+        per_pass = _route_check_launches(f"(b) split {kv}", snap, counts,
+                                         variant)
+        launches[f"split_{kv}"] = per_pass
+        # f32 blocks: 4 bytes an element; int8: 1 byte plus a 4-byte
+        # scale a head_dim row
+        want = sum(widths) * (block if kv == "model" else
+                              block // 4 + block // model.head_dim)
+        if (exact != 16 or snap["fleet_transfers_routed"] != 16
+                or snap["fleet_transfer_bytes"] != want
+                or (kv == "model" and mono != ref)):
+            raise AssertionError(
+                f"[route] (b) split {kv}: {exact}/16 streams equal the "
+                f"monolithic serve's, transfers {snap['fleet_transfers_routed']}"
+                f", bytes {snap['fleet_transfer_bytes']} (expected {want})")
+        _print(f"[route] ({'b' if kv == 'model' else 'c'}) gpt_small f32 "
+               f"--replicas 3 --role split --kv_layout paged"
+               + (" --kv_dtype int8" if kv == "int8" else "")
+               + f": {exact}/16 streams equal the monolithic serve's, "
+               f"{snap['fleet_transfers_routed']} transfers, "
+               f"{snap['fleet_transfer_bytes']} bytes = the blocks' "
+               f"2 L W H Dh x {'4' if kv == 'model' else '1 + scales'} "
+               f"(W the prompts' buckets, sum {sum(widths)}), {variant} "
+               f"launches a pass {per_pass} (12) [{smi}]")
+    # row 1q: two int8 dense replicas
+    argv = SERVE_HEAL_ARGV + ["--kv_dtype", "int8"]
+    _, mono, _, _ = _route_serve(serve_lm, argv, da)
+    snap, got, counts, _ = _route_serve(serve_lm, argv + ["--replicas", "2"],
+                                        da)
+    exact = sum(got.get(uid) == toks for uid, toks in mono.items())
+    launches["both_int8"] = _route_check_launches(
+        "(c) both int8", snap, counts, "decode_attention_int8")
+    if exact != 16:
+        raise AssertionError(f"[route] (c) both int8: {exact}/16")
+    _print(f"[route] (c) --replicas 2 --kv_dtype int8 (dense): {exact}/16 "
+           f"streams equal the single int8 engine's, decode_attention_int8 "
+           f"launches a pass {launches['both_int8']} (12) [{smi}]")
+    # the block leaves int8 and splices bit-equal; resident vs wire
+    model.load_state_dict(init_params(model, 0, "cuda"), assign=True)
+    kw = dict(max_slots=8, decode_horizon=4, kv_layout="paged",
+              page_size=PAGE_SIZE)
+    for kv in ("model", "int8"):
+        donor = ServingEngine(model, kv_dtype=kv, **kw)
+        local = ServingEngine(model, kv_dtype=kv, **kw)
+        p = prompts[0]
+        request = local.submit(p, 32, uid="local")
+        local.step()
+        want = _route_cols(local.pool, request.slot, len(p))
+        for export in (donor.prefill_detached_resident,
+                       donor.prefill_detached_wire):
+            tok0, k, v, ks, vs = export(Request(p, 32, uid="x"))
+            if kv == "int8" and (str(k.dtype) not in ("torch.int8", "int8")
+                                 or ks is None):
+                raise AssertionError(f"[route] (c) {export.__name__}: the "
+                                     f"block left as {k.dtype}")
+            engine = ServingEngine(model, kv_dtype=kv, **kw)
+            moved = Request(p, 32, uid="x")
+            engine.admit_prefilled(moved, tok0, k, v, k_scale=ks, v_scale=vs)
+            got = _route_cols(engine.pool, moved.slot, len(p))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"[route] (c) {kv} {export.__name__}: "
+                                     "the splice differs from a local "
+                                     "admission")
+            del engine
+        del donor, local
+        _print(f"[route] (c) {kv} paged: the resident and the wire block "
+               f"({'int8 data + f32 scales' if kv == 'int8' else 'f32'}) "
+               f"spliced bit-equal to a local admission of the same prompt "
+               f"[{smi}]")
+    handoff = {}
+    for path in ("resident", "wire"):
+        reps = [ServingReplica("r0", ServingEngine(model, **kw),
+                               role="prefill")]
+        reps += [ServingReplica(f"r{i}", ServingEngine(model, **kw),
+                                role="decode") for i in (1, 2)]
+        if path == "wire":
+            reps[0].engine.prefill_detached_resident = None
+        router = Router(reps)
+        out = router.serve([(p, 32) for p in prompts])
+        got = {f"src-{i}": r.tokens for i, r in enumerate(out)}
+        if got != ref:
+            raise AssertionError(f"[route] (b) {path} router: streams differ")
+        handoff[path] = statistics.median(router.transfer_handoff_s)
+        del router, reps
+        torch.cuda.empty_cache()
+    _print(f"[route] (b) the library's router, split over paged decode "
+           f"replicas, f32: handoff (prefill export to decode splice, queue "
+           f"wait included) median {handoff['resident'] * 1e3:.3f} ms on "
+           f"the resident path, {handoff['wire'] * 1e3:.3f} ms through the "
+           f"host (numpy) wire path; streams 16/16 on both [{smi}]")
+    launches["handoff_ms"] = {k: v * 1e3 for k, v in handoff.items()}
+    del model
+    torch.cuda.empty_cache()
+
+
+def _route_cols(pool, slot, width):
+    """A paged pool's first ``width`` K and V columns of ``slot`` (int8
+    pairs as their data and scales), ``[L, width, H(, Dh)]`` each."""
+    table = pool.device_table()[slot]
+    out = []
+    for pages in (pool.k_pages, pool.v_pages):
+        for t in ((pages.data, pages.scale) if hasattr(pages, "scale")
+                  else (pages,)):
+            tiles = t[:, table].transpose(2, 3)  # [L, n, ps, H(, Dh)]
+            out.append(tiles.reshape(tiles.shape[0], -1,
+                                     *tiles.shape[3:])[:, :width])
+    return out
+
+
+def _route_kill(serve_lm, da, smi, tmp, ref):
+    """(d) --replicas 2 --journal with the fatal at the 7th dispatch: one
+    replica reaped, its requests redelivered to the other, token-exact."""
+    argv = SERVE_HEAL_ARGV + ["--replicas", "2", "--journal",
+                              os.path.join(tmp, "route.jsonl")]
+    snap, got, _, _ = _route_serve(serve_lm, argv, da, SERVE_HEAL_FATAL)
+    exact = sum(got.get(uid) == toks for uid, toks in ref.items())
+    if exact != 16 or snap["fleet_requests_redelivered"] < 1:
+        raise AssertionError(
+            f"[route] (d): {exact}/16 exact, dead {snap['fleet_replicas_dead']}"
+            f", redelivered {snap['fleet_requests_redelivered']}")
+    _print(f"[route] (d) --replicas 2 --journal, fatal at the 7th dispatch: "
+           f"a replica reaped, fleet_requests_redelivered "
+           f"{snap['fleet_requests_redelivered']} (replayed tokens "
+           f"{snap['redelivery_replayed_tokens']}), {exact}/16 streams "
+           f"token-exact, tokens_generated {snap['tokens_generated']} "
+           f"(deduplicated), fleet_state {snap['fleet_state']} after the "
+           f"drain [{smi}]")
+
+
+def _route_port(serve_lm, da, smi):
+    """(e) --router_port: /metrics and /healthz scraped once while the
+    fleet serves."""
+    port = _store_port()
+    got, stop = {}, threading.Event()
+    scraper = threading.Thread(target=_scrape_while_up,
+                               args=(port, got, stop), daemon=True)
+    scraper.start()
+    try:
+        _route_serve(serve_lm, SERVE_HEAL_ARGV + [
+            "--replicas", "2", "--router_port", str(port)], da)
+    finally:
+        stop.set()
+        scraper.join(10)
+    code, body = got.get("/healthz", (0, ""))
+    mcode, metrics = got.get("/metrics", (0, ""))
+    if (code != 200 or json.loads(body)["state_name"] != "READY"
+            or mcode != 200 or "pmdt_fleet_fleet_replicas 2" not in metrics):
+        raise AssertionError(f"[route] (e): /healthz {code} {body[:200]}, "
+                             f"/metrics {mcode}")
+    _print(f"[route] (e) --router_port {port}: /healthz 200 READY with "
+           f"{sorted(json.loads(body)['replicas'])}, /metrics 200 "
+           f"({len(metrics.splitlines())} lines, pmdt_fleet_*) while the "
+           f"fleet served [{smi}]")
+
+
+def _route_fields(route, name):
+    """A decode row's phase 36 keys in the kernels line."""
+    keys = {"decode_attention": ("both_float32", "both_bfloat16"),
+            "paged_decode_attention": ("split_model",),
+            "decode_attention_int8": ("both_int8",),
+            "paged_decode_attention_int8": ("split_int8",)}[name]
+    return {"route_launches_per_pass": {k: route[k] for k in keys
+                                        if k in route} or None}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6481,6 +7056,22 @@ def main() -> int:
         _gen_phase(torch, np, F, train_lm, generate, beam_search, da, fa,
                    rate, smi)
         _print(f"[total] chip_smoke --gen-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--tp-heal-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        _build.build_all()  # the ranks find the kernels built
+        _print(f"[build] {time.perf_counter() - t0:.2f} s")
+        _tp_heal_phase(torch, serve_lm, da, smi)
+        _print(f"[total] chip_smoke --tp-heal-only wall "
+               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--route-only" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        _build.build_all()
+        _print(f"[build] {time.perf_counter() - t0:.2f} s")
+        _route_phase(torch, serve_lm, da, smi)
+        _print(f"[total] chip_smoke --route-only wall "
                f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--heal-only" in sys.argv[1:]:
@@ -7715,6 +8306,12 @@ def main() -> int:
     # -- phase 34: ragged generate, beam search, HF interop, ViT's ring
     gen34 = _gen_phase(torch, np, F, train_lm, generate, beam_search, da, fa,
                        rate, smi)
+
+    # -- phase 35: fault tolerance under --tp (skipped on one card)
+    tp_heal = _tp_heal_phase(torch, serve_lm, da, smi)
+
+    # -- phase 36: the in-process fleet, --replicas, --role, --router_port
+    route = _route_phase(torch, serve_lm, da, smi)
     _print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     # the kernels line: the kernel at the main path's largest window
@@ -7788,6 +8385,9 @@ def main() -> int:
             "decode_launches"] for k in (1, 2)},
         **_tp_fields(tp, "decode_attention"),
         **_serve_heal_fields(serve_heal, "decode_attention"),
+        **_tp_heal_fields(tp_heal, "decode_attention"),
+        **_route_fields(route, "decode_attention"),
+        "route_handoff_ms": route["handoff_ms"],
         "scope_launches_per_step": scope33["per_step"]["decode_attention"],
         **gen34,
         **{f"w{max(WINDOWS)}_{key}": row1_long[key]
@@ -7835,6 +8435,8 @@ def main() -> int:
         "head_dim_ms": _by_head_dim(hd_times, VARIANTS[variant][0]),
         **_tp_fields(tp, variant),
         **_serve_heal_fields(serve_heal, variant),
+        **_tp_heal_fields(tp_heal, variant),
+        **_route_fields(route, variant),
         "scope_launches_per_step": scope33["per_step"].get(variant)}
         for variant in VARIANTS] + [{
         "name": variant, "route": "cuda",

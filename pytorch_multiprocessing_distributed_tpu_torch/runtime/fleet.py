@@ -47,9 +47,15 @@ store during ``PMDT_MASTER_ADDR`` bring-up (``parallel.dist``), the
 
 The JAX module's ``static_collective_bytes`` reads its graftcheck
 budgets (``analysis/fingerprints.json``), which have no twin here; the
-port's callers pass the bytes they hold. Its replica directory
-(``publish_replica`` and the rest) belongs to the serving fleet, which
-is not ported yet (ROADMAP.md §1 item 7).
+port's callers pass the bytes they hold.
+
+4. **The serving fleet's replica directory.** :func:`publish_replica`
+   and :func:`unpublish_replica` keep each replica's ``{role, state,
+   address, published_at}`` under ``fleet/<run_uid>/replica/<rid>`` in
+   the control-plane store (:class:`..serving.router.Router` publishes
+   through them); :func:`replica_directory` reads them back, aged out
+   past a TTL; :func:`fleet_serving_report` names the straggler replica
+   from the per-replica snapshots.
 
 Stdlib-only (no torch, no numpy).
 """
@@ -72,7 +78,8 @@ __all__ = [
     "arm", "disarm", "active_fleet", "scoped_fleet",
     "note_arrival", "publish_endpoint", "monitor_from_env",
     "arm_goodput", "disarm_goodput", "active_goodput",
-    "goodput_gauges",
+    "goodput_gauges", "publish_replica", "unpublish_replica",
+    "replica_directory", "fleet_serving_report",
 ]
 
 
@@ -793,3 +800,147 @@ def goodput_gauges() -> Dict[str, float]:
         return {}
     ledger.ingest_scope()
     return ledger.gauges()
+
+
+# ------------------------------------------- the serving fleet's directory
+
+def publish_replica(store, rid: str, *, role: str = "both",
+                    state: str = "starting",
+                    address: Optional[str] = None,
+                    model_tag: Optional[str] = None,
+                    run_uid: str = "run", prefix: str = "fleet",
+                    now: Optional[float] = None) -> bool:
+    """Publish one serving replica's identity to the control-plane
+    store: ``fleet/<run_uid>/replica/<rid>`` -> ``{rid, role, state,
+    address?, model_tag?, published_at}``. ``published_at`` is a wall
+    clock stamp (``time.time()``, comparable across processes; ``now``
+    for tests), refreshed by each publish, so a crashed publisher's
+    entry ages out of :func:`replica_directory`'s TTL filter. The rid
+    joins an append-only roster whose slots are claimed through the
+    store's atomic ``add``, so concurrent publishers never lose each
+    other. Best effort: a store outage drops the record and returns
+    False."""
+    payload = {"rid": str(rid), "role": str(role),
+               "state": str(state),
+               "published_at": float(time.time() if now is None
+                                     else now)}
+    if address is not None:
+        payload["address"] = str(address)
+    if model_tag is not None:
+        payload["model_tag"] = str(model_tag)
+    try:
+        store.set(_k(prefix, run_uid, "replica", rid),
+                  json.dumps(payload, sort_keys=True).encode())
+    except (OSError, ValueError) as e:
+        print(f"graftroute: replica publish {rid!r} failed "
+              f"({type(e).__name__}: {e}); directory readers see a "
+              "stale entry — routing correctness never depends on it",
+              file=sys.stderr)
+        return False
+    base = _k(prefix, run_uid, "replicas")
+    try:
+        known = _roster_rids(store, base)
+        if str(rid) not in known:
+            idx = int(store.add(base + "/n", 1)) - 1
+            store.set(f"{base}/{idx}", str(rid).encode())
+    except (OSError, ValueError):
+        return False
+    return True
+
+
+def unpublish_replica(store, rid: str, *, run_uid: str = "run",
+                      prefix: str = "fleet") -> bool:
+    """Delete ``rid``'s directory record (the router's reap and
+    retirement): :func:`replica_directory` never returns it again. The
+    roster slot stays claimed; a slot whose record is gone is skipped.
+    Best effort, like :func:`publish_replica`."""
+    try:
+        store.delete(_k(prefix, run_uid, "replica", rid))
+    except (OSError, ValueError) as e:
+        print(f"graftroute: replica unpublish {rid!r} failed "
+              f"({type(e).__name__}: {e}); the TTL filter ages the "
+              "stale record out instead", file=sys.stderr)
+        return False
+    return True
+
+
+def _roster_rids(store, base: str) -> List[str]:
+    """The claimed roster slots, in claim order, without repeats; a
+    claimed slot whose write has not landed yet reads empty and is
+    skipped."""
+    n = int(store.add(base + "/n", 0))
+    rids: List[str] = []
+    for i in range(n):
+        raw = store.get(f"{base}/{i}")
+        if not raw:
+            continue
+        rid = raw.decode()
+        if rid not in rids:
+            rids.append(rid)
+    return rids
+
+
+def replica_directory(store, *, run_uid: str = "run",
+                      prefix: str = "fleet",
+                      ttl_s: Optional[float] = None,
+                      now: Optional[float] = None) -> Dict[str, Dict]:
+    """The store-published replica directory, ``{rid: payload}``.
+    ``ttl_s`` skips entries whose ``published_at`` is older than that
+    many seconds (a crashed publisher stops refreshing its stamp);
+    entries without a stamp, or with one that does not parse, are
+    kept. ``now`` for tests. A store that cannot be read gives ``{}``."""
+    out: Dict[str, Dict] = {}
+    try:
+        roster = _roster_rids(store, _k(prefix, run_uid, "replicas"))
+    except (OSError, ValueError):
+        return out
+    t_now = time.time() if now is None else now
+    for rid in roster:
+        try:
+            rec = store.get(_k(prefix, run_uid, "replica", rid))
+        except (OSError, ValueError):
+            continue
+        if not rec:
+            continue
+        try:
+            payload = json.loads(rec.decode())
+        except ValueError:
+            continue
+        if ttl_s is not None:
+            stamp = payload.get("published_at")
+            try:
+                aged = (stamp is not None
+                        and t_now - float(stamp) > ttl_s)
+            except (TypeError, ValueError):
+                aged = False
+            if aged:
+                continue
+        out[str(rid)] = payload
+    return out
+
+
+def fleet_serving_report(per_replica: Dict[str, Dict]) -> Dict:
+    """The fleet's goodput view from per-replica snapshots
+    (``Router.merged_metrics()["per_replica"]``): each replica's
+    ``goodput_frac`` with their min and mean, and the straggler named,
+    the replica with the lowest fraction."""
+    fracs = {rid: float(s.get("goodput_frac", 0.0))
+             for rid, s in per_replica.items()}
+    out: Dict[str, object] = {
+        "replicas": len(per_replica),
+        "replicas_alive": sum(
+            1 for s in per_replica.values()
+            if s.get("state") not in ("dead",)),
+    }
+    if not fracs:
+        return out
+    vals = sorted(fracs.values())
+    straggler = min(fracs, key=lambda rid: fracs[rid])
+    out.update({
+        "goodput_frac_per_replica": fracs,
+        "goodput_frac_min": vals[0],
+        "goodput_frac_mean": sum(vals) / len(vals),
+        "straggler": straggler,
+        "straggler_goodput_frac": fracs[straggler],
+    })
+    return out

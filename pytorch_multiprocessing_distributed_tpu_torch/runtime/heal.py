@@ -827,6 +827,27 @@ class RequestJournal:
         if ops:
             self._sync_durable()
 
+    def record_handoff(self, request, to: str = "") -> None:
+        """Journal a request leaving this engine for a peer (the fleet's
+        work stealing, or its redelivery after a replica death):
+        terminal here, with state ``"handoff"``, so a later restart of
+        this engine never redelivers a request a peer now owns (the
+        peer's own journal records the admission)."""
+        with self._mu:
+            entry = self._entries.get(request.uid)
+            if entry is None or entry.done:
+                return
+            entry.done = True
+            entry.state = "handoff"
+            entry.reason = f"to:{to}" if to else "stolen"
+            self._append([{"op": "done", "uid": request.uid,
+                           "state": entry.state,
+                           "reason": entry.reason}])
+        led = life.active_ledger()
+        if led is not None:
+            led.release("journal", (id(self), request.uid))
+        self._sync_durable()
+
     def record_failed(self, request) -> None:
         """Journal a quarantined request as terminal: a FAILED request
         is accounted for, never redelivered as if it were lost."""

@@ -24,7 +24,7 @@ supervised restart can bind the same port again.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from . import fleet, hbm, heal
 from . import scope as graftscope
@@ -42,10 +42,14 @@ def arm_from_args(args):
 
 
 def start_stats(port: int, live: Callable[[], Dict],
-                health: "heal.HealthState", prefix: str = "pmdt",
-                rank: int = 0):
+                health: Optional["heal.HealthState"], prefix: str = "pmdt",
+                rank: int = 0,
+                health_fn: Optional[Callable[[], Dict]] = None,
+                label: str = "stats"):
     """The live stats server for ``live()`` on ``port + rank``; returns
-    it (``server.server_address[1]`` is the bound port)."""
+    it (``server.server_address[1]`` is the bound port). ``health_fn``
+    replaces ``/healthz``'s payload (the fleet router's aggregate);
+    ``label`` starts the printed address line."""
     fleet.arm_goodput()
 
     def snapshot():
@@ -58,10 +62,11 @@ def start_stats(port: int, live: Callable[[], Dict],
 
     server = graftscope.start_stats_server(
         snapshot, port=port + rank if port else 0, prefix=prefix,
-        health_fn=lambda: heal.healthz(health, heal.active_monitor()),
+        health_fn=health_fn or (
+            lambda: heal.healthz(health, heal.active_monitor())),
         events_fn=graftscope.scope_events_fn)
     bound = server.server_address[1]
-    print(f"stats: http://127.0.0.1:{bound}/metrics (+ /healthz)",
+    print(f"{label}: http://127.0.0.1:{bound}/metrics (+ /healthz)",
           flush=True)
     fleet.publish_endpoint(f"127.0.0.1:{bound}")
     return server

@@ -1,5 +1,6 @@
 """Continuous-batching LM serving CLI — the port of the JAX package's
-``serve_lm.py``, single-engine path, on the card by default.
+``serve_lm.py`` (one engine, ``--tp`` ranks or the in-process fleet),
+on the card by default.
 
     python -m pytorch_multiprocessing_distributed_tpu_torch.serve_lm \\
         --model gpt_small --random_init --dtype bfloat16 --max_slots 8 \\
@@ -59,8 +60,20 @@ batch mix may pick another GEMM) stops with the journal's named error,
 never with other tokens. A real device fault (a hung kernel, an illegal
 address) leaves the CUDA context unusable: the in-process restarts fail
 until ``RestartBudgetExhausted``, and recovery is a new process over
-the journal. Under ``--tp M > 1``, ``--journal``, ``--max_restarts``
-and ``--drain_deadline_s`` are refused, and SIGTERM is not a drain.
+the journal.
+
+Under ``--tp M > 1`` the same flags hold, through rank 0's lockstep: no
+other rank takes a decision from its own clock or disk. Rank 0 alone
+writes the journal, reads the clock and takes SIGTERM; its messages
+carry each attempt's redelivery list, each step's expired uids
+(:attr:`.serving.ServingEngine.decisions`), DRAINING at the submission
+where it began, and the drain deadline's overdue uids, which the other
+ranks apply exactly (or raise). Under ``--max_restarts`` every rank runs
+its own supervisor: a fatal that strikes every rank at the same
+dispatch (every rank reads the same ``PMDT_FAULT_PLAN``) rebuilds M
+engines at the same pass, each attempt over a channel of its own. A
+fatal or a watchdog trip on one rank alone leaves the others in a
+gather, where the liveness gate ends the run named.
 
 The snapshot is the last engine's, as the JAX CLI's (after a restart,
 the rebuilt engine's counters, ``requests_redelivered`` among them; its
@@ -79,8 +92,21 @@ Chrome/Perfetto trace), ``--events_out`` (the event log, with one
 serving meters beside the ``hbm_*`` ledger and the ``goodput_*``
 gauges, which the final snapshot carries too).
 
-The JAX CLI's fleet, wire and autoscale flags are rejected with a
-message naming ROADMAP.md.
+The fleet, as the JAX CLI's in-process one: ``--replicas N`` serves
+through N engine replicas on the one card behind a
+:class:`.serving.Router` (load- and prefix-aware placement, admission
+windows, work stealing, redelivery when a replica dies); ``--role both``
+(every replica prefills and decodes), ``split`` (replica 0 only
+prefills and hands each block to the decode replicas) or a list
+``prefill,decode,decode``; ``--journal`` keeps one WAL a decode-capable
+replica (``<journal>.<rid>``); ``--max_restarts`` rebuilds the whole
+fleet after a ``FleetDead``; ``--router_port`` serves the merged metrics
+(``pmdt_fleet_*``) and the fleet's ``/healthz``. The final ``metrics:``
+line is the router's merged snapshot. A fleet under ``--tp M > 1`` is
+refused.
+
+The JAX CLI's wire and autoscale flags are rejected with a message
+naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -109,19 +135,16 @@ from .parallel import dist
 from .parallel.mesh import Grid, make_grid
 from .runtime import fleet, hbm, heal, telemetry
 from .runtime import scope as graftscope
-from .serving import (QueueFull, Request, ServingEngine, init_params,
+from .serving import (FleetSaturated, QueueFull, Request, Router,
+                      ServingEngine, ServingReplica, init_params,
                       load_params)
 from .serving.scheduler import FAILED
 
 # flags of the JAX CLI the port does not have yet
 NOT_PORTED_FLAGS = (
-    "--replicas", "--role", "--router_port", "--listen", "--rid",
-    "--connect", "--fleet_store", "--fleet_run", "--fleet_ttl",
-    "--autoscale", "--rollout",
+    "--listen", "--rid", "--connect", "--fleet_store", "--fleet_run",
+    "--fleet_ttl", "--autoscale", "--rollout",
 )
-# the heal flags a --tp run refuses (clock-driven decisions would have
-# to travel in the store lockstep)
-TP_REFUSED = ("--journal", "--max_restarts", "--drain_deadline_s")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -238,6 +261,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--restart_backoff', default=1.0, type=float,
                    help='first-restart delay in seconds (doubles per '
                         'restart, capped at 30s)')
+    p.add_argument('--replicas', default=1, type=int,
+                   help='serve through an in-process fleet of N engine '
+                        'replicas behind one load- and cache-aware '
+                        'router: admission windows, work stealing, '
+                        'journal redelivery on replica death (1 = the '
+                        'single-engine path)')
+    p.add_argument('--role', default='both', type=str,
+                   help="replica roles: 'both' (every replica prefills "
+                        "and decodes), 'split' (replica 0 only prefills "
+                        "and hands finished KV blocks to the decode "
+                        "replicas; needs --replicas >= 2), or a comma "
+                        "list 'prefill,decode,decode' of length "
+                        "--replicas (at least one decode-capable role)")
+    p.add_argument('--router_port', default=0, type=int,
+                   help='serve the router\'s stats: merged fleet '
+                        'metrics on /metrics + /snapshot.json, the '
+                        'replicas\' states on /healthz (0 = off)')
     graftscope.add_cli_args(p, stats_port=True)
     return p
 
@@ -315,16 +355,25 @@ def _attempt(engine: ServingEngine, request: Request) -> str:
 
 
 class _Lockstep:
-    """Rank 0's request source replayed on every rank of a ``--tp``
-    grid. Rank 0 drives it as it drives an engine: it records each
-    submission it tries and its outcome (accepted, queue full, rejected)
-    and, before each engine step and the final drain, sends those made
-    since the last one over the rendezvous store
+    """Rank 0's request source, clock and disk replayed on every rank of
+    a ``--tp`` grid. Rank 0 drives it as it drives an engine: it records
+    each submission it tries and its outcome (accepted, queue full,
+    rejected) and, before each engine step and the final drain, sends
+    those made since the last one over the rendezvous store
     (:class:`.parallel.dist.StoreBroadcast`: no collective, so a
     follower waits on a quiet source for as long as it stays quiet). The
     other ranks submit the same requests in the same order, raise unless
     each meets rank 0's outcome (the engine state is the same on every
-    rank), and step with it. The liveness gate runs at each step
+    rank), and step with it.
+
+    Rank 0's decisions travel the same way: the journal's redelivery
+    list at the start of an attempt (:meth:`redeliver`), each clock
+    decision the engine takes inside a step or the drain (its
+    ``decisions`` seam: expired uids, the drain deadline's overdue
+    uids), and DRAINING: a SIGTERM on rank 0 (:meth:`begin_drain`, the
+    drain handler's target) reaches its engine at the next submission
+    or step boundary, and a marker at that place in the message flips
+    the other ranks there too. The liveness gate runs at each step
     boundary and while a rank waits. ``channel`` carries the messages
     (``send``/``recv``, :class:`.parallel.dist.StoreBroadcast`'s)."""
 
@@ -332,6 +381,8 @@ class _Lockstep:
         self.engine = engine
         self._tried: list = []
         self._channel = channel
+        self._drain_asked: Optional[str] = None
+        engine.decisions = self._lead
 
     @property
     def eos_id(self):
@@ -345,22 +396,42 @@ class _Lockstep:
     def in_flight(self):
         return self.engine.in_flight
 
+    def begin_drain(self, reason: str = "drain") -> None:
+        """Ask for DRAINING (signal-safe: it only records the reason);
+        it takes effect at the next submission or step boundary."""
+        if self._drain_asked is None:
+            self._drain_asked = reason
+
+    def _apply_drain(self) -> None:
+        if self._drain_asked is not None and self.engine.health.ready:
+            self.engine.begin_drain(self._drain_asked)
+            self._tried.append(["drain", self._drain_asked])
+
     def enqueue(self, request: Request) -> Request:
-        entry = [list(request.prompt), request.max_new_tokens, request.uid,
-                 "accepted"]
+        self._apply_drain()
+        entry = ["submit", list(request.prompt), request.max_new_tokens,
+                 request.uid, request.deadline_s, "accepted"]
         self._tried.append(entry)
         try:
             return self.engine.enqueue(request)
         except QueueFull:
-            entry[3] = "queue full"
+            entry[-1] = "queue full"
             raise
         except ValueError:
-            entry[3] = "rejected"
+            entry[-1] = "rejected"
             raise
 
-    def _sync(self, final: bool) -> None:
+    def _lead(self, kind: str, decide):
+        """Rank 0's engine decisions: taken here, sent to the others."""
+        value = decide()
+        self._channel.send({"decide": kind, "value": value})
+        return value
+
+    def _sync(self, final: bool, deadline_s=None) -> None:
+        self._apply_drain()
         dist.gate_collectives()
-        self._channel.send({"tried": self._tried, "final": final})
+        self._channel.send({"tried": self._tried, "final": final,
+                            "deadline_s": deadline_s})
         self._tried = []
 
     def step(self):
@@ -368,26 +439,65 @@ class _Lockstep:
         return self.engine.step()
 
     def drain(self, deadline_s=None):
-        self._sync(True)
+        self._sync(True, deadline_s)
         return self.engine.drain(deadline_s)
 
+    def redeliver(self, entries, events_out=None):
+        """Redeliver the journal's ``entries`` here and on every rank."""
+        self._channel.send({"redeliver": [
+            [e.uid, list(e.prompt), e.max_new_tokens, e.eos_id,
+             list(e.tokens)] for e in entries]})
+        return self.engine.redeliver(entries, events_out=events_out)
+
+    def _recv(self):
+        msg = self._channel.recv(idle=dist.gate_collectives)
+        dist.gate_collectives()
+        return msg
+
+    def _replay(self, kind: str, decide):
+        """A follower's engine decisions: rank 0's, in order."""
+        msg = self._recv()
+        if msg.get("decide") != kind:
+            raise RuntimeError(
+                f"rank {dist.get_rank()} left rank 0's lockstep: its "
+                f"engine takes a {kind!r} decision where rank 0 sent "
+                f"{sorted(msg)}")
+        return msg["value"]
+
     def follow(self) -> None:
-        """A rank other than 0: replay rank 0's submissions and steps
-        until its drain."""
+        """A rank other than 0: replay rank 0's redelivery, submissions,
+        drain marker, steps and decisions until its drain."""
         engine = self.engine
+        engine.decisions = self._replay
         while True:
-            msg = self._channel.recv(idle=dist.gate_collectives)
-            dist.gate_collectives()
-            for prompt, max_new, uid, want in msg["tried"]:
+            msg = self._recv()
+            if "redeliver" in msg:
+                entries = []
+                for uid, prompt, max_new, eos_id, tokens in msg["redeliver"]:
+                    entry = heal.JournalEntry(uid, prompt, max_new, eos_id)
+                    entry.tokens = list(tokens)
+                    entries.append(entry)
+                engine.redeliver(entries)
+                continue
+            if "tried" not in msg:
+                raise RuntimeError(
+                    f"rank {dist.get_rank()} left rank 0's lockstep: rank "
+                    f"0 sent {sorted(msg)} where this rank steps")
+            for item in msg["tried"]:
+                if item[0] == "drain":
+                    engine.begin_drain(item[1])
+                    continue
+                _, prompt, max_new, uid, deadline_s, want = item
                 got = _attempt(engine, Request(prompt, max_new,
-                                               engine.eos_id, uid=uid))
+                                               engine.eos_id, uid=uid,
+                                               deadline_s=deadline_s))
                 if got != want:
                     raise RuntimeError(
                         f"rank {dist.get_rank()} left rank 0's lockstep: "
                         f"request {uid} was {got} here and {want} on "
                         "rank 0")
             if msg["final"]:
-                engine.drain()
+                engine.drain(msg["deadline_s"])
                 return
             engine.step()
 
@@ -473,13 +583,6 @@ def _check_args(args) -> None:
     if args.tp < 1:
         raise SystemExit(f"--tp must be >= 1, got {args.tp}")
     if args.tp > 1:
-        for flag in TP_REFUSED:
-            if getattr(args, flag[2:]):
-                raise SystemExit(
-                    f"{flag} is not ported to PyTorch under --tp {args.tp} "
-                    "yet (ROADMAP.md, 'Port: serving features still to "
-                    "port'): its decisions would have to travel in the "
-                    "ranks' store lockstep")
         # the engine's check, in its words, before any rank starts
         check_mesh(Grid(1, args.tp), get_model(args.model).num_heads,
                    "TP serving")
@@ -490,6 +593,43 @@ def _check_args(args) -> None:
             "--temperature or disarm speculation")
     if args.draft_model and not args.draft_k:
         raise SystemExit("--draft_model needs --draft_k > 0")
+    if _fleet_mode(args):
+        if args.tp > 1:
+            raise SystemExit(
+                f"--replicas/--role under --tp {args.tp} is not ported to "
+                "PyTorch yet (ROADMAP.md, 'Port: serving features still "
+                "to port'): the in-process fleet serves on one card")
+        _fleet_roles(args)
+
+
+def _fleet_mode(args) -> bool:
+    return args.replicas > 1 or args.role != 'both'
+
+
+def _fleet_roles(args) -> List[str]:
+    """The replicas' roles, with the JAX CLI's checks in its order and
+    its words."""
+    if args.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
+    if args.role == 'both':
+        roles = ['both'] * args.replicas
+    elif args.role == 'split':
+        if args.replicas < 2:
+            raise SystemExit(
+                "--role split needs --replicas >= 2 (one prefill replica "
+                "handing KV blocks to >= 1 decode replica)")
+        roles = ['prefill'] + ['decode'] * (args.replicas - 1)
+    else:
+        roles = [r.strip() for r in args.role.split(',')]
+        if len(roles) != args.replicas:
+            raise SystemExit(
+                f"--role lists {len(roles)} role(s) for --replicas "
+                f"{args.replicas}")
+    if not any(r in ('both', 'decode') for r in roles):
+        raise SystemExit(
+            "at least one replica must be decode-capable (role 'both' or "
+            "'decode') — a prefill-only fleet can never emit a token")
+    return roles
 
 
 def _attempt_counts(engine: ServingEngine, launches0: dict) -> dict:
@@ -509,10 +649,10 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
     an engine over the journal, redelivers its unfinished requests,
     serves the source and drains; under ``--max_restarts`` a
     :class:`.runtime.heal.Supervisor` runs the attempts. Under ``--tp``
-    the one attempt feeds a :class:`_Lockstep` in place of the engine
-    (no journal, restarts or drain handler there). Each attempt's
-    :func:`_attempt_counts` go to ``attempts``. Returns (the last
-    engine, the restarts, the drain's seconds)."""
+    each attempt feeds a :class:`_Lockstep` (over a channel of its own)
+    in place of the engine, and the drain handler asks it for DRAINING.
+    Each attempt's :func:`_attempt_counts` go to ``attempts``. Returns
+    (the last engine, the restarts, the drain's seconds)."""
     # one source across restarts: a request taken from it before a
     # crash is in the journal (redelivered), the rest stay unread;
     # uids src-<i> count across attempts, so a re-run of the whole
@@ -531,7 +671,7 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
         """Redeliver the journal, serve the source while READY, drain."""
         if journal is not None:
             replay_events: list = []
-            served.extend(engine.redeliver(
+            served.extend(feed.redeliver(
                 journal.unfinished(), events_out=replay_events))
             emit(replay_events)
         while not feed.health.draining:
@@ -601,9 +741,10 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
                   + (f", replaying {len(journal.unfinished())} "
                      f"journaled request(s)" if journal else ""),
                   flush=True)
-        feed = (_Lockstep(engine, dist.StoreBroadcast("serve_lm/steps"))
+        feed = (_Lockstep(engine,
+                          dist.StoreBroadcast(f"serve_lm/steps/{attempt}"))
                 if tp else engine)
-        prev_handler = None if tp else heal.install_drain_handler(engine)
+        prev_handler = heal.install_drain_handler(feed)
         stats_server = None
         if args.stats_port:
             def live():
@@ -618,8 +759,7 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
             with graftscope.flight_recorder("serve_lm drive loop"):
                 _serve_source(feed, engine, journal)
         finally:
-            if not tp:
-                heal.restore_drain_handler(prev_handler)
+            heal.restore_drain_handler(prev_handler)
             telemetry.stop_stats(stats_server)
             # a crashed engine is counted here and then dropped
             attempts.append(_attempt_counts(engine, launches0))
@@ -632,6 +772,165 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
                                  backoff_s=args.restart_backoff)
     engine = supervisor.run()
     return engine, supervisor.restarts, drain_s[0]
+
+
+def _follow(args, build_engine, attempts):
+    """A ``--tp`` rank other than 0: each attempt builds its engine and
+    replays rank 0's lockstep over that attempt's channel; under
+    ``--max_restarts`` its own supervisor rebuilds at the same pass as
+    rank 0's (the same fault strikes every rank at the same dispatch).
+    Returns (the last engine, its restarts)."""
+
+    def follow_once(attempt):
+        if attempt:
+            gc.collect()  # the crashed engine's pool, before the new one
+        launches0 = _launch_counts()
+        engine = build_engine()
+        try:
+            _Lockstep(engine, dist.StoreBroadcast(
+                f"serve_lm/steps/{attempt}")).follow()
+        finally:
+            attempts.append(_attempt_counts(engine, launches0))
+        return engine
+
+    if not args.max_restarts:
+        return follow_once(0), 0
+    supervisor = heal.Supervisor(follow_once,
+                                 max_restarts=args.max_restarts,
+                                 backoff_s=args.restart_backoff)
+    return supervisor.run(), supervisor.restarts
+
+
+def _serve_fleet(args, vocab_size, build_engine, emit) -> dict:
+    """The in-process fleet (``--replicas``/``--role``), as the JAX
+    CLI's: each attempt builds one replica a role over the card behind a
+    :class:`.serving.Router` (each decode-capable replica journaling to
+    ``<journal>.<rid>``), replays the journals, pumps the source through
+    fleet placement and drains; a replica's death is absorbed inside
+    the router, and only a ``FleetDead`` reaches ``--max_restarts``'s
+    supervisor. SIGTERM drains the fleet. Prints and returns the
+    router's merged snapshot."""
+    roles = _fleet_roles(args)
+    skipped: List[str] = []
+    source = _load_requests(args, vocab_size, skipped)
+    src_idx, pending_src, rejected = [0], [None], [0]
+    launches = []  # the decode kernels' launches, each attempt
+
+    def build_fleet():
+        replicas = []
+        for i, role in enumerate(roles):
+            rid = f"r{i}"
+            journal = None
+            if args.journal and role != 'prefill':
+                journal = heal.RequestJournal(f"{args.journal}.{rid}")
+            replicas.append(ServingReplica(rid, build_engine(journal),
+                                           role=role, journal=journal))
+        return replicas
+
+    def serve_fleet_once(attempt):
+        if attempt:
+            gc.collect()  # the dead fleet's pools, before the new ones
+        launches0 = _launch_counts()
+        replicas = build_fleet()
+        router = Router(replicas)
+        if attempt:
+            print(f"graftheal: restart {attempt}: fleet rebuilt "
+                  f"({len(replicas)} replica(s))", flush=True)
+        prev_handler = heal.install_drain_handler(router)
+        stats_server = None
+        if args.router_port:
+            def fleet_snapshot():
+                snap = router.merged_metrics()
+                snap.update(fleet.fleet_serving_report(
+                    snap.get("per_replica", {})))
+                return snap
+
+            stats_server = telemetry.start_stats(
+                args.router_port, fleet_snapshot, None, prefix="pmdt_fleet",
+                health_fn=router.healthz, label="router stats")
+        try:
+            with graftscope.flight_recorder("serve_lm fleet drive loop"):
+                replay_events: list = []
+                router.recover(events_out=replay_events)
+                emit(replay_events)
+                while not router.draining:
+                    if pending_src[0] is None:
+                        try:
+                            prompt, max_new = next(source)
+                        except StopIteration:
+                            break
+                        pending_src[0] = (f"src-{src_idx[0]}", prompt,
+                                          max_new)
+                        src_idx[0] += 1
+                    uid, prompt, max_new = pending_src[0]
+                    if router.known(uid):
+                        pending_src[0] = None
+                        continue
+                    handled = False
+                    while True:
+                        try:
+                            router.submit(prompt, max_new, uid=uid)
+                            handled = True
+                            break
+                        except FleetSaturated:
+                            emit(router.step())
+                        except QueueFull:
+                            break  # the fleet drains: admission closed
+                        except ValueError as e:
+                            rejected[0] += 1
+                            print(f"rejected: {e}", file=sys.stderr)
+                            handled = True
+                            break
+                    if handled:
+                        pending_src[0] = None
+                    if router.draining:
+                        break
+                    if args.stdin:
+                        emit(router.step())
+                while router.in_flight and not router.draining:
+                    emit(router.step())
+                emit(router.drain(args.drain_deadline_s or None))
+        finally:
+            heal.restore_drain_handler(prev_handler)
+            telemetry.stop_stats(stats_server)
+            now = _launch_counts()
+            launches.append({name: now[name] - launches0[name]
+                             for name in now})
+        return router
+
+    supervisor = None
+    if args.max_restarts:
+        supervisor = heal.Supervisor(serve_fleet_once,
+                                     max_restarts=args.max_restarts,
+                                     backoff_s=args.restart_backoff)
+        router = supervisor.run()
+    else:
+        router = serve_fleet_once(0)
+    for msg in skipped:
+        print(f"rejected: {msg}", file=sys.stderr)
+    for request in router.records().values():
+        graftscope.emit("request.timeline", cat="request",
+                        **request.timeline())
+    snap = router.merged_metrics()
+    snap["rejected"] = rejected[0] + len(skipped)
+    snap.update(fleet.fleet_serving_report(snap.get("per_replica", {})))
+    snap["fleet_state"] = router.healthz()["state_name"]
+    snap.update(fleet.goodput_gauges())
+    # the port's: restarts, the last fleet's passes a replica and the
+    # decode kernels' launches over every attempt
+    snap["restarts"] = supervisor.restarts if supervisor else 0
+    snap["decode_passes_by_k_per_replica"] = {
+        r.rid: {str(k): n for k, n in sorted(r.engine.passes_by_k.items())}
+        for r in router.replicas}
+    snap["decode_launches"] = {name: sum(a[name] for a in launches)
+                               for name in launches[-1]}
+    snap["replicas_roles"] = {r.rid: r.role for r in router.replicas}
+    print("metrics: " + json.dumps(snap, sort_keys=True), flush=True)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(snap, f, indent=2, sort_keys=True)
+    graftscope.export_from_args(args)
+    return snap
 
 
 def serve(args) -> dict:
@@ -710,6 +1009,8 @@ def serve(args) -> dict:
                 print(f"req={request.uid} tokens={request.tokens}",
                       flush=True)
 
+    if _fleet_mode(args):
+        return _serve_fleet(args, model.vocab_size, build_engine, emit)
     rejected = [0]
     skipped: List[str] = []
     # every request an engine took, redelivered ones too (by uid the last
@@ -734,10 +1035,7 @@ def serve(args) -> dict:
                       f"{type(request.error).__name__}: {request.error}",
                       file=sys.stderr, flush=True)
     else:
-        launches0 = _launch_counts()
-        engine = build_engine()
-        _Lockstep(engine, dist.StoreBroadcast("serve_lm/steps")).follow()
-        attempts.append(_attempt_counts(engine, launches0))
+        engine, restarts = _follow(args, build_engine, attempts)
 
     snap = engine.metrics.snapshot()
     snap["rejected"] = rejected[0] + len(skipped)

@@ -145,13 +145,31 @@ on the device-memory ledger (``serving.params``, :mod:`..runtime.hbm`)
 and each slot's grant is tagged with its request on the ownership
 ledger (:mod:`..runtime.life`).
 
-Under a ``mesh``, ``journal``, ``readback_timeout_s``,
-``submit(deadline_s=...)`` and ``drain(deadline_s)`` raise
-``NotImplementedError`` (ROADMAP.md, "Port: serving features still to
-port"): their clock-driven decisions would have to travel in
-``serve_lm``'s store lockstep. The bounded retry stays allowed there:
-every rank reads the same ``PMDT_FAULT_PLAN`` and counts the same hits
-in the same order, so the ranks retry the same calls and stay in step.
+**Decisions that read the clock.** Three decisions change the engine's
+state and depend on time: which requests a deadline expires at the
+start of a step, whether a bounded :meth:`drain` is past its deadline
+(and so which requests it fails as overdue), and, one level up, which
+journaled requests a restarted engine redelivers (the caller hands them
+to :meth:`redeliver`). The first two go through :attr:`decisions`:
+None (the default) decides from this process's clock; a callable
+``decisions(kind, decide)`` returns the decision instead, so that the
+ranks of a ``mesh`` take rank 0's (``serve_lm``'s store lockstep: rank
+0 calls ``decide()`` and sends the value, the other ranks receive it).
+The engine applies exactly the uids it is given and raises when one is
+not in flight here. Only the rank that owns the ``journal`` passes
+one. ``readback_timeout_s`` arms each rank's own watchdog, and a firing
+is fatal on that rank (its peers then wait in a gather until the
+liveness gate ends them). The bounded retry needs no decision: every
+rank reads the same ``PMDT_FAULT_PLAN`` and counts the same hits in the
+same order, so the ranks retry the same calls and stay in step.
+
+**Fleet seams.** :meth:`prefill_detached` (and its ``_wire`` and
+``_resident`` exports) runs one request's prefill without touching the
+pool and returns its standalone ``[L, 1, W, H, Dh]`` block;
+:meth:`admit_prefilled` splices such a block at this engine's own slot
+or pages; :meth:`withdraw`, :meth:`withdraw_queued` and
+:meth:`hard_reclaim` give requests and residency back. Only the fleet's
+router (:mod:`.router`) calls them.
 """
 
 from __future__ import annotations
@@ -170,7 +188,7 @@ from ..inference.generate import (_block_chunk_prefill, _decode_horizon,
 from ..inference.tp import check_mesh, shard_params_for_tp_decode
 from ..ops import resolve_impl
 from ..ops.kv_quant import KV_DTYPES, QuantizedKV, dequantize_kv, \
-    quantize_kv
+    quantize_kv, quantize_kv_np
 from ..parallel import dist
 from ..runtime import hbm, heal, life
 from ..runtime import scope as graftscope
@@ -182,8 +200,9 @@ from ..runtime.faults import (DeadlineExceeded, FaultInjected,
 from ..utils.metrics import ServingMetrics
 from .kv_pages import PagePool, PagePoolExhausted, PrefixCache
 from .kv_slots import SlotPool
-from .scheduler import DONE, FIFOScheduler, PrefillPlan, QueueFull, \
-    Request, bucket_length, pick_draft_k, pick_horizon
+from .scheduler import DONE, RUNNING, FIFOScheduler, \
+    PrefillPlan, QueueFull, Request, RequestWithdrawn, bucket_length, \
+    pick_draft_k, pick_horizon
 from .spec import NgramDrafter
 
 __all__ = ["ServingEngine", "Request"]
@@ -211,10 +230,6 @@ _SITE_INSERT = register_site(
     "serving.slot_insert",
     "slot splice of a prefilled request (cache columns + finish gates)")
 
-_MESH_CLOCK = ("is not ported to PyTorch under a mesh yet (ROADMAP.md, "
-               "'Port: serving features still to port'): its clock-driven "
-               "decisions would have to travel in serve_lm's store "
-               "lockstep")
 # re-probe a collapsed draft length every this many dispatches
 _SPEC_PROBE_EVERY = 16
 
@@ -229,6 +244,26 @@ def _put(cache, index, value) -> None:
         cache.scale[index] = value.scale
     else:
         cache[index] = value
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A block as host numpy; bf16 (which numpy lacks) as its raw
+    ``uint16`` bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _to_device(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A transferred block (a tensor, or :func:`_to_host`'s numpy) on
+    ``device``; raw ``uint16`` bits become ``dtype`` bf16 again."""
+    if isinstance(x, np.ndarray):
+        if x.dtype == np.uint16 and dtype == torch.bfloat16:
+            x = torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)
 
 
 class _TokenBlock:
@@ -376,11 +411,6 @@ class ServingEngine:
                 "journal redelivery requires deterministic (greedy) "
                 "decode — a sampled stream cannot be replayed "
                 "token-exact (temperature > 0 with a journal)")
-        if mesh is not None:
-            for name, value in (("journal", journal),
-                                ("readback_timeout_s", readback_timeout_s)):
-                if value is not None:
-                    raise NotImplementedError(f"{name} {_MESH_CLOCK}")
         if model.device.type == "meta":
             raise ValueError(
                 "model has no params: bind them first with "
@@ -518,6 +548,9 @@ class ServingEngine:
                          hbm.tree_nbytes(list(model.parameters())),
                          category="params")
         self.journal = journal
+        # where the clock-driven decisions come from (None = this
+        # process's clock; see the module docstring)
+        self.decisions = None
         self.health.to_ready()
 
     def _init_spec(self, max_slots, draft_k, draft_model, draft_params,
@@ -665,8 +698,6 @@ class ServingEngine:
                 f"admission closed: engine {self.health.state.upper()}"
                 f" ({self.health.reason}); submit to another replica")
         if request.deadline_s is not None:
-            if self.mesh is not None:
-                raise NotImplementedError(f"deadline_s {_MESH_CLOCK}")
             self._deadlines_seen = True
         if request.prompt and (
                 min(request.prompt) < 0
@@ -812,14 +843,38 @@ class ServingEngine:
 
         self._pool_write(scrub)
 
+    def _decide(self, kind: str, decide):
+        """``decide()``, or the value :attr:`decisions` gives for it."""
+        if self.decisions is None:
+            return decide()
+        return self.decisions(kind, decide)
+
+    def _overdue_uids(self) -> List:
+        """The uids past their deadline now: queued (in queue order),
+        mid-chunked-prefill, running (in slot order)."""
+        now = time.perf_counter()
+        uids = [r.uid for r in self.scheduler._queue if r.overdue(now)]
+        pend = self._pending
+        if pend is not None and pend.request.overdue(now):
+            uids.append(pend.request.uid)
+        uids.extend(r.uid for r in self._running.values() if r.overdue(now))
+        return uids
+
     def _expire_deadlines(self) -> None:
         """Fail every request past its deadline: queued,
         mid-chunked-prefill or running (slot scrubbed). Nothing to scan
-        until a deadline-bearing request was submitted."""
+        until a deadline-bearing request was submitted. The uids are
+        this clock's, or those :attr:`decisions` gives; one that is not
+        in flight here raises."""
         if not self._deadlines_seen:
             return
-        now = time.perf_counter()
-        for request in self.scheduler.expire(now):
+        uids = self._decide("expire", self._overdue_uids)
+        if not uids:
+            return
+        want = set(uids)
+        expired = 0
+        for request in self.scheduler.take(want):
+            expired += 1
             self._quarantine(
                 request,
                 DeadlineExceeded(
@@ -827,7 +882,8 @@ class ServingEngine:
                     f"{request.deadline_s:.3g}s deadline in the queue"),
                 reason="deadline")
         pend = self._pending
-        if pend is not None and pend.request.overdue(now):
+        if pend is not None and pend.request.uid in want:
+            expired += 1
             self._drop_pending()
             self._quarantine(
                 pend.request,
@@ -837,7 +893,8 @@ class ServingEngine:
                     f"mid-chunked-prefill"),
                 reason="deadline")
         for slot, request in list(self._running.items()):
-            if request.overdue(now):
+            if request.uid in want:
+                expired += 1
                 self._quarantine(
                     request,
                     DeadlineExceeded(
@@ -845,6 +902,11 @@ class ServingEngine:
                         f"{request.deadline_s:.3g}s deadline after "
                         f"{len(request.tokens)} token(s)"),
                     reason="deadline", slot=slot)
+        if expired != len(want):
+            raise RuntimeError(
+                f"deadline expiry of {sorted(map(str, want))}: only "
+                f"{expired} of them are in flight on this engine (its "
+                "state left the deciding rank's)")
 
     def _pop_admission(self) -> Optional[Request]:
         request = self.scheduler.next_to_admit()
@@ -927,7 +989,7 @@ class ServingEngine:
         columns a shared prefix already holds, and pure pad, go to the
         scratch page; the slot's table row then takes the pages."""
         pool = self.pool
-        if self._kv_quant:
+        if self._kv_quant and not isinstance(k_pref, QuantizedKV):
             k_pref, v_pref = quantize_kv(k_pref), quantize_kv(v_pref)
         width = k_pref.shape[2]
         if prep is None:
@@ -1702,8 +1764,6 @@ class ServingEngine:
         (``DeadlineExceeded``, reason ``"drain"``), never dropped. The
         engine lands DEAD and its journal is compacted and closed (empty
         after a clean drain). Returns the steps' token events."""
-        if deadline_s is not None and self.mesh is not None:
-            raise NotImplementedError(f"drain(deadline_s) {_MESH_CLOCK}")
         self.begin_drain("drain")
         t0 = time.perf_counter()
         events: List[Event] = []
@@ -1711,10 +1771,14 @@ class ServingEngine:
                              deadline_s=deadline_s) as drain_span:
             overdue = 0
             while self.in_flight:
-                if (deadline_s is not None
-                        and time.perf_counter() - t0 > deadline_s):
-                    overdue = self._fail_unfinished(deadline_s)
-                    break
+                if deadline_s is not None:
+                    uids = self._decide("drain", lambda: (
+                        self._unfinished_uids()
+                        if time.perf_counter() - t0 > deadline_s
+                        else None))
+                    if uids is not None:
+                        overdue = self._fail_unfinished(deadline_s, uids)
+                        break
                 events.extend(self.step())
             drain_span.note(drained=len(events), overdue=overdue)
         self.health.to_dead("drained")
@@ -1722,11 +1786,27 @@ class ServingEngine:
             self.journal.close()
         return events
 
-    def _fail_unfinished(self, deadline_s: float) -> int:
-        """The drain deadline: fail everything still in flight, named.
-        Launched blocks are dropped unread (their requests are failed
-        and the pool dies with the engine); running slots are scrubbed
-        as in any quarantine. Returns how many failed."""
+    def _unfinished_uids(self) -> List:
+        """Every uid in flight: queued, mid-chunked-prefill, running."""
+        uids = [r.uid for r in self.scheduler._queue]
+        if self._pending is not None:
+            uids.append(self._pending.request.uid)
+        uids.extend(r.uid for r in self._running.values())
+        return uids
+
+    def _fail_unfinished(self, deadline_s: float, uids) -> int:
+        """The drain deadline: fail everything still in flight, named;
+        ``uids`` (the deciding clock's) must be exactly that set, or the
+        state left the deciding rank's and this raises. Launched blocks
+        are dropped unread (their requests are failed and the pool dies
+        with the engine); running slots are scrubbed as in any
+        quarantine. Returns how many failed."""
+        here = self._unfinished_uids()
+        if sorted(map(str, here)) != sorted(map(str, uids)):
+            raise RuntimeError(
+                f"the drain deadline fails {sorted(map(str, uids))}, but "
+                f"this engine holds {sorted(map(str, here))} in flight "
+                "(its state left the deciding rank's)")
         self._blocks.clear()
         failed = 0
 
@@ -1788,6 +1868,273 @@ class ServingEngine:
                             replayed_tokens=len(entry.tokens))
             out.append(request)
         return out
+
+    # ---- fleet seams -----------------------------------------------------
+    def _check_fits(self, request: Request) -> int:
+        length = len(request.prompt)
+        if length < 1:
+            raise ValueError("empty prompt")
+        if length + request.max_new_tokens > self.pool.s_max:
+            raise ValueError(
+                f"prompt {length} + max_new_tokens "
+                f"{request.max_new_tokens} exceeds the slot capacity "
+                f"s_max={self.pool.s_max}")
+        return length
+
+    def prefill_detached(self, request: Request,
+                         chunk: Optional[int] = None):
+        """Run ONE request's prefill without touching this engine's pool
+        (the prefill half of the fleet's prefill/decode split). Returns
+        ``(tok0, k_pref, v_pref)``: the first token (a host int) and the
+        standalone ``[L, 1, W, H, Dh]`` model-dtype block, freshly
+        allocated for this call, from the same code admission runs: the
+        whole-prompt prefill at the prompt's bucket, or with ``chunk``
+        the ``[1, chunk]`` incremental prefill, its chunks back to back
+        (a prefill replica has no decode to interleave with). The
+        receiver splices the block at its own slot or pages
+        (:meth:`admit_prefilled`), so a handed-off continuation is
+        token-exact with a local admission. Faults take the admission
+        sites and the bounded retry; what is left raises to the caller
+        (there is no pool state to scrub)."""
+        length = self._check_fits(request)
+        model = self.model
+        if chunk is None:
+            def prefill_once():
+                maybe_fault(_SITE_PREFILL)
+                tok0, k_pref, v_pref = self._prefill(request.prompt, length)
+                return int(self._fetch(tok0)), k_pref, v_pref
+
+            with graftscope.span(
+                    "serving.prefill", cat="serving", req=request.uid,
+                    bucket=bucket_length(length, self.min_bucket,
+                                         self.pool.s_max),
+                    prompt_len=length, detached=True):
+                return self._attempted(prefill_once)
+        plan = PrefillPlan(request, int(chunk), self.min_bucket,
+                           self.pool.s_max)
+        shape = (model.num_layers, 1, plan.width, self.pool.heads,
+                 model.head_dim)
+        k_pref = torch.zeros(shape, dtype=model.dtype, device=model.device)
+        v_pref = torch.zeros(shape, dtype=model.dtype, device=model.device)
+        x, start = None, 0
+        while not plan.done:
+            start, valid, _ = plan.next_chunk()
+            padded = np.zeros((1, plan.chunk), np.int64)
+            padded[0, :valid] = request.prompt[start:start + valid]
+
+            def chunk_once(p=padded, s=start):
+                maybe_fault(_SITE_CHUNK)
+                tokens = torch.from_numpy(p).to(model.device)
+                x = _embed_at(model, tokens, s, model.dtype)
+                for i in range(model.num_layers):
+                    x = _block_chunk_prefill(
+                        model.block(i), x, k_pref[i], v_pref[i], s,
+                        self.pool.heads, model.dtype, model.ln_eps,
+                        model.tp)
+                return x
+
+            with graftscope.span("serving.prefill_chunk", cat="serving",
+                                 req=request.uid, start=start,
+                                 chunk=plan.chunk, detached=True):
+                x = self._attempted(chunk_once)
+        idx = length - 1 - start
+
+        def tok0_once():
+            maybe_fault(_SITE_TOK0)
+            logits = _logits(model, x[:, idx:idx + 1], model.ln_eps)[:, 0]
+            t = _sample(logits, *self._sampling, self._generator)[0]
+            return int(self._fetch(t))
+
+        with graftscope.span("serving.prefill_tok0", cat="serving",
+                             req=request.uid, detached=True):
+            tok0 = self._attempted(tok0_once)
+        return tok0, k_pref, v_pref
+
+    def prefill_detached_wire(self, request: Request,
+                              chunk: Optional[int] = None):
+        """:meth:`prefill_detached` for the host transfer: ``(tok0,
+        k_block, v_block, k_scale, v_scale)`` as numpy. An int8 engine's
+        blocks leave already quantized (:func:`...ops.kv_quant.
+        quantize_kv_np`, bit-equal to the device formula) with their f32
+        scales; a model-dtype engine's scales are None. numpy has no
+        bfloat16: a bf16 block travels as its raw bits, ``uint16``."""
+        tok0, k_pref, v_pref = self.prefill_detached(request, chunk=chunk)
+        if self._kv_quant:
+            k_block, k_scale = quantize_kv_np(k_pref.float().cpu().numpy())
+            v_block, v_scale = quantize_kv_np(v_pref.float().cpu().numpy())
+            return tok0, k_block, v_block, k_scale, v_scale
+        return tok0, _to_host(k_pref), _to_host(v_pref), None, None
+
+    def prefill_detached_resident(self, request: Request,
+                                  chunk: Optional[int] = None):
+        """The :meth:`prefill_detached_wire` tuple with the blocks left
+        on this engine's device (no host bounce): the same-process
+        transfer. An int8 engine quantizes on the device with the
+        formula its own splice runs (:func:`...ops.kv_quant.quantize_kv`),
+        so the exported data and scales equal the host twin's bit for
+        bit. The tensors are this call's own: nothing else writes them
+        until the receiver has spliced them."""
+        tok0, k_pref, v_pref = self.prefill_detached(request, chunk=chunk)
+        if not self._kv_quant:
+            return tok0, k_pref, v_pref, None, None
+        qk, qv = self._attempted(
+            lambda: (quantize_kv(k_pref), quantize_kv(v_pref)))
+        return tok0, qk.data, qv.data, qk.scale, qv.scale
+
+    def admit_prefilled(self, request: Request, tok0: int, k_pref,
+                        v_pref, k_scale=None,
+                        v_scale=None) -> List[Event]:
+        """Splice a transferred prefill block into this engine (the
+        decode half of the fleet's split). The blocks may be tensors on
+        any device or host numpy (:meth:`prefill_detached_wire`'s); this
+        engine picks a free slot, and on a paged pool fresh pages, and
+        splices through the insert admission runs (:meth:`_insert`), so
+        the continuation is token-exact with a local admission.
+
+        Scales given: the block is already int8 and an int8 engine
+        splices it as it is (bit-equal to the sender's); without scales
+        an int8 engine quantizes at the splice; scales on a model-dtype
+        engine are a ``ValueError``. Raises ``QueueFull`` when admission
+        is closed, no slot is free or the page pool cannot cover the
+        request after shedding prefix-cache entries (the router holds
+        the transfer and retries), ``ValueError`` when it can never fit.
+        The first token's events are returned and journaled like any
+        admission."""
+        if (k_scale is None) != (v_scale is None):
+            raise ValueError("k_scale/v_scale must be given together")
+        if k_scale is not None and not self._kv_quant:
+            raise ValueError(
+                "quantized transfer block offered to a model-dtype "
+                "engine (kv_dtype='model'): dequantizing into a "
+                "full-precision pool is forbidden — re-route to an "
+                "int8 replica or resend unquantized")
+        if not self.health.ready:
+            self.metrics.record_shed()
+            graftscope.emit("request.shed", cat="request", req=request.uid,
+                            reason=self.health.state)
+            raise QueueFull(
+                f"admission closed: engine {self.health.state.upper()}"
+                f" ({self.health.reason}); transfer to another replica")
+        pool = self.pool
+        length = self._check_fits(request)
+        if pool.free_slots < 1:
+            raise QueueFull(
+                "no free slot for the transferred prefill; step this "
+                "engine and retry (graftroute holds the transfer)")
+        prep = None
+        if self._paged:
+            n_total = PagePool.pages_for(length + request.max_new_tokens,
+                                         pool.page_size)
+            if n_total > pool.num_pages - 1:
+                raise ValueError(
+                    f"transfer needs {n_total} page(s); the pool holds "
+                    f"{pool.num_pages - 1} allocatable")
+            while (pool.free_pages < n_total
+                   and self._prefix_cache is not None
+                   and self._prefix_cache.evict_lru()):
+                pass  # shed cache before holding a transfer
+            if pool.free_pages < n_total:
+                self.metrics.record_page_hold()
+                graftscope.emit("request.held", cat="request",
+                                req=request.uid, pages_needed=n_total,
+                                pages_free=pool.free_pages)
+                raise QueueFull(
+                    f"page pressure: transfer needs {n_total} page(s),"
+                    f" {pool.free_pages} free — retry after running "
+                    "work completes")
+            prep = _PagedPrep("miss", None, 0, [],
+                              pool.alloc_pages(n_total), None, n_total)
+        if request.submit_time is None:
+            request.submit_time = time.perf_counter()
+        if self.journal is not None:
+            self.journal.record_admit(request)
+        request.state = RUNNING
+        request.admit_time = time.perf_counter()
+        self.metrics.record_admission(request.admit_time
+                                      - request.submit_time)
+        graftscope.emit("request.admit", cat="request", req=request.uid,
+                        transfer=True,
+                        queue_wait_s=request.admit_time
+                        - request.submit_time)
+        events: List[Event] = []
+        try:
+            slot = self._first_token(request, int(tok0), events)
+        except BaseException:
+            self._abort_prep(prep)  # its fresh pages have no owner yet
+            raise
+        if slot is None:  # finished at its (transferred) first token
+            self._abort_prep(prep)
+        else:
+            try:
+                device = self.model.device
+                k_dev = _to_device(k_pref, self.model.dtype, device)
+                v_dev = _to_device(v_pref, self.model.dtype, device)
+                if k_scale is not None:
+                    k_dev = QuantizedKV(k_dev, _to_device(
+                        k_scale, torch.float32, device))
+                    v_dev = QuantizedKV(v_dev, _to_device(
+                        v_scale, torch.float32, device))
+                self._insert(request, slot, k_dev, v_dev, length,
+                             int(tok0), prep=prep)
+            except Exception as e:
+                self._abort_prep(prep)
+                self._poisoned(request, e, slot=slot)
+        if self.journal is not None and events:
+            self.journal.note_events(events)
+        return events
+
+    def withdraw(self, uid) -> bool:
+        """Abandon one request now, wherever it is (queued,
+        mid-chunked-prefill or running): it leaves FAILED with reason
+        ``"withdraw"`` and a :class:`~.scheduler.RequestWithdrawn`
+        error, through the quarantine (a running slot scrubbed, its
+        pages returned, the journal's entry terminal); every other
+        slot's stream is untouched. Returns True when ``uid`` was
+        found."""
+        err = RequestWithdrawn(f"request {uid} withdrawn by its client")
+        for slot, request in list(self._running.items()):
+            if request.uid == uid:
+                self._quarantine(request, err, reason="withdraw",
+                                 slot=slot)
+                return True
+        pend = self._pending
+        if pend is not None and pend.request.uid == uid:
+            self._drop_pending()
+            self._quarantine(pend.request, err, reason="withdraw")
+            return True
+        request = self.scheduler.withdraw_uid(uid)
+        if request is not None:
+            self._quarantine(request, err, reason="withdraw")
+            return True
+        return False
+
+    def withdraw_queued(self, max_n: int = 1) -> List[Request]:
+        """Hand up to ``max_n`` QUEUED requests, from the queue tail,
+        back to the router for a peer (work stealing). The router
+        journals the handoff only once the peer accepts."""
+        out: List[Request] = []
+        for _ in range(max_n):
+            request = self.scheduler.withdraw_tail()
+            if request is None:
+                break
+            graftscope.emit("request.stolen", cat="request",
+                            req=request.uid)
+            out.append(request)
+        return out
+
+    def hard_reclaim(self) -> None:
+        """Release every slot, page, pending prefill buffer and launched
+        token block this engine holds, without touching request state:
+        the in-process twin of a killed process's memory going back.
+        The router calls it at a replica's reap, whose requests are
+        then redelivered from the journal or its records. Idempotent."""
+        self._blocks.clear()
+        if self._pending is not None:
+            self._drop_pending()
+        for slot in list(self._running):
+            self._scrub_slot(slot)
+            del self._running[slot]
+            self.pool.release(slot)
 
     def serve(self, requests: Iterable[Tuple[Sequence[int], int]]
               ) -> List[Request]:

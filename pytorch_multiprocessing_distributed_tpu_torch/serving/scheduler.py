@@ -4,9 +4,9 @@ Pure host-side bookkeeping, ported from the JAX package's
 ``serving/scheduler.py``: the bounded FIFO queue, the static-fit check
 against the pool's ``s_max``, each request's lifecycle record, the
 prefill bucket ladder, the adaptive decode horizon and the chunked
-prefill plan, the speculative draft length and the per-request deadlines.
-The queue withdrawals the fleet's router uses (``withdraw_uid``,
-``withdraw_tail``, ``requeue_tail``) wait for the fleet (ROADMAP.md).
+prefill plan, the speculative draft length, the per-request deadlines
+and the queue withdrawals the fleet's router uses (``withdraw_uid``,
+``withdraw_tail``, ``requeue_tail``).
 """
 
 from __future__ import annotations
@@ -120,6 +120,14 @@ class QueueFull(RuntimeError):
     engine's backpressure signal (callers step the engine and retry, or
     shed the request); every rejection is counted in
     ``ServingMetrics.requests_shed``."""
+
+
+class RequestWithdrawn(RuntimeError):
+    """The error recorded on a request evicted by
+    :meth:`~.engine.ServingEngine.withdraw`: its client abandoned it, so
+    the engine reclaims its slot and pages now instead of decoding to
+    the token budget for nobody. The request leaves FAILED with reason
+    ``"withdraw"``."""
 
 
 # request lifecycle states
@@ -256,6 +264,28 @@ class FIFOScheduler:
         request.state = RUNNING
         return request
 
+    def withdraw_tail(self) -> Optional[Request]:
+        """Remove and return the queue TAIL, still QUEUED (the router's
+        work stealing: the request that would wait longest here moves to
+        an idle peer; its ``submit_time`` travels with it). None when
+        the queue is empty."""
+        return self._queue.pop() if self._queue else None
+
+    def withdraw_uid(self, uid) -> Optional[Request]:
+        """Remove and return the QUEUED request carrying ``uid``, or
+        None when no queued request has it."""
+        for request in self._queue:
+            if request.uid == uid:
+                self._queue.remove(request)
+                return request
+        return None
+
+    def requeue_tail(self, request: Request) -> None:
+        """Put a withdrawn request back at the TAIL (a theft the thief
+        refused after all). Skips the bound: the request was already
+        counted against it."""
+        self._queue.append(request)
+
     def complete(self, request: Request, reason: str) -> None:
         request.state = DONE
         request.finish_reason = reason
@@ -270,11 +300,12 @@ class FIFOScheduler:
         request.error = error
         request.slot = None
 
-    def expire(self, now: float) -> List[Request]:
-        """Remove and return the QUEUED requests past their deadline
-        (the engine fails each; running ones hold slots, which the
-        engine evicts itself)."""
-        overdue = [r for r in self._queue if r.overdue(now)]
-        for request in overdue:
+    def take(self, uids) -> List[Request]:
+        """Remove and return the QUEUED requests whose uid is in
+        ``uids``, in queue order (the engine's deadline expiry: running
+        requests hold slots, which the engine evicts itself)."""
+        want = set(uids)
+        taken = [r for r in self._queue if r.uid in want]
+        for request in taken:
             self._queue.remove(request)
-        return overdue
+        return taken

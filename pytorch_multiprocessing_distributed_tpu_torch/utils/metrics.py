@@ -128,6 +128,12 @@ class ServingMetrics:
         if overlapped:
             self.overlapped_dispatches += 1
 
+    @property
+    def decode_elapsed_s(self) -> float:
+        """Accumulated decode wall seconds (the productive time of a
+        fleet replica's ``goodput_frac``)."""
+        return self._elapsed
+
     def record_decode_step(self, seconds: float, tokens: int,
                            occupancy: int, queue_depth: int,
                            window: int = 0) -> None:

@@ -60,3 +60,27 @@ def outcome(engine, requests, new_tokens: int = 4, deadlines=None):
         failed={r.uid: (r.finish_reason, type(r.error).__name__)
                 for r in reqs if r.state == "failed"},
         counts={k: snap[k] - before[k] for k in COUNTS})
+
+
+def _flat(tree, prefix=""):
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if hasattr(val, "items"):
+            yield from _flat(val, path)
+        else:
+            yield path, np.asarray(val)
+
+
+def tiny_ckpts(tmp):
+    """JAX ``init_params(gpt_tiny, 0)`` written for both CLIs: an
+    ``.npz`` of the flattened tree (the port's ``--ckpt``) and a msgpack
+    checkpoint (the JAX CLI's). Returns their paths."""
+    from flax import serialization
+
+    params = jax_init_params(jax_models.get_model("gpt_tiny",
+                                                  attn_impl="xla"), 0)
+    npz, msgpack = tmp / "tiny.npz", tmp / "tiny.msgpack"
+    np.savez(npz, **dict(_flat(params)))
+    msgpack.write_bytes(serialization.msgpack_serialize(
+        {"params": serialization.to_state_dict(params)}))
+    return str(npz), str(msgpack)

@@ -98,10 +98,11 @@ def test_request_sources_match_jax_cli(tmp_path, source):
 
 
 # --trace_out and --stats_port (cases 2 and 5) are ported:
-# tests/test_torch_scope_cli.py runs them; two fleet flags take their
-# places
+# tests/test_torch_scope_cli.py runs them; so are --replicas and --role
+# (cases 1 and 3, tests/test_torch_serve_fleet_cli.py): flags of the
+# processes fleet take each place
 @pytest.mark.parametrize("argv", [
-    ["--replicas", "2"], ["--listen", "0"], ["--role=prefill"],
+    ["--rid", "r1"], ["--listen", "0"], ["--connect", "127.0.0.1:1"],
     ["--rollout", "seed:7"], ["--autoscale", "1,2"],
     ["--fleet_store", "127.0.0.1:1"]])
 def test_unported_flags_rejected(argv):

@@ -203,9 +203,9 @@ def test_percentile_meter_is_numpy_exact():
                                                     abs=1e-12)
 
 
-# the journal and the readback watchdog are ported, but not under a
-# mesh (their clock-driven decisions would have to travel in serve_lm's
-# lockstep); the bounded retry stays allowed there
+# the journal and the readback watchdog were refused under a mesh until
+# the ranks took the clock's decisions from rank 0 (the name is kept from
+# then): a mesh engine takes them now, the bounded retry beside them
 @pytest.mark.parametrize("kw", [dict(journal=object(), dispatch_retries=2),
                                 dict(readback_timeout_s=0.5),
                                 dict(journal="j.jsonl"),
@@ -215,8 +215,12 @@ def test_percentile_meter_is_numpy_exact():
                                      dispatch_retries=3)])
 def test_unported_engine_features_raise(served, kw):
     _, _, model, _ = served
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(model, max_slots=2, s_max=32, mesh=Grid(1, 2), **kw)
+    engine = ServingEngine(model, max_slots=2, s_max=32, mesh=Grid(1, 1),
+                           **kw)
+    assert engine.journal is kw.get("journal")
+    assert engine._readback_timeout_s == kw.get("readback_timeout_s")
+    assert engine._dispatch_retries == kw.get("dispatch_retries", 3)
+    assert engine.decisions is None  # this process's clock decides
 
 
 def test_engine_argument_checks(served):

@@ -3,7 +3,9 @@ package's (``tests/test_graftheal.py``'s restart cases): a fatal at the
 decode dispatch, the engine rebuilt over its journal and the unfinished
 requests redelivered, dense and paged, token-exact with the
 uninterrupted port run and with JAX's transcripts; redelivery absorbing
-``QueueFull``; the refusals of a sampled engine and of a mesh.
+``QueueFull``; the refusal of a sampled engine; the journal, the
+watchdog and both deadlines on a 1 x 1 mesh, whose clock decisions a
+replaying rank takes from outside.
 """
 
 import os
@@ -160,26 +162,79 @@ def test_sampled_engine_rejects_journal_as_jax(served, tmp_path):
 @pytest.mark.parametrize("what", ["journal", "readback_timeout_s",
                                   "submit_deadline", "drain_deadline"])
 def test_mesh_refusals_name_roadmap(served, tmp_path, what):
-    """Under a mesh the clock-driven features raise, pointing at
-    ROADMAP.md; the bounded retry stays allowed there."""
+    """The four features a mesh engine refused until the ranks took the
+    clock's decisions from rank 0 (``ServingEngine.decisions``) now run
+    on a 1 x 1 grid, each with the outcome of the engine without a mesh
+    on the same requests. (The name is kept from when they raised.)"""
+    from pytorch_multiprocessing_distributed_tpu_torch.runtime.faults import (
+        FaultTimeout)
+
     model, ps, _ = served
-    mesh = Grid(1, 1)
-    match = "ROADMAP.md, 'Port: serving features still to port'"
-    if what == "journal":
-        with pytest.raises(NotImplementedError, match=match):
-            ServingEngine(model, mesh=mesh, max_slots=2, s_max=32,
-                          journal=heal.RequestJournal(
-                              os.path.join(tmp_path, "w.jsonl")))
-        return
-    if what == "readback_timeout_s":
-        with pytest.raises(NotImplementedError, match=match):
-            ServingEngine(model, mesh=mesh, max_slots=2, s_max=32,
-                          readback_timeout_s=1.0)
-        return
-    engine = ServingEngine(model, mesh=mesh, max_slots=2, s_max=32,
-                           dispatch_retries=3)
-    with pytest.raises(NotImplementedError, match=match):
-        if what == "submit_deadline":
-            engine.submit(ps[0], 4, deadline_s=1.0)
+    outcomes = []
+    for mesh in (None, Grid(1, 1)):
+        if what == "journal":
+            path = str(tmp_path / f"w-{mesh is not None}.jsonl")
+            engine = ServingEngine(model, mesh=mesh, journal=heal.
+                                   RequestJournal(path, backoff_s=0.0),
+                                   **ENGINE_KW)
+            reqs = [engine.submit(p, 6, uid=i) for i, p in enumerate(ps)]
+            engine.drain(None)
+            assert open(path).read() == ""  # compacted empty
+            outcomes.append([r.tokens for r in reqs])
+        elif what == "readback_timeout_s":
+            engine = ServingEngine(model, mesh=mesh, readback_timeout_s=0.2,
+                                   **ENGINE_KW)
+            engine.submit(ps[0], 6, uid=0)
+            plan = FaultPlan([FaultRule("serving.horizon_readback", "hang",
+                                        times=1, hang_s=1.0)])
+            with armed(plan), pytest.raises(FaultTimeout):
+                for _ in engine.run():
+                    pass
+            outcomes.append(engine.metrics.watchdog_trips)
+        elif what == "submit_deadline":
+            engine = ServingEngine(model, mesh=mesh, **ENGINE_KW)
+            reqs = [engine.submit(p, 6, uid=i,
+                                  deadline_s=0.0 if i == 0 else None)
+                    for i, p in enumerate(ps)]
+            for _ in engine.run():
+                pass
+            outcomes.append([(r.state, r.finish_reason, r.tokens)
+                             for r in reqs])
         else:
-            engine.drain(1.0)
+            engine = ServingEngine(model, mesh=mesh, **ENGINE_KW)
+            reqs = [engine.submit(p, 20, uid=i) for i, p in enumerate(ps)]
+            engine.step()
+            engine.drain(0.0)
+            outcomes.append([(r.state, r.finish_reason,
+                              type(r.error).__name__) for r in reqs])
+            assert engine.in_flight == 0 and engine.health.dead
+    assert outcomes[0] == outcomes[1]
+    if what == "readback_timeout_s":
+        assert outcomes[1] == 1
+    elif what == "submit_deadline":
+        assert outcomes[1][0][:2] == ("failed", "deadline")
+    elif what == "drain_deadline":
+        assert {o[:2] for o in outcomes[1]} == {("failed", "drain")}
+
+
+def test_replayed_decisions_must_match_the_state(served):
+    """A rank that replays another's decisions applies exactly those
+    uids, and raises when one of them is not in flight here."""
+    model, ps, _ = served
+    engine = ServingEngine(model, mesh=Grid(1, 1), **ENGINE_KW)
+    first = engine.submit(ps[0], 6, uid=0, deadline_s=60.0)
+    second = engine.submit(ps[1], 6, uid=1, deadline_s=60.0)
+    taken = []
+
+    def replay(kind, decide):
+        taken.append((kind, decide()))
+        return [1] if kind == "expire" else None
+
+    engine.decisions = replay
+    engine.step()
+    assert taken == [("expire", [])]  # nothing is overdue on this clock
+    assert (second.state, second.finish_reason) == ("failed", "deadline")
+    assert first.state == "running"
+    engine.decisions = lambda kind, decide: ["nobody"]
+    with pytest.raises(RuntimeError, match="in flight"):
+        engine.step()

@@ -138,8 +138,10 @@ def test_follower_raises_when_it_leaves_the_lockstep(want):
 
     class Channel:
         def recv(self, idle=None):
-            return {"tried": [[[1, 2, 3], 4, "src-0", want]],
-                    "final": False}
+            # a submission: its prompt, max_new_tokens, uid, deadline
+            # and rank 0's outcome
+            return {"tried": [["submit", [1, 2, 3], 4, "src-0", None,
+                               want]], "final": False}
 
     feed = serve_lm._Lockstep(ServingEngine(model, max_slots=2), Channel())
     with pytest.raises(RuntimeError, match=(

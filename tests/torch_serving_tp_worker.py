@@ -66,3 +66,48 @@ def serve_rank(rank, world, port, inputs_path, out_path):
                                         **kw).tolist()}
     torch.save(out, f"{out_path}.{rank}")
     dist.destroy_process_group()
+
+
+def lockstep_rank(rank, world, port, inputs_path, out_path):
+    """``serve_lm``'s store lockstep over ``ServingEngine(mesh=grid)``:
+    rank 0 submits ``inputs["requests"]`` (prompt, max_new, deadline_s)
+    and steps ``inputs["steps"]`` times, then drains under
+    ``inputs["drain_s"]``, every clock decision its own; the other ranks
+    replay it. Each rank writes every request's (state, reason, tokens)
+    and its engine's failure count."""
+    dist = _join(rank, world, port)
+    from pytorch_multiprocessing_distributed_tpu_torch import serve_lm
+    from pytorch_multiprocessing_distributed_tpu_torch.parallel.mesh import (
+        make_grid)
+    from pytorch_multiprocessing_distributed_tpu_torch.serving import (
+        Request, ServingEngine)
+
+    grid = make_grid(1, world)
+    inputs = torch.load(inputs_path, weights_only=False)
+    engine = ServingEngine(_bound(inputs["geometry"], inputs["params"]),
+                           mesh=grid, **inputs["kw"])
+    lock = serve_lm._Lockstep(engine, dist.StoreBroadcast("test/lockstep"))
+    seen = {}
+    real_enqueue = engine.enqueue
+
+    def enqueue(request):  # every rank keeps its own records
+        seen[request.uid] = request
+        return real_enqueue(request)
+
+    engine.enqueue = enqueue
+    if rank == 0:
+        for i, (prompt, max_new, deadline_s) in enumerate(
+                inputs["requests"]):
+            lock.enqueue(Request(prompt, max_new, uid=f"d{i}",
+                                 deadline_s=deadline_s))
+        for _ in range(inputs["steps"]):
+            lock.step()
+        lock.drain(inputs["drain_s"])
+    else:
+        lock.follow()
+    torch.save({"states": {uid: (r.state, r.finish_reason, r.tokens)
+                           for uid, r in seen.items()},
+                "failed": engine.metrics.requests_failed},
+               f"{out_path}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
