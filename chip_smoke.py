@@ -509,17 +509,21 @@ nothing is caught):
    environment: one restart a rank, the streams 16/16 one card's
    unfaulted serve, 12 launches a pass on every rank, the fatal to the
    rebuilt engines' first token, the journal's bytes a token at its
-   largest, empty after the drain; (b) SIGTERM to rank 0 mid-serve with
-   ``--drain_deadline_s 0.3``: every rank exits 0 with the same
-   completed and failed counts (a rank whose overdue set differed from
-   rank 0's raises), the finished streams exact (``[tp-heal]``).
+   largest, empty after the drain; (b) ``serve_lm --tp M`` as a user
+   starts it (one process spawning the ranks), SIGTERM to that process
+   when the first 8 requests have at most 8 tokens left, the drain
+   deadline 16 of (a)'s seconds a token: those finish token-exact, the
+   8 behind them fail named (reason drain), the CLI holds every rank's
+   outcome of each request to rank 0's, exit 0 (``[tp-heal]``).
 36. route — the in-process fleet on one card through ``serve_lm.main``
    (gpt_small, 8 slots a replica, 16 prompts x 32 tokens, horizon 4):
    (a) ``--replicas 2 --role both`` in f32 (TF32 off; streams 16/16 the
    single engine's) and bf16 (counted), each replica's placed requests
-   and decode passes, row 1's launches a pass, tokens/s over the CLI's
-   wall beside the single engine's (in turns, single, fleet, fleet,
-   single, after a warm-up serve); (b) ``--replicas 3 --role split
+   and decode passes, row 1's launches a pass, tokens/s over the token
+   window (first token line to last), over the decode seconds (summed
+   over the replicas) and over the CLI's wall, beside the single
+   engine's (in turns, single, fleet, fleet, single, after a warm-up
+   serve); (b) ``--replicas 3 --role split
    --kv_layout paged``, f32: 16 transfers whose bytes are the blocks'
    ``2 L W H Dh x 4`` (W the prompts' buckets), row 2's launches, the
    streams the monolithic serve's; the library's router on the
@@ -6412,9 +6416,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 from pytorch_multiprocessing_distributed_tpu_torch import serve_lm
 snap = serve_lm.main(sys.argv[2:])
-with open(sys.argv[1] + "." + os.environ["PMDT_RANK"], "w") as f:
+with open(sys.argv[1] + "." + os.environ.get("PMDT_RANK", "0"), "w") as f:
     json.dump(snap, f)
 """
+# (b): the token lines before the SIGTERM (the first 8 requests' first
+# 24 tokens), so the drain starts with at most 8 of theirs left; the
+# drain deadline, in (a)'s seconds a token at that M, lets those finish
+# and fails the 8 behind them (32 tokens each)
+TP_HEAL_TERM_AT = 8 * 24
+TP_HEAL_DRAIN_TOKENS = 16
 
 # phase 36: the in-process fleet on one card, phase 4's workload
 # (gpt_small, 8 slots a replica, 16 prompts x 32 tokens, horizon 4);
@@ -6435,20 +6445,23 @@ def _stamped_lines(stream, sink):
     return thread
 
 
-def _tp_heal_ranks(m, argv, env_extra, tmp, tag, stop_at=None, sig=None):
+def _tp_heal_ranks(m, argv, env_extra, tmp, tag, stop_at=None, sig=None,
+                   spawn=False):
     """``serve_lm.main(argv)`` on ``m`` NCCL ranks, one fresh process
-    each; ``sig`` goes to rank 0 SERVE_HEAL_SIGNAL_DELAY_S after its
-    ``stop_at``-th token line. Returns (rank 0's stamped stdout and
-    stderr lines, every rank's exit code and snapshot, the largest size
-    the journal reached, the time the signal was sent)."""
+    each, or with ``spawn`` one process, the CLI as a user starts it,
+    which spawns the ranks; ``sig`` goes to rank 0's process (or the
+    spawning one) SERVE_HEAL_SIGNAL_DELAY_S after the ``stop_at``-th
+    token line. Returns (rank 0's stamped stdout and stderr lines, each
+    process's exit code and snapshot, the largest size the journal
+    reached, the time the signal was sent)."""
     port = _store_ports(1)[0]
     snap_path = os.path.join(tmp, f"snap-{tag}")
     wal = argv[argv.index("--journal") + 1]
     procs, logs = [], []
-    for rank in range(m):
-        env = _heal_env(PMDT_MASTER_ADDR=f"127.0.0.1:{port}",
-                        PMDT_WORLD_SIZE=str(m), PMDT_RANK=str(rank),
-                        **env_extra)
+    for rank in range(1 if spawn else m):
+        env = _heal_env(**env_extra) if spawn else _heal_env(
+            PMDT_MASTER_ADDR=f"127.0.0.1:{port}", PMDT_WORLD_SIZE=str(m),
+            PMDT_RANK=str(rank), **env_extra)
         log = None
         if rank:
             log = open(os.path.join(tmp, f"rank{rank}-{tag}.log"), "w")
@@ -6500,14 +6513,14 @@ def _tp_heal_ranks(m, argv, env_extra, tmp, tag, stop_at=None, sig=None):
         reader.join(5)
     poller.join(5)
     snaps = []
-    for rank in range(m):
+    for rank in range(len(procs)):
         path = f"{snap_path}.{rank}"
         with open(path) if os.path.exists(path) else io.StringIO("null") \
                 as f:
             snaps.append(json.load(f))
     if any(rcs):
         tails = [open(os.path.join(tmp, f"rank{r}-{tag}.log")).read()[-2000:]
-                 for r in range(1, m)]
+                 for r in range(1, len(procs))]
         raise AssertionError(
             f"[tp-heal] {tag}: exit codes {rcs} ({toks} token lines); rank "
             f"0 stderr:\n" + "\n".join(line for _, line in err[-40:])
@@ -6594,6 +6607,7 @@ def _tp_heal_one(serve_lm, m, label, extra, variant, ref, tmp, smi):
     first = min(t for t, line in lines
                 if rebuilt and t >= rebuilt[0] and line.startswith("req="))
     restart_s = first - fatal[0]
+    token_s = _tp_heal_token_s(lines, rebuilt[0])
     out[tag] = per_pass
     _print(f"[tp-heal] (a) {label} --tp {m}: fatal at "
            f"serving.decode_dispatch hit 7 on every rank, 1 restart a rank, "
@@ -6606,18 +6620,21 @@ def _tp_heal_one(serve_lm, m, label, extra, variant, ref, tmp, smi):
            f"[{smi}]")
     tag = f"{label}-M{m}-term"
     wal = os.path.join(tmp, f"{tag}.jsonl")
+    drain_s = round(TP_HEAL_DRAIN_TOKENS * token_s, 3)
     argv = (SERVE_HEAL_ARGV + extra + ["--tp", str(m), "--journal", wal,
-                                       "--drain_deadline_s",
-                                       str(SERVE_HEAL_DRAIN_S)])
+                                       "--drain_deadline_s", str(drain_s)])
     lines, err, _, snaps, _, sent = _tp_heal_ranks(
-        m, argv, {}, tmp, tag, stop_at=SERVE_HEAL_TERM_AT,
-        sig=signal.SIGTERM)
+        m, argv, {}, tmp, tag, stop_at=TP_HEAL_TERM_AT, sig=signal.SIGTERM,
+        spawn=True)
     done = _sh_transcripts("\n".join(line for _, line in lines))
+    after = sum(1 for t, line in lines
+                if t > sent and re.match(r"req=\S+ tokens=", line))
     failed = re.findall(r"^failed: req=(\S+) reason=(\S+) (\w+):",
                         "\n".join(line for _, line in err), re.M)
     wrong = [uid for uid, toks in done.items() if ref[uid] != toks]
-    counts = [(s["requests_completed"], s["requests_failed"]) for s in snaps]
-    if (wrong or len(done) + len(failed) != 16
+    ranks = snaps[0]["tp_ranks"]
+    counts = [(r["requests_completed"], r["requests_failed"]) for r in ranks]
+    if (wrong or not done or not failed or len(done) + len(failed) != 16
             or any(r != "drain" or e != "DeadlineExceeded"
                    for _, r, e in failed)
             or counts != [(len(done), len(failed))] * m
@@ -6626,15 +6643,36 @@ def _tp_heal_one(serve_lm, m, label, extra, variant, ref, tmp, smi):
             f"[tp-heal] {tag}: finished {sorted(done)} (not exact "
             f"{wrong}), failed {failed}, (completed, failed) a rank "
             f"{counts}")
-    out[tag] = [_tp_heal_launches(f"{tag} rank {r}", s, variant)
-                for r, s in enumerate(snaps)]
-    _print(f"[tp-heal] (b) {label} --tp {m}: SIGTERM to rank 0 after "
-           f"{SERVE_HEAL_TERM_AT} tokens, --drain_deadline_s "
-           f"{SERVE_HEAL_DRAIN_S}: every rank exit 0, {len(done)} finished "
-           f"token-exact, {len(failed)} failed named DeadlineExceeded "
-           f"(reason drain) on every rank (completed, failed) {counts}, "
-           f"journal empty; the drain {snaps[0]['drain_s']:.3f} s [{smi}]")
+    out[tag] = [_tp_heal_launches(f"{tag} rank {r}", rank, variant)
+                for r, rank in enumerate(ranks)]
+    _print(f"[tp-heal] (b) {label} --tp {m}: SIGTERM to the CLI that "
+           f"spawned the ranks after {TP_HEAL_TERM_AT} token lines, "
+           f"--drain_deadline_s {drain_s} ({TP_HEAL_DRAIN_TOKENS} x (a)'s "
+           f"{token_s:.4f} s a token): exit 0, {len(done)} finished "
+           f"token-exact ({after} of them after the signal), "
+           f"{len(failed)} failed named DeadlineExceeded (reason drain), "
+           f"every rank the same outcome for each request, (completed, "
+           f"failed) a rank {counts}, journal empty; the drain "
+           f"{snaps[0]['drain_s']:.3f} s [{smi}]")
     return out
+
+
+def _tp_heal_token_s(lines, since):
+    """The median seconds a token, first token to last, of the requests
+    in stamped ``lines`` that ran whole after ``since`` (the rebuild: a
+    redelivered request's pace holds its second prefill; these show the
+    decode's, their horizon's bursts averaged)."""
+    stamps, before = {}, set()
+    for t, line in lines:
+        if line.startswith("req=") and " tok=" in line:
+            uid = line.split()[0]
+            if t <= since:
+                before.add(uid)
+            stamps.setdefault(uid, []).append(t)
+    paces = sorted((ts[-1] - ts[0]) / (len(ts) - 1)
+                   for uid, ts in stamps.items()
+                   if uid not in before and len(ts) > 1)
+    return paces[len(paces) // 2]
 
 
 def _tp_heal_fields(th, name):
@@ -6646,10 +6684,22 @@ def _tp_heal_fields(th, name):
 
 
 def _route_serve(serve_lm, argv, da, plan=None):
-    """``_sh_serve`` with its wall (the model's build included)."""
+    """``_sh_serve`` with its times: (the wall, the model's build
+    included; the token window, from the first token line to the
+    last)."""
     t0 = time.perf_counter()
     snap, got, out, err, counts = _sh_serve(serve_lm, argv, da, plan)
-    return snap, got, counts, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    stamps = [t for t, line in out.lines if " tok=" in line]
+    return snap, got, counts, (wall, stamps[-1] - stamps[0])
+
+
+def _route_decode_s(snap):
+    """The decode seconds of a serve: the engine's, or its replicas'
+    summed (one host thread steps them in turn)."""
+    if "decode_elapsed_s_per_replica" in snap:
+        return sum(snap["decode_elapsed_s_per_replica"].values())
+    return snap["decode_tokens"] / snap["decode_tokens_per_sec"]
 
 
 def _route_passes(snap):
@@ -6692,20 +6742,25 @@ def _route_phase(torch, serve_lm, da, smi):
 def _route_both(serve_lm, da, smi, launches):
     """(a) --replicas 2 --role both: f32 streams 16/16 the single
     engine's, bf16 counted; placement and launches a replica; tokens/s
-    over each serve's wall beside the single engine's in this call, in
-    turns (single, fleet, fleet, single) after a warm-up serve."""
+    over each serve's token window, over its decode seconds and over its
+    wall, beside the single engine's in this call, in turns (single,
+    fleet, fleet, single) after a warm-up serve."""
     out = {}
     for dtype in ("float32", "bfloat16"):
         argv = list(SERVE_HEAL_ARGV)
         argv[argv.index("float32")] = dtype
         _route_serve(serve_lm, argv, da)  # warm-up, not counted
-        walls = {"single": [], "fleet": []}
+        rates = {(name, over): [] for name in ("single", "fleet")
+                 for over in ("window", "decode", "wall")}
         ref = None
         for name in ("single", "fleet", "fleet", "single"):
-            snap, got, counts, wall = _route_serve(
+            snap, got, counts, (wall, window) = _route_serve(
                 serve_lm, argv + (["--replicas", "2"] if name == "fleet"
                                   else []), da)
-            walls[name].append(wall)
+            rates[name, "window"].append(512 / window)
+            rates[name, "decode"].append(snap["decode_tokens"]
+                                         / _route_decode_s(snap))
+            rates[name, "wall"].append(512 / wall)
             if name == "single":
                 if ref is not None and got != ref:
                     raise AssertionError(f"[route] (a) {dtype}: two single "
@@ -6724,15 +6779,18 @@ def _route_both(serve_lm, da, smi, launches):
                   for rid, s in fleet_snap["per_replica"].items()}
         steps = {rid: sum(p.values()) for rid, p in
                  fleet_snap["decode_passes_by_k_per_replica"].items()}
-        tps = {name: [512 / w for w in ws] for name, ws in walls.items()}
+        tps = "; ".join(
+            f"over the {over} fleet {[round(t, 1) for t in rates['fleet', over]]}"
+            f" single engine {[round(t, 1) for t in rates['single', over]]}"
+            for over in ("window", "decode", "wall"))
         _print(f"[route] (a) gpt_small {dtype} 16 requests x 32 tokens, "
                f"--replicas 2 --role both (8 slots a replica): {fleet_exact}"
                f"/16 streams equal the single engine's, placed {placed}, "
                f"decode passes {steps}, decode_attention launches a pass "
-               f"{launches[f'both_{dtype}']} (12); tokens/s over the CLI's "
-               f"wall (the model's build included), in turns after a "
-               f"warm-up: fleet {[round(t, 1) for t in tps['fleet']]}, "
-               f"single engine {[round(t, 1) for t in tps['single']]}; "
+               f"{launches[f'both_{dtype}']} (12); tokens/s in turns after "
+               f"a warm-up (the window: first token line to last; decode: "
+               f"the engines' decode seconds, summed over the replicas; "
+               f"wall: the CLI's call, the model's build included): {tps}; "
                f"fleet_state {fleet_snap['fleet_state']} [{smi}]")
         out[dtype] = ref
     return out["float32"]

@@ -40,9 +40,11 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import signal
 import socket
 import sys
 import tempfile
+import threading
 import time
 from datetime import timedelta
 from typing import Callable, List, Optional, Union
@@ -238,17 +240,32 @@ def spawn_ranks(run: Callable[[List[str]], dict], world: int,
     """``run(argv)`` on ``world`` ranks spawned on this host, each under
     the ``PMDT_*`` env of one group (a fresh port) with its share of
     this process's intra-op threads; rank 0 keeps this process's
-    standard input. Returns rank 0's result (a JSON object). ``run``
-    must be a module-level function (the ranks are spawned, not
-    forked)."""
+    standard input, and a SIGTERM to this process goes on to rank 0
+    (the rank that takes it: ``serve_lm --tp`` drains, a trainer
+    checkpoints) while this process waits for every rank. Returns rank
+    0's result (a JSON object). ``run`` must be a module-level function
+    (the ranks are spawned, not forked)."""
     import torch.multiprocessing as mp
 
     threads = max(1, torch.get_num_threads() // world)
     with tempfile.TemporaryDirectory() as tmp:
         result_path = os.path.join(tmp, "result.json")
-        mp.spawn(_spawned_rank, nprocs=world, join=True,
-                 args=(world, free_port(), run, argv, threads,
-                       result_path))
+        ranks = mp.start_processes(
+            _spawned_rank, nprocs=world, join=False, start_method="spawn",
+            args=(world, free_port(), run, argv, threads, result_path))
+        # only the main thread may set a handler
+        forward = threading.current_thread() is threading.main_thread()
+        if forward:
+            rank0 = ranks.processes[0].pid
+            prev = signal.signal(signal.SIGTERM,
+                                 lambda signum, _: os.kill(rank0, signum))
+        try:
+            while not ranks.join():
+                pass
+        finally:
+            if forward:
+                signal.signal(signal.SIGTERM,
+                              signal.SIG_DFL if prev is None else prev)
         with open(result_path) as f:
             return json.load(f)
 

@@ -807,12 +807,11 @@ def goodput_gauges() -> Dict[str, float]:
 def publish_replica(store, rid: str, *, role: str = "both",
                     state: str = "starting",
                     address: Optional[str] = None,
-                    model_tag: Optional[str] = None,
                     run_uid: str = "run", prefix: str = "fleet",
                     now: Optional[float] = None) -> bool:
     """Publish one serving replica's identity to the control-plane
     store: ``fleet/<run_uid>/replica/<rid>`` -> ``{rid, role, state,
-    address?, model_tag?, published_at}``. ``published_at`` is a wall
+    address?, published_at}``. ``published_at`` is a wall
     clock stamp (``time.time()``, comparable across processes; ``now``
     for tests), refreshed by each publish, so a crashed publisher's
     entry ages out of :func:`replica_directory`'s TTL filter. The rid
@@ -826,8 +825,6 @@ def publish_replica(store, rid: str, *, role: str = "both",
                                      else now)}
     if address is not None:
         payload["address"] = str(address)
-    if model_tag is not None:
-        payload["model_tag"] = str(model_tag)
     try:
         store.set(_k(prefix, run_uid, "replica", rid),
                   json.dumps(payload, sort_keys=True).encode())

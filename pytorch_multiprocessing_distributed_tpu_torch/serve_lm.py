@@ -64,11 +64,15 @@ the journal.
 
 Under ``--tp M > 1`` the same flags hold, through rank 0's lockstep: no
 other rank takes a decision from its own clock or disk. Rank 0 alone
-writes the journal, reads the clock and takes SIGTERM; its messages
+writes the journal, reads the clock and takes SIGTERM (the CLI that
+spawned the ranks passes its SIGTERM on to rank 0); its messages
 carry each attempt's redelivery list, each step's expired uids
 (:attr:`.serving.ServingEngine.decisions`), DRAINING at the submission
 where it began, and the drain deadline's overdue uids, which the other
-ranks apply exactly (or raise). Under ``--max_restarts`` every rank runs
+ranks apply exactly (or raise). At the end every rank's outcome of each
+request (state, reason, token count) is held to rank 0's, and the
+snapshot's ``tp_ranks`` lists each rank's completed and failed counts
+and its ``attempts``. Under ``--max_restarts`` every rank runs
 its own supervisor: a fatal that strikes every rank at the same
 dispatch (every rank reads the same ``PMDT_FAULT_PLAN``) rebuilds M
 engines at the same pass, each attempt over a channel of its own. A
@@ -112,6 +116,7 @@ naming ROADMAP.md.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -135,7 +140,7 @@ from .parallel import dist
 from .parallel.mesh import Grid, make_grid
 from .runtime import fleet, hbm, heal, telemetry
 from .runtime import scope as graftscope
-from .serving import (FleetSaturated, QueueFull, Request, Router,
+from .serving import (QueueFull, Request, Router,
                       ServingEngine, ServingReplica, init_params,
                       load_params)
 from .serving.scheduler import FAILED
@@ -464,10 +469,12 @@ class _Lockstep:
                 f"{sorted(msg)}")
         return msg["value"]
 
-    def follow(self) -> None:
+    def follow(self, served: Optional[list] = None) -> None:
         """A rank other than 0: replay rank 0's redelivery, submissions,
-        drain marker, steps and decisions until its drain."""
+        drain marker, steps and decisions until its drain; each request
+        its engine takes goes to ``served``."""
         engine = self.engine
+        served = [] if served is None else served
         engine.decisions = self._replay
         while True:
             msg = self._recv()
@@ -477,7 +484,7 @@ class _Lockstep:
                     entry = heal.JournalEntry(uid, prompt, max_new, eos_id)
                     entry.tokens = list(tokens)
                     entries.append(entry)
-                engine.redeliver(entries)
+                served.extend(engine.redeliver(entries))
                 continue
             if "tried" not in msg:
                 raise RuntimeError(
@@ -488,9 +495,11 @@ class _Lockstep:
                     engine.begin_drain(item[1])
                     continue
                 _, prompt, max_new, uid, deadline_s, want = item
-                got = _attempt(engine, Request(prompt, max_new,
-                                               engine.eos_id, uid=uid,
-                                               deadline_s=deadline_s))
+                request = Request(prompt, max_new, engine.eos_id, uid=uid,
+                                  deadline_s=deadline_s)
+                got = _attempt(engine, request)
+                if got == "accepted":
+                    served.append(request)
                 if got != want:
                     raise RuntimeError(
                         f"rank {dist.get_rank()} left rank 0's lockstep: "
@@ -643,22 +652,23 @@ def _attempt_counts(engine: ServingEngine, launches0: dict) -> dict:
                                 for name in now}}
 
 
-def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
-           attempts, tp: bool):
-    """Rank 0's drive loop, as JAX's ``serve_once``: each attempt builds
-    an engine over the journal, redelivers its unfinished requests,
+def _drive(args, vocab_size, attempt, emit, rejected, skipped, served):
+    """Rank 0's drive loop, as JAX's ``serve_once``, for one engine, a
+    :class:`_Lockstep` of ``--tp`` ranks or the fleet: each attempt
+    builds its feed, redelivers the journal's unfinished requests,
     serves the source and drains; under ``--max_restarts`` a
-    :class:`.runtime.heal.Supervisor` runs the attempts. Under ``--tp``
-    each attempt feeds a :class:`_Lockstep` (over a channel of its own)
-    in place of the engine, and the drain handler asks it for DRAINING.
-    Each attempt's :func:`_attempt_counts` go to ``attempts``. Returns
-    (the last engine, the restarts, the drain's seconds)."""
+    :class:`.runtime.heal.Supervisor` runs the attempts. ``attempt(n)``
+    is a context manager that builds attempt ``n`` and yields (the feed,
+    its journal or None, what the attempt returns, the flight
+    recorder's label); the drain handler asks the feed for DRAINING.
+    Returns (the last attempt's result, the restarts, the drain's
+    seconds)."""
     # one source across restarts: a request taken from it before a
     # crash is in the journal (redelivered), the rest stay unread;
     # uids src-<i> count across attempts, so a re-run of the whole
     # process skips what the journal already knows
     source = _load_requests(args, vocab_size, skipped)
-    if tp and args.stdin:
+    if args.tp > 1 and args.stdin:
         # rank 0's liveness gate keeps beating on a quiet stdin
         source = _pumped(source, dist.gate_collectives)
     src_idx = [0]
@@ -667,7 +677,7 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
     pending_src = [None]
     drain_s = [0.0]
 
-    def _serve_source(feed, engine, journal):
+    def _serve_source(feed, journal):
         """Redeliver the journal, serve the source while READY, drain."""
         if journal is not None:
             replay_events: list = []
@@ -691,8 +701,7 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
             handled = False
             while True:
                 try:
-                    feed.enqueue(request)
-                    served.append(request)
+                    served.append(feed.enqueue(request))
                     handled = True
                     break
                 except QueueFull:
@@ -723,28 +732,53 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
         emit(feed.drain(args.drain_deadline_s or None))
         drain_s[0] = time.perf_counter() - t0
 
-    def serve_once(attempt):
-        """One engine: built (replaying the journal's unfinished
+    def serve_once(n):
+        """One attempt: built (replaying the journal's unfinished
         requests), fed from the source, drained. SIGTERM flips it to
         DRAINING; a named fatal propagates to the supervisor."""
-        if attempt:
-            # the crashed engine is unreachable but held in reference
-            # cycles: collect it, so its KV pool is freed before the
-            # next one is allocated
+        if n:
+            # the crashed engines are unreachable but held in reference
+            # cycles: collect them, so their KV pools are freed before
+            # the next ones are allocated
             gc.collect()
+        with attempt(n) as (feed, journal, result, label):
+            prev_handler = heal.install_drain_handler(feed)
+            try:
+                with graftscope.flight_recorder(label):
+                    _serve_source(feed, journal)
+            finally:
+                heal.restore_drain_handler(prev_handler)
+        return result
+
+    if not args.max_restarts:
+        return serve_once(0), 0, drain_s[0]
+    supervisor = heal.Supervisor(serve_once,
+                                 max_restarts=args.max_restarts,
+                                 backoff_s=args.restart_backoff)
+    result = supervisor.run()
+    return result, supervisor.restarts, drain_s[0]
+
+
+def _engine_attempts(args, build_engine, attempts, tp: bool):
+    """:func:`_drive`'s attempts for one engine: each builds an engine
+    over the journal (under ``--tp`` behind a :class:`_Lockstep` over a
+    channel of its own) and serves ``--stats_port`` while it runs; its
+    :func:`_attempt_counts` go to ``attempts``."""
+
+    @contextlib.contextmanager
+    def attempt(n):
         journal = (heal.RequestJournal(args.journal) if args.journal
                    else None)
         launches0 = _launch_counts()
         engine = build_engine(journal)
-        if attempt:
-            print(f"graftheal: restart {attempt}: engine rebuilt"
+        if n:
+            print(f"graftheal: restart {n}: engine rebuilt"
                   + (f", replaying {len(journal.unfinished())} "
                      f"journaled request(s)" if journal else ""),
                   flush=True)
         feed = (_Lockstep(engine,
-                          dist.StoreBroadcast(f"serve_lm/steps/{attempt}"))
+                          dist.StoreBroadcast(f"serve_lm/steps/{n}"))
                 if tp else engine)
-        prev_handler = heal.install_drain_handler(feed)
         stats_server = None
         if args.stats_port:
             def live():
@@ -756,25 +790,141 @@ def _drive(args, vocab_size, build_engine, emit, rejected, skipped, served,
             stats_server = telemetry.start_stats(
                 args.stats_port, live, engine.health, prefix="pmdt_serving")
         try:
-            with graftscope.flight_recorder("serve_lm drive loop"):
-                _serve_source(feed, engine, journal)
+            yield feed, journal, engine, "serve_lm drive loop"
         finally:
-            heal.restore_drain_handler(prev_handler)
             telemetry.stop_stats(stats_server)
             # a crashed engine is counted here and then dropped
             attempts.append(_attempt_counts(engine, launches0))
-        return engine
 
-    if not args.max_restarts:
-        return serve_once(0), 0, drain_s[0]
-    supervisor = heal.Supervisor(serve_once,
-                                 max_restarts=args.max_restarts,
-                                 backoff_s=args.restart_backoff)
-    engine = supervisor.run()
-    return engine, supervisor.restarts, drain_s[0]
+    return attempt
 
 
-def _follow(args, build_engine, attempts):
+class _FleetFeed:
+    """A :class:`.serving.Router` as :func:`_drive` feeds an engine and
+    reads its journal: submissions go through fleet placement (a
+    ``FleetSaturated`` is the ``QueueFull`` that steps the fleet), and
+    the router replays its replicas' journals (``redeliver``); the rest
+    (``step``, ``drain``, ``begin_drain``, ``in_flight``, ``known``) is
+    the router's own."""
+
+    def __init__(self, router: Router):
+        self.router = router
+        self.health = router  # the drive loop reads ``health.draining``
+        self.eos_id = router.replicas[0].engine.eos_id
+
+    def __getattr__(self, name):
+        return getattr(self.router, name)
+
+    def enqueue(self, request: Request) -> Request:
+        return self.router.submit(request.prompt, request.max_new_tokens,
+                                  uid=request.uid)
+
+    def redeliver(self, entries, events_out=None):
+        return self.router.recover(events_out=events_out)
+
+    def unfinished(self) -> list:
+        return []  # the router replays each replica's own journal
+
+
+def _fleet_attempts(args, build_engine, launches):
+    """:func:`_drive`'s attempts for the in-process fleet, as the JAX
+    CLI's: each builds one replica a role over the card behind a
+    :class:`.serving.Router` (each decode-capable replica journaling to
+    ``<journal>.<rid>``) and serves ``--router_port`` while it runs; a
+    replica's death is absorbed inside the router, and only a
+    ``FleetDead`` reaches the supervisor. Each attempt's decode
+    launches go to ``launches``."""
+    roles = _fleet_roles(args)
+
+    @contextlib.contextmanager
+    def attempt(n):
+        launches0 = _launch_counts()
+        replicas = []
+        for i, role in enumerate(roles):
+            rid = f"r{i}"
+            journal = None
+            if args.journal and role != 'prefill':
+                journal = heal.RequestJournal(f"{args.journal}.{rid}")
+            replicas.append(ServingReplica(rid, build_engine(journal),
+                                           role=role, journal=journal))
+        router = Router(replicas)
+        if n:
+            print(f"graftheal: restart {n}: fleet rebuilt "
+                  f"({len(replicas)} replica(s))", flush=True)
+        stats_server = None
+        if args.router_port:
+            def fleet_snapshot():
+                snap = router.merged_metrics()
+                snap.update(fleet.fleet_serving_report(
+                    snap.get("per_replica", {})))
+                return snap
+
+            stats_server = telemetry.start_stats(
+                args.router_port, fleet_snapshot, None, prefix="pmdt_fleet",
+                health_fn=router.healthz, label="router stats")
+        feed = _FleetFeed(router)
+        try:
+            yield feed, feed, router, "serve_lm fleet drive loop"
+        finally:
+            telemetry.stop_stats(stats_server)
+            now = _launch_counts()
+            launches.append({name: now[name] - launches0[name]
+                             for name in now})
+
+    return attempt
+
+
+def _fleet_snapshot(router, restarts, rejected, launches) -> dict:
+    """The fleet's final snapshot: the router's merged metrics under
+    JAX's keys, then the port's (restarts, the last fleet's passes and
+    decode seconds a replica, the decode kernels' launches over every
+    attempt, the roles)."""
+    for request in router.records().values():
+        graftscope.emit("request.timeline", cat="request",
+                        **request.timeline())
+    snap = router.merged_metrics()
+    snap["rejected"] = rejected
+    snap.update(fleet.fleet_serving_report(snap.get("per_replica", {})))
+    snap["fleet_state"] = router.healthz()["state_name"]
+    snap.update(fleet.goodput_gauges())
+    snap["restarts"] = restarts
+    snap["decode_passes_by_k_per_replica"] = {
+        r.rid: {str(k): n for k, n in sorted(r.engine.passes_by_k.items())}
+        for r in router.replicas}
+    snap["decode_launches"] = {name: sum(a[name] for a in launches)
+                               for name in launches[-1]}
+    snap["decode_elapsed_s_per_replica"] = {
+        r.rid: r.engine.metrics.decode_elapsed_s for r in router.replicas}
+    snap["replicas_roles"] = {r.rid: r.role for r in router.replicas}
+    return snap
+
+
+def _ranks_alike(served, snap, attempts) -> list:
+    """Under ``--tp``, on every rank: each request's terminal outcome
+    (state, finish reason, token count) gathered from every rank,
+    raising unless each rank's equals rank 0's. Returns each rank's
+    completed and failed counts and its ``attempts``."""
+    mine = {"outcomes": {str(r.uid): [r.state, r.finish_reason,
+                                      len(r.tokens)]
+                         for r in {r.uid: r for r in served}.values()},
+            "requests_completed": snap["requests_completed"],
+            "requests_failed": snap["requests_failed"],
+            "attempts": attempts}
+    ranks = [None] * dist.get_world_size()
+    torch.distributed.all_gather_object(ranks, mine)
+    want = ranks[0]["outcomes"]
+    for rank, theirs in enumerate(ranks):
+        got = theirs.pop("outcomes")
+        if got != want:
+            differ = sorted(uid for uid in set(got) | set(want)
+                            if got.get(uid) != want.get(uid))
+            raise RuntimeError(
+                f"rank {rank} left rank 0's lockstep: requests {differ} "
+                "ended otherwise there than on rank 0")
+    return ranks
+
+
+def _follow(args, build_engine, served, attempts):
     """A ``--tp`` rank other than 0: each attempt builds its engine and
     replays rank 0's lockstep over that attempt's channel; under
     ``--max_restarts`` its own supervisor rebuilds at the same pass as
@@ -788,7 +938,7 @@ def _follow(args, build_engine, attempts):
         engine = build_engine()
         try:
             _Lockstep(engine, dist.StoreBroadcast(
-                f"serve_lm/steps/{attempt}")).follow()
+                f"serve_lm/steps/{attempt}")).follow(served)
         finally:
             attempts.append(_attempt_counts(engine, launches0))
         return engine
@@ -799,138 +949,6 @@ def _follow(args, build_engine, attempts):
                                  max_restarts=args.max_restarts,
                                  backoff_s=args.restart_backoff)
     return supervisor.run(), supervisor.restarts
-
-
-def _serve_fleet(args, vocab_size, build_engine, emit) -> dict:
-    """The in-process fleet (``--replicas``/``--role``), as the JAX
-    CLI's: each attempt builds one replica a role over the card behind a
-    :class:`.serving.Router` (each decode-capable replica journaling to
-    ``<journal>.<rid>``), replays the journals, pumps the source through
-    fleet placement and drains; a replica's death is absorbed inside
-    the router, and only a ``FleetDead`` reaches ``--max_restarts``'s
-    supervisor. SIGTERM drains the fleet. Prints and returns the
-    router's merged snapshot."""
-    roles = _fleet_roles(args)
-    skipped: List[str] = []
-    source = _load_requests(args, vocab_size, skipped)
-    src_idx, pending_src, rejected = [0], [None], [0]
-    launches = []  # the decode kernels' launches, each attempt
-
-    def build_fleet():
-        replicas = []
-        for i, role in enumerate(roles):
-            rid = f"r{i}"
-            journal = None
-            if args.journal and role != 'prefill':
-                journal = heal.RequestJournal(f"{args.journal}.{rid}")
-            replicas.append(ServingReplica(rid, build_engine(journal),
-                                           role=role, journal=journal))
-        return replicas
-
-    def serve_fleet_once(attempt):
-        if attempt:
-            gc.collect()  # the dead fleet's pools, before the new ones
-        launches0 = _launch_counts()
-        replicas = build_fleet()
-        router = Router(replicas)
-        if attempt:
-            print(f"graftheal: restart {attempt}: fleet rebuilt "
-                  f"({len(replicas)} replica(s))", flush=True)
-        prev_handler = heal.install_drain_handler(router)
-        stats_server = None
-        if args.router_port:
-            def fleet_snapshot():
-                snap = router.merged_metrics()
-                snap.update(fleet.fleet_serving_report(
-                    snap.get("per_replica", {})))
-                return snap
-
-            stats_server = telemetry.start_stats(
-                args.router_port, fleet_snapshot, None, prefix="pmdt_fleet",
-                health_fn=router.healthz, label="router stats")
-        try:
-            with graftscope.flight_recorder("serve_lm fleet drive loop"):
-                replay_events: list = []
-                router.recover(events_out=replay_events)
-                emit(replay_events)
-                while not router.draining:
-                    if pending_src[0] is None:
-                        try:
-                            prompt, max_new = next(source)
-                        except StopIteration:
-                            break
-                        pending_src[0] = (f"src-{src_idx[0]}", prompt,
-                                          max_new)
-                        src_idx[0] += 1
-                    uid, prompt, max_new = pending_src[0]
-                    if router.known(uid):
-                        pending_src[0] = None
-                        continue
-                    handled = False
-                    while True:
-                        try:
-                            router.submit(prompt, max_new, uid=uid)
-                            handled = True
-                            break
-                        except FleetSaturated:
-                            emit(router.step())
-                        except QueueFull:
-                            break  # the fleet drains: admission closed
-                        except ValueError as e:
-                            rejected[0] += 1
-                            print(f"rejected: {e}", file=sys.stderr)
-                            handled = True
-                            break
-                    if handled:
-                        pending_src[0] = None
-                    if router.draining:
-                        break
-                    if args.stdin:
-                        emit(router.step())
-                while router.in_flight and not router.draining:
-                    emit(router.step())
-                emit(router.drain(args.drain_deadline_s or None))
-        finally:
-            heal.restore_drain_handler(prev_handler)
-            telemetry.stop_stats(stats_server)
-            now = _launch_counts()
-            launches.append({name: now[name] - launches0[name]
-                             for name in now})
-        return router
-
-    supervisor = None
-    if args.max_restarts:
-        supervisor = heal.Supervisor(serve_fleet_once,
-                                     max_restarts=args.max_restarts,
-                                     backoff_s=args.restart_backoff)
-        router = supervisor.run()
-    else:
-        router = serve_fleet_once(0)
-    for msg in skipped:
-        print(f"rejected: {msg}", file=sys.stderr)
-    for request in router.records().values():
-        graftscope.emit("request.timeline", cat="request",
-                        **request.timeline())
-    snap = router.merged_metrics()
-    snap["rejected"] = rejected[0] + len(skipped)
-    snap.update(fleet.fleet_serving_report(snap.get("per_replica", {})))
-    snap["fleet_state"] = router.healthz()["state_name"]
-    snap.update(fleet.goodput_gauges())
-    # the port's: restarts, the last fleet's passes a replica and the
-    # decode kernels' launches over every attempt
-    snap["restarts"] = supervisor.restarts if supervisor else 0
-    snap["decode_passes_by_k_per_replica"] = {
-        r.rid: {str(k): n for k, n in sorted(r.engine.passes_by_k.items())}
-        for r in router.replicas}
-    snap["decode_launches"] = {name: sum(a[name] for a in launches)
-                               for name in launches[-1]}
-    snap["replicas_roles"] = {r.rid: r.role for r in router.replicas}
-    print("metrics: " + json.dumps(snap, sort_keys=True), flush=True)
-    if args.metrics_out:
-        with open(args.metrics_out, "w") as f:
-            json.dump(snap, f, indent=2, sort_keys=True)
-    graftscope.export_from_args(args)
-    return snap
 
 
 def serve(args) -> dict:
@@ -1009,19 +1027,28 @@ def serve(args) -> dict:
                 print(f"req={request.uid} tokens={request.tokens}",
                       flush=True)
 
-    if _fleet_mode(args):
-        return _serve_fleet(args, model.vocab_size, build_engine, emit)
     rejected = [0]
     skipped: List[str] = []
     # every request an engine took, redelivered ones too (by uid the last
     # record stands: a restart leaves the crashed engine's stale one)
     served: List[Request] = []
     attempts: List[dict] = []  # each engine's passes and launches
+    if _fleet_mode(args):
+        launches: List[dict] = []  # each fleet's decode launches
+        router, restarts, _ = _drive(
+            args, model.vocab_size,
+            _fleet_attempts(args, build_engine, launches), emit, rejected,
+            skipped, served)
+        for msg in skipped:
+            print(f"rejected: {msg}", file=sys.stderr)
+        return _finish(args, _fleet_snapshot(
+            router, restarts, rejected[0] + len(skipped), launches))
     restarts, drain_s = 0, 0.0
     if primary:
         engine, restarts, drain_s = _drive(
-            args, model.vocab_size, build_engine, emit, rejected, skipped,
-            served, attempts, tp=grid is not None)
+            args, model.vocab_size,
+            _engine_attempts(args, build_engine, attempts, grid is not None),
+            emit, rejected, skipped, served)
         for msg in skipped:
             print(f"rejected: {msg}", file=sys.stderr)
         for request in {r.uid: r for r in served}.values():
@@ -1035,7 +1062,7 @@ def serve(args) -> dict:
                       f"{type(request.error).__name__}: {request.error}",
                       file=sys.stderr, flush=True)
     else:
-        engine, restarts = _follow(args, build_engine, attempts)
+        engine, restarts = _follow(args, build_engine, served, attempts)
 
     snap = engine.metrics.snapshot()
     snap["rejected"] = rejected[0] + len(skipped)
@@ -1078,12 +1105,19 @@ def serve(args) -> dict:
         snap["tp_gathers"] = tp.gathers
         snap["tp_decode_gathers"] = engine.decode_gathers
     if grid is not None:
+        snap["tp_ranks"] = _ranks_alike(served, snap, attempts)
         # no rank closes the group (rank 0: its store) while another
         # still talks to it
         dist.barrier()
         dist.destroy_process_group()
     if not primary:
         return snap
+    return _finish(args, snap)
+
+
+def _finish(args, snap: dict) -> dict:
+    """Print the final snapshot, write ``--metrics_out`` and the
+    observability exports; returns ``snap``."""
     print("metrics: " + json.dumps(snap, sort_keys=True), flush=True)
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

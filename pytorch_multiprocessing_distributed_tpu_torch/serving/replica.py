@@ -61,17 +61,14 @@ class PageTransfer:
     first token, and the standalone block, device tensors (the
     same-process path) or host numpy (the wire form). An int8 engine's
     blocks travel already quantized with their f32 ``k_scale`` and
-    ``v_scale`` (None on a model-dtype transfer). ``src_tag`` is the
-    producing replica's weight version: the router places a tagged
-    transfer only on a same-tag decode replica."""
+    ``v_scale`` (None on a model-dtype transfer)."""
 
     __slots__ = ("request", "tok0", "k_block", "v_block", "k_scale",
-                 "v_scale", "src_rid", "src_tag", "born")
+                 "v_scale", "src_rid", "born")
 
     def __init__(self, request: Request, tok0: int, k_block, v_block,
                  k_scale=None, v_scale=None,
-                 src_rid: Optional[str] = None,
-                 src_tag: Optional[str] = None):
+                 src_rid: Optional[str] = None):
         self.request = request
         self.tok0 = int(tok0)
         self.k_block = k_block
@@ -79,7 +76,6 @@ class PageTransfer:
         self.k_scale = k_scale
         self.v_scale = v_scale
         self.src_rid = src_rid
-        self.src_tag = src_tag
         # the handoff clock: the router reads prefill-to-splice seconds
         self.born = time.perf_counter()
         led = life.active_ledger()
@@ -134,15 +130,12 @@ class ServingReplica:
         without one).
       address: ``host:port`` of this replica's stats server, published
         to the fleet directory.
-      model_tag: a weight-version label kept on its transfers (None =
-        untagged).
     """
 
     def __init__(self, rid: str, engine, role: str = "both",
                  journal=None, min_window: int = 1,
                  window_max: Optional[int] = None,
-                 address: Optional[str] = None,
-                 model_tag: Optional[str] = None):
+                 address: Optional[str] = None):
         if role not in ROLES:
             raise ValueError(
                 f"role must be one of {ROLES}, got {role!r}")
@@ -151,7 +144,6 @@ class ServingReplica:
         self.role = role
         self.journal = journal if journal is not None else engine.journal
         self.address = address
-        self.model_tag = None if model_tag is None else str(model_tag)
         slots = engine.pool.max_slots
         queue_allow = engine.scheduler.max_queue
         if window_max is None:
@@ -228,7 +220,8 @@ class ServingReplica:
             "transfers_out": self.transfers_out,
             "admit_window": self.window,
             "goodput_frac": (productive / wall if wall > 0 else 0.0),
-            "model_tag": self.model_tag,
+            # JAX's key: a rollout's weight version (no rollout here)
+            "model_tag": None,
         }
 
     # ---- the admission window (AIMD) ------------------------------------
@@ -402,7 +395,7 @@ class ServingReplica:
         self.transfers_out += 1
         transfer = PageTransfer(request, tok0, k_block, v_block,
                                 k_scale=k_scale, v_scale=v_scale,
-                                src_rid=self.rid, src_tag=self.model_tag)
+                                src_rid=self.rid)
         graftscope.emit("route.transfer", cat="serving",
                         req=request.uid, src=self.rid,
                         nbytes=transfer.nbytes,

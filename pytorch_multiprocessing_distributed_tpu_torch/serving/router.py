@@ -252,10 +252,6 @@ class Router:
         # time per placed transfer (the handoff the pipelined wire
         # takes off the TTFT critical path) — bench-join material
         self.transfer_handoff_s: List[float] = []
-        # version-orphaned transfers recovered by re-prefill (rollout:
-        # the last same-tag decode replica left while the block was
-        # queued — the block drops, the request re-routes fresh)
-        self.transfers_withdrawn = 0
         self.requests_shed_fleet = 0
         self._draining = False
         # graftscale: counters of replicas REMOVED from the fleet
@@ -280,7 +276,6 @@ class Router:
             role=replica.role,
             state=replica.engine.health.state,
             address=replica.address,
-            model_tag=replica.model_tag,
             run_uid=self.run_uid)
 
     def _unpublish(self, replica: ServingReplica) -> None:
@@ -311,7 +306,7 @@ class Router:
                 replica.engine.pool.page_size)
         self._publish(replica)
         graftscope.emit("scale.join", cat="serving", rid=replica.rid,
-                        role=replica.role, tag=replica.model_tag,
+                        role=replica.role,
                         replicas=len(self.replicas))
 
     def remove_replica(self, rid: str) -> ServingReplica:
@@ -527,24 +522,12 @@ class Router:
         """Splice finished prefills into decode replicas; a transfer
         nobody admits stays queued (the fleet-level hold — the decode
         side's backpressure reaches the prefill side as a growing
-        transfer queue). A version-pinned transfer whose tag no live
-        decode replica can EVER serve again (rollout: the last
-        same-tag decode began draining — forward-only health, it
-        never re-admits) is withdrawn instead of held forever: the
-        block drops and the request re-routes as fresh intake, which
-        is exact because a transfer carries no client-visible tokens
-        (tok0 is only delivered at the splice)."""
+        transfer queue)."""
         n = len(self._transfers)
         for _ in range(n):
             transfer = self._transfers.popleft()
             cands = [r for r in self._decode_replicas()
-                     if r.admittable()
-                     # version pinning (graftscale rollout): a block
-                     # prefilled under tag X only splices into a
-                     # same-tag decode — mixing weight versions
-                     # mid-stream would break per-version exactness
-                     and (transfer.src_tag is None
-                          or r.model_tag == transfer.src_tag)]
+                     if r.admittable()]
             placed = False
             for replica in sorted(cands, key=lambda r: r.load()):
                 try:
@@ -610,30 +593,6 @@ class Router:
                 placed = True
                 break
             if not placed:
-                if (transfer.src_tag is not None
-                        and not any(
-                            r.model_tag == transfer.src_tag
-                            and not r.engine.health.draining
-                            for r in self._decode_replicas())):
-                    # version-orphaned (graftscale rollout): no alive
-                    # same-tag decode replica remains that could ever
-                    # admit this block — requeueing would strand the
-                    # request forever while Router.in_flight never
-                    # reaches 0 (the rollout-hang class). Drop the
-                    # block and re-dispatch the request fresh — the
-                    # same recovery as the reap's withdraw_prefill
-                    # path, and exact for the same reason: no tokens
-                    # reached the client yet.
-                    self.transfers_withdrawn += 1
-                    self._assigned.pop(transfer.request.uid, None)
-                    transfer.release()  # block dropped: loans go back
-                    graftscope.emit("route.transfer_withdrawn",
-                                    cat="serving",
-                                    req=transfer.request.uid,
-                                    tag=transfer.src_tag)
-                    if not self._dispatch_request(transfer.request):
-                        self._pending.append(transfer.request)
-                    continue
                 self._transfers.append(transfer)
 
     def _reap(self, replica: ServingReplica,
@@ -708,17 +667,6 @@ class Router:
                 f"replica {replica.rid} died with "
                 f"{len(entries)} unfinished request(s) and no READY "
                 "decode-capable peer remains to redeliver to")
-        # mid-rollout version pinning: a journaled token prefix was
-        # generated under the dead replica's weights — replaying it
-        # on a different version would diverge (the journal's replay
-        # verification catches it, but loudly). Prefer same-tag
-        # peers; only a fleet with no same-version survivor falls
-        # back to any peer (untagged fleets: every tag is None, so
-        # this filter is the identity).
-        same_tag = [p for p in peers
-                    if p.model_tag == replica.model_tag]
-        if same_tag:
-            peers = same_tag
         for i, entry in enumerate(entries):
             peer = min(peers, key=lambda r: r.load())
             redelivered = peer.engine.redeliver([entry],
@@ -1076,7 +1024,9 @@ class Router:
         merged["fleet_prefix_routed"] = self.prefix_routed
         merged["fleet_steals"] = self.steals
         merged["fleet_transfers_routed"] = self.transfers_routed
-        merged["fleet_transfers_withdrawn"] = self.transfers_withdrawn
+        # JAX's key: a rollout's version-orphaned transfers (no rollout
+        # here)
+        merged["fleet_transfers_withdrawn"] = 0
         merged["fleet_transfer_bytes"] = self.transfer_bytes
         merged["fleet_requests_shed"] = self.requests_shed_fleet
         merged["fleet_replicas"] = len(self.replicas)

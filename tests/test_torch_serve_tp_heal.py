@@ -3,10 +3,12 @@ the JAX CLI's ``--tp 2`` on the CPU devices (in this process, on the
 same gpt_tiny weights): after a fatal at the decode dispatch's 3rd hit on
 every rank, ``--journal --max_restarts 1`` restarts both ranks at the
 same pass, and the transcripts, ``requests_redelivered`` and the empty
-journal equal JAX's; SIGTERM to rank 0 under ``--drain_deadline_s``
-fails overdue requests named and both ranks exit 0 (a rank whose overdue
-set differed from rank 0's would raise); deadlines through the store
-lockstep expire the same uids on every rank, rank 0's clock deciding.
+journal equal JAX's; SIGTERM to the CLI that spawned the ranks, under
+``--drain_deadline_s``, drains: the short requests finish inside the
+deadline, the long ones fail overdue named, both ranks end with the same
+outcomes (the CLI raises otherwise) and exit 0; deadlines through the
+store lockstep expire the same uids on every rank, rank 0's clock
+deciding.
 """
 
 import contextlib
@@ -18,6 +20,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
@@ -36,11 +39,13 @@ FATAL = "seed=0;serving.decode_dispatch=fatal:1:3"
 BASE = ["--model", "gpt_tiny", "--synthetic", "6", "--max_slots", "3",
         "--s_max", "64", "--decode_buckets", "off", "--max_new_tokens",
         "16", "--seed", "1"]
-# the drain drill: long streams at horizon 1, so a SIGTERM finds them
-# in flight
-LONG = ["--device", "cpu", "--model", "gpt_tiny", "--random_init",
-        "--synthetic", "6", "--max_slots", "3", "--max_new_tokens", "60",
-        "--tp", "2"]
+# the drain drill at horizon 1: three short and three long requests in
+# six slots; the SIGTERM goes after 8 tokens of each, so the drain has 4
+# steps to finish the short ones and 152 for the long ones
+DRILL = ["--device", "cpu", "--model", "gpt_tiny", "--random_init",
+         "--max_slots", "6", "--tp", "2", "--drain_deadline_s", "0.6"]
+DRILL_NEW = (12, 12, 12, 160, 160, 160)
+DRILL_SIGNAL_AT = 6 * 8
 TIMEOUT_S = 120
 
 
@@ -97,42 +102,44 @@ def test_tp2_restart_matches_jax_cli(ckpts, tmp_path, monkeypatch):
 
 
 def test_tp2_sigterm_drains_every_rank_alike(tmp_path):
-    """Two processes under the ``PMDT_*`` env; SIGTERM to rank 0 after
-    its 10th token line."""
-    wal = tmp_path / "wal.jsonl"
-    argv = LONG + ["--journal", str(wal), "--drain_deadline_s", "0.001"]
-    port = free_port()
-    procs = [start_cli("serve_lm", argv, cli_env(
-        PMDT_MASTER_ADDR=f"127.0.0.1:{port}", PMDT_WORLD_SIZE="2",
-        PMDT_RANK=str(rank))) for rank in range(2)]
-    lines, toks = [], 0
+    """``serve_lm --tp 2`` as a user starts it (the CLI spawns its two
+    ranks); SIGTERM to that process after its 48th token line."""
+    wal, reqs = tmp_path / "wal.jsonl", tmp_path / "requests.jsonl"
+    rng = np.random.default_rng(0)
+    reqs.write_text("".join(
+        json.dumps({"prompt": rng.integers(0, 257, (8,)).tolist(),
+                    "max_new_tokens": n}) + "\n" for n in DRILL_NEW))
+    proc = start_cli("serve_lm", DRILL + ["--requests", str(reqs),
+                                          "--journal", str(wal)], cli_env())
+    lines, toks, done_before = [], 0, None
     deadline = time.monotonic() + TIMEOUT_S
     try:
-        for line in procs[0].stdout:
+        for line in proc.stdout:
             lines.append(line)
             if " tok=" in line:
                 toks += 1
-                if toks == 10:
-                    time.sleep(0.01)
-                    procs[0].send_signal(signal.SIGTERM)
+                if toks == DRILL_SIGNAL_AT:
+                    done_before = "".join(lines).count(" tokens=")
+                    proc.send_signal(signal.SIGTERM)
             assert time.monotonic() < deadline, "the CLI outlived its bound"
-        rcs = [p.wait(timeout=TIMEOUT_S) for p in procs]
-        follower = procs[1].stdout.read()
+        rc = proc.wait(timeout=TIMEOUT_S)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     out = "".join(lines)
-    assert rcs == [0, 0], (out[-2000:], follower[-2000:])
+    assert rc == 0, out[-3000:]
     snap = _metrics(out)
     failed = re.findall(r"^failed: req=(\S+) reason=(\S+) (\w+):", out, re.M)
-    assert failed, "the drain deadline failed no in-flight request"
-    assert {(r, e) for _, r, e in failed} == {("drain", "DeadlineExceeded")}
-    assert snap["requests_failed"] == len(failed)
-    assert snap["requests_completed"] + len(failed) == 6
+    # the short requests finished inside the deadline, after the signal
+    assert done_before == 0
+    assert sorted(_transcripts(out)) == ["src-0", "src-1", "src-2"]
+    assert sorted(failed) == [(f"src-{i}", "drain", "DeadlineExceeded")
+                              for i in (3, 4, 5)]
+    # both ranks ended with these outcomes (the CLI compares them)
+    assert [(r["requests_completed"], r["requests_failed"])
+            for r in snap["tp_ranks"]] == [(3, 3), (3, 3)]
     assert wal.read_text() == ""  # every admitted request is terminal
-    assert "req=" not in follower
 
 
 def test_lockstep_deadlines_expire_alike_on_every_rank(tmp_path):
